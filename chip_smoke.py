@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (kubeml_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero and prints no result line):
+  1. build    every hand-written kernel from ops/csrc, one nvcc per source,
+              all started together; prints build time and ptxas usage.
+  2. kernels  each kernel against its plain PyTorch version on the card at
+              the main path's shapes (gpt-mini: H=4, D=64, pages of G=16,
+              Pmax=32; decode S=8 slots x T=1, a prefill call S=1 slot x
+              T=16 chunk tokens, and S=8 x T=16), with bf16, int8 and f32
+              pages; tolerance: bf16 outputs atol = rtol = 2e-2, f32 1e-5.
+              Times the kernel, the plain version and one library
+              yardstick (gather + scaled_dot_product_attention, which the
+              port never calls); the bound counts the bytes of the pages
+              the run's page tables actually name.
+  3. serve    gpt-mini at its published widths, random weights from --seed
+              (numpy, through convert.py), served by ServeService over
+              DecodeEngine(slots=8, page=16, prefill_chunk=16) with bf16 and
+              then int8 KV pages: 8 greedy requests, prompts of 1..200
+              tokens, 32 new tokens each, two sharing a 48-token prompt so a
+              prefix hit and a copy-on-write split happen. The kernel launch
+              counts are zeroed just before and read just after; each run
+              must launch layers x (decode + prefill dispatches) kernels,
+              and every request's tokens served alone must equal its tokens
+              served in the batch.
+  4. check    gpt-nano in f32 served on the card (kernel) and on the CPU
+              (plain version) gives the same greedy tokens.
+  5. trace    the bf16 batch once more under torch.profiler: device busy
+              and idle share of the run's wall time, device activities per
+              dispatch, the kernel's share, the top device consumers.
+
+Prints every number beside the card's name and power limit (nvidia-smi),
+then a line {"kernels": [...]} with one entry per kernel instantiation on
+the main path (bf16 pages, int8 pages: decode numbers at the top level,
+the S=1 prefill call's under "prefill", launches from that page type's own
+serving run), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
+without the kubeml_tpu_torch package beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+PEAK_OPS_PER_S = {"bf16": 989e12,   # dense tensor-core rate
+                  "f32": 67e12}     # f32 outside the tensor cores
+TOL = {"bf16": 2e-2, "f32": 1e-5}
+
+
+def log(card: str, msg: str) -> None:
+    print(f"[{card}] {msg}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, calls: int = 20, reps: int = 15) -> float:
+    """Device time of one call: `calls` calls captured in a CUDA graph,
+    the graph replayed `reps` times between CUDA events, the median
+    replay divided by `calls`. Replaying a graph keeps the host's launch
+    overhead out of the number (timing each eager call would measure the
+    Python wrapper instead of the kernel). Inputs stay resident in the
+    50 MB L2 between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+# ------------------------------------------------------------------ phase 2
+H, D, G, PMAX = 4, 64, 16, 32
+# (slots S, query tokens T): a decode call, a prefill call as the main path
+# makes it (one slot per call), and a prefill chunk for all 8 slots
+SHAPES = ((8, 1), (1, 16), (8, 16))
+PREFILL_CTX = 200        # the serve phase's longest prompt
+
+
+def paged_operands(torch, rng, S, T, pages, dev):
+    """Kernel operands at gpt-mini's serving shapes with realistic
+    masking: slot s holds a context of n_s tokens on its first pages
+    (spread over T+5 .. C-7 for 8 slots; PREFILL_CTX for one), table
+    tails point at the null page 0, and the bias is NEG_INF past each
+    query's causal position and the slot's valid prefix."""
+    from kubeml_tpu_torch.ops.attention import NEG_INF
+
+    C = PMAX * G
+    P = S * PMAX + 1
+    cdt = torch.float32 if pages == "f32" else torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((S, T, H, D)).astype(np.float32))
+    if pages == "int8":
+        k = torch.from_numpy(rng.integers(-127, 128, (P, G, H, D),
+                                          dtype=np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, (P, G, H, D),
+                                          dtype=np.int8))
+        ks = torch.from_numpy(rng.uniform(0.001, 0.05, P).astype(np.float32))
+        vs = torch.from_numpy(rng.uniform(0.001, 0.05, P).astype(np.float32))
+    else:
+        k = torch.from_numpy(rng.standard_normal((P, G, H, D))
+                             .astype(np.float32)).to(cdt)
+        v = torch.from_numpy(rng.standard_normal((P, G, H, D))
+                             .astype(np.float32)).to(cdt)
+        ks = torch.zeros(P)
+        vs = torch.zeros(P)
+    n_ctx = (np.linspace(T + 5, C - 7, S).astype(np.int64) if S > 1
+             else np.array([PREFILL_CTX]))
+    tables = np.zeros((S, PMAX), np.int32)
+    keep = np.zeros((S, 1, T, C), np.float32)
+    cols = np.arange(C)
+    for s in range(S):
+        used = -(-int(n_ctx[s]) // G)
+        tables[s, :used] = 1 + s * PMAX + np.arange(used)
+        for t in range(T):
+            keep[s, 0, t] = cols <= n_ctx[s] - T + t
+    bias = torch.from_numpy((1.0 - keep) * NEG_INF)
+    args = [q.to(cdt), k, v, ks, vs, torch.from_numpy(tables), bias]
+    return [a.to(dev).contiguous() for a in args], cdt
+
+
+def library_attention(torch, q, k_pages, v_pages, k_scale, v_scale, tables,
+                      bias, quantized, cdt):
+    """One library yardstick for the same function: a page gather and
+    torch's scaled_dot_product_attention (timed only; the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    if quantized:
+        k_pages = (k_pages.float() * k_scale[:, None, None, None]).to(cdt)
+        v_pages = (v_pages.float() * v_scale[:, None, None, None]).to(cdt)
+    S = q.shape[0]
+    C = tables.shape[1] * k_pages.shape[1]
+    ck = k_pages[tables].reshape(S, C, H, D).transpose(1, 2)
+    cv = v_pages[tables].reshape(S, C, H, D).transpose(1, 2)
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), ck, cv,
+                                         attn_mask=bias.to(cdt))
+    return out.transpose(1, 2)
+
+
+def bound(torch, q, k_pages, tables, bias, quantized, cdt_name):
+    """Least time (ms) for one call on these inputs: the bytes it must
+    move over the memory rate, against its operations over the peak rate
+    for its compute type; the larger of the two. Bytes: every distinct
+    page the tables name (tails share the null page 0) read once for K
+    and for V, with its two scales when int8; the bias, queries and page
+    tables read once; the output written once. Operations: 4*H*D*T
+    (QK and PV multiply-adds) for each context token on a page other
+    than the null page."""
+    T = q.shape[1]
+    page_bytes = G * H * D * k_pages.element_size()
+    distinct = int(torch.unique(tables).numel())
+    nbytes = (2 * distinct * page_bytes + bias.numel() * 4
+              + 2 * q.numel() * q.element_size() + tables.numel() * 4)
+    if quantized:
+        nbytes += 2 * distinct * 4
+    ops = 4 * H * D * T * G * int((tables != 0).sum())
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[cdt_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_kernels(torch, card, seed):
+    from kubeml_tpu_torch.ops.paged_attention import _pa_plain, paged_attention
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    rows = {}
+    for pages in ("bf16", "int8", "f32"):
+        for S, T in SHAPES:
+            args, cdt = paged_operands(torch, rng, S, T, pages, dev)
+            quant = pages == "int8"
+            cdt_name = "f32" if cdt == torch.float32 else "bf16"
+            out = paged_attention(*args, quantized=quant, compute_dtype=cdt)
+            torch.cuda.synchronize()
+            ref = _pa_plain(*args, quantized=quant, compute_dtype=cdt)
+            tol = TOL[cdt_name]
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                       atol=tol)
+            err = float((out.float() - ref.float()).abs().max())
+            ms = time_ms(torch, lambda: paged_attention(
+                *args, quantized=quant, compute_dtype=cdt))
+            plain_ms = time_ms(torch, lambda: _pa_plain(
+                *args, quantized=quant, compute_dtype=cdt))
+            lib_ms = time_ms(torch, lambda: library_attention(
+                torch, *args, quant, cdt))
+            q, k_pages, _, _, _, tables, bias = args
+            b_ms, b_by = bound(torch, q, k_pages, tables, bias, quant,
+                               cdt_name)
+            rows[(pages, S, T)] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by, library_ms=lib_ms)
+            log(card, f"paged_attention pages={pages} S={S} T={T}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"max|err| {err:.3g} (tol {tol})")
+    return rows
+
+
+# ------------------------------------------------------------------ phase 3
+PROMPT_LENS = (1, 33, 97, 150, 200, 64)
+SHARED_LEN = 48          # 3 full pages of 16: prefix hit + CoW split
+NEW_TOKENS = 32
+
+
+def build_gpt(torch, name, seed, dtype, device):
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models import get_builtin
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    module = get_builtin(name)(dtype=dtype, device=device)
+    module.load_state_dict(params_from_flax(
+        random_flax_params(**GPT_CONFIGS[name], seed=seed)))
+    return module
+
+
+def batch_prompts(seed, vocab):
+    """The batch's prompts (random ids from the seed) and the prompt that
+    is served twice; the first copy is the fourth prompt."""
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in PROMPT_LENS]
+    shared = rng.integers(1, vocab, SHARED_LEN).tolist()
+    prompts.insert(3, shared)
+    return prompts, shared
+
+
+def serve_batch(svc, prompts, shared, timeout=300.0):
+    """Submit every prompt, then — once the first shared-prompt request
+    has its first token, so its pages are registered — the second one."""
+    reqs = [svc.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    first = reqs[prompts.index(shared)]
+    deadline = time.monotonic() + timeout
+    while first.first_token_at is None and not first.done:
+        if time.monotonic() > deadline:
+            raise TimeoutError("shared-prompt request never produced a token")
+        time.sleep(0.001)
+    reqs.append(svc.submit(shared, max_new_tokens=NEW_TOKENS))
+    for r in reqs:
+        if not r.wait(max(1.0, deadline - time.monotonic())):
+            raise TimeoutError(f"request {r.rid} never finished")
+    return reqs
+
+
+def phase_serve(torch, card, seed, module, kv_dtype):
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.service import ServeService
+
+    vocab = module.vocab_size
+    prompts, shared = batch_prompts(seed, vocab)
+
+    def service():
+        eng = DecodeEngine(module, slots=8, page=16, prefill_chunk=16,
+                           kv_dtype=kv_dtype)
+        return ServeService("gpt-mini", eng).start()
+
+    warm = service()              # first calls: cuBLAS and kernel load
+    try:
+        assert warm.submit(prompts[0], max_new_tokens=4).wait(120)
+    finally:
+        warm.stop()
+
+    svc = service()
+    try:
+        paged_attention.launches = 0     # the main path's run starts here
+        t0 = time.perf_counter()
+        reqs = serve_batch(svc, prompts, shared)
+        wall = time.perf_counter() - t0
+        launches = paged_attention.launches    # ... and ends here
+    finally:
+        svc.stop()
+    st = svc.engine.stats
+    bad = [(r.rid, r.outcome, r.error, len(r.tokens)) for r in reqs
+           if r.outcome != "ok" or len(r.tokens) != NEW_TOKENS]
+    assert not bad, f"requests did not finish with {NEW_TOKENS} tokens: {bad}"
+    assert all(0 < t < vocab for r in reqs for t in r.tokens)
+    assert st["prefix_hits"] > 0, st
+    assert st["cow_splits"] >= 1, st
+    want = module.layers * (st["dispatches"] + st["prefill_dispatches"])
+    assert launches == want, (launches, want, st)
+    assert reqs[-1].tokens == reqs[3].tokens   # cache hit == cache miss
+
+    solo = service()
+    try:
+        for r in reqs:
+            alone = solo.submit(r.prompt, max_new_tokens=NEW_TOKENS)
+            assert alone.wait(120), "solo request never finished"
+            assert alone.tokens == r.tokens, (r.prompt[:8], alone.tokens,
+                                              r.tokens)
+    finally:
+        solo.stop()
+
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    pages = "bf16" if kv_dtype == "f32" else kv_dtype  # module dtype pages
+    log(card, f"serve gpt-mini, {pages} KV pages: {len(reqs)} requests, "
+        f"{tokens} tokens in {wall:.4f} s = {tokens / wall:.2f} tokens/s, "
+        f"mean TTFT {1e3 * statistics.mean(ttft):.3f} ms, decode "
+        f"dispatches {st['dispatches']}, prefill dispatches "
+        f"{st['prefill_dispatches']}, prefix hits {st['prefix_hits']}, "
+        f"CoW splits {st['cow_splits']}, kernel launches {launches}; "
+        f"solo == batched for all {len(reqs)}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 4
+def phase_check(torch, card, seed):
+    """gpt-nano in f32: the card (kernel) and the CPU (plain version)
+    serve the same greedy tokens."""
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.slots import GenerateRequest
+
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (3, 17, 40)]
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        module = build_gpt(torch, "gpt-nano", seed, torch.float32, dev)
+        eng = DecodeEngine(module, slots=4, page=8, prefill_chunk=8,
+                           device=dev)
+        reqs = [GenerateRequest(p, max_new_tokens=12) for p in prompts]
+        for r in reqs:
+            eng.attach(r)
+        while eng.active():
+            eng.step()
+        toks[dev] = [r.tokens for r in reqs]
+    assert toks["cuda"] == toks["cpu"], toks
+    log(card, "gpt-nano f32: greedy tokens on the card (kernel) equal the "
+        "CPU's (plain) for 3 requests x 12 tokens")
+
+
+# ------------------------------------------------------------------ phase 5
+def phase_trace(torch, card, seed, module):
+    """Where a serving run's time goes: the bf16 batch of phase 3 again,
+    under torch.profiler; device time summed over the CUDA activities
+    CUPTI recorded, against the run's wall time. Reports "not measured"
+    when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.service import ServeService
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    svc = ServeService("gpt-mini", DecodeEngine(
+        module, slots=8, page=16, prefill_chunk=16)).start()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve_batch(svc, prompts, shared)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        svc.stop()
+    st = svc.engine.stats
+    dispatches = st["dispatches"] + st["prefill_dispatches"]
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            tot, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        log(card, "trace: device time not measured (the profiler recorded "
+            "no CUDA activity)")
+        return
+    busy = sum(t for t, _ in by_name.values())
+    calls = sum(n for _, n in by_name.values())
+    pa = sum(t for name, (t, _) in by_name.items() if "pa_kernel" in name)
+    log(card, f"trace gpt-mini bf16 batch (profiled): wall {wall_ms:.3f} ms, "
+        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.2f}%), idle "
+        f"{100 * (1 - busy / wall_ms):.2f}%; {dispatches} dispatches, "
+        f"{calls} device activities ({calls / dispatches:.1f} per "
+        f"dispatch), host {(wall_ms - busy) / dispatches:.3f} ms per "
+        f"dispatch unhidden; paged_attention {pa:.3f} ms "
+        f"({100 * pa / busy:.2f}% of device time)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (t, n) in top:
+        log(card, f"trace top device time: {t:.3f} ms over {n} calls: "
+            f"{name[:90]}")
+
+
+def run(torch, seed) -> list:
+    from kubeml_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(card, f"build: {len(logs)} kernel source(s) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(card, f"ptxas {name}: {line.strip()}")
+
+    rows = phase_kernels(torch, card, seed)
+
+    module = build_gpt(torch, "gpt-mini", seed, torch.bfloat16, "cuda")
+    # the main paths: one batch served with bf16 KV pages ("f32" keeps the
+    # module's dtype), one with int8 pages; each launches its own
+    # instantiation of the kernel and is counted on its own
+    launches = {pages: phase_serve(torch, card, seed, module, kv)
+                for pages, kv in (("bf16", "f32"), ("int8", "int8"))}
+
+    phase_check(torch, card, seed)
+    phase_trace(torch, card, seed, module)
+
+    return [{
+        "name": f"paged_attention ({pages} pages)",
+        "route": "cuda",
+        "source": "kubeml_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "kubeml_tpu/ops/pallas/paged_attention.py:73",
+        "launches": n,
+        "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
+        **rows[(pages, 8, 1)],
+        "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
+                    **rows[(pages, 1, 16)]},
+    } for pages, n in launches.items()], card
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and inputs")
+    args = ap.parse_args(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 1
+    try:
+        import kubeml_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the kubeml_tpu_torch package is not beside "
+              f"this script ({e})", file=sys.stderr)
+        return 1
+    try:
+        kernels, card = run(torch, args.seed)
+    except Exception:  # noqa: BLE001 — any failed phase fails the run
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

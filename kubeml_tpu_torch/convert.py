@@ -1,0 +1,129 @@
+"""Weight bridge between the JAX package's flax parameter trees and the
+port's ``GPTModule`` state dicts.
+
+A flax GPT tree (``variables["params"]``) maps onto the port as:
+
+  tok_embed/embedding [V, hidden]        -> tok_embed.weight
+  pos_embed/embedding [max_len, hidden]  -> pos_embed.weight
+  layer_i/LayerNorm_{0,1}/{scale,bias}   -> blocks.i.ln{0,1}.{weight,bias}
+  layer_i/{q,k,v}/kernel [hidden, H, Dh] -> blocks.i.{q,k,v}.weight [H*Dh, hidden]
+  layer_i/{q,k,v}/bias [H, Dh]           -> blocks.i.{q,k,v}.bias [H*Dh]
+  layer_i/out/kernel [H, Dh, hidden]     -> blocks.i.out.weight [hidden, H*Dh]
+  layer_i/Dense_{0,1}/kernel [in, out]   -> blocks.i.fc{0,1}.weight [out, in]
+  LayerNorm_0 (top level)                -> ln_f
+
+Leaves are numpy arrays on the flax side and CPU float32 tensors on the
+port's side; ``GPTModule.load_state_dict`` moves them to the module's
+device. The trees hold parameters only (no JAX types), so this module
+needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_DENSE = {"Dense_0": "fc0", "Dense_1": "fc1"}
+_LN = {"LayerNorm_0": "ln0", "LayerNorm_1": "ln1"}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax GPT ``params`` tree (numpy leaves) -> port state dict."""
+    sd = {"tok_embed.weight": _t(params["tok_embed"]["embedding"]),
+          "pos_embed.weight": _t(params["pos_embed"]["embedding"]),
+          "ln_f.weight": _t(params["LayerNorm_0"]["scale"]),
+          "ln_f.bias": _t(params["LayerNorm_0"]["bias"])}
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        lp, b = params[f"layer_{i}"], f"blocks.{i}"
+        for flax_name, name in _LN.items():
+            sd[f"{b}.{name}.weight"] = _t(lp[flax_name]["scale"])
+            sd[f"{b}.{name}.bias"] = _t(lp[flax_name]["bias"])
+        for name in ("q", "k", "v"):
+            kern = np.asarray(lp[name]["kernel"])           # [hidden, H, Dh]
+            sd[f"{b}.{name}.weight"] = _t(kern.reshape(kern.shape[0], -1).T)
+            sd[f"{b}.{name}.bias"] = _t(np.asarray(lp[name]["bias"]).ravel())
+        kern = np.asarray(lp["out"]["kernel"])              # [H, Dh, hidden]
+        sd[f"{b}.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+        sd[f"{b}.out.bias"] = _t(lp["out"]["bias"])
+        for flax_name, name in _DENSE.items():
+            sd[f"{b}.{name}.weight"] = _t(np.asarray(
+                lp[flax_name]["kernel"]).T)
+            sd[f"{b}.{name}.bias"] = _t(lp[flax_name]["bias"])
+    return sd
+
+
+def params_to_flax(state_dict: Dict[str, torch.Tensor], heads: int) -> dict:
+    """Port state dict -> flax GPT ``params`` tree of float32 numpy
+    arrays (the inverse of params_from_flax; ``heads`` restores the
+    [hidden, H, Dh] attention kernel layout)."""
+    def a(name):
+        return state_dict[name].detach().cpu().float().numpy().copy()
+
+    params = {"tok_embed": {"embedding": a("tok_embed.weight")},
+              "pos_embed": {"embedding": a("pos_embed.weight")},
+              "LayerNorm_0": {"scale": a("ln_f.weight"),
+                              "bias": a("ln_f.bias")}}
+    n_layers = len({k.split(".")[1] for k in state_dict
+                    if k.startswith("blocks.")})
+    for i in range(n_layers):
+        b, lp = f"blocks.{i}", {}
+        for flax_name, name in _LN.items():
+            lp[flax_name] = {"scale": a(f"{b}.{name}.weight"),
+                             "bias": a(f"{b}.{name}.bias")}
+        for name in ("q", "k", "v"):
+            w = a(f"{b}.{name}.weight")                     # [H*Dh, hidden]
+            lp[name] = {"kernel": w.T.reshape(w.shape[1], heads, -1).copy(),
+                        "bias": a(f"{b}.{name}.bias").reshape(heads, -1)}
+        w = a(f"{b}.out.weight")                            # [hidden, H*Dh]
+        lp["out"] = {"kernel": w.T.reshape(heads, -1, w.shape[0]).copy(),
+                     "bias": a(f"{b}.out.bias")}
+        for flax_name, name in _DENSE.items():
+            lp[flax_name] = {"kernel": a(f"{b}.{name}.weight").T.copy(),
+                             "bias": a(f"{b}.{name}.bias")}
+        params[f"layer_{i}"] = lp
+    return params
+
+
+def random_flax_params(vocab_size: int, max_len: int, hidden: int,
+                       layers: int, heads: int, ffn: int,
+                       seed: int = 0) -> dict:
+    """A flax-layout GPT ``params`` tree of random float32 numpy arrays
+    from ``seed`` (no JAX needed): normal weights with flax's init
+    scales (embeddings and kernels ~ 1/sqrt(fan_in)), and small random
+    biases and LayerNorm offsets so every parameter carries signal."""
+    rng = np.random.default_rng(seed)
+    dh = hidden // heads
+
+    def w(shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def small(shape):
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def ln():
+        return {"scale": 1.0 + small((hidden,)), "bias": small((hidden,))}
+
+    params = {"tok_embed": {"embedding": w((vocab_size, hidden), hidden)},
+              "pos_embed": {"embedding": w((max_len, hidden), hidden)},
+              "LayerNorm_0": ln()}
+    for i in range(layers):
+        lp = {"LayerNorm_0": ln(), "LayerNorm_1": ln()}
+        for name in ("q", "k", "v"):
+            lp[name] = {"kernel": w((hidden, heads, dh), hidden),
+                        "bias": small((heads, dh))}
+        lp["out"] = {"kernel": w((heads, dh, hidden), hidden),
+                     "bias": small((hidden,))}
+        lp["Dense_0"] = {"kernel": w((hidden, ffn), hidden),
+                         "bias": small((ffn,))}
+        lp["Dense_1"] = {"kernel": w((ffn, hidden), ffn),
+                         "bias": small((hidden,))}
+        params[f"layer_{i}"] = lp
+    return params
