@@ -30,12 +30,39 @@ Phases (any failure exits non-zero and prints no result line):
   5. trace    the bf16 batch once more under torch.profiler: device busy
               and idle share of the run's wall time, device activities per
               dispatch, the kernel's share, the top device consumers.
+  6. flash    the three flash-attention kernels (forward, dK/dV, dQ)
+              against their plain versions at the training path's shape
+              (B=8, T=512, H=4, D=64, bf16, causal; padded tails and one
+              fully padded sequence), the same not causal, in f32, and at a
+              ragged T=200; tolerance bf16 atol = rtol = 2e-2, f32 2e-5.
+              Times each kernel, its plain version and the library yardstick
+              (scaled_dot_product_attention with the same additive mask:
+              forward for the forward kernel, its autograd backward for
+              dK/dV and dQ together; the port never calls it); the bound
+              counts each input read once and each output written once, and
+              2*D operations per causally allowed (q, k) pair per product.
+  7. train    gpt-mini at its published widths, random weights from --seed,
+              dropout 0.1, bf16 compute: three KAvgEngine.train_rounds of
+              W=2 workers x K=4 steps of B=8 sequences of T=512 tokens
+              (arithmetic token runs, some ending in padding; one step of
+              worker 1 masked), lr 1e-3. Flash launch counts are zeroed just
+              before each round and read just after: layers x real steps
+              for each kernel. The third round's mean loss must be below the
+              first's, both workers contribute, and an eval_round runs.
+              Then gpt-nano in f32 (dropout 0): one round on the card
+              (kernels) and on the CPU (plain versions) merge to the same
+              parameters within AdamW's bound (2 x K x lr for any element,
+              99.5 % of them within 1e-5).
+  8. trace    one more gpt-mini training round under torch.profiler: device
+              busy and idle share, activities per local step, the flash
+              kernels' share, the top device consumers.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
-the main path (bf16 pages, int8 pages: decode numbers at the top level,
+the main paths (bf16 pages, int8 pages: decode numbers at the top level,
 the S=1 prefill call's under "prefill", launches from that page type's own
-serving run), the nvidia-smi line, and as the last line
+serving run; the three bf16 flash kernels at the training shape, launches
+from the last training round), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
 without the kubeml_tpu_torch package beside it.
 """
@@ -56,6 +83,7 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12,   # dense tensor-core rate
                   "f32": 67e12}     # f32 outside the tensor cores
 TOL = {"bf16": 2e-2, "f32": 1e-5}
+FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}   # the JAX package's flash tolerance
 
 
 def log(card: str, msg: str) -> None:
@@ -410,6 +438,304 @@ def phase_trace(torch, card, seed, module):
             f"{name[:90]}")
 
 
+# ------------------------------------------------------------------ phase 6
+FA_B, FA_H, FA_D = 8, 4, 64
+FA_CASES = (  # (name, dtype, T, causal): the training path's shape first
+    ("bf16 causal", "bf16", 512, True),
+    ("bf16 not causal", "bf16", 512, False),
+    ("f32 causal", "f32", 512, True),
+    ("bf16 causal T=200", "bf16", 200, True),
+)
+
+
+def flash_operands(torch, rng, dtype, T, dev):
+    """q, k, v, g ~ N(0, 1) in the compute dtype and a keep-mask: sequence
+    0 full, 1..6 ending in padding at spread lengths, 7 fully padded."""
+    cdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (FA_B, T, FA_H, FA_D)).astype(np.float32)).to(dev, cdt)
+        for _ in range(4))
+    lengths = np.concatenate([[T], np.linspace(T - 7, 5, FA_B - 2)
+                              .astype(np.int64), [0]])
+    pad = torch.from_numpy((np.arange(T)[None, :] < lengths[:, None])
+                           .astype(np.float32)).to(dev)
+    return q, k, v, g, pad
+
+
+def flash_bound(q, causal, kernel):
+    """Least time (ms) of one call: bytes over the memory rate against the
+    products' operations over the peak rate for the dtype, the larger.
+    Bytes: every input read once, every output written once (a [B,T,H,D]
+    tensor is x bytes, a row statistic B*H*T*4, the mask B*T*4).
+    Operations: 2*D per causally allowed (q, k) pair per product — 2
+    products forward, 4 for dK/dV, 3 for dQ."""
+    B, T, H, D = q.shape
+    x = q.numel() * q.element_size()
+    row, mask = B * H * T * 4, B * T * 4
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    nbytes, products = {
+        "forward": (4 * x + 2 * row + mask, 2),     # q k v in, out m l out
+        "dK/dV": (6 * x + 3 * row + mask, 4),       # q k v g m l delta in
+        "dQ": (5 * x + 3 * row + mask, 3),
+    }[kernel]
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    cdt = "bf16" if q.element_size() == 2 else "f32"
+    t_ops = products * 2 * D * pairs / PEAK_OPS_PER_S[cdt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def library_flash_ms(torch, q, k, v, g, pad, causal):
+    """The yardstick the port never calls: scaled_dot_product_attention
+    with the same additive mask; (forward ms, backward ms), the backward
+    timed as forward + autograd backward minus the forward."""
+    import torch.nn.functional as F
+
+    from kubeml_tpu_torch.ops.attention import composed_bias
+
+    T = q.shape[1]
+    bias = composed_bias(pad, causal, T).to(q.dtype)
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), gt)
+
+    f_ms = time_ms(torch, fwd)
+    return f_ms, time_ms(torch, fwd_bwd) - f_ms
+
+
+def phase_flash(torch, card, seed):
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 3)
+    rows = {}
+    for name, dtype, T, causal in FA_CASES:
+        q, k, v, g, pad = flash_operands(torch, rng, dtype, T, dev)
+        tol = FLASH_TOL[dtype]
+
+        def check(got, ref):
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+            return max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(got, ref))
+
+        out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_m, ref_l = fa._fa_forward_plain(q, k, v, pad, causal)
+        check((m, l), (ref_m, ref_l))   # m sits at NEG_INF scale: relative
+        err_f = check((out,), (ref_out,))
+        # the fully padded sequence is uniform: l counts its keys
+        want = (torch.arange(1, T + 1, device=dev) if causal
+                else torch.full((T,), T, device=dev)).float()
+        torch.testing.assert_close(l.reshape(FA_B, FA_H, T)[-1],
+                                   want.expand(FA_H, T), rtol=1e-6, atol=0)
+        delta = fa._delta(g, out)
+        bwd = (q, k, v, pad, g, m, l, delta, causal)
+        dk, dv = fa.fa_bwd_dkv_kernel(*bwd)
+        dq = fa.fa_bwd_dq_kernel(*bwd)
+        torch.cuda.synchronize()
+        err_kv = check((dk, dv), fa._fa_bwd_dkv_plain(*bwd))
+        err_q = check((dq,), (fa._fa_bwd_dq_plain(*bwd),))
+        lib_f, lib_b = library_flash_ms(torch, q, k, v, g, pad, causal)
+        for kernel, err, fn, plain in (
+                ("forward", err_f,
+                 lambda: fa.fa_fwd_kernel(q, k, v, pad, causal),
+                 lambda: fa._fa_forward_plain(q, k, v, pad, causal)),
+                ("dK/dV", err_kv, lambda: fa.fa_bwd_dkv_kernel(*bwd),
+                 lambda: fa._fa_bwd_dkv_plain(*bwd)),
+                ("dQ", err_q, lambda: fa.fa_bwd_dq_kernel(*bwd),
+                 lambda: fa._fa_bwd_dq_plain(*bwd))):
+            ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+            b_ms, b_by = flash_bound(q, causal, kernel)
+            lib = lib_f if kernel == "forward" else lib_b
+            rows[(name, kernel)] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by, library_ms=lib)
+            log(card, f"flash {kernel} {name} (B={FA_B} T={T} H={FA_H} "
+                f"D={FA_D}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {lib:.4f} ms "
+                f"({'forward' if kernel == 'forward' else 'backward, dQ+dK+dV'}"
+                f"), bound {b_ms:.5f} ms ({b_by}), {ms / b_ms:.1f}x bound, "
+                f"max|err| {err:.3g} (tol {tol})")
+    return rows
+
+
+# ------------------------------------------------------------------ phase 7
+TRAIN_W, TRAIN_K, TRAIN_B, TRAIN_T, TRAIN_LR = 2, 4, 8, 512, 1e-3
+MASKED_STEP = (1, 2)          # (worker, step) left out of the round
+
+
+RUN_PERIOD = 255      # token runs cycle through ids 1..255
+
+
+def lm_round(rng, W, K, B, T):
+    """One round's inputs: arithmetic token runs (token t+1 follows t, as
+    in tests/test_job.py's LM task, cycling through ids 1..RUN_PERIOD of
+    the model's vocabulary — learnable within a few rounds), half the
+    sequences ending in padding at random lengths, all examples real, one
+    step masked."""
+    start = rng.integers(1, RUN_PERIOD + 1, (W, K, B, 1))
+    x = ((start + np.arange(T) - 1) % RUN_PERIOD + 1).astype(np.int32)
+    lengths = np.where(rng.random((W, K, B)) < 0.5,
+                       rng.integers(T // 4, T, (W, K, B)), T)
+    x[np.arange(T) >= lengths[..., None]] = 0
+    step_mask = np.ones((W, K), np.float32)
+    if W > MASKED_STEP[0] and K > MASKED_STEP[1]:
+        step_mask[MASKED_STEP] = 0.0
+    rngs = rng.integers(0, 2 ** 32, (W, K, 2), dtype=np.uint32)
+    return ({"x": x}, np.ones((W, K, B), np.float32), step_mask,
+            np.ones(W, np.float32), rngs)
+
+
+def train_setup(torch, name, seed, dtype, device):
+    """A registered model, its module with weights from the seed (through
+    convert.py), an engine over it, and the weights as round state."""
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    model = get_model(name)()
+    module = model.build(dtype=dtype, device=device)
+    module.load_state_dict(params_from_flax(
+        random_flax_params(**GPT_CONFIGS[name], seed=seed)))
+    engine = KAvgEngine(module, model.loss, model.metrics,
+                        model.configure_optimizers)
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    return module, engine, state
+
+
+def phase_train(torch, card, seed):
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    module, engine, state = train_setup(torch, "gpt-mini", seed,
+                                        torch.bfloat16, "cuda")
+    rng = np.random.default_rng(seed + 4)
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel}
+    means, counts = [], {}
+    for r in range(3):
+        args = lm_round(rng, TRAIN_W, TRAIN_K, TRAIN_B, TRAIN_T)
+        batch, smask, stmask, wmask, _ = args
+        real = stmask * wmask[:, None]
+        steps = int(real.sum())
+        for fn in kernels.values():     # the main path's run starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, st = engine.train_round(state, *args, TRAIN_LR, 0)
+        loss_sum = st.loss_sum
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}  # ... ends
+        assert np.isfinite(loss_sum).all(), loss_sum
+        assert st.contributors == TRAIN_W, st
+        want = module.layers * steps
+        assert all(n == want for n in counts.values()), (counts, want)
+        means.append(float(loss_sum.sum()) / steps)
+        samples = float((smask * real[..., None]).sum())
+        tokens = int(((batch["x"] != 0) * real[..., None, None]).sum())
+        log(card, f"train gpt-mini round {r + 1}: mean loss "
+            f"{means[-1]:.4f}, {steps} local steps of B={TRAIN_B} x "
+            f"T={TRAIN_T} in {wall:.4f} s = {samples / wall:.2f} samples/s, "
+            f"{tokens / wall:.1f} tokens/s (non-pad), "
+            f"{1e3 * wall / steps:.3f} ms per local step; flash launches "
+            f"{counts} (= {module.layers} layers x {steps} steps)")
+    assert means[2] < means[0], means
+    rng_e = np.random.default_rng(seed + 5)
+    batch, smask, *_ = lm_round(rng_e, TRAIN_W, 1, TRAIN_B,
+                                TRAIN_T)
+    ev = engine.eval_round(state, batch, smask)
+    assert np.isfinite(ev["loss"]) and 0.0 <= ev["accuracy"] <= 1.0, ev
+    log(card, f"train gpt-mini: mean loss {means[0]:.4f} -> {means[2]:.4f} "
+        f"over 3 rounds; eval_round loss {ev['loss']:.4f}, accuracy "
+        f"{ev['accuracy']:.4f} over n={ev['n']:.0f} sequences")
+    return counts
+
+
+def phase_train_check(torch, card, seed):
+    """gpt-nano in f32, dropout 0: one round on the card (flash kernels)
+    and on the CPU (plain versions) merge to the same parameters within
+    AdamW's bound: its first steps divide every gradient element by its
+    own magnitude, so an element whose near-zero gradient flips sign under
+    another summation order moves by up to 2 lr per step."""
+    K = 2
+    args = lm_round(np.random.default_rng(seed + 6), 2, K, 4, 64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, engine, state = train_setup(torch, "gpt-nano", seed,
+                                       torch.float32, dev)
+        out[dev] = engine.train_round(state, *args, TRAIN_LR, 0)
+    (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(card_st.loss_sum, cpu_st.loss_sum, rtol=1e-4)
+    assert card_st.contributors == cpu_st.contributors == 2
+    diffs = torch.cat([(card_state[n].cpu() - cpu_state[n]).abs().ravel()
+                       for n in cpu_state])
+    within = float((diffs <= 1e-5).float().mean())
+    assert float(diffs.max()) <= 2 * K * TRAIN_LR, float(diffs.max())
+    assert within >= 0.995, within
+    log(card, f"gpt-nano f32 round, card (kernels) vs CPU (plain): loss "
+        f"sums {card_st.loss_sum.tolist()} vs {cpu_st.loss_sum.tolist()}, "
+        f"merged params max|diff| {float(diffs.max()):.3g} (bound "
+        f"{2 * K * TRAIN_LR:g}), {100 * within:.3f} % within 1e-5")
+
+
+# ------------------------------------------------------------------ phase 8
+def phase_train_trace(torch, card, seed):
+    """Where a training round's time goes: one gpt-mini round of phase 7's
+    shape under torch.profiler; "not measured" when the profiler records
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    module, engine, state = train_setup(torch, "gpt-mini", seed,
+                                        torch.bfloat16, "cuda")
+    rng = np.random.default_rng(seed + 7)
+    args = lm_round(rng, TRAIN_W, TRAIN_K, TRAIN_B, TRAIN_T)
+    steps = int((args[2] * args[3][:, None]).sum())
+    engine.train_round(state, *args, TRAIN_LR, 0)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_round(state, *args, TRAIN_LR, 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for ev in prof.events():
+        # user annotations (the optimizer's step range) are mirrored onto
+        # the device track as spans over other kernels: not device time
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(ev, "is_user_annotation", False):
+            tot, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        log(card, "train trace: device time not measured (the profiler "
+            "recorded no CUDA activity)")
+        return
+    busy = sum(t for t, _ in by_name.values())
+    calls = sum(n for _, n in by_name.values())
+    share = {k: sum(t for name, (t, _) in by_name.items() if tag in name)
+             for k, tag in (("forward", "fa_fwd_"), ("dK/dV", "fa_dkv_"),
+                            ("dQ", "fa_dq_"))}
+    flash = sum(share.values())
+    log(card, f"trace gpt-mini train round (profiled, {steps} local steps): "
+        f"wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.2f}%), idle "
+        f"{100 * (1 - busy / wall_ms):.2f}%; {calls} device activities "
+        f"({calls / steps:.1f} per local step); flash kernels "
+        f"{flash:.3f} ms ({100 * flash / busy:.2f}% of device time: "
+        + ", ".join(f"{k} {t:.3f} ms" for k, t in share.items()) + ")")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (t, n) in top:
+        log(card, f"train trace top device time: {t:.3f} ms over {n} "
+            f"calls: {name[:90]}")
+
+
 def run(torch, seed) -> list:
     from kubeml_tpu_torch.ops import _build
 
@@ -438,7 +764,12 @@ def run(torch, seed) -> list:
     phase_check(torch, card, seed)
     phase_trace(torch, card, seed, module)
 
-    return [{
+    flash = phase_flash(torch, card, seed)
+    train_launches = phase_train(torch, card, seed)
+    phase_train_check(torch, card, seed)
+    phase_train_trace(torch, card, seed)
+
+    paged = [{
         "name": f"paged_attention ({pages} pages)",
         "route": "cuda",
         "source": "kubeml_tpu_torch/ops/csrc/paged_attention.cu",
@@ -448,7 +779,18 @@ def run(torch, seed) -> list:
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
                     **rows[(pages, 1, 16)]},
-    } for pages, n in launches.items()], card
+    } for pages, n in launches.items()]
+    main = FA_CASES[0]
+    return paged + [{
+        "name": f"flash_attention {kernel} (bf16)",
+        "route": "cuda",
+        "source": "kubeml_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": f"kubeml_tpu/ops/pallas/flash_attention.py:{line}",
+        "launches": train_launches[kernel],
+        "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
+        **flash[(main[0], kernel)],
+    } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))], \
+        card
 
 
 def main(argv=None) -> int:

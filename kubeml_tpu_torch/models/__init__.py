@@ -1,12 +1,15 @@
-"""Built-in models of the port (twin of kubeml_tpu/models). This slice
-serves the GPT family: ``gpt-mini`` and ``gpt-nano``."""
+"""Built-in models of the port (twin of kubeml_tpu/models): the GPT
+family, ``gpt-mini`` and ``gpt-nano``. ``get_builtin`` gives a module
+builder (serving), ``get_model`` the registered model class (training)."""
 
 from __future__ import annotations
 
 import functools
 from typing import Callable, Optional
 
-from kubeml_tpu_torch.models.gpt import GPT_CONFIGS, GPTModule
+from kubeml_tpu_torch.models.base import MODELS, KubeModel
+from kubeml_tpu_torch.models.gpt import (GPT_CONFIGS, GPT_DROPOUT, GPTMini,
+                                         GPTModule, GPTNano)
 
 
 def get_builtin(name: str) -> Optional[Callable[..., GPTModule]]:
@@ -15,11 +18,18 @@ def get_builtin(name: str) -> Optional[Callable[..., GPTModule]]:
     means CUDA; ``dtype`` defaults to bf16), e.g.
     ``get_builtin("gpt-mini")(device="cpu")``."""
     cfg = GPT_CONFIGS.get(name)
-    return None if cfg is None else functools.partial(GPTModule, **cfg)
+    return None if cfg is None else functools.partial(
+        GPTModule, **cfg, dropout=GPT_DROPOUT[name])
+
+
+def get_model(name: str) -> Optional[type]:
+    """The registered KubeModel class of that name, or None."""
+    return MODELS.get(name)
 
 
 def builtin_names() -> list:
     return sorted(GPT_CONFIGS)
 
 
-__all__ = ["GPTModule", "get_builtin", "builtin_names"]
+__all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "get_builtin",
+           "get_model", "builtin_names"]

@@ -17,10 +17,17 @@ use). ``GPTModule.forward`` is the dense inference forward over plain
 ``multi_head_attention``; the paged decode and prefill steps
 (``build_paged_decode_step``/``build_paged_prefill_step``) read the KV
 slab through the paged-attention kernel.
+
+Training: ``GPTModule.logits`` is the differentiable forward (f32 master
+weights cast to the compute dtype at use, dropout from an explicit
+generator, attention through ``masked_attention(causal=True)`` — the flash
+kernels on the card), and ``GPTMini``/``GPTNano`` carry the model
+contract (per-sequence LM loss, metrics, AdamW).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -29,8 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
-from kubeml_tpu_torch.models.base import PAD_ID, InferenceInputError
+from kubeml_tpu_torch.models.base import (PAD_ID, InferenceInputError,
+                                          KubeModel, register_model)
 from kubeml_tpu_torch.ops.attention import (NEG_INF, composed_bias,
+                                            masked_attention,
                                             multi_head_attention)
 from kubeml_tpu_torch.ops.paged_attention import paged_attention
 
@@ -44,6 +53,8 @@ GPT_CONFIGS = {
     "gpt-nano": dict(vocab_size=512, max_len=64, hidden=32, layers=2,
                      heads=2, ffn=64),
 }
+# their dropout rates (GPTModule's default 0.1; GPTNano builds with 0.0)
+GPT_DROPOUT = {"gpt-mini": 0.1, "gpt-nano": 0.0}
 
 # serving KV storage modes (mirrors serve/pager.py KV_DTYPES)
 _KV_DTYPES = ("f32", "int8")
@@ -69,12 +80,14 @@ class GPTModule(nn.Module):
     """GPT parameters (f32, like flax's) plus the dense inference forward.
 
     device=None means CUDA and raises where no CUDA device exists; pass
-    device="cpu" to run on the CPU. ``dtype`` is the compute dtype.
+    device="cpu" to run on the CPU. ``dtype`` is the compute dtype;
+    ``dropout`` applies in the training forward only.
     """
 
     def __init__(self, vocab_size: int = 8192, max_len: int = 512,
                  hidden: int = 256, layers: int = 4, heads: int = 4,
-                 ffn: int = 1024, dtype: torch.dtype = torch.bfloat16,
+                 ffn: int = 1024, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None):
         super().__init__()
         if hidden % heads:
@@ -82,7 +95,7 @@ class GPTModule(nn.Module):
                              f"{heads} heads")
         self.vocab_size, self.max_len = vocab_size, max_len
         self.hidden, self.layers, self.heads = hidden, layers, heads
-        self.ffn, self.dtype = ffn, dtype
+        self.ffn, self.dtype, self.dropout = ffn, dtype, float(dropout)
         self.head_dim = hidden // heads
         dev = resolve_device(device)
         self.tok_embed = nn.Embedding(vocab_size, hidden, device=dev)
@@ -114,6 +127,47 @@ class GPTModule(nn.Module):
                 q, k, v, bias))
         return _lm_head(p, h)
 
+    def logits(self, x: torch.Tensor, train: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Differentiable dense causal forward — the reference module's
+        ``__call__(x, train)``: int ids [B, T] (pad id 0) -> [B, T, vocab]
+        f32 logits. The f32 parameters are cast to the compute dtype at
+        use, so they get f32 gradients; attention is
+        ``masked_attention(causal=True)`` (the flash kernels on the card);
+        with ``train`` dropout follows the embeddings, the attention
+        out-projection and the FFN, drawn from ``generator``."""
+        B, T = x.shape
+        if T > self.max_len:
+            raise InferenceInputError(
+                f"sequence length {T} exceeds max_len {self.max_len}")
+        x = x.to(self.device)
+        named = dict(self.named_parameters())
+        p = _param_tree(self, lambda name, dtype: named[name].to(dtype))
+        pad_mask = (x != PAD_ID).float()
+        rate = self.dropout if train else 0.0
+
+        def drop(t):
+            return _dropout(t, rate, generator)
+
+        h = drop(p["tok_embed"][x] + p["pos_embed"][:T][None])
+        for lp in p["layers"]:
+            h = _block(lp, h, lambda q, k, v: masked_attention(
+                q, k, v, pad_mask, causal=True), drop)
+        return _lm_head(p, h)
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep each element with probability 1 - rate
+    (uniforms from ``generator``), scale kept ones by 1 / (1 - rate) in
+    x's dtype; rate 0 is the identity. (jax.random's bits cannot be
+    reproduced, so the kept set differs from the JAX package's.)"""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
 
 def compute_params(module: GPTModule,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -123,10 +177,20 @@ def compute_params(module: GPTModule,
     parameters in f32. ``state_dict`` (the module's own by default) is
     what a weight load or a hot swap hands in."""
     sd = module.state_dict() if state_dict is None else state_dict
-    dev, dt = module.device, module.dtype
+    dev = module.device
+    return _param_tree(module, lambda name, dtype: sd[name].detach().to(
+        device=dev, dtype=dtype).contiguous())
+
+
+def _param_tree(module: GPTModule,
+                get: Callable[[str, torch.dtype], torch.Tensor]) -> dict:
+    """The programs' parameter dict, each tensor ``get(name, dtype)``:
+    embeddings and Dense weights in the compute dtype, LayerNorm
+    parameters in f32."""
+    dt = module.dtype
 
     def t(name, dtype=dt):
-        return sd[name].detach().to(device=dev, dtype=dtype).contiguous()
+        return get(name, dtype)
 
     def lin(prefix):
         return t(f"{prefix}.weight"), t(f"{prefix}.bias")
@@ -162,21 +226,24 @@ def _layer_norm(x: torch.Tensor, w: torch.Tensor,
 
 def _block(lp: dict, h: torch.Tensor,
            attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
-                            torch.Tensor]) -> torch.Tensor:
+                            torch.Tensor],
+           drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t
+           ) -> torch.Tensor:
     """One pre-LN decoder block. ``attend(q, k, v)`` maps [B, T, H, Dh]
     projections to the [B, T, H, Dh] attention output — the dense
     forward attends within the window, the paged steps write K/V into
-    the slab and read it back through the page table."""
+    the slab and read it back through the page table. ``drop`` is the
+    training forward's dropout after the out-projection and the FFN."""
     dt = lp["q"][0].dtype
     H = lp["heads"]
     x = _layer_norm(h, *lp["ln0"]).to(dt)
     q, k, v = (F.linear(x, *lp[n]).unflatten(-1, (H, -1))
                for n in ("q", "k", "v"))
     attn = attend(q, k, v)
-    h = h + F.linear(attn.flatten(-2), *lp["out"])
+    h = h + drop(F.linear(attn.flatten(-2), *lp["out"]))
     x = _layer_norm(h, *lp["ln1"]).to(dt)
     x = F.gelu(F.linear(x, *lp["fc0"]), approximate="tanh")
-    return h + F.linear(x, *lp["fc1"])
+    return h + drop(F.linear(x, *lp["fc1"]))
 
 
 def _lm_head(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -398,3 +465,78 @@ def build_paged_prefill_step(module: GPTModule, chunk: int,
             h = _block(lp, h, attend)
 
     return prefill
+
+
+# ------------------------------------------------------------------ training
+def _shift_targets(x: torch.Tensor):
+    """(targets, token_mask) for next-token prediction on [B, T] ids:
+    position t predicts x[:, t+1]; a position counts iff it and its
+    target are real (non-pad) tokens; the last position has no target."""
+    targets = torch.cat([x[:, 1:], torch.full_like(x[:, :1], PAD_ID)], 1)
+    mask = ((x != PAD_ID) & (targets != PAD_ID)).float()
+    return targets, mask
+
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """optax.softmax_cross_entropy_with_integer_labels per token [B, T]:
+    logsumexp of the f32 logits minus the target's logit."""
+    return F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(),
+                           reduction="none").view(targets.shape)
+
+
+def _lm_per_example(logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-sequence mean next-token cross-entropy [B] — the LM loss."""
+    targets, tok_mask = _shift_targets(x)
+    per_tok = _token_nll(logits, targets)
+    return (per_tok * tok_mask).sum(1) / tok_mask.sum(1).clamp_min(1.0)
+
+
+@register_model("gpt-mini")
+class GPTMini(KubeModel):
+    """~6M-param decoder-only LM (4 layers x 256 hidden x 4 heads),
+    dropout 0.1. ``loss`` returns one value per sequence (the mean over
+    its real next-token positions), so the K-avg engine treats a
+    sequence as the reference treats one sample."""
+
+    name = "gpt-mini"
+
+    def build(self, dtype: torch.dtype = torch.bfloat16,
+              device: DeviceLike = None) -> GPTModule:
+        return GPTModule(**GPT_CONFIGS[self.name],
+                         dropout=GPT_DROPOUT[self.name], dtype=dtype,
+                         device=device)
+
+    def loss(self, module, batch, generator, sample_mask):
+        x = batch["x"].to(module.device)
+        return _lm_per_example(module.logits(x, train=True,
+                                             generator=generator), x)
+
+    def metrics(self, module, batch):
+        x = batch["x"].to(module.device)
+        with torch.no_grad():
+            logits = module.logits(x)
+        targets, tok_mask = _shift_targets(x)
+        per_tok = _token_nll(logits, targets)
+        hit = (logits.argmax(-1) == targets).float()
+        denom = tok_mask.sum(1).clamp_min(1.0)
+        return {"loss": (per_tok * tok_mask).sum(1) / denom,
+                "accuracy": (hit * tok_mask).sum(1) / denom}
+
+    def configure_optimizers(self, lr, epoch):
+        """The reference's ``optax.adamw(lr, weight_decay=0.01)`` as
+        ``torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=0.01)``: the same update — decoupled weight decay on
+        every parameter (optax's default mask is None), bias-corrected
+        moments, eps outside the square root — in another rounding
+        order."""
+        return functools.partial(torch.optim.AdamW, lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.01)
+
+
+@register_model("gpt-nano")
+class GPTNano(GPTMini):
+    """~60k-param 2-layer LM, dropout 0 — the CPU tier's model, same
+    architecture and parameter names as gpt-mini."""
+
+    name = "gpt-nano"

@@ -4,7 +4,8 @@ One numerically pinned attention chain, the same as the reference's:
 f32-accumulated scores, ``scores * (1/sqrt(d))``, an additive f32 bias
 (0 = attend, NEG_INF = masked), an f32 softmax, and the weights cast to
 ``q.dtype`` before the PV product. The paged-attention kernel
-(ops/csrc/paged_attention.cu) computes the same chain.
+(ops/csrc/paged_attention.cu) computes the same chain; ``masked_attention``
+is the training path's entry to the flash kernels.
 """
 
 from __future__ import annotations
@@ -59,3 +60,20 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + bias.float()
     weights = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(q.dtype), v)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pad_mask: torch.Tensor,
+                     causal: bool = False) -> torch.Tensor:
+    """Self-attention over [B, T, H, D] with a [B, T] keep-mask —
+    differentiable; the training forward's attention.
+
+    Always flash attention (ops/flash_attention.py): a CUDA tensor
+    launches the hand-written kernels, a CPU tensor runs their plain
+    versions. The reference's ``impl``/``interpret`` knobs and its
+    ``_flash_tiles`` gate exist to fit a TPU's tiling and are not ported:
+    the CUDA kernels mask their own ragged edge, so any T >= 1 works.
+    """
+    from kubeml_tpu_torch.ops.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, pad_mask, causal)

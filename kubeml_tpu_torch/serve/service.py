@@ -40,7 +40,7 @@ class ServeService:
         self.clock = clock
         self._cv = threading.Condition()
         self._pending: Deque[GenerateRequest] = collections.deque()
-        self._inflight = 0          # admitted, not yet terminal
+        self._admitted: set = set()   # admitted, not yet accounted
         self._stopped = False
         self.rejected_total = 0
         self.deadline_total = 0
@@ -90,10 +90,10 @@ class ServeService:
                     message=f"deadline_ms={req.deadline_ms:g} is "
                             f"infeasible: ~{backlog_s:.2f}s of prompt "
                             f"backlog is queued ahead of admission")
-            if self._inflight >= self.capacity:
+            if self._live() >= self.capacity:
                 self.rejected_total += 1
                 raise ServeSaturated(retry_after_s=1.0 + backlog_s)
-            self._inflight += 1
+            self._admitted.add(req)
             req.submitted_at = self.clock()
             if req.deadline_ms is not None:
                 req.deadline_at = req.submitted_at + req.deadline_ms / 1000.0
@@ -113,8 +113,15 @@ class ServeService:
 
     @property
     def inflight(self) -> int:
-        """Requests admitted but not yet terminal (racy read)."""
-        return self._inflight
+        """Requests admitted but not yet terminal."""
+        with self._cv:
+            return self._live()
+
+    def _live(self) -> int:
+        """Admitted requests not yet terminal (cv held). A request the
+        engine finished inside a step is terminal from that moment — its
+        waiter may already be awake — before the loop accounts it."""
+        return sum(1 for r in self._admitted if not r.done)
 
     def stop(self, timeout: float = 10.0) -> None:
         """Stop the loop; streams still in flight end with an error."""
@@ -188,7 +195,7 @@ class ServeService:
             if req.finished_at is None:
                 req.finished_at = self.clock()
             req.finish(outcome, error)
-        self._inflight = max(0, self._inflight - 1)
+        self._admitted.discard(req)
         if req.outcome == "deadline":
             self.deadline_total += 1
 

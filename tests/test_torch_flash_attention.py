@@ -1,0 +1,283 @@
+"""Port parity: kubeml_tpu_torch flash attention vs the JAX package's.
+
+The same numpy inputs (made from a seed) go through the JAX flash
+attention — its Pallas kernels in interpret mode, with 16-row blocks so
+the online softmax really walks several blocks — and through the port's
+plain versions, which are what the port's wrappers run on CPU tensors and
+what the Hopper kernels are held against on the card.
+
+Cases: causal and not, a padded tail, interior pads, and one row whose
+keys are all padding (uniform softmax, l = T or the causal prefix length).
+
+Tolerances: f32 2e-5 for the forward (the JAX package's own flash
+tolerance, tests/test_pallas_flash.py; the online and the full-row
+softmax sum in different orders), f32 1e-4 for gradients (the JAX
+package's own flash-gradient tolerance: the backward's sums over T rows
+meet two exp/divide roundings); bf16 2e-2 (bf16 rounds at different
+places in the two frameworks). m compares relatively: an all-pad row's
+m sits at NEG_INF scale, -1e9.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+# JAX is imported inside the parity tests only: the `gpu` tests run on the
+# card's machine, which has no JAX.
+pytestmark = pytest.mark.torch_port
+
+B, T, H, D = 3, 48, 2, 16
+BLOCK = 16          # the JAX kernels' block: three blocks along T
+
+
+@pytest.fixture
+def cuda_device():
+    """Decided at run time, never at import: the card's tests skip here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with "
+                    "python -m pytest -m gpu tests/test_torch_*.py)")
+    return torch.device("cuda")
+
+
+def _inputs(seed, T=T, B=B):
+    """q, k, v, g (normal) and a keep-mask: row 0 padded from 2T/3, row 1
+    with interior pads, row 2 (when B > 2) all padding."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+                  for _ in range(4))
+    pad = np.ones((B, T), np.float32)
+    pad[0, 2 * T // 3:] = 0.0
+    pad[1, T // 7:T // 4] = 0.0
+    if B > 2:
+        pad[2] = 0.0
+    return q, k, v, g, pad
+
+
+def _tol(dtype, grad=False):
+    return 2e-2 if dtype == "bf16" else (1e-4 if grad else 2e-5)
+
+
+def _types(dtype):
+    import jax.numpy as jnp
+
+    return ((jnp.float32, torch.float32) if dtype == "f32"
+            else (jnp.bfloat16, torch.bfloat16))
+
+
+def _close(got, ref, tol):
+    import jax.numpy as jnp
+
+    ref = torch.tensor(np.asarray(jnp.asarray(ref).astype(jnp.float32)))
+    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_matches_jax(causal, dtype):
+    """(out, m, l) of the plain forward against the JAX kernel's, and out
+    against the JAX flash_attention's."""
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops.pallas.flash_attention import _fa_forward as jax_fwd
+    from kubeml_tpu.ops.pallas.flash_attention import \
+        flash_attention as jax_flash
+    from kubeml_tpu_torch.ops.flash_attention import (_fa_forward,
+                                                      _fa_forward_plain)
+
+    q, k, v, _, pad = _inputs(1 + causal)
+    jdt, tdt = _types(dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    r_out, r_m, r_l = jax_fwd(jq, jk, jv, jnp.asarray(pad), causal, BLOCK,
+                              BLOCK, True)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out, m, l = _fa_forward_plain(tq, tk, tv, torch.from_numpy(pad), causal)
+    assert out.dtype == tdt and out.shape == (B, T, H, D)
+    assert m.shape == l.shape == (B * H, 1, T)
+    tol = _tol(dtype)
+    _close(out, r_out, tol)
+    torch.testing.assert_close(m, torch.tensor(np.asarray(r_m)), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(l, torch.tensor(np.asarray(r_l)), rtol=tol,
+                               atol=tol)
+    # the all-pad row is uniform: l counts its keys, never NaN
+    want = np.arange(1, T + 1) if causal else np.full(T, T)
+    np.testing.assert_allclose(l.reshape(B, H, T)[2].numpy(),
+                               np.broadcast_to(want, (H, T)), rtol=1e-6)
+    _close(out, jax_flash(jq, jk, jv, jnp.asarray(pad), causal, BLOCK, BLOCK,
+                          True), tol)
+    # the routed contract takes the plain version on CPU tensors
+    routed = _fa_forward(tq, tk, tv, torch.from_numpy(pad), causal)
+    for a, b in zip(routed, (out, m, l)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_jax(causal, dtype):
+    """(dq, dk, dv) of the plain backward against the JAX kernels' on the
+    same (out, m, l) — the JAX forward's — and the same output gradient."""
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops.pallas.flash_attention import _fa_backward as jax_bwd
+    from kubeml_tpu.ops.pallas.flash_attention import _fa_forward as jax_fwd
+    from kubeml_tpu_torch.ops.flash_attention import _fa_backward
+
+    q, k, v, g, pad = _inputs(3 + causal)
+    jdt, tdt = _types(dtype)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jdt) for a in (q, k, v, g))
+    jpad = jnp.asarray(pad)
+    out, m, l = jax_fwd(jq, jk, jv, jpad, causal, BLOCK, BLOCK, True)
+    ref = jax_bwd(jq, jk, jv, jpad, out, m, l, jg, causal, BLOCK, BLOCK,
+                  True)
+    t = (lambda a: torch.tensor(np.asarray(jnp.asarray(a).astype(
+        jnp.float32))).to(tdt))
+    got = _fa_backward(t(jq), t(jk), t(jv), torch.from_numpy(pad), t(out),
+                       torch.tensor(np.asarray(m)), torch.tensor(np.asarray(l)),
+                       t(jg), causal)
+    for a, r in zip(got, ref):
+        assert a.dtype == tdt and a.shape == (B, T, H, D)
+        _close(a, r, _tol(dtype, grad=True))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_grads_match_jax_grad(causal):
+    """The autograd.Function's gradients (through the plain versions on
+    CPU) against jax.grad of the JAX flash_attention, f32; the mask gets a
+    zero gradient."""
+    import jax
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops.pallas.flash_attention import \
+        flash_attention as jax_flash
+    from kubeml_tpu_torch.ops.attention import masked_attention
+
+    q, k, v, g, pad = _inputs(5 + causal)
+    jpad = jnp.asarray(pad)
+
+    def jloss(q, k, v):
+        out = jax_flash(q, k, v, jpad, causal, BLOCK, BLOCK, True)
+        return (out * jnp.asarray(g)).sum()
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                               for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tpad = torch.from_numpy(pad).requires_grad_()
+    out = masked_attention(tq, tk, tv, tpad, causal=causal)
+    (out * torch.from_numpy(g)).sum().backward()
+    for a, r in zip((tq.grad, tk.grad, tv.grad), ref):
+        _close(a, r, 1e-4)
+    assert torch.count_nonzero(tpad.grad) == 0
+
+
+def test_ragged_t_plain_matches_reference_chain():
+    """Any T >= 1 works (no tiling gate): at T = 37 the plain forward
+    equals the shared attention chain with the composed bias."""
+    from kubeml_tpu_torch.ops.attention import (composed_bias,
+                                                multi_head_attention)
+    from kubeml_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, _, pad = (torch.from_numpy(a) for a in _inputs(7, T=37))
+    for causal in (False, True):
+        ref = multi_head_attention(q, k, v, composed_bias(pad, causal, 37))
+        torch.testing.assert_close(flash_attention(q, k, v, pad, causal),
+                                   ref, rtol=2e-5, atol=2e-5)
+
+
+def test_wrapper_routes_by_device_and_never_falls_back():
+    """CPU tensors run the plain versions; a tensor on any device other
+    than the CPU or CUDA raises, and no launch counter moves."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, pad = (torch.from_numpy(a) for a in _inputs(8))
+    before = (fa.fa_fwd_kernel.launches, fa.fa_bwd_dkv_kernel.launches,
+              fa.fa_bwd_dq_kernel.launches)
+    out, m, l = fa._fa_forward(q, k, v, pad, True)
+    for a, b in zip((out, m, l), fa._fa_forward_plain(q, k, v, pad, True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    meta = [t.to("meta") for t in (q, k, v, pad)]
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._fa_forward(*meta, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(*meta, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._fa_backward(*meta, out.to("meta"), m.to("meta"), l.to("meta"),
+                        g.to("meta"), True)
+    assert (fa.fa_fwd_kernel.launches, fa.fa_bwd_dkv_kernel.launches,
+            fa.fa_bwd_dq_kernel.launches) == before
+
+
+def test_kernel_argument_checks():
+    """The kernel wrappers' checks run before any launch, so they are
+    testable on the CPU: shape, dtype, layout, alignment and head_dim."""
+    from kubeml_tpu_torch.ops.flash_attention import _check_kernel_args
+
+    q, k, v, g, pad = (torch.from_numpy(a) for a in _inputs(9))
+    rows = torch.zeros((B * H, 1, T))
+    _check_kernel_args(q, k, v, pad, g, (rows, rows, rows))
+    with pytest.raises(ValueError, match="shapes differ"):
+        _check_kernel_args(q, k[:, :-1].contiguous(), v, pad)
+    with pytest.raises(TypeError, match="share one dtype"):
+        _check_kernel_args(q, k.to(torch.bfloat16), v, pad)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        _check_kernel_args(q.half(), k.half(), v.half(), pad)
+    with pytest.raises(ValueError, match="pad_mask"):
+        _check_kernel_args(q, k, v, pad.double())
+    with pytest.raises(ValueError, match="row statistics"):
+        _check_kernel_args(q, k, v, pad, g, (rows[:, :, :-1], rows, rows))
+    with pytest.raises(ValueError, match="contiguous"):
+        _check_kernel_args(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, pad)
+    with pytest.raises(ValueError, match="span devices"):
+        _check_kernel_args(q, k, v, pad.to("meta"))
+    odd = torch.zeros((B, T, H, 6))
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_kernel_args(odd, odd, odd, pad)
+    wide = torch.zeros((1, 4, 1, 256))
+    with pytest.raises(ValueError, match="head_dim 256"):
+        _check_kernel_args(wide, wide, wide, torch.ones((1, 4)))
+
+
+# ------------------------------------------------------------------- card
+GPU_CASES = [  # (dtype, T, causal, head_dim)
+    ("bf16", 192, True, 16), ("bf16", 192, False, 16), ("f32", 192, True, 16),
+    ("bf16", 100, True, 16), ("f32", 37, False, 16),
+    # the other tensor-core head dims, and one bf16 head_dim (24) that
+    # only the FMA kernels take
+    ("bf16", 130, True, 32), ("bf16", 130, True, 64), ("bf16", 130, True, 128),
+    ("bf16", 77, False, 24),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,t_len,causal,head_dim", GPU_CASES)
+def test_kernels_match_plain_on_card(cuda_device, dtype, t_len, causal,
+                                     head_dim):
+    """On the card: each of the three kernels against its plain version on
+    the same CUDA inputs (f32 2e-5, bf16 2e-2), one launch each."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(head_dim)
+    q, k, v, g, pad = (torch.from_numpy(a).to(cuda_device)
+                       for a in _inputs(11, T=t_len))
+    if head_dim != D:
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (B, t_len, H, head_dim)).astype(np.float32)).to(cuda_device)
+            for _ in range(4))
+    q, k, v, g = (a.to(tdt) for a in (q, k, v, g))
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    before = fa.fa_fwd_kernel.launches
+    out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
+    torch.cuda.synchronize()
+    assert fa.fa_fwd_kernel.launches == before + 1
+    for a, b in zip((out, m, l), fa._fa_forward_plain(q, k, v, pad, causal)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    delta = fa._delta(g, out)
+    dk, dv = fa.fa_bwd_dkv_kernel(q, k, v, pad, g, m, l, delta, causal)
+    dq = fa.fa_bwd_dq_kernel(q, k, v, pad, g, m, l, delta, causal)
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = fa._fa_bwd_dkv_plain(q, k, v, pad, g, m, l, delta,
+                                          causal)
+    ref_dq = fa._fa_bwd_dq_plain(q, k, v, pad, g, m, l, delta, causal)
+    for a, b in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
