@@ -56,15 +56,40 @@ Phases (any failure exits non-zero and prints no result line):
   8. trace    one more gpt-mini training round under torch.profiler: device
               busy and idle share, activities per local step, the flash
               kernels' share, the top device consumers.
+  9. merge    (a) the fused merge-apply kernel against its plain version,
+              bit for bit (torch.equal), avg and sgd mode, raw_count 3 and 0
+              (the guard path, with a NaN in s, must return ref), at
+              gpt-mini's five bucket lengths under the 4 MB EF cap and at
+              N = 7 and 5000; times by CUDA-graph replay with the L2 warm
+              and cold (operand sets cycled over 2.4 x the L2), the plain
+              version's time and the bytes bound (12 bytes per element);
+              no single PyTorch call computes this function, so there is
+              no library yardstick. (b)+(c) gpt-mini at its published
+              widths, bf16, dropout 0.1, n_lanes=2, W=4, K=4, B=8, T=512:
+              three train_rounds each with the bucketed (4 MB), ef_bf16 and
+              ef_int8 merges; the merge kernel's launches are zeroed just
+              before and read just after (5 buckets x 3 rounds), the flash
+              launches too; the loss falls, EF residuals stay finite, and
+              after a round with lane 1 masked out its residual is exactly
+              zero while lane 0's is not. The first bucketed round's
+              contributions merged by MonolithicMerge and by
+              BucketedMerge(4 MB) are equal bit for bit. (d) gpt-nano in
+              f32, ef_int8, n_lanes=2, one round on the card and on the CPU:
+              merged params within 2 x K x lr + the bucket's int8 scale, 99.5
+              % within 1e-5. (e) one ef_int8 round profiled, and its merge
+              replayed alone under the profiler: the fused kernel, copies
+              and quantize ops against the round's device busy time.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
 the main paths (bf16 pages, int8 pages: decode numbers at the top level,
 the S=1 prefill call's under "prefill", launches from that page type's own
 serving run; the three bf16 flash kernels at the training shape, launches
-from the last training round), the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
-without the kubeml_tpu_torch package beside it.
+from the last training round; the fused merge over one whole gpt-mini
+merge, launches from the ef_int8 run, the sgd mode under "sgd"), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Exits
+non-zero without a CUDA device or without the kubeml_tpu_torch package
+beside it.
 """
 
 from __future__ import annotations
@@ -594,9 +619,10 @@ def lm_round(rng, W, K, B, T):
             np.ones(W, np.float32), rngs)
 
 
-def train_setup(torch, name, seed, dtype, device):
+def train_setup(torch, name, seed, dtype, device, **engine_kw):
     """A registered model, its module with weights from the seed (through
-    convert.py), an engine over it, and the weights as round state."""
+    convert.py), an engine over it (``engine_kw``: lanes and merge
+    knobs), and the weights as round state."""
     from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
     from kubeml_tpu_torch.models import get_model
     from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
@@ -607,7 +633,7 @@ def train_setup(torch, name, seed, dtype, device):
     module.load_state_dict(params_from_flax(
         random_flax_params(**GPT_CONFIGS[name], seed=seed)))
     engine = KAvgEngine(module, model.loss, model.metrics,
-                        model.configure_optimizers)
+                        model.configure_optimizers, **engine_kw)
     state = {n: p.detach().clone() for n, p in module.named_parameters()}
     return module, engine, state
 
@@ -736,6 +762,371 @@ def phase_train_trace(torch, card, seed):
             f"calls: {name[:90]}")
 
 
+# ------------------------------------------------------------------ phase 9
+# gpt-mini's buckets at the 4 MB EF cap (the reference's plan), then two
+# ragged lengths
+MERGE_BUCKETS = (791296, 789760, 789760, 919808, 2097152)
+MERGE_RAGGED = (7, 5000)
+MERGE_CAP_MB = 4.0
+MERGE_LANES, MERGE_W, MERGE_R = 2, 4, 3
+MERGE_SGD_LR = 0.05
+COLD_BYTES = 120e6        # operand sets cycled per timing: 2.4 x the L2
+
+
+def merge_bound(n: int) -> float:
+    """Least time (ms) of one merge-apply over n elements: 12 bytes each
+    (s and ref read, out written) over the memory rate; 3 flops each are
+    nothing beside that."""
+    return 12 * n / H100_BYTES_PER_S * 1e3
+
+
+def time_ms_cold(torch, fn, operand_sets) -> float:
+    """time_ms with the L2 cold: consecutive calls take consecutive
+    operand sets of COLD_BYTES in all, so each call's operands were
+    evicted by the sets in between; every call's output is kept, so each
+    writes its own buffer and the writes reach device memory too."""
+    n = len(operand_sets)
+    outs = []
+
+    def cycled():
+        outs.append(fn(*operand_sets[len(outs) % n]))
+
+    try:
+        return time_ms(torch, cycled, calls=2 * n)
+    finally:
+        outs.clear()
+
+
+def phase_merge_kernel(torch, card, seed):
+    """(a) the fused merge-apply kernel against its plain version, bit for
+    bit (torch.equal), both modes, raw_count 3 and 0 (the guard path with
+    a NaN in s must return ref), at gpt-mini's bucket lengths and two
+    ragged ones; warm and L2-cold device times, the plain version's, and
+    the bytes bound."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    rows = {}
+    for n in dict.fromkeys(MERGE_BUCKETS + MERGE_RAGGED):   # each length once
+        s = torch.randn(n, device=dev, generator=gen) * 7
+        ref = torch.randn(n, device=dev, generator=gen)
+        s_nan = s.clone()
+        s_nan[n // 2] = float("nan")
+        row = {}
+        for mode, lr in (("avg", 0.0), ("sgd", MERGE_SGD_LR)):
+            for raw in (3.0, 0.0):
+                raw_t = torch.tensor(raw, device=dev)
+                cnt = raw_t.clamp_min(1.0)
+                src = s if raw > 0 else s_nan
+                got = fm.fused_merge_kernel(mode, src, ref, cnt, raw_t, lr)
+                torch.cuda.synchronize()
+                want = fm._apply_plain(mode, src, ref, cnt, raw_t, lr)
+                assert torch.equal(got, want), (mode, n, raw)
+                if raw == 0:
+                    assert torch.equal(got, ref), (mode, n)
+            raw_t = torch.tensor(3.0, device=dev)
+            cnt = raw_t.clamp_min(1.0)
+            ms = time_ms(torch, lambda: fm.fused_merge_kernel(
+                mode, s, ref, cnt, raw_t, lr))
+            plain_ms = time_ms(torch, lambda: fm._apply_plain(
+                mode, s, ref, cnt, raw_t, lr))
+            entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=merge_bound(n))
+            if n in MERGE_BUCKETS:
+                sets = [(torch.randn(n, device=dev, generator=gen),
+                         torch.randn(n, device=dev, generator=gen))
+                        for _ in range(max(2, -(-int(COLD_BYTES)
+                                                // (8 * n))))]
+                entry["cold_ms"] = time_ms_cold(
+                    torch, lambda a, b: fm.fused_merge_kernel(
+                        mode, a, b, cnt, raw_t, lr), sets)
+                del sets
+            row[mode] = entry
+            log(card, f"fused_merge {mode} N={n}: kernel {ms:.4f} ms"
+                + (f" (L2 cold {entry['cold_ms']:.4f} ms)"
+                   if "cold_ms" in entry else "")
+                + f", plain {plain_ms:.4f} ms, bound {merge_bound(n):.5f} "
+                f"ms (bytes), {ms / merge_bound(n):.2f}x bound; kernel == "
+                f"plain bit for bit (raw_count 3 and 0)")
+        rows[n] = row
+    return rows
+
+
+def stacked_rounds(rng, R, W, K, B, T):
+    """R of phase 7's rounds with a leading round axis (train_rounds)."""
+    rounds = [lm_round(rng, W, K, B, T) for _ in range(R)]
+    batch = {"x": np.stack([r[0]["x"] for r in rounds])}
+    return (batch, *(np.stack([r[i] for r in rounds]) for i in range(1, 5)))
+
+
+def record_merges(engine):
+    """Wrap the engine's lane_merge to keep each call's inputs (copies):
+    a real round's contributions for the parity check and the replay."""
+    calls = []
+    inner = engine._merge.lane_merge
+
+    def recording(contrib, ref, raw_count, count, lane_alive=None,
+                  residual=None):
+        calls.append(dict(
+            contrib={k: v.clone() for k, v in contrib.items()},
+            ref={k: v.clone() for k, v in ref.items()},
+            raw_count=raw_count.clone(), count=count.clone(),
+            lane_alive=lane_alive.clone(),
+            residual=({k: v.clone() for k, v in residual.items()}
+                      if residual is not None else None)))
+        return inner(contrib, ref, raw_count, count, lane_alive, residual)
+
+    engine._merge.lane_merge = recording
+    return calls
+
+
+def int8_quanta(torch, engine, call):
+    """Each parameter's int8 quantum in a recorded merge: its bucket's
+    shared scale, max|payload| over every lane / 127."""
+    names, plan = engine._merge._plan(call["ref"])
+    alive = call["lane_alive"].reshape(-1, 1)
+    quanta = {}
+    for bi, bucket in enumerate(plan.buckets):
+        members = [names[i] for i in bucket.indices]
+        c = torch.cat([call["contrib"][n].reshape(alive.shape[0], -1)
+                       for n in members], dim=1)
+        r = call["residual"][f"b{bi}"].reshape(c.shape)
+        scale = float(torch.where(alive, c + r, 0.0).abs().max()) / 127.0
+        quanta.update({n: scale for n in members})
+    return quanta
+
+
+def phase_merge_train(torch, card, seed):
+    """(b) + (c): gpt-mini at full width, bf16, dropout 0.1, n_lanes=2,
+    W=4, K=4, B=8, T=512, three train_rounds per strategy (bucketed at
+    4 MB, ef_bf16, ef_int8); the merge kernel's launches (5 buckets x 3
+    rounds), the flash launches, falling loss, finite residuals, a dead
+    lane's zeroed residual; and the first bucketed round's contributions
+    merged by MonolithicMerge and by BucketedMerge(4 MB) on the card,
+    equal bit for bit."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.merge import BucketedMerge, MonolithicMerge
+
+    flash = (fa.fa_fwd_kernel, fa.fa_bwd_dkv_kernel, fa.fa_bwd_dq_kernel)
+    launches = {}
+    engines = {}
+    for name, knobs in (("bucketed", dict(merge_bucket_mb=MERGE_CAP_MB)),
+                        ("ef_bf16", dict(merge_compress="bf16")),
+                        ("ef_int8", dict(merge_compress="int8"))):
+        module, engine, state = train_setup(
+            torch, "gpt-mini", seed, torch.bfloat16, "cuda",
+            n_lanes=MERGE_LANES, **knobs)
+        assert engine.merge_strategy == name, engine.merge_strategy
+        calls = record_merges(engine) if name == "bucketed" else []
+        rng = np.random.default_rng(seed + 9)
+        args = stacked_rounds(rng, MERGE_R, MERGE_W, TRAIN_K, TRAIN_B,
+                              TRAIN_T)
+        real = args[2] * args[3][..., None]             # [R, W, S]
+        fm.fused_merge_kernel.launches = 0   # the main path's run starts
+        for fn in flash:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, st = engine.train_rounds(state, *args, TRAIN_LR, 0)
+        loss_sum = st.loss_sum
+        wall = time.perf_counter() - t0
+        n = fm.fused_merge_kernel.launches   # ... and ends here
+        flash_n = [fn.launches for fn in flash]
+        n_buckets = engine.merge_comm_proxy(state)["buckets_per_round"]
+        assert n_buckets == len(MERGE_BUCKETS), n_buckets
+        assert n == n_buckets * MERGE_R, (name, n)
+        steps = real.sum(axis=(1, 2))
+        assert flash_n == [module.layers * int(steps.sum())] * 3, flash_n
+        assert np.isfinite(loss_sum).all(), loss_sum
+        assert st.contributors == MERGE_W * MERGE_R, st.contributors
+        means = loss_sum.sum(axis=1) / steps
+        assert means[-1] < means[0], (name, means)
+        launches[name] = n
+        msg = ""
+        if engine._ef:
+            assert all(bool(torch.isfinite(v).all())
+                       for v in engine._ef_state.values())
+            # one more round with lane 1's workers masked out
+            batch, smask, stmask, _, rngs = lm_round(
+                rng, MERGE_W, TRAIN_K, TRAIN_B, TRAIN_T)
+            state, _ = engine.train_round(
+                state, batch, smask, stmask,
+                np.array([1, 1, 0, 0], np.float32), rngs, TRAIN_LR, 0)
+            for k, v in engine._ef_state.items():
+                lanes = v.reshape(MERGE_LANES, -1)
+                assert not bool(lanes[1].any()), (name, k)
+                assert bool(lanes[0].any()), (name, k)
+            msg = ("; residuals finite, and after a round with lane 1 dead "
+                   "its residual is exactly zero while lane 0's is not")
+        log(card, f"merge train gpt-mini {name} (n_lanes={MERGE_LANES}, "
+            f"W={MERGE_W}, K={TRAIN_K}, R={MERGE_R}): mean loss "
+            + " -> ".join(f"{m:.4f}" for m in means)
+            + f", {int(steps.sum())} local steps in {wall:.4f} s = "
+            f"{1e3 * wall / steps.sum():.3f} ms per local step; fused merge "
+            f"launches {n} (= {n_buckets} buckets x {MERGE_R} rounds), flash "
+            f"launches {flash_n}" + msg)
+        engines[name] = (module, engine, state)
+        if calls:
+            call = calls[0]
+            args = (call["contrib"], call["ref"], call["raw_count"],
+                    call["count"], call["lane_alive"])
+            mono, _ = MonolithicMerge().lane_merge(*args)
+            buck, _ = BucketedMerge(bucket_mb=MERGE_CAP_MB).lane_merge(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(mono[k], buck[k]) for k in mono)
+            log(card, f"merge parity on the card: a real gpt-mini round's "
+                f"contributions ({MERGE_LANES} lanes) merged by "
+                f"MonolithicMerge ({len(mono)} leaves) and by "
+                f"BucketedMerge({MERGE_CAP_MB:g} MB, fused kernel) are "
+                f"equal bit for bit")
+            del calls[:]
+    return launches, engines
+
+
+def phase_merge_check(torch, card, seed):
+    """(d) gpt-nano in f32, ef_int8, n_lanes=2: one round on the card
+    (kernels, one merge launch per bucket) and on the CPU (plain versions)
+    merge to the same parameters within AdamW's bound plus one int8
+    quantum of the bucket, 99.5 % of the elements within 1e-5."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    K = 2
+    args = lm_round(np.random.default_rng(seed + 10), MERGE_W, K, 4, 64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, engine, state = train_setup(torch, "gpt-nano", seed,
+                                       torch.float32, dev,
+                                       n_lanes=MERGE_LANES,
+                                       merge_compress="int8",
+                                       merge_bucket_mb=0.02)
+        calls = record_merges(engine)
+        before = fm.fused_merge_kernel.launches
+        out[dev] = engine.train_round(state, *args, TRAIN_LR, 0)
+        n_buckets = engine.merge_comm_proxy(state)["buckets_per_round"]
+        launched = fm.fused_merge_kernel.launches - before
+        assert launched == (n_buckets if dev == "cuda" else 0), launched
+        if dev == "cpu":
+            quanta = int8_quanta(torch, engine, calls[0])
+    (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(card_st.loss_sum, cpu_st.loss_sum, rtol=1e-4)
+    np.testing.assert_array_equal(card_st.dropped, cpu_st.dropped)
+    worst, diffs = -1.0, []
+    for n in cpu_state:
+        d = (card_state[n].cpu() - cpu_state[n]).abs().ravel()
+        diffs.append(d)
+        worst = max(worst, float(d.max()) / (2 * K * TRAIN_LR + quanta[n]))
+    diffs = torch.cat(diffs)
+    within = float((diffs <= 1e-5).float().mean())
+    assert worst <= 1.0, worst
+    assert within >= 0.995, within
+    log(card, f"gpt-nano f32 ef_int8 round (n_lanes={MERGE_LANES}, "
+        f"{n_buckets} buckets), card vs CPU: merged params max|diff| "
+        f"{float(diffs.max()):.3g}, at most {worst:.3f} of the bound 2 x K x "
+        f"lr + the bucket's int8 scale; {100 * within:.3f} % within 1e-5")
+
+
+def device_events(torch, prof):
+    """{kernel name: (device ms, calls)} of a profile, user annotations
+    (spans over other kernels) left out."""
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(ev, "is_user_annotation", False):
+            tot, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
+def phase_merge_trace(torch, card, seed, engines):
+    """(e) where the merge's time goes: one ef_int8 gpt-mini round under
+    torch.profiler (device busy time), then that round's merge replayed
+    alone on its recorded inputs under the profiler: the fused kernel,
+    the cat/split copies and the quantize ops, against the round's busy
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, engine, state = engines["ef_int8"]
+    args = lm_round(np.random.default_rng(seed + 11), MERGE_W, TRAIN_K,
+                    TRAIN_B, TRAIN_T)
+    calls = record_merges(engine)
+    engine.train_round(state, *args, TRAIN_LR, 0)    # records its merge
+    del engine._merge.lane_merge                      # and unwraps it
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_round(state, *args, TRAIN_LR, 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    round_ev = device_events(torch, prof)
+    call = calls[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine._merge.lane_merge(call["contrib"], call["ref"],
+                                 call["raw_count"], call["count"],
+                                 call["lane_alive"], call["residual"])
+        torch.cuda.synchronize()
+    merge_ev = device_events(torch, prof)
+    if not round_ev or not merge_ev:
+        log(card, "merge trace: device time not measured (the profiler "
+            "recorded no CUDA activity)")
+        return None
+    busy = sum(t for t, _ in round_ev.values())
+    merge = sum(t for t, _ in merge_ev.values())
+    parts = {"fused kernel": 0.0, "copies": 0.0, "quantize and sums": 0.0}
+    for name, (t, _) in merge_ev.items():
+        if "fused_merge" in name:
+            parts["fused kernel"] += t
+        elif "opy" in name or "Cat" in name or "cat" in name:
+            parts["copies"] += t
+        else:
+            parts["quantize and sums"] += t
+    calls_n = sum(n for _, n in merge_ev.values())
+    log(card, f"merge trace gpt-mini ef_int8 round (profiled): wall "
+        f"{wall_ms:.3f} ms, device busy {busy:.3f} ms; its merge replayed "
+        f"alone: {merge:.3f} ms of device time over {calls_n} device "
+        f"activities = {100 * merge / busy:.2f}% of the round's busy time ("
+        + ", ".join(f"{k} {t:.3f} ms" for k, t in parts.items()) + ")")
+    top = sorted(merge_ev.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (t, n) in top:
+        log(card, f"merge trace top device time: {t:.3f} ms over {n} calls: "
+            f"{name[:90]}")
+    return dict(merge_ms=merge, round_busy_ms=busy, **parts)
+
+
+def merge_entry(rows, launches):
+    """The kernels-line entry of the fused merge: one whole gpt-mini merge
+    (the sum over its five buckets) in avg mode, the sgd check under it."""
+    def total(mode, key):
+        return sum(rows[n][mode][key] for n in MERGE_BUCKETS)
+
+    return {
+        "name": "fused_merge (avg)",
+        "route": "cuda",
+        "source": "kubeml_tpu_torch/ops/csrc/fused_merge.cu",
+        "replaces": "kubeml_tpu/ops/pallas/fused_merge.py:51",
+        "launches": launches["ef_int8"],
+        "launches_by_strategy": launches,
+        "shape": (f"gpt-mini's {len(MERGE_BUCKETS)} buckets at "
+                  f"{MERGE_CAP_MB:g} MB, {sum(MERGE_BUCKETS)} f32 elements "
+                  "(one whole merge; times summed over the buckets)"),
+        "max_abs_err": 0.0,
+        "ms": total("avg", "ms"),
+        "cold_ms": total("avg", "cold_ms"),
+        "plain_ms": total("avg", "plain_ms"),
+        "bound_ms": total("avg", "bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "buckets": [{"n": n, **rows[n]["avg"]} for n in MERGE_BUCKETS],
+        "ragged": [{"n": n, **rows[n]["avg"]} for n in MERGE_RAGGED],
+        "sgd": {"max_abs_err": 0.0, "ms": total("sgd", "ms"),
+                "cold_ms": total("sgd", "cold_ms"),
+                "plain_ms": total("sgd", "plain_ms"),
+                "bound_ms": total("sgd", "bound_ms")},
+    }
+
+
 def run(torch, seed) -> list:
     from kubeml_tpu_torch.ops import _build
 
@@ -769,6 +1160,11 @@ def run(torch, seed) -> list:
     phase_train_check(torch, card, seed)
     phase_train_trace(torch, card, seed)
 
+    merge_rows = phase_merge_kernel(torch, card, seed)
+    merge_launches, engines = phase_merge_train(torch, card, seed)
+    phase_merge_check(torch, card, seed)
+    phase_merge_trace(torch, card, seed, engines)
+
     paged = [{
         "name": f"paged_attention ({pages} pages)",
         "route": "cuda",
@@ -789,8 +1185,8 @@ def run(torch, seed) -> list:
         "launches": train_launches[kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
-    } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))], \
-        card
+    } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
+        + [merge_entry(merge_rows, merge_launches)], card
 
 
 def main(argv=None) -> int:

@@ -20,17 +20,50 @@ needs no JAX.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
 _DENSE = {"Dense_0": "fc0", "Dense_1": "fc1"}
 _LN = {"LayerNorm_0": "ln0", "LayerNorm_1": "ln1"}
+# port submodule -> flax submodule, and each one's leaf names
+_FLAX_SUB = {v: k for k, v in (_DENSE | _LN).items()}
+_LN_LEAF = {"weight": "scale", "bias": "bias"}
+_DENSE_LEAF = {"weight": "kernel", "bias": "bias"}
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _flax_path(name: str) -> Tuple[str, ...]:
+    """The flax tree path of a port parameter name; a name this bridge
+    does not map keeps its own dotted path (a plain nested dict)."""
+    parts = name.split(".")
+    if len(parts) == 2 and parts[0] in ("tok_embed", "pos_embed") \
+            and parts[1] == "weight":
+        return parts[0], "embedding"
+    if len(parts) == 2 and parts[0] == "ln_f" and parts[1] in _LN_LEAF:
+        return "LayerNorm_0", _LN_LEAF[parts[1]]
+    if len(parts) == 4 and parts[0] == "blocks":
+        _, i, sub, leaf = parts
+        if sub in ("ln0", "ln1") and leaf in _LN_LEAF:
+            return f"layer_{i}", _FLAX_SUB[sub], _LN_LEAF[leaf]
+        if sub in ("fc0", "fc1", "q", "k", "v", "out") \
+                and leaf in _DENSE_LEAF:
+            return f"layer_{i}", _FLAX_SUB.get(sub, sub), _DENSE_LEAF[leaf]
+    return tuple(parts)
+
+
+def flax_leaf_order(names: Iterable[str]) -> List[str]:
+    """Port parameter names in the order in which ``jax.tree_util``
+    flattens the matching flax tree: dict keys sorted at every level, so
+    ``LayerNorm_0`` < ``layer_0`` < ``layer_10`` < ``layer_2`` <
+    ``pos_embed`` < ``tok_embed``, and inside a layer ``Dense_*`` <
+    ``LayerNorm_*`` < ``k`` < ``out`` < ``q`` < ``v``. The merge plans its
+    buckets over this order, so bucket membership equals the reference's."""
+    return sorted(names, key=_flax_path)
 
 
 def params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
