@@ -568,6 +568,12 @@ def phase_flash(torch, card, seed):
         torch.cuda.synchronize()
         err_kv = check((dk, dv), fa._fa_bwd_dkv_plain(*bwd))
         err_q = check((dq,), (fa._fa_bwd_dq_plain(*bwd),))
+        # no atomics: a second launch on the same inputs is equal bit for bit
+        dk2, dv2 = fa.fa_bwd_dkv_kernel(*bwd)
+        dq2 = fa.fa_bwd_dq_kernel(*bwd)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   ((dk, dk2), (dv, dv2), (dq, dq2))), name
         lib_f, lib_b = library_flash_ms(torch, q, k, v, g, pad, causal)
         for kernel, err, fn, plain in (
                 ("forward", err_f,
@@ -580,16 +586,42 @@ def phase_flash(torch, card, seed):
             ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
             b_ms, b_by = flash_bound(q, causal, kernel)
             lib = lib_f if kernel == "forward" else lib_b
-            rows[(name, kernel)] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=b_ms,
-                                        bound_by=b_by, library_ms=lib)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            if kernel != "forward" and name == FA_CASES[0][0]:
+                row["cold_ms"] = flash_cold_ms(torch, rng, dtype, T, causal,
+                                               kernel, dev)
+            rows[(name, kernel)] = row
             log(card, f"flash {kernel} {name} (B={FA_B} T={T} H={FA_H} "
-                f"D={FA_D}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"library {lib:.4f} ms "
+                f"D={FA_D}): kernel {ms:.4f} ms"
+                + (f" (L2 cold {row['cold_ms']:.4f} ms)" if "cold_ms" in row
+                   else "")
+                + f", plain {plain_ms:.4f} ms, library {lib:.4f} ms "
                 f"({'forward' if kernel == 'forward' else 'backward, dQ+dK+dV'}"
                 f"), bound {b_ms:.5f} ms ({b_by}), {ms / b_ms:.1f}x bound, "
-                f"max|err| {err:.3g} (tol {tol})")
+                f"max|err| {err:.3g} (tol {tol})"
+                + ("" if kernel == "forward" else
+                   "; two launches equal bit for bit"))
     return rows
+
+
+def flash_cold_ms(torch, rng, dtype, T, causal, kernel, dev) -> float:
+    """A backward kernel's time with the L2 cold: operand sets (q, k, v,
+    g, mask and the forward's m, l, delta) cycled over COLD_BYTES, as
+    phase 9a times the merge kernel."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    fn = fa.fa_bwd_dkv_kernel if kernel == "dK/dV" else fa.fa_bwd_dq_kernel
+    sets = []
+    while sum(sum(t.numel() * t.element_size() for t in s[:8])
+              for s in sets) < COLD_BYTES:
+        q, k, v, g, pad = flash_operands(torch, rng, dtype, T, dev)
+        out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
+        sets.append((q, k, v, pad, g, m, l, fa._delta(g, out), causal))
+    try:
+        return time_ms_cold(torch, fn, sets)
+    finally:
+        del sets
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1127,12 +1159,11 @@ def merge_entry(rows, launches):
     }
 
 
-def run(torch, seed) -> list:
+def build_kernels(card) -> None:
+    """Phase 1: every kernel source, one nvcc each, all started together;
+    logs the build time and ptxas's register, shared-memory and spill
+    lines."""
     from kubeml_tpu_torch.ops import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -1142,6 +1173,14 @@ def run(torch, seed) -> list:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(card, f"ptxas {name}: {line.strip()}")
+
+
+def run(torch, seed) -> list:
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    build_kernels(card)
 
     rows = phase_kernels(torch, card, seed)
 
@@ -1193,6 +1232,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and inputs")
+    ap.add_argument("--flash-only", action="store_true",
+                    help="build the kernels and run phase 6 alone, then "
+                         "print its rows as one JSON line and no result "
+                         "line (to compare two trees' flash kernels in one "
+                         "session: copy this script into each tree and run "
+                         "it there)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1210,6 +1255,14 @@ def main(argv=None) -> int:
               f"this script ({e})", file=sys.stderr)
         return 1
     try:
+        if args.flash_only:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            card = card_line()
+            build_kernels(card)
+            rows = phase_flash(torch, card, args.seed)
+            print(json.dumps({"card": card, "flash": [
+                {"case": c, "kernel": k, **r} for (c, k), r in rows.items()]}))
+            return 0
         kernels, card = run(torch, args.seed)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

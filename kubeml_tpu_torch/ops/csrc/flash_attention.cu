@@ -698,6 +698,143 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------- backward (bf16, tensor cores)
+// The walked operands come through a ring of kStages shared-memory stages
+// filled by cp.async one and two steps ahead, so while step i is on the
+// tensor cores steps i + 1 and i + 2 are in flight.
+
+constexpr int kStages = 3;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; with
+// !valid the source size is 0 and the 16 bytes are zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + kTile) of head h of x [B, T, H, D] into dst (bf16 rows of
+// D + kPadE), asynchronously; rows past T are zeros
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst,
+                                          const bf16* __restrict__ x, int b,
+                                          int h, int r0, int T_, int H) {
+  constexpr int vpr = D / 8;
+#pragma unroll
+  for (int it = 0; it < kTile * vpr / kMmaThreads; ++it) {
+    const int i = it * kMmaThreads + threadIdx.x;
+    const int r = i / vpr, vc = i % vpr, t = r0 + r;
+    const bool ok = t < T_;
+    cp_async16(dst + r * (D + kPadE) + vc * 8,
+               x + ((static_cast<size_t>(b) * T_ + (ok ? t : T_ - 1)) * H +
+                    h) * D + vc * 8,
+               ok);
+  }
+}
+
+// src[r0 + i] for i < kTile into dst, asynchronously; zeros past T
+__device__ __forceinline__ void load_row(float* dst,
+                                         const float* __restrict__ src,
+                                         int r0, int T_) {
+  if (threadIdx.x < kTile) {
+    const int t = r0 + threadIdx.x;
+    cp_async4(dst + threadIdx.x, src + (t < T_ ? t : T_ - 1), t < T_);
+  }
+}
+
+// The tiles a backward block owns and, for each, the tiles it walks:
+// owned tile own[o] walks tiles first[o] .. first[o] + count[o] - 1. The
+// walk is one flat run of `steps` steps over the owned tiles in turn.
+struct Walk {
+  int own[2], first[2], count[2], n_own, steps;
+
+  // step s -> (owned slot, walked tile)
+  __device__ __forceinline__ int slot(int s) const {
+    return s < count[0] ? 0 : 1;
+  }
+  __device__ __forceinline__ int walked(int s) const {
+    return s < count[0] ? first[0] + s : first[1] + s - count[0];
+  }
+};
+
+// kv_owner: the block owns KV tiles and walks Q tiles (dK/dV); else the
+// reverse (dQ). Causal blocks walk only the tiles on or below the diagonal.
+__device__ __forceinline__ Walk make_walk(bool kv_owner, int n, int causal) {
+  Walk w;
+  w.n_own = 1;
+  w.own[0] = blockIdx.x;
+  w.own[1] = blockIdx.x;
+  w.steps = 0;
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    if (kv_owner) {
+      w.first[o] = causal ? w.own[o] : 0;
+      w.count[o] = n - w.first[o];
+    } else {
+      w.first[o] = 0;
+      w.count[o] = causal ? w.own[o] + 1 : n;
+    }
+    if (o < w.n_own) w.steps += w.count[o];
+  }
+  return w;
+}
+
+// write the warp's [16, D] register block (rows row0 + r0 + g, + 8 of
+// this warp) as bf16 rows of y [B, T, H, D], rows inside T
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* __restrict__ y,
+                                          const float (&acc)[D / 8][4],
+                                          int b, int h, int row0, int T_,
+                                          int H) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r0 + g + 8 * i;
+    if (row >= T_) continue;
+    bf16* out = y + ((static_cast<size_t>(b) * T_ + row) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n) =
+          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <int D>
+struct BwdSmem {
+  static constexpr int kTileElems = kTile * (D + kPadE);
+  // dK/dV: resident K, V of two owned tiles; per stage Q, dO and the m,
+  // l, delta rows of the walked Q tile
+  static constexpr size_t kDkv = 2 * (4 * kTileElems + kStages * 2 * kTileElems)
+                                 + 4 * kStages * 3 * kTile;
+  // dQ: resident Q, dO of two owned tiles; per stage K, V and the keep-mask
+  // of the walked KV tile
+  static constexpr size_t kDq = 2 * (4 * kTileElems + kStages * 2 * kTileElems)
+                                + 4 * kStages * kTile;
+};
+
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -705,61 +842,89 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
           const float* __restrict__ l_rows, const float* __restrict__ delta,
           bf16* __restrict__ dq, int T_, int H, int causal, float scale) {
-  constexpr int LD = D + kPadE;
-  extern __shared__ float smem[];
-  float* spad = smem;                                // [kTile]
-  bf16* sq = reinterpret_cast<bf16*>(spad + kTile);  // [kTile, LD] x 4
-  bf16* sg = sq + kTile * LD;
-  bf16* sk = sg + kTile * LD;
-  bf16* sv = sk + kTile * LD;
+  constexpr int LD = D + kPadE, TE = BwdSmem<D>::kTileElems;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* res = reinterpret_cast<bf16*>(smem_raw);   // [owned][Q, dO]
+  bf16* ring = res + 4 * TE;                       // [stage][K, V]
+  float* smask = reinterpret_cast<float*>(ring + kStages * 2 * TE);
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kTile;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
   const size_t base = static_cast<size_t>(bh) * T_;
+  const Walk w = make_walk(false, (T_ + kTile - 1) / kTile, causal);
 
-  stage_bf16<D>(sq, LD, q, b, h, q0, T_, H);
-  stage_bf16<D>(sg, LD, g_out, b, h, q0, T_, H);
-  float mr[2], lr[2], dr[2];   // m, l, delta of this lane's two rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + g + 8 * i;
-    const bool in = row < T_;
-    mr[i] = in ? m_rows[base + row] : 0.0f;
-    lr[i] = in ? l_rows[base + row] : 1.0f;
-    dr[i] = in ? delta[base + row] : 0.0f;
+  auto issue = [&](int s) {
+    const int k0 = w.walked(s) * kTile, st = s % kStages;
+    load_tile<D>(ring + st * 2 * TE, k, b, h, k0, T_, H);
+    load_tile<D>(ring + st * 2 * TE + TE, v, b, h, k0, T_, H);
+    load_row(smask + st * kTile, mask + static_cast<size_t>(b) * T_, k0, T_);
+  };
+  for (int o = 0; o < w.n_own; ++o) {
+    load_tile<D>(res + 2 * o * TE, q, b, h, w.own[o] * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TE + TE, g_out, b, h, w.own[o] * kTile, T_, H);
   }
-  float acc[D / 8][4] = {};
-  const int n_kv = (T_ + kTile - 1) / kTile;
-  const int kv_end = causal ? min(n_kv, static_cast<int>(blockIdx.x) + 1)
-                            : n_kv;
-  for (int jt = 0; jt < kv_end; ++jt) {
-    const int k0 = jt * kTile;
-    __syncthreads();
-    stage_bf16<D>(sk, LD, k, b, h, k0, T_, H);
-    stage_bf16<D>(sv, LD, v, b, h, k0, T_, H);
-    stage_pad(spad, mask, b, k0, T_);
-    __syncthreads();
+  issue(0);
+  cp_async_commit();
+  if (w.steps > 1) issue(1);
+  cp_async_commit();
 
-    float s[8][4] = {}, dp[8][4] = {};
-    warp_mma<8, D>(s, sq, LD, r0, sk, LD);
+  // m, l, delta of this lane's two rows of each owned tile
+  float mr[2][2], lr[2][2], dr[2][2];
+#pragma unroll
+  for (int o = 0; o < 2; ++o)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = w.own[o] * kTile + r0 + g + 8 * i;
+      const bool in = row < T_;
+      mr[o][i] = in ? m_rows[base + row] : 0.0f;
+      lr[o][i] = in ? l_rows[base + row] : 1.0f;
+      dr[o][i] = in ? delta[base + row] : 0.0f;
+    }
+
+  float acc[D / 8][4] = {};
+  for (int s = 0; s < w.steps; ++s) {
+    cp_async_wait<1>();   // step s has landed ...
+    __syncthreads();      // ... for every thread, and step s - 1 is done
+    if (s + 2 < w.steps) issue(s + 2);   // into step s - 1's stage
+    cp_async_commit();
+
+    const int o = w.slot(s), st = s % kStages;
+    const int q0 = w.own[o] * kTile, k0 = w.walked(s) * kTile;
+    const bf16* sq = res + 2 * o * TE;
+    const bf16* sg = sq + TE;
+    const bf16* sk = ring + st * 2 * TE;
+    const bf16* sv = sk + TE;
+    const float* sm = smask + st * kTile;
+    float s_[8][4] = {}, dp[8][4] = {};
+    warp_mma<8, D>(s_, sq, LD, r0, sk, LD);
     warp_mma<8, D>(dp, sg, LD, r0, sv, LD);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
+        const float m_i = o ? mr[1][i] : mr[0][i];
+        const float l_i = o ? lr[1][i] : lr[0][i];
+        const float d_i = o ? dr[1][i] : dr[0][i];
         float p = 0.0f;
-        if (k0 + c < T_)
-          p = __fdiv_rn(expf(score(s[n][e], scale, spad[c], causal,
-                                   q0 + r0 + g + 8 * i, k0 + c) - mr[i]),
-                        lr[i]);
-        s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], dr[i])), scale);
+        if (k0 + c < T_) {
+          const float pad = __fmul_rn(__fsub_rn(1.0f, sm[c]), kNegInf);
+          p = __fdiv_rn(expf(score(s_[n][e], scale, pad, causal,
+                                   q0 + r0 + g + 8 * i, k0 + c) - m_i),
+                        l_i);
+        }
+        s_[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], d_i)), scale);
       }
-    warp_mma_p<D / 8>(acc, s, sk, LD);
+    warp_mma_p<D / 8>(acc, s_, sk, LD);
+    if (w.n_own > 1 && s == w.count[0] - 1) {   // the first owned tile is done
+      store_acc<D>(dq, acc, b, h, q0, T_, H);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    }
   }
-  const float one[2] = {1.0f, 1.0f};
-  store_mma<D>(dq, acc, one, b, h, q0, r0, T_, H);
+  store_acc<D>(dq, acc, b, h, w.own[w.n_own - 1] * kTile, T_, H);
 }
 
 template <int D>
@@ -770,37 +935,64 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const float* __restrict__ l_rows, const float* __restrict__ delta,
            bf16* __restrict__ dk, bf16* __restrict__ dv, int T_, int H,
            int causal, float scale) {
-  constexpr int LD = D + kPadE;
-  extern __shared__ float smem[];
-  float* spad = smem;                                // [kTile] of the keys
-  float* smr = spad + kTile;                         // [kTile] m, l, delta
-  float* slr = smr + kTile;                          //   of the Q tile rows
-  float* sdr = slr + kTile;
-  bf16* sk = reinterpret_cast<bf16*>(sdr + kTile);   // [kTile, LD] x 4
-  bf16* sv = sk + kTile * LD;
-  bf16* sq = sv + kTile * LD;
-  bf16* sg = sq + kTile * LD;
+  constexpr int LD = D + kPadE, TE = BwdSmem<D>::kTileElems;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* res = reinterpret_cast<bf16*>(smem_raw);   // [owned][K, V]
+  bf16* ring = res + 4 * TE;                       // [stage][Q, dO]
+  float* srows = reinterpret_cast<float*>(ring + kStages * 2 * TE);
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.x * kTile;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
   const size_t base = static_cast<size_t>(bh) * T_;
+  const Walk w = make_walk(true, (T_ + kTile - 1) / kTile, causal);
 
-  stage_bf16<D>(sk, LD, k, b, h, k0, T_, H);
-  stage_bf16<D>(sv, LD, v, b, h, k0, T_, H);
-  stage_pad(spad, mask, b, k0, T_);
+  auto issue = [&](int s) {
+    const int q0 = w.walked(s) * kTile, st = s % kStages;
+    load_tile<D>(ring + st * 2 * TE, q, b, h, q0, T_, H);
+    load_tile<D>(ring + st * 2 * TE + TE, g_out, b, h, q0, T_, H);
+    float* sr = srows + st * 3 * kTile;
+    load_row(sr, m_rows + base, q0, T_);
+    load_row(sr + kTile, l_rows + base, q0, T_);
+    load_row(sr + 2 * kTile, delta + base, q0, T_);
+  };
+  for (int o = 0; o < w.n_own; ++o) {
+    load_tile<D>(res + 2 * o * TE, k, b, h, w.own[o] * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TE + TE, v, b, h, w.own[o] * kTile, T_, H);
+  }
+  issue(0);
+  cp_async_commit();
+  if (w.steps > 1) issue(1);
+  cp_async_commit();
+
+  // pad terms of this lane's two keys of each owned tile
+  float pad[2][2];
+#pragma unroll
+  for (int o = 0; o < 2; ++o)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = w.own[o] * kTile + r0 + g + 8 * i;
+      pad[o][i] = key < T_ ? __fmul_rn(__fsub_rn(1.0f,
+                                                 mask[static_cast<size_t>(b) * T_ + key]),
+                                       kNegInf)
+                           : 0.0f;
+    }
+
   float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-  const int n_q = (T_ + kTile - 1) / kTile;
-  for (int it = causal ? blockIdx.x : 0; it < n_q; ++it) {
-    const int q0 = it * kTile;
+  for (int s = 0; s < w.steps; ++s) {
+    cp_async_wait<1>();
     __syncthreads();
-    stage_bf16<D>(sq, LD, q, b, h, q0, T_, H);
-    stage_bf16<D>(sg, LD, g_out, b, h, q0, T_, H);
-    stage_vec(smr, m_rows, base, q0, T_, 0.0f);
-    stage_vec(slr, l_rows, base, q0, T_, 1.0f);
-    stage_vec(sdr, delta, base, q0, T_, 0.0f);
-    __syncthreads();
+    if (s + 2 < w.steps) issue(s + 2);
+    cp_async_commit();
 
+    const int o = w.slot(s), st = s % kStages;
+    const int k0 = w.own[o] * kTile, q0 = w.walked(s) * kTile;
+    const bf16* sk = res + 2 * o * TE;
+    const bf16* sv = sk + TE;
+    const bf16* sq = ring + st * 2 * TE;
+    const bf16* sg = sq + TE;
+    const float* smr = srows + st * 3 * kTile;
+    const float* slr = smr + kTile;
+    const float* sdr = slr + kTile;
     // transposed blocks: rows are this warp's keys, columns the Q tile's rows
     float p[8][4] = {}, ds[8][4] = {};
     warp_mma<8, D>(p, sk, LD, r0, sq, LD);
@@ -809,11 +1001,13 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = r0 + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
+        const int i = e >> 1, key = r0 + g + 8 * i;
+        const int c = 8 * n + 2 * t + (e & 1);
+        const float pad_i = o ? pad[1][i] : pad[0][i];
         float pv = 0.0f;
-        if (k0 + key < T_)
-          pv = __fdiv_rn(expf(score(p[n][e], scale, spad[key], causal,
-                                    q0 + c, k0 + key) - smr[c]),
+        if (k0 + key < T_ && q0 + c < T_)
+          pv = __fdiv_rn(expf(score(p[n][e], scale, pad_i, causal, q0 + c,
+                                    k0 + key) - smr[c]),
                          slr[c]);
         p[n][e] = pv;
         ds[n][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[n][e], sdr[c])),
@@ -821,23 +1015,37 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     warp_mma_p<D / 8>(dv_acc, p, sg, LD);
     warp_mma_p<D / 8>(dk_acc, ds, sq, LD);
+    if (w.n_own > 1 && s == w.count[0] - 1) {
+      store_acc<D>(dk, dk_acc, b, h, k0, T_, H);
+      store_acc<D>(dv, dv_acc, b, h, k0, T_, H);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+    }
   }
-  const float one[2] = {1.0f, 1.0f};
-  store_mma<D>(dk, dk_acc, one, b, h, k0, r0, T_, H);
-  store_mma<D>(dv, dv_acc, one, b, h, k0, r0, T_, H);
+  const int k_last = w.own[w.n_own - 1] * kTile;
+  store_acc<D>(dk, dk_acc, b, h, k_last, T_, H);
+  store_acc<D>(dv, dv_acc, b, h, k_last, T_, H);
 }
 
 // Shared memory (bytes) of one block of each kernel: 0 forward, 1 dK/dV,
 // 2 dQ, on the FMA path or (bf16 with a tensor-core head_dim) the mma path.
 // The Python wrapper reads it through kubeml_flash_smem_bytes and checks it
 // against the card's limit before launching.
+template <int D>
+size_t bwd_smem(int kernel) {
+  return kernel == 1 ? BwdSmem<D>::kDkv : BwdSmem<D>::kDq;
+}
+
 size_t smem_bytes(int kernel, int D, bool bf16_in) {
   if (bf16_in && mma_head_dim(D)) {
-    const size_t rows = static_cast<size_t>(kTile) * (D + kPadE) * 2;
-    switch (kernel) {
-      case 0: return 4 * kTile + 3 * rows;
-      case 1: return 16 * kTile + 4 * rows;
-      default: return 4 * kTile + 4 * rows;
+    if (kernel == 0) return 4 * kTile + 3 * static_cast<size_t>(kTile) * (D + kPadE) * 2;
+    switch (D) {
+      case 16: return bwd_smem<16>(kernel);
+      case 32: return bwd_smem<32>(kernel);
+      case 64: return bwd_smem<64>(kernel);
+      default: return bwd_smem<128>(kernel);
     }
   }
   const size_t rows = static_cast<size_t>(kTile) * (D + 1);
@@ -857,17 +1065,24 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// one block per 64-row tile and (batch, head)
 dim3 grid_for(int B, int T_, int H) {
   return dim3((T_ + kTile - 1) / kTile, B * H);
 }
 
+// the tensor-core backward: one block per owned tile (see make_walk)
+dim3 grid_bwd(int B, int T_, int H, int causal) {
+  (void)causal;
+  return grid_for(B, T_, H);
+}
+
 // one launch: the kernel's shared-memory opt-in, then the launch itself
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, int B, int T_,
-                   int H, cudaStream_t stream, Args... args) {
+cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
+                   cudaStream_t stream, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid_for(B, T_, H), threads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -892,17 +1107,17 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v);
     bf16* ob = static_cast<bf16*>(out);
 #define KUBEML_FWD(DD)                                                      \
-  launch(fa_fwd_mma<DD>, kMmaThreads, smem, B, T_, H, st, qb, kb, vb, msk, \
+  launch(fa_fwd_mma<DD>, kMmaThreads, smem, grid_for(B, T_, H), st, qb, kb, vb, msk, \
          ob, mo, lo, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_FWD)
 #undef KUBEML_FWD
   }
   if (bf16_in)
-    return launch(fa_fwd_kernel<bf16>, kThreads, smem, B, T_, H, st,
+    return launch(fa_fwd_kernel<bf16>, kThreads, smem, grid_for(B, T_, H), st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), msk, static_cast<bf16*>(out),
                   mo, lo, T_, H, D, causal, scale);
-  return launch(fa_fwd_kernel<float>, kThreads, smem, B, T_, H, st,
+  return launch(fa_fwd_kernel<float>, kThreads, smem, grid_for(B, T_, H), st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), msk, static_cast<float*>(out),
                 mo, lo, T_, H, D, causal, scale);
@@ -923,19 +1138,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(g);
     bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
 #define KUBEML_DKV(DD)                                                      \
-  launch(fa_dkv_mma<DD>, kMmaThreads, smem, B, T_, H, st, qb, kb, vb, msk, \
+  launch(fa_dkv_mma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          gb, mr, lr, dr, dkb, dvb, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_DKV)
 #undef KUBEML_DKV
   }
   if (bf16_in)
-    return launch(fa_dkv_kernel<bf16>, kThreads, smem, B, T_, H, st,
+    return launch(fa_dkv_kernel<bf16>, kThreads, smem, grid_for(B, T_, H), st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), msk,
                   static_cast<const bf16*>(g), mr, lr, dr,
                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), T_, H, D,
                   causal, scale);
-  return launch(fa_dkv_kernel<float>, kThreads, smem, B, T_, H, st,
+  return launch(fa_dkv_kernel<float>, kThreads, smem, grid_for(B, T_, H), st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), msk,
                 static_cast<const float*>(g), mr, lr, dr,
@@ -958,18 +1173,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(g);
     bf16* dqb = static_cast<bf16*>(dq);
 #define KUBEML_DQ(DD)                                                      \
-  launch(fa_dq_mma<DD>, kMmaThreads, smem, B, T_, H, st, qb, kb, vb, msk, \
+  launch(fa_dq_mma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          gb, mr, lr, dr, dqb, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_DQ)
 #undef KUBEML_DQ
   }
   if (bf16_in)
-    return launch(fa_dq_kernel<bf16>, kThreads, smem, B, T_, H, st,
+    return launch(fa_dq_kernel<bf16>, kThreads, smem, grid_for(B, T_, H), st,
                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), msk,
                   static_cast<const bf16*>(g), mr, lr, dr,
                   static_cast<bf16*>(dq), T_, H, D, causal, scale);
-  return launch(fa_dq_kernel<float>, kThreads, smem, B, T_, H, st,
+  return launch(fa_dq_kernel<float>, kThreads, smem, grid_for(B, T_, H), st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), msk,
                 static_cast<const float*>(g), mr, lr, dr,

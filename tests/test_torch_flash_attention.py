@@ -169,6 +169,67 @@ def test_autograd_grads_match_jax_grad(causal):
     assert torch.count_nonzero(tpad.grad) == 0
 
 
+# tile edges of the card's backward schedule (64-row tiles): one row, one
+# whole tile, one row past it, an odd tile count (5) and an even one (8)
+EDGE_T = (1, 64, 65, 320, 512)
+
+
+def _right_padded(seed, T):
+    """q, k, v, g (normal) and a right-padding keep-mask: sequence 0 full,
+    1 ending in padding after ceil(T/2) tokens, 2 fully padded."""
+    q, k, v, g, _ = _inputs(seed, T=T)
+    lengths = np.array([T, -(-T // 2), 0])
+    pad = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    return q, k, v, g, pad
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t_len", EDGE_T)
+def test_plain_backward_matches_jax_at_tile_edges(t_len, causal):
+    """The plain dK/dV and dQ — what the card's kernels are held to —
+    against the JAX package at the backward schedule's tile edges, f32,
+    right padding. Where the JAX kernels tile T (64, 320, 512: 64-row
+    blocks) its _fa_backward runs in interpret mode on its own forward's
+    (out, m, l); they refuse T = 1 and 65 (no 8-aligned block divides T),
+    so there the reference is jax.vjp of the JAX package's attention chain
+    (multi_head_attention with composed_bias), the path its masked
+    attention takes for such T."""
+    import jax
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops import attention as jatt
+    from kubeml_tpu.ops.pallas.flash_attention import (_fa_backward,
+                                                       _fa_forward,
+                                                       _fit_block)
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, pad = _right_padded(13 + t_len + causal, t_len)
+    jq, jk, jv, jg, jpad = (jnp.asarray(a) for a in (q, k, v, g, pad))
+    tq, tk, tv, tg, tpad = (torch.from_numpy(a) for a in (q, k, v, g, pad))
+    if t_len % 64 == 0:
+        out, m, l = _fa_forward(jq, jk, jv, jpad, causal, 64, 64, True)
+        ref = _fa_backward(jq, jk, jv, jpad, out, m, l, jg, causal, 64, 64,
+                           True)
+        t_out = torch.tensor(np.asarray(out))
+        t_m, t_l = torch.tensor(np.asarray(m)), torch.tensor(np.asarray(l))
+    else:
+        with pytest.raises(ValueError, match="block-aligned"):
+            _fit_block(64, t_len)
+        bias = jatt.composed_bias(jpad, causal, t_len)
+        _, vjp = jax.vjp(
+            lambda a, b, c: jatt.multi_head_attention(a, b, c, bias),
+            jq, jk, jv)
+        ref = vjp(jg)
+        t_out, t_m, t_l = fa._fa_forward_plain(tq, tk, tv, tpad, causal)
+    delta = fa._delta(tg, t_out)
+    args = (tq, tk, tv, tpad, tg, t_m, t_l, delta, causal)
+    dk, dv = fa._fa_bwd_dkv_plain(*args)
+    dq = fa._fa_bwd_dq_plain(*args)
+    for a, r in zip((dq, dk, dv), ref):
+        assert a.shape == (3, t_len, H, D)
+        _close(a, r, _tol("f32", grad=True))
+
+
 def test_ragged_t_plain_matches_reference_chain():
     """Any T >= 1 works (no tiling gate): at T = 37 the plain forward
     equals the shared attention chain with the composed bias."""
@@ -245,6 +306,10 @@ GPU_CASES = [  # (dtype, T, causal, head_dim)
     # only the FMA kernels take
     ("bf16", 130, True, 32), ("bf16", 130, True, 64), ("bf16", 130, True, 128),
     ("bf16", 77, False, 24),
+    # tile edges of the backward's schedule (EDGE_T): causal blocks own a
+    # pair of tiles, an odd tile count leaves the middle tile alone
+    *[("bf16", t_len, causal, head_dim) for t_len in EDGE_T
+      for causal in (True, False) for head_dim in (64, 128)],
 ]
 
 
@@ -281,3 +346,28 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, t_len, causal,
     ref_dq = fa._fa_bwd_dq_plain(q, k, v, pad, g, m, l, delta, causal)
     for a, b in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_len,causal,head_dim",
+                         [(320, True, 64), (512, True, 128), (65, False, 64),
+                          (200, True, 32)])
+def test_backward_kernels_deterministic_on_card(cuda_device, t_len, causal,
+                                                head_dim):
+    """No atomics: two launches of each backward kernel on the same inputs
+    are equal bit for bit."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(t_len + head_dim)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (B, t_len, H, head_dim)).astype(np.float32)).to(cuda_device,
+                                                        torch.bfloat16)
+        for _ in range(4))
+    pad = torch.from_numpy(_right_padded(0, t_len)[4]).to(cuda_device)
+    out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
+    args = (q, k, v, pad, g, m, l, fa._delta(g, out), causal)
+    first = (*fa.fa_bwd_dkv_kernel(*args), fa.fa_bwd_dq_kernel(*args))
+    second = (*fa.fa_bwd_dkv_kernel(*args), fa.fa_bwd_dq_kernel(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
