@@ -780,12 +780,18 @@ struct Walk {
 };
 
 // kv_owner: the block owns KV tiles and walks Q tiles (dK/dV); else the
-// reverse (dQ). Causal blocks walk only the tiles on or below the diagonal.
+// reverse (dQ). Causal blocks walk only the tiles on or below the diagonal,
+// so owned tile j walks n - j tiles (dK/dV) or j + 1 (dQ); block p owns
+// the pair (p, n - 1 - p), which walks n + 1 tiles whichever kernel, and
+// for odd n the middle tile goes alone. Non-causal blocks own one tile.
+// Every allowed (Q tile, KV tile) pair is walked exactly once.
 __device__ __forceinline__ Walk make_walk(bool kv_owner, int n, int causal) {
   Walk w;
-  w.n_own = 1;
-  w.own[0] = blockIdx.x;
-  w.own[1] = blockIdx.x;
+  const int p = blockIdx.x;
+  w.own[0] = p;
+  w.own[1] = n - 1 - p;
+  w.n_own = causal && w.own[1] != p ? 2 : 1;
+  if (w.n_own == 1) w.own[1] = p;
   w.steps = 0;
 #pragma unroll
   for (int o = 0; o < 2; ++o) {
@@ -1070,10 +1076,11 @@ dim3 grid_for(int B, int T_, int H) {
   return dim3((T_ + kTile - 1) / kTile, B * H);
 }
 
-// the tensor-core backward: one block per owned tile (see make_walk)
+// the tensor-core backward: one block per owned tile, or per pair of
+// owned tiles when causal (see make_walk)
 dim3 grid_bwd(int B, int T_, int H, int causal) {
-  (void)causal;
-  return grid_for(B, T_, H);
+  const int n = (T_ + kTile - 1) / kTile;
+  return dim3(causal ? (n + 1) / 2 : n, B * H);
 }
 
 // one launch: the kernel's shared-memory opt-in, then the launch itself
