@@ -69,6 +69,7 @@ constexpr int kMaxD = 128;             // head_dim limit
 constexpr int kChunks = kMaxD / kTile; // 64-wide column chunks of a head
 constexpr int kLdp = kTile + 1;        // row stride of [64, 64] score tiles
 constexpr float kNegInf = -1e9f;       // the reference's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -770,6 +771,10 @@ __device__ __forceinline__ void load_row(float* dst,
 struct Walk {
   int own[2], first[2], count[2], n_own, steps;
 
+  // owned tile of slot o (a select: no runtime index into the arrays)
+  __device__ __forceinline__ int tile(int o) const {
+    return o ? own[1] : own[0];
+  }
   // step s -> (owned slot, walked tile)
   __device__ __forceinline__ int slot(int s) const {
     return s < count[0] ? 0 : 1;
@@ -866,24 +871,24 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_row(smask + st * kTile, mask + static_cast<size_t>(b) * T_, k0, T_);
   };
   for (int o = 0; o < w.n_own; ++o) {
-    load_tile<D>(res + 2 * o * TE, q, b, h, w.own[o] * kTile, T_, H);
-    load_tile<D>(res + 2 * o * TE + TE, g_out, b, h, w.own[o] * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TE, q, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TE + TE, g_out, b, h, w.tile(o) * kTile, T_, H);
   }
   issue(0);
   cp_async_commit();
   if (w.steps > 1) issue(1);
   cp_async_commit();
 
-  // m, l, delta of this lane's two rows of each owned tile
-  float mr[2][2], lr[2][2], dr[2][2];
+  // m, 1/l, delta of this lane's two rows of each owned tile
+  float mr[2][2], ilr[2][2], dr[2][2];
 #pragma unroll
   for (int o = 0; o < 2; ++o)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = w.own[o] * kTile + r0 + g + 8 * i;
+      const int row = w.tile(o) * kTile + r0 + g + 8 * i;
       const bool in = row < T_;
       mr[o][i] = in ? m_rows[base + row] : 0.0f;
-      lr[o][i] = in ? l_rows[base + row] : 1.0f;
+      ilr[o][i] = in ? __frcp_rn(l_rows[base + row]) : 0.0f;
       dr[o][i] = in ? delta[base + row] : 0.0f;
     }
 
@@ -895,7 +900,7 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     const int o = w.slot(s), st = s % kStages;
-    const int q0 = w.own[o] * kTile, k0 = w.walked(s) * kTile;
+    const int q0 = w.tile(o) * kTile, k0 = w.walked(s) * kTile;
     const bf16* sq = res + 2 * o * TE;
     const bf16* sg = sq + TE;
     const bf16* sk = ring + st * 2 * TE;
@@ -904,23 +909,31 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s_[8][4] = {}, dp[8][4] = {};
     warp_mma<8, D>(s_, sq, LD, r0, sk, LD);
     warp_mma<8, D>(dp, sg, LD, r0, sv, LD);
+    // ds in place of s; only a tile that crosses the diagonal or holds
+    // columns past T (the last one) checks each element
+    auto epilogue = [&](auto edge) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
-        const float m_i = o ? mr[1][i] : mr[0][i];
-        const float l_i = o ? lr[1][i] : lr[0][i];
-        const float d_i = o ? dr[1][i] : dr[0][i];
-        float p = 0.0f;
-        if (k0 + c < T_) {
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
           const float pad = __fmul_rn(__fsub_rn(1.0f, sm[c]), kNegInf);
-          p = __fdiv_rn(expf(score(s_[n][e], scale, pad, causal,
-                                   q0 + r0 + g + 8 * i, k0 + c) - m_i),
-                        l_i);
+          float x = __fadd_rn(__fmul_rn(s_[n][e], scale), pad);
+          if (decltype(edge)::value && causal)
+            x = __fadd_rn(x, q0 + r0 + g + 8 * i >= k0 + c ? 0.0f : kNegInf);
+          float p = exp2f(__fmul_rn(__fsub_rn(x, o ? mr[1][i] : mr[0][i]),
+                                    kLog2e)) *
+                    (o ? ilr[1][i] : ilr[0][i]);
+          if (decltype(edge)::value && k0 + c >= T_) p = 0.0f;
+          s_[n][e] = __fmul_rn(
+              __fmul_rn(p, __fsub_rn(dp[n][e], o ? dr[1][i] : dr[0][i])),
+              scale);
         }
-        s_[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], d_i)), scale);
-      }
+    };
+    if ((causal && k0 == q0) || k0 + kTile > T_)
+      epilogue(std::true_type{});
+    else
+      epilogue(std::false_type{});
     warp_mma_p<D / 8>(acc, s_, sk, LD);
     if (w.n_own > 1 && s == w.count[0] - 1) {   // the first owned tile is done
       store_acc<D>(dq, acc, b, h, q0, T_, H);
@@ -930,7 +943,7 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
     }
   }
-  store_acc<D>(dq, acc, b, h, w.own[w.n_own - 1] * kTile, T_, H);
+  store_acc<D>(dq, acc, b, h, w.tile(w.n_own - 1) * kTile, T_, H);
 }
 
 template <int D>
@@ -962,8 +975,8 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_row(sr + 2 * kTile, delta + base, q0, T_);
   };
   for (int o = 0; o < w.n_own; ++o) {
-    load_tile<D>(res + 2 * o * TE, k, b, h, w.own[o] * kTile, T_, H);
-    load_tile<D>(res + 2 * o * TE + TE, v, b, h, w.own[o] * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TE, k, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TE + TE, v, b, h, w.tile(o) * kTile, T_, H);
   }
   issue(0);
   cp_async_commit();
@@ -976,7 +989,7 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int o = 0; o < 2; ++o)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int key = w.own[o] * kTile + r0 + g + 8 * i;
+      const int key = w.tile(o) * kTile + r0 + g + 8 * i;
       pad[o][i] = key < T_ ? __fmul_rn(__fsub_rn(1.0f,
                                                  mask[static_cast<size_t>(b) * T_ + key]),
                                        kNegInf)
@@ -991,7 +1004,7 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     const int o = w.slot(s), st = s % kStages;
-    const int k0 = w.own[o] * kTile, q0 = w.walked(s) * kTile;
+    const int k0 = w.tile(o) * kTile, q0 = w.walked(s) * kTile;
     const bf16* sk = res + 2 * o * TE;
     const bf16* sv = sk + TE;
     const bf16* sq = ring + st * 2 * TE;
@@ -1003,22 +1016,43 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float p[8][4] = {}, ds[8][4] = {};
     warp_mma<8, D>(p, sk, LD, r0, sq, LD);
     warp_mma<8, D>(ds, sv, LD, r0, sg, LD);
+    // m, 1/l and delta of this lane's 16 Q rows (columns); a row past T
+    // was zero-filled, so its 1/l is 0 and its p and ds are 0. Keys past T
+    // need no mask: their dK, dV rows are never stored.
+    float cm[8][2], cil[8][2], cd[8][2];
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, key = r0 + g + 8 * i;
-        const int c = 8 * n + 2 * t + (e & 1);
-        const float pad_i = o ? pad[1][i] : pad[0][i];
-        float pv = 0.0f;
-        if (k0 + key < T_ && q0 + c < T_)
-          pv = __fdiv_rn(expf(score(p[n][e], scale, pad_i, causal, q0 + c,
-                                    k0 + key) - smr[c]),
-                         slr[c]);
-        p[n][e] = pv;
-        ds[n][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[n][e], sdr[c])),
-                             scale);
+      for (int j = 0; j < 2; ++j) {
+        const int c = 8 * n + 2 * t + j;
+        cm[n][j] = smr[c];
+        cil[n][j] = slr[c] > 0.0f ? __frcp_rn(slr[c]) : 0.0f;
+        cd[n][j] = sdr[c];
       }
+    // only the diagonal tile (the first a causal owned tile walks) needs
+    // the causal term
+    auto epilogue = [&](auto diag) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, j = e & 1;
+          float x = __fadd_rn(__fmul_rn(p[n][e], scale),
+                              o ? pad[1][i] : pad[0][i]);
+          if (decltype(diag)::value)
+            x = __fadd_rn(x, 8 * n + 2 * t + j >= r0 + g + 8 * i ? 0.0f
+                                                                 : kNegInf);
+          const float pv =
+              exp2f(__fmul_rn(__fsub_rn(x, cm[n][j]), kLog2e)) * cil[n][j];
+          p[n][e] = pv;
+          ds[n][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[n][e], cd[n][j])),
+                               scale);
+        }
+    };
+    if (causal && q0 == k0)
+      epilogue(std::true_type{});
+    else
+      epilogue(std::false_type{});
     warp_mma_p<D / 8>(dv_acc, p, sg, LD);
     warp_mma_p<D / 8>(dk_acc, ds, sq, LD);
     if (w.n_own > 1 && s == w.count[0] - 1) {
@@ -1030,7 +1064,7 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
     }
   }
-  const int k_last = w.own[w.n_own - 1] * kTile;
+  const int k_last = w.tile(w.n_own - 1) * kTile;
   store_acc<D>(dk, dk_acc, b, h, k_last, T_, H);
   store_acc<D>(dv, dv_acc, b, h, k_last, T_, H);
 }
