@@ -736,23 +736,173 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + kTile) of head h of x [B, T, H, D] into dst (bf16 rows of
-// D + kPadE), asynchronously; rows past T are zeros
+// A [64, D] bf16 tile in shared memory as wgmma reads it: D / 64 column
+// blocks (one when D <= 64) of 64 rows of kRowBytes = 2 min(D, 64) bytes,
+// the 16-byte chunks of each row XOR-swizzled with the row's low bits
+// (wgmma's 128-byte swizzle for D = 64 and 128, 64-byte for 32, 32-byte
+// for 16), so neither the copies nor wgmma's reads conflict on banks.
+// Tiles start on 1024-byte boundaries, where the swizzle pattern repeats.
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst,
+struct WgTile {
+  static constexpr int kRowBytes = 2 * (D < 64 ? D : 64);
+  static constexpr int kChunks = kRowBytes / 16;   // per row of a block
+  static constexpr int kBlockBytes = kTile * kRowBytes;
+  static constexpr int kBytes = kTile * D * 2;
+  static constexpr uint64_t kMode = D >= 64 ? 1 : D == 32 ? 2 : 3;
+};
+
+// rows [r0, r0 + kTile) of head h of x [B, T, H, D] into the tile at dst,
+// asynchronously; rows past T are zeros
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
                                           const bf16* __restrict__ x, int b,
                                           int h, int r0, int T_, int H) {
-  constexpr int vpr = D / 8;
+  using L = WgTile<D>;
+  constexpr int vpr = D / 8;   // 16-byte chunks per row of x
 #pragma unroll
   for (int it = 0; it < kTile * vpr / kMmaThreads; ++it) {
     const int i = it * kMmaThreads + threadIdx.x;
     const int r = i / vpr, vc = i % vpr, t = r0 + r;
     const bool ok = t < T_;
-    cp_async16(dst + r * (D + kPadE) + vc * 8,
+    uint32_t off = (vc / L::kChunks) * L::kBlockBytes + r * L::kRowBytes +
+                   (vc % L::kChunks) * 16;
+    off ^= ((off >> 7) & (L::kChunks - 1)) << 4;
+    cp_async16(dst + off,
                x + ((static_cast<size_t>(b) * T_ + (ok ? t : T_ - 1)) * H +
                     h) * D + vc * 8,
                ok);
   }
+}
+
+// wgmma's shared-memory matrix descriptor of a swizzled tile region: start
+// address, leading byte offset (lbo), stride byte offset (8 rows), swizzle
+template <int D>
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo) {
+  using L = WgTile<D>;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>((8 * L::kRowBytes) >> 4) << 32 | L::kMode << 62;
+}
+
+// the tile as a K-major operand (its rows are M or N, D is K): k16 slice kk
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using L = WgTile<D>;
+  return wg_desc<D>(tile + (kk / 4) * L::kBlockBytes + (kk % 4) * 32, 16);
+}
+
+// the tile as an MN-major operand (its rows are K, D is N): rows
+// 16 j .. 16 j + 15, the N columns of block c
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int j, int c) {
+  using L = WgTile<D>;
+  return wg_desc<D>(tile + c * L::kBlockBytes + j * 16 * L::kRowBytes,
+                    L::kBlockBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// copies that landed through cp.async become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving reads of accumulators above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (+)= A . B^T for one k16 slice, m64n64k16, A and B K-major tiles in
+// shared memory (descriptors); the slice accumulates into d unless `acc`
+// is 0 (then d's input is ignored)
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D += A . B for one k16 slice, m64nNk16: A a register fragment (the
+// accumulator layout of a previous product, rounded to bf16), B an MN-major
+// tile in shared memory (transposed: imm-trans-b = 1)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // src[r0 + i] for i < kTile into dst, asynchronously; zeros past T
@@ -812,13 +962,23 @@ __device__ __forceinline__ Walk make_walk(bool kv_owner, int n, int causal) {
   return w;
 }
 
-// write the warp's [16, D] register block (rows row0 + r0 + g, + 8 of
-// this warp) as bf16 rows of y [B, T, H, D], rows inside T
+// Accumulators of a [64, D] wgmma product, per thread: Acc<D>::kBlocks
+// blocks of Acc<D>::kRegs floats, one block per 64 columns (one m64nNk16
+// accumulator each, N = min(D, 64)). Register 4 n + e of a block holds row
+// 16 warp + g + 8 (e >> 1), column 8 n + 2 t + (e & 1) of that block.
 template <int D>
-__device__ __forceinline__ void store_acc(bf16* __restrict__ y,
-                                          const float (&acc)[D / 8][4],
-                                          int b, int h, int row0, int T_,
-                                          int H) {
+struct Acc {
+  static constexpr int kBlocks = D > 64 ? D / 64 : 1;
+  static constexpr int kN = D > 64 ? 64 : D;
+  static constexpr int kRegs = kN / 2;
+};
+
+// write a [64, D] accumulator as bf16 rows row0 .. row0 + 63 of y
+// [B, T, H, D], rows inside T
+template <int D>
+__device__ __forceinline__ void store_acc(
+    bf16* __restrict__ y, const float (&acc)[Acc<D>::kBlocks][Acc<D>::kRegs],
+    int b, int h, int row0, int T_, int H) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
 #pragma unroll
@@ -827,37 +987,87 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ y,
     if (row >= T_) continue;
     bf16* out = y + ((static_cast<size_t>(b) * T_ + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + 8 * n) =
-          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+      for (int n = 0; n < Acc<D>::kN / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + 64 * c + 8 * n) =
+            pack_bf16(acc[c][4 * n + 2 * i], acc[c][4 * n + 2 * i + 1]);
   }
 }
 
 template <int D>
-struct BwdSmem {
-  static constexpr int kTileElems = kTile * (D + kPadE);
-  // dK/dV: resident K, V of two owned tiles; per stage Q, dO and the m,
-  // l, delta rows of the walked Q tile
-  static constexpr size_t kDkv = 2 * (4 * kTileElems + kStages * 2 * kTileElems)
-                                 + 4 * kStages * 3 * kTile;
-  // dQ: resident Q, dO of two owned tiles; per stage K, V and the keep-mask
-  // of the walked KV tile
-  static constexpr size_t kDq = 2 * (4 * kTileElems + kStages * 2 * kTileElems)
-                                + 4 * kStages * kTile;
-};
+__device__ __forceinline__ void zero(
+    float (&acc)[Acc<D>::kBlocks][Acc<D>::kRegs]) {
+#pragma unroll
+  for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < Acc<D>::kRegs; ++i) acc[c][i] = 0.0f;
+}
+
+// the [64, 64] accumulator x rounded to bf16 as four k16 A fragments of the
+// next product (its columns become that product's K)
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
+    a[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
+    a[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
+    a[j][3] = pack_bf16(x[8 * j + 6], x[8 * j + 7]);
+  }
+}
+
+// acc += A . tile over the 64 rows of an MN-major tile (K = those rows)
+template <int D>
+__device__ __forceinline__ void wgmma_acc(
+    float (&acc)[Acc<D>::kBlocks][Acc<D>::kRegs], const uint32_t (&a)[4][4],
+    uint32_t tile) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+      wgmma_rs<Acc<D>::kN>(acc[c], a[j], desc_mn<D>(tile, j, c));
+}
+
+// s = X . Y^T over D for two K-major tiles (64 rows each)
+template <int D>
+__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t x,
+                                             uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss64(s, desc_k<D>(x, kk), desc_k<D>(y, kk), kk);
+}
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const float* __restrict__ mask,
-          const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
-          const float* __restrict__ l_rows, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int T_, int H, int causal, float scale) {
-  constexpr int LD = D + kPadE, TE = BwdSmem<D>::kTileElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* res = reinterpret_cast<bf16*>(smem_raw);   // [owned][Q, dO]
-  bf16* ring = res + 4 * TE;                       // [stage][K, V]
-  float* smask = reinterpret_cast<float*>(ring + kStages * 2 * TE);
+struct BwdSmem {
+  static constexpr size_t kTileBytes = WgTile<D>::kBytes;
+  // 1 KB for aligning the dynamic shared memory to 1024 bytes; dK/dV:
+  // resident K, V of two owned tiles, per stage Q, dO and the m, l, delta
+  // rows of the walked Q tile; dQ: resident Q, dO of two owned tiles, per
+  // stage K, V and the keep-mask of the walked KV tile
+  static constexpr size_t kDkv =
+      1024 + (4 + 2 * kStages) * kTileBytes + 4 * kStages * 3 * kTile;
+  static constexpr size_t kDq =
+      1024 + (4 + 2 * kStages) * kTileBytes + 4 * kStages * kTile;
+};
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const float* __restrict__ mask,
+            const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
+            const float* __restrict__ l_rows,
+            const float* __restrict__ delta, bf16* __restrict__ dq, int T_,
+            int H, int causal, float scale) {
+  constexpr int TB = WgTile<D>::kBytes;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* res = align_1k(smem_raw);       // [owned][Q, dO]
+  unsigned char* ring = res + 4 * TB;            // [stage][K, V]
+  float* smask = reinterpret_cast<float*>(ring + kStages * 2 * TB);
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
@@ -866,13 +1076,14 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto issue = [&](int s) {
     const int k0 = w.walked(s) * kTile, st = s % kStages;
-    load_tile<D>(ring + st * 2 * TE, k, b, h, k0, T_, H);
-    load_tile<D>(ring + st * 2 * TE + TE, v, b, h, k0, T_, H);
+    load_tile<D>(ring + st * 2 * TB, k, b, h, k0, T_, H);
+    load_tile<D>(ring + st * 2 * TB + TB, v, b, h, k0, T_, H);
     load_row(smask + st * kTile, mask + static_cast<size_t>(b) * T_, k0, T_);
   };
   for (int o = 0; o < w.n_own; ++o) {
-    load_tile<D>(res + 2 * o * TE, q, b, h, w.tile(o) * kTile, T_, H);
-    load_tile<D>(res + 2 * o * TE + TE, g_out, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TB, q, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TB + TB, g_out, b, h, w.tile(o) * kTile, T_,
+                 H);
   }
   issue(0);
   cp_async_commit();
@@ -892,23 +1103,29 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dr[o][i] = in ? delta[base + row] : 0.0f;
     }
 
-  float acc[D / 8][4] = {};
+  float acc[Acc<D>::kBlocks][Acc<D>::kRegs];
+  zero<D>(acc);
   for (int s = 0; s < w.steps; ++s) {
     cp_async_wait<1>();   // step s has landed ...
+    fence_async_smem();
     __syncthreads();      // ... for every thread, and step s - 1 is done
     if (s + 2 < w.steps) issue(s + 2);   // into step s - 1's stage
     cp_async_commit();
 
     const int o = w.slot(s), st = s % kStages;
     const int q0 = w.tile(o) * kTile, k0 = w.walked(s) * kTile;
-    const bf16* sq = res + 2 * o * TE;
-    const bf16* sg = sq + TE;
-    const bf16* sk = ring + st * 2 * TE;
-    const bf16* sv = sk + TE;
+    const uint32_t sq = smem_u32(res + 2 * o * TB), sg = sq + TB;
+    const uint32_t sk = smem_u32(ring + st * 2 * TB), sv = sk + TB;
     const float* sm = smask + st * kTile;
-    float s_[8][4] = {}, dp[8][4] = {};
-    warp_mma<8, D>(s_, sq, LD, r0, sk, LD);
-    warp_mma<8, D>(dp, sg, LD, r0, sv, LD);
+    // S = Q K^T and dP = dO V^T for the block's 64 query rows
+    float s_[32], dp[32];
+    wgmma_fence();
+    wgmma_scores<D>(s_, sq, sk);
+    wgmma_scores<D>(dp, sg, sv);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s_);
+    fence_regs(dp);
     // ds in place of s; only a tile that crosses the diagonal or holds
     // columns past T (the last one) checks each element
     auto epilogue = [&](auto edge) {
@@ -916,49 +1133,53 @@ fa_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
+          const int i = e >> 1, c = 8 * n + 2 * t + (e & 1), x_ = 4 * n + e;
           const float pad = __fmul_rn(__fsub_rn(1.0f, sm[c]), kNegInf);
-          float x = __fadd_rn(__fmul_rn(s_[n][e], scale), pad);
+          float x = __fadd_rn(__fmul_rn(s_[x_], scale), pad);
           if (decltype(edge)::value && causal)
             x = __fadd_rn(x, q0 + r0 + g + 8 * i >= k0 + c ? 0.0f : kNegInf);
           float p = exp2f(__fmul_rn(__fsub_rn(x, o ? mr[1][i] : mr[0][i]),
                                     kLog2e)) *
                     (o ? ilr[1][i] : ilr[0][i]);
           if (decltype(edge)::value && k0 + c >= T_) p = 0.0f;
-          s_[n][e] = __fmul_rn(
-              __fmul_rn(p, __fsub_rn(dp[n][e], o ? dr[1][i] : dr[0][i])),
-              scale);
+          s_[x_] = __fmul_rn(
+              __fmul_rn(p, __fsub_rn(dp[x_], o ? dr[1][i] : dr[0][i])), scale);
         }
     };
     if ((causal && k0 == q0) || k0 + kTile > T_)
       epilogue(std::true_type{});
     else
       epilogue(std::false_type{});
-    warp_mma_p<D / 8>(acc, s_, sk, LD);
+    // dQ += dS K, dS rounded to bf16 from registers, K read MN-major
+    uint32_t a[4][4];
+    to_a_frags(a, s_);
+    wgmma_fence();
+    wgmma_acc<D>(acc, a, sk);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c) fence_regs(acc[c]);
     if (w.n_own > 1 && s == w.count[0] - 1) {   // the first owned tile is done
       store_acc<D>(dq, acc, b, h, q0, T_, H);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+      zero<D>(acc);
     }
   }
   store_acc<D>(dq, acc, b, h, w.tile(w.n_own - 1) * kTile, T_, H);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const float* __restrict__ mask,
-           const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
-           const float* __restrict__ l_rows, const float* __restrict__ delta,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int T_, int H,
-           int causal, float scale) {
-  constexpr int LD = D + kPadE, TE = BwdSmem<D>::kTileElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* res = reinterpret_cast<bf16*>(smem_raw);   // [owned][K, V]
-  bf16* ring = res + 4 * TE;                       // [stage][Q, dO]
-  float* srows = reinterpret_cast<float*>(ring + kStages * 2 * TE);
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const float* __restrict__ mask,
+             const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
+             const float* __restrict__ l_rows,
+             const float* __restrict__ delta, bf16* __restrict__ dk,
+             bf16* __restrict__ dv, int T_, int H, int causal, float scale) {
+  constexpr int TB = WgTile<D>::kBytes;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* res = align_1k(smem_raw);       // [owned][K, V]
+  unsigned char* ring = res + 4 * TB;            // [stage][Q, dO]
+  float* srows = reinterpret_cast<float*>(ring + kStages * 2 * TB);
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
@@ -967,16 +1188,16 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto issue = [&](int s) {
     const int q0 = w.walked(s) * kTile, st = s % kStages;
-    load_tile<D>(ring + st * 2 * TE, q, b, h, q0, T_, H);
-    load_tile<D>(ring + st * 2 * TE + TE, g_out, b, h, q0, T_, H);
+    load_tile<D>(ring + st * 2 * TB, q, b, h, q0, T_, H);
+    load_tile<D>(ring + st * 2 * TB + TB, g_out, b, h, q0, T_, H);
     float* sr = srows + st * 3 * kTile;
     load_row(sr, m_rows + base, q0, T_);
     load_row(sr + kTile, l_rows + base, q0, T_);
     load_row(sr + 2 * kTile, delta + base, q0, T_);
   };
   for (int o = 0; o < w.n_own; ++o) {
-    load_tile<D>(res + 2 * o * TE, k, b, h, w.tile(o) * kTile, T_, H);
-    load_tile<D>(res + 2 * o * TE + TE, v, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TB, k, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D>(res + 2 * o * TB + TB, v, b, h, w.tile(o) * kTile, T_, H);
   }
   issue(0);
   cp_async_commit();
@@ -990,32 +1211,41 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = w.tile(o) * kTile + r0 + g + 8 * i;
-      pad[o][i] = key < T_ ? __fmul_rn(__fsub_rn(1.0f,
-                                                 mask[static_cast<size_t>(b) * T_ + key]),
-                                       kNegInf)
-                           : 0.0f;
+      pad[o][i] =
+          key < T_ ? __fmul_rn(__fsub_rn(1.0f, mask[static_cast<size_t>(b) *
+                                                        T_ + key]),
+                               kNegInf)
+                   : 0.0f;
     }
 
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  float dk_acc[Acc<D>::kBlocks][Acc<D>::kRegs];
+  float dv_acc[Acc<D>::kBlocks][Acc<D>::kRegs];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
   for (int s = 0; s < w.steps; ++s) {
     cp_async_wait<1>();
+    fence_async_smem();
     __syncthreads();
     if (s + 2 < w.steps) issue(s + 2);
     cp_async_commit();
 
     const int o = w.slot(s), st = s % kStages;
     const int k0 = w.tile(o) * kTile, q0 = w.walked(s) * kTile;
-    const bf16* sk = res + 2 * o * TE;
-    const bf16* sv = sk + TE;
-    const bf16* sq = ring + st * 2 * TE;
-    const bf16* sg = sq + TE;
+    const uint32_t sk = smem_u32(res + 2 * o * TB), sv = sk + TB;
+    const uint32_t sq = smem_u32(ring + st * 2 * TB), sg = sq + TB;
     const float* smr = srows + st * 3 * kTile;
     const float* slr = smr + kTile;
     const float* sdr = slr + kTile;
-    // transposed blocks: rows are this warp's keys, columns the Q tile's rows
-    float p[8][4] = {}, ds[8][4] = {};
-    warp_mma<8, D>(p, sk, LD, r0, sq, LD);
-    warp_mma<8, D>(ds, sv, LD, r0, sg, LD);
+    // transposed blocks: rows are the block's 64 keys, columns the Q
+    // tile's rows: S^T = K Q^T, dP^T = V dO^T
+    float p[32], ds[32];
+    wgmma_fence();
+    wgmma_scores<D>(p, sk, sq);
+    wgmma_scores<D>(ds, sv, sg);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(p);
+    fence_regs(ds);
     // m, 1/l and delta of this lane's 16 Q rows (columns); a row past T
     // was zero-filled, so its 1/l is 0 and its p and ds are 0. Keys past T
     // need no mask: their dK, dV rows are never stored.
@@ -1036,32 +1266,43 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, j = e & 1;
-          float x = __fadd_rn(__fmul_rn(p[n][e], scale),
+          const int i = e >> 1, j = e & 1, x_ = 4 * n + e;
+          float x = __fadd_rn(__fmul_rn(p[x_], scale),
                               o ? pad[1][i] : pad[0][i]);
           if (decltype(diag)::value)
             x = __fadd_rn(x, 8 * n + 2 * t + j >= r0 + g + 8 * i ? 0.0f
                                                                  : kNegInf);
           const float pv =
               exp2f(__fmul_rn(__fsub_rn(x, cm[n][j]), kLog2e)) * cil[n][j];
-          p[n][e] = pv;
-          ds[n][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[n][e], cd[n][j])),
-                               scale);
+          p[x_] = pv;
+          ds[x_] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[x_], cd[n][j])),
+                             scale);
         }
     };
     if (causal && q0 == k0)
       epilogue(std::true_type{});
     else
       epilogue(std::false_type{});
-    warp_mma_p<D / 8>(dv_acc, p, sg, LD);
-    warp_mma_p<D / 8>(dk_acc, ds, sq, LD);
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 from
+    // registers, dO and Q read MN-major
+    uint32_t pa[4][4], da[4][4];
+    to_a_frags(pa, p);
+    to_a_frags(da, ds);
+    wgmma_fence();
+    wgmma_acc<D>(dv_acc, pa, sg);
+    wgmma_acc<D>(dk_acc, da, sq);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c) {
+      fence_regs(dk_acc[c]);
+      fence_regs(dv_acc[c]);
+    }
     if (w.n_own > 1 && s == w.count[0] - 1) {
       store_acc<D>(dk, dk_acc, b, h, k0, T_, H);
       store_acc<D>(dv, dv_acc, b, h, k0, T_, H);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+      zero<D>(dk_acc);
+      zero<D>(dv_acc);
     }
   }
   const int k_last = w.tile(w.n_own - 1) * kTile;
@@ -1069,10 +1310,6 @@ fa_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc<D>(dv, dv_acc, b, h, k_last, T_, H);
 }
 
-// Shared memory (bytes) of one block of each kernel: 0 forward, 1 dK/dV,
-// 2 dQ, on the FMA path or (bf16 with a tensor-core head_dim) the mma path.
-// The Python wrapper reads it through kubeml_flash_smem_bytes and checks it
-// against the card's limit before launching.
 template <int D>
 size_t bwd_smem(int kernel) {
   return kernel == 1 ? BwdSmem<D>::kDkv : BwdSmem<D>::kDq;
@@ -1179,7 +1416,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(g);
     bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
 #define KUBEML_DKV(DD)                                                      \
-  launch(fa_dkv_mma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
+  launch(fa_dkv_wgmma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          gb, mr, lr, dr, dkb, dvb, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_DKV)
 #undef KUBEML_DKV
@@ -1214,7 +1451,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(g);
     bf16* dqb = static_cast<bf16*>(dq);
 #define KUBEML_DQ(DD)                                                      \
-  launch(fa_dq_mma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
+  launch(fa_dq_wgmma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          gb, mr, lr, dr, dqb, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_DQ)
 #undef KUBEML_DQ
