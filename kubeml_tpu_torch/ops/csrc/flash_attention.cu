@@ -3,9 +3,12 @@
 //
 // Replaces the three Pallas TPU kernels of kubeml_tpu/ops/pallas/
 // flash_attention.py (driven there by _fa_forward / _fa_backward):
-//   fa_fwd_kernel <- _fa_kernel          online-softmax forward; emits out, m, l
-//   fa_dkv_kernel <- _fa_bwd_dkv_kernel  dK, dV with the Q loop inside the block
-//   fa_dq_kernel  <- _fa_bwd_dq_kernel   dQ with the KV loop inside the block
+//   fa_fwd_mma, fa_fwd_kernel    <- _fa_kernel          online-softmax
+//                                    forward; emits out, m, l
+//   fa_dkv_wgmma, fa_dkv_kernel  <- _fa_bwd_dkv_kernel  dK, dV with the Q
+//                                    loop inside the block
+//   fa_dq_wgmma, fa_dq_kernel    <- _fa_bwd_dq_kernel   dQ with the KV loop
+//                                    inside the block
 // on [B, T, H, D] tensors (f32 or bf16), a [B, T] f32 keep-mask over the keys
 // and a causal flag. Row statistics m, l and delta are f32 [B*H, 1, T].
 //
@@ -27,21 +30,30 @@
 //   row, as they do in the reference's skipped blocks.
 //   Columns past T (a ragged last tile) are no keys at all: p = 0.
 //
-// What bounds it on this card: at the training path's shape (B=8, T=512,
-// H=4, D=64, bf16, causal) the forward must move ~8.5 MB (q, k, v, out, m, l:
-// 2.5 us at 3.35 TB/s) and do ~1.1 GFLOP (1.1 us on the tensor cores), so an
-// ideal kernel is bound by bytes; the backward likewise (3.8 us dK/dV, 3.2 us
-// dQ). These kernels are 13-30x above that: each block loads a tile, waits,
-// then computes, with only 4-8 warps per SM to hide the wait, and the causal
-// blocks carry unequal work.
+// What bounds them on this card: at the training path's shape (B=8, T=512,
+// H=4, D=64, bf16, causal) an ideal kernel is bound by bytes: the forward
+// must move ~8.5 MB (q, k, v, out, m, l: 2.5 us at 3.35 TB/s) against ~1.1
+// GFLOP of products (1.1 us on the tensor cores); dK/dV 3.8 us of bytes
+// against 2.2 us of products, dQ 3.2 us against 1.6 us. The kernels are
+// further from those bounds than a library would be, for different reasons:
+//   - the forward (fa_fwd_mma, mma.sync) loads a tile, waits, then computes,
+//     with 4-8 warps per SM to hide the wait;
+//   - the backward (fa_dkv_wgmma, fa_dq_wgmma) hides its loads behind the
+//     products and gives every causal block equal work; what is left is
+//     the per-element epilogue between two dependent rounds of products
+//     (scores, then the accumulating products), which the tensor cores wait
+//     for, and the two warpgroups of a block running it in the same phase.
 //
 // Design: a CUDA block has no sequential grid axis to carry (acc, m, l) in,
 // so each block loops over the other sequence axis inside itself: the forward
-// and dQ own one (b*h, 64-row Q tile) and walk the KV tiles; dK/dV owns one
-// (b*h, 64-row KV tile) and walks the Q tiles. No atomics, so every result is
-// deterministic. Two paths compute the same contract:
-//   - bf16 with head_dim 16/32/64/128 (the training path): products on the
-//     tensor cores with mma.sync (below, "tensor-core path");
+// and dQ own a 64-row Q tile and walk the KV tiles; dK/dV owns a 64-row KV
+// tile and walks the Q tiles. No atomics, so every result is deterministic.
+// Three paths compute the same contract:
+//   - the bf16 backward with head_dim 16/32/64/128 (the training path):
+//     wgmma, a cp.async ring and balanced causal blocks (below, "backward,
+//     tensor cores");
+//   - the bf16 forward with those head dims: mma.sync (below, "tensor-core
+//     forward");
 //   - f32 (and other bf16 head dims): f32 FMAs from shared memory. Tiles are
 //     staged as f32 rows of D + 1 words (bank-conflict free row and column
 //     walks) with 16-byte loads; 256 threads form a 16 x 16 grid and each
@@ -50,9 +62,10 @@
 //     Head dims up to 128 are two 64-wide column chunks. f32 keeps the tight
 //     on-card checks exact to 2e-5; TF32 tensor cores would not.
 //
-// Later work: double-buffered tiles (cp.async or TMA) so loads overlap the
-// products, wgmma with warp specialisation, and a split of the dK/dV walk so
-// causal blocks carry equal work.
+// Later work: the forward on the backward's design (ring, wgmma); in the
+// backward, warpgroups offset by half a step so one's epilogue overlaps the
+// other's products, and TMA in place of cp.async once its host-side tensor
+// map is measured against the host-bound training step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -474,9 +487,9 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T>(dq, acc, one, b, h, q0, T_, H, D);
 }
 
-// ------------------------------------------------- tensor-core path (bf16)
-// bf16 inputs with head_dim 16, 32, 64 or 128 run their products on the
-// tensor cores: mma.sync m16n8k16 (bf16 operands, f32 accumulators). A
+// -------------------------------------------- tensor-core forward (bf16)
+// bf16 inputs with head_dim 16, 32, 64 or 128 run the forward's products on
+// the tensor cores: mma.sync m16n8k16 (bf16 operands, f32 accumulators). A
 // block is 4 warps over a 64-row tile; each warp owns 16 rows and keeps its
 // [16, 64] score block and its [16, D] accumulators in registers in the
 // mma's documented fragment layout (lane = 4 * g + t holds rows g and g + 8,
@@ -484,9 +497,8 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // are quad shuffles and a score block, rounded to bf16 — the reference's
 // cast point — is directly the A operand of the next product. Tiles are
 // staged in shared memory as bf16 rows of D + 8 elements (conflict-free
-// 32-bit fragment loads); the right-hand operands of P.V, dS.K, P^T.dO and
-// dS^T.Q are read from those same row-major tiles, transposed on the fly by
-// ldmatrix.trans.
+// 32-bit fragment loads); the right-hand operand of P.V is read from the
+// same row-major tile, transposed on the fly by ldmatrix.trans.
 
 constexpr int kMmaThreads = 128;       // 4 warps, 16 rows each
 constexpr int kPadE = 8;               // bf16 elements of row padding
@@ -700,11 +712,39 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------- backward (bf16, tensor cores)
-// The walked operands come through a ring of kStages shared-memory stages
-// filled by cp.async one and two steps ahead, so while step i is on the
-// tensor cores steps i + 1 and i + 2 are in flight.
+// Replaces _fa_bwd_dkv_kernel (fa_dkv_wgmma) and _fa_bwd_dq_kernel
+// (fa_dq_wgmma) for bf16 with head_dim 16, 32, 64 or 128. One step of a
+// block's walk is one (owned tile, walked tile) pair of 64-row tiles.
+//   - Ring: the walked operands (Q, dO and the m, l, delta rows; or K, V
+//     and the keep-mask) come through kStages shared-memory stages filled
+//     by cp.async.cg two steps ahead, 16-byte copies with compile-time trip
+//     counts, rows past T zero-filled through the copy's source size; one
+//     __syncthreads per step. While step i is on the tensor cores, steps
+//     i + 1 and i + 2 are in flight.
+//   - Schedule (make_walk): a causal block owns the pair of tiles
+//     (p, n - 1 - p), so every block walks n + 1 tiles (the middle tile of
+//     an odd count goes alone): at T = 512, 128 equal blocks on 132 SMs
+//     instead of 256 blocks walking 1..8 tiles.
+//   - Products: wgmma, two warpgroups per block, each taking 32 of the
+//     walked tile's 64 rows. The scores S^T = K Q^T and dP^T = V dO^T
+//     (dK/dV), S = Q K^T and dP = dO V^T (dQ) read both operands from
+//     shared memory (m64n32k16); dV += P^T dO, dK += dS^T Q and dQ += dS K
+//     take A from registers (the scores' accumulator rounded to bf16, the
+//     reference's cast point: the accumulator and A-fragment layouts
+//     coincide) and B from the same shared tiles in their MN-major form.
+//     Tiles sit in wgmma's swizzled layout (WgTile), written so by the
+//     ring; a proxy fence makes the copies visible to wgmma. The two
+//     warpgroups' partial dK/dV (dQ) sums are added in a fixed order
+//     through shared memory when an owned tile is done: no atomics.
+//   - Epilogue: p = exp2((s - m) log2 e) / l with 1/l taken once per row,
+//     the score keeping the reference's three f32 roundings; the causal
+//     term only on the diagonal tile, the check of keys past T only on the
+//     last (dQ; dK/dV never stores those rows). A row past T arrives with
+//     l = 0 and gets 1/l = 0, so it adds nothing.
 
 constexpr int kStages = 3;
+// two warpgroups: each takes half of every walked tile's 64 rows
+constexpr int kBwdThreads = 256;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -760,8 +800,9 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
   using L = WgTile<D>;
   constexpr int vpr = D / 8;   // 16-byte chunks per row of x
 #pragma unroll
-  for (int it = 0; it < kTile * vpr / kMmaThreads; ++it) {
-    const int i = it * kMmaThreads + threadIdx.x;
+  for (int it = 0; it < (kTile * vpr + kBwdThreads - 1) / kBwdThreads; ++it) {
+    const int i = it * kBwdThreads + threadIdx.x;
+    if (kTile * vpr % kBwdThreads && i >= kTile * vpr) break;
     const int r = i / vpr, vc = i % vpr, t = r0 + r;
     const bool ok = t < T_;
     uint32_t off = (vc / L::kChunks) * L::kBlockBytes + r * L::kRowBytes +
@@ -820,27 +861,21 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (+)= A . B^T for one k16 slice, m64n64k16, A and B K-major tiles in
+// D (+)= A . B^T for one k16 slice, m64n32k16, A and B K-major tiles in
 // shared memory (descriptors); the slice accumulates into d unless `acc`
 // is 0 (then d's input is ignored)
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
                                            uint64_t db, int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -965,7 +1000,8 @@ __device__ __forceinline__ Walk make_walk(bool kv_owner, int n, int causal) {
 // Accumulators of a [64, D] wgmma product, per thread: Acc<D>::kBlocks
 // blocks of Acc<D>::kRegs floats, one block per 64 columns (one m64nNk16
 // accumulator each, N = min(D, 64)). Register 4 n + e of a block holds row
-// 16 warp + g + 8 (e >> 1), column 8 n + 2 t + (e & 1) of that block.
+// 16 warp + g + 8 (e >> 1), column 8 n + 2 t + (e & 1) of that block, for
+// warp 0..3 of the warpgroup.
 template <int D>
 struct Acc {
   static constexpr int kBlocks = D > 64 ? D / 64 : 1;
@@ -973,14 +1009,17 @@ struct Acc {
   static constexpr int kRegs = kN / 2;
 };
 
+template <int D>
+using AccRegs = float[Acc<D>::kBlocks][Acc<D>::kRegs];
+
 // write a [64, D] accumulator as bf16 rows row0 .. row0 + 63 of y
 // [B, T, H, D], rows inside T
 template <int D>
-__device__ __forceinline__ void store_acc(
-    bf16* __restrict__ y, const float (&acc)[Acc<D>::kBlocks][Acc<D>::kRegs],
-    int b, int h, int row0, int T_, int H) {
+__device__ __forceinline__ void store_acc(bf16* __restrict__ y,
+                                          const AccRegs<D>& acc, int b,
+                                          int h, int row0, int T_, int H) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);
+  const int r0 = 16 * ((threadIdx.x & 127) >> 5);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r0 + g + 8 * i;
@@ -996,20 +1035,48 @@ __device__ __forceinline__ void store_acc(
 }
 
 template <int D>
-__device__ __forceinline__ void zero(
-    float (&acc)[Acc<D>::kBlocks][Acc<D>::kRegs]) {
+__device__ __forceinline__ void zero(AccRegs<D>& acc) {
 #pragma unroll
   for (int c = 0; c < Acc<D>::kBlocks; ++c)
 #pragma unroll
     for (int i = 0; i < Acc<D>::kRegs; ++i) acc[c][i] = 0.0f;
 }
 
-// the [64, 64] accumulator x rounded to bf16 as four k16 A fragments of the
-// next product (its columns become that product's K)
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
-                                           const float (&x)[32]) {
+// The two warpgroups' partial sums of one [64, D] accumulator, added in a
+// fixed order (warpgroup 0's + warpgroup 1's) and stored by warpgroup 0;
+// `scratch` holds 256 D bytes that no one reads any more (the owned
+// tile's two resident tiles). Leaves acc zeroed for the next owned tile.
+template <int D>
+__device__ __forceinline__ void reduce_store(AccRegs<D>& acc, float* scratch,
+                                             bf16* __restrict__ y, int b,
+                                             int h, int row0, int T_, int H) {
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  __syncthreads();   // both warpgroups are done with the scratch's tiles
+  if (wg == 1) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+      for (int i = 0; i < Acc<D>::kRegs; ++i)
+        scratch[(c * Acc<D>::kRegs + i) * 128 + tid] = acc[c][i];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+      for (int i = 0; i < Acc<D>::kRegs; ++i)
+        acc[c][i] += scratch[(c * Acc<D>::kRegs + i) * 128 + tid];
+    store_acc<D>(y, acc, b, h, row0, T_, H);
+  }
+  zero<D>(acc);
+}
+
+// the [64, 32] accumulator x rounded to bf16 as two k16 A fragments of the
+// next product (its columns become that product's K)
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[2][4],
+                                           const float (&x)[16]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
     a[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
     a[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
     a[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
@@ -1017,25 +1084,27 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
   }
 }
 
-// acc += A . tile over the 64 rows of an MN-major tile (K = those rows)
+// acc += A . rows [32 wg, 32 wg + 32) of an MN-major tile (K = those rows)
 template <int D>
-__device__ __forceinline__ void wgmma_acc(
-    float (&acc)[Acc<D>::kBlocks][Acc<D>::kRegs], const uint32_t (&a)[4][4],
-    uint32_t tile) {
+__device__ __forceinline__ void wgmma_acc(AccRegs<D>& acc,
+                                          const uint32_t (&a)[2][4],
+                                          uint32_t tile, int wg) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int c = 0; c < Acc<D>::kBlocks; ++c)
-      wgmma_rs<Acc<D>::kN>(acc[c], a[j], desc_mn<D>(tile, j, c));
+      wgmma_rs<Acc<D>::kN>(acc[c], a[j], desc_mn<D>(tile, 2 * wg + j, c));
 }
 
-// s = X . Y^T over D for two K-major tiles (64 rows each)
+// s = X . Y^T over D: the 64 rows of K-major tile x against rows
+// [32 wg, 32 wg + 32) of K-major tile y
 template <int D>
-__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t x,
-                                             uint32_t y) {
+__device__ __forceinline__ void wgmma_scores(float (&s)[16], uint32_t x,
+                                             uint32_t y, int wg) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss64(s, desc_k<D>(x, kk), desc_k<D>(y, kk), kk);
+    wgmma_ss32(s, desc_k<D>(x, kk),
+               desc_k<D>(y + 32 * wg * WgTile<D>::kRowBytes, kk), kk);
 }
 
 template <int D>
@@ -1056,7 +1125,7 @@ __device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const float* __restrict__ mask,
             const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
@@ -1070,7 +1139,7 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* smask = reinterpret_cast<float*>(ring + kStages * 2 * TB);
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);
+  const int wg = threadIdx.x >> 7, r0 = 16 * ((threadIdx.x & 127) >> 5);
   const size_t base = static_cast<size_t>(bh) * T_;
   const Walk w = make_walk(false, (T_ + kTile - 1) / kTile, causal);
 
@@ -1103,7 +1172,7 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dr[o][i] = in ? delta[base + row] : 0.0f;
     }
 
-  float acc[Acc<D>::kBlocks][Acc<D>::kRegs];
+  AccRegs<D> acc;
   zero<D>(acc);
   for (int s = 0; s < w.steps; ++s) {
     cp_async_wait<1>();   // step s has landed ...
@@ -1116,32 +1185,34 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int q0 = w.tile(o) * kTile, k0 = w.walked(s) * kTile;
     const uint32_t sq = smem_u32(res + 2 * o * TB), sg = sq + TB;
     const uint32_t sk = smem_u32(ring + st * 2 * TB), sv = sk + TB;
-    const float* sm = smask + st * kTile;
-    // S = Q K^T and dP = dO V^T for the block's 64 query rows
-    float s_[32], dp[32];
+    const float* sm = smask + st * kTile + 32 * wg;
+    // S = Q K^T and dP = dO V^T: the owned tile's 64 query rows against
+    // this warpgroup's 32 keys
+    float s_[16], dp[16];
     wgmma_fence();
-    wgmma_scores<D>(s_, sq, sk);
-    wgmma_scores<D>(dp, sg, sv);
+    wgmma_scores<D>(s_, sq, sk, wg);
+    wgmma_scores<D>(dp, sg, sv, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s_);
     fence_regs(dp);
     // ds in place of s; only a tile that crosses the diagonal or holds
-    // columns past T (the last one) checks each element
+    // keys past T (the last one) checks each element
     auto epilogue = [&](auto edge) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1, c = 8 * n + 2 * t + (e & 1), x_ = 4 * n + e;
+          const int key = k0 + 32 * wg + c;
           const float pad = __fmul_rn(__fsub_rn(1.0f, sm[c]), kNegInf);
           float x = __fadd_rn(__fmul_rn(s_[x_], scale), pad);
           if (decltype(edge)::value && causal)
-            x = __fadd_rn(x, q0 + r0 + g + 8 * i >= k0 + c ? 0.0f : kNegInf);
+            x = __fadd_rn(x, q0 + r0 + g + 8 * i >= key ? 0.0f : kNegInf);
           float p = exp2f(__fmul_rn(__fsub_rn(x, o ? mr[1][i] : mr[0][i]),
                                     kLog2e)) *
                     (o ? ilr[1][i] : ilr[0][i]);
-          if (decltype(edge)::value && k0 + c >= T_) p = 0.0f;
+          if (decltype(edge)::value && key >= T_) p = 0.0f;
           s_[x_] = __fmul_rn(
               __fmul_rn(p, __fsub_rn(dp[x_], o ? dr[1][i] : dr[0][i])), scale);
         }
@@ -1150,25 +1221,26 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       epilogue(std::true_type{});
     else
       epilogue(std::false_type{});
-    // dQ += dS K, dS rounded to bf16 from registers, K read MN-major
-    uint32_t a[4][4];
+    // dQ += dS K over this warpgroup's 32 keys: dS rounded to bf16 from
+    // registers, K read MN-major
+    uint32_t a[2][4];
     to_a_frags(a, s_);
     wgmma_fence();
-    wgmma_acc<D>(acc, a, sk);
+    wgmma_acc<D>(acc, a, sk, wg);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
     for (int c = 0; c < Acc<D>::kBlocks; ++c) fence_regs(acc[c]);
-    if (w.n_own > 1 && s == w.count[0] - 1) {   // the first owned tile is done
-      store_acc<D>(dq, acc, b, h, q0, T_, H);
-      zero<D>(acc);
-    }
+    if (w.n_own > 1 && s == w.count[0] - 1)   // the first owned tile is done
+      reduce_store<D>(acc, reinterpret_cast<float*>(res), dq, b, h, q0, T_,
+                      H);
   }
-  store_acc<D>(dq, acc, b, h, w.tile(w.n_own - 1) * kTile, T_, H);
+  reduce_store<D>(acc, reinterpret_cast<float*>(res + 2 * (w.n_own - 1) * TB),
+                  dq, b, h, w.tile(w.n_own - 1) * kTile, T_, H);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const float* __restrict__ mask,
              const bf16* __restrict__ g_out, const float* __restrict__ m_rows,
@@ -1182,7 +1254,7 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* srows = reinterpret_cast<float*>(ring + kStages * 2 * TB);
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);
+  const int wg = threadIdx.x >> 7, r0 = 16 * ((threadIdx.x & 127) >> 5);
   const size_t base = static_cast<size_t>(bh) * T_;
   const Walk w = make_walk(true, (T_ + kTile - 1) / kTile, causal);
 
@@ -1218,8 +1290,7 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    : 0.0f;
     }
 
-  float dk_acc[Acc<D>::kBlocks][Acc<D>::kRegs];
-  float dv_acc[Acc<D>::kBlocks][Acc<D>::kRegs];
+  AccRegs<D> dk_acc, dv_acc;
   zero<D>(dk_acc);
   zero<D>(dv_acc);
   for (int s = 0; s < w.steps; ++s) {
@@ -1233,25 +1304,25 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = w.tile(o) * kTile, q0 = w.walked(s) * kTile;
     const uint32_t sk = smem_u32(res + 2 * o * TB), sv = sk + TB;
     const uint32_t sq = smem_u32(ring + st * 2 * TB), sg = sq + TB;
-    const float* smr = srows + st * 3 * kTile;
+    const float* smr = srows + st * 3 * kTile + 32 * wg;
     const float* slr = smr + kTile;
     const float* sdr = slr + kTile;
-    // transposed blocks: rows are the block's 64 keys, columns the Q
-    // tile's rows: S^T = K Q^T, dP^T = V dO^T
-    float p[32], ds[32];
+    // transposed blocks: rows are the owned tile's 64 keys, columns this
+    // warpgroup's 32 rows of the Q tile: S^T = K Q^T, dP^T = V dO^T
+    float p[16], ds[16];
     wgmma_fence();
-    wgmma_scores<D>(p, sk, sq);
-    wgmma_scores<D>(ds, sv, sg);
+    wgmma_scores<D>(p, sk, sq, wg);
+    wgmma_scores<D>(ds, sv, sg, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(p);
     fence_regs(ds);
-    // m, 1/l and delta of this lane's 16 Q rows (columns); a row past T
+    // m, 1/l and delta of this lane's 8 Q rows (columns); a row past T
     // was zero-filled, so its 1/l is 0 and its p and ds are 0. Keys past T
     // need no mask: their dK, dV rows are never stored.
-    float cm[8][2], cil[8][2], cd[8][2];
+    float cm[4][2], cil[4][2], cd[4][2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = 8 * n + 2 * t + j;
@@ -1263,15 +1334,16 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the causal term
     auto epilogue = [&](auto diag) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1, j = e & 1, x_ = 4 * n + e;
           float x = __fadd_rn(__fmul_rn(p[x_], scale),
                               o ? pad[1][i] : pad[0][i]);
           if (decltype(diag)::value)
-            x = __fadd_rn(x, 8 * n + 2 * t + j >= r0 + g + 8 * i ? 0.0f
-                                                                 : kNegInf);
+            x = __fadd_rn(x, 32 * wg + 8 * n + 2 * t + j >= r0 + g + 8 * i
+                                 ? 0.0f
+                                 : kNegInf);
           const float pv =
               exp2f(__fmul_rn(__fsub_rn(x, cm[n][j]), kLog2e)) * cil[n][j];
           p[x_] = pv;
@@ -1283,14 +1355,14 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       epilogue(std::true_type{});
     else
       epilogue(std::false_type{});
-    // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 from
-    // registers, dO and Q read MN-major
-    uint32_t pa[4][4], da[4][4];
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's 32 Q rows: P^T
+    // and dS^T rounded to bf16 from registers, dO and Q read MN-major
+    uint32_t pa[2][4], da[2][4];
     to_a_frags(pa, p);
     to_a_frags(da, ds);
     wgmma_fence();
-    wgmma_acc<D>(dv_acc, pa, sg);
-    wgmma_acc<D>(dk_acc, da, sq);
+    wgmma_acc<D>(dv_acc, pa, sg, wg);
+    wgmma_acc<D>(dk_acc, da, sq, wg);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -1299,15 +1371,15 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence_regs(dv_acc[c]);
     }
     if (w.n_own > 1 && s == w.count[0] - 1) {
-      store_acc<D>(dk, dk_acc, b, h, k0, T_, H);
-      store_acc<D>(dv, dv_acc, b, h, k0, T_, H);
-      zero<D>(dk_acc);
-      zero<D>(dv_acc);
+      float* scratch = reinterpret_cast<float*>(res);
+      reduce_store<D>(dk_acc, scratch, dk, b, h, k0, T_, H);
+      reduce_store<D>(dv_acc, scratch, dv, b, h, k0, T_, H);
     }
   }
   const int k_last = w.tile(w.n_own - 1) * kTile;
-  store_acc<D>(dk, dk_acc, b, h, k_last, T_, H);
-  store_acc<D>(dv, dv_acc, b, h, k_last, T_, H);
+  float* scratch = reinterpret_cast<float*>(res + 2 * (w.n_own - 1) * TB);
+  reduce_store<D>(dk_acc, scratch, dk, b, h, k_last, T_, H);
+  reduce_store<D>(dv_acc, scratch, dv, b, h, k_last, T_, H);
 }
 
 template <int D>
@@ -1416,7 +1488,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(g);
     bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
 #define KUBEML_DKV(DD)                                                      \
-  launch(fa_dkv_wgmma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
+  launch(fa_dkv_wgmma<DD>, kBwdThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          gb, mr, lr, dr, dkb, dvb, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_DKV)
 #undef KUBEML_DKV
@@ -1451,7 +1523,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(g);
     bf16* dqb = static_cast<bf16*>(dq);
 #define KUBEML_DQ(DD)                                                      \
-  launch(fa_dq_wgmma<DD>, kMmaThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
+  launch(fa_dq_wgmma<DD>, kBwdThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          gb, mr, lr, dr, dqb, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_DQ)
 #undef KUBEML_DQ
