@@ -41,8 +41,9 @@
 //   - the backward (fa_dkv_wgmma, fa_dq_wgmma) hides its loads behind the
 //     products and gives every causal block equal work; what is left is
 //     the per-element epilogue between two dependent rounds of products
-//     (scores, then the accumulating products), which the tensor cores wait
-//     for, and the two warpgroups of a block running it in the same phase.
+//     (scores, then the accumulating products): within a warpgroup the
+//     tensor cores wait for it, and only the other warpgroup of the block
+//     (one block per SM) can fill that wait.
 //
 // Design: a CUDA block has no sequential grid axis to carry (acc, m, l) in,
 // so each block loops over the other sequence axis inside itself: the forward
@@ -63,9 +64,10 @@
 //     on-card checks exact to 2e-5; TF32 tensor cores would not.
 //
 // Later work: the forward on the backward's design (ring, wgmma); in the
-// backward, warpgroups offset by half a step so one's epilogue overlaps the
-// other's products, and TMA in place of cp.async once its host-side tensor
-// map is measured against the host-bound training step.
+// backward, the next step's scores issued before this step's epilogue
+// (registers allow it at head_dim <= 64), and TMA in place of cp.async once
+// its host-side tensor map is measured against the host-bound training
+// step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -715,36 +717,58 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Replaces _fa_bwd_dkv_kernel (fa_dkv_wgmma) and _fa_bwd_dq_kernel
 // (fa_dq_wgmma) for bf16 with head_dim 16, 32, 64 or 128. One step of a
 // block's walk is one (owned tile, walked tile) pair of 64-row tiles.
-//   - Ring: the walked operands (Q, dO and the m, l, delta rows; or K, V
-//     and the keep-mask) come through kStages shared-memory stages filled
-//     by cp.async.cg two steps ahead, 16-byte copies with compile-time trip
-//     counts, rows past T zero-filled through the copy's source size; one
-//     __syncthreads per step. While step i is on the tensor cores, steps
-//     i + 1 and i + 2 are in flight.
+//   - Warpgroups: a block is two warpgroups; warpgroup w takes steps w,
+//     w + 2, ... of the block's walk, with a ring of its own and its own
+//     barrier, so the two drift out of phase and one's epilogue overlaps
+//     the other's products. Each keeps partial dK/dV (dQ) sums; when an
+//     owned tile is done, they are added in a fixed order (warpgroup 0's
+//     plus warpgroup 1's) through shared memory: no atomics.
+//   - Ring: each warpgroup's walked operands (Q, dO and the m, l, delta
+//     rows; or K, V and the keep-mask) come through kStages shared-memory
+//     stages filled by cp.async.cg kStages - 1 of its steps ahead, 16-byte
+//     copies with compile-time trip counts, rows past T zero-filled through
+//     the copy's source size; one warpgroup barrier per step.
 //   - Schedule (make_walk): a causal block owns the pair of tiles
 //     (p, n - 1 - p), so every block walks n + 1 tiles (the middle tile of
 //     an odd count goes alone): at T = 512, 128 equal blocks on 132 SMs
-//     instead of 256 blocks walking 1..8 tiles.
-//   - Products: wgmma, two warpgroups per block, each taking 32 of the
-//     walked tile's 64 rows. The scores S^T = K Q^T and dP^T = V dO^T
-//     (dK/dV), S = Q K^T and dP = dO V^T (dQ) read both operands from
-//     shared memory (m64n32k16); dV += P^T dO, dK += dS^T Q and dQ += dS K
-//     take A from registers (the scores' accumulator rounded to bf16, the
-//     reference's cast point: the accumulator and A-fragment layouts
-//     coincide) and B from the same shared tiles in their MN-major form.
-//     Tiles sit in wgmma's swizzled layout (WgTile), written so by the
-//     ring; a proxy fence makes the copies visible to wgmma. The two
-//     warpgroups' partial dK/dV (dQ) sums are added in a fixed order
-//     through shared memory when an owned tile is done: no atomics.
+//     instead of 256 blocks walking 1..8 tiles. A non-causal block owns
+//     one tile and walks all n.
+//   - Products: wgmma, one warpgroup per 64-row tile pair. The scores
+//     S^T = K Q^T and dP^T = V dO^T (dK/dV), S = Q K^T and dP = dO V^T (dQ)
+//     read both operands from shared memory (m64n64k16); dV += P^T dO,
+//     dK += dS^T Q and dQ += dS K take A from registers (the scores'
+//     accumulator rounded to bf16, the reference's cast point: the
+//     accumulator and A-fragment layouts coincide) and B from the same
+//     shared tiles in their MN-major form. Tiles sit in wgmma's swizzled
+//     layout (WgTile), written so by the ring; a proxy fence makes the
+//     copies visible to wgmma.
 //   - Epilogue: p = exp2((s - m) log2 e) / l with 1/l taken once per row,
 //     the score keeping the reference's three f32 roundings; the causal
 //     term only on the diagonal tile, the check of keys past T only on the
 //     last (dQ; dK/dV never stores those rows). A row past T arrives with
 //     l = 0 and gets 1/l = 0, so it adds nothing.
 
-constexpr int kStages = 3;
-// two warpgroups: each takes half of every walked tile's 64 rows
+// two warpgroups, each walking every other tile of the block's walk
 constexpr int kBwdThreads = 256;
+constexpr int kWgThreads = 128;
+
+// stages of each warpgroup's ring: three (two tiles in flight) where they
+// fit in shared memory, two at head_dim 128
+template <int D>
+constexpr int kStages = D > 64 ? 2 : 3;
+
+// barrier over one warpgroup's 128 threads (ids 1 and 2; 0 is
+// __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWgThreads)
+               : "memory");
+}
+
+// barrier over the whole block, reached from the two warpgroups' own
+// places in their walks (id 3)
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kBwdThreads) : "memory");
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -792,17 +816,18 @@ struct WgTile {
 };
 
 // rows [r0, r0 + kTile) of head h of x [B, T, H, D] into the tile at dst,
-// asynchronously; rows past T are zeros
-template <int D>
+// asynchronously, by NT threads (this one is tid); rows past T are zeros
+template <int D, int NT>
 __device__ __forceinline__ void load_tile(unsigned char* dst,
                                           const bf16* __restrict__ x, int b,
-                                          int h, int r0, int T_, int H) {
+                                          int h, int r0, int T_, int H,
+                                          int tid) {
   using L = WgTile<D>;
   constexpr int vpr = D / 8;   // 16-byte chunks per row of x
 #pragma unroll
-  for (int it = 0; it < (kTile * vpr + kBwdThreads - 1) / kBwdThreads; ++it) {
-    const int i = it * kBwdThreads + threadIdx.x;
-    if (kTile * vpr % kBwdThreads && i >= kTile * vpr) break;
+  for (int it = 0; it < (kTile * vpr + NT - 1) / NT; ++it) {
+    const int i = it * NT + tid;
+    if (kTile * vpr % NT && i >= kTile * vpr) break;
     const int r = i / vpr, vc = i % vpr, t = r0 + r;
     const bool ok = t < T_;
     uint32_t off = (vc / L::kChunks) * L::kBlockBytes + r * L::kRowBytes +
@@ -861,21 +886,27 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (+)= A . B^T for one k16 slice, m64n32k16, A and B K-major tiles in
+// D (+)= A . B^T for one k16 slice, m64n64k16, A and B K-major tiles in
 // shared memory (descriptors); the slice accumulates into d unless `acc`
 // is 0 (then d's input is ignored)
-__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
                                            uint64_t db, int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -940,13 +971,14 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// src[r0 + i] for i < kTile into dst, asynchronously; zeros past T
+// src[r0 + i] for i < kTile into dst, asynchronously, by threads tid <
+// kTile; zeros past T
 __device__ __forceinline__ void load_row(float* dst,
                                          const float* __restrict__ src,
-                                         int r0, int T_) {
-  if (threadIdx.x < kTile) {
-    const int t = r0 + threadIdx.x;
-    cp_async4(dst + threadIdx.x, src + (t < T_ ? t : T_ - 1), t < T_);
+                                         int r0, int T_, int tid) {
+  if (tid < kTile) {
+    const int t = r0 + tid;
+    cp_async4(dst + tid, src + (t < T_ ? t : T_ - 1), t < T_);
   }
 }
 
@@ -1051,7 +1083,7 @@ __device__ __forceinline__ void reduce_store(AccRegs<D>& acc, float* scratch,
                                              bf16* __restrict__ y, int b,
                                              int h, int row0, int T_, int H) {
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
-  __syncthreads();   // both warpgroups are done with the scratch's tiles
+  block_sync();   // both warpgroups are done with the scratch's tiles
   if (wg == 1) {
 #pragma unroll
     for (int c = 0; c < Acc<D>::kBlocks; ++c)
@@ -1059,7 +1091,7 @@ __device__ __forceinline__ void reduce_store(AccRegs<D>& acc, float* scratch,
       for (int i = 0; i < Acc<D>::kRegs; ++i)
         scratch[(c * Acc<D>::kRegs + i) * 128 + tid] = acc[c][i];
   }
-  __syncthreads();
+  block_sync();
   if (wg == 0) {
 #pragma unroll
     for (int c = 0; c < Acc<D>::kBlocks; ++c)
@@ -1071,12 +1103,12 @@ __device__ __forceinline__ void reduce_store(AccRegs<D>& acc, float* scratch,
   zero<D>(acc);
 }
 
-// the [64, 32] accumulator x rounded to bf16 as two k16 A fragments of the
+// the [64, 64] accumulator x rounded to bf16 as four k16 A fragments of the
 // next product (its columns become that product's K)
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[2][4],
-                                           const float (&x)[16]) {
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&x)[32]) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < 4; ++j) {
     a[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
     a[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
     a[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
@@ -1084,40 +1116,39 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[2][4],
   }
 }
 
-// acc += A . rows [32 wg, 32 wg + 32) of an MN-major tile (K = those rows)
+// acc += A . tile over the 64 rows of an MN-major tile (K = those rows)
 template <int D>
 __device__ __forceinline__ void wgmma_acc(AccRegs<D>& acc,
-                                          const uint32_t (&a)[2][4],
-                                          uint32_t tile, int wg) {
+                                          const uint32_t (&a)[4][4],
+                                          uint32_t tile) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int c = 0; c < Acc<D>::kBlocks; ++c)
-      wgmma_rs<Acc<D>::kN>(acc[c], a[j], desc_mn<D>(tile, 2 * wg + j, c));
+      wgmma_rs<Acc<D>::kN>(acc[c], a[j], desc_mn<D>(tile, j, c));
 }
 
-// s = X . Y^T over D: the 64 rows of K-major tile x against rows
-// [32 wg, 32 wg + 32) of K-major tile y
+// s = X . Y^T over D for two K-major tiles (64 rows each)
 template <int D>
-__device__ __forceinline__ void wgmma_scores(float (&s)[16], uint32_t x,
-                                             uint32_t y, int wg) {
+__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t x,
+                                             uint32_t y) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss32(s, desc_k<D>(x, kk),
-               desc_k<D>(y + 32 * wg * WgTile<D>::kRowBytes, kk), kk);
+    wgmma_ss64(s, desc_k<D>(x, kk), desc_k<D>(y, kk), kk);
 }
 
 template <int D>
 struct BwdSmem {
   static constexpr size_t kTileBytes = WgTile<D>::kBytes;
+  static constexpr size_t kRing = 2 * kStages<D>;   // stages, both rings
   // 1 KB for aligning the dynamic shared memory to 1024 bytes; dK/dV:
   // resident K, V of two owned tiles, per stage Q, dO and the m, l, delta
   // rows of the walked Q tile; dQ: resident Q, dO of two owned tiles, per
   // stage K, V and the keep-mask of the walked KV tile
   static constexpr size_t kDkv =
-      1024 + (4 + 2 * kStages) * kTileBytes + 4 * kStages * 3 * kTile;
+      1024 + (4 + 2 * kRing) * kTileBytes + 4 * kRing * 3 * kTile;
   static constexpr size_t kDq =
-      1024 + (4 + 2 * kStages) * kTileBytes + 4 * kStages * kTile;
+      1024 + (4 + 2 * kRing) * kTileBytes + 4 * kRing * kTile;
 };
 
 __device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
@@ -1132,32 +1163,40 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const float* __restrict__ l_rows,
             const float* __restrict__ delta, bf16* __restrict__ dq, int T_,
             int H, int causal, float scale) {
-  constexpr int TB = WgTile<D>::kBytes;
+  constexpr int TB = WgTile<D>::kBytes, S = kStages<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* res = align_1k(smem_raw);       // [owned][Q, dO]
-  unsigned char* ring = res + 4 * TB;            // [stage][K, V]
-  float* smask = reinterpret_cast<float*>(ring + kStages * 2 * TB);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  unsigned char* ring = res + (4 + wg * S * 2) * TB;   // [stage][K, V]
+  float* smask = reinterpret_cast<float*>(res + (4 + 4 * S) * TB) +
+                 wg * S * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wg = threadIdx.x >> 7, r0 = 16 * ((threadIdx.x & 127) >> 5);
+  const int r0 = 16 * (tid >> 5);
   const size_t base = static_cast<size_t>(bh) * T_;
   const Walk w = make_walk(false, (T_ + kTile - 1) / kTile, causal);
 
-  auto issue = [&](int s) {
-    const int k0 = w.walked(s) * kTile, st = s % kStages;
-    load_tile<D>(ring + st * 2 * TB, k, b, h, k0, T_, H);
-    load_tile<D>(ring + st * 2 * TB + TB, v, b, h, k0, T_, H);
-    load_row(smask + st * kTile, mask + static_cast<size_t>(b) * T_, k0, T_);
+  // this warpgroup's j-th step is step wg + 2 j of the walk
+  auto issue = [&](int j) {
+    const int k0 = w.walked(wg + 2 * j) * kTile, st = j % S;
+    load_tile<D, kWgThreads>(ring + st * 2 * TB, k, b, h, k0, T_, H, tid);
+    load_tile<D, kWgThreads>(ring + st * 2 * TB + TB, v, b, h, k0, T_, H,
+                             tid);
+    load_row(smask + st * kTile, mask + static_cast<size_t>(b) * T_, k0, T_,
+             tid);
   };
   for (int o = 0; o < w.n_own; ++o) {
-    load_tile<D>(res + 2 * o * TB, q, b, h, w.tile(o) * kTile, T_, H);
-    load_tile<D>(res + 2 * o * TB + TB, g_out, b, h, w.tile(o) * kTile, T_,
-                 H);
+    load_tile<D, kBwdThreads>(res + 2 * o * TB, q, b, h, w.tile(o) * kTile,
+                              T_, H, threadIdx.x);
+    load_tile<D, kBwdThreads>(res + 2 * o * TB + TB, g_out, b, h,
+                              w.tile(o) * kTile, T_, H, threadIdx.x);
   }
-  issue(0);
   cp_async_commit();
-  if (w.steps > 1) issue(1);
-  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (wg + 2 * j < w.steps) issue(j);
+    cp_async_commit();
+  }
 
   // m, 1/l, delta of this lane's two rows of each owned tile
   float mr[2][2], ilr[2][2], dr[2][2];
@@ -1171,27 +1210,36 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ilr[o][i] = in ? __frcp_rn(l_rows[base + row]) : 0.0f;
       dr[o][i] = in ? delta[base + row] : 0.0f;
     }
+  cp_async_wait<S - 1>();   // the resident tiles, copied by both warpgroups
+  fence_async_smem();
+  __syncthreads();
 
   AccRegs<D> acc;
   zero<D>(acc);
-  for (int s = 0; s < w.steps; ++s) {
-    cp_async_wait<1>();   // step s has landed ...
+  bool first_done = w.n_own == 1;   // owned tile 0's sums are stored
+  for (int j = 0; wg + 2 * j < w.steps; ++j) {
+    const int s = wg + 2 * j;
+    cp_async_wait<S - 2>();   // step j has landed ...
     fence_async_smem();
-    __syncthreads();      // ... for every thread, and step s - 1 is done
-    if (s + 2 < w.steps) issue(s + 2);   // into step s - 1's stage
+    wg_sync(wg);              // ... for the warpgroup; step j - 1 is done
+    if (s + 2 * (S - 1) < w.steps) issue(j + S - 1);   // into j - 1's stage
     cp_async_commit();
 
-    const int o = w.slot(s), st = s % kStages;
+    const int o = w.slot(s), st = j % S;
+    if (o == 1 && !first_done) {   // both warpgroups are past tile 0
+      reduce_store<D>(acc, reinterpret_cast<float*>(res), dq, b, h,
+                      w.tile(0) * kTile, T_, H);
+      first_done = true;
+    }
     const int q0 = w.tile(o) * kTile, k0 = w.walked(s) * kTile;
     const uint32_t sq = smem_u32(res + 2 * o * TB), sg = sq + TB;
     const uint32_t sk = smem_u32(ring + st * 2 * TB), sv = sk + TB;
-    const float* sm = smask + st * kTile + 32 * wg;
-    // S = Q K^T and dP = dO V^T: the owned tile's 64 query rows against
-    // this warpgroup's 32 keys
-    float s_[16], dp[16];
+    const float* sm = smask + st * kTile;
+    // S = Q K^T and dP = dO V^T for the owned tile's 64 query rows
+    float s_[32], dp[32];
     wgmma_fence();
-    wgmma_scores<D>(s_, sq, sk, wg);
-    wgmma_scores<D>(dp, sg, sv, wg);
+    wgmma_scores<D>(s_, sq, sk);
+    wgmma_scores<D>(dp, sg, sv);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s_);
@@ -1200,19 +1248,18 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // keys past T (the last one) checks each element
     auto epilogue = [&](auto edge) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1, c = 8 * n + 2 * t + (e & 1), x_ = 4 * n + e;
-          const int key = k0 + 32 * wg + c;
           const float pad = __fmul_rn(__fsub_rn(1.0f, sm[c]), kNegInf);
           float x = __fadd_rn(__fmul_rn(s_[x_], scale), pad);
           if (decltype(edge)::value && causal)
-            x = __fadd_rn(x, q0 + r0 + g + 8 * i >= key ? 0.0f : kNegInf);
+            x = __fadd_rn(x, q0 + r0 + g + 8 * i >= k0 + c ? 0.0f : kNegInf);
           float p = exp2f(__fmul_rn(__fsub_rn(x, o ? mr[1][i] : mr[0][i]),
                                     kLog2e)) *
                     (o ? ilr[1][i] : ilr[0][i]);
-          if (decltype(edge)::value && key >= T_) p = 0.0f;
+          if (decltype(edge)::value && k0 + c >= T_) p = 0.0f;
           s_[x_] = __fmul_rn(
               __fmul_rn(p, __fsub_rn(dp[x_], o ? dr[1][i] : dr[0][i])), scale);
         }
@@ -1221,20 +1268,19 @@ fa_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       epilogue(std::true_type{});
     else
       epilogue(std::false_type{});
-    // dQ += dS K over this warpgroup's 32 keys: dS rounded to bf16 from
-    // registers, K read MN-major
-    uint32_t a[2][4];
+    // dQ += dS K: dS rounded to bf16 from registers, K read MN-major
+    uint32_t a[4][4];
     to_a_frags(a, s_);
     wgmma_fence();
-    wgmma_acc<D>(acc, a, sk, wg);
+    wgmma_acc<D>(acc, a, sk);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
     for (int c = 0; c < Acc<D>::kBlocks; ++c) fence_regs(acc[c]);
-    if (w.n_own > 1 && s == w.count[0] - 1)   // the first owned tile is done
-      reduce_store<D>(acc, reinterpret_cast<float*>(res), dq, b, h, q0, T_,
-                      H);
   }
+  if (!first_done)
+    reduce_store<D>(acc, reinterpret_cast<float*>(res), dq, b, h,
+                    w.tile(0) * kTile, T_, H);
   reduce_store<D>(acc, reinterpret_cast<float*>(res + 2 * (w.n_own - 1) * TB),
                   dq, b, h, w.tile(w.n_own - 1) * kTile, T_, H);
 }
@@ -1247,34 +1293,41 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const float* __restrict__ l_rows,
              const float* __restrict__ delta, bf16* __restrict__ dk,
              bf16* __restrict__ dv, int T_, int H, int causal, float scale) {
-  constexpr int TB = WgTile<D>::kBytes;
+  constexpr int TB = WgTile<D>::kBytes, S = kStages<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* res = align_1k(smem_raw);       // [owned][K, V]
-  unsigned char* ring = res + 4 * TB;            // [stage][Q, dO]
-  float* srows = reinterpret_cast<float*>(ring + kStages * 2 * TB);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  unsigned char* ring = res + (4 + wg * S * 2) * TB;   // [stage][Q, dO]
+  float* srows = reinterpret_cast<float*>(res + (4 + 4 * S) * TB) +
+                 wg * S * 3 * kTile;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wg = threadIdx.x >> 7, r0 = 16 * ((threadIdx.x & 127) >> 5);
+  const int r0 = 16 * (tid >> 5);
   const size_t base = static_cast<size_t>(bh) * T_;
   const Walk w = make_walk(true, (T_ + kTile - 1) / kTile, causal);
 
-  auto issue = [&](int s) {
-    const int q0 = w.walked(s) * kTile, st = s % kStages;
-    load_tile<D>(ring + st * 2 * TB, q, b, h, q0, T_, H);
-    load_tile<D>(ring + st * 2 * TB + TB, g_out, b, h, q0, T_, H);
+  auto issue = [&](int j) {
+    const int q0 = w.walked(wg + 2 * j) * kTile, st = j % S;
+    load_tile<D, kWgThreads>(ring + st * 2 * TB, q, b, h, q0, T_, H, tid);
+    load_tile<D, kWgThreads>(ring + st * 2 * TB + TB, g_out, b, h, q0, T_,
+                             H, tid);
     float* sr = srows + st * 3 * kTile;
-    load_row(sr, m_rows + base, q0, T_);
-    load_row(sr + kTile, l_rows + base, q0, T_);
-    load_row(sr + 2 * kTile, delta + base, q0, T_);
+    load_row(sr, m_rows + base, q0, T_, tid);
+    load_row(sr + kTile, l_rows + base, q0, T_, tid);
+    load_row(sr + 2 * kTile, delta + base, q0, T_, tid);
   };
   for (int o = 0; o < w.n_own; ++o) {
-    load_tile<D>(res + 2 * o * TB, k, b, h, w.tile(o) * kTile, T_, H);
-    load_tile<D>(res + 2 * o * TB + TB, v, b, h, w.tile(o) * kTile, T_, H);
+    load_tile<D, kBwdThreads>(res + 2 * o * TB, k, b, h, w.tile(o) * kTile,
+                              T_, H, threadIdx.x);
+    load_tile<D, kBwdThreads>(res + 2 * o * TB + TB, v, b, h,
+                              w.tile(o) * kTile, T_, H, threadIdx.x);
   }
-  issue(0);
   cp_async_commit();
-  if (w.steps > 1) issue(1);
-  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (wg + 2 * j < w.steps) issue(j);
+    cp_async_commit();
+  }
 
   // pad terms of this lane's two keys of each owned tile
   float pad[2][2];
@@ -1289,65 +1342,75 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                kNegInf)
                    : 0.0f;
     }
+  cp_async_wait<S - 1>();
+  fence_async_smem();
+  __syncthreads();
 
   AccRegs<D> dk_acc, dv_acc;
   zero<D>(dk_acc);
   zero<D>(dv_acc);
-  for (int s = 0; s < w.steps; ++s) {
-    cp_async_wait<1>();
+  bool first_done = w.n_own == 1;
+  for (int j = 0; wg + 2 * j < w.steps; ++j) {
+    const int s = wg + 2 * j;
+    cp_async_wait<S - 2>();
     fence_async_smem();
-    __syncthreads();
-    if (s + 2 < w.steps) issue(s + 2);
+    wg_sync(wg);
+    if (s + 2 * (S - 1) < w.steps) issue(j + S - 1);
     cp_async_commit();
 
-    const int o = w.slot(s), st = s % kStages;
+    const int o = w.slot(s), st = j % S;
+    if (o == 1 && !first_done) {
+      float* scratch = reinterpret_cast<float*>(res);
+      reduce_store<D>(dk_acc, scratch, dk, b, h, w.tile(0) * kTile, T_, H);
+      reduce_store<D>(dv_acc, scratch, dv, b, h, w.tile(0) * kTile, T_, H);
+      first_done = true;
+    }
     const int k0 = w.tile(o) * kTile, q0 = w.walked(s) * kTile;
     const uint32_t sk = smem_u32(res + 2 * o * TB), sv = sk + TB;
     const uint32_t sq = smem_u32(ring + st * 2 * TB), sg = sq + TB;
-    const float* smr = srows + st * 3 * kTile + 32 * wg;
+    const float* smr = srows + st * 3 * kTile;
     const float* slr = smr + kTile;
     const float* sdr = slr + kTile;
-    // transposed blocks: rows are the owned tile's 64 keys, columns this
-    // warpgroup's 32 rows of the Q tile: S^T = K Q^T, dP^T = V dO^T
-    float p[16], ds[16];
+    // transposed blocks: rows are the owned tile's 64 keys, columns the Q
+    // tile's rows: S^T = K Q^T, dP^T = V dO^T
+    float p[32], ds[32];
     wgmma_fence();
-    wgmma_scores<D>(p, sk, sq, wg);
-    wgmma_scores<D>(ds, sv, sg, wg);
+    wgmma_scores<D>(p, sk, sq);
+    wgmma_scores<D>(ds, sv, sg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(p);
     fence_regs(ds);
-    // m, 1/l and delta of this lane's 8 Q rows (columns); a row past T
+    // m, 1/l and delta of this lane's 16 Q rows (columns); a row past T
     // was zero-filled, so its 1/l is 0 and its p and ds are 0. Keys past T
     // need no mask: their dK, dV rows are never stored.
-    float cm[4][2], cil[4][2], cd[4][2];
+    float cm[8][2], cil[8][2], cd[8][2];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = 8 * n + 2 * t + j;
-        cm[n][j] = smr[c];
-        cil[n][j] = slr[c] > 0.0f ? __frcp_rn(slr[c]) : 0.0f;
-        cd[n][j] = sdr[c];
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = 8 * n + 2 * t + jj;
+        cm[n][jj] = smr[c];
+        cil[n][jj] = slr[c] > 0.0f ? __frcp_rn(slr[c]) : 0.0f;
+        cd[n][jj] = sdr[c];
       }
     // only the diagonal tile (the first a causal owned tile walks) needs
     // the causal term
     auto epilogue = [&](auto diag) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, j = e & 1, x_ = 4 * n + e;
+          const int i = e >> 1, jj = e & 1, x_ = 4 * n + e;
           float x = __fadd_rn(__fmul_rn(p[x_], scale),
                               o ? pad[1][i] : pad[0][i]);
           if (decltype(diag)::value)
-            x = __fadd_rn(x, 32 * wg + 8 * n + 2 * t + j >= r0 + g + 8 * i
-                                 ? 0.0f
-                                 : kNegInf);
+            x = __fadd_rn(x, 8 * n + 2 * t + jj >= r0 + g + 8 * i ? 0.0f
+                                                                  : kNegInf);
           const float pv =
-              exp2f(__fmul_rn(__fsub_rn(x, cm[n][j]), kLog2e)) * cil[n][j];
+              exp2f(__fmul_rn(__fsub_rn(x, cm[n][jj]), kLog2e)) * cil[n][jj];
           p[x_] = pv;
-          ds[x_] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[x_], cd[n][j])),
+          ds[x_] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[x_], cd[n][jj])),
                              scale);
         }
     };
@@ -1355,14 +1418,14 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       epilogue(std::true_type{});
     else
       epilogue(std::false_type{});
-    // dV += P^T dO and dK += dS^T Q over this warpgroup's 32 Q rows: P^T
-    // and dS^T rounded to bf16 from registers, dO and Q read MN-major
-    uint32_t pa[2][4], da[2][4];
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 from
+    // registers, dO and Q read MN-major
+    uint32_t pa[4][4], da[4][4];
     to_a_frags(pa, p);
     to_a_frags(da, ds);
     wgmma_fence();
-    wgmma_acc<D>(dv_acc, pa, sg, wg);
-    wgmma_acc<D>(dk_acc, da, sq, wg);
+    wgmma_acc<D>(dv_acc, pa, sg);
+    wgmma_acc<D>(dk_acc, da, sq);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -1370,11 +1433,11 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence_regs(dk_acc[c]);
       fence_regs(dv_acc[c]);
     }
-    if (w.n_own > 1 && s == w.count[0] - 1) {
-      float* scratch = reinterpret_cast<float*>(res);
-      reduce_store<D>(dk_acc, scratch, dk, b, h, k0, T_, H);
-      reduce_store<D>(dv_acc, scratch, dv, b, h, k0, T_, H);
-    }
+  }
+  if (!first_done) {
+    float* scratch = reinterpret_cast<float*>(res);
+    reduce_store<D>(dk_acc, scratch, dk, b, h, w.tile(0) * kTile, T_, H);
+    reduce_store<D>(dv_acc, scratch, dv, b, h, w.tile(0) * kTile, T_, H);
   }
   const int k_last = w.tile(w.n_own - 1) * kTile;
   float* scratch = reinterpret_cast<float*>(res + 2 * (w.n_own - 1) * TB);
