@@ -733,7 +733,7 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //     an odd count goes alone): at T = 512, 128 equal blocks on 132 SMs
 //     instead of 256 blocks walking 1..8 tiles. A non-causal block owns
 //     one tile and walks all n.
-//   - Products: wgmma, one warpgroup per 64-row tile pair. The scores
+//   - Products: wgmma; a warpgroup computes a whole step. The scores
 //     S^T = K Q^T and dP^T = V dO^T (dK/dV), S = Q K^T and dP = dO V^T (dQ)
 //     read both operands from shared memory (m64n64k16); dV += P^T dO,
 //     dK += dS^T Q and dQ += dS K take A from registers (the scores'
