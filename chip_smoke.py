@@ -41,6 +41,10 @@ Phases (any failure exits non-zero and prints no result line):
               dK/dV and dQ together; the port never calls it); the bound
               counts each input read once and each output written once, and
               2*D operations per causally allowed (q, k) pair per product.
+              No atomics: a second launch of each backward kernel on the
+              same inputs must equal the first bit for bit. At the main
+              shape the backward kernels are also timed with the L2 cold
+              (operand sets cycled over 2.4 x the L2, as in phase 9a).
   7. train    gpt-mini at its published widths, random weights from --seed,
               dropout 0.1, bf16 compute: three KAvgEngine.train_rounds of
               W=2 workers x K=4 steps of B=8 sequences of T=512 tokens
@@ -90,6 +94,13 @@ merge, launches from the ef_int8 run, the sgd mode under "sgd"), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Exits
 non-zero without a CUDA device or without the kubeml_tpu_torch package
 beside it.
+
+    python3 chip_smoke.py --flash-only
+
+builds the kernels and runs phase 6 alone, printing its rows as one JSON
+line and no result line: copied into another tree of the repo (a `git
+archive` of another commit) it times that tree's flash kernels the same
+way, so two commits compare in one session.
 """
 
 from __future__ import annotations
@@ -618,10 +629,7 @@ def flash_cold_ms(torch, rng, dtype, T, causal, kernel, dev) -> float:
         q, k, v, g, pad = flash_operands(torch, rng, dtype, T, dev)
         out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
         sets.append((q, k, v, pad, g, m, l, fa._delta(g, out), causal))
-    try:
-        return time_ms_cold(torch, fn, sets)
-    finally:
-        del sets
+    return time_ms_cold(torch, fn, sets)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1159,12 +1167,15 @@ def merge_entry(rows, launches):
     }
 
 
-def build_kernels(card) -> None:
-    """Phase 1: every kernel source, one nvcc each, all started together;
-    logs the build time and ptxas's register, shared-memory and spill
-    lines."""
+def start(torch) -> str:
+    """f32 products stay f32; then phase 1: every kernel source, one nvcc
+    each, all started together, logging the build time and ptxas's
+    register, shared-memory and spill lines. Returns the card line."""
     from kubeml_tpu_torch.ops import _build
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
     t0 = time.perf_counter()
     logs = _build.build()
     log(card, f"build: {len(logs)} kernel source(s) in "
@@ -1173,15 +1184,11 @@ def build_kernels(card) -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(card, f"ptxas {name}: {line.strip()}")
+    return card
 
 
 def run(torch, seed) -> list:
-
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    build_kernels(card)
-
+    card = start(torch)
     rows = phase_kernels(torch, card, seed)
 
     module = build_gpt(torch, "gpt-mini", seed, torch.bfloat16, "cuda")
@@ -1256,9 +1263,7 @@ def main(argv=None) -> int:
         return 1
     try:
         if args.flash_only:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            card = card_line()
-            build_kernels(card)
+            card = start(torch)
             rows = phase_flash(torch, card, args.seed)
             print(json.dumps({"card": card, "flash": [
                 {"case": c, "kernel": k, **r} for (c, k), r in rows.items()]}))
