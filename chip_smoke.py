@@ -11,10 +11,14 @@ Phases (any failure exits non-zero and prints no result line):
               Pmax=32; decode S=8 slots x T=1, a prefill call S=1 slot x
               T=16 chunk tokens, and S=8 x T=16), with bf16, int8 and f32
               pages; tolerance: bf16 outputs atol = rtol = 2e-2, f32 1e-5.
-              Times the kernel, the plain version and one library
-              yardstick (gather + scaled_dot_product_attention, which the
-              port never calls); the bound counts the bytes of the pages
-              the run's page tables actually name.
+              A second launch on the same inputs must equal the first bit
+              for bit, and at S=8 each slot launched alone (S=1) must equal
+              its slot of the batched call bit for bit. Times the kernel
+              (the decode and prefill calls also with the L2 cold: operand
+              sets cycled over 2.4 x the L2), the plain version and one
+              library yardstick (gather + scaled_dot_product_attention,
+              which the port never calls); the bound counts the bytes of
+              the pages the run's page tables actually name.
   3. serve    gpt-mini at its published widths, random weights from --seed
               (numpy, through convert.py), served by ServeService over
               DecodeEngine(slots=8, page=16, prefill_chunk=16) with bf16 and
@@ -96,10 +100,11 @@ non-zero without a CUDA device or without the kubeml_tpu_torch package
 beside it.
 
     python3 chip_smoke.py --flash-only
+    python3 chip_smoke.py --paged-only
 
-builds the kernels and runs phase 6 alone, printing its rows as one JSON
-line and no result line: copied into another tree of the repo (a `git
-archive` of another commit) it times that tree's flash kernels the same
+build the kernels and run phase 6 (phase 2) alone, printing its rows as one
+JSON line and no result line: copied into another tree of the repo (a `git
+archive` of another commit) the script times that tree's kernels the same
 way, so two commits compare in one session.
 """
 
@@ -267,15 +272,27 @@ def phase_kernels(torch, card, seed):
             args, cdt = paged_operands(torch, rng, S, T, pages, dev)
             quant = pages == "int8"
             cdt_name = "f32" if cdt == torch.float32 else "bf16"
-            out = paged_attention(*args, quantized=quant, compute_dtype=cdt)
+
+            def call(*a):
+                return paged_attention(*a, quantized=quant,
+                                       compute_dtype=cdt)
+
+            out = call(*args)
             torch.cuda.synchronize()
             ref = _pa_plain(*args, quantized=quant, compute_dtype=cdt)
             tol = TOL[cdt_name]
             torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                        atol=tol)
             err = float((out.float() - ref.float()).abs().max())
-            ms = time_ms(torch, lambda: paged_attention(
-                *args, quantized=quant, compute_dtype=cdt))
+            # no atomics: a second launch is equal bit for bit; and a slot
+            # launched alone equals the same slot of the batched call
+            assert torch.equal(out, call(*args)), (pages, S, T)
+            for s in range(S if S > 1 else 0):
+                q, kp, vp, ks, vs, tables, bias = args
+                alone = call(q[s:s + 1], kp, vp, ks, vs, tables[s:s + 1],
+                             bias[s:s + 1])
+                assert torch.equal(alone, out[s:s + 1]), (pages, S, T, s)
+            ms = time_ms(torch, lambda: call(*args))
             plain_ms = time_ms(torch, lambda: _pa_plain(
                 *args, quantized=quant, compute_dtype=cdt))
             lib_ms = time_ms(torch, lambda: library_attention(
@@ -283,14 +300,33 @@ def phase_kernels(torch, card, seed):
             q, k_pages, _, _, _, tables, bias = args
             b_ms, b_by = bound(torch, q, k_pages, tables, bias, quant,
                                cdt_name)
-            rows[(pages, S, T)] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                       bound_by=b_by, library_ms=lib_ms)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if (S, T) != (8, 16):       # the main path's two calls
+                row["cold_ms"] = paged_cold_ms(torch, rng, S, T, pages, dev,
+                                               call)
+            rows[(pages, S, T)] = row
             log(card, f"paged_attention pages={pages} S={S} T={T}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"max|err| {err:.3g} (tol {tol})")
+                f"{ms:.4f} ms"
+                + (f" (L2 cold {row['cold_ms']:.4f} ms)" if "cold_ms" in row
+                   else "")
+                + f", plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"bound {b_ms:.5f} ms ({b_by}), max|err| {err:.3g} (tol "
+                f"{tol}); two launches equal bit for bit"
+                + (f", each of the {S} slots alone equals its batched "
+                   "output bit for bit" if S > 1 else ""))
     return rows
+
+
+def paged_cold_ms(torch, rng, S, T, pages, dev, call) -> float:
+    """The kernel's time with the L2 cold: operand sets of the same shape
+    and masking cycled over COLD_BYTES (as phase 9a times the merge
+    kernel)."""
+    sets = []
+    while sum(sum(t.numel() * t.element_size() for t in s)
+              for s in sets) < COLD_BYTES:
+        sets.append(paged_operands(torch, rng, S, T, pages, dev)[0])
+    return time_ms_cold(torch, call, sets)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1239,6 +1275,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and inputs")
+    ap.add_argument("--paged-only", action="store_true",
+                    help="build the kernels and run phase 2 alone, then "
+                         "print its rows as one JSON line and no result "
+                         "line (the paged twin of --flash-only)")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -1262,6 +1302,13 @@ def main(argv=None) -> int:
               f"this script ({e})", file=sys.stderr)
         return 1
     try:
+        if args.paged_only:
+            card = start(torch)
+            rows = phase_kernels(torch, card, args.seed)
+            print(json.dumps({"card": card, "paged": [
+                {"pages": p, "S": S, "T": T, **r}
+                for (p, S, T), r in rows.items()]}))
+            return 0
         if args.flash_only:
             card = start(torch)
             rows = phase_flash(torch, card, args.seed)

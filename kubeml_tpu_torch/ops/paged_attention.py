@@ -95,11 +95,15 @@ def _check_kernel_args(q, k_pages, v_pages, k_scale, v_scale, page_tables,
         raise ValueError(f"the kernel stages page rows in 16-byte vectors: "
                          f"head_dim {D} x {k_pages.element_size()} bytes "
                          f"is not a multiple of 16")
+    if q.dtype == torch.bfloat16 and G % 8:
+        raise ValueError(f"the bf16 kernel walks the context in 8-token "
+                         f"slices: page size {G} is not a multiple of 8")
 
 
 @functools.lru_cache(maxsize=None)
 def _entries():
-    """The library's two C entries, typed once: the launch and its
+    """The library's two C entries, typed once: the launch (a cluster of
+    up to 8 blocks per (head, slot) for bf16 queries) and its
     shared-memory query (the layout lives in csrc/paged_attention.cu)."""
     from kubeml_tpu_torch.ops import _build
 
@@ -109,7 +113,7 @@ def _entries():
         + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     smem = lib.kubeml_paged_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 4
+    smem.argtypes = [ctypes.c_int] * 6
     smem.restype = ctypes.c_size_t
     return launch, smem
 
@@ -124,7 +128,8 @@ def _pa_kernel(q, k_pages, v_pages, k_scale, v_scale, page_tables, bias,
     P, G = k_pages.shape[:2]
     Pmax = page_tables.shape[1]
     launch, smem_bytes = _entries()
-    smem = smem_bytes(T, D, G, Pmax)
+    bf16 = int(q.dtype == torch.bfloat16)
+    smem = smem_bytes(T, D, G, Pmax, bf16, int(quantized))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"paged_attention needs {smem} bytes of shared memory per "
@@ -136,8 +141,7 @@ def _pa_kernel(q, k_pages, v_pages, k_scale, v_scale, page_tables, bias,
         rc = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     k_scale.data_ptr(), v_scale.data_ptr(),
                     page_tables.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                    S, T, H, D, G, Pmax, P, int(q.dtype == torch.bfloat16),
-                    int(quantized), stream)
+                    S, T, H, D, G, Pmax, P, bf16, int(quantized), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
