@@ -45,10 +45,10 @@ Phases (any failure exits non-zero and prints no result line):
               dK/dV and dQ together; the port never calls it); the bound
               counts each input read once and each output written once, and
               2*D operations per causally allowed (q, k) pair per product.
-              No atomics: a second launch of each backward kernel on the
-              same inputs must equal the first bit for bit. At the main
-              shape the backward kernels are also timed with the L2 cold
-              (operand sets cycled over 2.4 x the L2, as in phase 9a).
+              No atomics: a second launch of each kernel on the same
+              inputs must equal the first bit for bit. At the main shape
+              the three kernels are also timed with the L2 cold (operand
+              sets cycled over 2.4 x the L2, as in phase 9a).
   7. train    gpt-mini at its published widths, random weights from --seed,
               dropout 0.1, bf16 compute: three KAvgEngine.train_rounds of
               W=2 workers x K=4 steps of B=8 sequences of T=512 tokens
@@ -599,7 +599,10 @@ def phase_flash(torch, card, seed):
                        for a, b in zip(got, ref))
 
         out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
+        again = fa.fa_fwd_kernel(q, k, v, pad, causal)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((out, m, l), again)), \
+            name
         ref_out, ref_m, ref_l = fa._fa_forward_plain(q, k, v, pad, causal)
         check((m, l), (ref_m, ref_l))   # m sits at NEG_INF scale: relative
         err_f = check((out,), (ref_out,))
@@ -635,7 +638,7 @@ def phase_flash(torch, card, seed):
             lib = lib_f if kernel == "forward" else lib_b
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-            if kernel != "forward" and name == FA_CASES[0][0]:
+            if name == FA_CASES[0][0]:
                 row["cold_ms"] = flash_cold_ms(torch, rng, dtype, T, causal,
                                                kernel, dev)
             rows[(name, kernel)] = row
@@ -646,23 +649,26 @@ def phase_flash(torch, card, seed):
                 + f", plain {plain_ms:.4f} ms, library {lib:.4f} ms "
                 f"({'forward' if kernel == 'forward' else 'backward, dQ+dK+dV'}"
                 f"), bound {b_ms:.5f} ms ({b_by}), {ms / b_ms:.1f}x bound, "
-                f"max|err| {err:.3g} (tol {tol})"
-                + ("" if kernel == "forward" else
-                   "; two launches equal bit for bit"))
+                f"max|err| {err:.3g} (tol {tol}); two launches equal bit "
+                f"for bit")
     return rows
 
 
 def flash_cold_ms(torch, rng, dtype, T, causal, kernel, dev) -> float:
-    """A backward kernel's time with the L2 cold: operand sets (q, k, v,
-    g, mask and the forward's m, l, delta) cycled over COLD_BYTES, as
-    phase 9a times the merge kernel."""
+    """A flash kernel's time with the L2 cold: operand sets (q, k, v and
+    the mask; for the backward also g and the forward's m, l, delta)
+    cycled over COLD_BYTES, as phase 9a times the merge kernel."""
     from kubeml_tpu_torch.ops import flash_attention as fa
 
-    fn = fa.fa_bwd_dkv_kernel if kernel == "dK/dV" else fa.fa_bwd_dq_kernel
+    fn = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+          "dQ": fa.fa_bwd_dq_kernel}[kernel]
     sets = []
-    while sum(sum(t.numel() * t.element_size() for t in s[:8])
+    while sum(sum(t.numel() * t.element_size() for t in s[:-1])
               for s in sets) < COLD_BYTES:
         q, k, v, g, pad = flash_operands(torch, rng, dtype, T, dev)
+        if kernel == "forward":
+            sets.append((q, k, v, pad, causal))
+            continue
         out, m, l = fa.fa_fwd_kernel(q, k, v, pad, causal)
         sets.append((q, k, v, pad, g, m, l, fa._delta(g, out), causal))
     return time_ms_cold(torch, fn, sets)
@@ -1203,17 +1209,18 @@ def merge_entry(rows, launches):
     }
 
 
-def start(torch) -> str:
-    """f32 products stay f32; then phase 1: every kernel source, one nvcc
-    each, all started together, logging the build time and ptxas's
-    register, shared-memory and spill lines. Returns the card line."""
+def start(torch, sources=None) -> str:
+    """f32 products stay f32; then phase 1: every kernel source (or the
+    named ones), one nvcc each, all started together, logging the build
+    time and ptxas's register, shared-memory and spill lines. Returns the
+    card line."""
     from kubeml_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(sources)
     log(card, f"build: {len(logs)} kernel source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
@@ -1303,14 +1310,14 @@ def main(argv=None) -> int:
         return 1
     try:
         if args.paged_only:
-            card = start(torch)
+            card = start(torch, ["paged_attention"])
             rows = phase_kernels(torch, card, args.seed)
             print(json.dumps({"card": card, "paged": [
                 {"pages": p, "S": S, "T": T, **r}
                 for (p, S, T), r in rows.items()]}))
             return 0
         if args.flash_only:
-            card = start(torch)
+            card = start(torch, ["flash_attention"])
             rows = phase_flash(torch, card, args.seed)
             print(json.dumps({"card": card, "flash": [
                 {"case": c, "kernel": k, **r} for (c, k), r in rows.items()]}))

@@ -3,7 +3,7 @@
 //
 // Replaces the three Pallas TPU kernels of kubeml_tpu/ops/pallas/
 // flash_attention.py (driven there by _fa_forward / _fa_backward):
-//   fa_fwd_mma, fa_fwd_kernel    <- _fa_kernel          online-softmax
+//   fa_fwd_wgmma, fa_fwd_kernel  <- _fa_kernel          online-softmax
 //                                    forward; emits out, m, l
 //   fa_dkv_wgmma, fa_dkv_kernel  <- _fa_bwd_dkv_kernel  dK, dV with the Q
 //                                    loop inside the block
@@ -35,26 +35,21 @@
 // must move ~8.5 MB (q, k, v, out, m, l: 2.5 us at 3.35 TB/s) against ~1.1
 // GFLOP of products (1.1 us on the tensor cores); dK/dV 3.8 us of bytes
 // against 2.2 us of products, dQ 3.2 us against 1.6 us. The kernels are
-// further from those bounds than a library would be, for different reasons:
-//   - the forward (fa_fwd_mma, mma.sync) loads a tile, waits, then computes,
-//     with 4-8 warps per SM to hide the wait;
-//   - the backward (fa_dkv_wgmma, fa_dq_wgmma) hides its loads behind the
-//     products and gives every causal block equal work; what is left is
-//     the per-element epilogue between two dependent rounds of products
-//     (scores, then the accumulating products): within a warpgroup the
-//     tensor cores wait for it, and only the other warpgroup of the block
-//     (one block per SM) can fill that wait.
+// further from those bounds than a library would be: all three bf16 kernels
+// hide their loads behind the products and give every causal block equal
+// work; what is left is the per-element epilogue between two dependent
+// rounds of products (scores, then the accumulating products): within a
+// warpgroup the tensor cores wait for it, and only the other warpgroup of
+// the block (one block per SM) can fill that wait.
 //
 // Design: a CUDA block has no sequential grid axis to carry (acc, m, l) in,
 // so each block loops over the other sequence axis inside itself: the forward
 // and dQ own a 64-row Q tile and walk the KV tiles; dK/dV owns a 64-row KV
 // tile and walks the Q tiles. No atomics, so every result is deterministic.
-// Three paths compute the same contract:
-//   - the bf16 backward with head_dim 16/32/64/128 (the training path):
-//     wgmma, a cp.async ring and balanced causal blocks (below, "backward,
-//     tensor cores");
-//   - the bf16 forward with those head dims: mma.sync (below, "tensor-core
-//     forward");
+// Two paths compute the same contract:
+//   - bf16 with head_dim 16/32/64/128 (the training path): wgmma, a cp.async
+//     ring per warpgroup and balanced causal blocks, forward and backward
+//     alike (below, "backward, tensor cores" and "forward, tensor cores");
 //   - f32 (and other bf16 head dims): f32 FMAs from shared memory. Tiles are
 //     staged as f32 rows of D + 1 words (bank-conflict free row and column
 //     walks) with 16-byte loads; 256 threads form a 16 x 16 grid and each
@@ -63,8 +58,7 @@
 //     Head dims up to 128 are two 64-wide column chunks. f32 keeps the tight
 //     on-card checks exact to 2e-5; TF32 tensor cores would not.
 //
-// Later work: the forward on the backward's design (ring, wgmma); in the
-// backward, the next step's scores issued before this step's epilogue
+// Later work: the next step's scores issued before this step's epilogue
 // (registers allow it at head_dim <= 64), and TMA in place of cp.async once
 // its host-side tensor map is measured against the host-bound training
 // step.
@@ -489,113 +483,15 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T>(dq, acc, one, b, h, q0, T_, H, D);
 }
 
-// -------------------------------------------- tensor-core forward (bf16)
-// bf16 inputs with head_dim 16, 32, 64 or 128 run the forward's products on
-// the tensor cores: mma.sync m16n8k16 (bf16 operands, f32 accumulators). A
-// block is 4 warps over a 64-row tile; each warp owns 16 rows and keeps its
-// [16, 64] score block and its [16, D] accumulators in registers in the
-// mma's documented fragment layout (lane = 4 * g + t holds rows g and g + 8,
-// columns 2t and 2t + 1 of every 8-wide n-tile), so the row max and sum
-// are quad shuffles and a score block, rounded to bf16 — the reference's
-// cast point — is directly the A operand of the next product. Tiles are
-// staged in shared memory as bf16 rows of D + 8 elements (conflict-free
-// 32-bit fragment loads); the right-hand operand of P.V is read from the
-// same row-major tile, transposed on the fly by ldmatrix.trans.
-
-constexpr int kMmaThreads = 128;       // 4 warps, 16 rows each
-constexpr int kPadE = 8;               // bf16 elements of row padding
+// ------------------------------------------------ tensor cores (bf16)
 using bf16 = __nv_bfloat16;
 
 bool mma_head_dim(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // two f32 values rounded to bf16 (round to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the B fragment (16 x 8, k x n) of rows k0..k0+15, columns n0..n0+7 of a
-// row-major tile, loaded transposed: lanes 0..15 name the 16 rows
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
-                                              const bf16* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[n][.] += sum_k X[r0 + row][k] * Y[8 n + col][k] over k < K: the warp's
-// 16 rows of row-major X times NT 8-row slabs of row-major Y, both with k
-// contiguous (row strides ldx, ldy in elements)
-template <int NT, int K>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* x,
-                                         int ldx, int r0, const bf16* y,
-                                         int ldy) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const bf16* px = x + (r0 + g) * ldx + k0 + 2 * t;
-    const uint32_t a[4] = {ld32(px), ld32(px + 8 * ldx), ld32(px + 8),
-                           ld32(px + 8 * ldx + 8)};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* py = y + (8 * n + g) * ldy + k0 + 2 * t;
-      mma16816(acc[n], a, ld32(py), ld32(py + 8));
-    }
-  }
-}
-
-// acc[n][.] += sum_k bf16(p)[row][k] * Y[k][8 n + col] over the 64 columns k
-// of the warp's register score block p, Y a row-major [64, 8 NT] tile
-template <int NT>
-__device__ __forceinline__ void warp_mma_p(float (&acc)[NT][4],
-                                           const float (&p)[8][4],
-                                           const bf16* y, int ldy) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
-                           pack_bf16(p[2 * j][2], p[2 * j][3]),
-                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, y + (16 * j + (lane & 15)) * ldy + 8 * n);
-      mma16816(acc[n], a, b0, b1);
-    }
-  }
-}
-
-// rows [r0, r0 + kTile) of head h of x [B, T, H, D] into dst as bf16 rows of
-// stride ld (rows past T are zeros)
-template <int D>
-__device__ __forceinline__ void stage_bf16(bf16* dst, int ld,
-                                           const bf16* __restrict__ x, int b,
-                                           int h, int r0, int T_, int H) {
-  constexpr int vpr = D / 8;
-  for (int i = threadIdx.x; i < kTile * vpr; i += blockDim.x) {
-    const int r = i / vpr, vc = i - r * vpr, t = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T_)
-      v = __ldg(reinterpret_cast<const uint4*>(
-          x + ((static_cast<size_t>(b) * T_ + t) * H + h) * D + vc * 8));
-    *reinterpret_cast<uint4*>(dst + r * ld + vc * 8) = v;
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -606,111 +502,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// write the warp's [16, D] register block (rows r0 + g, r0 + g + 8 of the
-// tile starting at tile row t0), each row divided by div[i], as bf16
-template <int D>
-__device__ __forceinline__ void store_mma(bf16* __restrict__ y,
-                                          const float (&acc)[D / 8][4],
-                                          const float (&div)[2], int b, int h,
-                                          int t0, int r0, int T_, int H) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = t0 + r0 + g + 8 * i;
-    if (row >= T_) continue;
-    bf16* out = y + ((static_cast<size_t>(b) * T_ + row) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + 8 * n) =
-          pack_bf16(__fdiv_rn(acc[n][2 * i], div[i]),
-                    __fdiv_rn(acc[n][2 * i + 1], div[i]));
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const float* __restrict__ mask,
-           bf16* __restrict__ out, float* __restrict__ m_out,
-           float* __restrict__ l_out, int T_, int H, int causal,
-           float scale) {
-  constexpr int LD = D + kPadE;
-  extern __shared__ float smem[];
-  float* spad = smem;                                // [kTile]
-  bf16* sq = reinterpret_cast<bf16*>(spad + kTile);  // [kTile, LD]
-  bf16* sk = sq + kTile * LD;                        // [kTile, LD]
-  bf16* sv = sk + kTile * LD;                        // [kTile, LD]
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);
-
-  stage_bf16<D>(sq, LD, q, b, h, q0, T_, H);
-  float o[D / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  const int n_kv = (T_ + kTile - 1) / kTile;
-  const int kv_end = causal ? min(n_kv, static_cast<int>(blockIdx.x) + 1)
-                            : n_kv;
-  for (int jt = 0; jt < kv_end; ++jt) {
-    const int k0 = jt * kTile;
-    __syncthreads();
-    stage_bf16<D>(sk, LD, k, b, h, k0, T_, H);
-    stage_bf16<D>(sv, LD, v, b, h, k0, T_, H);
-    stage_pad(spad, mask, b, k0, T_);
-    __syncthreads();
-
-    float s[8][4] = {};
-    warp_mma<8, D>(s, sq, LD, r0, sk, LD);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = 8 * n + 2 * t + (e & 1);
-        s[n][e] = k0 + c < T_ ? score(s[n][e], scale, spad[c], causal,
-                                      q0 + r0 + g + 8 * i, k0 + c)
-                              : -INFINITY;
-        mx[i] = fmaxf(mx[i], s[n][e]);
-      }
-    float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), quad_sum(sum[i]));
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = __fmul_rn(o[n][e], alpha[e >> 1]);
-    warp_mma_p<D / 8>(o, s, sv, LD);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
-  store_mma<D>(out, o, l, b, h, q0, r0, T_, H);
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + g + 8 * i;
-      if (row < T_) {
-        m_out[static_cast<size_t>(bh) * T_ + row] = m[i];
-        l_out[static_cast<size_t>(bh) * T_ + row] = l[i];
-      }
-    }
-  }
 }
 
 // ------------------------------------------- backward (bf16, tensor cores)
@@ -982,7 +773,7 @@ __device__ __forceinline__ void load_row(float* dst,
   }
 }
 
-// The tiles a backward block owns and, for each, the tiles it walks:
+// The tiles a tensor-core block owns and, for each, the tiles it walks:
 // owned tile own[o] walks tiles first[o] .. first[o] + count[o] - 1. The
 // walk is one flat run of `steps` steps over the owned tiles in turn.
 struct Walk {
@@ -1002,7 +793,7 @@ struct Walk {
 };
 
 // kv_owner: the block owns KV tiles and walks Q tiles (dK/dV); else the
-// reverse (dQ). Causal blocks walk only the tiles on or below the diagonal,
+// reverse (dQ, the forward). Causal blocks walk only the tiles on or below the diagonal,
 // so owned tile j walks n - j tiles (dK/dV) or j + 1 (dQ); block p owns
 // the pair (p, n - 1 - p), which walks n + 1 tiles whichever kernel, and
 // for odd n the middle tile goes alone. Non-causal blocks own one tile.
@@ -1445,6 +1236,244 @@ fa_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   reduce_store<D>(dv_acc, scratch, dv, b, h, k_last, T_, H);
 }
 
+// ------------------------------------------- forward (bf16, tensor cores)
+// Replaces _fa_kernel for bf16 with head_dim 16, 32, 64 or 128, on the
+// backward's machinery (above): a block owns one Q tile, or when causal the
+// pair (p, n - 1 - p) (make_walk), and walks its KV tiles; two warpgroups
+// take alternate steps of the walk, each with its own cp.async ring of K, V
+// and keep-mask rows, its own barrier and its own (acc, m, l) per owned
+// tile.
+//   - Products: S = Q K^T by wgmma_ss64 (both tiles K-major in shared
+//     memory); O += bf16(P) V with A from registers (the score accumulator,
+//     rounded to bf16 — the reference's cast point) and V read MN-major, as
+//     dQ += dS K does.
+//   - Epilogue: the score keeps the reference's three f32 roundings (scaled
+//     product, pad term, causal term); the causal term on the diagonal tile
+//     only, keys past T (p = 0) on the last tile only; m_new = max(m, tile
+//     max), alpha = exp2((m - m_new) log2 e), p = exp2((s - m_new) log2 e),
+//     l = l alpha + rowsum(p) (unrounded p), acc = acc alpha + bf16(p) V.
+//   - Merge: when an owned tile is done, the two warpgroups' states merge
+//     in a fixed order, warpgroup 0's then warpgroup 1's: m = max(m0, m1),
+//     l = l0 e^(m0 - m) + l1 e^(m1 - m), acc the same way, out = acc /
+//     max(l, 1e-30). m is exactly the running max from NEG_INF, m and l
+//     are stored apart; a fully padded row sees every score equal to -1e9,
+//     so every p and every factor is exactly 1 and l counts its keys.
+
+template <int D>
+struct FwdSmem {
+  static constexpr size_t kTileBytes = WgTile<D>::kBytes;
+  static constexpr size_t kRing = 2 * kStages<D>;   // stages, both rings
+  static constexpr size_t kAccFloats = Acc<D>::kBlocks * Acc<D>::kRegs + 4;
+  // 1 KB for the alignment; two resident Q tiles; per stage K, V and the
+  // keep-mask row; the merge's scratch (warpgroup 1's acc, m, l)
+  static constexpr size_t kBytes = 1024 + (2 + 2 * kRing) * kTileBytes +
+                                   4 * kRing * kTile + 4 * 128 * kAccFloats;
+};
+
+// The two warpgroups' (acc, m, l) of one owned tile merged in a fixed order
+// (warpgroup 0's, then warpgroup 1's) through `scratch`, divided and stored
+// by warpgroup 0 with the tile's m and l rows; leaves both states reset.
+template <int D>
+__device__ __forceinline__ void merge_store(AccRegs<D>& acc, float (&m)[2],
+                                            float (&l)[2], float* scratch,
+                                            bf16* __restrict__ out,
+                                            float* __restrict__ m_out,
+                                            float* __restrict__ l_out, int b,
+                                            int h, int bh, int row0, int T_,
+                                            int H) {
+  constexpr int NA = Acc<D>::kBlocks * Acc<D>::kRegs;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  block_sync();   // warpgroup 0 is done with the scratch's last use
+  if (wg == 1) {
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+      for (int i = 0; i < Acc<D>::kRegs; ++i)
+        scratch[(c * Acc<D>::kRegs + i) * 128 + tid] = acc[c][i];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      scratch[(NA + i) * 128 + tid] = m[i];
+      scratch[(NA + 2 + i) * 128 + tid] = l[i];
+    }
+  }
+  block_sync();
+  if (wg == 0) {
+    float f0[2], f1[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = scratch[(NA + i) * 128 + tid];
+      const float l1 = scratch[(NA + 2 + i) * 128 + tid];
+      const float mm = fmaxf(m[i], m1);
+      f0[i] = exp2f(__fmul_rn(__fsub_rn(m[i], mm), kLog2e));
+      f1[i] = exp2f(__fmul_rn(__fsub_rn(m1, mm), kLog2e));
+      l[i] = fmaxf(__fadd_rn(__fmul_rn(l[i], f0[i]), __fmul_rn(l1, f1[i])),
+                   1e-30f);
+      m[i] = mm;
+    }
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+      for (int x = 0; x < Acc<D>::kRegs; ++x) {
+        const int i = (x & 3) >> 1;
+        const float a1 = scratch[(c * Acc<D>::kRegs + x) * 128 + tid];
+        acc[c][x] = __fdiv_rn(__fadd_rn(__fmul_rn(acc[c][x], f0[i]),
+                                        __fmul_rn(a1, f1[i])),
+                              l[i]);
+      }
+    store_acc<D>(out, acc, b, h, row0, T_, H);
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 16 * (tid >> 5) + g + 8 * i;
+        if (row < T_) {
+          m_out[static_cast<size_t>(bh) * T_ + row] = m[i];
+          l_out[static_cast<size_t>(bh) * T_ + row] = l[i];
+        }
+      }
+    }
+  }
+  zero<D>(acc);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fa_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const float* __restrict__ mask,
+             bf16* __restrict__ out, float* __restrict__ m_out,
+             float* __restrict__ l_out, int T_, int H, int causal,
+             float scale) {
+  constexpr int TB = WgTile<D>::kBytes, S = kStages<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* res = align_1k(smem_raw);       // [owned] Q
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  unsigned char* ring = res + (2 + wg * S * 2) * TB;   // [stage][K, V]
+  float* masks = reinterpret_cast<float*>(res + (2 + 4 * S) * TB);
+  float* smask = masks + wg * S * kTile;
+  float* scratch = masks + 2 * S * kTile;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5);
+  const Walk w = make_walk(false, (T_ + kTile - 1) / kTile, causal);
+
+  // this warpgroup's j-th step is step wg + 2 j of the walk
+  auto issue = [&](int j) {
+    const int k0 = w.walked(wg + 2 * j) * kTile, st = j % S;
+    load_tile<D, kWgThreads>(ring + st * 2 * TB, k, b, h, k0, T_, H, tid);
+    load_tile<D, kWgThreads>(ring + st * 2 * TB + TB, v, b, h, k0, T_, H,
+                             tid);
+    load_row(smask + st * kTile, mask + static_cast<size_t>(b) * T_, k0, T_,
+             tid);
+  };
+  for (int o = 0; o < w.n_own; ++o)
+    load_tile<D, kBwdThreads>(res + o * TB, q, b, h, w.tile(o) * kTile, T_,
+                              H, threadIdx.x);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (wg + 2 * j < w.steps) issue(j);
+    cp_async_commit();
+  }
+  cp_async_wait<S - 1>();   // the resident Q tiles, copied by both
+  fence_async_smem();
+  __syncthreads();
+
+  AccRegs<D> acc;
+  zero<D>(acc);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  bool first_done = w.n_own == 1;   // owned tile 0's outputs are stored
+  for (int j = 0; wg + 2 * j < w.steps; ++j) {
+    const int s = wg + 2 * j;
+    cp_async_wait<S - 2>();   // step j has landed ...
+    fence_async_smem();
+    wg_sync(wg);              // ... for the warpgroup; step j - 1 is done
+    if (s + 2 * (S - 1) < w.steps) issue(j + S - 1);   // into j - 1's stage
+    cp_async_commit();
+
+    const int o = w.slot(s), st = j % S;
+    if (o == 1 && !first_done) {   // both warpgroups are past tile 0
+      merge_store<D>(acc, m, l, scratch, out, m_out, l_out, b, h, bh,
+                     w.tile(0) * kTile, T_, H);
+      first_done = true;
+    }
+    const int q0 = w.tile(o) * kTile, k0 = w.walked(s) * kTile;
+    const uint32_t sq = smem_u32(res + o * TB);
+    const uint32_t sk = smem_u32(ring + st * 2 * TB), sv = sk + TB;
+    const float* sm = smask + st * kTile;
+    float s_[32];
+    wgmma_fence();
+    wgmma_scores<D>(s_, sq, sk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s_);
+    // scores in place of s_, then p; only a tile that crosses the diagonal
+    // or holds keys past T (the last one) checks each element
+    float mx[2] = {-INFINITY, -INFINITY};
+    auto scores = [&](auto edge) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = 8 * n + 2 * t + (e & 1), x_ = 4 * n + e;
+          const float pad = __fmul_rn(__fsub_rn(1.0f, sm[c]), kNegInf);
+          float x = __fadd_rn(__fmul_rn(s_[x_], scale), pad);
+          if (decltype(edge)::value) {
+            if (causal)
+              x = __fadd_rn(x, q0 + r0 + g + 8 * i >= k0 + c ? 0.0f
+                                                              : kNegInf);
+            if (k0 + c >= T_) x = -INFINITY;
+          }
+          s_[x_] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+    };
+    if ((causal && k0 == q0) || k0 + kTile > T_)
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = exp2f(__fmul_rn(__fsub_rn(m[i], m_new), kLog2e));
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int x_ = 0; x_ < 32; ++x_) {
+      const int i = (x_ & 3) >> 1;
+      s_[x_] = exp2f(__fmul_rn(__fsub_rn(s_[x_], m[i]), kLog2e));
+      sum[i] += s_[x_];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), quad_sum(sum[i]));
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c)
+#pragma unroll
+      for (int x_ = 0; x_ < Acc<D>::kRegs; ++x_)
+        acc[c][x_] = __fmul_rn(acc[c][x_], alpha[(x_ & 3) >> 1]);
+    // O += P V: P rounded to bf16 from registers, V read MN-major
+    uint32_t a[4][4];
+    to_a_frags(a, s_);
+    wgmma_fence();
+    wgmma_acc<D>(acc, a, sv);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < Acc<D>::kBlocks; ++c) fence_regs(acc[c]);
+  }
+  if (!first_done)
+    merge_store<D>(acc, m, l, scratch, out, m_out, l_out, b, h, bh,
+                   w.tile(0) * kTile, T_, H);
+  merge_store<D>(acc, m, l, scratch, out, m_out, l_out, b, h, bh,
+                 w.tile(w.n_own - 1) * kTile, T_, H);
+}
+
 template <int D>
 size_t bwd_smem(int kernel) {
   return kernel == 1 ? BwdSmem<D>::kDkv : BwdSmem<D>::kDq;
@@ -1452,7 +1481,14 @@ size_t bwd_smem(int kernel) {
 
 size_t smem_bytes(int kernel, int D, bool bf16_in) {
   if (bf16_in && mma_head_dim(D)) {
-    if (kernel == 0) return 4 * kTile + 3 * static_cast<size_t>(kTile) * (D + kPadE) * 2;
+    if (kernel == 0) {
+      switch (D) {
+        case 16: return FwdSmem<16>::kBytes;
+        case 32: return FwdSmem<32>::kBytes;
+        case 64: return FwdSmem<64>::kBytes;
+        default: return FwdSmem<128>::kBytes;
+      }
+    }
     switch (D) {
       case 16: return bwd_smem<16>(kernel);
       case 32: return bwd_smem<32>(kernel);
@@ -1520,7 +1556,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                *vb = static_cast<const bf16*>(v);
     bf16* ob = static_cast<bf16*>(out);
 #define KUBEML_FWD(DD)                                                      \
-  launch(fa_fwd_mma<DD>, kMmaThreads, smem, grid_for(B, T_, H), st, qb, kb, vb, msk, \
+  launch(fa_fwd_wgmma<DD>, kBwdThreads, smem, grid_bwd(B, T_, H, causal), st, qb, kb, vb, msk, \
          ob, mo, lo, T_, H, causal, scale)
     KUBEML_MMA_DISPATCH(D, KUBEML_FWD)
 #undef KUBEML_FWD

@@ -371,3 +371,169 @@ def test_backward_kernels_deterministic_on_card(cuda_device, t_len, causal,
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# --------------------------------- the card forward's two-warpgroup schedule
+KV_TILE = 64         # the card kernels' tile
+
+
+def _walk(n, causal):
+    """The card's blocks as make_walk builds them for a Q-tile owner:
+    causal block p owns (p, n - 1 - p) (the middle tile of an odd count
+    alone); each owned tile walks its KV tiles 0 .. (own if causal else
+    n - 1) in order, one flat run of steps."""
+    blocks = []
+    for p in range((n + 1) // 2 if causal else n):
+        own = [p] if not causal or n - 1 - p == p else [p, n - 1 - p]
+        blocks.append([(o, j) for o in own
+                       for j in range(o + 1 if causal else n)])
+    return blocks
+
+
+def _two_warpgroup_forward(q, k, v, pad, causal):
+    """The card forward's schedule replayed in torch on the plain version's
+    f32 scores: warpgroup w takes steps w, w + 2, ... of its block's walk
+    with its own (acc, m, l) from (0, NEG_INF, 0) — m_new = max(m, tile
+    max), alpha = exp(m - m_new), p = exp(s - m_new) (keys past T: none),
+    l = l alpha + rowsum(p), acc = acc alpha + bf16(p) v — and when an
+    owned tile is done the two states merge in a fixed order (warpgroup
+    0's, then 1's): m = max(m0, m1), l and acc rescaled and summed, out =
+    acc / max(l, 1e-30)."""
+    from kubeml_tpu_torch.ops.attention import NEG_INF
+    from kubeml_tpu_torch.ops.flash_attention import _scores_plain
+
+    B_, T_, H_, D_ = q.shape
+    s = _scores_plain(q, k, pad, causal)              # [B, H, T, T]
+    out = torch.empty_like(q)
+    m_rows = torch.empty((B_, H_, T_))
+    l_rows = torch.empty((B_, H_, T_))
+    n = -(-T_ // KV_TILE)
+    for walk in _walk(n, causal):
+        for o in dict.fromkeys(own for own, _ in walk):
+            rows = slice(o * KV_TILE, min((o + 1) * KV_TILE, T_))
+            nr = rows.stop - rows.start
+            state = [[torch.full((B_, H_, nr), NEG_INF),
+                      torch.zeros((B_, H_, nr)),
+                      torch.zeros((B_, H_, nr, D_))] for _ in range(2)]
+            for step, (own, j) in enumerate(walk):
+                if own != o:
+                    continue
+                cols = slice(j * KV_TILE, min((j + 1) * KV_TILE, T_))
+                st = state[step % 2]
+                x = s[:, :, rows, cols]
+                m_new = torch.maximum(st[0], x.amax(-1))
+                alpha = torch.exp(st[0] - m_new)
+                p = torch.exp(x - m_new[..., None])
+                st[1] = st[1] * alpha + p.sum(-1)
+                vt = v[:, cols].permute(0, 2, 1, 3).float()
+                st[2] = st[2] * alpha[..., None] \
+                    + p.to(v.dtype).float() @ vt
+                st[0] = m_new
+            (m0, l0, a0), (m1, l1, a1) = state
+            m = torch.maximum(m0, m1)
+            f0, f1 = torch.exp(m0 - m), torch.exp(m1 - m)
+            l = (l0 * f0 + l1 * f1).clamp_min(1e-30)
+            acc = a0 * f0[..., None] + a1 * f1[..., None]
+            out[:, rows] = (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+            m_rows[:, :, rows], l_rows[:, :, rows] = m, l
+    return (out, m_rows.reshape(B_ * H_, 1, T_),
+            l_rows.reshape(B_ * H_, 1, T_))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t_len", [1, 63, 64, 65, 200])
+def test_two_warpgroup_forward_matches_jax(t_len, causal, dtype):
+    """The card forward's schedule (alternate KV tiles per warpgroup, a
+    fixed-order merge) against the JAX forward: its Pallas kernel in
+    interpret mode where it tiles T (64, 200), else (T = 1, 63, 65, which
+    it refuses) the JAX package's attention chain with the composed bias.
+    m equals the plain version's exactly (a max is order-free), and the
+    fully padded sequence's l counts its keys exactly."""
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops import attention as jatt
+    from kubeml_tpu.ops.pallas.flash_attention import _fa_forward as jax_fwd
+    from kubeml_tpu.ops.pallas.flash_attention import _fit_block
+    from kubeml_tpu_torch.ops.flash_attention import _fa_forward_plain
+
+    q, k, v, _, pad = _inputs(30 + t_len + causal, T=t_len)
+    jdt, tdt = _types(dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    tpad = torch.from_numpy(pad)
+    out, m, l = _two_warpgroup_forward(tq, tk, tv, tpad, causal)
+    tol = _tol(dtype)
+    block = 64 if t_len % 64 == 0 else 40
+    if t_len in (64, 200):
+        r_out, r_m, r_l = jax_fwd(jq, jk, jv, jnp.asarray(pad), causal,
+                                  block, block, True)
+        torch.testing.assert_close(m, torch.tensor(np.asarray(r_m)),
+                                   rtol=tol, atol=tol)
+        torch.testing.assert_close(l, torch.tensor(np.asarray(r_l)),
+                                   rtol=tol, atol=tol)
+    else:
+        with pytest.raises(ValueError, match="block-aligned"):
+            _fit_block(64, t_len)
+        r_out = jatt.multi_head_attention(
+            jq, jk, jv, jatt.composed_bias(jnp.asarray(pad), causal, t_len))
+    _close(out, r_out, tol)
+    _, p_m, p_l = _fa_forward_plain(tq, tk, tv, tpad, causal)
+    assert torch.equal(m, p_m)
+    torch.testing.assert_close(l, p_l, rtol=tol, atol=tol)
+    want = np.arange(1, t_len + 1) if causal else np.full(t_len, t_len)
+    np.testing.assert_array_equal(l.reshape(B, H, t_len)[2].numpy(),
+                                  np.broadcast_to(want, (H, t_len)))
+
+
+FWD_T = (1, 63, 64, 65, 130, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t_len", FWD_T)
+def test_forward_kernel_on_card(cuda_device, t_len, causal, head_dim):
+    """On the card, the bf16 forward (two warpgroups, a fixed-order merge)
+    against its plain version at 2e-2, right padding with a fully padded
+    sequence (l counts its keys exactly) and left padding; two launches
+    equal bit for bit."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(t_len + head_dim + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (4, t_len, H, head_dim)).astype(np.float32)).to(cuda_device,
+                                                        torch.bfloat16)
+        for _ in range(3))
+    lengths = np.array([t_len, -(-t_len // 2), 0, t_len])
+    keep = (np.arange(t_len)[None, :] < lengths[:, None]).astype(np.float32)
+    keep[3, :t_len // 3] = 0.0                      # left padding
+    pad = torch.from_numpy(keep).to(cuda_device)
+    got = fa.fa_fwd_kernel(q, k, v, pad, causal)
+    again = fa.fa_fwd_kernel(q, k, v, pad, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    out, m, l = got
+    ref_out, ref_m, ref_l = fa._fa_forward_plain(q, k, v, pad, causal)
+    # causal rows of the left-padded sequence with no kept key of their own
+    # drop the keys of skipped tiles (the header's left-padding rule): such
+    # a row is uniform over the keys at or before it and the kept keys after
+    # it in its own diagonal tile
+    rows = torch.ones((4, t_len), dtype=torch.bool)
+    if causal:
+        rows[3, :t_len // 3] = False
+        l3 = l.reshape(4, H, t_len)[3].cpu()
+        for r in range(t_len // 3):
+            end = min(t_len, (r // 64 + 1) * 64)
+            assert bool((l3[:, r] == r + 1 + keep[3, r + 1:end].sum()).all())
+    torch.testing.assert_close(out.float()[rows], ref_out.float()[rows],
+                               rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(m, ref_m, rtol=2e-2, atol=2e-2)
+    stat_rows = rows[:, None].expand(4, H, t_len).reshape(4 * H, 1, t_len)
+    torch.testing.assert_close(l[stat_rows.to(l.device)],
+                               ref_l[stat_rows.to(l.device)], rtol=2e-2,
+                               atol=2e-2)
+    want = (torch.arange(1, t_len + 1) if causal
+            else torch.full((t_len,), t_len)).float().to(cuda_device)
+    assert torch.equal(l.reshape(4, H, t_len)[2], want.expand(H, t_len))
