@@ -362,30 +362,46 @@ struct PaSmem {
     rowb = D * elem + 16;            // K/V rows: raw page bytes + 16
     ldq = ((D + 15) / 16) * 16 + 8;  // bf16 query rows, zero past D
     ng = D < kPaThreads ? kPaThreads / D : 1;   // decode P.V groups
-    const int tpad = ((T + 15) / 16) * 16;
+    const size_t tpad = ((T + 15) / 16) * 16;
     size_t o = 0;
-    auto take = [&](size_t bytes) {
-      const size_t at = o;
-      o += (bytes + 15) / 16 * 16;
-      return at;
-    };
-    k = take(static_cast<size_t>(cols) * rowb);
-    v = take(static_cast<size_t>(cols) * rowb);
-    sc = take(4 * static_cast<size_t>(T) * ldsc);
-    part = take(4 * static_cast<size_t>(T) * D);
-    gpart = take(4 * static_cast<size_t>(ng) * D);
-    qb = take(2 * static_cast<size_t>(tpad) * ldq);
-    qf = take(4 * static_cast<size_t>(D));
-    pid = take(4 * static_cast<size_t>(npr));
-    psk = take(4 * static_cast<size_t>(npr));
-    psv = take(4 * static_cast<size_t>(npr));
-    plive = take(4 * static_cast<size_t>(npr));
-    cc = take(4 * static_cast<size_t>(cols / kChunk + 1));
-    rowlive = take(4 * static_cast<size_t>(T));
-    rmax = take(4 * static_cast<size_t>(T));
-    rsum = take(4 * static_cast<size_t>(T));
-    misc = take(16);
+    k = o;
+    o += r16(static_cast<size_t>(cols) * rowb);
+    v = o;
+    o += r16(static_cast<size_t>(cols) * rowb);
+    sc = o;
+    o += r16(4 * static_cast<size_t>(T) * ldsc);
+    part = o;
+    o += r16(4 * static_cast<size_t>(T) * D);
+    gpart = o;
+    o += r16(4 * static_cast<size_t>(ng) * D);
+    qb = o;
+    o += r16(2 * tpad * ldq);
+    qf = o;
+    o += r16(4 * static_cast<size_t>(D));
+    pid = o;
+    o += r16(4 * static_cast<size_t>(npr));
+    psk = o;
+    o += r16(4 * static_cast<size_t>(npr));
+    psv = o;
+    o += r16(4 * static_cast<size_t>(npr));
+    plive = o;
+    o += r16(4 * static_cast<size_t>(npr));
+    cc = o;
+    o += r16(4 * static_cast<size_t>(cols / kChunk + 1));
+    rowlive = o;
+    o += r16(4 * static_cast<size_t>(T));
+    rmax = o;
+    o += r16(4 * static_cast<size_t>(T));
+    rsum = o;
+    o += r16(4 * static_cast<size_t>(T));
+    misc = o;
+    o += 16;
     total = o;
+  }
+
+  // bytes rounded up to 16, so every region starts 16-byte aligned
+  __host__ __device__ static size_t r16(size_t bytes) {
+    return (bytes + 15) / 16 * 16;
   }
 };
 
