@@ -516,7 +516,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
                   const float* __restrict__ bias, bf16* __restrict__ out,
                   int T, int H, int D, int G, int Pmax, int P, float scale) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char pa_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const PaSmem L(T, D, G, Pmax, static_cast<int>(sizeof(PT)));
   const int nr = static_cast<int>(cluster.num_blocks());
@@ -525,19 +525,19 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = kPaThreads / 32;
   const int C = Pmax * G;
-  unsigned char* sk = smem + L.k;
-  unsigned char* sv = smem + L.v;
-  float* sc = reinterpret_cast<float*>(smem + L.sc);     // [T, ldsc]
-  float* part = reinterpret_cast<float*>(smem + L.part); // [T, D]
-  int* pid = reinterpret_cast<int*>(smem + L.pid);
-  float* psk = reinterpret_cast<float*>(smem + L.psk);
-  float* psv = reinterpret_cast<float*>(smem + L.psv);
-  int* plive = reinterpret_cast<int*>(smem + L.plive);
-  int* cc = reinterpret_cast<int*>(smem + L.cc);         // computed chunks
-  int* rowlive = reinterpret_cast<int*>(smem + L.rowlive);
-  float* rmax = reinterpret_cast<float*>(smem + L.rmax);
-  float* rsum = reinterpret_cast<float*>(smem + L.rsum);
-  int* misc = reinterpret_cast<int*>(smem + L.misc);
+  unsigned char* sk = pa_smem + L.k;
+  unsigned char* sv = pa_smem + L.v;
+  float* sc = reinterpret_cast<float*>(pa_smem + L.sc);     // [T, ldsc]
+  float* part = reinterpret_cast<float*>(pa_smem + L.part); // [T, D]
+  int* pid = reinterpret_cast<int*>(pa_smem + L.pid);
+  float* psk = reinterpret_cast<float*>(pa_smem + L.psk);
+  float* psv = reinterpret_cast<float*>(pa_smem + L.psv);
+  int* plive = reinterpret_cast<int*>(pa_smem + L.plive);
+  int* cc = reinterpret_cast<int*>(pa_smem + L.cc);         // computed chunks
+  int* rowlive = reinterpret_cast<int*>(pa_smem + L.rowlive);
+  float* rmax = reinterpret_cast<float*>(pa_smem + L.rmax);
+  float* rsum = reinterpret_cast<float*>(pa_smem + L.rsum);
+  int* misc = reinterpret_cast<int*>(pa_smem + L.misc);
   const int npr = (Pmax - rank + nr - 1) / nr;   // pages rank, rank + nr, ..
   const int ncols = npr * G;
   const int ldsc = L.ldsc, rowb = L.rowb;
@@ -557,7 +557,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
   }
   for (int t = tid; t < T; t += kPaThreads) rowlive[t] = 0;
   if constexpr (kMma) {
-    bf16* qb = reinterpret_cast<bf16*>(smem + L.qb);
+    bf16* qb = reinterpret_cast<bf16*>(pa_smem + L.qb);
     const int tpad = ((T + 15) / 16) * 16;
     for (int e = tid; e < tpad * L.ldq; e += kPaThreads) {
       const int t = e / L.ldq, d = e - t * L.ldq;
@@ -566,7 +566,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
                   : __float2bfloat16(0.0f);
     }
   } else {
-    float* qf = reinterpret_cast<float*>(smem + L.qf);
+    float* qf = reinterpret_cast<float*>(pa_smem + L.qf);
     for (int d = tid; d < D; d += kPaThreads)
       qf[d] = __bfloat162float(q[(static_cast<size_t>(s) * H + h) * D + d]);
   }
@@ -612,7 +612,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
 
   // 4. scores: sc[t, c] = (q[t] . k[c]) * scale + bias[t, c]
   if constexpr (kMma) {
-    const bf16* qb = reinterpret_cast<const bf16*>(smem + L.qb);
+    const bf16* qb = reinterpret_cast<const bf16*>(pa_smem + L.qb);
     const int g = lane >> 2, t4 = lane & 3;
     for (int m0 = 0; m0 < T; m0 += 16) {
       for (int u = warp; u < nch; u += nwarps) {
@@ -641,7 +641,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
       }
     }
   } else {
-    const float* qf = reinterpret_cast<const float*>(smem + L.qf);
+    const float* qf = reinterpret_cast<const float*>(pa_smem + L.qf);
     for (int x = tid; x < nch * kChunk; x += kPaThreads) {
       const int c = cc[x / kChunk] + x % kChunk;
       const unsigned char* krow = sk + static_cast<size_t>(c) * rowb;
@@ -751,7 +751,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
     }
   } else {
     // decode: ng groups of D threads; group x sums every ng-th column
-    float* gpart = reinterpret_cast<float*>(smem + L.gpart);
+    float* gpart = reinterpret_cast<float*>(pa_smem + L.gpart);
     for (int i = tid; i < L.ng * D; i += kPaThreads) {
       const int grp = i / D, d = i - grp * D;
       float acc = 0.0f;
