@@ -91,37 +91,13 @@ int tile_pages_for(int G, int Pmax) {
   return tp < 1 ? 1 : (tp > Pmax ? Pmax : tp);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round an f32 value to the compute dtype QT, returned widened to f32
-template <typename QT>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<QT, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
-template <typename QT>
-__device__ __forceinline__ QT from_float(float x) {
-  if constexpr (std::is_same<QT, __nv_bfloat16>::value) {
-    return __float2bfloat16(x);
-  } else {
-    return x;
-  }
-}
-
-// one page element as a compute-dtype value held in f32
-template <typename QT, typename PT>
+// one page element as an f32 value: int8 dequantized as float(x) * scale
+template <typename PT>
 __device__ __forceinline__ float page_value(PT x, float scale) {
   if constexpr (std::is_same<PT, int8_t>::value) {
-    return round_to<QT>(static_cast<float>(x) * scale);
+    return static_cast<float>(x) * scale;
   } else {
-    return to_float(x);
+    return x;
   }
 }
 
@@ -138,11 +114,11 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ------------------------------------------------- f32: the first version
 // Stage pages pids[j0 .. j0+np) of head h into dst as [np*G, D+1] f32 rows
-// of compute-dtype values (the +1 keeps row-strided reads free of bank
+// (the +1 keeps row-strided reads free of bank
 // conflicts). Each thread moves 16-byte vectors (D * sizeof(PT) is a
 // multiple of 16; the wrapper checks), issuing kUnroll loads before it
 // converts any, so several loads are in flight per thread.
-template <typename QT, typename PT>
+template <typename PT>
 __device__ __forceinline__ void stage_tile(
     float* dst, const PT* __restrict__ pages, const float* __restrict__ scales,
     const int* pids, int j0, int np, int h, int H, int D, int G) {
@@ -175,20 +151,20 @@ __device__ __forceinline__ void stage_tile(
         const PT* e = reinterpret_cast<const PT*>(&raw[u]);
         float* o = dst + r * (D + 1) + vc * kVec;
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) o[k] = page_value<QT, PT>(e[k], scale);
+        for (int k = 0; k < kVec; ++k) o[k] = page_value<PT>(e[k], scale);
       }
     }
   }
 }
 
-template <typename QT, typename PT>
+template <typename PT>
 __global__ void __launch_bounds__(kThreads)
-pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
+pa_kernel(const float* __restrict__ q, const PT* __restrict__ k_pages,
           const PT* __restrict__ v_pages, const float* __restrict__ k_scale,
           const float* __restrict__ v_scale,
           const int32_t* __restrict__ tables, const float* __restrict__ bias,
-          QT* __restrict__ out, int T, int H, int D, int G, int Pmax, int P,
-          int tile_pages, float scale) {
+          float* __restrict__ out, int T, int H, int D, int G, int Pmax,
+          int P, int tile_pages, float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int s = blockIdx.y;
@@ -212,7 +188,7 @@ pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
 
   for (int i = tid; i < O; i += blockDim.x) {
     const int t = i / D, d = i - t * D;
-    sq[i] = to_float(q[((static_cast<size_t>(s) * T + t) * H + h) * D + d]);
+    sq[i] = q[((static_cast<size_t>(s) * T + t) * H + h) * D + d];
   }
   for (int i = tid; i < nsplit * O; i += blockDim.x) sacc[i] = 0.0f;
 
@@ -220,7 +196,7 @@ pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   for (int j0 = 0; j0 < Pmax; j0 += tile_pages) {
     const int rows = min(tile_pages, Pmax - j0) * G;
     __syncthreads();  // every reader of the previous tile is done
-    stage_tile<QT, PT>(skv, k_pages, k_scale, pids, j0, rows / G, h, H, D, G);
+    stage_tile<PT>(skv, k_pages, k_scale, pids, j0, rows / G, h, H, D, G);
     __syncthreads();
     for (int i = tid; i < T * rows; i += blockDim.x) {
       const int t = i / rows, r = i - t * rows;
@@ -245,8 +221,7 @@ pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   }
   __syncthreads();
 
-  // full-row f32 softmax, one warp per row; the weights are rounded to the
-  // compute dtype (the reference's weights.astype(q.dtype))
+  // full-row f32 softmax, one warp per row
   const int lane = tid & 31;
   for (int t = tid >> 5; t < T; t += blockDim.x >> 5) {
     float* r = sc + t * C;
@@ -260,7 +235,7 @@ pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int c = lane; c < C; c += 32) r[c] = round_to<QT>(r[c] / sum);
+    for (int c = lane; c < C; c += 32) r[c] = r[c] / sum;
   }
 
   // walk 2: out[t, d] = sum_c w[t, c] * v[c, d], accumulated in f32. Work
@@ -269,7 +244,7 @@ pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
   for (int j0 = 0; j0 < Pmax; j0 += tile_pages) {
     const int rows = min(tile_pages, Pmax - j0) * G;
     __syncthreads();
-    stage_tile<QT, PT>(skv, v_pages, v_scale, pids, j0, rows / G, h, H, D, G);
+    stage_tile<PT>(skv, v_pages, v_scale, pids, j0, rows / G, h, H, D, G);
     __syncthreads();
     for (int i = tid; i < nsplit * O; i += blockDim.x) {
       const int grp = i / O, o = i - grp * O;
@@ -294,7 +269,7 @@ pa_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pages,
     float v = 0.0f;
     for (int grp = 0; grp < nsplit; ++grp) v += sacc[grp * O + o];
     const int t = o / D, d = o - t * D;
-    out[((static_cast<size_t>(s) * T + t) * H + h) * D + d] = from_float<QT>(v);
+    out[((static_cast<size_t>(s) * T + t) * H + h) * D + d] = v;
   }
 }
 
@@ -316,7 +291,7 @@ cudaError_t launch_f32(const void* q, const void* k_pages,
                        const void* bias, void* out, int S, int T, int H,
                        int D, int G, int Pmax, int P, float scale,
                        cudaStream_t stream) {
-  auto kernel = pa_kernel<float, PT>;
+  auto kernel = pa_kernel<PT>;
   const int tile_pages = tile_pages_for(G, Pmax);
   const size_t smem = f32_smem_bytes(T, D, G, Pmax);
   if (smem > 48 * 1024) {
