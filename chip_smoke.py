@@ -496,7 +496,9 @@ def phase_trace(torch, card, seed, module):
         return
     busy = sum(t for t, _ in by_name.values())
     calls = sum(n for _, n in by_name.values())
-    pa = sum(t for name, (t, _) in by_name.items() if "pa_kernel" in name)
+    # pa_cluster_kernel (bf16, int8 pages) and pa_kernel (f32)
+    pa = sum(t for name, (t, _) in by_name.items()
+             if "pa_kernel" in name or "pa_cluster_kernel" in name)
     log(card, f"trace gpt-mini bf16 batch (profiled): wall {wall_ms:.3f} ms, "
         f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.2f}%), idle "
         f"{100 * (1 - busy / wall_ms):.2f}%; {dispatches} dispatches, "
