@@ -87,6 +87,29 @@ Phases (any failure exits non-zero and prints no result line):
               % within 1e-5. (e) one ef_int8 round profiled, and its merge
               replayed alone under the profiler: the fused kernel, copies
               and quantize ops against the round's device busy time.
+ 10. job      the training job end to end, under a fresh KUBEML_TPU_HOME:
+              a registry dataset of 1024 train and 128 test windows of
+              T=512 tokens (phase 7's arithmetic runs, half ending in
+              padding) from --seed; TrainJob(gpt-mini, bf16, B=8, K=4, lr
+              1e-3, 3 epochs, default_parallelism=2, max_parallelism=4,
+              merge_bucket_mb=4, validate_every=1, train_stats off so the
+              engine is phase 7's) with a scripted parallelism callback
+              adding 1 each epoch. The kernel counts are zeroed before each
+              epoch and read after it (its validation included): dK/dV and
+              dQ = layers x local steps, the forward that plus layers x
+              eval steps, the fused merge 5 buckets x rounds. The history's
+              parallelism must be [2, 3, 4] and the loss fall; the final
+              checkpoint loads back equal to the job's weights, and a
+              restart with resume_from=<job> finishes as done without a
+              launch. Epoch 1's rounds, fed by hand from the same
+              RoundLoader to a KAvgEngine, must give the job's weights bit
+              for bit (torch.equal). A gpt-nano f32 job (one epoch, N=2)
+              from one seed checkpoint on the card and on the CPU agrees
+              within AdamW's bound (2 lr per local step, 99.5 % within
+              1e-5). Prints per epoch wall seconds, samples/s, non-pad
+              tokens/s, ms per local step and the data_wait / dispatch /
+              merge_wait seconds, and the job's ms per local step against
+              phase 7's engine-direct one.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -94,8 +117,9 @@ the main paths (bf16 pages, int8 pages: decode numbers at the top level,
 the S=1 prefill call's under "prefill", launches from that page type's own
 serving run; the three bf16 flash kernels at the training shape, launches
 from the last training round; the fused merge over one whole gpt-mini
-merge, launches from the ef_int8 run, the sgd mode under "sgd"), the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Exits
+merge, launches from the ef_int8 run, the sgd mode under "sgd"; each of
+the four training kernels also carries "job_launches", its launches in
+each epoch of phase 10's job), the nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Exits
 non-zero without a CUDA device or without the kubeml_tpu_torch package
 beside it.
 
@@ -730,7 +754,7 @@ def phase_train(torch, card, seed):
     rng = np.random.default_rng(seed + 4)
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
                "dQ": fa.fa_bwd_dq_kernel}
-    means, counts = [], {}
+    means, counts, ms = [], {}, []
     for r in range(3):
         args = lm_round(rng, TRAIN_W, TRAIN_K, TRAIN_B, TRAIN_T)
         batch, smask, stmask, wmask, _ = args
@@ -748,6 +772,7 @@ def phase_train(torch, card, seed):
         want = module.layers * steps
         assert all(n == want for n in counts.values()), (counts, want)
         means.append(float(loss_sum.sum()) / steps)
+        ms.append(1e3 * wall / steps)
         samples = float((smask * real[..., None]).sum())
         tokens = int(((batch["x"] != 0) * real[..., None, None]).sum())
         log(card, f"train gpt-mini round {r + 1}: mean loss "
@@ -765,7 +790,7 @@ def phase_train(torch, card, seed):
     log(card, f"train gpt-mini: mean loss {means[0]:.4f} -> {means[2]:.4f} "
         f"over 3 rounds; eval_round loss {ev['loss']:.4f}, accuracy "
         f"{ev['accuracy']:.4f} over n={ev['n']:.0f} sequences")
-    return counts
+    return counts, ms
 
 
 def phase_train_check(torch, card, seed):
@@ -1179,6 +1204,274 @@ def phase_merge_trace(torch, card, seed, engines):
     return dict(merge_ms=merge, round_busy_ms=busy, **parts)
 
 
+# ----------------------------------------------------------------- phase 10
+JOB_TRAIN, JOB_TEST = 1024, 128          # token windows of TRAIN_T tokens
+JOB_B, JOB_K, JOB_EPOCHS, JOB_LR = 8, 4, 3, 1e-3
+JOB_N0, JOB_NMAX = 2, 4
+JOB_BUCKETS = len(MERGE_BUCKETS)         # gpt-mini's merge at 4 MB
+
+
+def token_windows(rng, n, T):
+    """n windows of T int32 tokens: phase 7's arithmetic runs, half of
+    them ending in padding at a random length."""
+    start = rng.integers(1, RUN_PERIOD + 1, (n, 1))
+    x = ((start + np.arange(T) - 1) % RUN_PERIOD + 1).astype(np.int32)
+    lengths = np.where(rng.random(n) < 0.5, rng.integers(T // 4, T, n), T)
+    x[np.arange(T) >= lengths[:, None]] = 0
+    return x
+
+
+def token_dataset():
+    """A KubeDataset of token windows with no labels (the JAX package's
+    TextWindows example): the batch is {"x": int32 [B, T]}."""
+    from kubeml_tpu_torch.models.base import KubeDataset
+
+    class TokenWindows(KubeDataset):
+        def transform_train(self, data, labels):
+            return {"x": np.asarray(data).astype(np.int32)}
+
+        transform_test = transform_train
+
+    return TokenWindows("tokens")
+
+
+def job_task(job_id, epochs, **opts):
+    from kubeml_tpu_torch.api.types import (TrainOptions, TrainRequest,
+                                            TrainTask)
+
+    model = opts.pop("model", "gpt-mini")
+    req = TrainRequest(model_type=model, batch_size=opts.pop("batch", JOB_B),
+                       epochs=epochs, dataset=opts.pop("dataset", "tokens"),
+                       lr=JOB_LR, resume_from=opts.pop("resume_from", ""),
+                       options=TrainOptions(**opts))
+    return TrainTask(job_id=job_id, parameters=req,
+                     parallelism=req.options.default_parallelism)
+
+
+def phase_job(torch, card, seed, engine_ms):
+    """gpt-mini TrainJob end to end (see the module docstring, phase 10);
+    returns the per-epoch kernel launches of the job's run."""
+    import os
+    import tempfile
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = tmp
+        try:
+            rng = np.random.default_rng(seed + 12)
+            DatasetRegistry().create(
+                "tokens", token_windows(rng, JOB_TRAIN, TRAIN_T),
+                np.zeros(JOB_TRAIN, np.int32),
+                token_windows(rng, JOB_TEST, TRAIN_T),
+                np.zeros(JOB_TEST, np.int32))
+            launches = job_run(torch, card, seed, engine_ms)
+            job_check(torch, card, seed)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+    return launches
+
+
+def _epoch_counts(parallelism, eval_workers):
+    """What one epoch of the job must launch, from the JAX package's
+    epoch plan (ported in data/sharding.py): (real local steps, rounds,
+    eval steps = every (worker, step) slot of the eval batches)."""
+    from kubeml_tpu_torch.data.sharding import plan_epoch
+
+    plan = plan_epoch(JOB_TRAIN, parallelism, JOB_K, JOB_B)
+    test = plan_epoch(JOB_TEST, eval_workers, -1, JOB_B)
+    return (plan.total_steps, len(plan.rounds),
+            eval_workers * test.rounds[0].max_steps)
+
+
+def job_run(torch, card, seed, engine_ms):
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+    from kubeml_tpu_torch.data.loader import RoundLoader
+    from kubeml_tpu_torch.train.checkpoint import load_checkpoint
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    # a train_stats-free job runs the same engine as phase 7 (the health
+    # stats clone every parameter per step), so ms per local step compare
+    task = job_task("smoke-job", JOB_EPOCHS, default_parallelism=JOB_N0,
+                    max_parallelism=JOB_NMAX, static_parallelism=False,
+                    k=JOB_K, merge_bucket_mb=MERGE_CAP_MB, validate_every=1,
+                    train_stats=False)
+    epochs, after_epoch1 = [], {}
+
+    def publish(m):
+        # the epoch's run (training and its validation) ends here
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        epochs.append((m, counts))
+        if len(epochs) == 1:
+            after_epoch1.update({k: v.clone() for k, v in job.state.items()})
+        zero()                                  # ... and the next starts
+
+    model = get_model("gpt-mini")()
+    job = TrainJob(task, model, token_dataset(), device="cuda",
+                   callbacks=JobCallbacks(
+                       request_parallelism=lambda t: t.parallelism + 1,
+                       publish_metrics=publish))
+    zero()                                      # the main path's run starts
+    t0 = time.perf_counter()
+    record = job.train()
+    wall = time.perf_counter() - t0
+    hist = record.data
+    assert hist.parallelism == [2, 3, 4], hist.parallelism
+    assert hist.train_loss[-1] < hist.train_loss[0], hist.train_loss
+    assert all(np.isfinite(hist.validation_loss)), hist.validation_loss
+    layers = job._engine.module.layers
+    x, _ = job._handle.train_arrays()
+    tokens = int((np.asarray(x) != 0).sum())   # every sample once an epoch
+    launches, steps_all, job_ms = [], 0, []
+    for e, (m, counts) in enumerate(epochs):
+        n = hist.parallelism[e]
+        # validation runs at the pinned worker count, JOB_NMAX
+        steps, rounds, evals = _epoch_counts(n, JOB_NMAX)
+        want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+                "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+        assert counts == want, (e, counts, want)
+        launches.append(counts)
+        steps_all += steps
+        samples = steps * JOB_B
+        ph = {k: sum(v) for k, v in m.phase_times.items()}
+        sec = hist.epoch_duration[e]
+        job_ms.append(1e3 * sec / steps)
+        log(card, f"job gpt-mini epoch {e + 1}/{JOB_EPOCHS} N={n}: train "
+            f"loss {hist.train_loss[e]:.4f}, validation loss "
+            f"{hist.validation_loss[e]:.4f}, {steps} local steps in "
+            f"{rounds} rounds, wall {sec:.4f} s = {samples / sec:.2f} "
+            f"samples/s, {tokens / sec:.1f} tokens/s (non-pad), "
+            f"{1e3 * sec / steps:.3f} ms per local step; data_wait "
+            f"{ph['data_wait']:.4f} s, dispatch {ph['dispatch']:.4f} s, "
+            f"merge_wait {ph['merge_wait']:.4f} s; launches {counts} "
+            f"(= {layers} layers x {steps} steps (+ {evals} eval steps), "
+            f"{JOB_BUCKETS} buckets x {rounds} rounds); peak device memory "
+            f"{m.hbm_peak_bytes / 2**20:.1f} MiB")
+    log(card, f"job vs engine: the job's ms per local step "
+        f"{', '.join(f'{x:.3f}' for x in job_ms)} (epochs 1-3) against "
+        f"phase 7's engine-direct {', '.join(f'{x:.3f}' for x in engine_ms)}"
+        f" (rounds 1-3); median {statistics.median(job_ms):.3f} vs "
+        f"{statistics.median(engine_ms):.3f} ms; job wall {wall:.3f} s "
+        f"for {steps_all} local steps and {JOB_EPOCHS} validations")
+
+    # the final checkpoint loads back through the port, equal to the state
+    tree, manifest = load_checkpoint("smoke-job")
+    back = model.params_from_flax(tree["params"])
+    assert manifest["completed"] and manifest["epoch"] == JOB_EPOCHS
+    assert all(torch.equal(back[k], v.cpu()) for k, v in job.state.items())
+    # a restart of the finished job resumes as done: nothing retrained
+    zero()
+    again = TrainJob(job_task("smoke-job", JOB_EPOCHS,
+                              default_parallelism=JOB_N0,
+                              max_parallelism=JOB_NMAX, k=JOB_K,
+                              merge_bucket_mb=MERGE_CAP_MB,
+                              train_stats=False, resume_from="smoke-job"),
+                     get_model("gpt-mini")(), token_dataset(), device="cuda")
+    rec2 = again.train()
+    assert again._start_epoch == JOB_EPOCHS, again._start_epoch
+    assert rec2.data.train_loss == hist.train_loss
+    assert all(fn.launches == 0 for fn in kernels.values())
+    log(card, f"job checkpoint: loads back equal to the job's weights "
+        f"({len(back)} tensors); a restart with resume_from=smoke-job "
+        f"resumed at epoch {again._start_epoch} as done, no kernel launched")
+
+    # the same epoch 1 driven by hand: the job's rounds fed to the engine
+    hand_model = get_model("gpt-mini")()
+    handle = job._handle
+    loader = RoundLoader(handle, token_dataset(), n_lanes=1, seed=0,
+                         w_floor=JOB_NMAX)
+    x, y = handle.doc_range("train", 0, 1)
+    sample = token_dataset().transform_train(np.asarray(x[:JOB_B]),
+                                             np.asarray(y[:JOB_B]))
+    module = hand_model.init_module(sample, torch.Generator().manual_seed(0),
+                                    device="cuda")
+    engine = KAvgEngine(module, hand_model.loss, hand_model.metrics,
+                        hand_model.configure_optimizers,
+                        merge_bucket_mb=MERGE_CAP_MB)
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    torch.cuda.synchronize()
+    hand_s = 0.0       # the engine's calls alone: assembly is left out
+    for rb in loader.epoch_rounds(loader.plan(JOB_N0, JOB_K, JOB_B), 0):
+        t0 = time.perf_counter()
+        state, st = engine.train_round(state, rb.batch, rb.sample_mask,
+                                       rb.step_mask, rb.worker_mask,
+                                       rb.rngs, lr=JOB_LR, epoch=0)
+        hand_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    hand_s += time.perf_counter() - t0
+    diff = max(float((state[k] - after_epoch1[k]).abs().max())
+               for k in state)
+    assert all(torch.equal(state[k], after_epoch1[k]) for k in state), diff
+    steps1 = _epoch_counts(JOB_N0, JOB_NMAX)[0]
+    log(card, f"job == engine driven by hand: epoch 1's weights equal bit "
+        f"for bit (torch.equal) over {len(state)} tensors; the same "
+        f"{steps1} local steps driven by hand take {hand_s:.4f} s of engine "
+        f"calls = {1e3 * hand_s / steps1:.3f} ms per local step, against "
+        f"the job's {job_ms[0]:.3f} ms (epoch 1)")
+    return launches
+
+
+def job_check(torch, card, seed):
+    """gpt-nano in f32 (dropout 0): one epoch of a TrainJob on the card
+    and on the CPU, both warm-started from one seed checkpoint, within
+    AdamW's bound of 2 lr per local step, 99.5 % within 1e-5."""
+    from kubeml_tpu_torch.convert import random_flax_params
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.train.checkpoint import save_checkpoint
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    cfg = GPT_CONFIGS["gpt-nano"]
+    rng = np.random.default_rng(seed + 13)
+    T, B, K = cfg["max_len"], 32, 2
+    DatasetRegistry().create(
+        "nano-tokens", token_windows(rng, 256, T),
+        np.zeros(256, np.int32), token_windows(rng, 64, T),
+        np.zeros(64, np.int32))
+    save_checkpoint("nano-seed", {"params": random_flax_params(**cfg,
+                                                               seed=seed)},
+                    {"model": "gpt-nano", "function": "gpt-nano"})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        task = job_task(f"nano-{dev}", 1, model="gpt-nano", batch=B, k=K,
+                        dataset="nano-tokens", default_parallelism=2,
+                        static_parallelism=True, resume_from="nano-seed",
+                        merge_bucket_mb=0.02)
+        job = TrainJob(task, get_model("gpt-nano")(dtype=torch.float32),
+                       token_dataset(), device=dev)
+        out[dev] = (job.train(), {k: v.cpu() for k, v in job.state.items()})
+    (card_rec, card_state), (cpu_rec, cpu_state) = out["cuda"], out["cpu"]
+    steps = 2 * K      # 128 samples per worker: 2 rounds of K steps of 32
+    diffs = torch.cat([(card_state[k] - cpu_state[k]).abs().ravel()
+                       for k in cpu_state])
+    within = float((diffs <= 1e-5).float().mean())
+    np.testing.assert_allclose(card_rec.data.train_loss,
+                               cpu_rec.data.train_loss, rtol=1e-4)
+    assert float(diffs.max()) <= 2 * steps * JOB_LR, float(diffs.max())
+    assert within >= 0.995, within
+    log(card, f"gpt-nano f32 job, card vs CPU (one epoch, {steps} local "
+        f"steps per worker): train loss {card_rec.data.train_loss[0]:.6f} "
+        f"vs {cpu_rec.data.train_loss[0]:.6f}, params max|diff| "
+        f"{float(diffs.max()):.3g} (bound {2 * steps * JOB_LR:g}), "
+        f"{100 * within:.3f} % within 1e-5")
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -1247,7 +1540,7 @@ def run(torch, seed) -> list:
     phase_trace(torch, card, seed, module)
 
     flash = phase_flash(torch, card, seed)
-    train_launches = phase_train(torch, card, seed)
+    train_launches, engine_ms = phase_train(torch, card, seed)
     phase_train_check(torch, card, seed)
     phase_train_trace(torch, card, seed)
 
@@ -1255,6 +1548,8 @@ def run(torch, seed) -> list:
     merge_launches, engines = phase_merge_train(torch, card, seed)
     phase_merge_check(torch, card, seed)
     phase_merge_trace(torch, card, seed, engines)
+    del engines
+    job_launches = phase_job(torch, card, seed, engine_ms)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -1274,10 +1569,12 @@ def run(torch, seed) -> list:
         "source": "kubeml_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": f"kubeml_tpu/ops/pallas/flash_attention.py:{line}",
         "launches": train_launches[kernel],
+        "job_launches": [e[kernel] for e in job_launches],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
-        + [merge_entry(merge_rows, merge_launches)], card
+        + [dict(merge_entry(merge_rows, merge_launches),
+                job_launches=[e["fused_merge"] for e in job_launches])], card
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's ``GPTModule`` state dicts.
+port's state dicts: ``GPTModule``'s and ``MLPModule``'s.
 
 A flax GPT tree (``variables["params"]``) maps onto the port as:
 
@@ -11,6 +11,9 @@ A flax GPT tree (``variables["params"]``) maps onto the port as:
   layer_i/out/kernel [H, Dh, hidden]     -> blocks.i.out.weight [hidden, H*Dh]
   layer_i/Dense_{0,1}/kernel [in, out]   -> blocks.i.fc{0,1}.weight [out, in]
   LayerNorm_0 (top level)                -> ln_f
+
+A flax MLP tree maps as Dense_{0,1}/kernel [in, out] -> fc{0,1}.weight
+[out, in] and Dense_{0,1}/bias -> fc{0,1}.bias.
 
 Leaves are numpy arrays on the flax side and CPU float32 tensors on the
 port's side; ``GPTModule.load_state_dict`` moves them to the module's
@@ -122,6 +125,26 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor], heads: int) -> dict:
                              "bias": a(f"{b}.{name}.bias")}
         params[f"layer_{i}"] = lp
     return params
+
+
+def mlp_params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax MLP ``params`` tree (numpy leaves) -> port state dict."""
+    sd = {}
+    for flax_name, name in _DENSE.items():
+        sd[f"{name}.weight"] = _t(np.asarray(params[flax_name]["kernel"]).T)
+        sd[f"{name}.bias"] = _t(params[flax_name]["bias"])
+    return sd
+
+
+def mlp_params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Port MLP state dict -> flax ``params`` tree of float32 numpy
+    arrays (the inverse of mlp_params_from_flax)."""
+    def a(name):
+        return state_dict[name].detach().cpu().float().numpy().copy()
+
+    return {flax_name: {"kernel": a(f"{name}.weight").T.copy(),
+                        "bias": a(f"{name}.bias")}
+            for flax_name, name in _DENSE.items()}
 
 
 def random_flax_params(vocab_size: int, max_len: int, hidden: int,

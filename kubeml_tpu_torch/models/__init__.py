@@ -1,6 +1,7 @@
 """Built-in models of the port (twin of kubeml_tpu/models): the GPT
-family, ``gpt-mini`` and ``gpt-nano``. ``get_builtin`` gives a module
-builder (serving), ``get_model`` the registered model class (training)."""
+family, ``gpt-mini`` and ``gpt-nano``, and the ``mlp`` classifier.
+``get_builtin`` gives a GPT module builder (serving), ``get_model`` the
+registered model class (training)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Callable, Optional
 from kubeml_tpu_torch.models.base import MODELS, KubeModel
 from kubeml_tpu_torch.models.gpt import (GPT_CONFIGS, GPT_DROPOUT, GPTMini,
                                          GPTModule, GPTNano)
+from kubeml_tpu_torch.models.mlp import MLP
 
 
 def get_builtin(name: str) -> Optional[Callable[..., GPTModule]]:
@@ -31,5 +33,5 @@ def builtin_names() -> list:
     return sorted(GPT_CONFIGS)
 
 
-__all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "get_builtin",
-           "get_model", "builtin_names"]
+__all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "MLP",
+           "get_builtin", "get_model", "builtin_names"]

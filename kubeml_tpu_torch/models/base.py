@@ -16,18 +16,34 @@ The reference's flax contract maps onto PyTorch as:
                                 resets optimizer state each round, so a
                                 fresh optimizer per round is exact)
 
+    init_variables           -> init_module(sample_batch, generator, device):
+                                the module sized for the batch, its
+                                parameters drawn from flax's default
+                                initializers (``flax_default_init_``)
+    the checkpoint's flax     -> params_to_flax / params_from_flax: each
+    variable tree               model names its own mapping between its
+                                state dict and the flax ``params`` tree, so
+                                checkpoints are written in the JAX
+                                package's layout and each package loads the
+                                other's (train/checkpoint.py)
+
 Random numbers come from the explicit ``torch.Generator`` the engine
 hands to ``loss`` (seeded from the round's per-step key data), never from
-torch's global generator. Only what the GPT family needs is ported here;
-the classifier base and the vision pieces come with the vision slice.
+torch's global generator. ``ClassifierModel`` (cross-entropy over
+{'x', 'y'} batches) and ``KubeDataset`` (the dataset's host transforms)
+are the JAX package's; the vision pieces come with the vision slice.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Callable, Dict, Iterable
+import math
+from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 PAD_ID = 0  # token id 0 is padding in every text model of the package
 
@@ -79,3 +95,101 @@ class KubeModel(abc.ABC):
     @abc.abstractmethod
     def configure_optimizers(self, lr: float, epoch: int) -> OptimizerFactory:
         """A fresh optimizer factory for one worker's round."""
+
+    def init_module(self, sample_batch: Dict[str, np.ndarray],
+                    generator: torch.Generator, device=None) -> nn.Module:
+        """The module for batches like ``sample_batch`` (host numpy, one
+        transformed training batch), with parameters drawn from flax's
+        default initializers through ``generator``: the JAX package's
+        ``init_variables`` in distribution, not in bits (jax.random's
+        stream cannot be reproduced). Models whose widths follow the data
+        override this."""
+        module = self.build(device=device)
+        flax_default_init_(module, generator)
+        return module
+
+    @abc.abstractmethod
+    def params_to_flax(self, state: Dict[str, torch.Tensor]) -> dict:
+        """State dict (by parameter name) -> the JAX package's flax
+        ``params`` tree of float32 numpy arrays."""
+
+    @abc.abstractmethod
+    def params_from_flax(self, params: dict) -> Dict[str, torch.Tensor]:
+        """The inverse: a flax ``params`` tree -> CPU float32 state dict."""
+
+
+def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw ``module``'s parameters, in place and in named order, from the
+    distributions flax gives the matching layers by default: a Linear's
+    weight [out, in] from lecun_normal (a normal truncated to +-2 standard
+    deviations, scaled to variance 1/in), an Embedding [V, E] from a
+    normal of variance 1/E, LayerNorm scales 1; every bias and offset 0."""
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, nn.Linear):
+                std = math.sqrt(1.0 / sub.in_features) / .87962566103423978
+                w = torch.empty(sub.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                sub.weight.copy_(w * std)
+                if sub.bias is not None:
+                    sub.bias.zero_()
+            elif isinstance(sub, nn.Embedding):
+                w = torch.randn(sub.weight.shape, generator=generator)
+                sub.weight.copy_(w / math.sqrt(sub.embedding_dim))
+            elif isinstance(sub, nn.LayerNorm):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
+
+
+class ClassifierModel(KubeModel):
+    """Softmax classifiers over {'x', 'y'} batches (twin of the JAX
+    package's ClassifierModel): per-example cross-entropy of the module's
+    f32 logits as the loss, loss and argmax accuracy as the metrics, plain
+    SGD (the JAX package's default optimizer, ``optax.sgd(lr)``)."""
+
+    def _logits(self, module, batch, train: bool):
+        return module(batch["x"].to(module.device), train=train)
+
+    def loss(self, module, batch, generator, sample_mask):
+        logits = self._logits(module, batch, train=True)
+        return F.cross_entropy(logits, batch["y"].to(logits.device).long(),
+                               reduction="none")
+
+    def metrics(self, module, batch):
+        with torch.no_grad():
+            logits = self._logits(module, batch, train=False)
+        y = batch["y"].to(logits.device).long()
+        return {"loss": F.cross_entropy(logits, y, reduction="none"),
+                "accuracy": (logits.argmax(-1) == y).float()}
+
+    def configure_optimizers(self, lr, epoch):
+        return lambda params: torch.optim.SGD(params, lr=lr)
+
+    @torch.no_grad()
+    def infer(self, module, data: np.ndarray) -> np.ndarray:
+        """Argmax classes of the logits for a host batch."""
+        x = torch.as_tensor(np.asarray(data), device=module.device)
+        return module(x, train=False).argmax(-1).cpu().numpy()
+
+
+class KubeDataset(abc.ABC):
+    """Dataset-side user hooks (twin of the JAX package's KubeDataset):
+    the transforms run on host numpy arrays, once per round chunk, and
+    return the batch dict the model's loss reads — any keys (a language
+    model's has no 'y')."""
+
+    #: registry dataset name this model trains on
+    dataset: str = ""
+
+    def __init__(self, dataset_name: Optional[str] = None):
+        if dataset_name:
+            self.dataset = dataset_name
+
+    def transform_train(self, data: np.ndarray,
+                        labels: np.ndarray) -> Dict[str, np.ndarray]:
+        return {"x": data, "y": labels}
+
+    def transform_test(self, data: np.ndarray,
+                       labels: np.ndarray) -> Dict[str, np.ndarray]:
+        return {"x": data, "y": labels}

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
+from kubeml_tpu_torch.convert import params_from_flax, params_to_flax
 from kubeml_tpu_torch.models.base import (PAD_ID, InferenceInputError,
                                           KubeModel, register_model)
 from kubeml_tpu_torch.ops.attention import (NEG_INF, composed_bias,
@@ -500,11 +501,20 @@ class GPTMini(KubeModel):
 
     name = "gpt-mini"
 
-    def build(self, dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        self.dtype = dtype   # compute dtype of the modules it builds
+
+    def build(self, dtype: Optional[torch.dtype] = None,
               device: DeviceLike = None) -> GPTModule:
         return GPTModule(**GPT_CONFIGS[self.name],
-                         dropout=GPT_DROPOUT[self.name], dtype=dtype,
-                         device=device)
+                         dropout=GPT_DROPOUT[self.name],
+                         dtype=dtype or self.dtype, device=device)
+
+    def params_to_flax(self, state):
+        return params_to_flax(state, heads=GPT_CONFIGS[self.name]["heads"])
+
+    def params_from_flax(self, params):
+        return params_from_flax(params)
 
     def loss(self, module, batch, generator, sample_mask):
         x = batch["x"].to(module.device)

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_load_seconds = 0.0   # wall time load() spent building and loading
 
 
 def _nvcc() -> str:
@@ -87,12 +89,23 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel source ``name``, building it first
     when it is missing or older than its source."""
+    global _load_seconds
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             src, out = CSRC_DIR / f"{name}.cu", library_path(name)
             if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
                 build([name])
             lib = ctypes.CDLL(str(out))
             _libs[name] = lib
+            _load_seconds += time.perf_counter() - t0
         return lib
+
+
+def load_seconds() -> float:
+    """Seconds this process has spent in load() building and loading
+    kernel libraries at their first use. A training job subtracts what an
+    epoch spent here from the time its throughput policy sees."""
+    with _lock:
+        return _load_seconds

@@ -91,13 +91,46 @@ def _check_kernel_args(q, k_pages, v_pages, k_scale, v_scale, page_tables,
         raise ValueError("paged_attention operands span devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention operands must be contiguous")
-    if (D * k_pages.element_size()) % 16:
-        raise ValueError(f"the kernel stages page rows in 16-byte vectors: "
-                         f"head_dim {D} x {k_pages.element_size()} bytes "
-                         f"is not a multiple of 16")
-    if q.dtype == torch.bfloat16 and G % 8:
-        raise ValueError(f"the bf16 kernel walks the context in 8-token "
-                         f"slices: page size {G} is not a multiple of 8")
+    why = kernel_geometry_refusal(T, D, G, page_tables.shape[1], q.dtype,
+                                  quantized, smem=False)
+    if why is not None:
+        raise ValueError(why)
+
+
+def kernel_geometry_refusal(T: int, D: int, G: int, Pmax: int,
+                            compute_dtype: torch.dtype, quantized: bool,
+                            smem: bool = True) -> Optional[str]:
+    """Why the kernel cannot take T query tokens of head_dim D over Pmax
+    pages of G tokens in ``compute_dtype`` (int8 pages when quantized), or
+    None when it can. The one home of the kernel's geometry rules: the
+    launch checks them, and a CUDA DecodeEngine checks them when it is
+    built. The page-size and row-width rules are pure; with ``smem`` the
+    shared memory the launch would need is asked of the built library,
+    which needs the CUDA toolkit (the card's machine)."""
+    itemsize = 1 if quantized else torch.finfo(compute_dtype).bits // 8
+    if (D * itemsize) % 16:
+        return (f"the kernel stages page rows in 16-byte vectors: head_dim "
+                f"{D} x {itemsize} bytes is not a multiple of 16")
+    if compute_dtype == torch.bfloat16 and G % 8:
+        return (f"the bf16 kernel walks the context in 8-token slices: page "
+                f"size {G} is not a multiple of 8")
+    if smem:
+        need = kernel_smem_bytes(T, D, G, Pmax, compute_dtype, quantized)
+        if need > MAX_SMEM_BYTES:
+            return (f"paged_attention needs {need} bytes of shared memory "
+                    f"per block (T={T}, C={Pmax * G}, D={D}, G={G}); a "
+                    f"Hopper block has {MAX_SMEM_BYTES}")
+    return None
+
+
+def kernel_smem_bytes(T: int, D: int, G: int, Pmax: int,
+                      compute_dtype: torch.dtype, quantized: bool) -> int:
+    """Shared memory per block of a launch at this geometry, from the
+    built library (the layout lives in csrc/paged_attention.cu)."""
+    _, smem_bytes = _entries()
+    return int(smem_bytes(T, D, G, Pmax,
+                          int(compute_dtype == torch.bfloat16),
+                          int(quantized)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,14 +160,11 @@ def _pa_kernel(q, k_pages, v_pages, k_scale, v_scale, page_tables, bias,
     S, T, H, D = q.shape
     P, G = k_pages.shape[:2]
     Pmax = page_tables.shape[1]
-    launch, smem_bytes = _entries()
+    why = kernel_geometry_refusal(T, D, G, Pmax, q.dtype, quantized)
+    if why is not None:      # the shared-memory rule, asked of the library
+        raise ValueError(why)
+    launch, _ = _entries()
     bf16 = int(q.dtype == torch.bfloat16)
-    smem = smem_bytes(T, D, G, Pmax, bf16, int(quantized))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"paged_attention needs {smem} bytes of shared memory per "
-            f"block (T={T}, C={Pmax * G}, D={D}, G={G}); a Hopper block "
-            f"has {MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

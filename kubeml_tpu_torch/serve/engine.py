@@ -45,6 +45,8 @@ from kubeml_tpu_torch.models.base import PAD_ID, InferenceInputError
 from kubeml_tpu_torch.models.gpt import (build_paged_decode_step,
                                          build_paged_prefill_step,
                                          compute_params)
+from kubeml_tpu_torch.ops.paged_attention import (kernel_geometry_refusal,
+                                                  kernel_smem_bytes)
 from kubeml_tpu_torch.serve.pager import (KVPageSlab, PageAllocator,
                                           PageGeometry, chain_hash)
 from kubeml_tpu_torch.serve.slots import GenerateRequest
@@ -87,6 +89,12 @@ class DecodeEngine:
     states what the caller expects of the context read, which the device
     decides (ops/paged_attention.py): "auto" takes either, "kernel"
     demands a CUDA device, "plain" the CPU; a mismatch raises here.
+
+    On CUDA the engine checks, before it allocates its slab, that the
+    paged kernel takes its geometry (page size, head_dim, page dtype and
+    the shared memory of a decode call and of a prefill call over the
+    whole context) and raises ValueError naming them if not: every step
+    would fail otherwise. The CPU's plain version takes any geometry.
     """
 
     def __init__(self, module, variables: Optional[dict] = None,
@@ -117,6 +125,8 @@ class DecodeEngine:
         self._step_fn = build_paged_decode_step(module, kv_dtype)
         self.geom = geom or PageGeometry.for_module(
             slots=slots, page=page, max_len=module.max_len)
+        if self.device.type == "cuda":
+            self._check_kernel_geometry(prefill_chunk)
         self.clock = clock
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = bool(prefix_cache)
@@ -146,6 +156,23 @@ class DecodeEngine:
             "cow_splits": 0, "poisoned": 0, "deadline_expired": 0,
             "page_leaks": 0, "kv_bytes": 0,
         }
+
+    def _check_kernel_geometry(self, prefill_chunk: int) -> None:
+        """Raise ValueError when the paged kernel cannot serve this
+        engine's decode (T = 1) or prefill (T = prefill_chunk) calls."""
+        G, Pmax = self.geom.page, self.geom.pages_per_slot
+        D, dtype = self.module.head_dim, self.module.dtype
+        quantized = self.kv_dtype == "int8"
+        pages = "int8" if quantized else str(dtype).replace("torch.", "")
+        for T in sorted({1, prefill_chunk} - {0}):
+            why = kernel_geometry_refusal(T, D, G, Pmax, dtype, quantized)
+            if why is not None:
+                need = kernel_smem_bytes(T, D, G, Pmax, dtype, quantized)
+                raise ValueError(
+                    f"the paged-attention kernel cannot serve this engine: "
+                    f"page size {G}, head_dim {D}, {pages} pages, {T}-token "
+                    f"calls over a {Pmax * G}-token context need {need} "
+                    f"bytes of shared memory: {why}")
 
     # ------------------------------------------------------------- capacity
     @property

@@ -445,3 +445,66 @@ def test_f32_kernel_on_card_with_dead_pages(cuda_device, T):
     torch.cuda.synchronize()
     ref = _pa_plain(*args, quantized=False, compute_dtype=tdt)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- geometry refused at construction
+@pytest.mark.parametrize("G,D,dtype,quantized,refused", [
+    (12, 64, torch.bfloat16, False, "page size 12"),   # bf16: G % 8
+    (16, 64, torch.bfloat16, False, None),
+    (8, 8, torch.bfloat16, True, "head_dim 8 x 1 bytes"),  # int8 rows
+    (16, 8, torch.bfloat16, False, None),               # 8 x 2 = 16 bytes
+    (12, 4, torch.float32, False, None),                # f32: any page
+    (12, 2, torch.float32, False, "head_dim 2 x 4 bytes"),
+])
+def test_kernel_geometry_rules_on_cpu(G, D, dtype, quantized, refused):
+    """The kernel's pure geometry rules (page size and row width), asked
+    without the shared-memory query the library answers on the card."""
+    from kubeml_tpu_torch.ops.paged_attention import kernel_geometry_refusal
+
+    why = kernel_geometry_refusal(1, D, G, 32, dtype, quantized, smem=False)
+    if refused is None:
+        assert why is None
+    else:
+        assert refused in why
+
+
+def test_cpu_engine_serves_geometry_the_kernel_refuses():
+    """The plain version takes any geometry: a bf16 engine with 12-token
+    pages serves on the CPU as the JAX package's gather path does."""
+    from kubeml_tpu_torch.models.gpt import GPTModule
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.slots import GenerateRequest
+
+    torch.manual_seed(0)
+    module = GPTModule(vocab_size=64, max_len=48, hidden=32, layers=1,
+                       heads=2, ffn=64, device="cpu")
+    engine = DecodeEngine(module, slots=2, page=12, prefill_chunk=12,
+                          device="cpu")
+    req = GenerateRequest(list(range(3, 20)), max_new_tokens=4)
+    engine.attach(req)
+    while engine.active():
+        engine.step()
+    assert len(req.tokens) == 4
+
+
+@pytest.mark.gpu
+def test_cuda_engine_refuses_unservable_geometry_at_construction(
+        cuda_device):
+    """DecodeEngine(page=12) on a bf16 gpt-mini raises before any slab is
+    allocated, naming the geometry, so a service over it never admits a
+    request; page=16 builds."""
+    from kubeml_tpu_torch.models import get_builtin
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+
+    module = get_builtin("gpt-mini")(device=cuda_device)
+    before = torch.cuda.memory_allocated(cuda_device)
+    with pytest.raises(ValueError) as e:
+        DecodeEngine(module, slots=2, page=12, device=cuda_device)
+    msg = str(e.value)
+    assert "page size 12" in msg and "head_dim 64" in msg
+    assert "bfloat16 pages" in msg and "bytes of shared memory" in msg
+    assert torch.cuda.memory_allocated(cuda_device) == before
+    with pytest.raises(ValueError, match="int8 pages"):
+        DecodeEngine(module, slots=2, page=12, kv_dtype="int8",
+                     device=cuda_device)
+    DecodeEngine(module, slots=2, page=16, device=cuda_device)
