@@ -110,6 +110,32 @@ Phases (any failure exits non-zero and prints no result line):
               tokens/s, ms per local step and the data_wait / dispatch /
               merge_wait seconds, and the job's ms per local step against
               phase 7's engine-direct one.
+ 11. vision   ResNet-18 at its published widths (CIFAR stem, stages
+              (2, 2, 2, 2) at widths 64..512, 10 classes, bf16 compute with
+              f32 parameters and f32 batch statistics), random weights from
+              the flax initializers drawn from --seed: (a) a registry
+              dataset of 50,000 train and 10,000 test CIFAR-shaped u8 NHWC
+              images (class k lifts channel k % 3) with a u8 -> f32 / 255
+              host transform and its device twin; TrainJob(resnet18, B=256,
+              K=8 (bench.py's), lr 0.1, N=2, merge_bucket_mb=4) for 2
+              epochs with device_cache='auto' (the sharded cache), then one
+              more epoch warm-started from its checkpoint with
+              device_cache='off'. The fused merge's launches are zeroed
+              before each epoch and read after it: 10 buckets x 13 rounds
+              (from the plan). The loss must fall. Prints per epoch wall,
+              samples/s, ms per local step, the phase split, and the cached
+              epoch against the host-staged one. (b) One ResNet-18 round
+              index-fed == host-staged and two index-fed rounds grouped ==
+              two single rounds, bit for bit under
+              torch.backends.cudnn.deterministic (and whether the first
+              pair is equal without it); the bucketed merge against the
+              monolithic one within 2e-2. (c) One f32 round of a narrow
+              ResNet (stages (1, 1), width 16) and one of LeNet on the card
+              and on the CPU: parameters and running statistics within
+              1e-4. (d) One ResNet-18 round profiled: device busy and idle
+              share, the convolutions' and the merge's share, the top
+              device consumers. (e) The fused merge over ResNet-18's 10
+              buckets (warm times, plain version, bytes bound).
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -119,7 +145,9 @@ serving run; the three bf16 flash kernels at the training shape, launches
 from the last training round; the fused merge over one whole gpt-mini
 merge, launches from the ef_int8 run, the sgd mode under "sgd"; each of
 the four training kernels also carries "job_launches", its launches in
-each epoch of phase 10's job), the nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Exits
+each epoch of phase 10's job; the merge's "resnet18" entry carries phase
+11's plan, times and launches per epoch), the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}. Exits
 non-zero without a CUDA device or without the kubeml_tpu_torch package
 beside it.
 
@@ -1242,7 +1270,8 @@ def job_task(job_id, epochs, **opts):
     model = opts.pop("model", "gpt-mini")
     req = TrainRequest(model_type=model, batch_size=opts.pop("batch", JOB_B),
                        epochs=epochs, dataset=opts.pop("dataset", "tokens"),
-                       lr=JOB_LR, resume_from=opts.pop("resume_from", ""),
+                       lr=opts.pop("lr", JOB_LR),
+                       resume_from=opts.pop("resume_from", ""),
                        options=TrainOptions(**opts))
     return TrainTask(job_id=job_id, parameters=req,
                      parallelism=req.options.default_parallelism)
@@ -1472,6 +1501,426 @@ def job_check(torch, card, seed):
         f"{100 * within:.3f} % within 1e-5")
 
 
+# ----------------------------------------------------------------- phase 11
+CIFAR_TRAIN, CIFAR_TEST, CIFAR_HW = 50_000, 10_000, 32
+VIS_B, VIS_K, VIS_LR, VIS_N = 256, 8, 0.1, 2   # bench.py's B and K
+VIS_EPOCHS = 2
+VIS_BUCKET_MB = 4.0
+VIS_CPU_BOUND = 1e-4       # card vs CPU, f32 rounds: parameters and stats
+
+
+def cifar_arrays(rng, n):
+    """n CIFAR-10-shaped u8 NHWC images and int32 labels: uniform noise
+    in [0, 220), and class k lifts channel k % 3 by 3 * (k // 3 + 1), a
+    shift of 1.5 standard deviations of an image's channel mean between
+    neighbouring classes: learnable, and not solved in one epoch."""
+    y = rng.integers(0, 10, n).astype(np.int32)
+    x = rng.integers(0, 220, (n, CIFAR_HW, CIFAR_HW, 3), dtype=np.uint8)
+    lift = (3 * (y // 3 + 1)).astype(np.uint8)
+    x[np.arange(n), :, :, y % 3] += lift[:, None, None]
+    return x, y
+
+
+def cifar_dataset():
+    """u8 -> f32 / 255 on the host (transform_train / transform_test) and
+    the same on the card (transform_train_device), so the job may run
+    from the device cache."""
+    from kubeml_tpu_torch.models.base import KubeDataset
+
+    class Cifar(KubeDataset):
+        def transform_train(self, data, labels):
+            return {"x": np.asarray(data).astype(np.float32) / 255.0,
+                    "y": np.asarray(labels)}
+
+        transform_test = transform_train
+
+        @staticmethod
+        def transform_train_device(x, y):
+            return {"x": x.float() / 255.0, "y": y}
+
+    return Cifar("cifar")
+
+
+def resnet18_plan():
+    """ResNet-18's merge buckets at VIS_BUCKET_MB over its whole variable
+    tree (batch_stats and params) in flax flatten order: the reference's
+    plan, from shapes alone."""
+    import torch
+
+    from kubeml_tpu_torch.convert import flax_leaf_order
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import module_state
+    from kubeml_tpu_torch.parallel.merge import plan_buckets
+
+    state = module_state(get_model("resnet18")().build(
+        dtype=torch.bfloat16, device="cpu"))
+    return plan_buckets([state[n] for n in flax_leaf_order(state)],
+                        VIS_BUCKET_MB)
+
+
+def phase_vision(torch, card, seed):
+    """ResNet-18 on the card (see the module docstring, phase 11); returns
+    (the merge's ResNet-18 launches per epoch, the row for the kernels
+    line)."""
+    import os
+    import tempfile
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = tmp
+        try:
+            rng = np.random.default_rng(seed + 14)
+            t0 = time.perf_counter()
+            DatasetRegistry().create("cifar", *cifar_arrays(rng, CIFAR_TRAIN),
+                                     *cifar_arrays(rng, CIFAR_TEST))
+            log(card, f"vision dataset: {CIFAR_TRAIN} train and {CIFAR_TEST} "
+                f"test u8 images 32x32x3 written in "
+                f"{time.perf_counter() - t0:.2f} s")
+            launches = vision_job(torch, card, seed)
+            vision_rounds(torch, card, seed)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+    vision_check(torch, card, seed)
+    vision_trace(torch, card, seed)
+    return launches
+
+
+def vision_task(job_id, epochs, **opts):
+    return job_task(job_id, epochs, model="resnet18", batch=VIS_B,
+                    dataset="cifar", lr=VIS_LR, k=VIS_K,
+                    default_parallelism=VIS_N, static_parallelism=True,
+                    merge_bucket_mb=VIS_BUCKET_MB, train_stats=False,
+                    **opts)
+
+
+def vision_job(torch, card, seed):
+    """TrainJob(resnet18) for VIS_EPOCHS epochs from the device cache
+    (device_cache='auto'), then one more epoch of the same job host-staged
+    (device_cache='off', warm-started from the first run's checkpoint):
+    per epoch wall, samples/s, ms per local step, the phase split and the
+    merge kernel's launches, which must be buckets x rounds of the plan."""
+    from kubeml_tpu_torch.data.sharding import plan_epoch
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    plan = plan_epoch(CIFAR_TRAIN, VIS_N, VIS_K, VIS_B)
+    steps, rounds = plan.total_steps, len(plan.rounds)
+    buckets = resnet18_plan().n_buckets
+    rows = []
+
+    def run(job_id, epochs, mode, resume_from=""):
+        epochs_seen = []
+
+        def publish(m):
+            # the epoch's run (training and its validation) ends here
+            epochs_seen.append((m, fm.fused_merge_kernel.launches))
+            fm.fused_merge_kernel.launches = 0   # ... and the next starts
+
+        job = TrainJob(vision_task(job_id, epochs, device_cache=mode,
+                                   resume_from=resume_from),
+                       get_model("resnet18")(), cifar_dataset(),
+                       device="cuda",
+                       callbacks=JobCallbacks(publish_metrics=publish))
+        fm.fused_merge_kernel.launches = 0       # the main path's run starts
+        hist = job.train().data
+        for e, (m, n) in enumerate(epochs_seen):
+            sec = hist.epoch_duration[e]
+            ph = {k: sum(v) for k, v in m.phase_times.items()}
+            assert n == buckets * rounds, (n, buckets, rounds)
+            row = dict(cache=mode, epoch=e + 1, wall_s=sec,
+                       samples_per_s=CIFAR_TRAIN / sec,
+                       ms_per_step=1e3 * sec / steps, launches=n,
+                       loss=hist.train_loss[e], **ph)
+            rows.append(row)
+            log(card, f"vision job resnet18 device_cache={mode} epoch "
+                f"{e + 1}/{epochs} N={VIS_N}: train loss "
+                f"{hist.train_loss[e]:.4f}, validation loss "
+                f"{hist.validation_loss[e]:.4f}, accuracy "
+                f"{hist.accuracy[e]:.2f} %, {steps} local steps of "
+                f"B={VIS_B} in {rounds} rounds, wall {sec:.4f} s = "
+                f"{CIFAR_TRAIN / sec:.2f} samples/s, {1e3 * sec / steps:.3f} "
+                f"ms per local step; data_wait {ph['data_wait']:.4f} s, "
+                f"dispatch {ph['dispatch']:.4f} s, merge_wait "
+                f"{ph['merge_wait']:.4f} s; fused_merge launches {n} (= "
+                f"{buckets} buckets x {rounds} rounds); peak device memory "
+                f"{m.hbm_peak_bytes / 2**20:.1f} MiB")
+        assert all(np.isfinite(hist.validation_loss)), hist.validation_loss
+        return job, hist, [n for _, n in epochs_seen]
+
+    job, hist, launches = run("vision", VIS_EPOCHS, "auto")
+    cache = job._device_cache
+    assert cache is not None and cache.layout == "sharded", cache
+    assert cache.stats["uploads"] == 1, cache.stats
+    assert hist.train_loss[-1] < hist.train_loss[0], hist.train_loss
+    slots = VIS_N * VIS_K * VIS_B
+    per_sample = cache.per_sample_bytes(cache.handle)
+    log(card, f"vision device cache: {cache.layout}, "
+        f"{cache.device_bytes / 2**20:.1f} MiB on the card, uploaded "
+        f"{cache.stats['uploads']} time(s); a round carries {slots * 4} B "
+        f"of indices against {slots * per_sample} B of u8 samples "
+        f"(host-staged rounds ship {slots * CIFAR_HW * CIFAR_HW * 3 * 4} B "
+        f"of f32 pixels)")
+    off_job, _, off_launches = run("vision-off", 1, "off",
+                                   resume_from="vision")
+    assert off_job._device_cache is None
+    cached, staged = rows[VIS_EPOCHS - 1], rows[-1]
+    log(card, f"vision cache vs host-staged: epoch {VIS_EPOCHS} from the "
+        f"cache {cached['wall_s']:.4f} s ({cached['samples_per_s']:.2f} "
+        f"samples/s, {cached['ms_per_step']:.3f} ms per local step) against "
+        f"the host-staged epoch {staged['wall_s']:.4f} s "
+        f"({staged['samples_per_s']:.2f} samples/s, "
+        f"{staged['ms_per_step']:.3f} ms per local step): the cache "
+        f"{'faster' if cached['wall_s'] < staged['wall_s'] else 'slower'} "
+        f"by {100 * abs(staged['wall_s'] / cached['wall_s'] - 1):.2f} %")
+    print(json.dumps({"vision_epochs": rows}), flush=True)
+    return launches + off_launches
+
+
+def vision_engine(torch, device, dtype, stages=(2, 2, 2, 2), width=64,
+                  lenet=False, seed=0, **engine_kw):
+    """An engine over a ResNet (or LeNet) module whose variables come
+    from the seed (through the port's flax initializers), and its state."""
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import module_state
+    from kubeml_tpu_torch.models.resnet import ResNetModule
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+    from kubeml_tpu_torch.models.base import flax_default_init_
+
+    model = get_model("lenet" if lenet else "resnet18")()
+    if lenet:
+        module = model.build(dtype=dtype, device=device)
+    else:
+        module = ResNetModule(stages, width=width, dtype=dtype,
+                              device=device)
+    flax_default_init_(module, torch.Generator().manual_seed(seed))
+    engine = KAvgEngine(module, model.loss, model.metrics,
+                        model.configure_optimizers, **engine_kw)
+    state = {k: v.detach().clone() for k, v in module_state(module).items()}
+    return engine, state
+
+
+def _max_diff(a, b) -> float:
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+               for k in a)
+
+
+def _equal(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(a[k].equal(b[k]) for k in a)
+
+
+def vision_rounds(torch, card, seed):
+    """Engine-level ResNet-18 checks on the card from the job's own
+    dataset and loader: one round index-fed == host-staged, two index-fed
+    rounds grouped (R=2) == the two single rounds, and the bucketed merge
+    (4 MB, the fused kernel) against the monolithic one. cuDNN picks its
+    algorithms per call; the equality checks run with
+    torch.backends.cudnn.deterministic = True, and the same index-fed vs
+    host-staged pair is also run without it to record whether bit
+    equality holds then."""
+    from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
+    from kubeml_tpu_torch.data.loader import RoundLoader
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+
+    handle = DatasetRegistry().get("cifar")
+    dataset = cifar_dataset()
+    loader = RoundLoader(handle, dataset, n_lanes=1, seed=seed)
+    plan = loader.plan(VIS_N, VIS_K, VIS_B)
+    W = loader.round_geometry(plan)[0]
+    cache = DeviceDatasetCache(handle, "cuda", layout="sharded",
+                               device_transform=dataset.transform_train_device)
+    cache.ensure(plan, W)
+    host = [rb for _, rb in zip(range(2), loader.epoch_rounds(plan, 0))]
+    idx = [rb for _, rb in zip(range(2), loader.epoch_index_rounds(
+        plan, 0, cache.lane_starts))]
+
+    def one(rb, indexed, **kw):
+        engine, state = vision_engine(torch, "cuda", torch.bfloat16,
+                                      seed=seed, **kw)
+        if indexed:
+            return engine.train_round_indexed(
+                state, cache, rb.batch["idx"], rb.sample_mask, rb.step_mask,
+                rb.worker_mask, rb.rngs, lr=VIS_LR, epoch=0)
+        return engine.train_round(state, rb.batch, rb.sample_mask,
+                                  rb.step_mask, rb.worker_mask, rb.rngs,
+                                  lr=VIS_LR, epoch=0)
+
+    out = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        a, sa = one(host[0], False)
+        b, sb = one(idx[0], True)
+        out[det] = (_equal(a, b), _max_diff(a, b),
+                    sa.loss_sum_device.equal(sb.loss_sum_device))
+    try:
+        torch.backends.cudnn.deterministic = True
+        assert out[True][0] and out[True][2], out
+        # R=2 grouped == two single rounds
+        engine, state = vision_engine(torch, "cuda", torch.bfloat16,
+                                      seed=seed)
+        stack = {k: np.stack([getattr(r, k) for r in idx])
+                 for k in ("sample_mask", "step_mask", "worker_mask",
+                           "rngs")}
+        grouped, st_g = engine.train_rounds_indexed(
+            state, cache, np.stack([r.batch["idx"] for r in idx]),
+            lr=VIS_LR, epoch=0, **stack)
+        engine, single = vision_engine(torch, "cuda", torch.bfloat16,
+                                       seed=seed)
+        sums = []
+        for r in idx:
+            single, st = engine.train_round_indexed(
+                single, cache, r.batch["idx"], r.sample_mask, r.step_mask,
+                r.worker_mask, r.rngs, lr=VIS_LR, epoch=0)
+            sums.append(st.loss_sum_device)
+        assert _equal(grouped, single), _max_diff(grouped, single)
+        assert st_g.loss_sum_device.equal(torch.stack(sums))
+        # bucketed (the fused kernel) against monolithic
+        mono, _ = one(idx[0], True)
+        buck, _ = one(idx[0], True, merge_bucket_mb=VIS_BUCKET_MB)
+        diff = _max_diff(buck, mono)
+        assert diff <= TOL["bf16"], diff
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(card, f"vision rounds (ResNet-18, W={W}, K={VIS_K}, B={VIS_B}, "
+        f"bf16): index-fed == host-staged bit for bit with "
+        f"cudnn.deterministic: {out[True][0]} (max|diff| {out[True][1]:.3g}); "
+        f"without it: {out[False][0]} (max|diff| {out[False][1]:.3g}, loss "
+        f"sums equal {out[False][2]}); R=2 grouped index-fed == two single "
+        f"rounds bit for bit (deterministic); bucketed ({VIS_BUCKET_MB:g} "
+        f"MB, the fused kernel) vs monolithic max|diff| {diff:.3g} (bound "
+        f"{TOL['bf16']:g}, {'equal' if diff == 0 else 'not equal'} bit for "
+        f"bit)")
+
+
+def vision_check(torch, card, seed):
+    """One f32 round of a narrow ResNet (stages (1, 1), width 16, 32x32)
+    and one of LeNet (28x28) on the card and on the CPU, from the same
+    state and inputs: merged parameters and running statistics within
+    VIS_CPU_BOUND, counts equal."""
+    rng = np.random.default_rng(seed + 15)
+    W, K, B = 2, 2, 16
+    for name, shape, kw in (("resnet (1, 1) width 16", (32, 32, 3),
+                             dict(stages=(1, 1), width=16)),
+                            ("lenet", (28, 28), dict(lenet=True))):
+        y = rng.integers(0, 10, (W, K, B)).astype(np.int32)
+        x = rng.standard_normal((W, K, B) + shape).astype(np.float32)
+        args = ({"x": x, "y": y}, np.ones((W, K, B), np.float32),
+                np.ones((W, K), np.float32), np.ones(W, np.float32),
+                rng.integers(0, 2 ** 32, (W, K, 2), dtype=np.uint32))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            engine, state = vision_engine(torch, dev, torch.float32,
+                                          seed=seed, **kw)
+            out[dev] = engine.train_round(state, *args, lr=VIS_LR, epoch=0)
+        (cs, cst), (ps, pst) = out["cuda"], out["cpu"]
+        np.testing.assert_allclose(cst.loss_sum, pst.loss_sum, rtol=1e-5)
+        assert cst.contributors == pst.contributors == W
+        diff = _max_diff(cs, ps)
+        stats = [k for k in ps if "running_" in k]
+        sdiff = _max_diff({k: cs[k] for k in stats},
+                          {k: ps[k] for k in stats}) if stats else 0.0
+        assert diff <= VIS_CPU_BOUND, (name, diff)
+        log(card, f"vision {name} f32 round, card vs CPU: loss sums "
+            f"{cst.loss_sum.tolist()} vs {pst.loss_sum.tolist()}, max|diff| "
+            f"{diff:.3g} over parameters and running statistics (running "
+            f"statistics alone {sdiff:.3g}; bound {VIS_CPU_BOUND:g})")
+
+
+def vision_trace(torch, card, seed):
+    """Where a ResNet-18 round's time goes: one round (W=VIS_N, K=VIS_K,
+    B=VIS_B, bf16, bucketed merge) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed + 16)
+    W, K, B = VIS_N, VIS_K, VIS_B
+    x, y = cifar_arrays(rng, W * K * B)
+    batch = {"x": (x.astype(np.float32) / 255.0).reshape(
+        W, K, B, CIFAR_HW, CIFAR_HW, 3), "y": y.reshape(W, K, B)}
+    args = (batch, np.ones((W, K, B), np.float32), np.ones((W, K),
+            np.float32), np.ones(W, np.float32),
+            rng.integers(0, 2 ** 32, (W, K, 2), dtype=np.uint32))
+    engine, state = vision_engine(torch, "cuda", torch.bfloat16, seed=seed,
+                                  merge_bucket_mb=VIS_BUCKET_MB)
+    state, _ = engine.train_round(state, *args, lr=VIS_LR, epoch=0)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_round(state, *args, lr=VIS_LR, epoch=0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = device_events(torch, prof)
+    if not by_name:
+        log(card, "vision trace: device time not measured (the profiler "
+            "recorded no CUDA activity)")
+        return
+    busy = sum(t for t, _ in by_name.values())
+    calls = sum(n for _, n in by_name.values())
+    steps = W * K
+    merge = sum(t for name, (t, _) in by_name.items() if "fused_merge" in name)
+    conv = sum(t for name, (t, _) in by_name.items()
+               if any(s in name.lower() for s in ("conv", "wgrad", "dgrad",
+                                                   "xmma", "implicit")))
+    log(card, f"trace resnet18 train round (profiled, {steps} local steps "
+        f"of B={B}): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.2f}%), idle "
+        f"{100 * (1 - busy / wall_ms):.2f}%; {calls} device activities "
+        f"({calls / steps:.1f} per local step); convolution kernels "
+        f"{conv:.3f} ms ({100 * conv / busy:.2f}%), the fused merge "
+        f"{merge:.3f} ms ({100 * merge / busy:.2f}%)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (t, n) in top:
+        log(card, f"vision trace top device time: {t:.3f} ms over {n} "
+            f"calls: {name[:90]}")
+
+
+def resnet18_merge_row(torch, card, seed, launches):
+    """The fused merge at ResNet-18's plan: every bucket timed like phase
+    9a (CUDA-graph replay, the L2 warm and cold), the plain version, and
+    the bytes bound of the whole merge; with its launches per epoch of
+    phase 11's job."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    lengths = [b.length for b in resnet18_plan().buckets]
+    raw_t = torch.tensor(3.0, device=dev)
+    cnt = raw_t.clamp_min(1.0)
+    ms = cold_ms = plain_ms = 0.0
+    for n in lengths:
+        s = torch.randn(n, device=dev, generator=gen)
+        ref = torch.randn(n, device=dev, generator=gen)
+        got = fm.fused_merge_kernel("avg", s, ref, cnt, raw_t)
+        assert torch.equal(got, fm._apply_plain("avg", s, ref, cnt, raw_t,
+                                                0.0)), n
+        ms += time_ms(torch, lambda: fm.fused_merge_kernel(
+            "avg", s, ref, cnt, raw_t))
+        plain_ms += time_ms(torch, lambda: fm._apply_plain(
+            "avg", s, ref, cnt, raw_t, 0.0))
+        sets = [(torch.randn(n, device=dev, generator=gen),
+                 torch.randn(n, device=dev, generator=gen))
+                for _ in range(max(2, -(-int(COLD_BYTES) // (8 * n))))]
+        cold_ms += time_ms_cold(torch, lambda a, b: fm.fused_merge_kernel(
+            "avg", a, b, cnt, raw_t), sets)
+        del sets
+    row = dict(buckets=len(lengths), elements=sum(lengths),
+               launches_per_epoch=launches, ms=ms, cold_ms=cold_ms,
+               plain_ms=plain_ms, bound_ms=merge_bound(sum(lengths)),
+               max_abs_err=0.0)
+    log(card, f"fused_merge at ResNet-18's {VIS_BUCKET_MB:g} MB plan: "
+        f"{len(lengths)} buckets, {sum(lengths)} f32 elements; whole merge "
+        f"kernel {ms:.4f} ms (L2 cold {cold_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.5f} ms (bytes), "
+        f"{cold_ms / row['bound_ms']:.2f}x bound L2-cold; launches per "
+        f"epoch {launches}; kernel == plain bit for bit")
+    return row
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -1550,6 +1999,8 @@ def run(torch, seed) -> list:
     phase_merge_trace(torch, card, seed, engines)
     del engines
     job_launches = phase_job(torch, card, seed, engine_ms)
+    vision_launches = phase_vision(torch, card, seed)
+    vision_merge = resnet18_merge_row(torch, card, seed, vision_launches)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -1574,7 +2025,8 @@ def run(torch, seed) -> list:
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
         + [dict(merge_entry(merge_rows, merge_launches),
-                job_launches=[e["fused_merge"] for e in job_launches])], card
+                job_launches=[e["fused_merge"] for e in job_launches],
+                resnet18=vision_merge)], card
 
 
 def main(argv=None) -> int:

@@ -15,6 +15,19 @@ A flax GPT tree (``variables["params"]``) maps onto the port as:
 A flax MLP tree maps as Dense_{0,1}/kernel [in, out] -> fc{0,1}.weight
 [out, in] and Dense_{0,1}/bias -> fc{0,1}.bias.
 
+The vision models (``models/lenet.py``, ``models/resnet.py``) name their
+submodules as flax does, so a state dict name is its flax path and only
+the leaves change (``vision_params_to_flax``):
+
+  params/.../Conv_j/kernel [kh, kw, in, out] -> ....Conv_j.weight
+                                                [out, in, kh, kw]
+  params/.../Dense_j/kernel [in, out]        -> ....Dense_j.weight [out, in]
+  params/.../BatchNorm_j/{scale,bias}        -> ....BatchNorm_j.{weight,bias}
+  batch_stats/.../BatchNorm_j/{mean,var}     -> ....BatchNorm_j.running_{mean,var}
+
+A registered buffer named ``running_<leaf>`` is the flax ``batch_stats``
+leaf ``<leaf>``; every other name is a ``params`` leaf.
+
 Leaves are numpy arrays on the flax side and CPU float32 tensors on the
 port's side; ``GPTModule.load_state_dict`` moves them to the module's
 device. The trees hold parameters only (no JAX types), so this module
@@ -40,10 +53,20 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
+_STAT = "running_"    # buffer-name prefix of a batch_stats leaf
+
+
 def _flax_path(name: str) -> Tuple[str, ...]:
-    """The flax tree path of a port parameter name; a name this bridge
-    does not map keeps its own dotted path (a plain nested dict)."""
+    """The flax variable-tree path (collection first) of a port state
+    name; a name this bridge does not map keeps its own dotted path (a
+    plain nested dict) under its collection."""
     parts = name.split(".")
+    if parts[-1].startswith(_STAT):
+        return ("batch_stats", *parts[:-1], parts[-1][len(_STAT):])
+    return ("params", *_params_path(parts))
+
+
+def _params_path(parts) -> Tuple[str, ...]:
     if len(parts) == 2 and parts[0] in ("tok_embed", "pos_embed") \
             and parts[1] == "weight":
         return parts[0], "embedding"
@@ -60,12 +83,16 @@ def _flax_path(name: str) -> Tuple[str, ...]:
 
 
 def flax_leaf_order(names: Iterable[str]) -> List[str]:
-    """Port parameter names in the order in which ``jax.tree_util``
-    flattens the matching flax tree: dict keys sorted at every level, so
-    ``LayerNorm_0`` < ``layer_0`` < ``layer_10`` < ``layer_2`` <
-    ``pos_embed`` < ``tok_embed``, and inside a layer ``Dense_*`` <
-    ``LayerNorm_*`` < ``k`` < ``out`` < ``q`` < ``v``. The merge plans its
-    buckets over this order, so bucket membership equals the reference's."""
+    """Port state names in the order in which ``jax.tree_util`` flattens
+    the matching flax variable tree: dict keys sorted at every level, so
+    ``batch_stats`` before ``params``, ``LayerNorm_0`` < ``layer_0`` <
+    ``layer_10`` < ``layer_2`` < ``pos_embed`` < ``tok_embed``, inside a
+    GPT layer ``Dense_*`` < ``LayerNorm_*`` < ``k`` < ``out`` < ``q`` <
+    ``v``, and ``BasicBlock_10`` < ``BasicBlock_2``. The vision leaves keep
+    their port names, whose order inside a module is flax's (``bias`` <
+    ``weight`` as ``bias`` < ``kernel``/``scale``; ``mean`` < ``var``). The
+    merge plans its buckets over this order, so bucket membership equals
+    the reference's."""
     return sorted(names, key=_flax_path)
 
 
@@ -145,6 +172,63 @@ def mlp_params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     return {flax_name: {"kernel": a(f"{name}.weight").T.copy(),
                         "bias": a(f"{name}.bias")}
             for flax_name, name in _DENSE.items()}
+
+
+def vision_params_to_flax(state: Dict[str, torch.Tensor]) -> dict:
+    """Port state dict of a flax-named vision module -> the flax variable
+    tree ``{"params": ..., "batch_stats": ...}`` of numpy arrays (no
+    ``batch_stats`` key when the module has no running statistics).
+    Floating leaves become float32, integer leaves keep their dtype."""
+    tree: dict = {}
+    for name, t in state.items():
+        a = t.detach().cpu()
+        a = (a.float() if a.is_floating_point() else a).numpy().copy()
+        path = list(_flax_path(name))
+        if path[0] == "params" and path[-1] == "weight":
+            if a.ndim == 4:                       # [out, in, kh, kw]
+                path[-1], a = "kernel", a.transpose(2, 3, 1, 0).copy()
+            elif a.ndim == 2:                     # [out, in]
+                path[-1], a = "kernel", a.T.copy()
+            else:                                 # a norm's scale
+                path[-1] = "scale"
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+    return tree
+
+
+def vision_params_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """The inverse of vision_params_to_flax: a flax variable tree
+    (``params`` and optionally ``batch_stats``, numpy leaves) -> CPU state
+    dict (float leaves f32, integer leaves as stored)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path, collection):
+        for key, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, path + [key], collection)
+                continue
+            a = np.asarray(leaf)
+            if collection == "batch_stats":
+                name = ".".join(path + [_STAT + key])
+            elif key == "kernel" and a.ndim == 4:   # [kh, kw, in, out]
+                name, a = ".".join(path + ["weight"]), a.transpose(3, 2, 0, 1)
+            elif key == "kernel" and a.ndim == 2:
+                name, a = ".".join(path + ["weight"]), a.T
+            elif key == "scale":
+                name = ".".join(path + ["weight"])
+            else:
+                name = ".".join(path + [key])
+            sd[name] = (_t(a) if np.issubdtype(a.dtype, np.floating)
+                        else torch.from_numpy(np.array(a, copy=True)))
+
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unknown variable collections {sorted(unknown)}")
+    for collection in ("params", "batch_stats"):
+        walk(variables.get(collection, {}), [], collection)
+    return sd
 
 
 def random_flax_params(vocab_size: int, max_len: int, hidden: int,

@@ -1,3 +1,4 @@
-"""The host-side data plane of the port (twin of kubeml_tpu/data): epoch
-plans (``sharding``), the on-disk dataset registry (``registry``) and the
-round loader (``loader``)."""
+"""The data plane of the port (twin of kubeml_tpu/data): epoch plans
+(``sharding``), the on-disk dataset registry (``registry``), the round
+loader (``loader``) and the device-resident dataset cache
+(``device_cache``)."""

@@ -12,6 +12,11 @@ optional fast path with the same outputs and is not ported).
 
 Doc order is unshuffled by default (the reference never shuffles);
 ``shuffle`` permutes the full docs per epoch.
+
+``epoch_index_rounds`` is the index-fed twin of ``epoch_rounds`` for the
+device-resident dataset cache (data/device_cache.py): the same rounds,
+masks and rng keys, with [W, S, B] int32 gather indices in place of the
+sample leaves.
 """
 
 from __future__ import annotations
@@ -295,6 +300,73 @@ class RoundLoader:
                 sample_mask=sample_mask, step_mask=step_mask,
                 worker_mask=worker_mask, rngs=rngs,
                 round_index=rp.index, num_rounds=len(plan.rounds))
+
+    def epoch_index_rounds(self, plan: EpochPlan, epoch: int,
+                           lane_starts: Optional[np.ndarray] = None
+                           ) -> Iterator[RoundBatch]:
+        """Index-fed twin of ``epoch_rounds``: each round's batch is
+        ``{"idx": [W, S, B] int32}`` gather indices instead of the sample
+        leaves. Geometry, masks, the rng stream, cycle-padding and round
+        order are the same, so an index-fed round gathers the values
+        ``epoch_rounds`` would have shipped (padded slots of masked steps
+        gather sample 0 instead of zeros; those steps are never run).
+
+        ``lane_starts`` ([D] global offset of each lane's slab, from a
+        sharded cache) makes the indices lane-LOCAL; None means a
+        replicated cache and GLOBAL indices (needed under shuffle, where
+        a chunk's samples are scattered)."""
+        W, S, B = self.round_geometry(plan)
+        perm = self._epoch_perm(epoch)
+        if perm is not None and lane_starts is not None:
+            raise DataError("shuffled epochs need a replicated cache: "
+                            "permuted docs are not lane-contiguous")
+        key_rng = self._epoch_key_rng(epoch)
+        wpl = max(1, W // self.n_lanes)
+
+        for rp in plan.rounds:
+            idx = np.zeros((W, S, B), dtype=np.int32)
+            sample_mask = np.zeros((W, S, B), dtype=np.float32)
+            step_mask = np.zeros((W, S), dtype=np.float32)
+            worker_mask = np.zeros(W, dtype=np.float32)
+            for c in rp.chunks:
+                if not c.active:
+                    continue
+                ids = self._chunk_global_ids(c, perm)
+                need = c.num_steps * B
+                # _fill_chunk's cycle-pad: padded slots repeat the chunk's
+                # real samples in order
+                flat = ids[np.arange(need) % max(1, len(ids))]
+                if lane_starts is not None:
+                    flat = flat - lane_starts[c.worker // wpl]
+                idx[c.worker, :c.num_steps] = flat.reshape(c.num_steps, B)
+                smask = np.zeros(need, dtype=np.float32)
+                smask[:len(ids)] = 1.0
+                sample_mask[c.worker, :c.num_steps] = \
+                    smask.reshape(c.num_steps, B)
+                step_mask[c.worker, :c.num_steps] = 1.0
+                worker_mask[c.worker] = 1.0
+
+            rngs = key_rng.integers(0, 2**32, size=(W, S, 2),
+                                    dtype=np.uint32)
+            yield RoundBatch(
+                batch={"idx": idx},
+                sample_mask=sample_mask, step_mask=step_mask,
+                worker_mask=worker_mask, rngs=rngs,
+                round_index=rp.index, num_rounds=len(plan.rounds))
+
+    def _chunk_global_ids(self, c, perm) -> np.ndarray:
+        """GLOBAL sample ids of one plan chunk, in chunk order: exactly
+        the samples ``epoch_rounds`` materializes for it."""
+        n = self.handle.train_samples
+        ss = self.handle.subset_size
+        if perm is None:
+            lo = c.doc_start * ss
+            hi = min(c.doc_end * ss, n)
+            return np.arange(lo, hi, dtype=np.int64)
+        return np.concatenate([
+            np.arange(perm[d] * ss, min((perm[d] + 1) * ss, n),
+                      dtype=np.int64)
+            for d in range(c.doc_start, c.doc_end)])
 
     def _chunk_samples(self, x_mm, y_mm, doc_start, doc_end, perm):
         ss = self.handle.subset_size

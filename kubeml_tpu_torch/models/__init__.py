@@ -1,5 +1,6 @@
 """Built-in models of the port (twin of kubeml_tpu/models): the GPT
-family, ``gpt-mini`` and ``gpt-nano``, and the ``mlp`` classifier.
+family, ``gpt-mini`` and ``gpt-nano``, the ``mlp`` classifier, ``lenet``
+and the ResNets (``resnet18``, ``resnet34``, ``resnet32``, ``resnet50``).
 ``get_builtin`` gives a GPT module builder (serving), ``get_model`` the
 registered model class (training)."""
 
@@ -11,7 +12,10 @@ from typing import Callable, Optional
 from kubeml_tpu_torch.models.base import MODELS, KubeModel
 from kubeml_tpu_torch.models.gpt import (GPT_CONFIGS, GPT_DROPOUT, GPTMini,
                                          GPTModule, GPTNano)
+from kubeml_tpu_torch.models.lenet import LeNet
 from kubeml_tpu_torch.models.mlp import MLP
+from kubeml_tpu_torch.models.resnet import (ResNet18, ResNet32, ResNet34,
+                                            ResNet50)
 
 
 def get_builtin(name: str) -> Optional[Callable[..., GPTModule]]:
@@ -33,5 +37,6 @@ def builtin_names() -> list:
     return sorted(GPT_CONFIGS)
 
 
-__all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "MLP",
-           "get_builtin", "get_model", "builtin_names"]
+__all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "LeNet", "MLP",
+           "ResNet18", "ResNet32", "ResNet34", "ResNet50", "get_builtin",
+           "get_model", "builtin_names"]

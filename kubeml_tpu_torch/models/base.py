@@ -25,13 +25,21 @@ The reference's flax contract maps onto PyTorch as:
                                 state dict and the flax ``params`` tree, so
                                 checkpoints are written in the JAX
                                 package's layout and each package loads the
-                                other's (train/checkpoint.py)
+                                other's (train/checkpoint.py). A model with
+                                running statistics (``collections`` names
+                                ``batch_stats``) maps the whole variable
+                                tree {"params", "batch_stats"} instead
+    the flax variables        -> ``module_state(module)``: the parameters
+    {"params", "batch_stats"}   and the registered buffers (a BatchNorm's
+                                running statistics) by name; the engine
+                                loads, carries and merges all of them
 
 Random numbers come from the explicit ``torch.Generator`` the engine
 hands to ``loss`` (seeded from the round's per-step key data), never from
 torch's global generator. ``ClassifierModel`` (cross-entropy over
 {'x', 'y'} batches) and ``KubeDataset`` (the dataset's host transforms)
-are the JAX package's; the vision pieces come with the vision slice.
+are the JAX package's, with the dataset's optional device transform
+(``transform_train_device``) for the on-device dataset cache.
 """
 
 from __future__ import annotations
@@ -45,12 +53,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kubeml_tpu_torch.models.layers import BatchNorm
+
 PAD_ID = 0  # token id 0 is padding in every text model of the package
 
 # params -> optimizer, as configure_optimizers returns it
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
 MODELS: Dict[str, type] = {}
+
+
+def module_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's variables by name: its parameters, then its registered
+    buffers (the flax ``batch_stats``, e.g. a BatchNorm's running mean and
+    variance). The tensors are the module's own, not copies."""
+    return {**dict(module.named_parameters()),
+            **dict(module.named_buffers())}
 
 
 def register_model(name: str):
@@ -72,6 +90,11 @@ class KubeModel(abc.ABC):
 
     #: name under which the model registers
     name: str = ""
+
+    #: the flax variable collections the model's state fills; a model
+    #: with running statistics has ("batch_stats", "params"), and its
+    #: params_to_flax/params_from_flax map the whole variable tree
+    collections = ("params",)
 
     @abc.abstractmethod
     def build(self, dtype: torch.dtype = torch.bfloat16,
@@ -121,13 +144,18 @@ class KubeModel(abc.ABC):
 def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Draw ``module``'s parameters, in place and in named order, from the
     distributions flax gives the matching layers by default: a Linear's
-    weight [out, in] from lecun_normal (a normal truncated to +-2 standard
-    deviations, scaled to variance 1/in), an Embedding [V, E] from a
-    normal of variance 1/E, LayerNorm scales 1; every bias and offset 0."""
+    weight [out, in] and a Conv2d's [out, in, kh, kw] from lecun_normal (a
+    normal truncated to +-2 standard deviations, scaled to variance
+    1/fan_in, fan_in = in or in * kh * kw), an Embedding [V, E] from a
+    normal of variance 1/E, LayerNorm scales 1; every bias and offset 0.
+    A layer with its own ``reset_parameters`` and no weight to draw (the
+    vision BatchNorm: scale 1, or 0 where flax zero-initialises it, bias
+    0, running mean 0 and variance 1) resets itself."""
     with torch.no_grad():
         for sub in module.modules():
-            if isinstance(sub, nn.Linear):
-                std = math.sqrt(1.0 / sub.in_features) / .87962566103423978
+            if isinstance(sub, (nn.Linear, nn.Conv2d)):
+                fan_in = sub.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / .87962566103423978
                 w = torch.empty(sub.weight.shape)
                 nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
@@ -140,6 +168,8 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(sub, nn.LayerNorm):
                 sub.weight.fill_(1.0)
                 sub.bias.zero_()
+            elif isinstance(sub, BatchNorm):
+                sub.reset_parameters()
 
 
 class ClassifierModel(KubeModel):
@@ -181,6 +211,15 @@ class KubeDataset(abc.ABC):
 
     #: registry dataset name this model trains on
     dataset: str = ""
+
+    #: optional device twin of transform_train for the index-fed cached
+    #: path (data/device_cache.py): ``f(x, y) -> {key: torch.Tensor}``
+    #: applied to the raw gathered leaves on the device (e.g. u8 -> f32
+    #: normalize). A dataset whose host transform_train is not the
+    #: identity must provide this for the device cache to be eligible,
+    #: and the two must compute the same values, or cached and
+    #: host-staged rounds diverge.
+    transform_train_device = None
 
     def __init__(self, dataset_name: Optional[str] = None):
         if dataset_name:

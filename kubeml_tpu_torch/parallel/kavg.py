@@ -35,7 +35,23 @@ and a worker whose ``worker_mask`` is 0 are not run at all (the reference
 runs them and selects their results away, which leaves exactly the same
 weights, optimizer state, loss sums and counts). The one visible
 difference: a masked step whose loss would have been non-finite cannot
-poison its worker here. Each step's dropout generator is a Philox
+poison its worker here. A skipped step also leaves a BatchNorm's running
+statistics exactly where the reference's select leaves them.
+
+The round's state is the module's variables (``models.base.module_state``):
+its parameters and its registered buffers, the flax ``params`` and
+``batch_stats``. Each worker starts from the round-start values of both,
+its train-mode forwards update the buffers in place, and the buffers join
+the finite guard, the contribution sums and the merge like any leaf
+(integer leaves are averaged in f32 and truncated, as in the reference).
+The optimizer steps the parameters only.
+
+Index-fed rounds (``train_round(s)_indexed``) take the samples from a
+device-resident dataset cache (``data/device_cache.py``): the dispatch
+carries [W, S, B] gather indices, the round gathers the samples on the
+device, applies the dataset's device transform, and runs the same round
+body, so an index-fed round equals the host-staged round of the same
+samples. Each step's dropout generator is a Philox
 ``torch.Generator`` seeded from that step's (worker, step) key data
 (``rngs [W, S, 2]`` uint32); jax.random's bits cannot be reproduced.
 """
@@ -47,6 +63,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from kubeml_tpu_torch.models.base import module_state
 from kubeml_tpu_torch.parallel import merge as merge_lib
 from kubeml_tpu_torch.parallel.merge import _lane_sum
 
@@ -141,8 +158,9 @@ class KAvgEngine:
     """Runs sync rounds of ``module`` (whose parameters are the workers'
     working copy) on the module's device.
 
-    ``variables`` are the shared weights by parameter name (f32, like the
-    module's own state dict); ``train_round`` returns the merged ones.
+    ``variables`` are the shared weights by name: the module's parameters
+    and buffers (``module_state``), f32 like the module's own;
+    ``train_round`` returns the merged ones.
 
     n_lanes: data lanes D (the reference's ``data`` mesh axis); W must be
     a multiple of it. merge_dtype (a floating torch dtype), merge_bucket_mb
@@ -172,6 +190,7 @@ class KAvgEngine:
         self.merge_compress = str(merge_compress or "none")
         self.device = next(module.parameters()).device
         self._params = dict(module.named_parameters())
+        self._state = module_state(module)
         self._merge = merge_lib.make_strategy(
             merge_dtype=merge_dtype, bucket_mb=self.merge_bucket_mb,
             compress=self.merge_compress)
@@ -212,9 +231,11 @@ class KAvgEngine:
         return self._ef_state
 
     def _load(self, variables: State) -> None:
+        """Round-start values into the module: every parameter and every
+        buffer (the state must name them all)."""
         with torch.no_grad():
-            for name, p in self._params.items():
-                p.copy_(variables[name])
+            for name, t in self._state.items():
+                t.copy_(variables[name])
 
     def _to_device(self, batch: Dict) -> State:
         return {k: torch.as_tensor(v, device=self.device)
@@ -228,8 +249,8 @@ class KAvgEngine:
     def _worker(self, variables: State, data: State, smasks: torch.Tensor,
                 step_mask: np.ndarray, rngs: np.ndarray, w: int, lr: float,
                 epoch: int):
-        """K masked local steps of worker w from the round-start weights:
-        (new weights, loss sum, [3] stat sums or None)."""
+        """K masked local steps of worker w from the round-start state:
+        (new state, loss sum, [3] stat sums or None)."""
         dev = self.device
         self._load(variables)
         params = list(self._params.values())
@@ -259,7 +280,7 @@ class KAvgEngine:
                     stat_sum = stat_sum + torch.stack(
                         [gsq, tree_sq_norm(delta), tree_sq_norm(before)])
             loss_sum = loss_sum + loss.detach()
-        return ({n: p.detach() for n, p in self._params.items()}, loss_sum,
+        return ({n: t.detach() for n, t in self._state.items()}, loss_sum,
                 stat_sum)
 
     def _round(self, variables: State, data: State, smasks: torch.Tensor,
@@ -326,19 +347,15 @@ class KAvgEngine:
                 np.asarray(worker_mask, np.float32),
                 np.asarray(rngs, np.uint32))
 
-    def train_round(self, variables: State, batch: Dict,
-                    sample_mask: np.ndarray, step_mask: np.ndarray,
-                    worker_mask: np.ndarray, rngs: np.ndarray, lr: float,
-                    epoch: int) -> Tuple[State, RoundStats]:
-        """One sync round. batch leaves [W, S, B, ...]; sample_mask
-        [W, S, B]; step_mask [W, S]; worker_mask [W]; rngs [W, S, 2]
-        uint32 key data (all host arrays). W must be a multiple of
-        n_lanes."""
+    def _single(self, variables: State, batch_fn: Callable[[], State],
+                sample_mask, step_mask, worker_mask, rngs, lr: float,
+                epoch: int) -> Tuple[State, RoundStats]:
+        """One round over the device batch ``batch_fn()`` gives."""
         sample_mask, step_mask, worker_mask, rngs = self._masks(
             sample_mask, step_mask, worker_mask, rngs)
         self._workers_per_lane(step_mask.shape[0])
         avg, loss_sums, dropped, stats, spread = self._round(
-            variables, self._to_device(batch),
+            variables, batch_fn(),
             torch.as_tensor(sample_mask, device=self.device), step_mask,
             worker_mask, rngs, lr, epoch)
         return avg, RoundStats(
@@ -347,6 +364,43 @@ class KAvgEngine:
             sample_count=sample_mask.sum(axis=(1, 2)),
             contributors=float(worker_mask.sum()),
             dropped_device=dropped, stat_device=stats, spread_device=spread)
+
+    def _multi(self, variables: State, batch_fn: Callable[[int], State],
+               sample_mask, step_mask, worker_mask, rngs, lr: float,
+               epoch: int) -> Tuple[State, RoundStats]:
+        """R rounds, round r over the device batch ``batch_fn(r)``."""
+        sample_mask, step_mask, worker_mask, rngs = self._masks(
+            sample_mask, step_mask, worker_mask, rngs)
+        self._workers_per_lane(step_mask.shape[1])
+        smasks = torch.as_tensor(sample_mask, device=self.device)
+        outs = []
+        for r in range(step_mask.shape[0]):
+            variables, *rest = self._round(
+                variables, batch_fn(r), smasks[r], step_mask[r],
+                worker_mask[r], rngs[r], lr, epoch)
+            outs.append(rest)
+        loss_sums, dropped, stats, spread = zip(*outs)
+        collect = self.collect_stats
+        return variables, RoundStats(
+            loss_sum_device=torch.stack(loss_sums),
+            step_count=step_mask.sum(axis=2),
+            sample_count=sample_mask.sum(axis=(2, 3)),
+            contributors=float(worker_mask.sum()),
+            dropped_device=torch.stack(dropped),
+            stat_device=torch.stack(stats) if collect else None,
+            spread_device=torch.stack(spread) if collect else None)
+
+    def train_round(self, variables: State, batch: Dict,
+                    sample_mask: np.ndarray, step_mask: np.ndarray,
+                    worker_mask: np.ndarray, rngs: np.ndarray, lr: float,
+                    epoch: int) -> Tuple[State, RoundStats]:
+        """One sync round. batch leaves [W, S, B, ...]; sample_mask
+        [W, S, B]; step_mask [W, S]; worker_mask [W]; rngs [W, S, 2]
+        uint32 key data (all host arrays). W must be a multiple of
+        n_lanes."""
+        return self._single(variables, lambda: self._to_device(batch),
+                            sample_mask, step_mask, worker_mask, rngs, lr,
+                            epoch)
 
     def train_rounds(self, variables: State, batch: Dict,
                      sample_mask: np.ndarray, step_mask: np.ndarray,
@@ -359,27 +413,58 @@ class KAvgEngine:
         rounds exactly as in R train_round calls, EF residuals carried.
         Stats come back per round: loss_sum_device [R, W],
         step_count/sample_count [R, W]."""
-        sample_mask, step_mask, worker_mask, rngs = self._masks(
-            sample_mask, step_mask, worker_mask, rngs)
-        self._workers_per_lane(step_mask.shape[1])
         data = self._to_device(batch)
-        smasks = torch.as_tensor(sample_mask, device=self.device)
-        outs = []
-        for r in range(step_mask.shape[0]):
-            variables, *rest = self._round(
-                variables, {k: v[r] for k, v in data.items()}, smasks[r],
-                step_mask[r], worker_mask[r], rngs[r], lr, epoch)
-            outs.append(rest)
-        loss_sums, dropped, stats, spread = zip(*outs)
-        collect = self.collect_stats
-        return variables, RoundStats(
-            loss_sum_device=torch.stack(loss_sums),
-            step_count=step_mask.sum(axis=2),
-            sample_count=sample_mask.sum(axis=(2, 3)),
-            contributors=float(worker_mask.sum()),
-            dropped_device=torch.stack(dropped),
-            stat_device=torch.stack(stats) if collect else None,
-            spread_device=torch.stack(spread) if collect else None)
+        return self._multi(variables,
+                           lambda r: {k: v[r] for k, v in data.items()},
+                           sample_mask, step_mask, worker_mask, rngs, lr,
+                           epoch)
+
+    def _gather(self, cache, idx) -> State:
+        """A round's batch from the device cache: the [W, S, B] gather
+        indices (lane-local into lane w // (W / D)'s slab for a sharded
+        cache, global for a replicated one) uploaded, the raw leaves
+        gathered on the device, then the dataset's device transform."""
+        idx = torch.as_tensor(np.asarray(idx, np.int32),
+                              device=self.device).long()
+        if cache.layout == "sharded":
+            if cache.n_lanes != self.n_lanes:
+                raise ValueError(f"a sharded cache of {cache.n_lanes} lanes "
+                                 f"cannot feed {self.n_lanes} lanes")
+            W = idx.shape[0]
+            lane = (torch.arange(W, device=self.device)
+                    // self._workers_per_lane(W)).view(W, 1, 1)
+            raw = {k: v[lane, idx] for k, v in cache.arrays.items()}
+        else:
+            raw = {k: v[idx] for k, v in cache.arrays.items()}
+        if cache.device_transform is not None:
+            return dict(cache.device_transform(raw["x"], raw["y"]))
+        return raw
+
+    def train_round_indexed(self, variables: State, cache, idx: np.ndarray,
+                            sample_mask: np.ndarray, step_mask: np.ndarray,
+                            worker_mask: np.ndarray, rngs: np.ndarray,
+                            lr: float, epoch: int
+                            ) -> Tuple[State, RoundStats]:
+        """One sync round against the device-resident dataset cache
+        (data/device_cache.py): the train_round contract and results, with
+        ``idx`` [W, S, B] int32 gather indices (lane-local for a sharded
+        cache, global for a replicated one) in place of the batch
+        leaves."""
+        return self._single(variables, lambda: self._gather(cache, idx),
+                            sample_mask, step_mask, worker_mask, rngs, lr,
+                            epoch)
+
+    def train_rounds_indexed(self, variables: State, cache,
+                             idx: np.ndarray, sample_mask: np.ndarray,
+                             step_mask: np.ndarray, worker_mask: np.ndarray,
+                             rngs: np.ndarray, lr: float, epoch: int
+                             ) -> Tuple[State, RoundStats]:
+        """R index-fed sync rounds: train_rounds with ``idx``
+        [R, W, S, B] in place of the batch leaves; each round gathers its
+        own samples."""
+        return self._multi(variables, lambda r: self._gather(cache, idx[r]),
+                           sample_mask, step_mask, worker_mask, rngs, lr,
+                           epoch)
 
     @torch.no_grad()
     def eval_round(self, variables: State, batch: Dict,

@@ -4,10 +4,12 @@ over the port's one-device K-avg engine.
     TrainJob(task, model, dataset, device=None).train()
       -> the dataset handle from the registry
       -> RoundLoader epoch plans, rounds assembled in a prefetch thread
-         (grouped R at a time under options.rounds_per_dispatch)
-      -> KAvgEngine.train_round(s): K local steps per virtual worker and
-         the merge (the flash kernels and the fused merge kernel on the
-         card)
+         (grouped R at a time under options.rounds_per_dispatch): the
+         samples themselves, or, when the job runs from the device-resident
+         dataset cache, [W, S, B] gather indices (epoch_index_rounds)
+      -> KAvgEngine.train_round(s) or train_round(s)_indexed: K local
+         steps per virtual worker and the merge (the flash kernels and
+         the fused merge kernel on the card)
       -> eval_round, the parallelism callback, checkpoints, the history.
 
 Kept from the JAX package's job:
@@ -29,7 +31,15 @@ Kept from the JAX package's job:
     equal to the JAX package's);
   - the epoch loss: the mean over the workers that ran of loss sum /
     steps; a round with no contributor aborts; per-worker health stats;
-  - the merge options with the JAX package's validation.
+  - the merge options with the JAX package's validation;
+  - the device cache decision (``device_cache`` auto/on/off): the same
+    eligibility (an identity ``transform_train`` or a
+    ``transform_train_device`` twin), the same layout (replicated under
+    shuffle, sharded otherwise), the same ``device_cache_mb`` budget under
+    ``auto`` with host staging and a log line as the fallback, the same
+    400 under ``on``, and the same one-time log of the per-round payload;
+  - the checkpoint's variable tree: ``{"params"}``, or ``{"params",
+    "batch_stats"}`` for a model with running statistics.
 
 What differs:
   - ``device`` (None = CUDA) and ``n_lanes`` replace the mesh;
@@ -64,10 +74,11 @@ from kubeml_tpu_torch._device import DeviceLike, resolve_device
 from kubeml_tpu_torch.api.errors import KubeMLException, MergeError
 from kubeml_tpu_torch.api.types import (History, JobHistory, MetricUpdate,
                                         TrainTask)
+from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
 from kubeml_tpu_torch.data.loader import (RoundGroup, RoundLoader,
                                           group_rounds, prefetch_rounds)
 from kubeml_tpu_torch.data.registry import DatasetRegistry
-from kubeml_tpu_torch.models.base import KubeDataset, KubeModel
+from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
 from kubeml_tpu_torch.ops import _build
 from kubeml_tpu_torch.parallel.kavg import KAvgEngine
 from kubeml_tpu_torch.train.checkpoint import (AsyncCheckpointer,
@@ -125,12 +136,6 @@ def _reject_unported(opts, round_hook) -> None:
     for name in ("n_model", "n_seq", "n_stage", "n_expert"):
         if int(getattr(opts, name)) > 1:
             refuse(f"{name} > 1", "model parallelism over NCCL ranks")
-    mode = str(opts.device_cache or "auto")
-    if mode not in ("auto", "on", "off"):
-        raise KubeMLException(f"device_cache must be 'auto', 'on', or "
-                              f"'off', got {mode!r}", 400)
-    if mode == "on":
-        refuse("device_cache='on'", "the on-device dataset cache")
     for name in ("continual", "window_generations", "publish_every_rounds"):
         if getattr(opts, name):
             refuse(name, "the continual mode")
@@ -301,7 +306,9 @@ class TrainJob:
 
     def _flax_tree(self, state: Dict[str, torch.Tensor]) -> dict:
         """The checkpoint's variable tree, in the JAX package's layout."""
-        return {"params": self.model.params_to_flax(state)}
+        if self.model.collections == ("params",):
+            return {"params": self.model.params_to_flax(state)}
+        return self.model.params_to_flax(state)
 
     def _manifest(self, epoch: Optional[int] = None,
                   parallelism: Optional[int] = None,
@@ -377,6 +384,7 @@ class TrainJob:
                 "is error-feedback compression with residual carry", 400)
         handle = self.registry.get(self.req.dataset)
         self._handle = handle
+        self._init_device_cache(handle, opts)
 
         # elastic shape pinning: a parallelism change alters mask
         # contents, not the [W, S] shape (eval always pins)
@@ -427,8 +435,8 @@ class TrainJob:
         module = self.model.init_module(
             sample, torch.Generator().manual_seed(self.seed),
             device=self.device)
-        self.state = {n: p.detach().clone()
-                      for n, p in module.named_parameters()}
+        self.state = {n: t.detach().clone()
+                      for n, t in module_state(module).items()}
         if restored is not None:
             self._load_restored(restored)
         self._engine = KAvgEngine(
@@ -439,14 +447,18 @@ class TrainJob:
             collect_stats=bool(opts.train_stats))
 
     def _load_restored(self, restored: dict) -> None:
-        """Warm start: the checkpoint's flax params into the state, after
-        checking they are shaped for this model."""
+        """Warm start: the checkpoint's flax variables (params, and
+        batch_stats for a model with running statistics) into the state,
+        after checking they are shaped for this model."""
         bad = KubeMLException(f"checkpoint {self.req.resume_from} is shaped "
                               "for a different model configuration", 400)
-        if set(restored) != {"params"}:
+        collections = tuple(self.model.collections)
+        if set(restored) != set(collections):
             raise bad
         try:
-            loaded = self.model.params_from_flax(restored["params"])
+            loaded = self.model.params_from_flax(
+                restored["params"] if collections == ("params",)
+                else restored)
         except (KeyError, ValueError):
             raise bad from None
         if {k: tuple(v.shape) for k, v in loaded.items()} != \
@@ -456,11 +468,85 @@ class TrainJob:
         logger.info("job %s warm-started from checkpoint %s",
                     self.task.job_id, self.req.resume_from)
 
+    def _init_device_cache(self, handle, opts) -> None:
+        """Decide the on-device round assembly (data/device_cache.py), as
+        the JAX package's job does.
+
+        Eligibility: a dataset whose host transform_train is the identity
+        (the cached raw arrays are then what staging would ship) or one
+        with a transform_train_device twin. Layout: per-epoch shuffle
+        needs arbitrary global gathers, hence a replicated cache;
+        otherwise the plan's contiguous per-lane ranges allow the sharded
+        layout. 'auto' also requires the per-lane footprint to fit
+        device_cache_mb (else host staging, logged); 'on' skips the
+        budget but rejects an ineligible dataset with a 400."""
+        self._device_cache: Optional[DeviceDatasetCache] = None
+        self._cache_logged = False
+        mode = str(getattr(opts, "device_cache", "auto") or "auto")
+        if mode not in ("auto", "on", "off"):
+            raise KubeMLException(
+                f"device_cache must be 'auto', 'on', or 'off', "
+                f"got {mode!r}", 400)
+        if mode == "off":
+            return
+        identity = (type(self.dataset).transform_train
+                    is KubeDataset.transform_train)
+        dev_hook = getattr(self.dataset, "transform_train_device", None)
+        if not (identity or callable(dev_hook)):
+            if mode == "on":
+                raise KubeMLException(
+                    "device_cache='on' requires a single-process job "
+                    "without sequence-parallel/pipeline/manual-TP "
+                    "rounds and an identity transform_train (or a "
+                    "transform_train_device hook)", 400)
+            return
+        layout = "replicated" if opts.shuffle else "sharded"
+        budget = max(0, int(getattr(opts, "device_cache_mb", 512))) << 20
+        per_chip = DeviceDatasetCache.per_chip_bytes(handle, layout,
+                                                     self.n_lanes)
+        if mode == "auto" and per_chip > budget:
+            logger.info(
+                "job %s device cache disabled: ~%d MB/chip (%s) exceeds "
+                "the %d MB budget — host-staged rounds",
+                self.task.job_id, per_chip >> 20, layout, budget >> 20)
+            return
+        self._device_cache = DeviceDatasetCache(
+            handle, self.device, n_lanes=self.n_lanes, layout=layout,
+            device_transform=dev_hook if not identity else None)
+
+    def _log_cache_payload(self, W: int, S: int, B: int) -> None:
+        """One-time log of what the index path saves per round: the
+        [W, S, B] sample payload in host-staged bytes vs index bytes."""
+        if self._cache_logged or self._device_cache is None:
+            return
+        self._cache_logged = True
+        per_sample = self._device_cache.per_sample_bytes(
+            self._device_cache.handle)
+        slots = W * S * B
+        logger.info(
+            "job %s device cache active (%s, ~%d MB/chip): per-round "
+            "dispatch payload %d B (indices) vs %d B (host-staged), "
+            "%.0fx smaller",
+            self.task.job_id, self._device_cache.layout,
+            self._device_cache.device_bytes >> 20,
+            slots * 4, slots * per_sample,
+            max(1.0, (slots * per_sample) / max(1, slots * 4)))
+
     def _epoch_round_iter(self, plan, epoch: int, group: int):
         """Rounds of the epoch from the prefetch thread (RoundGroups of
         ``group`` rounds when > 1), each wait timed as data_wait; a round
-        with no contributing worker aborts the job."""
-        source = self._loader.epoch_rounds(plan, epoch)
+        with no contributing worker aborts the job. With the device cache
+        the rounds carry gather indices (uploading the cache first when
+        the plan's lane layout needs it)."""
+        cache = self._device_cache
+        if cache is not None:
+            W, S, B = self._loader.round_geometry(plan)
+            cache.ensure(plan, W)
+            self._log_cache_payload(W, S, B)
+            source = self._loader.epoch_index_rounds(
+                plan, epoch, lane_starts=cache.lane_starts)
+        else:
+            source = self._loader.epoch_rounds(plan, epoch)
         if group > 1:
             source = group_rounds(source, group)
         rounds = prefetch_rounds(source, depth=1)
@@ -486,14 +572,23 @@ class TrainJob:
         dev_losses, dev_dropped, dev_stats, dev_spread = [], [], [], []
         stat_rounds = 0
         step_counts = np.zeros(0)
+        cache = self._device_cache
         for rb in self._epoch_round_iter(plan, epoch, group):
             grouped = isinstance(rb, RoundGroup)
-            run = self._engine.train_rounds if grouped \
-                else self._engine.train_round
             t = time.perf_counter()
-            self.state, st = run(self.state, rb.batch, rb.sample_mask,
-                                 rb.step_mask, rb.worker_mask, rb.rngs,
-                                 lr=self.req.lr, epoch=epoch)
+            if cache is not None:
+                run = self._engine.train_rounds_indexed if grouped \
+                    else self._engine.train_round_indexed
+                self.state, st = run(self.state, cache, rb.batch["idx"],
+                                     rb.sample_mask, rb.step_mask,
+                                     rb.worker_mask, rb.rngs,
+                                     lr=self.req.lr, epoch=epoch)
+            else:
+                run = self._engine.train_rounds if grouped \
+                    else self._engine.train_round
+                self.state, st = run(self.state, rb.batch, rb.sample_mask,
+                                     rb.step_mask, rb.worker_mask, rb.rngs,
+                                     lr=self.req.lr, epoch=epoch)
             self._phases["dispatch"].append(time.perf_counter() - t)
             # count only merged workers' steps: a masked-out worker adds
             # neither loss nor steps

@@ -292,7 +292,8 @@ REJECTED = {
 }
 
 
-def _port_job(job_id="p1", callbacks=None, round_hook=None, **task_kw):
+def _port_job(job_id="p1", callbacks=None, round_hook=None, dataset=None,
+              **task_kw):
     from kubeml_tpu_torch.models import get_model
     from kubeml_tpu_torch.models.base import KubeDataset
     from kubeml_tpu_torch.train.job import TrainJob
@@ -300,8 +301,20 @@ def _port_job(job_id="p1", callbacks=None, round_hook=None, **task_kw):
     task = _tasks(job_id, "mlp", "blobs", **task_kw)["port"]
     task.job_id = job_id
     return TrainJob(task, get_model("mlp")(hidden=16, num_classes=4),
-                    KubeDataset("blobs"), device="cpu", callbacks=callbacks,
-                    round_hook=round_hook)
+                    dataset or KubeDataset("blobs"), device="cpu",
+                    callbacks=callbacks, round_hook=round_hook)
+
+
+def _host_only_blobs():
+    """The blobs dataset behind a host transform with no device twin:
+    not eligible for the device cache."""
+    from kubeml_tpu_torch.models.base import KubeDataset
+
+    class HostOnly(KubeDataset):
+        def transform_train(self, data, labels):
+            return {"x": np.asarray(data) * 1.0, "y": labels}
+
+    return HostOnly("blobs")
 
 
 @pytest.mark.parametrize("option", sorted(REJECTED) + ["round_hook"])
@@ -314,12 +327,20 @@ def test_unported_options_are_rejected_with_400(blobs, option):
         on_finish=lambda jid, err: finished.append((jid, err)))
     if option == "round_hook":
         job = _port_job(callbacks=callbacks, round_hook=lambda rb: rb)
+    elif option == "device_cache":
+        # the cache is ported: 'on' refuses only an ineligible dataset,
+        # with the JAX package's message
+        job = _port_job(callbacks=callbacks, dataset=_host_only_blobs(),
+                        device_cache="on")
     else:
         job = _port_job(callbacks=callbacks, **{option: REJECTED[option]})
     with pytest.raises(KubeMLException) as e:
         job.train()
     assert e.value.status_code == 400
-    assert "not ported yet" in e.value.message
+    if option == "device_cache":
+        assert "transform_train_device hook" in e.value.message
+    else:
+        assert "not ported yet" in e.value.message
     assert option.split("_")[0] in e.value.message
     assert job.task.state == "failed" and finished[0][1] == e.value.message
 

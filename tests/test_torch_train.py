@@ -289,7 +289,7 @@ def test_models_registered_with_reference_widths_and_dropout():
         group = opt.param_groups[0]
         assert (group["lr"], group["betas"], group["eps"],
                 group["weight_decay"]) == (1e-3, (0.9, 0.999), 1e-8, 0.01)
-    assert get_model("resnet18") is None
+    assert get_model("vgg11") is None
 
 
 def test_dropout_follows_the_generator():
