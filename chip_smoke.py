@@ -136,6 +136,34 @@ Phases (any failure exits non-zero and prints no result line):
               share, the convolutions' and the merge's share, the top
               device consumers. (e) The fused merge over ResNet-18's 10
               buckets (warm times, plain version, bytes bound).
+ 12. control  the training control plane on the card, under a fresh
+              KUBEML_TPU_HOME and cudnn.deterministic: start_deployment()
+              (storage, PS, scheduler, controller over HTTP on localhost)
+              driven by KubemlClient. (a) Two user function files
+              registered through the controller (phase 11's dataset
+              transform beside ResNet-18, phase 10's token windows beside
+              gpt-mini); phase 11's images uploaded as four .npy files
+              (upload seconds, MiB/s); resnet18 submitted at phase 11's
+              B=256, K=8, lr 0.1, static N=2, merge_bucket_mb=4,
+              device_cache='auto', one epoch, its history polled through
+              the controller: the fused merge's launches, zeroed before
+              the submit and read after, must be 10 buckets x 13 rounds;
+              /metrics must show the job's families at its epoch's publish
+              and none after its finish; the checkpoint must equal bit for
+              bit that of a direct TrainJob of the same task and seed run
+              next. Prints POST /train -> first dispatch, and both jobs'
+              wall, samples/s and ms per local step. (b) 64 test images
+              through POST /infer at the controller equal the model's infer
+              on the loaded checkpoint. (c) Phase 10's windows uploaded,
+              gpt-mini for 2 epochs under the scheduler's throughput policy
+              (default 2, max 4): the history's parallelism is the policy's
+              [2, 3], the loss falls, and each epoch's launches (read at
+              its publish) are phase 10's plan. (d) One epoch of that task
+              at a static N=2 threaded, then in a
+              start_deployment(standalone_jobs=True) whose job runs in a
+              `python -m kubeml_tpu_torch.train.jobserver` child on the
+              card: histories (but the epoch durations) and checkpoints
+              equal bit for bit.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -145,8 +173,9 @@ serving run; the three bf16 flash kernels at the training shape, launches
 from the last training round; the fused merge over one whole gpt-mini
 merge, launches from the ef_int8 run, the sgd mode under "sgd"; each of
 the four training kernels also carries "job_launches", its launches in
-each epoch of phase 10's job; the merge's "resnet18" entry carries phase
-11's plan, times and launches per epoch), the nvidia-smi line, and as the
+each epoch of phase 10's job, and "deployment_launches" those of phase
+12's jobs; the merge's "resnet18" entry carries phase 11's plan, times and
+launches per epoch), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
 non-zero without a CUDA device or without the kubeml_tpu_torch package
 beside it.
@@ -1921,6 +1950,415 @@ def resnet18_merge_row(torch, card, seed, launches):
     return row
 
 
+# ----------------------------------------------------------------- phase 12
+CP_RESNET_FN, CP_GPT_FN = "resnet18-cifar", "gpt-mini-tokens"
+CP_GPT_EPOCHS = 2
+CP_INFER_N = 64
+# the user function files the control-plane phase registers: phase 11's
+# and phase 10's datasets as KubeDataset classes beside their models
+CP_FUNCTIONS = {
+    CP_RESNET_FN: '''
+import numpy as np
+from kubeml_tpu_torch.models.base import KubeDataset
+from kubeml_tpu_torch.models.resnet import ResNet18
+
+
+class Cifar(KubeDataset):
+    def transform_train(self, data, labels):
+        return {"x": np.asarray(data).astype(np.float32) / 255.0,
+                "y": np.asarray(labels)}
+
+    transform_test = transform_train
+
+    @staticmethod
+    def transform_train_device(x, y):
+        return {"x": x.float() / 255.0, "y": y}
+
+
+class CifarResNet18(ResNet18):
+    """ResNet-18 over u8 CIFAR-shaped images."""
+''',
+    CP_GPT_FN: '''
+import numpy as np
+from kubeml_tpu_torch.models.base import KubeDataset
+from kubeml_tpu_torch.models.gpt import GPTMini
+
+
+class TokenWindows(KubeDataset):
+    def transform_train(self, data, labels):
+        return {"x": np.asarray(data).astype(np.int32)}
+
+    transform_test = transform_train
+
+
+class TokensGPTMini(GPTMini):
+    """gpt-mini over label-free token windows."""
+''',
+}
+
+
+def cp_request(fn, dataset, epochs, batch, lr, **opts):
+    from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
+
+    return TrainRequest(model_type="resnet18" if fn == CP_RESNET_FN
+                        else "gpt-mini", function_name=fn,
+                        batch_size=batch, epochs=epochs, dataset=dataset,
+                        lr=lr, options=TrainOptions(train_stats=False,
+                                                    **opts))
+
+
+def cp_wait(client, dep, job_id, timeout=900.0):
+    """The job's history, polled through the controller twice a second
+    (as a user would) until it is written; a job that finishes without
+    one (it failed) fails the phase with its error."""
+    from kubeml_tpu_torch.api.errors import KubeMLException
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            hist = client.histories().get(job_id)
+            assert dep.ps.wait_for_job(job_id, timeout=120), job_id
+            return hist
+        except KubeMLException as e:
+            if e.status_code != 404:
+                raise
+        with dep.ps._jobs_lock:
+            running = job_id in dep.ps.jobs
+        if not running and job_id in dep.ps.errors:
+            raise RuntimeError(f"job {job_id} failed inside the deployment: "
+                               f"{dep.ps.errors[job_id]}")
+        time.sleep(0.5)
+    raise TimeoutError(f"job {job_id}: no history within {timeout} s")
+
+
+def first_dispatch_probe():
+    """Wrap the engine's round entry points to stamp the first call of
+    any job in this process; returns (stamps, restore)."""
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    names = ("train_round", "train_rounds", "train_round_indexed",
+             "train_rounds_indexed")
+    orig = {n: getattr(KAvgEngine, n) for n in names}
+    stamps = []
+
+    def wrap(fn):
+        def call(self, *a, **k):
+            if not stamps:
+                stamps.append(time.perf_counter())
+            return fn(self, *a, **k)
+        return call
+
+    for n in names:
+        setattr(KAvgEngine, n, wrap(orig[n]))
+
+    def restore():
+        for n in names:
+            setattr(KAvgEngine, n, orig[n])
+    return stamps, restore
+
+
+def on_publish(ps, hook):
+    """Run hook(m) after the PS applies each threaded job's MetricUpdate
+    (the job thread's own callback, so it sees the epoch's end), for the
+    jobs started until the returned restore() is called."""
+    real = ps._publish_metrics
+
+    def publish(m):
+        real(m)
+        hook(m)
+    ps._publish_metrics = publish
+
+    def restore():
+        ps._publish_metrics = real
+    return restore
+
+
+def equal_checkpoints(a, b) -> bool:
+    from kubeml_tpu_torch.train.checkpoint import _flatten, load_checkpoint
+
+    fa, fb = (_flatten(load_checkpoint(j)[0]) for j in (a, b))
+    return fa.keys() == fb.keys() and all(
+        np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def phase_control(torch, card, seed):
+    """The training control plane on the card (see the module docstring,
+    phase 12); returns the fused merge's ResNet-18 launches and the
+    per-epoch launches of the gpt-mini job, both through the deployment."""
+    import os
+    import tempfile
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    det = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        torch.backends.cudnn.deterministic = True
+        try:
+            return control_run(torch, card, seed, tmp)
+        finally:
+            torch.backends.cudnn.deterministic = det
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+def control_run(torch, card, seed, tmp):
+    import os
+
+    from kubeml_tpu_torch.control.client import KubemlClient
+    from kubeml_tpu_torch.control.deployment import start_deployment
+
+    for name, src in CP_FUNCTIONS.items():
+        with open(os.path.join(tmp, f"{name}.py"), "w") as f:
+            f.write(src)
+    dep = start_deployment(device=None)
+    try:
+        client = KubemlClient(dep.controller_url).v1()
+        for name in CP_FUNCTIONS:
+            client.functions().create(name, os.path.join(tmp, f"{name}.py"))
+        resnet_launches, job_id, row = control_resnet(torch, card, seed,
+                                                      tmp, dep, client)
+        control_infer(torch, card, dep, client, job_id)
+        gpt_launches = control_gpt(torch, card, seed, tmp, dep, client)
+        threaded = control_gpt_static(card, dep, client, "threaded")
+    finally:
+        dep.stop()
+    dep = start_deployment(device=None, standalone_jobs=True)
+    try:
+        client = KubemlClient(dep.controller_url).v1()
+        standalone = control_gpt_static(card, dep, client, "standalone")
+    finally:
+        dep.stop()
+    (hist_t, id_t), (hist_s, id_s) = threaded, standalone
+    a, b = hist_t.data.to_dict(), hist_s.data.to_dict()
+    a.pop("epoch_duration"), b.pop("epoch_duration")
+    assert a == b, (a, b)
+    assert equal_checkpoints(id_t, id_s), "standalone weights differ"
+    log(card, f"control standalone: the gpt-mini job in a jobserver child "
+        f"on the card equals the threaded job bit for bit (history without "
+        f"its epoch durations, and every checkpoint leaf); train loss "
+        f"{hist_s.data.train_loss[0]:.6f}; epoch "
+        f"{hist_s.data.epoch_duration[0]:.4f} s in the child vs "
+        f"{hist_t.data.epoch_duration[0]:.4f} s threaded")
+    print(json.dumps({"control": dict(row, gpt_launches=gpt_launches)}),
+          flush=True)
+    return resnet_launches, gpt_launches
+
+
+def control_resnet(torch, card, seed, tmp, dep, client):
+    """(a): phase 11's dataset uploaded as four .npy files, resnet18
+    submitted through the controller, against a direct TrainJob."""
+    import os
+    import urllib.request
+
+    from kubeml_tpu_torch.data.sharding import plan_epoch
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    rng = np.random.default_rng(seed + 14)        # phase 11's images
+    paths = []
+    for split, n in (("train", CIFAR_TRAIN), ("test", CIFAR_TEST)):
+        x, y = cifar_arrays(rng, n)
+        for which, arr in (("x", x), ("y", y)):
+            p = os.path.join(tmp, f"{which}_{split}.npy")
+            np.save(p, arr)
+            paths.append(p)
+    xtr, ytr, xte, yte = paths
+    mb = sum(os.path.getsize(p) for p in paths) / 2**20
+    t0 = time.perf_counter()
+    summary = client.datasets().create("cifar", xtr, ytr, xte, yte)
+    up = time.perf_counter() - t0
+    assert (summary.train_set_size, summary.test_set_size) == \
+        (CIFAR_TRAIN, CIFAR_TEST), summary
+    log(card, f"control upload: {CIFAR_TRAIN} + {CIFAR_TEST} u8 images as "
+        f"four .npy files ({mb:.1f} MiB) through client -> controller -> "
+        f"storage in {up:.3f} s = {mb / up:.1f} MiB/s")
+
+    plan = plan_epoch(CIFAR_TRAIN, VIS_N, VIS_K, VIS_B)
+    steps, rounds = plan.total_steps, len(plan.rounds)
+    buckets = resnet18_plan().n_buckets
+    scraped = []
+
+    def scrape(m):
+        text = urllib.request.urlopen(dep.ps.url + "/metrics").read().decode()
+        scraped.append(f'kubeml_job_train_loss{{jobid="{m.job_id}"}}' in text)
+    unhook = on_publish(dep.ps, scrape)
+    req = cp_request(CP_RESNET_FN, "cifar", 1, VIS_B, VIS_LR, k=VIS_K,
+                     default_parallelism=VIS_N, static_parallelism=True,
+                     merge_bucket_mb=VIS_BUCKET_MB, device_cache="auto")
+    stamps, restore = first_dispatch_probe()
+    try:
+        fm.fused_merge_kernel.launches = 0      # the main path's run starts
+        t0 = time.perf_counter()
+        job_id = client.networks().train(req)
+        hist = cp_wait(client, dep, job_id)
+        wall = time.perf_counter() - t0
+        launches = fm.fused_merge_kernel.launches
+    finally:
+        restore()
+        unhook()
+    assert launches == buckets * rounds, (launches, buckets, rounds)
+    text = urllib.request.urlopen(dep.ps.url + "/metrics").read().decode()
+    cleared = f'jobid="{job_id}"' not in text
+    assert scraped == [True] and cleared, (scraped, cleared)
+    sec = hist.data.epoch_duration[0]
+    log(card, f"control resnet18 through the deployment (job {job_id}): "
+        f"POST /train -> first dispatch {stamps[0] - t0:.3f} s (queue, "
+        f"PS start, model init, device cache upload); epoch wall {sec:.4f} "
+        f"s = {CIFAR_TRAIN / sec:.2f} samples/s, {1e3 * sec / steps:.3f} ms "
+        f"per local step; POST /train -> history {wall:.3f} s; train loss "
+        f"{hist.data.train_loss[0]:.4f}, accuracy {hist.data.accuracy[0]:.2f} "
+        f"%; fused_merge launches {launches} (= {buckets} buckets x "
+        f"{rounds} rounds); /metrics showed the job's families at its "
+        f"epoch's publish: {scraped[0]}, none after the finish: {cleared}")
+
+    t1 = time.perf_counter()
+    direct = TrainJob(vision_task("direct", 1, device_cache="auto"),
+                      get_model("resnet18")(), cifar_dataset(),
+                      device="cuda").train()
+    dwall = time.perf_counter() - t1
+    dsec = direct.data.epoch_duration[0]
+    assert equal_checkpoints(job_id, "direct"), \
+        "the deployment's checkpoint differs from the direct job's"
+    assert direct.data.train_loss == hist.data.train_loss
+    log(card, f"control resnet18 direct TrainJob, same task and seed: epoch "
+        f"wall {dsec:.4f} s = {CIFAR_TRAIN / dsec:.2f} samples/s, "
+        f"{1e3 * dsec / steps:.3f} ms per local step (train() {dwall:.3f} "
+        f"s); deployment / direct ms per local step = {sec / dsec:.4f}; "
+        f"checkpoints equal bit for bit under cudnn.deterministic")
+    return launches, job_id, {
+        "upload_s": up, "upload_mib": mb, "upload_mib_per_s": mb / up,
+        "submit_to_first_dispatch_s": stamps[0] - t0,
+        "deployment": {"wall_s": sec, "samples_per_s": CIFAR_TRAIN / sec,
+                       "ms_per_step": 1e3 * sec / steps},
+        "direct": {"wall_s": dsec, "samples_per_s": CIFAR_TRAIN / dsec,
+                   "ms_per_step": 1e3 * dsec / steps},
+        "deployment_over_direct": sec / dsec, "launches": launches}
+
+
+def control_infer(torch, card, dep, client, job_id):
+    """(b): 64 test images through POST /infer at the controller against
+    the port model's infer on the loaded checkpoint."""
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.train.checkpoint import load_checkpoint
+    from kubeml_tpu_torch.train.functionlib import FunctionRegistry
+
+    x, _ = DatasetRegistry().get("cifar").test_arrays()
+    data = (np.asarray(x[:CP_INFER_N]).astype(np.float32) / 255.0).tolist()
+    t0 = time.perf_counter()
+    preds = client.networks().infer(job_id, data)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = client.networks().infer(job_id, data)
+    cached = time.perf_counter() - t0
+    model = FunctionRegistry().resolve(CP_RESNET_FN)[0]()
+    module = model.module_from_flax(load_checkpoint(job_id)[0],
+                                    device="cuda")
+    module.eval()
+    want = model.infer(module, np.asarray(data))
+    assert preds == again == want.tolist(), (preds, want)
+    log(card, f"control /infer: {CP_INFER_N} test images through the "
+        f"controller equal the model's infer on the loaded checkpoint bit "
+        f"for bit; round trip {first:.3f} s cold (checkpoint load), "
+        f"{cached:.3f} s from the PS's cache; {len(set(preds))} distinct "
+        f"classes predicted")
+
+
+def control_gpt(torch, card, seed, tmp, dep, client):
+    """(c): phase 10's dataset, gpt-mini for CP_GPT_EPOCHS epochs under
+    the scheduler's throughput policy; per-epoch launches."""
+    import os
+
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    rng = np.random.default_rng(seed + 12)        # phase 10's windows
+    arrays = (token_windows(rng, JOB_TRAIN, TRAIN_T),
+              np.zeros(JOB_TRAIN, np.int32),
+              token_windows(rng, JOB_TEST, TRAIN_T),
+              np.zeros(JOB_TEST, np.int32))
+    paths = []
+    for name, arr in zip(("xtr", "ytr", "xte", "yte"), arrays):
+        paths.append(os.path.join(tmp, f"tok_{name}.npy"))
+        np.save(paths[-1], arr)
+    client.datasets().create("tokens", *paths)
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+    epochs = []
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def count(m):
+        epochs.append({k: fn.launches for k, fn in kernels.items()})
+        zero()                                  # ... and the next starts
+    unhook = on_publish(dep.ps, count)
+    req = cp_request(CP_GPT_FN, "tokens", CP_GPT_EPOCHS, JOB_B, JOB_LR,
+                     k=JOB_K, default_parallelism=JOB_N0,
+                     max_parallelism=JOB_NMAX, static_parallelism=False,
+                     merge_bucket_mb=MERGE_CAP_MB)
+    zero()                                      # the main path's run starts
+    try:
+        job_id = client.networks().train(req)
+        hist = cp_wait(client, dep, job_id).data
+    finally:
+        unhook()
+    layers = GPT_CONFIGS["gpt-mini"]["layers"]
+    assert hist.parallelism == [JOB_N0, JOB_N0 + 1], hist.parallelism
+    assert hist.train_loss[-1] < hist.train_loss[0], hist.train_loss
+    assert len(epochs) == CP_GPT_EPOCHS, epochs
+    for e, counts in enumerate(epochs):
+        steps, rounds, evals = _epoch_counts(hist.parallelism[e], JOB_NMAX)
+        want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+                "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+        assert counts == want, (e, counts, want)
+        sec = hist.epoch_duration[e]
+        log(card, f"control gpt-mini through the deployment epoch {e + 1}/"
+            f"{CP_GPT_EPOCHS}: the scheduler granted N="
+            f"{hist.parallelism[e]}; train loss {hist.train_loss[e]:.4f}, "
+            f"{steps} local steps in {rounds} rounds, wall {sec:.4f} s = "
+            f"{steps * JOB_B / sec:.2f} samples/s, {1e3 * sec / steps:.3f} ms "
+            f"per local step; launches {counts} (= {layers} layers x {steps} "
+            f"steps (+ {evals} eval steps), {JOB_BUCKETS} buckets x {rounds} "
+            f"rounds)")
+    return epochs
+
+
+def control_gpt_static(card, dep, client, mode):
+    """(d): one epoch of (c)'s task at a static N=2, threaded or in a
+    jobserver child; returns (history, job id)."""
+    req = cp_request(CP_GPT_FN, "tokens", 1, JOB_B, JOB_LR, k=JOB_K,
+                     default_parallelism=JOB_N0, static_parallelism=True,
+                     merge_bucket_mb=MERGE_CAP_MB)
+    t0 = time.perf_counter()
+    job_id = client.networks().train(req)
+    ready = ""
+    if mode == "standalone":
+        # the child is ready once the PS has its URL (spawn, import,
+        # CUDA context, port bound, /health answered, /start pushed)
+        seen = False
+        while time.perf_counter() - t0 < 600:
+            with dep.ps._jobs_lock:
+                rec = dep.ps.jobs.get(job_id)
+            if rec is not None and rec.url is not None:
+                ready = (f", POST /train -> child ready "
+                         f"{time.perf_counter() - t0:.3f} s")
+                break
+            if seen and rec is None:
+                break
+            seen = seen or rec is not None
+            time.sleep(0.02)
+    hist = cp_wait(client, dep, job_id)
+    log(card, f"control gpt-mini {mode} job {job_id}: N={JOB_N0} static"
+        f"{ready}, POST /train -> history {time.perf_counter() - t0:.3f} s, "
+        f"epoch {hist.data.epoch_duration[0]:.4f} s")
+    return hist, job_id
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -2001,6 +2439,7 @@ def run(torch, seed) -> list:
     job_launches = phase_job(torch, card, seed, engine_ms)
     vision_launches = phase_vision(torch, card, seed)
     vision_merge = resnet18_merge_row(torch, card, seed, vision_launches)
+    cp_resnet, cp_gpt = phase_control(torch, card, seed)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -2021,11 +2460,15 @@ def run(torch, seed) -> list:
         "replaces": f"kubeml_tpu/ops/pallas/flash_attention.py:{line}",
         "launches": train_launches[kernel],
         "job_launches": [e[kernel] for e in job_launches],
+        "deployment_launches": [e[kernel] for e in cp_gpt],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
         + [dict(merge_entry(merge_rows, merge_launches),
                 job_launches=[e["fused_merge"] for e in job_launches],
+                deployment_launches={
+                    "gpt-mini": [e["fused_merge"] for e in cp_gpt],
+                    "resnet18": cp_resnet},
                 resnet18=vision_merge)], card
 
 

@@ -1,1 +1,2 @@
-"""Wire-level types of the port (errors only, in this slice)."""
+"""Wire-level types of the port: errors and the error envelope
+(``errors``), the wire types (``types``) and constants (``const``)."""

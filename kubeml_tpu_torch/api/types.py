@@ -1,6 +1,7 @@
-"""Wire types of the training job (copy of kubeml_tpu/api/types.py's
-TrainOptions, TrainRequest, TrainTask, JobHistory, History, MetricUpdate
-and DatasetSummary; the port imports nothing of the JAX package).
+"""Wire types (copy of kubeml_tpu/api/types.py's TrainOptions,
+TrainRequest, TrainTask, JobHistory, History, MetricUpdate, InferRequest,
+DatasetSummary and ``dumps``; the port imports nothing of the JAX
+package).
 
 Every field is kept, in the same order, with the same default, so
 ``to_dict``/``from_dict`` are wire-equal to the JAX package's: a request,
@@ -13,8 +14,9 @@ the port rejects with 400 each option whose module it has not ported yet
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Any, Dict, List
 
 
 def _asdict(obj) -> dict:
@@ -351,6 +353,21 @@ class MetricUpdate:
 
 
 @dataclass
+class InferRequest:
+    """Inference request (ml/pkg/api/types.go:37-41)."""
+
+    model_id: str          # jobId of the trained model
+    data: Any = None       # JSON payload handed to the model's infer()
+
+    def to_dict(self) -> dict:
+        return {"model_id": self.model_id, "data": self.data}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "InferRequest":
+        return cls(model_id=d["model_id"], data=d.get("data"))
+
+
+@dataclass
 class DatasetSummary:
     """Dataset listing entry (ml/pkg/api/types.go:66-72)."""
 
@@ -366,3 +383,11 @@ class DatasetSummary:
         return cls(name=d["name"],
                    train_set_size=d.get("train_set_size", 0),
                    test_set_size=d.get("test_set_size", 0))
+
+
+def dumps(obj) -> str:
+    """Serialize any wire type (or list of them) to JSON."""
+    if isinstance(obj, list):
+        return json.dumps([o.to_dict() if hasattr(o, "to_dict") else o
+                           for o in obj])
+    return json.dumps(obj.to_dict() if hasattr(obj, "to_dict") else obj)

@@ -1,2 +1,4 @@
-"""Control-plane pieces of the port (twin of kubeml_tpu/control): so far
-the scheduler's throughput policy (``policy``)."""
+"""The training control plane of the port (twin of kubeml_tpu/control):
+the HTTP base (``httpd``), storage, scheduler (with the throughput
+``policy``), parameter server (``ps``), controller, the client SDK
+(``client``) and the single-host ``deployment``."""

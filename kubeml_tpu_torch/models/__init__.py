@@ -2,7 +2,7 @@
 family, ``gpt-mini`` and ``gpt-nano``, the ``mlp`` classifier, ``lenet``
 and the ResNets (``resnet18``, ``resnet34``, ``resnet32``, ``resnet50``).
 ``get_builtin`` gives a GPT module builder (serving), ``get_model`` the
-registered model class (training)."""
+registered model class (training), ``model_names`` their names."""
 
 from __future__ import annotations
 
@@ -37,6 +37,12 @@ def builtin_names() -> list:
     return sorted(GPT_CONFIGS)
 
 
+def model_names() -> list:
+    """Names of the registered KubeModel classes (the trainable
+    built-ins)."""
+    return sorted(MODELS)
+
+
 __all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "LeNet", "MLP",
            "ResNet18", "ResNet32", "ResNet34", "ResNet50", "get_builtin",
-           "get_model", "builtin_names"]
+           "get_model", "builtin_names", "model_names"]

@@ -131,6 +131,20 @@ class KubeModel(abc.ABC):
         flax_default_init_(module, generator)
         return module
 
+    def module_from_flax(self, variables: dict, device=None) -> nn.Module:
+        """A module holding a checkpoint's variable tree (the flax
+        ``{"params"[, "batch_stats"]}`` tree load_checkpoint gives): what
+        inference on a trained model runs. Models whose widths follow the
+        data take them from the tree instead of a sample batch."""
+        module = self.build(device=device)
+        state = self.params_from_flax(
+            variables["params"] if tuple(self.collections) == ("params",)
+            else variables)
+        with torch.no_grad():
+            for name, t in module_state(module).items():
+                t.copy_(state[name])
+        return module
+
     @abc.abstractmethod
     def params_to_flax(self, state: Dict[str, torch.Tensor]) -> dict:
         """State dict (by parameter name) -> the JAX package's flax

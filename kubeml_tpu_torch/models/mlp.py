@@ -58,6 +58,12 @@ class MLP(ClassifierModel):
         self.in_features = int(math.prod(x.shape[1:]))
         return super().init_module(sample_batch, generator, device)
 
+    def module_from_flax(self, variables, device=None):
+        params = variables["params"]
+        self.in_features, self.hidden = params["Dense_0"]["kernel"].shape
+        self.num_classes = params["Dense_1"]["kernel"].shape[1]
+        return super().module_from_flax(variables, device)
+
     def params_to_flax(self, state: Dict[str, torch.Tensor]) -> dict:
         return mlp_params_to_flax(state)
 

@@ -1,3 +1,4 @@
 """The training job of the port (twin of kubeml_tpu/train): checkpoints
-(``checkpoint``), the history store (``history``) and ``TrainJob``
-(``job``)."""
+(``checkpoint``), the history store (``history``), ``TrainJob``
+(``job``), the user function registry (``functionlib``) and the per-job
+server process (``jobserver``)."""

@@ -135,6 +135,28 @@ def load_checkpoint(job_id: str, root: Optional[str] = None
             time.sleep(0.05)
 
 
+def checkpoint_saved_at(job_id: str, root: Optional[str] = None
+                        ) -> Optional[float]:
+    """The manifest's ``saved_at`` stamp, or None when the job has no
+    readable checkpoint: the cheap freshness probe of the PS's inference
+    cache and of the crash watchdog. save_checkpoint stamps every manifest
+    with a newer time.time(), so the probe does not depend on the file
+    system's mtime granularity. A read that races a publish is retried
+    once."""
+    base = os.path.join(root or _models_root(), job_id)
+    for attempt in (0, 1):
+        try:
+            with open(os.path.join(_resolve_dir(job_id, root),
+                                   "manifest.json")) as f:
+                return json.load(f).get("saved_at")
+        except (OSError, ValueError):
+            if attempt or (not os.path.isdir(base)
+                           and not os.path.isdir(base + ".old")):
+                return None
+            time.sleep(0.05)
+    return None
+
+
 def mark_checkpoint_completed(job_id: str, root: Optional[str] = None
                               ) -> None:
     """Stamp the published manifest ``completed=True``, weights untouched:

@@ -66,3 +66,9 @@ class HistoryStore:
         return [History(id=i, task=TrainRequest.from_dict(json.loads(t)),
                         data=JobHistory.from_dict(json.loads(d)))
                 for i, t, d in rows]
+
+    def prune(self) -> int:
+        """Delete all records (CLI `history prune`,
+        ml/pkg/kubeml-cli/cmd/history.go)."""
+        with self._conn() as c:
+            return c.execute("DELETE FROM history").rowcount

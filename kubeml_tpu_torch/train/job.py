@@ -71,7 +71,8 @@ import numpy as np
 import torch
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
-from kubeml_tpu_torch.api.errors import KubeMLException, MergeError
+from kubeml_tpu_torch.api.errors import (KubeMLException, MergeError,
+                                         NotPortedError)
 from kubeml_tpu_torch.api.types import (History, JobHistory, MetricUpdate,
                                         TrainTask)
 from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
@@ -122,9 +123,7 @@ class JobCallbacks:
 def _reject_unported(opts, round_hook) -> None:
     """400 for every option whose module the port has not ported yet."""
     def refuse(option: str, brings: str):
-        raise KubeMLException(
-            f"{option} is not ported yet to kubeml_tpu_torch "
-            f"(comes with {brings})", 400)
+        raise NotPortedError(option, brings)
 
     if opts.engine == "syncdp":
         refuse("engine='syncdp'", "the SyncDP engine")
