@@ -164,6 +164,33 @@ Phases (any failure exits non-zero and prints no result line):
               `python -m kubeml_tpu_torch.train.jobserver` child on the
               card: histories (but the epoch durations) and checkpoints
               equal bit for bit.
+ 13. cli      the kubeml CLI on the card, under a fresh KUBEML_TPU_HOME:
+              `python -m kubeml_tpu_torch.cli serve --role all
+              --free-ports` as a child process (run through runpy under
+              phase 12's numerics: cudnn.deterministic, no TF32, and a
+              wrapper on the PS's publish that writes each epoch's kernel
+              launches to a file, since they happen in the child), driven
+              only by `python -m kubeml_tpu_torch.cli` processes, each timed
+              from spawn to exit (`fn list` is the cold start). (a) `fn
+              create` of phase 12's ResNet-18 function, `dataset create` of
+              phase 11's images, `kubeml train` of ResNet-18 with phase
+              12's task (B=256, K=8, lr 0.1, static N=2, 4 MB buckets) for
+              4 epochs: its epoch-1 checkpoint, read while epoch 2 runs,
+              must equal phase 12's deployment job bit for bit (the spans
+              time the host only; train stats are on, as the CLI sends
+              them), and the fused merge must launch 130 times an epoch.
+              (b) Once the PS's verdict reads healthy, `kubeml health`,
+              `kubeml top --iterations 1` and `kubeml task list` run
+              together and must show the job live and healthy. (c) After
+              the job: the verdict reads unknown; `history get` (4 epochs,
+              loss falls), `logs` (4 epoch lines with the tracer's summary),
+              `trace --out` (client, scheduler, PS and job files under one
+              trace id, a dispatch span per round) and `infer` of 64 test
+              images (equal to the model's infer on the checkpoint). (d)
+              Phase 10's windows and gpt-mini for one epoch at N=2 through
+              `kubeml train`: launches = the plan. Prints ms per local step
+              by epoch beside phase 12's, the child's start and the CLI's
+              cold start.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -173,9 +200,10 @@ serving run; the three bf16 flash kernels at the training shape, launches
 from the last training round; the fused merge over one whole gpt-mini
 merge, launches from the ef_int8 run, the sgd mode under "sgd"; each of
 the four training kernels also carries "job_launches", its launches in
-each epoch of phase 10's job, and "deployment_launches" those of phase
-12's jobs; the merge's "resnet18" entry carries phase 11's plan, times and
-launches per epoch), the nvidia-smi line, and as the
+each epoch of phase 10's job, "deployment_launches" those of phase
+12's jobs and "cli_launches" those of phase 13's; the merge's "resnet18"
+entry carries phase 11's plan, times and launches per epoch), the
+nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
 non-zero without a CUDA device or without the kubeml_tpu_torch package
 beside it.
@@ -187,6 +215,12 @@ build the kernels and run phase 6 (phase 2) alone, printing its rows as one
 JSON line and no result line: copied into another tree of the repo (a `git
 archive` of another commit) the script times that tree's kernels the same
 way, so two commits compare in one session.
+
+    python3 chip_smoke.py --vision-job-only
+
+does the same for phase 11's ResNet-18 TrainJob (its "vision_epochs"
+line): the job's host path, the tracer's spans included, timed per
+epoch.
 """
 
 from __future__ import annotations
@@ -1587,10 +1621,10 @@ def resnet18_plan():
                         VIS_BUCKET_MB)
 
 
-def phase_vision(torch, card, seed):
+def phase_vision(torch, card, seed, job_only=False):
     """ResNet-18 on the card (see the module docstring, phase 11); returns
-    (the merge's ResNet-18 launches per epoch, the row for the kernels
-    line)."""
+    the merge's ResNet-18 launches per epoch. job_only runs (a), the
+    job, alone."""
     import os
     import tempfile
 
@@ -1608,6 +1642,8 @@ def phase_vision(torch, card, seed):
                 f"test u8 images 32x32x3 written in "
                 f"{time.perf_counter() - t0:.2f} s")
             launches = vision_job(torch, card, seed)
+            if job_only:
+                return launches
             vision_rounds(torch, card, seed)
         finally:
             if home is None:
@@ -2084,7 +2120,9 @@ def equal_checkpoints(a, b) -> bool:
 def phase_control(torch, card, seed):
     """The training control plane on the card (see the module docstring,
     phase 12); returns the fused merge's ResNet-18 launches and the
-    per-epoch launches of the gpt-mini job, both through the deployment."""
+    per-epoch launches of the gpt-mini job, both through the deployment,
+    and what phase 13 holds its CLI job against (the ResNet-18 job's
+    checkpoint, train loss and ms per local step)."""
     import os
     import tempfile
 
@@ -2108,6 +2146,7 @@ def control_run(torch, card, seed, tmp):
 
     from kubeml_tpu_torch.control.client import KubemlClient
     from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.train.checkpoint import _flatten, load_checkpoint
 
     for name, src in CP_FUNCTIONS.items():
         with open(os.path.join(tmp, f"{name}.py"), "w") as f:
@@ -2119,6 +2158,10 @@ def control_run(torch, card, seed, tmp):
             client.functions().create(name, os.path.join(tmp, f"{name}.py"))
         resnet_launches, job_id, row = control_resnet(torch, card, seed,
                                                       tmp, dep, client)
+        cli_ref = {"checkpoint": _flatten(load_checkpoint(job_id)[0]),
+                   "train_loss": client.histories().get(
+                       job_id).data.train_loss[0],
+                   "ms_per_step": row["deployment"]["ms_per_step"]}
         control_infer(torch, card, dep, client, job_id)
         gpt_launches = control_gpt(torch, card, seed, tmp, dep, client)
         threaded = control_gpt_static(card, dep, client, "threaded")
@@ -2143,7 +2186,7 @@ def control_run(torch, card, seed, tmp):
         f"{hist_t.data.epoch_duration[0]:.4f} s threaded")
     print(json.dumps({"control": dict(row, gpt_launches=gpt_launches)}),
           flush=True)
-    return resnet_launches, gpt_launches
+    return resnet_launches, gpt_launches, cli_ref
 
 
 def control_resnet(torch, card, seed, tmp, dep, client):
@@ -2359,6 +2402,379 @@ def control_gpt_static(card, dep, client, mode):
     return hist, job_id
 
 
+# ----------------------------------------------------------------- phase 13
+CLI_EPOCHS = 4      # epoch 1 is held against phase 12's job; the live
+                    # verdict is read while the later epochs run
+CLI_INFER_N = 64
+# The deployment child: `python -m kubeml_tpu_torch.cli serve --role all
+# --free-ports` run through runpy under phase 12's numerics (cudnn
+# deterministic, no TF32), with a wrapper on the PS's in-process publish
+# that appends each epoch's kernel launches to the file named by argv[1]
+# and zeroes the counts: the launches happen in the child, where this
+# script cannot read them.
+CLI_SERVE = r'''
+import json, runpy, sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from kubeml_tpu_torch.control.ps import ParameterServer
+from kubeml_tpu_torch.ops import flash_attention as fa, fused_merge as fm
+KERNELS = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+           "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+counts, real = sys.argv[1], ParameterServer._publish_metrics
+def publish(self, m):
+    real(self, m)
+    with open(counts, "a") as f:
+        f.write(json.dumps({"job": m.job_id, **{
+            k: fn.launches for k, fn in KERNELS.items()}}) + "\n")
+    for fn in KERNELS.values():
+        fn.launches = 0
+ParameterServer._publish_metrics = publish
+sys.argv = ["kubeml", "serve", "--role", "all", "--free-ports"]
+runpy.run_module("kubeml_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+'''
+
+
+def phase_cli(torch, card, seed, ref):
+    """The kubeml CLI on the card (see the module docstring, phase 13);
+    ref is phase 12's ResNet-18 job (its checkpoint, history and ms per
+    local step). Returns the per-epoch launches of the CLI's jobs."""
+    import os
+    import tempfile
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        try:
+            return cli_run(torch, card, seed, ref, tmp)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+class CliProcesses:
+    """The deployment child and the CLI processes that drive it, each
+    timed from spawn to exit."""
+
+    def __init__(self, card, tmp):
+        import os
+
+        self.card = card
+        self.counts = os.path.join(tmp, "launches.jsonl")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.env.pop("KUBEML_CONTROLLER_URL", None)
+        self.cwd = repo
+        self.walls = []
+        self.url = None
+        t0 = time.perf_counter()
+        self.server = subprocess.Popen(
+            [sys.executable, "-c", CLI_SERVE, self.counts], env=self.env,
+            cwd=repo, stdout=subprocess.PIPE, text=True)
+        line = self.server.stdout.readline()   # "controller: URL"
+        if not line.startswith("controller:"):
+            self.stop()
+            raise RuntimeError(f"the serve child printed {line!r} "
+                               f"(rc {self.server.poll()})")
+        self.url = line.split()[-1]
+        self.ready_s = time.perf_counter() - t0
+
+    def spawn(self, *argv) -> subprocess.Popen:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "kubeml_tpu_torch.cli", "--controller",
+             self.url, *argv], env=self.env, cwd=self.cwd,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        p.t0, p.argv = time.perf_counter(), argv
+        return p
+
+    def finish(self, p, timeout=600.0) -> str:
+        out, err = p.communicate(timeout=timeout)
+        self.walls.append((" ".join(p.argv[:2]), time.perf_counter() - p.t0))
+        if p.returncode != 0:
+            raise RuntimeError(f"kubeml {' '.join(p.argv)} exited "
+                               f"{p.returncode}: {err.strip()[-2000:]}")
+        return out
+
+    def run(self, *argv, timeout=600.0) -> str:
+        return self.finish(self.spawn(*argv), timeout)
+
+    def launches(self, job_id):
+        with open(self.counts) as f:
+            rows = [json.loads(line) for line in f]
+        return [{k: v for k, v in r.items() if k != "job"}
+                for r in rows if r["job"] == job_id]
+
+    def stop(self):
+        import signal
+
+        if self.server.poll() is None:
+            self.server.send_signal(signal.SIGTERM)   # stops its services
+            try:
+                self.server.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.server.kill()
+                self.server.wait()
+
+
+def cli_wait(cli, job_id, timeout=900.0):
+    """Poll the controller's task list until the job has left it (its
+    history saved, its health window and series cleared)."""
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    deadline = time.perf_counter() + timeout
+    while any(t["job_id"] == job_id
+              for t in http_json("GET", f"{cli.url}/tasks")):
+        assert time.perf_counter() < deadline, f"job {job_id} never ended"
+        time.sleep(0.2)
+    http_json("GET", f"{cli.url}/history/{job_id}")   # 404: it failed
+
+
+def read_manifest(job_id):
+    """The job's checkpoint manifest, or None while there is none."""
+    import os
+
+    from kubeml_tpu_torch.api.const import kubeml_home
+
+    try:
+        with open(os.path.join(kubeml_home(), "models", job_id,
+                               "manifest.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def cli_run(torch, card, seed, ref, tmp):
+    import os
+
+    for name, src in CP_FUNCTIONS.items():
+        with open(os.path.join(tmp, f"{name}.py"), "w") as f:
+            f.write(src)
+    rng = np.random.default_rng(seed + 14)        # phase 11's images
+    paths = {}
+    for split, n in (("train", CIFAR_TRAIN), ("test", CIFAR_TEST)):
+        x, y = cifar_arrays(rng, n)
+        for which, arr in (("x", x), ("y", y)):
+            paths[f"{which}{split}"] = os.path.join(tmp, f"{which}_{split}.npy")
+            np.save(paths[f"{which}{split}"], arr)
+    infer_x = (x[:CLI_INFER_N].astype(np.float32) / 255.0)
+    paths["infer"] = os.path.join(tmp, "infer.npy")
+    np.save(paths["infer"], infer_x)
+    cli = CliProcesses(card, tmp)
+    try:
+        log(card, f"cli serve: `python -m kubeml_tpu_torch.cli serve --role "
+            f"all --free-ports` (a child on the card) printed its "
+            f"controller {cli.url} {cli.ready_s:.3f} s after spawn")
+        cold = cli.run("fn", "list")
+        assert "resnet18" in cold, cold
+        cold_s = cli.walls[-1][1]
+        cli.run("fn", "create", "-n", CP_RESNET_FN, "--code",
+                os.path.join(tmp, f"{CP_RESNET_FN}.py"))
+        out = cli.run("dataset", "create", "-n", "cifar", "--traindata",
+                      paths["xtrain"], "--trainlabels", paths["ytrain"],
+                      "--testdata", paths["xtest"], "--testlabels",
+                      paths["ytest"])
+        assert f"train={CIFAR_TRAIN}, test={CIFAR_TEST}" in out, out
+        upload_s = cli.walls[-1][1]
+        upload_mib = sum(os.path.getsize(paths[k]) for k in (
+            "xtrain", "ytrain", "xtest", "ytest")) / 2**20
+        row = cli_resnet(torch, card, cli, ref, paths)
+        gpt = cli_gpt(card, cli, seed, tmp)
+    finally:
+        cli.stop()
+    walls = [w for _, w in cli.walls]
+    row.update(child_ready_s=cli.ready_s, cold_start_s=cold_s,
+               upload_s=upload_s, upload_mib=upload_mib,
+               cli_calls=len(walls),
+               cli_wall_s={"min": min(walls), "median":
+                           statistics.median(walls), "max": max(walls)},
+               gpt_launches=gpt)
+    log(card, f"cli processes: {len(walls)} calls of `python -m "
+        f"kubeml_tpu_torch.cli`, each from spawn to exit: cold start "
+        f"(`fn list`) {cold_s:.3f} s; min {min(walls):.3f} s, median "
+        f"{statistics.median(walls):.3f} s, max {max(walls):.3f} s "
+        f"(`dataset create` of {upload_mib:.1f} MiB {upload_s:.3f} s); the "
+        f"serve child "
+        f"stopped with rc {cli.server.returncode}")
+    print(json.dumps({"cli": row}), flush=True)
+    return row
+
+
+def cli_resnet(torch, card, cli, ref, paths):
+    """(a)-(c): ResNet-18 submitted by `kubeml train`, its epoch-1
+    checkpoint against phase 12's job, the live verdict through `health`
+    and `top`, then `task list`, `history get`, `logs`, `trace --out`
+    and `infer`."""
+    import os
+
+    from kubeml_tpu_torch.control.httpd import http_json
+    from kubeml_tpu_torch.data.sharding import plan_epoch
+    from kubeml_tpu_torch.train.checkpoint import _flatten, load_checkpoint
+    from kubeml_tpu_torch.train.functionlib import FunctionRegistry
+
+    plan = plan_epoch(CIFAR_TRAIN, VIS_N, VIS_K, VIS_B)
+    steps, rounds = plan.total_steps, len(plan.rounds)
+    buckets = resnet18_plan().n_buckets
+    job_id = cli.run("train", "-f", CP_RESNET_FN, "-d", "cifar", "-e",
+                     str(CLI_EPOCHS), "-b", str(VIS_B), "--lr", str(VIS_LR),
+                     "-K", str(VIS_K), "-p", str(VIS_N), "--static",
+                     "--merge-bucket-mb", str(VIS_BUCKET_MB)).strip()
+    t0 = time.perf_counter()
+
+    # (a) the epoch-1 checkpoint, read while epoch 2 runs
+    deadline = t0 + 900
+    while (read_manifest(job_id) or {}).get("epoch") is None:
+        assert time.perf_counter() < deadline, "no epoch-1 checkpoint"
+        time.sleep(0.05)
+    tree, manifest = load_checkpoint(job_id)
+    assert manifest["epoch"] == 1, \
+        f"read the checkpoint of epoch {manifest['epoch']}, not epoch 1"
+    got = _flatten(tree)
+    equal = got.keys() == ref["checkpoint"].keys() and all(
+        np.array_equal(got[k], ref["checkpoint"][k]) for k in got)
+    assert equal, "the CLI job's epoch-1 checkpoint differs from phase 12's"
+    loss1 = manifest["history"]["train_loss"][0]
+    assert loss1 == ref["train_loss"], (loss1, ref["train_loss"])
+
+    # (b) a live healthy verdict (epoch 1 of a cold child may read as a
+    # straggler: its first round pays the process's first cuDNN use)
+    while http_json("GET", f"{cli.url}/health/{job_id}")["state"] != \
+            "healthy":
+        assert time.perf_counter() < deadline, "no healthy verdict"
+        time.sleep(0.05)
+    live = [cli.spawn("health", "--id", job_id),
+            cli.spawn("top", "--id", job_id, "--iterations", "1"),
+            cli.spawn("task", "list")]
+    health, top, tasks = (cli.finish(p) for p in live)
+    verdict = json.loads(health)
+    assert verdict["id"] == job_id and verdict["state"] == "healthy", health
+    assert f"job {job_id}  state=healthy  N={VIS_N}" in top, top
+    assert "WORKER" in top and "dispatch: n=" in top, top
+    row_line = [ln for ln in tasks.splitlines() if ln.startswith(job_id)]
+    assert row_line and "running" in row_line[0], tasks
+    log(card, f"cli live verdict of job {job_id} ({CLI_EPOCHS} epochs): "
+        f"`kubeml health` {verdict['state']}, "
+        f"{len(verdict['latest'].get('grad_norms', []))} worker grad norms; "
+        f"`kubeml top --iterations 1`: {top.splitlines()[0]!r}; "
+        f"`kubeml task list`: {' '.join(row_line[0].split())!r}")
+    for ln in top.splitlines()[1:]:
+        log(card, f"cli top | {ln}")
+
+    cli_wait(cli, job_id)
+    wall = time.perf_counter() - t0
+    hist = json.loads(cli.run("history", "get", "--id", job_id))["data"]
+    assert len(hist["train_loss"]) == CLI_EPOCHS, hist
+    assert hist["train_loss"][0] == ref["train_loss"]
+    assert hist["train_loss"][-1] < hist["train_loss"][0], hist
+    launches = cli.launches(job_id)
+    per_epoch = [c["fused_merge"] for c in launches]
+    assert per_epoch == [buckets * rounds] * CLI_EPOCHS, launches
+    assert all(c[k] == 0 for c in launches for k in c
+               if k != "fused_merge"), launches
+    assert http_json("GET", f"{cli.url}/health/{job_id}")["state"] == \
+        "unknown"
+
+    logs = cli.run("logs", "--id", job_id)
+    lines = [ln for ln in logs.splitlines() if " loss=" in ln]
+    assert len(lines) == CLI_EPOCHS and all(
+        f"epoch {e + 1}/{CLI_EPOCHS}" in lines[e] and "dispatch=" in lines[e]
+        and "merge_wait=" in lines[e] for e in range(CLI_EPOCHS)), logs
+    out = os.path.join(os.path.dirname(paths["infer"]), "trace.json")
+    said = cli.run("trace", "--id", job_id, "-o", out)
+    with open(out) as f:
+        doc = json.load(f)
+    meta = doc["metadata"]
+    sources = sorted(s.split("-")[0] for s in meta["sources"])
+    assert sources == ["client", "job", "ps", "scheduler"], meta
+    assert len(meta["trace_ids"]) == 1 and meta["dropped_events"] == 0
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    assert all(e["args"].get("trace_id") == meta["trace_ids"][0]
+               for e in spans)
+    dispatch = [e["dur"] for e in spans if e["name"] == "dispatch"]
+    assert len(dispatch) == CLI_EPOCHS * rounds, len(dispatch)
+
+    preds = json.loads(cli.run("infer", "-n", job_id, "--datafile",
+                               paths["infer"]))
+    model = FunctionRegistry().resolve(CP_RESNET_FN)[0]()
+    module = model.module_from_flax(load_checkpoint(job_id)[0],
+                                    device="cuda")
+    module.eval()
+    want = model.infer(module, np.asarray(np.load(paths["infer"]).tolist()))
+    assert preds == want.tolist(), (preds, want)
+
+    ms = [1e3 * s / steps for s in hist["epoch_duration"]]
+    warm = statistics.median(ms[1:])
+    log(card, f"cli resnet18 job {job_id} through `kubeml train` ({VIS_B}x"
+        f"{VIS_K}, N={VIS_N}, lr {VIS_LR}, 4 MB buckets, train stats on): "
+        f"epoch-1 checkpoint equal bit for bit to phase 12's deployment job "
+        f"(train loss {loss1!r} both); train loss "
+        f"{[round(x, 4) for x in hist['train_loss']]}; ms per local step by "
+        f"epoch {[round(x, 3) for x in ms]} (epoch 1 in a cold process); "
+        f"warm median {warm:.3f} ms against phase 12's "
+        f"{ref['ms_per_step']:.3f} ms = {warm / ref['ms_per_step']:.4f}x; "
+        f"fused_merge launches per epoch {per_epoch} (= {buckets} buckets x "
+        f"{rounds} rounds); submit -> history {wall:.3f} s; unknown after "
+        f"the finish; `kubeml logs` printed {len(lines)} epoch lines; "
+        f"`kubeml trace --out`: {said.strip()!r}; {len(spans)} spans, "
+        f"dispatch spans mean {np.mean(dispatch) / 1e3:.3f} ms; `kubeml "
+        f"infer` of {CLI_INFER_N} images equals the model's infer on the "
+        f"checkpoint")
+    return {"job": job_id, "ms_per_step": ms, "warm_ms_per_step": warm,
+            "phase12_ms_per_step": ref["ms_per_step"],
+            "warm_over_phase12": warm / ref["ms_per_step"],
+            "samples_per_s": [CIFAR_TRAIN / s
+                              for s in hist["epoch_duration"]],
+            "launches": per_epoch, "trace_sources": meta["sources"],
+            "submit_to_history_s": wall}
+
+
+def cli_gpt(card, cli, seed, tmp):
+    """(d): phase 10's token windows and gpt-mini for one epoch at a static
+    N=2 through `kubeml train`: the launches of the epoch are the plan."""
+    import os
+
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    rng = np.random.default_rng(seed + 12)        # phase 10's windows
+    arrays = (token_windows(rng, JOB_TRAIN, TRAIN_T),
+              np.zeros(JOB_TRAIN, np.int32),
+              token_windows(rng, JOB_TEST, TRAIN_T),
+              np.zeros(JOB_TEST, np.int32))
+    paths = []
+    for name, arr in zip(("xtr", "ytr", "xte", "yte"), arrays):
+        paths.append(os.path.join(tmp, f"tok_{name}.npy"))
+        np.save(paths[-1], arr)
+    cli.run("fn", "create", "-n", CP_GPT_FN, "--code",
+            os.path.join(tmp, f"{CP_GPT_FN}.py"))
+    cli.run("dataset", "create", "-n", "tokens", "--traindata", paths[0],
+            "--trainlabels", paths[1], "--testdata", paths[2],
+            "--testlabels", paths[3])
+    job_id = cli.run("train", "-f", CP_GPT_FN, "-d", "tokens", "-e", "1",
+                     "-b", str(JOB_B), "--lr", str(JOB_LR), "-K", str(JOB_K),
+                     "-p", str(JOB_N0), "--static", "--merge-bucket-mb",
+                     str(MERGE_CAP_MB)).strip()
+    cli_wait(cli, job_id)
+    hist = json.loads(cli.run("history", "get", "--id", job_id))["data"]
+    layers = GPT_CONFIGS["gpt-mini"]["layers"]
+    steps, rounds, evals = _epoch_counts(JOB_N0, JOB_N0)
+    want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+            "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+    launches = cli.launches(job_id)
+    assert launches == [want], (launches, want)
+    sec = hist["epoch_duration"][0]
+    log(card, f"cli gpt-mini job {job_id} through `kubeml train` (N="
+        f"{JOB_N0} static, B={JOB_B}, K={JOB_K}): train loss "
+        f"{hist['train_loss'][0]:.4f}, {steps} local steps in {rounds} "
+        f"rounds, epoch {sec:.4f} s = {1e3 * sec / steps:.3f} ms per local "
+        f"step; launches {launches[0]} (= {layers} layers x {steps} steps "
+        f"(+ {evals} eval steps), {JOB_BUCKETS} buckets x {rounds} rounds)")
+    return launches
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -2439,7 +2855,9 @@ def run(torch, seed) -> list:
     job_launches = phase_job(torch, card, seed, engine_ms)
     vision_launches = phase_vision(torch, card, seed)
     vision_merge = resnet18_merge_row(torch, card, seed, vision_launches)
-    cp_resnet, cp_gpt = phase_control(torch, card, seed)
+    cp_resnet, cp_gpt, cli_ref = phase_control(torch, card, seed)
+    cli = phase_cli(torch, card, seed, cli_ref)
+    del cli_ref
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -2461,6 +2879,7 @@ def run(torch, seed) -> list:
         "launches": train_launches[kernel],
         "job_launches": [e[kernel] for e in job_launches],
         "deployment_launches": [e[kernel] for e in cp_gpt],
+        "cli_launches": [e[kernel] for e in cli["gpt_launches"]],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -2469,6 +2888,10 @@ def run(torch, seed) -> list:
                 deployment_launches={
                     "gpt-mini": [e["fused_merge"] for e in cp_gpt],
                     "resnet18": cp_resnet},
+                cli_launches={
+                    "gpt-mini": [e["fused_merge"]
+                                 for e in cli["gpt_launches"]],
+                    "resnet18": cli["launches"]},
                 resnet18=vision_merge)], card
 
 
@@ -2480,6 +2903,12 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 2 alone, then "
                          "print its rows as one JSON line and no result "
                          "line (the paged twin of --flash-only)")
+    ap.add_argument("--vision-job-only", action="store_true",
+                    help="build the fused merge and run phase 11's "
+                         "ResNet-18 job alone (two cached epochs, one "
+                         "host-staged), printing its rows as one JSON line "
+                         "and no result line (to time two trees' jobs in "
+                         "one run, as --flash-only)")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -2509,6 +2938,10 @@ def main(argv=None) -> int:
             print(json.dumps({"card": card, "paged": [
                 {"pages": p, "S": S, "T": T, **r}
                 for (p, S, T), r in rows.items()]}))
+            return 0
+        if args.vision_job_only:
+            card = start(torch, ["fused_merge"])
+            phase_vision(torch, card, args.seed, job_only=True)
             return 0
         if args.flash_only:
             card = start(torch, ["flash_attention"])

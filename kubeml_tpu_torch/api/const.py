@@ -6,6 +6,10 @@ import os
 # samples per storage "doc": the unit that shards an epoch over workers
 STORAGE_SUBSET_SIZE = 64
 
+# largest batch a train request may ask for (the reference CLI's check,
+# ml/pkg/kubeml-cli/cmd/train.go:15)
+MAX_BATCH_SIZE = 1024
+
 # service ports of a long-running deployment (start_deployment's
 # use_default_ports) and the client's default controller URL
 CONTROLLER_PORT = int(os.environ.get("KUBEML_CONTROLLER_PORT", "9673"))

@@ -4,13 +4,11 @@ client.py).
 Parity with the Go client SDK (ml/pkg/controller/client/v1/v1.go:5-38):
 ``KubemlClient.v1()`` exposes Networks / Datasets / Functions / Histories
 / Tasks resource clients with the same operations (Train/Infer,
-Create/Delete/List, Get/Delete/List/Prune, List/Stop). The wire is the
-JAX package's, so either package's client drives either package's
-deployment. The traces, cost and health clients are kept: a port
-deployment answers them with the not-ported envelope (ROADMAP A.13,
-A.15), and they work against a JAX deployment. The train call mints the
-trace id that rides the X-KubeML-Trace-Id header; the client's own
-submit span comes with the tracer (ROADMAP A.13).
+Create/Delete/List, Get/Delete/List/Prune, List/Stop), and the traces,
+health and cost clients. The wire is the JAX package's, so either
+package's client drives either package's deployment; a port deployment
+answers the cost client with the not-ported envelope (the cost ledger,
+ROADMAP A.13).
 """
 
 from __future__ import annotations
@@ -27,7 +25,8 @@ from kubeml_tpu_torch.api.types import (DatasetSummary, History,
                                         InferRequest, TrainRequest,
                                         TrainTask)
 from kubeml_tpu_torch.control.httpd import http_json
-from kubeml_tpu_torch.utils.trace import (get_trace_context, make_trace_id,
+from kubeml_tpu_torch.utils.trace import (TraceSink, Tracer,
+                                          get_trace_context, make_trace_id,
                                           trace_context)
 
 # Bounded retry for TRANSIENT connection failures only. httpd.http_json
@@ -85,11 +84,24 @@ class NetworksClient:
         """Submit a training job. The trace begins here: a trace_id is
         minted (unless the caller supplies one or the thread carries one)
         and rides the X-KubeML-Trace-Id header through controller ->
-        scheduler -> PS -> job process."""
+        scheduler -> PS -> job process, so ``kubeml trace --id <job>``
+        shows the whole chain. The client's own submit span lands in the
+        job's trace directory once the job id is known (best effort: the
+        client may run on a host without the deployment's
+        KUBEML_TPU_HOME)."""
         trace_id = trace_id or get_trace_context() or make_trace_id()
+        tracer = Tracer(trace_id=trace_id)
         with trace_context(trace_id):
-            out = _request("POST", f"{self.base}/train", req.to_dict())
-        return out["id"]
+            with tracer.span("client.train",
+                             function=(req.function_name
+                                       or req.model_type)):
+                out = _request("POST", f"{self.base}/train", req.to_dict())
+        job_id = out["id"]
+        try:
+            TraceSink(job_id, "client").write(tracer)
+        except OSError:
+            pass
+        return job_id
 
     def infer(self, model_id: str, data) -> list:
         out = _request("POST", f"{self.base}/infer",

@@ -15,12 +15,13 @@ controller.py; parity with ml/pkg/controller/api.go:16-42):
     DELETE /history/{taskId}   -> delete one
     DELETE /history            -> prune all
     GET|POST|DELETE /functions[/{name}] -> the function registry
-    GET    /health
+    GET    /trace/{jobId}      -> PS /trace?id= (the merged job timeline)
+    GET    /health/{jobId}     -> PS /health?id= (the job's health verdict)
+    GET    /health             (the gateway's own liveness)
 
 Refused with the error envelope until their modules are ported: POST
-/dataset/{name}/append (the continual mode), GET /trace/{jobId} and
-/cost/{jobId} (ROADMAP A.13), GET /health/{jobId} (ROADMAP A.15) and GET
-/cluster (ROADMAP A.16).
+/dataset/{name}/append (the continual mode), GET /cost/{jobId} (the cost
+ledger, ROADMAP A.13) and GET /cluster (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -74,11 +75,13 @@ class Controller(JsonService):
         # the job's 400 for the continual mode; 501 for the rest
         self.route("POST", "/dataset/{name}/append",
                    not_ported("POST /dataset/{name}/append",
-                              "the continual mode", 400))
+                              "the continual mode, ROADMAP A.4.5", 400))
+        self.route("GET", "/trace/{jobId}", self._h_trace)
+        # /health stays the gateway's own liveness probe; the job-health
+        # verdict gets its own path segment
+        self.route("GET", "/health/{jobId}", self._h_job_health)
         for path, brings in (
-                ("/trace/{jobId}", "the tracer, ROADMAP A.13"),
                 ("/cost/{jobId}", "the cost ledger, ROADMAP A.13"),
-                ("/health/{jobId}", "the health evaluator, ROADMAP A.15"),
                 ("/cluster", "the cluster allocator, ROADMAP A.16")):
             self.route("GET", path, not_ported(f"GET {path}", brings))
 
@@ -131,6 +134,23 @@ class Controller(JsonService):
         return http_json(
             "DELETE",
             f"{self._need(self.ps_url, 'PS')}/stop/{req.params['jobId']}")
+
+    def _h_trace(self, req: Request):
+        """Merged job timeline, proxied to the PS (which owns the trace
+        directory) so ``kubeml trace --id`` needs only the gateway URL."""
+        return http_json(
+            "GET",
+            f"{self._need(self.ps_url, 'PS')}/trace"
+            f"?id={req.params['jobId']}")
+
+    def _h_job_health(self, req: Request):
+        """Training-health verdict, proxied to the PS (which owns the
+        rolling metric windows) so ``kubeml health/top --id`` need only
+        the gateway URL."""
+        return http_json(
+            "GET",
+            f"{self._need(self.ps_url, 'PS')}/health"
+            f"?id={req.params['jobId']}")
 
     # --------------------------------------------------------------- history
 

@@ -14,6 +14,11 @@ REST surface (ml/pkg/ps/api.go:335-345):
     DELETE /stop/{jobId}      stop a running job
     GET    /tasks             running-task list
     GET    /metrics           Prometheus exposition (job families + HTTP)
+    GET    /health?id=        a running job's health verdict
+                              (control/health.py over its MetricUpdates;
+                              bare /health is the liveness answer)
+    GET    /trace?id=         the job's merged Chrome trace (every
+                              process's TraceSink file, merge_job_trace)
     POST   /infer             inference on a checkpointed model, through a
                               saved_at-keyed LRU of loaded modules and the
                               micro-batcher
@@ -37,9 +42,15 @@ ml/cmd/ml/main.go:115-133):
 without a card when first used), "cpu" runs the jobs and the children
 there.
 
-Not ported yet, each answering with the error envelope: /generate and
-/flight (serving through the PS, ROADMAP A.1), /trace and /cost (ROADMAP
-A.13), a job's /health verdict (ROADMAP A.15), /cluster and the durable
+The health evaluator is fed from every MetricUpdate (pushed by a job
+process, or published in-process by a threaded job) and clears a job's
+window when the job finishes, so a finished job reads ``unknown``. A
+threaded job writes ``$KUBEML_TPU_HOME/logs/<job>.log``; the PS's own
+``ps.start_task`` span goes to ``TraceSink(job, "ps")``.
+
+Not ported yet, each answering with the error envelope: /generate,
+/flight and the ``serve:<model>`` traces (serving through the PS, ROADMAP
+A.1), /cost (the cost ledger, ROADMAP A.13), /cluster and the durable
 state with recover() (ROADMAP A.16), /preempt, /preempted and the
 heartbeat reaper (ROADMAP A.17).
 """
@@ -61,9 +72,11 @@ import numpy as np
 import torch
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
+from kubeml_tpu_torch.api.const import kubeml_home
 from kubeml_tpu_torch.api.errors import (InvalidArgsError, JobNotFoundError,
                                          KubeMLException, NotPortedError)
 from kubeml_tpu_torch.api.types import MetricUpdate, TrainTask
+from kubeml_tpu_torch.control.health import HealthEvaluator
 from kubeml_tpu_torch.control.httpd import (JsonService, Raw, Request,
                                             http_json, not_ported)
 from kubeml_tpu_torch.control.journal import read_json
@@ -75,7 +88,9 @@ from kubeml_tpu_torch.train.checkpoint import (checkpoint_saved_at,
 from kubeml_tpu_torch.train.functionlib import FunctionRegistry
 from kubeml_tpu_torch.train.history import HistoryStore
 from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
-from kubeml_tpu_torch.utils.trace import get_trace_context, make_trace_id
+from kubeml_tpu_torch.utils.trace import (TraceSink, Tracer,
+                                          get_trace_context, make_trace_id,
+                                          merge_job_trace)
 
 logger = logging.getLogger("kubeml_tpu_torch.ps")
 
@@ -322,6 +337,12 @@ class ParameterServer(JsonService):
         self._infer_batcher = InferBatcher() if InferBatcher.enabled() \
             else None
         self.metrics = MetricsRegistry()
+        # training-health verdicts over rolling MetricUpdate windows
+        # (control/health.py); served on GET /health?id=
+        self.health = HealthEvaluator()
+        # job threads publish while handler threads read verdicts; the
+        # evaluator's per-job windows are read-modify-write
+        self._health_lock = threading.Lock()
         self.fn_registry = FunctionRegistry()
         self.ds_registry = DatasetRegistry()
         self.history_store = HistoryStore()
@@ -335,11 +356,11 @@ class ParameterServer(JsonService):
         self.route("GET", "/tasks", self._h_tasks)
         self.route("GET", "/metrics", self._h_prom)
         self.route("GET", "/health", self._h_health)
+        self.route("GET", "/trace", self._h_trace)
         self.route("POST", "/infer", self._h_infer)
         for method, path, brings in (
                 ("POST", "/generate", SERVING),
                 ("GET", "/flight", SERVING),
-                ("GET", "/trace", "the tracer, ROADMAP A.13"),
                 ("GET", "/cost", "the cost ledger, ROADMAP A.13"),
                 ("POST", "/cluster", "the cluster allocator, ROADMAP A.16"),
                 ("POST", "/preempt/{jobId}", PREEMPTION),
@@ -360,7 +381,17 @@ class ParameterServer(JsonService):
         # predates the trace_id field)
         if not task.trace_id:
             task.trace_id = get_trace_context() or make_trace_id()
-        self.start_task(task)
+        # the PS's own mark on the job's timeline: one span covering the
+        # launch, flushed to the job's trace directory
+        tracer = Tracer(trace_id=task.trace_id)
+        with tracer.span("ps.start_task", job_id=task.job_id,
+                         mode="standalone" if self.standalone_jobs
+                         else "threaded"):
+            self.start_task(task)
+        try:
+            TraceSink(task.job_id, "ps").write(tracer)
+        except OSError:
+            logger.exception("ps: trace flush failed for %s", task.job_id)
         return {"job_id": task.job_id}
 
     def _h_update(self, req: Request):
@@ -373,8 +404,24 @@ class ParameterServer(JsonService):
         return {"ok": True}
 
     def _h_metrics(self, req: Request):
-        self.metrics.update_job(MetricUpdate.from_dict(req.body))
+        m = MetricUpdate.from_dict(req.body)
+        self.metrics.update_job(m)
+        self._observe_health(m)
         return {"ok": True}
+
+    def _observe_health(self, m: MetricUpdate) -> None:
+        """Feed one update through the health rules: bump the alert
+        counter once per rule onset (the evaluator dedupes against the
+        already-active rules) and publish the verdict gauge."""
+        with self._health_lock:
+            fired = self.health.observe(m)
+            state = self.health.verdict(m.job_id)["state"]
+        for reason in fired:
+            self.metrics.note_health_alert(m.job_id, reason["rule"])
+            logger.warning("job %s health alert [%s/%s]: %s", m.job_id,
+                           reason["severity"], reason["rule"],
+                           reason["detail"])
+        self.metrics.set_health(m.job_id, state)
 
     def _h_heartbeat(self, req: Request):
         """Progress cursor (epoch, round) of a standalone child, shown on
@@ -392,12 +439,14 @@ class ParameterServer(JsonService):
         return {"ok": True}
 
     def _h_health(self, req: Request):
-        """Bare GET /health is the liveness answer every service gives;
-        a job's verdict (?id=) needs the health evaluator."""
-        if req.query.get("id"):
-            raise NotPortedError("GET /health?id=",
-                                 "the health evaluator, ROADMAP A.15", 501)
-        return {"ok": True}
+        """Bare GET /health keeps the liveness contract every service
+        answers; ?id=<jobId> serves that job's training-health verdict
+        (state, machine-readable reasons, the latest epoch's stats)."""
+        job_id = req.query.get("id", "")
+        if not job_id:
+            return {"ok": True}
+        with self._health_lock:
+            return self.health.verdict(job_id)
 
     def _h_finish(self, req: Request):
         self._finish(req.params["jobId"], req.body.get("error")
@@ -427,6 +476,20 @@ class ParameterServer(JsonService):
         # job families plus this service's HTTP series, one scrape target
         text = self.metrics.exposition() + self.http_metrics.exposition()
         return Raw(text.encode(), "text/plain; version=0.0.4")
+
+    def _h_trace(self, req: Request):
+        """Merged Chrome trace of a job (?id=<jobId>): every process's
+        TraceSink file plus any torch_profile capture, one Perfetto-
+        loadable document."""
+        job_id = req.query.get("id", "")
+        if not job_id:
+            raise InvalidArgsError("id query parameter required")
+        if job_id.startswith("serve:"):
+            raise NotPortedError(f"GET /trace?id={job_id}", SERVING, 501)
+        try:
+            return merge_job_trace(job_id)
+        except FileNotFoundError:
+            raise JobNotFoundError(f"{job_id} (no trace recorded)")
 
     def _h_infer(self, req: Request):
         model_id = req.body.get("model_id")
@@ -514,7 +577,9 @@ class ParameterServer(JsonService):
                        callbacks=JobCallbacks(
                            request_parallelism=self._request_parallelism,
                            publish_metrics=self._publish_metrics,
-                           on_finish=self._finish))
+                           on_finish=self._finish),
+                       log_file=os.path.join(kubeml_home(), "logs",
+                                             f"{task.job_id}.log"))
         thread = threading.Thread(target=self._run_job, args=(job,),
                                   name=f"job-{task.job_id}", daemon=True)
         with self._jobs_lock:
@@ -742,6 +807,7 @@ class ParameterServer(JsonService):
     def _publish_metrics(self, m: MetricUpdate):
         # in-process twin of POST /metrics/{jobId} for threaded jobs
         self.metrics.update_job(m)
+        self._observe_health(m)
 
     def _finish(self, job_id: str, error: Optional[str] = None):
         """Clear per-job series + notify the scheduler
@@ -774,6 +840,8 @@ class ParameterServer(JsonService):
         else:
             self._release_partition(rec)
         self.metrics.clear_job(job_id)
+        with self._health_lock:
+            self.health.clear(job_id)
         self.metrics.running_total.inc("train", -1.0)
         if error:
             logger.warning("job %s exited with error: %s", job_id, error)

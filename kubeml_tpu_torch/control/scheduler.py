@@ -12,6 +12,9 @@ Parity with ml/pkg/scheduler/ (scheduler.go, api.go, queue.go):
   - POST /infer: inference relay to the PS (api.go:119-162);
   - DELETE /finish/{taskId}: drop the job's policy state (api.go:165-181).
 
+Each job's ``scheduler.enqueue`` span goes to ``TraceSink(job,
+"scheduler")`` under the client's trace id.
+
 A task the PS turns away with 503 (every device partition leased) goes
 back on the queue with a capped, jittered exponential backoff. As in the
 JAX package without its allocator, a task's priority and tenant ride the
@@ -38,7 +41,8 @@ from kubeml_tpu_torch.control.httpd import (JsonService, Request, http_json,
                                             not_ported)
 from kubeml_tpu_torch.control.policy import ThroughputBasedPolicy
 from kubeml_tpu_torch.utils.ids import make_job_id
-from kubeml_tpu_torch.utils.trace import get_trace_context, make_trace_id
+from kubeml_tpu_torch.utils.trace import (TraceSink, Tracer,
+                                          get_trace_context, make_trace_id)
 
 logger = logging.getLogger("kubeml_tpu_torch.scheduler")
 
@@ -92,6 +96,11 @@ class Scheduler(JsonService):
         self._defer_counts: Dict[str, int] = {}
         # backoff jitter source, injectable so tests pin exact delays
         self._rng = rng if rng is not None else random.Random()
+        # one tracer per job: TraceSink rewrites the whole file per flush,
+        # so every event of a job over the scheduler's life accumulates in
+        # ONE tracer, or each flush would clobber the last
+        self._job_tracers: Dict[str, Tracer] = {}
+        self._tracer_lock = threading.Lock()
         self._stop = threading.Event()
         self._loop_thread: Optional[threading.Thread] = None
 
@@ -134,7 +143,10 @@ class Scheduler(JsonService):
                          trace_id=get_trace_context() or make_trace_id(),
                          priority=train_req.priority,
                          tenant=train_req.tenant)
-        self.queue.push(task)
+        tracer = self._job_tracer(task.job_id, trace_id=task.trace_id)
+        with tracer.span("scheduler.enqueue", job_id=task.job_id):
+            self.queue.push(task)
+        self._flush_job_trace(task.job_id)
         logger.info("queued train task %s (%s on %s)", task.job_id,
                     train_req.model_type, train_req.dataset)
         return {"id": task.job_id}
@@ -159,7 +171,27 @@ class Scheduler(JsonService):
         with self._defer_lock:
             self._deferred = [(nb, t) for nb, t in self._deferred
                               if t.job_id != task_id]
+        # its spans are already on disk
+        with self._tracer_lock:
+            self._job_tracers.pop(task_id, None)
         return {"ok": True}
+
+    def _job_tracer(self, job_id: str, trace_id: str = None) -> Tracer:
+        with self._tracer_lock:
+            t = self._job_tracers.get(job_id)
+            if t is None:
+                t = self._job_tracers[job_id] = Tracer(trace_id=trace_id)
+            return t
+
+    def _flush_job_trace(self, job_id: str) -> None:
+        with self._tracer_lock:
+            t = self._job_tracers.get(job_id)
+        if t is None:
+            return
+        try:
+            TraceSink(job_id, "scheduler").write(t)
+        except OSError:
+            logger.exception("trace flush failed for %s", job_id)
 
     # ----------------------------------------------------------------- loop
 

@@ -76,7 +76,7 @@ class StorageService(JsonService):
         # the job's own refusal of the continual options, same wording
         self.route("POST", "/dataset/{name}/append",
                    not_ported("POST /dataset/{name}/append",
-                              "the continual mode", 400))
+                              "the continual mode, ROADMAP A.4.5", 400))
         self.route("POST", "/dataset/{name}", self._h_create)
         self.route("DELETE", "/dataset/{name}", self._h_delete)
         self.route("GET", "/dataset", self._h_list)

@@ -9,12 +9,13 @@ port deployment unchanged:
         parallelism,epoch_duration_seconds,...}{jobid=...}
     kubeml_job_running_total{type=...}
     kubeml_job_{dispatch,data_wait,merge,merge_overlap}_seconds (histograms)
+    kubeml_job_health{jobid=...,state=...} / kubeml_health_alerts_total
     kubeml_http_requests_total / kubeml_http_request_duration_seconds
     kubeml_infer_cache_{entries,hits_total,misses_total}{cache=...}
 
 Per-job series are cleared when a job finishes (metrics.go:90-106). The
-serving, SLO, cluster, health-verdict and durable-control-plane families
-come with the modules that set them (ROADMAP A.1, A.15, A.16).
+serving, SLO, cluster and durable-control-plane families come with the
+modules that set them (ROADMAP A.1, A.16).
 """
 
 from __future__ import annotations
@@ -290,6 +291,12 @@ class HttpMetrics:
 
 
 
+# the complete job-health state space (control/health.py verdicts);
+# kubeml_job_health exposes one 0/1 series per state so dashboards can
+# alert on `kubeml_job_health{state="critical"} == 1` without regexes
+HEALTH_STATES = ("healthy", "warning", "critical", "unknown")
+
+
 # Round phase (a span name of the job's MetricUpdate.phase_times) ->
 # histogram attribute. merge_wait is the blocking epoch-end readback;
 # device_drain is its older name and merge_overlap the host bookkeeping
@@ -371,7 +378,13 @@ class MetricsRegistry:
             "kubeml_job_merge_overlap_seconds",
             "Merge-adjacent host bookkeeping of a job overlapped with "
             "device execution (hidden by the dispatch pipeline)", "jobid")
-        # training-health stat lanes (per-worker series on a LABEL)
+        # training-health telemetry (the stat lanes riding MetricUpdate and
+        # control/health.py's verdicts): per-worker stats carry the worker
+        # as a LABEL, the verdict fans out one 0/1 series per state
+        self.job_health = MultiGauge(
+            "kubeml_job_health",
+            "Health verdict of a job: 1 on the active state's series",
+            ("jobid", "state"))
         self.worker_grad_norm = MultiGauge(
             "kubeml_job_worker_grad_norm",
             "Per-worker RMS global gradient norm in the last epoch of a "
@@ -388,6 +401,10 @@ class MetricsRegistry:
             "kubeml_device_hbm_bytes",
             "Device memory watermark of a job's process, by kind "
             "(peak|in_use)", ("jobid", "kind"))
+        self.health_alerts_total = Counter(
+            "kubeml_health_alerts_total",
+            "Health-rule alerts fired for a job, by rule",
+            ("jobid", "rule"))
         self.jit_compiles_total = Counter(
             "kubeml_jit_compiles_total",
             "Engine round-program jit compiles of a job", "jobid")
@@ -445,9 +462,10 @@ class MetricsRegistry:
                             self.data_lag_generations]
         self._job_hists = [self.dispatch_seconds, self.data_wait_seconds,
                            self.merge_seconds, self.merge_overlap_seconds]
-        self._job_multi = [self.worker_grad_norm, self.worker_update_ratio,
-                           self.hbm_bytes]
-        self._job_counters = [self.jit_compiles_total,
+        self._job_multi = [self.job_health, self.worker_grad_norm,
+                           self.worker_update_ratio, self.hbm_bytes]
+        self._job_counters = [self.health_alerts_total,
+                              self.jit_compiles_total,
                               self.trace_dropped_total]
 
     def update_job(self, m) -> None:
@@ -515,6 +533,16 @@ class MetricsRegistry:
     def note_heartbeat(self, job_id: str, epoch: int, rnd: int) -> None:
         self.heartbeat_epoch.set(job_id, epoch)
         self.heartbeat_round.set(job_id, rnd)
+
+    def set_health(self, job_id: str, state: str) -> None:
+        """Publish a job's health verdict: 1 on the active state's
+        series, 0 on the rest (so a state change flips atomically for
+        scrapers instead of briefly showing two active states)."""
+        for s in HEALTH_STATES:
+            self.job_health.set((job_id, s), 1.0 if s == state else 0.0)
+
+    def note_health_alert(self, job_id: str, rule: str) -> None:
+        self.health_alerts_total.inc((job_id, rule))
 
     def note_infer_cache(self, hit: bool, cache: str = "checkpoints") -> None:
         (self.infer_cache_hits_total if hit

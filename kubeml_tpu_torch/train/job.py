@@ -50,13 +50,23 @@ What differs:
   - the seconds an epoch spends building and loading kernels at first use
     (ops/_build.py) are left out of the time the throughput policy sees,
     as the JAX package leaves out its compiles;
-  - ``phase_times`` (data_wait, dispatch, merge_wait per round) come from
-    ``time.perf_counter`` around the loop's phases; ``jit_compiles`` is 0
-    and ``cost_programs`` empty (no compiled programs, no cost ledger
-    yet).
+  - ``jit_compiles`` is 0 and ``cost_programs`` empty (no compiled
+    programs, no cost ledger yet).
+
+Kept too: the tracer. Host spans ``epoch`` > ``round`` > {``data_wait``,
+``dispatch``}, ``cache_upload`` where the device cache lays out its
+slabs, ``merge_overlap`` around a grouped dispatch's bookkeeping and
+``merge_wait`` around the epoch's blocking readback; ``phase_times`` come
+from ``tracer.durations()``, the epoch's log line carries
+``tracer.format_summary()``, and the timeline goes to ``TraceSink(job,
+"job")`` after every epoch. The spans time the host and never synchronize
+the card: a ``dispatch`` span is the time to enqueue a round, and the
+device's time shows up where the host waits. With ``log_file`` the job
+writes its log lines there too (what ``kubeml logs`` prints).
 
 Options whose module is not ported yet raise KubeMLException(400) naming
-the option (``_reject_unported``); none is quietly ignored.
+the option and the ROADMAP item that brings it (``reject_unported``);
+none is quietly ignored.
 """
 
 from __future__ import annotations
@@ -65,7 +75,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -79,6 +89,7 @@ from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
 from kubeml_tpu_torch.data.loader import (RoundGroup, RoundLoader,
                                           group_rounds, prefetch_rounds)
 from kubeml_tpu_torch.data.registry import DatasetRegistry
+from kubeml_tpu_torch.metrics.prom import PHASE_HISTOGRAMS
 from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
 from kubeml_tpu_torch.ops import _build
 from kubeml_tpu_torch.parallel.kavg import KAvgEngine
@@ -87,10 +98,10 @@ from kubeml_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                                mark_checkpoint_completed,
                                                save_checkpoint)
 from kubeml_tpu_torch.train.history import HistoryStore
+from kubeml_tpu_torch.utils.trace import (TraceSink, Tracer,
+                                          get_trace_context, make_trace_id)
 
 logger = logging.getLogger("kubeml_tpu_torch.train")
-
-PHASES = ("data_wait", "dispatch", "merge_wait")
 
 
 def _minmeanmax(xs) -> list:
@@ -120,30 +131,38 @@ class JobCallbacks:
     on_finish: Callable[[str, Optional[str]], None] = lambda job_id, err: None
 
 
-def _reject_unported(opts, round_hook) -> None:
-    """400 for every option whose module the port has not ported yet."""
+# what brings each refused option, by ROADMAP item
+SYNCDP = "the SyncDP engine, ROADMAP A.11"
+MODEL_PARALLEL = "model parallelism over NCCL ranks, ROADMAP A.6 and A.12"
+CONTINUAL = "the continual mode, ROADMAP A.4.5"
+DEGRADED = "the degraded mode, ROADMAP A.4.5"
+
+
+def reject_unported(opts, round_hook=None) -> None:
+    """400 for every option whose module the port has not ported yet (the
+    job runs it first; ``kubeml train`` runs it before submitting)."""
     def refuse(option: str, brings: str):
         raise NotPortedError(option, brings)
 
     if opts.engine == "syncdp":
-        refuse("engine='syncdp'", "the SyncDP engine")
+        refuse("engine='syncdp'", SYNCDP)
     if opts.engine != "kavg":
         raise KubeMLException(f"unknown training engine {opts.engine!r}; "
                               "expected 'kavg' or 'syncdp'", 400)
     if opts.fsdp:
-        refuse("fsdp", "the SyncDP engine")
+        refuse("fsdp", SYNCDP)
     for name in ("n_model", "n_seq", "n_stage", "n_expert"):
         if int(getattr(opts, name)) > 1:
-            refuse(f"{name} > 1", "model parallelism over NCCL ranks")
+            refuse(f"{name} > 1", MODEL_PARALLEL)
     for name in ("continual", "window_generations", "publish_every_rounds"):
         if getattr(opts, name):
-            refuse(name, "the continual mode")
+            refuse(name, CONTINUAL)
     for name in ("fault_plan", "quarantine_after", "abort_after",
                  "reassign_on_quarantine", "checkpoint_every_rounds"):
         if getattr(opts, name):
-            refuse(name, "the degraded mode")
+            refuse(name, DEGRADED)
     if round_hook is not None:
-        refuse("a round_hook", "the degraded mode")
+        refuse("a round_hook", DEGRADED)
 
 
 class TrainJob:
@@ -157,9 +176,13 @@ class TrainJob:
                  history_store: Optional[HistoryStore] = None,
                  callbacks: Optional[JobCallbacks] = None,
                  seed: int = 0, checkpoint: bool = True,
+                 log_file: Optional[str] = None,
                  round_hook: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.task = task
+        self.log_file = log_file
+        self._file_logger: Optional[logging.Logger] = None
+        self._file_handler: Optional[logging.FileHandler] = None
         self.req = task.parameters
         self.model = model
         self.dataset = dataset
@@ -171,6 +194,8 @@ class TrainJob:
         self.checkpoint = checkpoint
         self.round_hook = round_hook   # not ported: refused by train()
         self._checkpointer = AsyncCheckpointer()
+        self.tracer = Tracer()  # host-phase spans, summarized per epoch
+        self._trace_sink: Optional[TraceSink] = None
         self.history = JobHistory()
         self.exit_err: Optional[str] = None
         self.stop_requested = False
@@ -178,7 +203,6 @@ class TrainJob:
         self._start_epoch = 0
         self._epoch_dropped = 0.0
         self._epoch_stats: dict = {}
-        self._phases: Dict[str, List[float]] = {}
 
     # ------------------------------------------------------------------ api
 
@@ -188,6 +212,16 @@ class TrainJob:
 
     def train(self) -> History:
         job_id = self.task.job_id
+        self._open_log_file()
+        # correlate this process's spans with the client-minted trace id
+        # (the task's for a job process, the thread's for a threaded job);
+        # mint one for a job started directly
+        if not self.tracer.trace_id:
+            self.tracer.trace_id = (self.task.trace_id
+                                    or get_trace_context()
+                                    or make_trace_id())
+        self.task.trace_id = self.tracer.trace_id
+        self._trace_sink = TraceSink(job_id, "job")
         try:
             self._init_model()
             opts = self.req.options
@@ -200,7 +234,7 @@ class TrainJob:
             if opts.max_parallelism > 0:
                 parallelism = min(parallelism, opts.max_parallelism)
             if self._start_epoch:
-                logger.info("job %s resuming at epoch %d/%d (N=%d) from its "
+                self._log("job %s resuming at epoch %d/%d (N=%d) from its "
                             "own checkpoint", job_id, self._start_epoch + 1,
                             epochs, parallelism)
 
@@ -209,8 +243,9 @@ class TrainJob:
                 t0 = time.time()
                 built = _build.load_seconds()
                 used_parallelism = parallelism
-                self._phases = {name: [] for name in PHASES}
-                train_loss = self._train_epoch(parallelism, epoch)
+                with self.tracer.span("epoch", epoch=epoch,
+                                      parallelism=parallelism):
+                    train_loss = self._train_epoch(parallelism, epoch)
                 elapsed = time.time() - t0
                 # the policy sees steady-state time: kernel builds at first
                 # use are not throughput signal
@@ -233,10 +268,12 @@ class TrainJob:
                     val_loss, accuracy = self._validate(parallelism)
                 self._record_epoch(train_loss, val_loss, accuracy,
                                    used_parallelism, elapsed)
-                logger.info("job %s epoch %d/%d loss=%.4f val=%.4f "
-                            "acc=%.2f N=%d %.2fs", job_id, epoch + 1,
-                            epochs, train_loss, val_loss, accuracy,
-                            used_parallelism, elapsed)
+                self._log("job %s epoch %d/%d loss=%.4f val=%.4f acc=%.2f "
+                          "N=%d %.2fs [%s]", job_id, epoch + 1, epochs,
+                          train_loss, val_loss, accuracy, used_parallelism,
+                          elapsed, self.tracer.format_summary())
+                self.tracer.reset()
+                self._flush_trace()  # crash-survivable partial timeline
 
                 if opts.checkpoint_every > 0:
                     want_ckpt = (epoch + 1) % opts.checkpoint_every == 0
@@ -253,10 +290,10 @@ class TrainJob:
                     last_ckpt_epoch = epoch + 1
 
                 if self.stop_requested:
-                    logger.info("job %s stopped by request", job_id)
+                    self._log("job %s stopped by request", job_id)
                     break
                 if accuracy == accuracy and accuracy >= opts.goal_accuracy:
-                    logger.info("job %s reached goal accuracy %.2f", job_id,
+                    self._log("job %s reached goal accuracy %.2f", job_id,
                                 accuracy)
                     break
 
@@ -275,7 +312,7 @@ class TrainJob:
                     self._checkpointer.wait()
                 except Exception as e:
                     ckpt_err = e
-                    logger.info("job %s periodic checkpoint failed (%s); "
+                    self._log("job %s periodic checkpoint failed (%s); "
                                 "attempting final save", job_id, e)
                 if ckpt_err is not None or \
                         last_ckpt_epoch != len(self.history.train_loss):
@@ -295,13 +332,56 @@ class TrainJob:
         except Exception as e:  # the job's abort reports exitErr
             self.exit_err = str(e)
             self.task.state = "failed"
-            logger.exception("job %s failed", job_id)
+            self._log("job %s failed", job_id, exc=True)
             self.callbacks.on_finish(job_id, self.exit_err)
             raise
         finally:
             self._checkpointer.close()
+            self._flush_trace()
+            self._close_log_file()
 
     # ------------------------------------------------------------ internals
+
+    def _log(self, msg, *args, exc=False):
+        """Log to the module logger and to the job's log file (the
+        ``kubeml logs --id`` stream)."""
+        (logger.exception if exc else logger.info)(msg, *args)
+        if self._file_logger is not None:
+            (self._file_logger.exception if exc
+             else self._file_logger.info)(msg, *args)
+
+    def _open_log_file(self):
+        if not self.log_file:
+            return
+        os.makedirs(os.path.dirname(self.log_file), exist_ok=True)
+        self._file_handler = logging.FileHandler(self.log_file)
+        self._file_handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(message)s"))
+        # an isolated, non-propagating logger, built directly (not through
+        # getLogger) so it is collected with the job: the file gets the
+        # whole job stream whatever the application's logging levels
+        self._file_logger = logging.Logger(
+            f"kubeml_tpu_torch.joblog.{self.task.job_id}")
+        self._file_logger.setLevel(logging.INFO)
+        self._file_logger.propagate = False
+        self._file_logger.addHandler(self._file_handler)
+
+    def _close_log_file(self):
+        if self._file_handler is not None:
+            self._file_logger.removeHandler(self._file_handler)
+            self._file_handler.close()
+            self._file_handler = None
+            self._file_logger = None
+
+    def _flush_trace(self) -> None:
+        """Rewrite this process's trace file; never fails the job."""
+        if self._trace_sink is None:
+            return
+        try:
+            self._trace_sink.write(self.tracer)
+        except OSError:
+            self._log("job %s: trace flush failed", self.task.job_id,
+                      exc=True)
 
     def _flax_tree(self, state: Dict[str, torch.Tensor]) -> dict:
         """The checkpoint's variable tree, in the JAX package's layout."""
@@ -354,18 +434,20 @@ class TrainJob:
             dropped_workers=self._epoch_dropped, quarantined_workers=0,
             reassigned_batches=0,
             checkpoint_drops=self._checkpointer.dropped_saves,
-            phase_times={k: list(v) for k, v in self._phases.items()},
+            phase_times={k: v for k, v in self.tracer.durations().items()
+                         if k in PHASE_HISTOGRAMS},
             grad_norms=grad_norms, update_ratios=update_ratios,
             worker_losses=list(stats.get("worker_losses", [])),
             loss_spread=float(stats.get("loss_spread", 0.0)),
             jit_compiles=0, hbm_peak_bytes=int(peak),
-            hbm_in_use_bytes=int(in_use), trace_events_dropped=0,
+            hbm_in_use_bytes=int(in_use),
+            trace_events_dropped=self.tracer.dropped_events,
             dataset_generation=0, data_lag_generations=-1,
             cost_programs={}))
 
     def _init_model(self) -> None:
         opts = self.req.options
-        _reject_unported(opts, self.round_hook)
+        reject_unported(opts, self.round_hook)
         merge_dtype = opts.merge_dtype or ""
         merge_compress = opts.merge_compress or "none"
         merge_bucket_mb = float(opts.merge_bucket_mb)
@@ -464,7 +546,7 @@ class TrainJob:
                 {k: tuple(v.shape) for k, v in self.state.items()}:
             raise bad
         self.state = {k: loaded[k].to(self.device) for k in self.state}
-        logger.info("job %s warm-started from checkpoint %s",
+        self._log("job %s warm-started from checkpoint %s",
                     self.task.job_id, self.req.resume_from)
 
     def _init_device_cache(self, handle, opts) -> None:
@@ -504,7 +586,7 @@ class TrainJob:
         per_chip = DeviceDatasetCache.per_chip_bytes(handle, layout,
                                                      self.n_lanes)
         if mode == "auto" and per_chip > budget:
-            logger.info(
+            self._log(
                 "job %s device cache disabled: ~%d MB/chip (%s) exceeds "
                 "the %d MB budget — host-staged rounds",
                 self.task.job_id, per_chip >> 20, layout, budget >> 20)
@@ -522,7 +604,7 @@ class TrainJob:
         per_sample = self._device_cache.per_sample_bytes(
             self._device_cache.handle)
         slots = W * S * B
-        logger.info(
+        self._log(
             "job %s device cache active (%s, ~%d MB/chip): per-round "
             "dispatch payload %d B (indices) vs %d B (host-staged), "
             "%.0fx smaller",
@@ -533,14 +615,22 @@ class TrainJob:
 
     def _epoch_round_iter(self, plan, epoch: int, group: int):
         """Rounds of the epoch from the prefetch thread (RoundGroups of
-        ``group`` rounds when > 1), each wait timed as data_wait; a round
-        with no contributing worker aborts the job. With the device cache
-        the rounds carry gather indices (uploading the cache first when
-        the plan's lane layout needs it)."""
+        ``group`` rounds when > 1); a round with no contributing worker
+        aborts the job. With the device cache the rounds carry gather
+        indices (uploading the cache first, as ``cache_upload``, when the
+        plan's lane layout needs it).
+
+        Each iteration runs inside a ``round`` span that opens before the
+        ``data_wait`` and stays open across the yield: the consumer's
+        dispatch runs while this generator is suspended inside it, so
+        both phases nest under the round. The last probe of the exhausted
+        iterator records a round with only its data_wait, tagged
+        ``tail=True``."""
         cache = self._device_cache
         if cache is not None:
             W, S, B = self._loader.round_geometry(plan)
-            cache.ensure(plan, W)
+            with self.tracer.span("cache_upload"):
+                cache.ensure(plan, W)
             self._log_cache_payload(W, S, B)
             source = self._loader.epoch_index_rounds(
                 plan, epoch, lane_starts=cache.lane_starts)
@@ -549,18 +639,24 @@ class TrainJob:
         if group > 1:
             source = group_rounds(source, group)
         rounds = prefetch_rounds(source, depth=1)
+        round_no = 0
         try:
             while True:
-                t = time.perf_counter()
-                rb = next(rounds, None)
-                self._phases["data_wait"].append(time.perf_counter() - t)
-                if rb is None:
-                    return
-                if not isinstance(rb, RoundGroup) and \
-                        rb.worker_mask.sum() < 1:
-                    raise MergeError(
-                        f"round {rb.round_index}: no workers contributed")
-                yield rb
+                with self.tracer.span("round", round=round_no) as sp:
+                    with self.tracer.span("data_wait"):
+                        rb = next(rounds, None)
+                    if rb is None:
+                        sp["tail"] = True
+                        return
+                    if isinstance(rb, RoundGroup):
+                        sp["rounds"] = rb.rounds
+                    else:
+                        if rb.worker_mask.sum() < 1:
+                            raise MergeError(f"round {rb.round_index}: no "
+                                             "workers contributed")
+                        sp["workers"] = int(rb.worker_mask.sum())
+                    yield rb
+                round_no += 1
         finally:
             rounds.close()
 
@@ -574,21 +670,21 @@ class TrainJob:
         cache = self._device_cache
         for rb in self._epoch_round_iter(plan, epoch, group):
             grouped = isinstance(rb, RoundGroup)
-            t = time.perf_counter()
-            if cache is not None:
-                run = self._engine.train_rounds_indexed if grouped \
-                    else self._engine.train_round_indexed
-                self.state, st = run(self.state, cache, rb.batch["idx"],
-                                     rb.sample_mask, rb.step_mask,
-                                     rb.worker_mask, rb.rngs,
-                                     lr=self.req.lr, epoch=epoch)
-            else:
-                run = self._engine.train_rounds if grouped \
-                    else self._engine.train_round
-                self.state, st = run(self.state, rb.batch, rb.sample_mask,
-                                     rb.step_mask, rb.worker_mask, rb.rngs,
-                                     lr=self.req.lr, epoch=epoch)
-            self._phases["dispatch"].append(time.perf_counter() - t)
+            with self.tracer.span("dispatch"):
+                if cache is not None:
+                    run = self._engine.train_rounds_indexed if grouped \
+                        else self._engine.train_round_indexed
+                    self.state, st = run(self.state, cache, rb.batch["idx"],
+                                         rb.sample_mask, rb.step_mask,
+                                         rb.worker_mask, rb.rngs,
+                                         lr=self.req.lr, epoch=epoch)
+                else:
+                    run = self._engine.train_rounds if grouped \
+                        else self._engine.train_round
+                    self.state, st = run(self.state, rb.batch,
+                                         rb.sample_mask, rb.step_mask,
+                                         rb.worker_mask, rb.rngs,
+                                         lr=self.req.lr, epoch=epoch)
             # count only merged workers' steps: a masked-out worker adds
             # neither loss nor steps
             steps = (st.step_count * rb.worker_mask).astype(np.float64)
@@ -596,10 +692,11 @@ class TrainJob:
             stats, spread = st.stat_device, st.spread_device
             rounds = 1
             if grouped:   # [R, W] -> [W], one reduction per group
-                steps, loss, dropped = (steps.sum(axis=0), loss.sum(0),
-                                        dropped.sum(0))
-                if stats is not None:
-                    stats, spread = stats.sum(0), spread.sum()
+                with self.tracer.span("merge_overlap"):
+                    steps, loss, dropped = (steps.sum(axis=0), loss.sum(0),
+                                            dropped.sum(0))
+                    if stats is not None:
+                        stats, spread = stats.sum(0), spread.sum()
                 rounds = rb.rounds
             step_counts = steps if step_counts.size == 0 \
                 else step_counts + steps
@@ -610,12 +707,11 @@ class TrainJob:
                 dev_spread.append(spread)
                 stat_rounds += rounds
         # merge_wait: the blocking readback that waits on every round
-        t = time.perf_counter()
-        loss_sums = torch.stack(dev_losses).sum(0).cpu().numpy() \
-            if dev_losses else np.zeros(0)
-        self._epoch_dropped = float(torch.stack(dev_dropped).sum()) \
-            if dev_dropped else 0.0
-        self._phases["merge_wait"].append(time.perf_counter() - t)
+        with self.tracer.span("merge_wait"):
+            loss_sums = torch.stack(dev_losses).sum(0).cpu().numpy() \
+                if dev_losses else np.zeros(0)
+            self._epoch_dropped = float(torch.stack(dev_dropped).sum()) \
+                if dev_dropped else 0.0
         ran = step_counts > 0
         if not ran.any():
             raise MergeError("epoch produced no training steps")

@@ -22,6 +22,10 @@ jittered backoff seeded from the job id.
         --ps-url http://host:port --scheduler-url http://host:port \
         [--port 9090] [--port-file /path] [--device cpu]
 
+The job writes its log lines to ``$KUBEML_TPU_HOME/logs/<job>.log`` (what
+``kubeml logs`` prints) and its spans to ``TraceSink(job, "job")`` under
+the trace id its task carries, beside the parent's files.
+
 Without ``--device`` the job runs on CUDA, and the process exits with an
 error before it binds its port when there is no card. Preemption (the
 SIGTERM drain and /preempted) comes with ROADMAP A.17.
@@ -101,6 +105,7 @@ class JobServer(JsonService):
     # ------------------------------------------------------------ lifecycle
 
     def _launch(self, task: TrainTask):
+        from kubeml_tpu_torch.api.const import kubeml_home
         from kubeml_tpu_torch.data.registry import DatasetRegistry
         from kubeml_tpu_torch.models.base import KubeDataset
         from kubeml_tpu_torch.train.functionlib import FunctionRegistry
@@ -117,7 +122,9 @@ class JobServer(JsonService):
             callbacks=JobCallbacks(
                 request_parallelism=self._request_parallelism,
                 publish_metrics=self._publish_metrics,
-                on_finish=self._on_finish))
+                on_finish=self._on_finish),
+            log_file=os.path.join(kubeml_home(), "logs",
+                                  f"{task.job_id}.log"))
         self._job_thread = threading.Thread(
             target=self._run, name=f"job-{self.job_id}", daemon=True)
         self._job_thread.start()

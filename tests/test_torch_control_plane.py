@@ -222,6 +222,7 @@ BAD_REQUESTS = [
     ("POST", "/infer", {"model_id": "seedckpt", "data": [[1.0], [1.0, 2.0]]}),
     ("POST", "/dataset/blobs", {"not": "multipart"}),
     ("GET", "/dataset/bad..name", None),
+    ("GET", "/trace/nonexist1", None),
     ("GET", "/no/such/route", None),
 ]
 
@@ -252,9 +253,7 @@ def test_duplicate_upload_fails_alike(plane):
 
 
 REFUSED = [
-    ("controller", "GET", "/trace/x", 501, "ROADMAP A.13"),
     ("controller", "GET", "/cost/x", 501, "ROADMAP A.13"),
-    ("controller", "GET", "/health/x", 501, "ROADMAP A.15"),
     ("controller", "GET", "/cluster", 501, "ROADMAP A.16"),
     ("controller", "POST", "/dataset/blobs/append", 400, "continual mode"),
     ("storage", "POST", "/dataset/blobs/append", 400, "continual mode"),
@@ -263,9 +262,8 @@ REFUSED = [
     ("scheduler", "POST", "/requeue", 501, "ROADMAP A.17"),
     ("ps", "POST", "/generate", 501, "ROADMAP A.1"),
     ("ps", "GET", "/flight?id=serve:m", 501, "ROADMAP A.1"),
-    ("ps", "GET", "/trace?id=x", 501, "ROADMAP A.13"),
+    ("ps", "GET", "/trace?id=serve:m", 501, "ROADMAP A.1"),
     ("ps", "GET", "/cost?id=x", 501, "ROADMAP A.13"),
-    ("ps", "GET", "/health?id=x", 501, "ROADMAP A.15"),
     ("ps", "POST", "/cluster", 501, "ROADMAP A.16"),
     ("ps", "POST", "/preempt/x", 501, "ROADMAP A.17"),
     ("ps", "POST", "/preempted/x", 501, "ROADMAP A.17"),
@@ -288,6 +286,29 @@ def test_unported_routes_are_refused_with_their_item(plane, svc, method,
     # liveness keeps answering
     assert http_json("GET", getattr(plane["port"][0], svc).url
                      + "/health") == {"ok": True}
+
+
+def test_trace_and_health_of_a_finished_job_alike(plane):
+    """The same job through either deployment: its merged timeline holds
+    the same processes and span names under one trace id, and its health
+    verdict, read after the finish, is unknown in both."""
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    docs = {}
+    for key in ("ref", "port"):
+        dep, _, job_id, _ = plane[key]
+        doc = http_json("GET", f"{dep.controller_url}/trace/{job_id}")
+        assert len(doc["metadata"]["trace_ids"]) == 1
+        docs[key] = (sorted(s.split("-")[0]
+                            for s in doc["metadata"]["sources"]),
+                     {e["name"] for e in doc["traceEvents"]
+                      if e.get("ph") == "X"})
+        assert http_json("GET", f"{dep.controller_url}/health/{job_id}") \
+            == {"id": job_id, "state": "unknown", "reasons": [],
+                "latest": {}}
+    assert docs["port"][0] == docs["ref"][0] == [
+        "client", "job", "ps", "scheduler"]
+    assert docs["port"][1] == docs["ref"][1]
 
 
 def test_scheduler_grants_equal_under_a_scripted_policy():

@@ -189,13 +189,14 @@ def test_not_ported_wording_is_the_jobs():
     """Every refusal reads as the job's refusal of an unported option."""
     from kubeml_tpu_torch.api.errors import NotPortedError
     from kubeml_tpu_torch.api.types import TrainOptions
-    from kubeml_tpu_torch.train.job import _reject_unported
+    from kubeml_tpu_torch.train.job import CONTINUAL, reject_unported
 
     with pytest.raises(NotPortedError) as ei:
-        _reject_unported(TrainOptions(continual=True), None)
+        reject_unported(TrainOptions(continual=True), None)
     assert ei.value.status_code == 400
     assert ei.value.message == NotPortedError("continual",
-                                              "the continual mode").message
+                                              CONTINUAL).message
+    assert "ROADMAP A.4.5" in ei.value.message
     assert NotPortedError("GET /x", "y", 501).status_code == 501
 
 

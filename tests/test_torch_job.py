@@ -193,8 +193,10 @@ def test_mlp_job_matches_reference(blobs, case):
         assert abs(a - b) <= 1e-4, (a, b)
     for m, rm in zip(pub, ref_pub):
         assert m.parallelism == rm.parallelism
-        assert sorted(m.phase_times) == ["data_wait", "dispatch",
-                                         "merge_wait"]
+        # the tracer's span names: the reference job's keys, and at least
+        # the single-round phases
+        assert sorted(m.phase_times) == sorted(rm.phase_times)
+        assert {"data_wait", "dispatch", "merge_wait"} <= set(m.phase_times)
         assert m.jit_compiles == 0 and m.cost_programs == {}
         np.testing.assert_allclose(m.worker_losses, rm.worker_losses,
                                    rtol=1e-5)
