@@ -191,6 +191,31 @@ Phases (any failure exits non-zero and prints no result line):
               `kubeml train`: launches = the plan. Prints ms per local step
               by epoch beside phase 12's, the child's start and the CLI's
               cold start.
+ 14. ps serve serving through the PS: a seeded gpt-mini checkpoint (phase
+              3's weights, written by the port's writer in the JAX package's
+              format) served by start_deployment() with phase 3's knobs (8
+              slots, 16-token pages and prefill chunks, prefix cache on),
+              once with bf16 and once with int8 KV pages. (a) Phase 3's 8
+              greedy requests as 8 concurrent streaming POST /generate
+              calls: tokens must equal phase 3's direct tokens; tokens/s and
+              client-side mean TTFT (to the first ndjson line) beside phase
+              3's; the paged kernel's launches zeroed just before and read
+              just after must be layers x the replica's decode + prefill
+              dispatches. (b) Saturation: 24 held streams fill slots + queue,
+              the next request answers 429 with Retry-After, and a deadline
+              below the queued prompt backlog answers 429 too. (c) Hot-swap:
+              a second checkpoint saved while 4 streams are in flight; they
+              finish with phase 3's tokens (generation 1), the 4 admitted
+              after it decode generation 2 (equal to a direct run on the new
+              weights), kubeml_serve_weight_generation reads 2 and
+              generation 1 retires. (d) A two-replica deployment on the one
+              card: three prompts sharing a 48-token prefix route to one
+              replica, whose prefix hits show; a ServeFleet built directly
+              with a fleet_replica_crash on the replica holding most of the
+              batch migrates its streams, which finish with phase 3's
+              tokens. (e) GET /flight, /trace (one generate tree per
+              request under its response's trace id), /health and /metrics
+              of serve:gpt-mini.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -199,6 +224,8 @@ the S=1 prefill call's under "prefill", launches from that page type's own
 serving run; the three bf16 flash kernels at the training shape, launches
 from the last training round; the fused merge over one whole gpt-mini
 merge, launches from the ef_int8 run, the sgd mode under "sgd"; each of
+the paged kernel's entries also carry "ps_launches", phase 14's launches
+through the PS for that page type; each of
 the four training kernels also carries "job_launches", its launches in
 each epoch of phase 10's job, "deployment_launches" those of phase
 12's jobs and "cli_launches" those of phase 13's; the merge's "resnet18"
@@ -221,6 +248,11 @@ way, so two commits compare in one session.
 does the same for phase 11's ResNet-18 TrainJob (its "vision_epochs"
 line): the job's host path, the tracer's spans included, timed per
 epoch.
+
+    python3 chip_smoke.py --serve-only
+
+builds the paged kernel and runs phases 3 and 14 alone (serving direct and
+through the PS), printing their numbers as one JSON line.
 """
 
 from __future__ import annotations
@@ -547,7 +579,9 @@ def phase_serve(torch, card, seed, module, kv_dtype):
         f"{st['prefill_dispatches']}, prefix hits {st['prefix_hits']}, "
         f"CoW splits {st['cow_splits']}, kernel launches {launches}; "
         f"solo == batched for all {len(reqs)}")
-    return launches
+    return {"launches": launches, "tokens": [r.tokens for r in reqs],
+            "tokens_per_s": tokens / wall,
+            "ttft_ms": 1e3 * statistics.mean(ttft)}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2775,6 +2809,387 @@ def cli_gpt(card, cli, seed, tmp):
     return launches
 
 
+# ----------------------------------------------------------------- phase 14
+PS_MODEL = "gpt-mini"
+HOLD_TOKENS = 400        # a held stream's budget (saturation, hot-swap)
+HOLD_PROMPT = 100        # the queued holders' prompt: the shed backlog
+SWAP_SEED = 7            # the second checkpoint's weights: seed + 7
+
+
+class GenStream:
+    """One streaming POST /generate on its own connection, read on a
+    thread: the status, the trace id header, the tokens of the ndjson
+    lines, the terminal line, and the client-side time to the first token
+    line. close() drops the connection (a client disconnect)."""
+
+    def __init__(self, url, body):
+        import http.client
+        import threading
+
+        host, port = url.split("//")[1].split(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=600)
+        self.body = body
+        self.tokens, self.last, self.status = [], None, None
+        self.trace_id = self.retry_after = self.ttft = self.t_done = None
+        self.first = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self.thread.start()
+        return self
+
+    def _run(self):
+        import http.client
+
+        t0 = time.perf_counter()
+        try:
+            self.conn.request("POST", "/generate", json.dumps(self.body),
+                              {"Content-Type": "application/json"})
+            resp = self.conn.getresponse()
+            self.status = resp.status
+            self.trace_id = resp.getheader("X-KubeML-Trace-Id")
+            self.retry_after = resp.getheader("Retry-After")
+            if resp.status != 200:
+                self.last = json.loads(resp.read())
+                return
+            for line in resp:
+                ev = json.loads(line)
+                if "token" in ev:
+                    if self.ttft is None:
+                        self.ttft = time.perf_counter() - t0
+                        self.first.set()
+                    self.tokens.append(ev["token"])
+                else:
+                    self.last = ev
+        except (OSError, http.client.HTTPException):
+            pass                  # shut down by close(): the client left
+        finally:
+            self.t_done = time.perf_counter()
+            self.first.set()
+            self.conn.close()
+
+    def join(self, timeout=600.0):
+        self.thread.join(timeout)
+        assert not self.thread.is_alive(), "a /generate stream hung"
+        return self
+
+    def close(self):
+        import socket
+
+        sock = self.conn.sock
+        if sock is not None:
+            sock.shutdown(socket.SHUT_RDWR)
+
+
+def gen_body(prompt, n, **extra):
+    return {"model_id": PS_MODEL, "prompt": list(prompt),
+            "max_new_tokens": n, **extra}
+
+
+def wait_until(pred, what, timeout=120.0):
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        assert time.perf_counter() < deadline, f"timed out waiting: {what}"
+        time.sleep(0.002)
+
+
+def save_mini(seed):
+    from kubeml_tpu_torch.convert import random_flax_params
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.train.checkpoint import save_checkpoint
+
+    save_checkpoint(PS_MODEL, {"params": random_flax_params(
+        **GPT_CONFIGS[PS_MODEL], seed=seed)},
+        {"model": PS_MODEL, "function": PS_MODEL})
+
+
+def direct_tokens(module, prompts, n):
+    """Greedy tokens of the prompts served directly (phase 3's
+    ServeService over a DecodeEngine, no PS) with n new tokens each."""
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.service import ServeService
+
+    svc = ServeService("direct", DecodeEngine(
+        module, slots=8, page=16, prefill_chunk=16)).start()
+    try:
+        reqs = [svc.submit(p, max_new_tokens=n) for p in prompts]
+        for r in reqs:
+            assert r.wait(300) and r.outcome == "ok", (r.outcome, r.error)
+        return [r.tokens for r in reqs]
+    finally:
+        svc.stop()
+
+
+def phase_ps_serve(torch, card, seed, module, direct):
+    """Serving through the PS on the card (see the module docstring, phase
+    14); returns the paged kernel's launches of (a) by page type."""
+    import os
+    import tempfile
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        try:
+            return ps_run(torch, card, seed, module, direct)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+def ps_run(torch, card, seed, module, direct):
+    from kubeml_tpu_torch.control.deployment import start_deployment
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    save_mini(seed)
+    launches = {}
+    # int8 first: the bf16 deployment ends with the hot-swap, which
+    # replaces the checkpoint
+    for pages, kv in (("int8", "int8"), ("bf16", "f32")):
+        dep = start_deployment(serve_slots=8, serve_prefill_chunk=16,
+                               serve_kv_dtype=kv, serve_prefix_cache=True)
+        try:
+            launches[pages], trace_ids = ps_batch(
+                card, dep, prompts, shared, direct[pages], module.layers,
+                pages)
+            if pages == "bf16":
+                ps_saturate(card, dep, seed, module.vocab_size)
+                ps_observe(card, dep, trace_ids)
+                ps_hot_swap(torch, card, dep, seed, module, prompts)
+        finally:
+            dep.stop()
+    save_mini(seed)
+    ps_fleet(card, seed, module, prompts, shared, direct["bf16"])
+    return launches
+
+
+def ps_batch(card, dep, prompts, shared, ref, layers, pages):
+    """(a): phase 3's batch as 8 concurrent streams through POST
+    /generate; returns the kernel's launches and the trace ids."""
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    url = dep.ps.url
+    warm = GenStream(url, gen_body(prompts[0], 4)).start().join()
+    assert warm.status == 200, warm.last          # builds the fleet
+    (_, eng), = dep.ps._serve[PS_MODEL][1].engines()
+    st0 = dict(eng.stats)
+    paged_attention.launches = 0      # the main path's run starts here
+    t0 = time.perf_counter()
+    streams = [GenStream(url, gen_body(p, NEW_TOKENS)).start()
+               for p in prompts]
+    # the second copy of the shared prompt once the first one's pages are
+    # registered: a prefix hit and a copy-on-write split, as in phase 3
+    streams[prompts.index(shared)].first.wait(300)
+    streams.append(GenStream(url, gen_body(shared, NEW_TOKENS)).start())
+    for st in streams:
+        st.join()
+    wall = time.perf_counter() - t0
+    launches = paged_attention.launches    # ... and ends here
+    assert all(st.status == 200 and st.last == {"done": True,
+                                                "tokens": st.tokens}
+               for st in streams), [(st.status, st.last) for st in streams]
+    got = [st.tokens for st in streams]
+    assert got == ref["tokens"], "PS tokens differ from phase 3's"
+    d = {k: eng.stats[k] - st0[k] for k in ("dispatches",
+                                           "prefill_dispatches",
+                                           "prefix_hits", "cow_splits")}
+    want = layers * (d["dispatches"] + d["prefill_dispatches"])
+    assert launches == want, (launches, want, d)
+    assert d["prefix_hits"] > 0 and d["cow_splits"] >= 1, d
+    tokens = sum(len(t) for t in got)
+    ttft = 1e3 * statistics.mean(st.ttft for st in streams)
+    log(card, f"ps serve gpt-mini, {pages} KV pages: {len(streams)} "
+        f"concurrent streaming POST /generate, {tokens} tokens in "
+        f"{wall:.4f} s = {tokens / wall:.2f} tokens/s (phase 3 direct "
+        f"{ref['tokens_per_s']:.2f}), client mean TTFT to the first ndjson "
+        f"line {ttft:.3f} ms (phase 3 direct {ref['ttft_ms']:.3f} ms); "
+        f"tokens equal phase 3's for all {len(streams)}; decode "
+        f"dispatches {d['dispatches']}, prefill dispatches "
+        f"{d['prefill_dispatches']}, prefix hits {d['prefix_hits']}, "
+        f"kernel launches {launches} (= {layers} layers x "
+        f"{d['dispatches'] + d['prefill_dispatches']} dispatches)")
+    return launches, [st.trace_id for st in streams]
+
+
+def ps_saturate(card, dep, seed, vocab):
+    """(b): 8 held streams in the slots, 16 with 100-token prompts in the
+    queue; then a request past capacity and one whose deadline the
+    queued prompt backlog makes infeasible."""
+    url = dep.ps.url
+    fleet = dep.ps._serve[PS_MODEL][1]
+    (_, eng), = fleet.engines()
+    rng = np.random.default_rng(seed + 40)
+    held = [GenStream(url, gen_body([int(rng.integers(1, vocab))],
+                                    HOLD_TOKENS)).start() for _ in range(8)]
+    wait_until(lambda: eng.active() == 8, "8 held streams attached")
+    held += [GenStream(url, gen_body(rng.integers(1, vocab, HOLD_PROMPT)
+                                     .tolist(), HOLD_TOKENS)).start()
+             for _ in range(16)]
+    svc = fleet.replicas()[0]
+    wait_until(lambda: svc.inflight == 24, "slots + queue full")
+    assert all(st.last is None for st in held), "a held stream ended early"
+    probes = [GenStream(url, gen_body([5, 6], 4, **extra)).start().join()
+              for extra in ({}, {"deadline_ms": 500})]
+    for st in held:
+        st.close()                       # disconnects cancel the streams
+    for st in held:
+        st.join()
+    wait_until(lambda: svc.inflight == 0 and eng.active() == 0,
+               "cancelled holders released")
+    full, late = probes
+    assert full.status == 429 and "capacity" in full.last["error"], \
+        full.last
+    assert late.status == 429 and "infeasible" in late.last["error"], \
+        late.last
+    assert int(full.retry_after) >= 1 and int(late.retry_after) >= 1
+    log(card, f"ps saturation: 8 slots + 16 queued held, the 25th request "
+        f"answers {full.status} with Retry-After {full.retry_after} "
+        f"({full.last['error']!r}), a 500 ms deadline behind "
+        f"{16 * (HOLD_PROMPT - 1)} queued prompt tokens answers "
+        f"{late.status} with Retry-After {late.retry_after} "
+        f"({late.last['error']!r}); the 24 holders disconnected and their "
+        f"slots were released")
+
+
+def ps_observe(card, dep, trace_ids):
+    """(e): the observability routes of serve:gpt-mini."""
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    url = dep.ps.url
+    flight = http_json("GET", f"{url}/flight?id=serve:{PS_MODEL}")
+    assert flight["replicas"] == [0] and flight["records"], flight
+    trace = http_json("GET", f"{url}/trace?id=serve:{PS_MODEL}")
+    for tid in trace_ids:
+        mine = [e for e in trace["traceEvents"]
+                if e.get("args", {}).get("trace_id") == tid]
+        roots = [e for e in mine if e["name"] == "generate"]
+        assert len(roots) == 1, (tid, len(roots))
+        assert all(e["args"].get("parent") == "generate"
+                   for e in mine if e is not roots[0]), tid
+    verdict = http_json("GET", f"{url}/health?id=serve:{PS_MODEL}")
+    assert verdict["state"] != "unknown", verdict
+    text = urllib_get(f"{url}/metrics")
+    families = sorted({ln.split()[2] for ln in text.splitlines()
+                       if ln.startswith("# TYPE kubeml_serve_")})
+    for fam in ("kubeml_serve_ttft_seconds", "kubeml_serve_tokens_total",
+                "kubeml_serve_fleet_replicas", "kubeml_serve_slo_attainment"):
+        assert fam in families, fam
+    lat = verdict["latest"]
+    log(card, f"ps observability: /flight {len(flight['records'])} records "
+        f"of {flight['total_steps']} steps; /trace one generate tree for "
+        f"each of the batch's {len(trace_ids)} trace ids; /health "
+        f"{verdict['state']} (ttft p50 {1e3 * lat['serve_ttft_p50']:.3f} "
+        f"ms, p99 {1e3 * lat['serve_ttft_p99']:.3f} ms); /metrics {len(families)} kubeml_serve_ families")
+
+
+def urllib_get(url) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def ps_hot_swap(torch, card, dep, seed, module, prompts):
+    """(c): a second checkpoint saved while 4 streams are in flight."""
+    url = dep.ps.url
+    fleet = dep.ps._serve[PS_MODEL][1]
+    (_, eng), = fleet.engines()
+    swap = [p for p in prompts if len(p) + HOLD_TOKENS <= module.max_len][:4]
+    assert len(swap) == 4
+    old_ref = direct_tokens(module, swap, HOLD_TOKENS)
+    new_ref = direct_tokens(build_gpt(torch, PS_MODEL, seed + SWAP_SEED,
+                                      torch.bfloat16, "cuda"), swap,
+                            NEW_TOKENS)
+    old = [GenStream(url, gen_body(p, HOLD_TOKENS)).start() for p in swap]
+    for st in old:
+        st.first.wait(300)
+    save_mini(seed + SWAP_SEED)
+    t_swap = time.perf_counter()
+    new = [GenStream(url, gen_body(p, NEW_TOKENS)).start() for p in swap]
+    for st in new + old:
+        st.join()
+    assert [st.tokens for st in old] == old_ref, "generation 1 changed"
+    assert [st.tokens for st in new] == new_ref, "generation 2 differs"
+    mid = sum(st.t_done > t_swap + st.ttft for st in old)
+    assert mid >= 1, "every old stream ended before the swap"
+    wait_until(lambda: eng.active_generations() == [2], "gen 1 retired")
+    gauge = [ln for ln in urllib_get(f"{url}/metrics").splitlines()
+             if ln.startswith("kubeml_serve_weight_generation{")]
+    assert gauge == [f'kubeml_serve_weight_generation{{model="{PS_MODEL}"}}'
+                     f' 2.0'], gauge
+    assert eng.stats["generations_retired"] == 1, eng.stats
+    log(card, f"ps hot-swap: a second checkpoint saved with 4 streams of "
+        f"{HOLD_TOKENS} tokens in flight; {mid} of them still streaming "
+        f"when the 4 requests after it had their first token; old streams "
+        f"equal the direct run on the old weights, new ones the direct run "
+        f"on the new weights; kubeml_serve_weight_generation 2, generation "
+        f"1 retired")
+
+
+def ps_fleet(card, seed, module, prompts, shared, ref):
+    """(d): two replicas on the one card."""
+    from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.faults import FleetFaultPlan, ServeFaultPlan
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.fleet import ServeFleet
+    from kubeml_tpu_torch.serve.service import ServeService
+
+    rng = np.random.default_rng(seed + 41)
+    dep = start_deployment(serve_slots=8, serve_prefill_chunk=16,
+                           serve_replicas_min=2, serve_replicas_max=2)
+    try:
+        url = dep.ps.url
+        family = [shared + rng.integers(1, module.vocab_size, 16).tolist()
+                  for _ in range(3)]
+        head = GenStream(url, gen_body(family[0], 8)).start()
+        head.join()
+        rest = [GenStream(url, gen_body(p, 8)).start() for p in family[1:]]
+        for st in rest:
+            st.join()
+        assert all(st.status == 200 for st in [head] + rest)
+        stats = {i: dict(e.stats) for i, e in
+                 dep.ps._serve[PS_MODEL][1].engines()}
+        used = [i for i, st in stats.items() if st["generated_tokens"]]
+        assert len(used) == 1, stats            # one replica took all three
+        hits = stats[used[0]]["prefix_hits"]
+        assert hits >= 2 * (len(shared) // 16), stats
+    finally:
+        dep.stop()
+
+    def factory(index):
+        eng = DecodeEngine(module, slots=8, page=16, prefill_chunk=16,
+                           fault_plan=ServeFaultPlan.parse(
+                               [{"kind": "serve_slow_step",
+                                 "duration_s": 0.005}]))
+        return ServeService(PS_MODEL, eng, supervise=False)
+
+    fleet = ServeFleet(PS_MODEL, factory, replicas_min=2, replicas_max=2,
+                       page_tokens=16, autoscale_interval_s=0.0).start()
+    try:
+        reqs = [fleet.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        reqs.append(fleet.submit(shared, max_new_tokens=NEW_TOKENS))
+        homes = [r.fleet_replica for r in reqs]
+        victim = max(set(homes), key=homes.count)
+        fleet.fault_plan = FleetFaultPlan.parse(
+            [{"kind": "fleet_replica_crash", "replica": victim}])
+        actions = fleet.supervise_once()
+        for r in reqs:
+            assert r.wait(300) and r.outcome == "ok", (r.outcome, r.error)
+        assert "eject" in actions, actions
+        moved = sum(r.migrations for r in reqs)
+        assert moved >= 1 and "failover_migrate" in actions, actions
+        assert [r.tokens for r in reqs] == ref["tokens"], \
+            "migrated tokens differ from phase 3's"
+    finally:
+        fleet.stop(grace_s=0.0)
+    log(card, f"ps fleet: 2 replicas on the one card; 3 prompts sharing a "
+        f"{len(shared)}-token prefix all routed to replica {used[0]} "
+        f"({hits} prefix page hits); a fleet_replica_crash on replica "
+        f"{victim} (holding {homes.count(victim)} of the batch's "
+        f"{len(reqs)} streams) ejected it and migrated {moved} stream(s), "
+        f"all finishing with phase 3's tokens ({actions})")
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -2836,8 +3251,9 @@ def run(torch, seed) -> list:
     # the main paths: one batch served with bf16 KV pages ("f32" keeps the
     # module's dtype), one with int8 pages; each launches its own
     # instantiation of the kernel and is counted on its own
-    launches = {pages: phase_serve(torch, card, seed, module, kv)
-                for pages, kv in (("bf16", "f32"), ("int8", "int8"))}
+    direct = {pages: phase_serve(torch, card, seed, module, kv)
+              for pages, kv in (("bf16", "f32"), ("int8", "int8"))}
+    launches = {pages: d["launches"] for pages, d in direct.items()}
 
     phase_check(torch, card, seed)
     phase_trace(torch, card, seed, module)
@@ -2858,6 +3274,7 @@ def run(torch, seed) -> list:
     cp_resnet, cp_gpt, cli_ref = phase_control(torch, card, seed)
     cli = phase_cli(torch, card, seed, cli_ref)
     del cli_ref
+    ps_launches = phase_ps_serve(torch, card, seed, module, direct)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -2865,6 +3282,7 @@ def run(torch, seed) -> list:
         "source": "kubeml_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "kubeml_tpu/ops/pallas/paged_attention.py:73",
         "launches": n,
+        "ps_launches": ps_launches[pages],
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -2909,6 +3327,11 @@ def main(argv=None) -> int:
                          "host-staged), printing its rows as one JSON line "
                          "and no result line (to time two trees' jobs in "
                          "one run, as --flash-only)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build the paged kernel and run phases 3 and 14 "
+                         "alone (serving direct and through the PS), "
+                         "printing their numbers as one JSON line and no "
+                         "result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -2938,6 +3361,18 @@ def main(argv=None) -> int:
             print(json.dumps({"card": card, "paged": [
                 {"pages": p, "S": S, "T": T, **r}
                 for (p, S, T), r in rows.items()]}))
+            return 0
+        if args.serve_only:
+            card = start(torch, ["paged_attention"])
+            module = build_gpt(torch, PS_MODEL, args.seed, torch.bfloat16,
+                               "cuda")
+            direct = {p: phase_serve(torch, card, args.seed, module, kv)
+                      for p, kv in (("bf16", "f32"), ("int8", "int8"))}
+            ps = phase_ps_serve(torch, card, args.seed, module, direct)
+            print(json.dumps({"card": card, "serve": {
+                p: {"launches": d["launches"], "ps_launches": ps[p],
+                    "tokens_per_s": d["tokens_per_s"],
+                    "ttft_ms": d["ttft_ms"]} for p, d in direct.items()}}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

@@ -682,10 +682,11 @@ _KNOB_FLAGS = {"cluster_tenants": "cluster_tenant"}
 
 
 def _refuse_unported_serve_flags(args) -> None:
-    """The JAX package's multi-host flags and the deployment's unported
-    knobs parse but refuse any value but their default, naming the
-    ROADMAP item that brings them."""
+    """The JAX package's multi-host flags, the deployment's unported knobs
+    and multi-step or speculative decode parse but refuse any value but
+    their default, naming the ROADMAP item that brings them."""
     from kubeml_tpu_torch.control.deployment import NOT_PORTED_KNOBS
+    from kubeml_tpu_torch.control.ps import refuse_unported_decode
 
     for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag) is not None:
@@ -699,6 +700,22 @@ def _refuse_unported_serve_flags(args) -> None:
         if getattr(args, flag) not in (None, False):
             _fail(f"--{flag.replace('_', '-')} is not ported yet to "
                   f"kubeml_tpu_torch (comes with {brings})")
+    try:
+        refuse_unported_decode(args.serve_decode_steps,
+                               args.serve_draft_model)
+    except ValueError as e:
+        _fail(str(e))
+
+
+def _serve_knobs(args) -> dict:
+    """The serve_* flags as the PS's keyword arguments (None = the
+    KUBEML_SERVE_* variable or the default)."""
+    from kubeml_tpu_torch.control.deployment import SERVE_KNOBS
+
+    knobs = {k: getattr(args, k) for k in SERVE_KNOBS}
+    if args.serve_prefix_cache is not None:   # on|off
+        knobs["serve_prefix_cache"] = args.serve_prefix_cache == "on"
+    return knobs
 
 
 def parse_env_spec(spec: str) -> dict:
@@ -741,7 +758,8 @@ def cmd_serve(args):
                                    use_default_ports=not args.free_ports,
                                    standalone_jobs=args.standalone_jobs,
                                    job_partitions=partitions,
-                                   infer_cache_size=args.infer_cache_size)
+                                   infer_cache_size=args.infer_cache_size,
+                                   **_serve_knobs(args))
             print(f"controller: {svc.controller.url}")
             print(f"scheduler:  {svc.scheduler.url}")
             print(f"ps:         {svc.ps.url}  (metrics at "
@@ -767,7 +785,8 @@ def cmd_serve(args):
                                   standalone_jobs=args.standalone_jobs
                                   or None,
                                   job_partitions=partitions,
-                                  infer_cache_size=args.infer_cache_size)
+                                  infer_cache_size=args.infer_cache_size,
+                                  **_serve_knobs(args))
         else:  # storage
             from kubeml_tpu_torch.control.storage import StorageService
             svc = StorageService(port=args.port or const.STORAGE_PORT)

@@ -1,5 +1,5 @@
-"""Single-host deployment: the whole training control plane in one
-process (twin of kubeml_tpu/control/deployment.py).
+"""Single-host deployment: the whole control plane in one process (twin of
+kubeml_tpu/control/deployment.py).
 
 The reference ships one binary whose role is chosen by flag
 (ml/cmd/ml/main.go:60-156) and an in-process integration mode
@@ -22,21 +22,24 @@ from typing import Dict, List, Optional
 from kubeml_tpu_torch._device import DeviceLike, require_cuda
 from kubeml_tpu_torch.api import const
 from kubeml_tpu_torch.control.controller import Controller
-from kubeml_tpu_torch.control.ps import ParameterServer
+from kubeml_tpu_torch.control.ps import (ParameterServer,
+                                         refuse_unported_decode)
 from kubeml_tpu_torch.control.scheduler import Scheduler
 from kubeml_tpu_torch.control.storage import StorageService
+
+# the serving knobs the PS takes (ParameterServer's serve_* arguments)
+SERVE_KNOBS = (
+    "serve_slots", "serve_queue_depth", "serve_prefill_chunk",
+    "serve_kv_dtype", "serve_decode_steps", "serve_draft_model",
+    "serve_prefix_cache", "serve_drain_grace_s", "serve_replicas_min",
+    "serve_replicas_max", "serve_scale_to_zero_s",
+    "serve_replica_restart_budget", "serve_probe_requests",
+    "serve_hedge_after_s", "serve_slo_ttft_ms", "serve_slo_tpot_ms",
+    "serve_slo_target")
 
 # the JAX package's deployment knobs this port does not carry yet, and
 # the ROADMAP item that brings each
 NOT_PORTED_KNOBS = {
-    **{k: "serving through the PS, ROADMAP A.1" for k in (
-        "serve_slots", "serve_queue_depth", "serve_prefill_chunk",
-        "serve_kv_dtype", "serve_decode_steps", "serve_draft_model",
-        "serve_prefix_cache", "serve_drain_grace_s", "serve_replicas_min",
-        "serve_replicas_max", "serve_scale_to_zero_s",
-        "serve_replica_restart_budget", "serve_probe_requests",
-        "serve_hedge_after_s", "serve_slo_ttft_ms", "serve_slo_tpot_ms",
-        "serve_slo_target")},
     **{k: "the cluster allocator, ROADMAP A.16" for k in (
         "cluster_lanes", "cluster_tenants", "cluster_aging_s")},
     **{k: "the durable control plane, ROADMAP A.16" for k in (
@@ -67,7 +70,7 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
                      standalone_jobs: bool = False,
                      job_partitions: Optional[List[Dict[str, str]]] = None,
                      infer_cache_size: Optional[int] = None,
-                     **not_ported) -> Deployment:
+                     **knobs) -> Deployment:
     """Start storage, PS, scheduler, controller wired together.
 
     ``device`` is where the jobs run: None means CUDA, and the call
@@ -76,17 +79,25 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
     ports (api/const.py). standalone_jobs runs each job in its own
     ``kubeml_tpu_torch.train.jobserver`` process; job_partitions gives
     concurrent standalone jobs an env dict each (CUDA_VISIBLE_DEVICES),
-    naming at most the cards present. The JAX package's serving, cluster
-    and durability knobs raise ValueError naming the ROADMAP item that
-    brings them (NOT_PORTED_KNOBS).
+    naming at most the cards present. The serve_* knobs (SERVE_KNOBS) go
+    to the PS's serving plane, except multi-step and speculative decode;
+    those and the JAX package's cluster and durability knobs raise
+    ValueError naming the ROADMAP item that brings them
+    (NOT_PORTED_KNOBS).
     """
-    for knob, value in not_ported.items():
+    serve = {}
+    for knob, value in knobs.items():
+        if knob in SERVE_KNOBS:
+            serve[knob] = value
+            continue
         if knob not in NOT_PORTED_KNOBS:
             raise TypeError(f"start_deployment() got an unexpected keyword "
                             f"argument {knob!r}")
         if value is not None and value is not False:
             raise ValueError(f"{knob} is not ported yet to kubeml_tpu_torch "
                              f"(comes with {NOT_PORTED_KNOBS[knob]})")
+    refuse_unported_decode(serve.get("serve_decode_steps"),
+                           serve.get("serve_draft_model"))
     if device is None:
         # checked up front, not at the first job: the parent of
         # standalone jobs never touches the card itself
@@ -100,7 +111,7 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
     ps = ParameterServer(device=device, port=ps_port,
                          standalone_jobs=standalone_jobs or None,
                          job_partitions=job_partitions,
-                         infer_cache_size=infer_cache_size)
+                         infer_cache_size=infer_cache_size, **serve)
     storage = StorageService(port=storage_port, registry=ps.ds_registry)
     storage.start()
     ps.start()

@@ -1,5 +1,6 @@
-"""Parameter Server manager — per-job lifecycle + metrics (twin of
-kubeml_tpu/control/ps.py, its training routes, over the port's TrainJob).
+"""Parameter Server manager — per-job lifecycle, metrics and the serving
+plane (twin of kubeml_tpu/control/ps.py, over the port's TrainJob and
+ServeFleet).
 
 Parity with ml/pkg/ps/ (parameter_server.go, api.go): tracks a job index,
 starts jobs, relays scheduler updates, receives metric updates and finish
@@ -22,6 +23,12 @@ REST surface (ml/pkg/ps/api.go:335-345):
     POST   /infer             inference on a checkpointed model, through a
                               saved_at-keyed LRU of loaded modules and the
                               micro-batcher
+    POST   /generate          streaming generation from a checkpointed GPT
+                              through the model's serving fleet
+                              (serve/fleet.py): ndjson {"token": id} lines,
+                              then {"done": ...}; 429/503 + Retry-After
+    GET    /flight?id=        the serving engines' flight records
+                              (serve:<model> or <model>)
 
 Job execution has the reference's two modes (STANDALONE_JOBS env,
 ml/cmd/ml/main.go:115-133):
@@ -48,16 +55,26 @@ window when the job finishes, so a finished job reads ``unknown``. A
 threaded job writes ``$KUBEML_TPU_HOME/logs/<job>.log``; the PS's own
 ``ps.start_task`` span goes to ``TraceSink(job, "ps")``.
 
-Not ported yet, each answering with the error envelope: /generate,
-/flight and the ``serve:<model>`` traces (serving through the PS, ROADMAP
-A.1), /cost (the cost ledger, ROADMAP A.13), /cluster and the durable
-state with recover() (ROADMAP A.16), /preempt, /preempted and the
-heartbeat reaper (ROADMAP A.17).
+Serving: the first /generate of a model builds its fleet of replicas,
+each a ServeService over a DecodeEngine on the PS's device; a checkpoint
+saved later (a newer ``saved_at``) is installed into every live replica
+as a new weight generation, with no stream dropped. The fleet's merged
+snapshot feeds ``/health?id=serve:<model>`` and the serve families of
+/metrics; each replica and the router write their spans under the
+``serve:<model>`` trace. The ``serve_*`` knobs (constructor or
+``KUBEML_SERVE_*``) have the JAX package's defaults; multi-step and
+speculative decode are refused (ROADMAP A.1).
+
+Not ported yet, each answering with the error envelope: /cost (the cost
+ledger, ROADMAP A.13), /cluster and the durable state with recover()
+(ROADMAP A.16), /preempt, /preempted and the heartbeat reaper (ROADMAP
+A.17).
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import logging
 import os
 import shutil
@@ -74,11 +91,11 @@ import torch
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
 from kubeml_tpu_torch.api.const import kubeml_home
 from kubeml_tpu_torch.api.errors import (InvalidArgsError, JobNotFoundError,
-                                         KubeMLException, NotPortedError)
+                                         KubeMLException)
 from kubeml_tpu_torch.api.types import MetricUpdate, TrainTask
 from kubeml_tpu_torch.control.health import HealthEvaluator
 from kubeml_tpu_torch.control.httpd import (JsonService, Raw, Request,
-                                            http_json, not_ported)
+                                            Stream, http_json, not_ported)
 from kubeml_tpu_torch.control.journal import read_json
 from kubeml_tpu_torch.data.registry import DatasetRegistry
 from kubeml_tpu_torch.metrics.prom import MetricsRegistry
@@ -88,14 +105,33 @@ from kubeml_tpu_torch.train.checkpoint import (checkpoint_saved_at,
 from kubeml_tpu_torch.train.functionlib import FunctionRegistry
 from kubeml_tpu_torch.train.history import HistoryStore
 from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
-from kubeml_tpu_torch.utils.trace import (TraceSink, Tracer,
+from kubeml_tpu_torch.utils.trace import (TRACE_HEADER, TraceSink, Tracer,
                                           get_trace_context, make_trace_id,
                                           merge_job_trace)
 
 logger = logging.getLogger("kubeml_tpu_torch.ps")
 
-SERVING = "serving through the PS, ROADMAP A.1"
 PREEMPTION = "preemption and adoption, ROADMAP A.17"
+UNPORTED_DECODE = "multi-step and speculative decode, ROADMAP A.1"
+
+
+def refuse_unported_decode(decode_steps, draft_model) -> None:
+    """Raise ValueError for the serve knobs whose programs are not ported:
+    decode_steps other than 1 (None = unset) and a draft model."""
+    if decode_steps is not None and int(decode_steps) != 1:
+        raise ValueError(
+            f"serve_decode_steps={decode_steps} is not ported yet to "
+            f"kubeml_tpu_torch (comes with {UNPORTED_DECODE})")
+    if draft_model:
+        raise ValueError(
+            f"serve_draft_model={draft_model!r} is not ported yet to "
+            f"kubeml_tpu_torch (comes with {UNPORTED_DECODE})")
+
+
+def _knob(value, env: str, default: str):
+    """A serve knob: the argument, else its KUBEML_SERVE_* variable, else
+    the JAX package's default."""
+    return value if value is not None else os.environ.get(env, default)
 
 
 def check_partitions(partitions: Optional[List[Dict[str, str]]],
@@ -305,7 +341,26 @@ class ParameterServer(JsonService):
                  scheduler_url: Optional[str] = None,
                  standalone_jobs: Optional[bool] = None,
                  job_partitions: Optional[List[Dict[str, str]]] = None,
-                 infer_cache_size: Optional[int] = None):
+                 infer_cache_size: Optional[int] = None,
+                 serve_slots: Optional[int] = None,
+                 serve_queue_depth: Optional[int] = None,
+                 serve_page_tokens: Optional[int] = None,
+                 serve_hbm_budget_mb: Optional[float] = None,
+                 serve_prefill_chunk: Optional[int] = None,
+                 serve_kv_dtype: Optional[str] = None,
+                 serve_decode_steps: Optional[int] = None,
+                 serve_draft_model: Optional[str] = None,
+                 serve_prefix_cache: Optional[bool] = None,
+                 serve_drain_grace_s: Optional[float] = None,
+                 serve_replicas_min: Optional[int] = None,
+                 serve_replicas_max: Optional[int] = None,
+                 serve_scale_to_zero_s: Optional[float] = None,
+                 serve_replica_restart_budget: Optional[int] = None,
+                 serve_probe_requests: Optional[int] = None,
+                 serve_hedge_after_s: Optional[float] = None,
+                 serve_slo_ttft_ms: Optional[float] = None,
+                 serve_slo_tpot_ms: Optional[float] = None,
+                 serve_slo_target: Optional[float] = None):
         super().__init__(port=port)
         # resolved at first use (a threaded job or an /infer): in
         # standalone mode the parent leaves the card to its children
@@ -336,6 +391,21 @@ class ParameterServer(JsonService):
             else os.environ.get("KUBEML_INFER_CACHE_SIZE", "4")))
         self._infer_batcher = InferBatcher() if InferBatcher.enabled() \
             else None
+        # the checkpoint LRU yields to the serving fleets: cached modules
+        # and the fleets' KV slabs and params share device memory
+        self.serve_hbm_budget_bytes = int(float(_knob(
+            serve_hbm_budget_mb, "KUBEML_SERVE_HBM_BUDGET_MB", "512"))
+            * (1 << 20))
+        self._init_serve_knobs(
+            serve_slots, serve_queue_depth, serve_page_tokens,
+            serve_prefill_chunk, serve_kv_dtype, serve_decode_steps,
+            serve_draft_model, serve_prefix_cache, serve_drain_grace_s,
+            serve_replicas_min, serve_replicas_max, serve_scale_to_zero_s,
+            serve_replica_restart_budget, serve_probe_requests,
+            serve_hedge_after_s, serve_slo_ttft_ms, serve_slo_tpot_ms,
+            serve_slo_target)
+        self._serve: Dict[str, tuple] = {}   # model_id -> (stamp, fleet)
+        self._serve_lock = threading.Lock()
         self.metrics = MetricsRegistry()
         # training-health verdicts over rolling MetricUpdate windows
         # (control/health.py); served on GET /health?id=
@@ -358,9 +428,9 @@ class ParameterServer(JsonService):
         self.route("GET", "/health", self._h_health)
         self.route("GET", "/trace", self._h_trace)
         self.route("POST", "/infer", self._h_infer)
+        self.route("POST", "/generate", self._h_generate)
+        self.route("GET", "/flight", self._h_flight)
         for method, path, brings in (
-                ("POST", "/generate", SERVING),
-                ("GET", "/flight", SERVING),
                 ("GET", "/cost", "the cost ledger, ROADMAP A.13"),
                 ("POST", "/cluster", "the cluster allocator, ROADMAP A.16"),
                 ("POST", "/preempt/{jobId}", PREEMPTION),
@@ -409,19 +479,41 @@ class ParameterServer(JsonService):
         self._observe_health(m)
         return {"ok": True}
 
-    def _observe_health(self, m: MetricUpdate) -> None:
+    def _observe_health(self, m) -> None:
         """Feed one update through the health rules: bump the alert
         counter once per rule onset (the evaluator dedupes against the
-        already-active rules) and publish the verdict gauge."""
+        already-active rules) and publish the verdict gauge. Takes a
+        MetricUpdate (a training epoch) or a snapshot dict (a serving
+        fleet's serve:<model> sample); a serve rule's onset dumps the
+        model's flight recorders into its trace."""
+        job_id = m["job_id"] if isinstance(m, dict) else m.job_id
         with self._health_lock:
             fired = self.health.observe(m)
-            state = self.health.verdict(m.job_id)["state"]
+            state = self.health.verdict(job_id)["state"]
         for reason in fired:
-            self.metrics.note_health_alert(m.job_id, reason["rule"])
-            logger.warning("job %s health alert [%s/%s]: %s", m.job_id,
+            self.metrics.note_health_alert(job_id, reason["rule"])
+            logger.warning("job %s health alert [%s/%s]: %s", job_id,
                            reason["severity"], reason["rule"],
                            reason["detail"])
-        self.metrics.set_health(m.job_id, state)
+            if job_id.startswith("serve:"):
+                self._serve_flight_snapshot(job_id[len("serve:"):],
+                                            reason["rule"])
+        self.metrics.set_health(job_id, state)
+
+    def _serve_flight_snapshot(self, model_id: str, rule: str) -> None:
+        """Snapshot the model's flight recorders into its serve trace on
+        a health-rule onset. Reads the registry WITHOUT _serve_lock: this
+        runs on a serving loop thread that may hold its replica's
+        condition variable, which _serve_service's install_weights takes
+        under _serve_lock. A stale read only snapshots nothing."""
+        cur = self._serve.get(model_id)
+        if cur is None:
+            return
+        try:
+            cur[1].flight_snapshot(f"health:{rule}")
+        except Exception:  # noqa: BLE001 — telemetry never fails serving
+            logger.exception("flight snapshot failed for serve:%s",
+                             model_id)
 
     def _h_heartbeat(self, req: Request):
         """Progress cursor (epoch, round) of a standalone child, shown on
@@ -485,7 +577,12 @@ class ParameterServer(JsonService):
         if not job_id:
             raise InvalidArgsError("id query parameter required")
         if job_id.startswith("serve:"):
-            raise NotPortedError(f"GET /trace?id={job_id}", SERVING, 501)
+            # live serving tracers batch their flushes: push the tail out
+            # so the merge sees every finished request
+            with self._serve_lock:
+                cur = self._serve.get(job_id[len("serve:"):])
+            if cur is not None:
+                cur[1].flush_trace()
         try:
             return merge_job_trace(job_id)
         except FileNotFoundError:
@@ -539,10 +636,6 @@ class ParameterServer(JsonService):
         model_cls, _ = self.fn_registry.resolve(
             manifest.get("function") or manifest.get("model"))
         model = model_cls()
-        if not hasattr(model, "infer"):
-            raise NotPortedError(
-                f"POST /infer on a {manifest.get('model')} checkpoint",
-                SERVING, 501)
         module = model.module_from_flax(variables, device=self.device)
         module.eval()
         # key on the LOADED manifest's stamp so (stamp, weights) stay
@@ -552,11 +645,278 @@ class ParameterServer(JsonService):
             with self._infer_cache_lock:
                 self._infer_cache[model_id] = (key, model, module)
                 self._infer_cache.move_to_end(model_id)
-                while len(self._infer_cache) > self.infer_cache_size:
-                    self._infer_cache.popitem(last=False)
+                self._evict_infer_cache_locked()
                 self.metrics.set_infer_cache_entries(
                     len(self._infer_cache))
         return model, module
+
+    @staticmethod
+    def _module_nbytes(module) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in module.state_dict().values())
+
+    def _evict_infer_cache_locked(self) -> None:
+        """LRU eviction under two pressures (cache lock held): the entry
+        cap, and the serving device budget — cached modules and the live
+        fleets' KV slabs and params share device memory, so cached
+        entries yield until the total fits. The freshest entry always
+        survives (its request is about to use it)."""
+        while len(self._infer_cache) > self.infer_cache_size:
+            self._infer_cache.popitem(last=False)
+        budget = self.serve_hbm_budget_bytes - self._serve_hbm_bytes()
+        while len(self._infer_cache) > 1 \
+                and sum(self._module_nbytes(e[2])
+                        for e in self._infer_cache.values()) > budget:
+            self._infer_cache.popitem(last=False)
+
+    def _serve_hbm_bytes(self) -> int:
+        with self._serve_lock:
+            fleets = [fleet for _, fleet in self._serve.values()]
+        return sum(fleet.hbm_bytes for fleet in fleets)
+
+    # -------------------------------------------------------- serving plane
+
+    def _init_serve_knobs(self, slots, queue_depth, page_tokens,
+                          prefill_chunk, kv_dtype, decode_steps,
+                          draft_model, prefix_cache, drain_grace_s,
+                          replicas_min, replicas_max, scale_to_zero_s,
+                          restart_budget, probe_requests, hedge_after_s,
+                          slo_ttft_ms, slo_tpot_ms, slo_target) -> None:
+        """The serving plane's knobs, each from its argument, its
+        KUBEML_SERVE_* variable or the JAX package's default. The
+        multi-step and speculative decode programs are not ported: any
+        other decode_steps than 1, or a draft model, raises ValueError."""
+        self.serve_slots = int(_knob(slots, "KUBEML_SERVE_SLOTS", "8"))
+        self.serve_queue_depth = int(_knob(queue_depth, "KUBEML_SERVE_QUEUE",
+                                           "16"))
+        self.serve_page_tokens = int(_knob(
+            page_tokens, "KUBEML_SERVE_PAGE_TOKENS", "16"))
+        self.serve_prefill_chunk = int(_knob(
+            prefill_chunk, "KUBEML_SERVE_PREFILL_CHUNK", "16"))
+        self.serve_kv_dtype = str(_knob(kv_dtype, "KUBEML_SERVE_KV_DTYPE",
+                                        "f32"))
+        refuse_unported_decode(
+            _knob(decode_steps, "KUBEML_SERVE_DECODE_STEPS", "1"),
+            _knob(draft_model, "KUBEML_SERVE_DRAFT_MODEL", ""))
+        if prefix_cache is None:
+            prefix_cache = os.environ.get(
+                "KUBEML_SERVE_PREFIX_CACHE", "on").lower() \
+                not in ("0", "off", "false", "no")
+        self.serve_prefix_cache = bool(prefix_cache)
+        # stop()'s drain budget: 0 = hard stop
+        self.serve_drain_grace_s = float(_knob(
+            drain_grace_s, "KUBEML_SERVE_DRAIN_GRACE_S", "0"))
+        self.serve_replicas_min = int(_knob(
+            replicas_min, "KUBEML_SERVE_REPLICAS_MIN", "1"))
+        self.serve_replicas_max = int(_knob(
+            replicas_max, "KUBEML_SERVE_REPLICAS_MAX", "1"))
+        self.serve_scale_to_zero_s = float(_knob(
+            scale_to_zero_s, "KUBEML_SERVE_SCALE_TO_ZERO_S", "0"))
+        self.serve_replica_restart_budget = int(_knob(
+            restart_budget, "KUBEML_SERVE_REPLICA_RESTART_BUDGET", "2"))
+        self.serve_probe_requests = int(_knob(
+            probe_requests, "KUBEML_SERVE_PROBE_REQUESTS", "2"))
+        self.serve_hedge_after_s = float(_knob(
+            hedge_after_s, "KUBEML_SERVE_HEDGE_AFTER_S", "0"))
+        self.serve_slo_ttft_ms = float(_knob(
+            slo_ttft_ms, "KUBEML_SERVE_SLO_TTFT_MS", "0"))
+        self.serve_slo_tpot_ms = float(_knob(
+            slo_tpot_ms, "KUBEML_SERVE_SLO_TPOT_MS", "0"))
+        self.serve_slo_target = float(_knob(
+            slo_target, "KUBEML_SERVE_SLO_TARGET", "0.99"))
+
+    def _serve_replica_factory(self, model_id: str):
+        """The replica builder of the model's fleet: one call builds one
+        UNSTARTED ServeService over a fresh DecodeEngine on the PS's
+        device. It reads the checkpoint cache on every call, so a replica
+        born after a hot-swap starts on the newest weights."""
+        from kubeml_tpu_torch.serve.engine import DecodeEngine
+        from kubeml_tpu_torch.serve.pager import PageGeometry
+        from kubeml_tpu_torch.serve.service import ServeService
+
+        def factory(index: int) -> ServeService:
+            _, module = self._load_for_infer(model_id)
+            try:
+                engine = DecodeEngine(
+                    module,
+                    geom=PageGeometry.for_module(
+                        slots=self.serve_slots, page=self.serve_page_tokens,
+                        max_len=module.max_len),
+                    prefill_chunk=self.serve_prefill_chunk,
+                    kv_dtype=self.serve_kv_dtype,
+                    prefix_cache=self.serve_prefix_cache,
+                    # production posture: a pager invariant violation is
+                    # logged and counted, never raised mid-stream
+                    strict_pager=False, device=self.device)
+            except (ValueError, TypeError, AttributeError) as e:
+                # a model with no paged decode step, or a bad serve knob
+                raise InvalidArgsError(
+                    f"model {model_id} does not support streaming decode "
+                    f"with the configured serve knobs: {e}") from e
+            # each replica writes its spans under the serve:<model> trace
+            # as its own process, on the service clock
+            return ServeService(
+                model_id, engine, max_queue=self.serve_queue_depth,
+                metrics=self.metrics, tracer=Tracer(clock=time.perf_counter),
+                trace_sink=TraceSink(f"serve:{model_id}", f"serve-r{index}"))
+        return factory
+
+    def _serve_resize_cb(self, model_id: str):
+        """The fleet's bridge to the cluster pool: each resize is offered
+        to the scheduler's POST /serve/resize. Fails OPEN: without a
+        scheduler, or when it refuses (the port's scheduler answers 501
+        until the allocator's serving gang lands, ROADMAP A.16), the
+        fleet gets what it asked for."""
+        def resize_cb(replicas: int) -> int:
+            if not self.scheduler_url:
+                return replicas
+            try:
+                resp = http_json(
+                    "POST", f"{self.scheduler_url}/serve/resize",
+                    {"model_id": model_id, "replicas": int(replicas)})
+                return int(resp.get("granted", replicas))
+            except KubeMLException as e:
+                logger.info("serve resize offer for %s not granted (%s); "
+                            "failing open", model_id, e.message)
+                return replicas
+        return resize_cb
+
+    def _serve_service(self, model_id: str):
+        """The model's serving fleet. The first request builds it; when
+        the checkpoint's saved_at later changes, the new weights are
+        installed into every live replica as a new generation (streams in
+        flight finish on their weights, new admissions decode the new
+        ones, nothing is stopped)."""
+        from kubeml_tpu_torch.serve.fleet import ServeFleet
+        _, module = self._load_for_infer(model_id)
+        stamp = checkpoint_saved_at(model_id)
+        with self._serve_lock:
+            cur = self._serve.get(model_id)
+            if cur is not None:
+                if cur[0] != stamp:
+                    cur[1].install_weights(module.state_dict(), stamp)
+                    self._serve[model_id] = (stamp, cur[1])
+                return cur[1]
+        fleet = ServeFleet(
+            model_id, self._serve_replica_factory(model_id),
+            replicas_min=self.serve_replicas_min,
+            replicas_max=self.serve_replicas_max,
+            scale_to_zero_s=self.serve_scale_to_zero_s,
+            # an autoscaler retire always gives streams a real budget
+            drain_grace_s=self.serve_drain_grace_s or 5.0,
+            page_tokens=self.serve_page_tokens,
+            metrics=self.metrics,
+            health_cb=self._observe_health,
+            resize_cb=self._serve_resize_cb(model_id),
+            replica_restart_budget=self.serve_replica_restart_budget,
+            probe_requests=self.serve_probe_requests,
+            hedge_after_s=self.serve_hedge_after_s,
+            tracer=Tracer(clock=time.perf_counter),
+            trace_sink=TraceSink(f"serve:{model_id}", "fleet"),
+            slo_ttft_s=self.serve_slo_ttft_ms / 1000.0,
+            slo_tpot_s=self.serve_slo_tpot_ms / 1000.0,
+            slo_target=self.serve_slo_target).start()
+        old = None
+        with self._serve_lock:
+            cur = self._serve.get(model_id)
+            if cur is not None:   # lost the build race; ours goes
+                old, fleet = fleet, cur[1]
+            else:
+                self._serve[model_id] = (stamp, fleet)
+        if old is not None:
+            old.stop()
+        return fleet
+
+    def _h_generate(self, req: Request):
+        """Streaming continuous-batching generation. Body: {model_id,
+        prompt: [token ids], max_new_tokens, temperature, seed, eos_id,
+        deadline_ms, session, stream}. stream=true (default) answers
+        ndjson lines as the loop produces them; stream=false answers one
+        JSON document. Saturation, or a deadline_ms the backlog makes
+        infeasible, answers 429 + Retry-After; a draining fleet 503 +
+        Retry-After. Every answer carries the request's trace id header."""
+        from kubeml_tpu_torch.serve.slots import ServeDraining, ServeSaturated
+        body = req.body if isinstance(req.body, dict) else {}
+        model_id = body.get("model_id")
+        if not model_id:
+            raise InvalidArgsError("model_id required")
+        prompt = body.get("prompt")
+        if prompt is None:
+            raise InvalidArgsError("prompt required (list of token ids)")
+        try:
+            prompt = [int(t) for t in prompt]
+        except (TypeError, ValueError) as e:
+            raise InvalidArgsError(
+                f"prompt must be a list of token ids: {e}") from e
+        svc = self._serve_service(model_id)
+        trace_id = get_trace_context() or make_trace_id()
+        hdrs = {TRACE_HEADER: trace_id}
+        try:
+            r = svc.submit(
+                prompt, max_new_tokens=int(body.get("max_new_tokens", 32)),
+                temperature=float(body.get("temperature", 0.0)),
+                seed=int(body.get("seed", 0)), eos_id=body.get("eos_id"),
+                trace_id=trace_id, deadline_ms=body.get("deadline_ms"),
+                session=body.get("session"))
+        except InferenceInputError as e:
+            raise InvalidArgsError(str(e)) from e
+        except (ServeSaturated, ServeDraining) as e:
+            retry = max(1, int(round(e.retry_after_s)))
+            return Raw(e.to_json().encode(), "application/json",
+                       status=e.status_code,
+                       headers={"Retry-After": str(retry), **hdrs})
+        if body.get("stream", True):
+            return Stream(self._generate_chunks(svc, r), headers=hdrs)
+        if not r.wait(timeout=600.0):
+            svc.cancel(r)
+            raise KubeMLException("generation timed out", 504)
+        if r.outcome == "ok":
+            return Raw(json.dumps({"tokens": r.tokens}).encode(),
+                       "application/json", headers=hdrs)
+        raise KubeMLException(r.error or f"generation {r.outcome}", 500)
+
+    def _generate_chunks(self, svc, r):
+        """ndjson producer of one stream. Its close() (a client
+        disconnect, httpd's Stream contract) cancels the request, so its
+        slot and KV pages free at once."""
+        try:
+            for ev in r.events_iter():
+                yield (json.dumps(ev) + "\n").encode()
+        finally:
+            if not r.done:
+                svc.cancel(r)
+            if r.submitted_at is not None:
+                self.metrics.observe_serve_stream(
+                    svc.model_id, svc.clock() - r.submitted_at)
+
+    def _h_flight(self, req: Request):
+        """The serving engines' flight records (?id=serve:<model> or
+        ?id=<model>): the last steps of every replica, oldest first, each
+        stamped with its replica."""
+        job_id = req.query.get("id", "")
+        if not job_id:
+            raise InvalidArgsError("id query parameter required")
+        model_id = (job_id[len("serve:"):]
+                    if job_id.startswith("serve:") else job_id)
+        with self._serve_lock:
+            cur = self._serve.get(model_id)
+        if cur is None:
+            raise JobNotFoundError(
+                f"serve:{model_id} (no serving service running)")
+        capacity = total = 0
+        records: list = []
+        replicas: list = []
+        for idx, engine in cur[1].engines():
+            fl = engine.flight
+            if fl is None:
+                continue
+            replicas.append(idx)
+            capacity += fl.capacity
+            total += fl.total
+            records += [dict(rec, replica=idx) for rec in fl.snapshot()]
+        return {"id": f"serve:{model_id}", "model": model_id,
+                "capacity": capacity, "total_steps": total,
+                "replicas": replicas, "records": records}
 
     # ------------------------------------------------------------- job mgmt
 
@@ -873,8 +1233,15 @@ class ParameterServer(JsonService):
 
     def stop(self):
         """Shut the HTTP server down, stop threaded jobs and terminate
-        standalone children: a dying PS leaks no orphan job process."""
+        standalone children: a dying PS leaks no orphan job process. The
+        serving fleets stop first (draining for serve_drain_grace_s), so
+        blocked /generate streams end instead of timing out."""
         super().stop()
+        with self._serve_lock:
+            fleets = [fleet for _, fleet in self._serve.values()]
+            self._serve.clear()
+        for fleet in fleets:
+            fleet.stop(grace_s=self.serve_drain_grace_s)
         with self._jobs_lock:
             self._stopping = True  # no further spawns or restarts
             recs = list(self.jobs.values())

@@ -1,0 +1,258 @@
+"""Deterministic fault injection for the serving plane (the serve and fleet
+kinds of kubeml_tpu/faults.py, copied: the port imports nothing of the JAX
+package, and one plan string drives both packages' tests).
+
+An injection fires at NAMED coordinates, never at random, so every serve
+recovery path replays bit for bit in the CPU tests. The plans parse a
+JSON string, a dict ``{"events": [...]}`` or a bare list of event dicts;
+coordinate -1 (the default) is a wildcard.
+
+The SERVING plane (ServeFaultPlan) counts in (engine step, decode slot):
+
+  serve_nan_logits
+           raise the poison lane for the target slot's decode call at the
+           step, driving the on-device non-finite logit guard
+           (models/gpt.py build_paged_decode_step): only that slot's
+           request terminates (``error``, "poisoned"), concurrent streams
+           keep their tokens. Fires once per event.
+  serve_step_crash
+           raise RuntimeError from the engine step BEFORE any page
+           mutation. STICKY BY REQUEST: the event binds to the rid in its
+           slot at first fire and crashes every step that schedules that
+           rid, which is what ServeService's bisection converges on
+           (retries with the rid's lane masked succeed; the quarantined
+           request terminates and the crash stops).
+  serve_slow_step
+           time.sleep(duration_s) at the step: a slow engine round.
+  serve_loop_wedge
+           spin inside the serving loop (after the step completes) until
+           the supervisor abandons the engine: drives the watchdog's wedge
+           detection and recovery without killing the process. Fires once
+           per event.
+
+The FLEET (FleetFaultPlan) counts in (supervise tick, replica index); the
+fleet supervisor (serve/fleet.py supervise_once) is the injection point:
+
+  fleet_replica_crash
+           abrupt replica death: the replica's loop exits WITHOUT its
+           drain tail (ServeService.kill) and its watchdog stands down,
+           leaving in-flight streams for the fleet to eject and
+           live-migrate. Fires once per event.
+  fleet_replica_wedge
+           crash-looping replica: drives the replica's real supervisor
+           recovery (ServeService.force_restart) until restarts_total
+           exceeds the fleet's replica_restart_budget. Fires once.
+  fleet_replica_slow
+           gray failure: plants a wildcard serve_slow_step of duration_s
+           in the replica's engine plan, so its queued streams age past
+           hedge_after_s and get hedged to a peer. Fires once (the
+           planted slow step fires every step).
+
+The training kinds (nan, dropout, crash, ...) come with the degraded mode
+(ROADMAP A.4.5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import time
+from typing import Any, Dict, List
+
+logger = logging.getLogger("kubeml_tpu_torch.faults")
+
+SERVE_KINDS = ("serve_nan_logits", "serve_step_crash", "serve_slow_step",
+               "serve_loop_wedge")
+FLEET_KINDS = ("fleet_replica_crash", "fleet_replica_wedge",
+               "fleet_replica_slow")
+
+
+def _event_dicts(spec: Any, what: str) -> List[dict]:
+    """The event dicts of a JSON string / dict / list plan spec."""
+    if isinstance(spec, str):
+        spec = json.loads(spec)
+    if isinstance(spec, dict):
+        spec = spec.get("events", [])
+    if not isinstance(spec, list):
+        raise ValueError(f"{what} fault_plan must be a list of events or "
+                         f"{{'events': [...]}}")
+    return spec
+
+
+def _check_kind(e: dict, kinds: tuple, what: str) -> str:
+    kind = e.get("kind")
+    if kind not in kinds:
+        raise ValueError(f"unknown {what} fault kind {kind!r}; expected one "
+                         f"of {kinds}")
+    return kind
+
+
+@dataclasses.dataclass
+class ServeFaultEvent:
+    """One serving-plane injection at (engine step, slot); -1 = wildcard
+    (any step / whichever eligible slot comes first)."""
+
+    kind: str
+    step: int = -1
+    slot: int = -1
+    duration_s: float = 0.0   # serve_slow_step only
+
+    def at_step(self, step: int) -> bool:
+        return self.step < 0 or self.step == step
+
+
+class ServeFaultPlan:
+    """Coordinate-driven fault schedule for the decode engine and the
+    serving loop. The engine calls ``nan_hits`` / ``check_crash`` /
+    ``sleep`` inside its step; the ServeService calls ``maybe_wedge``
+    between steps. A recovered engine (DecodeEngine.spawn_recovered)
+    adopts the same plan instance, so once-only and rid-sticky state
+    survives restarts and an injected crash does not re-fire into a crash
+    loop."""
+
+    def __init__(self, events: List[ServeFaultEvent]):
+        self.events = events
+        self.injected = {k: 0 for k in SERVE_KINDS}
+        self._fired: set = set()               # event index (once-only)
+        self._crash_rid: Dict[int, str] = {}   # event index -> bound rid
+
+    @classmethod
+    def parse(cls, spec: Any) -> "ServeFaultPlan":
+        if isinstance(spec, ServeFaultPlan):
+            return spec
+        return cls([ServeFaultEvent(
+            kind=_check_kind(e, SERVE_KINDS, "serve"),
+            step=int(e.get("step", -1)), slot=int(e.get("slot", -1)),
+            duration_s=float(e.get("duration_s", 0.0)))
+            for e in _event_dicts(spec, "serve")])
+
+    def has(self, kind: str) -> bool:
+        return any(ev.kind == kind for ev in self.events)
+
+    def nan_hits(self, step: int, member_slots) -> set:
+        """Slots whose decode call at ``step`` gets the poison lane
+        raised. Once per event: the first call that contains the target
+        slot consumes it."""
+        hits: set = set()
+        for i, ev in enumerate(self.events):
+            if ev.kind != "serve_nan_logits" or i in self._fired \
+                    or not ev.at_step(step):
+                continue
+            targets = [s for s in member_slots
+                       if ev.slot < 0 or ev.slot == s]
+            if not targets:
+                continue
+            self._fired.add(i)
+            self.injected["serve_nan_logits"] += 1
+            hits.update(targets)
+            logger.warning("fault serve_nan_logits: step %d slot(s) %s",
+                           step, targets)
+        return hits
+
+    def check_crash(self, step: int, occupants) -> None:
+        """Raise RuntimeError when a serve_step_crash event is live for
+        this step. ``occupants`` is [(slot, rid)] of the streams the step
+        is about to schedule (masked lanes omitted). At first fire the
+        event binds to the rid in its slot, then crashes every step that
+        includes that rid."""
+        for i, ev in enumerate(self.events):
+            if ev.kind != "serve_step_crash":
+                continue
+            rid = self._crash_rid.get(i)
+            if rid is None:
+                if not ev.at_step(step):
+                    continue
+                rid = next((r for s, r in occupants
+                            if ev.slot < 0 or ev.slot == s), None)
+                if rid is None:
+                    continue
+                self._crash_rid[i] = rid
+            if any(r == rid for _, r in occupants):
+                self.injected["serve_step_crash"] += 1
+                logger.warning("fault serve_step_crash: step %d rid %s",
+                               step, rid)
+                raise RuntimeError(
+                    f"injected serve_step_crash: stream {rid} poisons "
+                    f"the decode step")
+
+    def sleep(self, step: int) -> None:
+        for ev in self.events:
+            if ev.kind == "serve_slow_step" and ev.at_step(step):
+                self.injected["serve_slow_step"] += 1
+                time.sleep(ev.duration_s)
+
+    def maybe_wedge(self, engine) -> bool:
+        """Spin until the supervisor abandons ``engine`` when a
+        serve_loop_wedge event is live for its current step (once per
+        event). Called by the serving loop after the step's terminal
+        accounting, so the wedge freezes the loop between rounds."""
+        for i, ev in enumerate(self.events):
+            if ev.kind != "serve_loop_wedge" or i in self._fired \
+                    or not ev.at_step(engine._step_count):
+                continue
+            self._fired.add(i)
+            self.injected["serve_loop_wedge"] += 1
+            logger.warning("fault serve_loop_wedge: step %d, serving loop "
+                           "wedged until abandon", engine._step_count)
+            while not engine._abandoned:
+                time.sleep(0.005)
+            return True
+        return False
+
+
+@dataclasses.dataclass
+class FleetFaultEvent:
+    """One fleet-plane injection at (supervise tick, replica); -1 =
+    wildcard (first tick the target is live / lowest live replica)."""
+
+    kind: str
+    tick: int = -1
+    replica: int = -1
+    duration_s: float = 0.0   # fleet_replica_slow only
+
+    def at_tick(self, tick: int) -> bool:
+        return self.tick < 0 or self.tick == tick
+
+
+class FleetFaultPlan:
+    """Coordinate-driven fault schedule for the serving fleet, fired by
+    the fleet's supervise tick. Every event fires once."""
+
+    def __init__(self, events: List[FleetFaultEvent]):
+        self.events = events
+        self.injected = {k: 0 for k in FLEET_KINDS}
+        self._fired: set = set()
+
+    @classmethod
+    def parse(cls, spec: Any) -> "FleetFaultPlan":
+        if isinstance(spec, FleetFaultPlan):
+            return spec
+        return cls([FleetFaultEvent(
+            kind=_check_kind(e, FLEET_KINDS, "fleet"),
+            tick=int(e.get("tick", -1)), replica=int(e.get("replica", -1)),
+            duration_s=float(e.get("duration_s", 0.0)))
+            for e in _event_dicts(spec, "fleet")])
+
+    def has(self, kind: str) -> bool:
+        return any(ev.kind == kind for ev in self.events)
+
+    def fire(self, tick: int, live_idxs) -> List[tuple]:
+        """Events due at this tick, as (kind, replica, event) with the
+        replica wildcard resolved to the lowest live index. An event
+        whose target is not live stays armed for a later tick."""
+        live = sorted(live_idxs)
+        out = []
+        for i, ev in enumerate(self.events):
+            if i in self._fired or not ev.at_tick(tick):
+                continue
+            target = ev.replica if ev.replica >= 0 else \
+                (live[0] if live else -1)
+            if target < 0 or target not in live:
+                continue
+            self._fired.add(i)
+            self.injected[ev.kind] += 1
+            logger.warning("fleet fault %s: tick %d replica %d", ev.kind,
+                           tick, target)
+            out.append((ev.kind, target, ev))
+        return out

@@ -12,10 +12,14 @@ port deployment unchanged:
     kubeml_job_health{jobid=...,state=...} / kubeml_health_alerts_total
     kubeml_http_requests_total / kubeml_http_request_duration_seconds
     kubeml_infer_cache_{entries,hits_total,misses_total}{cache=...}
+    kubeml_serve_*{model=...}: the serving loop's latency histograms,
+        state gauges and token counters, the fleet's routing, scaling and
+        failure-domain counters, and the SLO plane's attainment and burn
 
-Per-job series are cleared when a job finishes (metrics.go:90-106). The
-serving, SLO, cluster and durable-control-plane families come with the
-modules that set them (ROADMAP A.1, A.16).
+Per-job series are cleared when a job finishes (metrics.go:90-106), a
+model's serve series by clear_serve. The cluster and
+durable-control-plane families come with the modules that set them
+(ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -420,6 +424,193 @@ class MetricsRegistry:
             "kubeml_data_lag_generations",
             "Generations the dataset registry is ahead of what a "
             "continual job has trained", "jobid")
+        # serving plane (serve/): per-model SLO latency distributions
+        # (TTFT = submit -> first token, TPOT = decode cadence after it,
+        # e2e = submit -> done) + the occupancy/queue/KV gauges the
+        # serve health rules and `kubeml top` read, keyed by MODEL, not
+        # job — serving outlives any one job and survives clear_job
+        self.serve_ttft_seconds = Histogram(
+            "kubeml_serve_ttft_seconds",
+            "Time to first generated token of a /generate request, by "
+            "served model", "model")
+        self.serve_tpot_seconds = Histogram(
+            "kubeml_serve_tpot_seconds",
+            "Mean per-output-token decode latency of a /generate "
+            "request after its first token, by served model", "model")
+        self.serve_e2e_seconds = Histogram(
+            "kubeml_serve_e2e_seconds",
+            "End-to-end latency of a /generate request, by served model",
+            "model")
+        # TTFT attribution: the same TTFT decomposed into
+        # additive components — queue (submit -> slot attach), prefill
+        # (wall time of the dispatches that computed the prompt), and
+        # interleave (scheduler delay between them; the remainder, so
+        # the three sum to TTFT per request)
+        self.serve_ttft_breakdown_seconds = Histogram(
+            "kubeml_serve_ttft_breakdown_seconds",
+            "Additive TTFT components of a /generate request "
+            "(queue|prefill|interleave; they sum to the TTFT), by "
+            "served model", ("model", "component"))
+        # producer-side stream lifetime, recorded when the ndjson
+        # generator CLOSES (incl. client disconnects that cancel the
+        # request). kubeml_http_request_duration_seconds already covers
+        # the full server-side write — the middleware observes after the
+        # chunked body is written — but it only sees streams whose
+        # connection the server finished with; this one is per-model
+        # and counts cancelled/abandoned streams' real lifetimes too.
+        self.serve_stream_duration_seconds = Histogram(
+            "kubeml_serve_stream_duration_seconds",
+            "Lifetime of a streaming /generate response from submit to "
+            "producer close, by served model", "model")
+        self.serve_active_slots = Gauge(
+            "kubeml_serve_active_slots",
+            "Decode slots occupied by in-flight streams of a served "
+            "model", "model")
+        self.serve_queue_depth = Gauge(
+            "kubeml_serve_queue_depth",
+            "Admitted /generate requests waiting for a decode slot, by "
+            "served model", "model")
+        self.serve_kv_utilization = Gauge(
+            "kubeml_serve_kv_page_utilization",
+            "Fraction of a served model's KV cache pages in use", "model")
+        self.serve_requests_total = Counter(
+            "kubeml_serve_requests_total",
+            "Finished /generate requests by served model and outcome "
+            "(ok|rejected|cancelled|deadline|error)", ("model", "outcome"))
+        self.serve_tokens_total = Counter(
+            "kubeml_serve_tokens_total",
+            "Tokens generated by a served model", "model")
+        # chunked prefill + prefix cache: where prompt tokens are
+        # spent (bulk prefill vs per-token decode), how often full
+        # prompt pages are served from the content-hash cache, and the
+        # prompt work queued ahead of any new request's first token
+        self.serve_prefill_tokens_total = Counter(
+            "kubeml_serve_prefill_tokens_total",
+            "Prompt tokens bulk-loaded through the chunked-prefill "
+            "program, by served model", "model")
+        self.serve_decode_tokens_total = Counter(
+            "kubeml_serve_decode_tokens_total",
+            "Tokens advanced through the decode program across all "
+            "slots, by served model", "model")
+        self.serve_prefix_hits_total = Counter(
+            "kubeml_serve_prefix_cache_hits_total",
+            "Prompt pages attached from the shared prefix cache instead "
+            "of being re-prefilled, by served model", "model")
+        self.serve_prefix_misses_total = Counter(
+            "kubeml_serve_prefix_cache_misses_total",
+            "Prompt prefix-cache lookups that found no resident page, "
+            "by served model", "model")
+        self.serve_prefill_backlog = Gauge(
+            "kubeml_serve_prefill_backlog_tokens",
+            "Prompt tokens admitted but not yet prefilled, by served "
+            "model", "model")
+        # fault tolerance: supervisor rebuilds, poisoned-stream
+        # quarantines, and KV pager invariant violations (production
+        # engines log-and-count instead of crashing; any nonzero value
+        # is a bug to chase)
+        self.serve_engine_restarts_total = Counter(
+            "kubeml_serve_engine_restarts_total",
+            "Supervisor engine rebuilds after a dead or wedged serving "
+            "loop, by served model", "model")
+        self.serve_poisoned_total = Counter(
+            "kubeml_serve_poisoned_requests_total",
+            "Requests quarantined for poisoning the decode step "
+            "(non-finite logits or step exceptions isolated by "
+            "bisection), by served model", "model")
+        self.serve_page_leaks_total = Counter(
+            "kubeml_serve_page_leaks_total",
+            "KV pager invariant violations detected on release or "
+            "recovery, by served model", "model")
+        # decode bandwidth: deterministic device bytes the decode
+        # program moved through the paged KV cache (page geometry x
+        # storage dtype per decoded token — a comm proxy, not a timer),
+        # the observable the int8-KV mode exists to shrink
+        self.serve_kv_bytes_total = Counter(
+            "kubeml_serve_kv_bytes_total",
+            "KV-cache bytes moved by decode dispatches (deterministic "
+            "geometry-based proxy), by served model", "model")
+        # the weight generation new admissions attach to (advances on
+        # every zero-downtime hot-swap)
+        self.serve_weight_generation = Gauge(
+            "kubeml_serve_weight_generation",
+            "Weight generation new admissions of a served model attach "
+            "to (advances on hot-swap)", "model")
+        # serving fleet (serve/fleet.py), fed by the fleet's merged
+        # snapshot (update_fleet): live replica count, router traffic
+        # (spills off the affine replica, shed retries, cold starts),
+        # autoscaler decisions by action, and per-replica prefix-cache
+        # traffic; per-replica series ride a `replica` label
+        self.serve_fleet_replicas = Gauge(
+            "kubeml_serve_fleet_replicas",
+            "Live decode replicas behind the model's fleet router",
+            "model")
+        self.serve_fleet_spills_total = Counter(
+            "kubeml_serve_fleet_spills_total",
+            "Requests routed off their affine replica to a peer",
+            "model")
+        self.serve_fleet_router_retries_total = Counter(
+            "kubeml_serve_fleet_router_retries_total",
+            "Replica sheds the router retried against a peer", "model")
+        self.serve_fleet_cold_starts_total = Counter(
+            "kubeml_serve_fleet_cold_starts_total",
+            "Replicas built from zero by a first request", "model")
+        self.serve_fleet_scale_events_total = Counter(
+            "kubeml_serve_fleet_scale_events_total",
+            "Fleet autoscaler decisions applied, by action",
+            ("model", "action"))
+        self.serve_fleet_replica_prefix_hits_total = Counter(
+            "kubeml_serve_fleet_replica_prefix_hits_total",
+            "Prefix-cache hits per decode replica",
+            ("model", "replica"))
+        self.serve_fleet_replica_prefix_misses_total = Counter(
+            "kubeml_serve_fleet_replica_prefix_misses_total",
+            "Prefix-cache misses per decode replica",
+            ("model", "replica"))
+        # fleet failure domains (serve/fleet.py supervise_once):
+        # ejections (replica removed from the ring), failovers
+        # (ejections that moved >= 1 in-flight stream), migrated
+        # streams (failover + hedge moves), half-open probes, hedges
+        self.serve_fleet_ejections_total = Counter(
+            "kubeml_serve_fleet_ejections_total",
+            "Replicas ejected from the ring (dead or crash-looping)",
+            "model")
+        self.serve_fleet_failovers_total = Counter(
+            "kubeml_serve_fleet_failovers_total",
+            "Ejections that live-migrated at least one stream", "model")
+        self.serve_fleet_migrated_streams_total = Counter(
+            "kubeml_serve_fleet_migrated_streams_total",
+            "In-flight streams resumed on another replica", "model")
+        self.serve_fleet_probes_total = Counter(
+            "kubeml_serve_fleet_probes_total",
+            "Half-open probe requests routed to probation replicas",
+            "model")
+        self.serve_fleet_hedges_total = Counter(
+            "kubeml_serve_fleet_hedges_total",
+            "Queued streams re-issued off a straggler replica", "model")
+        # serving SLO plane (serve/slo.py), fed by the fleet's merged
+        # snapshot: attainment and the fast/slow burn-rate windows as
+        # gauges (window rides a LABEL, not a family suffix), the
+        # good/bad classification and burn-alert onsets as counters
+        self.serve_slo_attainment = Gauge(
+            "kubeml_serve_slo_attainment",
+            "Fraction of finished requests meeting the model's latency "
+            "SLO over the slow burn window", "model")
+        self.serve_slo_burn_rate = MultiGauge(
+            "kubeml_serve_slo_burn_rate",
+            "SLO error-budget burn rate (bad fraction over 1-target), "
+            "by window (fast|slow)", ("model", "window"))
+        self.serve_slo_good_total = Counter(
+            "kubeml_serve_slo_good_total",
+            "Finished requests that met the model's latency SLO",
+            "model")
+        self.serve_slo_bad_total = Counter(
+            "kubeml_serve_slo_bad_total",
+            "Finished requests that missed the model's latency SLO "
+            "(slow, errored, or deadline-expired)", "model")
+        self.serve_slo_burn_alerts_total = Counter(
+            "kubeml_serve_slo_burn_alerts_total",
+            "Multi-window SLO burn alert onsets (fast AND slow burn "
+            "above 1.0)", "model")
         # the /infer checkpoint LRU
         self.infer_cache_entries = Gauge(
             "kubeml_infer_cache_entries",
@@ -452,6 +643,7 @@ class MetricsRegistry:
         self._jit_seen: Dict[str, float] = {}
         self._trace_seen: Dict[str, float] = {}
         self._cost_seen: Dict[tuple, float] = {}
+        self._fleet_seen: Dict[tuple, float] = {}
         self._job_gauges = [self.validation_loss, self.validation_accuracy,
                             self.train_loss, self.parallelism,
                             self.epoch_duration, self.dropped_workers,
@@ -467,6 +659,35 @@ class MetricsRegistry:
         self._job_counters = [self.health_alerts_total,
                               self.jit_compiles_total,
                               self.trace_dropped_total]
+        self._serve_gauges = [self.serve_active_slots,
+                              self.serve_queue_depth,
+                              self.serve_kv_utilization,
+                              self.serve_prefill_backlog,
+                              self.serve_weight_generation,
+                              self.serve_fleet_replicas,
+                              self.serve_slo_attainment]
+        self._serve_hists = [self.serve_ttft_seconds,
+                             self.serve_tpot_seconds,
+                             self.serve_e2e_seconds,
+                             self.serve_stream_duration_seconds]
+        self._serve_counters = [
+            self.serve_requests_total, self.serve_tokens_total,
+            self.serve_prefill_tokens_total, self.serve_decode_tokens_total,
+            self.serve_prefix_hits_total, self.serve_prefix_misses_total,
+            self.serve_engine_restarts_total, self.serve_poisoned_total,
+            self.serve_page_leaks_total, self.serve_kv_bytes_total,
+            self.serve_fleet_spills_total,
+            self.serve_fleet_router_retries_total,
+            self.serve_fleet_cold_starts_total,
+            self.serve_fleet_scale_events_total,
+            self.serve_fleet_replica_prefix_hits_total,
+            self.serve_fleet_replica_prefix_misses_total,
+            self.serve_fleet_ejections_total,
+            self.serve_fleet_failovers_total,
+            self.serve_fleet_migrated_streams_total,
+            self.serve_fleet_probes_total, self.serve_fleet_hedges_total,
+            self.serve_slo_good_total, self.serve_slo_bad_total,
+            self.serve_slo_burn_alerts_total]
 
     def update_job(self, m) -> None:
         """Apply a MetricUpdate (ml/pkg/ps/metrics.go:90-99)."""
@@ -544,6 +765,183 @@ class MetricsRegistry:
     def note_health_alert(self, job_id: str, rule: str) -> None:
         self.health_alerts_total.inc((job_id, rule))
 
+    # ------------------------------------------------------- serving plane
+
+    def observe_serve_request(self, model: str, outcome: str) -> None:
+        self.serve_requests_total.inc((model, outcome))
+
+    def observe_serve_latency(self, model: str, ttft: float = None,
+                              tpot: float = None,
+                              e2e: float = None) -> None:
+        if ttft is not None:
+            self.serve_ttft_seconds.observe(model, ttft)
+        if tpot is not None:
+            self.serve_tpot_seconds.observe(model, tpot)
+        if e2e is not None:
+            self.serve_e2e_seconds.observe(model, e2e)
+
+    def set_serve_state(self, model: str, active_slots: float,
+                        queue_depth: float, kv_utilization: float,
+                        prefill_backlog: float = 0.0) -> None:
+        self.serve_active_slots.set(model, active_slots)
+        self.serve_queue_depth.set(model, queue_depth)
+        self.serve_kv_utilization.set(model, kv_utilization)
+        self.serve_prefill_backlog.set(model, prefill_backlog)
+
+    def set_serve_weight_generation(self, model: str, gen: int) -> None:
+        self.serve_weight_generation.set(model, float(gen))
+
+    def note_serve_tokens(self, model: str, n: int) -> None:
+        self.serve_tokens_total.inc(model, n)
+
+    def note_serve_prefill(self, model: str, n: int) -> None:
+        self.serve_prefill_tokens_total.inc(model, n)
+
+    def note_serve_decode(self, model: str, n: int) -> None:
+        self.serve_decode_tokens_total.inc(model, n)
+
+    def note_serve_prefix_hits(self, model: str, n: int) -> None:
+        self.serve_prefix_hits_total.inc(model, n)
+
+    def note_serve_prefix_misses(self, model: str, n: int) -> None:
+        self.serve_prefix_misses_total.inc(model, n)
+
+    def note_serve_engine_restart(self, model: str) -> None:
+        self.serve_engine_restarts_total.inc(model)
+
+    def note_serve_poisoned(self, model: str) -> None:
+        self.serve_poisoned_total.inc(model)
+
+    def note_serve_page_leaks(self, model: str, n: int) -> None:
+        self.serve_page_leaks_total.inc(model, n)
+
+    def note_serve_kv_bytes(self, model: str, n: int) -> None:
+        self.serve_kv_bytes_total.inc(model, n)
+
+    def observe_serve_ttft_breakdown(self, model: str, queue: float,
+                                     prefill: float,
+                                     interleave: float) -> None:
+        self.serve_ttft_breakdown_seconds.observe((model, "queue"), queue)
+        self.serve_ttft_breakdown_seconds.observe((model, "prefill"),
+                                                  prefill)
+        self.serve_ttft_breakdown_seconds.observe((model, "interleave"),
+                                                  interleave)
+
+    def observe_serve_stream(self, model: str, seconds: float) -> None:
+        self.serve_stream_duration_seconds.observe(model, seconds)
+
+    def note_serve_trace_dropped(self, model: str, cum: int) -> None:
+        """Advance kubeml_trace_events_dropped_total for a serving
+        sink's drops, under the serve:<model> pseudo-job id — the value
+        is cumulative over the service's life (Tracer.dropped_events),
+        the counter advances by delta like the training-plane path in
+        update_job."""
+        job_id = f"serve:{model}"
+        seen = self._trace_seen.get(job_id, 0)
+        if cum > seen:
+            self.trace_dropped_total.inc(job_id, cum - seen)
+            self._trace_seen[job_id] = cum
+
+    def update_fleet(self, model: str, snap: dict) -> None:
+        """Apply one merged fleet snapshot (serve/fleet.py). The gauge
+        mirrors the live replica count; lifetime counters advance by
+        delta against the snapshot's cumulative values (the
+        update_cluster discipline, so republished snapshots stay
+        monotone); the per-replica prefix hit/miss fields are already
+        deltas and feed their counters directly."""
+        self.serve_fleet_replicas.set(
+            model, float(snap.get("fleet_replicas", 0)))
+        # SLO plane: attainment + burn windows mirror the snapshot
+        # (gauges), classification counters advance by delta
+        self.serve_slo_attainment.set(
+            model, float(snap.get("serve_slo_attainment", 1.0)))
+        self.serve_slo_burn_rate.set(
+            (model, "fast"), float(snap.get("serve_slo_burn_fast", 0.0)))
+        self.serve_slo_burn_rate.set(
+            (model, "slow"), float(snap.get("serve_slo_burn_slow", 0.0)))
+        for field, counter in (
+                ("fleet_spills_total", self.serve_fleet_spills_total),
+                ("fleet_router_retries_total",
+                 self.serve_fleet_router_retries_total),
+                ("fleet_cold_starts_total",
+                 self.serve_fleet_cold_starts_total),
+                ("fleet_ejections_total",
+                 self.serve_fleet_ejections_total),
+                ("fleet_failovers_total",
+                 self.serve_fleet_failovers_total),
+                ("fleet_migrated_streams_total",
+                 self.serve_fleet_migrated_streams_total),
+                ("fleet_probes_total", self.serve_fleet_probes_total),
+                ("fleet_hedges_total", self.serve_fleet_hedges_total),
+                ("serve_slo_good_total", self.serve_slo_good_total),
+                ("serve_slo_bad_total", self.serve_slo_bad_total),
+                ("serve_slo_alerts_total",
+                 self.serve_slo_burn_alerts_total)):
+            cum = float(snap.get(field, 0))
+            seen = self._fleet_seen.get((model, field), 0.0)
+            if cum > seen:
+                counter.inc(model, cum - seen)
+                self._fleet_seen[(model, field)] = cum
+        for field, action in (("fleet_grows_total", "grow"),
+                              ("fleet_shrinks_total", "shrink"),
+                              ("fleet_scale_to_zero_total",
+                               "scale_to_zero")):
+            cum = float(snap.get(field, 0))
+            seen = self._fleet_seen.get((model, field), 0.0)
+            if cum > seen:
+                self.serve_fleet_scale_events_total.inc(
+                    (model, action), cum - seen)
+                self._fleet_seen[(model, field)] = cum
+        for counter, field in (
+                (self.serve_fleet_replica_prefix_hits_total,
+                 "fleet_replica_prefix_hits"),
+                (self.serve_fleet_replica_prefix_misses_total,
+                 "fleet_replica_prefix_misses")):
+            for replica, n in (snap.get(field) or {}).items():
+                if n > 0:
+                    counter.inc((model, str(replica)), float(n))
+
+    def clear_serve(self, model: str) -> None:
+        for g in (self.serve_active_slots, self.serve_queue_depth,
+                  self.serve_kv_utilization, self.serve_prefill_backlog,
+                  self.serve_weight_generation,
+                  self.serve_fleet_replicas,
+                  self.serve_slo_attainment):
+            g.clear(model)
+        self.serve_slo_burn_rate.clear_prefix(model)
+        for h in self._serve_hists:
+            h.clear(model)
+        for comp in ("queue", "prefill", "interleave"):
+            self.serve_ttft_breakdown_seconds.clear((model, comp))
+        for c in (self.serve_requests_total, self.serve_tokens_total,
+                  self.serve_prefill_tokens_total,
+                  self.serve_decode_tokens_total,
+                  self.serve_prefix_hits_total,
+                  self.serve_prefix_misses_total,
+                  self.serve_engine_restarts_total,
+                  self.serve_poisoned_total,
+                  self.serve_page_leaks_total,
+                  self.serve_kv_bytes_total,
+                  self.serve_fleet_spills_total,
+                  self.serve_fleet_router_retries_total,
+                  self.serve_fleet_cold_starts_total,
+                  self.serve_fleet_scale_events_total,
+                  self.serve_fleet_replica_prefix_hits_total,
+                  self.serve_fleet_replica_prefix_misses_total,
+                  self.serve_fleet_ejections_total,
+                  self.serve_fleet_failovers_total,
+                  self.serve_fleet_migrated_streams_total,
+                  self.serve_fleet_probes_total,
+                  self.serve_fleet_hedges_total,
+                  self.serve_slo_good_total,
+                  self.serve_slo_bad_total,
+                  self.serve_slo_burn_alerts_total):
+            c.clear_prefix(model)
+        self.trace_dropped_total.clear_prefix(f"serve:{model}")
+        self._trace_seen.pop(f"serve:{model}", None)
+        for key in [k for k in self._fleet_seen if k[0] == model]:
+            del self._fleet_seen[key]
+
     def note_infer_cache(self, hit: bool, cache: str = "checkpoints") -> None:
         (self.infer_cache_hits_total if hit
          else self.infer_cache_misses_total).inc(cache)
@@ -573,6 +971,9 @@ class MetricsRegistry:
                     + [self.running_total, self.restarts_total]
                     + self._job_counters + self._job_multi
                     + self._job_hists
+                    + self._serve_gauges + [self.serve_slo_burn_rate]
+                    + self._serve_counters + self._serve_hists
+                    + [self.serve_ttft_breakdown_seconds]
                     + [self.infer_cache_entries, self.infer_cache_hits_total,
                        self.infer_cache_misses_total, self.cost_flops_total,
                        self.cost_hbm_bytes_total,

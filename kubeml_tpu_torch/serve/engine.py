@@ -12,9 +12,10 @@ Two programs serve every stream:
 Both read the KV context through the paged-attention kernel on the card
 (ops/paged_attention.py). A token-budget scheduler in step() spends at
 most ``prefill_budget`` prompt tokens on prefill chunks (FIFO over
-admission order), then runs one decode call for the streams past their
-prompt, so in-flight streams keep their inter-token latency while new
-prompts load.
+admission order), then runs one decode call per weight generation for
+the streams past their prompt, so in-flight streams keep their
+inter-token latency while new prompts load. The JAX package's multi-step
+and speculative programs are not ported (ROADMAP A.1).
 
 Prefix caching rides the page tables: at attach, the prompt's full pages
 are matched through the allocator's content-hash index
@@ -23,12 +24,18 @@ references on the cached pages and its prefill cursor skips past them.
 A write into a shared or registered page is COPY-ON-WRITE: the decode
 step copies the page first, in the same call.
 
+Weight generations (hot-swap): params are per-slot data. install_weights
+adds a generation; every later attach pins to it while attached streams
+finish on theirs, and a superseded generation (its params and its
+prefix-cache partition) retires when its last slot releases.
+
 Determinism contract: slot math is row-independent, writable pages of
 different requests are disjoint, the attention softmax always runs over
 the full fixed context with invalid positions masked, and sampling keys
 derive from (request seed, position) only. A request therefore generates
 the same tokens alone or packed with neighbours, chunked or token by
-token, cache hit or miss.
+token, cache hit or miss — and resumed on a fresh engine after a crash
+or a migration, since attach re-prefills prompt + emitted tokens.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from kubeml_tpu_torch.models.gpt import (build_paged_decode_step,
                                          compute_params)
 from kubeml_tpu_torch.ops.paged_attention import (kernel_geometry_refusal,
                                                   kernel_smem_bytes)
+from kubeml_tpu_torch.serve.flight import FlightRecorder
 from kubeml_tpu_torch.serve.pager import (KVPageSlab, PageAllocator,
                                           PageGeometry, chain_hash)
 from kubeml_tpu_torch.serve.slots import GenerateRequest
@@ -59,36 +67,47 @@ ATTN_IMPLS = ("auto", "kernel", "plain")
 class _Slot:
     """Host-side state of one occupied decode slot."""
 
-    __slots__ = ("req", "pos", "prompt", "n_prompt", "seq", "hash_chain",
-                 "hashed_pages", "cached_pages")
+    __slots__ = ("req", "pos", "prompt", "n_prompt", "seq", "gen",
+                 "hash_chain", "hashed_pages", "cached_pages", "prefill_s")
 
-    def __init__(self, req: GenerateRequest, prompt: List[int], seq: int):
+    def __init__(self, req: GenerateRequest, prompt: List[int], seq: int,
+                 gen: int = 1):
         self.req = req
         self.prompt = prompt
         self.n_prompt = len(prompt)
         self.pos = 0            # next position to consume
         self.seq = seq          # admission order (newest-stall shedding)
+        self.gen = gen          # weight generation pinned at attach
         self.hash_chain = b""   # rolling digest over hashed_pages pages
         self.hashed_pages = 0   # prompt pages matched or registered so far
         self.cached_pages = 0   # prompt pages attached from the cache
+        # wall seconds of the calls that computed this request's prompt
+        # (the TTFT breakdown's prefill term)
+        self.prefill_s = 0.0
 
 
 class DecodeEngine:
     """Fixed pool of S decode slots over one paged KV slab.
 
-    Not thread-safe by itself: attach/step/cancel belong to the serving
-    loop thread (ServeService); free_slots/stats reads are safe.
+    Not thread-safe by itself: attach/step/cancel/install_weights belong
+    to the serving loop thread (ServeService); free_slots/stats reads are
+    safe.
 
     device: None means CUDA (raising without a CUDA device); the module
-    must live on the same device. prefill_chunk: prompt tokens per
-    prefill call (0 disables the prefill program — prompts ride the
-    decode step token by token). prefix_cache: share full prompt pages
-    across requests by content hash. prefill_budget: prompt tokens the
-    scheduler may spend on prefill per step (default: one chunk).
+    must live on the same device. ``variables`` is the module's state
+    dict to serve (the module's own by default). prefill_chunk: prompt
+    tokens per prefill call (0 disables the prefill program — prompts
+    ride the decode step token by token). prefix_cache: share full prompt
+    pages across requests by content hash. prefill_budget: prompt tokens
+    the scheduler may spend on prefill per step (default: one chunk).
     kv_dtype: "f32" (pages in the module dtype) or "int8". attn_impl
     states what the caller expects of the context read, which the device
     decides (ops/paged_attention.py): "auto" takes either, "kernel"
     demands a CUDA device, "plain" the CPU; a mismatch raises here.
+    tracer: optional Tracer for the request span trees; flight_steps: the
+    flight recorder's ring size (0 turns it off); fault_plan: a
+    faults.ServeFaultPlan; strict_pager: pager invariant violations raise
+    (tests) instead of counting into stats["page_leaks"].
 
     On CUDA the engine checks, before it allocates its slab, that the
     paged kernel takes its geometry (page size, head_dim, page dtype and
@@ -102,6 +121,8 @@ class DecodeEngine:
                  page: int = 16, clock=time.perf_counter,
                  prefill_chunk: int = 16, prefix_cache: bool = True,
                  prefill_budget: Optional[int] = None,
+                 tracer=None, flight_steps: int = 256,
+                 decode_span_every: int = 16, fault_plan=None,
                  strict_pager: bool = True, kv_dtype: str = "f32",
                  attn_impl: str = "auto", device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -120,8 +141,14 @@ class DecodeEngine:
             raise ValueError(
                 f"serve prefill chunk must be >= 0 (0 disables chunked "
                 f"prefill), got {prefill_chunk}")
+        flight_steps = int(flight_steps)
+        if flight_steps < 0:
+            raise ValueError(
+                f"flight_steps must be >= 0 (0 disables the recorder), "
+                f"got {flight_steps}")
         self.module = module
         self.kv_dtype = kv_dtype
+        self.attn_impl = attn_impl
         self._step_fn = build_paged_decode_step(module, kv_dtype)
         self.geom = geom or PageGeometry.for_module(
             slots=slots, page=page, max_len=module.max_len)
@@ -143,18 +170,37 @@ class DecodeEngine:
         if prefill_chunk > 0:
             self._prefill_fn = build_paged_prefill_step(
                 module, prefill_chunk, kv_dtype)
-        self.params = compute_params(module, variables)
+        # weight generations: each holds its own params on the device
+        # until its last slot releases (_maybe_retire)
+        self.weight_generation = 1
+        self._params_by_gen: Dict[int, dict] = {
+            1: compute_params(module, variables)}
         S, Pmax = self.geom.slots, self.geom.pages_per_slot
         self._tables = np.zeros((S, Pmax), np.int32)
         self._slots: List[Optional[_Slot]] = [None] * S
         self._seq = 0
+        # host-side observability: request spans on an optional tracer
+        # (timestamps from this engine's clock) and the always-on flight
+        # recorder; neither touches the device
+        self.tracer = tracer
+        self.flight = FlightRecorder(flight_steps) if flight_steps else None
+        self.decode_span_every = max(1, int(decode_span_every))
+        self.fault_plan = fault_plan
         self.strict_pager = bool(strict_pager)
+        # an abandoned engine's step() is a no-op: a wedged loop thread
+        # that wakes after the supervisor swapped in a replacement can
+        # never double-emit tokens the replacement re-decodes
+        self._abandoned = False
+        self._step_count = 0
+        self._dispatch_wall_s = 0.0   # wall time of prefill+decode calls
+        self._shed_count = 0          # KV-exhaustion sheds
         self.stats: Dict[str, float] = {
             "dispatches": 0, "generated_tokens": 0, "occupancy_sum": 0,
             "stalls": 0, "prefill_dispatches": 0, "prefill_tokens": 0,
             "decode_tokens": 0, "prefix_hits": 0, "prefix_misses": 0,
-            "cow_splits": 0, "poisoned": 0, "deadline_expired": 0,
-            "page_leaks": 0, "kv_bytes": 0,
+            "cow_splits": 0, "weight_swaps": 0, "generations_retired": 0,
+            "poisoned": 0, "deadline_expired": 0, "page_leaks": 0,
+            "kv_bytes": 0,
         }
 
     def _check_kernel_geometry(self, prefill_chunk: int) -> None:
@@ -185,13 +231,98 @@ class DecodeEngine:
     def free_slots(self) -> int:
         return self.geom.slots - self.active()
 
+    def kv_utilization(self) -> float:
+        return self.pager.utilization()
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one decoded token moves through the KV cache
+        (page geometry x dtype, never a timer)."""
+        return self.slab.decode_bytes_per_token
+
+    @property
+    def dispatches_per_token(self) -> float:
+        """Decode calls per generated token: 1.0 for single-step decode,
+        0.0 before the first generated token."""
+        toks = self.stats["generated_tokens"]
+        return (self.stats["dispatches"] / toks) if toks else 0.0
+
+    @property
+    def params_bytes(self) -> int:
+        """Device bytes of every resident weight generation's params."""
+        def nbytes(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.numel() * tree.element_size()
+            if isinstance(tree, dict):
+                return sum(nbytes(v) for v in tree.values())
+            if isinstance(tree, (list, tuple)):
+                return sum(nbytes(v) for v in tree)
+            return 0
+        # a snapshot: the loop thread may install or retire meanwhile
+        return sum(nbytes(p) for p in list(self._params_by_gen.values()))
+
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens admitted to slots but not yet prefilled."""
         return sum(max(0, sl.n_prompt - 1 - sl.pos)
                    for sl in self._slots if sl is not None)
 
+    def active_generations(self) -> List[int]:
+        """Weight generations with resident params: the current one plus
+        older ones still pinned by in-flight streams."""
+        return sorted(self._params_by_gen)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------------- hot-swap
+    def install_weights(self, variables: dict) -> int:
+        """Install a new weight generation (a module state dict): streams
+        in flight keep decoding on the generation they attached under,
+        every later attach pins to the new one. Returns the new
+        generation. Serving-loop thread only, like attach/step: a param
+        copy racing a step would race the device."""
+        self.weight_generation += 1
+        self._params_by_gen[self.weight_generation] = compute_params(
+            self.module, variables)
+        self.stats["weight_swaps"] += 1
+        for gen in list(self._params_by_gen):
+            self._maybe_retire(gen)
+        return self.weight_generation
+
+    def _maybe_retire(self, gen: int) -> None:
+        """Drop a superseded generation's params and prefix-cache
+        partition once no slot is pinned to it. The current generation
+        never retires."""
+        if gen == self.weight_generation:
+            return
+        if any(sl is not None and sl.gen == gen for sl in self._slots):
+            return
+        if self._params_by_gen.pop(gen, None) is not None:
+            self.pager.drop_generation(gen)
+            self.stats["generations_retired"] += 1
+            logger.info("retired weight generation %d (current %d)", gen,
+                        self.weight_generation)
+
+    # -------------------------------------------------------------- tracing
+    def _span(self, name: str, start: float, end: float,
+              req: GenerateRequest, **args) -> None:
+        """One request-tree span, parented to the request's ``generate``
+        root; the request's trace_id rides in args."""
+        if self.tracer is None:
+            return
+        if req.trace_id:
+            args["trace_id"] = req.trace_id
+        self.tracer.add_span(name, start, end, parent="generate",
+                             rid=req.rid, **args)
+
+    def _instant(self, name: str, ts: float, req: GenerateRequest,
+                 **args) -> None:
+        if self.tracer is None:
+            return
+        if req.trace_id:
+            args["trace_id"] = req.trace_id
+        self.tracer.instant(name, ts=ts, parent="generate", rid=req.rid,
+                            **args)
 
     # ------------------------------------------------------------ lifecycle
     def check_admissible(self, prompt: List[int],
@@ -224,29 +355,54 @@ class DecodeEngine:
         """Claim a free slot for a validated request; returns the slot.
         With the prefix cache on, the prompt's full pages are matched
         against the content-hash index and every hit is shared into the
-        slot's table — the prefill cursor starts past the matched run."""
-        prompt = self.check_admissible(req.prompt, req.max_new_tokens)
+        slot's table — the prefill cursor starts past the matched run.
+
+        A request that already emitted tokens (supervisor recovery, fleet
+        migration) is RESUMED: prompt + emitted tokens are re-prefilled as
+        one context, and since sampling keys are (seed, position) the
+        continuation equals the uninterrupted stream; positions before
+        the last context token emit nothing. The stream re-pins its
+        generation (resume_gen) when its params are still resident."""
+        ctx = list(req.prompt)
+        budget = req.max_new_tokens
+        if req.tokens:
+            ctx = ctx + [int(t) for t in req.tokens]
+            budget = max(1, req.max_new_tokens - len(req.tokens))
+        prompt = self.check_admissible(ctx, budget)
+        gen = self.weight_generation
+        if req.resume_gen is not None \
+                and req.resume_gen in self._params_by_gen:
+            gen = req.resume_gen
         for s, cur in enumerate(self._slots):
             if cur is None:
-                slot = _Slot(req, prompt, self._seq)
+                t0 = self.clock()
+                slot = _Slot(req, prompt, self._seq, gen=gen)
                 self._seq += 1
                 self._slots[s] = slot
                 if self.prefix_cache:
                     self._match_prefix(s, slot)
-                req.admitted_at = self.clock()
+                t1 = self.clock()
+                req.admitted_at = t1
+                if req.submitted_at is not None:
+                    self._span("queue_wait", req.submitted_at, t0, req)
+                self._span("admit", t0, t1, req, slot=s,
+                           prompt_tokens=slot.n_prompt,
+                           prefix_hit_pages=slot.cached_pages,
+                           generation=slot.gen)
                 return s
         raise RuntimeError("attach() with no free slot — admission "
                            "accounting is broken")
 
     def _match_prefix(self, s: int, slot: _Slot) -> None:
-        """Walk the prompt's full pages through the prefix cache; stop at
-        the first miss (the chain hash makes later pages unmatchable)."""
+        """Walk the prompt's full pages through the prefix cache (the
+        slot's generation's partition); stop at the first miss (the chain
+        hash makes later pages unmatchable)."""
         G = self.geom.page
         k = 0
         chain = b""
         while (k + 1) * G <= slot.n_prompt and k < self.geom.pages_per_slot:
             digest = chain_hash(chain, slot.prompt[k * G:(k + 1) * G])
-            pid = self.pager.lookup_prefix(digest)
+            pid = self.pager.lookup_prefix(digest, slot.gen)
             if pid is None:
                 self.stats["prefix_misses"] += 1
                 break
@@ -271,28 +427,57 @@ class DecodeEngine:
             pi = slot.hashed_pages
             digest = chain_hash(slot.hash_chain,
                                 slot.prompt[pi * G:(pi + 1) * G])
-            self.pager.register_prefix(int(self._tables[s, pi]), digest)
+            self.pager.register_prefix(int(self._tables[s, pi]), digest,
+                                       slot.gen)
             slot.hash_chain = digest
             slot.hashed_pages += 1
 
-    def release(self, s: int, outcome: str,
-                error: Optional[str] = None) -> None:
-        """Free a slot and drop its page references (shared prefix pages
-        survive in the cache); emits the request's terminal event. Covers
-        cancel at any phase, including mid-prefill."""
+    def _free_slot(self, s: int) -> _Slot:
+        """Drop slot s's page references (shared prefix pages survive in
+        the cache) and clear it."""
         slot = self._slots[s]
-        if slot is None:
-            return
         held = [int(p) for p in self._tables[s] if p]
         if held:
             self.pager.free(held)
         self._tables[s] = 0
         self._slots[s] = None
+        return slot
+
+    def release(self, s: int, outcome: str,
+                error: Optional[str] = None) -> None:
+        """Free a slot and emit the request's terminal event. Covers
+        cancel at any phase, including mid-prefill."""
+        if self._slots[s] is None:
+            return
+        slot = self._free_slot(s)
         slot.req.finished_at = self.clock()
+        if outcome == "cancelled":
+            kind = "cancel"
+        elif outcome == "error" and error and "shed" in error:
+            kind = "shed"
+        else:
+            kind = "finish"
+        self._instant(kind, slot.req.finished_at, slot.req,
+                      outcome=outcome, tokens=len(slot.req.tokens),
+                      **({"error": error} if error else {}))
         slot.req.finish(outcome, error)
+        # the last reader of a superseded generation frees it
+        self._maybe_retire(slot.gen)
         # every release audits page conservation, so a leak is caught at
         # the request that caused it
         self.check_pager()
+
+    def evacuate(self, s: int) -> Optional[GenerateRequest]:
+        """Forced-teardown detach for fleet migration: free slot s's
+        pages WITHOUT finishing its request, which a surviving replica
+        adopts and resumes (attach re-prefills prompt + emitted tokens).
+        The pager audit runs as on any release."""
+        if self._slots[s] is None:
+            return None
+        slot = self._free_slot(s)
+        self._maybe_retire(slot.gen)
+        self.check_pager()
+        return slot.req
 
     def check_pager(self) -> None:
         """Run the allocator's invariant audit. Violations raise in
@@ -313,6 +498,40 @@ class DecodeEngine:
                 return True
         return False
 
+    # ------------------------------------------------------------ supervisor
+    def abandon(self) -> None:
+        """Mark this engine dead (the supervisor swapped a replacement
+        in): step() becomes a no-op, and a wedge spin ends."""
+        self._abandoned = True
+
+    def drop_slab(self) -> None:
+        """Free an abandoned engine's KV slab. Called by the loop thread
+        that drove it, as that thread exits: until then it may still be
+        inside a step that reads the slab."""
+        if self._abandoned:
+            self.slab = None
+
+    def spawn_recovered(self) -> "DecodeEngine":
+        """This engine's replacement after a crash or wedge: a fresh slab
+        on the same device, pager, tables and slots, the same knobs and
+        fault plan. It adopts every resident weight generation, so resumed
+        streams re-attach pinned to the params they started under; the
+        prefix cache starts cold (its KV lived in the dead slab)."""
+        eng = DecodeEngine(
+            self.module, geom=self.geom, clock=self.clock,
+            prefill_chunk=self.prefill_chunk,
+            prefix_cache=self.prefix_cache,
+            prefill_budget=self.prefill_budget, tracer=self.tracer,
+            flight_steps=self.flight.capacity if self.flight else 0,
+            decode_span_every=self.decode_span_every,
+            fault_plan=self.fault_plan, strict_pager=self.strict_pager,
+            kv_dtype=self.kv_dtype, attn_impl=self.attn_impl,
+            device=self.device)
+        eng.weight_generation = self.weight_generation
+        eng._params_by_gen = dict(self._params_by_gen)
+        eng.check_pager()
+        return eng
+
     # -------------------------------------------------------------- prefill
     def _dispatch_prefill(self, s: int, slot: _Slot) -> int:
         """One prefill chunk for slot s: grant pages, bulk-write up to C
@@ -323,6 +542,7 @@ class DecodeEngine:
         C = self.prefill_chunk
         start = slot.pos
         end = min(start + C, slot.n_prompt - 1)
+        granted = 0
         for pi in range(start // G, (end - 1) // G + 1):
             if self._tables[s, pi] == 0:
                 pid = self.pager.alloc()
@@ -332,6 +552,7 @@ class DecodeEngine:
                     end = min(end, pi * G)
                     break
                 self._tables[s, pi] = pid
+                granted += 1
         n = end - start
         if n <= 0:
             return 0
@@ -346,12 +567,19 @@ class DecodeEngine:
         write_pages[:n] = self._tables[s, p // G]
         write_offs[:n] = p % G
         in_chunk[:n] = 1.0
+        t0 = self.clock()
         self._prefill_fn(
-            self.params, self.slab, self._tensor(tokens), self._tensor(pos),
-            self._tensor(self._tables[s].copy()), self._tensor(write_pages),
-            self._tensor(write_offs), self._tensor(in_chunk))
+            self._params_by_gen[slot.gen], self.slab, self._tensor(tokens),
+            self._tensor(pos), self._tensor(self._tables[s].copy()),
+            self._tensor(write_pages), self._tensor(write_offs),
+            self._tensor(in_chunk))
+        t1 = self.clock()
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += n
+        slot.prefill_s += t1 - t0
+        self._dispatch_wall_s += t1 - t0
+        self._span("prefill_chunk", t0, t1, slot.req, tokens=n,
+                   pages_granted=granted, start_pos=start)
         slot.pos = end
         if self.prefix_cache:
             self._register_full_pages(s, slot)
@@ -364,12 +592,79 @@ class DecodeEngine:
 
     # ----------------------------------------------------------------- step
     @torch.no_grad()
-    def step(self) -> List[GenerateRequest]:
+    def step(self, exclude: frozenset = frozenset()
+             ) -> List[GenerateRequest]:
         """One scheduler round: up to prefill_budget prompt tokens of
-        prefill chunks (FIFO), then one decode call advancing every
-        decode-phase slot by one token. Returns the requests that reached
-        a terminal state this round."""
-        S = self.geom.slots
+        prefill chunks (FIFO), then one decode call per weight generation
+        advancing every decode-phase slot by one token. Returns the
+        requests that reached a terminal state this round.
+
+        ``exclude`` masks streams by rid for this round only: they skip
+        prefill and decode and do not advance (the service's bisection
+        retries a failed step with suspect lanes masked). Every step
+        leaves one record in the flight recorder."""
+        if self._abandoned:
+            return []
+        self._step_count += 1
+        mark = None if self.flight is None else (
+            self.stats["prefill_dispatches"], self.stats["dispatches"],
+            self.stats["generated_tokens"], self.stats["cow_splits"],
+            self._dispatch_wall_s, self._shed_count,
+            self.stats["deadline_expired"])
+        try:
+            return self._step_inner(exclude)
+        finally:
+            if mark is not None:
+                self._record_flight(mark)
+
+    def _record_flight(self, mark) -> None:
+        pf0, d0, g0, c0, w0, sh0, dl0 = mark
+        pf = int(self.stats["prefill_dispatches"] - pf0)
+        de = int(self.stats["dispatches"] - d0)
+        if self._shed_count > sh0:
+            kind = "shed"
+        elif pf and de:
+            kind = "mixed"
+        elif pf:
+            kind = "prefill"
+        elif de:
+            kind = "decode"
+        else:
+            kind = "idle"
+        self.flight.record({
+            "step": self._step_count,
+            "ts": self.clock(),
+            "kind": kind,
+            "active_slots": self.active(),
+            "prefill_backlog": self.prefill_backlog_tokens(),
+            "kv_pages": self.pager.in_use,
+            "cow_splits": int(self.stats["cow_splits"] - c0),
+            "prefill_dispatches": pf,
+            "decode_dispatches": de,
+            "dispatch_s": round(self._dispatch_wall_s - w0, 9),
+            "tokens": int(self.stats["generated_tokens"] - g0),
+            "weight_generation": self.weight_generation,
+            "generations": len(self._params_by_gen),
+            "deadlines": int(self.stats["deadline_expired"] - dl0),
+        })
+
+    def _note_first_token(self, slot: _Slot, t1: float) -> None:
+        """First generated token: fill the additive TTFT breakdown
+        (queue + prefill + interleave == TTFT; interleave is the
+        remainder) and drop the instant on the timeline."""
+        req = slot.req
+        args = {}
+        if req.submitted_at is not None:
+            ttft = t1 - req.submitted_at
+            queue = (req.admitted_at if req.admitted_at is not None
+                     else req.submitted_at) - req.submitted_at
+            prefill = slot.prefill_s
+            req.ttft_breakdown = {"queue": queue, "prefill": prefill,
+                                  "interleave": ttft - queue - prefill}
+            args = dict(ttft=ttft, **req.ttft_breakdown)
+        self._instant("first_token", t1, req, **args)
+
+    def _step_inner(self, exclude: frozenset) -> List[GenerateRequest]:
         G = self.geom.page
         stalled: List[int] = []
 
@@ -396,13 +691,23 @@ class DecodeEngine:
                          f"after {len(req.tokens)} token(s)")
             finished.append(req)
 
+        # fault hooks BEFORE any page maintenance: an injected crash
+        # leaves the step free of side effects, so the bisection's retries
+        # all start from the same tables
+        if self.fault_plan is not None:
+            occupants = [(s, sl.req.rid) for s, sl in enumerate(self._slots)
+                         if sl is not None and sl.req.rid not in exclude]
+            self.fault_plan.check_crash(self._step_count, occupants)
+            self.fault_plan.sleep(self._step_count)
+
         # ------------------------------------------------- prefill lane
         progressed = False
         if self._prefill_fn is not None:
             budget = self.prefill_budget
             order = sorted(
                 (s for s, sl in enumerate(self._slots)
-                 if sl is not None and self._in_prefill(sl)),
+                 if sl is not None and self._in_prefill(sl)
+                 and sl.req.rid not in exclude),
                 key=lambda s: self._slots[s].seq)
             for s in order:
                 slot = self._slots[s]
@@ -418,11 +723,12 @@ class DecodeEngine:
 
         # -------------------------------------------------- decode lane
         # per-slot page maintenance first (alloc / copy-on-write), then
-        # one decode call for every ready slot
+        # one decode call per active weight generation
         ready: List[int] = []
         cow: Dict[int, tuple] = {}
         for s, slot in enumerate(self._slots):
-            if slot is None or self._in_prefill(slot):
+            if slot is None or self._in_prefill(slot) \
+                    or slot.req.rid in exclude:
                 continue
             pi = slot.pos // G
             pid = int(self._tables[s, pi])
@@ -456,11 +762,27 @@ class DecodeEngine:
                 req = self._slots[victim].req
                 logger.warning("KV slab exhausted with all slots stalled; "
                                "shedding newest stream")
+                self._shed_count += 1
                 self.release(victim, "error",
                              "KV cache pages exhausted; request shed")
                 finished.append(req)
             return finished
 
+        # snapshot each ready slot's generation up front: an earlier
+        # generation's call may release its members
+        gen_of = {s: self._slots[s].gen for s in ready}
+        for gen in sorted(set(gen_of.values())):
+            members = [s for s in ready if gen_of[s] == gen]
+            self._dispatch_decode(gen, members, cow, finished)
+        return finished
+
+    def _dispatch_decode(self, gen: int, members: List[int],
+                         cow: Dict[int, tuple],
+                         finished: List[GenerateRequest]) -> None:
+        """One decode call for the members of one weight generation. The
+        other slots' write page and copy pair stay 0 (the null page), so
+        generations never clobber each other's KV."""
+        S, G = self.geom.slots, self.geom.page
         tokens = np.zeros(S, np.int64)
         pos = np.zeros(S, np.int64)
         write_page = np.zeros(S, np.int64)
@@ -470,7 +792,11 @@ class DecodeEngine:
         key_data = np.zeros((S, 2), np.uint32)
         copy_src = np.zeros(S, np.int64)
         copy_dst = np.zeros(S, np.int64)
-        for s in ready:
+        poison = np.zeros(S, np.float32)
+        if self.fault_plan is not None:
+            for s in self.fault_plan.nan_hits(self._step_count, members):
+                poison[s] = 1.0
+        for s in members:
             slot = self._slots[s]
             active[s] = 1.0
             tokens[s] = slot.prompt[slot.pos] \
@@ -484,23 +810,26 @@ class DecodeEngine:
             key_data[s] = (slot.req.seed & 0xFFFFFFFF, slot.pos)
             if s in cow:
                 copy_src[s], copy_dst[s] = cow[s]
+        t0 = self.clock()
         nxt, bad = self._step_fn(
-            self.params, self.slab, self._tensor(tokens), self._tensor(pos),
-            self._tensor(self._tables.copy()), self._tensor(write_page),
-            self._tensor(write_off), self._tensor(active), temps, key_data,
-            self._tensor(copy_src), self._tensor(copy_dst),
-            self._tensor(np.zeros(S, np.float32)))
-        self.stats["dispatches"] += 1
-        self.stats["occupancy_sum"] += len(ready)
-        self.stats["decode_tokens"] += len(ready)
-        # every decode-phase lane reads its whole paged context once per
-        # layer (geometry x dtype)
-        self.stats["kv_bytes"] += len(ready) * self.slab.decode_bytes_per_token
+            self._params_by_gen[gen], self.slab, self._tensor(tokens),
+            self._tensor(pos), self._tensor(self._tables.copy()),
+            self._tensor(write_page), self._tensor(write_off),
+            self._tensor(active), temps, key_data, self._tensor(copy_src),
+            self._tensor(copy_dst), self._tensor(poison))
         nxt_host = nxt.cpu().numpy()
         bad_host = bad.cpu().numpy()
-        t1 = self.clock()
+        t1 = self.clock()      # after the readback: the tokens exist
+        self._dispatch_wall_s += t1 - t0
+        self.stats["dispatches"] += 1
+        self.stats["occupancy_sum"] += len(members)
+        self.stats["decode_tokens"] += len(members)
+        # every decode-phase lane reads its whole paged context once per
+        # layer (geometry x dtype)
+        self.stats["kv_bytes"] += \
+            len(members) * self.slab.decode_bytes_per_token
 
-        for s in ready:
+        for s in members:
             slot = self._slots[s]
             p = slot.pos
             slot.pos = p + 1
@@ -513,6 +842,10 @@ class DecodeEngine:
                              f"{p}; request poisoned and isolated")
                 finished.append(req)
                 continue
+            if p <= slot.n_prompt - 1:
+                # this call computed prompt context for the slot (the
+                # TTFT prefill term)
+                slot.prefill_s += t1 - t0
             if self.prefix_cache:
                 # a prompt whose length is a page multiple completes its
                 # final page on this very advance — publish it
@@ -522,10 +855,16 @@ class DecodeEngine:
             tok = int(nxt_host[s])
             if slot.req.first_token_at is None:
                 slot.req.first_token_at = t1
+                self._note_first_token(slot, t1)
             slot.req.emit_token(tok)
             self.stats["generated_tokens"] += 1
+            n_out = len(slot.req.tokens)
+            if self.tracer is not None and n_out > 1 \
+                    and n_out % self.decode_span_every == 0:
+                # sampled: one decode span every Nth output token
+                self._span("decode", t0, t1, slot.req, pos=p,
+                           token_index=n_out, cow=int(s in cow))
             if (slot.req.eos_id is not None and tok == slot.req.eos_id) \
                     or len(slot.req.tokens) >= slot.req.max_new_tokens:
                 self.release(s, "ok")
                 finished.append(slot.req)
-        return finished

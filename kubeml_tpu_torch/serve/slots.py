@@ -12,7 +12,7 @@ from __future__ import annotations
 import queue
 import threading
 import uuid
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from kubeml_tpu_torch.api.errors import KubeMLException
 
@@ -51,6 +51,7 @@ class GenerateRequest:
     def __init__(self, prompt: List[int], max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
                  eos_id: Optional[int] = None,
+                 trace_id: Optional[str] = None,
                  deadline_ms: Optional[float] = None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
@@ -63,6 +64,17 @@ class GenerateRequest:
         self.deadline_ms = None if deadline_ms is None \
             else float(deadline_ms)
         self.deadline_at: Optional[float] = None
+        # supervisor recovery: the weight generation this stream was
+        # pinned to, so a resumed attach decodes the same params
+        self.resume_gen: Optional[int] = None
+        # fleet failover: times this stream was moved to another replica
+        # (ejection migration or hedge), charged against the fleet's
+        # migration budget; fleet_replica is where it lives now
+        self.migrations = 0
+        self.fleet_replica: Optional[int] = None
+        # trace_id rides from the client header through every span of the
+        # request's tree; rid separates co-resident requests sharing one
+        self.trace_id = trace_id or None
         self.rid = uuid.uuid4().hex[:8]
         self.tokens: List[int] = []          # generated ids, in order
         self.events: "queue.Queue[dict]" = queue.Queue()
@@ -73,6 +85,9 @@ class GenerateRequest:
         self.admitted_at: Optional[float] = None  # attach() = slot claimed
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        # additive TTFT decomposition, filled at the first token:
+        # queue + prefill + interleave == first_token_at - submitted_at
+        self.ttft_breakdown: Optional[Dict[str, float]] = None
         self._cancel = threading.Event()
         self._done = threading.Event()
 

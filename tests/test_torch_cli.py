@@ -382,9 +382,9 @@ REFUSED = [
     (["serve", "--num-processes", "2"], "ROADMAP A.7"),
     (["serve", "--process-id", "0"], "ROADMAP A.7"),
     (["serve", "--mesh-data", "2"], "ROADMAP A.7"),
-    (["serve", "--serve-slots", "4"], "ROADMAP A.1"),
-    (["serve", "--serve-prefix-cache", "on"], "ROADMAP A.1"),
-    (["serve", "--role", "ps", "--serve-kv-dtype", "int8"], "ROADMAP A.1"),
+    (["serve", "--serve-decode-steps", "2"], "ROADMAP A.1"),
+    (["serve", "--serve-draft-model", "m"], "ROADMAP A.1"),
+    (["serve", "--role", "ps", "--serve-decode-steps", "4"], "ROADMAP A.1"),
     (["serve", "--cluster-lanes", "2"], "ROADMAP A.16"),
     (["serve", "--cluster-tenant", "prod=2"], "ROADMAP A.16"),
     (["serve", "--control-durable"], "ROADMAP A.16"),
@@ -629,3 +629,46 @@ def test_cli_drives_a_deployment_on_the_card(tmp_path):
             "client", "job", "ps", "scheduler"]
     finally:
         _stop([server])
+
+
+@pytest.mark.parametrize("role", ["all", "ps"])
+def test_serve_passes_the_serve_knobs_through(role, monkeypatch, capsys):
+    """`kubeml serve --serve-...` hands every serving knob to the
+    deployment (--role all) or the PS (--role ps); unset ones stay None
+    (their KUBEML_SERVE_* variable or default)."""
+    from kubeml_tpu_torch.cli import main as cli
+    from kubeml_tpu_torch.control import deployment, ps
+
+    got = {}
+
+    class Stopped:
+        url = controller_url = "http://h:1"
+
+        def __init__(self, **kw):
+            got.update(kw)
+            self.controller = self.scheduler = self.ps = self.storage = self
+
+        def start(self):
+            pass
+
+        def stop(self):
+            got["stopped"] = True
+
+    def interrupt(_seconds):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(deployment, "start_deployment",
+                        lambda **kw: Stopped(**kw))
+    monkeypatch.setattr(ps, "ParameterServer", Stopped)
+    monkeypatch.setattr(cli.time, "sleep", interrupt)
+    cli.main(["serve", "--role", role, "--device", "cpu", "--free-ports",
+              "--serve-slots", "4", "--serve-kv-dtype", "int8",
+              "--serve-prefix-cache", "off", "--serve-replicas-max", "2",
+              "--serve-slo-ttft-ms", "250", "--serve-decode-steps", "1"])
+    assert got["stopped"]
+    assert (got["serve_slots"], got["serve_kv_dtype"],
+            got["serve_prefix_cache"], got["serve_replicas_max"],
+            got["serve_slo_ttft_ms"], got["serve_decode_steps"]) == \
+        (4, "int8", False, 2, 250.0, 1)
+    assert got["serve_queue_depth"] is None and got["serve_draft_model"] \
+        is None

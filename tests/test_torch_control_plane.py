@@ -260,9 +260,6 @@ REFUSED = [
     ("scheduler", "GET", "/cluster", 501, "ROADMAP A.16"),
     ("scheduler", "POST", "/serve/resize", 501, "ROADMAP A.16"),
     ("scheduler", "POST", "/requeue", 501, "ROADMAP A.17"),
-    ("ps", "POST", "/generate", 501, "ROADMAP A.1"),
-    ("ps", "GET", "/flight?id=serve:m", 501, "ROADMAP A.1"),
-    ("ps", "GET", "/trace?id=serve:m", 501, "ROADMAP A.1"),
     ("ps", "GET", "/cost?id=x", 501, "ROADMAP A.13"),
     ("ps", "POST", "/cluster", 501, "ROADMAP A.16"),
     ("ps", "POST", "/preempt/x", 501, "ROADMAP A.17"),
@@ -553,8 +550,10 @@ def test_user_function_trains_through_the_registry(plane):
 
 
 @pytest.mark.parametrize("knob,value,brings", [
-    ("serve_slots", 4, "ROADMAP A.1"),
-    ("serve_kv_dtype", "int8", "ROADMAP A.1"),
+    ("serve_decode_steps", 2, "multi-step and speculative decode, ROADMAP "
+                              "A.1"),
+    ("serve_draft_model", "m", "multi-step and speculative decode, ROADMAP "
+                               "A.1"),
     ("cluster_lanes", 4, "ROADMAP A.16"),
     ("cluster_tenants", ["prod=2"], "ROADMAP A.16"),
     ("control_durable", True, "ROADMAP A.16"),
@@ -618,3 +617,4 @@ def test_deployment_trains_on_the_card(tmp_path, monkeypatch):
         assert len(c.networks().infer(job_id, arrays[2][:8].tolist())) == 8
     finally:
         dep.stop()
+

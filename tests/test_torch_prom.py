@@ -108,10 +108,16 @@ def test_port_carries_the_training_families():
                  "kubeml_job_epoch_duration_seconds",
                  "kubeml_job_dropped_workers", "kubeml_job_restarts",
                  "kubeml_ps_restarts_total", "kubeml_job_merge_seconds",
-                 "kubeml_infer_cache_hits_total"):
+                 "kubeml_infer_cache_hits_total",
+                 # the serving plane's, set by the PS's fleets
+                 "kubeml_serve_ttft_seconds", "kubeml_serve_requests_total",
+                 "kubeml_serve_fleet_replicas",
+                 "kubeml_serve_slo_burn_rate"):
         assert want in names
-    assert not any(n.startswith(("kubeml_serve_", "kubeml_cluster_",
-                                 "kubeml_control_")) for n in names)
+    # the speculative-decode counters come with that program (ROADMAP A.1)
+    assert "kubeml_serve_draft_tokens_total" not in names
+    assert not any(n.startswith(("kubeml_cluster_", "kubeml_control_"))
+                   for n in names)
 
 
 @pytest.mark.parametrize("values", [
