@@ -216,6 +216,35 @@ Phases (any failure exits non-zero and prints no result line):
               tokens. (e) GET /flight, /trace (one generate tree per
               request under its response's trace id), /health and /metrics
               of serve:gpt-mini.
+ 15. cluster  the cluster allocator and the durable control plane: a
+              `kubeml serve --role all --standalone-jobs --cluster-lanes 4
+              --cluster-tenant prod=3:4 --cluster-tenant batch=1
+              --control-dir D` child (phase 14's serve knobs, bf16 pages,
+              no replica floor) on fixed ports, each job in a jobserver
+              child, over phase 10's windows (1024 + 128). (a) Gang
+              placement: gpt-mini at a static N=2 (tenant batch) places, an
+              N=3 job (tenant prod) parks on the 2 free lanes and places
+              when the first finishes; each job's queue wait, launches per
+              epoch (= the plan) and a checkpoint equal bit for bit to a
+              direct TrainJob at the same N. (b) Serve-elastic: the first
+              POST /generate cold-starts a replica whose gang places
+              through POST /serve/resize; phase 3's batch gives phase 3's
+              tokens with paged launches = 4 x dispatches; a priority-1
+              N=4 arrival preempts the serving gang, the fleet drains to
+              zero, the job places, and the next /generate cold-starts
+              with phase 3's tokens. (c) Recovery: a 3-epoch N=2 job is
+              held after epoch 1's MetricUpdate, the serve child is
+              SIGKILLed (not its job child) and started again on D: the
+              child is re-adopted (same pid, no restart spent), the
+              fencing epoch rises by 1 and reaches the child's task
+              through PS /update (its later epochs run under it), /job
+              with the old epoch answers 409, the fleet comes back at 1
+              replica with phase 3's tokens; released, the job finishes
+              (at its goal accuracy after epoch 2, as the direct job
+              does) with a checkpoint equal bit for bit to an
+              uninterrupted direct job's. Prints
+              kubeml_control_recovery_seconds per role and
+              torch.cuda.mem_get_info's free bytes around the kill.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -228,7 +257,9 @@ the paged kernel's entries also carry "ps_launches", phase 14's launches
 through the PS for that page type; each of
 the four training kernels also carries "job_launches", its launches in
 each epoch of phase 10's job, "deployment_launches" those of phase
-12's jobs and "cli_launches" those of phase 13's; the merge's "resnet18"
+12's jobs and "cli_launches" those of phase 13's; every entry carries
+"cluster_launches", its launches through phase 15's deployment (null for
+int8 pages, which phase 15 does not serve); the merge's "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
@@ -253,6 +284,11 @@ epoch.
 
 builds the paged kernel and runs phases 3 and 14 alone (serving direct and
 through the PS), printing their numbers as one JSON line.
+
+    python3 chip_smoke.py --cluster-only
+
+builds the kernels and runs phase 3 (bf16 pages) and phase 15 alone,
+printing phase 15's launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -1402,14 +1438,15 @@ def phase_job(torch, card, seed, engine_ms):
     return launches
 
 
-def _epoch_counts(parallelism, eval_workers):
+def _epoch_counts(parallelism, eval_workers, n_train=JOB_TRAIN,
+                  n_test=JOB_TEST):
     """What one epoch of the job must launch, from the JAX package's
     epoch plan (ported in data/sharding.py): (real local steps, rounds,
     eval steps = every (worker, step) slot of the eval batches)."""
     from kubeml_tpu_torch.data.sharding import plan_epoch
 
-    plan = plan_epoch(JOB_TRAIN, parallelism, JOB_K, JOB_B)
-    test = plan_epoch(JOB_TEST, eval_workers, -1, JOB_B)
+    plan = plan_epoch(n_train, parallelism, JOB_K, JOB_B)
+    test = plan_epoch(n_test, eval_workers, -1, JOB_B)
     return (plan.total_steps, len(plan.rounds),
             eval_workers * test.rounds[0].max_steps)
 
@@ -3190,6 +3227,574 @@ def ps_fleet(card, seed, module, prompts, shared, ref):
         f"all finishing with phase 3's tokens ({actions})")
 
 
+# ----------------------------------------------------------------- phase 15
+CL_TRAIN, CL_TEST = JOB_TRAIN, JOB_TEST   # phase 10's windows
+CL_LANES = 4
+CL_TENANTS = ("prod=3:4", "batch=1")
+CL_RESUME_EPOCHS = 3               # (c)'s job, killed after epoch 1
+# The deployment child: `python -m kubeml_tpu_torch.cli serve --role all
+# --standalone-jobs --cluster-lanes 4 ... --control-dir D` on the ports of
+# the environment (a restart binds the same ones, so the surviving job
+# children reach it), under phase 12's numerics. Two wrappers: each job
+# server child runs through CL_JOB (argv[1]), which appends every epoch's
+# flash and merge launches to argv[2] and zeroes them; and the PS answers
+# GET /smoke/paged (the paged kernel's count and each replica's dispatch
+# stats) and POST /smoke/paged/zero: the launches happen in those
+# processes, where this script cannot read them.
+CL_SERVE = r'''
+import runpy, subprocess, sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from kubeml_tpu_torch.control import ps as ps_mod
+from kubeml_tpu_torch.ops.paged_attention import paged_attention
+job_wrapper, counts, control = sys.argv[1:4]
+
+
+class Sub:
+    TimeoutExpired = subprocess.TimeoutExpired
+
+    @staticmethod
+    def Popen(cmd, **kw):
+        if cmd[1:3] == ["-m", "kubeml_tpu_torch.train.jobserver"]:
+            cmd = [cmd[0], job_wrapper, counts] + cmd[3:]
+        return subprocess.Popen(cmd, **kw)
+
+
+ps_mod.subprocess = Sub
+real_init = ps_mod.ParameterServer.__init__
+
+
+def init(self, *a, **k):
+    real_init(self, *a, **k)
+
+    def paged(req):
+        with self._serve_lock:
+            fleets = dict(self._serve)
+        return {"launches": paged_attention.launches, "engines": {
+            m: [[i, dict(e.stats)] for i, e in f.engines()]
+            for m, (_, f) in fleets.items()}}
+
+    def zero(req):
+        paged_attention.launches = 0
+        return {"ok": True}
+    self.route("GET", "/smoke/paged", paged)
+    self.route("POST", "/smoke/paged/zero", zero)
+
+
+ps_mod.ParameterServer.__init__ = init
+sys.argv = ["kubeml", "serve", "--role", "all", "--standalone-jobs",
+            "--cluster-lanes", "4", "--cluster-tenant", "prod=3:4",
+            "--cluster-tenant", "batch=1", "--control-dir", control,
+            "--serve-slots", "8", "--serve-prefill-chunk", "16",
+            "--serve-kv-dtype", "f32", "--serve-prefix-cache", "on",
+            "--serve-replicas-min", "0"]
+runpy.run_module("kubeml_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+'''
+# A job server child under phase 12's numerics: each epoch's launches and
+# the fencing epoch its task holds go to argv[1] as one JSON line; while
+# the file `hold` beside it exists, the job waits after its epoch's
+# MetricUpdate (the kill in (c) lands there).
+CL_JOB = r'''
+import json, os, sys, time
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from kubeml_tpu_torch.ops import flash_attention as fa, fused_merge as fm
+from kubeml_tpu_torch.train import jobserver
+from kubeml_tpu_torch.train.jobserver import JobServer
+KERNELS = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+           "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+counts = sys.argv[1]
+hold = os.path.join(os.path.dirname(counts), "hold")
+real = JobServer._publish_metrics
+
+
+def publish(self, m):
+    real(self, m)
+    with open(counts, "a") as f:
+        f.write(json.dumps({"job": m.job_id, "pid": os.getpid(),
+                            "grant_epoch": self._job.task.grant_epoch, **{
+            k: fn.launches for k, fn in KERNELS.items()}}) + "\n")
+    for fn in KERNELS.values():
+        fn.launches = 0
+    deadline = time.monotonic() + 600
+    while os.path.exists(hold) and time.monotonic() < deadline:
+        time.sleep(0.05)
+
+
+JobServer._publish_metrics = publish
+jobserver.main(sys.argv[2:])
+'''
+
+
+class ClusterServe:
+    """The deployment child of phase 15 on fixed ports; start() waits for
+    its controller line, which it prints after any recovery."""
+
+    def __init__(self, tmp):
+        import os
+        import socket
+
+        def free_port():
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                return s.getsockname()[1]
+
+        self.ports = {k: free_port() for k in ("CONTROLLER", "SCHEDULER",
+                                               "PS", "STORAGE")}
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.env.pop("KUBEML_CONTROLLER_URL", None)
+        self.env.update({f"KUBEML_{k}_PORT": str(v)
+                         for k, v in self.ports.items()})
+        self.cwd = repo
+        self.job = os.path.join(tmp, "cl_job.py")
+        with open(self.job, "w") as f:
+            f.write(CL_JOB)
+        self.counts = os.path.join(tmp, "launches.jsonl")
+        self.hold = os.path.join(tmp, "hold")
+        self.control = os.path.join(tmp, "control")
+        self.url = f"http://127.0.0.1:{self.ports['CONTROLLER']}"
+        self.ps = f"http://127.0.0.1:{self.ports['PS']}"
+        self.sched = f"http://127.0.0.1:{self.ports['SCHEDULER']}"
+        self.proc = None
+        self.orphans = []     # job children of a killed serve child
+
+    def start(self) -> float:
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", CL_SERVE, self.job, self.counts,
+             self.control], env=self.env, cwd=self.cwd,
+            stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()     # "controller: URL"
+        if not line.startswith("controller:"):
+            self.stop()
+            raise RuntimeError(f"the serve child printed {line!r} (rc "
+                               f"{self.proc.poll()})")
+        return time.perf_counter() - t0
+
+    def kill(self):
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)    # not its job children
+        self.proc.wait(timeout=60)
+
+    def stop(self):
+        import signal
+
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)  # stops its services
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+    def rows(self, job_id):
+        with open(self.counts) as f:
+            rows = [json.loads(line) for line in f]
+        return [r for r in rows if r["job"] == job_id]
+
+    def launches(self, job_id):
+        return [{k: v for k, v in r.items()
+                 if k not in ("job", "pid", "grant_epoch")}
+                for r in self.rows(job_id)]
+
+    def grants(self, job_id):
+        """The fencing epoch the job child's task held at each epoch."""
+        return [r["grant_epoch"] for r in self.rows(job_id)]
+
+    def pids(self, job_id):
+        with open(self.counts) as f:
+            return {json.loads(line)["pid"] for line in f
+                    if json.loads(line)["job"] == job_id}
+
+    def get(self, path, base=None):
+        from kubeml_tpu_torch.control.httpd import http_json
+
+        return http_json("GET", (base or self.url) + path)
+
+    def text(self, url) -> str:
+        import urllib.request
+
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.read().decode()
+
+
+def poll(pred, what, timeout):
+    """wait_until at 20 Hz: each probe is an HTTP round trip."""
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        assert time.perf_counter() < deadline, f"timed out waiting: {what}"
+        time.sleep(0.05)
+
+
+def cl_gangs(serve) -> dict:
+    return {g["job_id"]: g for g in
+            serve.get("/cluster")["cluster_running_gangs"]}
+
+
+def cl_wait_job(serve, job_id, timeout=600.0):
+    """Until the job has left the PS's task list; then its history."""
+    deadline = time.perf_counter() + timeout
+    while any(t["job_id"] == job_id for t in serve.get("/tasks")):
+        assert time.perf_counter() < deadline, f"job {job_id} never ended"
+        time.sleep(0.1)
+    return serve.get(f"/history/{job_id}")["data"]   # 404: it failed
+
+
+def cl_plan(n, layers):
+    """The flash and merge launches of one epoch of a phase-15 job at a
+    static N=n (validation at n workers)."""
+    steps, rounds, evals = _epoch_counts(n, n, CL_TRAIN, CL_TEST)
+    return {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+            "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+
+
+def cl_request(epochs, n, tenant, priority=0):
+    req = cp_request(CP_GPT_FN, "tokens", epochs, JOB_B, JOB_LR, k=JOB_K,
+                     default_parallelism=n, static_parallelism=True,
+                     merge_bucket_mb=MERGE_CAP_MB)
+    req.tenant, req.priority = tenant, priority
+    return req
+
+
+def cl_direct(torch, job_id, epochs, n):
+    """The same task as a direct TrainJob in this process: what the
+    deployment's checkpoint must equal bit for bit."""
+    from kubeml_tpu_torch.api.types import TrainTask
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    req = cl_request(epochs, n, "")
+    TrainJob(TrainTask(job_id=job_id, parameters=req, parallelism=n),
+             get_model("gpt-mini")(), token_dataset(), device="cuda").train()
+
+
+def phase_cluster(torch, card, seed, module, direct):
+    """The cluster allocator and the durable control plane on the card
+    (see the module docstring, phase 15); returns the launches of each
+    kernel through the cluster-mode deployment."""
+    import ctypes
+    import os
+    import tempfile
+
+    # orphans of the killed serve child re-parent to this process, which
+    # reaps them: the adopted job server exits here, not as a zombie
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    home = os.environ.get("KUBEML_TPU_HOME")
+    det = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        torch.backends.cudnn.deterministic = True
+        serve = ClusterServe(tmp)
+        try:
+            return cluster_run(torch, card, seed, module, direct, tmp,
+                               serve)
+        finally:
+            if os.path.exists(serve.hold):
+                os.remove(serve.hold)
+            for pid in serve.orphans:        # a failed run's adopted job
+                if os.path.exists(f"/proc/{pid}"):
+                    os.kill(pid, 9)
+                    reap(pid)
+            serve.stop()
+            torch.backends.cudnn.deterministic = det
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+def cluster_run(torch, card, seed, module, direct, tmp, serve):
+    import os
+
+    from kubeml_tpu_torch.control.client import KubemlClient
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    layers = GPT_CONFIGS["gpt-mini"]["layers"]
+    with open(os.path.join(tmp, f"{CP_GPT_FN}.py"), "w") as f:
+        f.write(CP_FUNCTIONS[CP_GPT_FN])
+    rng = np.random.default_rng(seed + 12)        # phase 10's windows
+    arrays = (token_windows(rng, CL_TRAIN, TRAIN_T),
+              np.zeros(CL_TRAIN, np.int32),
+              token_windows(rng, CL_TEST, TRAIN_T),
+              np.zeros(CL_TEST, np.int32))
+    paths = []
+    for name, arr in zip(("xtr", "ytr", "xte", "yte"), arrays):
+        paths.append(os.path.join(tmp, f"cl_{name}.npy"))
+        np.save(paths[-1], arr)
+    save_mini(seed)                     # phase 3's weights, for /generate
+    t_phase = time.perf_counter()
+    ready = serve.start()
+    client = KubemlClient(serve.url).v1()
+    client.functions().create(CP_GPT_FN, os.path.join(tmp,
+                                                      f"{CP_GPT_FN}.py"))
+    client.datasets().create("tokens", *paths)
+    log(card, f"cluster serve: `kubeml serve --role all --standalone-jobs "
+        f"--cluster-lanes {CL_LANES} --cluster-tenant {CL_TENANTS[0]} "
+        f"--cluster-tenant {CL_TENANTS[1]} --control-dir D` (a child on the "
+        f"card) printed its controller {ready:.3f} s after spawn")
+    flash = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+
+    def add(rows):
+        for row in rows:
+            for k in flash:
+                flash[k] += row[k]
+
+    add(cluster_gangs(torch, card, serve, client, layers))
+    paged, arrival = cluster_serve(card, serve, client, seed, module,
+                                   direct["bf16"], layers)
+    add(serve.launches(arrival))
+    add(cluster_recover(torch, card, serve, client, seed, module,
+                        direct["bf16"], layers))
+    log(card, f"cluster phase: {time.perf_counter() - t_phase:.3f} s; "
+        f"launches through the cluster-mode deployment: paged {paged}, "
+        f"{flash}")
+    return dict(flash, paged=paged)
+
+
+def cluster_gangs(torch, card, serve, client, layers):
+    """(a): gang placement — N=2 places, N=3 parks until it finishes; both
+    checkpoints equal direct jobs at the same N."""
+    t0 = time.perf_counter()
+    first = client.networks().train(cl_request(1, 2, "batch"))
+    t1 = time.perf_counter()
+    second = client.networks().train(cl_request(1, 3, "prod"))
+    placed, parked_seen = {}, False
+    while len(placed) < 2:
+        snap = serve.get("/cluster")
+        gangs = {g["job_id"] for g in snap["cluster_running_gangs"]}
+        now = time.perf_counter()
+        for job, sent in ((first, t0), (second, t1)):
+            if job in gangs and job not in placed:
+                placed[job] = now - sent
+        if second not in gangs and first in gangs:
+            parked_seen = parked_seen or snap["cluster_queue_depth"] == 1
+        assert now - t0 < 600, "the parked gang never placed"
+        time.sleep(0.05)
+    assert parked_seen, "the N=3 gang never parked behind the N=2 one"
+    hists = {job: cl_wait_job(serve, job) for job in (first, second)}
+    rows = []
+    for job, n in ((first, 2), (second, 3)):
+        cl_direct(torch, f"direct-{job}", 1, n)
+        assert equal_checkpoints(job, f"direct-{job}"), \
+            f"the gang-placed N={n} job's checkpoint differs from a direct one"
+        got = serve.launches(job)
+        want = cl_plan(n, layers)
+        assert got == [want], (job, got, want)
+        rows += got
+        behind = ("" if job == first else
+                  f", of which {hists[first]['epoch_duration'][0]:.4f} s "
+                  f"the N=2 job's epoch and the rest its child's start and "
+                  f"end")
+        log(card, f"cluster gang N={n} ({job}, tenant "
+            f"{'batch' if n == 2 else 'prod'}): queue wait "
+            f"{placed[job]:.3f} s (POST /train -> its gang on /cluster, "
+            f"polled at 20 Hz{behind}); train loss "
+            f"{hists[job]['train_loss'][0]:.4f}"
+            f", epoch {hists[job]['epoch_duration'][0]:.4f} s; launches per "
+            f"epoch {got} (= the plan); checkpoint equal bit for bit to a "
+            f"direct TrainJob at N={n}")
+    snap = serve.get("/cluster")
+    assert snap["cluster_gang_placements_total"] == 2 and \
+        snap["cluster_lanes_in_use"] == 0, snap
+    return rows
+
+
+def cl_batch(serve, prompts, shared):
+    streams = [GenStream(serve.ps, gen_body(p, NEW_TOKENS)).start()
+               for p in prompts]
+    streams[prompts.index(shared)].first.wait(300)
+    streams.append(GenStream(serve.ps, gen_body(shared, NEW_TOKENS)).start())
+    for st in streams:
+        st.join()
+    assert all(st.status == 200 for st in streams), \
+        [(st.status, st.last) for st in streams]
+    return [st.tokens for st in streams]
+
+
+def cl_dispatches(paged_doc):
+    return sum(s["dispatches"] + s["prefill_dispatches"]
+               for _, s in paged_doc["engines"].get(PS_MODEL, []))
+
+
+def cluster_serve(card, serve, client, seed, module, ref, layers):
+    """(b): serve-elastic — the cold start's gang through /serve/resize,
+    phase 3's batch, then a priority-1 arrival that preempts the gang and
+    a cold start with the same tokens. Returns (paged launches, the
+    arrival's job id)."""
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    warm = GenStream(serve.ps, gen_body(prompts[0], 4)).start().join()
+    assert warm.status == 200, warm.last         # a cold start: the gang
+    gangs = cl_gangs(serve)
+    assert gangs[f"serve:{PS_MODEL}"]["kind"] == "serving" and \
+        gangs[f"serve:{PS_MODEL}"]["lanes"] == 1, gangs
+    http_post(serve.ps + "/smoke/paged/zero")
+    d0 = cl_dispatches(serve.get("/smoke/paged", serve.ps))
+    t0 = time.perf_counter()
+    got = cl_batch(serve, prompts, shared)
+    wall = time.perf_counter() - t0
+    doc = serve.get("/smoke/paged", serve.ps)
+    dispatches = cl_dispatches(doc) - d0
+    launches = doc["launches"]
+    assert got == ref["tokens"], "cluster /generate tokens differ from phase 3"
+    assert launches == layers * dispatches, (launches, dispatches)
+    tokens = sum(len(t) for t in got)
+    log(card, f"cluster serve-elastic: the cold start's replica placed a "
+        f"serving gang of 1 lane through POST /serve/resize ({gangs}); "
+        f"phase 3's batch through POST /generate: tokens equal phase 3's "
+        f"for all {len(got)}, {tokens / wall:.2f} tokens/s, paged launches "
+        f"{launches} (= {layers} layers x {dispatches} dispatches)")
+
+    # a priority-1 arrival that needs every lane displaces the serving
+    # gang (preempt-cheapest): the fleet drains to zero, the job places
+    t1 = time.perf_counter()
+    arrival = client.networks().train(cl_request(1, CL_LANES, "batch",
+                                                 priority=1))
+    poll(lambda: arrival in cl_gangs(serve), "the arrival's gang", 300)
+    placed = time.perf_counter() - t1
+    snap = serve.get("/cluster")
+    assert snap["cluster_preemptions_total"] == 1, snap
+    assert f"serve:{PS_MODEL}" not in cl_gangs(serve)
+    poll(lambda: serve.get("/smoke/paged", serve.ps)["engines"].get(
+        PS_MODEL) == [], "the fleet to drain to zero", 120)
+    t2 = time.perf_counter()
+    cold = GenStream(serve.ps, gen_body(prompts[0], NEW_TOKENS)).start()
+    cold.join()
+    assert cold.status == 200 and cold.tokens == ref["tokens"][0], \
+        (cold.status, cold.last)
+    cold_s = time.perf_counter() - t2
+    hist = cl_wait_job(serve, arrival)
+    got = serve.launches(arrival)
+    assert got == [cl_plan(CL_LANES, layers)], got
+    log(card, f"cluster preemption: a priority-1 N={CL_LANES} arrival "
+        f"({arrival}) preempted serve:{PS_MODEL} (preempt-cheapest; "
+        f"kubeml_cluster_preemptions_total 1) and placed "
+        f"{placed:.3f} s after POST /train; the fleet drained to zero; the "
+        f"next /generate cold-started in {cold_s:.3f} s (client TTFT "
+        f"{cold.ttft:.3f} s) with phase 3's tokens; the arrival's epoch "
+        f"{hist['epoch_duration'][0]:.4f} s, launches {got} (= the plan)")
+    return launches, arrival
+
+
+def reap(pid, timeout=60.0):
+    """Wait for the adopted job server to exit, and reap it: orphaned by
+    the killed serve child, it re-parented to this process."""
+    import os
+
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            if os.waitpid(pid, os.WNOHANG) != (0, 0):
+                return
+        except ChildProcessError:   # not ours after all: poll its state
+            if not os.path.exists(f"/proc/{pid}"):
+                return
+        assert time.perf_counter() < deadline, "the adopted child lingers"
+        time.sleep(0.05)
+
+
+def http_post(url, body=None):
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    return http_json("POST", url, body or {})
+
+
+def metric(text, name, role):
+    for line in text.splitlines():
+        if line.startswith(f'{name}{{role="{role}"}} '):
+            return float(line.split()[-1])
+    raise AssertionError(f"no {name}{{role={role}}} in /metrics")
+
+
+def cluster_recover(torch, card, serve, client, seed, module, ref, layers):
+    """(c): SIGKILL of the serve child after epoch 1 of a 3-epoch job in a
+    standalone child; a second serve child on the same control dir
+    re-adopts it. Returns the job's per-epoch launches."""
+    import os
+
+    from kubeml_tpu_torch.api.errors import KubeMLException
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    with open(serve.hold, "w"):
+        pass                  # the job waits after each epoch's publish
+    job = client.networks().train(cl_request(CL_RESUME_EPOCHS, 2, "batch"))
+    poll(lambda: os.path.exists(serve.counts)
+         and len(serve.launches(job)) == 1, "epoch 1 of the job", 600)
+    (pid,) = serve.pids(job)
+    epoch_before = serve.get("/cluster")["cluster_fencing_epoch"]
+    assert cl_gangs(serve)[job]["epoch"] == epoch_before
+    mem = [torch.cuda.mem_get_info()[0]]
+    serve.kill()
+    serve.orphans.append(pid)
+    mem.append(torch.cuda.mem_get_info()[0])
+    assert os.path.exists(f"/proc/{pid}"), "the job child died with the PS"
+    restart = serve.start()
+    mem.append(torch.cuda.mem_get_info()[0])
+    snap = serve.get("/cluster")
+    gang = cl_gangs(serve)[job]
+    task = next(t for t in serve.get("/tasks") if t["job_id"] == job)
+    assert snap["cluster_fencing_epoch"] == epoch_before + 1, snap
+    assert gang["epoch"] == epoch_before + 1 and gang["lanes"] == 2, gang
+    assert task["grant_epoch"] == epoch_before + 1, task
+    assert task["restarts"] == 0, task
+    stale = dict(task, grant_epoch=epoch_before)
+    try:
+        http_post(serve.sched + "/job", stale)
+        raise AssertionError("a stale grant was accepted")
+    except KubeMLException as e:
+        assert e.status_code == 409, e
+    replicas = serve.get("/smoke/paged", serve.ps)["engines"].get(PS_MODEL)
+    assert replicas is not None and len(replicas) == 1, replicas
+    got = cl_batch(serve, prompts, shared)
+    assert got == ref["tokens"], "the rebuilt fleet's tokens differ"
+    text = serve.text(serve.ps + "/metrics")
+    rec = {role: metric(text, "kubeml_control_recovery_seconds_sum", role)
+           for role in ("ps", "scheduler")}
+    assert all(metric(text, "kubeml_control_recoveries_total", role) == 1
+               for role in ("ps", "scheduler"))
+    os.remove(serve.hold)     # epochs 2 and 3 run under the new PS
+    hist = cl_wait_job(serve, job)
+    assert serve.pids(job) == {pid}, "the job was started a second time"
+    reap(pid)                 # its last epoch's row is written by now
+    # the job may stop before its last epoch at its goal accuracy (100 %
+    # by default), as the direct job below does; at least one epoch runs
+    # under the new PS
+    ran = len(hist["train_loss"])
+    assert 2 <= ran <= CL_RESUME_EPOCHS, hist
+    grants = serve.grants(job)
+    assert grants == [epoch_before] + [epoch_before + 1] * (ran - 1), \
+        ("the re-grant never reached the child", grants)
+    got = serve.launches(job)
+    assert got == [cl_plan(2, layers)] * ran, got
+    cl_direct(torch, f"direct-{job}", CL_RESUME_EPOCHS, 2)
+    assert equal_checkpoints(job, f"direct-{job}"), \
+        "the re-adopted job's checkpoint differs from an uninterrupted one"
+    log(card, f"cluster recovery: SIGKILL of the serve child after epoch 1 "
+        f"of {job} (N=2, {CL_RESUME_EPOCHS} epochs asked, {ran} run before "
+        f"its goal accuracy, pid {pid}); the second "
+        f"serve child on the same --control-dir printed its controller "
+        f"{restart:.3f} s after spawn: the child re-adopted (same pid, "
+        f"restarts 0), fencing epoch {epoch_before} -> "
+        f"{snap['cluster_fencing_epoch']}, the child's task held epochs "
+        f"{grants} (the re-grant relayed through PS /update), /job with "
+        f"epoch {epoch_before} answered 409; the fleet came back at {len(replicas)} replica with "
+        f"phase 3's tokens; kubeml_control_recovery_seconds ps "
+        f"{rec['ps']:.4f} s, scheduler {rec['scheduler']:.4f} s; the job "
+        f"finished (train loss {hist['train_loss']}), its checkpoint equal "
+        f"bit for bit to an uninterrupted direct job's; launches per epoch "
+        f"{got[0]} (= the plan); free device memory (mem_get_info) "
+        f"{mem[0] / 2**30:.2f} GiB before the kill, {mem[1] / 2**30:.2f} "
+        f"after, {mem[2] / 2**30:.2f} after the restart")
+    return got
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -3275,6 +3880,7 @@ def run(torch, seed) -> list:
     cli = phase_cli(torch, card, seed, cli_ref)
     del cli_ref
     ps_launches = phase_ps_serve(torch, card, seed, module, direct)
+    cluster = phase_cluster(torch, card, seed, module, direct)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -3283,6 +3889,8 @@ def run(torch, seed) -> list:
         "replaces": "kubeml_tpu/ops/pallas/paged_attention.py:73",
         "launches": n,
         "ps_launches": ps_launches[pages],
+        # phase 15 serves with bf16 pages only
+        "cluster_launches": cluster["paged"] if pages == "bf16" else None,
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -3298,6 +3906,7 @@ def run(torch, seed) -> list:
         "job_launches": [e[kernel] for e in job_launches],
         "deployment_launches": [e[kernel] for e in cp_gpt],
         "cli_launches": [e[kernel] for e in cli["gpt_launches"]],
+        "cluster_launches": cluster[kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -3310,6 +3919,7 @@ def run(torch, seed) -> list:
                     "gpt-mini": [e["fused_merge"]
                                  for e in cli["gpt_launches"]],
                     "resnet18": cli["launches"]},
+                cluster_launches=cluster["fused_merge"],
                 resnet18=vision_merge)], card
 
 
@@ -3332,6 +3942,11 @@ def main(argv=None) -> int:
                          "alone (serving direct and through the PS), "
                          "printing their numbers as one JSON line and no "
                          "result line")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="build the kernels and run phases 3 (bf16 pages) "
+                         "and 15 alone (the cluster-mode deployment, its "
+                         "kill and restart), printing the launches through "
+                         "it as one JSON line and no result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -3373,6 +3988,15 @@ def main(argv=None) -> int:
                 p: {"launches": d["launches"], "ps_launches": ps[p],
                     "tokens_per_s": d["tokens_per_s"],
                     "ttft_ms": d["ttft_ms"]} for p, d in direct.items()}}))
+            return 0
+        if args.cluster_only:
+            card = start(torch)
+            module = build_gpt(torch, PS_MODEL, args.seed, torch.bfloat16,
+                               "cuda")
+            direct = {"bf16": phase_serve(torch, card, args.seed, module,
+                                          "f32")}
+            print(json.dumps({"card": card, "cluster": phase_cluster(
+                torch, card, args.seed, module, direct)}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

@@ -70,6 +70,23 @@ class FunctionNotFoundError(KubeMLException):
                          404)
 
 
+class StaleGrantError(KubeMLException):
+    """409: the caller presented a lane grant whose fencing epoch
+    predates the current allocator incarnation — a pre-crash worker
+    that outlived the control plane that granted it. The recovered
+    allocator may have given those lanes away; honoring the stale grant
+    would double-book them (split-brain). The worker must requeue."""
+
+    def __init__(self, job_id: str = "", presented: int = 0,
+                 current: int = 0):
+        super().__init__(
+            f"stale grant for job {job_id}: fencing epoch {presented} "
+            f"predates current epoch {current}", 409)
+        self.job_id = job_id
+        self.presented = presented
+        self.current = current
+
+
 class NotPortedError(KubeMLException):
     """A feature of the JAX package this port does not carry yet: 400 for
     an option of a request, 501 for a route or a deployment knob."""

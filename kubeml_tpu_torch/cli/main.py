@@ -29,9 +29,12 @@ the port, raises without a card unless it is given ``cpu``.
 Options whose module is not ported still parse, and are refused where the
 port refuses them, naming the ROADMAP item that brings them: ``train``
 runs the job's own check (``train.job.reject_unported``) before it
-submits; ``serve`` refuses the deployment's NOT_PORTED_KNOBS and the JAX
-package's multi-host flags; the controller refuses ``dataset append`` and
-``cost``. A refusal prints ``error: ...`` and exits non-zero, as every
+submits; ``serve`` refuses the JAX package's multi-host flags and
+multi-step or speculative decode; the controller refuses ``dataset
+append`` and ``cost``. ``serve --role all`` takes the cluster allocator's
+``--cluster-*`` flags and the durable control plane's ``--control-*``
+(a second start on the same ``--control-dir`` recovers); ``--role
+scheduler`` takes ``--cluster-*``. A refusal prints ``error: ...`` and exits non-zero, as every
 failed verb does.
 """
 
@@ -676,16 +679,11 @@ def cmd_top(args):
 
 # --------------------------------------------------------------------- serve
 
-# serve flags whose deployment knob is not ported (deployment.py's
-# NOT_PORTED_KNOBS) under another name
-_KNOB_FLAGS = {"cluster_tenants": "cluster_tenant"}
-
-
 def _refuse_unported_serve_flags(args) -> None:
-    """The JAX package's multi-host flags, the deployment's unported knobs
-    and multi-step or speculative decode parse but refuse any value but
-    their default, naming the ROADMAP item that brings them."""
-    from kubeml_tpu_torch.control.deployment import NOT_PORTED_KNOBS
+    """The JAX package's multi-host flags and multi-step or speculative
+    decode parse but refuse any value but their default, naming the
+    ROADMAP item that brings them. The durable control plane runs with
+    --role all only: a single role would drop its flags silently."""
     from kubeml_tpu_torch.control.ps import refuse_unported_decode
 
     for flag in ("coordinator", "num_processes", "process_id"):
@@ -695,11 +693,9 @@ def _refuse_unported_serve_flags(args) -> None:
     if args.mesh_data:
         _fail(f"--mesh-data is not ported yet to kubeml_tpu_torch (comes "
               f"with {LANES})")
-    for knob, brings in NOT_PORTED_KNOBS.items():
-        flag = _KNOB_FLAGS.get(knob, knob)
-        if getattr(args, flag) not in (None, False):
-            _fail(f"--{flag.replace('_', '-')} is not ported yet to "
-                  f"kubeml_tpu_torch (comes with {brings})")
+    if args.role != "all" and (args.control_durable or args.control_dir):
+        _fail("--control-durable and --control-dir need --role all (the "
+              "scheduler's and the PS's state recover together)")
     try:
         refuse_unported_decode(args.serve_decode_steps,
                                args.serve_draft_model)
@@ -759,6 +755,11 @@ def cmd_serve(args):
                                    standalone_jobs=args.standalone_jobs,
                                    job_partitions=partitions,
                                    infer_cache_size=args.infer_cache_size,
+                                   cluster_lanes=args.cluster_lanes,
+                                   cluster_tenants=args.cluster_tenant,
+                                   cluster_aging_s=args.cluster_aging_s,
+                                   control_durable=args.control_durable,
+                                   control_dir=args.control_dir,
                                    **_serve_knobs(args))
             print(f"controller: {svc.controller.url}")
             print(f"scheduler:  {svc.scheduler.url}")
@@ -771,9 +772,13 @@ def cmd_serve(args):
                              ps_url=args.ps_url, storage_url=args.storage_url,
                              port=args.port or const.CONTROLLER_PORT)
         elif args.role == "scheduler":
+            from kubeml_tpu_torch.control.deployment import build_allocator
             from kubeml_tpu_torch.control.scheduler import Scheduler
             svc = Scheduler(ps_url=args.ps_url,
-                            port=args.port or const.SCHEDULER_PORT)
+                            port=args.port or const.SCHEDULER_PORT,
+                            allocator=build_allocator(args.cluster_lanes,
+                                                      args.cluster_tenant,
+                                                      args.cluster_aging_s))
         elif args.role == "ps":
             from kubeml_tpu_torch._device import require_cuda
             from kubeml_tpu_torch.control.ps import ParameterServer

@@ -17,11 +17,13 @@ controller.py; parity with ml/pkg/controller/api.go:16-42):
     GET|POST|DELETE /functions[/{name}] -> the function registry
     GET    /trace/{jobId}      -> PS /trace?id= (the merged job timeline)
     GET    /health/{jobId}     -> PS /health?id= (the job's health verdict)
+    GET    /cluster            -> scheduler /cluster (the allocator's
+                                  snapshot; 503 without cluster mode)
     GET    /health             (the gateway's own liveness)
 
 Refused with the error envelope until their modules are ported: POST
-/dataset/{name}/append (the continual mode), GET /cost/{jobId} (the cost
-ledger, ROADMAP A.13) and GET /cluster (ROADMAP A.16).
+/dataset/{name}/append (the continual mode) and GET /cost/{jobId} (the
+cost ledger, ROADMAP A.13).
 """
 
 from __future__ import annotations
@@ -80,15 +82,21 @@ class Controller(JsonService):
         # /health stays the gateway's own liveness probe; the job-health
         # verdict gets its own path segment
         self.route("GET", "/health/{jobId}", self._h_job_health)
-        for path, brings in (
-                ("/cost/{jobId}", "the cost ledger, ROADMAP A.13"),
-                ("/cluster", "the cluster allocator, ROADMAP A.16")):
-            self.route("GET", path, not_ported(f"GET {path}", brings))
+        self.route("GET", "/cluster", self._h_cluster)
+        self.route("GET", "/cost/{jobId}", not_ported(
+            "GET /cost/{jobId}", "the cost ledger, ROADMAP A.13"))
 
     def _need(self, url, what):
         if url is None:
             raise KubeMLException(f"no {what} configured", 503)
         return url
+
+    def _h_cluster(self, req: Request):
+        """Cluster-allocator snapshot (pool, queues, tenant shares),
+        proxied to the scheduler, which owns the allocator; 503 when the
+        deployment runs without cluster mode."""
+        return http_json(
+            "GET", f"{self._need(self.scheduler_url, 'scheduler')}/cluster")
 
     # ------------------------------------------------------------ train/infer
 

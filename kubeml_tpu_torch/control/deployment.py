@@ -12,16 +12,32 @@ so any role can be split out to another host unchanged.
     client = KubemlClient(dep.controller_url).v1()
     ...
     dep.stop()
+
+Cluster mode and the durable control plane, as the JAX package's:
+
+    dep = start_deployment(cluster_lanes=4,
+                           cluster_tenants=["prod=3:4", "batch=1"],
+                           control_durable=True, control_dir=D)
+
+puts the ClusterAllocator between the scheduler's queue and the PS, and
+journals its decisions and the scheduler's and PS's state under D. A
+second start on the same D is a restart: ``ps.recover()`` then
+``scheduler.recover()`` re-adopt the children that survived, requeue the
+dead ones, rebuild the fleets and re-fence the grants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 from kubeml_tpu_torch._device import DeviceLike, require_cuda
 from kubeml_tpu_torch.api import const
+from kubeml_tpu_torch.control.cluster import (ClusterAllocator,
+                                              parse_tenant_spec)
 from kubeml_tpu_torch.control.controller import Controller
+from kubeml_tpu_torch.control.journal import DecisionJournal
 from kubeml_tpu_torch.control.ps import (ParameterServer,
                                          refuse_unported_decode)
 from kubeml_tpu_torch.control.scheduler import Scheduler
@@ -37,14 +53,55 @@ SERVE_KNOBS = (
     "serve_hedge_after_s", "serve_slo_ttft_ms", "serve_slo_tpot_ms",
     "serve_slo_target")
 
-# the JAX package's deployment knobs this port does not carry yet, and
-# the ROADMAP item that brings each
-NOT_PORTED_KNOBS = {
-    **{k: "the cluster allocator, ROADMAP A.16" for k in (
-        "cluster_lanes", "cluster_tenants", "cluster_aging_s")},
-    **{k: "the durable control plane, ROADMAP A.16" for k in (
-        "control_durable", "control_dir")},
-}
+# compaction cadence of the allocator's decision journal when the durable
+# control plane is on: fold state into the snapshot every N journaled
+# operations so replay length stays bounded
+CONTROL_COMPACT_EVERY = 256
+
+
+def control_state_dir() -> str:
+    """Default durable-control-plane state directory."""
+    return os.path.join(const.kubeml_home(), "control")
+
+
+def build_allocator(cluster_lanes, cluster_tenants=None, aging_s=None,
+                    journal_dir: Optional[str] = None,
+                    fault_plan=None) -> Optional[ClusterAllocator]:
+    """Build the scheduler's ClusterAllocator from deployment knobs.
+    cluster_lanes <= 0 / None disables cluster mode (the FIFO path).
+    cluster_tenants: iterable of ``name=weight[:quota]`` specs (the
+    --cluster-tenant CLI flag) or a {name: (weight, quota)} mapping.
+    journal_dir (durable control plane): attach a CRC-framed decision
+    journal so the allocator is crash-recoverable; an existing journal
+    there is REPLAYED — a restart reconstructs the pre-crash state."""
+    if not cluster_lanes or int(cluster_lanes) <= 0:
+        return None
+    weights, quotas = {}, {}
+    if isinstance(cluster_tenants, dict):
+        for name, (weight, quota) in cluster_tenants.items():
+            weights[name] = float(weight)
+            if quota is not None:
+                quotas[name] = int(quota)
+    else:
+        for spec in cluster_tenants or ():
+            name, weight, quota = parse_tenant_spec(spec)
+            weights[name] = weight
+            if quota is not None:
+                quotas[name] = quota
+    kwargs = {} if aging_s is None else {"aging_s": float(aging_s)}
+    if journal_dir is None:
+        return ClusterAllocator(int(cluster_lanes), tenant_weights=weights,
+                                tenant_quotas=quotas, **kwargs)
+    journal = DecisionJournal(journal_dir, fault_plan=fault_plan)
+    if os.path.exists(journal.journal_path) or \
+            os.path.exists(journal.snapshot_path):
+        return ClusterAllocator.recover(
+            journal, int(cluster_lanes), tenant_weights=weights,
+            tenant_quotas=quotas, compact_every=CONTROL_COMPACT_EVERY,
+            **kwargs)
+    return ClusterAllocator(int(cluster_lanes), tenant_weights=weights,
+                            tenant_quotas=quotas, journal=journal,
+                            compact_every=CONTROL_COMPACT_EVERY, **kwargs)
 
 
 @dataclasses.dataclass
@@ -70,7 +127,12 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
                      standalone_jobs: bool = False,
                      job_partitions: Optional[List[Dict[str, str]]] = None,
                      infer_cache_size: Optional[int] = None,
-                     **knobs) -> Deployment:
+                     cluster_lanes: Optional[int] = None,
+                     cluster_tenants=None,
+                     cluster_aging_s: Optional[float] = None,
+                     control_durable: bool = False,
+                     control_dir: Optional[str] = None,
+                     **serve) -> Deployment:
     """Start storage, PS, scheduler, controller wired together.
 
     ``device`` is where the jobs run: None means CUDA, and the call
@@ -80,22 +142,23 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
     ``kubeml_tpu_torch.train.jobserver`` process; job_partitions gives
     concurrent standalone jobs an env dict each (CUDA_VISIBLE_DEVICES),
     naming at most the cards present. The serve_* knobs (SERVE_KNOBS) go
-    to the PS's serving plane, except multi-step and speculative decode;
-    those and the JAX package's cluster and durability knobs raise
-    ValueError naming the ROADMAP item that brings them
-    (NOT_PORTED_KNOBS).
+    to the PS's serving plane, except multi-step and speculative decode,
+    which raise ValueError naming the ROADMAP item that brings them.
+
+    cluster_lanes > 0 turns on the cluster allocator (control/cluster.py)
+    over that many shared worker lanes, with cluster_tenants
+    (``name=weight[:quota]`` specs) keying quotas and weighted fair
+    shares and cluster_aging_s its aging; None/0 keeps the FIFO path.
+    control_durable=True turns on the durable control plane: the
+    allocator journals every decision, the scheduler and PS mirror their
+    registries to state files under control_dir (default
+    ``$KUBEML_TPU_HOME/control/``; giving control_dir implies it), and a
+    start with state already there RECOVERS instead of starting cold.
     """
-    serve = {}
-    for knob, value in knobs.items():
-        if knob in SERVE_KNOBS:
-            serve[knob] = value
-            continue
-        if knob not in NOT_PORTED_KNOBS:
+    for knob in serve:
+        if knob not in SERVE_KNOBS:
             raise TypeError(f"start_deployment() got an unexpected keyword "
                             f"argument {knob!r}")
-        if value is not None and value is not False:
-            raise ValueError(f"{knob} is not ported yet to kubeml_tpu_torch "
-                             f"(comes with {NOT_PORTED_KNOBS[knob]})")
     refuse_unported_decode(serve.get("serve_decode_steps"),
                            serve.get("serve_draft_model"))
     if device is None:
@@ -108,16 +171,36 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
         ps_port = ps_port or const.PS_PORT
         storage_port = storage_port or const.STORAGE_PORT
 
+    state_dir = None
+    prior_state = False
+    if control_durable or control_dir:
+        state_dir = control_dir or control_state_dir()
+        # decide BEFORE the services create their (empty) state files:
+        # anything already on disk means this start is a restart
+        prior_state = os.path.isdir(state_dir) and \
+            any(os.scandir(state_dir))
+    # before any service starts: a bad tenant spec leaks nothing
+    allocator = build_allocator(cluster_lanes, cluster_tenants,
+                                cluster_aging_s, journal_dir=state_dir)
+
     ps = ParameterServer(device=device, port=ps_port,
                          standalone_jobs=standalone_jobs or None,
                          job_partitions=job_partitions,
-                         infer_cache_size=infer_cache_size, **serve)
+                         infer_cache_size=infer_cache_size,
+                         state_dir=state_dir, **serve)
     storage = StorageService(port=storage_port, registry=ps.ds_registry)
     storage.start()
     ps.start()
-    scheduler = Scheduler(ps_url=ps.url, port=scheduler_port)
+    scheduler = Scheduler(ps_url=ps.url, port=scheduler_port,
+                          allocator=allocator, state_dir=state_dir)
     scheduler.start()
     ps.scheduler_url = scheduler.url
+    if prior_state:
+        # state on disk means this start RESTARTS a crashed control
+        # plane: rebuild the PS's registries and fleets before the
+        # scheduler's sweep decides re-adopt vs. requeue
+        ps.recover()
+        scheduler.recover()
     controller = Controller(scheduler_url=scheduler.url, ps_url=ps.url,
                             storage_url=storage.url, port=controller_port,
                             registry=ps.ds_registry,

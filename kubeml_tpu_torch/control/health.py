@@ -32,8 +32,11 @@ Rule set (thresholds of the JAX package; all overridable per evaluator):
                                the epoch median
 
 and the serving, cluster, continual and control-plane rules, which fire
-only on the snapshot fields of their planes; no port module publishes
-those yet (ROADMAP A.1, A.16), and training samples never fire them.
+only on the snapshot fields of their planes, never on training samples.
+The PS feeds the serving rules from each fleet's merged snapshot
+(``serve:<model>``) and the cluster and control-plane rules from the
+scheduler's allocator snapshot (``cluster``); no port module publishes
+the continual rules' fields yet (ROADMAP A.4.5).
 """
 
 from __future__ import annotations

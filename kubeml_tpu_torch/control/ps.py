@@ -29,6 +29,11 @@ REST surface (ml/pkg/ps/api.go:335-345):
                               then {"done": ...}; 429/503 + Retry-After
     GET    /flight?id=        the serving engines' flight records
                               (serve:<model> or <model>)
+    POST   /cluster           the scheduler's allocator snapshot: the
+                              cluster Prometheus families and the
+                              ``cluster`` health pseudo job
+    POST   /preempt/{jobId}   allocator preemption of a serve:<model>
+                              gang: the fleet drains to zero
 
 Job execution has the reference's two modes (STANDALONE_JOBS env,
 ml/cmd/ml/main.go:115-133):
@@ -65,10 +70,17 @@ snapshot feeds ``/health?id=serve:<model>`` and the serve families of
 ``KUBEML_SERVE_*``) have the JAX package's defaults; multi-step and
 speculative decode are refused (ROADMAP A.1).
 
+Durable control plane (``state_dir``): the standalone-job registry and
+the fleets (checkpoint stamp, replica count) are mirrored to
+``ps.jobs.json`` and ``ps.fleets.json``; ``recover()`` re-adopts the
+children that survived a restart (probed on their /health, watched by
+pid), drops the dead ones for the scheduler's sweep to requeue, and
+rebuilds each fleet at its recorded width. A re-grant's fencing epoch
+reaches a child through /update/{jobId}.
+
 Not ported yet, each answering with the error envelope: /cost (the cost
-ledger, ROADMAP A.13), /cluster and the durable state with recover()
-(ROADMAP A.16), /preempt, /preempted and the heartbeat reaper (ROADMAP
-A.17).
+ledger, ROADMAP A.13), the preemption of a training job (its SIGTERM
+drain), /preempted and the heartbeat reaper (ROADMAP A.17).
 """
 
 from __future__ import annotations
@@ -91,12 +103,12 @@ import torch
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
 from kubeml_tpu_torch.api.const import kubeml_home
 from kubeml_tpu_torch.api.errors import (InvalidArgsError, JobNotFoundError,
-                                         KubeMLException)
+                                         KubeMLException, NotPortedError)
 from kubeml_tpu_torch.api.types import MetricUpdate, TrainTask
 from kubeml_tpu_torch.control.health import HealthEvaluator
 from kubeml_tpu_torch.control.httpd import (JsonService, Raw, Request,
                                             Stream, http_json, not_ported)
-from kubeml_tpu_torch.control.journal import read_json
+from kubeml_tpu_torch.control.journal import atomic_write_json, read_json
 from kubeml_tpu_torch.data.registry import DatasetRegistry
 from kubeml_tpu_torch.metrics.prom import MetricsRegistry
 from kubeml_tpu_torch.models.base import InferenceInputError, KubeDataset
@@ -111,7 +123,7 @@ from kubeml_tpu_torch.utils.trace import (TRACE_HEADER, TraceSink, Tracer,
 
 logger = logging.getLogger("kubeml_tpu_torch.ps")
 
-PREEMPTION = "preemption and adoption, ROADMAP A.17"
+PREEMPTION = "the preemption of training jobs, ROADMAP A.17"
 UNPORTED_DECODE = "multi-step and speculative decode, ROADMAP A.1"
 
 
@@ -310,16 +322,26 @@ class _JobRecord:
         self.update_event = threading.Event()
         self.restarts = task.restarts  # crash restarts consumed
         self.restarting = False  # watchdog respawn claimed, in progress
+        # pid of a child RE-ADOPTED from a previous PS incarnation: there
+        # is no Popen handle to wait() on, so its watchdog polls the pid
+        self.adopted_pid: Optional[int] = None
 
-    def push_update(self, parallelism: int):
+    def push_update(self, parallelism: int,
+                    grant_epoch: Optional[int] = None):
         # standalone-ness is `job is None`: a crash-restarting record has
         # url transiently None and must answer the 503 retry signal
         if self.job is None and self.url is None:
             raise KubeMLException(
                 f"job {self.task.job_id} still starting", 503)
+        if grant_epoch is not None:
+            # a recovered scheduler re-fenced the grant: the child must
+            # present the NEW epoch on its next /job ask or be 409'd
+            self.task.grant_epoch = int(grant_epoch)
         if self.url is not None:
-            http_json("POST", f"{self.url}/update",
-                      {"parallelism": parallelism})
+            body = {"parallelism": parallelism}
+            if grant_epoch is not None:
+                body["grant_epoch"] = int(grant_epoch)
+            http_json("POST", f"{self.url}/update", body)
         else:
             self.next_parallelism = parallelism
             self.update_event.set()
@@ -360,7 +382,8 @@ class ParameterServer(JsonService):
                  serve_hedge_after_s: Optional[float] = None,
                  serve_slo_ttft_ms: Optional[float] = None,
                  serve_slo_tpot_ms: Optional[float] = None,
-                 serve_slo_target: Optional[float] = None):
+                 serve_slo_target: Optional[float] = None,
+                 state_dir: Optional[str] = None):
         super().__init__(port=port)
         # resolved at first use (a threaded job or an /infer): in
         # standalone mode the parent leaves the card to its children
@@ -392,7 +415,7 @@ class ParameterServer(JsonService):
         self._infer_batcher = InferBatcher() if InferBatcher.enabled() \
             else None
         # the checkpoint LRU yields to the serving fleets: cached modules
-        # and the fleets' KV slabs and params share device memory
+        # and the fleets' KV slabs share device memory
         self.serve_hbm_budget_bytes = int(float(_knob(
             serve_hbm_budget_mb, "KUBEML_SERVE_HBM_BUDGET_MB", "512"))
             * (1 << 20))
@@ -406,6 +429,22 @@ class ParameterServer(JsonService):
             serve_slo_target)
         self._serve: Dict[str, tuple] = {}   # model_id -> (stamp, fleet)
         self._serve_lock = threading.Lock()
+        # durable control plane (opt-in): standalone-job and fleet
+        # manifests mirrored under state_dir so recover() can re-adopt
+        # surviving children and rebuild serving fleets after a crash
+        self.state_dir = state_dir
+        self._jobs_manifest_path = (
+            os.path.join(state_dir, "ps.jobs.json") if state_dir else None)
+        self._fleet_manifest_path = (
+            os.path.join(state_dir, "ps.fleets.json") if state_dir
+            else None)
+        if state_dir:
+            os.makedirs(state_dir, exist_ok=True)
+        # one writer at a time per manifest: atomic_write_json stages
+        # through a fixed <name>.tmp, which two writers would share
+        self._manifest_lock = threading.Lock()
+        self.recoveries = 0
+        self.last_recovery_s: Optional[float] = None
         self.metrics = MetricsRegistry()
         # training-health verdicts over rolling MetricUpdate windows
         # (control/health.py); served on GET /health?id=
@@ -430,10 +469,10 @@ class ParameterServer(JsonService):
         self.route("POST", "/infer", self._h_infer)
         self.route("POST", "/generate", self._h_generate)
         self.route("GET", "/flight", self._h_flight)
+        self.route("POST", "/cluster", self._h_cluster)
+        self.route("POST", "/preempt/{jobId}", self._h_preempt)
         for method, path, brings in (
                 ("GET", "/cost", "the cost ledger, ROADMAP A.13"),
-                ("POST", "/cluster", "the cluster allocator, ROADMAP A.16"),
-                ("POST", "/preempt/{jobId}", PREEMPTION),
                 ("POST", "/preempted/{jobId}", PREEMPTION)):
             self.route(method, path, not_ported(f"{method} {path}", brings))
 
@@ -470,7 +509,10 @@ class ParameterServer(JsonService):
             rec = self.jobs.get(job_id)
         if rec is None:
             raise JobNotFoundError(job_id)
-        rec.push_update(int(req.body["parallelism"]))
+        epoch = req.body.get("grant_epoch") \
+            if isinstance(req.body, dict) else None
+        rec.push_update(int(req.body["parallelism"]),
+                        grant_epoch=None if epoch is None else int(epoch))
         return {"ok": True}
 
     def _h_metrics(self, req: Request):
@@ -553,6 +595,42 @@ class ParameterServer(JsonService):
             raise JobNotFoundError(job_id)
         rec.request_stop()
         rec.task.state = "stopping"
+        return {"ok": True}
+
+    def _h_preempt(self, req: Request):
+        """Cluster-allocator preemption (control/cluster.py). A
+        ``serve:<model>`` victim is the second gang kind: its fleet
+        drains to zero (in-flight streams get the grace budget, then the
+        replicas stop) and the model cold-starts again on its next
+        request. A training victim's SIGTERM drain, round checkpoint and
+        requeue come with ROADMAP A.17: refused with 501, and the
+        scheduler frees its lanes when the job finishes."""
+        job_id = req.params["jobId"]
+        if not job_id.startswith("serve:"):
+            raise NotPortedError(f"POST /preempt of training job {job_id}",
+                                 PREEMPTION, 501)
+        model_id = job_id[len("serve:"):]
+        with self._serve_lock:
+            cur = self._serve.get(model_id)
+        if cur is None:
+            raise JobNotFoundError(job_id)
+        logger.warning("serving fleet %s: allocator preemption — draining "
+                       "to zero", model_id)
+        cur[1].scale_to_zero("allocator preemption")
+        self._persist_fleets()
+        return {"ok": True}
+
+    def _h_cluster(self, req: Request):
+        """Cluster-allocator telemetry push from the scheduler: the
+        snapshot lands on the Prometheus cluster families and rides the
+        health pipeline under the `cluster` pseudo job id, so the
+        queue-starvation rule and `kubeml top --id cluster` see it via
+        GET /health?id=cluster."""
+        snap = req.body if isinstance(req.body, dict) else {}
+        if not snap.get("job_id"):
+            raise InvalidArgsError("cluster snapshot requires job_id")
+        self.metrics.update_cluster(snap)
+        self._observe_health(snap)
         return {"ok": True}
 
     def _h_tasks(self, req: Request):
@@ -658,8 +736,8 @@ class ParameterServer(JsonService):
     def _evict_infer_cache_locked(self) -> None:
         """LRU eviction under two pressures (cache lock held): the entry
         cap, and the serving device budget — cached modules and the live
-        fleets' KV slabs and params share device memory, so cached
-        entries yield until the total fits. The freshest entry always
+        fleets' KV slabs share device memory, so cached entries yield
+        until the total fits. The freshest entry always
         survives (its request is about to use it)."""
         while len(self._infer_cache) > self.infer_cache_size:
             self._infer_cache.popitem(last=False)
@@ -763,22 +841,34 @@ class ParameterServer(JsonService):
 
     def _serve_resize_cb(self, model_id: str):
         """The fleet's bridge to the cluster pool: each resize is offered
-        to the scheduler's POST /serve/resize. Fails OPEN: without a
-        scheduler, or when it refuses (the port's scheduler answers 501
-        until the allocator's serving gang lands, ROADMAP A.16), the
-        fleet gets what it asked for."""
+        to the scheduler's POST /serve/resize (ClusterAllocator, gang
+        kind 'serving'), so replicas and training lanes contend for one
+        pool. Fails OPEN: without a scheduler, or when it is unreachable,
+        the fleet gets what it asked for."""
         def resize_cb(replicas: int) -> int:
-            if not self.scheduler_url:
-                return replicas
+            granted = replicas
+            if self.scheduler_url:
+                try:
+                    resp = http_json(
+                        "POST", f"{self.scheduler_url}/serve/resize",
+                        {"model_id": model_id, "replicas": int(replicas)})
+                    granted = int(resp.get("granted", replicas))
+                except KubeMLException as e:
+                    logger.info("serve resize offer for %s not granted "
+                                "(%s); failing open", model_id, e.message)
+            # each offer (grow, shrink, cold start, scale to zero) records
+            # the count the fleet runs after it: the grant, except that an
+            # offer of one replica (a cold start, or a shrink to one, which
+            # is always granted) keeps the fleet's serving floor of one on
+            # a zero grant. A disk error is logged, never made a grant.
             try:
-                resp = http_json(
-                    "POST", f"{self.scheduler_url}/serve/resize",
-                    {"model_id": model_id, "replicas": int(replicas)})
-                return int(resp.get("granted", replicas))
-            except KubeMLException as e:
-                logger.info("serve resize offer for %s not granted (%s); "
-                            "failing open", model_id, e.message)
-                return replicas
+                self._persist_fleets(resized=(
+                    model_id, max(granted, 1) if replicas == 1
+                    else granted))
+            except OSError:
+                logger.exception("fleet manifest write for %s failed",
+                                 model_id)
+            return granted
         return resize_cb
 
     def _serve_service(self, model_id: str):
@@ -796,6 +886,7 @@ class ParameterServer(JsonService):
                 if cur[0] != stamp:
                     cur[1].install_weights(module.state_dict(), stamp)
                     self._serve[model_id] = (stamp, cur[1])
+                    self._persist_fleets_async()
                 return cur[1]
         fleet = ServeFleet(
             model_id, self._serve_replica_factory(model_id),
@@ -825,6 +916,7 @@ class ParameterServer(JsonService):
                 self._serve[model_id] = (stamp, fleet)
         if old is not None:
             old.stop()
+        self._persist_fleets()
         return fleet
 
     def _h_generate(self, req: Request):
@@ -917,6 +1009,129 @@ class ParameterServer(JsonService):
         return {"id": f"serve:{model_id}", "model": model_id,
                 "capacity": capacity, "total_steps": total,
                 "replicas": replicas, "records": records}
+
+    # ----------------------------------------------- durable control plane
+
+    def _persist_jobs(self) -> None:
+        """Mirror the standalone-job registry to the durable manifest
+        (atomic tmp+rename). Threaded jobs are deliberately absent:
+        they are threads of THIS process and cannot outlive it."""
+        if self._jobs_manifest_path is None:
+            return
+        with self._manifest_lock:
+            with self._jobs_lock:
+                doc = {}
+                for job_id in sorted(self.jobs):
+                    rec = self.jobs[job_id]
+                    if rec.job is not None:
+                        continue
+                    rec.task.restarts = rec.restarts
+                    pid = rec.proc.pid if rec.proc is not None \
+                        else rec.adopted_pid
+                    doc[job_id] = {"task": rec.task.to_dict(),
+                                   "url": rec.url, "pid": pid,
+                                   "partition": rec.partition}
+            atomic_write_json(self._jobs_manifest_path, {"jobs": doc})
+
+    def _persist_fleets(self, resized: Optional[tuple] = None) -> None:
+        """Mirror the serving registry — checkpoint stamp + live replica
+        count per model — so recover() can rebuild each fleet at its
+        pre-crash width with the last published weights. ``resized`` =
+        (model_id, granted) comes from a resize offer, made before the
+        fleet changes: that model is recorded at the count it was
+        granted, not the count it has yet."""
+        if self._fleet_manifest_path is None:
+            return
+        with self._manifest_lock:
+            with self._serve_lock:
+                items = sorted(self._serve.items())
+            doc = {m: {"stamp": stamp, "replicas": fleet.replica_count}
+                   for m, (stamp, fleet) in items}
+            if resized is not None and resized[0] in doc:
+                doc[resized[0]]["replicas"] = int(resized[1])
+            atomic_write_json(self._fleet_manifest_path, {"fleets": doc})
+
+    def _persist_fleets_async(self) -> None:
+        """_persist_fleets for callers already holding _serve_lock (a
+        plain, non-reentrant Lock): a short-lived thread takes it."""
+        if self._fleet_manifest_path is None:
+            return
+        threading.Thread(target=self._persist_fleets,
+                         name="persist-fleets", daemon=True).start()
+
+    def recover(self) -> dict:
+        """Rebuild a restarted PS from its durable manifests.
+
+        Standalone children that survived the control-plane crash are
+        RE-ADOPTED: probed over their recorded URL, reinstated in the job
+        registry (partition lease re-claimed, counters restored) and
+        watched by a pid-poll watchdog — never started a second time.
+        Children that died with the control plane are dropped here; the
+        scheduler's recovery sweep requeues them budget-free. Serving
+        fleets are rebuilt at their recorded replica counts through the
+        ordinary build path, which loads the newest checkpoint."""
+        t0 = time.monotonic()
+        summary: dict = {"adopted": [], "dropped": [], "fleets": {}}
+        jobs_doc = (read_json(self._jobs_manifest_path)
+                    if self._jobs_manifest_path else None) or {}
+        for job_id, ent in sorted(jobs_doc.get("jobs", {}).items()):
+            task = TrainTask.from_dict(ent["task"])
+            url = ent.get("url")
+            alive = False
+            if url:
+                try:
+                    http_json("GET", f"{url}/health")
+                    alive = True
+                except KubeMLException:
+                    alive = False
+            if not alive:
+                summary["dropped"].append(job_id)
+                logger.warning("ps recovery: job %s child is gone; leaving "
+                               "the requeue to the scheduler sweep", job_id)
+                continue
+            rec = _JobRecord(task, url=url)
+            rec.partition = ent.get("partition")
+            rec.adopted_pid = ent.get("pid")
+            with self._jobs_lock:
+                if job_id in self.jobs:
+                    continue
+                self.jobs[job_id] = rec
+                if rec.partition is not None and self.job_partitions:
+                    self._busy_partitions.add(rec.partition)
+            self.metrics.running_total.inc("train")
+            threading.Thread(target=self._watch_adopted,
+                             args=(job_id, rec, rec.adopted_pid),
+                             name=f"watch-{job_id}", daemon=True).start()
+            summary["adopted"].append(job_id)
+            logger.warning("ps recovery: re-adopted live child %s at %s "
+                           "(pid %s)", job_id, url, rec.adopted_pid)
+        fleets_doc = (read_json(self._fleet_manifest_path)
+                      if self._fleet_manifest_path else None) or {}
+        for model_id, ent in sorted(fleets_doc.get("fleets", {}).items()):
+            replicas = int(ent.get("replicas", 0))
+            if replicas <= 0:
+                continue  # was at zero; the next request cold-starts it
+            try:
+                fleet = self._serve_service(model_id)
+                live = fleet.ensure_replicas(replicas)
+                summary["fleets"][model_id] = live
+                logger.warning("ps recovery: fleet %s rebuilt at %d "
+                               "replica(s) (stamp %s)", model_id, live,
+                               ent.get("stamp"))
+            except Exception:  # noqa: BLE001 — one fleet never fails recovery
+                logger.exception("ps recovery: fleet %s rebuild failed",
+                                 model_id)
+        self.last_recovery_s = time.monotonic() - t0
+        self.recoveries += 1
+        self.metrics.note_control_recovery("ps", self.last_recovery_s)
+        self._persist_jobs()
+        self._persist_fleets()
+        summary["recovery_s"] = self.last_recovery_s
+        logger.warning("ps recovered in %.3fs: %d job(s) adopted, %d "
+                       "dropped, %d fleet(s) rebuilt", self.last_recovery_s,
+                       len(summary["adopted"]), len(summary["dropped"]),
+                       len(summary["fleets"]))
+        return summary
 
     # ------------------------------------------------------------- job mgmt
 
@@ -1058,11 +1273,43 @@ class ParameterServer(JsonService):
         threading.Thread(target=self._watch_standalone,
                          args=(task.job_id, rec),
                          name=f"watch-{task.job_id}", daemon=True).start()
+        self._persist_jobs()
 
     def _watch_standalone(self, job_id: str, rec: _JobRecord):
         proc = rec.proc
         proc.wait()
         self._on_child_exit(job_id, rec, proc.returncode)
+
+    def _watch_adopted(self, job_id: str, rec: _JobRecord,
+                       pid: Optional[int]) -> None:
+        """Watchdog of a child RE-ADOPTED from a previous PS incarnation:
+        no Popen handle exists to wait() on, so poll the pid's liveness
+        (the child's /health without one) and route its death through
+        the same exit logic as a spawn-watched child."""
+        while True:
+            if self._stopping:
+                return
+            with self._jobs_lock:
+                if self.jobs.get(job_id) is not rec:
+                    return  # deregistered normally via /finish
+            if rec.proc is not None:
+                return  # a restart respawned it; its own watchdog owns it
+            if pid is not None:
+                try:
+                    os.kill(pid, 0)
+                    alive = True
+                except OSError:
+                    alive = False
+            else:
+                try:
+                    http_json("GET", f"{rec.url}/health")
+                    alive = True
+                except KubeMLException:
+                    alive = False
+            if not alive:
+                break
+            time.sleep(0.5)
+        self._on_child_exit(job_id, rec, None)
 
     def _on_child_exit(self, job_id: str, rec: _JobRecord,
                        rc: Optional[int]) -> None:
@@ -1086,6 +1333,7 @@ class ParameterServer(JsonService):
                 rec.restarts += 1
                 rec.proc = None
                 rec.url = None
+                rec.adopted_pid = None
                 rec.restarting = True
                 rec.task.parameters.resume_from = job_id
         logger.warning("job %s process exited without finishing (rc=%s)",
@@ -1203,6 +1451,7 @@ class ParameterServer(JsonService):
         with self._health_lock:
             self.health.clear(job_id)
         self.metrics.running_total.inc("train", -1.0)
+        self._persist_jobs()
         if error:
             logger.warning("job %s exited with error: %s", job_id, error)
         if self.scheduler_url is not None:

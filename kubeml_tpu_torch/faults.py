@@ -1,6 +1,7 @@
-"""Deterministic fault injection for the serving plane (the serve and fleet
-kinds of kubeml_tpu/faults.py, copied: the port imports nothing of the JAX
-package, and one plan string drives both packages' tests).
+"""Deterministic fault injection for the serving and control planes (the
+serve, fleet and control kinds of kubeml_tpu/faults.py, copied: the port
+imports nothing of the JAX package, and one plan string drives both
+packages' tests).
 
 An injection fires at NAMED coordinates, never at random, so every serve
 recovery path replays bit for bit in the CPU tests. The plans parse a
@@ -48,6 +49,24 @@ fleet supervisor (serve/fleet.py supervise_once) is the injection point:
            hedge_after_s and get hedged to a peer. Fires once (the
            planted slow step fires every step).
 
+The CONTROL PLANE (ControlFaultPlan) counts in decision-journal record
+indices; the DecisionJournal append and replay sites
+(control/journal.py) are the injection points:
+
+  control_crash
+           raise ControlCrash AFTER the journal frame at the target index
+           is durably flushed (death after a durable append). Replay must
+           reconstruct the allocator exactly, that last decision
+           included. Fires once per event.
+  control_torn_write
+           raise ControlCrash MID-append at the target index, leaving a
+           strict prefix of the frame on disk. Replay must drop the
+           partial frame by its CRC and reconstruct the state as of
+           index-1. Fires once per event.
+  control_slow_recover
+           time.sleep(duration_s) at the top of journal replay: a dilated
+           recovery window. Fires once per event.
+
 The training kinds (nan, dropout, crash, ...) come with the degraded mode
 (ROADMAP A.4.5).
 """
@@ -66,6 +85,15 @@ SERVE_KINDS = ("serve_nan_logits", "serve_step_crash", "serve_slow_step",
                "serve_loop_wedge")
 FLEET_KINDS = ("fleet_replica_crash", "fleet_replica_wedge",
                "fleet_replica_slow")
+CONTROL_KINDS = ("control_crash", "control_torn_write",
+                 "control_slow_recover")
+
+
+class ControlCrash(RuntimeError):
+    """Simulated control-plane process death, raised from inside a
+    DecisionJournal append by an injected control_crash or
+    control_torn_write event: the caller abandons the in-memory control
+    plane and recovers a fresh one from the journal."""
 
 
 def _event_dicts(spec: Any, what: str) -> List[dict]:
@@ -256,3 +284,76 @@ class FleetFaultPlan:
                            tick, target)
             out.append((ev.kind, target, ev))
         return out
+
+
+@dataclasses.dataclass
+class ControlFaultEvent:
+    """One control-plane injection at a decision-journal record index;
+    -1 = wildcard (the first append / the first replay)."""
+
+    kind: str
+    index: int = -1
+    duration_s: float = 0.0   # control_slow_recover only
+
+    def at_index(self, index: int) -> bool:
+        return self.index < 0 or self.index == index
+
+
+class ControlFaultPlan:
+    """Coordinate-driven fault schedule for the control plane: the
+    DecisionJournal consults ``torn_at`` / ``crash_at`` inside append()
+    at the exact record index and ``sleep_recover`` at the top of
+    replay(). Every event fires once."""
+
+    def __init__(self, events: List[ControlFaultEvent]):
+        self.events = events
+        self.injected = {k: 0 for k in CONTROL_KINDS}
+        self._fired: set = set()
+
+    @classmethod
+    def parse(cls, spec: Any) -> "ControlFaultPlan":
+        """Parse a JSON string / dict / list of control event dicts."""
+        if isinstance(spec, ControlFaultPlan):
+            return spec
+        return cls([ControlFaultEvent(
+            kind=_check_kind(e, CONTROL_KINDS, "control"),
+            index=int(e.get("index", -1)),
+            duration_s=float(e.get("duration_s", 0.0)))
+            for e in _event_dicts(spec, "control")])
+
+    def has(self, kind: str) -> bool:
+        return any(ev.kind == kind for ev in self.events)
+
+    def _fire_one(self, kind: str, index: int) -> bool:
+        for i, ev in enumerate(self.events):
+            if ev.kind != kind or i in self._fired or \
+                    not ev.at_index(index):
+                continue
+            self._fired.add(i)
+            self.injected[kind] += 1
+            logger.warning("control fault %s: journal index %d", kind,
+                           index)
+            return True
+        return False
+
+    def torn_at(self, index: int) -> bool:
+        """True when the append at `index` must be torn (partial frame
+        on disk, then ControlCrash)."""
+        return self._fire_one("control_torn_write", index)
+
+    def crash_at(self, index: int) -> bool:
+        """True when the control plane must die AFTER the durable append
+        at `index`."""
+        return self._fire_one("control_crash", index)
+
+    def sleep_recover(self) -> None:
+        """Dilate journal replay by any due control_slow_recover events
+        (once each)."""
+        for i, ev in enumerate(self.events):
+            if ev.kind != "control_slow_recover" or i in self._fired:
+                continue
+            self._fired.add(i)
+            self.injected["control_slow_recover"] += 1
+            logger.warning("control fault control_slow_recover: sleeping "
+                           "%.3fs", ev.duration_s)
+            time.sleep(ev.duration_s)

@@ -16,10 +16,16 @@ port deployment unchanged:
         state gauges and token counters, the fleet's routing, scaling and
         failure-domain counters, and the SLO plane's attainment and burn
 
+    kubeml_cluster_*{pool,priority,tenant}: the cluster allocator's pool
+        occupancy, queue by priority, tenant lanes, quota and share, and
+        its lifetime decision counters (update_cluster, from the
+        scheduler's snapshot pushes)
+    kubeml_control_*{role,pool}: control-plane recoveries and their
+        seconds per role, journal records and compactions, fencing
+        rejections and the fencing epoch
+
 Per-job series are cleared when a job finishes (metrics.go:90-106), a
-model's serve series by clear_serve. The cluster and
-durable-control-plane families come with the modules that set them
-(ROADMAP A.16).
+model's serve series by clear_serve.
 """
 
 from __future__ import annotations
@@ -638,12 +644,82 @@ class MetricsRegistry:
             "kubeml_cost_dispatches_total",
             "Device dispatches counted by the analytic cost ledger, by "
             "program and plane", ("program", "plane"))
+        # cluster allocator (control/cluster.py), fed by the scheduler's
+        # snapshot pushes (POST /cluster): pool occupancy, queue depth
+        # by priority, per-tenant lanes vs quota/weighted share, and
+        # the lifetime decision counters (placements/preemptions/aged
+        # grants/quota clamps — snapshots carry cumulative values, the
+        # counters advance by delta like jit_compiles_total)
+        self.cluster_pool_lanes = Gauge(
+            "kubeml_cluster_pool_lanes",
+            "Worker lanes in the shared cluster pool", "pool")
+        self.cluster_lanes_in_use = Gauge(
+            "kubeml_cluster_lanes_in_use",
+            "Worker lanes currently leased to placed jobs", "pool")
+        self.cluster_running_jobs = Gauge(
+            "kubeml_cluster_running_jobs",
+            "Jobs holding lanes in the shared pool", "pool")
+        self.cluster_queue_depth = Gauge(
+            "kubeml_cluster_queue_depth",
+            "Jobs parked by the cluster allocator, by priority",
+            "priority")
+        self.cluster_oldest_wait = Gauge(
+            "kubeml_cluster_oldest_wait_seconds",
+            "Queue wait of the longest-parked job", "pool")
+        self.cluster_tenant_lanes = Gauge(
+            "kubeml_cluster_tenant_lanes",
+            "Worker lanes leased to a tenant's running jobs", "tenant")
+        self.cluster_tenant_quota = Gauge(
+            "kubeml_cluster_tenant_quota_lanes",
+            "Lane quota of a tenant (hard cap)", "tenant")
+        self.cluster_tenant_share = Gauge(
+            "kubeml_cluster_tenant_share",
+            "Fraction of the pool a tenant's running jobs hold",
+            "tenant")
+        self.cluster_gang_placements_total = Counter(
+            "kubeml_cluster_gang_placements_total",
+            "Atomic gang placements by the cluster allocator", "pool")
+        self.cluster_preemptions_total = Counter(
+            "kubeml_cluster_preemptions_total",
+            "Victims displaced by higher-priority arrivals", "pool")
+        self.cluster_aged_grants_total = Counter(
+            "kubeml_cluster_aged_grants_total",
+            "Placements that needed aging to outrank newer arrivals",
+            "pool")
+        self.cluster_quota_clamps_total = Counter(
+            "kubeml_cluster_quota_clamps_total",
+            "Gang or resize asks clamped to a tenant quota", "pool")
+        # durable control plane (control/journal.py): recovery counts
+        # and latency per role, decision-journal activity, and stale
+        # grants rejected by the fencing epoch — the split-brain signal
+        self.control_recoveries_total = Counter(
+            "kubeml_control_recoveries_total",
+            "Control-plane crash recoveries completed", "role")
+        self.control_journal_records_total = Counter(
+            "kubeml_control_journal_records_total",
+            "Decision-journal records appended", "role")
+        self.control_journal_compactions_total = Counter(
+            "kubeml_control_journal_compactions_total",
+            "Decision-journal snapshot compactions", "role")
+        self.control_fencing_rejections_total = Counter(
+            "kubeml_control_fencing_rejections_total",
+            "Stale lane grants rejected by their fencing epoch", "role")
+        self.control_recovery_seconds = Histogram(
+            "kubeml_control_recovery_seconds",
+            "Wall seconds one control-plane role took to recover",
+            "role")
+        self.control_fencing_epoch = Gauge(
+            "kubeml_control_fencing_epoch",
+            "Current fencing epoch of the lane-grant allocator "
+            "(bumped on every recovery)", "pool")
         # cumulative MetricUpdate values seen per job: the counters
         # advance by delta so a replayed update stays monotone
         self._jit_seen: Dict[str, float] = {}
         self._trace_seen: Dict[str, float] = {}
         self._cost_seen: Dict[tuple, float] = {}
         self._fleet_seen: Dict[tuple, float] = {}
+        # the allocator snapshot's lifetime counters seen so far
+        self._cluster_seen: Dict[str, float] = {}
         self._job_gauges = [self.validation_loss, self.validation_accuracy,
                             self.train_loss, self.parallelism,
                             self.epoch_duration, self.dropped_workers,
@@ -688,6 +764,24 @@ class MetricsRegistry:
             self.serve_fleet_probes_total, self.serve_fleet_hedges_total,
             self.serve_slo_good_total, self.serve_slo_bad_total,
             self.serve_slo_burn_alerts_total]
+
+        self._cluster_gauges = [self.cluster_pool_lanes,
+                                self.cluster_lanes_in_use,
+                                self.cluster_running_jobs,
+                                self.cluster_queue_depth,
+                                self.cluster_oldest_wait,
+                                self.cluster_tenant_lanes,
+                                self.cluster_tenant_quota,
+                                self.cluster_tenant_share,
+                                self.control_fencing_epoch]
+        self._cluster_counters = [self.cluster_gang_placements_total,
+                                  self.cluster_preemptions_total,
+                                  self.cluster_aged_grants_total,
+                                  self.cluster_quota_clamps_total,
+                                  self.control_recoveries_total,
+                                  self.control_journal_records_total,
+                                  self.control_journal_compactions_total,
+                                  self.control_fencing_rejections_total]
 
     def update_job(self, m) -> None:
         """Apply a MetricUpdate (ml/pkg/ps/metrics.go:90-99)."""
@@ -942,6 +1036,85 @@ class MetricsRegistry:
         for key in [k for k in self._fleet_seen if k[0] == model]:
             del self._fleet_seen[key]
 
+    # ---------------------------------------------------- cluster allocator
+
+    def update_cluster(self, snap: dict) -> None:
+        """Apply one allocator snapshot (control/cluster.py
+        ClusterAllocator.snapshot(), pushed by the scheduler). Gauges
+        mirror the snapshot; per-priority/per-tenant series absent from
+        it zero out (a drained priority level must not linger at its
+        last depth); lifetime counters advance by delta so replays
+        after a scheduler restart stay monotone."""
+        self.cluster_pool_lanes.set(
+            "shared", float(snap.get("cluster_pool_lanes", 0)))
+        self.cluster_lanes_in_use.set(
+            "shared", float(snap.get("cluster_lanes_in_use", 0)))
+        self.cluster_running_jobs.set(
+            "shared", float(snap.get("cluster_running_jobs", 0)))
+        self.cluster_oldest_wait.set(
+            "shared", float(snap.get("cluster_oldest_wait_s", 0.0)))
+        by_prio = snap.get("cluster_queue_by_priority") or {}
+        with self.cluster_queue_depth._lock:
+            stale = [k for k in self.cluster_queue_depth._values
+                     if k not in by_prio]
+        for k in stale:
+            self.cluster_queue_depth.set(k, 0.0)
+        for prio, depth in by_prio.items():
+            self.cluster_queue_depth.set(str(prio), float(depth))
+        pool = float(snap.get("cluster_pool_lanes", 0)) or 1.0
+        lanes = snap.get("cluster_tenant_lanes") or {}
+        quotas = snap.get("cluster_tenant_quota") or {}
+        for t, n in lanes.items():
+            self.cluster_tenant_lanes.set(t, float(n))
+            self.cluster_tenant_share.set(t, float(n) / pool)
+        for t, q in quotas.items():
+            self.cluster_tenant_quota.set(t, float(q))
+        for field, counter in (
+                ("cluster_gang_placements_total",
+                 self.cluster_gang_placements_total),
+                ("cluster_preemptions_total",
+                 self.cluster_preemptions_total),
+                ("cluster_aged_grants_total",
+                 self.cluster_aged_grants_total),
+                ("cluster_quota_clamps_total",
+                 self.cluster_quota_clamps_total)):
+            cum = float(snap.get(field, 0))
+            seen = self._cluster_seen.get(field, 0.0)
+            if cum > seen:
+                counter.inc("shared", cum - seen)
+                self._cluster_seen[field] = cum
+        # durable control plane: the allocator's journaled lifetime
+        # counters (they survive restart, so deltas stay monotone
+        # across control-plane incarnations)
+        self.control_fencing_epoch.set(
+            "shared", float(snap.get("cluster_fencing_epoch", 0)))
+        for field, counter, role in (
+                ("cluster_recoveries_total",
+                 self.control_recoveries_total, "allocator"),
+                ("cluster_journal_records_total",
+                 self.control_journal_records_total, "allocator"),
+                ("cluster_journal_compactions_total",
+                 self.control_journal_compactions_total, "allocator"),
+                ("cluster_fencing_rejections_total",
+                 self.control_fencing_rejections_total, "allocator")):
+            cum = float(snap.get(field, 0))
+            seen = self._cluster_seen.get(field, 0.0)
+            if cum > seen:
+                counter.inc(role, cum - seen)
+                self._cluster_seen[field] = cum
+        # a just-recovered scheduler stamps its recovery duration onto
+        # its first snapshot push
+        rs = snap.get("control_recovery_s")
+        if rs is not None:
+            self.note_control_recovery(
+                str(snap.get("control_role", "scheduler")), float(rs))
+
+    def note_control_recovery(self, role: str, seconds: float) -> None:
+        """One completed control-plane recovery for `role` (scheduler /
+        ps / allocator): lifetime count + wall-seconds histogram."""
+        self.control_recoveries_total.inc(role)
+        self.control_recovery_seconds.observe(role, seconds)
+
     def note_infer_cache(self, hit: bool, cache: str = "checkpoints") -> None:
         (self.infer_cache_hits_total if hit
          else self.infer_cache_misses_total).inc(cache)
@@ -977,5 +1150,7 @@ class MetricsRegistry:
                     + [self.infer_cache_entries, self.infer_cache_hits_total,
                        self.infer_cache_misses_total, self.cost_flops_total,
                        self.cost_hbm_bytes_total,
-                       self.cost_dispatches_total])
+                       self.cost_dispatches_total]
+                    + self._cluster_gauges + self._cluster_counters
+                    + [self.control_recovery_seconds])
         return "\n".join(f.collect() for f in families) + "\n"

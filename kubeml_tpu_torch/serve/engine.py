@@ -247,20 +247,6 @@ class DecodeEngine:
         toks = self.stats["generated_tokens"]
         return (self.stats["dispatches"] / toks) if toks else 0.0
 
-    @property
-    def params_bytes(self) -> int:
-        """Device bytes of every resident weight generation's params."""
-        def nbytes(tree):
-            if isinstance(tree, torch.Tensor):
-                return tree.numel() * tree.element_size()
-            if isinstance(tree, dict):
-                return sum(nbytes(v) for v in tree.values())
-            if isinstance(tree, (list, tuple)):
-                return sum(nbytes(v) for v in tree)
-            return 0
-        # a snapshot: the loop thread may install or retire meanwhile
-        return sum(nbytes(p) for p in list(self._params_by_gen.values()))
-
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens admitted to slots but not yet prefilled."""
         return sum(max(0, sl.n_prompt - 1 - sl.pos)
@@ -297,11 +283,15 @@ class DecodeEngine:
             return
         if any(sl is not None and sl.gen == gen for sl in self._slots):
             return
-        if self._params_by_gen.pop(gen, None) is not None:
-            self.pager.drop_generation(gen)
-            self.stats["generations_retired"] += 1
-            logger.info("retired weight generation %d (current %d)", gen,
-                        self.weight_generation)
+        if gen not in self._params_by_gen:
+            return
+        self.pager.drop_generation(gen)
+        self.stats["generations_retired"] += 1
+        # last: a reader on another thread that sees the generation gone
+        # from active_generations() also sees its retirement counted
+        del self._params_by_gen[gen]
+        logger.info("retired weight generation %d (current %d)", gen,
+                    self.weight_generation)
 
     # -------------------------------------------------------------- tracing
     def _span(self, name: str, start: float, end: float,

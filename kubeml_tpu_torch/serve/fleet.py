@@ -1,6 +1,6 @@
 """The serving fleet: N decode replicas behind one router, scaled to load
 (twin of kubeml_tpu/serve/fleet.py, without the cost ledger, ROADMAP
-A.13, and the durable fleet manifest, ROADMAP A.16).
+A.13; the PS keeps its durable manifest).
 
 One ``ServeFleet`` fronts N ``ServeService`` replicas of one model:
 
@@ -1174,11 +1174,10 @@ class ServeFleet:
 
     @property
     def hbm_bytes(self) -> int:
-        """Device bytes the fleet holds: each replica's KV slab plus its
-        resident weight generations' params."""
+        """Device bytes of the fleet's KV slabs, one per replica (the
+        reference's footprint: the PS's /infer cache yields to this)."""
         with self._lock:
             return sum(svc.engine.slab.device_bytes
-                       + svc.engine.params_bytes
                        for svc in self._replicas.values())
 
     def flight_snapshot(self, reason: str) -> None:

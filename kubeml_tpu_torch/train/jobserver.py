@@ -6,7 +6,9 @@ The PS spawns one child per training job in standalone mode
 reference's TrainJob (ml/pkg/train/api.go:141-149):
 
     POST   /start     receive the TrainTask, begin training
-    POST   /update    next-epoch parallelism push {"parallelism": N}
+    POST   /update    next-epoch parallelism push {"parallelism": N,
+                      "grant_epoch": E}: a re-grant's fencing epoch, when
+                      present, becomes the task's
     DELETE /stop      graceful stop at the next epoch boundary
     GET    /health    readiness probe (built into JsonService)
 
@@ -93,6 +95,12 @@ class JobServer(JsonService):
 
     def _h_update(self, req: Request):
         self._next_parallelism = int(req.body["parallelism"])
+        epoch = req.body.get("grant_epoch")
+        if epoch is not None and self._job is not None:
+            # a recovered scheduler re-grants surviving jobs under a new
+            # fencing epoch and relays it here: adopt it, so the next
+            # /job ask is not 409'd as a stale pre-crash grant
+            self._job.task.grant_epoch = int(epoch)
         self._update_event.set()
         return {"ok": True}
 

@@ -385,11 +385,12 @@ REFUSED = [
     (["serve", "--serve-decode-steps", "2"], "ROADMAP A.1"),
     (["serve", "--serve-draft-model", "m"], "ROADMAP A.1"),
     (["serve", "--role", "ps", "--serve-decode-steps", "4"], "ROADMAP A.1"),
-    (["serve", "--cluster-lanes", "2"], "ROADMAP A.16"),
-    (["serve", "--cluster-tenant", "prod=2"], "ROADMAP A.16"),
-    (["serve", "--control-durable"], "ROADMAP A.16"),
-    (["serve", "--role", "scheduler", "--control-dir", "/tmp/x"],
-     "ROADMAP A.16"),
+    (TRAIN + ["--continual", "--window-generations", "2"],
+     "ROADMAP A.4.5"),
+    (TRAIN + ["--continual", "--publish-every-rounds", "3"],
+     "ROADMAP A.4.5"),
+    (TRAIN + ["--quarantine-after", "2", "--reassign-on-quarantine"],
+     "ROADMAP A.4.5"),
 ]
 
 
@@ -672,3 +673,66 @@ def test_serve_passes_the_serve_knobs_through(role, monkeypatch, capsys):
         (4, "int8", False, 2, 250.0, 1)
     assert got["serve_queue_depth"] is None and got["serve_draft_model"] \
         is None
+
+
+@pytest.mark.parametrize("role", ["all", "scheduler"])
+def test_serve_passes_the_cluster_flags_through(role, monkeypatch, capsys,
+                                                tmp_path):
+    """`kubeml serve --cluster-*` (ROADMAP A.16, landed) builds the
+    deployment's allocator (--role all, with --control-dir) or the
+    scheduler's (--role scheduler), as the JAX package's CLI does."""
+    from kubeml_tpu_torch.cli import main as cli
+    from kubeml_tpu_torch.control import deployment, scheduler
+
+    got = {}
+
+    class Stopped:
+        url = controller_url = "http://h:1"
+
+        def __init__(self, **kw):
+            got.update(kw)
+            self.controller = self.scheduler = self.ps = self.storage = self
+
+        def start(self):
+            pass
+
+        def stop(self):
+            got["stopped"] = True
+
+    def interrupt(_seconds):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(deployment, "start_deployment",
+                        lambda **kw: Stopped(**kw))
+    monkeypatch.setattr(scheduler, "Scheduler", Stopped)
+    monkeypatch.setattr(cli.time, "sleep", interrupt)
+    argv = ["serve", "--role", role, "--device", "cpu", "--free-ports",
+            "--cluster-lanes", "4", "--cluster-tenant", "prod=3:4",
+            "--cluster-tenant", "batch=1", "--cluster-aging-s", "10"]
+    if role == "all":
+        argv += ["--control-dir", str(tmp_path / "control")]
+    cli.main(argv)
+    assert got["stopped"]
+    if role == "all":
+        assert (got["cluster_lanes"], got["cluster_tenants"],
+                got["cluster_aging_s"], got["control_dir"]) == \
+            (4, ["prod=3:4", "batch=1"], 10.0, str(tmp_path / "control"))
+    else:
+        alloc = got["allocator"]
+        assert (alloc.pool_lanes, alloc.tenant_weights, alloc.tenant_quotas,
+                alloc.aging_s) == (4, {"prod": 3.0, "batch": 1.0},
+                                   {"prod": 4}, 10.0)
+
+
+def test_control_flags_need_role_all(capsys):
+    """The durable control plane recovers the scheduler's and the PS's
+    state together: a single role refuses --control-dir instead of
+    dropping it."""
+    from kubeml_tpu_torch.cli.main import main
+
+    for argv in (["serve", "--role", "scheduler", "--control-dir", "/x"],
+                 ["serve", "--role", "ps", "--control-durable"]):
+        with pytest.raises(SystemExit) as ei:
+            main(argv + ["--device", "cpu", "--free-ports"])
+        assert ei.value.code not in (0, None)
+        assert "need --role all" in capsys.readouterr().err

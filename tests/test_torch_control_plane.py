@@ -254,14 +254,10 @@ def test_duplicate_upload_fails_alike(plane):
 
 REFUSED = [
     ("controller", "GET", "/cost/x", 501, "ROADMAP A.13"),
-    ("controller", "GET", "/cluster", 501, "ROADMAP A.16"),
     ("controller", "POST", "/dataset/blobs/append", 400, "continual mode"),
     ("storage", "POST", "/dataset/blobs/append", 400, "continual mode"),
-    ("scheduler", "GET", "/cluster", 501, "ROADMAP A.16"),
-    ("scheduler", "POST", "/serve/resize", 501, "ROADMAP A.16"),
     ("scheduler", "POST", "/requeue", 501, "ROADMAP A.17"),
     ("ps", "GET", "/cost?id=x", 501, "ROADMAP A.13"),
-    ("ps", "POST", "/cluster", 501, "ROADMAP A.16"),
     ("ps", "POST", "/preempt/x", 501, "ROADMAP A.17"),
     ("ps", "POST", "/preempted/x", 501, "ROADMAP A.17"),
 ]
@@ -283,6 +279,44 @@ def test_unported_routes_are_refused_with_their_item(plane, svc, method,
     # liveness keeps answering
     assert http_json("GET", getattr(plane["port"][0], svc).url
                      + "/health") == {"ok": True}
+
+
+# the cluster routes (ROADMAP A.16, landed), on a deployment without
+# cluster mode: (service, method, path, body)
+CLUSTER_ROUTES = [
+    ("controller", "GET", "/cluster", None),
+    ("scheduler", "GET", "/cluster", None),
+    ("scheduler", "POST", "/serve/resize", {"model_id": "m",
+                                            "replicas": 2}),
+    ("ps", "POST", "/cluster", {"job_id": "cluster",
+                                "cluster_pool_lanes": 4,
+                                "cluster_lanes_in_use": 0,
+                                "cluster_queue_depth": 0,
+                                "cluster_oldest_wait_s": 0.0}),
+]
+
+
+@pytest.mark.parametrize("svc,method,path,body", CLUSTER_ROUTES,
+                         ids=[f"{s} {m} {p}" for s, m, p, _ in CLUSTER_ROUTES])
+def test_cluster_routes_answer_as_the_references(plane, svc, method, path,
+                                                 body):
+    """Without an allocator, /cluster answers 503 through the controller
+    and the scheduler, /serve/resize fails open (grants what the fleet
+    asked for) and the PS takes a snapshot push — as the JAX package's
+    deployment does."""
+    from kubeml_tpu_torch.api.errors import KubeMLException
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    answers = []
+    for key in ("port", "ref"):
+        url = getattr(plane[key][0], svc).url + path
+        try:
+            answers.append(("ok", http_json(method, url, body)))
+        except KubeMLException as e:
+            answers.append(("error", e.status_code))
+    assert answers[0] == answers[1]
+    assert answers[0] in (("error", 503), ("ok", {"granted": 2}),
+                          ("ok", {"ok": True}))
 
 
 def test_trace_and_health_of_a_finished_job_alike(plane):
@@ -554,15 +588,44 @@ def test_user_function_trains_through_the_registry(plane):
                               "A.1"),
     ("serve_draft_model", "m", "multi-step and speculative decode, ROADMAP "
                                "A.1"),
-    ("cluster_lanes", 4, "ROADMAP A.16"),
-    ("cluster_tenants", ["prod=2"], "ROADMAP A.16"),
-    ("control_durable", True, "ROADMAP A.16"),
 ])
 def test_unported_deployment_knobs_raise(knob, value, brings):
     from kubeml_tpu_torch.control.deployment import start_deployment
 
     with pytest.raises(ValueError, match=brings):
         start_deployment(device="cpu", **{knob: value})
+
+
+@pytest.mark.parametrize("knobs", [
+    {"cluster_lanes": 4},
+    {"cluster_lanes": 4, "cluster_tenants": ["prod=2"],
+     "cluster_aging_s": 5.0},
+    {"control_durable": True},
+], ids=["cluster_lanes", "cluster_tenants", "control_durable"])
+def test_cluster_and_control_knobs_take_effect(tmp_home, knobs):
+    """The knobs the JAX package's deployment takes (ROADMAP A.16): the
+    cluster ones give the scheduler its allocator, the durable one puts
+    the scheduler's state, the PS's manifests and the journal under
+    $KUBEML_TPU_HOME/control."""
+    from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    dep = start_deployment(device="cpu", **knobs)
+    try:
+        alloc = dep.scheduler.allocator
+        if "cluster_lanes" in knobs:
+            snap = http_json("GET", f"{dep.controller_url}/cluster")
+            assert snap["cluster_pool_lanes"] == 4
+            assert alloc.aging_s == knobs.get("cluster_aging_s", 30.0)
+            assert snap["cluster_tenant_weight"] == (
+                {"prod": 2.0} if "cluster_tenants" in knobs else {})
+        else:
+            assert alloc is None
+            control = os.path.join(str(tmp_home), "control")
+            assert dep.scheduler.state_dir == dep.ps.state_dir == control
+            assert os.path.isdir(control)
+    finally:
+        dep.stop()
 
 
 def test_deployment_checks_its_arguments(tmp_home):

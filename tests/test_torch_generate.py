@@ -413,3 +413,45 @@ def test_infer_cache_yields_to_the_serving_budget(tmp_home, budget_mb, kept):
         ps._load_for_infer("lru1")
         caches.append(list(ps._infer_cache))
     assert caches[1] == caches[0] == kept
+
+
+def test_infer_cache_yields_to_a_live_fleets_kv_slabs_alike(tmp_home):
+    """With a live CPU fleet in each PS, the /infer cache yields to the
+    fleet's KV slabs only, as the JAX PS's does: a budget that holds the
+    slab and the three cached modules keeps all three in both (a
+    footprint that also counted the replica's params would evict the
+    oldest)."""
+    import numpy as np
+
+    from kubeml_tpu.control.ps import ParameterServer as RefPS
+    from kubeml_tpu_torch.control.ps import ParameterServer
+    from kubeml_tpu_torch.train.checkpoint import load_checkpoint
+
+    for name, seed in (("lrufleet", 3), ("lru0", 0), ("lru1", 1)):
+        _save_nano(name, seed=seed)
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return np.asarray(tree).nbytes
+    module_bytes = nbytes(load_checkpoint("lru0")[0])
+    caches = []
+    pss = [RefPS(infer_cache_size=4, serve_slots=2),
+           ParameterServer(device="cpu", infer_cache_size=4, serve_slots=2)]
+    try:
+        slabs = []
+        for ps in pss:
+            fleet = ps._serve_service("lrufleet")
+            slabs.append(sum(svc.engine.slab.device_bytes
+                             for svc in fleet.replicas()))
+        assert slabs[0] == slabs[1] > 0
+        budget = slabs[0] + 3 * module_bytes + module_bytes // 2
+        for ps in pss:
+            ps.serve_hbm_budget_bytes = budget
+            ps._load_for_infer("lru0")
+            ps._load_for_infer("lru1")
+            caches.append(list(ps._infer_cache))
+    finally:
+        for ps in pss:
+            ps.stop()
+    assert caches[1] == caches[0] == ["lrufleet", "lru0", "lru1"]

@@ -116,8 +116,17 @@ def test_port_carries_the_training_families():
         assert want in names
     # the speculative-decode counters come with that program (ROADMAP A.1)
     assert "kubeml_serve_draft_tokens_total" not in names
-    assert not any(n.startswith(("kubeml_cluster_", "kubeml_control_"))
-                   for n in names)
+    # the cluster allocator's and the durable control plane's (ROADMAP
+    # A.16), each block equal to the JAX package's
+    from kubeml_tpu.metrics.prom import MetricsRegistry as RefRegistry
+
+    ref = _families(RefRegistry().exposition())
+    port = _families(MetricsRegistry().exposition())
+    cluster = {n for n in ref
+               if n.startswith(("kubeml_cluster_", "kubeml_control_"))}
+    assert len(cluster) == 18
+    for name in cluster:
+        assert port[name] == ref[name], name
 
 
 @pytest.mark.parametrize("values", [

@@ -277,6 +277,9 @@ def test_port_imports_no_jax():
     # the kubeml CLI is checked with the rest
     assert {"main.py", "__main__.py", "__init__.py"} <= {
         p.name for p in files if p.parent.name == "cli"}
+    # and the allocator and the journal, the port's own copies
+    assert {"cluster.py", "journal.py", "scheduler.py", "ps.py"} <= {
+        p.name for p in files if p.parent.name == "control"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

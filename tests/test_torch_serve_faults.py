@@ -374,6 +374,31 @@ def test_hot_swap_pins_generations_like_reference(nano):
     assert tokens[2] == alone(sd2, [30, 31, 32], 5)
 
 
+def test_a_retired_generation_is_counted_before_it_leaves(nano):
+    """Another thread that sees generation 1 gone from
+    active_generations() (a test waiting for the retirement, the fleet's
+    snapshot) also sees it in stats["generations_retired"]: the engine
+    counts the retirement before it drops the params."""
+    from kubeml_tpu_torch.serve.slots import GenerateRequest
+
+    class Watched(dict):
+        def __delitem__(self, gen):
+            counted.append((gen, eng.stats["generations_retired"]))
+            super().__delitem__(gen)
+
+        def pop(self, gen, *default):
+            counted.append((gen, eng.stats["generations_retired"]))
+            return super().pop(gen, *default)
+
+    counted = []
+    _, _, _, sd2 = _modules(seed=12)
+    eng = _port_engine(nano)
+    eng._params_by_gen = Watched(eng._params_by_gen)
+    reqs = _swap_run(eng, GenerateRequest, sd2, lambda v: v)
+    assert all(r.outcome == "ok" for r in reqs)
+    assert counted == [(1, 1)] and eng.active_generations() == [2]
+
+
 def test_service_installs_weights_in_the_loop_thread(nano):
     """install_weights() from another thread only queues the swap: the
     engine installs it on the serving loop's thread, before the next
