@@ -245,6 +245,41 @@ Phases (any failure exits non-zero and prints no result line):
               uninterrupted direct job's. Prints
               kubeml_control_recovery_seconds per role and
               torch.cuda.mem_get_info's free bytes around the kill.
+ 16. degraded degraded-mode training and the preemption of training jobs,
+              under a fresh KUBEML_TPU_HOME and cudnn.deterministic, over
+              phase 10's windows (1024 + 128): gpt-mini at its published
+              widths whose per-sequence loss is scaled by a float batch
+              key w of ones (token ids are integers, which a NaN burst
+              leaves alone: w is the leaf it poisons), static N=4, K=4,
+              B=8, 32 windows a doc (8 rounds an epoch), 4 MB buckets.
+              (a) A nan FaultPlan event on worker 1 at epoch 1 round 2
+              and a dropout event there end with the same weights bit
+              for bit; dropped_workers [0, 1]. (b) NaN on every worker at
+              rounds 2 and 3: the weights after each round equal those
+              before round 2 (the fused merge's raw_count = 0 select) and
+              abort_after=2 fails the job with the JAX package's
+              diagnostic. (c) quarantine_after=2 and reassignment with NaN
+              on worker 2 at rounds 2-3: quarantined from round 4, the
+              makeup rounds cover its orphaned windows exactly once,
+              reassigned_batches equals the host's makeup plan. Then the
+              round cursor's cost: the same epoch with and without
+              checkpoint_every_rounds=1 (ms per local step, equal
+              weights). Then three sub-phases side by side, each mostly
+              cold child starts. (d) In start_deployment(standalone_jobs=
+              True) a job server child (N=2, 8 rounds of 8 steps,
+              checkpoint_every_rounds=2) crashes at round 5; the watchdog
+              restarts it from its cursor: restarts 1, weights equal to
+              the uninterrupted direct job. (f) The same job with a slow
+              round 5: its child is stopped (SIGSTOP) there, the
+              heartbeat reaper (0.25 s beats x 16) kills it, the watchdog
+              restarts it: restarts 1, kubeml_ps_wedged_kills_total 1,
+              equal weights. (e) In phase 15's cluster-mode serve child a
+              priority-1 N=4 arrival preempts a running N=2 job: SIGTERM
+              -> drain at a round -> /preempted -> /requeue -> re-place
+              -> resume; restarts 0, preemptions 1, equal weights; prints
+              the drain, requeue -> re-place and re-place -> done
+              seconds. Each flash and merge launch count is held to the
+              plan.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -259,7 +294,8 @@ the four training kernels also carries "job_launches", its launches in
 each epoch of phase 10's job, "deployment_launches" those of phase
 12's jobs and "cli_launches" those of phase 13's; every entry carries
 "cluster_launches", its launches through phase 15's deployment (null for
-int8 pages, which phase 15 does not serve); the merge's "resnet18"
+int8 pages, which phase 15 does not serve), and "degraded_launches", its
+launches in phase 16 (0 for the paged kernel); the merge's "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
@@ -289,6 +325,11 @@ through the PS), printing their numbers as one JSON line.
 
 builds the kernels and runs phase 3 (bf16 pages) and phase 15 alone,
 printing phase 15's launches as one JSON line.
+
+    python3 chip_smoke.py --degraded-only
+
+builds the flash and merge kernels and runs phase 16 alone, printing its
+launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -3795,6 +3836,598 @@ def cluster_recover(torch, card, serve, client, seed, module, ref, layers):
     return got
 
 
+# ----------------------------------------------------------------- phase 16
+DG_N, DG_VICTIM_N = 4, 2
+# (a)-(c)'s registry dataset: 32 windows a doc, so a round at N=4 is one
+# doc of K=4 steps per worker and an epoch 8 rounds (at phase 10's 64 a
+# round is 8 steps and an N=4 epoch 4 rounds); (d)-(f) upload through the
+# client at the storage's 64 and run at N=2: 8 rounds of 8 steps
+DG_SUBSET = 32
+DG_FN = "gpt-mini-weighted"
+# (a)-(c)'s function: phase 10's windows with a float per-sequence loss
+# weight w (all ones, so the loss is gpt-mini's): token ids are integers,
+# which a NaN burst leaves alone, so w is the float leaf it poisons
+DG_FUNCTION = '''
+import numpy as np
+from kubeml_tpu_torch.models.base import KubeDataset
+from kubeml_tpu_torch.models.gpt import GPTMini
+
+
+class WeightedWindows(KubeDataset):
+    def transform_train(self, data, labels):
+        x = np.asarray(data).astype(np.int32)
+        return {"x": x, "w": np.ones(len(x), np.float32)}
+
+    def transform_test(self, data, labels):
+        return {"x": np.asarray(data).astype(np.int32)}
+
+
+class WeightedGPTMini(GPTMini):
+    """gpt-mini whose per-sequence loss is scaled by the batch's w."""
+
+    def loss(self, module, batch, generator, sample_mask):
+        return super().loss(module, batch, generator, sample_mask) \\
+            * batch["w"].to(module.device)
+'''
+DG_ABORT = ("aborting job {}: every contributing worker produced non-finite "
+            "updates for 2 consecutive rounds (abort_after=2) — the model has "
+            "diverged and no merge can move the weights")
+DG_HEARTBEAT_S, DG_MISS_BUDGET = 0.25, 16    # the reaper's budget: 4 s
+DG_SLOW_S = 1.5                              # (f)'s slow round
+
+
+class JobWrapper:
+    """The PS's subprocess module for an in-process deployment: job server
+    children run through CL_JOB (phase 12's numerics, per-epoch launch
+    rows), everything else as it is."""
+
+    TimeoutExpired = subprocess.TimeoutExpired
+
+    def __init__(self, script, counts):
+        self.script, self.counts = script, counts
+
+    def Popen(self, cmd, **kw):
+        if cmd[1:3] == ["-m", "kubeml_tpu_torch.train.jobserver"]:
+            cmd = [cmd[0], self.script, self.counts] + cmd[3:]
+        return subprocess.Popen(cmd, **kw)
+
+
+def dg_classes():
+    ns = {}
+    exec(DG_FUNCTION, ns)
+    return ns["WeightedGPTMini"], ns["WeightedWindows"]
+
+
+def dg_task(job_id, epochs, n, **opts):
+    """Phase 10's job at a static N, no validation but the final one,
+    never stopping at a goal accuracy."""
+    return job_task(job_id, epochs, default_parallelism=n,
+                    static_parallelism=True, k=JOB_K,
+                    merge_bucket_mb=MERGE_CAP_MB, validate_every=0,
+                    train_stats=False, goal_accuracy=200.0, **opts)
+
+
+def dg_request(epochs, n, **opts):
+    return cp_request(CP_GPT_FN, "tokens", epochs, JOB_B, JOB_LR, k=JOB_K,
+                      default_parallelism=n, static_parallelism=True,
+                      merge_bucket_mb=MERGE_CAP_MB, goal_accuracy=200.0,
+                      **opts)
+
+
+def dg_kernels():
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    return {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+            "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+
+
+def dg_counts(zero=False):
+    kernels = dg_kernels()
+    out = {k: fn.launches for k, fn in kernels.items()}
+    if zero:
+        for fn in kernels.values():
+            fn.launches = 0
+    return out
+
+
+def dg_epoch(n, subset=DG_SUBSET):
+    """(plan, local steps, rounds, eval slots) of one epoch at a static
+    N=n over phase 10's windows stored ``subset`` to a doc."""
+    from kubeml_tpu_torch.data.sharding import plan_epoch
+
+    plan = plan_epoch(JOB_TRAIN, n, JOB_K, JOB_B, subset)
+    test = plan_epoch(JOB_TEST, n, -1, JOB_B, subset)
+    return (plan, plan.total_steps, len(plan.rounds),
+            n * test.rounds[0].max_steps)
+
+
+def dg_plan_launches(layers, steps, rounds, evals):
+    return {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+            "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+
+
+def dg_add(total, counts):
+    for k in total:
+        total[k] += counts[k]
+
+
+def phase_degraded(torch, card, seed):
+    """Degraded-mode training and the preemption of training jobs on the
+    card (see the module docstring, phase 16); returns each kernel's
+    launches over the phase."""
+    import os
+    import tempfile
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    det = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        torch.backends.cudnn.deterministic = True
+        try:
+            rng = np.random.default_rng(seed + 12)     # phase 10's windows
+            arrays = (token_windows(rng, JOB_TRAIN, TRAIN_T),
+                      np.zeros(JOB_TRAIN, np.int32),
+                      token_windows(rng, JOB_TEST, TRAIN_T),
+                      np.zeros(JOB_TEST, np.int32))
+            DatasetRegistry().create("tokens", *arrays,
+                                     subset_size=DG_SUBSET)
+            t0 = time.perf_counter()
+            launches = dg_in_process(torch, card)
+            # the children's own home: the client uploads the windows
+            os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "children")
+            dg_add(launches, dg_children(torch, card, tmp, arrays))
+            log(card, f"degraded phase: {time.perf_counter() - t0:.3f} s; "
+                f"launches over phase 16: {launches}")
+            return launches
+        finally:
+            torch.backends.cudnn.deterministic = det
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+def dg_job(torch, task, hook_for=None):
+    """A TrainJob of the weighted gpt-mini on the card, with the round
+    hook ``hook_for(job)`` gives; (job, record or the exception it
+    raised, launches, wall seconds)."""
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    model_cls, data_cls = dg_classes()
+    job = TrainJob(task, model_cls(), data_cls("tokens"), device="cuda")
+    if hook_for is not None:
+        job.round_hook = hook_for(job)
+    dg_counts(zero=True)
+    t0 = time.perf_counter()
+    try:
+        out = job.train()
+    except Exception as e:  # noqa: BLE001 — (b) expects the abort
+        out = e
+    torch.cuda.synchronize()
+    return job, out, dg_counts(zero=True), time.perf_counter() - t0
+
+
+def dg_state(job_id):
+    from kubeml_tpu_torch.train.checkpoint import _flatten, load_checkpoint
+
+    return _flatten(load_checkpoint(job_id)[0])
+
+
+def dg_in_process(torch, card):
+    """(a)-(c) and the cursor's cost: TrainJobs in this process."""
+    import json
+
+    from kubeml_tpu_torch.data.loader import RoundLoader
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    layers = GPT_CONFIGS["gpt-mini"]["layers"]
+    plan, steps, rounds, evals = dg_epoch(DG_N)
+    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+
+    # (a) a NaN burst on worker 1 at epoch 1 round 2 == its dropout there
+    runs = {}
+    for kind in ("nan", "dropout"):
+        fault = json.dumps([{"kind": kind, "epoch": 1, "round": 2,
+                             "worker": 1}])
+        job, rec, counts, wall = dg_job(
+            torch, dg_task(f"dg-{kind}", 2, DG_N, fault_plan=fault))
+        assert not isinstance(rec, Exception), rec
+        runs[kind] = (job, rec.data, counts, wall)
+    lost = plan.rounds[2].chunks[1].num_steps
+    want_nan = dg_plan_launches(layers, 2 * steps, 2 * rounds, evals)
+    want_drop = dict(want_nan, **{k: want_nan[k] - layers * lost
+                                  for k in ("forward", "dK/dV", "dQ")})
+    assert runs["nan"][2] == want_nan, (runs["nan"][2], want_nan)
+    assert runs["dropout"][2] == want_drop, (runs["dropout"][2], want_drop)
+    assert runs["nan"][0]._fault_plan.injected["nan"] == 1
+    assert runs["nan"][1].dropped_workers == [0.0, 1.0], \
+        runs["nan"][1].dropped_workers
+    assert runs["dropout"][1].dropped_workers == [0.0, 0.0]
+    a, b = dg_state("dg-nan"), dg_state("dg-dropout")
+    assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a), \
+        "a NaN-dropped worker's weights differ from its dropout"
+    dg_add(total, runs["nan"][2])
+    dg_add(total, runs["dropout"][2])
+    log(card, f"degraded (a) NaN drop: gpt-mini N={DG_N} K={JOB_K} B={JOB_B} "
+        f"2 epochs, NaN in worker 1's loss weights at epoch 1 round 2: "
+        f"dropped_workers {runs['nan'][1].dropped_workers}, final weights "
+        f"equal bit for bit to the run with worker 1 dropped out there "
+        f"({len(a)} tensors); walls {runs['nan'][3]:.3f} s (NaN) / "
+        f"{runs['dropout'][3]:.3f} s (dropout); launches {runs['nan'][2]} "
+        f"(= {layers} layers x ({2 * steps} steps + {evals} eval), "
+        f"{JOB_BUCKETS} x {2 * rounds} rounds) and {runs['dropout'][2]} "
+        f"(= the plan less worker 1's {lost} steps)")
+
+    # (b) every worker NaN at rounds 2 and 3, abort_after 2: the weights
+    # after an all-NaN round are those before it (kernel #5's ref select
+    # at raw_count 0), and the job aborts with the diagnostic
+    seen = {}   # round -> the weights its dispatch starts from
+
+    def snap_for(job):
+        def snap(rb):
+            seen[rb.round_index] = {k: v.clone()
+                                    for k, v in job.state.items()}
+            return rb
+        return snap
+
+    fault = json.dumps([{"kind": "nan", "epoch": 0, "round": r}
+                        for r in (2, 3)])
+    job_b, err, counts_b, wall_b = dg_job(
+        torch, dg_task("dg-abort", 1, DG_N, fault_plan=fault,
+                       abort_after=2), snap_for)
+    assert getattr(err, "status_code", None) == 500 and \
+        str(err) == DG_ABORT.format("dg-abort"), repr(err)
+    assert sorted(seen) == [0, 1, 2, 3], sorted(seen)
+    assert all(torch.equal(seen[3][k], seen[2][k]) for k in seen[2]), \
+        "an all-NaN round moved the weights"
+    assert all(torch.equal(job_b.state[k], seen[2][k]) for k in seen[2])
+    assert not all(torch.equal(seen[2][k], seen[1][k]) for k in seen[1])
+    steps_b = sum(c.num_steps for r in plan.rounds[:4] for c in r.chunks
+                  if c.active)
+    want_b = dg_plan_launches(layers, steps_b, 4, 0)
+    assert counts_b == want_b, (counts_b, want_b)
+    dg_add(total, counts_b)
+    log(card, f"degraded (b) all-NaN rounds: NaN on every worker at rounds "
+        f"2 and 3: the weights after each equal those before round 2 bit "
+        f"for bit (the fused merge's raw_count=0 select: "
+        f"{2 * JOB_BUCKETS} of its launches); abort_after=2 failed the job "
+        f"after round 3 with the reference's diagnostic (500): "
+        f"{str(err)!r}; wall {wall_b:.3f} s; launches {counts_b} (= the plan "
+        f"of rounds 0-3)")
+
+    # (c) quarantine_after 2 + reassignment, NaN on worker 2 at rounds 2-3
+    guard_seen, rounds_seen = {}, []   # the guard's quarantine by round
+
+    def watch_for(job):
+        def watch(rb):
+            rounds_seen.append(rb.round_index)
+            g = job._guard
+            guard_seen[rb.round_index] = \
+                dict(g.quarantined_since) if g else {}
+            return rb
+        return watch
+
+    fault = json.dumps([{"kind": "nan", "epoch": 0, "round": r, "worker": 2}
+                        for r in (2, 3)])
+    _, rec_c, counts_c, wall_c = dg_job(
+        torch, dg_task("dg-quarantine", 1, DG_N, fault_plan=fault,
+                       quarantine_after=2, reassign_on_quarantine=True),
+        watch_for)
+    assert not isinstance(rec_c, Exception), rec_c
+    hist_c = rec_c.data
+    assert guard_seen[3] == {} and guard_seen[4] == {2: 4}, guard_seen
+    # the host's own makeup plan: what the job must have re-dealt
+    loader = RoundLoader(DatasetRegistry().get("tokens"),
+                         dg_classes()[1]("tokens"), n_lanes=1, seed=0)
+    lplan = loader.plan(DG_N, JOB_K, JOB_B)
+    makeup = list(loader.makeup_rounds(lplan, 0, {2: 4}, index_mode=True))
+    redealt = int(sum(rb.step_mask.sum() for rb in makeup))
+    cover = np.zeros(JOB_TRAIN, np.int64)
+    for rb in list(loader.epoch_index_rounds(lplan, 0)) + makeup:
+        for w in range(DG_N):
+            if w == 2 and rb.round_index >= 4:
+                continue
+            np.add.at(cover, rb.batch["idx"][w][rb.sample_mask[w] > 0], 1)
+    assert (cover == 1).all(), "the makeup rounds missed or repeated samples"
+    assert hist_c.quarantined_workers == [1], hist_c.quarantined_workers
+    assert hist_c.reassigned_batches == [redealt], \
+        (hist_c.reassigned_batches, redealt)
+    assert hist_c.dropped_workers == [2.0], hist_c.dropped_workers
+    assert rounds_seen == list(range(rounds + len(makeup))), rounds_seen
+    orphaned = sum(c.num_steps for r in plan.rounds[4:] for c in r.chunks
+                   if c.worker == 2 and c.active)
+    want_c = dg_plan_launches(layers, steps - orphaned + redealt,
+                              rounds + len(makeup), evals)
+    assert counts_c == want_c, (counts_c, want_c)
+    dg_add(total, counts_c)
+    log(card, f"degraded (c) quarantine + reassignment: NaN on worker 2 at "
+        f"rounds 2-3, quarantine_after=2: worker 2 quarantined from round 4 "
+        f"({orphaned} of its steps orphaned), {len(makeup)} makeup rounds "
+        f"re-dealt {redealt} steps to the survivors, every one of the "
+        f"{JOB_TRAIN} windows trained exactly once; quarantined_workers "
+        f"{hist_c.quarantined_workers}, reassigned_batches "
+        f"{hist_c.reassigned_batches} (= the host's makeup plan), "
+        f"dropped {hist_c.dropped_workers}; wall {wall_c:.3f} s; launches "
+        f"{counts_c} (= the plan)")
+
+    # the cursor's cost: the same epoch with a round cursor every round
+    ms = {}
+    for name, opts in (("direct", {}), ("cursor",
+                                        {"checkpoint_every_rounds": 1})):
+        job, rec, counts, wall = dg_job(
+            torch, dg_task(f"dg-{name}", 1, DG_N, **opts))
+        assert not isinstance(rec, Exception), rec
+        assert counts == dg_plan_launches(layers, steps, rounds, evals)
+        dg_add(total, counts)
+        ms[name] = 1e3 * rec.data.epoch_duration[0] / steps
+    a, b = dg_state("dg-direct"), dg_state("dg-cursor")
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    log(card, f"degraded cursor cost: one epoch (N={DG_N}, {steps} local "
+        f"steps, {rounds} rounds) {ms['direct']:.3f} ms per local step "
+        f"without a cursor, {ms['cursor']:.3f} with a cursor saved every "
+        f"round (+{ms['cursor'] - ms['direct']:.3f} ms per local step, "
+        f"{(ms['cursor'] - ms['direct']) * steps / rounds:.3f} ms per "
+        f"round); same weights bit for bit")
+    return total
+
+
+def dg_children(torch, card, tmp, arrays):
+    """(d)-(f): job server children on the card."""
+    import os
+
+    from kubeml_tpu_torch.control import ps as ps_mod
+
+    paths = []
+    for name, arr in zip(("xtr", "ytr", "xte", "yte"), arrays):
+        paths.append(os.path.join(tmp, f"dg_{name}.npy"))
+        np.save(paths[-1], arr)
+    fn_path = os.path.join(tmp, f"{CP_GPT_FN}.py")
+    with open(fn_path, "w") as f:
+        f.write(CP_FUNCTIONS[CP_GPT_FN])
+    script = os.path.join(tmp, "dg_job.py")
+    with open(script, "w") as f:
+        f.write(CL_JOB)
+    counts = os.path.join(tmp, "dg_launches.jsonl")
+    saved = {k: os.environ.get(k) for k in ("KUBEML_HEARTBEAT_INTERVAL",
+                                            "KUBEML_HEARTBEAT_MISS_BUDGET")}
+    os.environ["KUBEML_HEARTBEAT_INTERVAL"] = str(DG_HEARTBEAT_S)
+    os.environ["KUBEML_HEARTBEAT_MISS_BUDGET"] = str(DG_MISS_BUDGET)
+    real_sub = ps_mod.subprocess
+    ps_mod.subprocess = JobWrapper(script, counts)
+    try:
+        return dg_standalone(torch, card, tmp, paths, fn_path, counts)
+    finally:
+        ps_mod.subprocess = real_sub
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dg_rows(counts, job_id):
+    with open(counts) as f:
+        rows = [json.loads(line) for line in f]
+    return [{k: r[k] for k in ("forward", "dK/dV", "dQ", "fused_merge")}
+            for r in rows if r["job"] == job_id]
+
+
+def dg_lifecycle(get, want):
+    """The history's (restarts, preemptions) once the PS has stamped them:
+    the job writes its history first and the PS stamps its counts just
+    after it deregisters the job, so a read in between sees zeros. Waits
+    up to a minute for ``want``, then returns what is there."""
+    deadline = time.perf_counter() + 60
+    while True:
+        hist = get()
+        got = (hist["restarts"], hist["preemptions"]) \
+            if isinstance(hist, dict) else (hist.restarts, hist.preemptions)
+        if got == want or time.perf_counter() > deadline:
+            return got
+        time.sleep(0.1)
+
+
+def dg_direct(torch, job_id, req, n):
+    from kubeml_tpu_torch.api.types import TrainTask
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    dg_counts(zero=True)
+    TrainJob(TrainTask(job_id=job_id, parameters=req, parallelism=n),
+             get_model("gpt-mini")(), token_dataset(), device="cuda").train()
+    return dg_counts(zero=True)
+
+
+def dg_standalone(torch, card, tmp, paths, fn_path, counts):
+    """(d) a crash event and (f) a wedged child, each in a job server
+    child of an in-process deployment, restarted from its cursor, while
+    (e) runs in phase 15's serve child beside them (each sub-phase is
+    mostly cold child starts, so they overlap)."""
+    import json
+    import os
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubeml_tpu_torch.control.client import KubemlClient
+    from kubeml_tpu_torch.control.deployment import start_deployment
+
+    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+    dep = start_deployment(standalone_jobs=True)
+    stopped = []
+    n = DG_VICTIM_N
+    beside = ThreadPoolExecutor(1)
+    try:
+        client = KubemlClient(dep.controller_url).v1()
+        client.functions().create(CP_GPT_FN, fn_path)
+        client.datasets().create("tokens", *paths)
+        # the uninterrupted job (d), (e) and (f) must end equal to
+        dg_add(total, dg_direct(torch, "dg-direct", dg_request(1, n), n))
+        cluster = beside.submit(dg_cluster, torch, card, tmp)
+
+        # (d) os._exit at round 5, restarted by the watchdog from its
+        # cursor; (f) beside it, a child silenced mid-round (SIGSTOP in a
+        # slow round) is reaped by the liveness reaper and restarted from
+        # its cursor (a slow round alone keeps beating: heartbeats have
+        # their own thread). The two children share the card.
+        t0 = time.perf_counter()
+        crash = json.dumps([{"kind": "crash", "epoch": 0, "round": 5}])
+        slow = json.dumps([{"kind": "slow", "epoch": 0, "round": 5,
+                            "duration_s": DG_SLOW_S}])
+        job_d = client.networks().train(dg_request(
+            1, n, fault_plan=crash, checkpoint_every_rounds=2))
+        job_f = client.networks().train(dg_request(
+            1, n, fault_plan=slow, checkpoint_every_rounds=2))
+
+        def at_round5():
+            with dep.ps._jobs_lock:
+                rec = dep.ps.jobs.get(job_f)
+                return rec is not None and rec.proc is not None and \
+                    rec.heartbeat_progress == (0, 5) and rec
+        poll(at_round5, "(f)'s child in its slow round 5", 600)
+        rec = at_round5()
+        pid = rec.proc.pid
+        os.kill(pid, signal.SIGSTOP)
+        stopped.append(pid)
+        t_stop = time.perf_counter()
+        poll(lambda: rec.proc is not None and rec.proc.pid != pid
+             or job_f not in dep.ps.jobs, "the reaper's restart", 120)
+        reaped = time.perf_counter() - t_stop
+        stopped.remove(pid)     # killed and reaped: its pid is not ours
+        cp_wait(client, dep, job_d)
+        wall_d = time.perf_counter() - t0
+        cp_wait(client, dep, job_f)
+        wall_f = time.perf_counter() - t0
+        for job in (job_d, job_f):
+            got = dg_lifecycle(lambda: client.histories().get(job).data,
+                               (1, 0))
+            assert got == (1, 0), (job, got)
+            assert equal_checkpoints(job, "dg-direct"), \
+                f"{job}'s restart differs from the uninterrupted job"
+        wedged = dep.ps.metrics.wedged_total.collect()
+        assert 'kubeml_ps_wedged_kills_total{type="standalone"} 1' in wedged
+        rows_d, rows_f = dg_rows(counts, job_d), dg_rows(counts, job_f)
+        for row in rows_d + rows_f:
+            dg_add(total, row)
+        log(card, f"degraded (d) crash + resume: a job server child (N="
+            f"{n}, checkpoint_every_rounds=2) died at round 5 "
+            f"(os._exit(23)); the watchdog restarted it from the round-4 "
+            f"cursor: restarts 1, final weights equal bit "
+            f"for bit to the uninterrupted job; wall {wall_d:.3f} s (two "
+            f"child starts, beside (f)); the restarted child's launches "
+            f"{rows_d}")
+        log(card, f"degraded (f) reaper: the child (pid {pid}) stopped "
+            f"(SIGSTOP) in its slow round 5 at heartbeat (0, 5); the reaper "
+            f"({DG_HEARTBEAT_S} s beats x {DG_MISS_BUDGET} misses) killed it "
+            f"and the watchdog respawned it {reaped:.3f} s after the stop; "
+            f"restarts 1, kubeml_ps_wedged_kills_total 1, "
+            f"final weights equal bit for bit to the uninterrupted job; "
+            f"wall {wall_f:.3f} s (beside (d)); the restarted child's "
+            f"launches {rows_f}")
+        dg_add(total, cluster.result())
+    finally:
+        for pid in stopped:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        beside.shutdown(wait=True)   # (e) stops its serve child itself
+        dep.stop()
+    return total
+
+
+def dg_cluster(torch, card, tmp):
+    """(e): a priority-1 arrival preempts a running N=2 job in phase 15's
+    cluster-mode serve child (over the function, windows and direct job
+    (d) left in this home); the victim drains, requeues, re-places and
+    resumes from its cursor."""
+    import json
+    import os
+
+    from kubeml_tpu_torch.control.client import KubemlClient
+
+    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+    sub = os.path.join(tmp, "cluster")
+    os.makedirs(sub)
+    serve = ClusterServe(sub)
+    serve.env.update({"KUBEML_HEARTBEAT_INTERVAL": str(DG_HEARTBEAT_S),
+                      "KUBEML_HEARTBEAT_MISS_BUDGET": "1000"})
+    try:
+        t0 = time.perf_counter()
+        serve.start()
+        client = KubemlClient(serve.url).v1()
+        # slow rounds from round 6 keep the victim mid-epoch long enough
+        # for the arrival to find it there (no effect on the weights)
+        slow = json.dumps([{"kind": "slow", "epoch": 0, "round": r,
+                            "duration_s": 0.3} for r in range(6, 16)])
+        victim_req = dg_request(1, DG_VICTIM_N, fault_plan=slow)
+        victim_req.tenant = "batch"
+        victim = client.networks().train(victim_req)
+
+        def heartbeat_round():
+            for line in serve.text(serve.ps + "/metrics").splitlines():
+                if line.startswith("kubeml_job_heartbeat_round{jobid="
+                                   f'"{victim}"}}'):
+                    return float(line.split()[-1])
+            return -1.0
+        poll(lambda: heartbeat_round() >= 4, "the victim's round 4", 600)
+        arrival_req = dg_request(1, CL_LANES)
+        arrival_req.tenant, arrival_req.priority = "batch", 1
+        t_arrive = time.perf_counter()
+        arrival = client.networks().train(arrival_req)
+        poll(lambda: arrival in cl_gangs(serve), "the arrival's gang", 300)
+        t_requeued = time.perf_counter()   # placed on the victim's lanes
+        poll(lambda: victim in cl_gangs(serve), "the victim's re-place",
+             600)
+        t_replaced = time.perf_counter()
+
+        def history(job_id):
+            from kubeml_tpu_torch.api.errors import KubeMLException
+            try:
+                return serve.get(f"/history/{job_id}")["data"]
+            except KubeMLException as e:
+                if e.status_code != 404:
+                    raise
+                return None
+        # a requeued job leaves the PS's task list for a while: wait on
+        # its history, not on the list
+        poll(lambda: history(victim) is not None, "the victim's end", 600)
+        t_done = time.perf_counter()
+        poll(lambda: history(arrival) is not None, "the arrival's end", 600)
+        got = dg_lifecycle(lambda: history(victim), (0, 1))
+        assert got == (0, 1), (victim, got)
+        hist_v, hist_a = history(victim), history(arrival)
+        assert len(hist_v["train_loss"]) == 1
+        assert len(hist_a["train_loss"]) == 1
+        snap = serve.get("/cluster")
+        assert snap["cluster_preemptions_total"] == 1, snap
+        text = serve.text(serve.ps + "/metrics")
+        assert 'kubeml_ps_preemptions_total{type="standalone"} 1' in text
+        assert equal_checkpoints(victim, "dg-direct"), \
+            "the preempted victim's weights differ from the uninterrupted job"
+        rows = dg_rows(serve.counts, victim) + dg_rows(serve.counts, arrival)
+        for row in rows:
+            dg_add(total, row)
+        log(card, f"degraded (e) preemption: in phase 15's cluster-mode "
+            f"serve child ({CL_LANES} lanes) a priority-1 N={CL_LANES} "
+            f"arrival preempted the running N={DG_VICTIM_N} job {victim} at "
+            f"its round >= 4: SIGTERM -> drain at a round -> /preempted -> "
+            f"/requeue in {t_requeued - t_arrive:.3f} s (arrival POST -> its "
+            f"gang on the freed lanes); requeue -> re-place "
+            f"{t_replaced - t_requeued:.3f} s (the arrival's run); re-place "
+            f"-> done {t_done - t_replaced:.3f} s; restarts 0, preemptions 1, "
+            f"kubeml_cluster_preemptions_total 1, the victim's final "
+            f"weights equal bit for bit to the uninterrupted job; wall "
+            f"{t_done - t0:.3f} s; launches of the published epochs {rows}")
+    finally:
+        serve.stop()
+    return total
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -3881,6 +4514,7 @@ def run(torch, seed) -> list:
     del cli_ref
     ps_launches = phase_ps_serve(torch, card, seed, module, direct)
     cluster = phase_cluster(torch, card, seed, module, direct)
+    degraded = phase_degraded(torch, card, seed)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -3891,6 +4525,7 @@ def run(torch, seed) -> list:
         "ps_launches": ps_launches[pages],
         # phase 15 serves with bf16 pages only
         "cluster_launches": cluster["paged"] if pages == "bf16" else None,
+        "degraded_launches": 0,      # phase 16 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -3907,6 +4542,7 @@ def run(torch, seed) -> list:
         "deployment_launches": [e[kernel] for e in cp_gpt],
         "cli_launches": [e[kernel] for e in cli["gpt_launches"]],
         "cluster_launches": cluster[kernel],
+        "degraded_launches": degraded[kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -3920,6 +4556,7 @@ def run(torch, seed) -> list:
                                  for e in cli["gpt_launches"]],
                     "resnet18": cli["launches"]},
                 cluster_launches=cluster["fused_merge"],
+                degraded_launches=degraded["fused_merge"],
                 resnet18=vision_merge)], card
 
 
@@ -3947,6 +4584,11 @@ def main(argv=None) -> int:
                          "and 15 alone (the cluster-mode deployment, its "
                          "kill and restart), printing the launches through "
                          "it as one JSON line and no result line")
+    ap.add_argument("--degraded-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "16 alone (degraded-mode training and the "
+                         "preemption of training jobs), printing its "
+                         "launches as one JSON line and no result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -3997,6 +4639,11 @@ def main(argv=None) -> int:
                                           "f32")}
             print(json.dumps({"card": card, "cluster": phase_cluster(
                 torch, card, args.seed, module, direct)}))
+            return 0
+        if args.degraded_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            print(json.dumps({"card": card, "degraded": phase_degraded(
+                torch, card, args.seed)}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

@@ -87,6 +87,21 @@ class StaleGrantError(KubeMLException):
         self.current = current
 
 
+class JobPreemptedError(KubeMLException):
+    """Control-flow signal: the job drained and checkpointed mid-epoch in
+    response to a preemption notice (SIGTERM or a ``preempt`` fault event)
+    and expects the PS to reschedule it from the round-granular
+    checkpoint. Not a failure: train() re-raises it without reporting
+    on_finish, so the PS job record stays alive for the watchdog."""
+
+    def __init__(self, job_id: str = "", epoch: int = 0, round_: int = 0):
+        super().__init__(
+            f"job {job_id} preempted at epoch {epoch} round {round_}", 503)
+        self.job_id = job_id
+        self.epoch = epoch
+        self.round = round_
+
+
 class NotPortedError(KubeMLException):
     """A feature of the JAX package this port does not carry yet: 400 for
     an option of a request, 501 for a route or a deployment knob."""

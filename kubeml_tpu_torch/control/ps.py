@@ -10,7 +10,10 @@ REST surface (ml/pkg/ps/api.go:335-345):
     POST   /start             start a task (body: TrainTask)
     POST   /update/{jobId}    apply a new parallelism for the next epoch
     POST   /metrics/{jobId}   metric update push (body: MetricUpdate)
-    POST   /heartbeat/{jobId} a standalone job's progress cursor
+    POST   /heartbeat/{jobId} a standalone job's (epoch, round) cursor,
+                              watched by the liveness reaper
+    POST   /preempted/{jobId} a standalone job drained and checkpointed at
+                              its round cursor: reschedule it
     POST   /finish/{jobId}    job finished notification
     DELETE /stop/{jobId}      stop a running job
     GET    /tasks             running-task list
@@ -32,8 +35,11 @@ REST surface (ml/pkg/ps/api.go:335-345):
     POST   /cluster           the scheduler's allocator snapshot: the
                               cluster Prometheus families and the
                               ``cluster`` health pseudo job
-    POST   /preempt/{jobId}   allocator preemption of a serve:<model>
-                              gang: the fleet drains to zero
+    POST   /preempt/{jobId}   allocator preemption: a standalone training
+                              child gets SIGTERM (drain, cursor,
+                              /preempted) and its task goes back to the
+                              scheduler's /requeue; a serve:<model> gang's
+                              fleet drains to zero
 
 Job execution has the reference's two modes (STANDALONE_JOBS env,
 ml/cmd/ml/main.go:115-133):
@@ -48,7 +54,13 @@ ml/cmd/ml/main.go:115-133):
     standalone mode the card belongs to the children (``job_partitions``
     pins each to its cards through CUDA_VISIBLE_DEVICES). A child that
     dies without finishing restarts from its own checkpoint up to
-    ``options.max_restarts`` times.
+    ``options.max_restarts`` times. A child that announced a preemption
+    (/preempted) is respawned from its round cursor without spending that
+    budget, or, after an allocator /preempt in cluster mode, handed back
+    to the scheduler's queue (POST /requeue). The liveness reaper kills a
+    running child whose last heartbeat is older than
+    KUBEML_HEARTBEAT_INTERVAL x KUBEML_HEARTBEAT_MISS_BUDGET seconds (0
+    turns it off), once per silence, into that same restart path.
 
 ``device`` is the port's device argument: None means CUDA (raising
 without a card when first used), "cpu" runs the jobs and the children
@@ -78,9 +90,8 @@ pid), drops the dead ones for the scheduler's sweep to requeue, and
 rebuilds each fleet at its recorded width. A re-grant's fencing epoch
 reaches a child through /update/{jobId}.
 
-Not ported yet, each answering with the error envelope: /cost (the cost
-ledger, ROADMAP A.13), the preemption of a training job (its SIGTERM
-drain), /preempted and the heartbeat reaper (ROADMAP A.17).
+Not ported yet, answering with the error envelope: /cost (the cost
+ledger, ROADMAP A.13).
 """
 
 from __future__ import annotations
@@ -89,7 +100,9 @@ import collections
 import json
 import logging
 import os
+import random
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -103,7 +116,7 @@ import torch
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
 from kubeml_tpu_torch.api.const import kubeml_home
 from kubeml_tpu_torch.api.errors import (InvalidArgsError, JobNotFoundError,
-                                         KubeMLException, NotPortedError)
+                                         KubeMLException)
 from kubeml_tpu_torch.api.types import MetricUpdate, TrainTask
 from kubeml_tpu_torch.control.health import HealthEvaluator
 from kubeml_tpu_torch.control.httpd import (JsonService, Raw, Request,
@@ -123,7 +136,6 @@ from kubeml_tpu_torch.utils.trace import (TRACE_HEADER, TraceSink, Tracer,
 
 logger = logging.getLogger("kubeml_tpu_torch.ps")
 
-PREEMPTION = "the preemption of training jobs, ROADMAP A.17"
 UNPORTED_DECODE = "multi-step and speculative decode, ROADMAP A.1"
 
 
@@ -320,8 +332,19 @@ class _JobRecord:
         self.partition: Optional[int] = None  # device-partition slot
         self.next_parallelism: Optional[int] = None
         self.update_event = threading.Event()
+        # lifecycle counters seed from the task, so a requeued task
+        # re-/start-ed as a new record carries them forward
         self.restarts = task.restarts  # crash restarts consumed
         self.restarting = False  # watchdog respawn claimed, in progress
+        self.preempted = False   # the child announced a preemption
+        # reschedules after a preemption: the platform's doing, so they
+        # never spend the max_restarts crash budget
+        self.preemptions = task.preemptions
+        # allocator preemption: on exit, hand the task back to the
+        # scheduler's queue instead of respawning in place
+        self.requeue_on_exit = False
+        self.last_heartbeat: Optional[float] = None  # monotonic stamp
+        self.heartbeat_progress = (0, 0)  # (epoch, round) last reported
         # pid of a child RE-ADOPTED from a previous PS incarnation: there
         # is no Popen handle to wait() on, so its watchdog polls the pid
         self.adopted_pid: Optional[int] = None
@@ -471,10 +494,72 @@ class ParameterServer(JsonService):
         self.route("GET", "/flight", self._h_flight)
         self.route("POST", "/cluster", self._h_cluster)
         self.route("POST", "/preempt/{jobId}", self._h_preempt)
-        for method, path, brings in (
-                ("GET", "/cost", "the cost ledger, ROADMAP A.13"),
-                ("POST", "/preempted/{jobId}", PREEMPTION)):
-            self.route(method, path, not_ported(f"{method} {path}", brings))
+        self.route("POST", "/preempted/{jobId}", self._h_preempted)
+        self.route("GET", "/cost", not_ported(
+            "GET /cost", "the cost ledger, ROADMAP A.13"))
+        # the liveness reaper: a standalone child silent for interval x
+        # miss budget seconds is declared wedged and killed into the
+        # checkpoint restart; 0 turns it off
+        self.heartbeat_timeout = (
+            float(os.environ.get("KUBEML_HEARTBEAT_INTERVAL", "10"))
+            * float(os.environ.get("KUBEML_HEARTBEAT_MISS_BUDGET", "6")))
+        self._reaper_stop = threading.Event()
+        self._reaper_thread: Optional[threading.Thread] = None
+
+    def start(self) -> int:
+        port = super().start()
+        if self.standalone_jobs and self.heartbeat_timeout > 0:
+            self._reaper_thread = threading.Thread(
+                target=self._reaper_loop, name="heartbeat-reaper",
+                daemon=True)
+            self._reaper_thread.start()
+        return port
+
+    # ------------------------------------------------------ liveness reaper
+
+    def _reaper_loop(self):
+        period = max(1.0, self.heartbeat_timeout / 4)
+        while not self._reaper_stop.wait(timeout=period):
+            try:
+                self._scan_heartbeats(time.monotonic())
+            except Exception:  # noqa: BLE001 — the sweep never dies
+                logger.exception("heartbeat sweep failed")
+
+    def _scan_heartbeats(self, now: float) -> List[str]:
+        """One liveness sweep at ``now`` (a pure function of it, for the
+        tests): kill the standalone children whose last heartbeat is
+        older than the miss budget. The watchdog then sees the exit and
+        restarts the job from its checkpoint. A child that never beat is
+        never reaped (liveness starts at its first beat), and a silence
+        is reaped once."""
+        if self.heartbeat_timeout <= 0:
+            return []
+        reaped: List[str] = []
+        with self._jobs_lock:
+            stale = []
+            for job_id, rec in self.jobs.items():
+                if (rec.proc is None or rec.last_heartbeat is None
+                        or rec.task.state == "stopping"):
+                    continue
+                age = now - rec.last_heartbeat
+                if age >= self.heartbeat_timeout:
+                    rec.last_heartbeat = None  # one kill per silence
+                    stale.append((job_id, rec, age))
+        for job_id, rec, age in stale:
+            logger.error(
+                "job %s: no heartbeat for %.0fs (budget %.0fs) at "
+                "epoch %d round %d — declaring wedged; killing pid %s "
+                "for checkpoint restart", job_id, age,
+                self.heartbeat_timeout, rec.heartbeat_progress[0],
+                rec.heartbeat_progress[1],
+                rec.proc.pid if rec.proc else "?")
+            self.metrics.note_wedged(job_id)
+            try:
+                rec.proc.kill()
+            except OSError:
+                pass
+            reaped.append(job_id)
+        return reaped
 
     @property
     def device(self) -> torch.device:
@@ -558,18 +643,20 @@ class ParameterServer(JsonService):
                              model_id)
 
     def _h_heartbeat(self, req: Request):
-        """Progress cursor (epoch, round) of a standalone child, shown on
-        the heartbeat gauges; the reaper that kills a silent child comes
-        with ROADMAP A.17."""
+        """Progress cursor (epoch, round) of a standalone child: the
+        heartbeat gauges and the liveness reaper's clock."""
         job_id = req.params["jobId"]
         body = req.body if isinstance(req.body, dict) else {}
-        epoch, rnd = int(body.get("epoch", 0)), int(body.get("round", 0))
+        progress = (int(body.get("epoch", 0)), int(body.get("round", 0)))
         # under the lock: a beat racing the job's finish must not set the
         # gauges again after _finish has popped the record and clears them
         with self._jobs_lock:
-            if job_id not in self.jobs:
+            rec = self.jobs.get(job_id)
+            if rec is None:
                 raise JobNotFoundError(job_id)
-            self.metrics.note_heartbeat(job_id, epoch, rnd)
+            rec.last_heartbeat = time.monotonic()
+            rec.heartbeat_progress = progress
+            self.metrics.note_heartbeat(job_id, *progress)
         return {"ok": True}
 
     def _h_health(self, req: Request):
@@ -597,27 +684,68 @@ class ParameterServer(JsonService):
         rec.task.state = "stopping"
         return {"ok": True}
 
-    def _h_preempt(self, req: Request):
-        """Cluster-allocator preemption (control/cluster.py). A
-        ``serve:<model>`` victim is the second gang kind: its fleet
-        drains to zero (in-flight streams get the grace budget, then the
-        replicas stop) and the model cold-starts again on its next
-        request. A training victim's SIGTERM drain, round checkpoint and
-        requeue come with ROADMAP A.17: refused with 501, and the
-        scheduler frees its lanes when the job finishes."""
+    def _h_preempted(self, req: Request):
+        """A standalone child drained, checkpointed at its round cursor
+        and is about to exit: mark its record so the watchdog reschedules
+        it without spending the crash-restart budget."""
         job_id = req.params["jobId"]
-        if not job_id.startswith("serve:"):
-            raise NotPortedError(f"POST /preempt of training job {job_id}",
-                                 PREEMPTION, 501)
-        model_id = job_id[len("serve:"):]
-        with self._serve_lock:
-            cur = self._serve.get(model_id)
-        if cur is None:
-            raise JobNotFoundError(job_id)
-        logger.warning("serving fleet %s: allocator preemption — draining "
-                       "to zero", model_id)
-        cur[1].scale_to_zero("allocator preemption")
-        self._persist_fleets()
+        body = req.body if isinstance(req.body, dict) else {}
+        with self._jobs_lock:
+            rec = self.jobs.get(job_id)
+            if rec is None:
+                raise JobNotFoundError(job_id)
+            rec.preempted = True
+            rec.preemptions += 1
+        logger.warning("job %s preempted at epoch %s round %s; will "
+                       "reschedule from its round checkpoint", job_id,
+                       body.get("epoch"), body.get("round"))
+        self.metrics.note_preemption(job_id)
+        return {"ok": True}
+
+    def _h_preempt(self, req: Request):
+        """Cluster-allocator preemption (control/cluster.py). A training
+        victim's standalone child gets SIGTERM: it drains the round in
+        flight, checkpoints at the round cursor, posts /preempted and
+        exits, and the watchdog hands its task back to the scheduler's
+        queue (requeue_on_exit) so the freed lanes go to the arrival; no
+        restart budget is spent. A threaded job has no process of its own
+        to signal: 503. A ``serve:<model>`` victim is the second gang
+        kind: its fleet drains to zero (in-flight streams get the grace
+        budget, then the replicas stop) and the model cold-starts again
+        on its next request."""
+        job_id = req.params["jobId"]
+        if job_id.startswith("serve:"):
+            model_id = job_id[len("serve:"):]
+            with self._serve_lock:
+                cur = self._serve.get(model_id)
+            if cur is None:
+                raise JobNotFoundError(job_id)
+            logger.warning("serving fleet %s: allocator preemption — "
+                           "draining to zero", model_id)
+            cur[1].scale_to_zero("allocator preemption")
+            self._persist_fleets()
+            return {"ok": True}
+        with self._jobs_lock:
+            rec = self.jobs.get(job_id)
+            if rec is None:
+                raise JobNotFoundError(job_id)
+            if rec.proc is None and rec.adopted_pid is None:
+                raise KubeMLException(
+                    f"job {job_id} is not a standalone child; "
+                    "allocator preemption requires standalone job mode",
+                    503)
+            rec.requeue_on_exit = True
+            proc, pid = rec.proc, rec.adopted_pid
+        logger.warning("job %s: allocator preemption — sending SIGTERM "
+                       "for drain + checkpoint + requeue", job_id)
+        if proc is not None:
+            proc.terminate()
+        else:
+            # a re-adopted child has no Popen handle: signal its pid
+            try:
+                os.kill(pid, signal.SIGTERM)
+            except OSError:
+                pass
         return {"ok": True}
 
     def _h_cluster(self, req: Request):
@@ -639,6 +767,7 @@ class ParameterServer(JsonService):
             for r in self.jobs.values():
                 # each child incarnation knows only its own lifetime
                 r.task.restarts = r.restarts
+                r.task.preemptions = r.preemptions
                 out.append(r.task.to_dict())
             return out
 
@@ -1026,6 +1155,7 @@ class ParameterServer(JsonService):
                     if rec.job is not None:
                         continue
                     rec.task.restarts = rec.restarts
+                    rec.task.preemptions = rec.preemptions
                     pid = rec.proc.pid if rec.proc is not None \
                         else rec.adopted_pid
                     doc[job_id] = {"task": rec.task.to_dict(),
@@ -1313,38 +1443,64 @@ class ParameterServer(JsonService):
 
     def _on_child_exit(self, job_id: str, rec: _JobRecord,
                        rc: Optional[int]) -> None:
-        """A child exited without finishing: restart it from its own
+        """A child exited without finishing. After an allocator /preempt
+        (cluster mode) its task goes back to the scheduler's queue. After
+        a /preempted notice it respawns from its round cursor without
+        spending the crash budget. Otherwise it restarts from its own
         latest checkpoint (history, epoch and parallelism restored) up to
-        options.max_restarts times, unless the user stopped it or there
-        is no checkpoint; else fail the job. The claim happens under the
-        jobs lock, so a concurrent /finish sees either the dead
-        incarnation or the respawn claim."""
+        options.max_restarts times. None of these without a checkpoint,
+        after a user stop or while the PS stops: then the job fails. The
+        claim happens under the jobs lock, so a concurrent /finish sees
+        either the dead incarnation or the respawn claim."""
         opts = rec.task.parameters.options
         # file IO outside the lock every handler contends on
         has_checkpoint = checkpoint_saved_at(job_id) is not None
         with self._jobs_lock:
             if self.jobs.get(job_id) is not rec:
                 return  # already deregistered via /finish
-            eligible = (not self._stopping
+            preempted, rec.preempted = rec.preempted, False
+            # a child that crashed during its drain is requeued too: the
+            # eviction was the platform's doing either way
+            requeue = (rec.requeue_on_exit
+                       and self.scheduler_url is not None
+                       and not self._stopping
+                       and rec.task.state != "stopping"
+                       and has_checkpoint)
+            if requeue:
+                self.jobs.pop(job_id, None)
+            eligible = (not requeue
+                        and not self._stopping
                         and rec.task.state != "stopping"
-                        and rec.restarts < opts.max_restarts
+                        and (preempted or rec.restarts < opts.max_restarts)
                         and has_checkpoint)
             if eligible:
-                rec.restarts += 1
+                if not preempted:
+                    rec.restarts += 1
                 rec.proc = None
                 rec.url = None
                 rec.adopted_pid = None
                 rec.restarting = True
+                rec.last_heartbeat = None  # a fresh liveness window
                 rec.task.parameters.resume_from = job_id
-        logger.warning("job %s process exited without finishing (rc=%s)",
-                       job_id, rc)
+        if requeue:
+            self._requeue_preempted(job_id, rec)
+            return
+        if not preempted:
+            logger.warning("job %s process exited without finishing "
+                           "(rc=%s)", job_id, rc)
         if not eligible:
             self._finish(job_id,
                          error=f"job process exited unexpectedly (rc={rc})")
             return
-        logger.warning("job %s: restarting from its checkpoint (restart "
-                       "%d/%d)", job_id, rec.restarts, opts.max_restarts)
-        self.metrics.note_restart(job_id)
+        if preempted:
+            logger.warning("job %s: rescheduling after preemption (%d so "
+                           "far) from its round checkpoint", job_id,
+                           rec.preemptions)
+        else:
+            logger.warning("job %s: restarting from its checkpoint "
+                           "(restart %d/%d)", job_id, rec.restarts,
+                           opts.max_restarts)
+            self.metrics.note_restart(job_id)
         try:
             self._spawn_standalone(rec)  # re-arms the watchdog
         except Exception as e:
@@ -1354,6 +1510,44 @@ class ParameterServer(JsonService):
                                f"checkpoint restart failed: {e}")
             return
         rec.restarting = False
+
+    def _requeue_preempted(self, job_id: str, rec: _JobRecord) -> None:
+        """Hand an allocator-preempted task back to the scheduler's queue
+        (the record is popped and the child gone, so its partition frees
+        now). The task carries the restart and preemption counters and
+        resumes from its own round cursor when the allocator re-places
+        it."""
+        self._release_partition(rec)
+        self.metrics.running_total.inc("train", -1.0)
+        task = rec.task
+        task.state = "queued"
+        task.elapsed_time_s = -1.0
+        task.parameters.resume_from = job_id
+        task.restarts = rec.restarts
+        task.preemptions = rec.preemptions
+        logger.warning("job %s: handing preempted task back to the "
+                       "scheduler queue (preemptions=%d, restarts=%d)",
+                       job_id, rec.preemptions, rec.restarts)
+        self._persist_jobs()
+        # a bounded, jittered retry: the scheduler may be mid-restart
+        delay = 0.1
+        for attempt in range(5):
+            try:
+                http_json("POST", f"{self.scheduler_url}/requeue",
+                          task.to_dict(), trace_id=task.trace_id or None)
+                return
+            except KubeMLException as e:
+                if attempt == 4:
+                    logger.error("requeue of preempted job %s failed "
+                                 "after %d attempts: %s — the job is "
+                                 "stranded until resubmitted", job_id,
+                                 attempt + 1, e.message)
+                    return
+                logger.warning("requeue of %s failed (attempt %d/5): "
+                               "%s — retrying", job_id, attempt + 1,
+                               e.message)
+                time.sleep(delay * (0.5 + random.random() / 2))
+                delay = min(delay * 2, 2.0)
 
     def _wait_job_ready(self, proc: subprocess.Popen, port_file: str,
                         timeout: Optional[float] = None) -> str:
@@ -1431,12 +1625,13 @@ class ParameterServer(JsonService):
                 self.errors[job_id] = error
         if rec is None:
             return
-        if rec.restarts:
-            # stamp the watchdog restarts into the finished History: the
-            # job process only knows its own lifetime
+        if rec.restarts or rec.preemptions:
+            # stamp the watchdog's restarts and preemptions into the
+            # finished History: each job process knows only its own life
             try:
                 h = self.history_store.get(job_id)
                 h.data.restarts = rec.restarts
+                h.data.preemptions = rec.preemptions
                 self.history_store.save(h)
             except JobNotFoundError:
                 pass
@@ -1486,6 +1681,7 @@ class ParameterServer(JsonService):
         serving fleets stop first (draining for serve_drain_grace_s), so
         blocked /generate streams end instead of timing out."""
         super().stop()
+        self._reaper_stop.set()
         with self._serve_lock:
             fleets = [fleet for _, fleet in self._serve.values()]
             self._serve.clear()

@@ -25,10 +25,9 @@ aging + weighted-fair deficits, or preempt cheaper running work. The
 ThroughputBasedPolicy stays on as the per-job width ADVISOR whose
 requested N the allocator may clamp. A serving fleet's replicas are the
 allocator's second gang kind (POST /serve/resize). A preempted
-``serve:<model>`` gang drains to zero on the PS; a training victim's
-drain and its return through POST /requeue come with ROADMAP A.17:
-until then the PS refuses the preempt, the scheduler logs it, and the
-victim's lanes free when it finishes.
+``serve:<model>`` gang drains to zero on the PS; a training victim
+drains, checkpoints at its round cursor and comes back through POST
+/requeue without spending max_restarts (its lanes free there).
 
 Durable state (opt-in via `state_dir=`): every task's lifecycle phase is
 mirrored to ``scheduler.state.json``; ``recover()`` rebuilds the queue,
@@ -51,8 +50,7 @@ from kubeml_tpu_torch.api.errors import InvalidArgsError, KubeMLException
 from kubeml_tpu_torch.api.types import TrainRequest, TrainTask
 from kubeml_tpu_torch.control.cluster import (ClusterAllocator, Decision,
                                               verify_journal_roundtrip)
-from kubeml_tpu_torch.control.httpd import (JsonService, Request, http_json,
-                                            not_ported)
+from kubeml_tpu_torch.control.httpd import JsonService, Request, http_json
 from kubeml_tpu_torch.control.journal import atomic_write_json, read_json
 from kubeml_tpu_torch.control.policy import ThroughputBasedPolicy
 from kubeml_tpu_torch.utils.ids import make_job_id
@@ -155,8 +153,7 @@ class Scheduler(JsonService):
         self.route("POST", "/train", self._h_train)
         self.route("POST", "/job", self._h_job)
         self.route("POST", "/infer", self._h_infer)
-        self.route("POST", "/requeue", not_ported(
-            "POST /requeue", "the preemption of training jobs, ROADMAP A.17"))
+        self.route("POST", "/requeue", self._h_requeue)
         self.route("GET", "/cluster", self._h_cluster)
         self.route("POST", "/serve/resize", self._h_serve_resize)
         self.route("DELETE", "/finish/{taskId}", self._h_finish)
@@ -270,6 +267,28 @@ class Scheduler(JsonService):
         # already flushed to the sink file)
         with self._tracer_lock:
             self._job_tracers.pop(task_id, None)
+        return {"ok": True}
+
+    def _h_requeue(self, req: Request):
+        """A preempted job's task handed back by the PS (the allocator
+        SIGTERMed it to make room; it drained and checkpointed, and its
+        process is gone). It re-enters the queue as a fresh arrival: its
+        resume_from names its own checkpoint, and the policy forgets it so
+        the next decision takes the /start path."""
+        task = TrainTask.from_dict(req.body)
+        self.policy.task_finished(task.job_id)
+        task.state = "queued"
+        task.elapsed_time_s = -1.0
+        task.grant_epoch = 0
+        self._track(task, "queued")
+        if self.allocator is not None:
+            # the victim's lanes free now; a parked arrival places on it
+            self._apply_decisions(self.allocator.release(task.job_id))
+        logger.info("requeued preempted task %s (preemptions=%d)",
+                    task.job_id, task.preemptions)
+        self.queue.push(task)
+        if self.allocator is not None:
+            self._push_cluster_state()
         return {"ok": True}
 
     def _h_cluster(self, req: Request):
@@ -513,12 +532,11 @@ class Scheduler(JsonService):
     def _apply_decisions(self, decisions: List[Decision]):
         """Apply allocator decisions: 'place' re-pushes the parked task
         through the queue with its granted lanes; 'preempt' asks the PS
-        for POST /preempt/{victim} (a serve:<model> fleet drains to zero
-        and its lanes free here; a training victim's drain comes with
-        ROADMAP A.17, so the PS refuses it, the failure is logged, and
-        its lanes free when the job finishes); 'queue' and 'resize' need
-        no dispatch action, but every decision is recorded on the job's
-        trace timeline (_cluster_instant)."""
+        to SIGTERM the victim (it drains, checkpoints, and requeues
+        through POST /requeue without consuming max_restarts; a
+        serve:<model> fleet drains to zero and its lanes free here);
+        'queue' and 'resize' need no dispatch action, but every decision
+        is recorded on the job's trace timeline (_cluster_instant)."""
         for d in decisions:
             self._cluster_instant(d)
             if d.action == "place":
@@ -545,8 +563,7 @@ class Scheduler(JsonService):
                                   f"{self.ps_url}/preempt/{d.victim}")
                     except KubeMLException as e:
                         # victim already gone (finish raced the
-                        # decision), or a training victim the PS cannot
-                        # drain yet: its release path frees the lanes
+                        # decision): its release path frees the lanes
                         # either way
                         logger.warning("preempt of %s failed: %s",
                                        d.victim, e.message)

@@ -16,7 +16,9 @@ Doc order is unshuffled by default (the reference never shuffles);
 ``epoch_index_rounds`` is the index-fed twin of ``epoch_rounds`` for the
 device-resident dataset cache (data/device_cache.py): the same rounds,
 masks and rng keys, with [W, S, B] int32 gather indices in place of the
-sample leaves.
+sample leaves. Both take ``start_round`` (a round-granular resume), and
+``makeup_rounds`` deals a quarantined worker's untrained samples to the
+survivors from a key stream of its own.
 """
 
 from __future__ import annotations
@@ -265,16 +267,28 @@ class RoundLoader:
         return np.random.default_rng(
             np.random.SeedSequence([self._root_rng.entropy, epoch, 7]))
 
-    def epoch_rounds(self, plan: EpochPlan, epoch: int
-                     ) -> Iterator[RoundBatch]:
+    def _makeup_key_rng(self, epoch: int) -> np.random.Generator:
+        """The rng-key stream of makeup (reassignment) rounds, apart from
+        the planned rounds' stream so those keep a clean run's keys (the
+        JAX package's stream)."""
+        return np.random.default_rng(
+            np.random.SeedSequence([self._root_rng.entropy, epoch, 11]))
+
+    def epoch_rounds(self, plan: EpochPlan, epoch: int,
+                     start_round: int = 0) -> Iterator[RoundBatch]:
         """Yield one RoundBatch per sync round of the epoch, all of the
-        same [W, S_max, B] shape."""
+        same [W, S_max, B] shape. ``start_round`` > 0 resumes mid-epoch:
+        earlier rounds are not assembled, but their rng-key draws are
+        consumed, so later rounds carry an uninterrupted epoch's keys."""
         W, S, B = self.round_geometry(plan)
         x_mm, y_mm = self.handle.train_arrays()
         perm = self._epoch_perm(epoch)
         key_rng = self._epoch_key_rng(epoch)
 
         for rp in plan.rounds:
+            if rp.index < start_round:
+                key_rng.integers(0, 2**32, size=(W, S, 2), dtype=np.uint32)
+                continue
             tbs = []
             sample_mask = np.zeros((W, S, B), dtype=np.float32)
             step_mask = np.zeros((W, S), dtype=np.float32)
@@ -302,8 +316,8 @@ class RoundLoader:
                 round_index=rp.index, num_rounds=len(plan.rounds))
 
     def epoch_index_rounds(self, plan: EpochPlan, epoch: int,
-                           lane_starts: Optional[np.ndarray] = None
-                           ) -> Iterator[RoundBatch]:
+                           lane_starts: Optional[np.ndarray] = None,
+                           start_round: int = 0) -> Iterator[RoundBatch]:
         """Index-fed twin of ``epoch_rounds``: each round's batch is
         ``{"idx": [W, S, B] int32}`` gather indices instead of the sample
         leaves. Geometry, masks, the rng stream, cycle-padding and round
@@ -314,7 +328,8 @@ class RoundLoader:
         ``lane_starts`` ([D] global offset of each lane's slab, from a
         sharded cache) makes the indices lane-LOCAL; None means a
         replicated cache and GLOBAL indices (needed under shuffle, where
-        a chunk's samples are scattered)."""
+        a chunk's samples are scattered). ``start_round`` resumes
+        mid-epoch as in ``epoch_rounds``."""
         W, S, B = self.round_geometry(plan)
         perm = self._epoch_perm(epoch)
         if perm is not None and lane_starts is not None:
@@ -324,6 +339,9 @@ class RoundLoader:
         wpl = max(1, W // self.n_lanes)
 
         for rp in plan.rounds:
+            if rp.index < start_round:
+                key_rng.integers(0, 2**32, size=(W, S, 2), dtype=np.uint32)
+                continue
             idx = np.zeros((W, S, B), dtype=np.int32)
             sample_mask = np.zeros((W, S, B), dtype=np.float32)
             step_mask = np.zeros((W, S), dtype=np.float32)
@@ -367,6 +385,80 @@ class RoundLoader:
             np.arange(perm[d] * ss, min((perm[d] + 1) * ss, n),
                       dtype=np.int64)
             for d in range(c.doc_start, c.doc_end)])
+
+    def makeup_rounds(self, plan: EpochPlan, epoch: int,
+                      quarantined_since: Dict[int, int],
+                      index_mode: bool) -> Iterator[RoundBatch]:
+        """Re-deal quarantined workers' undispatched samples to survivors.
+
+        ``quarantined_since`` maps a worker to the first round at which
+        the guard masked it out; the samples of its chunks in plan rounds
+        from there on were never trained. They are packed, in (worker,
+        round) order, into makeup rounds dealt over the surviving workers
+        and numbered after the plan's rounds, so every sample still trains
+        exactly once in the epoch. ``index_mode`` yields GLOBAL gather
+        indices for a (replicated) device cache, else the samples through
+        ``transform_train``. Keys come from ``_makeup_key_rng``."""
+        W, S, B = self.round_geometry(plan)
+        perm = self._epoch_perm(epoch)
+        quarantined = set(quarantined_since)
+        orphans = []
+        for rp in plan.rounds:
+            for c in rp.chunks:
+                if (c.active and c.worker in quarantined
+                        and rp.index >= quarantined_since[c.worker]):
+                    orphans.append(self._chunk_global_ids(c, perm))
+        if not orphans:
+            return
+        survivors = sorted({c.worker for rp in plan.rounds
+                            for c in rp.chunks if c.active} - quarantined)
+        if not survivors:
+            raise DataError(
+                "reassignment has no surviving workers to re-deal to")
+        flat = np.concatenate(orphans)
+        key_rng = self._makeup_key_rng(epoch)
+        cap = len(survivors) * S * B  # samples one makeup round holds
+        num_makeup = -(-len(flat) // cap)
+        x_mm = y_mm = None
+        if not index_mode:
+            x_mm, y_mm = self.handle.train_arrays()
+        base = len(plan.rounds)
+        for m in range(num_makeup):
+            part = flat[m * cap:(m + 1) * cap]
+            idx = np.zeros((W, S, B), dtype=np.int32)
+            tbs: list = [None] * W
+            sample_mask = np.zeros((W, S, B), dtype=np.float32)
+            step_mask = np.zeros((W, S), dtype=np.float32)
+            worker_mask = np.zeros(W, dtype=np.float32)
+            for j, w in enumerate(survivors):
+                ids = part[j * S * B:(j + 1) * S * B]
+                if len(ids) == 0:
+                    continue
+                steps = -(-len(ids) // B)  # ceil
+                if index_mode:
+                    need = steps * B
+                    padded = ids[np.arange(need) % len(ids)]  # cycle-pad
+                    idx[w, :steps] = padded.reshape(steps, B)
+                    smask = np.zeros(need, dtype=np.float32)
+                    smask[:len(ids)] = 1.0
+                    sample_mask[w, :steps] = smask.reshape(steps, B)
+                else:
+                    tb = self.dataset.transform_train(
+                        np.asarray(x_mm[ids]), np.asarray(y_mm[ids]))
+                    tb, smask = _fill_chunk(tb, steps, B)
+                    tb, smask = _pad_steps(tb, smask, S)
+                    tbs[w] = tb
+                    sample_mask[w] = smask
+                step_mask[w, :steps] = 1.0
+                worker_mask[w] = 1.0
+            rngs = key_rng.integers(0, 2**32, size=(W, S, 2),
+                                    dtype=np.uint32)
+            yield RoundBatch(
+                batch={"idx": idx} if index_mode
+                else _fill_missing_workers(tbs, W),
+                sample_mask=sample_mask, step_mask=step_mask,
+                worker_mask=worker_mask, rngs=rngs,
+                round_index=base + m, num_rounds=base + num_makeup)
 
     def _chunk_samples(self, x_mm, y_mm, doc_start, doc_end, perm):
         ss = self.handle.subset_size

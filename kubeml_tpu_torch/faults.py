@@ -1,12 +1,41 @@
-"""Deterministic fault injection for the serving and control planes (the
-serve, fleet and control kinds of kubeml_tpu/faults.py, copied: the port
-imports nothing of the JAX package, and one plan string drives both
-packages' tests).
+"""Deterministic fault injection for training, serving and the control
+plane (a copy of kubeml_tpu/faults.py: the port imports nothing of the
+JAX package, and one plan string drives both packages' tests).
 
-An injection fires at NAMED coordinates, never at random, so every serve
+An injection fires at NAMED coordinates, never at random, so every
 recovery path replays bit for bit in the CPU tests. The plans parse a
 JSON string, a dict ``{"events": [...]}`` or a bare list of event dicts;
 coordinate -1 (the default) is a wildcard.
+
+TRAINING (FaultPlan, ``TrainOptions.fault_plan``) counts in (epoch,
+round, worker):
+
+  nan      poison the target worker's float batch leaves with NaN before
+           staging, so its K local steps go non-finite and the merge's
+           finite guard drops it (``worker: -1`` poisons every worker: the
+           round merges nothing and the weights carry forward).
+  dropout  zero the target worker's mask bit for the round.
+  crash    os._exit(CRASH_EXIT_CODE) at the round, after draining the
+           pending async checkpoint saves. Fires only in the job's first
+           incarnation (a resumed process suppresses it, or the fixed
+           coordinates would crash every restart).
+  corrupt_checkpoint
+           overwrite the published checkpoint's weights.npz.
+  slow     time.sleep(duration_s) before the round's dispatch.
+  preempt  graceful preemption notice at the round: the job finishes the
+           round, drains its saves, writes the round cursor and raises
+           JobPreemptedError (the in-process twin of the job server's
+           SIGTERM). First incarnation only, like crash.
+  quarantine
+           force the non-finite guard to quarantine the target worker from
+           the round on (needs quarantine_after > 0 and a worker).
+  stale_data
+           suppress the continual registry poll after the target epoch;
+           parsed and counted here, its effect belongs to the continual
+           mode (ROADMAP A.4.5).
+
+The job wires the plan in: ``inject_batch`` wraps the host batch (nan),
+the plan itself is the round hook for the rest.
 
 The SERVING plane (ServeFaultPlan) counts in (engine step, decode slot):
 
@@ -67,8 +96,6 @@ indices; the DecisionJournal append and replay sites
            time.sleep(duration_s) at the top of journal replay: a dilated
            recovery window. Fires once per event.
 
-The training kinds (nan, dropout, crash, ...) come with the degraded mode
-(ROADMAP A.4.5).
 """
 
 from __future__ import annotations
@@ -76,11 +103,16 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 logger = logging.getLogger("kubeml_tpu_torch.faults")
 
+KINDS = ("nan", "dropout", "crash", "corrupt_checkpoint", "slow",
+         "preempt", "quarantine", "stale_data")
 SERVE_KINDS = ("serve_nan_logits", "serve_step_crash", "serve_slow_step",
                "serve_loop_wedge")
 FLEET_KINDS = ("fleet_replica_crash", "fleet_replica_wedge",
@@ -96,6 +128,11 @@ class ControlCrash(RuntimeError):
     plane and recovers a fresh one from the journal."""
 
 
+# distinctive enough that a watchdog test can tell the injected crash from
+# an import error or an OOM kill
+CRASH_EXIT_CODE = 23
+
+
 def _event_dicts(spec: Any, what: str) -> List[dict]:
     """The event dicts of a JSON string / dict / list plan spec."""
     if isinstance(spec, str):
@@ -103,17 +140,183 @@ def _event_dicts(spec: Any, what: str) -> List[dict]:
     if isinstance(spec, dict):
         spec = spec.get("events", [])
     if not isinstance(spec, list):
-        raise ValueError(f"{what} fault_plan must be a list of events or "
-                         f"{{'events': [...]}}")
+        raise ValueError(f"{what + ' ' if what else ''}fault_plan must be a "
+                         "list of events or {'events': [...]}")
     return spec
 
 
 def _check_kind(e: dict, kinds: tuple, what: str) -> str:
     kind = e.get("kind")
     if kind not in kinds:
-        raise ValueError(f"unknown {what} fault kind {kind!r}; expected one "
-                         f"of {kinds}")
+        raise ValueError(f"unknown {what + ' ' if what else ''}fault kind "
+                         f"{kind!r}; expected one of {kinds}")
     return kind
+
+
+@dataclasses.dataclass
+class FaultEvent:
+    """One training injection at (epoch, round, worker); -1 = wildcard."""
+
+    kind: str
+    epoch: int = -1
+    round: int = -1
+    worker: int = -1
+    duration_s: float = 0.0   # slow events only
+
+    def matches(self, epoch: int, rnd: int) -> bool:
+        return ((self.epoch < 0 or self.epoch == epoch)
+                and (self.round < 0 or self.round == rnd))
+
+
+class FaultPlan:
+    """A parsed, coordinate-driven training fault schedule (a callable
+    round hook). The owning TrainJob sets ``epoch`` at the top of each
+    epoch and calls ``bind(job)`` once (which decides ``is_restart``: a
+    resumed incarnation suppresses crash and preempt). ``injected``
+    counts the fired events by kind."""
+
+    def __init__(self, events: List[FaultEvent]):
+        self.events = events
+        self.epoch = 0
+        self.is_restart = False
+        self._job: Optional[Any] = None
+        self.injected = {k: 0 for k in KINDS}
+
+    @classmethod
+    def parse(cls, spec: Any) -> "FaultPlan":
+        """Parse a JSON string / dict / list of event dicts."""
+        if isinstance(spec, FaultPlan):
+            return spec
+        events = []
+        for e in _event_dicts(spec, ""):
+            kind = _check_kind(e, KINDS, "")
+            if kind == "quarantine" and int(e.get("worker", -1)) < 0:
+                raise ValueError(
+                    "quarantine events need an explicit worker "
+                    "(quarantining every worker would abort the merge)")
+            events.append(FaultEvent(
+                kind=kind, epoch=int(e.get("epoch", -1)),
+                round=int(e.get("round", -1)),
+                worker=int(e.get("worker", -1)),
+                duration_s=float(e.get("duration_s", 0.0))))
+        return cls(events)
+
+    def bind(self, job) -> None:
+        self._job = job
+        self.is_restart = bool(
+            job.req.resume_from and job.req.resume_from == job.task.job_id)
+
+    def has(self, kind: str) -> bool:
+        return any(ev.kind == kind for ev in self.events)
+
+    def _active(self, kind: str, rnd: int):
+        return [ev for ev in self.events
+                if ev.kind == kind and ev.matches(self.epoch, rnd)]
+
+    def stale_at(self, epoch: int) -> bool:
+        """True when a stale_data event suppresses the continual registry
+        poll after ``epoch`` (counted; round and worker do not apply)."""
+        hit = [ev for ev in self.events
+               if ev.kind == "stale_data"
+               and (ev.epoch < 0 or ev.epoch == epoch)]
+        for _ in hit:
+            self.injected["stale_data"] += 1
+            logger.info("fault stale_data: epoch %d — skipping the "
+                        "registry refresh", epoch)
+        return bool(hit)
+
+    def inject_batch(self, rb):
+        """NaN bursts: poison the target worker's float batch leaves. Runs
+        before the round is dispatched, on the host arrays."""
+        events = self._active("nan", rb.round_index)
+        if not events:
+            return rb
+        batch = {k: np.array(v, copy=True)
+                 if np.issubdtype(np.asarray(v).dtype, np.floating) else v
+                 for k, v in rb.batch.items()}
+        for ev in events:
+            for v in batch.values():
+                if not np.issubdtype(v.dtype, np.floating):
+                    continue
+                if ev.worker < 0:
+                    v[...] = np.nan
+                else:
+                    v[ev.worker] = np.nan
+            self.injected["nan"] += 1
+            logger.info("fault nan: epoch %d round %d worker %s",
+                        self.epoch, rb.round_index,
+                        "ALL" if ev.worker < 0 else ev.worker)
+        return dataclasses.replace(rb, batch=batch)
+
+    def __call__(self, rb):
+        """Round hook: dropout / slow / corrupt_checkpoint / preempt /
+        quarantine / crash. preempt and quarantine only record their round
+        on the job, which applies them at exactly that round."""
+        rnd = rb.round_index
+        for ev in self._active("quarantine", rnd):
+            if self._job is not None:
+                self._job.force_quarantine(ev.worker, rnd)
+                self.injected["quarantine"] += 1
+                logger.warning(
+                    "fault quarantine: epoch %d round %d worker %d",
+                    self.epoch, rnd, ev.worker)
+        mask = None
+        for ev in self._active("dropout", rnd):
+            mask = rb.worker_mask.copy() if mask is None else mask
+            if ev.worker < 0:
+                mask[:] = 0.0
+            else:
+                mask[ev.worker] = 0.0
+            self.injected["dropout"] += 1
+            logger.info("fault dropout: epoch %d round %d worker %s",
+                        self.epoch, rnd,
+                        "ALL" if ev.worker < 0 else ev.worker)
+        for ev in self._active("slow", rnd):
+            self.injected["slow"] += 1
+            logger.info("fault slow: epoch %d round %d sleeping %.3fs",
+                        self.epoch, rnd, ev.duration_s)
+            time.sleep(ev.duration_s)
+        if self._active("corrupt_checkpoint", rnd):
+            self._corrupt_checkpoint(rnd)
+        if (self._active("preempt", rnd) and not self.is_restart
+                and self._job is not None):
+            self.injected["preempt"] += 1
+            logger.warning("fault preempt: epoch %d round %d — requesting "
+                           "graceful drain", self.epoch, rnd)
+            self._job.preempt(at_round=rnd)
+        if self._active("crash", rnd) and not self.is_restart:
+            self._crash(rnd)
+        if mask is not None:
+            return dataclasses.replace(rb, worker_mask=mask)
+        return rb
+
+    def _corrupt_checkpoint(self, rnd: int) -> None:
+        from kubeml_tpu_torch.api.const import kubeml_home
+        if self._job is None:
+            return
+        path = os.path.join(kubeml_home(), "models",
+                            self._job.task.job_id, "weights.npz")
+        if os.path.isfile(path):
+            with open(path, "wb") as f:
+                f.write(b"corrupted-by-fault-plan")
+            self.injected["corrupt_checkpoint"] += 1
+            logger.warning("fault corrupt_checkpoint: epoch %d round %d "
+                           "truncated %s", self.epoch, rnd, path)
+
+    def _crash(self, rnd: int) -> None:
+        job = self._job
+        if job is not None:
+            try:
+                # the restart resumes from a deterministic checkpoint, not
+                # from a race with the background writer
+                job._checkpointer.wait()
+            except Exception:  # noqa: BLE001 — dying anyway
+                pass
+        self.injected["crash"] += 1
+        logger.warning("fault crash: epoch %d round %d — os._exit(%d)",
+                       self.epoch, rnd, CRASH_EXIT_CODE)
+        logging.shutdown()
+        os._exit(CRASH_EXIT_CODE)
 
 
 @dataclasses.dataclass

@@ -358,10 +358,17 @@ class MetricsRegistry:
         self.restarts_total = Counter(
             "kubeml_ps_restarts_total",
             "Total watchdog restarts since the PS started", "type")
+        # the degraded mode and preemption: reassignment volume, graceful
+        # preemptions (per job and a PS-lifetime total), coalesced saves,
+        # the heartbeat cursor and the liveness reaper's kills
         self.reassigned_batches = Gauge(
             "kubeml_job_reassigned_batches",
             "Minibatch steps re-dealt from quarantined workers to "
             "survivors in the last epoch of a job", "jobid")
+        self.preemptions = Gauge(
+            "kubeml_job_preemptions",
+            "Graceful preemption reschedules of a job's standalone "
+            "process", "jobid")
         self.checkpoint_drops = Gauge(
             "kubeml_job_checkpoint_drops",
             "Async checkpoint saves coalesced into a newer snapshot "
@@ -372,6 +379,14 @@ class MetricsRegistry:
         self.heartbeat_round = Gauge(
             "kubeml_job_heartbeat_round",
             "Round cursor of a job's last progress heartbeat", "jobid")
+        self.preemptions_total = Counter(
+            "kubeml_ps_preemptions_total",
+            "Total graceful preemption reschedules since the PS started",
+            "type")
+        self.wedged_total = Counter(
+            "kubeml_ps_wedged_kills_total",
+            "Standalone children killed by the heartbeat reaper for "
+            "missing the liveness budget", "type")
         # round-phase latency distributions (MetricUpdate.phase_times)
         self.dispatch_seconds = Histogram(
             "kubeml_job_dispatch_seconds",
@@ -724,7 +739,8 @@ class MetricsRegistry:
                             self.train_loss, self.parallelism,
                             self.epoch_duration, self.dropped_workers,
                             self.quarantined_workers, self.restarts,
-                            self.reassigned_batches, self.checkpoint_drops,
+                            self.reassigned_batches, self.preemptions,
+                            self.checkpoint_drops,
                             self.heartbeat_epoch, self.heartbeat_round,
                             self.loss_spread, self.dataset_generation,
                             self.data_lag_generations]
@@ -845,9 +861,20 @@ class MetricsRegistry:
         self.restarts.inc(job_id)
         self.restarts_total.inc("standalone")
 
+    def note_preemption(self, job_id: str) -> None:
+        """One graceful preemption reschedule: the per-job gauge and the
+        PS-lifetime total, as for restarts."""
+        self.preemptions.inc(job_id)
+        self.preemptions_total.inc("standalone")
+
     def note_heartbeat(self, job_id: str, epoch: int, rnd: int) -> None:
         self.heartbeat_epoch.set(job_id, epoch)
         self.heartbeat_round.set(job_id, rnd)
+
+    def note_wedged(self, job_id: str) -> None:
+        """A heartbeat reaper kill (the restart it leads to is counted by
+        the watchdog)."""
+        self.wedged_total.inc("standalone")
 
     def set_health(self, job_id: str, state: str) -> None:
         """Publish a job's health verdict: 1 on the active state's
@@ -1141,7 +1168,8 @@ class MetricsRegistry:
 
     def exposition(self) -> str:
         families = (self._job_gauges
-                    + [self.running_total, self.restarts_total]
+                    + [self.running_total, self.restarts_total,
+                       self.preemptions_total, self.wedged_total]
                     + self._job_counters + self._job_multi
                     + self._job_hists
                     + self._serve_gauges + [self.serve_slo_burn_rate]

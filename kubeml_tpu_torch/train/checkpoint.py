@@ -4,7 +4,10 @@ kubeml_tpu/train/checkpoint.py), so each package loads the other's:
     $KUBEML_TPU_HOME/models/<job_id>/
         weights.npz     flat leaves keyed by '/'-joined flax tree paths
                         ("params/Dense_0/kernel", ...)
-        manifest.json   model, function, dataset, epoch, history, ...
+        manifest.json   model, function, dataset, epoch, history, ...,
+                        and train_state: a job's round cursor (the JAX
+                        package's keys, so each package resumes the
+                        other's mid-epoch save)
 
 A job converts its state dict into the flax layout through its model's
 ``params_to_flax`` (a Dense kernel is [in, out] there, a Linear weight
@@ -14,7 +17,8 @@ dicts of arrays: it knows no model.
 Publishing is crash-safe: at every instant either the current directory
 or ``<job_id>.old`` holds a complete checkpoint, and readers fall back to
 ``.old``. ``AsyncCheckpointer`` snapshots the weights on the device and
-writes them from a background thread.
+writes them from a background thread, one pending save per job
+(latest-wins), so a round cadence that outpaces the disk coalesces.
 """
 
 from __future__ import annotations

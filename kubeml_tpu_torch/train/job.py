@@ -64,6 +64,27 @@ the card: a ``dispatch`` span is the time to enqueue a round, and the
 device's time shows up where the host waits. With ``log_file`` the job
 writes its log lines there too (what ``kubeml logs`` prints).
 
+Kept too: the degraded mode and preemption. ``fault_plan``
+(faults.FaultPlan: its NaN bursts poison the host batch before the round
+is dispatched, the rest runs as the round hook, composed with a user
+``round_hook``, the plan first); the non-finite guard (``quarantine_after``
+consecutive drops quarantine a worker for the rest of the epoch, a
+host-side edit of the worker mask between dispatches; ``abort_after``
+rounds in a row in which every worker dropped fail the job);
+``reassign_on_quarantine`` (makeup rounds after the planned ones deal a
+quarantined worker's untrained samples to the survivors, exactly once);
+``checkpoint_every_rounds`` (the ``train_state`` round cursor in the
+manifest, in the JAX package's keys, so either package resumes the
+other's); ``preempt()`` (the job server's SIGTERM, or a ``preempt``
+event): the job finishes the round, saves the cursor and raises
+JobPreemptedError. These need per-round host control, so they dispatch
+one round at a time. A NaN plan turns the device cache off (index-fed
+rounds carry no host floats to poison), and reassignment forces its
+replicated layout. A resume at the cursor, under unchanged membership,
+gives the weights of an uninterrupted run bit for bit; a cursor whose
+worker count or round no longer fits the epoch is discarded and the
+epoch replays from round 0.
+
 Options whose module is not ported yet raise KubeMLException(400) naming
 the option and the ROADMAP item that brings it (``reject_unported``);
 none is quietly ignored.
@@ -74,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -81,8 +103,8 @@ import numpy as np
 import torch
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
-from kubeml_tpu_torch.api.errors import (KubeMLException, MergeError,
-                                         NotPortedError)
+from kubeml_tpu_torch.api.errors import (JobPreemptedError, KubeMLException,
+                                         MergeError, NotPortedError)
 from kubeml_tpu_torch.api.types import (History, JobHistory, MetricUpdate,
                                         TrainTask)
 from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
@@ -135,10 +157,9 @@ class JobCallbacks:
 SYNCDP = "the SyncDP engine, ROADMAP A.11"
 MODEL_PARALLEL = "model parallelism over NCCL ranks, ROADMAP A.6 and A.12"
 CONTINUAL = "the continual mode, ROADMAP A.4.5"
-DEGRADED = "the degraded mode, ROADMAP A.4.5"
 
 
-def reject_unported(opts, round_hook=None) -> None:
+def reject_unported(opts) -> None:
     """400 for every option whose module the port has not ported yet (the
     job runs it first; ``kubeml train`` runs it before submitting)."""
     def refuse(option: str, brings: str):
@@ -157,12 +178,129 @@ def reject_unported(opts, round_hook=None) -> None:
     for name in ("continual", "window_generations", "publish_every_rounds"):
         if getattr(opts, name):
             refuse(name, CONTINUAL)
-    for name in ("fault_plan", "quarantine_after", "abort_after",
-                 "reassign_on_quarantine", "checkpoint_every_rounds"):
-        if getattr(opts, name):
-            refuse(name, DEGRADED)
-    if round_hook is not None:
-        refuse("a round_hook", DEGRADED)
+
+
+def check_degraded_options(opts) -> None:
+    """The degraded mode's option checks, with the JAX package's 400s."""
+    if opts.quarantine_after < 0 or opts.abort_after < 0:
+        raise KubeMLException(
+            "quarantine_after and abort_after must be >= 0 "
+            f"(got {opts.quarantine_after}, {opts.abort_after})", 400)
+    if opts.checkpoint_every_rounds < 0:
+        raise KubeMLException(
+            f"checkpoint_every_rounds must be >= 0, got "
+            f"{opts.checkpoint_every_rounds}", 400)
+    if opts.reassign_on_quarantine and opts.quarantine_after <= 0:
+        raise KubeMLException(
+            "reassign_on_quarantine requires the kavg engine with "
+            "quarantine_after > 0 — reassignment re-deals exactly "
+            "what the quarantine guard masked out", 400)
+
+
+class _NonFiniteGuard:
+    """Per-epoch host policy over the engine's per-round [W] drop flags
+    (the JAX package's): a worker dropped for ``quarantine_after``
+    consecutive rounds is masked out for the rest of the epoch (a host
+    edit of the worker mask between dispatches), and when every
+    contributing worker is non-finite for ``abort_after`` rounds in a row
+    (a streak the job owns: frozen weights persist across epochs, so the
+    streak does too) the job fails with a diagnostic. Reading the flags
+    synchronizes on each round, which is why the layer is opt-in."""
+
+    def __init__(self, job, quarantine_after: int, abort_after: int):
+        self.job = job
+        self.quarantine_after = quarantine_after
+        self.abort_after = abort_after
+        self._consec: Optional[np.ndarray] = None      # [W] drop streaks
+        self.quarantined: Optional[np.ndarray] = None  # [W] 0/1
+        self.dropped_total = 0.0
+        # worker -> first round its dispatches were masked out: its chunks
+        # from that round on never trained (what reassignment re-deals)
+        self.quarantined_since: dict = {}
+        self._forced: dict = {}  # worker -> round, pending fault marks
+
+    def force(self, worker: int, rnd: int) -> None:
+        """Quarantine ``worker`` from round ``rnd`` on (a ``quarantine``
+        event), applied by ``apply`` at that round."""
+        if worker not in self._forced or rnd < self._forced[worker]:
+            self._forced[worker] = rnd
+
+    def seed(self, consec, quarantined, quarantined_since,
+             dropped_total: float) -> None:
+        """Restore the guard's state from a round cursor."""
+        self._consec = np.asarray(consec, dtype=np.float64)
+        self.quarantined = np.asarray(quarantined, dtype=np.float32)
+        self.quarantined_since = {int(w): int(r)
+                                  for w, r in quarantined_since.items()}
+        self.dropped_total = float(dropped_total)
+
+    def apply(self, rb):
+        """Mask the quarantined workers out of the round before dispatch."""
+        due = [w for w, r in self._forced.items() if r <= rb.round_index]
+        if due:
+            W = rb.worker_mask.shape[0]
+            if self.quarantined is None:
+                self._consec = np.zeros(W)
+                self.quarantined = np.zeros(W, np.float32)
+            for w in due:
+                del self._forced[w]
+                if 0 <= w < W and not self.quarantined[w]:
+                    self.quarantined[w] = 1.0
+                    self.quarantined_since.setdefault(w, rb.round_index)
+                    self.job._log(
+                        "job %s force-quarantined worker %d from round "
+                        "%d (fault plan)", self.job.task.job_id, w,
+                        rb.round_index)
+        if self.quarantined is None or not self.quarantined.any():
+            return rb
+        mask = rb.worker_mask * (1.0 - self.quarantined)
+        if mask.sum() < 1:
+            raise MergeError(
+                f"round {rb.round_index}: every worker is quarantined "
+                "for repeated non-finite updates")
+        return dataclasses.replace(rb, worker_mask=mask)
+
+    def observe(self, stats, rb) -> None:
+        """Fold one round's drop flags into the streak counters."""
+        dropped = stats.dropped  # [W] device readback (see class doc)
+        if self._consec is None:
+            self._consec = np.zeros(dropped.shape[0])
+            self.quarantined = np.zeros(dropped.shape[0], np.float32)
+        self.dropped_total += float(dropped.sum())
+        active = rb.worker_mask > 0
+        hit = (dropped > 0) & active
+        self._consec = np.where(hit, self._consec + 1, 0.0)
+        if self.quarantine_after > 0:
+            newq = ((self._consec >= self.quarantine_after)
+                    & (self.quarantined == 0))
+            if newq.any():
+                self.quarantined[newq] = 1.0
+                for w in np.flatnonzero(newq):
+                    # the first MASKED round is the next one: this round's
+                    # contribution was dropped by the merge, not withheld
+                    self.quarantined_since.setdefault(
+                        int(w), rb.round_index + 1)
+                self.job._log(
+                    "job %s quarantined workers %s after %d consecutive "
+                    "non-finite rounds (rest of epoch)",
+                    self.job.task.job_id,
+                    np.flatnonzero(newq).tolist(), self.quarantine_after)
+        if active.any() and hit[active].all():
+            self.job._all_dropped_rounds += 1
+        else:
+            self.job._all_dropped_rounds = 0
+        if 0 < self.abort_after <= self.job._all_dropped_rounds:
+            raise KubeMLException(
+                f"aborting job {self.job.task.job_id}: every contributing "
+                f"worker produced non-finite updates for "
+                f"{self.job._all_dropped_rounds} consecutive rounds "
+                f"(abort_after={self.abort_after}) — the model has "
+                "diverged and no merge can move the weights", 500)
+
+    @property
+    def quarantined_count(self) -> int:
+        return (int(self.quarantined.sum())
+                if self.quarantined is not None else 0)
 
 
 class TrainJob:
@@ -192,7 +330,24 @@ class TrainJob:
         self.callbacks = callbacks or JobCallbacks()
         self.seed = seed
         self.checkpoint = checkpoint
-        self.round_hook = round_hook   # not ported: refused by train()
+        # round_hook(RoundBatch) -> RoundBatch: fault injection and chaos
+        # runs (utils/chaos.py); a fault_plan composes with it, plan first
+        self.round_hook = round_hook
+        self._fault_plan = None
+        # the all-workers-dropped streak spans epochs; the per-epoch
+        # totals go to the history and the MetricUpdate
+        self._all_dropped_rounds = 0
+        self._epoch_quarantined = 0
+        self._epoch_reassigned = 0
+        # preemption (the job server's SIGTERM or a preempt event), the
+        # epoch's guard (force_quarantine routes to it), the cursor a
+        # round-granular resume consumes, and the (epoch, round) progress
+        # the job server's heartbeats carry
+        self._preempt_event = threading.Event()
+        self._preempt_at_round: Optional[int] = None
+        self._guard: Optional[_NonFiniteGuard] = None
+        self._resume_state: Optional[dict] = None
+        self._progress = (0, 0)
         self._checkpointer = AsyncCheckpointer()
         self.tracer = Tracer()  # host-phase spans, summarized per epoch
         self._trace_sink: Optional[TraceSink] = None
@@ -209,6 +364,24 @@ class TrainJob:
     def stop(self) -> None:
         """Stop after the current epoch (``kubeml task stop``)."""
         self.stop_requested = True
+
+    def preempt(self, at_round: Optional[int] = None) -> None:
+        """Graceful preemption: finish the round in flight, drain the
+        pending saves, checkpoint at the round cursor and raise
+        JobPreemptedError. ``at_round`` pins the drain to that round (a
+        ``preempt`` event); None means after the next round that
+        completes (or at the epoch's end for grouped dispatch)."""
+        if at_round is not None:
+            cur = self._preempt_at_round
+            self._preempt_at_round = (at_round if cur is None
+                                      else min(cur, at_round))
+        self._preempt_event.set()
+
+    def force_quarantine(self, worker: int, rnd: int) -> None:
+        """``quarantine`` event: quarantine ``worker`` from round ``rnd``
+        on, through the epoch's guard."""
+        if self._guard is not None:
+            self._guard.force(int(worker), int(rnd))
 
     def train(self) -> History:
         job_id = self.task.job_id
@@ -289,6 +462,16 @@ class TrainJob:
                         self._flax_tree)
                     last_ckpt_epoch = epoch + 1
 
+                if self._preempt_event.is_set():
+                    # the epoch boundary's drain: the fallback when the
+                    # epoch ran without per-round host control (grouped
+                    # dispatch) or the notice came after its last round
+                    self._checkpointer.wait()
+                    save_checkpoint(
+                        job_id, self._flax_tree(self.state),
+                        self._manifest(epoch=epoch + 1,
+                                       parallelism=parallelism))
+                    raise JobPreemptedError(job_id, epoch + 1, 0)
                 if self.stop_requested:
                     self._log("job %s stopped by request", job_id)
                     break
@@ -329,6 +512,15 @@ class TrainJob:
             self.task.state = "finished"
             self.callbacks.on_finish(job_id, None)
             return record
+        except JobPreemptedError as e:
+            # neither failed nor finished: the cursor is on disk and the
+            # PS reschedules the job (no on_finish, which would tear down
+            # the record the restart needs)
+            self.task.state = "preempted"
+            self._log("job %s preempted at epoch %d round %d — "
+                      "checkpointed for reschedule", job_id, e.epoch,
+                      e.round)
+            raise
         except Exception as e:  # the job's abort reports exitErr
             self.exit_err = str(e)
             self.task.state = "failed"
@@ -391,12 +583,17 @@ class TrainJob:
 
     def _manifest(self, epoch: Optional[int] = None,
                   parallelism: Optional[int] = None,
-                  completed: bool = False) -> dict:
+                  completed: bool = False,
+                  train_state: Optional[dict] = None) -> dict:
         m = {"model": self.req.model_type,
              "function": self.req.function_name or self.req.model_type,
              "dataset": self.req.dataset}
         if completed:
             m["completed"] = True
+        if train_state is not None:
+            # the round cursor: ``epoch`` below is then the count of
+            # completed epochs, and the cursor the round inside the next
+            m["train_state"] = train_state
         if epoch is not None:
             # what crash recovery needs: completed epochs, their history
             # (to_dict copies the lists) and the next epoch's parallelism
@@ -418,8 +615,8 @@ class TrainJob:
         h.parallelism.append(parallelism)
         h.epoch_duration.append(elapsed)
         h.dropped_workers.append(self._epoch_dropped)
-        h.quarantined_workers.append(0)
-        h.reassigned_batches.append(0)
+        h.quarantined_workers.append(self._epoch_quarantined)
+        h.reassigned_batches.append(self._epoch_reassigned)
         h.grad_norm_summary.append(_minmeanmax(grad_norms))
         h.update_ratio_summary.append(_minmeanmax(update_ratios))
         h.loss_spread.append(float(stats.get("loss_spread", 0.0)))
@@ -431,8 +628,9 @@ class TrainJob:
             job_id=self.task.job_id, validation_loss=val_loss,
             accuracy=accuracy, train_loss=train_loss,
             parallelism=parallelism, epoch_duration=elapsed,
-            dropped_workers=self._epoch_dropped, quarantined_workers=0,
-            reassigned_batches=0,
+            dropped_workers=self._epoch_dropped,
+            quarantined_workers=self._epoch_quarantined,
+            reassigned_batches=self._epoch_reassigned,
             checkpoint_drops=self._checkpointer.dropped_saves,
             phase_times={k: v for k, v in self.tracer.durations().items()
                          if k in PHASE_HISTOGRAMS},
@@ -447,7 +645,7 @@ class TrainJob:
 
     def _init_model(self) -> None:
         opts = self.req.options
-        reject_unported(opts, self.round_hook)
+        reject_unported(opts)
         merge_dtype = opts.merge_dtype or ""
         merge_compress = opts.merge_compress or "none"
         merge_bucket_mb = float(opts.merge_bucket_mb)
@@ -465,6 +663,26 @@ class TrainJob:
                 "is error-feedback compression with residual carry", 400)
         handle = self.registry.get(self.req.dataset)
         self._handle = handle
+        check_degraded_options(opts)
+        if opts.fault_plan:
+            from kubeml_tpu_torch.faults import FaultPlan
+            try:
+                plan = FaultPlan.parse(opts.fault_plan)
+            except (ValueError, KeyError, TypeError) as e:
+                raise KubeMLException(f"invalid fault_plan: {e}", 400)
+            plan.bind(self)
+            if plan.has("quarantine") and opts.quarantine_after <= 0:
+                raise KubeMLException(
+                    "fault_plan 'quarantine' events require the kavg "
+                    "engine with quarantine_after > 0 (they drive the "
+                    "quarantine guard directly)", 400)
+            self._fault_plan = plan
+            if self.round_hook is None:
+                self.round_hook = plan
+            else:
+                # the plan first, so the user's hook sees the faulted round
+                user_hook = self.round_hook
+                self.round_hook = lambda rb: user_hook(plan(rb))
         self._init_device_cache(handle, opts)
 
         # elastic shape pinning: a parallelism change alters mask
@@ -496,9 +714,17 @@ class TrainJob:
                     f"checkpoint {self.req.resume_from} holds function "
                     f"{ckpt_fn!r}, not {this_fn!r}", 400)
             if self.req.resume_from == self.task.job_id and \
-                    (manifest.get("epoch") or manifest.get("completed")):
+                    (manifest.get("epoch") or manifest.get("completed")
+                     or manifest.get("train_state")):
                 # crash recovery of this same job: continue its history
+                # (epoch may be 0 for a round cursor inside the first)
                 self._start_epoch = int(manifest.get("epoch") or 0)
+                ts = manifest.get("train_state")
+                if ts and not manifest.get("completed"):
+                    # resume inside the cursor's epoch (_train_epoch)
+                    self._resume_state = dict(ts)
+                    self._start_epoch = int(ts.get("epoch",
+                                                   self._start_epoch))
                 if manifest.get("completed"):
                     self._start_epoch = max(self._start_epoch,
                                             self.req.epochs)
@@ -570,6 +796,17 @@ class TrainJob:
                 f"got {mode!r}", 400)
         if mode == "off":
             return
+        if self._fault_plan is not None and self._fault_plan.has("nan"):
+            # index-fed rounds dispatch int32 indices: no host float batch
+            # for a NaN burst to poison
+            if mode == "on":
+                raise KubeMLException(
+                    "device_cache='on' is incompatible with fault_plan "
+                    "'nan' events: index-fed rounds carry no host float "
+                    "batch to poison", 400)
+            self._log("job %s device cache disabled: fault_plan injects "
+                      "NaN into host batches", self.task.job_id)
+            return
         identity = (type(self.dataset).transform_train
                     is KubeDataset.transform_train)
         dev_hook = getattr(self.dataset, "transform_train_device", None)
@@ -581,7 +818,11 @@ class TrainJob:
                     "rounds and an identity transform_train (or a "
                     "transform_train_device hook)", 400)
             return
-        layout = "replicated" if opts.shuffle else "sharded"
+        # reassignment deals a quarantined worker's samples to ANY
+        # surviving lane, which lane-local indices cannot address
+        layout = ("replicated"
+                  if opts.shuffle or opts.reassign_on_quarantine
+                  else "sharded")
         budget = max(0, int(getattr(opts, "device_cache_mb", 512))) << 20
         per_chip = DeviceDatasetCache.per_chip_bytes(handle, layout,
                                                      self.n_lanes)
@@ -613,12 +854,40 @@ class TrainJob:
             slots * 4, slots * per_sample,
             max(1.0, (slots * per_sample) / max(1, slots * 4)))
 
-    def _epoch_round_iter(self, plan, epoch: int, group: int):
-        """Rounds of the epoch from the prefetch thread (RoundGroups of
-        ``group`` rounds when > 1); a round with no contributing worker
-        aborts the job. With the device cache the rounds carry gather
-        indices (uploading the cache first, as ``cache_upload``, when the
-        plan's lane layout needs it).
+    def _rounds_per_dispatch(self) -> int:
+        """Rounds per engine call (options.rounds_per_dispatch), or 1
+        where per-round host control is the point: a round hook, the
+        guard's per-round flags and mask edits, the round cursor."""
+        opts = self.req.options
+        R = max(1, int(opts.rounds_per_dispatch))
+        if R > 1 and (self.round_hook is not None
+                      or opts.quarantine_after > 0 or opts.abort_after > 0
+                      or opts.checkpoint_every_rounds > 0):
+            return 1
+        return R
+
+    def _round_source(self, plan, epoch: int, start_round: int):
+        """The epoch's planned rounds from ``start_round`` on: samples, or
+        [W, S, B] gather indices from the device cache (uploading it
+        first, as ``cache_upload``, when the plan's lane layout needs
+        it)."""
+        cache = self._device_cache
+        if cache is None:
+            return self._loader.epoch_rounds(plan, epoch,
+                                             start_round=start_round)
+        W, S, B = self._loader.round_geometry(plan)
+        with self.tracer.span("cache_upload"):
+            cache.ensure(plan, W)
+        self._log_cache_payload(W, S, B)
+        return self._loader.epoch_index_rounds(
+            plan, epoch, lane_starts=cache.lane_starts,
+            start_round=start_round)
+
+    def _epoch_round_iter(self, source, group: int):
+        """Rounds of ``source`` from the prefetch thread (RoundGroups of
+        ``group`` rounds when > 1). A fault plan's NaN bursts poison the
+        host batch in that thread; the round hook then runs here, and a
+        round with no contributing worker aborts the job.
 
         Each iteration runs inside a ``round`` span that opens before the
         ``data_wait`` and stays open across the yield: the consumer's
@@ -626,16 +895,9 @@ class TrainJob:
         both phases nest under the round. The last probe of the exhausted
         iterator records a round with only its data_wait, tagged
         ``tail=True``."""
-        cache = self._device_cache
-        if cache is not None:
-            W, S, B = self._loader.round_geometry(plan)
-            with self.tracer.span("cache_upload"):
-                cache.ensure(plan, W)
-            self._log_cache_payload(W, S, B)
-            source = self._loader.epoch_index_rounds(
-                plan, epoch, lane_starts=cache.lane_starts)
-        else:
-            source = self._loader.epoch_rounds(plan, epoch)
+        plan_f = self._fault_plan
+        if plan_f is not None and plan_f.has("nan"):
+            source = (plan_f.inject_batch(rb) for rb in source)
         if group > 1:
             source = group_rounds(source, group)
         rounds = prefetch_rounds(source, depth=1)
@@ -651,6 +913,8 @@ class TrainJob:
                     if isinstance(rb, RoundGroup):
                         sp["rounds"] = rb.rounds
                     else:
+                        if self.round_hook is not None:
+                            rb = self.round_hook(rb)
                         if rb.worker_mask.sum() < 1:
                             raise MergeError(f"round {rb.round_index}: no "
                                              "workers contributed")
@@ -660,16 +924,106 @@ class TrainJob:
         finally:
             rounds.close()
 
+    def _take_resume(self, epoch: int, W: int, num_rounds: int):
+        """The round cursor for this epoch, consumed; None when there is
+        none, or when the worker count or the round no longer fits the
+        epoch (the membership changed across the restart: the epoch then
+        replays from round 0 over the cursor's weights)."""
+        resume = self._resume_state
+        if resume is None or int(resume.get("epoch", -1)) != epoch:
+            return None
+        self._resume_state = None
+        stored = list(resume.get("step_counts", []))
+        if (len(stored) != W
+                or not 0 <= int(resume.get("round", -1)) <= num_rounds):
+            self._log(
+                "job %s: discarding round cursor (stored W=%d round=%s vs "
+                "W=%d rounds=%d) — replaying epoch %d from round 0",
+                self.task.job_id, len(stored), resume.get("round"), W,
+                num_rounds, epoch)
+            return None
+        return resume
+
+    def _preempt_due(self, round_index: int) -> bool:
+        return self._preempt_event.is_set() and (
+            self._preempt_at_round is None
+            or round_index >= self._preempt_at_round)
+
     def _train_epoch(self, parallelism: int, epoch: int) -> float:
+        job_id = self.task.job_id
         opts = self.req.options
+        self._progress = (epoch, 0)   # the job server's heartbeat cursor
         plan = self._loader.plan(parallelism, opts.k, self.req.batch_size)
-        group = max(1, int(opts.rounds_per_dispatch))
+        group = self._rounds_per_dispatch()
+        if self._fault_plan is not None:
+            self._fault_plan.epoch = epoch
+        guard = None
+        if opts.quarantine_after > 0 or opts.abort_after > 0:
+            guard = _NonFiniteGuard(self, opts.quarantine_after,
+                                    opts.abort_after)
+        self._guard = guard
+        self._epoch_reassigned = 0
+        ckpt_rounds = int(opts.checkpoint_every_rounds)
         dev_losses, dev_dropped, dev_stats, dev_spread = [], [], [], []
         stat_rounds = 0
         step_counts = np.zeros(0)
         cache = self._device_cache
-        for rb in self._epoch_round_iter(plan, epoch, group):
+
+        # round-granular resume: the loader still draws the skipped
+        # rounds' keys, and the host accumulators (step counts, partial
+        # loss sums, guard state) come from the cursor, so the weights
+        # equal an uninterrupted run's bit for bit (the reported loss may
+        # differ in its last bits: the sums associate differently)
+        W, S, B = self._loader.round_geometry(plan)
+        start_round, loss_base, dropped_base = 0, None, 0.0
+        resume = self._take_resume(epoch, W, len(plan.rounds))
+        if resume is not None:
+            start_round = int(resume["round"])
+            step_counts = np.asarray(resume["step_counts"], dtype=float)
+            loss_base = np.asarray(resume.get("loss_sums", np.zeros(W)),
+                                   dtype=float)
+            dropped_base = float(resume.get("dropped", 0.0))
+            self._all_dropped_rounds = int(
+                resume.get("all_dropped_rounds", 0))
+            self._epoch_reassigned = int(resume.get("reassigned", 0))
+            if guard is not None and resume.get("quarantined") is not None:
+                guard.seed(resume.get("consec", np.zeros(W)),
+                           resume["quarantined"],
+                           resume.get("quarantined_since", {}),
+                           dropped_base)
+            group = 1   # the resumed epoch needs per-round accounting
+            self._log("job %s resuming epoch %d at round %d/%d", job_id,
+                      epoch, start_round, len(plan.rounds))
+
+        def note(st, worker_mask, rounds: int):
+            # count only merged workers' steps: a masked-out worker adds
+            # neither loss nor steps
+            nonlocal step_counts, stat_rounds
+            steps = (st.step_count * worker_mask).astype(np.float64)
+            loss, dropped = st.loss_sum_device, st.dropped_device
+            stats, spread = st.stat_device, st.spread_device
+            if rounds > 1:   # [R, W] -> [W], one reduction per group
+                with self.tracer.span("merge_overlap"):
+                    steps, loss, dropped = (steps.sum(axis=0), loss.sum(0),
+                                            dropped.sum(0))
+                    if stats is not None:
+                        stats, spread = stats.sum(0), spread.sum()
+            step_counts = steps if step_counts.size == 0 \
+                else step_counts + steps
+            dev_losses.append(loss)
+            if guard is None:
+                dev_dropped.append(dropped)
+            if stats is not None:
+                dev_stats.append(stats)
+                dev_spread.append(spread)
+                stat_rounds += rounds
+
+        def dispatch(rb):
             grouped = isinstance(rb, RoundGroup)
+            if guard is not None:
+                # quarantined workers masked out before dispatch; raises
+                # when every worker is quarantined
+                rb = guard.apply(rb)
             with self.tracer.span("dispatch"):
                 if cache is not None:
                     run = self._engine.train_rounds_indexed if grouped \
@@ -685,39 +1039,89 @@ class TrainJob:
                                          rb.sample_mask, rb.step_mask,
                                          rb.worker_mask, rb.rngs,
                                          lr=self.req.lr, epoch=epoch)
-            # count only merged workers' steps: a masked-out worker adds
-            # neither loss nor steps
-            steps = (st.step_count * rb.worker_mask).astype(np.float64)
-            loss, dropped = st.loss_sum_device, st.dropped_device
-            stats, spread = st.stat_device, st.spread_device
-            rounds = 1
-            if grouped:   # [R, W] -> [W], one reduction per group
-                with self.tracer.span("merge_overlap"):
-                    steps, loss, dropped = (steps.sum(axis=0), loss.sum(0),
-                                            dropped.sum(0))
-                    if stats is not None:
-                        stats, spread = stats.sum(0), spread.sum()
-                rounds = rb.rounds
-            step_counts = steps if step_counts.size == 0 \
-                else step_counts + steps
-            dev_losses.append(loss)
-            dev_dropped.append(dropped)
-            if stats is not None:
-                dev_stats.append(stats)
-                dev_spread.append(spread)
-                stat_rounds += rounds
+            note(st, rb.worker_mask, rb.rounds if grouped else 1)
+            if guard is not None:
+                # the per-round [W] readback the guard opts into; may
+                # raise the abort diagnostic
+                guard.observe(st, rb)
+
+        def round_state(cursor: int) -> dict:
+            return self._round_train_state(epoch, cursor, guard,
+                                           step_counts, dev_losses,
+                                           dev_dropped, loss_base,
+                                           dropped_base)
+
+        source = self._round_source(plan, epoch, start_round)
+        for rb in self._epoch_round_iter(source, group):
+            dispatch(rb)
+            if isinstance(rb, RoundGroup):
+                continue
+            rounds_done = rb.round_index + 1
+            self._progress = (epoch, rounds_done)
+            if (ckpt_rounds and rounds_done % ckpt_rounds == 0
+                    and self.checkpoint):
+                # the cursor's readback syncs on the partial loss sums:
+                # the cost the cadence opts into
+                self._checkpointer.save(
+                    job_id, self.state,
+                    self._manifest(epoch=epoch, parallelism=parallelism,
+                                   train_state=round_state(rounds_done)),
+                    self._flax_tree)
+            if self._preempt_due(rb.round_index):
+                # the round just completed: drain the pending saves so
+                # the cursor is the newest publish, write it, hand the job
+                # back to the PS
+                self._checkpointer.wait()
+                save_checkpoint(
+                    job_id, self._flax_tree(self.state),
+                    self._manifest(epoch=epoch, parallelism=parallelism,
+                                   train_state=round_state(rounds_done)))
+                raise JobPreemptedError(job_id, epoch, rounds_done)
+
+        # reassignment: a second pass after the planned rounds (the
+        # quarantine set is final only once they all ran) deals the
+        # quarantined workers' untrained samples to the survivors
+        if (guard is not None and opts.reassign_on_quarantine
+                and guard.quarantined_since):
+            makeup = self._loader.makeup_rounds(
+                plan, epoch, guard.quarantined_since,
+                index_mode=cache is not None)
+            for rb in self._epoch_round_iter(makeup, 1):
+                redealt = int(round(float(np.asarray(rb.step_mask).sum())))
+                dispatch(rb)
+                self._epoch_reassigned += redealt
+                self._progress = (epoch, rb.round_index + 1)
+            if self._epoch_reassigned:
+                self._log(
+                    "job %s epoch %d re-dealt %d minibatch steps from "
+                    "quarantined workers %s to the survivors", job_id,
+                    epoch, self._epoch_reassigned,
+                    sorted(guard.quarantined_since))
+        self._guard = None
         # merge_wait: the blocking readback that waits on every round
         with self.tracer.span("merge_wait"):
             loss_sums = torch.stack(dev_losses).sum(0).cpu().numpy() \
                 if dev_losses else np.zeros(0)
-            self._epoch_dropped = float(torch.stack(dev_dropped).sum()) \
-                if dev_dropped else 0.0
+            if guard is not None:
+                self._epoch_dropped = guard.dropped_total
+                self._epoch_quarantined = guard.quarantined_count
+            else:
+                self._epoch_dropped = dropped_base + (
+                    float(torch.stack(dev_dropped).sum())
+                    if dev_dropped else 0.0)
+                self._epoch_quarantined = 0
+        if loss_base is not None:
+            # the sums before the restart (a cursor at the last round
+            # trains no live round: the epoch closes from them alone)
+            loss_sums = loss_base if loss_sums.size == 0 \
+                else loss_sums + loss_base
         ran = step_counts > 0
         if not ran.any():
             raise MergeError("epoch produced no training steps")
         per_worker = loss_sums[ran] / step_counts[ran]
         self._epoch_stats = {}
         if dev_stats:
+            # a resumed epoch's stats cover its post-resume rounds only
             stat_tot = torch.stack(dev_stats).sum(0).cpu().numpy()
             spread_tot = float(torch.stack(dev_spread).sum())
             steps = np.maximum(step_counts, 1.0)
@@ -734,6 +1138,38 @@ class TrainJob:
                 "loss_spread": spread_tot / max(1, stat_rounds),
             }
         return float(per_worker.mean())
+
+    def _round_train_state(self, epoch: int, cursor: int, guard,
+                           step_counts, dev_losses, dev_dropped,
+                           loss_base, dropped_base) -> dict:
+        """The cursor of an epoch in progress at ``cursor`` (the next
+        planned round): what a restart needs to continue it with the same
+        weights under unchanged membership, in the JAX package's keys.
+        Reads the partial loss sums back from the device."""
+        sums = torch.stack(dev_losses).sum(0).cpu().numpy() \
+            if dev_losses else np.zeros(len(step_counts))
+        if loss_base is not None:
+            sums = sums + loss_base
+        if guard is not None:
+            dropped = float(guard.dropped_total)
+        else:
+            dropped = dropped_base + (float(torch.stack(dev_dropped).sum())
+                                      if dev_dropped else 0.0)
+        state = {
+            "epoch": int(epoch),
+            "round": int(cursor),
+            "step_counts": [float(x) for x in step_counts],
+            "loss_sums": [float(x) for x in sums],
+            "dropped": dropped,
+            "all_dropped_rounds": int(self._all_dropped_rounds),
+            "reassigned": int(self._epoch_reassigned),
+        }
+        if guard is not None and guard.quarantined is not None:
+            state["consec"] = [float(x) for x in guard._consec]
+            state["quarantined"] = [float(x) for x in guard.quarantined]
+            state["quarantined_since"] = {
+                str(w): int(r) for w, r in guard.quarantined_since.items()}
+        return state
 
     def _validate(self, parallelism: int):
         if self._handle.test_samples == 0:

@@ -16,9 +16,16 @@ Control-plane callbacks run over HTTP like the reference job pod's: metric
 pushes to the PS (``POST {ps}/metrics/{jobId}``, ml/pkg/train/
 util.go:19-50), re-parallelization asks to the scheduler (``POST
 {scheduler}/job``, then a wait for the PS-relayed /update, ml/pkg/train/
-job.go:196-215), progress heartbeats (``POST {ps}/heartbeat/{jobId}``) and
-the finish notification (``POST {ps}/finish/{jobId}``), with a bounded,
-jittered backoff seeded from the job id.
+job.go:196-215), progress heartbeats with the job's (epoch, round) cursor
+(``POST {ps}/heartbeat/{jobId}``, what the PS's liveness reaper watches)
+and the finish notification (``POST {ps}/finish/{jobId}``), with a
+bounded, jittered backoff seeded from the job id.
+
+Preemption: SIGTERM asks the job to drain (``TrainJob.preempt``): it
+finishes the round in flight, checkpoints at the round cursor and raises
+JobPreemptedError, which this server turns into ``POST
+{ps}/preempted/{jobId}`` with ``{epoch, round}`` instead of /finish, so
+the PS reschedules the job from its cursor.
 
     python -m kubeml_tpu_torch.train.jobserver --job-id abc123 \
         --ps-url http://host:port --scheduler-url http://host:port \
@@ -29,8 +36,7 @@ The job writes its log lines to ``$KUBEML_TPU_HOME/logs/<job>.log`` (what
 the trace id its task carries, beside the parent's files.
 
 Without ``--device`` the job runs on CUDA, and the process exits with an
-error before it binds its port when there is no card. Preemption (the
-SIGTERM drain and /preempted) comes with ROADMAP A.17.
+error before it binds its port when there is no card.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ import argparse
 import logging
 import os
 import random
+import signal
 import threading
 import time
 import zlib
 from typing import Optional
 
-from kubeml_tpu_torch.api.errors import InvalidArgsError, KubeMLException
+from kubeml_tpu_torch.api.errors import (InvalidArgsError, JobPreemptedError,
+                                         KubeMLException)
 from kubeml_tpu_torch.api.types import MetricUpdate, TrainTask
 from kubeml_tpu_torch.control.httpd import JsonService, Request, http_json
 from kubeml_tpu_torch.control.journal import atomic_write_json
@@ -168,21 +176,45 @@ class JobServer(JsonService):
     def _run(self):
         try:
             self._job.train()
+        except JobPreemptedError as e:
+            # the cursor is on disk: the PS reschedules the job (not
+            # /finish, which would tear down the record the restart needs)
+            logger.warning("job %s preempted at epoch %d round %d; "
+                           "notifying PS", self.job_id, e.epoch, e.round)
+            if self.ps_url is not None:
+                self._post_with_retry(
+                    "preemption notification",
+                    f"{self.ps_url}/preempted/{self.job_id}",
+                    {"epoch": e.epoch, "round": e.round})
+            self.finished.set()
         except Exception:
             logger.exception("job %s failed", self.job_id)
             self.finished.set()  # train() reports on_finish itself; backstop
 
+    def preempt(self):
+        """SIGTERM: drain the round in flight, checkpoint at the round
+        cursor, exit for rescheduling; with no task yet, just exit."""
+        job = self._job
+        if job is not None:
+            logger.warning("job server %s: preemption notice (SIGTERM); "
+                           "draining in-flight round", self.job_id)
+            job.preempt()
+        else:
+            self.finished.set()
+
     def _heartbeat_loop(self):
-        """Progress heartbeats (epoch cursor) to the PS, paced on the
-        finished event so shutdown is prompt."""
+        """Progress heartbeats (the job's (epoch, round) cursor) to the
+        PS's liveness reaper, paced on the finished event so shutdown is
+        prompt."""
         while not self.finished.wait(timeout=self.heartbeat_interval):
             job = self._job
             if job is None:
                 continue
+            epoch, rnd = job._progress
             # a short bounded retry: the next beat is one interval away
             self._post_with_retry(
                 "heartbeat", f"{self.ps_url}/heartbeat/{self.job_id}",
-                {"epoch": len(job.history.train_loss), "round": 0},
+                {"epoch": int(epoch), "round": int(rnd)},
                 attempts=3, max_delay=0.5)
 
     # ------------------------------------------------------------ callbacks
@@ -244,6 +276,9 @@ def main(argv=None):
                        scheduler_url=args.scheduler_url, port=args.port,
                        device=device)
     port = server.start()
+    # the platform's eviction notice: drain, checkpoint, /preempted (the
+    # handler only sets events; the work happens on the job's thread)
+    signal.signal(signal.SIGTERM, lambda *_: server.preempt())
     if args.port_file:
         atomic_write_json(args.port_file, port)  # never read half-written
     logger.info("job server %s on port %d", args.job_id, port)

@@ -365,6 +365,7 @@ def test_cli_validation_errors(stack, capsys):
 
 
 TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
+# item None: the degraded-mode flags (ROADMAP A.4.5, landed) reach the job
 REFUSED = [
     (TRAIN + ["--engine", "syncdp"], "ROADMAP A.11"),
     (TRAIN + ["--engine", "syncdp", "--fsdp"], "ROADMAP A.11"),
@@ -373,8 +374,8 @@ REFUSED = [
     (TRAIN + ["--expert-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--continual"], "ROADMAP A.4.5"),
-    (TRAIN + ["--quarantine-after", "2"], "ROADMAP A.4.5"),
-    (TRAIN + ["--checkpoint-every-rounds", "3"], "ROADMAP A.4.5"),
+    (TRAIN + ["--quarantine-after", "2"], None),
+    (TRAIN + ["--checkpoint-every-rounds", "3"], None),
     (["dataset", "append", "-n", "blobs", "--traindata", "{xtr}",
       "--trainlabels", "{ytr}"], "ROADMAP A.4.5"),
     (["cost", "--id", "x"], "ROADMAP A.13"),
@@ -390,7 +391,7 @@ REFUSED = [
     (TRAIN + ["--continual", "--publish-every-rounds", "3"],
      "ROADMAP A.4.5"),
     (TRAIN + ["--quarantine-after", "2", "--reassign-on-quarantine"],
-     "ROADMAP A.4.5"),
+     None),
 ]
 
 
@@ -402,6 +403,25 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
     dep, paths, _ = stack
     _create_blobs(dep, paths)
     capsys.readouterr()
+    if item is None:
+        # submitted: the job runs with the options the flags set
+        from kubeml_tpu_torch.train.history import HistoryStore
+
+        run_cli(dep, *argv)
+        job_id = capsys.readouterr().out.strip()
+        _wait_history(job_id)
+        assert dep.ps.wait_for_job(job_id, timeout=60)
+        rec = HistoryStore().get(job_id)
+        opts = rec.task.options
+        assert (opts.quarantine_after, opts.checkpoint_every_rounds,
+                opts.reassign_on_quarantine) == (
+            2 if "--quarantine-after" in argv else 0,
+            3 if "--checkpoint-every-rounds" in argv else 0,
+            "--reassign-on-quarantine" in argv)
+        assert rec.data.quarantined_workers == [0]
+        assert rec.data.reassigned_batches == [0]
+        assert dep.ps.errors == {}
+        return
     with pytest.raises(SystemExit) as ei:
         run_cli(dep, *[a.format(**paths) for a in argv])
     assert ei.value.code not in (0, None)

@@ -14,8 +14,9 @@ cluster mode against the JAX scheduler's.
   ``kubeml top`` cluster pane over the same snapshots;
 - a threaded CPU deployment in cluster mode: a serving gang placed by a
   cold start and preempted by a priority-1 arrival (the fleet drains to
-  zero and cold-starts again), and a training victim, whose drain comes
-  with ROADMAP A.17, running to its end before the arrival places.
+  zero and cold-starts again), and a threaded training victim, which has
+  no process to drain (503, as in the JAX PS), running to its end before
+  the arrival places.
 
 The allocator and scheduler cases run under a fake clock.
 """
@@ -589,10 +590,12 @@ def _poll(pred, what, timeout=120.0):
 
 
 def test_a_priority_arrival_waits_out_a_training_victim(tmp_path, tmp_home):
-    """The allocator marks a training victim; its drain is not ported
-    (ROADMAP A.17), so the PS refuses the preempt and the victim runs to
-    its end: the arrival places only then, and the pool never holds more
-    lanes than it has."""
+    """The allocator picks a training victim that runs as a thread of
+    the PS: with no process of its own to drain, the PS answers the
+    preempt 503, as the JAX PS does, and the victim runs to its end
+    unpreempted: the arrival places only then, and the pool never holds
+    more lanes than it has. (A standalone victim's drain, requeue and
+    resume are held in tests/test_torch_elastic.py.)"""
     from kubeml_tpu_torch.control.client import KubemlClient
     from kubeml_tpu_torch.control.deployment import start_deployment
     from kubeml_tpu_torch.control.httpd import http_json
@@ -620,6 +623,7 @@ def test_a_priority_arrival_waits_out_a_training_victim(tmp_path, tmp_home):
         assert max(seen) <= 2
         hist = client.histories().get(victim).data
         assert len(hist.train_loss) == 40     # not cut short
+        assert (hist.restarts, hist.preemptions) == (0, 0)
     finally:
         dep.stop()
 

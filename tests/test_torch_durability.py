@@ -12,8 +12,8 @@ package's, after the reference's tests/test_control_durability.py.
   child's death through its pid watchdog;
 - the cluster and control Prometheus text, the control-flapping rule and
   ``kubeml top``'s control line equal the reference's;
-- POST /cluster and POST /preempt on the PS; /preempt of a training job
-  names ROADMAP A.17;
+- POST /cluster and POST /preempt on the PS; /preempt of an unknown
+  training job is 404 in both packages;
 - end to end: ``kubeml serve --role all --standalone-jobs --cluster-lanes
   4 --control-dir D`` on the CPU is killed with SIGKILL and started again
   on D: the live child is re-adopted under a bumped fencing epoch, the
@@ -353,8 +353,9 @@ def test_ps_cluster_route_feeds_metrics_and_health_alike(tmp_home):
 def test_ps_preempt_drains_a_serving_gang_and_refuses_a_training_job(
         tmp_path, tmp_home):
     """POST /preempt/serve:<model> drains the fleet to zero and persists
-    the fleet manifest at 0 replicas, as the JAX PS does; a training
-    victim's drain names ROADMAP A.17; an unknown fleet is 404."""
+    the fleet manifest at 0 replicas, as the JAX PS does; an unknown
+    fleet and an unknown training job are 404 in both packages (a
+    training victim's drain is held in tests/test_torch_elastic.py)."""
     from kubeml_tpu_torch.control.httpd import http_json
     from kubeml_tpu_torch.convert import random_flax_params
     from kubeml_tpu_torch.train.checkpoint import save_checkpoint
@@ -386,11 +387,10 @@ def test_ps_preempt_drains_a_serving_gang_and_refuses_a_training_job(
             with open(os.path.join(sdir, "ps.fleets.json")) as f:
                 manifests.append(json.load(f)["fleets"]["prenano"]
                                  ["replicas"])
-            if pkg == "port":
-                with pytest.raises(Exception) as ei:
-                    http_json("POST", f"{ps.url}/preempt/abcd0001")
-                assert ei.value.status_code == 501
-                assert "ROADMAP A.17" in ei.value.message
+            with pytest.raises(Exception) as ei:
+                http_json("POST", f"{ps.url}/preempt/abcd0001")
+            assert ei.value.status_code == 404
+            assert "abcd0001" in ei.value.message
         finally:
             ps.stop()
     assert manifests == [0, 0]

@@ -192,7 +192,7 @@ def test_not_ported_wording_is_the_jobs():
     from kubeml_tpu_torch.train.job import CONTINUAL, reject_unported
 
     with pytest.raises(NotPortedError) as ei:
-        reject_unported(TrainOptions(continual=True), None)
+        reject_unported(TrainOptions(continual=True))
     assert ei.value.status_code == 400
     assert ei.value.message == NotPortedError("continual",
                                               CONTINUAL).message

@@ -98,15 +98,19 @@ class _Stopper:
             self.job.stop()
 
 
-def _run_both(tasks, make_model, make_dataset, dynamic=False, stop=False):
-    """Run the JAX job and the port's job; returns {key: (record, asked,
-    published MetricUpdates)}."""
+def _run_both(tasks, make_model, make_dataset, dynamic=False, stop=False,
+              round_hooks=None):
+    """Run the JAX job and the port's job (those of ``tasks``' keys, each
+    with its round hook from ``round_hooks``); returns {key: (record,
+    asked, published MetricUpdates)}."""
     from kubeml_tpu.parallel.mesh import make_mesh
     from kubeml_tpu.train import job as ref_job
     from kubeml_tpu_torch.train import job as port_job
 
     out = {}
     for key, mod in (("ref", ref_job), ("port", port_job)):
+        if key not in tasks:
+            continue
         asked, published = [], []
         stopper = _Stopper()
 
@@ -122,7 +126,8 @@ def _run_both(tasks, make_model, make_dataset, dynamic=False, stop=False):
                                      publish_metrics=publish)
         where = make_mesh(n_data=1) if key == "ref" else "cpu"
         job = mod.TrainJob(tasks[key], make_model(key), make_dataset(key),
-                           where, callbacks=callbacks)
+                           where, callbacks=callbacks,
+                           round_hook=(round_hooks or {}).get(key))
         stopper.job = job
         out[key] = (job.train(), asked, published)
     return out
@@ -292,6 +297,12 @@ REJECTED = {
     "abort_after": 1, "reassign_on_quarantine": True,
     "checkpoint_every_rounds": 2,
 }
+# the degraded mode's options (ROADMAP A.4.5, landed): the job runs them
+# (reassign_on_quarantine alone is the JAX package's 400: it needs
+# quarantine_after)
+DEGRADED = ("fault_plan", "quarantine_after", "abort_after",
+            "reassign_on_quarantine", "checkpoint_every_rounds",
+            "round_hook")
 
 
 def _port_job(job_id="p1", callbacks=None, round_hook=None, dataset=None,
@@ -327,9 +338,24 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     finished = []
     callbacks = JobCallbacks(
         on_finish=lambda jid, err: finished.append((jid, err)))
-    if option == "round_hook":
-        job = _port_job(callbacks=callbacks, round_hook=lambda rb: rb)
-    elif option == "device_cache":
+    if option in DEGRADED and option != "reassign_on_quarantine":
+        hooked = []
+        job = _port_job(callbacks=callbacks,
+                        round_hook=(lambda rb: hooked.append(rb) or rb)
+                        if option == "round_hook" else None,
+                        **({} if option == "round_hook"
+                           else {option: REJECTED[option]}))
+        record = job.train()
+        assert job.task.state == "finished" and finished == [("p1", None)]
+        epochs = len(record.data.train_loss)
+        assert epochs >= 1
+        assert record.data.quarantined_workers == [0] * epochs
+        assert record.data.reassigned_batches == [0] * epochs
+        if option == "round_hook":
+            # once per round, every round dispatched alone
+            assert [rb.round_index for rb in hooked[:2]] == [0, 1]
+        return
+    if option == "device_cache":
         # the cache is ported: 'on' refuses only an ineligible dataset,
         # with the JAX package's message
         job = _port_job(callbacks=callbacks, dataset=_host_only_blobs(),
@@ -341,6 +367,9 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     assert e.value.status_code == 400
     if option == "device_cache":
         assert "transform_train_device hook" in e.value.message
+    elif option == "reassign_on_quarantine":
+        assert "requires the kavg engine with quarantine_after > 0" \
+            in e.value.message
     else:
         assert "not ported yet" in e.value.message
     assert option.split("_")[0] in e.value.message
