@@ -280,6 +280,29 @@ Phases (any failure exits non-zero and prints no result line):
               the drain, requeue -> re-place and re-place -> done
               seconds. Each flash and merge launch count is held to the
               plan.
+ 17. cost     the cost ledger and the runtime metrics, under a fresh
+              KUBEML_TPU_HOME: (a) one epoch of phase 10's task (gpt-mini,
+              static N=2, K=4, B=8, 4 MB buckets) as a threaded job of an
+              in-process start_deployment: the PS's /cost?id=, the
+              controller's /cost/{jobId} and `kubeml cost --id J --json`
+              give one document; the kavg.train* dispatches equal the
+              rounds and their samples the real samples; merge.bucketed's
+              hbm_bytes equals comm_proxy's payload and its argument_bytes
+              the buckets per round; the flash launches equal the plan,
+              the fused merge's buckets x rounds; jit_compiles equals the
+              distinct round keys; the kubeml_cost_* lines equal the
+              document; prints the ledger's and the tracker's host us per
+              round and the job's ms per local step beside phase 10's.
+              (b) the same job in a job-server child (its MetricUpdate
+              through POST /metrics): the same document but its id.
+              (c) phase 14's 8 streams through POST /generate on 2
+              replicas, bf16 pages: /cost?id=serve:gpt-mini's decode +
+              prefill dispatches x layers equal the paged kernel's
+              launches, its tokens the tokens streamed, the fleet's totals
+              the sum over its replicas, pager.decode_kv the slab's
+              decode_bytes_per_token. (d) (a)'s
+              kubeml_device_hbm_bytes{kind="peak"} equals
+              torch.cuda.max_memory_allocated() read at the epoch's end.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -294,8 +317,10 @@ the four training kernels also carries "job_launches", its launches in
 each epoch of phase 10's job, "deployment_launches" those of phase
 12's jobs and "cli_launches" those of phase 13's; every entry carries
 "cluster_launches", its launches through phase 15's deployment (null for
-int8 pages, which phase 15 does not serve), and "degraded_launches", its
-launches in phase 16 (0 for the paged kernel); the merge's "resnet18"
+int8 pages, which phase 15 does not serve), "degraded_launches", its
+launches in phase 16 (0 for the paged kernel), and "cost_launches", its
+launches through phase 17's (a) and (c) (null for int8 pages, which phase
+17 does not serve); the merge's "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
@@ -330,6 +355,11 @@ printing phase 15's launches as one JSON line.
 
 builds the flash and merge kernels and runs phase 16 alone, printing its
 launches as one JSON line.
+
+    python3 chip_smoke.py --cost-only
+
+builds the kernels and runs phase 17 alone (without phase 10, so (a)'s
+ms per local step stands alone), printing its launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -1453,7 +1483,8 @@ def job_task(job_id, epochs, **opts):
 
 def phase_job(torch, card, seed, engine_ms):
     """gpt-mini TrainJob end to end (see the module docstring, phase 10);
-    returns the per-epoch kernel launches of the job's run."""
+    returns the per-epoch kernel launches of the job's run and its ms per
+    local step by epoch."""
     import os
     import tempfile
 
@@ -1469,14 +1500,14 @@ def phase_job(torch, card, seed, engine_ms):
                 np.zeros(JOB_TRAIN, np.int32),
                 token_windows(rng, JOB_TEST, TRAIN_T),
                 np.zeros(JOB_TEST, np.int32))
-            launches = job_run(torch, card, seed, engine_ms)
+            launches, job_ms = job_run(torch, card, seed, engine_ms)
             job_check(torch, card, seed)
         finally:
             if home is None:
                 os.environ.pop("KUBEML_TPU_HOME", None)
             else:
                 os.environ["KUBEML_TPU_HOME"] = home
-    return launches
+    return launches, job_ms
 
 
 def _epoch_counts(parallelism, eval_workers, n_train=JOB_TRAIN,
@@ -1627,7 +1658,7 @@ def job_run(torch, card, seed, engine_ms):
         f"{steps1} local steps driven by hand take {hand_s:.4f} s of engine "
         f"calls = {1e3 * hand_s / steps1:.3f} ms per local step, against "
         f"the job's {job_ms[0]:.3f} ms (epoch 1)")
-    return launches
+    return launches, job_ms
 
 
 def job_check(torch, card, seed):
@@ -4428,6 +4459,291 @@ def dg_cluster(torch, card, tmp):
     return total
 
 
+# ----------------------------------------------------------------- phase 17
+COST_CASES = ("threaded", "child")
+
+
+def phase_cost(torch, card, seed, module, job_ms=None):
+    """The cost ledger and the runtime metrics on the card (see the module
+    docstring, phase 17); returns each kernel's launches over (a) and
+    (c)."""
+    import os
+    import tempfile
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        try:
+            t0 = time.perf_counter()
+            launches, docs = cost_jobs(torch, card, seed, tmp, module,
+                                       job_ms)
+            launches["paged_attention"] = cost_serve(card, seed, module)
+            a, b = ({k: v for k, v in d.items() if k != "id"}
+                    for d in docs)
+            assert a == b, "the child's /cost differs from the threaded job's"
+            log(card, f"cost (b): the job-server child's /cost document "
+                f"(posted through POST /metrics) equals the threaded job's "
+                f"but for its id ({len(a['programs'])} programs)")
+            log(card, f"cost phase: {time.perf_counter() - t0:.3f} s; "
+                f"launches over phase 17: {launches}")
+            return launches
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+def cost_series(text, family, **labels):
+    """The value of the one series of ``family`` carrying these label
+    values in a Prometheus text (0.0 when it is absent)."""
+    for line in text.splitlines():
+        if line.startswith(family + "{") and all(
+                f'{k}="{v}"' in line for k, v in labels.items()):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def cost_host_probe():
+    """Time the ledger's and the tracker's host work in this process
+    (the engine's per-dispatch accounting, the tracker's note, the job's
+    snapshot and the watermark's sample); returns (seconds list,
+    restore)."""
+    from kubeml_tpu_torch.metrics.runtime import (HbmWatermark,
+                                                  JitCompileTracker)
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    spent = [0.0]
+    targets = ((KAvgEngine, "_account"), (JitCompileTracker, "note"),
+               (TrainJob, "_cost_snapshot"), (HbmWatermark, "sample"))
+    orig = {t: getattr(*t) for t in targets}
+
+    def wrap(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return call
+
+    for cls, name in targets:
+        setattr(cls, name, wrap(orig[(cls, name)]))
+
+    def restore():
+        for (cls, name), fn in orig.items():
+            setattr(cls, name, fn)
+    return spent, restore
+
+
+def cost_jobs(torch, card, seed, tmp, module, job_ms):
+    """(a) one epoch of phase 10's task at static N=2 as a threaded job of
+    an in-process deployment, (b) the same in a job-server child; returns
+    (a)'s launches and both /cost documents."""
+    import contextlib
+    import io
+    import os
+
+    from kubeml_tpu_torch.cli.main import main as cli_main
+    from kubeml_tpu_torch.control.client import KubemlClient
+    from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.control.httpd import http_json
+    from kubeml_tpu_torch.models.base import module_state
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.merge import merge_comm_proxy
+
+    fn_path = os.path.join(tmp, f"{CP_GPT_FN}.py")
+    with open(fn_path, "w") as f:
+        f.write(CP_FUNCTIONS[CP_GPT_FN])
+    rng = np.random.default_rng(seed + 12)        # phase 10's windows
+    arrays = (token_windows(rng, JOB_TRAIN, TRAIN_T),
+              np.zeros(JOB_TRAIN, np.int32),
+              token_windows(rng, JOB_TEST, TRAIN_T),
+              np.zeros(JOB_TEST, np.int32))
+    paths = []
+    for name, arr in zip(("xtr", "ytr", "xte", "yte"), arrays):
+        paths.append(os.path.join(tmp, f"cost_{name}.npy"))
+        np.save(paths[-1], arr)
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+    req = cp_request(CP_GPT_FN, "tokens", 1, JOB_B, JOB_LR, k=JOB_K,
+                     default_parallelism=JOB_N0, static_parallelism=True,
+                     merge_bucket_mb=MERGE_CAP_MB)
+    layers = module.layers
+    steps, rounds, evals = _epoch_counts(JOB_N0, JOB_N0, JOB_TRAIN,
+                                         JOB_TEST)
+    proxy = merge_comm_proxy(module_state(module), None, MERGE_CAP_MB)
+    docs, launches = [], None
+    for case in COST_CASES:
+        # each deployment its own home: datasets and functions are per home
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, case)
+        dep = start_deployment(device=None,
+                               standalone_jobs=case == "child")
+        try:
+            client = KubemlClient(dep.controller_url).v1()
+            client.functions().create(CP_GPT_FN, fn_path)
+            client.datasets().create("tokens", *paths)
+            seen = []
+
+            def hook(m):
+                # the epoch's end, in the job's process: the watermark's
+                # sample was the last device-side read before it
+                seen.append((m, torch.cuda.max_memory_allocated(),
+                             dep.ps.metrics.exposition(),
+                             {k: fn.launches for k, fn in kernels.items()}))
+            unhook = on_publish(dep.ps, hook)
+            spent, unprobe = cost_host_probe()
+            for fn in kernels.values():
+                fn.launches = 0          # the main path's run starts here
+            try:
+                job_id = client.networks().train(req)
+                hist = cp_wait(client, dep, job_id).data
+            finally:
+                unhook()
+                unprobe()
+            doc = http_json("GET", f"{dep.ps.url}/cost?id={job_id}")
+            assert client.cost().get(job_id) == doc, "controller /cost"
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli_main(["--controller", dep.controller_url, "cost",
+                          "--id", job_id, "--json"])
+            assert json.loads(out.getvalue()) == doc, "kubeml cost --json"
+            text = urllib_get(f"{dep.ps.url}/metrics")
+        finally:
+            dep.stop()
+        progs = doc["programs"]
+        train = {k: e for k, e in progs.items()
+                 if k.startswith("kavg.train")}
+        merge = progs["merge.bucketed"]
+        assert sum(e["dispatches"] for e in train.values()) == rounds, \
+            (train, rounds)
+        assert sum(e["samples"] for e in train.values()) == JOB_TRAIN, train
+        assert progs["kavg.eval"]["samples"] == JOB_TEST, progs["kavg.eval"]
+        assert merge["hbm_bytes"] == proxy["merge_payload_bytes"], \
+            (merge, proxy)
+        assert merge["argument_bytes"] == proxy["buckets_per_round"] == \
+            JOB_BUCKETS, merge
+        for program, e in progs.items():
+            for family, field_ in (
+                    ("kubeml_cost_dispatches_total", "dispatches"),
+                    ("kubeml_cost_flops_total", "flops_total"),
+                    ("kubeml_cost_hbm_bytes_total", "hbm_bytes_total")):
+                got = cost_series(text, family, program=program)
+                assert got == e[field_], (program, family, got, e[field_])
+        keys = sum(1 + e["recaptures"] for e in train.values())
+        docs.append(doc)
+        if case == "child":
+            log(card, f"cost (b) child job {job_id}: /cost, the "
+                f"controller's /cost/{{jobId}} and kubeml cost --json give "
+                f"one document; kavg.train* dispatches {rounds}, samples "
+                f"{JOB_TRAIN}; the kubeml_cost_* lines equal it; epoch "
+                f"{hist.epoch_duration[0]:.4f} s in the child")
+            continue
+        (m, peak, expo, counts), = seen
+        launches = counts
+        want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+                "dQ": layers * steps,
+                "fused_merge": merge["argument_bytes"] * rounds}
+        assert counts == want, (counts, want)
+        assert m.jit_compiles == keys == 1, (m.jit_compiles, keys)
+        assert cost_series(expo, "kubeml_jit_compiles_total",
+                           jobid=job_id) == keys
+        # (d): the job's sampled peak is the allocator's, read here
+        got_peak = cost_series(expo, "kubeml_device_hbm_bytes",
+                               jobid=job_id, kind="peak")
+        assert m.hbm_peak_bytes == got_peak == peak, \
+            (m.hbm_peak_bytes, got_peak, peak)
+        sec = hist.epoch_duration[0]
+        att = doc["attributed"]["train"]
+        phase10 = (f"{job_ms[0]:.3f} ms in phase 10's epoch 1 (the same "
+                   f"task, N={JOB_N0})" if job_ms else "phase 10 not run")
+        log(card, f"cost (a) threaded job {job_id}: {steps} local steps in "
+            f"{rounds} rounds, epoch {sec:.4f} s = {1e3 * sec / steps:.3f} "
+            f"ms per local step against {phase10}; the ledger and the "
+            f"tracker's host work {1e6 * spent[0]:.1f} us over the epoch = "
+            f"{1e6 * spent[0] / rounds:.2f} us per round")
+        log(card, f"cost (a): /cost, /cost/{{jobId}} and kubeml cost --json "
+            f"give one document: kavg.train* dispatches {rounds} = the "
+            f"rounds, samples {JOB_TRAIN}; merge.bucketed {merge['hbm_bytes']:.0f}"
+            f" B = comm_proxy, {merge['argument_bytes']} buckets a round; "
+            f"launches {counts} = {layers} layers x {steps} steps (+ {evals} "
+            f"eval slots), {merge['argument_bytes']} x {rounds} rounds; "
+            f"jit_compiles {m.jit_compiles} = distinct round keys; "
+            f"{att['flops_per_sample']:.6g} flops/sample, "
+            f"{att['bytes_per_sample']:.6g} bytes/sample (closed form); "
+            f"the kubeml_cost_* lines equal the document")
+        log(card, f"cost (d): kubeml_device_hbm_bytes{{kind=peak}} "
+            f"{got_peak:.0f} = torch.cuda.max_memory_allocated() {peak} at "
+            f"the epoch's end ({peak / 2**20:.1f} MiB); in use "
+            f"{m.hbm_in_use_bytes}")
+    return launches, docs
+
+
+def cost_serve(card, seed, module):
+    """(c) phase 14's batch (its 7 prompts, then the shared prompt again
+    once its first copy has a token) as 8 concurrent POST /generate
+    streams on a 2-replica fleet, bf16 pages; returns the paged kernel's
+    launches."""
+    from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.control.httpd import http_json
+    from kubeml_tpu_torch.metrics.ledger import merge_cost_snapshots
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    save_mini(seed)
+    dep = start_deployment(serve_slots=8, serve_prefill_chunk=16,
+                           serve_kv_dtype="f32", serve_prefix_cache=True,
+                           serve_replicas_min=2, serve_replicas_max=2)
+    try:
+        url = dep.ps.url
+        paged_attention.launches = 0      # the main path's run starts here
+        streams = [GenStream(url, gen_body(p, NEW_TOKENS)).start()
+                   for p in prompts]
+        streams[prompts.index(shared)].first.wait(300)
+        streams.append(GenStream(url, gen_body(shared, NEW_TOKENS)).start())
+        for st in streams:
+            st.join()
+        launches = paged_attention.launches     # ... and ends here
+        assert all(st.status == 200 for st in streams), \
+            [(st.status, st.last) for st in streams]
+        doc = http_json("GET", f"{url}/cost?id=serve:{PS_MODEL}")
+        engines = dep.ps._serve[PS_MODEL][1].engines()
+        per = [eng.ledger.snapshot() for _, eng in engines]
+        kv = [eng.slab.decode_bytes_per_token for _, eng in engines]
+    finally:
+        dep.stop()
+    progs = doc["programs"]
+    dec, pre = progs["serve.decode"], progs["serve.prefill"]
+    dispatches = dec["dispatches"] + pre["dispatches"]
+    assert module.layers * dispatches == launches, (launches, dispatches)
+    tokens = sum(len(st.tokens) for st in streams)
+    assert dec["tokens"] == tokens == len(streams) * NEW_TOKENS, \
+        (dec["tokens"], tokens)
+    assert len(per) == 2, len(per)
+    merged = merge_cost_snapshots(per)
+    for name, e in progs.items():
+        for k in ("dispatches", "tokens", "samples", "flops_total",
+                  "hbm_bytes_total"):
+            assert e[k] == sum(p[name][k] for p in per if name in p) \
+                == merged[name][k], (name, k)
+    for b, snap in zip(kv, per):
+        assert snap["pager.decode_kv"]["hbm_bytes"] == float(b), (snap, b)
+    att = doc["attributed"]["serve"]
+    log(card, f"cost (c): {len(streams)} concurrent POST /generate on 2 "
+        f"replicas, bf16 pages: /cost?id=serve:{PS_MODEL} decode "
+        f"{dec['dispatches']} + prefill {pre['dispatches']} dispatches, x "
+        f"{module.layers} layers = {launches} paged-kernel launches; tokens "
+        f"{tokens}; the fleet's totals = the sum over its replicas "
+        f"({[p['serve.decode']['dispatches'] for p in per]} decode "
+        f"dispatches); pager.decode_kv {progs['pager.decode_kv']['hbm_bytes']:.0f}"
+        f" B = the slab's decode_bytes_per_token; "
+        f"{att['flops_per_token']:.6g} flops/token, "
+        f"{att['bytes_per_token']:.6g} bytes/token (closed form)")
+    return launches
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -4506,7 +4822,7 @@ def run(torch, seed) -> list:
     phase_merge_check(torch, card, seed)
     phase_merge_trace(torch, card, seed, engines)
     del engines
-    job_launches = phase_job(torch, card, seed, engine_ms)
+    job_launches, job_ms = phase_job(torch, card, seed, engine_ms)
     vision_launches = phase_vision(torch, card, seed)
     vision_merge = resnet18_merge_row(torch, card, seed, vision_launches)
     cp_resnet, cp_gpt, cli_ref = phase_control(torch, card, seed)
@@ -4515,6 +4831,7 @@ def run(torch, seed) -> list:
     ps_launches = phase_ps_serve(torch, card, seed, module, direct)
     cluster = phase_cluster(torch, card, seed, module, direct)
     degraded = phase_degraded(torch, card, seed)
+    cost = phase_cost(torch, card, seed, module, job_ms)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -4526,6 +4843,9 @@ def run(torch, seed) -> list:
         # phase 15 serves with bf16 pages only
         "cluster_launches": cluster["paged"] if pages == "bf16" else None,
         "degraded_launches": 0,      # phase 16 serves nothing
+        # phase 17 serves with bf16 pages only
+        "cost_launches": cost["paged_attention"] if pages == "bf16"
+        else None,
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -4543,6 +4863,7 @@ def run(torch, seed) -> list:
         "cli_launches": [e[kernel] for e in cli["gpt_launches"]],
         "cluster_launches": cluster[kernel],
         "degraded_launches": degraded[kernel],
+        "cost_launches": cost[kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -4557,6 +4878,7 @@ def run(torch, seed) -> list:
                     "resnet18": cli["launches"]},
                 cluster_launches=cluster["fused_merge"],
                 degraded_launches=degraded["fused_merge"],
+                cost_launches=cost["fused_merge"],
                 resnet18=vision_merge)], card
 
 
@@ -4589,6 +4911,12 @@ def main(argv=None) -> int:
                          "16 alone (degraded-mode training and the "
                          "preemption of training jobs), printing its "
                          "launches as one JSON line and no result line")
+    ap.add_argument("--cost-only", action="store_true",
+                    help="build the kernels and run phase 17 alone (the "
+                         "cost ledger and the runtime metrics through a "
+                         "threaded job, a job-server child and a 2-replica "
+                         "fleet), printing its launches as one JSON line "
+                         "and no result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -4644,6 +4972,13 @@ def main(argv=None) -> int:
             card = start(torch, ["flash_attention", "fused_merge"])
             print(json.dumps({"card": card, "degraded": phase_degraded(
                 torch, card, args.seed)}))
+            return 0
+        if args.cost_only:
+            card = start(torch)
+            module = build_gpt(torch, PS_MODEL, args.seed, torch.bfloat16,
+                               "cuda")
+            print(json.dumps({"card": card, "cost": phase_cost(
+                torch, card, args.seed, module)}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

@@ -53,12 +53,11 @@ from kubeml_tpu_torch.api.const import MAX_BATCH_SIZE, kubeml_home
 from kubeml_tpu_torch.api.errors import KubeMLException
 from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
 from kubeml_tpu_torch.control.client import KubemlClient
+from kubeml_tpu_torch.metrics.ledger import attributed_from_snapshot
 
 # the JAX package's multi-host bring-up; the port's lanes over several
 # cards come with this ROADMAP item
 LANES = "lanes over NCCL, ROADMAP A.7"
-# what the cost pane and `kubeml cost` need
-COST_LEDGER = "the cost ledger, ROADMAP A.13"
 
 
 def _client(args) -> KubemlClient:
@@ -376,11 +375,11 @@ def _fmt_si(n) -> str:
 
 def cmd_cost(args):
     """Per-program analytic cost table (GET /cost/{jobId}): the
-    deterministic FLOPs / HBM-byte attribution the cost ledger captured
-    at compile time (XLA cost_analysis or the closed-form fallback),
-    with the roofline arithmetic intensity (flops per HBM byte) per
-    program, plus the per-plane amortized cost — per sample trained,
-    per token generated."""
+    deterministic FLOPs / HBM-byte attribution of the cost ledger (the
+    port's closed-form records; a JAX deployment's may come from XLA's
+    cost analysis), with the roofline arithmetic intensity (flops per
+    HBM byte) per program, plus the per-plane amortized cost — per
+    sample trained, per token generated."""
     doc = _client(args).v1().cost().get(args.id)
     if args.json:
         print(json.dumps(doc, indent=2))
@@ -608,11 +607,20 @@ def _render_top(doc: dict) -> str:
     cost_progs = dict(latest.get("cost_programs") or {})
     cost_progs.update(latest.get("serve_cost_programs") or {})
     if cost_progs:
-        # a port job publishes none; a JAX deployment's snapshot needs
-        # the ledger's attribution, which the port does not carry yet
-        lines.append(f"cost: {len(cost_progs)} program(s); the "
-                     f"attribution is not ported yet to kubeml_tpu_torch "
-                     f"(comes with {COST_LEDGER})")
+        att = attributed_from_snapshot(cost_progs)
+        parts = []
+        tr = att.get("train") or {}
+        if tr.get("samples"):
+            parts.append(
+                f"train {_fmt_si(tr.get('flops_per_sample'))} flops/sample "
+                f"{_fmt_bytes(tr.get('bytes_per_sample'))}/sample")
+        sv = att.get("serve") or {}
+        if sv.get("tokens"):
+            parts.append(
+                f"serve {_fmt_si(sv.get('flops_per_token'))} flops/tok "
+                f"{_fmt_bytes(sv.get('bytes_per_token'))}/tok")
+        if parts:
+            lines.append("cost: " + " · ".join(parts))
     worker_losses = latest.get("worker_losses") or []
     grad_norms = latest.get("grad_norms") or []
     update_ratios = latest.get("update_ratios") or []

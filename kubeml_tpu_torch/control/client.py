@@ -6,9 +6,8 @@ Parity with the Go client SDK (ml/pkg/controller/client/v1/v1.go:5-38):
 / Tasks resource clients with the same operations (Train/Infer,
 Create/Delete/List, Get/Delete/List/Prune, List/Stop), and the traces,
 health and cost clients. The wire is the JAX package's, so either
-package's client drives either package's deployment; a port deployment
-answers the cost client with the not-ported envelope (the cost ledger,
-ROADMAP A.13).
+package's client drives either package's deployment, the cost client
+included (a job's or a serving model's cost-ledger attribution).
 """
 
 from __future__ import annotations

@@ -17,13 +17,14 @@ controller.py; parity with ml/pkg/controller/api.go:16-42):
     GET|POST|DELETE /functions[/{name}] -> the function registry
     GET    /trace/{jobId}      -> PS /trace?id= (the merged job timeline)
     GET    /health/{jobId}     -> PS /health?id= (the job's health verdict)
+    GET    /cost/{jobId}       -> PS /cost?id= (the job's or serve:<model>'s
+                                  cost-ledger attribution)
     GET    /cluster            -> scheduler /cluster (the allocator's
                                   snapshot; 503 without cluster mode)
     GET    /health             (the gateway's own liveness)
 
-Refused with the error envelope until their modules are ported: POST
-/dataset/{name}/append (the continual mode) and GET /cost/{jobId} (the
-cost ledger, ROADMAP A.13).
+Refused with the error envelope until its module is ported: POST
+/dataset/{name}/append (the continual mode, ROADMAP A.4.5).
 """
 
 from __future__ import annotations
@@ -83,8 +84,7 @@ class Controller(JsonService):
         # verdict gets its own path segment
         self.route("GET", "/health/{jobId}", self._h_job_health)
         self.route("GET", "/cluster", self._h_cluster)
-        self.route("GET", "/cost/{jobId}", not_ported(
-            "GET /cost/{jobId}", "the cost ledger, ROADMAP A.13"))
+        self.route("GET", "/cost/{jobId}", self._h_cost)
 
     def _need(self, url, what):
         if url is None:
@@ -149,6 +149,15 @@ class Controller(JsonService):
         return http_json(
             "GET",
             f"{self._need(self.ps_url, 'PS')}/trace"
+            f"?id={req.params['jobId']}")
+
+    def _h_cost(self, req: Request):
+        """Per-program cost attribution, proxied to the PS (which holds
+        the latest ledger snapshots) so ``kubeml cost --id`` needs only
+        the gateway URL."""
+        return http_json(
+            "GET",
+            f"{self._need(self.ps_url, 'PS')}/cost"
             f"?id={req.params['jobId']}")
 
     def _h_job_health(self, req: Request):

@@ -90,8 +90,11 @@ pid), drops the dead ones for the scheduler's sweep to requeue, and
 rebuilds each fleet at its recorded width. A re-grant's fencing epoch
 reaches a child through /update/{jobId}.
 
-Not ported yet, answering with the error envelope: /cost (the cost
-ledger, ROADMAP A.13).
+Cost (``GET /cost?id=``): a training job's latest cost-ledger snapshot,
+stashed from every MetricUpdate (POST /metrics from a job-server child,
+or a threaded job's publish), or a serving model's (``serve:<model>``)
+read live from its fleet's merged snapshot; each with its per-plane
+attribution (metrics/ledger.py).
 """
 
 from __future__ import annotations
@@ -120,9 +123,10 @@ from kubeml_tpu_torch.api.errors import (InvalidArgsError, JobNotFoundError,
 from kubeml_tpu_torch.api.types import MetricUpdate, TrainTask
 from kubeml_tpu_torch.control.health import HealthEvaluator
 from kubeml_tpu_torch.control.httpd import (JsonService, Raw, Request,
-                                            Stream, http_json, not_ported)
+                                            Stream, http_json)
 from kubeml_tpu_torch.control.journal import atomic_write_json, read_json
 from kubeml_tpu_torch.data.registry import DatasetRegistry
+from kubeml_tpu_torch.metrics.ledger import attributed_from_snapshot
 from kubeml_tpu_torch.metrics.prom import MetricsRegistry
 from kubeml_tpu_torch.models.base import InferenceInputError, KubeDataset
 from kubeml_tpu_torch.train.checkpoint import (checkpoint_saved_at,
@@ -451,6 +455,11 @@ class ParameterServer(JsonService):
             serve_hedge_after_s, serve_slo_ttft_ms, serve_slo_tpot_ms,
             serve_slo_target)
         self._serve: Dict[str, tuple] = {}   # model_id -> (stamp, fleet)
+        # latest cost-ledger snapshot per training job (pushed
+        # cumulatively with every MetricUpdate; a serving model's cost is
+        # read live from its fleet). Whole-value assignment per job id,
+        # reads tolerate staleness
+        self._cost: Dict[str, dict] = {}
         self._serve_lock = threading.Lock()
         # durable control plane (opt-in): standalone-job and fleet
         # manifests mirrored under state_dir so recover() can re-adopt
@@ -495,8 +504,7 @@ class ParameterServer(JsonService):
         self.route("POST", "/cluster", self._h_cluster)
         self.route("POST", "/preempt/{jobId}", self._h_preempt)
         self.route("POST", "/preempted/{jobId}", self._h_preempted)
-        self.route("GET", "/cost", not_ported(
-            "GET /cost", "the cost ledger, ROADMAP A.13"))
+        self.route("GET", "/cost", self._h_cost)
         # the liveness reaper: a standalone child silent for interval x
         # miss budget seconds is declared wedged and killed into the
         # checkpoint restart; 0 turns it off
@@ -603,6 +611,8 @@ class ParameterServer(JsonService):
     def _h_metrics(self, req: Request):
         m = MetricUpdate.from_dict(req.body)
         self.metrics.update_job(m)
+        if m.cost_programs:
+            self._cost[m.job_id] = m.cost_programs
         self._observe_health(m)
         return {"ok": True}
 
@@ -794,6 +804,30 @@ class ParameterServer(JsonService):
             return merge_job_trace(job_id)
         except FileNotFoundError:
             raise JobNotFoundError(f"{job_id} (no trace recorded)")
+
+    def _h_cost(self, req: Request):
+        """Per-program analytic cost of a job (?id=<jobId>) or a serving
+        model (?id=serve:<model>): the ledger snapshot (flat per-program
+        record + attributed totals) and its per-plane attribution
+        (flops/bytes per sample and per token). A training job serves its
+        latest MetricUpdate's snapshot; a serving model its fleet's live
+        merged snapshot."""
+        job_id = req.query.get("id", "")
+        if not job_id:
+            raise InvalidArgsError("id query parameter required")
+        if job_id.startswith("serve:"):
+            with self._serve_lock:
+                cur = self._serve.get(job_id[len("serve:"):])
+            if cur is None:
+                raise JobNotFoundError(
+                    f"{job_id} (no serving service running)")
+            programs = cur[1].snapshot().get("serve_cost_programs") or {}
+        else:
+            programs = self._cost.get(job_id)
+            if programs is None:
+                raise JobNotFoundError(f"{job_id} (no cost recorded)")
+        return {"id": job_id, "programs": programs,
+                "attributed": attributed_from_snapshot(programs)}
 
     def _h_infer(self, req: Request):
         model_id = req.body.get("model_id")
@@ -1607,8 +1641,11 @@ class ParameterServer(JsonService):
         return rec.next_parallelism
 
     def _publish_metrics(self, m: MetricUpdate):
-        # in-process twin of POST /metrics/{jobId} for threaded jobs
+        # in-process twin of POST /metrics/{jobId} for threaded jobs: it
+        # stashes the cost snapshot for /cost as well
         self.metrics.update_job(m)
+        if m.cost_programs:
+            self._cost[m.job_id] = m.cost_programs
         self._observe_health(m)
 
     def _finish(self, job_id: str, error: Optional[str] = None):

@@ -645,8 +645,9 @@ class MetricsRegistry:
             "kubeml_infer_cache_misses_total",
             "Inference-cache lookups that deserialized a checkpoint",
             "cache")
-        # analytic cost-ledger counters, advanced from a job's
-        # cost_programs (empty until the ledger is ported, ROADMAP A.13)
+        # analytic cost-ledger counters (metrics/ledger.py), advanced by
+        # delta from a job's cost_programs and a fleet's
+        # serve_cost_programs
         self.cost_flops_total = Counter(
             "kubeml_cost_flops_total",
             "Analytic-ledger FLOPs dispatched, by compiled program and "
@@ -1021,6 +1022,7 @@ class MetricsRegistry:
             for replica, n in (snap.get(field) or {}).items():
                 if n > 0:
                     counter.inc((model, str(replica)), float(n))
+        self.update_cost(f"serve:{model}", snap.get("serve_cost_programs"))
 
     def clear_serve(self, model: str) -> None:
         for g in (self.serve_active_slots, self.serve_queue_depth,

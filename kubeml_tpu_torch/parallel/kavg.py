@@ -51,7 +51,20 @@ device-resident dataset cache (``data/device_cache.py``): the dispatch
 carries [W, S, B] gather indices, the round gathers the samples on the
 device, applies the dataset's device transform, and runs the same round
 body, so an index-fed round equals the host-staged round of the same
-samples. Each step's dropout generator is a Philox
+samples.
+
+Cost ledger (metrics/ledger.py): ``self.ledger`` records each round
+program (``kavg.train``, ``kavg.train_multi``, ``kavg.train_indexed``,
+``kavg.train_multi_indexed``, ``kavg.eval``) and the merge's wire plan
+(``merge.<strategy>``). The port builds no compiled program, so a
+dispatch counts as "compiled" exactly when the reference's program
+cache would miss: the engine keeps the reference's cache keys (worker
+count per lane, step and batch shape, batch keys or the device cache's
+signature, ``collect_stats``). At such a dispatch the closed-form
+record is installed (``recaptures`` counts a program's later ones), and
+every dispatch attributes its real samples; ``RoundStats.compiled``
+carries the flag to the job's compile tracker. Each step's dropout
+generator is a Philox
 ``torch.Generator`` seeded from that step's (worker, step) key data
 (``rngs [W, S, 2]`` uint32); jax.random's bits cannot be reproduced.
 """
@@ -63,6 +76,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from kubeml_tpu_torch.metrics.ledger import CostLedger
 from kubeml_tpu_torch.models.base import module_state
 from kubeml_tpu_torch.parallel import merge as merge_lib
 from kubeml_tpu_torch.parallel.merge import _lane_sum
@@ -93,7 +107,12 @@ class RoundStats:
                  sample_count: np.ndarray, contributors: float,
                  dropped_device: torch.Tensor,
                  stat_device: Optional[torch.Tensor] = None,
-                 spread_device: Optional[torch.Tensor] = None):
+                 spread_device: Optional[torch.Tensor] = None,
+                 compiled: bool = False):
+        # True when the reference would have built a new program for
+        # this dispatch (a new round key): the job's compile tracker
+        # counts these
+        self.compiled = compiled
         self.loss_sum_device = loss_sum_device    # [W] masked loss sums
         self.dropped_device = dropped_device      # [W] 1 = non-finite drop
         self.step_count = step_count              # [W] real local steps
@@ -198,11 +217,25 @@ class KAvgEngine:
         # per-lane EF residuals: flat [D * L] f32 tensors by bucket name,
         # lane-major; None until the first compressed round
         self._ef_state: Optional[State] = None
+        # the reference's program-cache keys: a dispatch whose key is new
+        # is the one the reference compiles (and captures cost) at
+        self._train_keys: set = set()
+        self._eval_keys: set = set()
+        # analytic cost ledger (metrics/ledger.py): one record per round
+        # program, dispatches attribute samples, and the merge wire plan
+        # is registered as an exact analytic kernel record
+        self.ledger = CostLedger()
 
     @property
     def merge_strategy(self) -> str:
         """Registered name of the active merge strategy."""
         return self._merge.name
+
+    @property
+    def programs_compiled(self) -> int:
+        """Distinct train-round programs the reference would have built
+        for this engine's dispatches."""
+        return len(self._train_keys)
 
     def merge_comm_proxy(self, variables: State) -> Dict[str, int]:
         """Deterministic per-round wire numbers of this engine's merge
@@ -210,6 +243,34 @@ class KAvgEngine:
         out = self._merge.comm_proxy(variables)
         out["strategy"] = self._merge.name
         return out
+
+    def _cost_fallback(self, variables: State, samples: int) -> dict:
+        """The reference's closed-form per-dispatch record: ~6 flops per
+        weight per sample (dense forward + backward + update) over the
+        variables read and written plus the merge wire payload."""
+        nbytes = sum(int(t.numel()) * int(t.element_size())
+                     for t in variables.values())
+        payload = self._merge.comm_proxy(variables)["merge_payload_bytes"]
+        return {"flops": 6.0 * (nbytes / 4.0) * max(samples, 1),
+                "hbm_bytes": float(3 * nbytes + payload)}
+
+    def _account(self, program: str, key: tuple, variables: State,
+                 sample_mask) -> bool:
+        """The ledger's side of one train dispatch, before it runs (as
+        the reference's): on a new key install the program's record and
+        the merge's; then attribute the dispatch's real samples. Returns
+        whether the reference would have compiled."""
+        samples = int(np.asarray(sample_mask).sum())
+        compiled = key not in self._train_keys
+        if compiled:
+            self._train_keys.add(key)
+            self.ledger.capture(
+                program, "train", None,
+                fallback=self._cost_fallback(variables, samples))
+            merge_lib.register_strategy_cost(self.ledger, self._merge,
+                                             variables)
+        self.ledger.note_dispatch(program, samples=samples)
+        return compiled
 
     def reset_merge_residuals(self) -> None:
         """Drop the EF residual state (membership or shape changes, or a
@@ -349,11 +410,10 @@ class KAvgEngine:
 
     def _single(self, variables: State, batch_fn: Callable[[], State],
                 sample_mask, step_mask, worker_mask, rngs, lr: float,
-                epoch: int) -> Tuple[State, RoundStats]:
+                epoch: int, compiled: bool) -> Tuple[State, RoundStats]:
         """One round over the device batch ``batch_fn()`` gives."""
         sample_mask, step_mask, worker_mask, rngs = self._masks(
             sample_mask, step_mask, worker_mask, rngs)
-        self._workers_per_lane(step_mask.shape[0])
         avg, loss_sums, dropped, stats, spread = self._round(
             variables, batch_fn(),
             torch.as_tensor(sample_mask, device=self.device), step_mask,
@@ -363,15 +423,15 @@ class KAvgEngine:
             step_count=step_mask.sum(axis=1),
             sample_count=sample_mask.sum(axis=(1, 2)),
             contributors=float(worker_mask.sum()),
-            dropped_device=dropped, stat_device=stats, spread_device=spread)
+            dropped_device=dropped, stat_device=stats, spread_device=spread,
+            compiled=compiled)
 
     def _multi(self, variables: State, batch_fn: Callable[[int], State],
                sample_mask, step_mask, worker_mask, rngs, lr: float,
-               epoch: int) -> Tuple[State, RoundStats]:
+               epoch: int, compiled: bool) -> Tuple[State, RoundStats]:
         """R rounds, round r over the device batch ``batch_fn(r)``."""
         sample_mask, step_mask, worker_mask, rngs = self._masks(
             sample_mask, step_mask, worker_mask, rngs)
-        self._workers_per_lane(step_mask.shape[1])
         smasks = torch.as_tensor(sample_mask, device=self.device)
         outs = []
         for r in range(step_mask.shape[0]):
@@ -388,7 +448,8 @@ class KAvgEngine:
             contributors=float(worker_mask.sum()),
             dropped_device=torch.stack(dropped),
             stat_device=torch.stack(stats) if collect else None,
-            spread_device=torch.stack(spread) if collect else None)
+            spread_device=torch.stack(spread) if collect else None,
+            compiled=compiled)
 
     def train_round(self, variables: State, batch: Dict,
                     sample_mask: np.ndarray, step_mask: np.ndarray,
@@ -398,9 +459,14 @@ class KAvgEngine:
         [W, S, B]; step_mask [W, S]; worker_mask [W]; rngs [W, S, 2]
         uint32 key data (all host arrays). W must be a multiple of
         n_lanes."""
+        w_per_lane = self._workers_per_lane(int(np.shape(step_mask)[0]))
+        tree = tuple(sorted(batch))
+        key = (w_per_lane, tuple(np.shape(batch[tree[0]])[1:3]), tree,
+               self.collect_stats)
+        compiled = self._account("kavg.train", key, variables, sample_mask)
         return self._single(variables, lambda: self._to_device(batch),
                             sample_mask, step_mask, worker_mask, rngs, lr,
-                            epoch)
+                            epoch, compiled)
 
     def train_rounds(self, variables: State, batch: Dict,
                      sample_mask: np.ndarray, step_mask: np.ndarray,
@@ -413,11 +479,19 @@ class KAvgEngine:
         rounds exactly as in R train_round calls, EF residuals carried.
         Stats come back per round: loss_sum_device [R, W],
         step_count/sample_count [R, W]."""
+        R, W = np.shape(step_mask)[:2]
+        w_per_lane = self._workers_per_lane(int(W))
+        tree = tuple(sorted(batch))
+        key = ("multi", int(R), w_per_lane,
+               tuple(np.shape(batch[tree[0]])[2:4]), tree,
+               self.collect_stats)
+        compiled = self._account("kavg.train_multi", key, variables,
+                                 sample_mask)
         data = self._to_device(batch)
         return self._multi(variables,
                            lambda r: {k: v[r] for k, v in data.items()},
                            sample_mask, step_mask, worker_mask, rngs, lr,
-                           epoch)
+                           epoch, compiled)
 
     def _gather(self, cache, idx) -> State:
         """A round's batch from the device cache: the [W, S, B] gather
@@ -450,9 +524,14 @@ class KAvgEngine:
         ``idx`` [W, S, B] int32 gather indices (lane-local for a sharded
         cache, global for a replicated one) in place of the batch
         leaves."""
+        w_per_lane = self._workers_per_lane(int(np.shape(step_mask)[0]))
+        key = ("idx", w_per_lane, tuple(np.shape(idx)[1:3]),
+               cache.signature, self.collect_stats)
+        compiled = self._account("kavg.train_indexed", key, variables,
+                                 sample_mask)
         return self._single(variables, lambda: self._gather(cache, idx),
                             sample_mask, step_mask, worker_mask, rngs, lr,
-                            epoch)
+                            epoch, compiled)
 
     def train_rounds_indexed(self, variables: State, cache,
                              idx: np.ndarray, sample_mask: np.ndarray,
@@ -462,9 +541,15 @@ class KAvgEngine:
         """R index-fed sync rounds: train_rounds with ``idx``
         [R, W, S, B] in place of the batch leaves; each round gathers its
         own samples."""
+        R, W = np.shape(step_mask)[:2]
+        w_per_lane = self._workers_per_lane(int(W))
+        key = ("idx-multi", int(R), w_per_lane, tuple(np.shape(idx)[2:4]),
+               cache.signature, self.collect_stats)
+        compiled = self._account("kavg.train_multi_indexed", key, variables,
+                                 sample_mask)
         return self._multi(variables, lambda r: self._gather(cache, idx[r]),
                            sample_mask, step_mask, worker_mask, rngs, lr,
-                           epoch)
+                           epoch, compiled)
 
     @torch.no_grad()
     def eval_round(self, variables: State, batch: Dict,
@@ -473,8 +558,19 @@ class KAvgEngine:
                    ) -> Dict[str, float]:
         """Datapoint-weighted evaluation over every worker's batches:
         metric = sum(per-example value * sample mask) / n."""
+        samples = int(np.asarray(sample_mask).sum())
         sample_mask = np.asarray(sample_mask, np.float32)
         W, S = sample_mask.shape[:2]
+        tree = tuple(sorted(batch))
+        key = (self._workers_per_lane(W),
+               tuple(np.shape(batch[tree[0]])[1:3]), tuple(metric_names),
+               tree)
+        if key not in self._eval_keys:
+            self._eval_keys.add(key)
+            self.ledger.capture(
+                "kavg.eval", "train", None,
+                fallback=self._cost_fallback(variables, samples))
+        self.ledger.note_dispatch("kavg.eval", samples=samples)
         self._load(variables)
         data = self._to_device(batch)
         smasks = torch.as_tensor(sample_mask, device=self.device)

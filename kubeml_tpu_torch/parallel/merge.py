@@ -36,9 +36,10 @@ reciprocal, which is not the reference's IEEE division. The one exception
 is the reference's own: XLA turns int8's ``amax / 127.0`` into a multiply
 (``EFInt8Merge``).
 
-Not ported: ``use_ring``/``ring_psum`` (one card has no ring; they come with
-lanes over NCCL) and ``register_strategy_cost``/``register_merge_cost`` (the
-cost ledger).
+``register_strategy_cost``/``register_merge_cost`` put a strategy's wire
+plan into the cost ledger (metrics/ledger.py) as the exact
+``merge.<strategy>`` record. Not ported: ``use_ring``/``ring_psum`` (one
+card has no ring; they come with lanes over NCCL).
 """
 
 from __future__ import annotations
@@ -448,3 +449,37 @@ def merge_comm_proxy(variables: State,
     out = strategy.comm_proxy(variables)
     out["strategy"] = strategy.name
     return out
+
+
+def register_strategy_cost(ledger, strategy: "MergeStrategy",
+                           variables: State) -> Dict[str, int]:
+    """Register a strategy's wire plan as an analytic cost-ledger
+    record (``merge.<strategy>``, kernel plane) built from the same
+    comm_proxy numbers, then reconcile the two exactly
+    (metrics/ledger.py). Returns the proxy dict so callers keep the
+    bucket/collective counts."""
+    proxy = strategy.comm_proxy(variables)
+    proxy["strategy"] = strategy.name
+    program = f"merge.{strategy.name}"
+    ledger.capture_analytic(
+        program, "kernel",
+        hbm_bytes=float(proxy["merge_payload_bytes"]),
+        # the wire reads and writes the payload once per round; the
+        # bucket count (fused merge launches per round) rides as the
+        # argument-side descriptor so budgets pin it too
+        output_bytes=int(proxy["merge_payload_bytes"]),
+        argument_bytes=int(proxy["buckets_per_round"]))
+    ledger.reconcile(program, "hbm_bytes",
+                     proxy["merge_payload_bytes"], tolerance=0.0)
+    return proxy
+
+
+def register_merge_cost(ledger, variables: State,
+                        merge_dtype: Optional[torch.dtype] = None,
+                        bucket_mb: float = 0.0, compress: str = "none"
+                        ) -> Dict[str, int]:
+    """Knob-level twin of register_strategy_cost for callers that hold
+    engine knobs rather than a strategy."""
+    strategy = make_strategy(merge_dtype=merge_dtype, bucket_mb=bucket_mb,
+                             compress=compress)
+    return register_strategy_cost(ledger, strategy, variables)

@@ -29,6 +29,15 @@ adds a generation; every later attach pins to it while attached streams
 finish on theirs, and a superseded generation (its params and its
 prefix-cache partition) retires when its last slot releases.
 
+Cost ledger (metrics/ledger.py): ``self.ledger`` holds the exact
+``pager.decode_kv`` record (the slab's ``decode_bytes_per_token``,
+reconciled at tol=0) and, at each program's first dispatch, the
+reference's closed-form ``serve.decode``/``serve.prefill`` records;
+every dispatch is noted (decode with the tokens it emitted), and
+``compile_tracker`` counts each program's first dispatch as its compile.
+The reference's XLA-capture records and their reconcile against the KV
+proxy have no counterpart here (ROADMAP C.8).
+
 Determinism contract: slot math is row-independent, writable pages of
 different requests are disjoint, the attention softmax always runs over
 the full fixed context with invalid positions masked, and sampling keys
@@ -48,8 +57,11 @@ import numpy as np
 import torch
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
+from kubeml_tpu_torch.metrics.ledger import CostLedger
+from kubeml_tpu_torch.metrics.runtime import JitCompileTracker
 from kubeml_tpu_torch.models.base import PAD_ID, InferenceInputError
-from kubeml_tpu_torch.models.gpt import (build_paged_decode_step,
+from kubeml_tpu_torch.models.gpt import (_param_tree,
+                                         build_paged_decode_step,
                                          build_paged_prefill_step,
                                          compute_params)
 from kubeml_tpu_torch.ops.paged_attention import (kernel_geometry_refusal,
@@ -62,6 +74,16 @@ from kubeml_tpu_torch.serve.slots import GenerateRequest
 logger = logging.getLogger("kubeml_tpu_torch.serve.engine")
 
 ATTN_IMPLS = ("auto", "kernel", "plain")
+
+
+def _state_bytes(module, state_dict: Optional[dict]) -> int:
+    """Bytes of the parameters the serving programs read, as loaded (the
+    module's own state by default)."""
+    sd = module.state_dict() if state_dict is None else state_dict
+    names: List[str] = []
+    _param_tree(module, lambda name, dtype: names.append(name))
+    return sum(int(sd[n].numel()) * int(sd[n].element_size())
+               for n in names)
 
 
 class _Slot:
@@ -175,10 +197,26 @@ class DecodeEngine:
         self.weight_generation = 1
         self._params_by_gen: Dict[int, dict] = {
             1: compute_params(module, variables)}
+        # bytes of each generation's parameters as loaded (the weights
+        # the reference's cost fallback sums; the programs' own copy
+        # casts the matmul weights to the compute dtype)
+        self._param_bytes_by_gen: Dict[int, int] = {
+            1: _state_bytes(module, variables)}
         S, Pmax = self.geom.slots, self.geom.pages_per_slot
         self._tables = np.zeros((S, Pmax), np.int32)
         self._slots: List[Optional[_Slot]] = [None] * S
         self._seq = 0
+        self.compile_tracker = JitCompileTracker()
+        # analytic cost ledger: one record per serve program, installed at
+        # its first dispatch, plus the paged-attention KV proxy as an exact
+        # analytic record reconciled against the slab
+        self.ledger = CostLedger()
+        self.ledger.capture_analytic(
+            "pager.decode_kv", "serve",
+            hbm_bytes=float(self.slab.decode_bytes_per_token))
+        self.ledger.reconcile("pager.decode_kv", "hbm_bytes",
+                              self.slab.decode_bytes_per_token,
+                              tolerance=0.0)
         # host-side observability: request spans on an optional tracer
         # (timestamps from this engine's clock) and the always-on flight
         # recorder; neither touches the device
@@ -268,6 +306,8 @@ class DecodeEngine:
         generation. Serving-loop thread only, like attach/step: a param
         copy racing a step would race the device."""
         self.weight_generation += 1
+        self._param_bytes_by_gen[self.weight_generation] = _state_bytes(
+            self.module, variables)
         self._params_by_gen[self.weight_generation] = compute_params(
             self.module, variables)
         self.stats["weight_swaps"] += 1
@@ -290,6 +330,7 @@ class DecodeEngine:
         # last: a reader on another thread that sees the generation gone
         # from active_generations() also sees its retirement counted
         del self._params_by_gen[gen]
+        self._param_bytes_by_gen.pop(gen, None)
         logger.info("retired weight generation %d (current %d)", gen,
                     self.weight_generation)
 
@@ -519,8 +560,32 @@ class DecodeEngine:
             device=self.device)
         eng.weight_generation = self.weight_generation
         eng._params_by_gen = dict(self._params_by_gen)
+        eng._param_bytes_by_gen = dict(self._param_bytes_by_gen)
         eng.check_pager()
         return eng
+
+    # ----------------------------------------------------------------- cost
+    def _cost_fallback(self) -> dict:
+        """The reference's closed-form per-dispatch record (one step per
+        dispatch: multi-step decode is not ported): every slot runs the
+        model once (~2 flops per weight per slot) over the params read
+        once plus each slot's paged KV traffic."""
+        nbytes = self._param_bytes_by_gen.get(self.weight_generation, 0)
+        S = self.geom.slots
+        return {"flops": 2.0 * (nbytes / 4.0) * S,
+                "hbm_bytes": float(
+                    nbytes + S * self.slab.decode_bytes_per_token)}
+
+    def _ledger_capture(self, program: str) -> bool:
+        """Install `program`'s record at its first dispatch, which is the
+        dispatch the reference compiles at; returns whether this is it.
+        (The reference also reconciles an XLA record against the KV proxy
+        here; the port has none, ROADMAP C.8.)"""
+        if self.ledger.record(program) is not None:
+            return False
+        self.ledger.capture(program, "serve", None,
+                            fallback=self._cost_fallback())
+        return True
 
     # -------------------------------------------------------------- prefill
     def _dispatch_prefill(self, s: int, slot: _Slot) -> int:
@@ -557,6 +622,7 @@ class DecodeEngine:
         write_pages[:n] = self._tables[s, p // G]
         write_offs[:n] = p % G
         in_chunk[:n] = 1.0
+        compiled = self._ledger_capture("serve.prefill")
         t0 = self.clock()
         self._prefill_fn(
             self._params_by_gen[slot.gen], self.slab, self._tensor(tokens),
@@ -564,6 +630,8 @@ class DecodeEngine:
             self._tensor(write_pages), self._tensor(write_offs),
             self._tensor(in_chunk))
         t1 = self.clock()
+        self.compile_tracker.note(compiled, t1 - t0, program="serve.prefill")
+        self.ledger.note_dispatch("serve.prefill")
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += n
         slot.prefill_s += t1 - t0
@@ -800,6 +868,7 @@ class DecodeEngine:
             key_data[s] = (slot.req.seed & 0xFFFFFFFF, slot.pos)
             if s in cow:
                 copy_src[s], copy_dst[s] = cow[s]
+        compiled = self._ledger_capture("serve.decode")
         t0 = self.clock()
         nxt, bad = self._step_fn(
             self._params_by_gen[gen], self.slab, self._tensor(tokens),
@@ -810,6 +879,7 @@ class DecodeEngine:
         nxt_host = nxt.cpu().numpy()
         bad_host = bad.cpu().numpy()
         t1 = self.clock()      # after the readback: the tokens exist
+        self.compile_tracker.note(compiled, t1 - t0, program="serve.decode")
         self._dispatch_wall_s += t1 - t0
         self.stats["dispatches"] += 1
         self.stats["occupancy_sum"] += len(members)
@@ -819,6 +889,7 @@ class DecodeEngine:
         self.stats["kv_bytes"] += \
             len(members) * self.slab.decode_bytes_per_token
 
+        gen_before_emit = self.stats["generated_tokens"]
         for s in members:
             slot = self._slots[s]
             p = slot.pos
@@ -858,3 +929,6 @@ class DecodeEngine:
                     or len(slot.req.tokens) >= slot.req.max_new_tokens:
                 self.release(s, "ok")
                 finished.append(slot.req)
+        self.ledger.note_dispatch(
+            "serve.decode",
+            tokens=self.stats["generated_tokens"] - gen_before_emit)

@@ -1,6 +1,5 @@
 """The serving fleet: N decode replicas behind one router, scaled to load
-(twin of kubeml_tpu/serve/fleet.py, without the cost ledger, ROADMAP
-A.13; the PS keeps its durable manifest).
+(twin of kubeml_tpu/serve/fleet.py; the PS keeps its durable manifest).
 
 One ``ServeFleet`` fronts N ``ServeService`` replicas of one model:
 
@@ -57,6 +56,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from kubeml_tpu_torch.faults import (FleetFaultPlan, ServeFaultEvent,
                                      ServeFaultPlan)
+from kubeml_tpu_torch.metrics.ledger import merge_cost_snapshots
 from kubeml_tpu_torch.metrics.sketch import QuantileSketch
 from kubeml_tpu_torch.serve.pager import routing_digest
 from kubeml_tpu_torch.serve.service import TRACE_FLUSH_EVERY, ServeService
@@ -226,6 +226,10 @@ class ServeFleet:
         # totals folded in from retired replicas so fleet aggregates
         # stay monotone across shrink / scale-to-zero
         self._retired: Dict[str, int] = collections.defaultdict(int)
+        # retired replicas' cost-ledger totals (merged snapshot form),
+        # folded in like _retired so GET /cost and the kubeml_cost_*
+        # counters do not dip on shrink
+        self._retired_cost: Dict[str, dict] = {}
         # per-replica prefix hit/miss cursors for the delta fields the
         # fleet snapshot exposes (satellite: per-replica cache health).
         # Keyed by replica EPOCH (restarts_total) as well: a recovered
@@ -338,6 +342,8 @@ class ServeFleet:
         self._retired["slo_bad"] += svc.slo_bad_total
         self._retired["prefix_hits"] += int(st["prefix_hits"])
         self._retired["prefix_misses"] += int(st["prefix_misses"])
+        self._retired_cost = merge_cost_snapshots(
+            [self._retired_cost, svc.engine.ledger.snapshot()])
         self._prefix_seen.pop(idx, None)
 
     def drain(self, grace_s: float) -> bool:
@@ -1335,6 +1341,15 @@ class ServeFleet:
             "fleet_hedges_total": self.hedges_total,
             "fleet_replica_prefix_hits": hit_deltas,
             "fleet_replica_prefix_misses": miss_deltas,
+            # the cost ledger, merged exactly across replicas (totals sum;
+            # the per-dispatch records agree, one engine config per
+            # fleet) plus the retired replicas' folded totals. An engine
+            # restart resets its replica's ledger; update_cost's monotone
+            # guard absorbs the dip
+            "serve_cost_programs": merge_cost_snapshots(
+                [self._retired_cost]
+                + [snaps[i].get("serve_cost_programs") or {}
+                   for i in idxs]),
         }
 
     def _on_replica_publish(self, idx: int, snap: dict) -> None:

@@ -1,6 +1,5 @@
 """The serving loop: admission control in front, the decode engine behind
-(twin of kubeml_tpu/serve/service.py, without the cost ledger's fields,
-ROADMAP A.13).
+(twin of kubeml_tpu/serve/service.py).
 
 One background thread per served model owns the engine (slot state and
 the paged programs are single-threaded by design); submitting threads
@@ -20,7 +19,9 @@ Telemetry: per-request TTFT/TPOT/e2e land in windowed sketches and the
 serve histogram families (metrics/prom.py), finished requests are
 classified good/bad against the SLO objectives the fleet stamps on the
 replica, and every loop pass publishes a snapshot under the pseudo job id
-``serve:<model>`` (the health rules and ``kubeml top`` read it).
+``serve:<model>`` (the health rules and ``kubeml top`` read it), with the
+engine's cost-ledger snapshot (``serve_cost_programs``) that ``GET /cost``
+and the kubeml_cost_* counters read.
 """
 
 from __future__ import annotations
@@ -813,6 +814,10 @@ class ServeService:
             "serve_dispatches_per_token": round(
                 self.engine.dispatches_per_token, 6),
             "serve_accepted_per_dispatch": 0.0,
+            # analytic cost ledger: cumulative per-program snapshot (flat
+            # record + totals per program); the fleet merges these across
+            # replicas and the PS serves them on GET /cost
+            "serve_cost_programs": self.engine.ledger.snapshot(),
         }
 
     def _publish(self) -> None:
@@ -844,6 +849,12 @@ class ServeService:
             if self.tracer is not None:
                 self.metrics.note_serve_trace_dropped(
                     self.model_id, self.tracer.dropped_events)
+            # the cost counters advance by delta under the serve:<model>
+            # owner; gated like the per-model gauges, so fleet replicas
+            # never race the fleet's merged advance under the same owner
+            if self.publish_state_gauges:
+                self.metrics.update_cost(f"serve:{self.model_id}",
+                                         snap.get("serve_cost_programs"))
         # a pass with no new sheds re-arms the onset snapshot; a pass
         # after terminal events flushes the sink (batched)
         if self._shed_total == self._shed_seen:

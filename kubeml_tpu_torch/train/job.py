@@ -50,8 +50,15 @@ What differs:
   - the seconds an epoch spends building and loading kernels at first use
     (ops/_build.py) are left out of the time the throughput policy sees,
     as the JAX package leaves out its compiles;
-  - ``jit_compiles`` is 0 and ``cost_programs`` empty (no compiled
-    programs, no cost ledger yet).
+  - ``jit_compiles`` counts the dispatches at which the JAX package would
+    compile (a new round key, ``RoundStats.compiled``; the same count for
+    the same plan), and ``cost_programs`` carries the engine's cost
+    ledger with the closed-form records the JAX package writes with
+    ``KUBEML_COST_LEDGER=0`` (metrics/ledger.py);
+  - ``hbm_*`` come from the CUDA caching allocator on the card; on the
+    CPU from the bytes of the job's state, the merge residuals and the
+    device cache (metrics/runtime.py), not the JAX package's live-array
+    sum.
 
 Kept too: the tracer. Host spans ``epoch`` > ``round`` > {``data_wait``,
 ``dispatch``}, ``cache_upload`` where the device cache lays out its
@@ -112,6 +119,7 @@ from kubeml_tpu_torch.data.loader import (RoundGroup, RoundLoader,
                                           group_rounds, prefetch_rounds)
 from kubeml_tpu_torch.data.registry import DatasetRegistry
 from kubeml_tpu_torch.metrics.prom import PHASE_HISTOGRAMS
+from kubeml_tpu_torch.metrics.runtime import HbmWatermark, JitCompileTracker
 from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
 from kubeml_tpu_torch.ops import _build
 from kubeml_tpu_torch.parallel.kavg import KAvgEngine
@@ -358,6 +366,12 @@ class TrainJob:
         self._start_epoch = 0
         self._epoch_dropped = 0.0
         self._epoch_stats: dict = {}
+        # runtime introspection (metrics/runtime.py): compiles noted per
+        # dispatch, the device-memory watermark sampled at epoch end; on
+        # the CPU the watermark sums the tensors the job keeps live
+        self._jit_tracker = JitCompileTracker()
+        self._hbm = HbmWatermark(self.device)
+        self._hbm.track(self._live_tensors)
 
     # ------------------------------------------------------------------ api
 
@@ -603,6 +617,26 @@ class TrainJob:
                 m["parallelism"] = parallelism
         return m
 
+    def _live_tensors(self):
+        """What the job keeps on its device between rounds: the state,
+        the merge's EF residuals and the dataset cache's slabs (the
+        optimizer is made afresh for every worker of every round)."""
+        out = list((self.state or {}).values())
+        engine = getattr(self, "_engine", None)
+        if engine is not None and engine._ef_state:
+            out += list(engine._ef_state.values())
+        cache = getattr(self, "_device_cache", None)
+        if cache is not None and cache.arrays:
+            out += list(cache.arrays.values())
+        return out
+
+    def _cost_snapshot(self) -> dict:
+        """The engine's cost-ledger snapshot (cumulative, flat record +
+        totals per program): the PS keeps the latest per job for GET
+        /cost and advances the kubeml_cost_* counters by delta."""
+        engine = getattr(self, "_engine", None)
+        return engine.ledger.snapshot() if engine is not None else {}
+
     def _record_epoch(self, train_loss, val_loss, accuracy, parallelism,
                       elapsed) -> None:
         """Append the epoch to the history and publish its MetricUpdate."""
@@ -620,10 +654,9 @@ class TrainJob:
         h.grad_norm_summary.append(_minmeanmax(grad_norms))
         h.update_ratio_summary.append(_minmeanmax(update_ratios))
         h.loss_spread.append(float(stats.get("loss_spread", 0.0)))
-        peak = in_use = 0
-        if self.device.type == "cuda":
-            peak = torch.cuda.max_memory_allocated(self.device)
-            in_use = torch.cuda.memory_allocated(self.device)
+        # epoch end is a sync point (the loss readback), so the
+        # watermark's sample costs nothing
+        self._hbm.sample()
         self.callbacks.publish_metrics(MetricUpdate(
             job_id=self.task.job_id, validation_loss=val_loss,
             accuracy=accuracy, train_loss=train_loss,
@@ -637,11 +670,13 @@ class TrainJob:
             grad_norms=grad_norms, update_ratios=update_ratios,
             worker_losses=list(stats.get("worker_losses", [])),
             loss_spread=float(stats.get("loss_spread", 0.0)),
-            jit_compiles=0, hbm_peak_bytes=int(peak),
-            hbm_in_use_bytes=int(in_use),
+            # cumulative counters: the PS advances its counters by delta
+            jit_compiles=self._jit_tracker.compiles,
+            hbm_peak_bytes=self._hbm.peak_bytes,
+            hbm_in_use_bytes=self._hbm.in_use_bytes,
             trace_events_dropped=self.tracer.dropped_events,
             dataset_generation=0, data_lag_generations=-1,
-            cost_programs={}))
+            cost_programs=self._cost_snapshot()))
 
     def _init_model(self) -> None:
         opts = self.req.options
@@ -1018,6 +1053,8 @@ class TrainJob:
                 dev_spread.append(spread)
                 stat_rounds += rounds
 
+        round_times = []   # (dispatch s, rounds, compiled?, program)
+
         def dispatch(rb):
             grouped = isinstance(rb, RoundGroup)
             if guard is not None:
@@ -1025,6 +1062,7 @@ class TrainJob:
                 # when every worker is quarantined
                 rb = guard.apply(rb)
             with self.tracer.span("dispatch"):
+                t_r = time.time()
                 if cache is not None:
                     run = self._engine.train_rounds_indexed if grouped \
                         else self._engine.train_round_indexed
@@ -1039,6 +1077,11 @@ class TrainJob:
                                          rb.sample_mask, rb.step_mask,
                                          rb.worker_mask, rb.rngs,
                                          lr=self.req.lr, epoch=epoch)
+                round_times.append((
+                    time.time() - t_r, rb.rounds if grouped else 1,
+                    st.compiled,
+                    "kavg." + ("train_multi" if grouped else "train")
+                    + ("_indexed" if cache is not None else "")))
             note(st, rb.worker_mask, rb.rounds if grouped else 1)
             if guard is not None:
                 # the per-round [W] readback the guard opts into; may
@@ -1098,6 +1141,11 @@ class TrainJob:
                     epoch, self._epoch_reassigned,
                     sorted(guard.quarantined_since))
         self._guard = None
+        # the compile tracker sees every dispatch (a compiling one with
+        # its wall time, kernel builds at first use included); the
+        # program name keys its per-program storm window
+        for dt, _r, c, prog in round_times:
+            self._jit_tracker.note(bool(c), dt if c else 0.0, program=prog)
         # merge_wait: the blocking readback that waits on every round
         with self.tracer.span("merge_wait"):
             loss_sums = torch.stack(dev_losses).sum(0).cpu().numpy() \

@@ -217,15 +217,37 @@ def test_top_screen_equals_the_references(name):
     assert _render_top(TOP_DOCS[name]) == ref_render(TOP_DOCS[name])
 
 
-def test_top_cost_pane_names_the_ledger_item():
-    """A JAX deployment's verdict may carry a cost snapshot: the port's
-    screen says the attribution is not ported, naming its item."""
+_COST_ENTRY = {"program": "kavg.train", "plane": "train", "flops": 5.0,
+               "hbm_bytes": 9.0, "transcendentals": 0.0,
+               "peak_temp_bytes": 0, "argument_bytes": 0,
+               "output_bytes": 0, "source": "fallback", "dispatches": 4,
+               "flops_total": 2.5e9, "hbm_bytes_total": 7.5e8,
+               "transcendentals_total": 0.0, "samples": 640, "tokens": 0,
+               "recaptures": 0}
+COST_DOCS = {
+    "train": {"cost_programs": {"kavg.train": _COST_ENTRY}},
+    "serve": {"serve_cost_programs": {"serve.decode": dict(
+        _COST_ENTRY, program="serve.decode", plane="serve", samples=0,
+        tokens=288)}},
+    "records_only": {"cost_programs": {"merge.bucketed": dict(
+        _COST_ENTRY, program="merge.bucketed", plane="kernel",
+        dispatches=0, samples=0)}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(COST_DOCS))
+def test_top_cost_pane_equals_the_references(name):
+    """The cost pane attributes a verdict's ledger snapshot per sample and
+    per token as the reference's does (a snapshot with no samples and no
+    tokens prints no pane)."""
+    from kubeml_tpu.cli.main import _render_top as ref_render
     from kubeml_tpu_torch.cli.main import _render_top
 
     doc = {"id": "j", "state": "healthy", "reasons": [],
-           "latest": {"cost_programs": {"round": {"plane": "train"}}}}
-    assert "cost: 1 program(s)" in _render_top(doc)
-    assert "ROADMAP A.13" in _render_top(doc)
+           "latest": dict(COST_DOCS[name])}
+    got = _render_top(doc)
+    assert got == ref_render(doc)
+    assert ("cost: " in got) == (name != "records_only")
     assert "cost:" not in _render_top(TOP_DOCS["training"])
 
 
@@ -378,7 +400,6 @@ REFUSED = [
     (TRAIN + ["--checkpoint-every-rounds", "3"], None),
     (["dataset", "append", "-n", "blobs", "--traindata", "{xtr}",
       "--trainlabels", "{ytr}"], "ROADMAP A.4.5"),
-    (["cost", "--id", "x"], "ROADMAP A.13"),
     (["serve", "--coordinator", "h:1"], "ROADMAP A.7"),
     (["serve", "--num-processes", "2"], "ROADMAP A.7"),
     (["serve", "--process-id", "0"], "ROADMAP A.7"),
@@ -429,6 +450,47 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
     assert err.startswith("error: ") and item in err, err
     assert "not ported yet to kubeml_tpu_torch" in err
     assert dep.ps.jobs == {}  # nothing was submitted
+
+
+@pytest.mark.parametrize("form", ["table", "json", "unknown id"])
+def test_cost_verb_prints_the_references_output(stack, capsys, form):
+    """``kubeml cost`` on the port's deployment prints what the JAX
+    package's CLI prints against the same controller: the same table,
+    the same JSON document, the same error for an id with no cost."""
+    from kubeml_tpu.cli.main import main as ref_main
+
+    dep, paths, _ = stack
+    _create_blobs(dep, paths)
+    run_cli(dep, "train", "-f", "mlp", "-d", "blobs", "-e", "1", "-b", "32",
+            "--lr", "0.1", "-p", "2", "--static")
+    job_id = capsys.readouterr().out.strip().splitlines()[-1]
+    _wait_history(job_id)
+    assert dep.ps.wait_for_job(job_id, timeout=60)
+    argv = ["cost", "--id", "nosuch" if form == "unknown id" else job_id]
+    if form == "json":
+        argv.append("--json")
+    outs = []
+    for main in (run_cli, lambda dep, *a: ref_main(
+            ["--controller", dep.controller_url] + list(a))):
+        capsys.readouterr()
+        if form == "unknown id":
+            with pytest.raises(SystemExit) as ei:
+                main(dep, *argv)
+            assert ei.value.code not in (0, None)
+        else:
+            main(dep, *argv)
+        outs.append(capsys.readouterr())
+    assert outs[0].out == outs[1].out and outs[0].err == outs[1].err
+    if form == "json":
+        doc = json.loads(outs[0].out)
+        assert doc["id"] == job_id
+        # the mlp's rounds run from the device cache
+        assert doc["programs"]["kavg.train_indexed"]["samples"] == 600
+    elif form == "table":
+        assert "kavg.train_indexed" in outs[0].out
+        assert "fallback" in outs[0].out
+    else:
+        assert "nosuch" in outs[0].err
 
 
 def test_serve_without_device_needs_a_card(tmp_home, capsys):

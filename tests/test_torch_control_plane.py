@@ -252,14 +252,15 @@ def test_duplicate_upload_fails_alike(plane):
     assert codes[0] == codes[1] == 500
 
 
-# brings None: the preemption routes (ROADMAP A.17, landed) answer as the
-# JAX package's: an unknown job is 404, a task without fields 500
+# brings None: the preemption and cost routes (ROADMAP A.17 and A.13,
+# landed) answer as the JAX package's: an unknown job is 404, a task
+# without fields 500
 REFUSED = [
-    ("controller", "GET", "/cost/x", 501, "ROADMAP A.13"),
+    ("controller", "GET", "/cost/x", 404, None),
     ("controller", "POST", "/dataset/blobs/append", 400, "continual mode"),
     ("storage", "POST", "/dataset/blobs/append", 400, "continual mode"),
     ("scheduler", "POST", "/requeue", 500, None),
-    ("ps", "GET", "/cost?id=x", 501, "ROADMAP A.13"),
+    ("ps", "GET", "/cost?id=x", 404, None),
     ("ps", "POST", "/preempt/x", 404, None),
     ("ps", "POST", "/preempted/x", 404, None),
 ]
@@ -348,6 +349,33 @@ def test_trace_and_health_of_a_finished_job_alike(plane):
     assert docs["port"][0] == docs["ref"][0] == [
         "client", "job", "ps", "scheduler"]
     assert docs["port"][1] == docs["ref"][1]
+
+
+@pytest.mark.parametrize("route", ["controller", "ps"])
+def test_cost_of_the_same_job_alike(plane, route):
+    """The same threaded job's cost document (the reference's closed-form
+    records, KUBEML_COST_LEDGER=0), through the controller's
+    /cost/{jobId} or the PS's /cost?id=, equals the reference's but for
+    the id: the same programs, records, dispatches, samples and
+    recaptures."""
+    from kubeml_tpu_torch.control.httpd import http_json
+
+    docs = {}
+    for key in ("ref", "port"):
+        dep, _, job_id, _ = plane[key]
+        url = (f"{dep.controller_url}/cost/{job_id}" if route == "controller"
+               else f"{dep.ps.url}/cost?id={job_id}")
+        doc = http_json("GET", url)
+        assert doc.pop("id") == job_id
+        docs[key] = doc
+    assert docs["port"] == docs["ref"]
+    progs = docs["port"]["programs"]
+    # the mlp's rounds run from the device cache
+    assert {"kavg.train_indexed", "kavg.eval",
+            "merge.monolithic"} <= set(progs)
+    assert progs["kavg.train_indexed"]["source"] == "fallback"
+    assert progs["kavg.train_indexed"]["samples"] == 3 * 600   # 3 epochs
+    assert docs["port"]["attributed"]["train"]["flops_per_sample"] > 0
 
 
 def test_scheduler_grants_equal_under_a_scripted_policy():

@@ -327,9 +327,9 @@ def test_generate_observability_routes(serve_pair):
                              if ln.startswith("# TYPE kubeml_serve_")}))
     ref, port = docs["ref"], docs["port"]
     assert port[:5] == ref[:5]
-    # the reference's snapshot also carries its cost ledger (ROADMAP A.13)
-    assert set(ref[5]) - set(port[5]) == {"serve_cost_programs"} \
-        or set(ref[5]) == set(port[5])
+    # the serving snapshot carries the same fields, the cost ledger's
+    # serve_cost_programs included
+    assert set(ref[5]) == set(port[5])
     assert port[6] and ref[6]
     # the reference's speculative-decode counters are not ported
     assert set(ref[7]) - set(port[7]) <= {

@@ -16,6 +16,7 @@ import ast
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -225,6 +226,11 @@ def test_service_answers_requests_on_cpu():
         assert all(r.first_token_at >= r.submitted_at for r in reqs)
         events = list(reqs[0].events_iter(timeout=1))
         assert events[-1] == {"done": True, "tokens": reqs[0].tokens}
+        # r.wait() returns when the engine finishes the request; the loop
+        # thread accounts it just after, so wait for the counter
+        deadline = time.monotonic() + 5.0
+        while svc.inflight and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert svc.rejected_total == 1 and svc.inflight == 0
         # the service's answer is the engine's answer for the same request
         solo = DecodeEngine(tm, sd, slots=2, page=8, prefill_chunk=8,
