@@ -303,6 +303,38 @@ Phases (any failure exits non-zero and prints no result line):
               decode_bytes_per_token. (d) (a)'s
               kubeml_device_hbm_bytes{kind="peak"} equals
               torch.cuda.max_memory_allocated() read at the epoch's end.
+ 18. continual the continual mode, under a fresh KUBEML_TPU_HOME: (a)
+              gpt-mini through an in-process start_deployment driven by
+              `kubeml` processes: `dataset create` (generation 1, 256
+              token windows), `train --continual -e 40
+              --window-generations 2 --publish-every-rounds 1
+              --goal-accuracy 200` (static N=2, K=4, B=8), and at the end
+              of the first epoch on each generation a `dataset append`
+              (128 windows each) while the job trains on; the phase stops
+              the job after its first epoch on generation 3. Meanwhile
+              two client threads send greedy POST /generate streams (16
+              or 64 new tokens, 0.25 s apart) for the job's model. Checks: the (dataset_generation,
+              data_lag_generations) pairs end at (3, 0) with lag 0
+              throughout; each slide's window equals the registry's
+              windowed handle (generation 1 slides out at generation 3);
+              each epoch's flash and merge launches equal its window's
+              plan; each installed saved_at stamp raises the generation
+              by one (kubeml_serve_weight_generation = the stamps); the
+              streams in flight at a swap equal a direct DecodeEngine on
+              the weights they attached under; the paged kernel's
+              launches = layers x (decode + prefill dispatches). Prints
+              the seconds from `dataset append`'s exit (and from the
+              storage commit) to the window slide, and from a publish to
+              the first admission that decodes it. (b) a direct continual
+              ResNet-18 TrainJob, device_cache='on' (sharded,
+              incremental), over three generations of 8192 CIFAR-shaped
+              images and a window of 2 (grow after epoch 1, slide after
+              epoch 3): after every epoch the slabs equal a cold cache's
+              of the same handle (torch.equal on the card); prints the
+              refresh's host-to-device bytes against a cold upload's,
+              lanes_reused and lanes_refreshed, the ms per local step
+              before and after the slide, and the merge's launches
+              (buckets x rounds).
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -318,9 +350,11 @@ each epoch of phase 10's job, "deployment_launches" those of phase
 12's jobs and "cli_launches" those of phase 13's; every entry carries
 "cluster_launches", its launches through phase 15's deployment (null for
 int8 pages, which phase 15 does not serve), "degraded_launches", its
-launches in phase 16 (0 for the paged kernel), and "cost_launches", its
+launches in phase 16 (0 for the paged kernel), "cost_launches", its
 launches through phase 17's (a) and (c) (null for int8 pages, which phase
-17 does not serve); the merge's "resnet18"
+17 does not serve), and "continual_launches", its launches in phase 18
+(null for int8 pages; the merge's over gpt-mini and ResNet-18, split in
+"continual_launches_by_model"); the merge's "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
@@ -360,6 +394,11 @@ launches as one JSON line.
 
 builds the kernels and runs phase 17 alone (without phase 10, so (a)'s
 ms per local step stands alone), printing its launches as one JSON line.
+
+    python3 chip_smoke.py --continual-only
+
+builds the kernels and runs phase 18 alone, printing its launches as one
+JSON line.
 """
 
 from __future__ import annotations
@@ -3012,14 +3051,15 @@ def save_mini(seed):
         {"model": PS_MODEL, "function": PS_MODEL})
 
 
-def direct_tokens(module, prompts, n):
+def direct_tokens(module, prompts, n, variables=None):
     """Greedy tokens of the prompts served directly (phase 3's
-    ServeService over a DecodeEngine, no PS) with n new tokens each."""
+    ServeService over a DecodeEngine, no PS) with n new tokens each, on
+    the module's weights or on ``variables`` (a state dict of it)."""
     from kubeml_tpu_torch.serve.engine import DecodeEngine
     from kubeml_tpu_torch.serve.service import ServeService
 
     svc = ServeService("direct", DecodeEngine(
-        module, slots=8, page=16, prefill_chunk=16)).start()
+        module, variables, slots=8, page=16, prefill_chunk=16)).start()
     try:
         reqs = [svc.submit(p, max_new_tokens=n) for p in prompts]
         for r in reqs:
@@ -4744,6 +4784,494 @@ def cost_serve(card, seed, module):
     return launches
 
 
+# ----------------------------------------------------------------- phase 18
+CT_GENS = (256, 128, 128)   # token windows of generations 1, 2 and 3
+CT_WINDOW = 2               # --window-generations: gen 3 slides gen 1 out
+CT_WINDOWS = {1: 256, 2: 384, 3: 256}    # the window each generation trains
+CT_PUBLISH = 1              # --publish-every-rounds (2-3 rounds an epoch)
+CT_EPOCHS = 40              # -e: a cap; the phase stops the job after the
+                            # first epoch that trains generation 3
+CT_SHORT, CT_LONG = 16, 64  # new tokens of the serving client's streams
+CT_PAUSE = 0.25             # seconds between one client thread's streams
+CT_DIRECT = 6               # streams that spanned a swap, held to a direct run
+CT_IMAGES, CT_TEST_IMAGES = 8192, 2048   # (b): images a generation, test
+CT_VIS_EPOCHS = 4           # (b): gen 1; gens 1-2 twice; gens 2-3
+
+
+def phase_continual(torch, card, seed):
+    """The continual mode on the card (see the module docstring, phase
+    18); returns each kernel's launches over (a) and (b)."""
+    import os
+    import tempfile
+
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        try:
+            t0 = time.perf_counter()
+            launches = ct_serve_train(torch, card, seed, tmp)
+            t1 = time.perf_counter()
+            os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "vision")
+            launches["fused_merge"] = {
+                "gpt-mini": launches["fused_merge"],
+                "resnet18": ct_vision(torch, card, seed)}
+            log(card, f"continual phase: {time.perf_counter() - t0:.3f} s "
+                f"((a) {t1 - t0:.3f} s); launches over phase 18: "
+                f"{launches}")
+            return launches
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+
+
+class CtCli:
+    """One `kubeml` process against the controller, run on a thread from
+    construction: result() joins it and returns its stdout; ``exited`` is
+    the perf_counter of its exit."""
+
+    def __init__(self, url, *argv):
+        import threading
+
+        self.argv, self.out, self.error, self.exited = argv, None, None, None
+        self.thread = threading.Thread(target=self._run, args=(url,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, url):
+        import os
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        p = subprocess.run(
+            [sys.executable, "-m", "kubeml_tpu_torch.cli", "--controller",
+             url, *self.argv], env=env, cwd=repo, capture_output=True,
+            text=True, timeout=600)
+        self.exited, self.out = time.perf_counter(), p.stdout
+        if p.returncode != 0:
+            self.error = (f"kubeml {' '.join(self.argv)} exited "
+                          f"{p.returncode}: {p.stderr.strip()[-2000:]}")
+
+    def result(self) -> str:
+        self.thread.join(600)
+        assert not self.thread.is_alive(), f"kubeml {self.argv} hung"
+        if self.error:
+            raise RuntimeError(self.error)
+        return self.out
+
+
+class CtClient:
+    """Greedy POST /generate streams for one model on two threads until
+    stop(), CT_PAUSE apart on a thread: each a fresh random prompt,
+    alternately CT_SHORT and CT_LONG new tokens. The first stream runs
+    alone, so one fleet is built."""
+
+    def __init__(self, url, model, vocab, seed):
+        import threading
+
+        self.url, self.model, self.vocab, self.seed = url, model, vocab, seed
+        self.done = threading.Event()
+        self.streams = []            # (prompt, n, GenStream)
+        self.threads = [threading.Thread(target=self._loop, args=(i,),
+                                         daemon=True) for i in (0, 1)]
+
+    def _one(self, rng, n):
+        prompt = rng.integers(1, self.vocab,
+                              int(rng.integers(8, 64))).tolist()
+        st = GenStream(self.url, {"model_id": self.model, "prompt": prompt,
+                                  "max_new_tokens": n}).start().join()
+        assert st.status == 200 and len(st.tokens) == n, (st.status, st.last)
+        self.streams.append((prompt, n, st))
+
+    def first(self):
+        """The first stream, alone: it builds the fleet."""
+        self._one(np.random.default_rng(self.seed + 99), CT_SHORT)
+        return self
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _loop(self, i):
+        rng = np.random.default_rng(self.seed + 100 + i)
+        k = 0
+        while not self.done.wait(CT_PAUSE):
+            self._one(rng, CT_LONG if (k + i) % 2 else CT_SHORT)
+            k += 1
+
+    def stop(self):
+        self.done.set()
+        for t in self.threads:
+            t.join(600)
+            assert not t.is_alive(), "a serving client thread hung"
+
+
+def ct_probe():
+    """Record, in this process: each DecodeEngine's weights by generation
+    (its construction's and each install's state dict), every attach's
+    (prompt, generation, wall time), the prompts in flight at an install,
+    the fleet's installed stamps, each registry commit's perf_counter by
+    generation and each continual window slide (perf_counter, generation,
+    the job's train samples and base, the registry's windowed handle's
+    samples). Returns (record, restore)."""
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.fleet import ServeFleet
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    rec = {"weights": {}, "attach": [], "spanning": set(), "stamps": [],
+           "commits": {}, "slides": []}
+    targets = ((DecodeEngine, "__init__"), (DecodeEngine, "attach"),
+               (DecodeEngine, "install_weights"),
+               (ServeFleet, "install_weights"),
+               (DatasetRegistry, "append"), (TrainJob, "_continual_refresh"))
+    real = {t: getattr(*t) for t in targets}
+
+    def init(self, module, *a, **k):
+        real[targets[0]](self, module, *a, **k)
+        variables = k.get("variables", a[0] if a else None)
+        rec["weights"][1] = (variables if variables is not None
+                             else module.state_dict())
+
+    def attach(self, req):
+        s = real[targets[1]](self, req)
+        rec["attach"].append((tuple(req.prompt), self._slots[s].gen,
+                              time.time()))
+        return s
+
+    def install(self, variables):
+        rec["spanning"].update(tuple(sl.req.prompt) for sl in self._slots
+                               if sl is not None)
+        gen = real[targets[2]](self, variables)
+        rec["weights"][gen] = variables
+        return gen
+
+    def fleet_install(self, variables, stamp=None):
+        rec["stamps"].append(stamp)
+        return real[targets[3]](self, variables, stamp)
+
+    def append(self, name, *a, **k):
+        h = real[targets[4]](self, name, *a, **k)
+        rec["commits"][h.generation] = time.perf_counter()
+        return h
+
+    def refresh(self, epoch):
+        before = self._trained_generation
+        real[targets[5]](self, epoch)
+        if self._trained_generation != before:
+            held = self.registry.get(
+                self.req.dataset, window_generations=self._window_generations)
+            rec["slides"].append((time.perf_counter(),
+                                  self._trained_generation,
+                                  self._handle.train_samples,
+                                  self._handle.train_base,
+                                  held.train_samples))
+
+    for t, fn in zip(targets, (init, attach, install, fleet_install, append,
+                               refresh)):
+        setattr(*t, fn)
+
+    def restore():
+        for t, fn in real.items():
+            setattr(*t, fn)
+    return rec, restore
+
+
+def ct_serve_train(torch, card, seed, tmp):
+    """(a): gpt-mini through an in-process deployment driven by `kubeml`
+    processes (dataset create, train --continual, two dataset appends
+    while it trains) and a serving client on the job's published weights.
+    Returns the kernels' launches."""
+    import os
+
+    from kubeml_tpu_torch.control.client import KubemlClient
+    from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.control.httpd import http_json
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+
+    fn_path = os.path.join(tmp, f"{CP_GPT_FN}.py")
+    with open(fn_path, "w") as f:
+        f.write(CP_FUNCTIONS[CP_GPT_FN])
+    rng = np.random.default_rng(seed + 18)
+    arrays = [token_windows(rng, n, TRAIN_T) for n in CT_GENS] \
+        + [token_windows(rng, JOB_TEST, TRAIN_T)]
+    paths = []
+    for i, x in enumerate(arrays):
+        for kind, a in (("x", x), ("y", np.zeros(len(x), np.int32))):
+            paths.append(os.path.join(tmp, f"ct_{kind}{i}.npy"))
+            np.save(paths[-1], a)
+    # paths: x0 y0 x1 y1 x2 y2 (generations 1-3) xt yt (the test split)
+    cfg = GPT_CONFIGS["gpt-mini"]
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+    t0 = time.perf_counter()
+    dep = start_deployment(device=None, serve_slots=8,
+                           serve_prefill_chunk=16, serve_kv_dtype="f32",
+                           serve_prefix_cache=True)
+    rec, restore = ct_probe()
+    epochs, appends, client, job = [], {}, None, {}
+    try:
+        url = dep.controller_url
+        KubemlClient(url).v1().functions().create(CP_GPT_FN, fn_path)
+        CtCli(url, "dataset", "create", "-n", "tokens", "--traindata",
+              paths[0], "--trainlabels", paths[1], "--testdata", paths[6],
+              "--testlabels", paths[7]).result()
+
+        def hook(m):
+            # the epoch's end, on the job's thread
+            epochs.append((m.dataset_generation, m.data_lag_generations,
+                           {k: fn.launches for k, fn in kernels.items()},
+                           m.epoch_duration, m.train_loss))
+            for fn in kernels.values():
+                fn.launches = 0
+            gen = m.dataset_generation
+            if gen < len(CT_GENS) and gen + 1 not in appends:
+                # the next generation, appended while the job trains on
+                appends[gen + 1] = CtCli(
+                    url, "dataset", "append", "-n", "tokens", "--traindata",
+                    paths[2 * gen], "--trainlabels", paths[2 * gen + 1])
+            if gen == len(CT_GENS):
+                # the first epoch on generation 3: stop at its boundary
+                http_json("DELETE", f"{url}/tasks/{m.job_id}")
+        unhook = on_publish(dep.ps, hook)
+        for fn in kernels.values():
+            fn.launches = 0              # the main path's run starts here
+        job_id = CtCli(
+            url, "train", "-f", CP_GPT_FN, "-d", "tokens", "-e",
+            str(CT_EPOCHS), "-b", str(JOB_B), "--lr", str(JOB_LR), "-K",
+            str(JOB_K), "-p", str(JOB_N0), "--static", "--merge-bucket-mb",
+            str(MERGE_CAP_MB), "--goal-accuracy", "200", "--continual",
+            "--window-generations", str(CT_WINDOW),
+            "--publish-every-rounds", str(CT_PUBLISH)).result().strip()
+        wait_until(lambda: read_manifest(job_id) is not None,
+                   "the job's first publish", timeout=600)
+        paged_attention.launches = 0     # the serving run starts here
+        client = CtClient(dep.ps.url, job_id, cfg["vocab_size"],
+                          seed).first()
+        job["stamp1"] = dep.ps._serve[job_id][0]      # generation 1's
+        client.start()
+        hist = cp_wait(KubemlClient(url).v1(), dep, job_id).data
+        client.stop()
+        job["paged"] = paged_attention.launches       # ... and ends here
+        unhook()
+        for a in appends.values():
+            a.result()
+        job["cost"] = http_json("GET", f"{dep.ps.url}/cost?id=serve:{job_id}")
+        job["gauge"] = [
+            ln for ln in urllib_get(f"{dep.ps.url}/metrics").splitlines()
+            if ln.startswith("kubeml_serve_weight_generation{")]
+        (_, job["engine"]), = dep.ps._serve[job_id][1].engines()
+    finally:
+        if client is not None:
+            client.done.set()
+        restore()
+        dep.stop()
+    job["seconds"] = time.perf_counter() - t0
+    return ct_check(card, job_id, hist, epochs, appends, rec, client, job)
+
+
+def ct_check(card, job_id, hist, epochs, appends, rec, client, job):
+    """(a)'s checks and numbers; returns the kernels' launches."""
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    layers = GPT_CONFIGS["gpt-mini"]["layers"]
+    gens = [e[0] for e in epochs]
+    assert [(g, lag) for g, lag, *_ in epochs][-1] == (3, 0), epochs
+    assert all(lag == 0 for _, lag, *_ in epochs), epochs
+    assert gens == sorted(gens) and set(gens) == {1, 2, 3}, gens
+    assert len(hist.train_loss) == len(epochs), (hist.train_loss, epochs)
+    launches = {k: 0 for k in epochs[0][2]}
+    for gen, _, counts, sec, loss in epochs:
+        steps, rounds, evals = _epoch_counts(JOB_N0, JOB_N0, CT_WINDOWS[gen],
+                                             JOB_TEST)
+        want = {"forward": layers * (steps + evals),
+                "dK/dV": layers * steps, "dQ": layers * steps,
+                "fused_merge": JOB_BUCKETS * rounds}
+        assert counts == want, (gen, counts, want)
+        for k, n in counts.items():
+            launches[k] += n
+    # each slide: the job's window is the registry's windowed handle
+    slides = {g: (t, n, base, held) for t, g, n, base, held in rec["slides"]}
+    assert sorted(slides) == [2, 3], rec["slides"]
+    for g, (_, n, base, held) in slides.items():
+        assert n == held == CT_WINDOWS[g], (g, n, held)
+    assert slides[3][2] == CT_GENS[0], slides          # gen 1 slid out
+    lat = {g: (slides[g][0] - appends[g].exited,
+               slides[g][0] - rec["commits"][g]) for g in slides}
+    by_gen = {}
+    for g, _, _, sec, loss in epochs:
+        by_gen.setdefault(g, []).append((sec, loss))
+    for g, rows in by_gen.items():
+        steps = _epoch_counts(JOB_N0, JOB_N0, CT_WINDOWS[g], JOB_TEST)[0]
+        log(card, f"continual (a) generation {g}: {len(rows)} epoch(s) over "
+            f"a window of {CT_WINDOWS[g]} windows of {TRAIN_T} tokens, "
+            f"{steps} local steps each; epoch seconds "
+            f"{[round(s, 4) for s, _ in rows]}, ms per local step "
+            f"{[round(1e3 * s / steps, 3) for s, _ in rows]}, train loss "
+            f"{[round(x, 4) for _, x in rows]}")
+    for g, (after_exit, after_commit) in lat.items():
+        log(card, f"continual (a) dataset append of generation {g}: its "
+            f"window slid {after_exit:.4f} s after `kubeml dataset append` "
+            f"exited ({after_commit:.4f} s after the storage service "
+            f"committed it); the next epoch trained it")
+    # serving: one generation per new stamp, the gauge, the tokens
+    engine = job["engine"]
+    stamps = [job["stamp1"]] + rec["stamps"]
+    assert len(stamps) >= 3 and stamps == sorted(set(stamps)), stamps
+    assert engine.weight_generation == len(stamps), \
+        (engine.weight_generation, stamps)
+    assert job["gauge"] == [
+        f'kubeml_serve_weight_generation{{model="{job_id}"}} '
+        f'{float(len(stamps))}'], job["gauge"]
+    first = {}
+    for prompt, gen, t in rec["attach"]:
+        first.setdefault(gen, t)
+    swap_s = [first[g] - stamps[g - 1] for g in range(2, len(stamps) + 1)
+              if g in first]
+    gen_of = {p: g for p, g, _ in rec["attach"]}
+    spanning = [(p, n, st) for p, n, st in client.streams
+                if tuple(p) in rec["spanning"]]
+    assert spanning, "no stream was in flight at a swap"
+    checked = spanning[:CT_DIRECT]
+    for (p, n, st) in checked:
+        g = gen_of[tuple(p)]
+        want = direct_tokens(engine.module, [p], n,
+                             variables=rec["weights"][g])[0]
+        assert st.tokens == want, (g, st.tokens, want)
+    progs = job["cost"]["programs"]
+    dec, pre = progs["serve.decode"], progs["serve.prefill"]
+    dispatches = dec["dispatches"] + pre["dispatches"]
+    assert layers * dispatches == job["paged"], (job["paged"], dispatches)
+    tokens = sum(len(st.tokens) for _, _, st in client.streams)
+    assert dec["tokens"] == tokens, (dec["tokens"], tokens)
+    log(card, f"continual (a) serving job {job_id}: {len(client.streams)} "
+        f"greedy POST /generate streams ({tokens} tokens) on the job's "
+        f"published weights while it trained; {len(stamps)} saved_at stamps "
+        f"installed = kubeml_serve_weight_generation {len(stamps)} (one a "
+        f"stamp, the same engine); {len(spanning)} stream(s) in flight at a "
+        f"swap, {len(checked)} of them equal to a direct DecodeEngine on the "
+        f"weights they attached under; publish -> first admission on it "
+        f"{[round(s, 4) for s in swap_s]} s (min {min(swap_s):.4f}, median "
+        f"{statistics.median(swap_s):.4f}, max {max(swap_s):.4f}); paged "
+        f"kernel launches {job['paged']} = {layers} layers x ({dec['dispatches']}"
+        f" decode + {pre['dispatches']} prefill dispatches)")
+    log(card, f"continual (a) job {job_id} through `kubeml train --continual "
+        f"-e {CT_EPOCHS} --window-generations {CT_WINDOW} "
+        f"--publish-every-rounds {CT_PUBLISH} --goal-accuracy 200`: "
+        f"{len(epochs)} epochs, "
+        f"(dataset_generation, data_lag_generations) by epoch "
+        f"{[(g, lag) for g, lag, *_ in epochs]}; flash and merge launches = "
+        f"each epoch's plan, in all {launches}; (a) {job['seconds']:.3f} s")
+    launches["paged_attention"] = job["paged"]
+    return launches
+
+
+def ct_vision(torch, card, seed):
+    """(b): a direct continual ResNet-18 TrainJob from the sharded device
+    cache over three CIFAR-shaped generations and a window of 2: after
+    every epoch the cache's slabs equal a cold cache's of the same handle
+    (torch.equal on the card). Returns the merge's launches."""
+    from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    rng = np.random.default_rng(seed + 19)
+    reg = DatasetRegistry()
+    reg.create("cifar", *cifar_arrays(rng, CT_IMAGES),
+               *cifar_arrays(rng, CT_TEST_IMAGES))
+    buckets = resnet18_plan().n_buckets
+    uploads, rows, holder = [], [], {}
+    real_ensure = DeviceDatasetCache.ensure
+
+    def ensure(self, plan=None, W=0):
+        torch.cuda.synchronize()
+        sent, t0 = self.stats["h2d_bytes"], time.perf_counter()
+        moved = real_ensure(self, plan, W)
+        torch.cuda.synchronize()
+        if moved and self.incremental:
+            uploads.append((self.stats["h2d_bytes"] - sent,
+                            time.perf_counter() - t0, dict(self.stats)))
+        return moved
+
+    def publish(m):
+        n = fm.fused_merge_kernel.launches
+        fm.fused_merge_kernel.launches = 0
+        job = holder["job"]
+        cache = job._device_cache
+        plan = job._loader.plan(VIS_N, VIS_K, VIS_B)
+        W = job._loader.round_geometry(plan)[0]
+        cold = DeviceDatasetCache(
+            cache.handle, "cuda", n_lanes=cache.n_lanes, layout=cache.layout,
+            device_transform=cache.device_transform,
+            grow_quantum=cache.grow_quantum)
+        cold.ensure(plan, W)
+        equal = all(torch.equal(cache.arrays[k], cold.arrays[k])
+                    for k in ("x", "y"))
+        rows.append(dict(gen=m.dataset_generation,
+                         samples=cache.handle.train_samples,
+                         base=cache.handle.train_base, launches=n,
+                         rounds=len(plan.rounds), steps=plan.total_steps,
+                         sec=m.epoch_duration, equal=equal,
+                         cold_h2d=cold.stats["h2d_bytes"],
+                         jit=m.jit_compiles, loss=m.train_loss))
+        del cold
+        if len(rows) in (1, 3):      # grow after epoch 1, slide after 3
+            reg.append("cifar", *cifar_arrays(rng, CT_IMAGES))
+
+    task = vision_task("ct-vision", CT_VIS_EPOCHS, device_cache="on",
+                       continual=True, window_generations=CT_WINDOW)
+    DeviceDatasetCache.ensure = ensure
+    try:
+        holder["job"] = TrainJob(
+            task, get_model("resnet18")(), cifar_dataset(), device="cuda",
+            callbacks=JobCallbacks(publish_metrics=publish))
+        fm.fused_merge_kernel.launches = 0   # the main path's run starts
+        hist = holder["job"].train().data
+    finally:
+        DeviceDatasetCache.ensure = real_ensure
+    cache = holder["job"]._device_cache
+    assert cache is not None and cache.layout == "sharded" \
+        and cache.incremental, cache
+    assert [(r["gen"], r["samples"], r["base"]) for r in rows] == [
+        (1, CT_IMAGES, 0), (2, 2 * CT_IMAGES, 0), (2, 2 * CT_IMAGES, 0),
+        (3, 2 * CT_IMAGES, CT_IMAGES)], rows
+    assert all(r["equal"] for r in rows), "a refreshed slab differs"
+    assert all(r["launches"] == buckets * r["rounds"] for r in rows), rows
+    assert len(uploads) == 3, uploads          # first, grow, slide
+    assert all(np.isfinite(hist.train_loss)), hist.train_loss
+    for e, r in enumerate(rows):
+        log(card, f"continual (b) resnet18 epoch {e + 1} on generation "
+            f"{r['gen']}: window {r['samples']} images from absolute "
+            f"{r['base']}, {r['steps']} local steps in {r['rounds']} rounds, "
+            f"{r['sec']:.4f} s = {1e3 * r['sec'] / r['steps']:.3f} ms per "
+            f"local step, train loss {r['loss']:.4f}; slabs == a cold "
+            f"upload's (torch.equal); fused_merge launches {r['launches']} "
+            f"(= {buckets} buckets x {r['rounds']} rounds); jit_compiles "
+            f"{r['jit']}")
+    for (sent, sec, stats), what, cold in zip(
+            uploads[1:], ("grow (append)", "slide (window)"),
+            (rows[1]["cold_h2d"], rows[3]["cold_h2d"])):
+        log(card, f"continual (b) incremental refresh, {what}: {sent} B host "
+            f"to device in {1e3 * sec:.3f} ms against a cold upload's "
+            f"{cold} B ({100 * sent / cold:.1f} %); lanes_reused "
+            f"{stats['lanes_reused']}, lanes_refreshed "
+            f"{stats['lanes_refreshed']} (cumulative)")
+    before, after = rows[2], rows[3]
+    log(card, f"continual (b) ms per local step: {1e3 * before['sec'] / before['steps']:.3f}"
+        f" in the epoch before the slide (same window size, no refresh), "
+        f"{1e3 * after['sec'] / after['steps']:.3f} in the epoch after it "
+        f"(its incremental upload included)")
+    return sum(r["launches"] for r in rows)
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -4832,6 +5360,7 @@ def run(torch, seed) -> list:
     cluster = phase_cluster(torch, card, seed, module, direct)
     degraded = phase_degraded(torch, card, seed)
     cost = phase_cost(torch, card, seed, module, job_ms)
+    continual = phase_continual(torch, card, seed)
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -4846,6 +5375,9 @@ def run(torch, seed) -> list:
         # phase 17 serves with bf16 pages only
         "cost_launches": cost["paged_attention"] if pages == "bf16"
         else None,
+        # phase 18 serves with bf16 pages only
+        "continual_launches": continual["paged_attention"]
+        if pages == "bf16" else None,
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -4864,6 +5396,7 @@ def run(torch, seed) -> list:
         "cluster_launches": cluster[kernel],
         "degraded_launches": degraded[kernel],
         "cost_launches": cost[kernel],
+        "continual_launches": continual[kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -4879,6 +5412,8 @@ def run(torch, seed) -> list:
                 cluster_launches=cluster["fused_merge"],
                 degraded_launches=degraded["fused_merge"],
                 cost_launches=cost["fused_merge"],
+                continual_launches=sum(continual["fused_merge"].values()),
+                continual_launches_by_model=continual["fused_merge"],
                 resnet18=vision_merge)], card
 
 
@@ -4917,6 +5452,13 @@ def main(argv=None) -> int:
                          "threaded job, a job-server child and a 2-replica "
                          "fleet), printing its launches as one JSON line "
                          "and no result line")
+    ap.add_argument("--continual-only", action="store_true",
+                    help="build the kernels and run phase 18 alone (the "
+                         "continual mode: appends while a gpt-mini job "
+                         "trains and publishes into a live fleet, and a "
+                         "ResNet-18 job's incremental cache refresh), "
+                         "printing its launches as one JSON line and no "
+                         "result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -4979,6 +5521,11 @@ def main(argv=None) -> int:
                                "cuda")
             print(json.dumps({"card": card, "cost": phase_cost(
                 torch, card, args.seed, module)}))
+            return 0
+        if args.continual_only:
+            card = start(torch)
+            print(json.dumps({"card": card, "continual": phase_continual(
+                torch, card, args.seed)}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

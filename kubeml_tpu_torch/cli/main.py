@@ -30,12 +30,15 @@ Options whose module is not ported still parse, and are refused where the
 port refuses them, naming the ROADMAP item that brings them: ``train``
 runs the job's own check (``train.job.reject_unported``) before it
 submits; ``serve`` refuses the JAX package's multi-host flags and
-multi-step or speculative decode; the controller refuses ``dataset
-append`` and ``cost``. ``serve --role all`` takes the cluster allocator's
-``--cluster-*`` flags and the durable control plane's ``--control-*``
-(a second start on the same ``--control-dir`` recovers); ``--role
-scheduler`` takes ``--cluster-*``. A refusal prints ``error: ...`` and exits non-zero, as every
-failed verb does.
+multi-step or speculative decode. ``dataset append`` commits a
+generation of a continual dataset, and ``train --continual`` (``-e 0``
+for an unbounded loop, ``--window-generations``,
+``--publish-every-rounds``) trains its sliding window. ``serve --role
+all`` takes the cluster allocator's ``--cluster-*`` flags and the durable
+control plane's ``--control-*`` (a second start on the same
+``--control-dir`` recovers); ``--role scheduler`` takes ``--cluster-*``.
+A refusal prints ``error: ...`` and exits non-zero, as every failed verb
+does.
 """
 
 from __future__ import annotations

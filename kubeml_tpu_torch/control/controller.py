@@ -6,6 +6,8 @@ controller.py; parity with ml/pkg/controller/api.go:16-42):
     GET    /dataset            -> dataset summaries (storageApi.go:70-189)
     POST   /dataset/{name}     -> proxied to the storage service
                                   (storageApi.go:35-67 ReverseProxy)
+    POST   /dataset/{name}/append -> proxied to the storage service with
+                                  its ?generation=/?retention= query
     DELETE /dataset/{name}     -> storage service delete
     GET    /dataset/{name}     -> single summary
     GET    /tasks              -> PS task list (tasksApi.go:10-36)
@@ -22,9 +24,6 @@ controller.py; parity with ml/pkg/controller/api.go:16-42):
     GET    /cluster            -> scheduler /cluster (the allocator's
                                   snapshot; 503 without cluster mode)
     GET    /health             (the gateway's own liveness)
-
-Refused with the error envelope until its module is ported: POST
-/dataset/{name}/append (the continual mode, ROADMAP A.4.5).
 """
 
 from __future__ import annotations
@@ -32,10 +31,10 @@ from __future__ import annotations
 import logging
 import tempfile
 from typing import Optional
+from urllib.parse import urlencode
 
 from kubeml_tpu_torch.api.errors import KubeMLException
-from kubeml_tpu_torch.control.httpd import (JsonService, Request, http_json,
-                                            not_ported)
+from kubeml_tpu_torch.control.httpd import JsonService, Request, http_json
 from kubeml_tpu_torch.data.registry import DatasetRegistry
 from kubeml_tpu_torch.models import model_names
 from kubeml_tpu_torch.train.functionlib import FunctionRegistry
@@ -63,6 +62,7 @@ class Controller(JsonService):
         self.route("POST", "/infer", self._h_infer)
         self.route("GET", "/dataset", self._h_dataset_list)
         self.route("GET", "/dataset/{name}", self._h_dataset_get)
+        self.route("POST", "/dataset/{name}/append", self._h_dataset_append)
         self.route("POST", "/dataset/{name}", self._h_dataset_create)
         self.route("DELETE", "/dataset/{name}", self._h_dataset_delete)
         self.route("GET", "/tasks", self._h_tasks)
@@ -75,10 +75,6 @@ class Controller(JsonService):
         self.route("GET", "/functions/{name}", self._h_fn_get)
         self.route("POST", "/functions/{name}", self._h_fn_create)
         self.route("DELETE", "/functions/{name}", self._h_fn_delete)
-        # the job's 400 for the continual mode; 501 for the rest
-        self.route("POST", "/dataset/{name}/append",
-                   not_ported("POST /dataset/{name}/append",
-                              "the continual mode, ROADMAP A.4.5", 400))
         self.route("GET", "/trace/{jobId}", self._h_trace)
         # /health stays the gateway's own liveness probe; the job-health
         # verdict gets its own path segment
@@ -123,6 +119,17 @@ class Controller(JsonService):
         (storageApi.go:35-67)."""
         url = f"{self._need(self.storage_url, 'storage service')}" \
               f"/dataset/{req.params['name']}"
+        return http_json("POST", url, raw_body=req.raw,
+                         content_type=req.headers.get("Content-Type", ""),
+                         timeout=600)
+
+    def _h_dataset_append(self, req: Request):
+        """Reverse-proxy a generation-tagged append, keeping the
+        ?generation=/?retention= query the storage service validates."""
+        url = f"{self._need(self.storage_url, 'storage service')}" \
+              f"/dataset/{req.params['name']}/append"
+        if req.query:
+            url += "?" + urlencode(req.query)
         return http_json("POST", url, raw_body=req.raw,
                          content_type=req.headers.get("Content-Type", ""),
                          timeout=600)

@@ -34,9 +34,11 @@ Rule set (thresholds of the JAX package; all overridable per evaluator):
 and the serving, cluster, continual and control-plane rules, which fire
 only on the snapshot fields of their planes, never on training samples.
 The PS feeds the serving rules from each fleet's merged snapshot
-(``serve:<model>``) and the cluster and control-plane rules from the
-scheduler's allocator snapshot (``cluster``); no port module publishes
-the continual rules' fields yet (ROADMAP A.4.5).
+(``serve:<model>``), the cluster and control-plane rules from the
+scheduler's allocator snapshot (``cluster``), and the continual rule
+(``data_staleness``) from a continual job's MetricUpdates, whose
+(``dataset_generation``, ``data_lag_generations``) pair the job fills
+after every epoch.
 """
 
 from __future__ import annotations

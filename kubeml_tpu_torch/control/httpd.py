@@ -8,8 +8,7 @@ before its response bytes go out (``_reply`` observes, then writes), so a
 scrape that follows a response always counts it. The JAX package counts
 in a ``finally`` after the write, where a scrape right after a response
 can miss it. A streamed response is still counted when its last chunk
-is written. ``not_ported`` is the port's own: the handler of a route
-whose module is not ported yet.
+is written.
 """
 
 from __future__ import annotations
@@ -24,8 +23,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional
 
-from kubeml_tpu_torch.api.errors import (KubeMLException, NotPortedError,
-                                         check_error)
+from kubeml_tpu_torch.api.errors import KubeMLException, check_error
 from kubeml_tpu_torch.metrics.prom import HttpMetrics
 from kubeml_tpu_torch.utils.trace import (TRACE_HEADER, get_trace_context,
                                           set_trace_context)
@@ -298,13 +296,6 @@ class JsonService:
     @property
     def port(self) -> int:
         return self._port
-
-
-def not_ported(what: str, brings: str, status: int = 501) -> Callable:
-    """A route handler that refuses with the not-ported envelope."""
-    def handler(req: "Request"):
-        raise NotPortedError(what, brings, status)
-    return handler
 
 
 class Request:

@@ -26,8 +26,19 @@ dataset is eligible when its host ``transform_train`` is the identity, or
 when it has a ``transform_train_device`` twin (models/base.KubeDataset)
 that the round applies to the gathered leaves on the device.
 
-Not ported: ``refresh`` and ``incremental``/``grow_quantum`` (they come
-with the continual mode).
+The continual mode refreshes the cache as its window slides
+(``refresh(handle)``, then ``ensure``): the cache keys its layout on the
+handle's absolute window (``train_base``, ``train_samples``), and an
+``incremental`` cache re-lays out lane by lane on ABSOLUTE sample ranges.
+Appends never rewrite a retained sample, so a lane's overlap with its
+previous absolute range is bit-identical content: it is copied from the
+previous device slab on the device, and only the samples that slid in are
+read from the mmap and sent host to device (a grown lane sends its tail,
+an unchanged lane nothing). The JAX package keeps a host copy of the
+slabs for that overlap and re-sends the whole slab; on one card the old
+slab is already on the device, so the port keeps no host copy and sends
+only what is new. ``grow_quantum`` rounds the slab width up, so growth
+within the quantum keeps ``signature``.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ class DeviceDatasetCache:
     def __init__(self, handle: Optional[DatasetHandle],
                  device: torch.device, n_lanes: int = 1,
                  layout: str = "sharded",
-                 device_transform: Optional[Callable] = None):
+                 device_transform: Optional[Callable] = None,
+                 incremental: bool = False, grow_quantum: int = 0):
         if layout not in LAYOUTS:
             raise ValueError(
                 f"layout must be 'sharded' or 'replicated', got {layout!r}")
@@ -71,7 +83,19 @@ class DeviceDatasetCache:
         #: bytes resident per lane after the last upload
         self.device_bytes = 0
         self._plan_key = None
-        self.stats: Dict[str, int] = {"uploads": 0}
+        #: reuse each lane's overlap with its previous absolute range
+        #: (the continual refresh)
+        self.incremental = bool(incremental)
+        #: round each lane's slab width up to this many samples, so
+        #: window growth within the quantum keeps ``signature`` (0: exact)
+        self.grow_quantum = int(grow_quantum)
+        #: per lane, the absolute [lo, hi) sample range of the last layout
+        self._lane_abs: List[Tuple[int, int]] = []
+        #: cumulative layout accounting (the continual freshness figures);
+        #: h2d_bytes counts the bytes sent host to device
+        self.stats: Dict[str, int] = {
+            "uploads": 0, "lanes_reused": 0, "lanes_refreshed": 0,
+            "h2d_bytes": 0}
 
     # ------------------------------------------------------------- estimates
 
@@ -100,19 +124,23 @@ class DeviceDatasetCache:
 
     # --------------------------------------------------------------- uploads
 
-    def _put(self, host: Dict[str, np.ndarray]) -> None:
-        def tensor(a: np.ndarray) -> torch.Tensor:
-            a = np.asarray(a)
-            if not (a.flags.writeable and a.flags.c_contiguous):
-                a = np.array(a)          # a read-only mmap: one host copy
-            return torch.from_numpy(a).to(self.device)
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        a = np.asarray(a)
+        if not (a.flags.writeable and a.flags.c_contiguous):
+            a = np.array(a)              # a read-only mmap: one host copy
+        self.stats["h2d_bytes"] += int(a.nbytes)
+        return torch.from_numpy(a).to(self.device)
 
-        self.arrays = {k: tensor(v) for k, v in host.items()}
+    def _set_arrays(self, arrays: Dict[str, torch.Tensor]) -> None:
+        self.arrays = arrays
         per_lane = 1 if self.layout == "replicated" else self.n_lanes
         self.device_bytes = sum(
             a.numel() * a.element_size() for a in self.arrays.values()
         ) // per_lane
         self.stats["uploads"] += 1
+
+    def _put(self, host: Dict[str, np.ndarray]) -> None:
+        self._set_arrays({k: self._to_device(v) for k, v in host.items()})
 
     @classmethod
     def from_arrays(cls, device, arrays: Dict[str, np.ndarray],
@@ -176,12 +204,14 @@ class DeviceDatasetCache:
 
     def ensure(self, plan: Optional[EpochPlan] = None, W: int = 0) -> bool:
         """Make the device arrays serve this epoch's plan; True when an
-        upload happened (the first epoch, or, sharded only, a parallelism
-        change that moved the lane boundaries). The replicated layout
-        uploads once: the permutation lives in the index plan."""
+        upload happened: the first epoch, a refresh that moved the
+        handle's absolute window, or (sharded only) a parallelism change
+        that moved the lane boundaries. The replicated layout is
+        plan-independent: the permutation lives in the index plan."""
         x_mm, y_mm = self.handle.train_arrays()
+        base = int(self.handle.train_base)
         if self.layout == "replicated":
-            key = ("rep", int(len(x_mm)))
+            key = ("rep", base, int(len(x_mm)))
             if self.arrays is not None and key == self._plan_key:
                 return False
             self._put({"x": x_mm, "y": y_mm})
@@ -191,22 +221,66 @@ class DeviceDatasetCache:
             raise ValueError("sharded layout needs (plan, W) to lay out "
                              "the lane slabs")
         lane_lo, lane_hi = self._lane_ranges(plan, W)
-        key = (tuple(lane_lo), tuple(lane_hi),
+        key = (tuple(lane_lo), tuple(lane_hi), base,
                int(self.handle.train_samples))
         if key == self._plan_key:
             return False
         L = max(1, max(h - l for l, h in zip(lane_lo, lane_hi)))
+        if self.grow_quantum > 1:
+            L = -(-L // self.grow_quantum) * self.grow_quantum
+        abs_ranges = [(base + lo, base + hi)
+                      for lo, hi in zip(lane_lo, lane_hi)]
+        prev = self.arrays if self.incremental else None
+        prev_abs = self._lane_abs if prev is not None else []
+        # per lane, the absolute overlap with its previous range: copied
+        # on the device; the rest of the lane comes from the mmap
+        overlap = []
+        for d, (alo, ahi) in enumerate(abs_ranges):
+            olo = ohi = alo
+            if d < len(prev_abs):
+                olo = max(alo, prev_abs[d][0])
+                ohi = min(ahi, prev_abs[d][1])
+            overlap.append((olo, ohi) if olo < ohi else None)
 
-        def slab(src: np.ndarray) -> np.ndarray:
-            out = np.zeros((self.n_lanes, L) + src.shape[1:], src.dtype)
+        def slab(name: str, src: np.ndarray) -> torch.Tensor:
+            dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
+            out = torch.zeros((self.n_lanes, L) + src.shape[1:],
+                              dtype=dtype, device=self.device)
             for d, (lo, hi) in enumerate(zip(lane_lo, lane_hi)):
-                out[d, : hi - lo] = src[lo:hi]
+                alo = abs_ranges[d][0]
+                if overlap[d] is None:
+                    pieces = [(lo, hi)]
+                else:
+                    olo, ohi = overlap[d]
+                    plo = prev_abs[d][0]
+                    out[d, olo - alo: ohi - alo] = \
+                        prev[name][d, olo - plo: ohi - plo]
+                    pieces = [(lo, lo + (olo - alo)),
+                              (lo + (ohi - alo), hi)]
+                for a, b in pieces:
+                    if a < b:
+                        out[d, a - lo: b - lo] = self._to_device(src[a:b])
             return out
 
-        self._put({"x": slab(x_mm), "y": slab(y_mm)})
+        self._set_arrays({"x": slab("x", x_mm), "y": slab("y", y_mm)})
         self.lane_starts = np.asarray(lane_lo, np.int64)
         self._plan_key = key
+        # a live lane counts as reused when its whole range came from the
+        # previous slab
+        live = [d for d in range(self.n_lanes) if lane_hi[d] > lane_lo[d]]
+        reused = sum(1 for d in live if overlap[d] == abs_ranges[d])
+        self._lane_abs = abs_ranges
+        self.stats["lanes_reused"] += reused
+        self.stats["lanes_refreshed"] += len(live) - reused
         return True
+
+    def refresh(self, handle: DatasetHandle) -> None:
+        """Point the cache at a fresh registry handle (the continual
+        refresh between epochs). Invalidation is lazy: the next
+        ``ensure`` compares the new handle's absolute window with the last
+        layout and re-lays out only what moved (per lane for sharded
+        slabs, the whole split for replicated)."""
+        self.handle = handle
 
     # ------------------------------------------------------------------ keys
 

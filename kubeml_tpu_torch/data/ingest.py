@@ -1,8 +1,7 @@
-"""Dataset ingest (copy of kubeml_tpu/data/ingest.py's ``load_array_file``
-and ``ingest_files``): the four files of the storage service's upload
-path (x-train, y-train, x-test, y-test) in .npy or .pkl, validated and
-registered. Appending a generation (``append_files``) comes with the
-continual mode."""
+"""Dataset ingest (copy of kubeml_tpu/data/ingest.py): the four files of
+the storage service's upload path (x-train, y-train, x-test, y-test) in
+.npy or .pkl, validated and registered, and the two train files of a
+generation-tagged append."""
 
 from __future__ import annotations
 
@@ -60,3 +59,21 @@ def ingest_files(name: str, x_train: str, y_train: str,
             f"{list(arrays['x_test'].shape[1:])}")
     return registry.create(name, arrays["x_train"], arrays["y_train"],
                            arrays["x_test"], arrays["y_test"])
+
+
+def append_files(name: str, x_train: str, y_train: str,
+                 generation: Optional[int] = None,
+                 retention_generations: int = 0,
+                 registry: Optional[DatasetRegistry] = None) -> DatasetHandle:
+    """Append one generation-tagged train chunk (two files) to a live
+    dataset; the registry refuses shape/dtype drift and non-monotonic
+    generation tags with 400s before anything is committed."""
+    registry = registry or DatasetRegistry()
+    arrays = {}
+    for key, path in (("x_train", x_train), ("y_train", y_train)):
+        if not os.path.isfile(path):
+            raise InvalidFormatError(f"{key} file not found: {path}")
+        arrays[key] = load_array_file(path)
+    return registry.append(name, arrays["x_train"], arrays["y_train"],
+                           generation=generation,
+                           retention_generations=retention_generations)

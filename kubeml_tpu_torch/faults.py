@@ -30,9 +30,10 @@ round, worker):
            force the non-finite guard to quarantine the target worker from
            the round on (needs quarantine_after > 0 and a worker).
   stale_data
-           suppress the continual registry poll after the target epoch;
-           parsed and counted here, its effect belongs to the continual
-           mode (ROADMAP A.4.5).
+           suppress the continual job's window slide after the target
+           epoch: the registry poll still sees the new generation, so the
+           lag grows deterministically and the data_staleness health rule
+           fires without wall-clock races.
 
 The job wires the plan in: ``inject_batch`` wraps the host batch (nan),
 the plan itself is the round hook for the rest.

@@ -92,6 +92,17 @@ gives the weights of an uninterrupted run bit for bit; a cursor whose
 worker count or round no longer fits the epoch is discarded and the
 epoch replays from round 0.
 
+Kept too: the continual mode (``continual``, ``window_generations``,
+``publish_every_rounds``, with the JAX package's 400s,
+``check_continual_options``). Between epochs the job polls the registry
+(``_continual_refresh``): a newer generation swaps a fresh handle, over
+the newest ``window_generations`` when set, into the loader and the
+device cache, whose next ``ensure`` re-lays out only the lanes whose
+absolute sample range moved. ``epochs <= 0`` runs an unbounded epoch
+loop; every MetricUpdate carries the (trained generation, registry lag)
+pair; every ``publish_every_rounds`` rounds the round-cursor save writes
+a stamped checkpoint, which the PS's fleet hot-swaps into serving.
+
 Options whose module is not ported yet raise KubeMLException(400) naming
 the option and the ROADMAP item that brings it (``reject_unported``);
 none is quietly ignored.
@@ -100,6 +111,7 @@ none is quietly ignored.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 import threading
@@ -164,28 +176,48 @@ class JobCallbacks:
 # what brings each refused option, by ROADMAP item
 SYNCDP = "the SyncDP engine, ROADMAP A.11"
 MODEL_PARALLEL = "model parallelism over NCCL ranks, ROADMAP A.6 and A.12"
-CONTINUAL = "the continual mode, ROADMAP A.4.5"
 
 
 def reject_unported(opts) -> None:
     """400 for every option whose module the port has not ported yet (the
-    job runs it first; ``kubeml train`` runs it before submitting)."""
+    job runs it after check_continual_options; ``kubeml train`` runs it
+    before submitting)."""
     def refuse(option: str, brings: str):
         raise NotPortedError(option, brings)
 
     if opts.engine == "syncdp":
         refuse("engine='syncdp'", SYNCDP)
-    if opts.engine != "kavg":
-        raise KubeMLException(f"unknown training engine {opts.engine!r}; "
-                              "expected 'kavg' or 'syncdp'", 400)
     if opts.fsdp:
         refuse("fsdp", SYNCDP)
     for name in ("n_model", "n_seq", "n_stage", "n_expert"):
         if int(getattr(opts, name)) > 1:
             refuse(f"{name} > 1", MODEL_PARALLEL)
-    for name in ("continual", "window_generations", "publish_every_rounds"):
-        if getattr(opts, name):
-            refuse(name, CONTINUAL)
+
+
+def check_continual_options(opts) -> None:
+    """The continual mode's option checks and the engine's, with the JAX
+    package's 400s in its order. The job runs them before any other
+    check, so a misconfigured job 400s before it loads data."""
+    window, pub_rounds = opts.window_generations, opts.publish_every_rounds
+    if window < 0 or pub_rounds < 0:
+        raise KubeMLException(
+            "window_generations and publish_every_rounds must be "
+            f">= 0 (got {window}, {pub_rounds})", 400)
+    if not opts.continual and (window or pub_rounds):
+        raise KubeMLException(
+            "window_generations / publish_every_rounds require "
+            "--continual: both describe the sliding-window loop "
+            "(a one-shot job trains its dataset snapshot as-is)", 400)
+    if opts.engine not in ("kavg", "syncdp"):
+        raise KubeMLException(f"unknown training engine {opts.engine!r}; "
+                              "expected 'kavg' or 'syncdp'", 400)
+    if pub_rounds > 0 and opts.engine != "kavg":
+        raise KubeMLException(
+            "publish_every_rounds requires the kavg engine: the "
+            "round-cadence publish rides the round-granular "
+            "checkpoint machinery (weights + round cursor), which "
+            "syncdp's persistent device optimizer state cannot "
+            "represent", 400)
 
 
 def check_degraded_options(opts) -> None:
@@ -342,6 +374,9 @@ class TrainJob:
         # runs (utils/chaos.py); a fault_plan composes with it, plan first
         self.round_hook = round_hook
         self._fault_plan = None
+        # the continual mode (options.continual), set by _init_model
+        self._continual = False
+        self._window_generations = 0
         # the all-workers-dropped streak spans epochs; the per-epoch
         # totals go to the history and the MetricUpdate
         self._all_dropped_rounds = 0
@@ -426,7 +461,14 @@ class TrainJob:
                             epochs, parallelism)
 
             last_ckpt_epoch = -1
-            for epoch in range(self._start_epoch, epochs):
+            continual = self._continual
+            # a continual job with epochs <= 0 never finishes on its own:
+            # stop, preemption and the goal accuracy are its exits;
+            # epochs > 0 stays a total cap
+            epoch_iter = (itertools.count(self._start_epoch)
+                          if continual and epochs <= 0
+                          else iter(range(self._start_epoch, epochs)))
+            for epoch in epoch_iter:
                 t0 = time.time()
                 built = _build.load_seconds()
                 used_parallelism = parallelism
@@ -440,7 +482,8 @@ class TrainJob:
                     0.0, elapsed - (_build.load_seconds() - built))
                 self.task.parallelism = parallelism
 
-                if not opts.static_parallelism and epoch < epochs - 1:
+                if not opts.static_parallelism and (
+                        continual or epoch < epochs - 1):
                     new_p = self.callbacks.request_parallelism(self.task)
                     if new_p and not _limit_parallelism():
                         parallelism = max(1, int(new_p))
@@ -493,6 +536,10 @@ class TrainJob:
                     self._log("job %s reached goal accuracy %.2f", job_id,
                                 accuracy)
                     break
+                if continual:
+                    # appended generations slide the window under the same
+                    # loop: the next epoch's plan and cache read the handle
+                    self._continual_refresh(epoch)
 
             if not self.history.accuracy or \
                     self.history.accuracy[-1] != self.history.accuracy[-1]:
@@ -675,12 +722,20 @@ class TrainJob:
             hbm_peak_bytes=self._hbm.peak_bytes,
             hbm_in_use_bytes=self._hbm.in_use_bytes,
             trace_events_dropped=self.tracer.dropped_events,
-            dataset_generation=0, data_lag_generations=-1,
+            # the freshness pair; a lag of -1 marks a one-shot job
+            dataset_generation=(self._trained_generation
+                                if self._continual else 0),
+            data_lag_generations=(self._registry_generation
+                                  - self._trained_generation
+                                  if self._continual else -1),
             cost_programs=self._cost_snapshot()))
 
     def _init_model(self) -> None:
         opts = self.req.options
+        check_continual_options(opts)
         reject_unported(opts)
+        self._continual = bool(opts.continual)
+        self._window_generations = int(opts.window_generations)
         merge_dtype = opts.merge_dtype or ""
         merge_compress = opts.merge_compress or "none"
         merge_bucket_mb = float(opts.merge_bucket_mb)
@@ -696,8 +751,12 @@ class TrainJob:
                 "merge_dtype and merge_compress are mutually exclusive: "
                 "merge_dtype is a plain lossy wire cast, merge_compress "
                 "is error-feedback compression with residual carry", 400)
-        handle = self.registry.get(self.req.dataset)
+        handle = self._open_handle()
         self._handle = handle
+        # trained vs registry generation: the freshness pair behind the
+        # kubeml_data_lag_generations gauge and the data_staleness rule
+        self._trained_generation = int(handle.generation)
+        self._registry_generation = self._trained_generation
         check_degraded_options(opts)
         if opts.fault_plan:
             from kubeml_tpu_torch.faults import FaultPlan
@@ -869,7 +928,52 @@ class TrainJob:
             return
         self._device_cache = DeviceDatasetCache(
             handle, self.device, n_lanes=self.n_lanes, layout=layout,
-            device_transform=dev_hook if not identity else None)
+            device_transform=dev_hook if not identity else None,
+            # a continual job's window slides: reuse each lane's overlap,
+            # and round slab widths up so growth within the quantum keeps
+            # the cache's signature (the engine's program key)
+            incremental=self._continual,
+            grow_quantum=512 if self._continual else 0)
+
+    def _open_handle(self):
+        """The dataset at its committed generation: the newest
+        ``window_generations`` of it for a continual job that sets one."""
+        if self._continual and self._window_generations > 0:
+            return self.registry.get(
+                self.req.dataset,
+                window_generations=self._window_generations)
+        return self.registry.get(self.req.dataset)
+
+    def _continual_refresh(self, epoch: int) -> None:
+        """The continual job's registry poll between epochs: a newer
+        generation (or a moved window) swaps a fresh handle into the
+        loader and the device cache, which are idle here, and advances
+        the trained generation. A registry failure keeps the current
+        window; a ``stale_data`` fault sees the registry move on (the lag
+        grows) without sliding the window."""
+        try:
+            fresh = self._open_handle()
+        except Exception as e:
+            self._log("job %s: continual registry poll failed (%s); "
+                      "keeping generation %d", self.task.job_id, e,
+                      self._trained_generation)
+            return
+        self._registry_generation = int(fresh.generation)
+        if self._fault_plan is not None and \
+                self._fault_plan.stale_at(epoch):
+            return
+        if (self._registry_generation == self._trained_generation
+                and fresh.train_samples == self._handle.train_samples):
+            return
+        self._log("job %s: continual refresh — generation %d -> %d "
+                  "(%d train samples)", self.task.job_id,
+                  self._trained_generation, self._registry_generation,
+                  fresh.train_samples)
+        self._handle = fresh
+        self._loader.handle = fresh
+        if self._device_cache is not None:
+            self._device_cache.refresh(fresh)
+        self._trained_generation = self._registry_generation
 
     def _log_cache_payload(self, W: int, S: int, B: int) -> None:
         """One-time log of what the index path saves per round: the
@@ -892,12 +996,14 @@ class TrainJob:
     def _rounds_per_dispatch(self) -> int:
         """Rounds per engine call (options.rounds_per_dispatch), or 1
         where per-round host control is the point: a round hook, the
-        guard's per-round flags and mask edits, the round cursor."""
+        guard's per-round flags and mask edits, the round cursor (of the
+        checkpoint cadence and of the continual publish cadence)."""
         opts = self.req.options
         R = max(1, int(opts.rounds_per_dispatch))
         if R > 1 and (self.round_hook is not None
                       or opts.quarantine_after > 0 or opts.abort_after > 0
-                      or opts.checkpoint_every_rounds > 0):
+                      or opts.checkpoint_every_rounds > 0
+                      or opts.publish_every_rounds > 0):
             return 1
         return R
 
@@ -999,6 +1105,11 @@ class TrainJob:
         self._guard = guard
         self._epoch_reassigned = 0
         ckpt_rounds = int(opts.checkpoint_every_rounds)
+        # the continual publish cadence: every P rounds a stamped
+        # checkpoint through the same async round-cursor save, which the
+        # serving plane hot-swaps on its saved_at stamp
+        pub_rounds = int(opts.publish_every_rounds) if self._continual \
+            else 0
         dev_losses, dev_dropped, dev_stats, dev_spread = [], [], [], []
         stat_rounds = 0
         step_counts = np.zeros(0)
@@ -1101,8 +1212,9 @@ class TrainJob:
                 continue
             rounds_done = rb.round_index + 1
             self._progress = (epoch, rounds_done)
-            if (ckpt_rounds and rounds_done % ckpt_rounds == 0
-                    and self.checkpoint):
+            due = ((ckpt_rounds and rounds_done % ckpt_rounds == 0)
+                   or (pub_rounds and rounds_done % pub_rounds == 0))
+            if due and self.checkpoint:
                 # the cursor's readback syncs on the partial loss sums:
                 # the cost the cadence opts into
                 self._checkpointer.save(

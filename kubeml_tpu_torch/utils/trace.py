@@ -36,6 +36,7 @@ import gzip
 import json
 import logging
 import os
+import tempfile
 import threading
 import time
 import uuid
@@ -234,7 +235,10 @@ class TraceSink:
     dead one's partial timeline). Writes are atomic (tmp + rename), so the
     merger never reads a torn file, and the whole file is rewritten on
     each flush: callers flush per epoch, keeping a crash-survivable
-    partial trace on disk.
+    partial trace on disk. Each write stages through a tmp file of its
+    own (``mkstemp`` beside the target): two sinks of one process on one
+    path (a fleet that lost the PS's build race flushes as it stops,
+    while the winner flushes) never rename each other's tmp away.
     """
 
     def __init__(self, job_id: str, process: str,
@@ -244,8 +248,8 @@ class TraceSink:
         self.dir = trace_dir(job_id, home)
         self.path = os.path.join(
             self.dir, f"{process}-{os.getpid()}.trace.json")
-        # concurrent flushers share one pid-suffixed tmp name; serialize
-        # so a rename never races another writer's rename of it
+        # one tracer snapshot per write at a time: a later flush never
+        # lands before an earlier one of the same sink
         self._write_lock = threading.Lock()
 
     def write(self, tracer: Tracer) -> str:
@@ -267,10 +271,18 @@ class TraceSink:
                             # merged timeline then says it is partial
                             "dropped_events": tracer.dropped_events}}
         os.makedirs(self.dir, exist_ok=True)
-        tmp = f"{self.path}.tmp.{pid}"
-        with open(tmp, "w") as f:
-            json.dump(doc, f)
-        os.replace(tmp, self.path)
+        fd, tmp = tempfile.mkstemp(
+            dir=self.dir, prefix=os.path.basename(self.path) + ".tmp.")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, self.path)
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
         return self.path
 
 

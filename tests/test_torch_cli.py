@@ -387,7 +387,8 @@ def test_cli_validation_errors(stack, capsys):
 
 
 TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
-# item None: the degraded-mode flags (ROADMAP A.4.5, landed) reach the job
+# item None: the degraded-mode and continual flags and ``dataset append``
+# (ROADMAP A.4.5, landed) reach the job and the storage service
 REFUSED = [
     (TRAIN + ["--engine", "syncdp"], "ROADMAP A.11"),
     (TRAIN + ["--engine", "syncdp", "--fsdp"], "ROADMAP A.11"),
@@ -395,11 +396,11 @@ REFUSED = [
     (TRAIN + ["--seq-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--expert-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.6 and A.12"),
-    (TRAIN + ["--continual"], "ROADMAP A.4.5"),
+    (TRAIN + ["--continual"], None),
     (TRAIN + ["--quarantine-after", "2"], None),
     (TRAIN + ["--checkpoint-every-rounds", "3"], None),
     (["dataset", "append", "-n", "blobs", "--traindata", "{xtr}",
-      "--trainlabels", "{ytr}"], "ROADMAP A.4.5"),
+      "--trainlabels", "{ytr}"], None),
     (["serve", "--coordinator", "h:1"], "ROADMAP A.7"),
     (["serve", "--num-processes", "2"], "ROADMAP A.7"),
     (["serve", "--process-id", "0"], "ROADMAP A.7"),
@@ -407,10 +408,8 @@ REFUSED = [
     (["serve", "--serve-decode-steps", "2"], "ROADMAP A.1"),
     (["serve", "--serve-draft-model", "m"], "ROADMAP A.1"),
     (["serve", "--role", "ps", "--serve-decode-steps", "4"], "ROADMAP A.1"),
-    (TRAIN + ["--continual", "--window-generations", "2"],
-     "ROADMAP A.4.5"),
-    (TRAIN + ["--continual", "--publish-every-rounds", "3"],
-     "ROADMAP A.4.5"),
+    (TRAIN + ["--continual", "--window-generations", "2"], None),
+    (TRAIN + ["--continual", "--publish-every-rounds", "3"], None),
     (TRAIN + ["--quarantine-after", "2", "--reassign-on-quarantine"],
      None),
 ]
@@ -424,6 +423,16 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
     dep, paths, _ = stack
     _create_blobs(dep, paths)
     capsys.readouterr()
+    if item is None and argv[0] == "dataset":
+        # a generation of the continual mode, committed and reported
+        from kubeml_tpu_torch.data.registry import DatasetRegistry
+
+        run_cli(dep, *[a.format(**paths) for a in argv])
+        n = len(np.load(paths["xtr"]))
+        assert capsys.readouterr().out.strip() == (
+            f"appended to dataset blobs (generation=2, train={2 * n})")
+        assert DatasetRegistry().get("blobs").generation == 2
+        return
     if item is None:
         # submitted: the job runs with the options the flags set
         from kubeml_tpu_torch.train.history import HistoryStore
@@ -435,10 +444,13 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
         rec = HistoryStore().get(job_id)
         opts = rec.task.options
         assert (opts.quarantine_after, opts.checkpoint_every_rounds,
-                opts.reassign_on_quarantine) == (
+                opts.reassign_on_quarantine, opts.continual,
+                opts.window_generations, opts.publish_every_rounds) == (
             2 if "--quarantine-after" in argv else 0,
             3 if "--checkpoint-every-rounds" in argv else 0,
-            "--reassign-on-quarantine" in argv)
+            "--reassign-on-quarantine" in argv, "--continual" in argv,
+            2 if "--window-generations" in argv else 0,
+            3 if "--publish-every-rounds" in argv else 0)
         assert rec.data.quarantined_workers == [0]
         assert rec.data.reassigned_batches == [0]
         assert dep.ps.errors == {}

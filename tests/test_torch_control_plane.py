@@ -252,13 +252,13 @@ def test_duplicate_upload_fails_alike(plane):
     assert codes[0] == codes[1] == 500
 
 
-# brings None: the preemption and cost routes (ROADMAP A.17 and A.13,
-# landed) answer as the JAX package's: an unknown job is 404, a task
-# without fields 500
+# brings None: the preemption, cost and append routes (ROADMAP A.17,
+# A.13 and A.4.5, landed) answer as the JAX package's: an unknown job is
+# 404, a task without fields 500, an append that is not multipart 400
 REFUSED = [
     ("controller", "GET", "/cost/x", 404, None),
-    ("controller", "POST", "/dataset/blobs/append", 400, "continual mode"),
-    ("storage", "POST", "/dataset/blobs/append", 400, "continual mode"),
+    ("controller", "POST", "/dataset/blobs/append", 400, None),
+    ("storage", "POST", "/dataset/blobs/append", 400, None),
     ("scheduler", "POST", "/requeue", 500, None),
     ("ps", "GET", "/cost?id=x", 404, None),
     ("ps", "POST", "/preempt/x", 404, None),

@@ -32,8 +32,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from tests.test_torch_job import (_blobs, _blobs_dataset, _final_params,
-                                  _mlp, _seed_mlp_checkpoint, _tasks)
+from test_torch_job import (_blobs, _blobs_dataset, _final_params,
+                            _mlp, _seed_mlp_checkpoint, _tasks)
 
 pytestmark = pytest.mark.torch_port
 

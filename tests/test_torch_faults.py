@@ -17,8 +17,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from tests.test_torch_job import (_blobs_dataset, _final_params, _mlp,
-                                  _run_both, _tasks, _Windows)
+from test_torch_job import (_blobs_dataset, _final_params, _mlp,
+                            _run_both, _tasks, _Windows)
 
 pytestmark = pytest.mark.torch_port
 

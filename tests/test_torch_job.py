@@ -306,6 +306,9 @@ REJECTED = {
 DEGRADED = ("fault_plan", "quarantine_after", "abort_after",
             "reassign_on_quarantine", "checkpoint_every_rounds",
             "round_hook")
+# the continual mode's options (ROADMAP A.4.5, landed): ``continual``
+# trains; the two knobs without it are the JAX package's 400
+CONTINUAL_KNOBS = ("window_generations", "publish_every_rounds")
 
 
 def _port_job(job_id="p1", callbacks=None, round_hook=None, dataset=None,
@@ -341,7 +344,8 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     finished = []
     callbacks = JobCallbacks(
         on_finish=lambda jid, err: finished.append((jid, err)))
-    if option in DEGRADED and option != "reassign_on_quarantine":
+    if option == "continual" or (option in DEGRADED
+                                 and option != "reassign_on_quarantine"):
         hooked = []
         job = _port_job(callbacks=callbacks,
                         round_hook=(lambda rb: hooked.append(rb) or rb)
@@ -373,6 +377,10 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     elif option == "reassign_on_quarantine":
         assert "requires the kavg engine with quarantine_after > 0" \
             in e.value.message
+    elif option in CONTINUAL_KNOBS:
+        assert e.value.message.startswith(
+            "window_generations / publish_every_rounds require "
+            "--continual")
     else:
         assert "not ported yet" in e.value.message
     assert option.split("_")[0] in e.value.message

@@ -18,6 +18,7 @@ package's.
 import json
 import os
 import re
+import sys
 import threading
 
 import numpy as np
@@ -221,6 +222,65 @@ def test_sink_files_equal_the_references(tmp_home):
         doc["metadata"].pop("job_id")
         doc["traceEvents"][0]["args"].pop("name")
     assert docs["port"] == docs["ref"]
+
+
+def test_two_sinks_on_one_path_flush_from_threads_without_loss(tmp_home):
+    """Two sinks of one process on one path (a fleet that lost the PS's
+    build race flushes as it stops, while the winner flushes), each
+    flushed from three threads at once: no write raises, a reader only
+    ever sees a whole document of one of the sinks, and no staging file
+    is left behind."""
+    from kubeml_tpu_torch.utils.trace import TraceSink, Tracer
+
+    sinks = [TraceSink("serve:m", "fleet") for _ in range(2)]
+    assert sinks[0].path == sinks[1].path
+    tracers = []
+    for i in range(2):
+        tr = Tracer(clock=FakeClock(), trace_id=f"t{i}")
+        for _ in range(50 * (i + 1)):
+            with tr.span("decode"):
+                pass
+        tracers.append(tr)
+    errors, seen, done = [], set(), threading.Event()
+
+    def flush(i):
+        try:
+            for _ in range(40):
+                sinks[i].write(tracers[i])
+        except Exception as e:  # noqa: BLE001 — the assertion reports it
+            errors.append(e)
+
+    def read():
+        while not done.is_set():
+            try:
+                with open(sinks[0].path) as f:
+                    doc = json.load(f)
+            except FileNotFoundError:
+                continue
+            except ValueError as e:     # a torn document
+                errors.append(e)
+                return
+            seen.add((doc["metadata"]["trace_id"], len(doc["traceEvents"])))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)       # interleave the threads finely
+    try:
+        reader = threading.Thread(target=read)
+        reader.start()
+        writers = [threading.Thread(target=flush, args=(i,))
+                   for i in (0, 1) for _ in range(3)]
+        for t in writers:
+            t.start()
+        for t in writers:
+            t.join(60)
+        done.set()
+        reader.join(60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in writers + [reader])
+    assert errors == []
+    assert seen <= {("t0", 51), ("t1", 101)} and seen
+    assert os.listdir(sinks[0].dir) == [os.path.basename(sinks[0].path)]
 
 
 def test_torch_profile_capture_is_merged(tmp_home):
