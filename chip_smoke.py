@@ -335,6 +335,35 @@ Phases (any failure exits non-zero and prints no result line):
               lanes_reused and lanes_refreshed, the ms per local step
               before and after the slide, and the merge's launches
               (buckets x rounds).
+ 19. spec     multi-step and speculative decode: (a) phase 3's batch and
+              geometry, bf16 then int8 pages, under three engines —
+              decode_steps=4, a self-draft (gpt-mini drafting for itself,
+              4 proposals a verify call) and a disagreeing draft
+              (gpt-mini from seed + 11) — each batch's greedy tokens equal
+              phase 3's, and two sampled requests (32 new tokens at
+              temperatures 0.8 and 1.1) equal the single step's bit for
+              bit, profiled to count the host readbacks (device DtoH
+              copies) per decode dispatch. (b) the batch as 8 streaming
+              POST /generate through a deployment started from `kubeml
+              serve`'s flags --serve-decode-steps 4 --serve-draft-model
+              <id> (the disagreeing draft, saved as a checkpoint): tokens
+              equal phase 3's, /metrics' draft/accepted/rejected counters
+              equal the engine's, the snapshot's accepted per dispatch
+              equals accepted / verify dispatches. (c) in every run the
+              launches equal the plan: paged = layers x (single decode +
+              prefill + 4 x multi-step + 2 x 5 x verify dispatches), the
+              flash forward = draft layers x 4 x verify dispatches; the
+              ledger's serve.multi_step / serve.spec_verify dispatches
+              equal the engine's. (d) ROADMAP C.3 (open): a bf16 engine at
+              page size 12, under attn_impl "auto" and "kernel", is
+              refused at construction naming the rule, before any slab
+              is allocated (no route to the plain version on the card).
+              Prints tokens/s, mean TTFT, dispatches per token, accepted
+              tokens per verify dispatch and host readbacks per dispatch
+              for each mode and page type, and the all-decode steady
+              state alone (8 one-token prompts, bf16 pages): tokens/s
+              and ms per dispatch of the single step, multi-step and the
+              self-draft, equal tokens.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -354,7 +383,11 @@ launches in phase 16 (0 for the paged kernel), "cost_launches", its
 launches through phase 17's (a) and (c) (null for int8 pages, which phase
 17 does not serve), and "continual_launches", its launches in phase 18
 (null for int8 pages; the merge's over gpt-mini and ResNet-18, split in
-"continual_launches_by_model"); the merge's "resnet18"
+"continual_launches_by_model"), and "spec_launches" (phase 19's two
+speculative runs per page type for the paged kernel, both page types'
+for the flash forward, 0 for the others) with "spec_ps_launches" (phase
+19 (b)); the paged kernel's entries also carry "multi_launches", phase
+19's multi-step run; the merge's "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
@@ -399,6 +432,11 @@ ms per local step stands alone), printing its launches as one JSON line.
 
 builds the kernels and runs phase 18 alone, printing its launches as one
 JSON line.
+
+    python3 chip_smoke.py --spec-only
+
+builds the paged and flash kernels and runs phases 3 and 19 alone,
+printing phase 19's launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -5272,6 +5310,360 @@ def ct_vision(torch, card, seed):
     return sum(r["launches"] for r in rows)
 
 
+# ----------------------------------------------------------------- phase 19
+SPEC_K = 4                  # decode steps of the multi-step program, and
+                            # the proposals of a verify call
+SPEC_DRAFT_SEED = 11        # the disagreeing draft: gpt-mini at seed + 11
+SPEC_DRAFT_ID = "gpt-mini-draft"
+SPEC_SAMPLED = ((1, 0.8, 5), (2, 1.1, 9))   # (prompt index, temp, seed)
+SPEC_MODES = ("multi", "self-draft", "other-draft")
+SPEC_PROFILED = 2           # steady-state steps profiled for readbacks
+
+
+def spec_engine_kw(mode, module, other):
+    if mode == "multi":
+        return {"decode_steps": SPEC_K}
+    draft = module if mode == "self-draft" else other
+    return {"draft_module": draft, "draft_variables": draft.state_dict()}
+
+
+def spec_sampled(torch, module, prompts, kv_dtype, **kw):
+    """The two sampled requests on a DecodeEngine of phase 3's geometry:
+    (tokens, host readbacks counted as the device's DtoH copies over the
+    first SPEC_PROFILED steps once no prompt token is left to prefill,
+    and the decode dispatches of those steps; (None, 0) when the
+    profiler saw no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.slots import GenerateRequest
+
+    eng = DecodeEngine(module, slots=8, page=16, prefill_chunk=16,
+                       kv_dtype=kv_dtype, **kw)
+    reqs = [GenerateRequest(prompts[i], max_new_tokens=NEW_TOKENS,
+                            temperature=t, seed=sd)
+            for i, t, sd in SPEC_SAMPLED]
+    for r in reqs:
+        eng.attach(r)
+    dtoh, disp, seen = 0, 0, False
+    profiled = 0
+    while eng.active():
+        if profiled < SPEC_PROFILED and eng.prefill_backlog_tokens() == 0:
+            d0 = eng.stats["dispatches"]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            events = [ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+            seen = seen or bool(events)
+            dtoh += sum(1 for ev in events if "DtoH" in ev.name)
+            disp += eng.stats["dispatches"] - d0
+            profiled += 1
+        else:
+            eng.step()
+    assert all(r.outcome == "ok" and len(r.tokens) == NEW_TOKENS
+               for r in reqs), [(r.outcome, r.error) for r in reqs]
+    return [r.tokens for r in reqs], (dtoh if seen else None), disp
+
+
+def spec_readbacks(dtoh, disp) -> str:
+    return "not measured" if dtoh is None or not disp \
+        else f"{dtoh / disp:g} ({dtoh} DtoH copies over {disp})"
+
+
+def spec_plan(st, layers, draft_layers):
+    """The kernels' launches a run's counters call for: the paged kernel
+    once a layer per single decode step and prefill call, K times per
+    multi-step call, 2(Kv+1) times per verify call; the flash forward
+    once a draft layer per proposal."""
+    single = st["dispatches"] - st["multi_step_dispatches"] \
+        - st["verify_dispatches"]
+    paged = layers * (single + st["prefill_dispatches"]
+                      + SPEC_K * st["multi_step_dispatches"]
+                      + 2 * (SPEC_K + 1) * st["verify_dispatches"])
+    return paged, draft_layers * SPEC_K * st["verify_dispatches"]
+
+
+def phase_spec(torch, card, seed, module, direct):
+    """Multi-step and speculative decode on the card (see the module
+    docstring, phase 19); returns the kernels' launches by page type and
+    mode."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    other = build_gpt(torch, "gpt-mini", seed + SPEC_DRAFT_SEED,
+                      torch.bfloat16, "cuda")
+    out = {pages: spec_direct(torch, card, seed, module, other, kv,
+                              direct[pages], pages)
+           for pages, kv in (("bf16", "f32"), ("int8", "int8"))}
+    spec_steady(torch, card, seed, module, other)
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = os.path.join(tmp, "home")
+        try:
+            out["ps"] = spec_ps(card, seed, module, direct["bf16"])
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+    spec_route(torch, card, module)
+    log(card, f"spec phase: {time.perf_counter() - t0:.3f} s; launches: "
+        f"{out}")
+    return out
+
+
+def spec_direct(torch, card, seed, module, other, kv_dtype, ref, pages):
+    """(a) and (c) for one page type: phase 3's batch timed under the
+    single step and each mode in turns — bf16 pages twice (A B C D D C B
+    A), int8 pages once between two single-step runs (A B C D A): two
+    calls land on different cards and this host's time spreads, so only
+    runs of one process compare — then the sampled pair under each
+    mode."""
+    from kubeml_tpu_torch.ops.flash_attention import fa_fwd_kernel
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.service import ServeService
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    launches, rates = {}, {}
+    order = ("single",) + SPEC_MODES
+    turns = order + (order[::-1] if pages == "bf16" else ("single",))
+    for mode in turns:
+        kw = {} if mode == "single" else spec_engine_kw(mode, module, other)
+        svc = ServeService("gpt-mini", DecodeEngine(
+            module, slots=8, page=16, prefill_chunk=16, kv_dtype=kv_dtype,
+            **kw)).start()
+        try:
+            paged_attention.launches = 0     # the main path's run ...
+            fa_fwd_kernel.launches = 0
+            t0 = time.perf_counter()
+            reqs = serve_batch(svc, prompts, shared)
+            wall = time.perf_counter() - t0
+            got = (paged_attention.launches,    # ... ends here
+                   fa_fwd_kernel.launches)
+        finally:
+            svc.stop()
+        eng = svc.engine
+        st = eng.stats
+        assert [r.tokens for r in reqs] == ref["tokens"], \
+            f"{mode}: tokens differ from phase 3's"
+        draft_layers = kw["draft_module"].layers if "draft_module" in kw \
+            else 0
+        plan = spec_plan(st, module.layers, draft_layers)
+        assert got == plan, (mode, got, plan, st)
+        tokens = sum(len(r.tokens) for r in reqs)
+        ttft = 1e3 * statistics.mean(r.first_token_at - r.submitted_at
+                                     for r in reqs)
+        line = (f"spec {pages} pages, {mode}: {len(reqs)} requests, "
+                f"{tokens} tokens in {wall:.4f} s = {tokens / wall:.2f} "
+                f"tokens/s, mean TTFT {ttft:.3f} ms, dispatches per token "
+                f"{eng.dispatches_per_token:.4f} ({st['dispatches']} "
+                f"decode-lane: {st['multi_step_dispatches']} multi-step, "
+                f"{st['verify_dispatches']} verify; "
+                f"{st['prefill_dispatches']} prefill), launches paged "
+                f"{got[0]} flash forward {got[1]} = the plan; tokens equal "
+                f"phase 3's")
+        rates.setdefault(mode, []).append(tokens / wall)
+        if mode == "single":
+            log(card, line)
+            continue
+        program = "serve.multi_step" if mode == "multi" \
+            else "serve.spec_verify"
+        lane = "multi_step_dispatches" if mode == "multi" \
+            else "verify_dispatches"
+        assert st[lane] > 0, (mode, st)
+        assert eng.ledger.snapshot()[program]["dispatches"] == st[lane]
+        launches.setdefault(mode, {"paged": got[0], "flash_forward": got[1]})
+        if mode != "multi":
+            # accepted counts every lane of a call; draft_tokens / K is
+            # the lanes verified
+            lanes = st["draft_tokens"] // SPEC_K
+            line += (f"; accepted per verify dispatch "
+                     f"{eng.accepted_per_dispatch:.4f} over "
+                     f"{lanes / st['verify_dispatches']:.3f} lanes = "
+                     f"{st['accepted_tokens'] / lanes:.4f} a lane (draft "
+                     f"{st['draft_tokens']}, accepted "
+                     f"{st['accepted_tokens']}, rejected "
+                     f"{st['rejected_tokens']})")
+        log(card, line)
+    log(card, f"spec {pages} pages: tokens/s by mode, in turns: "
+        + ", ".join(f"{m} " + " / ".join(f"{r:.2f}" for r in runs)
+                    for m, runs in rates.items())
+        + f" (phase 3 {ref['tokens_per_s']:.2f})")
+
+    base, dtoh, disp = spec_sampled(torch, module, prompts, kv_dtype)
+    log(card, f"spec {pages} pages, single step: host readbacks per "
+        f"decode dispatch {spec_readbacks(dtoh, disp)} (sampled pair, "
+        f"{SPEC_PROFILED} steady-state steps profiled)")
+    for mode in SPEC_MODES:
+        sampled, dtoh, disp = spec_sampled(
+            torch, module, prompts, kv_dtype,
+            **spec_engine_kw(mode, module, other))
+        assert sampled == base, f"{mode}: sampled tokens differ"
+        log(card, f"spec {pages} pages, {mode}: the sampled pair equals "
+            f"the single step's bit for bit; host readbacks per decode "
+            f"dispatch {spec_readbacks(dtoh, disp)}")
+    return launches
+
+
+def spec_steady(torch, card, seed, module, other):
+    """The all-decode steady state alone: 8 one-token prompts (no prefill,
+    so every decode round is the mode's own program), 32 new tokens each,
+    bf16 pages, on a DecodeEngine driven directly (no serving thread),
+    timed to a synchronize, single step, multi-step and the self-draft
+    twice in turns."""
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.slots import GenerateRequest
+
+    rng = np.random.default_rng(seed + 19)
+    prompts = [[int(t)] for t in rng.integers(1, module.vocab_size, 8)]
+    order = ("single", "multi", "self-draft")
+    rates, toks = {}, {}
+    for mode in order + order[::-1]:
+        kw = {} if mode == "single" else spec_engine_kw(mode, module, other)
+        eng = DecodeEngine(module, slots=8, page=16, prefill_chunk=16, **kw)
+        reqs = [GenerateRequest(p, max_new_tokens=NEW_TOKENS)
+                for p in prompts]
+        for r in reqs:
+            eng.attach(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.active():
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [r.tokens for r in reqs]
+        assert toks.setdefault("single", got) == got, \
+            f"{mode}: steady-state tokens differ from the single step's"
+        st = eng.stats
+        rates.setdefault(mode, []).append(
+            (st["generated_tokens"] / wall, st["dispatches"],
+             1e3 * wall / st["dispatches"]))
+    log(card, "spec steady state (8 one-token prompts x 32 tokens, bf16 "
+        "pages, engine driven directly): tokens/s, decode dispatches, ms "
+        "per dispatch by mode, in turns: " + "; ".join(
+            f"{m} " + " / ".join(f"{r:.2f} tok/s {d} disp {ms:.3f} ms"
+                                 for r, d, ms in runs)
+            for m, runs in rates.items()) + "; tokens equal across modes")
+
+
+def spec_ps(card, seed, module, ref):
+    """(b): phase 3's batch through POST /generate on a deployment started
+    from `kubeml serve`'s own flags --serve-decode-steps 4
+    --serve-draft-model <id> (the CLI's parser makes the kwargs)."""
+    import urllib.request
+
+    from kubeml_tpu_torch.cli.main import _serve_knobs, build_parser
+    from kubeml_tpu_torch.control.deployment import start_deployment
+    from kubeml_tpu_torch.convert import random_flax_params
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.ops.flash_attention import fa_fwd_kernel
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.train.checkpoint import save_checkpoint
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    save_mini(seed)
+    save_checkpoint(SPEC_DRAFT_ID, {"params": random_flax_params(
+        **GPT_CONFIGS[PS_MODEL], seed=seed + SPEC_DRAFT_SEED)},
+        {"model": PS_MODEL, "function": PS_MODEL})
+    args = build_parser().parse_args([
+        "serve", "--serve-slots", "8", "--serve-prefill-chunk", "16",
+        "--serve-decode-steps", str(SPEC_K), "--serve-draft-model",
+        SPEC_DRAFT_ID])
+    dep = start_deployment(**_serve_knobs(args))
+    try:
+        url = dep.ps.url
+        warm = GenStream(url, gen_body(prompts[0], 4)).start().join()
+        assert warm.status == 200, warm.last          # builds the fleet
+        fleet = dep.ps._serve[PS_MODEL][1]
+        (_, eng), = fleet.engines()
+        assert (eng.decode_steps, eng.spec_steps, eng.spec_window) == \
+            (SPEC_K, SPEC_K, 512)
+        st0 = dict(eng.stats)
+        paged_attention.launches = 0     # the main path's run starts here
+        fa_fwd_kernel.launches = 0
+        t0 = time.perf_counter()
+        streams = [GenStream(url, gen_body(p, NEW_TOKENS)).start()
+                   for p in prompts]
+        streams[prompts.index(shared)].first.wait(300)
+        streams.append(GenStream(url, gen_body(shared, NEW_TOKENS)).start())
+        for stream in streams:
+            stream.join()
+        wall = time.perf_counter() - t0
+        got = (paged_attention.launches, fa_fwd_kernel.launches)  # ends
+        assert [stream.tokens for stream in streams] == ref["tokens"], \
+            "POST /generate tokens differ from phase 3's"
+        d = {k: eng.stats[k] - st0[k] for k in (
+            "dispatches", "prefill_dispatches", "multi_step_dispatches",
+            "verify_dispatches")}
+        plan = spec_plan(d, module.layers, module.layers)
+        assert got == plan, (got, plan, d)
+        fams = ("draft", "accepted", "rejected")
+
+        def scraped():
+            text = urllib.request.urlopen(f"{url}/metrics").read().decode()
+            vals = {}
+            for line in text.splitlines():
+                for f in fams:
+                    head = (f'kubeml_serve_{f}_tokens_total'
+                            f'{{model="{PS_MODEL}"}}')
+                    if line.startswith(head + " "):
+                        vals[f] = float(line.split()[-1])
+            return vals
+
+        want = {f: float(eng.stats[f"{f}_tokens"]) for f in fams}
+        wait_until(lambda: scraped() == want, "the speculative counters "
+                   "on /metrics")
+        snap = fleet.snapshot()
+        ratio = round(eng.stats["accepted_tokens"]
+                      / eng.stats["verify_dispatches"], 6)
+        assert snap["serve_accepted_per_dispatch"] == ratio, \
+            (snap["serve_accepted_per_dispatch"], ratio)
+        tokens = sum(len(stream.tokens) for stream in streams)
+        log(card, f"spec through POST /generate (--serve-decode-steps "
+            f"{SPEC_K} --serve-draft-model {SPEC_DRAFT_ID}, bf16 pages): "
+            f"{len(streams)} streams, {tokens} tokens in {wall:.4f} s = "
+            f"{tokens / wall:.2f} tokens/s, client mean TTFT "
+            f"{1e3 * statistics.mean(s.ttft for s in streams):.3f} ms; "
+            f"tokens equal phase 3's; {d['verify_dispatches']} verify, "
+            f"{d['multi_step_dispatches']} multi-step dispatches; /metrics "
+            f"draft/accepted/rejected {want} = the engine's; snapshot "
+            f"accepted per dispatch {ratio}; launches paged {got[0]} flash "
+            f"forward {got[1]} = the plan")
+        return {"paged": got[0], "flash_forward": got[1]}
+    finally:
+        dep.stop()
+
+
+def spec_route(torch, card, module):
+    """(d) ROADMAP C.3 (open): a bf16 engine at page size 12 (not a
+    multiple of 8) is refused at construction on the card under
+    attn_impl "auto" and "kernel", naming the rule, before any slab is
+    allocated: the port has no route to the plain version on the card."""
+    from kubeml_tpu_torch.ops.paged_attention import paged_attention
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+
+    before = torch.cuda.memory_allocated()
+    launches = paged_attention.launches
+    whys = []
+    for impl in ("auto", "kernel"):
+        try:
+            DecodeEngine(module, slots=2, page=12, prefill_chunk=12,
+                         attn_impl=impl)
+            raise AssertionError(f"attn_impl={impl!r} took page size 12")
+        except ValueError as e:
+            whys.append(str(e))
+    assert all("page size 12 is not a multiple of 8" in w for w in whys), \
+        whys
+    assert torch.cuda.memory_allocated() == before
+    assert paged_attention.launches == launches
+    log(card, f"spec C.3: a bf16 engine at 12-token pages is refused at "
+        f"construction under 'auto' and 'kernel', no slab allocated, no "
+        f"launch: {whys[0]}")
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -5361,6 +5753,8 @@ def run(torch, seed) -> list:
     degraded = phase_degraded(torch, card, seed)
     cost = phase_cost(torch, card, seed, module, job_ms)
     continual = phase_continual(torch, card, seed)
+    spec = phase_spec(torch, card, seed, module, direct)
+    drafts = ("self-draft", "other-draft")
 
     paged = [{
         "name": f"paged_attention ({pages} pages)",
@@ -5378,6 +5772,12 @@ def run(torch, seed) -> list:
         # phase 18 serves with bf16 pages only
         "continual_launches": continual["paged_attention"]
         if pages == "bf16" else None,
+        # phase 19: the multi-step run, the two speculative runs, and
+        # (bf16 pages only) the run through POST /generate
+        "multi_launches": spec[pages]["multi"]["paged"],
+        "spec_launches": sum(spec[pages][m]["paged"] for m in drafts),
+        "spec_ps_launches": spec["ps"]["paged"] if pages == "bf16"
+        else None,
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -5397,6 +5797,13 @@ def run(torch, seed) -> list:
         "degraded_launches": degraded[kernel],
         "cost_launches": cost[kernel],
         "continual_launches": continual[kernel],
+        # phase 19: the drafts' forwards (B=8, T=512) of both page types'
+        # speculative runs, and of the run through POST /generate
+        "spec_launches": sum(spec[p][m]["flash_forward"]
+                             for p in ("bf16", "int8") for m in drafts)
+        if kernel == "forward" else 0,
+        "spec_ps_launches": spec["ps"]["flash_forward"]
+        if kernel == "forward" else 0,
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -5414,6 +5821,7 @@ def run(torch, seed) -> list:
                 cost_launches=cost["fused_merge"],
                 continual_launches=sum(continual["fused_merge"].values()),
                 continual_launches_by_model=continual["fused_merge"],
+                spec_launches=0, spec_ps_launches=0,
                 resnet18=vision_merge)], card
 
 
@@ -5459,6 +5867,11 @@ def main(argv=None) -> int:
                          "ResNet-18 job's incremental cache refresh), "
                          "printing its launches as one JSON line and no "
                          "result line")
+    ap.add_argument("--spec-only", action="store_true",
+                    help="build the kernels and run phases 3 and 19 alone "
+                         "(multi-step and speculative decode, direct and "
+                         "through POST /generate), printing their "
+                         "launches as one JSON line and no result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -5526,6 +5939,15 @@ def main(argv=None) -> int:
             card = start(torch)
             print(json.dumps({"card": card, "continual": phase_continual(
                 torch, card, args.seed)}))
+            return 0
+        if args.spec_only:
+            card = start(torch, ["paged_attention", "flash_attention"])
+            module = build_gpt(torch, PS_MODEL, args.seed, torch.bfloat16,
+                               "cuda")
+            direct = {p: phase_serve(torch, card, args.seed, module, kv)
+                      for p, kv in (("bf16", "f32"), ("int8", "int8"))}
+            print(json.dumps({"card": card, "spec": phase_spec(
+                torch, card, args.seed, module, direct)}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

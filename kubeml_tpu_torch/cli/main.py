@@ -29,8 +29,9 @@ the port, raises without a card unless it is given ``cpu``.
 Options whose module is not ported still parse, and are refused where the
 port refuses them, naming the ROADMAP item that brings them: ``train``
 runs the job's own check (``train.job.reject_unported``) before it
-submits; ``serve`` refuses the JAX package's multi-host flags and
-multi-step or speculative decode. ``dataset append`` commits a
+submits; ``serve`` refuses the JAX package's multi-host flags.
+``serve --serve-decode-steps K --serve-draft-model ID`` turns on the
+multi-step and speculative decode programs. ``dataset append`` commits a
 generation of a continual dataset, and ``train --continual`` (``-e 0``
 for an unbounded loop, ``--window-generations``,
 ``--publish-every-rounds``) trains its sliding window. ``serve --role
@@ -691,12 +692,10 @@ def cmd_top(args):
 # --------------------------------------------------------------------- serve
 
 def _refuse_unported_serve_flags(args) -> None:
-    """The JAX package's multi-host flags and multi-step or speculative
-    decode parse but refuse any value but their default, naming the
-    ROADMAP item that brings them. The durable control plane runs with
-    --role all only: a single role would drop its flags silently."""
-    from kubeml_tpu_torch.control.ps import refuse_unported_decode
-
+    """The JAX package's multi-host flags parse but refuse any value but
+    their default, naming the ROADMAP item that brings them. The durable
+    control plane runs with --role all only: a single role would drop its
+    flags silently."""
     for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag) is not None:
             _fail(f"--{flag.replace('_', '-')} is not ported yet to "
@@ -707,11 +706,6 @@ def _refuse_unported_serve_flags(args) -> None:
     if args.role != "all" and (args.control_durable or args.control_dir):
         _fail("--control-durable and --control-dir need --role all (the "
               "scheduler's and the PS's state recover together)")
-    try:
-        refuse_unported_decode(args.serve_decode_steps,
-                               args.serve_draft_model)
-    except ValueError as e:
-        _fail(str(e))
 
 
 def _serve_knobs(args) -> dict:
@@ -1148,10 +1142,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--serve-decode-steps", type=int, default=None,
                    metavar="K",
                    help="fused decode steps per dispatch in the all-"
-                        "decode steady state: K>1 compiles a scan-over-K"
-                        " decode program that emits K tokens per "
-                        "dispatch, bit-identical to K single steps "
-                        "(KUBEML_SERVE_DECODE_STEPS, default 1)")
+                        "decode steady state: K>1 runs K decode steps "
+                        "on the device per dispatch, with one read of "
+                        "the tokens back to the host, emitting up to K "
+                        "tokens per slot bit-identical to K single "
+                        "steps (KUBEML_SERVE_DECODE_STEPS, default 1)")
     s.add_argument("--serve-draft-model", default=None, metavar="NAME",
                    help="registered model used as the speculative-decode"
                         " draft: it proposes tokens that one target "

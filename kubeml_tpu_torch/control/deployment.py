@@ -38,8 +38,7 @@ from kubeml_tpu_torch.control.cluster import (ClusterAllocator,
                                               parse_tenant_spec)
 from kubeml_tpu_torch.control.controller import Controller
 from kubeml_tpu_torch.control.journal import DecisionJournal
-from kubeml_tpu_torch.control.ps import (ParameterServer,
-                                         refuse_unported_decode)
+from kubeml_tpu_torch.control.ps import ParameterServer
 from kubeml_tpu_torch.control.scheduler import Scheduler
 from kubeml_tpu_torch.control.storage import StorageService
 
@@ -142,8 +141,7 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
     ``kubeml_tpu_torch.train.jobserver`` process; job_partitions gives
     concurrent standalone jobs an env dict each (CUDA_VISIBLE_DEVICES),
     naming at most the cards present. The serve_* knobs (SERVE_KNOBS) go
-    to the PS's serving plane, except multi-step and speculative decode,
-    which raise ValueError naming the ROADMAP item that brings them.
+    to the PS's serving plane.
 
     cluster_lanes > 0 turns on the cluster allocator (control/cluster.py)
     over that many shared worker lanes, with cluster_tenants
@@ -159,8 +157,6 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
         if knob not in SERVE_KNOBS:
             raise TypeError(f"start_deployment() got an unexpected keyword "
                             f"argument {knob!r}")
-    refuse_unported_decode(serve.get("serve_decode_steps"),
-                           serve.get("serve_draft_model"))
     if device is None:
         # checked up front, not at the first job: the parent of
         # standalone jobs never touches the card itself

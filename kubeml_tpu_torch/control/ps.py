@@ -79,8 +79,10 @@ as a new weight generation, with no stream dropped. The fleet's merged
 snapshot feeds ``/health?id=serve:<model>`` and the serve families of
 /metrics; each replica and the router write their spans under the
 ``serve:<model>`` trace. The ``serve_*`` knobs (constructor or
-``KUBEML_SERVE_*``) have the JAX package's defaults; multi-step and
-speculative decode are refused (ROADMAP A.1).
+``KUBEML_SERVE_*``) have the JAX package's defaults;
+``serve_decode_steps`` > 1 turns on the multi-step decode program and
+``serve_draft_model`` (a checkpoint id) speculative decode with that
+model as the draft.
 
 Durable control plane (``state_dir``): the standalone-job registry and
 the fleets (checkpoint stamp, replica count) are mirrored to
@@ -139,22 +141,6 @@ from kubeml_tpu_torch.utils.trace import (TRACE_HEADER, TraceSink, Tracer,
                                           merge_job_trace)
 
 logger = logging.getLogger("kubeml_tpu_torch.ps")
-
-UNPORTED_DECODE = "multi-step and speculative decode, ROADMAP A.1"
-
-
-def refuse_unported_decode(decode_steps, draft_model) -> None:
-    """Raise ValueError for the serve knobs whose programs are not ported:
-    decode_steps other than 1 (None = unset) and a draft model."""
-    if decode_steps is not None and int(decode_steps) != 1:
-        raise ValueError(
-            f"serve_decode_steps={decode_steps} is not ported yet to "
-            f"kubeml_tpu_torch (comes with {UNPORTED_DECODE})")
-    if draft_model:
-        raise ValueError(
-            f"serve_draft_model={draft_model!r} is not ported yet to "
-            f"kubeml_tpu_torch (comes with {UNPORTED_DECODE})")
-
 
 def _knob(value, env: str, default: str):
     """A serve knob: the argument, else its KUBEML_SERVE_* variable, else
@@ -924,9 +910,9 @@ class ParameterServer(JsonService):
                           restart_budget, probe_requests, hedge_after_s,
                           slo_ttft_ms, slo_tpot_ms, slo_target) -> None:
         """The serving plane's knobs, each from its argument, its
-        KUBEML_SERVE_* variable or the JAX package's default. The
-        multi-step and speculative decode programs are not ported: any
-        other decode_steps than 1, or a draft model, raises ValueError."""
+        KUBEML_SERVE_* variable or the JAX package's default: K fused
+        decode steps per dispatch (1 = single step) and an optional draft
+        model id that turns on speculative decode."""
         self.serve_slots = int(_knob(slots, "KUBEML_SERVE_SLOTS", "8"))
         self.serve_queue_depth = int(_knob(queue_depth, "KUBEML_SERVE_QUEUE",
                                            "16"))
@@ -936,9 +922,10 @@ class ParameterServer(JsonService):
             prefill_chunk, "KUBEML_SERVE_PREFILL_CHUNK", "16"))
         self.serve_kv_dtype = str(_knob(kv_dtype, "KUBEML_SERVE_KV_DTYPE",
                                         "f32"))
-        refuse_unported_decode(
-            _knob(decode_steps, "KUBEML_SERVE_DECODE_STEPS", "1"),
-            _knob(draft_model, "KUBEML_SERVE_DRAFT_MODEL", ""))
+        self.serve_decode_steps = int(_knob(
+            decode_steps, "KUBEML_SERVE_DECODE_STEPS", "1"))
+        self.serve_draft_model = str(_knob(
+            draft_model, "KUBEML_SERVE_DRAFT_MODEL", ""))
         if prefix_cache is None:
             prefix_cache = os.environ.get(
                 "KUBEML_SERVE_PREFIX_CACHE", "on").lower() \
@@ -978,6 +965,13 @@ class ParameterServer(JsonService):
         def factory(index: int) -> ServeService:
             _, module = self._load_for_infer(model_id)
             try:
+                draft_module = draft_variables = None
+                if self.serve_draft_model:
+                    # a broken draft checkpoint or an incompatible draft
+                    # trunk is a client error like any bad serve knob
+                    _, draft_module = self._load_for_infer(
+                        self.serve_draft_model)
+                    draft_variables = draft_module.state_dict()
                 engine = DecodeEngine(
                     module,
                     geom=PageGeometry.for_module(
@@ -985,6 +979,9 @@ class ParameterServer(JsonService):
                         max_len=module.max_len),
                     prefill_chunk=self.serve_prefill_chunk,
                     kv_dtype=self.serve_kv_dtype,
+                    decode_steps=self.serve_decode_steps,
+                    draft_module=draft_module,
+                    draft_variables=draft_variables,
                     prefix_cache=self.serve_prefix_cache,
                     # production posture: a pager invariant violation is
                     # logged and counted, never raised mid-stream

@@ -550,6 +550,23 @@ class MetricsRegistry:
             "kubeml_serve_kv_bytes_total",
             "KV-cache bytes moved by decode dispatches (deterministic "
             "geometry-based proxy), by served model", "model")
+        # speculative decoding's token flow: draft proposals in,
+        # verifier-kept tokens out (accepted prefix + bonus pick per
+        # dispatch), proposals rolled back. Counters, never timers:
+        # accepted / verify dispatches is the accepted-per-dispatch proxy
+        self.serve_draft_tokens_total = Counter(
+            "kubeml_serve_draft_tokens_total",
+            "Tokens proposed by the speculative draft model, by served "
+            "model", "model")
+        self.serve_accepted_tokens_total = Counter(
+            "kubeml_serve_accepted_tokens_total",
+            "Speculative tokens kept per verify dispatch (accepted "
+            "prefix plus the bonus target pick), by served model",
+            "model")
+        self.serve_rejected_tokens_total = Counter(
+            "kubeml_serve_rejected_tokens_total",
+            "Draft proposals rejected by the verifier and rolled back "
+            "as data, by served model", "model")
         # the weight generation new admissions attach to (advances on
         # every zero-downtime hot-swap)
         self.serve_weight_generation = Gauge(
@@ -769,6 +786,8 @@ class MetricsRegistry:
             self.serve_prefix_hits_total, self.serve_prefix_misses_total,
             self.serve_engine_restarts_total, self.serve_poisoned_total,
             self.serve_page_leaks_total, self.serve_kv_bytes_total,
+            self.serve_draft_tokens_total, self.serve_accepted_tokens_total,
+            self.serve_rejected_tokens_total,
             self.serve_fleet_spills_total,
             self.serve_fleet_router_retries_total,
             self.serve_fleet_cold_starts_total,
@@ -940,6 +959,15 @@ class MetricsRegistry:
     def note_serve_kv_bytes(self, model: str, n: int) -> None:
         self.serve_kv_bytes_total.inc(model, n)
 
+    def note_serve_draft_tokens(self, model: str, n: int) -> None:
+        self.serve_draft_tokens_total.inc(model, n)
+
+    def note_serve_accepted_tokens(self, model: str, n: int) -> None:
+        self.serve_accepted_tokens_total.inc(model, n)
+
+    def note_serve_rejected_tokens(self, model: str, n: int) -> None:
+        self.serve_rejected_tokens_total.inc(model, n)
+
     def observe_serve_ttft_breakdown(self, model: str, queue: float,
                                      prefill: float,
                                      interleave: float) -> None:
@@ -1045,6 +1073,9 @@ class MetricsRegistry:
                   self.serve_poisoned_total,
                   self.serve_page_leaks_total,
                   self.serve_kv_bytes_total,
+                  self.serve_draft_tokens_total,
+                  self.serve_accepted_tokens_total,
+                  self.serve_rejected_tokens_total,
                   self.serve_fleet_spills_total,
                   self.serve_fleet_router_retries_total,
                   self.serve_fleet_cold_starts_total,

@@ -16,7 +16,11 @@ programs take them as a dict of compute-dtype tensors made once by
 use). ``GPTModule.forward`` is the dense inference forward over plain
 ``multi_head_attention``; the paged decode and prefill steps
 (``build_paged_decode_step``/``build_paged_prefill_step``) read the KV
-slab through the paged-attention kernel.
+slab through the paged-attention kernel. The multi-step decode program
+(``build_paged_multi_step_decode``) runs K decode steps per call, and the
+speculative verify program (``build_paged_spec_verify_step``) lets a
+draft GPT propose K tokens, through the flash forward, that the decode
+step verifies and replays.
 
 Training: ``GPTModule.logits`` is the differentiable forward (f32 master
 weights cast to the compute dtype at use, dropout from an explicit
@@ -144,17 +148,26 @@ class GPTModule(nn.Module):
         x = x.to(self.device)
         named = dict(self.named_parameters())
         p = _param_tree(self, lambda name, dtype: named[name].to(dtype))
-        pad_mask = (x != PAD_ID).float()
         rate = self.dropout if train else 0.0
+        return _lm_head(p, _causal_trunk(
+            p, x, lambda t: _dropout(t, rate, generator)))
 
-        def drop(t):
-            return _dropout(t, rate, generator)
 
-        h = drop(p["tok_embed"][x] + p["pos_embed"][:T][None])
-        for lp in p["layers"]:
-            h = _block(lp, h, lambda q, k, v: masked_attention(
-                q, k, v, pad_mask, causal=True), drop)
-        return _lm_head(p, h)
+def _causal_trunk(p: dict, x: torch.Tensor,
+                  drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t
+                  ) -> torch.Tensor:
+    """The reference module's ``__call__`` up to the final LayerNorm:
+    embeddings of [B, T] ids (pad id 0) and the blocks, attention through
+    ``masked_attention(causal=True)`` (the flash kernels on the card) with
+    the pads masked as keys -> [B, T, hidden]. ``drop`` is the training
+    forward's dropout."""
+    pad_mask = (x != PAD_ID).float()
+    T = x.shape[1]
+    h = drop(p["tok_embed"][x] + p["pos_embed"][:T][None])
+    for lp in p["layers"]:
+        h = _block(lp, h, lambda q, k, v: masked_attention(
+            q, k, v, pad_mask, causal=True), drop)
+    return h
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -466,6 +479,237 @@ def build_paged_prefill_step(module: GPTModule, chunk: int,
             h = _block(lp, h, attend)
 
     return prefill
+
+
+def build_paged_multi_step_decode(module: GPTModule, steps: int,
+                                  kv_dtype: str = "f32"):
+    """K decode steps per call — the serving plane's third program, used
+    only in the all-decode steady state (serve/engine.py):
+
+      multi(params, slab, tokens[S], pos[S], page_tables[S, Pmax],
+            live[S], temps[S], seeds[S], eos_ids[S], budgets[S])
+        -> (out_tokens[K, S], out_bad[K, S]) on the device; the slab is
+            updated in place.
+
+    The inputs are host arrays, sent once; each lane's token, position,
+    ``live`` flag and emitted count then stay on the device for all K
+    steps, so nothing is read back inside the call. Each step calls the
+    single step of ``build_paged_decode_step`` with the inputs the
+    engine's host loop would give it: write page and offset from the page
+    table and position, the (seed, position) sampling key (built on the
+    host: a lane's key for step j is (seed, pos + j)). A lane that ends
+    inside the call (EOS, its token budget, or the non-finite guard)
+    drops its ``live`` flag, and every later step presents it as an
+    unoccupied slot (token 0, position 0, a write to the null page,
+    active 0); its sampled picks are discarded by the host, like an
+    inactive slot's. eos_ids holds -1 for requests without an EOS id;
+    budgets holds each lane's remaining token budget. Bit-identity with K
+    single calls follows from row independence: every live row sees
+    exactly the single step's inputs.
+    """
+    steps = int(steps)
+    if steps < 2:
+        raise ValueError(
+            f"multi-step decode needs steps >= 2 (1 is the single-step "
+            f"program), got {steps}")
+    step = build_paged_decode_step(module, kv_dtype)
+
+    def multi(params, slab, tokens, pos, page_tables, live, temps, seeds,
+              eos_ids, budgets):
+        dev = slab.valid.device
+        S = tokens.shape[0]
+        G = slab.valid.shape[1]
+        Pmax = page_tables.shape[1]
+        rows = torch.arange(S, device=dev)
+        zero = torch.zeros(S, dtype=torch.long, device=dev)
+        zero_f = torch.zeros(S, dtype=torch.float32, device=dev)
+        tables = _to_device(page_tables, dev)
+        tok_d, pos_d, live_d, eos_d, budget_d = _to_device(np.stack(
+            [tokens, pos, live, eos_ids, budgets]).astype(np.int64), dev)
+        emitted = torch.zeros_like(live_d)
+        out_tokens, out_bad = [], []
+        for j in range(steps):
+            on = live_d > 0
+            pi = torch.clamp(pos_d // G, 0, Pmax - 1)
+            write_page = torch.where(on, tables[rows, pi].long(), zero)
+            write_off = torch.where(on, pos_d % G, zero)
+            key_data = np.stack([seeds, (pos + j).astype(np.uint32)], 1)
+            nxt, bad = step(params, slab, torch.where(on, tok_d, zero),
+                            torch.where(on, pos_d, zero), tables,
+                            write_page, write_off, live_d.float(), temps,
+                            key_data, zero, zero, zero_f)
+            emitted = emitted + live_d
+            done = ((nxt == eos_d) & (eos_d >= 0)) | (emitted >= budget_d) \
+                | (bad > 0)
+            tok_d = torch.where(on, nxt, tok_d)
+            pos_d = torch.where(on, pos_d + 1, pos_d)
+            live_d = live_d * (~done).long()
+            out_tokens.append(nxt)
+            out_bad.append(bad)
+        return torch.stack(out_tokens), torch.stack(out_bad)
+
+    return multi
+
+
+def build_paged_spec_verify_step(module: GPTModule, draft_module: GPTModule,
+                                 steps: int, window: int,
+                                 kv_dtype: str = "f32"):
+    """Draft-propose + target-verify + rollback-replay in ONE call — the
+    serving plane's fourth program (serve/engine.py):
+
+      verify(params, draft_params, slab, window_toks[S, W], pos[S],
+             page_tables[S, Pmax], live[S], temps[S], seeds[S], wlen[S])
+        -> (picks[K+1, S], bads[K+1, S], accepted[S]) on the device; the
+            slab is updated in place.
+
+    window_toks[s, :pos[s]+1] is slot s's whole context (prompt + emitted
+    tokens); wlen[s] = min(K+1, remaining budget) caps the verify steps of
+    lane s. The inputs are host arrays, sent once. The stateless draft
+    re-forwards the whole window for each of its K greedy proposals (PAD
+    never proposed) through ``_causal_trunk``, whose attention is the
+    flash forward on the card; it keeps no KV cache, so a rejection needs
+    no draft rollback.
+
+    The target runs the single step of ``build_paged_decode_step`` twice
+    over the K+1 teacher-forced inputs (the real token at pos, then the
+    proposals). Pass 1 runs every step j < wlen on the live slab (its
+    writes feed the window's later steps) and keeps the picks; the pages
+    it can write — each lane's pages under positions pos..pos+K, and the
+    null page 0 — are saved first and restored after it, so the slab is
+    back to its state before the call (a copy of (K+1)·S+1 pages, not of
+    the pool). ``accepted`` is the length of the longest prefix whose
+    target picks equal the proposals (non-finite rows end it), clamped
+    to wlen - 1. Pass 2 replays the steps j <= accepted on
+    the live slab, so the slab ends holding exactly the writes of a run
+    that never proposed — int8 scales included, which requantize on
+    every write and so cannot be restored row by row: acceptance is a
+    prefix and the causal mask hides later positions, so each accepted
+    step sees the same context in both passes. Emitted tokens are always
+    the target's picks under the (seed, position) keys, so the output
+    equals the non-speculative run at any temperature. Pass 2's picks are
+    never used, so it samples nothing (greedy picks, discarded), and its
+    mask comes from the device's ``accepted`` with no read between the
+    passes.
+    """
+    steps = int(steps)
+    window = int(window)
+    if steps < 1:
+        raise ValueError(f"speculative decode needs steps >= 1, "
+                         f"got {steps}")
+    if not isinstance(draft_module, GPTModule):
+        raise ValueError(
+            "speculative draft must be a dense GPT module (no MoE, "
+            "sequence-parallel, or manual-TP variants)")
+    if draft_module.vocab_size != module.vocab_size:
+        raise ValueError(
+            f"draft vocab ({draft_module.vocab_size}) must match the "
+            f"target vocab ({module.vocab_size})")
+    if window < 2 or window > module.max_len \
+            or window > draft_module.max_len:
+        raise ValueError(
+            f"verify window must be in [2, min(target max_len "
+            f"{module.max_len}, draft max_len {draft_module.max_len})], "
+            f"got {window}")
+    step = build_paged_decode_step(module, kv_dtype)
+
+    def verify(params, draft_params, slab, window_toks, pos, page_tables,
+               live, temps, seeds, wlen):
+        dev = slab.valid.device
+        S, W = window_toks.shape
+        G = slab.valid.shape[1]
+        Pmax = page_tables.shape[1]
+        rows = torch.arange(S, device=dev)
+        zero = torch.zeros(S, dtype=torch.long, device=dev)
+        zero_f = torch.zeros(S, dtype=torch.float32, device=dev)
+        tables = _to_device(page_tables, dev)
+        win = _to_device(window_toks.astype(np.int64), dev)
+        pos_d, live_d, wlen_d = _to_device(
+            np.stack([pos, live, wlen]).astype(np.int64), dev)
+
+        # the draft proposes K tokens, greedy, re-forwarding the window
+        draft_win = win.clone()
+        props = []
+        for i in range(1, steps + 1):
+            h = _causal_trunk(draft_params, draft_win)
+            at = torch.clamp(pos_d + i - 1, 0, W - 1)
+            lg = _lm_head(draft_params, h[rows, at][:, None])[:, 0]
+            lg[:, PAD_ID] = -float("inf")
+            d = torch.argmax(lg, dim=-1)
+            draft_win[rows, torch.clamp(pos_d + i, 0, W - 1)] = d
+            props.append(d)
+        proposals = torch.stack(props)                       # [K, S]
+        inputs = torch.cat([win[rows, torch.clamp(pos_d, 0, W - 1)][None],
+                            proposals])                      # [K+1, S]
+
+        def run_pass(target, keep, temps_of):
+            # keep(j): lane liveness at verify step j (device); a masked
+            # lane presents the unoccupied-slot inputs
+            picks, bads = [], []
+            for j in range(steps + 1):
+                on_i = keep(j)
+                on = on_i > 0
+                posj = pos_d + j
+                pi = torch.clamp(posj // G, 0, Pmax - 1)
+                write_page = torch.where(on, tables[rows, pi].long(), zero)
+                write_off = torch.where(on, posj % G, zero)
+                key_data = np.stack([seeds, (pos + j).astype(np.uint32)], 1)
+                nxt, bad = step(params, target,
+                                torch.where(on, inputs[j], zero),
+                                torch.where(on, posj, zero), tables,
+                                write_page, write_off, on_i.float(),
+                                temps_of(j), key_data, zero, zero, zero_f)
+                picks.append(nxt)
+                bads.append(bad)
+            return torch.stack(picks), torch.stack(bads)
+
+        # pass 1: verify on the live slab — all wlen steps write — with
+        # every page it can write saved before and restored after
+        span = torch.arange(steps + 1, device=dev)
+        pi = torch.clamp((pos_d[:, None] + span) // G, 0, Pmax - 1)
+        touched = torch.cat([zero[:1], tables[rows[:, None], pi].long()
+                             .flatten()])
+        saved = _save_pages(slab, touched)
+        picks, bads = run_pass(
+            slab, lambda j: live_d * (j < wlen_d).long(),
+            lambda j: np.where((live > 0) & (j < wlen), temps,
+                               0.0).astype(np.float32))
+        _restore_pages(slab, touched, saved)
+        ok = ((picks[:steps] == proposals)
+              & (bads[:steps] == 0)).long()                  # [K, S]
+        accepted = torch.cumprod(ok, dim=0).sum(dim=0)
+        accepted = torch.clamp(torch.minimum(accepted, wlen_d - 1),
+                               min=0) * live_d
+        # pass 2: rollback as replay — only steps <= accepted write
+        no_temps = np.zeros(S, np.float32)
+        run_pass(slab,
+                 lambda j: live_d * ((j < wlen_d)
+                                     & (j <= accepted)).long(),
+                 lambda j: no_temps)
+        return picks, bads, accepted
+
+    return verify
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _save_pages(slab, pages: torch.Tensor) -> tuple:
+    """Copies of the slab's K, V, scales and validity at ``pages`` (a
+    page may repeat)."""
+    return (slab.k[:, pages], slab.v[:, pages], slab.k_scale[:, pages],
+            slab.v_scale[:, pages], slab.valid[pages])
+
+
+def _restore_pages(slab, pages: torch.Tensor, saved: tuple) -> None:
+    """Write ``_save_pages``' copies back; a repeated page gets the same
+    bytes from each of its copies."""
+    k, v, k_scale, v_scale, valid = saved
+    slab.k[:, pages] = k
+    slab.v[:, pages] = v
+    slab.k_scale[:, pages] = k_scale
+    slab.v_scale[:, pages] = v_scale
+    slab.valid[pages] = valid
 
 
 # ------------------------------------------------------------------ training

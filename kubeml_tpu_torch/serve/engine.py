@@ -1,21 +1,32 @@
 """Continuous-batching decode engine: slot state + the paged programs
 (twin of kubeml_tpu/serve/engine.py).
 
-Two programs serve every stream:
+Up to four programs serve every stream:
 
-  decode   — every call advances every active slot by one token (its own
-             feedback, or its final prompt token);
-  prefill  — one slot per call, C prompt tokens bulk-written into its KV
-             pages (fixed chunk, padded + masked); built when
-             prefill_chunk > 0.
+  decode     — every call advances every active slot by one token (its
+               own feedback, or its final prompt token);
+  prefill    — one slot per call, C prompt tokens bulk-written into its
+               KV pages (fixed chunk, padded + masked); built when
+               prefill_chunk > 0;
+  multi-step — K decode steps per call with one read back to the host
+               (models/gpt.py build_paged_multi_step_decode); built when
+               decode_steps > 1;
+  verify     — draft-propose + target-verify + rollback-replay in one
+               call (build_paged_spec_verify_step); built when a draft
+               module is given. One call emits the accepted prefix plus
+               one bonus token per slot.
 
-Both read the KV context through the paged-attention kernel on the card
-(ops/paged_attention.py). A token-budget scheduler in step() spends at
-most ``prefill_budget`` prompt tokens on prefill chunks (FIFO over
-admission order), then runs one decode call per weight generation for
-the streams past their prompt, so in-flight streams keep their
-inter-token latency while new prompts load. The JAX package's multi-step
-and speculative programs are not ported (ROADMAP A.1).
+All of them read the KV context through the paged-attention kernel on
+the card (ops/paged_attention.py), and the draft's forward goes through
+the flash forward. A token-budget scheduler in step() spends at most
+``prefill_budget`` prompt tokens on prefill chunks (FIFO over admission
+order), then runs one decode call per weight generation for the streams
+past their prompt, so in-flight streams keep their inter-token latency
+while new prompts load. Only in the all-decode steady state (no join,
+CoW split, prefill progress, stall, masked lane, fault plan or second
+resident weight generation) does the scheduler hand the round to the
+verify program, else the multi-step program; anything they decline
+takes the single step.
 
 Prefix caching rides the page tables: at attach, the prompt's full pages
 are matched through the allocator's content-hash index
@@ -62,7 +73,9 @@ from kubeml_tpu_torch.metrics.runtime import JitCompileTracker
 from kubeml_tpu_torch.models.base import PAD_ID, InferenceInputError
 from kubeml_tpu_torch.models.gpt import (_param_tree,
                                          build_paged_decode_step,
+                                         build_paged_multi_step_decode,
                                          build_paged_prefill_step,
+                                         build_paged_spec_verify_step,
                                          compute_params)
 from kubeml_tpu_torch.ops.paged_attention import (kernel_geometry_refusal,
                                                   kernel_smem_bytes)
@@ -74,6 +87,27 @@ from kubeml_tpu_torch.serve.slots import GenerateRequest
 logger = logging.getLogger("kubeml_tpu_torch.serve.engine")
 
 ATTN_IMPLS = ("auto", "kernel", "plain")
+
+
+def check_kernel_geometry(module, geom: PageGeometry, kv_dtype: str,
+                          prefill_chunk: int) -> None:
+    """Raise ValueError when the paged kernel cannot serve an engine's
+    decode (T = 1) or prefill (T = prefill_chunk) calls: page size,
+    head_dim, page dtype, or the shared memory of a call over the whole
+    context. A CUDA engine asks this before it allocates its slab."""
+    G, Pmax = geom.page, geom.pages_per_slot
+    D, dtype = module.head_dim, module.dtype
+    quantized = kv_dtype == "int8"
+    pages = "int8" if quantized else str(dtype).replace("torch.", "")
+    for T in sorted({1, prefill_chunk} - {0}):
+        why = kernel_geometry_refusal(T, D, G, Pmax, dtype, quantized)
+        if why is not None:
+            need = kernel_smem_bytes(T, D, G, Pmax, dtype, quantized)
+            raise ValueError(
+                f"the paged-attention kernel cannot serve this engine: "
+                f"page size {G}, head_dim {D}, {pages} pages, {T}-token "
+                f"calls over a {Pmax * G}-token context need {need} "
+                f"bytes of shared memory: {why}")
 
 
 def _state_bytes(module, state_dict: Optional[dict]) -> int:
@@ -126,16 +160,21 @@ class DecodeEngine:
     states what the caller expects of the context read, which the device
     decides (ops/paged_attention.py): "auto" takes either, "kernel"
     demands a CUDA device, "plain" the CPU; a mismatch raises here.
-    tracer: optional Tracer for the request span trees; flight_steps: the
-    flight recorder's ring size (0 turns it off); fault_plan: a
-    faults.ServeFaultPlan; strict_pager: pager invariant violations raise
-    (tests) instead of counting into stats["page_leaks"].
+    decode_steps: K > 1 builds the multi-step
+    program. draft_module (a GPTModule on the engine's device) with its
+    state dict draft_variables builds the speculative verify program,
+    with spec_steps = decode_steps if decode_steps > 1 else 4 proposals
+    per call over a window of spec_window = min(target max_len, draft
+    max_len, slot context) tokens. tracer: optional Tracer for the
+    request span trees; flight_steps: the flight recorder's ring size (0
+    turns it off); fault_plan: a faults.ServeFaultPlan; strict_pager:
+    pager invariant violations raise (tests) instead of counting into
+    stats["page_leaks"].
 
     On CUDA the engine checks, before it allocates its slab, that the
-    paged kernel takes its geometry (page size, head_dim, page dtype and
-    the shared memory of a decode call and of a prefill call over the
-    whole context) and raises ValueError naming them if not: every step
-    would fail otherwise. The CPU's plain version takes any geometry.
+    paged kernel takes its geometry (``check_kernel_geometry``) and
+    raises ValueError naming it if not: every step would fail otherwise.
+    The CPU's plain version takes any geometry.
     """
 
     def __init__(self, module, variables: Optional[dict] = None,
@@ -146,7 +185,9 @@ class DecodeEngine:
                  tracer=None, flight_steps: int = 256,
                  decode_span_every: int = 16, fault_plan=None,
                  strict_pager: bool = True, kv_dtype: str = "f32",
-                 attn_impl: str = "auto", device: DeviceLike = None):
+                 attn_impl: str = "auto", decode_steps: int = 1,
+                 draft_module=None, draft_variables: Optional[dict] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         if module.device != self.device:
             raise ValueError(f"module lives on {module.device}, engine on "
@@ -171,11 +212,11 @@ class DecodeEngine:
         self.module = module
         self.kv_dtype = kv_dtype
         self.attn_impl = attn_impl
-        self._step_fn = build_paged_decode_step(module, kv_dtype)
         self.geom = geom or PageGeometry.for_module(
             slots=slots, page=page, max_len=module.max_len)
         if self.device.type == "cuda":
-            self._check_kernel_geometry(prefill_chunk)
+            check_kernel_geometry(module, self.geom, kv_dtype, prefill_chunk)
+        self._step_fn = build_paged_decode_step(module, kv_dtype)
         self.clock = clock
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = bool(prefix_cache)
@@ -192,6 +233,43 @@ class DecodeEngine:
         if prefill_chunk > 0:
             self._prefill_fn = build_paged_prefill_step(
                 module, prefill_chunk, kv_dtype)
+        # the decode accelerators, selected only in the all-decode steady
+        # state (_step_inner); every other round keeps the single step
+        decode_steps = int(decode_steps)
+        if decode_steps < 1:
+            raise ValueError(
+                f"serve decode steps must be >= 1, got {decode_steps}")
+        self.decode_steps = decode_steps
+        self._multi_fn = None
+        if decode_steps > 1:
+            self._multi_fn = build_paged_multi_step_decode(
+                module, decode_steps, kv_dtype)
+        # speculation depth K: decode_steps when raised past 1, else 4;
+        # the verify window is the largest context both trunks and the
+        # slab hold — a slot whose cursor outruns it falls back
+        self.draft_module = draft_module
+        self._draft_variables = draft_variables
+        self._verify_fn = None
+        self._draft_params = None
+        self.spec_steps = 0
+        self.spec_window = 0
+        if draft_module is not None:
+            if draft_variables is None:
+                raise ValueError(
+                    "serving with a draft module needs draft_variables")
+            self.spec_steps = decode_steps if decode_steps > 1 else 4
+            self.spec_window = min(module.max_len,
+                                   getattr(draft_module, "max_len", 0),
+                                   self.geom.context)
+            self._verify_fn = build_paged_spec_verify_step(
+                module, draft_module, self.spec_steps, self.spec_window,
+                kv_dtype)
+            if draft_module.device != self.device:
+                raise ValueError(f"draft module lives on "
+                                 f"{draft_module.device}, engine on "
+                                 f"{self.device}")
+            self._draft_params = compute_params(draft_module,
+                                                draft_variables)
         # weight generations: each holds its own params on the device
         # until its last slot releases (_maybe_retire)
         self.weight_generation = 1
@@ -239,24 +317,11 @@ class DecodeEngine:
             "cow_splits": 0, "weight_swaps": 0, "generations_retired": 0,
             "poisoned": 0, "deadline_expired": 0, "page_leaks": 0,
             "kv_bytes": 0,
+            "multi_step_dispatches": 0, "multi_step_compiles": 0,
+            "verify_dispatches": 0, "verify_compiles": 0,
+            "draft_tokens": 0, "accepted_tokens": 0,
+            "rejected_tokens": 0,
         }
-
-    def _check_kernel_geometry(self, prefill_chunk: int) -> None:
-        """Raise ValueError when the paged kernel cannot serve this
-        engine's decode (T = 1) or prefill (T = prefill_chunk) calls."""
-        G, Pmax = self.geom.page, self.geom.pages_per_slot
-        D, dtype = self.module.head_dim, self.module.dtype
-        quantized = self.kv_dtype == "int8"
-        pages = "int8" if quantized else str(dtype).replace("torch.", "")
-        for T in sorted({1, prefill_chunk} - {0}):
-            why = kernel_geometry_refusal(T, D, G, Pmax, dtype, quantized)
-            if why is not None:
-                need = kernel_smem_bytes(T, D, G, Pmax, dtype, quantized)
-                raise ValueError(
-                    f"the paged-attention kernel cannot serve this engine: "
-                    f"page size {G}, head_dim {D}, {pages} pages, {T}-token "
-                    f"calls over a {Pmax * G}-token context need {need} "
-                    f"bytes of shared memory: {why}")
 
     # ------------------------------------------------------------- capacity
     @property
@@ -284,6 +349,13 @@ class DecodeEngine:
         0.0 before the first generated token."""
         toks = self.stats["generated_tokens"]
         return (self.stats["dispatches"] / toks) if toks else 0.0
+
+    @property
+    def accepted_per_dispatch(self) -> float:
+        """Tokens emitted per speculative verify call (accepted prefix +
+        the bonus target pick), from counters; 0.0 before the first."""
+        vd = self.stats["verify_dispatches"]
+        return (self.stats["accepted_tokens"] / vd) if vd else 0.0
 
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens admitted to slots but not yet prefilled."""
@@ -557,7 +629,8 @@ class DecodeEngine:
             decode_span_every=self.decode_span_every,
             fault_plan=self.fault_plan, strict_pager=self.strict_pager,
             kv_dtype=self.kv_dtype, attn_impl=self.attn_impl,
-            device=self.device)
+            decode_steps=self.decode_steps, draft_module=self.draft_module,
+            draft_variables=self._draft_variables, device=self.device)
         eng.weight_generation = self.weight_generation
         eng._params_by_gen = dict(self._params_by_gen)
         eng._param_bytes_by_gen = dict(self._param_bytes_by_gen)
@@ -565,18 +638,18 @@ class DecodeEngine:
         return eng
 
     # ----------------------------------------------------------------- cost
-    def _cost_fallback(self) -> dict:
-        """The reference's closed-form per-dispatch record (one step per
-        dispatch: multi-step decode is not ported): every slot runs the
-        model once (~2 flops per weight per slot) over the params read
-        once plus each slot's paged KV traffic."""
+    def _cost_fallback(self, steps: int = 1) -> dict:
+        """The reference's closed-form per-dispatch record: every slot
+        runs the model once per fused step (~2 flops per weight per
+        slot-step) over the params read once plus each slot's paged KV
+        traffic per step."""
         nbytes = self._param_bytes_by_gen.get(self.weight_generation, 0)
         S = self.geom.slots
-        return {"flops": 2.0 * (nbytes / 4.0) * S,
+        return {"flops": 2.0 * (nbytes / 4.0) * S * steps,
                 "hbm_bytes": float(
-                    nbytes + S * self.slab.decode_bytes_per_token)}
+                    nbytes + S * steps * self.slab.decode_bytes_per_token)}
 
-    def _ledger_capture(self, program: str) -> bool:
+    def _ledger_capture(self, program: str, steps: int = 1) -> bool:
         """Install `program`'s record at its first dispatch, which is the
         dispatch the reference compiles at; returns whether this is it.
         (The reference also reconciles an XLA record against the KV proxy
@@ -584,7 +657,7 @@ class DecodeEngine:
         if self.ledger.record(program) is not None:
             return False
         self.ledger.capture(program, "serve", None,
-                            fallback=self._cost_fallback())
+                            fallback=self._cost_fallback(steps))
         return True
 
     # -------------------------------------------------------------- prefill
@@ -722,6 +795,234 @@ class DecodeEngine:
             args = dict(ttft=ttft, **req.ttft_breakdown)
         self._instant("first_token", t1, req, **args)
 
+    # ----------------------------------------- multi-step / speculative
+    def _grant_range(self, s: int, start: int,
+                     count: int) -> Optional[List[int]]:
+        """Pre-grant the pages covering positions [start, start+count)
+        for slot s (the accelerated programs write up to K positions
+        ahead in one call). Returns the page-table indices newly granted,
+        or None when the pool ran dry — already rolled back, and freeing
+        re-sorts the pool, so the free list matches never having
+        tried."""
+        G = self.geom.page
+        granted: List[int] = []
+        for pi in range(start // G, (start + count - 1) // G + 1):
+            if pi >= self.geom.pages_per_slot:
+                break
+            if self._tables[s, pi] == 0:
+                pid = self.pager.alloc()
+                if pid is None:
+                    self._ungrant(s, granted)
+                    return None
+                self._tables[s, pi] = pid
+                granted.append(pi)
+        return granted
+
+    def _ungrant(self, s: int, granted: List[int]) -> None:
+        for pi in granted:
+            self.pager.free([int(self._tables[s, pi])])
+            self._tables[s, pi] = 0
+
+    def _walk_emitted(self, s: int, toks, bads, k_max: int, t0: float,
+                      t1: float, finished: List[GenerateRequest]) -> None:
+        """The host's mirror of the device's per-lane early exit: emit
+        this lane's picks row by row until its own end (non-finite guard,
+        EOS, token budget), advancing pos exactly as k_max single calls
+        would. Rows past the end are discarded, like an inactive slot's
+        pick."""
+        slot = self._slots[s]
+        live_steps = 0
+        for k in range(k_max):
+            p = slot.pos
+            slot.pos = p + 1
+            live_steps += 1
+            if bads[k] > 0:
+                req = slot.req
+                self.stats["poisoned"] += 1
+                self.release(s, "error", "non-finite logits at position "
+                             f"{p}; request poisoned and isolated")
+                finished.append(req)
+                break
+            if p <= slot.n_prompt - 1:
+                # the first fused step computed prompt context (the
+                # TTFT prefill term)
+                slot.prefill_s += t1 - t0
+            if self.prefix_cache:
+                self._register_full_pages(s, slot)
+            tok = int(toks[k])
+            if slot.req.first_token_at is None:
+                slot.req.first_token_at = t1
+                self._note_first_token(slot, t1)
+            slot.req.emit_token(tok)
+            self.stats["generated_tokens"] += 1
+            n_out = len(slot.req.tokens)
+            if self.tracer is not None and n_out > 1 \
+                    and n_out % self.decode_span_every == 0:
+                self._span("decode", t0, t1, slot.req, pos=p,
+                           token_index=n_out, cow=0)
+            if (slot.req.eos_id is not None and tok == slot.req.eos_id) \
+                    or len(slot.req.tokens) >= slot.req.max_new_tokens:
+                self.release(s, "ok")
+                finished.append(slot.req)
+                break
+        # retained decode work only: kv_bytes stays exactly
+        # decode_tokens x decode_bytes_per_token across every program
+        self.stats["decode_tokens"] += live_steps
+        self.stats["kv_bytes"] += \
+            live_steps * self.slab.decode_bytes_per_token
+
+    def _dispatch_multi(self, members: List[int],
+                        finished: List[GenerateRequest]) -> bool:
+        """One multi-step call covering every ready slot: K decode steps,
+        one read back to the host. Returns False (page grant rolled back,
+        no other side effect) when a slot cannot pre-grant its K-step page
+        window; the caller then takes the single step for this round."""
+        K = self.decode_steps
+        S = self.geom.slots
+        grants: Dict[int, List[int]] = {}
+        for s in members:
+            slot = self._slots[s]
+            budget = slot.req.max_new_tokens - len(slot.req.tokens)
+            g = self._grant_range(s, slot.pos, min(K, max(budget, 1)))
+            if g is None:
+                for gs, gl in grants.items():
+                    self._ungrant(gs, gl)
+                return False
+            grants[s] = g
+        tokens = np.zeros(S, np.int64)
+        pos = np.zeros(S, np.int64)
+        live = np.zeros(S, np.int64)
+        temps = np.zeros(S, np.float32)
+        seeds = np.zeros(S, np.uint32)
+        eos_ids = np.full(S, -1, np.int64)
+        budgets = np.zeros(S, np.int64)
+        for s in members:
+            slot = self._slots[s]
+            live[s] = 1
+            tokens[s] = slot.prompt[slot.pos] \
+                if slot.pos < slot.n_prompt else slot.req.tokens[-1]
+            pos[s] = slot.pos
+            temps[s] = slot.req.temperature
+            seeds[s] = slot.req.seed & 0xFFFFFFFF
+            if slot.req.eos_id is not None:
+                eos_ids[s] = slot.req.eos_id
+            budgets[s] = slot.req.max_new_tokens - len(slot.req.tokens)
+        compiled = self._ledger_capture("serve.multi_step", steps=K)
+        t0 = self.clock()
+        toks, bads = self._multi_fn(
+            self._params_by_gen[self.weight_generation], self.slab, tokens,
+            pos, self._tables.copy(), live, temps, seeds, eos_ids, budgets)
+        # the call's one read back: tokens and guard flags together
+        host = torch.stack((toks, bads.to(toks.dtype))).cpu().numpy()
+        t1 = self.clock()
+        self.compile_tracker.note(compiled, t1 - t0,
+                                  program="serve.multi_step")
+        self._dispatch_wall_s += t1 - t0
+        self.stats["dispatches"] += 1
+        self.stats["multi_step_dispatches"] += 1
+        self.stats["multi_step_compiles"] += int(compiled)
+        self.stats["occupancy_sum"] += len(members)
+        g0 = self.stats["generated_tokens"]
+        for s in members:
+            self._walk_emitted(s, host[0, :, s], host[1, :, s], K, t0, t1,
+                               finished)
+        self.ledger.note_dispatch(
+            "serve.multi_step", tokens=self.stats["generated_tokens"] - g0)
+        return True
+
+    def _dispatch_spec(self, members: List[int],
+                       finished: List[GenerateRequest]) -> bool:
+        """One speculative verify call covering every ready slot: the
+        draft proposes K tokens per lane, the target scores them all, and
+        the accepted prefix plus one bonus target pick emits. Rejected
+        tokens were rolled back on the device by the replay pass (KV
+        bytes, validity, int8 scales), so this method only rewinds the
+        host cursors: pos stops at the kept prefix and the page grant is
+        trimmed back to it — freeing re-sorts the pool, so the allocator
+        matches a run that never proposed. Returns False (grant rolled
+        back) when a lane's window or page grant does not fit; the caller
+        falls back to multi or single step."""
+        K = self.spec_steps
+        W = self.spec_window
+        G = self.geom.page
+        S = self.geom.slots
+        wlens: Dict[int, int] = {}
+        for s in members:
+            slot = self._slots[s]
+            # the draft writes proposals into window rows pos+1 .. pos+K
+            if slot.pos + K + 1 > W:
+                return False
+            budget = slot.req.max_new_tokens - len(slot.req.tokens)
+            wlens[s] = min(K + 1, max(budget, 1))
+        grants: Dict[int, List[int]] = {}
+        for s in members:
+            g = self._grant_range(s, self._slots[s].pos, wlens[s])
+            if g is None:
+                for gs, gl in grants.items():
+                    self._ungrant(gs, gl)
+                return False
+            grants[s] = g
+        window = np.zeros((S, W), np.int64)
+        pos = np.zeros(S, np.int64)
+        live = np.zeros(S, np.int64)
+        temps = np.zeros(S, np.float32)
+        seeds = np.zeros(S, np.uint32)
+        wlen_arr = np.zeros(S, np.int64)
+        for s in members:
+            slot = self._slots[s]
+            # the whole context = prompt + emitted tokens; in the steady
+            # state its length is exactly pos + 1
+            ctx = slot.prompt + [int(t) for t in slot.req.tokens]
+            live[s] = 1
+            pos[s] = slot.pos
+            window[s, :slot.pos + 1] = ctx[:slot.pos + 1]
+            temps[s] = slot.req.temperature
+            seeds[s] = slot.req.seed & 0xFFFFFFFF
+            wlen_arr[s] = wlens[s]
+        compiled = self._ledger_capture("serve.spec_verify", steps=K + 1)
+        t0 = self.clock()
+        picks, bads, acc = self._verify_fn(
+            self._params_by_gen[self.weight_generation], self._draft_params,
+            self.slab, window, pos, self._tables.copy(), live, temps, seeds,
+            wlen_arr)
+        # the call's one read back: picks, guard flags and acceptance
+        host = torch.cat((picks, bads.to(picks.dtype),
+                          acc[None].to(picks.dtype))).cpu().numpy()
+        t1 = self.clock()
+        self.compile_tracker.note(compiled, t1 - t0,
+                                  program="serve.spec_verify")
+        self._dispatch_wall_s += t1 - t0
+        self.stats["dispatches"] += 1
+        self.stats["verify_dispatches"] += 1
+        self.stats["verify_compiles"] += int(compiled)
+        self.stats["occupancy_sum"] += len(members)
+        picks_host, bads_host = host[:K + 1], host[K + 1:2 * K + 2]
+        acc_host = host[2 * K + 2]
+        g0 = self.stats["generated_tokens"]
+        for s in members:
+            slot = self._slots[s]
+            a = int(acc_host[s])
+            p_start = slot.pos
+            self.stats["draft_tokens"] += K
+            # accepted prefix + the bonus pick (what the verifier kept;
+            # emission may still stop earlier at EOS)
+            self.stats["accepted_tokens"] += a + 1
+            self.stats["rejected_tokens"] += K - a
+            self._walk_emitted(s, picks_host[:a + 1, s],
+                               bads_host[:a + 1, s], a + 1, t0, t1,
+                               finished)
+            if self._slots[s] is None:
+                continue   # released: its pages were freed wholesale
+            keep_pi = (slot.pos - 1) // G
+            for pi in range(keep_pi + 1, (p_start + wlens[s] - 1) // G + 1):
+                pid = int(self._tables[s, pi])
+                if pid:
+                    self.pager.free([pid])
+                    self._tables[s, pi] = 0
+        self.ledger.note_dispatch(
+            "serve.spec_verify", tokens=self.stats["generated_tokens"] - g0)
+        return True
+
     def _step_inner(self, exclude: frozenset) -> List[GenerateRequest]:
         G = self.geom.page
         stalled: List[int] = []
@@ -829,6 +1130,29 @@ class DecodeEngine:
         # snapshot each ready slot's generation up front: an earlier
         # generation's call may release its members
         gen_of = {s: self._slots[s].gen for s in ready}
+
+        # the all-decode steady state: every ready slot past its prompt,
+        # nothing prefilled, stalled or CoW-split this round, no fault
+        # plan, no masked lane, one resident weight generation — the only
+        # rounds the accelerated programs take. Verify first, then the
+        # multi-step program; whatever they decline (a page grant or a
+        # window that does not fit, rolled back inside) falls through to
+        # the single step below.
+        if (not exclude and not stalled and not cow and not progressed
+                and not finished and self.fault_plan is None
+                and (self._verify_fn is not None
+                     or self._multi_fn is not None)
+                and len(self._params_by_gen) == 1
+                and not any(sl is not None and self._in_prefill(sl)
+                            for sl in self._slots)
+                and all(self._slots[s].pos >= self._slots[s].n_prompt - 1
+                        for s in ready)):
+            if self._verify_fn is not None \
+                    and self._dispatch_spec(ready, finished):
+                return finished
+            if self._multi_fn is not None \
+                    and self._dispatch_multi(ready, finished):
+                return finished
         for gen in sorted(set(gen_of.values())):
             members = [s for s in ready if gen_of[s] == gen]
             self._dispatch_decode(gen, members, cow, finished)

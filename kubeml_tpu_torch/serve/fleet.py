@@ -1265,11 +1265,13 @@ class ServeFleet:
         util = [snaps[i]["serve_kv_page_utilization"] for i in idxs]
         # decode amortization: the ratio merges from the engine counters
         # (sums of sums), so a busy replica weighs more than an idle one
-        disp = toks = 0
+        disp = toks = acc = vdisp = 0
         for i in idxs:
             st = self._replicas[i].engine.stats
             disp += int(st["dispatches"])
             toks += int(st["generated_tokens"])
+            acc += int(st["accepted_tokens"])
+            vdisp += int(st["verify_dispatches"])
         return {
             "job_id": f"serve:{self.model_id}",
             "serve_active_slots": tot("serve_active_slots"),
@@ -1310,8 +1312,8 @@ class ServeFleet:
                 (snaps[i]["serve_kv_bytes_per_token"] for i in idxs), 0),
             "serve_dispatches_per_token": round(disp / toks, 6)
             if toks else 0.0,
-            # no speculative program in the port (ROADMAP A.1)
-            "serve_accepted_per_dispatch": 0.0,
+            "serve_accepted_per_dispatch": round(acc / vdisp, 6)
+            if vdisp else 0.0,
             # SLO plane: objectives, attainment, and the fast/slow
             # burn-rate windows the autoscaler + slo_burn rule read
             "serve_slo_target": self._slo.target,

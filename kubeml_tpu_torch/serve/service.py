@@ -776,8 +776,7 @@ class ServeService:
 
     def snapshot(self) -> dict:
         """Health-pipeline sample for the serve:<model> pseudo job (the
-        reference's fields; no multi-step or speculative program, so one
-        call per decoded token and no accepted drafts)."""
+        reference's fields)."""
         p = self.ttft_percentiles()
         bd = self.ttft_breakdown_means()
         st = self.engine.stats
@@ -811,9 +810,13 @@ class ServeService:
             "serve_deadline_total": self.deadline_total,
             "serve_kv_dtype": self.engine.kv_dtype,
             "serve_kv_bytes_per_token": self.engine.kv_bytes_per_token,
+            # decode amortization, from counters: dispatches per token
+            # (1/K in the multi-step steady state, lower when speculation
+            # accepts) and tokens kept per verify call
             "serve_dispatches_per_token": round(
                 self.engine.dispatches_per_token, 6),
-            "serve_accepted_per_dispatch": 0.0,
+            "serve_accepted_per_dispatch": round(
+                self.engine.accepted_per_dispatch, 6),
             # analytic cost ledger: cumulative per-program snapshot (flat
             # record + totals per program); the fleet merges these across
             # replicas and the PS serves them on GET /cost
@@ -840,7 +843,13 @@ class ServeService:
                     ("prefix_misses",
                      self.metrics.note_serve_prefix_misses),
                     ("page_leaks", self.metrics.note_serve_page_leaks),
-                    ("kv_bytes", self.metrics.note_serve_kv_bytes)):
+                    ("kv_bytes", self.metrics.note_serve_kv_bytes),
+                    ("draft_tokens",
+                     self.metrics.note_serve_draft_tokens),
+                    ("accepted_tokens",
+                     self.metrics.note_serve_accepted_tokens),
+                    ("rejected_tokens",
+                     self.metrics.note_serve_rejected_tokens)):
                 cur = int(self.engine.stats[stat])
                 delta = cur - self._counters_seen.get(stat, 0)
                 if delta > 0:

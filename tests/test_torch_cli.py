@@ -118,11 +118,13 @@ def test_parser_gives_the_references_namespace(argv, monkeypatch):
 
 
 # help strings that describe the port (its job role, its card variable,
-# its home, the multi-host flags it refuses, no TPU measurement)
+# its home, the multi-host flags it refuses, no TPU measurement, its
+# eager multi-step program)
 PORT_HELP = {("serve", "--role"), ("serve", "--job-partition"),
              ("serve", "--control-dir"), ("serve", "--coordinator"),
              ("serve", "--num-processes"), ("serve", "--process-id"),
-             ("serve", "--mesh-data"), ("train", "--rounds-per-dispatch")}
+             ("serve", "--mesh-data"), ("train", "--rounds-per-dispatch"),
+             ("serve", "--serve-decode-steps")}
 
 
 def _options(parser, path=()):
@@ -405,9 +407,6 @@ REFUSED = [
     (["serve", "--num-processes", "2"], "ROADMAP A.7"),
     (["serve", "--process-id", "0"], "ROADMAP A.7"),
     (["serve", "--mesh-data", "2"], "ROADMAP A.7"),
-    (["serve", "--serve-decode-steps", "2"], "ROADMAP A.1"),
-    (["serve", "--serve-draft-model", "m"], "ROADMAP A.1"),
-    (["serve", "--role", "ps", "--serve-decode-steps", "4"], "ROADMAP A.1"),
     (TRAIN + ["--continual", "--window-generations", "2"], None),
     (TRAIN + ["--continual", "--publish-every-rounds", "3"], None),
     (TRAIN + ["--quarantine-after", "2", "--reassign-on-quarantine"],

@@ -619,19 +619,6 @@ def test_user_function_trains_through_the_registry(plane):
     assert ei.value.status_code == 404
 
 
-@pytest.mark.parametrize("knob,value,brings", [
-    ("serve_decode_steps", 2, "multi-step and speculative decode, ROADMAP "
-                              "A.1"),
-    ("serve_draft_model", "m", "multi-step and speculative decode, ROADMAP "
-                               "A.1"),
-])
-def test_unported_deployment_knobs_raise(knob, value, brings):
-    from kubeml_tpu_torch.control.deployment import start_deployment
-
-    with pytest.raises(ValueError, match=brings):
-        start_deployment(device="cpu", **{knob: value})
-
-
 @pytest.mark.parametrize("knobs", [
     {"cluster_lanes": 4},
     {"cluster_lanes": 4, "cluster_tenants": ["prod=2"],

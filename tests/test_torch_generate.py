@@ -331,10 +331,8 @@ def test_generate_observability_routes(serve_pair):
     # serve_cost_programs included
     assert set(ref[5]) == set(port[5])
     assert port[6] and ref[6]
-    # the reference's speculative-decode counters are not ported
-    assert set(ref[7]) - set(port[7]) <= {
-        "kubeml_serve_draft_tokens_total", "kubeml_serve_accepted_tokens_total",
-        "kubeml_serve_rejected_tokens_total"}
+    # the same serve families, the speculative-decode counters included
+    assert set(ref[7]) == set(port[7])
     assert {"generate", "route", "admit", "first_token", "finish"} <= \
         set(port[3])
 

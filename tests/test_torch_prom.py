@@ -114,12 +114,25 @@ def test_port_carries_the_training_families():
                  "kubeml_serve_fleet_replicas",
                  "kubeml_serve_slo_burn_rate"):
         assert want in names
-    # the speculative-decode counters come with that program (ROADMAP A.1)
-    assert "kubeml_serve_draft_tokens_total" not in names
-    # the cluster allocator's and the durable control plane's (ROADMAP
-    # A.16), each block equal to the JAX package's
     from kubeml_tpu.metrics.prom import MetricsRegistry as RefRegistry
 
+    # the speculative-decode counters, each block equal to the JAX
+    # package's after the same notes
+    noted = []
+    for cls in (RefRegistry, MetricsRegistry):
+        reg = cls()
+        reg.note_serve_draft_tokens("m1", 40)
+        reg.note_serve_accepted_tokens("m1", 25)
+        reg.note_serve_rejected_tokens("m1", 15)
+        reg.note_serve_accepted_tokens("m2", 3)
+        noted.append(_families(reg.exposition()))
+    for name in ("kubeml_serve_draft_tokens_total",
+                 "kubeml_serve_accepted_tokens_total",
+                 "kubeml_serve_rejected_tokens_total"):
+        assert name in names
+        assert noted[1][name] == noted[0][name], name
+    # the cluster allocator's and the durable control plane's (ROADMAP
+    # A.16), each block equal to the JAX package's
     ref = _families(RefRegistry().exposition())
     port = _families(MetricsRegistry().exposition())
     cluster = {n for n in ref
