@@ -175,15 +175,15 @@ Phases (any failure exits non-zero and prints no result line):
               create` of phase 12's ResNet-18 function, `dataset create` of
               phase 11's images, `kubeml train` of ResNet-18 with phase
               12's task (B=256, K=8, lr 0.1, static N=2, 4 MB buckets) for
-              4 epochs: its epoch-1 checkpoint, read while epoch 2 runs,
+              3 epochs: its epoch-1 checkpoint, read while epoch 2 runs,
               must equal phase 12's deployment job bit for bit (the spans
               time the host only; train stats are on, as the CLI sends
               them), and the fused merge must launch 130 times an epoch.
               (b) Once the PS's verdict reads healthy, `kubeml health`,
               `kubeml top --iterations 1` and `kubeml task list` run
               together and must show the job live and healthy. (c) After
-              the job: the verdict reads unknown; `history get` (4 epochs,
-              loss falls), `logs` (4 epoch lines with the tracer's summary),
+              the job: the verdict reads unknown; `history get` (3 epochs,
+              loss falls), `logs` (3 epoch lines with the tracer's summary),
               `trace --out` (client, scheduler, PS and job files under one
               trace id, a dispatch span per round) and `infer` of 64 test
               images (equal to the model's infer on the checkpoint). (d)
@@ -252,11 +252,12 @@ Phases (any failure exits non-zero and prints no result line):
               key w of ones (token ids are integers, which a NaN burst
               leaves alone: w is the leaf it poisons), static N=4, K=4,
               B=8, 32 windows a doc (8 rounds an epoch), 4 MB buckets.
-              (a) A nan FaultPlan event on worker 1 at epoch 1 round 2
-              and a dropout event there end with the same weights bit
-              for bit; dropped_workers [0, 1]. (b) NaN on every worker at
-              rounds 2 and 3: the weights after each round equal those
-              before round 2 (the fused merge's raw_count = 0 select) and
+              (a) A nan FaultPlan event on worker 1 at round 2 of a
+              one-epoch job and a dropout event there end with the same
+              weights bit for bit; dropped_workers [1]. (b) NaN on every
+              worker at rounds 2 and 3: the weights after each round
+              equal those before round 2 (the fused merge's raw_count = 0
+              select) and
               abort_after=2 fails the job with the JAX package's
               diagnostic. (c) quarantine_after=2 and reassignment with NaN
               on worker 2 at rounds 2-3: quarantined from round 4, the
@@ -354,16 +355,47 @@ Phases (any failure exits non-zero and prints no result line):
               prefill + 4 x multi-step + 2 x 5 x verify dispatches), the
               flash forward = draft layers x 4 x verify dispatches; the
               ledger's serve.multi_step / serve.spec_verify dispatches
-              equal the engine's. (d) ROADMAP C.3 (open): a bf16 engine at
-              page size 12, under attn_impl "auto" and "kernel", is
-              refused at construction naming the rule, before any slab
-              is allocated (no route to the plain version on the card).
-              Prints tokens/s, mean TTFT, dispatches per token, accepted
-              tokens per verify dispatch and host readbacks per dispatch
+              equal the engine's. (An engine at 12-token pages is
+              served in phase 20 (d).) Prints tokens/s, mean TTFT,
+              dispatches per token, accepted tokens per verify dispatch
+              and host readbacks per dispatch
               for each mode and page type, and the all-decode steady
               state alone (8 one-token prompts, bf16 pages): tokens/s
               and ms per dispatch of the single step, multi-step and the
               self-draft, equal tokens.
+ 20. text     the text classifiers (bench_text.py's BASELINE configs 5
+              and 4 at their published widths): (a) bert-tiny (vocab
+              30522, hidden 128, 2 layers, 2 heads of 64, dropout 0.1,
+              AdamW) as a TrainJob over a registry dataset of 8192 + 1024
+              band-structured int32 sequences (T=64; ragged pad tails,
+              interior pads, one row in 32 all padding) at B=32, K=16,
+              N=4, 2 epochs from the device cache: per epoch the forward
+              kernel launches 2 layers x (local steps + eval slots), dK/dV
+              and dQ 2 x local steps, the fused merge buckets x rounds;
+              the loss falls; the fused merge against its plain version
+              (bit for bit, timed) at each bucket length of the model's
+              4 MB plan; then one f32 round (dropout 0, W=2 lanes, K=4,
+              B=8, the 4 MB plan: one fused merge launch a bucket) on the
+              card and on the CPU within 2 x K x lr. (b) the
+              2-layer LSTM (vocab 32000, embed 128, hidden 256, Adam) the
+              same way at B=64, K=8, N=4 over 4096 + 512 sequences (the
+              merge is its only TPU kernel), its merge and f32 round
+              checks, and one worker's round of K steps profiled: ms per
+              local step and the device idle share. (c) the flash kernels
+              not causal at BERT-tiny's shapes (B=32, H=2, D=64, bf16,
+              T = 64 and 128) against their plain versions within 2e-2,
+              the fully padded rows finite and uniform, timed warm and
+              L2-cold against SDPA with the bytes bound. (d) ROADMAP
+              C.3: the paged kernel at page sizes 4, 12 and 20 (bf16 and
+              int8 pages, ~512-token contexts) against its plain version,
+              timed against a page gather + SDPA; a gpt-mini engine at
+              12-token pages, built under attn_impl "auto" and "kernel",
+              serves phase 3's batch through the kernel with launches =
+              layers x dispatches, each call held against the plain
+              version on its operands (2e-2); its tokens compared with
+              the same requests through the plain version on the card,
+              which launches nothing (a flip reported with its logit
+              margin).
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -387,7 +419,13 @@ launches through phase 17's (a) and (c) (null for int8 pages, which phase
 speculative runs per page type for the paged kernel, both page types'
 for the flash forward, 0 for the others) with "spec_ps_launches" (phase
 19 (b)); the paged kernel's entries also carry "multi_launches", phase
-19's multi-step run; the merge's "resnet18"
+19's multi-step run; every entry carries "text_launches", phase 20's:
+the page-12 engine's for the paged kernel, bert-tiny's per epoch for the
+flash kernels, both models' per epoch for the merge; the flash entries
+carry "noncausal" (phase 20 (c)'s rows at each T) and the paged entries
+"ragged_pages" (phase 20 (d)'s rows), the merge "text_buckets" (its
+rows at each bucket length of both text models' plans); the merge's
+"resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits
@@ -437,6 +475,11 @@ JSON line.
 
 builds the paged and flash kernels and runs phases 3 and 19 alone,
 printing phase 19's launches as one JSON line.
+
+    python3 chip_smoke.py --text-only
+
+builds the kernels and runs phase 20 alone, printing its launches and
+rows as one JSON line.
 """
 
 from __future__ import annotations
@@ -509,12 +552,14 @@ SHAPES = ((8, 1), (1, 16), (8, 16))
 PREFILL_CTX = 200        # the serve phase's longest prompt
 
 
-def paged_operands(torch, rng, S, T, pages, dev):
+def paged_operands(torch, rng, S, T, pages, dev, G=G, PMAX=PMAX):
     """Kernel operands at gpt-mini's serving shapes with realistic
     masking: slot s holds a context of n_s tokens on its first pages
     (spread over T+5 .. C-7 for 8 slots; PREFILL_CTX for one), table
     tails point at the null page 0, and the bias is NEG_INF past each
-    query's causal position and the slot's valid prefix."""
+    query's causal position and the slot's valid prefix. ``G`` and
+    ``PMAX`` default to the serving geometry's page size and table
+    width."""
     from kubeml_tpu_torch.ops.attention import NEG_INF
 
     C = PMAX * G
@@ -578,14 +623,14 @@ def bound(torch, q, k_pages, tables, bias, quantized, cdt_name):
     tables read once; the output written once. Operations: 4*H*D*T
     (QK and PV multiply-adds) for each context token on a page other
     than the null page."""
-    T = q.shape[1]
-    page_bytes = G * H * D * k_pages.element_size()
+    T, G_ = q.shape[1], k_pages.shape[1]
+    page_bytes = G_ * H * D * k_pages.element_size()
     distinct = int(torch.unique(tables).numel())
     nbytes = (2 * distinct * page_bytes + bias.numel() * 4
               + 2 * q.numel() * q.element_size() + tables.numel() * 4)
     if quantized:
         nbytes += 2 * distinct * 4
-    ops = 4 * H * D * T * G * int((tables != 0).sum())
+    ops = 4 * H * D * T * G_ * int((tables != 0).sum())
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[cdt_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -649,14 +694,15 @@ def phase_kernels(torch, card, seed):
     return rows
 
 
-def paged_cold_ms(torch, rng, S, T, pages, dev, call) -> float:
+def paged_cold_ms(torch, rng, S, T, pages, dev, call, **geometry) -> float:
     """The kernel's time with the L2 cold: operand sets of the same shape
     and masking cycled over COLD_BYTES (as phase 9a times the merge
     kernel)."""
     sets = []
     while sum(sum(t.numel() * t.element_size() for t in s)
               for s in sets) < COLD_BYTES:
-        sets.append(paged_operands(torch, rng, S, T, pages, dev)[0])
+        sets.append(paged_operands(torch, rng, S, T, pages, dev,
+                                   **geometry)[0])
     return time_ms_cold(torch, call, sets)
 
 
@@ -855,14 +901,15 @@ FA_CASES = (  # (name, dtype, T, causal): the training path's shape first
 )
 
 
-def flash_operands(torch, rng, dtype, T, dev):
+def flash_operands(torch, rng, dtype, T, dev, B=FA_B, H=FA_H):
     """q, k, v, g ~ N(0, 1) in the compute dtype and a keep-mask: sequence
-    0 full, 1..6 ending in padding at spread lengths, 7 fully padded."""
+    0 full, 1..B-2 ending in padding at spread lengths, B-1 fully
+    padded."""
     cdt = torch.float32 if dtype == "f32" else torch.bfloat16
     q, k, v, g = (torch.from_numpy(rng.standard_normal(
-        (FA_B, T, FA_H, FA_D)).astype(np.float32)).to(dev, cdt)
+        (B, T, H, FA_D)).astype(np.float32)).to(dev, cdt)
         for _ in range(4))
-    lengths = np.concatenate([[T], np.linspace(T - 7, 5, FA_B - 2)
+    lengths = np.concatenate([[T], np.linspace(T - 7, 5, B - 2)
                               .astype(np.int64), [0]])
     pad = torch.from_numpy((np.arange(T)[None, :] < lengths[:, None])
                            .astype(np.float32)).to(dev)
@@ -989,7 +1036,8 @@ def phase_flash(torch, card, seed):
     return rows
 
 
-def flash_cold_ms(torch, rng, dtype, T, causal, kernel, dev) -> float:
+def flash_cold_ms(torch, rng, dtype, T, causal, kernel, dev,
+                  **shape) -> float:
     """A flash kernel's time with the L2 cold: operand sets (q, k, v and
     the mask; for the backward also g and the forward's m, l, delta)
     cycled over COLD_BYTES, as phase 9a times the merge kernel."""
@@ -1000,7 +1048,7 @@ def flash_cold_ms(torch, rng, dtype, T, causal, kernel, dev) -> float:
     sets = []
     while sum(sum(t.numel() * t.element_size() for t in s[:-1])
               for s in sets) < COLD_BYTES:
-        q, k, v, g, pad = flash_operands(torch, rng, dtype, T, dev)
+        q, k, v, g, pad = flash_operands(torch, rng, dtype, T, dev, **shape)
         if kernel == "forward":
             sets.append((q, k, v, pad, causal))
             continue
@@ -1221,12 +1269,19 @@ def phase_merge_kernel(torch, card, seed):
     a NaN in s must return ref), at gpt-mini's bucket lengths and two
     ragged ones; warm and L2-cold device times, the plain version's, and
     the bytes bound."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    return merge_kernel_rows(torch, card, gen, MERGE_BUCKETS + MERGE_RAGGED,
+                             cold=MERGE_BUCKETS)
+
+
+def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge"):
+    """Phase 9 (a)'s check and times at each of ``lengths`` (each once),
+    L2-cold times at those in ``cold``; rows by length and mode."""
     from kubeml_tpu_torch.ops import fused_merge as fm
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed + 8)
     rows = {}
-    for n in dict.fromkeys(MERGE_BUCKETS + MERGE_RAGGED):   # each length once
+    for n in dict.fromkeys(lengths):                      # each length once
         s = torch.randn(n, device=dev, generator=gen) * 7
         ref = torch.randn(n, device=dev, generator=gen)
         s_nan = s.clone()
@@ -1251,7 +1306,7 @@ def phase_merge_kernel(torch, card, seed):
                 mode, s, ref, cnt, raw_t, lr))
             entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          bound_ms=merge_bound(n))
-            if n in MERGE_BUCKETS:
+            if n in cold:
                 sets = [(torch.randn(n, device=dev, generator=gen),
                          torch.randn(n, device=dev, generator=gen))
                         for _ in range(max(2, -(-int(COLD_BYTES)
@@ -1261,7 +1316,7 @@ def phase_merge_kernel(torch, card, seed):
                         mode, a, b, cnt, raw_t, lr), sets)
                 del sets
             row[mode] = entry
-            log(card, f"fused_merge {mode} N={n}: kernel {ms:.4f} ms"
+            log(card, f"{label} {mode} N={n}: kernel {ms:.4f} ms"
                 + (f" (L2 cold {entry['cold_ms']:.4f} ms)"
                    if "cold_ms" in entry else "")
                 + f", plain {plain_ms:.4f} ms, bound {merge_bound(n):.5f} "
@@ -1588,14 +1643,16 @@ def phase_job(torch, card, seed, engine_ms):
 
 
 def _epoch_counts(parallelism, eval_workers, n_train=JOB_TRAIN,
-                  n_test=JOB_TEST):
+                  n_test=JOB_TEST, k=None, batch=None):
     """What one epoch of the job must launch, from the JAX package's
     epoch plan (ported in data/sharding.py): (real local steps, rounds,
-    eval steps = every (worker, step) slot of the eval batches)."""
+    eval steps = every (worker, step) slot of the eval batches). K and B
+    default to phase 10's."""
     from kubeml_tpu_torch.data.sharding import plan_epoch
 
-    plan = plan_epoch(n_train, parallelism, JOB_K, JOB_B)
-    test = plan_epoch(n_test, eval_workers, -1, JOB_B)
+    k, batch = k or JOB_K, batch or JOB_B
+    plan = plan_epoch(n_train, parallelism, k, batch)
+    test = plan_epoch(n_test, eval_workers, -1, batch)
     return (plan.total_steps, len(plan.rounds),
             eval_workers * test.rounds[0].max_steps)
 
@@ -2623,7 +2680,7 @@ def control_gpt_static(card, dep, client, mode):
 
 
 # ----------------------------------------------------------------- phase 13
-CLI_EPOCHS = 4      # epoch 1 is held against phase 12's job; the live
+CLI_EPOCHS = 3      # epoch 1 is held against phase 12's job; the live
                     # verdict is read while the later epochs run
 CLI_INFER_N = 64
 # The deployment child: `python -m kubeml_tpu_torch.cli serve --role all
@@ -4137,25 +4194,25 @@ def dg_in_process(torch, card):
     plan, steps, rounds, evals = dg_epoch(DG_N)
     total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
 
-    # (a) a NaN burst on worker 1 at epoch 1 round 2 == its dropout there
+    # (a) a NaN burst on worker 1 at round 2 == its dropout there
     runs = {}
     for kind in ("nan", "dropout"):
-        fault = json.dumps([{"kind": kind, "epoch": 1, "round": 2,
+        fault = json.dumps([{"kind": kind, "epoch": 0, "round": 2,
                              "worker": 1}])
         job, rec, counts, wall = dg_job(
-            torch, dg_task(f"dg-{kind}", 2, DG_N, fault_plan=fault))
+            torch, dg_task(f"dg-{kind}", 1, DG_N, fault_plan=fault))
         assert not isinstance(rec, Exception), rec
         runs[kind] = (job, rec.data, counts, wall)
     lost = plan.rounds[2].chunks[1].num_steps
-    want_nan = dg_plan_launches(layers, 2 * steps, 2 * rounds, evals)
+    want_nan = dg_plan_launches(layers, steps, rounds, evals)
     want_drop = dict(want_nan, **{k: want_nan[k] - layers * lost
                                   for k in ("forward", "dK/dV", "dQ")})
     assert runs["nan"][2] == want_nan, (runs["nan"][2], want_nan)
     assert runs["dropout"][2] == want_drop, (runs["dropout"][2], want_drop)
     assert runs["nan"][0]._fault_plan.injected["nan"] == 1
-    assert runs["nan"][1].dropped_workers == [0.0, 1.0], \
+    assert runs["nan"][1].dropped_workers == [1.0], \
         runs["nan"][1].dropped_workers
-    assert runs["dropout"][1].dropped_workers == [0.0, 0.0]
+    assert runs["dropout"][1].dropped_workers == [0.0]
     a, b = dg_state("dg-nan"), dg_state("dg-dropout")
     assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
                                         for k in a), \
@@ -4163,13 +4220,13 @@ def dg_in_process(torch, card):
     dg_add(total, runs["nan"][2])
     dg_add(total, runs["dropout"][2])
     log(card, f"degraded (a) NaN drop: gpt-mini N={DG_N} K={JOB_K} B={JOB_B} "
-        f"2 epochs, NaN in worker 1's loss weights at epoch 1 round 2: "
+        f"1 epoch, NaN in worker 1's loss weights at round 2: "
         f"dropped_workers {runs['nan'][1].dropped_workers}, final weights "
         f"equal bit for bit to the run with worker 1 dropped out there "
         f"({len(a)} tensors); walls {runs['nan'][3]:.3f} s (NaN) / "
         f"{runs['dropout'][3]:.3f} s (dropout); launches {runs['nan'][2]} "
-        f"(= {layers} layers x ({2 * steps} steps + {evals} eval), "
-        f"{JOB_BUCKETS} x {2 * rounds} rounds) and {runs['dropout'][2]} "
+        f"(= {layers} layers x ({steps} steps + {evals} eval), "
+        f"{JOB_BUCKETS} x {rounds} rounds) and {runs['dropout'][2]} "
         f"(= the plan less worker 1's {lost} steps)")
 
     # (b) every worker NaN at rounds 2 and 3, abort_after 2: the weights
@@ -5408,7 +5465,6 @@ def phase_spec(torch, card, seed, module, direct):
                 os.environ.pop("KUBEML_TPU_HOME", None)
             else:
                 os.environ["KUBEML_TPU_HOME"] = home
-    spec_route(torch, card, module)
     log(card, f"spec phase: {time.perf_counter() - t0:.3f} s; launches: "
         f"{out}")
     return out
@@ -5637,31 +5693,500 @@ def spec_ps(card, seed, module, ref):
         dep.stop()
 
 
-def spec_route(torch, card, module):
-    """(d) ROADMAP C.3 (open): a bf16 engine at page size 12 (not a
-    multiple of 8) is refused at construction on the card under
-    attn_impl "auto" and "kernel", naming the rule, before any slab is
-    allocated: the port has no route to the plain version on the card."""
-    from kubeml_tpu_torch.ops.paged_attention import paged_attention
-    from kubeml_tpu_torch.serve.engine import DecodeEngine
+# ----------------------------------------------------------------- phase 20
+TEXT_EPOCHS = 2
+TEXT_BUCKET_MB = 4.0
+# bench_text.py's BASELINE configs at their published widths (B, T, K, N,
+# vocab, classes); the datasets' sizes and the epochs are the cuts
+TEXT_JOBS = {
+    "bert-tiny": dict(B=32, T=64, K=16, N=4, vocab=30522, classes=2,
+                      train=8192, test=1024, lr=1e-3),
+    "lstm": dict(B=64, T=64, K=8, N=4, vocab=32000, classes=4,
+                 train=4096, test=512, lr=1e-2),
+}
+TEXT_CHECK = dict(W=2, K=4, B=8, T=64)    # (a)/(b)'s card-vs-CPU round
+NC_B, NC_H, NC_TS = 32, 2, (64, 128)      # (c): BERT-tiny's attention
+RAGGED_G = (4, 12, 20)                    # (d): pages off the 8-token grid
+RAGGED_CTX = 512                          # (d): gpt-mini's context
 
-    before = torch.cuda.memory_allocated()
-    launches = paged_attention.launches
-    whys = []
-    for impl in ("auto", "kernel"):
+
+def text_arrays(rng, n, T, vocab, classes, B):
+    """n band-structured sequences of T int32 ids (tests/test_models_text
+    .py's task: class c's first 10 tokens fall in [10 + 20 c, 30 + 20 c),
+    the rest uniform over the vocab) with ragged pad tails (lengths
+    T/4..T), interior pads (3 ids zeroed in every fourth row) and one row
+    in every B all padding; labels int32."""
+    y = rng.integers(0, classes, n).astype(np.int32)
+    x = rng.integers(10, vocab, (n, T)).astype(np.int32)
+    x[:, :10] = 10 + 20 * y[:, None] + rng.integers(0, 20, (n, 10))
+    lengths = rng.integers(T // 4, T + 1, n)
+    x[np.arange(T)[None, :] >= lengths[:, None]] = 0
+    rows = np.arange(0, n, 4)
+    x[rows[:, None], 10 + rng.integers(0, T // 4 - 10, (len(rows), 3))] = 0
+    x[B - 1::B] = 0
+    return x, y
+
+
+def phase_text(torch, card, seed):
+    """The text classifiers on the card (see the module docstring, phase
+    20); returns their kernels' launches, the non-causal flash rows and
+    the ragged-page rows."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = tmp
         try:
-            DecodeEngine(module, slots=2, page=12, prefill_chunk=12,
-                         attn_impl=impl)
-            raise AssertionError(f"attn_impl={impl!r} took page size 12")
-        except ValueError as e:
-            whys.append(str(e))
-    assert all("page size 12 is not a multiple of 8" in w for w in whys), \
-        whys
-    assert torch.cuda.memory_allocated() == before
-    assert paged_attention.launches == launches
-    log(card, f"spec C.3: a bf16 engine at 12-token pages is refused at "
-        f"construction under 'auto' and 'kernel', no slab allocated, no "
-        f"launch: {whys[0]}")
+            gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+            for name in TEXT_JOBS:
+                out[name] = text_job(torch, card, seed, name)
+                lengths = out[name]["bucket_lengths"]
+                out[name]["merge"] = merge_kernel_rows(
+                    torch, card, gen, lengths, cold=lengths,
+                    label=f"text {name}'s 4 MB plan: fused_merge")
+                text_round_check(torch, card, seed, name)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+    text_lstm_trace(torch, card, seed)
+    out["noncausal"] = text_noncausal(torch, card, seed)
+    out["ragged"] = text_ragged_kernel(torch, card, seed)
+    module = build_gpt(torch, "gpt-mini", seed, torch.bfloat16, "cuda")
+    out["ragged_engine"] = {pages: text_ragged_engine(torch, card, seed,
+                                                      module, kv)
+                            for pages, kv in (("bf16", "f32"),
+                                              ("int8", "int8"))}
+    log(card, f"text phase: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def text_job(torch, card, seed, name):
+    """(a)/(b): a TrainJob of the named model at its BASELINE config over
+    a registry dataset of int32 token ids; per epoch the kernels'
+    launches (zeroed before the job, read and zeroed at each epoch's
+    publish) against the epoch plan."""
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import KubeDataset
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.merge import BucketedMerge
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    cfg = TEXT_JOBS[name]
+    B, T, K, N = cfg["B"], cfg["T"], cfg["K"], cfg["N"]
+    rng = np.random.default_rng(seed + 20)
+    xtr, ytr = text_arrays(rng, cfg["train"], T, cfg["vocab"],
+                           cfg["classes"], B)
+    xte, yte = text_arrays(rng, cfg["test"], T, cfg["vocab"],
+                           cfg["classes"], B)
+    DatasetRegistry().create(f"text-{name}", xtr, ytr, xte, yte)
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    epochs = []
+
+    def publish(m):
+        epochs.append((m, {k: fn.launches for k, fn in kernels.items()}))
+        zero()
+
+    task = job_task(f"text-{name}", TEXT_EPOCHS, model=name, batch=B,
+                    dataset=f"text-{name}", lr=cfg["lr"],
+                    default_parallelism=N, static_parallelism=True, k=K,
+                    merge_bucket_mb=TEXT_BUCKET_MB, validate_every=1,
+                    train_stats=False)
+    model = get_model(name)()
+    job = TrainJob(task, model, KubeDataset(f"text-{name}"), device="cuda",
+                   callbacks=JobCallbacks(publish_metrics=publish))
+    zero()                                      # the main path's run starts
+    t0 = time.perf_counter()
+    hist = job.train().data
+    wall = time.perf_counter() - t0
+    assert job._device_cache is not None, "the job bypassed the cache"
+    assert hist.train_loss[-1] < hist.train_loss[0], hist.train_loss
+    assert all(np.isfinite(hist.validation_loss)), hist.validation_loss
+    # the flash kernels run once a layer per step; the LSTM has none
+    layers = getattr(job._engine.module, "layers", 0)
+    lengths = [b.length for b in BucketedMerge(
+        bucket_mb=TEXT_BUCKET_MB)._plan(job.state)[1].buckets]
+    buckets = len(lengths)
+    launches, ms = [], []
+    for e, (m, counts) in enumerate(epochs):
+        steps, rounds, evals = _epoch_counts(N, N, cfg["train"], cfg["test"],
+                                             k=K, batch=B)
+        want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+                "dQ": layers * steps, "fused_merge": buckets * rounds}
+        assert counts == want, (name, e, counts, want)
+        launches.append(counts)
+        sec = hist.epoch_duration[e]
+        ms.append(1e3 * sec / steps)
+        ph = {k: sum(v) for k, v in m.phase_times.items()}
+        log(card, f"text {name} epoch {e + 1}/{TEXT_EPOCHS} (B={B} T={T} "
+            f"K={K} N={N}, {cfg['train']} + {cfg['test']} sequences): train "
+            f"loss {hist.train_loss[e]:.4f}, validation loss "
+            f"{hist.validation_loss[e]:.4f}, accuracy "
+            f"{hist.accuracy[e]:.2f}; {steps} local steps in {rounds} "
+            f"rounds, wall {sec:.4f} s = {steps * B / sec:.2f} samples/s, "
+            f"{1e3 * sec / steps:.3f} ms per local step; data_wait "
+            f"{ph['data_wait']:.4f} s, dispatch {ph['dispatch']:.4f} s, "
+            f"merge_wait {ph['merge_wait']:.4f} s; launches {counts} (= "
+            f"{layers} layers x {steps} steps (+ {evals} eval slots), "
+            f"{buckets} buckets x {rounds} rounds)")
+    log(card, f"text {name} job: {wall:.3f} s for {TEXT_EPOCHS} epochs, "
+        f"loss {hist.train_loss[0]:.4f} -> {hist.train_loss[-1]:.4f}, "
+        f"ms per local step {', '.join(f'{x:.3f}' for x in ms)}")
+    return {"launches": launches, "ms_per_step": ms,
+            "bucket_lengths": lengths}
+
+
+def text_round_check(torch, card, seed, name):
+    """One round at the model's published widths in f32 (dropout 0), W
+    workers on W lanes merged over the job's 4 MB bucket plan, on the
+    card (its kernels: the fused merge once a bucket, and bert-tiny's
+    flash kernels) and on the CPU (their plain versions): merged
+    parameters within the adaptive optimizer's 2 x K x lr (AdamW's or
+    Adam's first steps divide each gradient element by its own
+    magnitude), 99.5 % within 1e-5."""
+    from kubeml_tpu_torch.models.bert import BertModule, BertTiny
+    from kubeml_tpu_torch.models.lstm import LSTMClassifier
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+    from kubeml_tpu_torch.parallel.merge import BucketedMerge
+
+    class Bert0(BertTiny):
+        def build(self, dtype=None, device=None):
+            return BertModule(dropout=0.0, dtype=torch.float32,
+                              device=device)
+
+    model = (Bert0 if name == "bert-tiny" else LSTMClassifier)(
+        dtype=torch.float32)
+    cfg, c = TEXT_JOBS[name], TEXT_CHECK
+    W, K, B, T = c["W"], c["K"], c["B"], c["T"]
+    rng = np.random.default_rng(seed + 21)
+    x, y = text_arrays(rng, W * K * B, T, cfg["vocab"], cfg["classes"], B)
+    batch = {"x": x.reshape(W, K, B, T), "y": y.reshape(W, K, B)}
+    ones = (np.ones((W, K, B), np.float32), np.ones((W, K), np.float32),
+            np.ones(W, np.float32))
+    rngs = rng.integers(0, 2 ** 32, (W, K, 2), dtype=np.uint32)
+    init = model.init_module({"x": x[:B]},
+                             torch.Generator().manual_seed(seed), "cpu")
+    start = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    buckets = BucketedMerge(bucket_mb=TEXT_BUCKET_MB).comm_proxy(start)[
+        "buckets_per_round"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = KAvgEngine(model.build(device=dev), model.loss,
+                            model.metrics, model.configure_optimizers,
+                            n_lanes=W, merge_bucket_mb=TEXT_BUCKET_MB)
+        merges = fm.fused_merge_kernel.launches
+        out[dev] = engine.train_round({k: v.to(dev, copy=True) for k, v in
+                                       start.items()}, batch, *ones, rngs,
+                                      cfg["lr"], 0)
+        merges = fm.fused_merge_kernel.launches - merges
+        assert merges == (buckets if dev == "cuda" else 0), (dev, merges)
+    (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(card_st.loss_sum, cpu_st.loss_sum, rtol=1e-4)
+    diffs = torch.cat([(card_state[n].cpu() - cpu_state[n]).abs().ravel()
+                       for n in cpu_state])
+    within = float((diffs <= 1e-5).float().mean())
+    assert float(diffs.max()) <= 2 * K * cfg["lr"], float(diffs.max())
+    assert within >= 0.995, within
+    log(card, f"text {name} f32 round (W={W} lanes, K={K} B={B} T={T}, "
+        f"{buckets} buckets at {TEXT_BUCKET_MB:g} MB: {buckets} fused merge "
+        f"launches), card (kernels) vs CPU (plain): loss sums "
+        f"{card_st.loss_sum.tolist()} "
+        f"vs {cpu_st.loss_sum.tolist()}, merged params max|diff| "
+        f"{float(diffs.max()):.3g} (bound {2 * K * cfg['lr']:g}), "
+        f"{100 * within:.3f} % within 1e-5")
+
+
+def text_lstm_trace(torch, card, seed):
+    """(b) where an LSTM step's time goes: one round of one worker's K
+    steps at the BASELINE shape, bf16, under torch.profiler (CUDA
+    activity only): wall per local step, device busy and idle share,
+    device activities per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeml_tpu_torch.models.lstm import LSTMClassifier
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    cfg = TEXT_JOBS["lstm"]
+    B, T, K = cfg["B"], cfg["T"], cfg["K"]
+    rng = np.random.default_rng(seed + 22)
+    x, y = text_arrays(rng, K * B, T, cfg["vocab"], cfg["classes"], B)
+    batch = {"x": x.reshape(1, K, B, T), "y": y.reshape(1, K, B)}
+    args = (batch, np.ones((1, K, B), np.float32),
+            np.ones((1, K), np.float32), np.ones(1, np.float32),
+            rng.integers(0, 2 ** 32, (1, K, 2), dtype=np.uint32))
+    model = LSTMClassifier()
+    module = model.init_module({"x": x[:B]},
+                               torch.Generator().manual_seed(seed), "cuda")
+    engine = KAvgEngine(module, model.loss, model.metrics,
+                        model.configure_optimizers)
+    state = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    engine.train_round(state, *args, cfg["lr"], 0)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_round(state, *args, cfg["lr"], 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = device_events(torch, prof)
+    if not by_name:
+        log(card, "text lstm trace: device time not measured (the profiler "
+            "recorded no CUDA activity)")
+        return
+    busy = sum(t for t, _ in by_name.values())
+    calls = sum(n for _, n in by_name.values())
+    log(card, f"text lstm trace (one worker, {K} local steps, B={B} T={T}, "
+        f"bf16): wall {wall_ms:.3f} ms = {wall_ms / K:.3f} ms per local "
+        f"step, device busy {busy:.3f} ms ({100 * busy / wall_ms:.2f}%), "
+        f"idle {100 * (1 - busy / wall_ms):.2f}%; {calls} device "
+        f"activities ({calls / K:.1f} per local step)")
+    for kname, (t, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:5]:
+        log(card, f"text lstm trace top device time: {t:.3f} ms over {n} "
+            f"calls: {kname[:90]}")
+
+
+def text_noncausal(torch, card, seed):
+    """(c) the three flash kernels, not causal, at BERT-tiny's shapes
+    (B=32, H=2, D=64, bf16, T = 64 and 128; padded tails and one fully
+    padded sequence): each against its plain version within 2e-2, the
+    fully padded rows finite and uniform (l = T, the output the mean of
+    V), two launches equal bit for bit; times warm and L2-cold by graph
+    replay against SDPA (forward; backward for dK/dV + dQ together) and
+    the bytes bound."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 23)
+    rows = {}
+    shape = dict(B=NC_B, H=NC_H)
+    for T in NC_TS:
+        q, k, v, g, pad = flash_operands(torch, rng, "bf16", T, dev, **shape)
+        tol = FLASH_TOL["bf16"]
+
+        def check(got, ref):
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+            return max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(got, ref))
+
+        out, m, l = fa.fa_fwd_kernel(q, k, v, pad, False)
+        again = fa.fa_fwd_kernel(q, k, v, pad, False)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((out, m, l), again)), T
+        ref_out, ref_m, ref_l = fa._fa_forward_plain(q, k, v, pad, False)
+        check((m, l), (ref_m, ref_l))
+        err_f = check((out,), (ref_out,))
+        assert bool(out.isfinite().all())
+        # the fully padded sequence: every key masked alike, so its rows
+        # are uniform over all T keys
+        torch.testing.assert_close(
+            l.reshape(NC_B, NC_H, T)[-1],
+            torch.full((NC_H, T), float(T), device=dev), rtol=1e-6, atol=0)
+        torch.testing.assert_close(
+            out[-1].float(), v[-1].float().mean(0, keepdim=True).expand(
+                T, NC_H, FA_D), rtol=tol, atol=tol)
+        delta = fa._delta(g, out)
+        bwd = (q, k, v, pad, g, m, l, delta, False)
+        dk, dv = fa.fa_bwd_dkv_kernel(*bwd)
+        dq = fa.fa_bwd_dq_kernel(*bwd)
+        torch.cuda.synchronize()
+        err_kv = check((dk, dv), fa._fa_bwd_dkv_plain(*bwd))
+        err_q = check((dq,), (fa._fa_bwd_dq_plain(*bwd),))
+        assert all(bool(t.isfinite().all()) for t in (dk, dv, dq))
+        dk2, dv2 = fa.fa_bwd_dkv_kernel(*bwd)
+        dq2 = fa.fa_bwd_dq_kernel(*bwd)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   ((dk, dk2), (dv, dv2), (dq, dq2))), T
+        lib_f, lib_b = library_flash_ms(torch, q, k, v, g, pad, False)
+        for kernel, err, fn, plain in (
+                ("forward", err_f,
+                 lambda: fa.fa_fwd_kernel(q, k, v, pad, False),
+                 lambda: fa._fa_forward_plain(q, k, v, pad, False)),
+                ("dK/dV", err_kv, lambda: fa.fa_bwd_dkv_kernel(*bwd),
+                 lambda: fa._fa_bwd_dkv_plain(*bwd)),
+                ("dQ", err_q, lambda: fa.fa_bwd_dq_kernel(*bwd),
+                 lambda: fa._fa_bwd_dq_plain(*bwd))):
+            ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+            cold = flash_cold_ms(torch, rng, "bf16", T, False, kernel, dev,
+                                 **shape)
+            b_ms, b_by = flash_bound(q, False, kernel)
+            lib = lib_f if kernel == "forward" else lib_b
+            rows[(T, kernel)] = dict(
+                T=T, max_abs_err=err, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            log(card, f"text non-causal flash {kernel} (B={NC_B} T={T} "
+                f"H={NC_H} D={FA_D}, bf16): kernel {ms:.4f} ms (L2 cold "
+                f"{cold:.4f} ms), plain {plain_ms:.4f} ms, library "
+                f"{lib:.4f} ms ("
+                + ("forward" if kernel == "forward"
+                   else "backward, dQ+dK+dV") + "), "
+                f"bound {b_ms:.5f} ms ({b_by}), {ms / b_ms:.1f}x bound, "
+                f"max|err| {err:.3g} (tol {tol}); the fully padded rows "
+                f"finite and uniform; two launches equal bit for bit")
+    return rows
+
+
+def text_ragged_kernel(torch, card, seed):
+    """(d) the paged kernel at page sizes off its 8-token slices (G = 4,
+    12, 20), bf16 and int8 pages, gpt-mini's heads, a context of about
+    512 tokens: the decode call (S=8, T=1) and the prefill call (S=1,
+    T=16) against the plain version (2e-2), two launches equal bit for
+    bit, each slot alone equal to its batched output; times warm and
+    L2-cold against page gather + SDPA, with the bytes bound."""
+    from kubeml_tpu_torch.ops.paged_attention import _pa_plain, paged_attention
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 24)
+    rows = {}
+    for pages in ("bf16", "int8"):
+        quant = pages == "int8"
+        for g in RAGGED_G:
+            geom = dict(G=g, PMAX=-(-RAGGED_CTX // g))
+            for S, T in ((8, 1), (1, 16)):
+                args, cdt = paged_operands(torch, rng, S, T, pages, dev,
+                                           **geom)
+
+                def call(*a):
+                    return paged_attention(*a, quantized=quant,
+                                           compute_dtype=cdt)
+
+                out = call(*args)
+                torch.cuda.synchronize()
+                ref = _pa_plain(*args, quantized=quant, compute_dtype=cdt)
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           rtol=TOL["bf16"],
+                                           atol=TOL["bf16"])
+                err = float((out.float() - ref.float()).abs().max())
+                assert torch.equal(out, call(*args)), (pages, g, S, T)
+                q, kp, vp, ks, vs, tables, bias = args
+                for s in range(S if S > 1 else 0):
+                    alone = call(q[s:s + 1], kp, vp, ks, vs, tables[s:s + 1],
+                                 bias[s:s + 1])
+                    assert torch.equal(alone, out[s:s + 1]), (pages, g, s)
+                ms = time_ms(torch, lambda: call(*args))
+                cold = paged_cold_ms(torch, rng, S, T, pages, dev, call,
+                                     **geom)
+                plain_ms = time_ms(torch, lambda: _pa_plain(
+                    *args, quantized=quant, compute_dtype=cdt))
+                lib_ms = time_ms(torch, lambda: library_attention(
+                    torch, *args, quant, cdt))
+                b_ms, b_by = bound(torch, q, kp, tables, bias, quant, "bf16")
+                rows[(pages, g, S, T)] = dict(
+                    G=g, S=S, T=T, max_abs_err=err, ms=ms, cold_ms=cold,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+                log(card, f"text ragged paged_attention pages={pages} G={g} "
+                    f"Pmax={geom['PMAX']} S={S} T={T}: kernel {ms:.4f} ms "
+                    f"(L2 cold {cold:.4f} ms), plain {plain_ms:.4f} ms, "
+                    f"library {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+                    f"({b_by}), max|err| {err:.3g} (tol {TOL['bf16']}); two "
+                    "launches equal bit for bit"
+                    + (f", each of the {S} slots alone equals its batched "
+                       "output" if S > 1 else ""))
+    return rows
+
+
+def text_ragged_engine(torch, card, seed, module, kv_dtype):
+    """(d) ROADMAP C.3's page-size half: a gpt-mini engine at 12-token
+    pages builds under attn_impl "auto" and "kernel" and serves phase
+    3's batch (8 slots, 12-token prefill chunks, engine driven directly)
+    through the paged kernel: launches = layers x (decode + prefill
+    dispatches), and every one of the engine's calls is held against the
+    plain version on the same CUDA operands (2e-2). The same requests
+    through the plain version on the card (the models' paged_attention
+    swapped for _pa_plain: no launch) give tokens compared request by
+    request; a flip is reported with the top-2 logit margin of the dense
+    forward at the flip."""
+    from kubeml_tpu_torch.models import gpt as gpt_mod
+    from kubeml_tpu_torch.ops.paged_attention import _pa_plain, paged_attention
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+    from kubeml_tpu_torch.serve.slots import GenerateRequest
+
+    prompts, shared = batch_prompts(seed, module.vocab_size)
+    prompts = prompts + [shared]
+
+    def serve(impl):
+        eng = DecodeEngine(module, slots=8, page=12, prefill_chunk=12,
+                           kv_dtype=kv_dtype, attn_impl=impl)
+        reqs = [GenerateRequest(p, max_new_tokens=NEW_TOKENS)
+                for p in prompts]
+        for r in reqs:
+            eng.attach(r)
+        while eng.active():
+            eng.step()
+        torch.cuda.synchronize()
+        return eng.stats, [r.tokens for r in reqs]
+
+    def plain_call(*a, quantized=False, compute_dtype=None):
+        return _pa_plain(*a, quantized=quantized,
+                         compute_dtype=compute_dtype or a[0].dtype)
+
+    diffs = []
+
+    def held(*a, quantized=False, compute_dtype=None):
+        got = paged_attention(*a, quantized=quantized,
+                              compute_dtype=compute_dtype)
+        ref = plain_call(*a, quantized=quantized, compute_dtype=compute_dtype)
+        diffs.append(float((got.float() - ref.float()).abs().max()))
+        return got
+
+    def swapped(impl, call):
+        gpt_mod.paged_attention = call
+        try:
+            return serve(impl)
+        finally:
+            gpt_mod.paged_attention = paged_attention
+
+    serve("auto")                              # warm: first calls
+    paged_attention.launches = 0               # the run starts here
+    st, toks = swapped("kernel", held)
+    launches = paged_attention.launches        # ... and ends here
+    want = module.layers * (st["dispatches"] + st["prefill_dispatches"])
+    assert launches == want == len(diffs), (launches, want, len(diffs), st)
+    assert max(diffs) <= TOL["bf16"], max(diffs)
+    assert all(len(t) == NEW_TOKENS for t in toks)
+
+    _, plain = swapped("auto", plain_call)
+    assert paged_attention.launches == launches, "the plain run launched"
+    flips = []
+    for i, (a, b) in enumerate(zip(toks, plain)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ctx = torch.tensor([prompts[i] + a[:j]], device="cuda")
+        top2 = torch.topk(module(ctx)[0, -1], 2).values
+        flips.append((i, j, float(top2[0] - top2[1])))
+    pages = "bf16" if kv_dtype == "f32" else kv_dtype
+    log(card, f"text C.3: gpt-mini at 12-token pages, {pages} KV pages, "
+        f"built under 'auto' and 'kernel'; {len(prompts)} requests x "
+        f"{NEW_TOKENS} tokens, decode dispatches {st['dispatches']}, "
+        f"prefill dispatches {st['prefill_dispatches']}, kernel launches "
+        f"{launches} (= {module.layers} layers x "
+        f"{st['dispatches'] + st['prefill_dispatches']}), each call held "
+        f"against the plain version on its operands: max|err| "
+        f"{max(diffs):.3g} (tol {TOL['bf16']}); the plain version's run on "
+        f"the card (no launch): {len(prompts) - len(flips)} of "
+        f"{len(prompts)} requests' tokens equal"
+        + "".join(f"; request {i} flips at token {j} (dense-forward top-2 "
+                  f"logit margin {mg:.4g})" for i, j, mg in flips))
+    return {"launches": launches, "max_abs_err": max(diffs), "flips": flips,
+            "dispatches": st["dispatches"],
+            "prefill_dispatches": st["prefill_dispatches"]}
 
 
 def merge_entry(rows, launches):
@@ -5718,42 +6243,58 @@ def start(torch, sources=None) -> str:
 
 
 def run(torch, seed) -> list:
-    card = start(torch)
-    rows = phase_kernels(torch, card, seed)
+    clock = [time.perf_counter()]
+    walls = {}
+
+    def timed(phase, fn, *args):
+        """fn(*args), its wall time kept under the phase's number."""
+        out = fn(*args)
+        now = time.perf_counter()
+        walls[phase] = walls.get(phase, 0.0) + now - clock[0]
+        clock[0] = now
+        return out
+
+    card = timed(1, start, torch)
+    rows = timed(2, phase_kernels, torch, card, seed)
 
     module = build_gpt(torch, "gpt-mini", seed, torch.bfloat16, "cuda")
     # the main paths: one batch served with bf16 KV pages ("f32" keeps the
     # module's dtype), one with int8 pages; each launches its own
     # instantiation of the kernel and is counted on its own
-    direct = {pages: phase_serve(torch, card, seed, module, kv)
+    direct = {pages: timed(3, phase_serve, torch, card, seed, module, kv)
               for pages, kv in (("bf16", "f32"), ("int8", "int8"))}
     launches = {pages: d["launches"] for pages, d in direct.items()}
 
-    phase_check(torch, card, seed)
-    phase_trace(torch, card, seed, module)
+    timed(4, phase_check, torch, card, seed)
+    timed(5, phase_trace, torch, card, seed, module)
 
-    flash = phase_flash(torch, card, seed)
-    train_launches, engine_ms = phase_train(torch, card, seed)
-    phase_train_check(torch, card, seed)
-    phase_train_trace(torch, card, seed)
+    flash = timed(6, phase_flash, torch, card, seed)
+    train_launches, engine_ms = timed(7, phase_train, torch, card, seed)
+    timed(7, phase_train_check, torch, card, seed)
+    timed(8, phase_train_trace, torch, card, seed)
 
-    merge_rows = phase_merge_kernel(torch, card, seed)
-    merge_launches, engines = phase_merge_train(torch, card, seed)
-    phase_merge_check(torch, card, seed)
-    phase_merge_trace(torch, card, seed, engines)
+    merge_rows = timed(9, phase_merge_kernel, torch, card, seed)
+    merge_launches, engines = timed(9, phase_merge_train, torch, card, seed)
+    timed(9, phase_merge_check, torch, card, seed)
+    timed(9, phase_merge_trace, torch, card, seed, engines)
     del engines
-    job_launches, job_ms = phase_job(torch, card, seed, engine_ms)
-    vision_launches = phase_vision(torch, card, seed)
-    vision_merge = resnet18_merge_row(torch, card, seed, vision_launches)
-    cp_resnet, cp_gpt, cli_ref = phase_control(torch, card, seed)
-    cli = phase_cli(torch, card, seed, cli_ref)
+    job_launches, job_ms = timed(10, phase_job, torch, card, seed, engine_ms)
+    vision_launches = timed(11, phase_vision, torch, card, seed)
+    vision_merge = timed(11, resnet18_merge_row, torch, card, seed,
+                         vision_launches)
+    cp_resnet, cp_gpt, cli_ref = timed(12, phase_control, torch, card, seed)
+    cli = timed(13, phase_cli, torch, card, seed, cli_ref)
     del cli_ref
-    ps_launches = phase_ps_serve(torch, card, seed, module, direct)
-    cluster = phase_cluster(torch, card, seed, module, direct)
-    degraded = phase_degraded(torch, card, seed)
-    cost = phase_cost(torch, card, seed, module, job_ms)
-    continual = phase_continual(torch, card, seed)
-    spec = phase_spec(torch, card, seed, module, direct)
+    ps_launches = timed(14, phase_ps_serve, torch, card, seed, module, direct)
+    cluster = timed(15, phase_cluster, torch, card, seed, module, direct)
+    degraded = timed(16, phase_degraded, torch, card, seed)
+    cost = timed(17, phase_cost, torch, card, seed, module, job_ms)
+    continual = timed(18, phase_continual, torch, card, seed)
+    spec = timed(19, phase_spec, torch, card, seed, module, direct)
+    text = timed(20, phase_text, torch, card, seed)
+    log(card, "wall by phase (s): " + ", ".join(
+        f"{p}: {w:.3f}" for p, w in walls.items())
+        + f"; phases 1-20 {sum(walls.values()):.3f}")
     drafts = ("self-draft", "other-draft")
 
     paged = [{
@@ -5778,6 +6319,11 @@ def run(torch, seed) -> list:
         "spec_launches": sum(spec[pages][m]["paged"] for m in drafts),
         "spec_ps_launches": spec["ps"]["paged"] if pages == "bf16"
         else None,
+        # phase 20 (d): the page-12 engine's run, and the kernel at page
+        # sizes off its 8-token slices
+        "text_launches": text["ragged_engine"][pages]["launches"],
+        "ragged_pages": [r for (p, *_), r in text["ragged"].items()
+                         if p == pages],
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -5804,6 +6350,12 @@ def run(torch, seed) -> list:
         if kernel == "forward" else 0,
         "spec_ps_launches": spec["ps"]["flash_forward"]
         if kernel == "forward" else 0,
+        # phase 20: bert-tiny's job per epoch, and the kernel not causal
+        # at its shapes
+        "text_launches": [e[kernel] for e in
+                          text["bert-tiny"]["launches"]],
+        "noncausal": [r for (_, k), r in text["noncausal"].items()
+                      if k == kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -5822,6 +6374,13 @@ def run(torch, seed) -> list:
                 continual_launches=sum(continual["fused_merge"].values()),
                 continual_launches_by_model=continual["fused_merge"],
                 spec_launches=0, spec_ps_launches=0,
+                text_launches={name: [e["fused_merge"] for e in
+                                      text[name]["launches"]]
+                               for name in TEXT_JOBS},
+                # phase 20: each text model's own 4 MB bucket plan
+                text_buckets={name: [{"n": n, **text[name]["merge"][n]["avg"]}
+                                     for n in text[name]["bucket_lengths"]]
+                              for name in TEXT_JOBS},
                 resnet18=vision_merge)], card
 
 
@@ -5872,6 +6431,12 @@ def main(argv=None) -> int:
                          "(multi-step and speculative decode, direct and "
                          "through POST /generate), printing their "
                          "launches as one JSON line and no result line")
+    ap.add_argument("--text-only", action="store_true",
+                    help="build the kernels and run phase 20 alone (the "
+                         "text classifiers' jobs, the non-causal flash "
+                         "kernels at BERT-tiny's shapes and the paged "
+                         "kernel's ragged pages), printing its launches "
+                         "as one JSON line and no result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -5879,6 +6444,20 @@ def main(argv=None) -> int:
                          "session: copy this script into each tree and run "
                          "it there)")
     args = ap.parse_args(argv)
+    import os
+
+    # Python may run with PYTHONDONTWRITEBYTECODE beside a torch installed
+    # without bytecode: then every process (this one and each job, serve
+    # and CLI child) compiles torch's sources anew, at its import and at
+    # its first optimizer's (torch._dynamo). The bytecode goes to a cache
+    # beside this script instead, for this process and, through the
+    # environment, for every child.
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ".pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = cache
     try:
         import torch
     except ImportError:
@@ -5948,6 +6527,19 @@ def main(argv=None) -> int:
                       for p, kv in (("bf16", "f32"), ("int8", "int8"))}
             print(json.dumps({"card": card, "spec": phase_spec(
                 torch, card, args.seed, module, direct)}))
+            return 0
+        if args.text_only:
+            card = start(torch)
+            text = phase_text(torch, card, args.seed)
+            print(json.dumps({"card": card, "text": {
+                "launches": {n: text[n]["launches"] for n in TEXT_JOBS},
+                "ms_per_step": {n: text[n]["ms_per_step"]
+                                for n in TEXT_JOBS},
+                "ragged_engine": text["ragged_engine"],
+                "noncausal": [dict(kernel=k, **r) for (_, k), r in
+                              text["noncausal"].items()],
+                "ragged": [dict(pages=p, **r) for (p, *_), r in
+                           text["ragged"].items()]}}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

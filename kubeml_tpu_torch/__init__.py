@@ -12,6 +12,13 @@ first use. Entry points run on the card unless the caller asks for the
 CPU (``device="cpu"``), where each kernel's plain PyTorch version runs.
 """
 
-from kubeml_tpu_torch._device import require_cuda, resolve_device
-
 __all__ = ["require_cuda", "resolve_device"]
+
+
+def __getattr__(name):
+    """The two device helpers, imported at first use: importing the
+    package (the CLI's client verbs do) does not import torch."""
+    if name in __all__:
+        from kubeml_tpu_torch import _device
+        return getattr(_device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

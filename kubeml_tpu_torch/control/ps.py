@@ -415,6 +415,9 @@ class ParameterServer(JsonService):
         self.job_partitions = job_partitions
         self._busy_partitions: set = set()
         self.jobs: Dict[str, _JobRecord] = {}
+        # jobs deregistered whose per-job series and health are still
+        # being cleared: wait_for_job waits them out
+        self._finishing: set = set()
         # the error each failed job finished with, by job id
         self.errors: Dict[str, str] = {}
         self._jobs_lock = threading.RLock()
@@ -1657,8 +1660,29 @@ class ParameterServer(JsonService):
             rec = self.jobs.pop(job_id, None)
             if rec is not None and error:
                 self.errors[job_id] = error
+            if rec is not None:
+                self._finishing.add(job_id)
         if rec is None:
             return
+        try:
+            self._clear_finished(job_id, rec)
+        finally:
+            with self._jobs_lock:
+                self._finishing.discard(job_id)
+        self._persist_jobs()
+        if error:
+            logger.warning("job %s exited with error: %s", job_id, error)
+        if self.scheduler_url is not None:
+            try:
+                http_json("DELETE", f"{self.scheduler_url}/finish/{job_id}")
+            except KubeMLException as e:
+                logger.warning("could not notify scheduler finish: %s",
+                               e.message)
+
+    def _clear_finished(self, job_id: str, rec: "_JobRecord") -> None:
+        """A deregistered job's bookkeeping: stamp its restarts and
+        preemptions, reap its child or free its partition, clear its
+        series and health state."""
         if rec.restarts or rec.preemptions:
             # stamp the watchdog's restarts and preemptions into the
             # finished History: each job process knows only its own life
@@ -1680,15 +1704,6 @@ class ParameterServer(JsonService):
         with self._health_lock:
             self.health.clear(job_id)
         self.metrics.running_total.inc("train", -1.0)
-        self._persist_jobs()
-        if error:
-            logger.warning("job %s exited with error: %s", job_id, error)
-        if self.scheduler_url is not None:
-            try:
-                http_json("DELETE", f"{self.scheduler_url}/finish/{job_id}")
-            except KubeMLException as e:
-                logger.warning("could not notify scheduler finish: %s",
-                               e.message)
 
     def _reap(self, rec: _JobRecord):
         proc = rec.proc
@@ -1745,12 +1760,14 @@ class ParameterServer(JsonService):
     def wait_for_job(self, job_id: str, timeout: Optional[float] = None
                      ) -> bool:
         """Wait until the job is deregistered (finished, failed or
-        stopped); False on timeout. A restarting record stays registered
-        across incarnations, so deregistration is the signal."""
+        stopped) and its per-job series are cleared; False on timeout. A
+        restarting record stays registered across incarnations, so
+        deregistration is the signal."""
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             with self._jobs_lock:
-                if job_id not in self.jobs:
+                if job_id not in self.jobs \
+                        and job_id not in self._finishing:
                     return True
             if deadline is not None and time.monotonic() > deadline:
                 return False

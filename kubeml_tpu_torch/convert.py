@@ -1,5 +1,7 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's state dicts: ``GPTModule``'s and ``MLPModule``'s.
+port's state dicts: ``GPTModule``'s, ``BertModule``'s (the GPT mapping
+plus ``classifier``), ``MLPModule``'s and ``LSTMClassifierModule``'s (the
+vision mapping below, plus ``Embed_0/embedding``).
 
 A flax GPT tree (``variables["params"]``) maps onto the port as:
 
@@ -172,6 +174,58 @@ def mlp_params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     return {flax_name: {"kernel": a(f"{name}.weight").T.copy(),
                         "bias": a(f"{name}.bias")}
             for flax_name, name in _DENSE.items()}
+
+
+def bert_params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax BERT ``params`` tree (numpy leaves) -> port state dict: the
+    GPT tree's mapping (the encoder blocks have the GPT blocks' names
+    and layouts) plus ``classifier/kernel`` [hidden, classes] ->
+    ``classifier.weight`` [classes, hidden]."""
+    sd = params_from_flax(params)
+    sd["classifier.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
+    sd["classifier.bias"] = _t(params["classifier"]["bias"])
+    return sd
+
+
+def bert_params_to_flax(state_dict: Dict[str, torch.Tensor],
+                        heads: int) -> dict:
+    """Port BERT state dict -> flax ``params`` tree of float32 numpy
+    arrays (the inverse of bert_params_from_flax)."""
+    params = params_to_flax({k: v for k, v in state_dict.items()
+                             if not k.startswith("classifier.")}, heads)
+    w = state_dict["classifier.weight"].detach().cpu().float().numpy()
+    params["classifier"] = {
+        "kernel": w.T.copy(),
+        "bias": state_dict["classifier.bias"].detach().cpu().float()
+        .numpy().copy()}
+    return params
+
+
+_LSTM_EMBED = ("Embed_0.weight", ("Embed_0", "embedding"))
+
+
+def lstm_params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax LSTM classifier ``params`` tree -> port state dict. The port's
+    submodules carry the flax names (``Embed_0``,
+    ``OptimizedLSTMCell_{i}.{ii,if,ig,io,hi,hf,hg,ho}``, ``Dense_0``), so
+    a kernel [in, out] becomes ``<path>.weight`` [out, in] and the
+    embedding ``Embed_0/embedding`` becomes ``Embed_0.weight``."""
+    name, (mod, leaf) = _LSTM_EMBED
+    rest = {k: v for k, v in params.items() if k != mod}
+    sd = vision_params_from_flax({"params": rest})
+    sd[name] = _t(params[mod][leaf])
+    return sd
+
+
+def lstm_params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Port LSTM classifier state dict -> flax ``params`` tree of float32
+    numpy arrays (the inverse of lstm_params_from_flax)."""
+    name, (mod, leaf) = _LSTM_EMBED
+    params = vision_params_to_flax({k: v for k, v in state_dict.items()
+                                    if k != name})["params"]
+    params[mod] = {leaf: state_dict[name].detach().cpu().float().numpy()
+                   .copy()}
+    return params
 
 
 def vision_params_to_flax(state: Dict[str, torch.Tensor]) -> dict:

@@ -19,8 +19,6 @@ from __future__ import annotations
 import logging
 from typing import Dict, Iterable, List, Optional, Tuple
 
-import torch
-
 logger = logging.getLogger("kubeml_tpu_torch.metrics.runtime")
 
 # a storm is many compiles CLOSE TOGETHER: this many compiles within the
@@ -104,6 +102,8 @@ def device_memory_stats(device=None) -> Optional[Tuple[int, int]]:
     or None on the CPU, which has no allocator watermark. A CUDA query
     that fails raises: it never falls back to a host figure that would
     hide the card."""
+    import torch        # here, so that the CLI's client verbs never load it
+
     dev = torch.device(device) if device is not None else (
         torch.device("cuda") if torch.cuda.is_available()
         else torch.device("cpu"))

@@ -1,6 +1,7 @@
 """Built-in models of the port (twin of kubeml_tpu/models): the GPT
-family, ``gpt-mini`` and ``gpt-nano``, the ``mlp`` classifier, ``lenet``
-and the ResNets (``resnet18``, ``resnet34``, ``resnet32``, ``resnet50``).
+family, ``gpt-mini`` and ``gpt-nano``, the ``mlp`` classifier, ``lenet``,
+the ResNets (``resnet18``, ``resnet34``, ``resnet32``, ``resnet50``) and
+the text classifiers ``bert-tiny`` and ``lstm``.
 ``get_builtin`` gives a GPT module builder (serving), ``get_model`` the
 registered model class (training), ``model_names`` their names."""
 
@@ -10,9 +11,11 @@ import functools
 from typing import Callable, Optional
 
 from kubeml_tpu_torch.models.base import MODELS, KubeModel
+from kubeml_tpu_torch.models.bert import BertTiny
 from kubeml_tpu_torch.models.gpt import (GPT_CONFIGS, GPT_DROPOUT, GPTMini,
                                          GPTModule, GPTNano)
 from kubeml_tpu_torch.models.lenet import LeNet
+from kubeml_tpu_torch.models.lstm import LSTMClassifier
 from kubeml_tpu_torch.models.mlp import MLP
 from kubeml_tpu_torch.models.resnet import (ResNet18, ResNet32, ResNet34,
                                             ResNet50)
@@ -43,6 +46,7 @@ def model_names() -> list:
     return sorted(MODELS)
 
 
-__all__ = ["GPTMini", "GPTModule", "GPTNano", "KubeModel", "LeNet", "MLP",
+__all__ = ["BertTiny", "GPTMini", "GPTModule", "GPTNano", "KubeModel",
+           "LSTMClassifier", "LeNet", "MLP",
            "ResNet18", "ResNet32", "ResNet34", "ResNet50", "get_builtin",
            "get_model", "builtin_names", "model_names"]

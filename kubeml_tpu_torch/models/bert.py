@@ -1,0 +1,205 @@
+"""BERT-tiny encoder for sequence classification (twin of
+kubeml_tpu/models/bert.py; SST-2, BASELINE config 5): 2 layers, hidden
+128, 2 heads of 64, FFN 512, dropout 0.1, bf16 matmuls over f32
+parameters, f32 LayerNorm and logits.
+
+The encoder block is the GPT family's pre-LN block (``models/gpt.py``
+``_block``: the same parameter names, LayerNorm with epsilon 1e-6 and
+flax's variance, tanh GELU, dropout after the out-projection and the
+FFN), with attention through ``masked_attention(causal=False)`` under
+the [B, T] keep-mask ``x != 0``: the non-causal flash kernels on the
+card. After the blocks come the final LayerNorm, the keep-mask mean-pool
+(``max(den, 1)``, so an all-pad row pools to 0 and stays finite) and the
+classifier.
+
+State names follow GPTModule's (``tok_embed``, ``pos_embed``,
+``blocks.i.{ln0,q,k,v,out,ln1,fc0,fc1}``, ``ln_f``) plus ``classifier``;
+``convert.bert_params_{to,from}_flax`` map them onto the flax tree.
+
+The reference's parallel paths are not ported and refuse, naming the
+ROADMAP item that brings them: sequence parallelism (``seq_axis``,
+``seq_impl``, ``enable_seq_parallel``, ``forward_seq_parallel``) with
+A.6, tensor and pipeline parallelism (``tp_axis``,
+``enable_tensor_parallel``, ``enable_pipeline_parallel``) with A.12.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from kubeml_tpu_torch._device import DeviceLike, resolve_device
+from kubeml_tpu_torch.api.errors import NotPortedError
+from kubeml_tpu_torch.convert import (bert_params_from_flax,
+                                      bert_params_to_flax)
+from kubeml_tpu_torch.models.base import (PAD_ID, ClassifierModel,
+                                          InferenceInputError,
+                                          register_model)
+from kubeml_tpu_torch.models.gpt import (LN_EPS, DecoderBlock, _block,
+                                         _dropout, _layer_norm)
+from kubeml_tpu_torch.models.layers import Dense
+from kubeml_tpu_torch.ops.attention import masked_attention
+
+# what brings each refused parallel path, by ROADMAP item
+SEQ_PARALLEL = "sequence parallelism over NCCL ranks, ROADMAP A.6"
+TENSOR_PARALLEL = "tensor and pipeline parallelism over NCCL ranks, " \
+    "ROADMAP A.12"
+HEADS = 2   # BERT-tiny's attention heads (restores the flax q/k/v layout)
+
+
+class EncoderBlock(DecoderBlock):
+    """One pre-LN encoder block: the GPT block's parameters and math
+    with non-causal attention under the keep-mask."""
+
+    def __init__(self, hidden: int, heads: int, ffn: int, dropout: float,
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__(hidden, heads, ffn, device)
+        self.heads, self.dropout, self.dtype = heads, float(dropout), dtype
+
+    def forward(self, h: torch.Tensor, pad_mask: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, T, hidden] -> [B, T, hidden]; ``pad_mask`` [B, T] 1/0 keeps
+        the real tokens as keys; with ``train`` dropout is drawn from
+        ``generator``."""
+        dt = self.dtype
+
+        def lin(m):
+            return m.weight.to(dt), m.bias.to(dt)
+
+        lp = {"ln0": (self.ln0.weight, self.ln0.bias), "q": lin(self.q),
+              "k": lin(self.k), "v": lin(self.v), "out": lin(self.out),
+              "ln1": (self.ln1.weight, self.ln1.bias), "fc0": lin(self.fc0),
+              "fc1": lin(self.fc1), "heads": self.heads}
+        rate = self.dropout if train else 0.0
+        return _block(lp, h, lambda q, k, v: masked_attention(
+            q, k, v, pad_mask, causal=False),
+            lambda t: _dropout(t, rate, generator))
+
+
+class BertModule(nn.Module):
+    """BERT-tiny's parameters (f32) and its classifier forward.
+
+    ``device=None`` means CUDA and raises where no CUDA device exists;
+    ``dtype`` is the compute dtype. ``seq_axis``, ``seq_impl`` other than
+    "ring" and ``tp_axis`` select the reference's parallel executions,
+    which are not ported: they raise NotPortedError."""
+
+    def __init__(self, vocab_size: int = 30522, max_len: int = 128,
+                 hidden: int = 128, layers: int = 2, heads: int = HEADS,
+                 ffn: int = 512, num_classes: int = 2, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16,
+                 device: DeviceLike = None, seq_axis: Optional[str] = None,
+                 seq_impl: str = "ring", tp_axis: Optional[str] = None):
+        super().__init__()
+        if seq_axis is not None or seq_impl != "ring":
+            raise NotPortedError(f"BERT's seq_axis/seq_impl={seq_impl!r}",
+                                 SEQ_PARALLEL)
+        if tp_axis is not None:
+            raise NotPortedError("BERT's tp_axis", TENSOR_PARALLEL)
+        if hidden % heads:
+            raise ValueError(f"hidden {hidden} does not split over "
+                             f"{heads} heads")
+        self.vocab_size, self.max_len = vocab_size, max_len
+        self.hidden, self.layers, self.heads = hidden, layers, heads
+        self.ffn, self.num_classes = ffn, num_classes
+        self.dtype, self.dropout = dtype, float(dropout)
+        self.head_dim = hidden // heads
+        dev = resolve_device(device)
+        self.tok_embed = nn.Embedding(vocab_size, hidden, device=dev)
+        self.pos_embed = nn.Embedding(max_len, hidden, device=dev)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden, heads, ffn, dropout, dtype, dev)
+            for _ in range(layers))
+        self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=dev)
+        self.classifier = Dense(hidden, num_classes, dtype=dtype,
+                                device=dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.weight.device
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """int token ids [B, T] (pad id 0, T <= max_len) -> [B, classes]
+        f32 logits; differentiable; with ``train`` dropout follows the
+        embeddings, each attention out-projection and each FFN, drawn
+        from ``generator``."""
+        B, T = x.shape
+        if T > self.max_len:
+            # a ValueError the serving layer answers with a 4xx
+            raise InferenceInputError(
+                f"sequence length {T} exceeds max_len {self.max_len}")
+        x = x.to(self.device)
+        pad_mask = (x != PAD_ID).float()
+        dt = self.dtype
+        rate = self.dropout if train else 0.0
+        # gather the f32 rows, then cast: the values of flax's Embed, which
+        # casts the whole table to the compute dtype before the take
+        h = self.tok_embed.weight[x].to(dt) \
+            + self.pos_embed.weight[:T].to(dt)[None]
+        h = _dropout(h, rate, generator)
+        for blk in self.blocks:
+            h = blk(h, pad_mask, train, generator)
+        h = _layer_norm(h, self.ln_f.weight, self.ln_f.bias)
+        num = (h * pad_mask[..., None]).sum(1)
+        pooled = num / pad_mask.sum(1).clamp_min(1.0)[..., None]
+        return self.classifier(pooled).float()
+
+
+@register_model("bert-tiny")
+class BertTiny(ClassifierModel):
+    """BERT-tiny sequence classifier over {'x': int ids [B, T], 'y':
+    labels}: per-example cross-entropy, AdamW with weight decay 0.01."""
+
+    name = "bert-tiny"
+    num_classes = 2
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        self.dtype = dtype   # compute dtype of the modules it builds
+
+    def build(self, dtype: Optional[torch.dtype] = None,
+              device: DeviceLike = None) -> BertModule:
+        return BertModule(num_classes=self.num_classes,
+                          dtype=dtype or self.dtype, device=device)
+
+    def loss(self, module, batch, generator, sample_mask):
+        logits = module(batch["x"], train=True, generator=generator)
+        return torch.nn.functional.cross_entropy(
+            logits, batch["y"].to(logits.device).long(), reduction="none")
+
+    def configure_optimizers(self, lr, epoch):
+        """The reference's ``optax.adamw(lr, weight_decay=0.01)``, as
+        GPTMini's: decoupled decay on every parameter, eps 1e-8 outside
+        the square root."""
+        return functools.partial(torch.optim.AdamW, lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.01)
+
+    def params_to_flax(self, state: Dict[str, torch.Tensor]) -> dict:
+        return bert_params_to_flax(state, heads=HEADS)
+
+    def params_from_flax(self, params: dict) -> Dict[str, torch.Tensor]:
+        return bert_params_from_flax(params)
+
+    # the reference's parallel paths (not ported)
+    def enable_seq_parallel(self, impl: str = "ring") -> None:
+        raise NotPortedError("bert-tiny's sequence parallelism",
+                             SEQ_PARALLEL)
+
+    def forward_seq_parallel(self, variables, x, mesh, impl: str = "ring"):
+        raise NotPortedError("bert-tiny's forward_seq_parallel",
+                             SEQ_PARALLEL)
+
+    def enable_tensor_parallel(self) -> None:
+        raise NotPortedError("bert-tiny's tensor parallelism",
+                             TENSOR_PARALLEL)
+
+    def enable_pipeline_parallel(self, n_stage: int,
+                                 microbatches: int = 0) -> None:
+        raise NotPortedError("bert-tiny's pipeline parallelism",
+                             TENSOR_PARALLEL)

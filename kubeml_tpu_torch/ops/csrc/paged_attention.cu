@@ -54,6 +54,13 @@
 //      shared memory; after a cluster barrier each rank adds a slice of the
 //      outputs over the ranks' partials in rank order through DSMEM (no
 //      atomics) and writes it.
+// Pages of any size G >= 1: the context walks in 8-token slices (kChunk),
+// so each page takes gp = G rounded up to a multiple of 8 columns in shared
+// memory. The padding rows of a ragged page are zero-filled K and V rows and
+// their scores are -inf (not the bias's NEG_INF: exp(-inf - m) is an exact
+// 0 even in a row with no live column, where m itself is ~NEG_INF), so they
+// add nothing to the max, the sum or P.V, and a page of 12 gives the
+// reference's numbers for a context of 12-token pages (ROADMAP C.3).
 // The cluster size and the page assignment depend on Pmax only, never on S,
 // so a slot's output is bit-identical whether it is served alone or in a
 // batch. A refused cluster launch reports through cudaGetLastError(), which
@@ -321,18 +328,25 @@ __host__ __device__ __forceinline__ int cluster_for(int Pmax) {
   return Pmax < kClusterMax ? Pmax : kClusterMax;
 }
 
+// Context columns a page takes in shared memory: G rounded up to whole
+// kChunk slices (columns G .. gp-1 are padding, see the header).
+__host__ __device__ __forceinline__ int padded_page(int G) {
+  return (G + kChunk - 1) / kChunk * kChunk;
+}
+
 // Shared-memory layout of one rank (bytes), the same on every rank of a
 // cluster (DSMEM reads use the same offsets remotely). npr = pages of the
-// rank with the most; cols = npr * G context columns.
+// rank with the most; gp = the padded page; cols = npr * gp columns.
 struct PaSmem {
-  int npr, cols, ldsc, rowb, ldq, ng;
+  int npr, gp, cols, ldsc, rowb, ldq, ng;
   size_t k, v, sc, part, gpart, qb, qf, pid, psk, psv, plive, cc, rowlive,
       rmax, rsum, misc, total;
 
   __host__ __device__ PaSmem(int T, int D, int G, int Pmax, int elem) {
     const int nr = cluster_for(Pmax);
     npr = (Pmax + nr - 1) / nr;
-    cols = npr * G;
+    gp = padded_page(G);
+    cols = npr * gp;
     ldsc = cols + 4;                 // score rows: f32, 4 words of padding
     rowb = D * elem + 16;            // K/V rows: raw page bytes + 16
     ldq = ((D + 15) / 16) * 16 + 8;  // bf16 query rows, zero past D
@@ -456,13 +470,13 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Copy the K and V rows of this rank's pages i (0 <= i < npr) for which
-// want(i) holds into their slots (page i at rows i*G ..), 16 bytes a copy:
-// all K rows, commit, all V rows, commit.
+// want(i) holds into their slots (page i at rows i*gp ..), 16 bytes a
+// copy: all K rows, commit, all V rows, commit.
 template <typename PT, typename Want>
 __device__ __forceinline__ void issue_pages(
     unsigned char* sk, unsigned char* sv, const PT* __restrict__ k_pages,
-    const PT* __restrict__ v_pages, const int* pid, int npr, int G, int H,
-    int h, int D, int rowb, Want want) {
+    const PT* __restrict__ v_pages, const int* pid, int npr, int G, int gp,
+    int H, int h, int D, int rowb, Want want) {
   const int vpr = D * static_cast<int>(sizeof(PT)) / 16;
   const int n = npr * G * vpr;
 #pragma unroll
@@ -473,7 +487,7 @@ __device__ __forceinline__ void issue_pages(
       const int r = e / vpr, vc = e - r * vpr;   // r = i * G + g
       const int i = r / G, g = r - i * G;
       if (!want(i)) continue;
-      cp_async16(dst + static_cast<size_t>(r) * rowb + vc * 16,
+      cp_async16(dst + static_cast<size_t>(i * gp + g) * rowb + vc * 16,
                  pages + ((static_cast<size_t>(pid[i]) * G + g) * H + h) * D +
                      vc * (16 / static_cast<int>(sizeof(PT))));
     }
@@ -514,7 +528,8 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
   float* rsum = reinterpret_cast<float*>(pa_smem + L.rsum);
   int* misc = reinterpret_cast<int*>(pa_smem + L.misc);
   const int npr = (Pmax - rank + nr - 1) / nr;   // pages rank, rank + nr, ..
-  const int ncols = npr * G;
+  const int gp = L.gp;
+  const int ncols = npr * gp;
   const int ldsc = L.ldsc, rowb = L.rowb;
   const int32_t* trow = tables + static_cast<size_t>(s) * Pmax;
   const float* brow = bias + static_cast<size_t>(s) * T * C;
@@ -545,10 +560,25 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
     for (int d = tid; d < D; d += kPaThreads)
       qf[d] = __bfloat162float(q[(static_cast<size_t>(s) * H + h) * D + d]);
   }
+  // a ragged page's padding rows (g >= G) hold zeros, never stale bits
+  // (0 x NaN would poison P.V); no copy below writes them
+  const int npad = npr * (gp - G) * (rowb / 16);
+  for (int e = tid; e < 2 * npad; e += kPaThreads) {
+    const int kv = e / npad, r = e - kv * npad;
+    const int row = r / (rowb / 16), vc = r - row * (rowb / 16);
+    const int i = row / (gp - G), g = G + row - i * (gp - G);
+    *reinterpret_cast<uint4*>((kv ? sv : sk) +
+                              static_cast<size_t>(i * gp + g) * rowb +
+                              vc * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
   __syncthreads();
   for (int e = tid; e < T * ncols; e += kPaThreads) {
     const int t = e / ncols, c = e - t * ncols;
-    const int i = c / G, g = c - i * G;
+    const int i = c / gp, g = c - i * gp;
+    if (g >= G) {   // padding: -inf gives an exact 0 weight in every row
+      sc[t * ldsc + c] = -INFINITY;
+      continue;
+    }
     const float b = brow[static_cast<size_t>(t) * C + (rank + i * nr) * G + g];
     sc[t * ldsc + c] = b;
     if (b > 0.5f * kNegInf) {   // benign races: every writer stores 1
@@ -559,7 +589,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
   __syncthreads();
 
   // 2. the live pages' K and V rows, behind everything below
-  issue_pages<PT>(sk, sv, k_pages, v_pages, pid, npr, G, H, h, D, rowb,
+  issue_pages<PT>(sk, sv, k_pages, v_pages, pid, npr, G, gp, H, h, D, rowb,
                   [&](int i) { return plive[i] != 0; });
 
   // 3. is every row live somewhere in the cluster's context?
@@ -572,13 +602,13 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
   }
   const bool skip = __syncthreads_and(mine) != 0;
   if (!skip)   // a row with no live column: every page, as the reference
-    issue_pages<PT>(sk, sv, k_pages, v_pages, pid, npr, G, H, h, D, rowb,
-                    [&](int i) { return plive[i] == 0; });
+    issue_pages<PT>(sk, sv, k_pages, v_pages, pid, npr, G, gp, H, h, D,
+                    rowb, [&](int i) { return plive[i] == 0; });
   if (tid == 0) {
     int n = 0;
     for (int i = 0; i < npr; ++i)
       if (!skip || plive[i])
-        for (int x = 0; x < G; x += kChunk) cc[n++] = i * G + x;
+        for (int x = 0; x < G; x += kChunk) cc[n++] = i * gp + x;
     misc[0] = n;
   }
   cp_async_wait<1>();   // every K copy has landed (V may still fly)
@@ -593,7 +623,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
       for (int u = warp; u < nch; u += nwarps) {
         const int col0 = cc[u];
         const unsigned char* krow = sk + static_cast<size_t>(col0 + g) * rowb;
-        const float ks = kQuant ? psk[(col0 + g) / G] : 0.0f;
+        const float ks = kQuant ? psk[(col0 + g) / gp] : 0.0f;
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         for (int k0 = 0; k0 < D; k0 += 16) {
           const bf16* pa = qb + (m0 + g) * L.ldq + k0 + 2 * t4;
@@ -620,7 +650,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
     for (int x = tid; x < nch * kChunk; x += kPaThreads) {
       const int c = cc[x / kChunk] + x % kChunk;
       const unsigned char* krow = sk + static_cast<size_t>(c) * rowb;
-      const float ks = kQuant ? psk[c / G] : 0.0f;
+      const float ks = kQuant ? psk[c / gp] : 0.0f;
       float a0 = 0.0f, a1 = 0.0f;
       for (int d = 0; d < D; d += 8) {
         float kv[8];
@@ -699,7 +729,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
           if (r0 < T) a[0] = pack_bf16(w0[ca + 2 * t4], w0[ca + 2 * t4 + 1]);
           if (r1 < T) a[1] = pack_bf16(w1[ca + 2 * t4], w1[ca + 2 * t4 + 1]);
           const unsigned char* va = sv + static_cast<size_t>(ca + 2 * t4) * rowb;
-          const float vsa = kQuant ? psv[(ca + 2 * t4) / G] : 0.0f;
+          const float vsa = kQuant ? psv[(ca + 2 * t4) / gp] : 0.0f;
           const uint32_t b0 =
               kv_bits<PT>(va, n0 + g, vsa) |
               static_cast<uint32_t>(kv_bits<PT>(va + rowb, n0 + g, vsa)) << 16;
@@ -710,7 +740,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
               a[3] = pack_bf16(w1[cb + 2 * t4], w1[cb + 2 * t4 + 1]);
             const unsigned char* vb =
                 sv + static_cast<size_t>(cb + 2 * t4) * rowb;
-            const float vsb = kQuant ? psv[(cb + 2 * t4) / G] : 0.0f;
+            const float vsb = kQuant ? psv[(cb + 2 * t4) / gp] : 0.0f;
             b1 = kv_bits<PT>(vb, n0 + g, vsb) |
                  static_cast<uint32_t>(kv_bits<PT>(vb + rowb, n0 + g, vsb))
                      << 16;
@@ -732,7 +762,7 @@ pa_cluster_kernel(const bf16* __restrict__ q, const PT* __restrict__ k_pages,
       float acc = 0.0f;
       for (int x = grp; x < nch * kChunk; x += L.ng) {
         const int c = cc[x / kChunk] + x % kChunk;
-        const float vs = kQuant ? psv[c / G] : 0.0f;
+        const float vs = kQuant ? psv[c / gp] : 0.0f;
         acc = fmaf(sc[c],
                    bits_float(kv_bits<PT>(sv + static_cast<size_t>(c) * rowb,
                                           d, vs)),
@@ -815,8 +845,7 @@ extern "C" {
 // q [S, T, H, D] (f32 or bf16), k_pages/v_pages [P, G, H, D] (q's dtype, or
 // int8 with quantized != 0), k_scale/v_scale [P] f32, tables [S, Pmax] i32,
 // bias [S, 1, T, C] f32, out [S, T, H, D] in q's dtype. All contiguous, on
-// the current device; D * sizeof(page element) a multiple of 16; with bf16
-// queries G a multiple of 8; at most
+// the current device; D * sizeof(page element) a multiple of 16; at most
 // kubeml_paged_attention_smem_bytes(...) bytes of shared memory per block.
 // Returns cudaGetLastError() after the launch (a refused cluster launch
 // included).

@@ -104,16 +104,14 @@ def kernel_geometry_refusal(T: int, D: int, G: int, Pmax: int,
     pages of G tokens in ``compute_dtype`` (int8 pages when quantized), or
     None when it can. The one home of the kernel's geometry rules: the
     launch checks them, and a CUDA DecodeEngine checks them when it is
-    built. The page-size and row-width rules are pure; with ``smem`` the
+    built. The row-width rule is pure (any page size G >= 1 is taken: the
+    kernel pads a ragged page to whole 8-token slices); with ``smem`` the
     shared memory the launch would need is asked of the built library,
     which needs the CUDA toolkit (the card's machine)."""
     itemsize = 1 if quantized else torch.finfo(compute_dtype).bits // 8
     if (D * itemsize) % 16:
         return (f"the kernel stages page rows in 16-byte vectors: head_dim "
                 f"{D} x {itemsize} bytes is not a multiple of 16")
-    if compute_dtype == torch.bfloat16 and G % 8:
-        return (f"the bf16 kernel walks the context in 8-token slices: page "
-                f"size {G} is not a multiple of 8")
     if smem:
         need = kernel_smem_bytes(T, D, G, Pmax, compute_dtype, quantized)
         if need > MAX_SMEM_BYTES:

@@ -92,9 +92,10 @@ ATTN_IMPLS = ("auto", "kernel", "plain")
 def check_kernel_geometry(module, geom: PageGeometry, kv_dtype: str,
                           prefill_chunk: int) -> None:
     """Raise ValueError when the paged kernel cannot serve an engine's
-    decode (T = 1) or prefill (T = prefill_chunk) calls: page size,
-    head_dim, page dtype, or the shared memory of a call over the whole
-    context. A CUDA engine asks this before it allocates its slab."""
+    decode (T = 1) or prefill (T = prefill_chunk) calls: head_dim and
+    page dtype, or the shared memory of a call over the whole context
+    (any page size is taken). A CUDA engine asks this before it
+    allocates its slab."""
     G, Pmax = geom.page, geom.pages_per_slot
     D, dtype = module.head_dim, module.dtype
     quantized = kv_dtype == "int8"

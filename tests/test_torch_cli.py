@@ -504,6 +504,26 @@ def test_cost_verb_prints_the_references_output(stack, capsys, form):
         assert "nosuch" in outs[0].err
 
 
+@pytest.mark.parametrize("argv", [["fn", "list"], ["history", "list"],
+                                  ["task", "list"], ["--help"]])
+def test_client_verbs_never_import_torch(argv, tmp_home):
+    """A client verb only speaks HTTP to the controller: the package, the
+    CLI and the verb's own imports leave torch unloaded (a cold ``kubeml``
+    call pays no torch import). Nothing listens, so a verb may fail."""
+    code = ("import sys\n"
+            "from kubeml_tpu_torch.cli.main import main\n"
+            "try:\n"
+            f"    main({argv!r})\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "assert 'torch' not in sys.modules, 'the CLI imported torch'\n"
+            "print('no torch')\n")
+    env = dict(os.environ, KUBEML_CONTROLLER_URL="http://127.0.0.1:9")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "no torch" in res.stdout, res.stderr
+
+
 def test_serve_without_device_needs_a_card(tmp_home, capsys):
     import torch
 

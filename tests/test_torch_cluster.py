@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import random
+import threading
 import time
 
 import pytest
@@ -589,35 +590,65 @@ def _poll(pred, what, timeout=120.0):
         time.sleep(0.05)
 
 
-def test_a_priority_arrival_waits_out_a_training_victim(tmp_path, tmp_home):
+def test_a_priority_arrival_waits_out_a_training_victim(tmp_path, tmp_home,
+                                                        monkeypatch):
     """The allocator picks a training victim that runs as a thread of
     the PS: with no process of its own to drain, the PS answers the
     preempt 503, as the JAX PS does, and the victim runs to its end
     unpreempted: the arrival places only then, and the pool never holds
     more lanes than it has. (A standalone victim's drain, requeue and
-    resume are held in tests/test_torch_elastic.py.)"""
+    resume are held in tests/test_torch_elastic.py.)
+
+    Each job's first round waits in a round hook until the test opens
+    its gate: the victim's once the arrival is queued in /cluster (its
+    submit decided the preemption in the same step), so the victim never
+    finishes before the arrival exists; the arrival's once the test has
+    seen its gang placed, so the arrival never finishes unseen."""
+    from kubeml_tpu_torch.control import ps as ps_mod
     from kubeml_tpu_torch.control.client import KubemlClient
     from kubeml_tpu_torch.control.deployment import start_deployment
     from kubeml_tpu_torch.control.httpd import http_json
 
+    entered, gates = {}, {}
+
+    def gated_job(task, *a, **kw):
+        came = entered.setdefault(task.job_id, threading.Event())
+        gate = gates.setdefault(task.job_id, threading.Event())
+
+        def hold(rb):
+            came.set()
+            gate.wait(240)
+            return rb
+        return real_job(task, *a, round_hook=hold, **kw)
+
+    def cluster():
+        return http_json("GET", f"{dep.controller_url}/cluster")
+
+    real_job = ps_mod.TrainJob
+    monkeypatch.setattr(ps_mod, "TrainJob", gated_job)
     dep = start_deployment(device="cpu", cluster_lanes=2)
     try:
         client = KubemlClient(dep.controller_url).v1()
         client.datasets().create("blobs", *_blobs(tmp_path))
         victim = _job(client, 40, 2)
-        _poll(lambda: victim in dep.ps.jobs, "the victim to start")
+        assert entered.setdefault(victim, threading.Event()).wait(120), \
+            "the victim never reached its first round"
         arrival = _job(client, 1, 2, priority=1)
+        _poll(lambda: cluster()["cluster_queue_by_priority"] == {"1": 1},
+              "the arrival's queueing")
+        gates.setdefault(victim, threading.Event()).set()
         seen = []
 
         def placed():
-            snap = http_json("GET", f"{dep.controller_url}/cluster")
+            snap = cluster()
             seen.append(snap["cluster_lanes_in_use"])
             return arrival in {g["job_id"]
                                for g in snap["cluster_running_gangs"]}
         _poll(placed, "the arrival's gang", 240)
         assert victim not in dep.ps.jobs      # it ran to its end first
+        gates.setdefault(arrival, threading.Event()).set()
         assert dep.ps.wait_for_job(arrival, timeout=120)
-        snap = http_json("GET", f"{dep.controller_url}/cluster")
+        snap = cluster()
         assert snap["cluster_preemptions_total"] == 1
         assert snap["cluster_gang_placements_total"] == 2
         assert max(seen) <= 2
@@ -625,6 +656,8 @@ def test_a_priority_arrival_waits_out_a_training_victim(tmp_path, tmp_home):
         assert len(hist.train_loss) == 40     # not cut short
         assert (hist.restarts, hist.preemptions) == (0, 0)
     finally:
+        for gate in list(gates.values()):
+            gate.set()
         dep.stop()
 
 

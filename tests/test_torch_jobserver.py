@@ -169,13 +169,62 @@ def test_standalone_child_equals_threaded_job(blobs_files, monkeypatch):
                                        rtol=1e-6, atol=1e-7)
 
 
-def test_crashed_child_restarts_from_its_checkpoint(blobs_files):
+# A job-server child whose epochs from its second on wait, after their
+# MetricUpdate, while the hold file (argv[1]) exists: the first epoch's
+# checkpoint is saved behind the held epoch, so a kill there always lands
+# between the first checkpoint and the job's end.
+GATED_CHILD = r'''
+import os, sys, time
+from kubeml_tpu_torch.train import jobserver
+from kubeml_tpu_torch.train.jobserver import JobServer
+
+hold = sys.argv[1]
+real = JobServer._publish_metrics
+published = []
+
+
+def publish(self, m):
+    real(self, m)
+    published.append(m.job_id)
+    while len(published) >= 2 and os.path.exists(hold):
+        time.sleep(0.02)
+
+
+JobServer._publish_metrics = publish
+jobserver.main(sys.argv[2:])
+'''
+
+
+class _GatedChildren:
+    """The PS module's ``subprocess``, with every job-server child run
+    through GATED_CHILD."""
+
+    TimeoutExpired = subprocess.TimeoutExpired
+
+    def __init__(self, script: str, hold: str):
+        self.script, self.hold = script, hold
+
+    def Popen(self, cmd, **kw):
+        i = cmd.index("-m")
+        return subprocess.Popen(cmd[:i] + [self.script, self.hold]
+                                + cmd[i + 2:], **kw)
+
+
+def test_crashed_child_restarts_from_its_checkpoint(blobs_files, tmp_path,
+                                                    monkeypatch):
     """A child killed mid-job restarts from its own checkpoint (history,
-    epoch and parallelism restored) and the history counts the restart."""
+    epoch and parallelism restored) and the history counts the restart.
+    The child holds its second epoch until the kill (GATED_CHILD)."""
+    from kubeml_tpu_torch.control import ps as ps_mod
     from kubeml_tpu_torch.control.client import KubemlClient
     from kubeml_tpu_torch.control.deployment import start_deployment
     from kubeml_tpu_torch.train.checkpoint import checkpoint_saved_at
 
+    script, hold = tmp_path / "gated_child.py", tmp_path / "hold"
+    script.write_text(GATED_CHILD)
+    hold.write_text("")
+    monkeypatch.setattr(ps_mod, "subprocess",
+                        _GatedChildren(str(script), str(hold)))
     dep = start_deployment(device="cpu", standalone_jobs=True)
     try:
         c = KubemlClient(dep.controller_url).v1()
@@ -191,6 +240,7 @@ def test_crashed_child_restarts_from_its_checkpoint(blobs_files):
         assert rec is not None, "the job ended before the test killed it"
         first = rec.proc
         first.kill()
+        hold.unlink()
         _wait_history(c, job_id, dep.ps, timeout=240)
         assert dep.ps.wait_for_job(job_id, timeout=60)
         # read again once the PS has stamped the restarts at the finish
@@ -201,6 +251,7 @@ def test_crashed_child_restarts_from_its_checkpoint(blobs_files):
         assert rec.proc is not first
         assert dep.ps.metrics.restarts_total.value("standalone") == 1.0
     finally:
+        hold.unlink(missing_ok=True)
         dep.stop()
 
 

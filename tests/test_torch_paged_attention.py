@@ -154,11 +154,11 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="span devices"):
         _check_kernel_args(q, k, v, ks, vs, tables, bias.to("meta"), False,
                            torch.float32)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        half = (torch.zeros((2, 4, H, D), dtype=torch.bfloat16),) * 2
-        _check_kernel_args(q.to(torch.bfloat16), *half, torch.zeros(2),
-                           torch.zeros(2), torch.zeros((S, 2), dtype=torch.int32),
-                           torch.zeros((S, 1, 1, 8)), False, torch.bfloat16)
+    # bf16 pages of any size pass (the kernel pads a ragged page)
+    half = (torch.zeros((2, 4, H, D), dtype=torch.bfloat16),) * 2
+    _check_kernel_args(q.to(torch.bfloat16), *half, torch.zeros(2),
+                       torch.zeros(2), torch.zeros((S, 2), dtype=torch.int32),
+                       torch.zeros((S, 1, 1, 8)), False, torch.bfloat16)
     with pytest.raises(TypeError, match="computes in"):
         _check_kernel_args(q, k, v, ks, vs, tables, bias, False,
                            torch.bfloat16)
@@ -262,14 +262,16 @@ def _live(bias_s):
 
 
 def _cluster_schedule(q, k_pages, v_pages, k_scale, v_scale, tables, bias,
-                      quantized, cdt):
+                      quantized, cdt, chunk=1):
     """The card kernel's schedule replayed in torch: rank r of a cluster
     of nr = min(8, Pmax) takes pages r, r + nr, ...; pages whose bias is
     dead in every row are skipped when every row is live; each rank forms
     its scores (scaled product, then the bias) and its row max; the max
     over the ranks; exp, the rank's row sum; the sum over the ranks in
     rank order; bf16(e / sum) (the compute dtype); each rank's f32 P.V
-    partial; the partials added in rank order."""
+    partial; the partials added in rank order. With ``chunk`` each page is
+    padded, as the kernel pads it, to a whole number of chunk-token
+    slices: zero K and V rows, and a -inf score."""
     from kubeml_tpu_torch.ops.attention import score_scale
     from kubeml_tpu_torch.ops.paged_attention import _dequant
 
@@ -280,6 +282,16 @@ def _cluster_schedule(q, k_pages, v_pages, k_scale, v_scale, tables, bias,
     if quantized:
         k_pages = _dequant(k_pages, k_scale, cdt)
         v_pages = _dequant(v_pages, v_scale, cdt)
+    gp = -(-G_ // chunk) * chunk
+    if gp > G_:
+        pad = torch.zeros((k_pages.shape[0], gp - G_) + k_pages.shape[2:],
+                          dtype=k_pages.dtype)
+        k_pages = torch.cat([k_pages, pad], 1)
+        v_pages = torch.cat([v_pages, pad], 1)
+        bias = torch.cat([bias.reshape(S_, 1, T_, pmax, G_), torch.full(
+            (S_, 1, T_, pmax, gp - G_), -torch.inf)], -1).reshape(
+                S_, 1, T_, pmax * gp)
+        G_ = gp
     scale = score_scale(D_)
     out = torch.empty_like(q)
     for s in range(S_):
@@ -349,6 +361,38 @@ def test_cluster_schedule_matches_jax(dtype, T, quantized, jax_impl):
         rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("G_", [4, 12, 20])
+@pytest.mark.parametrize("T,quantized", [(1, False), (16, True)])
+def test_ragged_pages_padded_to_whole_slices_match_jax(G_, T, quantized):
+    """The kernel walks the context in 8-token slices, so a page of G
+    tokens takes G rounded up to a multiple of 8 columns: the schedule
+    with that padding (zero K and V rows, -inf scores) against the JAX
+    package's paged_attention at the same page size, bf16, with dead
+    pages and a fully masked slot (whose row the -inf columns must not
+    join: a NEG_INF score would)."""
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops.pallas.paged_attention import \
+        paged_attention as jax_pa
+
+    args, tdt = _ctx_operands(90 + G_ + T, 3, T, G_, 11, "bf16", quantized,
+                              dead_slot=2)
+    got = _cluster_schedule(*args, quantized, tdt, chunk=8)
+    q, k, v, ks, vs, tables, bias = (a.float().numpy() if a.dtype ==
+                                     torch.bfloat16 else a.numpy()
+                                     for a in args)
+    page = (lambda a: jnp.asarray(a)) if quantized \
+        else (lambda a: jnp.asarray(a).astype(jnp.bfloat16))
+    ref = jax_pa(jnp.asarray(q).astype(jnp.bfloat16), page(k), page(v),
+                 jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(tables),
+                 jnp.asarray(bias), quantized=quantized,
+                 compute_dtype=jnp.bfloat16, impl="gather")
+    torch.testing.assert_close(
+        got.float(), torch.tensor(np.asarray(ref.astype(jnp.float32))),
+        rtol=2e-2, atol=2e-2)
+    assert bool(got.isfinite().all())
+
+
 @pytest.mark.parametrize("T", [1, 3, 16])
 @pytest.mark.parametrize("dead_slot", [None, 1])
 def test_dead_page_skip_is_exact(T, dead_slot):
@@ -401,11 +445,12 @@ def _to(args, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G_", [8, 16, 32])
+@pytest.mark.parametrize("G_", [4, 8, 12, 16, 20, 32])
 @pytest.mark.parametrize("T", [1, 3, 16])
 @pytest.mark.parametrize("quantized", [False, True])
 def test_cluster_kernel_on_card(cuda_device, G_, T, quantized):
-    """On the card, bf16 queries (the cluster kernel): contexts with dead
+    """On the card, bf16 queries (the cluster kernel), page sizes that
+    are and are not multiples of its 8-token slices: contexts with dead
     pages and one slot whose rows are all masked, against the plain
     version at 2e-2; two launches equal bit for bit; each slot of an S=8
     call equals the same slot launched alone, bit for bit."""
@@ -449,7 +494,7 @@ def test_f32_kernel_on_card_with_dead_pages(cuda_device, T):
 
 # ------------------------------------------- geometry refused at construction
 @pytest.mark.parametrize("G,D,dtype,quantized,refused", [
-    (12, 64, torch.bfloat16, False, "page size 12"),   # bf16: G % 8
+    (12, 64, torch.bfloat16, False, None),      # bf16: any page size
     (16, 64, torch.bfloat16, False, None),
     (8, 8, torch.bfloat16, True, "head_dim 8 x 1 bytes"),  # int8 rows
     (16, 8, torch.bfloat16, False, None),               # 8 x 2 = 16 bytes
@@ -457,8 +502,9 @@ def test_f32_kernel_on_card_with_dead_pages(cuda_device, T):
     (12, 2, torch.float32, False, "head_dim 2 x 4 bytes"),
 ])
 def test_kernel_geometry_rules_on_cpu(G, D, dtype, quantized, refused):
-    """The kernel's pure geometry rules (page size and row width), asked
-    without the shared-memory query the library answers on the card."""
+    """The kernel's pure geometry rule (row width; any page size is
+    taken), asked without the shared-memory query the library answers on
+    the card."""
     from kubeml_tpu_torch.ops.paged_attention import kernel_geometry_refusal
 
     why = kernel_geometry_refusal(1, D, G, 32, dtype, quantized, smem=False)
@@ -490,21 +536,25 @@ def test_cpu_engine_serves_geometry_the_kernel_refuses():
 @pytest.mark.gpu
 def test_cuda_engine_refuses_unservable_geometry_at_construction(
         cuda_device):
-    """DecodeEngine(page=12) on a bf16 gpt-mini raises before any slab is
-    allocated, naming the geometry, so a service over it never admits a
-    request; page=16 builds."""
+    """A bf16 gpt-mini engine builds at 12-token pages (bf16 and int8),
+    which the kernel takes since it pads a ragged page; a context past a
+    block's shared memory (max_len 16384, ROADMAP B.1) raises before any
+    slab is allocated, naming the geometry, so a service over it never
+    admits a request."""
     from kubeml_tpu_torch.models import get_builtin
+    from kubeml_tpu_torch.models.gpt import GPTModule
     from kubeml_tpu_torch.serve.engine import DecodeEngine
 
     module = get_builtin("gpt-mini")(device=cuda_device)
+    for kv_dtype in ("f32", "int8"):
+        DecodeEngine(module, slots=2, page=12, kv_dtype=kv_dtype,
+                     device=cuda_device)
+    long = GPTModule(vocab_size=64, max_len=16384, hidden=128, layers=1,
+                     heads=2, ffn=64, device=cuda_device)
     before = torch.cuda.memory_allocated(cuda_device)
     with pytest.raises(ValueError) as e:
-        DecodeEngine(module, slots=2, page=12, device=cuda_device)
+        DecodeEngine(long, slots=2, page=16, device=cuda_device)
     msg = str(e.value)
-    assert "page size 12" in msg and "head_dim 64" in msg
+    assert "page size 16" in msg and "head_dim 64" in msg
     assert "bfloat16 pages" in msg and "bytes of shared memory" in msg
     assert torch.cuda.memory_allocated(cuda_device) == before
-    with pytest.raises(ValueError, match="int8 pages"):
-        DecodeEngine(module, slots=2, page=12, kv_dtype="int8",
-                     device=cuda_device)
-    DecodeEngine(module, slots=2, page=16, device=cuda_device)

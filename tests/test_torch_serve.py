@@ -286,6 +286,9 @@ def test_port_imports_no_jax():
     # and the allocator and the journal, the port's own copies
     assert {"cluster.py", "journal.py", "scheduler.py", "ps.py"} <= {
         p.name for p in files if p.parent.name == "control"}
+    # and the text classifiers
+    assert {"bert.py", "lstm.py"} <= {
+        p.name for p in files if p.parent.name == "models"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

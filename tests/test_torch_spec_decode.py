@@ -798,11 +798,12 @@ def test_bad_decode_knobs_answer_as_the_reference(knobs, status, tmp_home):
 @pytest.mark.parametrize("G", [4, 8, 12, 16])
 @pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
 def test_cuda_refusal_follows_the_references_gate(G, kv_dtype, monkeypatch):
-    """A bf16 CUDA engine is refused, at construction, exactly the page
-    sizes the reference's paged_eligible gate keeps off its kernel (the
-    reference gathers them; the port has no gather route on the card),
-    naming the rule. (The shared-memory rule needs the built library and
-    is held on the card: here it is asked of a stub that fits.)"""
+    """A bf16 CUDA engine takes, at construction, every page size the
+    reference serves — those its paged_eligible gate sends to its kernel
+    and those it gathers: the paged kernel pads a ragged page to whole
+    8-token slices, so no page size is refused. (The shared-memory rule
+    needs the built library and is held on the card: here it is asked of
+    a stub that fits.)"""
     from kubeml_tpu.ops.pallas.paged_attention import paged_eligible
     from kubeml_tpu_torch.ops import paged_attention as pa
     from kubeml_tpu_torch.serve import engine as engine_mod
@@ -813,12 +814,11 @@ def test_cuda_refusal_follows_the_references_gate(G, kv_dtype, monkeypatch):
     module, _ = _port(0, dims=dict(NANO, hidden=128, heads=2),
                       dtype=torch.bfloat16)
     geom = PageGeometry.for_module(slots=4, page=G, max_len=64)
-    if paged_eligible(G):
-        engine_mod.check_kernel_geometry(module, geom, kv_dtype, 16)
-    else:
-        with pytest.raises(ValueError, match=f"page size {G} is not a "
-                                             f"multiple of 8"):
-            engine_mod.check_kernel_geometry(module, geom, kv_dtype, 16)
+    assert paged_eligible(G) == (G % 8 == 0)
+    engine_mod.check_kernel_geometry(module, geom, kv_dtype, 16)
+    assert pa.kernel_geometry_refusal(16, module.head_dim, G,
+                                      geom.pages_per_slot, torch.bfloat16,
+                                      kv_dtype == "int8") is None
 
 
 def test_multi_and_spec_serve_a_geometry_the_kernel_refuses_on_cpu():
@@ -880,3 +880,46 @@ def test_multi_and_spec_equal_single_step_on_card(cuda_device, kv_dtype):
                 MINI["layers"] * 4 * eng.stats["verify_dispatches"]
         else:
             assert eng.stats["multi_step_dispatches"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [4, 12, 20])
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_cuda_engine_serves_ragged_pages_on_card(cuda_device, G, kv_dtype,
+                                                 monkeypatch):
+    """gpt-mini's widths in bf16 on the card at page sizes that are not
+    multiples of the kernel's 8-token slices: the engine builds, every
+    paged call of single steps, multi-step and self-draft runs launches
+    the kernel, and each call's output is held against the plain version
+    on the same CUDA operands (2e-2); multi-step gives the single step's
+    tokens and KV bytes bit for bit."""
+    from kubeml_tpu_torch.models import gpt as gpt_mod
+    from kubeml_tpu_torch.ops.paged_attention import (_pa_plain,
+                                                      paged_attention)
+
+    diffs = []
+
+    def held(*args, quantized=False, compute_dtype=None):
+        out = paged_attention(*args, quantized=quantized,
+                              compute_dtype=compute_dtype)
+        ref = _pa_plain(*args, quantized=quantized,
+                        compute_dtype=compute_dtype or args[0].dtype)
+        diffs.append(float((out.float() - ref.float()).abs().max()))
+        return out
+
+    monkeypatch.setattr(gpt_mod, "paged_attention", held)
+    module, sd = _port(0, dims=MINI, dtype=torch.bfloat16,
+                       device=cuda_device)
+    specs = [(list(range(3, 40)), 12, 0.0, 0), ([7, 8], 9, 0.8, 3),
+             (list(range(100, 117)), 10, 0.0, 1)]
+    kw = dict(engine_kw=dict(page=G, prefill_chunk=16), kv_dtype=kv_dtype)
+    pa0 = paged_attention.launches
+    _, base_toks, base_ctx = _run_port(module, sd, specs=specs, **kw)
+    _, toks, ctx = _run_port(module, sd, specs=specs, decode_steps=4, **kw)
+    _run_port(module, sd, specs=specs, draft_module=module,
+              draft_variables=sd, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches - pa0 == len(diffs) > 0
+    assert max(diffs) <= 2e-2, max(diffs)
+    assert toks == base_toks
+    _same_slabs(ctx, base_ctx)
