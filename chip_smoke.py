@@ -70,7 +70,8 @@ Phases (any failure exits non-zero and prints no result line):
               gpt-mini's five bucket lengths under the 4 MB EF cap and at
               N = 7 and 5000; times by CUDA-graph replay with the L2 warm
               and cold (operand sets cycled over 2.4 x the L2), the plain
-              version's time and the bytes bound (12 bytes per element);
+              version's time and the bytes bound (avg 8 bytes per
+              element, s read and out written; sgd 12, ref read too);
               no single PyTorch call computes this function, so there is
               no library yardstick. (b)+(c) gpt-mini at its published
               widths, bf16, dropout 0.1, n_lanes=2, W=4, K=4, B=8, T=512:
@@ -396,6 +397,35 @@ Phases (any failure exits non-zero and prints no result line):
               the same requests through the plain version on the card,
               which launches nothing (a flip reported with its logit
               margin).
+ 21. moe-vgg  the last two built-in models: (a) gpt-moe-mini at its
+              published widths (gpt-mini's, with 8 experts of a 512-wide
+              FFN, top-2 routing at capacity 1.25, aux 0.01, dropout
+              0.1, bf16, AdamW) as a TrainJob over phase 10's windows
+              (1024 + 128, T=512) at B=8, K=4, N=2, 2 epochs (rounds
+              staged from the host, as phase 10's): per epoch the flash
+              forward launches 4
+              layers x (local steps + eval slots), dK/dV and dQ 4 x
+              local steps, the fused merge buckets x rounds of its 4 MB
+              plan; the loss falls; one local step profiled (idle share,
+              top consumers) and the dispatch and combine einsums timed
+              alone at its shapes (their share of the step's device
+              time). (b) vgg11 (hidden 4096, 100 classes, dropout 0.5,
+              SGD with momentum 0.9, examples/function_vgg11.py's B=128,
+              lr 0.05 and normalization) over 50,000 + 10,000
+              CIFAR-100-shaped u8 images (labels 0..99) at K=8, N=2, 2
+              epochs from the device cache: the fused merge launches
+              buckets x rounds of its 109 MB plan (Dense_1's 16,777,216
+              elements a bucket of their own); the loss falls; one step
+              profiled. (c) card vs CPU: a gpt-moe-mini at gpt-nano's
+              widths with 4 experts, f32, one round on 2 lanes (flash
+              kernels in f32, one merge launch a bucket) within 2 x K x
+              lr, 99.5 % of the weights within 1e-5; a hidden-64 vgg11
+              in f32, forward and one round within 1e-4. (d) the fused
+              merge against its plain version, bit for bit and timed warm
+              and L2-cold in avg mode, at every bucket length of both
+              plans, each whole merge against its bytes bound (8 B an
+              element). (e) a DecodeEngine over gpt-moe-mini on
+              the card raises the reference's refusal.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -424,7 +454,11 @@ the page-12 engine's for the paged kernel, bert-tiny's per epoch for the
 flash kernels, both models' per epoch for the merge; the flash entries
 carry "noncausal" (phase 20 (c)'s rows at each T) and the paged entries
 "ragged_pages" (phase 20 (d)'s rows), the merge "text_buckets" (its
-rows at each bucket length of both text models' plans); the merge's
+rows at each bucket length of both text models' plans); every entry
+carries "moe_vgg_launches", phase 21's: 0 for the paged kernel,
+gpt-moe-mini's per epoch for the flash kernels, both models' per epoch
+for the merge, which also carries "moe_vgg_buckets" (its rows at each
+bucket length of both models' plans); the merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
@@ -480,6 +514,11 @@ printing phase 19's launches as one JSON line.
 
 builds the kernels and runs phase 20 alone, printing its launches and
 rows as one JSON line.
+
+    python3 chip_smoke.py --moe-vgg-only
+
+builds the kernels and runs phase 21 alone, printing its launches as one
+JSON line.
 """
 
 from __future__ import annotations
@@ -1239,11 +1278,51 @@ MERGE_SGD_LR = 0.05
 COLD_BYTES = 120e6        # operand sets cycled per timing: 2.4 x the L2
 
 
-def merge_bound(n: int) -> float:
-    """Least time (ms) of one merge-apply over n elements: 12 bytes each
-    (s and ref read, out written) over the memory rate; 3 flops each are
-    nothing beside that."""
-    return 12 * n / H100_BYTES_PER_S * 1e3
+MERGE_BYTES = {"avg": 8, "sgd": 12}   # per element at raw_count > 0
+
+
+def merge_bound(n: int, mode: str) -> float:
+    """Least time (ms) of one merge-apply over n elements at raw_count > 0,
+    as every timed call runs: the bytes the function must move over the
+    memory rate. avg reads s and writes out, 8 bytes an element (ref is
+    the output only at raw_count 0, where s is not needed); sgd reads s
+    and ref and writes out, 12. Its 1-3 flops an element are nothing
+    beside that."""
+    return MERGE_BYTES[mode] * n / H100_BYTES_PER_S * 1e3
+
+
+def merge_sass_loads(card) -> dict:
+    """The built fused merge's global loads and stores per kernel, counted
+    in its SASS (``cuobjdump -sass``): two of the loads are count and
+    raw_count; an avg kernel with one bucket load per store moves the
+    bound's 8 bytes an element. Logged, not held: the bound is the
+    function's, whatever the compiler makes of the kernel."""
+    import re
+    import shutil
+
+    from kubeml_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run(
+            [tool, "-sass", str(_build.library_path("fused_merge"))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(card, f"fused_merge SASS: cuobjdump failed ({e})")
+        return {}
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.search(r"fused_merge_kernelILi(\d)ELb(\d)E", block.split()[0])
+        if m is None:
+            continue
+        name = (f"{('avg', 'sgd')[int(m[1])]} "
+                f"{('scalar', 'float4')[int(m[2])]}")
+        counts[name] = (len(re.findall(r"\bLDG\.", block)),
+                        len(re.findall(r"\bSTG\.", block)))
+    log(card, "fused_merge SASS (cuobjdump), global loads/stores per "
+        "kernel, 2 loads of count and raw_count among them: " + ", ".join(
+            f"{k} {ld}/{st}" for k, (ld, st) in sorted(counts.items())))
+    return counts
 
 
 def time_ms_cold(torch, fn, operand_sets) -> float:
@@ -1274,9 +1353,11 @@ def phase_merge_kernel(torch, card, seed):
                              cold=MERGE_BUCKETS)
 
 
-def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge"):
+def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge",
+                      timed=("avg", "sgd")):
     """Phase 9 (a)'s check and times at each of ``lengths`` (each once),
-    L2-cold times at those in ``cold``; rows by length and mode."""
+    L2-cold times at those in ``cold``; rows by length and mode. Both
+    modes are checked; the modes in ``timed`` are timed."""
     from kubeml_tpu_torch.ops import fused_merge as fm
 
     dev = torch.device("cuda")
@@ -1298,6 +1379,10 @@ def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge"):
                 assert torch.equal(got, want), (mode, n, raw)
                 if raw == 0:
                     assert torch.equal(got, ref), (mode, n)
+            if mode not in timed:
+                log(card, f"{label} {mode} N={n}: kernel == plain bit for "
+                    f"bit (raw_count 3 and 0)")
+                continue
             raw_t = torch.tensor(3.0, device=dev)
             cnt = raw_t.clamp_min(1.0)
             ms = time_ms(torch, lambda: fm.fused_merge_kernel(
@@ -1305,7 +1390,7 @@ def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge"):
             plain_ms = time_ms(torch, lambda: fm._apply_plain(
                 mode, s, ref, cnt, raw_t, lr))
             entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         bound_ms=merge_bound(n))
+                         bound_ms=merge_bound(n, mode))
             if n in cold:
                 sets = [(torch.randn(n, device=dev, generator=gen),
                          torch.randn(n, device=dev, generator=gen))
@@ -1319,8 +1404,9 @@ def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge"):
             log(card, f"{label} {mode} N={n}: kernel {ms:.4f} ms"
                 + (f" (L2 cold {entry['cold_ms']:.4f} ms)"
                    if "cold_ms" in entry else "")
-                + f", plain {plain_ms:.4f} ms, bound {merge_bound(n):.5f} "
-                f"ms (bytes), {ms / merge_bound(n):.2f}x bound; kernel == "
+                + f", plain {plain_ms:.4f} ms, bound "
+                f"{entry['bound_ms']:.5f} ms (bytes, {MERGE_BYTES[mode]} B "
+                f"an element), {ms / entry['bound_ms']:.2f}x bound; kernel == "
                 f"plain bit for bit (raw_count 3 and 0)")
         rows[n] = row
     return rows
@@ -1509,6 +1595,58 @@ def device_events(torch, prof):
             tot, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
+
+
+def _profiled_round(torch, engine, state, args, lr):
+    """One engine round under torch.profiler (CUDA activity only) after a
+    warm one: (wall ms, {kernel: (device ms, calls)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.train_round(state, *args, lr, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_round(state, *args, lr, 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return wall_ms, device_events(torch, prof)
+
+
+def _log_profile(card, label, wall_ms, by_name, steps):
+    """Busy and idle share of a profiled round and its top consumers;
+    returns the device busy ms (None when nothing was recorded)."""
+    if not by_name:
+        log(card, f"{label}: device time not measured (the profiler "
+            "recorded no CUDA activity)")
+        return None
+    busy = sum(t for t, _ in by_name.values())
+    calls = sum(n for _, n in by_name.values())
+    log(card, f"{label}: wall {wall_ms:.3f} ms = {wall_ms / steps:.3f} ms "
+        f"per local step, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.2f}%), idle "
+        f"{100 * (1 - busy / wall_ms):.2f}%; {calls} device activities "
+        f"({calls / steps:.1f} per local step)")
+    for kname, (t, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        log(card, f"{label} top device time: {t:.3f} ms "
+            f"({100 * t / busy:.2f}%) over {n} calls: {kname[:90]}")
+    return busy
+
+
+def event_ms(torch, fn, calls: int = 10) -> float:
+    """Device ms of one eager call of fn (CUDA events around `calls`
+    calls after a warm one): for calls whose kernels run long beside
+    their launches, and for autograd, which a graph capture refuses."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def phase_merge_trace(torch, card, seed, engines):
@@ -2252,7 +2390,7 @@ def resnet18_merge_row(torch, card, seed, launches):
         del sets
     row = dict(buckets=len(lengths), elements=sum(lengths),
                launches_per_epoch=launches, ms=ms, cold_ms=cold_ms,
-               plain_ms=plain_ms, bound_ms=merge_bound(sum(lengths)),
+               plain_ms=plain_ms, bound_ms=merge_bound(sum(lengths), "avg"),
                max_abs_err=0.0)
     log(card, f"fused_merge at ResNet-18's {VIS_BUCKET_MB:g} MB plan: "
         f"{len(lengths)} buckets, {sum(lengths)} f32 elements; whole merge "
@@ -5914,8 +6052,6 @@ def text_lstm_trace(torch, card, seed):
     steps at the BASELINE shape, bf16, under torch.profiler (CUDA
     activity only): wall per local step, device busy and idle share,
     device activities per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from kubeml_tpu_torch.models.lstm import LSTMClassifier
     from kubeml_tpu_torch.parallel.kavg import KAvgEngine
 
@@ -5933,29 +6069,10 @@ def text_lstm_trace(torch, card, seed):
     engine = KAvgEngine(module, model.loss, model.metrics,
                         model.configure_optimizers)
     state = {k: v.detach().clone() for k, v in module.state_dict().items()}
-    engine.train_round(state, *args, cfg["lr"], 0)          # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.train_round(state, *args, cfg["lr"], 0)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = device_events(torch, prof)
-    if not by_name:
-        log(card, "text lstm trace: device time not measured (the profiler "
-            "recorded no CUDA activity)")
-        return
-    busy = sum(t for t, _ in by_name.values())
-    calls = sum(n for _, n in by_name.values())
-    log(card, f"text lstm trace (one worker, {K} local steps, B={B} T={T}, "
-        f"bf16): wall {wall_ms:.3f} ms = {wall_ms / K:.3f} ms per local "
-        f"step, device busy {busy:.3f} ms ({100 * busy / wall_ms:.2f}%), "
-        f"idle {100 * (1 - busy / wall_ms):.2f}%; {calls} device "
-        f"activities ({calls / K:.1f} per local step)")
-    for kname, (t, n) in sorted(by_name.items(),
-                                key=lambda kv: -kv[1][0])[:5]:
-        log(card, f"text lstm trace top device time: {t:.3f} ms over {n} "
-            f"calls: {kname[:90]}")
+    wall_ms, by_name = _profiled_round(torch, engine, state, args,
+                                       cfg["lr"])
+    _log_profile(card, f"text lstm trace (one worker, {K} local steps, "
+                 f"B={B} T={T}, bf16)", wall_ms, by_name, K)
 
 
 def text_noncausal(torch, card, seed):
@@ -6189,6 +6306,397 @@ def text_ragged_engine(torch, card, seed, module, kv_dtype):
             "prefill_dispatches": st["prefill_dispatches"]}
 
 
+# ----------------------------------------------------------------- phase 21
+MOE_B, MOE_K, MOE_N, MOE_LR = JOB_B, JOB_K, JOB_N0, JOB_LR   # phase 10's
+MOE_EPOCHS = 2
+# examples/function_vgg11.py's `-b 128 --lr 0.05` and its CIFAR-100
+# normalization; K and N as phase 11's job
+VGG_B, VGG_K, VGG_N, VGG_LR, VGG_EPOCHS = 128, VIS_K, VIS_N, 0.05, 2
+CIFAR100_MEAN = (0.5071, 0.4866, 0.4409)
+CIFAR100_STD = (0.2673, 0.2564, 0.2762)
+MV_BUCKET_MB = 4.0
+MV_MODELS = ("gpt-moe-mini", "vgg11")
+# (c): a gpt-moe-mini at gpt-nano's widths with 4 experts, f32, dropout 0
+MOE_TINY = dict(vocab_size=512, max_len=64, hidden=32, layers=2, heads=2,
+                ffn=64, n_experts=4)
+MOE_CHECK = dict(W=2, K=2, B=4, T=64)
+VGG_CHECK_HIDDEN = 64
+# (e): the reference's refusal (kubeml_tpu/models/gpt.py:565-569)
+MOE_DECODE_REFUSAL = ("paged decode serves dense GPT modules only (no MoE, "
+                      "sequence-parallel, or manual-TP variants)")
+
+
+def cifar100_arrays(rng, n):
+    """n CIFAR-100-shaped u8 NHWC images and int32 labels 0..99: uniform
+    noise in [0, 150), each channel of the whole image lifted by 25 x one
+    base-5 digit of the label (y % 5, y // 5 % 5, y // 25)."""
+    y = rng.integers(0, 100, n).astype(np.int32)
+    x = rng.integers(0, 150, (n, CIFAR_HW, CIFAR_HW, 3), dtype=np.uint8)
+    digits = np.stack([y % 5, y // 5 % 5, y // 25], axis=1)
+    x += (25 * digits).astype(np.uint8)[:, None, None, :]
+    return x, y
+
+
+def cifar100_dataset():
+    """examples/function_vgg11.py's normalization, u8 -> (x / 255 - mean)
+    / std, on the host and on the card (transform_train_device), so the
+    job runs from the device cache."""
+    from kubeml_tpu_torch.models.base import KubeDataset
+
+    mean = np.asarray(CIFAR100_MEAN, np.float32)
+    std = np.asarray(CIFAR100_STD, np.float32)
+
+    class Cifar100(KubeDataset):
+        def transform_train(self, data, labels):
+            x = np.asarray(data).astype(np.float32) / 255.0
+            return {"x": (x - mean) / std, "y": np.asarray(labels)}
+
+        transform_test = transform_train
+
+        @staticmethod
+        def transform_train_device(x, y):
+            import torch
+
+            m = torch.as_tensor(mean, device=x.device)
+            s = torch.as_tensor(std, device=x.device)
+            return {"x": (x.float() / 255.0 - m) / s, "y": y}
+
+    return Cifar100("cifar100")
+
+
+def phase_moe_vgg(torch, card, seed):
+    """gpt-moe-mini and vgg11 on the card (see the module docstring,
+    phase 21); returns their jobs' launches per epoch and #5's rows at
+    both models' plans."""
+    import os
+    import tempfile
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+
+    t0 = time.perf_counter()
+    out = {}
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = tmp
+        try:
+            rng = np.random.default_rng(seed + 12)   # phase 10's windows
+            DatasetRegistry().create(
+                "tokens", token_windows(rng, JOB_TRAIN, TRAIN_T),
+                np.zeros(JOB_TRAIN, np.int32),
+                token_windows(rng, JOB_TEST, TRAIN_T),
+                np.zeros(JOB_TEST, np.int32))
+            out["gpt-moe-mini"] = mv_job(
+                torch, card, "gpt-moe-mini", token_dataset(), "tokens",
+                MOE_B, MOE_K, MOE_N, MOE_LR, MOE_EPOCHS, JOB_TRAIN,
+                JOB_TEST)
+            rng = np.random.default_rng(seed + 26)
+            t1 = time.perf_counter()
+            DatasetRegistry().create(
+                "cifar100", *cifar100_arrays(rng, CIFAR_TRAIN),
+                *cifar100_arrays(rng, CIFAR_TEST))
+            log(card, f"moe-vgg dataset: {CIFAR_TRAIN} train and "
+                f"{CIFAR_TEST} test u8 images 32x32x3, labels 0..99, "
+                f"written in {time.perf_counter() - t1:.2f} s")
+            out["vgg11"] = mv_job(
+                torch, card, "vgg11", cifar100_dataset(), "cifar100", VGG_B,
+                VGG_K, VGG_N, VGG_LR, VGG_EPOCHS, CIFAR_TRAIN, CIFAR_TEST)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+    moe_trace(torch, card, seed, out["gpt-moe-mini"].pop("job"))
+    vgg_trace(torch, card, seed, out["vgg11"].pop("job"))
+    moe_vgg_check(torch, card, seed)
+    merge_sass_loads(card)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    for name in MV_MODELS:
+        lengths = out[name]["bucket_lengths"]
+        rows = merge_kernel_rows(torch, card, gen, lengths, cold=lengths,
+                                 label=f"moe-vgg {name}'s 4 MB plan: "
+                                 "fused_merge", timed=("avg",))
+        out[name]["merge"] = rows
+        tot = {k: sum(rows[n]["avg"][k] for n in lengths)
+               for k in ("ms", "cold_ms", "plain_ms")}
+        bound = merge_bound(sum(lengths), "avg")
+        log(card, f"moe-vgg fused_merge at {name}'s {MV_BUCKET_MB:g} MB "
+            f"plan: {len(lengths)} buckets, {sum(lengths)} f32 elements; "
+            f"whole merge kernel {tot['ms']:.4f} ms (L2 cold "
+            f"{tot['cold_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, "
+            f"bound {bound:.5f} ms (bytes, 8 B an element), "
+            f"{tot['cold_ms'] / bound:.2f}x bound L2-cold; largest bucket "
+            f"{max(lengths)}; kernel == plain bit for bit at every length")
+    moe_refusal(torch, card)
+    log(card, f"moe-vgg phase: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def mv_job(torch, card, name, dataset, dataset_name, B, K, N, lr, epochs,
+           n_train, n_test):
+    """(a)/(b): a TrainJob of the named model at its published widths over
+    a registry dataset, static N; per epoch the
+    kernels' launches (zeroed before the job, read and zeroed at each
+    epoch's publish) against the epoch plan, the loss, ms per local
+    step, samples/s and non-pad tokens/s."""
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.merge import BucketedMerge
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    epochs_seen = []
+
+    def publish(m):
+        epochs_seen.append((m, {k: fn.launches for k, fn in kernels.items()}))
+        zero()
+
+    task = job_task(f"mv-{name}", epochs, model=name, batch=B,
+                    dataset=dataset_name, lr=lr, default_parallelism=N,
+                    static_parallelism=True, k=K,
+                    merge_bucket_mb=MV_BUCKET_MB, validate_every=1,
+                    train_stats=False)
+    job = TrainJob(task, get_model(name)(), dataset, device="cuda",
+                   callbacks=JobCallbacks(publish_metrics=publish))
+    zero()                                      # the main path's run starts
+    t0 = time.perf_counter()
+    hist = job.train().data
+    wall = time.perf_counter() - t0
+    # phase 10's windows have a host transform and no device twin, so
+    # the token job stages its rounds from the host; the images' rounds
+    # come from the device cache
+    cached = job._device_cache is not None
+    assert cached == (name == "vgg11"), (name, cached)
+    assert all(np.isfinite(hist.train_loss)), hist.train_loss
+    assert all(np.isfinite(hist.validation_loss)), hist.validation_loss
+    assert hist.train_loss[-1] < hist.train_loss[0], hist.train_loss
+    module = job._engine.module
+    layers = getattr(module, "layers", 0)      # vgg11 has no attention
+    lengths = [b.length for b in BucketedMerge(
+        bucket_mb=MV_BUCKET_MB)._plan(job.state)[1].buckets]
+    tokens = 0                                 # non-pad tokens an epoch
+    if layers:
+        tokens = int((np.asarray(job._handle.train_arrays()[0]) != 0).sum())
+    launches, ms = [], []
+    for e, (m, counts) in enumerate(epochs_seen):
+        steps, rounds, evals = _epoch_counts(N, N, n_train, n_test, k=K,
+                                             batch=B)
+        want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
+                "dQ": layers * steps, "fused_merge": len(lengths) * rounds}
+        assert counts == want, (name, e, counts, want)
+        launches.append(counts)
+        sec = hist.epoch_duration[e]
+        ms.append(1e3 * sec / steps)
+        ph = {k: sum(v) for k, v in m.phase_times.items()}
+        rate = (f"{tokens / sec:.1f} tokens/s (non-pad)" if tokens
+                else f"{n_train / sec:.2f} samples/s")
+        log(card, f"moe-vgg {name} epoch {e + 1}/{epochs} (B={B} K={K} "
+            f"N={N}, {n_train} + {n_test} samples): train loss "
+            f"{hist.train_loss[e]:.4f}, validation loss "
+            f"{hist.validation_loss[e]:.4f}, accuracy "
+            f"{hist.accuracy[e]:.2f}; {steps} local steps in {rounds} "
+            f"rounds, wall {sec:.4f} s = {steps * B / sec:.2f} samples/s, "
+            f"{rate}, {1e3 * sec / steps:.3f} ms per local step; data_wait "
+            f"{ph['data_wait']:.4f} s, dispatch {ph['dispatch']:.4f} s, "
+            f"merge_wait {ph['merge_wait']:.4f} s; launches {counts} (= "
+            f"{layers} layers x {steps} steps (+ {evals} eval slots), "
+            f"{len(lengths)} buckets x {rounds} rounds); peak device memory "
+            f"{m.hbm_peak_bytes / 2**20:.1f} MiB")
+    log(card, f"moe-vgg {name} job: {wall:.3f} s for {epochs} epochs, loss "
+        f"{hist.train_loss[0]:.4f} -> {hist.train_loss[-1]:.4f}, ms per "
+        f"local step {', '.join(f'{v:.3f}' for v in ms)}; "
+        f"{sum(t.numel() for t in job.state.values())} parameters in "
+        f"{len(lengths)} buckets at {MV_BUCKET_MB:g} MB (largest "
+        f"{max(lengths)})")
+    return {"launches": launches, "ms_per_step": ms,
+            "bucket_lengths": lengths, "job": job}
+
+
+def moe_trace(torch, card, seed, job):
+    """(a) where a gpt-moe-mini step's time goes: one worker's round of one
+    local step (B=8, T=512, bf16, the job's weights) profiled, and the
+    dispatch and combine einsums of one layer (forward and backward, f32,
+    [B*T, E, C] = [4096, 8, 640]) timed alone at the step's shapes: their
+    share of the step's device time for the 4 layers."""
+    from kubeml_tpu_torch.models import gpt
+    from kubeml_tpu_torch.parallel.ep import route_tokens
+
+    engine, module = job._engine, job._engine.module
+    state = {k: v.detach().clone() for k, v in job.state.items()}
+    rng = np.random.default_rng(seed + 28)
+    args = lm_round(rng, 1, 1, MOE_B, TRAIN_T)
+    wall_ms, by_name = _profiled_round(torch, engine, state, args, MOE_LR)
+    busy = _log_profile(card, f"moe-vgg gpt-moe-mini trace (one worker, 1 "
+                        f"local step, B={MOE_B} T={TRAIN_T}, bf16)",
+                        wall_ms, by_name, 1)
+    dev = torch.device("cuda")
+    T, D = MOE_B * TRAIN_T, module.hidden
+    x = torch.randn(T, D, device=dev, requires_grad=True)
+    router = torch.randn(D, module.n_experts, device=dev) / D ** 0.5
+    with torch.no_grad():
+        dispatch, combine, _ = route_tokens(
+            router, x, k=gpt.MOE_K, capacity_factor=gpt.CAPACITY_FACTOR)
+    combine = combine.clone().requires_grad_(True)
+    E, C = dispatch.shape[1:]
+    out = torch.randn(E, C, D, device=dev, requires_grad=True)
+    g_in = torch.randn(E, C, D, device=dev)
+    g_y = torch.randn(T, D, device=dev)
+
+    def dispatch_combine():
+        ein = torch.einsum("tec,td->ecd", dispatch, x)
+        y = torch.einsum("tec,ecd->td", combine, out)
+        torch.autograd.grad([ein, y], [x, combine, out], [g_in, g_y])
+
+    one = event_ms(torch, dispatch_combine)
+    per_step = module.layers * one
+    share = (f"{100 * per_step / busy:.2f}% of the profiled step's device "
+             f"time" if busy else "device time of the step not measured")
+    log(card, f"moe-vgg gpt-moe-mini dispatch + combine einsums, forward "
+        f"and backward, f32, [{T}, {E}, {C}] x [{T}, {D}]: {one:.4f} ms a "
+        f"layer, {per_step:.4f} ms for {module.layers} layers = {share}")
+
+
+def vgg_trace(torch, card, seed, job):
+    """(b) one worker's round of one local step of vgg11 (B=128, bf16, the
+    job's weights) profiled: ms per step and the device idle share."""
+    state = {k: v.detach().clone() for k, v in job.state.items()}
+    rng = np.random.default_rng(seed + 29)
+    x, y = cifar100_arrays(rng, VGG_B)
+    batch = cifar100_dataset().transform_train(x, y)
+    batch = {k: v.reshape((1, 1) + v.shape) for k, v in batch.items()}
+    args = (batch, np.ones((1, 1, VGG_B), np.float32),
+            np.ones((1, 1), np.float32), np.ones(1, np.float32),
+            rng.integers(0, 2 ** 32, (1, 1, 2), dtype=np.uint32))
+    wall_ms, by_name = _profiled_round(torch, job._engine, state, args,
+                                       VGG_LR)
+    _log_profile(card, f"moe-vgg vgg11 trace (one worker, 1 local step, "
+                 f"B={VGG_B}, bf16)", wall_ms, by_name, 1)
+
+
+def moe_vgg_check(torch, card, seed):
+    """(c) the card against the CPU: one f32 round of a gpt-moe-mini at
+    gpt-nano's widths with 4 experts (dropout 0, AdamW, W=2 lanes through
+    its 4 MB plan: the flash kernels in f32, one fused merge launch a
+    bucket) within 2 x K x lr, 99.5 % of the weights within 1e-5 (AdamW's
+    first steps move every weight by about lr whatever the gradient, so
+    the share is what catches a wrong kernel); a hidden-64 vgg11 (f32,
+    dropout 0) forward within 1e-4 and one round (SGD with momentum)
+    within 1e-4."""
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models.gpt import GPTModule, GPTMoEMini
+    from kubeml_tpu_torch.models.vgg import VGG11, VGGModule
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+    from kubeml_tpu_torch.parallel.merge import BucketedMerge
+
+    class TinyMoE(GPTMoEMini):
+        def build(self, dtype=None, device=None):
+            return GPTModule(**MOE_TINY, dropout=0.0, dtype=torch.float32,
+                             device=device)
+
+    class SmallVGG(VGG11):
+        def build(self, dtype=None, device=None):
+            return VGGModule(hidden=VGG_CHECK_HIDDEN, dropout=0.0,
+                             features=self.features, dtype=torch.float32,
+                             device=device)
+
+    c = MOE_CHECK
+    W, K = c["W"], c["K"]
+    args = lm_round(np.random.default_rng(seed + 30), W, K, c["B"], c["T"])
+    model = TinyMoE()
+    start = params_from_flax(random_flax_params(**MOE_TINY, seed=seed))
+    buckets = BucketedMerge(bucket_mb=MV_BUCKET_MB).comm_proxy(start)[
+        "buckets_per_round"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = KAvgEngine(model.build(device=dev), model.loss,
+                            model.metrics, model.configure_optimizers,
+                            n_lanes=W, merge_bucket_mb=MV_BUCKET_MB)
+        before = fa.fa_fwd_kernel.launches, fm.fused_merge_kernel.launches
+        out[dev] = engine.train_round({k: v.to(dev, copy=True) for k, v in
+                                       start.items()}, *args, MOE_LR, 0)
+        flash = fa.fa_fwd_kernel.launches - before[0]
+        merges = fm.fused_merge_kernel.launches - before[1]
+        steps = int((args[2] * args[3][:, None]).sum())
+        want = (MOE_TINY["layers"] * steps, buckets) if dev == "cuda" \
+            else (0, 0)
+        assert (flash, merges) == want, (dev, flash, merges, want)
+    (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(card_st.loss_sum, cpu_st.loss_sum, rtol=1e-4)
+    diffs = torch.cat([(card_state[n].cpu() - cpu_state[n]).abs().ravel()
+                       for n in cpu_state])
+    within = float((diffs <= 1e-5).float().mean())
+    assert float(diffs.max()) <= 2 * K * MOE_LR, float(diffs.max())
+    assert within >= 0.995, within
+    log(card, f"moe-vgg gpt-moe-mini f32 round at gpt-nano's widths with "
+        f"{MOE_TINY['n_experts']} experts (W={W} lanes, K={K} B={c['B']} "
+        f"T={c['T']}: {MOE_TINY['layers']} x {steps} flash forwards, "
+        f"{buckets} fused merge launches), card (kernels) vs CPU (plain): "
+        f"loss sums {card_st.loss_sum.tolist()} vs "
+        f"{cpu_st.loss_sum.tolist()}, merged params max|diff| "
+        f"{float(diffs.max()):.3g} (bound {2 * K * MOE_LR:g}), "
+        f"{100 * within:.3f} % within 1e-5")
+
+    rng = np.random.default_rng(seed + 31)
+    vgg = SmallVGG()
+    x = rng.standard_normal((4, CIFAR_HW, CIFAR_HW, 3)).astype(np.float32)
+    cpu_mod = vgg.init_module({"x": x}, torch.Generator().manual_seed(seed),
+                              "cpu")
+    card_mod = vgg.build(device="cuda")
+    card_mod.load_state_dict(cpu_mod.state_dict())
+    with torch.no_grad():
+        fwd = float((card_mod(torch.from_numpy(x).to("cuda")).cpu()
+                     - cpu_mod(torch.from_numpy(x))).abs().max())
+    assert fwd <= VIS_CPU_BOUND, fwd
+    xs, ys = cifar100_arrays(rng, W * K * c["B"])
+    batch = cifar100_dataset().transform_train(xs, ys)
+    batch = {k: v.reshape((W, K, c["B"]) + v.shape[1:])
+             for k, v in batch.items()}
+    vargs = (batch, np.ones((W, K, c["B"]), np.float32),
+             np.ones((W, K), np.float32), np.ones(W, np.float32),
+             rng.integers(0, 2 ** 32, (W, K, 2), dtype=np.uint32))
+    start = {k: v.detach().clone() for k, v in cpu_mod.state_dict().items()}
+    res = {}
+    for dev, mod in (("cuda", card_mod), ("cpu", cpu_mod)):
+        engine = KAvgEngine(mod, vgg.loss, vgg.metrics,
+                            vgg.configure_optimizers, n_lanes=W,
+                            merge_bucket_mb=MV_BUCKET_MB)
+        res[dev], _ = engine.train_round(
+            {k: v.to(dev, copy=True) for k, v in start.items()}, *vargs,
+            VGG_LR, 0)
+    rnd = max(float((res["cuda"][k].cpu() - res["cpu"][k]).abs().max())
+              for k in res["cpu"])
+    assert rnd <= VIS_CPU_BOUND, rnd
+    log(card, f"moe-vgg vgg11 at hidden {VGG_CHECK_HIDDEN}, f32 (cuDNN, no "
+        f"TF32), card vs CPU: forward of 4 images max|diff| {fwd:.3g}, one "
+        f"round (W={W} lanes, K={K} B={c['B']}, SGD momentum 0.9) merged "
+        f"params max|diff| {rnd:.3g} (bound {VIS_CPU_BOUND:g})")
+
+
+def moe_refusal(torch, card):
+    """(e) a DecodeEngine over a gpt-moe-mini module on the card raises
+    the reference's refusal."""
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.serve.engine import DecodeEngine
+
+    module = get_model("gpt-moe-mini")().build(device="cuda")
+    try:
+        DecodeEngine(module, device="cuda")
+    except ValueError as e:
+        assert str(e) == MOE_DECODE_REFUSAL, str(e)
+    else:
+        raise AssertionError("DecodeEngine served an MoE module")
+    log(card, f"moe-vgg refusal: DecodeEngine(gpt-moe-mini) on the card "
+        f"raised ValueError({MOE_DECODE_REFUSAL!r}), the reference's")
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
     (the sum over its five buckets) in avg mode, the sgd check under it."""
@@ -6292,9 +6800,10 @@ def run(torch, seed) -> list:
     continual = timed(18, phase_continual, torch, card, seed)
     spec = timed(19, phase_spec, torch, card, seed, module, direct)
     text = timed(20, phase_text, torch, card, seed)
+    mv = timed(21, phase_moe_vgg, torch, card, seed)
     log(card, "wall by phase (s): " + ", ".join(
         f"{p}: {w:.3f}" for p, w in walls.items())
-        + f"; phases 1-20 {sum(walls.values()):.3f}")
+        + f"; phases 1-21 {sum(walls.values()):.3f}")
     drafts = ("self-draft", "other-draft")
 
     paged = [{
@@ -6324,6 +6833,7 @@ def run(torch, seed) -> list:
         "text_launches": text["ragged_engine"][pages]["launches"],
         "ragged_pages": [r for (p, *_), r in text["ragged"].items()
                          if p == pages],
+        "moe_vgg_launches": 0,       # phase 21 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -6356,6 +6866,9 @@ def run(torch, seed) -> list:
                           text["bert-tiny"]["launches"]],
         "noncausal": [r for (_, k), r in text["noncausal"].items()
                       if k == kernel],
+        # phase 21: gpt-moe-mini's job per epoch (vgg11 has no attention)
+        "moe_vgg_launches": [e[kernel] for e in
+                             mv["gpt-moe-mini"]["launches"]],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -6381,6 +6894,14 @@ def run(torch, seed) -> list:
                 text_buckets={name: [{"n": n, **text[name]["merge"][n]["avg"]}
                                      for n in text[name]["bucket_lengths"]]
                               for name in TEXT_JOBS},
+                # phase 21: both models' jobs per epoch, and #5 at each
+                # bucket length of their 4 MB plans
+                moe_vgg_launches={name: [e["fused_merge"] for e in
+                                         mv[name]["launches"]]
+                                  for name in MV_MODELS},
+                moe_vgg_buckets={name: [{"n": n, **mv[name]["merge"][n]["avg"]}
+                                        for n in mv[name]["bucket_lengths"]]
+                                 for name in MV_MODELS},
                 resnet18=vision_merge)], card
 
 
@@ -6437,6 +6958,11 @@ def main(argv=None) -> int:
                          "kernels at BERT-tiny's shapes and the paged "
                          "kernel's ragged pages), printing its launches "
                          "as one JSON line and no result line")
+    ap.add_argument("--moe-vgg-only", action="store_true",
+                    help="build the kernels and run phase 21 alone "
+                         "(gpt-moe-mini and vgg11 trained on the card, "
+                         "the fused merge at their plans), printing its "
+                         "launches as one JSON line and no result line")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -6540,6 +7066,15 @@ def main(argv=None) -> int:
                               text["noncausal"].items()],
                 "ragged": [dict(pages=p, **r) for (p, *_), r in
                            text["ragged"].items()]}}))
+            return 0
+        if args.moe_vgg_only:
+            card = start(torch)
+            mv = phase_moe_vgg(torch, card, args.seed)
+            print(json.dumps({"card": card, "moe_vgg": {
+                name: {"launches": mv[name]["launches"],
+                       "ms_per_step": mv[name]["ms_per_step"],
+                       "bucket_lengths": mv[name]["bucket_lengths"]}
+                for name in MV_MODELS}}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

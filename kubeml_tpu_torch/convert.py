@@ -1,7 +1,8 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's state dicts: ``GPTModule``'s, ``BertModule``'s (the GPT mapping
-plus ``classifier``), ``MLPModule``'s and ``LSTMClassifierModule``'s (the
-vision mapping below, plus ``Embed_0/embedding``).
+port's state dicts: ``GPTModule``'s (gpt-moe-mini's too), ``BertModule``'s
+(the GPT mapping plus ``classifier``), ``MLPModule``'s and
+``LSTMClassifierModule``'s (the vision mapping below, plus
+``Embed_0/embedding``).
 
 A flax GPT tree (``variables["params"]``) maps onto the port as:
 
@@ -12,14 +13,18 @@ A flax GPT tree (``variables["params"]``) maps onto the port as:
   layer_i/{q,k,v}/bias [H, Dh]           -> blocks.i.{q,k,v}.bias [H*Dh]
   layer_i/out/kernel [H, Dh, hidden]     -> blocks.i.out.weight [hidden, H*Dh]
   layer_i/Dense_{0,1}/kernel [in, out]   -> blocks.i.fc{0,1}.weight [out, in]
+  layer_i/moe/{router,wi,bi,wo,bo}       -> blocks.i.moe.{...} (an MoE
+                                            block's FFN, the flax layouts
+                                            kept: expert axis leading)
   LayerNorm_0 (top level)                -> ln_f
 
 A flax MLP tree maps as Dense_{0,1}/kernel [in, out] -> fc{0,1}.weight
 [out, in] and Dense_{0,1}/bias -> fc{0,1}.bias.
 
-The vision models (``models/lenet.py``, ``models/resnet.py``) name their
-submodules as flax does, so a state dict name is its flax path and only
-the leaves change (``vision_params_to_flax``):
+The vision models (``models/lenet.py``, ``models/resnet.py``,
+``models/vgg.py``) name their submodules as flax does, so a state dict
+name is its flax path and only the leaves change
+(``vision_params_to_flax``):
 
   params/.../Conv_j/kernel [kh, kw, in, out] -> ....Conv_j.weight
                                                 [out, in, kh, kw]
@@ -81,6 +86,8 @@ def _params_path(parts) -> Tuple[str, ...]:
         if sub in ("fc0", "fc1", "q", "k", "v", "out") \
                 and leaf in _DENSE_LEAF:
             return f"layer_{i}", _FLAX_SUB.get(sub, sub), _DENSE_LEAF[leaf]
+        if sub == "moe":
+            return f"layer_{i}", sub, leaf
     return tuple(parts)
 
 
@@ -89,8 +96,9 @@ def flax_leaf_order(names: Iterable[str]) -> List[str]:
     the matching flax variable tree: dict keys sorted at every level, so
     ``batch_stats`` before ``params``, ``LayerNorm_0`` < ``layer_0`` <
     ``layer_10`` < ``layer_2`` < ``pos_embed`` < ``tok_embed``, inside a
-    GPT layer ``Dense_*`` < ``LayerNorm_*`` < ``k`` < ``out`` < ``q`` <
-    ``v``, and ``BasicBlock_10`` < ``BasicBlock_2``. The vision leaves keep
+    GPT layer ``Dense_*`` < ``LayerNorm_*`` < ``k`` < ``moe`` < ``out`` <
+    ``q`` < ``v`` (an MoE FFN's ``bi`` < ``bo`` < ``router`` < ``wi`` <
+    ``wo``), and ``BasicBlock_10`` < ``BasicBlock_2``. The vision leaves keep
     their port names, whose order inside a module is flax's (``bias`` <
     ``weight`` as ``bias`` < ``kernel``/``scale``; ``mean`` < ``var``). The
     merge plans its buckets over this order, so bucket membership equals
@@ -117,6 +125,10 @@ def params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         kern = np.asarray(lp["out"]["kernel"])              # [H, Dh, hidden]
         sd[f"{b}.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
         sd[f"{b}.out.bias"] = _t(lp["out"]["bias"])
+        if "moe" in lp:
+            for leaf, a in lp["moe"].items():
+                sd[f"{b}.moe.{leaf}"] = _t(a)
+            continue
         for flax_name, name in _DENSE.items():
             sd[f"{b}.{name}.weight"] = _t(np.asarray(
                 lp[flax_name]["kernel"]).T)
@@ -149,9 +161,13 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor], heads: int) -> dict:
         w = a(f"{b}.out.weight")                            # [hidden, H*Dh]
         lp["out"] = {"kernel": w.T.reshape(heads, -1, w.shape[0]).copy(),
                      "bias": a(f"{b}.out.bias")}
-        for flax_name, name in _DENSE.items():
-            lp[flax_name] = {"kernel": a(f"{b}.{name}.weight").T.copy(),
-                             "bias": a(f"{b}.{name}.bias")}
+        if f"{b}.moe.router" in state_dict:
+            lp["moe"] = {leaf: a(f"{b}.moe.{leaf}")
+                         for leaf in ("router", "wi", "bi", "wo", "bo")}
+        else:
+            for flax_name, name in _DENSE.items():
+                lp[flax_name] = {"kernel": a(f"{b}.{name}.weight").T.copy(),
+                                 "bias": a(f"{b}.{name}.bias")}
         params[f"layer_{i}"] = lp
     return params
 
@@ -287,11 +303,13 @@ def vision_params_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
 
 def random_flax_params(vocab_size: int, max_len: int, hidden: int,
                        layers: int, heads: int, ffn: int,
-                       seed: int = 0) -> dict:
+                       seed: int = 0, n_experts: int = 0) -> dict:
     """A flax-layout GPT ``params`` tree of random float32 numpy arrays
     from ``seed`` (no JAX needed): normal weights with flax's init
     scales (embeddings and kernels ~ 1/sqrt(fan_in)), and small random
-    biases and LayerNorm offsets so every parameter carries signal."""
+    biases and LayerNorm offsets so every parameter carries signal.
+    ``n_experts`` > 0 gives every layer an MoE FFN (``moe``) of that many
+    experts in place of ``Dense_0``/``Dense_1``."""
     rng = np.random.default_rng(seed)
     dh = hidden // heads
 
@@ -315,9 +333,17 @@ def random_flax_params(vocab_size: int, max_len: int, hidden: int,
                         "bias": small((heads, dh))}
         lp["out"] = {"kernel": w((heads, dh, hidden), hidden),
                      "bias": small((hidden,))}
-        lp["Dense_0"] = {"kernel": w((hidden, ffn), hidden),
-                         "bias": small((ffn,))}
-        lp["Dense_1"] = {"kernel": w((ffn, hidden), ffn),
-                         "bias": small((hidden,))}
+        if n_experts:
+            e = n_experts
+            lp["moe"] = {"router": w((hidden, e), hidden),
+                         "wi": w((e, hidden, ffn), hidden),
+                         "bi": small((e, ffn)),
+                         "wo": w((e, ffn, hidden), ffn),
+                         "bo": small((e, hidden))}
+        else:
+            lp["Dense_0"] = {"kernel": w((hidden, ffn), hidden),
+                             "bias": small((ffn,))}
+            lp["Dense_1"] = {"kernel": w((ffn, hidden), ffn),
+                             "bias": small((hidden,))}
         params[f"layer_{i}"] = lp
     return params

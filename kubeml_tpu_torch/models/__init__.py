@@ -1,9 +1,11 @@
 """Built-in models of the port (twin of kubeml_tpu/models): the GPT
-family, ``gpt-mini`` and ``gpt-nano``, the ``mlp`` classifier, ``lenet``,
-the ResNets (``resnet18``, ``resnet34``, ``resnet32``, ``resnet50``) and
+family, ``gpt-mini``, ``gpt-nano`` and the mixture of experts
+``gpt-moe-mini``, the ``mlp`` classifier, ``lenet``, the ResNets
+(``resnet18``, ``resnet34``, ``resnet32``, ``resnet50``), ``vgg11`` and
 the text classifiers ``bert-tiny`` and ``lstm``.
-``get_builtin`` gives a GPT module builder (serving), ``get_model`` the
-registered model class (training), ``model_names`` their names."""
+``get_builtin`` gives a GPT module builder (serving; the dense GPTs,
+which the serving programs take), ``get_model`` the registered model
+class (training), ``model_names`` their names."""
 
 from __future__ import annotations
 
@@ -13,12 +15,13 @@ from typing import Callable, Optional
 from kubeml_tpu_torch.models.base import MODELS, KubeModel
 from kubeml_tpu_torch.models.bert import BertTiny
 from kubeml_tpu_torch.models.gpt import (GPT_CONFIGS, GPT_DROPOUT, GPTMini,
-                                         GPTModule, GPTNano)
+                                         GPTModule, GPTMoEMini, GPTNano)
 from kubeml_tpu_torch.models.lenet import LeNet
 from kubeml_tpu_torch.models.lstm import LSTMClassifier
 from kubeml_tpu_torch.models.mlp import MLP
 from kubeml_tpu_torch.models.resnet import (ResNet18, ResNet32, ResNet34,
                                             ResNet50)
+from kubeml_tpu_torch.models.vgg import VGG11
 
 
 def get_builtin(name: str) -> Optional[Callable[..., GPTModule]]:
@@ -46,7 +49,7 @@ def model_names() -> list:
     return sorted(MODELS)
 
 
-__all__ = ["BertTiny", "GPTMini", "GPTModule", "GPTNano", "KubeModel",
-           "LSTMClassifier", "LeNet", "MLP",
-           "ResNet18", "ResNet32", "ResNet34", "ResNet50", "get_builtin",
-           "get_model", "builtin_names", "model_names"]
+__all__ = ["BertTiny", "GPTMini", "GPTModule", "GPTMoEMini", "GPTNano",
+           "KubeModel", "LSTMClassifier", "LeNet", "MLP",
+           "ResNet18", "ResNet32", "ResNet34", "ResNet50", "VGG11",
+           "get_builtin", "get_model", "builtin_names", "model_names"]

@@ -164,7 +164,9 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
     normal of variance 1/E, LayerNorm scales 1; every bias and offset 0.
     A layer with its own ``reset_parameters`` and no weight to draw (the
     vision BatchNorm: scale 1, or 0 where flax zero-initialises it, bias
-    0, running mean 0 and variance 1) resets itself."""
+    0, running mean 0 and variance 1) resets itself; one with its own
+    initializers (the MoE FFN's ``flax_init_``) draws them from
+    ``generator``."""
     with torch.no_grad():
         for sub in module.modules():
             if isinstance(sub, (nn.Linear, nn.Conv2d)):
@@ -184,6 +186,8 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
                 sub.bias.zero_()
             elif isinstance(sub, BatchNorm):
                 sub.reset_parameters()
+            elif hasattr(sub, "flax_init_"):
+                sub.flax_init_(generator)
 
 
 class ClassifierModel(KubeModel):
@@ -192,11 +196,15 @@ class ClassifierModel(KubeModel):
     f32 logits as the loss, loss and argmax accuracy as the metrics, plain
     SGD (the JAX package's default optimizer, ``optax.sgd(lr)``)."""
 
-    def _logits(self, module, batch, train: bool):
+    def _logits(self, module, batch, train: bool,
+                generator: Optional[torch.Generator] = None):
+        """The module's f32 logits of the batch; a model whose module
+        draws dropout passes ``generator`` (the engine's per-step one) on
+        to it, a model without dropout leaves it unused."""
         return module(batch["x"].to(module.device), train=train)
 
     def loss(self, module, batch, generator, sample_mask):
-        logits = self._logits(module, batch, train=True)
+        logits = self._logits(module, batch, train=True, generator=generator)
         return F.cross_entropy(logits, batch["y"].to(logits.device).long(),
                                reduction="none")
 

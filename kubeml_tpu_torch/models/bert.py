@@ -39,8 +39,8 @@ from kubeml_tpu_torch.models.base import (PAD_ID, ClassifierModel,
                                           InferenceInputError,
                                           register_model)
 from kubeml_tpu_torch.models.gpt import (LN_EPS, DecoderBlock, _block,
-                                         _dropout, _layer_norm)
-from kubeml_tpu_torch.models.layers import Dense
+                                         _layer_norm)
+from kubeml_tpu_torch.models.layers import Dense, _dropout
 from kubeml_tpu_torch.ops.attention import masked_attention
 
 # what brings each refused parallel path, by ROADMAP item

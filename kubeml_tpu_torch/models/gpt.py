@@ -27,6 +27,12 @@ weights cast to the compute dtype at use, dropout from an explicit
 generator, attention through ``masked_attention(causal=True)`` — the flash
 kernels on the card), and ``GPTMini``/``GPTNano`` carry the model
 contract (per-sequence LM loss, metrics, AdamW).
+
+``GPTMoEMini`` (``gpt-moe-mini``) replaces every block's FFN by a mixture
+of experts (``MoEFFN``'s parameters, ``parallel/ep.moe_apply``'s math):
+the router and the experts run in f32 on the f32 LayerNorm output, as
+the reference's do, and each block's load-balance aux joins the loss. The
+serving programs refuse an MoE module, as the reference's do.
 """
 
 from __future__ import annotations
@@ -40,15 +46,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
+from kubeml_tpu_torch.api.errors import NotPortedError
 from kubeml_tpu_torch.convert import params_from_flax, params_to_flax
 from kubeml_tpu_torch.models.base import (PAD_ID, InferenceInputError,
                                           KubeModel, register_model)
+from kubeml_tpu_torch.models.layers import _dropout
 from kubeml_tpu_torch.ops.attention import (NEG_INF, composed_bias,
                                             masked_attention,
                                             multi_head_attention)
 from kubeml_tpu_torch.ops.paged_attention import paged_attention
+from kubeml_tpu_torch.parallel.ep import moe_apply
 
 LN_EPS = 1e-6  # flax LayerNorm's default, not torch's 1e-5
+# an MoE block's routing: top-2 GShard choices, each expert taking
+# ceil(tokens / experts x 1.25) (the reference's moe_k, capacity_factor)
+MOE_K = 2
+CAPACITY_FACTOR = 1.25
 
 # published widths of the built-in GPT family (kubeml_tpu/models/gpt.py
 # GPTModule defaults and GPTNano.build)
@@ -60,16 +73,22 @@ GPT_CONFIGS = {
 }
 # their dropout rates (GPTModule's default 0.1; GPTNano builds with 0.0)
 GPT_DROPOUT = {"gpt-mini": 0.1, "gpt-nano": 0.0}
+# gpt-moe-mini: gpt-mini's widths with 8 experts of a 512-wide FFN
+# (GPTMoEMini.build); the serving programs refuse it, so it is not a
+# serving built-in
+GPT_MOE_CONFIG = dict(GPT_CONFIGS["gpt-mini"], ffn=512, n_experts=8)
 
 # serving KV storage modes (mirrors serve/pager.py KV_DTYPES)
 _KV_DTYPES = ("f32", "int8")
 
 
 class DecoderBlock(nn.Module):
-    """Parameters of one pre-LN block; the math is ``_block`` below."""
+    """Parameters of one pre-LN block; the math is ``_block`` below.
+    With ``n_experts`` > 0 the FFN is the mixture of experts ``moe`` in
+    place of ``fc0``/``fc1``."""
 
     def __init__(self, hidden: int, heads: int, ffn: int,
-                 device: torch.device):
+                 device: torch.device, n_experts: int = 0):
         super().__init__()
         self.ln0 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.q = nn.Linear(hidden, hidden, device=device)
@@ -77,8 +96,41 @@ class DecoderBlock(nn.Module):
         self.v = nn.Linear(hidden, hidden, device=device)
         self.out = nn.Linear(hidden, hidden, device=device)
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.fc0 = nn.Linear(hidden, ffn, device=device)
-        self.fc1 = nn.Linear(ffn, hidden, device=device)
+        if n_experts > 0:
+            self.moe = MoEFFN(hidden, ffn, n_experts, device)
+        else:
+            self.fc0 = nn.Linear(hidden, ffn, device=device)
+            self.fc1 = nn.Linear(ffn, hidden, device=device)
+
+
+class MoEFFN(nn.Module):
+    """The mixture-of-experts FFN's parameters (the reference's
+    ``MoEFFN``), in the flax layouts with the expert axis leading: router
+    [D, E], wi [E, D, F], bi [E, F], wo [E, F, D], bo [E, D]. The math is
+    ``parallel/ep.moe_apply``."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int,
+                 device: torch.device):
+        super().__init__()
+        e = n_experts
+
+        def param(*shape):
+            return nn.Parameter(torch.zeros(shape, device=device))
+
+        self.router = param(d_model, e)
+        self.wi, self.bi = param(e, d_model, d_ff), param(e, d_ff)
+        self.wo, self.bo = param(e, d_ff, d_model), param(e, d_model)
+
+    def flax_init_(self, generator: torch.Generator) -> None:
+        """The reference's initializers: router and wi normal with
+        standard deviation 1/sqrt(D), wo 1/sqrt(F), the biases zero."""
+        d, f = self.wi.shape[1:]
+        with torch.no_grad():
+            for w, std in ((self.router, d ** -0.5), (self.wi, d ** -0.5),
+                           (self.wo, f ** -0.5)):
+                w.copy_(torch.randn(w.shape, generator=generator) * std)
+            self.bi.zero_()
+            self.bo.zero_()
 
 
 class GPTModule(nn.Module):
@@ -86,14 +138,16 @@ class GPTModule(nn.Module):
 
     device=None means CUDA and raises where no CUDA device exists; pass
     device="cpu" to run on the CPU. ``dtype`` is the compute dtype;
-    ``dropout`` applies in the training forward only.
+    ``dropout`` applies in the training forward only. ``n_experts`` > 0
+    makes every block's FFN a mixture of experts (top-``MOE_K`` routing at
+    ``CAPACITY_FACTOR``), which the serving programs refuse.
     """
 
     def __init__(self, vocab_size: int = 8192, max_len: int = 512,
                  hidden: int = 256, layers: int = 4, heads: int = 4,
                  ffn: int = 1024, dropout: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, n_experts: int = 0):
         super().__init__()
         if hidden % heads:
             raise ValueError(f"hidden {hidden} does not split over "
@@ -101,12 +155,14 @@ class GPTModule(nn.Module):
         self.vocab_size, self.max_len = vocab_size, max_len
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.ffn, self.dtype, self.dropout = ffn, dtype, float(dropout)
+        self.n_experts = n_experts
         self.head_dim = hidden // heads
         dev = resolve_device(device)
         self.tok_embed = nn.Embedding(vocab_size, hidden, device=dev)
         self.pos_embed = nn.Embedding(max_len, hidden, device=dev)
         self.blocks = nn.ModuleList(
-            DecoderBlock(hidden, heads, ffn, dev) for _ in range(layers))
+            DecoderBlock(hidden, heads, ffn, dev, n_experts)
+            for _ in range(layers))
         self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=dev)
 
     @property
@@ -129,7 +185,7 @@ class GPTModule(nn.Module):
         bias = composed_bias(pad_mask, causal=True, T=T)
         for lp in p["layers"]:
             h = _block(lp, h, lambda q, k, v: multi_head_attention(
-                q, k, v, bias))
+                q, k, v, bias), pad_mask=pad_mask, aux=[])
         return _lm_head(p, h)
 
     def logits(self, x: torch.Tensor, train: bool = False,
@@ -141,6 +197,13 @@ class GPTModule(nn.Module):
         ``masked_attention(causal=True)`` (the flash kernels on the card);
         with ``train`` dropout follows the embeddings, the attention
         out-projection and the FFN, drawn from ``generator``."""
+        return self.logits_and_aux(x, train, generator)[0]
+
+    def logits_and_aux(self, x: torch.Tensor, train: bool = False,
+                       generator: Optional[torch.Generator] = None):
+        """``logits`` and the list of the MoE blocks' load-balance aux
+        losses, one a layer (empty for a dense module) — what the
+        reference's blocks sow into 'intermediates'."""
         B, T = x.shape
         if T > self.max_len:
             raise InferenceInputError(
@@ -149,38 +212,26 @@ class GPTModule(nn.Module):
         named = dict(self.named_parameters())
         p = _param_tree(self, lambda name, dtype: named[name].to(dtype))
         rate = self.dropout if train else 0.0
-        return _lm_head(p, _causal_trunk(
-            p, x, lambda t: _dropout(t, rate, generator)))
+        h, aux = _causal_trunk(p, x, lambda t: _dropout(t, rate, generator))
+        return _lm_head(p, h), aux
 
 
 def _causal_trunk(p: dict, x: torch.Tensor,
                   drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t
-                  ) -> torch.Tensor:
+                  ) -> tuple:
     """The reference module's ``__call__`` up to the final LayerNorm:
     embeddings of [B, T] ids (pad id 0) and the blocks, attention through
     ``masked_attention(causal=True)`` (the flash kernels on the card) with
-    the pads masked as keys -> [B, T, hidden]. ``drop`` is the training
-    forward's dropout."""
+    the pads masked as keys -> ([B, T, hidden], the MoE blocks' aux
+    losses, one a layer). ``drop`` is the training forward's dropout."""
     pad_mask = (x != PAD_ID).float()
     T = x.shape[1]
     h = drop(p["tok_embed"][x] + p["pos_embed"][:T][None])
+    aux: list = []
     for lp in p["layers"]:
         h = _block(lp, h, lambda q, k, v: masked_attention(
-            q, k, v, pad_mask, causal=True), drop)
-    return h
-
-
-def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax nn.Dropout: keep each element with probability 1 - rate
-    (uniforms from ``generator``), scale kept ones by 1 / (1 - rate) in
-    x's dtype; rate 0 is the identity. (jax.random's bits cannot be
-    reproduced, so the kept set differs from the JAX package's.)"""
-    if rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+            q, k, v, pad_mask, causal=True), drop, pad_mask, aux)
+    return h, aux
 
 
 def compute_params(module: GPTModule,
@@ -200,7 +251,8 @@ def _param_tree(module: GPTModule,
                 get: Callable[[str, torch.dtype], torch.Tensor]) -> dict:
     """The programs' parameter dict, each tensor ``get(name, dtype)``:
     embeddings and Dense weights in the compute dtype, LayerNorm
-    parameters in f32."""
+    parameters in f32. An MoE block's parameters stay f32: the reference
+    runs its router and experts on the f32 LayerNorm output."""
     dt = module.dtype
 
     def t(name, dtype=dt):
@@ -216,11 +268,15 @@ def _param_tree(module: GPTModule,
     layers = []
     for i in range(module.layers):
         b = f"blocks.{i}"
-        layers.append({
-            "ln0": ln(f"{b}.ln0"), "q": lin(f"{b}.q"), "k": lin(f"{b}.k"),
-            "v": lin(f"{b}.v"), "out": lin(f"{b}.out"),
-            "ln1": ln(f"{b}.ln1"), "fc0": lin(f"{b}.fc0"),
-            "fc1": lin(f"{b}.fc1"), "heads": module.heads})
+        lp = {"ln0": ln(f"{b}.ln0"), "q": lin(f"{b}.q"), "k": lin(f"{b}.k"),
+              "v": lin(f"{b}.v"), "out": lin(f"{b}.out"),
+              "ln1": ln(f"{b}.ln1"), "heads": module.heads}
+        if module.n_experts:
+            lp["moe"] = {n: t(f"{b}.moe.{n}", torch.float32)
+                         for n in ("router", "wi", "bi", "wo", "bo")}
+        else:
+            lp["fc0"], lp["fc1"] = lin(f"{b}.fc0"), lin(f"{b}.fc1")
+        layers.append(lp)
     return {"tok_embed": t("tok_embed.weight"),
             "pos_embed": t("pos_embed.weight"),
             "ln_f": ln("ln_f"), "layers": layers}
@@ -241,13 +297,20 @@ def _layer_norm(x: torch.Tensor, w: torch.Tensor,
 def _block(lp: dict, h: torch.Tensor,
            attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                             torch.Tensor],
-           drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t
-           ) -> torch.Tensor:
+           drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t,
+           pad_mask: Optional[torch.Tensor] = None,
+           aux: Optional[list] = None) -> torch.Tensor:
     """One pre-LN decoder block. ``attend(q, k, v)`` maps [B, T, H, Dh]
     projections to the [B, T, H, Dh] attention output — the dense
     forward attends within the window, the paged steps write K/V into
     the slab and read it back through the page table. ``drop`` is the
-    training forward's dropout after the out-projection and the FFN."""
+    training forward's dropout after the out-projection and the FFN.
+
+    An MoE block (``lp["moe"]``) routes the [B·T] tokens of the f32
+    LayerNorm output, the pads of ``pad_mask`` [B, T] left out, runs its
+    experts in f32 and appends its load-balance aux to ``aux``; its f32
+    output makes the residual stream f32 from there on, as the
+    reference's type promotion does."""
     dt = lp["q"][0].dtype
     H = lp["heads"]
     x = _layer_norm(h, *lp["ln0"]).to(dt)
@@ -255,6 +318,13 @@ def _block(lp: dict, h: torch.Tensor,
                for n in ("q", "k", "v"))
     attn = attend(q, k, v)
     h = h + drop(F.linear(attn.flatten(-2), *lp["out"]))
+    if "moe" in lp:
+        x = _layer_norm(h, *lp["ln1"])
+        y, a = moe_apply(lp["moe"], x.flatten(0, 1), k=MOE_K,
+                         capacity_factor=CAPACITY_FACTOR,
+                         token_mask=pad_mask.flatten())
+        aux.append(a)
+        return h + drop(y.view_as(x))
     x = _layer_norm(h, *lp["ln1"]).to(dt)
     x = F.gelu(F.linear(x, *lp["fc0"]), approximate="tanh")
     return h + drop(F.linear(x, *lp["fc1"]))
@@ -392,6 +462,10 @@ def build_paged_decode_step(module: GPTModule, kv_dtype: str = "f32"):
     Slots are rows: no reduction crosses slots, which is what makes a
     request's tokens the same alone or in a batch.
     """
+    if module.n_experts:
+        raise ValueError(
+            "paged decode serves dense GPT modules only (no MoE, "
+            "sequence-parallel, or manual-TP variants)")
     quantized = _check_servable(kv_dtype)
     dtype = module.dtype
 
@@ -453,6 +527,10 @@ def build_paged_prefill_step(module: GPTModule, chunk: int,
     """
     if chunk < 1:
         raise ValueError(f"prefill chunk must be >= 1, got {chunk}")
+    if module.n_experts:
+        raise ValueError(
+            "paged prefill serves dense GPT modules only (no MoE, "
+            "sequence-parallel, or manual-TP variants)")
     quantized = _check_servable(kv_dtype)
     dtype = module.dtype
 
@@ -596,7 +674,7 @@ def build_paged_spec_verify_step(module: GPTModule, draft_module: GPTModule,
     if steps < 1:
         raise ValueError(f"speculative decode needs steps >= 1, "
                          f"got {steps}")
-    if not isinstance(draft_module, GPTModule):
+    if not isinstance(draft_module, GPTModule) or draft_module.n_experts:
         raise ValueError(
             "speculative draft must be a dense GPT module (no MoE, "
             "sequence-parallel, or manual-TP variants)")
@@ -630,7 +708,7 @@ def build_paged_spec_verify_step(module: GPTModule, draft_module: GPTModule,
         draft_win = win.clone()
         props = []
         for i in range(1, steps + 1):
-            h = _causal_trunk(draft_params, draft_win)
+            h = _causal_trunk(draft_params, draft_win)[0]
             at = torch.clamp(pos_d + i - 1, 0, W - 1)
             lg = _lm_head(draft_params, h[rows, at][:, None])[:, 0]
             lg[:, PAD_ID] = -float("inf")
@@ -794,3 +872,69 @@ class GPTNano(GPTMini):
     architecture and parameter names as gpt-mini."""
 
     name = "gpt-nano"
+
+
+# what brings each refused parallel path of gpt-moe-mini, by ROADMAP item
+EXPERT_PARALLEL = "expert and sequence parallelism over NCCL ranks, " \
+    "ROADMAP A.6"
+PIPELINE_PARALLEL = "pipeline parallelism over NCCL ranks, ROADMAP A.12"
+
+
+@register_model("gpt-moe-mini")
+class GPTMoEMini(GPTMini):
+    """gpt-mini with a mixture-of-experts FFN in every block: 8 experts of
+    a 512-wide FFN, top-2 GShard routing at capacity factor 1.25
+    (``parallel/ep.py``), the same attention stack, dropout and AdamW.
+    Every sequence's loss adds ``aux_coef`` times the mean over the
+    layers of the load-balance aux. The experts run on the one device;
+    the reference's ``ep_mesh`` and its sequence-parallel and pipelined
+    paths raise NotPortedError naming the ROADMAP item that brings
+    them."""
+
+    name = "gpt-moe-mini"
+    aux_coef = 0.01
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16, ep_mesh=None):
+        if ep_mesh is not None:
+            raise NotPortedError("gpt-moe-mini's ep_mesh", EXPERT_PARALLEL)
+        super().__init__(dtype)
+
+    def build(self, dtype: Optional[torch.dtype] = None,
+              device: DeviceLike = None) -> GPTModule:
+        return GPTModule(**GPT_MOE_CONFIG, dropout=GPT_DROPOUT["gpt-mini"],
+                         dtype=dtype or self.dtype, device=device)
+
+    def params_to_flax(self, state):
+        return params_to_flax(state, heads=GPT_MOE_CONFIG["heads"])
+
+    def loss(self, module, batch, generator, sample_mask):
+        x = batch["x"].to(module.device)
+        logits, aux = module.logits_and_aux(x, train=True,
+                                            generator=generator)
+        mean_aux = sum(aux) / max(1, module.layers)
+        return _lm_per_example(logits, x) + self.aux_coef * mean_aux
+
+    # the reference's parallel paths (not ported)
+    def enable_seq_parallel(self, impl: str = "ring") -> None:
+        raise NotPortedError("gpt-moe-mini's sequence parallelism",
+                             EXPERT_PARALLEL)
+
+    def forward_seq_parallel(self, variables, x, mesh, impl: str = "ring"):
+        raise NotPortedError("gpt-moe-mini's forward_seq_parallel",
+                             EXPERT_PARALLEL)
+
+    def enable_pipeline_parallel(self, n_stage: int,
+                                 microbatches: int = 0) -> None:
+        raise NotPortedError("gpt-moe-mini's pipeline parallelism",
+                             PIPELINE_PARALLEL)
+
+    def enable_expert_parallel(self) -> None:
+        raise NotPortedError("gpt-moe-mini's expert parallelism",
+                             EXPERT_PARALLEL)
+
+    def enable_tensor_parallel(self) -> None:
+        raise ValueError(
+            "gpt-moe-mini does not support tensor parallelism (the "
+            "Megatron split would leave the expert FFNs — the bulk of the "
+            "params — replicated); use expert parallelism (ep_mesh) for "
+            "this family")

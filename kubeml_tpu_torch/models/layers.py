@@ -1,5 +1,6 @@
-"""flax-faithful convolution, BatchNorm, pooling and Dense layers shared
-by the vision models (``models/lenet.py``, ``models/resnet.py``).
+"""flax-faithful convolution, BatchNorm, pooling, Dense and dropout layers
+shared by the models (``models/lenet.py``, ``models/resnet.py``,
+``models/vgg.py``; the transformers take ``Dense`` and ``_dropout``).
 
 Activations are NCHW tensors (a permute of the NHWC input, so in
 ``torch.channels_last`` memory); parameters are f32 and cast to the
@@ -27,7 +28,7 @@ compute something else, these follow flax:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -152,3 +153,16 @@ def max_pool(x: torch.Tensor, k: int, stride: int,
     if padding == "SAME":
         x = pad_same(x, (k, k), (stride, stride), value=float("-inf"))
     return F.max_pool2d(x, k, stride)
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep each element with probability 1 - rate
+    (uniforms from ``generator``), scale kept ones by 1 / (1 - rate) in
+    x's dtype; rate 0 is the identity. (jax.random's bits cannot be
+    reproduced, so the kept set differs from the JAX package's.)"""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

@@ -19,8 +19,12 @@
 // from device memory, as the TPU kernel read them from SMEM, so the host
 // never waits on the lane sum that produced them.
 //
-// What bounds it: device-memory bytes. Each element reads 8 bytes (s, ref)
-// and writes 4; the three flops per element are nothing at 3.35 TB/s.
+// What bounds it: device-memory bytes. sgd mode reads 8 bytes an element
+// (s, ref) and writes 4. avg mode needs one input: s when raw_count > 0,
+// ref when not; `live` is loop-invariant, and nvcc unswitches the loop on
+// it, so each path loads one operand (4 bytes) a store (the SASS has one
+// bucket load per store). The 1-3 flops per element are nothing at
+// 3.35 TB/s.
 // Design: 16-byte (float4) loads and stores when all three pointers are
 // 16-byte aligned, a grid-stride loop over the float4s, and a scalar tail
 // (and a scalar path for unaligned views) so any N works. The TPU kernel

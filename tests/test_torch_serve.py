@@ -286,9 +286,10 @@ def test_port_imports_no_jax():
     # and the allocator and the journal, the port's own copies
     assert {"cluster.py", "journal.py", "scheduler.py", "ps.py"} <= {
         p.name for p in files if p.parent.name == "control"}
-    # and the text classifiers
-    assert {"bert.py", "lstm.py"} <= {
+    # and the text classifiers, vgg11 and the MoE routing
+    assert {"bert.py", "lstm.py", "vgg.py"} <= {
         p.name for p in files if p.parent.name == "models"}
+    assert "ep.py" in {p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -269,10 +269,15 @@ def test_comm_proxy_equals_jax_for_gpt_mini():
 
 
 def test_models_registered_with_reference_widths_and_dropout():
-    """gpt-mini and gpt-nano train at the JAX package's widths, dropout
-    and optimizer settings."""
+    """gpt-mini, gpt-nano and gpt-moe-mini train at the JAX package's
+    widths, dropout and optimizer settings, gpt-moe-mini with its experts,
+    routing and aux weight; vgg11 at its classes, Dense width, dropout
+    and SGD with momentum 0.9."""
     from kubeml_tpu.models import get_builtin as jax_builtin
     from kubeml_tpu_torch.models import get_builtin, get_model
+    from kubeml_tpu_torch.models import gpt
+    from kubeml_tpu_torch.models.gpt import GPTMoEMini
+    from kubeml_tpu_torch.models.vgg import VGG11
 
     for name in ("gpt-mini", "gpt-nano"):
         ref = jax_builtin(name)().module
@@ -289,7 +294,40 @@ def test_models_registered_with_reference_widths_and_dropout():
         group = opt.param_groups[0]
         assert (group["lr"], group["betas"], group["eps"],
                 group["weight_decay"]) == (1e-3, (0.9, 0.999), 1e-8, 0.01)
-    assert get_model("vgg11") is None
+    # gpt-moe-mini: a training model, not a serving built-in
+    ref_model = jax_builtin("gpt-moe-mini")()
+    ref = ref_model.module
+    assert get_model("gpt-moe-mini") is GPTMoEMini
+    assert GPTMoEMini.name == ref_model.name == "gpt-moe-mini"
+    assert GPTMoEMini.aux_coef == ref_model.aux_coef
+    assert get_builtin("gpt-moe-mini") is None
+    mod = GPTMoEMini().build(device="cpu")
+    for field in ("vocab_size", "max_len", "hidden", "layers", "heads",
+                  "ffn", "n_experts", "dropout"):
+        assert getattr(mod, field) == getattr(ref, field), field
+    assert (gpt.MOE_K, gpt.CAPACITY_FACTOR) == (ref.moe_k,
+                                                ref.capacity_factor)
+    opt = GPTMoEMini().configure_optimizers(1e-3, 0)([torch.zeros(2)])
+    assert isinstance(opt, torch.optim.AdamW)
+    group = opt.param_groups[0]
+    assert (group["lr"], group["betas"], group["eps"],
+            group["weight_decay"]) == (1e-3, (0.9, 0.999), 1e-8, 0.01)
+    # vgg11: the reference's num_classes, hidden, dropout; optax.sgd(lr,
+    # momentum=0.9) is SGD(momentum=0.9) with no decay and no nesterov
+    ref_model = jax_builtin("vgg11")()
+    ref = ref_model.module
+    assert get_model("vgg11") is VGG11
+    assert VGG11.name == ref_model.name == "vgg11"
+    assert VGG11.num_classes == ref_model.num_classes == ref.num_classes
+    mod = VGG11().build(device="cpu")
+    assert mod.Dense_0.out_features == ref.hidden
+    assert mod.Dense_2.out_features == ref.num_classes
+    assert mod.dropout == ref.dropout
+    opt = VGG11().configure_optimizers(0.05, 3)([torch.zeros(2)])
+    assert type(opt) is torch.optim.SGD
+    group = opt.param_groups[0]
+    assert (group["lr"], group["momentum"], group["weight_decay"],
+            group["nesterov"], group["dampening"]) == (0.05, 0.9, 0, False, 0)
 
 
 def test_dropout_follows_the_generator():
