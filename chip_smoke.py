@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line). Merge
+counts: every phase that counts the fused merge holds two numbers, its
+segments (buckets merged) = buckets x merges, and its launches = merges x
+ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
+(every plan here has at most 14 buckets: one launch a merge).
   1. build    every hand-written kernel from ops/csrc, one nvcc per source,
               all started together; prints build time and ptxas usage.
   2. kernels  each kernel against its plain PyTorch version on the card at
@@ -73,16 +77,24 @@ Phases (any failure exits non-zero and prints no result line):
               version's time and the bytes bound (avg 8 bytes per
               element, s read and out written; sgd 12, ref read too);
               no single PyTorch call computes this function, so there is
-              no library yardstick. (b)+(c) gpt-mini at its published
+              no library yardstick. (a2) the grouped launch (every bucket
+              of a merge in one launch) at each model's 4 MB plan
+              (gpt-mini, ResNet-18, gpt-moe-mini, vgg11, bert-tiny, the
+              LSTM): bit for bit against the plain version in both modes,
+              at raw_count 3 and 0; warm and L2-cold times beside the
+              plain version and the 8 B bound. (b)+(c)
+              gpt-mini at its published
               widths, bf16, dropout 0.1, n_lanes=2, W=4, K=4, B=8, T=512:
               three train_rounds each with the bucketed (4 MB), ef_bf16 and
-              ef_int8 merges; the merge kernel's launches are zeroed just
-              before and read just after (5 buckets x 3 rounds), the flash
+              ef_int8 merges; the merge kernel's counts are zeroed just
+              before and read just after (3 launches of 5 segments), the
+              flash
               launches too; the loss falls, EF residuals stay finite, and
               after a round with lane 1 masked out its residual is exactly
               zero while lane 0's is not. The first bucketed round's
               contributions merged by MonolithicMerge and by
-              BucketedMerge(4 MB) are equal bit for bit. (d) gpt-nano in
+              BucketedMerge(4 MB) are equal bit for bit. (d)
+              gpt-nano in
               f32, ef_int8, n_lanes=2, one round on the card and on the CPU:
               merged params within 2 x K x lr + the bucket's int8 scale, 99.5
               % within 1e-5. (e) one ef_int8 round profiled, and its merge
@@ -98,7 +110,8 @@ Phases (any failure exits non-zero and prints no result line):
               adding 1 each epoch. The kernel counts are zeroed before each
               epoch and read after it (its validation included): dK/dV and
               dQ = layers x local steps, the forward that plus layers x
-              eval steps, the fused merge 5 buckets x rounds. The history's
+              eval steps, the fused merge 5 buckets x rounds (in one launch
+              a round). The history's
               parallelism must be [2, 3, 4] and the loss fall; the final
               checkpoint loads back equal to the job's weights, and a
               restart with resume_from=<job> finishes as done without a
@@ -121,12 +134,13 @@ Phases (any failure exits non-zero and prints no result line):
               K=8 (bench.py's), lr 0.1, N=2, merge_bucket_mb=4) for 2
               epochs with device_cache='auto' (the sharded cache), then one
               more epoch warm-started from its checkpoint with
-              device_cache='off'. The fused merge's launches are zeroed
+              device_cache='off'. The fused merge's counts are zeroed
               before each epoch and read after it: 10 buckets x 13 rounds
-              (from the plan). The loss must fall. Prints per epoch wall,
-              samples/s, ms per local step, the phase split, and the cached
-              epoch against the host-staged one. (b) One ResNet-18 round
-              index-fed == host-staged and two index-fed rounds grouped ==
+              (from the plan) in 13 launches. The loss must fall. Prints
+              per epoch wall, samples/s, ms per local step, the phase
+              split, and the cached epoch against the host-staged one.
+              (b) One ResNet-18 round index-fed == host-staged and two
+              index-fed rounds grouped ==
               two single rounds, bit for bit under
               torch.backends.cudnn.deterministic (and whether the first
               pair is equal without it); the bucketed merge against the
@@ -135,8 +149,8 @@ Phases (any failure exits non-zero and prints no result line):
               and on the CPU: parameters and running statistics within
               1e-4. (d) One ResNet-18 round profiled: device busy and idle
               share, the convolutions' and the merge's share, the top
-              device consumers. (e) The fused merge over ResNet-18's 10
-              buckets (warm times, plain version, bytes bound).
+              device consumers. (Phase 9 (a2) times the fused merge at
+              ResNet-18's plan.)
  12. control  the training control plane on the card, under a fresh
               KUBEML_TPU_HOME and cudnn.deterministic: start_deployment()
               (storage, PS, scheduler, controller over HTTP on localhost)
@@ -147,7 +161,7 @@ Phases (any failure exits non-zero and prints no result line):
               (upload seconds, MiB/s); resnet18 submitted at phase 11's
               B=256, K=8, lr 0.1, static N=2, merge_bucket_mb=4,
               device_cache='auto', one epoch, its history polled through
-              the controller: the fused merge's launches, zeroed before
+              the controller: the fused merge's counts, zeroed before
               the submit and read after, must be 10 buckets x 13 rounds;
               /metrics must show the job's families at its epoch's publish
               and none after its finish; the checkpoint must equal bit for
@@ -179,7 +193,8 @@ Phases (any failure exits non-zero and prints no result line):
               3 epochs: its epoch-1 checkpoint, read while epoch 2 runs,
               must equal phase 12's deployment job bit for bit (the spans
               time the host only; train stats are on, as the CLI sends
-              them), and the fused merge must launch 130 times an epoch.
+              them), and the fused merge must merge 130 buckets in 13
+              launches an epoch.
               (b) Once the PS's verdict reads healthy, `kubeml health`,
               `kubeml top --iterations 1` and `kubeml task list` run
               together and must show the job live and healthy. (c) After
@@ -376,7 +391,7 @@ Phases (any failure exits non-zero and prints no result line):
               the loss falls; the fused merge against its plain version
               (bit for bit, timed) at each bucket length of the model's
               4 MB plan; then one f32 round (dropout 0, W=2 lanes, K=4,
-              B=8, the 4 MB plan: one fused merge launch a bucket) on the
+              B=8, the 4 MB plan: one fused merge launch a round) on the
               card and on the CPU within 2 x K x lr. (b) the
               2-layer LSTM (vocab 32000, embed 128, hidden 256, Adam) the
               same way at B=64, K=8, N=4 over 4096 + 512 sequences (the
@@ -413,12 +428,12 @@ Phases (any failure exits non-zero and prints no result line):
               SGD with momentum 0.9, examples/function_vgg11.py's B=128,
               lr 0.05 and normalization) over 50,000 + 10,000
               CIFAR-100-shaped u8 images (labels 0..99) at K=8, N=2, 2
-              epochs from the device cache: the fused merge launches
+              epochs from the device cache: the fused merge merges
               buckets x rounds of its 109 MB plan (Dense_1's 16,777,216
               elements a bucket of their own); the loss falls; one step
               profiled. (c) card vs CPU: a gpt-moe-mini at gpt-nano's
               widths with 4 experts, f32, one round on 2 lanes (flash
-              kernels in f32, one merge launch a bucket) within 2 x K x
+              kernels in f32, one merge launch a round) within 2 x K x
               lr, 99.5 % of the weights within 1e-5; a hidden-64 vgg11
               in f32, forward and one round within 1e-4. (d) the fused
               merge against its plain version, bit for bit and timed warm
@@ -433,7 +448,9 @@ the main paths (bf16 pages, int8 pages: decode numbers at the top level,
 the S=1 prefill call's under "prefill", launches from that page type's own
 serving run; the three bf16 flash kernels at the training shape, launches
 from the last training round; the fused merge over one whole gpt-mini
-merge, launches from the ef_int8 run, the sgd mode under "sgd"; each of
+merge (one grouped launch; every plan's grouped rows under "plans"),
+launches and
+segments from the ef_int8 run, the sgd mode under "sgd"; each of
 the paged kernel's entries also carry "ps_launches", phase 14's launches
 through the PS for that page type; each of
 the four training kernels also carries "job_launches", its launches in
@@ -1279,6 +1296,61 @@ COLD_BYTES = 120e6        # operand sets cycled per timing: 2.4 x the L2
 
 
 MERGE_BYTES = {"avg": 8, "sgd": 12}   # per element at raw_count > 0
+# every model's merge at 4 MB (the reference's plan): bucket lengths in
+# flax flatten order, from the models' variable trees at their published
+# widths (phases 11, 20 and 21 hold their jobs' plans to these)
+MERGE_PLANS = {
+    "gpt-mini": MERGE_BUCKETS,
+    "resnet18": (979072, 624128, 589824, 591872, 1179648, 2359296, 134144,
+                 2359296, 2359296, 6986),
+    "gpt-moe-mini": (75520, 1048576, 1048576, 272384, 1048576, 1048576,
+                     272384, 1048576, 1048576, 272384, 1048576, 1048576,
+                     328448, 2097152),
+    "vgg11": (961408, 1179648, 512, 2359296, 512, 2359296, 512, 2359296,
+              4096, 2097152, 4096, 16777216, 409700),
+    "bert-tiny": (413442, 3906816),
+    "lstm": (1028, 4096000, 919552),
+}
+
+
+class MergeSegments:
+    """The fused merge's segment count (buckets merged) under a kernel's
+    ``launches`` name, so a phase's loop over its kernels zeroes and reads
+    it with the launch counts."""
+
+    @property
+    def launches(self) -> int:
+        from kubeml_tpu_torch.ops import fused_merge as fm
+        return fm.fused_merge_kernel.segments
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from kubeml_tpu_torch.ops import fused_merge as fm
+        fm.fused_merge_kernel.segments = n
+
+
+def merge_counts(buckets: int, merges: int) -> dict:
+    """The fused merge's counts over ``merges`` merges of a plan of
+    ``buckets`` buckets: one launch per MAX_SEGMENTS buckets of a merge,
+    every bucket one segment."""
+    from kubeml_tpu_torch.ops.fused_merge import MAX_SEGMENTS
+
+    return {"fused_merge": merges * -(-buckets // MAX_SEGMENTS),
+            "merge segments": buckets * merges}
+
+
+def merge_count_now() -> dict:
+    """The fused merge's two counts as they stand."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    return {"fused_merge": fm.fused_merge_kernel.launches,
+            "merge segments": fm.fused_merge_kernel.segments}
+
+
+def merge_count_zero() -> None:
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    fm.fused_merge_kernel.launches = fm.fused_merge_kernel.segments = 0
 
 
 def merge_bound(n: int, mode: str) -> float:
@@ -1292,11 +1364,12 @@ def merge_bound(n: int, mode: str) -> float:
 
 
 def merge_sass_loads(card) -> dict:
-    """The built fused merge's global loads and stores per kernel, counted
-    in its SASS (``cuobjdump -sass``): two of the loads are count and
-    raw_count; an avg kernel with one bucket load per store moves the
-    bound's 8 bytes an element. Logged, not held: the bound is the
-    function's, whatever the compiler makes of the kernel."""
+    """The built fused merge's global loads, stores and bulk copies per
+    kernel, counted in its SASS (``cuobjdump -sass``): LDG / STG are the
+    loads of count and raw_count and the register path's (and the
+    st.global.cs stores), UBLKCP the TMA bulk loads. Logged, not held:
+    the bound is the function's, whatever the compiler makes of the
+    kernel."""
     import re
     import shutil
 
@@ -1312,16 +1385,15 @@ def merge_sass_loads(card) -> dict:
         return {}
     counts = {}
     for block in sass.split("Function : ")[1:]:
-        m = re.search(r"fused_merge_kernelILi(\d)ELb(\d)E", block.split()[0])
+        m = re.search(r"fused_merge_kernelILi(\d)E", block.split()[0])
         if m is None:
             continue
-        name = (f"{('avg', 'sgd')[int(m[1])]} "
-                f"{('scalar', 'float4')[int(m[2])]}")
-        counts[name] = (len(re.findall(r"\bLDG\.", block)),
-                        len(re.findall(r"\bSTG\.", block)))
-    log(card, "fused_merge SASS (cuobjdump), global loads/stores per "
-        "kernel, 2 loads of count and raw_count among them: " + ", ".join(
-            f"{k} {ld}/{st}" for k, (ld, st) in sorted(counts.items())))
+        counts[('avg', 'sgd')[int(m[1])]] = tuple(
+            len(re.findall(pat, block))
+            for pat in (r"\bLDG\.", r"\bSTG\.", r"\bUBLKCP\b"))
+    log(card, "fused_merge SASS (cuobjdump), LDG/STG/UBLKCP per kernel: "
+        + ", ".join(f"{k} {'/'.join(map(str, v))}"
+                    for k, v in sorted(counts.items())))
     return counts
 
 
@@ -1349,8 +1421,85 @@ def phase_merge_kernel(torch, card, seed):
     ragged ones; warm and L2-cold device times, the plain version's, and
     the bytes bound."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
-    return merge_kernel_rows(torch, card, gen, MERGE_BUCKETS + MERGE_RAGGED,
+    rows = merge_kernel_rows(torch, card, gen, MERGE_BUCKETS + MERGE_RAGGED,
                              cold=MERGE_BUCKETS)
+    return {"lengths": rows, "plans": merge_group_rows(torch, card, gen)}
+
+
+def host_us(torch, fn, calls: int = 30) -> float:
+    """Host microseconds of one eager call of fn (the Python wrappers and
+    their launches, with the device idle at each start): the median over
+    ``calls``, each followed by a synchronize outside the timed span."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def merge_group_rows(torch, card, gen):
+    """Phase 9 (a2): the grouped launch (every bucket of a merge in one
+    launch) at each model's 4 MB plan. Bit for bit against the plain
+    version in both modes, at raw_count 3 and 0 (a NaN in every s; the
+    output must be ref); then, avg at raw_count 3, warm and L2-cold times,
+    the plain version's and the 8 B bound. Rows by model."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    dev = torch.device("cuda")
+    nan = float("nan")
+
+    def operands(lengths):
+        return [(torch.randn(n, device=dev, generator=gen) * 7,
+                 torch.randn(n, device=dev, generator=gen)) for n in lengths]
+
+    rows = {}
+    for name, lengths in MERGE_PLANS.items():
+        pairs = operands(lengths)
+        nan_pairs = [(s.clone().index_fill_(0, torch.tensor(
+            [s.numel() // 2], device=dev), nan), r) for s, r in pairs]
+        for mode, lr in (("avg", 0.0), ("sgd", MERGE_SGD_LR)):
+            for raw in (3.0, 0.0):
+                raw_t = torch.tensor(raw, device=dev)
+                cnt = raw_t.clamp_min(1.0)
+                src = pairs if raw > 0 else nan_pairs
+                got = fm.fused_merge_apply(mode, src, cnt, raw_t, lr)
+                torch.cuda.synchronize()
+                for (s, r), out in zip(src, got):
+                    want = fm._apply_plain(mode, s, r, cnt, raw_t, lr)
+                    assert torch.equal(out, want), (name, mode, raw,
+                                                    s.numel())
+                    if raw == 0:
+                        assert torch.equal(out, r), (name, mode)
+        raw_t = torch.tensor(3.0, device=dev)
+        cnt = raw_t.clamp_min(1.0)
+        total = sum(lengths)
+
+        def grouped(ps):
+            return fm.fused_merge_apply("avg", ps, cnt, raw_t)
+
+        sets = [(pairs,)] + [(operands(lengths),) for _ in range(
+            max(2, -(-int(COLD_BYTES) // (8 * total))) - 1)]
+        row = dict(buckets=len(lengths), elements=total, max_abs_err=0.0,
+                   ms=time_ms(torch, lambda: grouped(pairs)),
+                   cold_ms=time_ms_cold(torch, grouped, sets),
+                   plain_ms=time_ms(torch, lambda: [
+                       fm._apply_plain("avg", s, r, cnt, raw_t, 0.0)
+                       for s, r in pairs]),
+                   bound_ms=merge_bound(total, "avg"))
+        del sets
+        log(card, f"fused_merge grouped, {name}'s {MERGE_CAP_MB:g} MB plan ("
+            f"{len(lengths)} buckets, {total} f32 elements, one launch): "
+            f"{row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}); plain "
+            f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms (8 B "
+            f"an element): L2 cold {row['cold_ms'] / row['bound_ms']:.2f}x "
+            f"the bound; == plain bit for bit (avg and sgd, raw_count 3 "
+            f"and 0)")
+        rows[name] = row
+    return rows
 
 
 def merge_kernel_rows(torch, card, gen, lengths, cold, label="fused_merge",
@@ -1459,13 +1608,12 @@ def int8_quanta(torch, engine, call):
 def phase_merge_train(torch, card, seed):
     """(b) + (c): gpt-mini at full width, bf16, dropout 0.1, n_lanes=2,
     W=4, K=4, B=8, T=512, three train_rounds per strategy (bucketed at
-    4 MB, ef_bf16, ef_int8); the merge kernel's launches (5 buckets x 3
-    rounds), the flash launches, falling loss, finite residuals, a dead
+    4 MB, ef_bf16, ef_int8); the merge kernel's counts (3 launches of 5
+    segments), the flash launches, falling loss, finite residuals, a dead
     lane's zeroed residual; and the first bucketed round's contributions
     merged by MonolithicMerge and by BucketedMerge(4 MB) on the card,
     equal bit for bit."""
     from kubeml_tpu_torch.ops import flash_attention as fa
-    from kubeml_tpu_torch.ops import fused_merge as fm
     from kubeml_tpu_torch.parallel.merge import BucketedMerge, MonolithicMerge
 
     flash = (fa.fa_fwd_kernel, fa.fa_bwd_dkv_kernel, fa.fa_bwd_dq_kernel)
@@ -1483,18 +1631,18 @@ def phase_merge_train(torch, card, seed):
         args = stacked_rounds(rng, MERGE_R, MERGE_W, TRAIN_K, TRAIN_B,
                               TRAIN_T)
         real = args[2] * args[3][..., None]             # [R, W, S]
-        fm.fused_merge_kernel.launches = 0   # the main path's run starts
+        merge_count_zero()                   # the main path's run starts
         for fn in flash:
             fn.launches = 0
         t0 = time.perf_counter()
         state, st = engine.train_rounds(state, *args, TRAIN_LR, 0)
         loss_sum = st.loss_sum
         wall = time.perf_counter() - t0
-        n = fm.fused_merge_kernel.launches   # ... and ends here
+        n = merge_count_now()                # ... and ends here
         flash_n = [fn.launches for fn in flash]
         n_buckets = engine.merge_comm_proxy(state)["buckets_per_round"]
         assert n_buckets == len(MERGE_BUCKETS), n_buckets
-        assert n == n_buckets * MERGE_R, (name, n)
+        assert n == merge_counts(n_buckets, MERGE_R), (name, n)
         steps = real.sum(axis=(1, 2))
         assert flash_n == [module.layers * int(steps.sum())] * 3, flash_n
         assert np.isfinite(loss_sum).all(), loss_sum
@@ -1523,8 +1671,9 @@ def phase_merge_train(torch, card, seed):
             + " -> ".join(f"{m:.4f}" for m in means)
             + f", {int(steps.sum())} local steps in {wall:.4f} s = "
             f"{1e3 * wall / steps.sum():.3f} ms per local step; fused merge "
-            f"launches {n} (= {n_buckets} buckets x {MERGE_R} rounds), flash "
-            f"launches {flash_n}" + msg)
+            f"{n['fused_merge']} launches of {n['merge segments']} segments "
+            f"(= {n_buckets} buckets x {MERGE_R} rounds), flash launches "
+            f"{flash_n}" + msg)
         engines[name] = (module, engine, state)
         if calls:
             call = calls[0]
@@ -1537,19 +1686,17 @@ def phase_merge_train(torch, card, seed):
             log(card, f"merge parity on the card: a real gpt-mini round's "
                 f"contributions ({MERGE_LANES} lanes) merged by "
                 f"MonolithicMerge ({len(mono)} leaves) and by "
-                f"BucketedMerge({MERGE_CAP_MB:g} MB, fused kernel) are "
-                f"equal bit for bit")
+                f"BucketedMerge({MERGE_CAP_MB:g} MB, one grouped fused "
+                f"launch) are equal bit for bit")
             del calls[:]
     return launches, engines
 
 
 def phase_merge_check(torch, card, seed):
     """(d) gpt-nano in f32, ef_int8, n_lanes=2: one round on the card
-    (kernels, one merge launch per bucket) and on the CPU (plain versions)
-    merge to the same parameters within AdamW's bound plus one int8
-    quantum of the bucket, 99.5 % of the elements within 1e-5."""
-    from kubeml_tpu_torch.ops import fused_merge as fm
-
+    (kernels, one merge launch for its buckets) and on the CPU (plain
+    versions) merge to the same parameters within AdamW's bound plus one
+    int8 quantum of the bucket, 99.5 % of the elements within 1e-5."""
     K = 2
     args = lm_round(np.random.default_rng(seed + 10), MERGE_W, K, 4, 64)
     out = {}
@@ -1560,11 +1707,12 @@ def phase_merge_check(torch, card, seed):
                                        merge_compress="int8",
                                        merge_bucket_mb=0.02)
         calls = record_merges(engine)
-        before = fm.fused_merge_kernel.launches
+        merge_count_zero()
         out[dev] = engine.train_round(state, *args, TRAIN_LR, 0)
         n_buckets = engine.merge_comm_proxy(state)["buckets_per_round"]
-        launched = fm.fused_merge_kernel.launches - before
-        assert launched == (n_buckets if dev == "cuda" else 0), launched
+        launched = merge_count_now()
+        assert launched == (merge_counts(n_buckets, 1) if dev == "cuda"
+                            else merge_counts(0, 0)), launched
         if dev == "cpu":
             quanta = int8_quanta(torch, engine, calls[0])
     (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
@@ -1805,7 +1953,8 @@ def job_run(torch, card, seed, engine_ms):
     from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
 
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+               "merge segments": MergeSegments()}
 
     def zero():
         for fn in kernels.values():
@@ -1849,7 +1998,7 @@ def job_run(torch, card, seed, engine_ms):
         # validation runs at the pinned worker count, JOB_NMAX
         steps, rounds, evals = _epoch_counts(n, JOB_NMAX)
         want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-                "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+                "dQ": layers * steps, **merge_counts(JOB_BUCKETS, rounds)}
         assert counts == want, (e, counts, want)
         launches.append(counts)
         steps_all += steps
@@ -2083,15 +2232,17 @@ def vision_job(torch, card, seed):
     (device_cache='auto'), then one more epoch of the same job host-staged
     (device_cache='off', warm-started from the first run's checkpoint):
     per epoch wall, samples/s, ms per local step, the phase split and the
-    merge kernel's launches, which must be buckets x rounds of the plan."""
+    merge kernel's counts, which must be buckets x rounds of the plan in
+    one launch a round."""
     from kubeml_tpu_torch.data.sharding import plan_epoch
     from kubeml_tpu_torch.models import get_model
-    from kubeml_tpu_torch.ops import fused_merge as fm
     from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
 
     plan = plan_epoch(CIFAR_TRAIN, VIS_N, VIS_K, VIS_B)
     steps, rounds = plan.total_steps, len(plan.rounds)
-    buckets = resnet18_plan().n_buckets
+    lengths = tuple(b.length for b in resnet18_plan().buckets)
+    assert lengths == MERGE_PLANS["resnet18"], lengths
+    buckets = len(lengths)
     rows = []
 
     def run(job_id, epochs, mode, resume_from=""):
@@ -2099,23 +2250,25 @@ def vision_job(torch, card, seed):
 
         def publish(m):
             # the epoch's run (training and its validation) ends here
-            epochs_seen.append((m, fm.fused_merge_kernel.launches))
-            fm.fused_merge_kernel.launches = 0   # ... and the next starts
+            epochs_seen.append((m, merge_count_now()))
+            merge_count_zero()                   # ... and the next starts
 
         job = TrainJob(vision_task(job_id, epochs, device_cache=mode,
                                    resume_from=resume_from),
                        get_model("resnet18")(), cifar_dataset(),
                        device="cuda",
                        callbacks=JobCallbacks(publish_metrics=publish))
-        fm.fused_merge_kernel.launches = 0       # the main path's run starts
+        merge_count_zero()                       # the main path's run starts
         hist = job.train().data
         for e, (m, n) in enumerate(epochs_seen):
             sec = hist.epoch_duration[e]
             ph = {k: sum(v) for k, v in m.phase_times.items()}
-            assert n == buckets * rounds, (n, buckets, rounds)
+            assert n == merge_counts(buckets, rounds), (n, buckets, rounds)
             row = dict(cache=mode, epoch=e + 1, wall_s=sec,
                        samples_per_s=CIFAR_TRAIN / sec,
-                       ms_per_step=1e3 * sec / steps, launches=n,
+                       ms_per_step=1e3 * sec / steps,
+                       launches=n["fused_merge"],
+                       segments=n["merge segments"],
                        loss=hist.train_loss[e], **ph)
             rows.append(row)
             log(card, f"vision job resnet18 device_cache={mode} epoch "
@@ -2127,11 +2280,12 @@ def vision_job(torch, card, seed):
                 f"{CIFAR_TRAIN / sec:.2f} samples/s, {1e3 * sec / steps:.3f} "
                 f"ms per local step; data_wait {ph['data_wait']:.4f} s, "
                 f"dispatch {ph['dispatch']:.4f} s, merge_wait "
-                f"{ph['merge_wait']:.4f} s; fused_merge launches {n} (= "
-                f"{buckets} buckets x {rounds} rounds); peak device memory "
-                f"{m.hbm_peak_bytes / 2**20:.1f} MiB")
+                f"{ph['merge_wait']:.4f} s; fused_merge "
+                f"{n['fused_merge']} launches of {n['merge segments']} "
+                f"segments (= {buckets} buckets x {rounds} rounds); peak "
+                f"device memory {m.hbm_peak_bytes / 2**20:.1f} MiB")
         assert all(np.isfinite(hist.validation_loss)), hist.validation_loss
-        return job, hist, [n for _, n in epochs_seen]
+        return job, hist, [n["fused_merge"] for _, n in epochs_seen]
 
     job, hist, launches = run("vision", VIS_EPOCHS, "auto")
     cache = job._device_cache
@@ -2359,48 +2513,6 @@ def vision_trace(torch, card, seed):
             f"calls: {name[:90]}")
 
 
-def resnet18_merge_row(torch, card, seed, launches):
-    """The fused merge at ResNet-18's plan: every bucket timed like phase
-    9a (CUDA-graph replay, the L2 warm and cold), the plain version, and
-    the bytes bound of the whole merge; with its launches per epoch of
-    phase 11's job."""
-    from kubeml_tpu_torch.ops import fused_merge as fm
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed + 17)
-    lengths = [b.length for b in resnet18_plan().buckets]
-    raw_t = torch.tensor(3.0, device=dev)
-    cnt = raw_t.clamp_min(1.0)
-    ms = cold_ms = plain_ms = 0.0
-    for n in lengths:
-        s = torch.randn(n, device=dev, generator=gen)
-        ref = torch.randn(n, device=dev, generator=gen)
-        got = fm.fused_merge_kernel("avg", s, ref, cnt, raw_t)
-        assert torch.equal(got, fm._apply_plain("avg", s, ref, cnt, raw_t,
-                                                0.0)), n
-        ms += time_ms(torch, lambda: fm.fused_merge_kernel(
-            "avg", s, ref, cnt, raw_t))
-        plain_ms += time_ms(torch, lambda: fm._apply_plain(
-            "avg", s, ref, cnt, raw_t, 0.0))
-        sets = [(torch.randn(n, device=dev, generator=gen),
-                 torch.randn(n, device=dev, generator=gen))
-                for _ in range(max(2, -(-int(COLD_BYTES) // (8 * n))))]
-        cold_ms += time_ms_cold(torch, lambda a, b: fm.fused_merge_kernel(
-            "avg", a, b, cnt, raw_t), sets)
-        del sets
-    row = dict(buckets=len(lengths), elements=sum(lengths),
-               launches_per_epoch=launches, ms=ms, cold_ms=cold_ms,
-               plain_ms=plain_ms, bound_ms=merge_bound(sum(lengths), "avg"),
-               max_abs_err=0.0)
-    log(card, f"fused_merge at ResNet-18's {VIS_BUCKET_MB:g} MB plan: "
-        f"{len(lengths)} buckets, {sum(lengths)} f32 elements; whole merge "
-        f"kernel {ms:.4f} ms (L2 cold {cold_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.5f} ms (bytes), "
-        f"{cold_ms / row['bound_ms']:.2f}x bound L2-cold; launches per "
-        f"epoch {launches}; kernel == plain bit for bit")
-    return row
-
-
 # ----------------------------------------------------------------- phase 12
 CP_RESNET_FN, CP_GPT_FN = "resnet18-cifar", "gpt-mini-tokens"
 CP_GPT_EPOCHS = 2
@@ -2612,7 +2724,6 @@ def control_resnet(torch, card, seed, tmp, dep, client):
 
     from kubeml_tpu_torch.data.sharding import plan_epoch
     from kubeml_tpu_torch.models import get_model
-    from kubeml_tpu_torch.ops import fused_merge as fm
     from kubeml_tpu_torch.train.job import TrainJob
 
     rng = np.random.default_rng(seed + 14)        # phase 11's images
@@ -2648,16 +2759,17 @@ def control_resnet(torch, card, seed, tmp, dep, client):
                      merge_bucket_mb=VIS_BUCKET_MB, device_cache="auto")
     stamps, restore = first_dispatch_probe()
     try:
-        fm.fused_merge_kernel.launches = 0      # the main path's run starts
+        merge_count_zero()                      # the main path's run starts
         t0 = time.perf_counter()
         job_id = client.networks().train(req)
         hist = cp_wait(client, dep, job_id)
         wall = time.perf_counter() - t0
-        launches = fm.fused_merge_kernel.launches
+        counts = merge_count_now()
     finally:
         restore()
         unhook()
-    assert launches == buckets * rounds, (launches, buckets, rounds)
+    assert counts == merge_counts(buckets, rounds), (counts, buckets, rounds)
+    launches = counts["fused_merge"]
     text = urllib.request.urlopen(dep.ps.url + "/metrics").read().decode()
     cleared = f'jobid="{job_id}"' not in text
     assert scraped == [True] and cleared, (scraped, cleared)
@@ -2668,9 +2780,10 @@ def control_resnet(torch, card, seed, tmp, dep, client):
         f"s = {CIFAR_TRAIN / sec:.2f} samples/s, {1e3 * sec / steps:.3f} ms "
         f"per local step; POST /train -> history {wall:.3f} s; train loss "
         f"{hist.data.train_loss[0]:.4f}, accuracy {hist.data.accuracy[0]:.2f} "
-        f"%; fused_merge launches {launches} (= {buckets} buckets x "
-        f"{rounds} rounds); /metrics showed the job's families at its "
-        f"epoch's publish: {scraped[0]}, none after the finish: {cleared}")
+        f"%; fused_merge {launches} launches of {counts['merge segments']} "
+        f"segments (= {buckets} buckets x {rounds} rounds); /metrics "
+        f"showed the job's families at its epoch's publish: {scraped[0]}, "
+        f"none after the finish: {cleared}")
 
     t1 = time.perf_counter()
     direct = TrainJob(vision_task("direct", 1, device_cache="auto"),
@@ -2744,7 +2857,8 @@ def control_gpt(torch, card, seed, tmp, dep, client):
         np.save(paths[-1], arr)
     client.datasets().create("tokens", *paths)
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+               "merge segments": MergeSegments()}
     epochs = []
 
     def zero():
@@ -2772,7 +2886,7 @@ def control_gpt(torch, card, seed, tmp, dep, client):
     for e, counts in enumerate(epochs):
         steps, rounds, evals = _epoch_counts(hist.parallelism[e], JOB_NMAX)
         want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-                "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+                "dQ": layers * steps, **merge_counts(JOB_BUCKETS, rounds)}
         assert counts == want, (e, counts, want)
         sec = hist.epoch_duration[e]
         log(card, f"control gpt-mini through the deployment epoch {e + 1}/"
@@ -2835,8 +2949,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from kubeml_tpu_torch.control.ps import ParameterServer
 from kubeml_tpu_torch.ops import flash_attention as fa, fused_merge as fm
+class Segments:      # the merge's segment count as a `launches` counter
+    launches = property(
+        lambda self: fm.fused_merge_kernel.segments,
+        lambda self, n: setattr(fm.fused_merge_kernel, "segments", n))
 KERNELS = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-           "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+           "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+           "merge segments": Segments()}
 counts, real = sys.argv[1], ParameterServer._publish_metrics
 def publish(self, m):
     real(self, m)
@@ -3087,9 +3206,9 @@ def cli_resnet(torch, card, cli, ref, paths):
     assert hist["train_loss"][-1] < hist["train_loss"][0], hist
     launches = cli.launches(job_id)
     per_epoch = [c["fused_merge"] for c in launches]
-    assert per_epoch == [buckets * rounds] * CLI_EPOCHS, launches
-    assert all(c[k] == 0 for c in launches for k in c
-               if k != "fused_merge"), launches
+    planned = merge_counts(buckets, rounds)
+    assert len(launches) == CLI_EPOCHS and all(
+        c[k] == planned.get(k, 0) for c in launches for k in c), launches
     assert http_json("GET", f"{cli.url}/health/{job_id}")["state"] == \
         "unknown"
 
@@ -3131,7 +3250,8 @@ def cli_resnet(torch, card, cli, ref, paths):
         f"epoch {[round(x, 3) for x in ms]} (epoch 1 in a cold process); "
         f"warm median {warm:.3f} ms against phase 12's "
         f"{ref['ms_per_step']:.3f} ms = {warm / ref['ms_per_step']:.4f}x; "
-        f"fused_merge launches per epoch {per_epoch} (= {buckets} buckets x "
+        f"fused_merge launches per epoch {per_epoch} of "
+        f"{planned['merge segments']} segments each (= {buckets} buckets x "
         f"{rounds} rounds); submit -> history {wall:.3f} s; unknown after "
         f"the finish; `kubeml logs` printed {len(lines)} epoch lines; "
         f"`kubeml trace --out`: {said.strip()!r}; {len(spans)} spans, "
@@ -3177,7 +3297,7 @@ def cli_gpt(card, cli, seed, tmp):
     layers = GPT_CONFIGS["gpt-mini"]["layers"]
     steps, rounds, evals = _epoch_counts(JOB_N0, JOB_N0)
     want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-            "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+            "dQ": layers * steps, **merge_counts(JOB_BUCKETS, rounds)}
     launches = cli.launches(job_id)
     assert launches == [want], (launches, want)
     sec = hist["epoch_duration"][0]
@@ -3651,8 +3771,13 @@ torch.backends.cudnn.allow_tf32 = False
 from kubeml_tpu_torch.ops import flash_attention as fa, fused_merge as fm
 from kubeml_tpu_torch.train import jobserver
 from kubeml_tpu_torch.train.jobserver import JobServer
+class Segments:      # the merge's segment count as a `launches` counter
+    launches = property(
+        lambda self: fm.fused_merge_kernel.segments,
+        lambda self, n: setattr(fm.fused_merge_kernel, "segments", n))
 KERNELS = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-           "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+           "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+           "merge segments": Segments()}
 counts = sys.argv[1]
 hold = os.path.join(os.path.dirname(counts), "hold")
 real = JobServer._publish_metrics
@@ -3798,7 +3923,7 @@ def cl_plan(n, layers):
     static N=n (validation at n workers)."""
     steps, rounds, evals = _epoch_counts(n, n, CL_TRAIN, CL_TEST)
     return {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-            "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+            "dQ": layers * steps, **merge_counts(JOB_BUCKETS, rounds)}
 
 
 def cl_request(epochs, n, tenant, priority=0):
@@ -3885,7 +4010,8 @@ def cluster_run(torch, card, seed, module, direct, tmp, serve):
         f"--cluster-lanes {CL_LANES} --cluster-tenant {CL_TENANTS[0]} "
         f"--cluster-tenant {CL_TENANTS[1]} --control-dir D` (a child on the "
         f"card) printed its controller {ready:.3f} s after spawn")
-    flash = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+    flash = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0,
+             "merge segments": 0}
 
     def add(rows):
         for row in rows:
@@ -4223,7 +4349,8 @@ def dg_kernels():
     from kubeml_tpu_torch.ops import fused_merge as fm
 
     return {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-            "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+            "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+            "merge segments": MergeSegments()}
 
 
 def dg_counts(zero=False):
@@ -4248,7 +4375,7 @@ def dg_epoch(n, subset=DG_SUBSET):
 
 def dg_plan_launches(layers, steps, rounds, evals):
     return {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-            "dQ": layers * steps, "fused_merge": JOB_BUCKETS * rounds}
+            "dQ": layers * steps, **merge_counts(JOB_BUCKETS, rounds)}
 
 
 def dg_add(total, counts):
@@ -4330,7 +4457,8 @@ def dg_in_process(torch, card):
 
     layers = GPT_CONFIGS["gpt-mini"]["layers"]
     plan, steps, rounds, evals = dg_epoch(DG_N)
-    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0,
+             "merge segments": 0}
 
     # (a) a NaN burst on worker 1 at round 2 == its dropout there
     runs = {}
@@ -4398,9 +4526,9 @@ def dg_in_process(torch, card):
     dg_add(total, counts_b)
     log(card, f"degraded (b) all-NaN rounds: NaN on every worker at rounds "
         f"2 and 3: the weights after each equal those before round 2 bit "
-        f"for bit (the fused merge's raw_count=0 select: "
-        f"{2 * JOB_BUCKETS} of its launches); abort_after=2 failed the job "
-        f"after round 3 with the reference's diagnostic (500): "
+        f"for bit (the fused merge's raw_count=0 select over "
+        f"{2 * JOB_BUCKETS} buckets in 2 launches); abort_after=2 failed the "
+        f"job after round 3 with the reference's diagnostic (500): "
         f"{str(err)!r}; wall {wall_b:.3f} s; launches {counts_b} (= the plan "
         f"of rounds 0-3)")
 
@@ -4517,7 +4645,8 @@ def dg_children(torch, card, tmp, arrays):
 def dg_rows(counts, job_id):
     with open(counts) as f:
         rows = [json.loads(line) for line in f]
-    return [{k: r[k] for k in ("forward", "dK/dV", "dQ", "fused_merge")}
+    return [{k: r[k] for k in ("forward", "dK/dV", "dQ", "fused_merge",
+                               "merge segments")}
             for r in rows if r["job"] == job_id]
 
 
@@ -4560,7 +4689,8 @@ def dg_standalone(torch, card, tmp, paths, fn_path, counts):
     from kubeml_tpu_torch.control.client import KubemlClient
     from kubeml_tpu_torch.control.deployment import start_deployment
 
-    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0,
+             "merge segments": 0}
     dep = start_deployment(standalone_jobs=True)
     stopped = []
     n = DG_VICTIM_N
@@ -4654,7 +4784,8 @@ def dg_cluster(torch, card, tmp):
 
     from kubeml_tpu_torch.control.client import KubemlClient
 
-    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0}
+    total = {"forward": 0, "dK/dV": 0, "dQ": 0, "fused_merge": 0,
+             "merge segments": 0}
     sub = os.path.join(tmp, "cluster")
     os.makedirs(sub)
     serve = ClusterServe(sub)
@@ -4840,7 +4971,8 @@ def cost_jobs(torch, card, seed, tmp, module, job_ms):
         paths.append(os.path.join(tmp, f"cost_{name}.npy"))
         np.save(paths[-1], arr)
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+               "merge segments": MergeSegments()}
     req = cp_request(CP_GPT_FN, "tokens", 1, JOB_B, JOB_LR, k=JOB_K,
                      default_parallelism=JOB_N0, static_parallelism=True,
                      merge_bucket_mb=MERGE_CAP_MB)
@@ -4918,7 +5050,7 @@ def cost_jobs(torch, card, seed, tmp, module, job_ms):
         launches = counts
         want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
                 "dQ": layers * steps,
-                "fused_merge": merge["argument_bytes"] * rounds}
+                **merge_counts(merge["argument_bytes"], rounds)}
         assert counts == want, (counts, want)
         assert m.jit_compiles == keys == 1, (m.jit_compiles, keys)
         assert cost_series(expo, "kubeml_jit_compiles_total",
@@ -5242,7 +5374,8 @@ def ct_serve_train(torch, card, seed, tmp):
     # paths: x0 y0 x1 y1 x2 y2 (generations 1-3) xt yt (the test split)
     cfg = GPT_CONFIGS["gpt-mini"]
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+               "merge segments": MergeSegments()}
     t0 = time.perf_counter()
     dep = start_deployment(device=None, serve_slots=8,
                            serve_prefill_chunk=16, serve_kv_dtype="f32",
@@ -5325,7 +5458,7 @@ def ct_check(card, job_id, hist, epochs, appends, rec, client, job):
                                              JOB_TEST)
         want = {"forward": layers * (steps + evals),
                 "dK/dV": layers * steps, "dQ": layers * steps,
-                "fused_merge": JOB_BUCKETS * rounds}
+                **merge_counts(JOB_BUCKETS, rounds)}
         assert counts == want, (gen, counts, want)
         for k, n in counts.items():
             launches[k] += n
@@ -5413,7 +5546,6 @@ def ct_vision(torch, card, seed):
     from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
     from kubeml_tpu_torch.data.registry import DatasetRegistry
     from kubeml_tpu_torch.models import get_model
-    from kubeml_tpu_torch.ops import fused_merge as fm
     from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
 
     rng = np.random.default_rng(seed + 19)
@@ -5435,8 +5567,8 @@ def ct_vision(torch, card, seed):
         return moved
 
     def publish(m):
-        n = fm.fused_merge_kernel.launches
-        fm.fused_merge_kernel.launches = 0
+        n = merge_count_now()
+        merge_count_zero()
         job = holder["job"]
         cache = job._device_cache
         plan = job._loader.plan(VIS_N, VIS_K, VIS_B)
@@ -5466,7 +5598,7 @@ def ct_vision(torch, card, seed):
         holder["job"] = TrainJob(
             task, get_model("resnet18")(), cifar_dataset(), device="cuda",
             callbacks=JobCallbacks(publish_metrics=publish))
-        fm.fused_merge_kernel.launches = 0   # the main path's run starts
+        merge_count_zero()                   # the main path's run starts
         hist = holder["job"].train().data
     finally:
         DeviceDatasetCache.ensure = real_ensure
@@ -5477,7 +5609,8 @@ def ct_vision(torch, card, seed):
         (1, CT_IMAGES, 0), (2, 2 * CT_IMAGES, 0), (2, 2 * CT_IMAGES, 0),
         (3, 2 * CT_IMAGES, CT_IMAGES)], rows
     assert all(r["equal"] for r in rows), "a refreshed slab differs"
-    assert all(r["launches"] == buckets * r["rounds"] for r in rows), rows
+    assert all(r["launches"] == merge_counts(buckets, r["rounds"])
+               for r in rows), rows
     assert len(uploads) == 3, uploads          # first, grow, slide
     assert all(np.isfinite(hist.train_loss)), hist.train_loss
     for e, r in enumerate(rows):
@@ -5486,8 +5619,10 @@ def ct_vision(torch, card, seed):
             f"{r['base']}, {r['steps']} local steps in {r['rounds']} rounds, "
             f"{r['sec']:.4f} s = {1e3 * r['sec'] / r['steps']:.3f} ms per "
             f"local step, train loss {r['loss']:.4f}; slabs == a cold "
-            f"upload's (torch.equal); fused_merge launches {r['launches']} "
-            f"(= {buckets} buckets x {r['rounds']} rounds); jit_compiles "
+            f"upload's (torch.equal); fused_merge "
+            f"{r['launches']['fused_merge']} launches of "
+            f"{r['launches']['merge segments']} segments (= {buckets} "
+            f"buckets x {r['rounds']} rounds); jit_compiles "
             f"{r['jit']}")
     for (sent, sec, stats), what, cold in zip(
             uploads[1:], ("grow (append)", "slide (window)"),
@@ -5502,7 +5637,7 @@ def ct_vision(torch, card, seed):
         f" in the epoch before the slide (same window size, no refresh), "
         f"{1e3 * after['sec'] / after['steps']:.3f} in the epoch after it "
         f"(its incremental upload included)")
-    return sum(r["launches"] for r in rows)
+    return sum(r["launches"]["fused_merge"] for r in rows)
 
 
 # ----------------------------------------------------------------- phase 19
@@ -5925,7 +6060,8 @@ def text_job(torch, card, seed, name):
                            cfg["classes"], B)
     DatasetRegistry().create(f"text-{name}", xtr, ytr, xte, yte)
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+               "merge segments": MergeSegments()}
 
     def zero():
         for fn in kernels.values():
@@ -5956,13 +6092,14 @@ def text_job(torch, card, seed, name):
     layers = getattr(job._engine.module, "layers", 0)
     lengths = [b.length for b in BucketedMerge(
         bucket_mb=TEXT_BUCKET_MB)._plan(job.state)[1].buckets]
+    assert tuple(lengths) == MERGE_PLANS[name], (name, lengths)
     buckets = len(lengths)
     launches, ms = [], []
     for e, (m, counts) in enumerate(epochs):
         steps, rounds, evals = _epoch_counts(N, N, cfg["train"], cfg["test"],
                                              k=K, batch=B)
         want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-                "dQ": layers * steps, "fused_merge": buckets * rounds}
+                "dQ": layers * steps, **merge_counts(buckets, rounds)}
         assert counts == want, (name, e, counts, want)
         launches.append(counts)
         sec = hist.epoch_duration[e]
@@ -5989,14 +6126,13 @@ def text_job(torch, card, seed, name):
 def text_round_check(torch, card, seed, name):
     """One round at the model's published widths in f32 (dropout 0), W
     workers on W lanes merged over the job's 4 MB bucket plan, on the
-    card (its kernels: the fused merge once a bucket, and bert-tiny's
-    flash kernels) and on the CPU (their plain versions): merged
+    card (its kernels: the fused merge once for the buckets, and
+    bert-tiny's flash kernels) and on the CPU (their plain versions): merged
     parameters within the adaptive optimizer's 2 x K x lr (AdamW's or
     Adam's first steps divide each gradient element by its own
     magnitude), 99.5 % within 1e-5."""
     from kubeml_tpu_torch.models.bert import BertModule, BertTiny
     from kubeml_tpu_torch.models.lstm import LSTMClassifier
-    from kubeml_tpu_torch.ops import fused_merge as fm
     from kubeml_tpu_torch.parallel.kavg import KAvgEngine
     from kubeml_tpu_torch.parallel.merge import BucketedMerge
 
@@ -6025,12 +6161,13 @@ def text_round_check(torch, card, seed, name):
         engine = KAvgEngine(model.build(device=dev), model.loss,
                             model.metrics, model.configure_optimizers,
                             n_lanes=W, merge_bucket_mb=TEXT_BUCKET_MB)
-        merges = fm.fused_merge_kernel.launches
+        merge_count_zero()
         out[dev] = engine.train_round({k: v.to(dev, copy=True) for k, v in
                                        start.items()}, batch, *ones, rngs,
                                       cfg["lr"], 0)
-        merges = fm.fused_merge_kernel.launches - merges
-        assert merges == (buckets if dev == "cuda" else 0), (dev, merges)
+        merges = merge_count_now()
+        assert merges == (merge_counts(buckets, 1) if dev == "cuda"
+                          else merge_counts(0, 0)), (dev, merges)
     (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
     np.testing.assert_allclose(card_st.loss_sum, cpu_st.loss_sum, rtol=1e-4)
     diffs = torch.cat([(card_state[n].cpu() - cpu_state[n]).abs().ravel()
@@ -6039,8 +6176,8 @@ def text_round_check(torch, card, seed, name):
     assert float(diffs.max()) <= 2 * K * cfg["lr"], float(diffs.max())
     assert within >= 0.995, within
     log(card, f"text {name} f32 round (W={W} lanes, K={K} B={B} T={T}, "
-        f"{buckets} buckets at {TEXT_BUCKET_MB:g} MB: {buckets} fused merge "
-        f"launches), card (kernels) vs CPU (plain): loss sums "
+        f"{buckets} buckets at {TEXT_BUCKET_MB:g} MB: one fused merge "
+        f"launch), card (kernels) vs CPU (plain): loss sums "
         f"{card_st.loss_sum.tolist()} "
         f"vs {cpu_st.loss_sum.tolist()}, merged params max|diff| "
         f"{float(diffs.max()):.3g} (bound {2 * K * cfg['lr']:g}), "
@@ -6421,11 +6558,12 @@ def phase_moe_vgg(torch, card, seed):
         bound = merge_bound(sum(lengths), "avg")
         log(card, f"moe-vgg fused_merge at {name}'s {MV_BUCKET_MB:g} MB "
             f"plan: {len(lengths)} buckets, {sum(lengths)} f32 elements; "
-            f"whole merge kernel {tot['ms']:.4f} ms (L2 cold "
+            f"one launch a bucket, summed {tot['ms']:.4f} ms (L2 cold "
             f"{tot['cold_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, "
             f"bound {bound:.5f} ms (bytes, 8 B an element), "
-            f"{tot['cold_ms'] / bound:.2f}x bound L2-cold; largest bucket "
-            f"{max(lengths)}; kernel == plain bit for bit at every length")
+            f"{tot['cold_ms'] / bound:.2f}x bound L2-cold (phase 9 (a2) "
+            f"times the grouped launch); largest bucket {max(lengths)}; "
+            f"kernel == plain bit for bit at every length")
     moe_refusal(torch, card)
     log(card, f"moe-vgg phase: {time.perf_counter() - t0:.3f} s")
     return out
@@ -6445,7 +6583,8 @@ def mv_job(torch, card, name, dataset, dataset_name, B, K, N, lr, epochs,
     from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
 
     kernels = {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
-               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel}
+               "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+               "merge segments": MergeSegments()}
 
     def zero():
         for fn in kernels.values():
@@ -6480,6 +6619,7 @@ def mv_job(torch, card, name, dataset, dataset_name, B, K, N, lr, epochs,
     layers = getattr(module, "layers", 0)      # vgg11 has no attention
     lengths = [b.length for b in BucketedMerge(
         bucket_mb=MV_BUCKET_MB)._plan(job.state)[1].buckets]
+    assert tuple(lengths) == MERGE_PLANS[name], (name, lengths)
     tokens = 0                                 # non-pad tokens an epoch
     if layers:
         tokens = int((np.asarray(job._handle.train_arrays()[0]) != 0).sum())
@@ -6488,7 +6628,7 @@ def mv_job(torch, card, name, dataset, dataset_name, B, K, N, lr, epochs,
         steps, rounds, evals = _epoch_counts(N, N, n_train, n_test, k=K,
                                              batch=B)
         want = {"forward": layers * (steps + evals), "dK/dV": layers * steps,
-                "dQ": layers * steps, "fused_merge": len(lengths) * rounds}
+                "dQ": layers * steps, **merge_counts(len(lengths), rounds)}
         assert counts == want, (name, e, counts, want)
         launches.append(counts)
         sec = hist.epoch_duration[e]
@@ -6582,8 +6722,8 @@ def vgg_trace(torch, card, seed, job):
 def moe_vgg_check(torch, card, seed):
     """(c) the card against the CPU: one f32 round of a gpt-moe-mini at
     gpt-nano's widths with 4 experts (dropout 0, AdamW, W=2 lanes through
-    its 4 MB plan: the flash kernels in f32, one fused merge launch a
-    bucket) within 2 x K x lr, 99.5 % of the weights within 1e-5 (AdamW's
+    its 4 MB plan: the flash kernels in f32, one fused merge launch for
+    its buckets) within 2 x K x lr, 99.5 % of the weights within 1e-5 (AdamW's
     first steps move every weight by about lr whatever the gradient, so
     the share is what catches a wrong kernel); a hidden-64 vgg11 (f32,
     dropout 0) forward within 1e-4 and one round (SGD with momentum)
@@ -6592,7 +6732,6 @@ def moe_vgg_check(torch, card, seed):
     from kubeml_tpu_torch.models.gpt import GPTModule, GPTMoEMini
     from kubeml_tpu_torch.models.vgg import VGG11, VGGModule
     from kubeml_tpu_torch.ops import flash_attention as fa
-    from kubeml_tpu_torch.ops import fused_merge as fm
     from kubeml_tpu_torch.parallel.kavg import KAvgEngine
     from kubeml_tpu_torch.parallel.merge import BucketedMerge
 
@@ -6619,14 +6758,15 @@ def moe_vgg_check(torch, card, seed):
         engine = KAvgEngine(model.build(device=dev), model.loss,
                             model.metrics, model.configure_optimizers,
                             n_lanes=W, merge_bucket_mb=MV_BUCKET_MB)
-        before = fa.fa_fwd_kernel.launches, fm.fused_merge_kernel.launches
+        before = fa.fa_fwd_kernel.launches
+        merge_count_zero()
         out[dev] = engine.train_round({k: v.to(dev, copy=True) for k, v in
                                        start.items()}, *args, MOE_LR, 0)
-        flash = fa.fa_fwd_kernel.launches - before[0]
-        merges = fm.fused_merge_kernel.launches - before[1]
+        flash = fa.fa_fwd_kernel.launches - before
+        merges = merge_count_now()
         steps = int((args[2] * args[3][:, None]).sum())
-        want = (MOE_TINY["layers"] * steps, buckets) if dev == "cuda" \
-            else (0, 0)
+        want = ((MOE_TINY["layers"] * steps, merge_counts(buckets, 1))
+                if dev == "cuda" else (0, merge_counts(0, 0)))
         assert (flash, merges) == want, (dev, flash, merges, want)
     (card_state, card_st), (cpu_state, cpu_st) = out["cuda"], out["cpu"]
     np.testing.assert_allclose(card_st.loss_sum, cpu_st.loss_sum, rtol=1e-4)
@@ -6638,7 +6778,8 @@ def moe_vgg_check(torch, card, seed):
     log(card, f"moe-vgg gpt-moe-mini f32 round at gpt-nano's widths with "
         f"{MOE_TINY['n_experts']} experts (W={W} lanes, K={K} B={c['B']} "
         f"T={c['T']}: {MOE_TINY['layers']} x {steps} flash forwards, "
-        f"{buckets} fused merge launches), card (kernels) vs CPU (plain): "
+        f"{buckets} buckets in one fused merge launch), card (kernels) vs "
+        f"CPU (plain): "
         f"loss sums {card_st.loss_sum.tolist()} vs "
         f"{cpu_st.loss_sum.tolist()}, merged params max|diff| "
         f"{float(diffs.max()):.3g} (bound {2 * K * MOE_LR:g}), "
@@ -6697,31 +6838,102 @@ def moe_refusal(torch, card):
         f"raised ValueError({MOE_DECODE_REFUSAL!r}), the reference's")
 
 
+def phase_merge_only(torch, card, seed) -> dict:
+    """--merge-only: what two trees of the port are compared by, through
+    calls every tree with the fused merge has: (a) the one-segment
+    launch at every bucket length of every model's plan (avg, summed per
+    plan); (b) lane_merge_cost."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+    lengths = [n for plan in MERGE_PLANS.values() for n in plan]
+    rows = merge_kernel_rows(torch, card, gen, lengths, cold=lengths,
+                             timed=("avg",))
+    out = {"per_bucket": {name: {k: sum(rows[n]["avg"][k] for n in plan)
+                                 for k in ("ms", "cold_ms", "bound_ms")}
+                          for name, plan in MERGE_PLANS.items()}}
+    for name, row in out["per_bucket"].items():
+        log(card, f"fused_merge one launch a bucket, {name}'s plan summed: "
+            f"{row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), bound "
+            f"{row['bound_ms']:.5f} ms")
+    out["lane_merge"] = lane_merge_cost(torch, card, seed)
+    return out
+
+
+def lane_merge_cost(torch, card, seed, calls: int = 50) -> dict:
+    """--merge-only (b): one BucketedMerge(4 MB).lane_merge over the
+    variable tree of gpt-mini, ResNet-18, gpt-moe-mini and vgg11 built
+    for bf16 (f32 leaves, random), with random f32 contributions of
+    MERGE_LANES live lanes:
+    its host microseconds (host_us over ``calls``) and the device memory
+    it takes above what it was given, at its peak and in the merged tree
+    it returns (torch.cuda.max_memory_allocated and memory_allocated less
+    the allocation before the call). Rows by model."""
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import module_state
+    from kubeml_tpu_torch.parallel.merge import BucketedMerge
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    raw = torch.tensor(float(MERGE_LANES), device=dev)
+    alive = torch.ones(MERGE_LANES, dtype=torch.bool, device=dev)
+    merger = BucketedMerge(bucket_mb=MERGE_CAP_MB)
+    rows = {}
+    for name in ("gpt-mini", "resnet18", "gpt-moe-mini", "vgg11"):
+        ref = module_state(get_model(name)().build(dtype=torch.bfloat16,
+                                                   device=dev))
+        contrib = {n: torch.randn((MERGE_LANES, *v.shape), device=dev,
+                                  generator=gen) for n, v in ref.items()}
+        args = (contrib, ref, raw, raw.clamp_min(1.0), alive)
+        host = host_us(torch, lambda: merger.lane_merge(*args), calls)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        merged, _ = merger.lane_merge(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        held = torch.cuda.memory_allocated() - before
+        del merged, args, contrib, ref
+        rows[name] = dict(buckets=len(MERGE_PLANS[name]), host_us=host,
+                          peak_mib=peak / 2**20, held_mib=held / 2**20)
+        log(card, f"lane_merge {name} ({len(MERGE_PLANS[name])} buckets at "
+            f"{MERGE_CAP_MB:g} MB, f32 leaves, {MERGE_LANES} lanes): host "
+            f"{host:.1f} us (median of {calls}); device memory above its "
+            f"inputs {peak / 2**20:.1f} MiB at the peak, "
+            f"{held / 2**20:.1f} MiB held by the merged tree")
+    return rows
+
+
 def merge_entry(rows, launches):
     """The kernels-line entry of the fused merge: one whole gpt-mini merge
-    (the sum over its five buckets) in avg mode, the sgd check under it."""
+    in one grouped launch, avg mode (every model's plan under "plans"),
+    with the launches and segments of the ef_int8 run; the per-length
+    rows under "buckets" and "ragged", and the sgd check under "sgd"
+    (summed over the buckets)."""
+    by_len, plan = rows["lengths"], rows["plans"]["gpt-mini"]
+
     def total(mode, key):
-        return sum(rows[n][mode][key] for n in MERGE_BUCKETS)
+        return sum(by_len[n][mode][key] for n in MERGE_BUCKETS)
 
     return {
         "name": "fused_merge (avg)",
         "route": "cuda",
         "source": "kubeml_tpu_torch/ops/csrc/fused_merge.cu",
         "replaces": "kubeml_tpu/ops/pallas/fused_merge.py:51",
-        "launches": launches["ef_int8"],
+        "launches": launches["ef_int8"]["fused_merge"],
+        "segments": launches["ef_int8"]["merge segments"],
         "launches_by_strategy": launches,
         "shape": (f"gpt-mini's {len(MERGE_BUCKETS)} buckets at "
                   f"{MERGE_CAP_MB:g} MB, {sum(MERGE_BUCKETS)} f32 elements "
-                  "(one whole merge; times summed over the buckets)"),
+                  "(one whole merge in one grouped launch)"),
         "max_abs_err": 0.0,
-        "ms": total("avg", "ms"),
-        "cold_ms": total("avg", "cold_ms"),
-        "plain_ms": total("avg", "plain_ms"),
-        "bound_ms": total("avg", "bound_ms"),
+        "ms": plan["ms"],
+        "cold_ms": plan["cold_ms"],
+        "plain_ms": plan["plain_ms"],
+        "bound_ms": plan["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "buckets": [{"n": n, **rows[n]["avg"]} for n in MERGE_BUCKETS],
-        "ragged": [{"n": n, **rows[n]["avg"]} for n in MERGE_RAGGED],
+        "plans": rows["plans"],
+        "buckets": [{"n": n, **by_len[n]["avg"]} for n in MERGE_BUCKETS],
+        "ragged": [{"n": n, **by_len[n]["avg"]} for n in MERGE_RAGGED],
         "sgd": {"max_abs_err": 0.0, "ms": total("sgd", "ms"),
                 "cold_ms": total("sgd", "cold_ms"),
                 "plain_ms": total("sgd", "plain_ms"),
@@ -6782,14 +6994,13 @@ def run(torch, seed) -> list:
     timed(8, phase_train_trace, torch, card, seed)
 
     merge_rows = timed(9, phase_merge_kernel, torch, card, seed)
-    merge_launches, engines = timed(9, phase_merge_train, torch, card, seed)
+    merge_launches, engines = timed(9, phase_merge_train, torch, card,
+                                    seed)
     timed(9, phase_merge_check, torch, card, seed)
     timed(9, phase_merge_trace, torch, card, seed, engines)
     del engines
     job_launches, job_ms = timed(10, phase_job, torch, card, seed, engine_ms)
     vision_launches = timed(11, phase_vision, torch, card, seed)
-    vision_merge = timed(11, resnet18_merge_row, torch, card, seed,
-                         vision_launches)
     cp_resnet, cp_gpt, cli_ref = timed(12, phase_control, torch, card, seed)
     cli = timed(13, phase_cli, torch, card, seed, cli_ref)
     del cli_ref
@@ -6902,7 +7113,8 @@ def run(torch, seed) -> list:
                 moe_vgg_buckets={name: [{"n": n, **mv[name]["merge"][n]["avg"]}
                                         for n in mv[name]["bucket_lengths"]]
                                  for name in MV_MODELS},
-                resnet18=vision_merge)], card
+                resnet18=dict(merge_rows["plans"]["resnet18"],
+                              launches_per_epoch=vision_launches))], card
 
 
 def main(argv=None) -> int:
@@ -6963,6 +7175,20 @@ def main(argv=None) -> int:
                          "(gpt-moe-mini and vgg11 trained on the card, "
                          "the fused merge at their plans), printing its "
                          "launches as one JSON line and no result line")
+    ap.add_argument("--merge-only", action="store_true",
+                    help="build the fused merge and time, through calls "
+                         "every tree of the port has, the one-segment "
+                         "launch at every bucket length of every model's "
+                         "plan and one lane_merge's host time and device "
+                         "memory at four models' plans, printing the rows "
+                         "as one JSON line and no result line (to compare "
+                         "two trees' merges in one run, as --flash-only)")
+    ap.add_argument("--step-only", action="store_true",
+                    help="build the kernels and run phases 3 (bf16 pages) "
+                         "and 7 alone, printing phase 3's tokens/s and "
+                         "phase 7's ms per local step as one JSON line and "
+                         "no result line (to time two trees' model code in "
+                         "one run)")
     ap.add_argument("--flash-only", action="store_true",
                     help="build the kernels and run phase 6 alone, then "
                          "print its rows as one JSON line and no result "
@@ -7079,6 +7305,21 @@ def main(argv=None) -> int:
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])
             phase_vision(torch, card, args.seed, job_only=True)
+            return 0
+        if args.merge_only:
+            card = start(torch, ["fused_merge"])
+            print(json.dumps({"card": card, "merge": phase_merge_only(
+                torch, card, args.seed)}))
+            return 0
+        if args.step_only:
+            card = start(torch)
+            module = build_gpt(torch, PS_MODEL, args.seed, torch.bfloat16,
+                               "cuda")
+            serve = phase_serve(torch, card, args.seed, module, "f32")
+            _, engine_ms = phase_train(torch, card, args.seed)
+            print(json.dumps({"card": card, "tokens_per_s":
+                              serve["tokens_per_s"], "ms_per_step":
+                              engine_ms}))
             return 0
         if args.flash_only:
             card = start(torch, ["flash_attention"])

@@ -294,6 +294,13 @@ def _layer_norm(x: torch.Tensor, w: torch.Tensor,
     return (x - mean) * mul + b
 
 
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """flax Dense/DenseGeneral in the compute dtype: the product rounded
+    to that dtype, then the bias added and rounded again. F.linear's
+    fused bias rounds once, which in bf16 differs from the reference."""
+    return F.linear(x, w) + b
+
+
 def _block(lp: dict, h: torch.Tensor,
            attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                             torch.Tensor],
@@ -314,10 +321,10 @@ def _block(lp: dict, h: torch.Tensor,
     dt = lp["q"][0].dtype
     H = lp["heads"]
     x = _layer_norm(h, *lp["ln0"]).to(dt)
-    q, k, v = (F.linear(x, *lp[n]).unflatten(-1, (H, -1))
+    q, k, v = (_dense(x, *lp[n]).unflatten(-1, (H, -1))
                for n in ("q", "k", "v"))
     attn = attend(q, k, v)
-    h = h + drop(F.linear(attn.flatten(-2), *lp["out"]))
+    h = h + drop(_dense(attn.flatten(-2), *lp["out"]))
     if "moe" in lp:
         x = _layer_norm(h, *lp["ln1"])
         y, a = moe_apply(lp["moe"], x.flatten(0, 1), k=MOE_K,
@@ -326,8 +333,8 @@ def _block(lp: dict, h: torch.Tensor,
         aux.append(a)
         return h + drop(y.view_as(x))
     x = _layer_norm(h, *lp["ln1"]).to(dt)
-    x = F.gelu(F.linear(x, *lp["fc0"]), approximate="tanh")
-    return h + drop(F.linear(x, *lp["fc1"]))
+    x = F.gelu(_dense(x, *lp["fc0"]), approximate="tanh")
+    return h + drop(_dense(x, *lp["fc1"]))
 
 
 def _lm_head(p: dict, h: torch.Tensor) -> torch.Tensor:

@@ -214,3 +214,93 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _integer_valued(rng, shape):
+    return rng.integers(-8, 9, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("form", ["Dense", "DenseGeneral-heads",
+                                  "DenseGeneral-out"])
+def test_bf16_projection_rounds_as_flax_dense(form):
+    """The GPT block's bf16 projection (gpt._dense) equals flax's
+    Dense/DenseGeneral(dtype=bf16) bit for bit: integer-valued x and w
+    make every product and sum exact, so what is left is where the bias
+    is rounded in (after the product is rounded to bf16). F.linear's fused
+    bias rounds once and fails the same comparison."""
+    import flax.linen as nn
+    import torch.nn.functional as F
+
+    from kubeml_tpu_torch.models.gpt import _dense
+
+    rng = np.random.default_rng(11)
+    H, D, n_in = 4, 10, 48
+    if form == "Dense":
+        layer, x = nn.Dense(40, dtype=jnp.bfloat16), _integer_valued(
+            rng, (64, n_in))
+        kernel, bias = _integer_valued(rng, (n_in, 40)), rng.standard_normal(
+            40).astype(np.float32)
+        w, b, flat_x = kernel.T, bias, x
+    elif form == "DenseGeneral-heads":
+        layer, x = nn.DenseGeneral((H, D), dtype=jnp.bfloat16), \
+            _integer_valued(rng, (64, n_in))
+        kernel = _integer_valued(rng, (n_in, H, D))
+        bias = rng.standard_normal((H, D)).astype(np.float32)
+        w, b, flat_x = kernel.reshape(n_in, H * D).T, bias.reshape(-1), x
+    else:
+        layer = nn.DenseGeneral(n_in, axis=(-2, -1), dtype=jnp.bfloat16)
+        x = _integer_valued(rng, (64, H, D))
+        kernel = _integer_valued(rng, (H, D, n_in))
+        bias = rng.standard_normal(n_in).astype(np.float32)
+        w, b, flat_x = kernel.reshape(H * D, n_in).T, bias, x.reshape(64, -1)
+    want = np.asarray(layer.apply(
+        {"params": {"kernel": kernel, "bias": bias}},
+        jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32)).reshape(64, -1)
+    bf = [torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+          for a in (flat_x, w, b)]
+    got = _dense(*bf).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    fused = F.linear(*bf).float().numpy()
+    assert (fused != want).any(), "the fused bias would pass too"
+
+
+def test_block_runs_every_projection_through_dense(monkeypatch):
+    """A dense block's six projections (q, k, v, out, fc0, fc1) all go
+    through _dense, so BERT's blocks and the paged programs, which share
+    _block, round as flax does."""
+    from kubeml_tpu_torch.models import gpt
+
+    _, tm, _ = _models()
+    calls = []
+    real = gpt._dense
+
+    def spy(x, w, b):
+        calls.append(tuple(w.shape))
+        return real(x, w, b)
+
+    monkeypatch.setattr(gpt, "_dense", spy)
+    lp = gpt.compute_params(tm)["layers"][0]
+    h = torch.randn(2, 5, NANO["hidden"])
+    gpt._block(lp, h, lambda q, k, v: v)
+    hd, ffn = NANO["hidden"], NANO["ffn"]
+    assert calls == [(hd, hd)] * 4 + [(ffn, hd), (hd, ffn)], calls
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_dense_gpt_bf16_logits_gap(seed):
+    """The dense GPT's bf16 logits at the MoE tests' tiny widths come
+    within 0.04 of the reference's (tokens with a padded tail and interior
+    pads, eval). What is left after the bias rounds as flax's does is the
+    order of bf16 products' sums in the two frameworks."""
+    from test_torch_moe import _logits_both, moe_params_dense, tokens
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        (want, _), (_, got, _) = _logits_both(
+            moe_params_dense(seed), tokens(seed), "bf16", False,
+            n_experts=0)
+    finally:
+        torch.set_num_threads(threads)
+    gap = np.abs(got.detach().numpy() - want).max()
+    assert gap <= 0.04, gap

@@ -7,6 +7,11 @@ Groups, each with its tolerance:
     kernel in interpret mode: avg mode and the all-dropped guard EXACTLY;
     sgd mode within rtol 2e-7 / atol 1e-8, the reference's own tolerance
     (XLA on the CPU may contract ``ref - lr * avg`` into an FMA);
+  - the grouped ``fused_merge_apply`` over a table of buckets (empty,
+    ragged, one-element, more than one launch takes) against the plain
+    version and the reference's lax path, pair by pair, EXACTLY; and
+    ``lane_merge`` with one grouped apply against the per-bucket merge,
+    bit for bit, at the 4 MB plans of gpt-nano, ResNet-18 and vgg11;
   - bucket planner, leaf order and comm proxy: EXACTLY equal to the
     reference's (pure counters), gpt-nano and gpt-mini;
   - strategy parity at D = 2 lanes: the reference's ``lane_merge`` under
@@ -111,6 +116,168 @@ def test_fused_merge_routes_by_device():
     meta = torch.empty(5, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fm.fused_avg_select(meta, meta, one, one)
+
+
+# Grouped tables: an empty segment, ragged lengths, a one-element one, and
+# (the second) more segments than one launch takes.
+GROUP_TABLES = [(0, 7, 1, 5000, 4096, 4099, 12289),
+                tuple(np.random.default_rng(70).integers(0, 300, 70))]
+
+
+def _group_pairs(lengths, seed, nan=True):
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for n in lengths:
+        s = (rng.standard_normal(n) * 7).astype(np.float32)
+        ref = rng.standard_normal(n).astype(np.float32)
+        if nan and n:
+            s[n // 2] = np.nan          # the guard path must not look at s
+        pairs.append((s, ref))
+    return pairs
+
+
+@pytest.mark.parametrize("table", range(len(GROUP_TABLES)),
+                         ids=["ragged", "past-max-segments"])
+def test_fused_merge_apply_matches_plain_and_reference(table):
+    """fused_merge_apply on CPU tensors over a round's table equals
+    _apply_plain pair by pair and the reference's fused_avg_select /
+    fused_sgd_select (lax path) bit for bit: both modes, raw_count 3 and 0
+    with NaN in s, each output fresh, in order."""
+    import jax.numpy as jnp
+
+    from kubeml_tpu.ops.pallas import fused_merge as ref_fm
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    lengths = GROUP_TABLES[table]
+    assert table == 0 or len(lengths) > fm.MAX_SEGMENTS
+    pairs = _group_pairs(lengths, seed=table)
+    t_pairs = [(torch.from_numpy(s), torch.from_numpy(r)) for s, r in pairs]
+    before = (fm.fused_merge_kernel.launches, fm.fused_merge_kernel.segments)
+    for raw in (3.0, 0.0):
+        cnt = max(raw, 1.0)
+        t_c, t_raw = torch.tensor(cnt), torch.tensor(raw)
+        for mode, lr in (("avg", 0.0), ("sgd", 0.05)):
+            got = fm.fused_merge_apply(mode, t_pairs, t_c, t_raw, lr)
+            assert len(got) == len(pairs)
+            for (s, r), (ts, tr), out in zip(pairs, t_pairs, got):
+                assert out.shape == ts.shape and out.dtype == torch.float32
+                assert out.numel() == 0 or out.data_ptr() != tr.data_ptr()
+                want = fm._apply_plain(mode, ts, tr, t_c, t_raw, lr)
+                assert torch.equal(out.isnan(), want.isnan())
+                assert torch.equal(out.nan_to_num(), want.nan_to_num())
+                j_args = (jnp.asarray(s), jnp.asarray(r), jnp.float32(cnt),
+                          jnp.float32(raw))
+                ref_out = (ref_fm.fused_avg_select(*j_args, fused=False)
+                           if mode == "avg" else ref_fm.fused_sgd_select(
+                               *j_args, lr, fused=False))
+                np.testing.assert_array_equal(out.numpy(),
+                                              np.asarray(ref_out))
+                if raw == 0:
+                    np.testing.assert_array_equal(out.numpy(), r)
+    assert (fm.fused_merge_kernel.launches,
+            fm.fused_merge_kernel.segments) == before   # CPU: no launch
+
+
+def test_fused_merge_apply_refuses_what_the_kernel_does_not_take():
+    """Mismatched lengths, a non-f32 operand, buckets on two devices, a
+    count that is not 0-d and an empty table raise; nothing runs."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    one = torch.tensor(1.0)
+    ok = (torch.ones(8), torch.zeros(8))
+    with pytest.raises(ValueError, match="one length"):
+        fm.fused_merge_apply("avg", [ok, (torch.ones(8), torch.zeros(7))],
+                             one, one)
+    for bad in ((torch.ones(8, dtype=torch.float64), torch.zeros(8)),
+                (torch.ones(8), torch.zeros(8, dtype=torch.bfloat16))):
+        with pytest.raises(TypeError, match="must be f32"):
+            fm.fused_merge_apply("avg", [ok, bad], one, one)
+    with pytest.raises(TypeError, match="must be f32"):
+        fm.fused_merge_apply("avg", [ok], one.double(), one)
+    meta = torch.empty(8, device="meta")
+    for pairs in ([ok, (meta, meta)], [(torch.ones(8), meta)]):
+        with pytest.raises(ValueError, match="lives on|one device"):
+            fm.fused_merge_apply("avg", pairs, one, one)
+    with pytest.raises(ValueError, match="0-d"):
+        fm.fused_merge_apply("avg", [ok], torch.ones(1), one)
+    with pytest.raises(ValueError, match="at least one"):
+        fm.fused_merge_apply("avg", [], one, one)
+
+
+def _per_bucket_lane_merge(strategy, contrib, ref, raw_count, count,
+                           lane_alive=None, residual=None):
+    """The bucketed merge as it ran before the round's buckets shared one
+    fused merge: reduce, apply and split one bucket at a time."""
+    from kubeml_tpu_torch.ops.fused_merge import fused_avg_select
+
+    names, plan = strategy._plan(ref)
+    merged, new_resid = {}, {}
+    for bi, bucket in enumerate(plan.buckets):
+        members = [names[i] for i in bucket.indices]
+        lanes = contrib[members[0]].shape[0]
+        flat_c = strategy._flat([contrib[n].reshape(lanes, -1)
+                                 for n in members])
+        ref_f32 = strategy._flat([ref[n].reshape(-1) for n in members])
+        r_in = (residual[f"b{bi}"]
+                if strategy.needs_residual and bucket.compressible else None)
+        s, r_out = strategy._reduce_bucket(flat_c, bucket, lane_alive, r_in)
+        if r_out is not None:
+            new_resid[f"b{bi}"] = r_out
+        m = fused_avg_select(s, ref_f32, count, raw_count)
+        off = 0
+        for n, size in zip(members, bucket.sizes):
+            merged[n] = m[off:off + size].reshape(ref[n].shape).to(
+                ref[n].dtype)
+            off += size
+    return merged, new_resid
+
+
+def _model_state(name):
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import module_state
+
+    model = get_model(name)()
+    if name == "vgg11":
+        module = model.init_module(
+            {"x": np.zeros((1, 32, 32, 3), np.float32)},
+            torch.Generator().manual_seed(0), "cpu")
+    else:
+        module = model.build(dtype=torch.float32, device="cpu")
+    return {k: v.detach().float() for k, v in module_state(module).items()}
+
+
+@pytest.mark.parametrize("name,compress", [
+    ("gpt-nano", "none"), ("gpt-nano", "bf16"), ("gpt-nano", "int8"),
+    ("resnet18", "none"), ("vgg11", "none")])
+def test_lane_merge_one_apply_equals_per_bucket(name, compress):
+    """lane_merge with every bucket in one fused_merge_apply gives, at the
+    model's 4 MB plan, the merged state and residuals of the per-bucket
+    merge bit for bit (two lanes, one of them dead in the EF rounds;
+    raw_count 3 and 0)."""
+    from kubeml_tpu_torch.parallel.merge import make_strategy
+
+    torch.manual_seed(0)
+    ref = _model_state(name)
+    contrib = {k: torch.randn(LANES, *v.shape) for k, v in ref.items()}
+    strategy = make_strategy(bucket_mb=4.0, compress=compress)
+    alive = torch.tensor([True, False])
+    residual = ({k: torch.randn(LANES * n)
+                 for k, n in strategy.residual_sizes(ref).items()}
+                if strategy.needs_residual else None)
+    for raw in (3.0, 0.0):
+        raw_t = torch.tensor(raw)
+        cnt = raw_t.clamp_min(1.0)
+        got, g_res = strategy.lane_merge(contrib, ref, raw_t, cnt, alive,
+                                         residual)
+        want, w_res = _per_bucket_lane_merge(strategy, contrib, ref, raw_t,
+                                             cnt, alive, residual)
+        assert set(got) == set(ref)
+        for k in ref:
+            assert torch.equal(got[k], want[k]), k
+        if residual is not None:
+            assert set(g_res) == set(w_res) == set(residual)
+            for k in residual:
+                assert torch.equal(g_res[k], w_res[k]), k
 
 
 # ----------------------------------------------- planner, order and proxy
@@ -771,3 +938,46 @@ def test_fused_merge_kernel_equals_plain_on_card(cuda_device):
                         and torch.equal(got.nan_to_num(), want.nan_to_num()))
                     if raw == 0:
                         assert torch.equal(got, r_)
+
+
+@pytest.mark.gpu
+def test_grouped_fused_merge_equals_plain_on_card(cuda_device):
+    """One grouped launch per MAX_SEGMENTS buckets against the plain
+    version, bit for bit: the CPU tests' tables plus a table of unaligned
+    views (the register path) beside aligned ones, both modes, raw_count 3
+    and 0 (s holding NaN), the outputs at 16-byte-aligned offsets of one
+    buffer; launches and segments counted."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    base_s = torch.randn(40000, device=cuda_device, generator=gen) * 7
+    base_r = torch.randn(40000, device=cuda_device, generator=gen)
+    base_s[::997] = float("nan")
+    unaligned = [(base_s[1:8194], base_r[1:8194]),
+                 (base_s[9000:9001], base_r[9000:9001]),
+                 (base_s[10000:30000], base_r[10000:30000]),
+                 (base_s[30001:39999], base_r[30002:40000])]
+    tables = [[(torch.from_numpy(s).to(cuda_device),
+                torch.from_numpy(r).to(cuda_device))
+               for s, r in _group_pairs(t, seed=i)]
+              for i, t in enumerate(GROUP_TABLES)] + [unaligned]
+    for pairs in tables:
+        busy = sum(1 for s, _ in pairs if s.numel())
+        for raw in (3.0, 0.0):
+            raw_t = torch.tensor(raw, device=cuda_device)
+            cnt = raw_t.clamp_min(1.0)
+            for mode, lr in (("avg", 0.0), ("sgd", 0.05)):
+                before = (fm.fused_merge_kernel.launches,
+                          fm.fused_merge_kernel.segments)
+                got = fm.fused_merge_apply(mode, pairs, cnt, raw_t, lr)
+                torch.cuda.synchronize()
+                assert (fm.fused_merge_kernel.launches - before[0],
+                        fm.fused_merge_kernel.segments - before[1]) == (
+                    -(-busy // fm.MAX_SEGMENTS), busy)
+                for (s, r), out in zip(pairs, got):
+                    assert out.data_ptr() % 16 == 0
+                    want = fm._apply_plain(mode, s, r, cnt, raw_t, lr)
+                    assert torch.equal(out.isnan(), want.isnan())
+                    assert torch.equal(out.nan_to_num(), want.nan_to_num())
+                    if raw == 0:
+                        assert torch.equal(out, r)
