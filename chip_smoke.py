@@ -382,7 +382,7 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
  20. text     the text classifiers (bench_text.py's BASELINE configs 5
               and 4 at their published widths): (a) bert-tiny (vocab
               30522, hidden 128, 2 layers, 2 heads of 64, dropout 0.1,
-              AdamW) as a TrainJob over a registry dataset of 8192 + 1024
+              AdamW) as a TrainJob over a registry dataset of 4096 + 1024
               band-structured int32 sequences (T=64; ragged pad tails,
               interior pads, one row in 32 all padding) at B=32, K=16,
               N=4, 2 epochs from the device cache: per epoch the forward
@@ -441,6 +441,44 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               plans, each whole merge against its bytes bound (8 B an
               element). (e) a DecodeEngine over gpt-moe-mini on
               the card raises the reference's refusal.
+ 22. syncdp   the SyncDP engine (parallel/syncdp.py) over 2 lanes:
+              (b) gpt-mini at its published widths, bf16, dropout 0.1,
+              2 dispatches of K=4 global steps of G = W x B = 2 x 8
+              sequences of T=512 (phase 7's runs, half ending in padding,
+              worker 1's step 2 masked so lane 1 is dead there), reflowed
+              as the job does, on the implicit path and under the
+              bucketed (4 MB), ef_bf16 and ef_int8 merges: counts zeroed
+              just before and read just after each dispatch; the flash
+              kernels launch layers x real global steps (x lanes on the
+              explicit path, every lane of a real step running), the
+              fused merge one launch of 5 segments a step under the
+              explicit merges, none on the implicit path; no step
+              skipped; ms per global step. (a) card vs CPU: gpt-mini at
+              its widths in f32 (dropout 0), 2 dispatches of each path
+              of G = 2 x 1 sequences of T=512 (cut for the CPU's run)
+              on the card and on the CPU (plain versions): weights
+              within 2 x steps x lr, 99.5 % within 1e-5. (a2) #2-#4 in
+              bf16 at the path's shapes, the implicit global batch
+              [16, 512] and the explicit lane [8, 512] (H=4, D=64,
+              causal, a dispatch's keep-mask): each against its plain
+              version within the flash tolerance, timed beside the
+              plain version, SDPA and the bound. (c) #5 at the SyncDP
+              call (avg mode, count 1, a zero ref, gpt-mini's 5 buckets
+              in one launch): bit for bit against the plain version at
+              raw_count 2 and 0; timed L2-warm and L2-cold against the
+              plain version and the bytes bound.
+              (d) phase 16's weighted gpt-mini under ef_bf16: a FaultPlan
+              nan event in worker 1 of a round skips every step of the
+              dispatch, leaving parameters, Adam's moments and step
+              count bit for bit as before it and the EF residuals zero.
+              (e) TrainJob(gpt-mini, engine='syncdp',
+              merge_compress='bf16', N=2, K=4, B=8) for 2 epochs over
+              512 + 128 windows from the replicated device cache:
+              launches per epoch against the plan (eval slots on the
+              forward), ms per global step, samples/s, guard readbacks
+              per step, one dispatch profiled (idle share, DtoH copies
+              per step), and the kavg job over the same data for one
+              epoch (ms per local step).
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -475,7 +513,12 @@ rows at each bucket length of both text models' plans); every entry
 carries "moe_vgg_launches", phase 21's: 0 for the paged kernel,
 gpt-moe-mini's per epoch for the flash kernels, both models' per epoch
 for the merge, which also carries "moe_vgg_buckets" (its rows at each
-bucket length of both models' plans); the merge's
+bucket length of both models' plans); every entry carries
+"syncdp_launches", phase 22's (0 for the paged kernel; per gradient path
+per dispatch, the skipped dispatch and the job per epoch for the flash
+kernels and the merge, which also carries "syncdp_segments" and
+"syncdp_count1", its row at the SyncDP call; the flash entries carry
+"syncdp_shapes", phase 22 (a2)'s rows at the path's shapes); the merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
@@ -536,6 +579,12 @@ rows as one JSON line.
 
 builds the kernels and runs phase 21 alone, printing its launches as one
 JSON line.
+
+    python3 chip_smoke.py --syncdp-only
+
+builds the flash and merge kernels and runs phase 22 alone, printing its
+launches, ms per global step, #5's row at the SyncDP call and the job's
+numbers as one JSON line.
 """
 
 from __future__ import annotations
@@ -5971,9 +6020,12 @@ TEXT_EPOCHS = 2
 TEXT_BUCKET_MB = 4.0
 # bench_text.py's BASELINE configs at their published widths (B, T, K, N,
 # vocab, classes); the datasets' sizes and the epochs are the cuts
+# (bert-tiny's training set halved when phase 22 joined, to keep the smoke
+# near 1000 s on a slow host; the LSTM's stays: at one round an epoch its
+# loss barely falls)
 TEXT_JOBS = {
     "bert-tiny": dict(B=32, T=64, K=16, N=4, vocab=30522, classes=2,
-                      train=8192, test=1024, lr=1e-3),
+                      train=4096, test=1024, lr=1e-3),
     "lstm": dict(B=64, T=64, K=8, N=4, vocab=32000, classes=4,
                  train=4096, test=512, lr=1e-2),
 }
@@ -6838,6 +6890,565 @@ def moe_refusal(torch, card):
         f"raised ValueError({MOE_DECODE_REFUSAL!r}), the reference's")
 
 
+# ----------------------------------------------------------------- phase 22
+SYNC_W, SYNC_K, SYNC_B, SYNC_T = 2, 4, 8, 512   # G = W x B = 16 a step
+SYNC_LANES, SYNC_DISPATCHES, SYNC_LR = 2, 2, 1e-3
+SYNC_BUCKET_MB = 4.0
+SYNC_STRATEGIES = (None, "bucketed", "ef_bf16", "ef_int8")
+# (a)'s gpt-mini f32 dispatches: G = 2 sequences a step, cut from 16 for
+# the CPU's plain run; (a2) holds #2-#4 at the bf16 path's G = 16
+SYNC_CHECK = dict(W=2, K=4, B=1, T=512)
+SYNC_JOB_TRAIN, SYNC_JOB_EPOCHS = 512, 2        # (e)'s windows and epochs
+SYNC_FLASH = ("forward", "dK/dV", "dQ")
+
+
+def sync_name(strategy) -> str:
+    return strategy or "implicit"
+
+
+def sync_setup(torch, name, seed, dtype, device, strategy, model=None):
+    """A registered GPT with weights from the seed (through convert.py),
+    a SyncDPEngine over it on SYNC_LANES lanes with ``strategy``'s
+    gradient merge (bucketed at SYNC_BUCKET_MB, EF at its default 4 MB),
+    and its initial state."""
+    from kubeml_tpu_torch.convert import (flax_layout_shapes,
+                                          params_from_flax,
+                                          random_flax_params)
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+    from kubeml_tpu_torch.parallel.syncdp import SyncDPEngine
+
+    model = model or get_model(name)()
+    module = model.build(dtype=dtype, device=device)
+    params = random_flax_params(**GPT_CONFIGS[name], seed=seed)
+    module.load_state_dict(params_from_flax(params))
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    engine = SyncDPEngine(
+        module, model.loss, model.configure_optimizers, n_lanes=SYNC_LANES,
+        merge_strategy=strategy,
+        merge_bucket_mb=SYNC_BUCKET_MB if strategy == "bucketed" else 0.0,
+        layout_shapes=flax_layout_shapes(state, {"params": params}))
+    return module, engine, engine.init_state(state)
+
+
+def sync_dispatch(rng, W, K, B, T, extra=None):
+    """One dispatch's global batches: phase 7's round (worker 1's step 2
+    masked, so lane 1 of global step 2 holds no real sample) reflowed by
+    the job's [W, S, B] -> [S, W*B]; ``extra(x)`` adds batch leaves.
+    Returns (batch, sample mask, step keys, real global steps)."""
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    batch, smask, step_mask, wmask, rngs = lm_round(rng, W, K, B, T)
+    if extra is not None:
+        batch.update(extra(batch["x"]))
+    mask = TrainJob._to_global(smask * step_mask[:, :, None]
+                               * wmask[:, None, None])
+    return ({k: TrainJob._to_global(v) for k, v in batch.items()}, mask,
+            rngs[0], int((mask.sum(axis=1) > 0).sum()))
+
+
+def sync_kernels():
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    return {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+            "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+            "merge segments": MergeSegments()}
+
+
+def sync_plan(layers, strategy, steps, lanes_run=SYNC_LANES) -> dict:
+    """The launches ``steps`` real global steps call for: the flash kernels
+    once a layer per backward pass (one a step on the implicit path, one
+    a lane on the explicit one, every lane of a real step running), the
+    fused merge once a step under the bucketed and EF merges (gpt-mini's
+    5 buckets in one launch), never on the implicit path."""
+    passes = steps * (lanes_run if strategy else 1)
+    out = {k: layers * passes for k in SYNC_FLASH}
+    out.update(merge_counts(JOB_BUCKETS, steps) if strategy
+               else {"fused_merge": 0, "merge segments": 0})
+    return out
+
+
+def sync_launches(sync, kernel) -> dict:
+    """One kernel's phase-22 launches for the kernels line: per gradient
+    path per dispatch, the skipped dispatch, the job per epoch."""
+    out = {name: [c[kernel] for c in row["launches"]]
+           for name, row in sync["paths"].items()}
+    out["skipped_dispatch"] = sync["skip"][kernel]
+    out["job"] = [c[kernel] for c in sync["job"]["launches"]]
+    return out
+
+
+def phase_syncdp(torch, card, seed) -> dict:
+    """Phase 22: the SyncDP engine on the card (see the module
+    docstring): (b) each gradient path at gpt-mini's widths with its
+    launches, (a) card vs CPU, (a2) #2-#4 at the path's shapes, (c) #5
+    at the SyncDP call, (d) a skipped step, (e) a job. Returns the launches and rows for the kernels
+    line."""
+    t0 = time.perf_counter()
+    out = {"paths": sync_paths(torch, card, seed)}
+    sync_card_vs_cpu(torch, card, seed)
+    out["flash"] = sync_flash(torch, card, seed)
+    out["count1"] = sync_count1(torch, card, seed)
+    out["skip"] = sync_skip(torch, card, seed)
+    out["job"] = sync_job(torch, card, seed)
+    log(card, f"syncdp phase 22: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def sync_paths(torch, card, seed) -> dict:
+    """(b): SYNC_DISPATCHES dispatches of SYNC_K global steps of G=16
+    sequences of T=512 on the implicit path and under each explicit
+    strategy, gpt-mini bf16 with dropout 0.1; the kernels' counts zeroed
+    just before each dispatch and read just after, against the plan; the
+    loss finite, no step skipped; ms per global step."""
+    kernels = sync_kernels()
+    rows = {}
+    for strategy in SYNC_STRATEGIES:
+        module, engine, state = sync_setup(torch, "gpt-mini", seed,
+                                           torch.bfloat16, "cuda", strategy)
+        rng = np.random.default_rng(seed + 22)
+        counts, ms, losses = [], [], []
+        for _ in range(SYNC_DISPATCHES):
+            batch, mask, keys, steps = sync_dispatch(
+                rng, SYNC_W, SYNC_K, SYNC_B, SYNC_T)
+            torch.cuda.synchronize()
+            for fn in kernels.values():        # the main path's run starts
+                fn.launches = 0
+            t = time.perf_counter()
+            state, loss = engine.train_steps(state, batch, mask, keys,
+                                             SYNC_LR, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = {k: fn.launches for k, fn in kernels.items()}  # ... ends
+            want = sync_plan(module.layers, strategy, steps)
+            assert got == want, (strategy, got, want)
+            assert not engine.last_skipped_device.any(), strategy
+            assert torch.isfinite(loss).all(), (strategy, loss)
+            counts.append(got)
+            ms.append(1e3 * wall / steps)
+            losses.append(loss.float().mean().item())
+        name = sync_name(strategy)
+        rows[name] = {"launches": counts, "ms_per_step": ms}
+        log(card, f"syncdp gpt-mini {name}: {SYNC_DISPATCHES} dispatches of "
+            f"{steps} global steps of G={SYNC_W * SYNC_B} x T={SYNC_T} over "
+            f"{SYNC_LANES} lanes, mean loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, ms per global step "
+            + ", ".join(f"{x:.3f}" for x in ms)
+            + f" (first dispatch warm-up included); launches {counts[-1]} "
+            f"= plan (a layer per backward pass: "
+            f"{'every lane of a' if strategy else 'one a'} step; merge "
+            f"{'one launch of 5 segments a step' if strategy else 'none'}); "
+            f"{engine.readbacks} guard readbacks over "
+            f"{SYNC_DISPATCHES * steps} steps")
+    return rows
+
+
+def sync_card_vs_cpu(torch, card, seed) -> None:
+    """(a): gpt-mini at its published widths in f32 (dropout 0),
+    SYNC_DISPATCHES dispatches of SYNC_CHECK's global steps on each
+    gradient path on the card (f32 flash kernels, the fused merge) and
+    on the CPU (plain versions): the weights within AdamW's 2 x steps x
+    lr, 99.5 % within 1e-5, the same steps skipped (none)."""
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS, GPTMini, GPTModule
+
+    class MiniCheck(GPTMini):
+        def build(self, dtype=None, device=None):
+            return GPTModule(**GPT_CONFIGS["gpt-mini"], dropout=0.0,
+                             dtype=torch.float32, device=device)
+
+    c = SYNC_CHECK
+    for strategy in SYNC_STRATEGIES:
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            _, engine, state = sync_setup(torch, "gpt-mini", seed,
+                                          torch.float32, dev, strategy,
+                                          model=MiniCheck())
+            rng = np.random.default_rng(seed + 23)
+            skipped, steps = [], 0
+            for _ in range(SYNC_DISPATCHES):
+                batch, mask, keys, n = sync_dispatch(rng, c["W"], c["K"],
+                                                     c["B"], c["T"])
+                state, _ = engine.train_steps(state, batch, mask, keys,
+                                              SYNC_LR, 0)
+                skipped += engine.last_skipped_device.cpu().tolist()
+                steps += n
+            out[dev] = ({k: v.cpu() for k, v in state["params"].items()},
+                        skipped)
+            secs[dev] = time.perf_counter() - t
+        (card_p, card_skip), (cpu_p, cpu_skip) = out["cuda"], out["cpu"]
+        assert card_skip == cpu_skip and not any(card_skip), strategy
+        diffs = torch.cat([(card_p[k] - cpu_p[k]).abs().ravel()
+                           for k in cpu_p])
+        within = float((diffs <= 1e-5).float().mean())
+        bound = 2 * steps * SYNC_LR
+        assert float(diffs.max()) <= bound, (strategy, float(diffs.max()))
+        assert within >= 0.995, (strategy, within)
+        log(card, f"syncdp gpt-mini f32 {sync_name(strategy)}, card "
+            f"(kernels) vs CPU (plain), {steps} global steps of G="
+            f"{c['W'] * c['B']} x T={c['T']}: params max|diff| "
+            f"{float(diffs.max()):.3g} (bound {bound:g}), "
+            f"{100 * within:.3f} % within 1e-5; card {secs['cuda']:.3f} s, "
+            f"CPU {secs['cpu']:.3f} s")
+
+
+def sync_flash(torch, card, seed) -> dict:
+    """(a2): #2-#4 in bf16 at the shapes the bf16 path hands them, the
+    implicit path's global batch [16, 512] and the explicit path's lane
+    [8, 512] (H=4, D=64, causal), the keep-mask of a dispatch's first
+    global step (half the sequences ending in padding), q, k, v and dO
+    ~ N(0, 1): each kernel against its plain version within the flash
+    tolerance; warm times beside the plain version's, SDPA's and the
+    bound. Rows by (shape, kernel)."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 26)
+    batch, *_ = sync_dispatch(rng, SYNC_W, SYNC_K, SYNC_B, SYNC_T)
+    x = torch.from_numpy(batch["x"][0]).to(dev)
+    tol = FLASH_TOL["bf16"]
+    rows = {}
+    for path, B in (("implicit", SYNC_W * SYNC_B),
+                    ("explicit lane", SYNC_W * SYNC_B // SYNC_LANES)):
+        pad = (x[:B] != 0).float()
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (B, SYNC_T, FA_H, FA_D)).astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+            for _ in range(4))
+        out, m, l = fa.fa_fwd_kernel(q, k, v, pad, True)
+        ref_out, ref_m, ref_l = fa._fa_forward_plain(q, k, v, pad, True)
+        bwd = (q, k, v, pad, g, m, l, fa._delta(g, out), True)
+        dk, dv = fa.fa_bwd_dkv_kernel(*bwd)
+        dq = fa.fa_bwd_dq_kernel(*bwd)
+        torch.cuda.synchronize()
+        errs = {}
+        for kernel, got, ref in (
+                ("forward", (out, m, l), (ref_out, ref_m, ref_l)),
+                ("dK/dV", (dk, dv), fa._fa_bwd_dkv_plain(*bwd)),
+                ("dQ", (dq,), (fa._fa_bwd_dq_plain(*bwd),))):
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+            # the error of the outputs (m sits at NEG_INF scale)
+            errs[kernel] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got[:2 if kernel == "dK/dV"
+                                                   else 1], ref))
+        lib_f, lib_b = library_flash_ms(torch, q, k, v, g, pad, True)
+        for kernel, fn, plain in (
+                ("forward", lambda: fa.fa_fwd_kernel(q, k, v, pad, True),
+                 lambda: fa._fa_forward_plain(q, k, v, pad, True)),
+                ("dK/dV", lambda: fa.fa_bwd_dkv_kernel(*bwd),
+                 lambda: fa._fa_bwd_dkv_plain(*bwd)),
+                ("dQ", lambda: fa.fa_bwd_dq_kernel(*bwd),
+                 lambda: fa._fa_bwd_dq_plain(*bwd))):
+            b_ms, b_by = flash_bound(q, True, kernel)
+            row = dict(shape=f"{path}: B={B} T={SYNC_T} H={FA_H} D={FA_D} "
+                       f"causal, {int((pad[:, -1] == 0).sum())} of {B} "
+                       "sequences ending in padding",
+                       max_abs_err=errs[kernel], ms=time_ms(torch, fn),
+                       plain_ms=time_ms(torch, plain), bound_ms=b_ms,
+                       bound_by=b_by,
+                       library_ms=lib_f if kernel == "forward" else lib_b)
+            rows[(path, kernel)] = row
+            log(card, f"syncdp flash {kernel} bf16 at the {row['shape']}: "
+                f"kernel {row['ms']:.4f} ms (L2 warm), plain "
+                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+                f"ms, bound {b_ms:.5f} ms ({b_by}), {row['ms'] / b_ms:.1f}x "
+                f"bound, max|err| {errs[kernel]:.3g} (tol {tol})")
+    return rows
+
+
+def sync_count1(torch, card, seed) -> dict:
+    """(c): #5 as the SyncDP step calls it, avg mode at count 1 over a
+    zero ref, one grouped launch of gpt-mini's 5 buckets: bit for bit
+    against the plain version at raw_count 2 (the sum) and 0 (zeros);
+    the launch timed L2-warm and L2-cold (operand sets cycled over
+    COLD_BYTES, as phase 9 (a2)) against the plain version and the bytes
+    bound (8 B an element: s read, out written), which the cold time is
+    held to."""
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+
+    def operands():
+        return [(torch.randn(n, device=dev, generator=gen) * 3,
+                 torch.zeros(n, device=dev)) for n in MERGE_BUCKETS]
+    pairs = operands()
+    one = torch.ones((), device=dev)
+    for raw in (2.0, 0.0):
+        raw_t = torch.tensor(raw, device=dev)
+        before = fm.fused_merge_kernel.launches
+        got = fm.fused_merge_apply("avg", pairs, one, raw_t)
+        torch.cuda.synchronize()
+        assert fm.fused_merge_kernel.launches == before + 1
+        for (s, ref), g in zip(pairs, got):
+            want = fm._apply_plain("avg", s, ref, one, raw_t, 0.0)
+            assert torch.equal(g, want), (raw, s.numel())
+            assert torch.equal(g, s if raw else ref), (raw, s.numel())
+    raw_t = torch.tensor(2.0, device=dev)
+
+    def merge(ps):
+        return fm.fused_merge_apply("avg", ps, one, raw_t)
+
+    n = sum(MERGE_BUCKETS)
+    sets = [(pairs,)] + [(operands(),) for _ in range(
+        max(2, -(-int(COLD_BYTES) // (8 * n))) - 1)]
+    ms, cold_ms = time_ms(torch, lambda: merge(pairs)), time_ms_cold(
+        torch, merge, sets)
+    del sets
+    plain_ms = time_ms(torch, lambda: [
+        fm._apply_plain("avg", s, ref, one, raw_t, 0.0) for s, ref in pairs])
+    row = {"n": n, "buckets": len(MERGE_BUCKETS), "max_abs_err": 0.0,
+           "ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
+           "bound_ms": merge_bound(n, "avg"), "bound_by": "bytes",
+           "library_ms": None}
+    log(card, f"syncdp #5 at count 1 over a zero ref, gpt-mini's "
+        f"{len(MERGE_BUCKETS)} buckets ({n} elements) in one launch: kernel "
+        f"== plain bit for bit at raw_count 2 and 0; kernel L2-cold "
+        f"{cold_ms:.4f} ms = {cold_ms / row['bound_ms']:.2f}x its bound "
+        f"{row['bound_ms']:.5f} ms (bytes, 8 B an element); L2-warm "
+        f"{ms:.4f} ms (43 MB inside the 50 MB L2, not comparable with the "
+        f"bound); plain {plain_ms:.4f} ms")
+    return row
+
+
+def sync_skip(torch, card, seed) -> dict:
+    """(d): phase 16's weighted gpt-mini (a float per-sequence weight w,
+    the leaf a NaN burst poisons) under ef_bf16: one clean dispatch, then
+    a FaultPlan nan event into worker 1 of round 0: every global step of
+    that dispatch is skipped (lane 1 went non-finite), and parameters,
+    Adam's moments and step counts equal the state before it bit for
+    bit, the EF residuals are zero, the losses 0; the kernels still ran
+    (the backward passes and one merge a step) and are counted."""
+    from kubeml_tpu_torch.data.loader import RoundBatch
+    from kubeml_tpu_torch.faults import FaultPlan
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    model_cls, _ = dg_classes()
+    module, engine, state = sync_setup(torch, "gpt-mini", seed,
+                                       torch.bfloat16, "cuda", "ef_bf16",
+                                       model=model_cls())
+    rng = np.random.default_rng(seed + 25)
+
+    def weights(x):
+        return {"w": np.ones(x.shape[:3], np.float32)}
+
+    batch, mask, keys, steps = sync_dispatch(rng, SYNC_W, SYNC_K, SYNC_B,
+                                             SYNC_T, extra=weights)
+    state, _ = engine.train_steps(state, batch, mask, keys, SYNC_LR, 0)
+    assert not engine.last_skipped_device.any()
+    opt = state["opt_state"]
+
+    def snapshot():
+        return ({k: v.clone() for k, v in state["params"].items()},
+                [{k: v.clone() for k, v in opt.state[p].items()}
+                 for p in opt.param_groups[0]["params"]])
+    before = snapshot()
+    assert any(bool(v.any()) for v in state["merge_resid"].values())
+    raw, smask, step_mask, wmask, rngs = lm_round(rng, SYNC_W, SYNC_K,
+                                                  SYNC_B, SYNC_T)
+    raw.update(weights(raw["x"]))
+    plan = FaultPlan.parse({"events": [{"kind": "nan", "epoch": 0,
+                                        "round": 0, "worker": 1}]})
+    plan.epoch = 0
+    rb = plan.inject_batch(RoundBatch(raw, smask, step_mask, wmask, rngs,
+                                      round_index=0, num_rounds=1))
+    mask = TrainJob._to_global(rb.sample_mask * rb.step_mask[:, :, None]
+                               * rb.worker_mask[:, None, None])
+    steps = int((mask.sum(axis=1) > 0).sum())
+    kernels = sync_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    state, loss = engine.train_steps(
+        state, {k: TrainJob._to_global(v) for k, v in rb.batch.items()},
+        mask, rngs[0], SYNC_LR, 0)
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in kernels.items()}
+    want = sync_plan(module.layers, "ef_bf16", steps)
+    assert got == want, (got, want)
+    assert engine.last_skipped_device.tolist() == [1.0] * steps
+    assert not loss.any(), loss
+    params, moments = before
+    assert all(torch.equal(state["params"][k], v) for k, v in params.items())
+    for p, old in zip(opt.param_groups[0]["params"], moments):
+        assert opt.state[p].keys() == old.keys()
+        assert all(torch.equal(opt.state[p][k], v) for k, v in old.items())
+    assert not any(bool(v.any()) for v in state["merge_resid"].values())
+    step = int(next(iter(moments))["step"])
+    log(card, f"syncdp skipped step: a nan event in worker 1 of round 0 "
+        f"skipped all {steps} global steps of the dispatch (losses 0); "
+        f"parameters, Adam's moments and step count ({step}) equal the "
+        f"state before it bit for bit, EF residuals zero; launches {got} "
+        f"(the backward passes and one merge a step still ran)")
+    return got
+
+
+def sync_epoch_plan(job, n, k, b):
+    """(real global steps, real samples, eval slots) of one of the job's
+    epochs at N=n: a round's global steps are its longest worker's."""
+    plan = job._loader.plan(n, k, b)
+    steps = sum(rp.max_steps for rp in plan.rounds)
+    samples = sum(c.num_samples for rp in plan.rounds for c in rp.chunks)
+    return steps, samples, _epoch_counts(n, n, n_train=SYNC_JOB_TRAIN,
+                                         n_test=JOB_TEST, k=k, batch=b)[2]
+
+
+def sync_job(torch, card, seed) -> dict:
+    """(e): TrainJob(gpt-mini, engine='syncdp', merge_compress='bf16', N=2,
+    K=4, B=8) over SYNC_JOB_TRAIN + JOB_TEST windows of T=512 (an identity
+    transform: the batch is the int32 windows, which the device cache
+    holds) from the replicated device cache, SYNC_JOB_EPOCHS epochs,
+    validating each:
+    launches per epoch against the plan, ms per global step, samples/s,
+    the guard's host readbacks per step; one dispatch of the trained
+    engine profiled (idle share, DtoH copies per step); then the K-avg
+    job (phase 10's engine, no train_stats) over the same data for one
+    epoch, its ms per local step from this run."""
+    import os
+    import tempfile
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import KubeDataset
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    kernels = sync_kernels()
+    home = os.environ.get("KUBEML_TPU_HOME")
+    with tempfile.TemporaryDirectory(prefix="kubeml_smoke_") as tmp:
+        os.environ["KUBEML_TPU_HOME"] = tmp
+        try:
+            rng = np.random.default_rng(seed + 26)
+            DatasetRegistry().create(
+                "tokens", token_windows(rng, SYNC_JOB_TRAIN, SYNC_T),
+                np.zeros(SYNC_JOB_TRAIN, np.int32),
+                token_windows(rng, JOB_TEST, SYNC_T),
+                np.zeros(JOB_TEST, np.int32))
+            epochs = []
+
+            def publish(m):
+                epochs.append((m, {k: fn.launches
+                                   for k, fn in kernels.items()}))
+                for fn in kernels.values():
+                    fn.launches = 0
+
+            task = job_task("smoke-syncdp", SYNC_JOB_EPOCHS,
+                            default_parallelism=SYNC_W,
+                            static_parallelism=True, k=SYNC_K,
+                            engine="syncdp", merge_compress="bf16",
+                            device_cache="on", validate_every=1,
+                            train_stats=False)
+            job = TrainJob(task, get_model("gpt-mini")(),
+                           KubeDataset("tokens"), device="cuda",
+                           n_lanes=SYNC_LANES,
+                           callbacks=JobCallbacks(publish_metrics=publish))
+            for fn in kernels.values():
+                fn.launches = 0
+            record = job.train()
+            hist = record.data
+            assert job._device_cache.layout == "replicated"
+            assert hist.train_loss[-1] < hist.train_loss[0], hist.train_loss
+            assert hist.dropped_workers == [0.0] * SYNC_JOB_EPOCHS
+            engine = job._sync_engine
+            layers = engine.module.layers
+            steps, samples, evals = sync_epoch_plan(job, SYNC_W, SYNC_K,
+                                                    SYNC_B)
+            launches, ms = [], []
+            for e, (m, got) in enumerate(epochs):
+                want = sync_plan(layers, "ef_bf16", steps)
+                want["forward"] += layers * evals
+                assert got == want, (e, got, want)
+                assert "syncdp.train_indexed" in m.cost_programs
+                launches.append(got)
+                sec = hist.epoch_duration[e]
+                ms.append(1e3 * sec / steps)
+                log(card, f"syncdp job gpt-mini ef_bf16 epoch {e + 1}/"
+                    f"{SYNC_JOB_EPOCHS}: train loss {hist.train_loss[e]:.4f}"
+                    f", validation loss {hist.validation_loss[e]:.4f}, "
+                    f"{steps} global steps of G={SYNC_W * SYNC_B} in {sec:.4f}"
+                    f" s = {1e3 * sec / steps:.3f} ms per global step, "
+                    f"{samples / sec:.2f} samples/s; launches {got} (= "
+                    f"{layers} layers x {SYNC_LANES} lanes x {steps} steps "
+                    f"(+ {evals} eval slots), 1 merge launch of 5 segments a "
+                    f"step)")
+            readbacks = engine.readbacks / (steps * SYNC_JOB_EPOCHS)
+            assert readbacks == 1.0, readbacks
+            idle, dtoh = sync_profile(torch, card, job)
+            kavg_ms = sync_kavg_job(torch, card)
+        finally:
+            if home is None:
+                os.environ.pop("KUBEML_TPU_HOME", None)
+            else:
+                os.environ["KUBEML_TPU_HOME"] = home
+    log(card, f"syncdp job vs kavg job over the same {SYNC_JOB_TRAIN} "
+        f"windows: {', '.join(f'{x:.3f}' for x in ms)} ms per global step "
+        f"(G={SYNC_W * SYNC_B}, 2 lanes, ef_bf16) against the kavg job's "
+        f"{kavg_ms:.3f} ms per local step (B={SYNC_B}, 4 MB bucketed merge "
+        f"a round); guard readbacks {readbacks:g} per step, device DtoH "
+        f"copies per step in the profiled dispatch {dtoh}, device idle "
+        f"{idle}")
+    return {"launches": launches, "ms_per_step": ms, "kavg_ms": kavg_ms,
+            "idle": idle, "readbacks_per_step": readbacks, "dtoh": dtoh}
+
+
+def sync_profile(torch, card, job):
+    """One more dispatch of the trained job's engine (K global steps from
+    the cache, replicated indices) under torch.profiler (CUDA activity):
+    (device idle share of its wall time, DtoH copies per step), each
+    "not measured" when the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, state = job._sync_engine, job._sync_state
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, SYNC_JOB_TRAIN, (SYNC_K, SYNC_W * SYNC_B)).astype(
+        np.int32)
+    mask = np.ones(idx.shape, np.float32)
+    keys = rng.integers(0, 2 ** 32, (SYNC_K, 2), dtype=np.uint32)
+    cache = job._device_cache
+    engine.train_steps_indexed(state, cache, idx, mask, keys, SYNC_LR, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_steps_indexed(state, cache, idx, mask, keys, SYNC_LR, 0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = device_events(torch, prof)
+    if not by_name:
+        return "not measured", "not measured"
+    busy = sum(t for t, _ in by_name.values())
+    _log_profile(card, "syncdp job dispatch (profiled, ef_bf16)",
+                 wall_ms, by_name, SYNC_K)
+    dtoh = sum(1 for ev in events if "DtoH" in ev.name) / SYNC_K
+    return f"{100 * (1 - busy / wall_ms):.2f}%", f"{dtoh:g}"
+
+
+def sync_kavg_job(torch, card) -> float:
+    """The K-avg job over the registry's windows (N=2, K=4, B=8, the 4 MB
+    bucketed merge, no train_stats, one epoch, from the device cache):
+    ms per local step."""
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.base import KubeDataset
+    from kubeml_tpu_torch.train.job import TrainJob
+
+    task = job_task("smoke-syncdp-kavg", 1, default_parallelism=SYNC_W,
+                    static_parallelism=True, k=SYNC_K,
+                    merge_bucket_mb=MERGE_CAP_MB, validate_every=0,
+                    train_stats=False)
+    job = TrainJob(task, get_model("gpt-mini")(), KubeDataset("tokens"),
+                   device="cuda")
+    hist = job.train().data
+    steps = _epoch_counts(SYNC_W, SYNC_W, n_train=SYNC_JOB_TRAIN,
+                          n_test=JOB_TEST, k=SYNC_K, batch=SYNC_B)[0]
+    ms = 1e3 * hist.epoch_duration[0] / steps
+    log(card, f"kavg job gpt-mini over the same windows: {steps} local "
+        f"steps in {hist.epoch_duration[0]:.4f} s = {ms:.3f} ms per local "
+        f"step")
+    return ms
+
+
 def phase_merge_only(torch, card, seed) -> dict:
     """--merge-only: what two trees of the port are compared by, through
     calls every tree with the fused merge has: (a) the one-segment
@@ -7012,9 +7623,10 @@ def run(torch, seed) -> list:
     spec = timed(19, phase_spec, torch, card, seed, module, direct)
     text = timed(20, phase_text, torch, card, seed)
     mv = timed(21, phase_moe_vgg, torch, card, seed)
+    sync = timed(22, phase_syncdp, torch, card, seed)
     log(card, "wall by phase (s): " + ", ".join(
         f"{p}: {w:.3f}" for p, w in walls.items())
-        + f"; phases 1-21 {sum(walls.values()):.3f}")
+        + f"; phases 1-22 {sum(walls.values()):.3f}")
     drafts = ("self-draft", "other-draft")
 
     paged = [{
@@ -7045,6 +7657,7 @@ def run(torch, seed) -> list:
         "ragged_pages": [r for (p, *_), r in text["ragged"].items()
                          if p == pages],
         "moe_vgg_launches": 0,       # phase 21 serves nothing
+        "syncdp_launches": 0,        # phase 22 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -7080,6 +7693,11 @@ def run(torch, seed) -> list:
         # phase 21: gpt-moe-mini's job per epoch (vgg11 has no attention)
         "moe_vgg_launches": [e[kernel] for e in
                              mv["gpt-moe-mini"]["launches"]],
+        # phase 22: each gradient path's dispatches, the skipped
+        # dispatch, the syncdp job's epochs
+        "syncdp_launches": sync_launches(sync, kernel),
+        "syncdp_shapes": [r for (_, k), r in sync["flash"].items()
+                          if k == kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -7113,6 +7731,11 @@ def run(torch, seed) -> list:
                 moe_vgg_buckets={name: [{"n": n, **mv[name]["merge"][n]["avg"]}
                                         for n in mv[name]["bucket_lengths"]]
                                  for name in MV_MODELS},
+                # phase 22: launches and segments on each gradient path,
+                # and the grouped launch at SyncDP's call (count 1)
+                syncdp_launches=sync_launches(sync, "fused_merge"),
+                syncdp_segments=sync_launches(sync, "merge segments"),
+                syncdp_count1=sync["count1"],
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -7175,6 +7798,13 @@ def main(argv=None) -> int:
                          "(gpt-moe-mini and vgg11 trained on the card, "
                          "the fused merge at their plans), printing its "
                          "launches as one JSON line and no result line")
+    ap.add_argument("--syncdp-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "22 alone (the SyncDP engine: each gradient path "
+                         "at gpt-mini's widths, card vs CPU, #5 at its "
+                         "count-1 call, a skipped step, a job), printing "
+                         "its launches and rows as one JSON line and no "
+                         "result line")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
                          "every tree of the port has, the one-segment "
@@ -7301,6 +7931,21 @@ def main(argv=None) -> int:
                        "ms_per_step": mv[name]["ms_per_step"],
                        "bucket_lengths": mv[name]["bucket_lengths"]}
                 for name in MV_MODELS}}))
+            return 0
+        if args.syncdp_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            sync = phase_syncdp(torch, card, args.seed)
+            print(json.dumps({"card": card, "syncdp": {
+                "launches": {k: sync_launches(sync, k)
+                             for k in (*SYNC_FLASH, "fused_merge",
+                                       "merge segments")},
+                "ms_per_step": {n: r["ms_per_step"]
+                                for n, r in sync["paths"].items()},
+                "count1": sync["count1"],
+                "flash": {f"{p} {k}": r for (p, k), r in
+                          sync["flash"].items()},
+                "job": {k: v for k, v in sync["job"].items()
+                        if k != "launches"}}}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

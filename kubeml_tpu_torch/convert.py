@@ -106,6 +106,30 @@ def flax_leaf_order(names: Iterable[str]) -> List[str]:
     return sorted(names, key=_flax_path)
 
 
+def _tree_leaves(node) -> list:
+    """The leaves of a nested dict in ``jax.tree_util``'s order (keys
+    sorted at every level)."""
+    if not isinstance(node, dict):
+        return [node]
+    return [leaf for key in sorted(node) for leaf in _tree_leaves(node[key])]
+
+
+def flax_layout_shapes(names: Iterable[str], variables: dict
+                       ) -> Dict[str, Tuple[int, ...]]:
+    """Each port state name's shape in the JAX package's layout: the flax
+    variable tree ``variables`` ({"params": ...[, "batch_stats": ...]},
+    as a model's params_to_flax gives it) flattened in jax's order,
+    matched leaf for leaf to ``flax_leaf_order(names)``. A GPT's q kernel
+    is [hidden, H, Dh] here where the port holds [H*Dh, hidden]; the
+    SyncDP engine's ZeRO layout rule reads these shapes."""
+    order = flax_leaf_order(names)
+    leaves = _tree_leaves(variables)
+    if len(leaves) != len(order):
+        raise ValueError(f"the flax tree has {len(leaves)} leaves, the "
+                         f"state {len(order)}")
+    return {n: tuple(np.shape(leaf)) for n, leaf in zip(order, leaves)}
+
+
 def params_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """flax GPT ``params`` tree (numpy leaves) -> port state dict."""
     sd = {"tok_embed.weight": _t(params["tok_embed"]["embedding"]),

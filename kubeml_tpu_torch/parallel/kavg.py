@@ -167,6 +167,22 @@ def masked_scalar_loss(loss_fn: LossFn, module: torch.nn.Module,
     return (per_ex * smask).sum() / smask.sum().clamp_min(1.0)
 
 
+def gather_batch(cache, idx, device, lane=None) -> State:
+    """The samples the gather indices ``idx`` name in a device cache
+    (``data/device_cache.py``), then the dataset's device transform:
+    global indices into a replicated cache, or, with ``lane`` (the lane
+    of each index's leading row, broadcastable against it), lane-local
+    ones into a sharded cache's slabs."""
+    idx = torch.as_tensor(np.asarray(idx, np.int32), device=device).long()
+    if lane is None:
+        raw = {k: v[idx] for k, v in cache.arrays.items()}
+    else:
+        raw = {k: v[lane, idx] for k, v in cache.arrays.items()}
+    if cache.device_transform is not None:
+        return dict(cache.device_transform(raw["x"], raw["y"]))
+    return raw
+
+
 def _generator(key_data: np.ndarray, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed((int(key_data[0]) << 32) | int(key_data[1]))
@@ -498,21 +514,15 @@ class KAvgEngine:
         indices (lane-local into lane w // (W / D)'s slab for a sharded
         cache, global for a replicated one) uploaded, the raw leaves
         gathered on the device, then the dataset's device transform."""
-        idx = torch.as_tensor(np.asarray(idx, np.int32),
-                              device=self.device).long()
+        lane = None
         if cache.layout == "sharded":
             if cache.n_lanes != self.n_lanes:
                 raise ValueError(f"a sharded cache of {cache.n_lanes} lanes "
                                  f"cannot feed {self.n_lanes} lanes")
-            W = idx.shape[0]
+            W = int(np.shape(idx)[0])
             lane = (torch.arange(W, device=self.device)
                     // self._workers_per_lane(W)).view(W, 1, 1)
-            raw = {k: v[lane, idx] for k, v in cache.arrays.items()}
-        else:
-            raw = {k: v[idx] for k, v in cache.arrays.items()}
-        if cache.device_transform is not None:
-            return dict(cache.device_transform(raw["x"], raw["y"]))
-        return raw
+        return gather_batch(cache, idx, self.device, lane)
 
     def train_round_indexed(self, variables: State, cache, idx: np.ndarray,
                             sample_mask: np.ndarray, step_mask: np.ndarray,

@@ -37,6 +37,12 @@ reciprocal, which is not the reference's IEEE division. The one exception
 is the reference's own: XLA turns int8's ``amax / 127.0`` into a multiply
 (``EFInt8Merge``).
 
+The SyncDP engine (``parallel/syncdp.py``) calls the same ``lane_merge``
+once per step over per-lane GRADIENT sums, with ``count`` = 1 and a zero
+``ref``: the bucketed and EF strategies then still finish through the
+fused merge (a lane sum kept where some lane is alive, zeros where none
+is), never around it.
+
 ``register_strategy_cost``/``register_merge_cost`` put a strategy's wire
 plan into the cost ledger (metrics/ledger.py) as the exact
 ``merge.<strategy>`` record. Not ported: ``use_ring``/``ring_psum`` (one
@@ -432,8 +438,9 @@ class EFInt8Merge(_BucketedBase):
 
 def strategy_by_name(name: str, wire_dtype: Optional[torch.dtype] = None,
                      bucket_mb: float = 0.0) -> "MergeStrategy":
-    """Instantiate a registered strategy by name. EF strategies get the
-    default bucket cap when bucket_mb is unset."""
+    """Instantiate a registered strategy by name (the SyncDP engine's
+    explicit-merge knob). EF strategies get the default bucket cap when
+    bucket_mb is unset."""
     if name not in MERGE_STRATEGIES:
         raise ValueError(f"unknown merge strategy {name!r}; registered: "
                          f"{sorted(MERGE_STRATEGIES)}")

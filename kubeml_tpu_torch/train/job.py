@@ -1,5 +1,5 @@
 """TrainJob — the per-job training loop (twin of kubeml_tpu/train/job.py)
-over the port's one-device K-avg engine.
+over the port's one-device K-avg engine, or its SyncDP engine.
 
     TrainJob(task, model, dataset, device=None).train()
       -> the dataset handle from the registry
@@ -103,6 +103,22 @@ loop; every MetricUpdate carries the (trained generation, registry lag)
 pair; every ``publish_every_rounds`` rounds the round-cursor save writes
 a stamped checkpoint, which the PS's fleet hot-swaps into serving.
 
+Kept too: the SyncDP engine (``engine='syncdp'``, ``fsdp``,
+``merge_compress``/``merge_bucket_mb`` mapped to its ef_bf16, ef_int8 or
+bucketed gradient merge, ``check_merge_options``). A syncdp epoch
+(``_train_epoch_syncdp``) reflows each planned round [W, S, B] into S
+global batches [S, W*B] (``_to_global``, worker-major), folds the worker
+mask into the sample mask, and dispatches them to
+``SyncDPEngine.train_steps(_indexed)`` with ``rngs[0]``; the engine's
+state (its persistent optimizer, its EF residuals) lives across epochs,
+and the variables view is refreshed after every epoch for validation,
+checkpoints and /infer. A NaN fault poisons the global gradient (the
+step is skipped, counted in ``dropped_workers``); ``abort_after``
+consecutive skipped steps fail the job; the device cache is replicated;
+the round-cursor options, reassignment and quarantine events are the JAX
+package's 400s (they need kavg), as are fsdp with an explicit merge or
+without syncdp, and merge_dtype under syncdp.
+
 Options whose module is not ported yet raise KubeMLException(400) naming
 the option and the ROADMAP item that brings it (``reject_unported``);
 none is quietly ignored.
@@ -130,11 +146,13 @@ from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
 from kubeml_tpu_torch.data.loader import (RoundGroup, RoundLoader,
                                           group_rounds, prefetch_rounds)
 from kubeml_tpu_torch.data.registry import DatasetRegistry
+from kubeml_tpu_torch.metrics.ledger import merge_cost_snapshots
 from kubeml_tpu_torch.metrics.prom import PHASE_HISTOGRAMS
 from kubeml_tpu_torch.metrics.runtime import HbmWatermark, JitCompileTracker
 from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
 from kubeml_tpu_torch.ops import _build
 from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+from kubeml_tpu_torch.parallel.syncdp import SyncDPEngine
 from kubeml_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                                load_checkpoint,
                                                mark_checkpoint_completed,
@@ -174,7 +192,6 @@ class JobCallbacks:
 
 
 # what brings each refused option, by ROADMAP item
-SYNCDP = "the SyncDP engine, ROADMAP A.11"
 MODEL_PARALLEL = "model parallelism over NCCL ranks, ROADMAP A.6 and A.12"
 
 
@@ -182,16 +199,9 @@ def reject_unported(opts) -> None:
     """400 for every option whose module the port has not ported yet (the
     job runs it after check_continual_options; ``kubeml train`` runs it
     before submitting)."""
-    def refuse(option: str, brings: str):
-        raise NotPortedError(option, brings)
-
-    if opts.engine == "syncdp":
-        refuse("engine='syncdp'", SYNCDP)
-    if opts.fsdp:
-        refuse("fsdp", SYNCDP)
     for name in ("n_model", "n_seq", "n_stage", "n_expert"):
         if int(getattr(opts, name)) > 1:
-            refuse(f"{name} > 1", MODEL_PARALLEL)
+            raise NotPortedError(f"{name} > 1", MODEL_PARALLEL)
 
 
 def check_continual_options(opts) -> None:
@@ -230,11 +240,68 @@ def check_degraded_options(opts) -> None:
         raise KubeMLException(
             f"checkpoint_every_rounds must be >= 0, got "
             f"{opts.checkpoint_every_rounds}", 400)
-    if opts.reassign_on_quarantine and opts.quarantine_after <= 0:
+    if opts.checkpoint_every_rounds > 0 and opts.engine != "kavg":
+        raise KubeMLException(
+            "checkpoint_every_rounds requires the kavg engine: kavg "
+            "re-derives optimizer state from the weights every "
+            "round, so weights + round cursor fully determine the "
+            "resumed trajectory; syncdp's persistent device "
+            "optimizer state has no durable representation in the "
+            "checkpoint manifest", 400)
+    if opts.reassign_on_quarantine and (opts.engine != "kavg"
+                                        or opts.quarantine_after <= 0):
         raise KubeMLException(
             "reassign_on_quarantine requires the kavg engine with "
             "quarantine_after > 0 — reassignment re-deals exactly "
             "what the quarantine guard masked out", 400)
+
+
+def check_merge_options(opts):
+    """The merge options' checks, the engine's and fsdp's, with the JAX
+    package's 400s in its order; returns (merge_dtype, the SyncDP
+    engine's explicit merge strategy or None). A syncdp job's
+    merge_compress picks error feedback ("ef_bf16", "ef_int8"), else
+    merge_bucket_mb > 0 the bucketed merge, else the implicit
+    global-batch gradient."""
+    merge_dtype = opts.merge_dtype or ""
+    merge_compress = opts.merge_compress or "none"
+    merge_bucket_mb = float(opts.merge_bucket_mb)
+    if merge_dtype not in ("", "bf16"):
+        raise KubeMLException(f"merge_dtype must be '' or 'bf16', got "
+                              f"{merge_dtype!r}", 400)
+    if merge_compress not in ("none", "bf16", "int8"):
+        raise KubeMLException(
+            f"merge_compress must be 'none', 'bf16' or 'int8', got "
+            f"{merge_compress!r}", 400)
+    if merge_dtype and merge_compress != "none":
+        raise KubeMLException(
+            "merge_dtype and merge_compress are mutually exclusive: "
+            "merge_dtype is a plain lossy wire cast, merge_compress "
+            "is error-feedback compression with residual carry", 400)
+    if opts.fsdp and (merge_compress != "none" or merge_bucket_mb > 0):
+        raise KubeMLException(
+            "merge_compress / merge_bucket_mb require an unsharded "
+            "merge payload; fsdp reduce-scatters grads leaf-by-leaf "
+            "under GSPMD, so the explicit merge path is unavailable",
+            400)
+    if opts.fsdp and opts.engine != "syncdp":
+        raise KubeMLException(
+            "--fsdp requires --engine syncdp: the K-avg round's "
+            "semantics (per-round weight average of full replicas) "
+            "preclude parameter sharding; ZeRO-3 lives in the "
+            "per-step gradient-averaging engine", 400)
+    strategy = None
+    if opts.engine == "syncdp":
+        if merge_dtype:
+            raise KubeMLException(
+                "merge_dtype applies to the kavg engine's weight "
+                "merge only; for syncdp use merge_compress "
+                "(error-feedback gradient compression)", 400)
+        strategy = {"bf16": "ef_bf16", "int8": "ef_int8"}.get(
+            merge_compress)
+        if strategy is None and merge_bucket_mb > 0:
+            strategy = "bucketed"
+    return merge_dtype, strategy
 
 
 class _NonFiniteGuard:
@@ -666,23 +733,39 @@ class TrainJob:
 
     def _live_tensors(self):
         """What the job keeps on its device between rounds: the state,
-        the merge's EF residuals and the dataset cache's slabs (the
-        optimizer is made afresh for every worker of every round)."""
+        the merge's EF residuals, the SyncDP engine's persistent
+        optimizer state and residuals, and the dataset cache's slabs (the
+        K-avg optimizer is made afresh for every worker of every
+        round)."""
         out = list((self.state or {}).values())
         engine = getattr(self, "_engine", None)
         if engine is not None and engine._ef_state:
             out += list(engine._ef_state.values())
+        sync = getattr(self, "_sync_state", None)
+        if sync is not None:
+            seen = {id(t) for t in out}
+            out += [t for t in self._sync_engine.variables(sync).values()
+                    if id(t) not in seen]
+            out += [v for st in sync["opt_state"].state.values()
+                    for v in st.values() if torch.is_tensor(v)]
+            out += list(sync.get("merge_resid", {}).values())
         cache = getattr(self, "_device_cache", None)
         if cache is not None and cache.arrays:
             out += list(cache.arrays.values())
         return out
 
     def _cost_snapshot(self) -> dict:
-        """The engine's cost-ledger snapshot (cumulative, flat record +
-        totals per program): the PS keeps the latest per job for GET
-        /cost and advances the kubeml_cost_* counters by delta."""
-        engine = getattr(self, "_engine", None)
-        return engine.ledger.snapshot() if engine is not None else {}
+        """The engines' cost-ledger snapshots merged (cumulative, flat
+        record + totals per program; the K-avg engine's and, for a
+        syncdp job, the SyncDP engine's, whose program names are
+        disjoint): the PS keeps the latest per job for GET /cost and
+        advances the kubeml_cost_* counters by delta."""
+        snaps = [eng.ledger.snapshot()
+                 for eng in (getattr(self, "_engine", None),
+                             getattr(self, "_sync_engine", None))
+                 if eng is not None]
+        snaps = [snap for snap in snaps if snap]
+        return merge_cost_snapshots(snaps) if snaps else {}
 
     def _record_epoch(self, train_loss, val_loss, accuracy, parallelism,
                       elapsed) -> None:
@@ -736,21 +819,6 @@ class TrainJob:
         reject_unported(opts)
         self._continual = bool(opts.continual)
         self._window_generations = int(opts.window_generations)
-        merge_dtype = opts.merge_dtype or ""
-        merge_compress = opts.merge_compress or "none"
-        merge_bucket_mb = float(opts.merge_bucket_mb)
-        if merge_dtype not in ("", "bf16"):
-            raise KubeMLException(f"merge_dtype must be '' or 'bf16', got "
-                                  f"{merge_dtype!r}", 400)
-        if merge_compress not in ("none", "bf16", "int8"):
-            raise KubeMLException(
-                f"merge_compress must be 'none', 'bf16' or 'int8', got "
-                f"{merge_compress!r}", 400)
-        if merge_dtype and merge_compress != "none":
-            raise KubeMLException(
-                "merge_dtype and merge_compress are mutually exclusive: "
-                "merge_dtype is a plain lossy wire cast, merge_compress "
-                "is error-feedback compression with residual carry", 400)
         handle = self._open_handle()
         self._handle = handle
         # trained vs registry generation: the freshness pair behind the
@@ -765,7 +833,8 @@ class TrainJob:
             except (ValueError, KeyError, TypeError) as e:
                 raise KubeMLException(f"invalid fault_plan: {e}", 400)
             plan.bind(self)
-            if plan.has("quarantine") and opts.quarantine_after <= 0:
+            if plan.has("quarantine") and (opts.engine != "kavg"
+                                           or opts.quarantine_after <= 0):
                 raise KubeMLException(
                     "fault_plan 'quarantine' events require the kavg "
                     "engine with quarantine_after > 0 (they drive the "
@@ -777,6 +846,7 @@ class TrainJob:
                 # the plan first, so the user's hook sees the faulted round
                 user_hook = self.round_hook
                 self.round_hook = lambda rb: user_hook(plan(rb))
+        merge_dtype, sync_strategy = check_merge_options(opts)
         self._init_device_cache(handle, opts)
 
         # elastic shape pinning: a parallelism change alters mask
@@ -840,12 +910,25 @@ class TrainJob:
                       for n, t in module_state(module).items()}
         if restored is not None:
             self._load_restored(restored)
+        # the K-avg engine runs every job's validation (and a kavg job's
+        # rounds); a syncdp job trains through the SyncDP engine over the
+        # same module
         self._engine = KAvgEngine(
             module, self.model.loss, self.model.metrics,
             self.model.configure_optimizers, n_lanes=self.n_lanes,
             merge_dtype=torch.bfloat16 if merge_dtype == "bf16" else None,
-            merge_bucket_mb=merge_bucket_mb, merge_compress=merge_compress,
+            merge_bucket_mb=float(opts.merge_bucket_mb),
+            merge_compress=opts.merge_compress or "none",
             collect_stats=bool(opts.train_stats))
+        self._sync_engine: Optional[SyncDPEngine] = None
+        self._sync_state: Optional[dict] = None
+        if opts.engine == "syncdp":
+            self._sync_engine = SyncDPEngine(
+                module, self.model.loss, self.model.configure_optimizers,
+                n_lanes=self.n_lanes, fsdp=bool(opts.fsdp),
+                collect_stats=bool(opts.train_stats),
+                merge_strategy=sync_strategy,
+                merge_bucket_mb=float(opts.merge_bucket_mb))
 
     def _load_restored(self, restored: dict) -> None:
         """Warm start: the checkpoint's flax variables (params, and
@@ -912,10 +995,12 @@ class TrainJob:
                     "rounds and an identity transform_train (or a "
                     "transform_train_device hook)", 400)
             return
-        # reassignment deals a quarantined worker's samples to ANY
-        # surviving lane, which lane-local indices cannot address
+        # the SyncDP engine's global batch interleaves every worker's
+        # samples, and reassignment deals a quarantined worker's samples
+        # to ANY surviving lane: lane-local indices address neither
         layout = ("replicated"
-                  if opts.shuffle or opts.reassign_on_quarantine
+                  if (opts.engine == "syncdp" or opts.shuffle
+                      or opts.reassign_on_quarantine)
                   else "sharded")
         budget = max(0, int(getattr(opts, "device_cache_mb", 512))) << 20
         per_chip = DeviceDatasetCache.per_chip_bytes(handle, layout,
@@ -1094,6 +1179,8 @@ class TrainJob:
         job_id = self.task.job_id
         opts = self.req.options
         self._progress = (epoch, 0)   # the job server's heartbeat cursor
+        if self._sync_engine is not None:
+            return self._train_epoch_syncdp(parallelism, epoch)
         plan = self._loader.plan(parallelism, opts.k, self.req.batch_size)
         group = self._rounds_per_dispatch()
         if self._fault_plan is not None:
@@ -1298,6 +1385,125 @@ class TrainJob:
                 "loss_spread": spread_tot / max(1, stat_rounds),
             }
         return float(per_worker.mean())
+
+    @staticmethod
+    def _to_global(a) -> np.ndarray:
+        """The [W, S, B, ...] -> [S, W*B, ...] reflow of a round (step s
+        = every worker's step-s samples side by side, worker-major): one
+        definition for the batch leaves, the gather indices and the
+        masks, which must interleave alike."""
+        a = np.asarray(a)
+        W, S, B = a.shape[:3]
+        return np.ascontiguousarray(np.moveaxis(a, 0, 1)).reshape(
+            (S, W * B) + a.shape[3:])
+
+    def _train_epoch_syncdp(self, parallelism: int, epoch: int) -> float:
+        """One epoch of per-step gradient averaging (options.engine =
+        'syncdp'), as the JAX package's: the K-avg loader's plan (N
+        workers' contiguous shards), but every step is one GLOBAL batch
+        of all workers' step-s samples. A masked-out worker (a lost
+        function, a round hook) contributes no sample: the worker mask
+        folds into the per-sample mask. The device cache, when on, is
+        replicated and feeds global indices; a NaN fault poisons the host
+        batch before the reflow, so it reaches the global gradient and
+        the step is skipped. With ``abort_after`` the per-dispatch skip
+        flags are read back and that many consecutive skipped steps fail
+        the job."""
+        opts = self.req.options
+        plan = self._loader.plan(parallelism, opts.k, self.req.batch_size)
+        engine = self._sync_engine
+        self._guard = None
+        self._epoch_reassigned = 0       # syncdp never re-deals
+        self._epoch_stats = {}
+        if self._fault_plan is not None:
+            self._fault_plan.epoch = epoch
+        cache = self._device_cache
+        if cache is not None:
+            W, S, B = self._loader.round_geometry(plan)
+            with self.tracer.span("cache_upload"):
+                cache.ensure()
+            self._log_cache_payload(W, S, B)
+            source = self._loader.epoch_index_rounds(plan, epoch)
+        else:
+            source = self._loader.epoch_rounds(plan, epoch)
+        program = "syncdp.train" + ("_indexed" if cache is not None else "")
+        dev_losses, dev_skipped, dev_stats = [], [], []
+        real_steps = 0
+        round_times = []
+        for rb in self._epoch_round_iter(source, 1):
+            smask = self._to_global(rb.sample_mask
+                                    * rb.step_mask[:, :, None]
+                                    * rb.worker_mask[:, None, None])
+            batch = {k: self._to_global(v) for k, v in rb.batch.items()}
+            if self._sync_state is None:
+                self._sync_state = engine.init_state(self.state)
+            with self.tracer.span("dispatch"):
+                t_r = time.time()
+                if cache is not None:
+                    self._sync_state, losses = engine.train_steps_indexed(
+                        self._sync_state, cache, batch["idx"], smask,
+                        rb.rngs[0], lr=self.req.lr, epoch=epoch)
+                else:
+                    self._sync_state, losses = engine.train_steps(
+                        self._sync_state, batch, smask, rb.rngs[0],
+                        lr=self.req.lr, epoch=epoch)
+                round_times.append((time.time() - t_r, 1,
+                                    engine.last_compiled, program))
+            real = smask.sum(axis=1) > 0
+            real_steps += int(real.sum())
+            dev_losses.append(losses)
+            dev_skipped.append(engine.last_skipped_device)
+            if engine.last_stats_device is not None:
+                dev_stats.append(engine.last_stats_device)
+            self._progress = (epoch, rb.round_index + 1)
+            if opts.abort_after > 0:
+                # the opt-in per-dispatch readback: in syncdp "every
+                # worker non-finite" is a skipped step
+                skipped = dev_skipped[-1].cpu().numpy()
+                for s in np.flatnonzero(real):
+                    if skipped[s] > 0:
+                        self._all_dropped_rounds += 1
+                        if self._all_dropped_rounds >= opts.abort_after:
+                            raise KubeMLException(
+                                f"aborting job {self.task.job_id}: the "
+                                "global gradient was non-finite for "
+                                f"{self._all_dropped_rounds} consecutive "
+                                f"steps (abort_after={opts.abort_after}) "
+                                "— every step is a skip and the weights "
+                                "cannot move", 500)
+                    else:
+                        self._all_dropped_rounds = 0
+        for dt, _r, c, prog in round_times:
+            self._jit_tracker.note(bool(c), dt if c else 0.0, program=prog)
+        skipped_total = (float(torch.stack(dev_skipped).sum())
+                         if dev_skipped else 0.0)
+        self._epoch_dropped = skipped_total
+        self._epoch_quarantined = 0
+        with self.tracer.span("merge_wait"):
+            loss_sums = (torch.stack(dev_losses).sum(0).cpu().numpy()
+                         if dev_losses else np.zeros(0))
+        if real_steps == 0:
+            raise MergeError("epoch produced no training steps")
+        # the variables view for validation, checkpoints and /infer
+        self.state = engine.variables(self._sync_state)
+        # masked steps and skipped ones added 0 to the sums: the divisor
+        # is the real steps that produced a finite loss
+        counted = max(1, real_steps - int(round(skipped_total)))
+        epoch_loss = float(loss_sums.sum()) / counted
+        if dev_stats:
+            # one model trains one global batch a step: a single series
+            # (worker 0), the per-step RMS over the applied steps, no
+            # cross-worker spread
+            tot = torch.stack(dev_stats).sum(0).sum(0).cpu().numpy()
+            gsq, usq, psq = (float(v) for v in tot)
+            self._epoch_stats = {
+                "grad_norms": [float(np.sqrt(gsq / counted))],
+                "update_ratios": [float(np.sqrt(usq / max(psq, 1e-30)))
+                                  if psq > 0 else 0.0],
+                "worker_losses": [epoch_loss],
+                "loss_spread": 0.0,
+            }
+        return epoch_loss
 
     def _round_train_state(self, epoch: int, cursor: int, guard,
                            step_counts, dev_losses, dev_dropped,

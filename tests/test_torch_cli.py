@@ -390,10 +390,12 @@ def test_cli_validation_errors(stack, capsys):
 
 TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
 # item None: the degraded-mode and continual flags and ``dataset append``
-# (ROADMAP A.4.5, landed) reach the job and the storage service
+# (ROADMAP A.4.5, landed) and the SyncDP engine's (A.11, landed) reach the
+# job and the storage service; an item that names no ROADMAP entry is the
+# JAX package's own refusal of a flag combination
 REFUSED = [
-    (TRAIN + ["--engine", "syncdp"], "ROADMAP A.11"),
-    (TRAIN + ["--engine", "syncdp", "--fsdp"], "ROADMAP A.11"),
+    (TRAIN + ["--engine", "syncdp"], None),
+    (TRAIN + ["--engine", "syncdp", "--fsdp"], None),
     (TRAIN + ["--tensor-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--seq-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--expert-parallel", "2"], "ROADMAP A.6 and A.12"),
@@ -411,6 +413,11 @@ REFUSED = [
     (TRAIN + ["--continual", "--publish-every-rounds", "3"], None),
     (TRAIN + ["--quarantine-after", "2", "--reassign-on-quarantine"],
      None),
+    (TRAIN + ["--engine", "syncdp", "--merge-compress", "int8"], None),
+    (TRAIN + ["--engine", "syncdp", "--merge-bucket-mb", "4"], None),
+    (TRAIN + ["--fsdp"], "--fsdp requires --engine syncdp"),
+    (TRAIN + ["--continual", "--engine", "syncdp", "--publish-every-rounds",
+              "3"], "--publish-every-rounds requires --engine kavg"),
 ]
 
 
@@ -450,6 +457,11 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
             "--reassign-on-quarantine" in argv, "--continual" in argv,
             2 if "--window-generations" in argv else 0,
             3 if "--publish-every-rounds" in argv else 0)
+        assert (opts.engine, opts.fsdp, opts.merge_compress,
+                opts.merge_bucket_mb) == (
+            "syncdp" if "syncdp" in argv else "kavg", "--fsdp" in argv,
+            "int8" if "--merge-compress" in argv else "none",
+            4.0 if "--merge-bucket-mb" in argv else 0.0)
         assert rec.data.quarantined_workers == [0]
         assert rec.data.reassigned_batches == [0]
         assert dep.ps.errors == {}
@@ -459,21 +471,25 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
     assert ei.value.code not in (0, None)
     err = capsys.readouterr().err
     assert err.startswith("error: ") and item in err, err
-    assert "not ported yet to kubeml_tpu_torch" in err
+    if item.startswith("ROADMAP"):
+        assert "not ported yet to kubeml_tpu_torch" in err
     assert dep.ps.jobs == {}  # nothing was submitted
 
 
-@pytest.mark.parametrize("form", ["table", "json", "unknown id"])
+@pytest.mark.parametrize("form", ["table", "json", "unknown id", "syncdp"])
 def test_cost_verb_prints_the_references_output(stack, capsys, form):
     """``kubeml cost`` on the port's deployment prints what the JAX
     package's CLI prints against the same controller: the same table,
-    the same JSON document, the same error for an id with no cost."""
+    the same JSON document, the same error for an id with no cost; a
+    syncdp job's table shows the SyncDP engine's records."""
     from kubeml_tpu.cli.main import main as ref_main
 
     dep, paths, _ = stack
     _create_blobs(dep, paths)
+    engine = (["--engine", "syncdp", "--merge-compress", "bf16"]
+              if form == "syncdp" else [])
     run_cli(dep, "train", "-f", "mlp", "-d", "blobs", "-e", "1", "-b", "32",
-            "--lr", "0.1", "-p", "2", "--static")
+            "--lr", "0.1", "-p", "2", "--static", *engine)
     job_id = capsys.readouterr().out.strip().splitlines()[-1]
     _wait_history(job_id)
     assert dep.ps.wait_for_job(job_id, timeout=60)
@@ -500,6 +516,10 @@ def test_cost_verb_prints_the_references_output(stack, capsys, form):
     elif form == "table":
         assert "kavg.train_indexed" in outs[0].out
         assert "fallback" in outs[0].out
+    elif form == "syncdp":
+        assert "syncdp.train_indexed" in outs[0].out
+        assert "merge.ef_bf16" in outs[0].out
+        assert "kavg.train" not in outs[0].out
     else:
         assert "nosuch" in outs[0].err
 

@@ -309,6 +309,8 @@ DEGRADED = ("fault_plan", "quarantine_after", "abort_after",
 # the continual mode's options (ROADMAP A.4.5, landed): ``continual``
 # trains; the two knobs without it are the JAX package's 400
 CONTINUAL_KNOBS = ("window_generations", "publish_every_rounds")
+# the SyncDP engine (ROADMAP A.11, landed): engine='syncdp' and fsdp train
+SYNCDP_OPTIONS = ("engine", "fsdp")
 
 
 def _port_job(job_id="p1", callbacks=None, round_hook=None, dataset=None,
@@ -344,6 +346,9 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     finished = []
     callbacks = JobCallbacks(
         on_finish=lambda jid, err: finished.append((jid, err)))
+    if option in SYNCDP_OPTIONS:
+        _syncdp_option_trains(option)
+        return
     if option == "continual" or (option in DEGRADED
                                  and option != "reassign_on_quarantine"):
         hooked = []
@@ -385,6 +390,143 @@ def test_unported_options_are_rejected_with_400(blobs, option):
         assert "not ported yet" in e.value.message
     assert option.split("_")[0] in e.value.message
     assert job.task.state == "failed" and finished[0][1] == e.value.message
+
+
+def _syncdp_option_trains(option):
+    """engine='syncdp' reaches the job and trains as the JAX package's
+    syncdp job (tests/test_job.py's syncdp job): counts, losses and
+    accuracy within 1e-5, the cost ledger and compile count exactly, the
+    final weights within 1e-5, the loss falls. fsdp: the same job with
+    fsdp equals the replicated one bit for bit (one device lays nothing
+    out differently) and the reference's fsdp job within 1e-5."""
+    knobs = dict(epochs=3, lr=0.05, engine="syncdp")
+    if option == "fsdp":
+        knobs["fsdp"] = True
+    tasks = _tasks(option, "mlp", "blobs", **knobs)
+    out = _run_both(tasks, _mlp, _blobs_dataset)
+    (ref, _, ref_pub), (got, _, pub) = out["ref"], out["port"]
+    r, g = ref.data, got.data
+    assert len(g.train_loss) == len(r.train_loss) == 3
+    _assert_close(g.train_loss, r.train_loss, 1e-5)
+    _assert_close(g.validation_loss, r.validation_loss, 1e-5)
+    _assert_close(g.accuracy, r.accuracy, 1e-5)
+    assert g.train_loss[-1] < g.train_loss[0]
+    assert g.dropped_workers == r.dropped_workers == [0.0] * 3
+    for m, rm in zip(pub, ref_pub):
+        assert m.jit_compiles == rm.jit_compiles
+        assert m.cost_programs == rm.cost_programs
+        assert "syncdp.train_indexed" in m.cost_programs
+        assert sorted(m.phase_times) == sorted(rm.phase_times)
+    want, _ = _final_params(tasks["ref"].job_id)
+    have, manifest = _final_params(tasks["port"].job_id)
+    assert manifest["completed"]
+    for a, b in zip(have, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    if option == "fsdp":
+        plain = _tasks("replicated", "mlp", "blobs", epochs=3, lr=0.05,
+                       engine="syncdp")
+        rec = _run_both({"port": plain["port"]}, _mlp,
+                        _blobs_dataset)["port"][0].data
+        assert rec.train_loss == g.train_loss
+        assert rec.accuracy == g.accuracy
+        again, _ = _final_params(plain["port"].job_id)
+        for a, b in zip(have, again):
+            np.testing.assert_array_equal(a, b)
+
+
+# syncdp jobs held against the JAX package's: (task knobs, round hook)
+SYNCDP_CASES = {
+    # tests/test_job.py's straggler case: random worker loss every round
+    "straggler": (dict(epochs=3, parallelism=4), "chaos"),
+    "ef_bf16": (dict(epochs=2, merge_compress="bf16"), None),
+    "bucketed": (dict(epochs=2, merge_bucket_mb=0.001), None),
+    "host_staged": (dict(epochs=2, device_cache="off"), None),
+    # a NaN in one worker's batch: its round's global steps are skipped
+    "nan_skip": (dict(epochs=2, fault_plan=json.dumps({"events": [
+        {"kind": "nan", "epoch": 0, "round": 1, "worker": 1}]})), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SYNCDP_CASES))
+def test_syncdp_job_matches_reference(blobs, case):
+    """A syncdp job (mlp, SGD) against the JAX package's: epochs, losses,
+    accuracy and the skipped-step counts, the cost ledger and the compile
+    count, the final weights within 1e-5 (the EF-bf16 merge: its loss and
+    weights within the quantum bound, 1e-4 of a loss near 1 and 1e-4
+    absolute over two epochs of SGD at lr 0.05); the loss falls."""
+    knobs, hook = SYNCDP_CASES[case]
+    tasks = _tasks(case, "mlp", "blobs", lr=0.05, engine="syncdp", **knobs)
+    hooks = None
+    if hook == "chaos":
+        from kubeml_tpu.utils.chaos import WorkerLossInjector as RefChaos
+        from kubeml_tpu_torch.utils.chaos import WorkerLossInjector
+        hooks = {"ref": RefChaos(p=0.4, seed=7),
+                 "port": WorkerLossInjector(p=0.4, seed=7)}
+    out = _run_both(tasks, _mlp, _blobs_dataset, round_hooks=hooks)
+    (ref, _, ref_pub), (got, _, pub) = out["ref"], out["port"]
+    r, g = ref.data, got.data
+    tol = 1e-4 if case == "ef_bf16" else 1e-5
+    assert len(g.train_loss) == len(r.train_loss) == knobs["epochs"]
+    _assert_close(g.train_loss, r.train_loss, tol)
+    _assert_close(g.accuracy, r.accuracy, tol)
+    assert g.dropped_workers == r.dropped_workers
+    assert g.train_loss[-1] < g.train_loss[0]
+    if hook == "chaos":
+        assert hooks["port"].workers_lost == hooks["ref"].workers_lost > 0
+    if case == "nan_skip":
+        # the burst poisons worker 1's whole round: both of its K steps
+        assert g.dropped_workers == [2.0, 0.0]
+    for m, rm in zip(pub, ref_pub):
+        assert m.jit_compiles == rm.jit_compiles
+        assert m.cost_programs == rm.cost_programs
+    want, _ = _final_params(tasks["ref"].job_id)
+    have, _ = _final_params(tasks["port"].job_id)
+    for a, b in zip(have, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+
+
+# syncdp's option combinations the JAX package refuses, in its order
+SYNCDP_400 = {
+    "fsdp_kavg": dict(fsdp=True),
+    "fsdp_bucketed": dict(engine="syncdp", fsdp=True, merge_bucket_mb=4.0),
+    "fsdp_compress": dict(engine="syncdp", fsdp=True, merge_compress="int8"),
+    "merge_dtype": dict(engine="syncdp", merge_dtype="bf16"),
+    "checkpoint_every_rounds": dict(engine="syncdp",
+                                    checkpoint_every_rounds=2),
+    "reassign": dict(engine="syncdp", quarantine_after=1,
+                     reassign_on_quarantine=True),
+    "quarantine_event": dict(engine="syncdp", quarantine_after=1,
+                             fault_plan=json.dumps({"events": [
+                                 {"kind": "quarantine", "epoch": 0,
+                                  "round": 0, "worker": 0}]})),
+    "publish_every_rounds": dict(engine="syncdp", continual=True,
+                                 publish_every_rounds=2),
+    # the first refusal wins: checkpoint_every_rounds before fsdp's
+    "order": dict(checkpoint_every_rounds=2, fsdp=True, merge_dtype="bf16",
+                  engine="syncdp"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SYNCDP_400))
+def test_syncdp_option_400s_match_reference(blobs, case):
+    """Every syncdp option combination the JAX package's job refuses is a
+    400 here with the same message; kavg-only options name syncdp's
+    persistent optimizer state."""
+    from kubeml_tpu.api.errors import KubeMLException as RefError
+    from kubeml_tpu.parallel.mesh import make_mesh
+    from kubeml_tpu.train import job as ref_job
+    from kubeml_tpu_torch.api.errors import KubeMLException
+    from kubeml_tpu_torch.train import job as port_job
+
+    tasks = _tasks(case, "mlp", "blobs", epochs=1, **SYNCDP_400[case])
+    with pytest.raises(RefError) as want:
+        ref_job.TrainJob(tasks["ref"], _mlp("ref"), _blobs_dataset("ref"),
+                         make_mesh(n_data=1)).train()
+    with pytest.raises(KubeMLException) as got:
+        port_job.TrainJob(tasks["port"], _mlp("port"),
+                          _blobs_dataset("port"), "cpu").train()
+    assert got.value.status_code == want.value.status_code == 400
+    assert got.value.message == want.value.message
 
 
 @pytest.mark.parametrize("knobs,match", [

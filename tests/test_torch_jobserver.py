@@ -112,7 +112,9 @@ class _ScaleUpPolicy:
         self.seen.discard(job_id)
 
 
-def test_standalone_child_equals_threaded_job(blobs_files, monkeypatch):
+def _standalone_and_threaded(blobs_files, monkeypatch, req):
+    """The same job as a ``--device cpu`` child and as a PS thread, under
+    the same grants: {mode: (history data, checkpoint tree)}."""
     from kubeml_tpu_torch.control import ps as ps_mod
     from kubeml_tpu_torch.control.client import KubemlClient
     from kubeml_tpu_torch.control.deployment import start_deployment
@@ -135,7 +137,7 @@ def test_standalone_child_equals_threaded_job(blobs_files, monkeypatch):
             c = KubemlClient(dep.controller_url).v1()
             if mode == "standalone":
                 c.datasets().create("blobs", *blobs_files)
-            job_id = c.networks().train(_req())
+            job_id = c.networks().train(req)
             if mode == "standalone":
                 # the job runs as a child process, not a thread
                 deadline = time.time() + 120
@@ -157,6 +159,10 @@ def test_standalone_child_equals_threaded_job(blobs_files, monkeypatch):
             out[mode] = (hist.data, load_checkpoint(job_id)[0])
         finally:
             dep.stop()
+    return out
+
+
+def _assert_child_equals_threaded(out):
     (a, wa), (b, wb) = out["standalone"], out["threaded"]
     assert a.parallelism == b.parallelism == [2, 3, 4]
     for field in ("train_loss", "validation_loss", "accuracy"):
@@ -167,6 +173,22 @@ def test_standalone_child_equals_threaded_job(blobs_files, monkeypatch):
             np.testing.assert_allclose(wa["params"][layer][leaf],
                                        wb["params"][layer][leaf],
                                        rtol=1e-6, atol=1e-7)
+
+
+def test_standalone_child_equals_threaded_job(blobs_files, monkeypatch):
+    _assert_child_equals_threaded(
+        _standalone_and_threaded(blobs_files, monkeypatch, _req()))
+
+
+def test_standalone_syncdp_child_equals_threaded_job(blobs_files,
+                                                     monkeypatch):
+    """A syncdp job (ef_bf16 gradient merge) runs in a job-server child
+    as a kavg job does, and equals its threaded twin: the SyncDP engine's
+    persistent optimizer lives in the child for the whole job."""
+    out = _standalone_and_threaded(
+        blobs_files, monkeypatch, _req(engine="syncdp", merge_compress="bf16"))
+    _assert_child_equals_threaded(out)
+    assert out["standalone"][0].dropped_workers == [0.0, 0.0, 0.0]
 
 
 # A job-server child whose epochs from its second on wait, after their
