@@ -480,6 +480,28 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               per step), and the kavg job over the same data for one
               epoch (ms per local step).
 
+ 23. dist     data lanes as torch.distributed ranks, each rank a child
+              of this process with the KUBEML_* environment (this process
+              joins no group and runs the one-process runs they are held
+              to): (a) one NCCL rank holding 2 lanes, phase 7's gpt-mini
+              round (bf16, W=2, K=4, B=8, T=512) twice under bucketed (4
+              MB) and twice under ef_int8: weights and EF residuals equal
+              the same rounds without a group bit for bit; round 2's
+              #2-#5 launches = the plan and its collectives counted (1 +
+              buckets all-reduces, ef_int8 1 + 2 x buckets, 1
+              all-gather); (b) two gloo ranks on the one card, 1 lane
+              each, the same rounds: both ranks' weights equal each other
+              and the one-process 2-lane rounds bit for bit, each rank's
+              residual its lane's slice, #5 once a merge on each rank, ms
+              a round against the one-process round; (c) a two-rank
+              TrainJob (gpt-mini, ef_bf16, N=2, K=4, B=8, 1 epoch over 256
+              + 64 windows, host-staged): both ranks' histories and final
+              weights equal each other and the one-process job's, launches
+              per rank against the plan (every rank validates the whole
+              set), ms per local step against the one-process job; which
+              collectives gloo takes CUDA tensors for, tried directly; and
+              the error NCCL gives two ranks on one card.
+
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
 the main paths (bf16 pages, int8 pages: decode numbers at the top level,
@@ -518,7 +540,10 @@ bucket length of both models' plans); every entry carries
 per dispatch, the skipped dispatch and the job per epoch for the flash
 kernels and the merge, which also carries "syncdp_segments" and
 "syncdp_count1", its row at the SyncDP call; the flash entries carry
-"syncdp_shapes", phase 22 (a2)'s rows at the path's shapes); the merge's
+"syncdp_shapes", phase 22 (a2)'s rows at the path's shapes); every entry
+carries "dist_launches", phase 23's (0 for the paged kernel; (a)'s and
+(b)'s counted round per strategy, per rank for (b), and (c)'s job per
+rank and in one process; the merge also "dist_segments"); the merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
@@ -585,6 +610,11 @@ JSON line.
 builds the flash and merge kernels and runs phase 22 alone, printing its
 launches, ms per global step, #5's row at the SyncDP call and the job's
 numbers as one JSON line.
+
+    python3 chip_smoke.py --dist-only
+
+builds the flash and merge kernels and runs phase 23 alone, printing its
+launches, ms a round and ms per local step as one JSON line.
 """
 
 from __future__ import annotations
@@ -7449,6 +7479,529 @@ def sync_kavg_job(torch, card) -> float:
     return ms
 
 
+# ----------------------------------------------------------------- phase 23
+DIST_STRATEGIES = (("bucketed", dict(merge_bucket_mb=MERGE_CAP_MB)),
+                   ("ef_int8", dict(merge_compress="int8")))
+DIST_LANES = 2            # lanes of every phase-23 run: 2 on one rank, or
+                          # 1 on each of two
+DIST_ROUNDS = 2           # round 1 warms up; round 2 is counted and timed
+DIST_TIMEOUT = 120.0      # seconds: every join and collective of a rank
+DIST_CHILD_S = 300.0      # seconds a launch of ranks may take
+DIST_DUP_S = 60.0         # seconds a probe's join and collective may take
+DIST_JOB_TRAIN, DIST_JOB_TEST = 256, 64    # (c): 4 rounds of 2 x 4 x 8
+DIST_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+              "import chip_smoke; "
+              "sys.exit(chip_smoke.dist_child(*sys.argv[2:]))")
+
+
+def dist_kernels() -> dict:
+    """#2-#5's counters (the merge's segments under its own name)."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.ops import fused_merge as fm
+
+    return {"forward": fa.fa_fwd_kernel, "dK/dV": fa.fa_bwd_dkv_kernel,
+            "dQ": fa.fa_bwd_dq_kernel, "fused_merge": fm.fused_merge_kernel,
+            "merge segments": MergeSegments()}
+
+
+def dist_collectives() -> dict:
+    """The collective helpers' counters: each counts the collectives it
+    issues (none without a group)."""
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    return {"all_reduce": dl.all_reduce, "all_gather": dl.all_gather_cat,
+            "barrier": dl.barrier, "exchange": dl.exchange}
+
+
+def dist_zero() -> None:
+    for fn in dist_kernels().values():
+        fn.launches = 0
+    for fn in dist_collectives().values():
+        fn.calls = 0
+
+
+def dist_counts() -> tuple:
+    return ({k: fn.launches for k, fn in dist_kernels().items()},
+            {k: fn.calls for k, fn in dist_collectives().items()})
+
+
+def dist_plan_collectives(name: str, buckets: int) -> dict:
+    """A round's collectives over a group: one all-reduce of the count,
+    one per bucket (two under ef_int8: the scale's MAX, then the sum),
+    one all-gather of the per-worker rows."""
+    per = 2 if name == "ef_int8" else 1
+    return {"all_reduce": 1 + per * buckets, "all_gather": 1, "barrier": 0,
+            "exchange": 0}
+
+
+def dist_rounds(torch, seed, name, knobs) -> dict:
+    """DIST_ROUNDS rounds of phase 7's gpt-mini (bf16, dropout 0.1, W=2,
+    K=4, B=8, T=512, worker 1's step 2 masked) at DIST_LANES lanes under
+    the strategy, in this process's group or without one. The counters
+    are zeroed just before the last round and read just after it."""
+    module, engine, state = train_setup(torch, "gpt-mini", seed,
+                                        torch.bfloat16, "cuda",
+                                        n_lanes=DIST_LANES, **knobs)
+    assert engine.merge_strategy == name, engine.merge_strategy
+    to_device, copied = engine._to_device, []
+
+    def counted(batch):
+        # the batch bytes this rank's round copies to its card
+        copied.append(sum(np.asarray(v).nbytes for v in batch.values()))
+        return to_device(batch)
+
+    engine._to_device = counted
+    rng = np.random.default_rng(seed + 23)
+    for r in range(DIST_ROUNDS):
+        args = lm_round(rng, TRAIN_W, TRAIN_K, TRAIN_B, TRAIN_T)
+        torch.cuda.synchronize()
+        copied.clear()
+        dist_zero()                          # the main path's run starts
+        t0 = time.perf_counter()
+        state, st = engine.train_round(state, *args, TRAIN_LR, 0)
+        loss = st.loss_sum
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, calls = dist_counts()        # ... and ends here
+    real = args[2] * args[3][:, None]
+    mine = [w for w in range(TRAIN_W)
+            if engine.layout.rank_of(w // (TRAIN_W // DIST_LANES))
+            == engine.layout.rank]
+    return {"state": {k: v.detach().cpu() for k, v in state.items()},
+            "resid": {k: v.cpu() for k, v in (engine._ef_state or {}).items()},
+            "counts": counts, "calls": calls, "ms": 1e3 * wall,
+            "h2d_bytes": sum(copied),
+            "loss": [float(v) for v in loss], "layers": module.layers,
+            "steps": int(real[mine].sum()),
+            "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
+
+
+def dist_job(torch, seed, outdir, rank) -> dict:
+    """(c): TrainJob(gpt-mini, ef_bf16, N=2, K=4, B=8, DIST_LANES lanes)
+    for one epoch over DIST_JOB_TRAIN + DIST_JOB_TEST windows, in this
+    process's group (``rank``) or without one (None), from a home of its
+    own. Returns its history, its launches over the epoch (training and
+    validation) and its wall."""
+    import os
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    before = os.environ.get("KUBEML_TPU_HOME")
+    os.environ["KUBEML_TPU_HOME"] = os.path.join(
+        outdir, "single" if rank is None else f"p{rank}")
+    try:
+        rng = np.random.default_rng(seed + 24)
+        DatasetRegistry().create(
+            "tokens", token_windows(rng, DIST_JOB_TRAIN, TRAIN_T),
+            np.zeros(DIST_JOB_TRAIN, np.int32),
+            token_windows(rng, DIST_JOB_TEST, TRAIN_T),
+            np.zeros(DIST_JOB_TEST, np.int32))
+        published = []
+        task = job_task("smoke-dist-job", 1, default_parallelism=2,
+                        static_parallelism=True, k=JOB_K,
+                        merge_compress="bf16", validate_every=1,
+                        train_stats=False)
+        job = TrainJob(task, get_model("gpt-mini")(), token_dataset(),
+                       device="cuda", n_lanes=DIST_LANES,
+                       callbacks=JobCallbacks(publish_metrics=lambda m:
+                                              published.append(
+                                                  dist_counts())))
+        torch.cuda.synchronize()
+        dist_zero()                          # the main path's run starts
+        hist = job.train().data
+        counts, calls = published[0]         # ... and ends at the publish
+    finally:
+        if before is None:
+            os.environ.pop("KUBEML_TPU_HOME", None)
+        else:
+            os.environ["KUBEML_TPU_HOME"] = before
+    return {"history": {"train_loss": list(hist.train_loss),
+                        "validation_loss": list(hist.validation_loss),
+                        "accuracy": list(hist.accuracy),
+                        "parallelism": list(hist.parallelism)},
+            "counts": counts, "calls": calls,
+            "seconds": float(hist.epoch_duration[0]),
+            "layers": job._engine.module.layers,
+            "state": {k: v.detach().cpu() for k, v in job.state.items()}}
+
+
+def dist_worker_steps(n_train: int, n: int) -> list:
+    """Each worker's local steps in one epoch of phase 10's plan (K, B)
+    over ``n_train`` windows at N = ``n``."""
+    from kubeml_tpu_torch.data.sharding import plan_epoch
+
+    plan = plan_epoch(n_train, n, JOB_K, JOB_B)
+    return [sum(r.chunks[w].num_steps for r in plan.rounds)
+            for w in range(n)]
+
+
+def gloo_cuda_probe(torch) -> dict:
+    """Which collectives the gloo backend takes CUDA tensors for, tried
+    directly (not through the port's helpers), each checked against its
+    result: 'accepted' or the error's first line. The point-to-point pair
+    is tried in processes of its own (mode 'gloo-p2p'): a failure there
+    can abort the process."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    out = {}
+
+    def gathered():
+        parts = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts)
+
+    for name, fn, want in (
+            ("all_reduce", lambda: _reduced(dist, t.clone()), [3.0] * 4),
+            ("broadcast", lambda: _broadcast(dist, t.clone()), [1.0] * 4),
+            ("all_gather", gathered, [1.0] * 4 + [2.0] * 4)):
+        try:
+            got = fn().cpu().tolist()
+            out[name] = "accepted" if got == want else f"wrong: {got}"
+        except Exception as e:  # noqa: BLE001 — the refusal is the answer
+            out[name] = (f"refused: {type(e).__name__}: "
+                         f"{(str(e).splitlines() or [''])[0][:240]}")
+    return out
+
+
+def _reduced(dist, t):
+    dist.all_reduce(t)
+    return t
+
+
+def _broadcast(dist, t):
+    dist.broadcast(t, 0)
+    return t
+
+
+def gloo_p2p_probe(torch) -> dict:
+    """One isend/irecv pair of CUDA tensors between the two gloo ranks,
+    directly: 'accepted' when the received tensor is the peer's."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    got = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t, 1 - rank),
+           dist.P2POp(dist.irecv, got, 1 - rank)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    ok = got.cpu().tolist() == [float(2 - rank)] * 4
+    return {"error": None if ok else f"wrong: {got.cpu().tolist()}"}
+
+
+def dist_ring(torch, seed) -> dict:
+    """ring_psum over the two gloo ranks with a bf16 wire, of a CUDA
+    leaf (its hops through the host, the helper's named path) and of the
+    same values on the CPU: equal bit for bit, and within the bf16
+    wire's tolerance of the plain sum."""
+    import torch.distributed as dist
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+    from kubeml_tpu_torch.parallel.collectives import ring_psum
+
+    lanes = torch.from_numpy(np.random.default_rng(seed + 25).standard_normal(
+        (2, 4099)).astype(np.float32))
+    dl.exchange.calls = 0
+    on_card = ring_psum(lanes[dist.get_rank()].cuda(), None, torch.bfloat16)
+    on_host = ring_psum(lanes[dist.get_rank()], None, torch.bfloat16)
+    total = lanes.sum(0)
+    return {"equal": bool(torch.equal(on_card.cpu(), on_host)),
+            "max_abs_err": float((on_host - total).abs().max()),
+            "within": bool(torch.allclose(on_host, total, rtol=TOL["bf16"],
+                                          atol=TOL["bf16"])),
+            "exchanges": dl.exchange.calls, "n": int(total.numel())}
+
+
+def dist_child(mode, outdir, seed) -> int:
+    """A rank of phase 23, started by dist_launch with the KUBEML_*
+    environment: 'nccl' (a): the rounds over NCCL; 'gloo' (b) + (c): the
+    rounds, the job and the gloo probe; 'gloo-p2p': an isend/irecv pair
+    of CUDA tensors over gloo; 'nccl-dup': two NCCL ranks on one card,
+    the error NCCL gives. Writes its rows under ``outdir``."""
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    if mode == "nccl-dup":
+        rank = int(os.environ["KUBEML_PROCESS_ID"])
+        rows = {}
+        try:
+            dl.initialize(timeout=DIST_DUP_S)
+            dist.all_reduce(torch.ones(1, device="cuda"))
+            torch.cuda.synchronize()
+            rows["error"] = None
+        except Exception as e:  # noqa: BLE001 — the error is the answer
+            rows["error"] = f"{type(e).__name__}: {e}"[:2000]
+        with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+            json.dump(rows, f)
+        os._exit(0)          # no teardown of a communicator that failed
+    dl.initialize(backend=None if mode == "nccl" else "gloo",
+                  timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    if mode == "gloo-p2p":
+        with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+            json.dump(gloo_p2p_probe(torch), f)
+        dl.shutdown()
+        return 0
+    rows = {"world": dl.world_size(), "backend": dist.get_backend()}
+    for name, knobs in DIST_STRATEGIES:
+        out = dist_rounds(torch, seed, name, knobs)
+        torch.save({"state": out.pop("state"), "resid": out.pop("resid")},
+                   os.path.join(outdir, f"{mode}_{name}_p{rank}.pt"))
+        rows[name] = out
+    if mode == "gloo":
+        job = dist_job(torch, seed, outdir, rank)
+        torch.save(job.pop("state"), os.path.join(outdir, f"job_p{rank}.pt"))
+        rows["job"] = job
+        rows["ring"] = dist_ring(torch, seed)
+        rows["probe"] = gloo_cuda_probe(torch)
+    with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dl.shutdown()
+    return 0
+
+
+def dist_launch(card, mode, world, outdir, seed, limit_s=DIST_CHILD_S,
+                probe=False) -> list:
+    """``world`` ranks of dist_child(mode) as children of this process,
+    with the KUBEML_* environment of tools/launch_distributed.py; each
+    must exit 0 within ``limit_s`` (else all are killed and the phase
+    fails; a ``probe`` records the silence as its answer). Returns each
+    rank's rows."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, KUBEML_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   KUBEML_NUM_PROCESSES=str(world), KUBEML_PROCESS_ID=str(r))
+        logf = open(os.path.join(outdir, f"{mode}_p{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", DIST_CHILD, here, mode, outdir,
+             str(seed)], env=env, stdout=logf, stderr=subprocess.STDOUT),
+            logf))
+    deadline = time.monotonic() + limit_s
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, logf in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    codes = [proc.returncode for proc, _ in procs]
+    if probe:
+        rows = []
+        for r in range(world):
+            path = os.path.join(outdir, f"{mode}_p{r}.json")
+            if codes[r] == 0 and os.path.exists(path):
+                with open(path) as f:
+                    rows.append(json.load(f))
+            else:
+                with open(os.path.join(outdir, f"{mode}_p{r}.log")) as f:
+                    said = [ln.strip() for ln in f if ln.strip()
+                            and "socket.cpp" not in ln]
+                rows.append({"error": f"exit {codes[r]} (killed after "
+                             f"{limit_s:g} s if -9): "
+                             + " | ".join(said[-3:])[-600:]})
+        return rows
+    if any(codes):
+        for r in range(world):
+            with open(os.path.join(outdir, f"{mode}_p{r}.log")) as f:
+                log(card, f"dist {mode} rank {r} exit {codes[r]}; log tail:"
+                    f"\n{f.read()[-4000:]}")
+        raise RuntimeError(f"phase 23 {mode}: ranks exited {codes}")
+    rows = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"{mode}_p{r}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def dist_equal(torch, a, b) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_dist(torch, card, seed) -> dict:
+    """Phase 23: data lanes as ranks (see the module docstring). The
+    ranks are children of this process; this process joins no group and
+    runs the one-process rounds and job they are held to. Returns the
+    launches of (a)-(c) for the kernels line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="kubeml_dist_") as tmp:
+        ref = {name: dist_rounds(torch, seed, name, knobs)
+               for name, knobs in DIST_STRATEGIES}
+        layers = ref["bucketed"]["layers"]
+        for name, r in ref.items():
+            assert r["calls"] == dict.fromkeys(r["calls"], 0), r["calls"]
+        # (a) one rank over NCCL, the 2 lanes on it
+        (a,) = dist_launch(card, "nccl", 1, tmp, seed)
+        assert (a["world"], a["backend"]) == (1, "nccl"), a
+        # (b) + (c) two ranks on the one card over gloo, one lane each
+        b = dist_launch(card, "gloo", 2, tmp, seed)
+        assert all((x["world"], x["backend"]) == (2, "gloo") for x in b)
+        for name, _ in DIST_STRATEGIES:
+            want = ref[name]
+            plan = merge_counts(want["buckets"], 1)
+            one = torch.load(os.path.join(tmp, f"nccl_{name}_p0.pt"))
+            assert dist_equal(torch, one["state"], want["state"]), name
+            assert dist_equal(torch, one["resid"], want["resid"]), name
+            assert a[name]["counts"] == {
+                **{k: layers * want["steps"] for k in
+                   ("forward", "dK/dV", "dQ")}, **plan}, a[name]["counts"]
+            assert a[name]["calls"] == dist_plan_collectives(
+                name, want["buckets"]), a[name]["calls"]
+            assert a[name]["h2d_bytes"] == want["h2d_bytes"], name
+            log(card, f"dist (a) gpt-mini {name}, 1 NCCL rank holding "
+                f"{DIST_LANES} lanes: weights and EF residuals after "
+                f"{DIST_ROUNDS} rounds equal the same rounds without a group "
+                f"bit for bit ({len(want['state'])} tensors, "
+                f"{len(want['resid'])} residuals); round {DIST_ROUNDS}: "
+                f"launches {a[name]['counts']} (= {layers} layers x "
+                f"{want['steps']} steps, {want['buckets']} buckets x 1 "
+                f"merge), NCCL collectives {a[name]['calls']}; "
+                f"{a[name]['ms']:.3f} ms a round against "
+                f"{want['ms']:.3f} ms without a group")
+            ranks = [torch.load(os.path.join(tmp, f"gloo_{name}_p{r}.pt"))
+                     for r in range(2)]
+            assert dist_equal(torch, ranks[0]["state"], ranks[1]["state"])
+            assert dist_equal(torch, ranks[0]["state"], want["state"]), name
+            for r, rk in enumerate(ranks):
+                assert set(rk["resid"]) == set(want["resid"]), name
+                for k, v in want["resid"].items():
+                    assert torch.equal(rk["resid"][k],
+                                       v.reshape(DIST_LANES, -1)[r]), (k, r)
+            steps = [b[r][name]["steps"] for r in range(2)]
+            assert sum(steps) == want["steps"], steps
+            # a rank copies only its own lane's workers' batch rows
+            assert [b[r][name]["h2d_bytes"] for r in range(2)] == [
+                want["h2d_bytes"] // 2] * 2, (b[0][name], want["h2d_bytes"])
+            for r in range(2):
+                assert b[r][name]["counts"] == {
+                    **{k: layers * steps[r] for k in
+                       ("forward", "dK/dV", "dQ")}, **plan}, \
+                    (r, b[r][name]["counts"])
+                assert b[r][name]["calls"] == dist_plan_collectives(
+                    name, want["buckets"]), b[r][name]["calls"]
+                assert b[r][name]["loss"] == want["loss"], (r, name)
+            log(card, f"dist (b) gpt-mini {name}, 2 gloo ranks on one card, "
+                f"1 lane each: both ranks' weights equal each other and "
+                f"the one-process {DIST_LANES}-lane rounds bit for bit, each "
+                f"rank's EF residuals its lane's slice; round "
+                f"{DIST_ROUNDS}: launches rank 0 {b[0][name]['counts']}, "
+                f"rank 1 {b[1][name]['counts']} (#5 once a merge on each "
+                f"rank), collectives {b[0][name]['calls']}; batch bytes "
+                f"copied to the card a rank {b[0][name]['h2d_bytes']} "
+                f"against {want['h2d_bytes']} in one process; ms a round "
+                f"{b[0][name]['ms']:.3f} / {b[1][name]['ms']:.3f} (ranks 0 "
+                f"/ 1) against {want['ms']:.3f} in one process")
+            out[name] = {"nccl": a[name]["counts"],
+                         "gloo": [b[r][name]["counts"] for r in range(2)],
+                         "nccl_ms": a[name]["ms"],
+                         "gloo_ms": [b[r][name]["ms"] for r in range(2)],
+                         "one_process_ms": want["ms"]}
+        # (c) the two-rank job against the one-process job
+        single = dist_job(torch, seed, tmp, None)
+        jobs = [b[r]["job"] for r in range(2)]
+        assert jobs[0]["history"] == jobs[1]["history"], jobs
+        assert jobs[0]["history"] == single["history"], (jobs, single)
+        states = [torch.load(os.path.join(tmp, f"job_p{r}.pt"))
+                  for r in range(2)]
+        assert dist_equal(torch, states[0], states[1])
+        assert dist_equal(torch, states[0], single["state"])
+        steps, rounds, evals = _epoch_counts(
+            2, 2, n_train=DIST_JOB_TRAIN, n_test=DIST_JOB_TEST, k=JOB_K,
+            batch=JOB_B)
+        plan = merge_counts(JOB_BUCKETS, rounds)
+        # worker r (lane r) trains on rank r; every rank validates it all
+        mine = dist_worker_steps(DIST_JOB_TRAIN, 2)
+        assert sum(mine) == steps, (mine, steps)
+        for r, job in enumerate(jobs):
+            assert job["counts"] == {
+                "forward": layers * (mine[r] + evals),
+                "dK/dV": layers * mine[r], "dQ": layers * mine[r],
+                **plan}, (r, job["counts"])
+        assert single["counts"] == {
+            "forward": layers * (steps + evals), "dK/dV": layers * steps,
+            "dQ": layers * steps, **plan}, single["counts"]
+        ms = [1e3 * j["seconds"] / steps for j in (*jobs, single)]
+        log(card, f"dist (c) TrainJob gpt-mini ef_bf16 N=2, 1 epoch over "
+            f"{DIST_JOB_TRAIN} + {DIST_JOB_TEST} windows, 2 gloo ranks of 1 "
+            f"lane: both ranks' histories equal each other and the "
+            f"one-process job's ({jobs[0]['history']['train_loss']}), "
+            f"final weights bit for bit; launches rank 0 "
+            f"{jobs[0]['counts']}, rank 1 {jobs[1]['counts']} (= {layers} "
+            f"layers x ({mine} steps + {evals} eval slots), {JOB_BUCKETS} "
+            f"buckets x {rounds} merges), one process {single['counts']}; "
+            f"collectives a rank "
+            f"{jobs[0]['calls']}; ms per local step {ms[0]:.3f} / "
+            f"{ms[1]:.3f} (ranks 0 / 1, {steps} local steps between them) "
+            f"against {ms[2]:.3f} in one process")
+        out["job"] = {"gloo": [j["counts"] for j in jobs],
+                      "one_process": single["counts"],
+                      "ms_per_step": ms[:2], "one_process_ms": ms[2]}
+        ring = [x["ring"] for x in b]
+        assert all(x["equal"] and x["within"] for x in ring), ring
+        assert ring[0]["exchanges"] == 2 * (2 - 1) * 2, ring
+        log(card, f"dist ring_psum over the 2 gloo ranks, bf16 wire, "
+            f"{ring[0]['n']} f32 elements: a CUDA leaf (each of its "
+            f"{ring[0]['exchanges'] // 2} hops through the host) equals the "
+            f"same values' ring on the CPU bit for bit on both ranks; "
+            f"max|err| against the plain sum {ring[0]['max_abs_err']:.3g} "
+            f"(within atol = rtol = {TOL['bf16']:g})")
+        out["ring"] = ring[0]
+        probe = b[0]["probe"]
+        assert probe == b[1]["probe"], (probe, b[1]["probe"])
+        p2p = dist_launch(card, "gloo-p2p", 2, tmp, seed,
+                          limit_s=DIST_DUP_S, probe=True)
+        probe["send/recv"] = [d["error"] or "accepted" for d in p2p]
+        log(card, f"dist gloo with CUDA tensors (tried directly): {probe}")
+        out["gloo_cuda"] = probe
+        # NCCL and two ranks on one device: the error NCCL gives
+        dup = dist_launch(card, "nccl-dup", 2, tmp, seed,
+                          limit_s=2 * DIST_DUP_S, probe=True)
+        log(card, f"dist NCCL with 2 ranks on one card: rank 0 "
+            f"{dup[0]['error']!r}; rank 1 {dup[1]['error']!r}")
+        out["nccl_two_ranks_one_card"] = [d["error"] for d in dup]
+    log(card, f"dist phase 23: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def dist_launches(dist, kernel) -> dict:
+    """A kernel's phase-23 launches for the kernels line: (a) and (b) per
+    strategy (round 2 of each run; (b) per rank), (c) per rank and in one
+    process."""
+    return {"rounds": {name: {"nccl_one_rank": dist[name]["nccl"][kernel],
+                              "gloo_ranks": [c[kernel] for c in
+                                             dist[name]["gloo"]]}
+                       for name, _ in DIST_STRATEGIES},
+            "job_ranks": [c[kernel] for c in dist["job"]["gloo"]],
+            "job_one_process": dist["job"]["one_process"][kernel]}
+
+
 def phase_merge_only(torch, card, seed) -> dict:
     """--merge-only: what two trees of the port are compared by, through
     calls every tree with the fused merge has: (a) the one-segment
@@ -7624,9 +8177,10 @@ def run(torch, seed) -> list:
     text = timed(20, phase_text, torch, card, seed)
     mv = timed(21, phase_moe_vgg, torch, card, seed)
     sync = timed(22, phase_syncdp, torch, card, seed)
+    dist = timed(23, phase_dist, torch, card, seed)
     log(card, "wall by phase (s): " + ", ".join(
         f"{p}: {w:.3f}" for p, w in walls.items())
-        + f"; phases 1-22 {sum(walls.values()):.3f}")
+        + f"; phases 1-23 {sum(walls.values()):.3f}")
     drafts = ("self-draft", "other-draft")
 
     paged = [{
@@ -7658,6 +8212,7 @@ def run(torch, seed) -> list:
                          if p == pages],
         "moe_vgg_launches": 0,       # phase 21 serves nothing
         "syncdp_launches": 0,        # phase 22 serves nothing
+        "dist_launches": 0,          # phase 23 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -7698,6 +8253,9 @@ def run(torch, seed) -> list:
         "syncdp_launches": sync_launches(sync, kernel),
         "syncdp_shapes": [r for (_, k), r in sync["flash"].items()
                           if k == kernel],
+        # phase 23: the rounds over one NCCL rank and two gloo ranks, the
+        # two-rank job per rank and in one process
+        "dist_launches": dist_launches(dist, kernel),
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -7736,6 +8294,10 @@ def run(torch, seed) -> list:
                 syncdp_launches=sync_launches(sync, "fused_merge"),
                 syncdp_segments=sync_launches(sync, "merge segments"),
                 syncdp_count1=sync["count1"],
+                # phase 23: launches and segments of the ranks' rounds and
+                # job (one launch a merge on every rank)
+                dist_launches=dist_launches(dist, "fused_merge"),
+                dist_segments=dist_launches(dist, "merge segments"),
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -7804,6 +8366,12 @@ def main(argv=None) -> int:
                          "at gpt-mini's widths, card vs CPU, #5 at its "
                          "count-1 call, a skipped step, a job), printing "
                          "its launches and rows as one JSON line and no "
+                         "result line")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "23 alone (data lanes as ranks: one NCCL rank, two "
+                         "gloo ranks on the card, a two-rank job), printing "
+                         "its launches and times as one JSON line and no "
                          "result line")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
@@ -7946,6 +8514,11 @@ def main(argv=None) -> int:
                           sync["flash"].items()},
                 "job": {k: v for k, v in sync["job"].items()
                         if k != "launches"}}}))
+            return 0
+        if args.dist_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            print(json.dumps({"card": card, "dist": phase_dist(
+                torch, card, args.seed)}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

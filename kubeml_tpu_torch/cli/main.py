@@ -29,7 +29,9 @@ the port, raises without a card unless it is given ``cpu``.
 Options whose module is not ported still parse, and are refused where the
 port refuses them, naming the ROADMAP item that brings them: ``train``
 runs the job's own check (``train.job.reject_unported``) before it
-submits; ``serve`` refuses the JAX package's multi-host flags.
+submits. ``serve --coordinator HOST:PORT --num-processes N --process-id R``
+(or the ``KUBEML_*`` environment of ``tools/launch_distributed.py``) joins
+a process group first; ``--mesh-data D`` runs every job over D lanes.
 ``serve --serve-decode-steps K --serve-draft-model ID`` turns on the
 multi-step and speculative decode programs. ``dataset append`` commits a
 generation of a continual dataset, and ``train --continual`` (``-e 0``
@@ -58,11 +60,6 @@ from kubeml_tpu_torch.api.errors import KubeMLException
 from kubeml_tpu_torch.api.types import TrainOptions, TrainRequest
 from kubeml_tpu_torch.control.client import KubemlClient
 from kubeml_tpu_torch.metrics.ledger import attributed_from_snapshot
-
-# the JAX package's multi-host bring-up; the port's lanes over several
-# cards come with this ROADMAP item
-LANES = "lanes over NCCL, ROADMAP A.7"
-
 
 def _client(args) -> KubemlClient:
     return KubemlClient(args.controller or None)
@@ -691,18 +688,9 @@ def cmd_top(args):
 
 # --------------------------------------------------------------------- serve
 
-def _refuse_unported_serve_flags(args) -> None:
-    """The JAX package's multi-host flags parse but refuse any value but
-    their default, naming the ROADMAP item that brings them. The durable
-    control plane runs with --role all only: a single role would drop its
-    flags silently."""
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            _fail(f"--{flag.replace('_', '-')} is not ported yet to "
-                  f"kubeml_tpu_torch (comes with {LANES})")
-    if args.mesh_data:
-        _fail(f"--mesh-data is not ported yet to kubeml_tpu_torch (comes "
-              f"with {LANES})")
+def _refuse_serve_flags(args) -> None:
+    """The durable control plane runs with --role all only: a single role
+    would drop its flags silently."""
     if args.role != "all" and (args.control_durable or args.control_dir):
         _fail("--control-durable and --control-dir need --role all (the "
               "scheduler's and the PS's state recover together)")
@@ -741,10 +729,19 @@ def cmd_serve(args):
     control plane in one process; a single role binds only that service
     and reaches its peers through the --*-url flags / KUBEML_*_URL env.
     Jobs (threaded, or standalone children) and /infer run on --device:
-    the card unless it is `cpu`."""
+    the card unless it is `cpu`, over --mesh-data lanes. A multi-process
+    deployment joins its process group first (--coordinator,
+    --num-processes, --process-id, else the KUBEML_* environment of
+    tools/launch_distributed.py; a no-op on a single host)."""
     from kubeml_tpu_torch.api import const
+    from kubeml_tpu_torch.parallel.distributed import initialize
 
-    _refuse_unported_serve_flags(args)
+    _refuse_serve_flags(args)
+    try:
+        initialize(args.coordinator, args.num_processes, args.process_id,
+                   device=args.device)
+    except (RuntimeError, ValueError) as e:   # no card; a failed join
+        _fail(str(e))
     partitions = None
     if args.job_partition:
         try:
@@ -765,6 +762,7 @@ def cmd_serve(args):
                                    cluster_aging_s=args.cluster_aging_s,
                                    control_durable=args.control_durable,
                                    control_dir=args.control_dir,
+                                   n_lanes=args.mesh_data or 1,
                                    **_serve_knobs(args))
             print(f"controller: {svc.controller.url}")
             print(f"scheduler:  {svc.scheduler.url}")
@@ -790,6 +788,7 @@ def cmd_serve(args):
             if args.device is None:
                 require_cuda()  # as start_deployment: before binding
             svc = ParameterServer(device=args.device,
+                                  n_lanes=args.mesh_data or 1,
                                   port=args.port or const.PS_PORT,
                                   scheduler_url=args.scheduler_url,
                                   standalone_jobs=args.standalone_jobs
@@ -1078,15 +1077,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device of the jobs and /infer (default: the "
                         "CUDA card; `cpu` runs them on the CPU)")
     s.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host coordinator (the JAX package's "
-                        "jax.distributed bring-up; refused here until "
-                        f"lanes run over NCCL, {LANES})")
+                   help="multi-process coordinator (rank 0's address; "
+                        "default: $KUBEML_COORDINATOR_ADDRESS)")
     s.add_argument("--num-processes", type=int, default=None,
-                   help=f"multi-host process count (refused, {LANES})")
+                   help="multi-process process count (default: "
+                        "$KUBEML_NUM_PROCESSES)")
     s.add_argument("--process-id", type=int, default=None,
-                   help=f"multi-host process index (refused, {LANES})")
+                   help="this process's rank (default: $KUBEML_PROCESS_ID)")
     s.add_argument("--mesh-data", type=int, default=0,
-                   help=f"data-axis size (refused, {LANES})")
+                   help="data lanes of every job (default 1)")
     s.add_argument("--free-ports", action="store_true")
     s.add_argument("--role", default="all",
                    choices=["all", "controller", "scheduler", "ps",

@@ -131,7 +131,7 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
                      cluster_aging_s: Optional[float] = None,
                      control_durable: bool = False,
                      control_dir: Optional[str] = None,
-                     **serve) -> Deployment:
+                     n_lanes: int = 1, **serve) -> Deployment:
     """Start storage, PS, scheduler, controller wired together.
 
     ``device`` is where the jobs run: None means CUDA, and the call
@@ -140,8 +140,9 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
     ports (api/const.py). standalone_jobs runs each job in its own
     ``kubeml_tpu_torch.train.jobserver`` process; job_partitions gives
     concurrent standalone jobs an env dict each (CUDA_VISIBLE_DEVICES),
-    naming at most the cards present. The serve_* knobs (SERVE_KNOBS) go
-    to the PS's serving plane.
+    naming at most the cards present. n_lanes is the data lanes of every
+    job (``kubeml serve --mesh-data``). The serve_* knobs (SERVE_KNOBS)
+    go to the PS's serving plane.
 
     cluster_lanes > 0 turns on the cluster allocator (control/cluster.py)
     over that many shared worker lanes, with cluster_tenants
@@ -183,7 +184,7 @@ def start_deployment(device: DeviceLike = None, controller_port: int = 0,
                          standalone_jobs=standalone_jobs or None,
                          job_partitions=job_partitions,
                          infer_cache_size=infer_cache_size,
-                         state_dir=state_dir, **serve)
+                         state_dir=state_dir, n_lanes=n_lanes, **serve)
     storage = StorageService(port=storage_port, registry=ps.ds_registry)
     storage.start()
     ps.start()

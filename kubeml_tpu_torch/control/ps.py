@@ -131,6 +131,7 @@ from kubeml_tpu_torch.data.registry import DatasetRegistry
 from kubeml_tpu_torch.metrics.ledger import attributed_from_snapshot
 from kubeml_tpu_torch.metrics.prom import MetricsRegistry
 from kubeml_tpu_torch.models.base import InferenceInputError, KubeDataset
+from kubeml_tpu_torch.parallel.distributed import CLUSTER_ENV_VARS
 from kubeml_tpu_torch.train.checkpoint import (checkpoint_saved_at,
                                                load_checkpoint)
 from kubeml_tpu_torch.train.functionlib import FunctionRegistry
@@ -396,12 +397,14 @@ class ParameterServer(JsonService):
                  serve_slo_ttft_ms: Optional[float] = None,
                  serve_slo_tpot_ms: Optional[float] = None,
                  serve_slo_target: Optional[float] = None,
-                 state_dir: Optional[str] = None):
+                 state_dir: Optional[str] = None, n_lanes: int = 1):
         super().__init__(port=port)
         # resolved at first use (a threaded job or an /infer): in
         # standalone mode the parent leaves the card to its children
         self._device_arg = device
         self._device: Optional[torch.device] = None
+        # data lanes of every job (``kubeml serve --mesh-data``)
+        self.n_lanes = int(n_lanes)
         self.scheduler_url = scheduler_url
         if standalone_jobs is None:  # reference env toggle, main.go:115-133
             standalone_jobs = os.environ.get(
@@ -1311,7 +1314,7 @@ class ParameterServer(JsonService):
         dataset = (dataset_cls(task.parameters.dataset) if dataset_cls
                    else KubeDataset(task.parameters.dataset))
         job = TrainJob(task, model_cls(), dataset, device=self.device,
-                       registry=self.ds_registry,
+                       n_lanes=self.n_lanes, registry=self.ds_registry,
                        history_store=self.history_store,
                        callbacks=JobCallbacks(
                            request_parallelism=self._request_parallelism,
@@ -1387,9 +1390,16 @@ class ParameterServer(JsonService):
                "--port-file", port_file]
         if self._device_arg is not None:
             cmd += ["--device", str(self._device_arg)]
+        if self.n_lanes > 1:
+            cmd += ["--mesh-data", str(self.n_lanes)]
         if self.scheduler_url:
             cmd += ["--scheduler-url", self.scheduler_url]
         env = dict(os.environ)
+        # the child must not inherit this process's rank: it would join
+        # the parent's group as that rank and hang it. Every family that
+        # declares a cluster goes (parallel/distributed.py)
+        for var in CLUSTER_ENV_VARS:
+            env.pop(var, None)
         if rec.partition is not None:
             env.update(self.job_partitions[rec.partition])
             logger.info("job %s leased device partition %d (%s)",

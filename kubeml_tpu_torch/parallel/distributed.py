@@ -1,0 +1,290 @@
+"""Data lanes as ``torch.distributed`` ranks (twin of
+kubeml_tpu/parallel/distributed.py).
+
+The JAX package scales out with JAX's multi-controller runtime: every
+process runs the same program, ``jax.distributed`` forms the cluster, and
+the K-avg merge is one psum over a ``data`` mesh axis that spans every
+process. Here every process (a rank) runs the same program too,
+``torch.distributed`` forms the group, and the ``data`` axis is laid out
+over the ranks: each rank runs the workers of its own lanes, and the
+cross-lane sums of the merge become all-reduces across ranks
+(``parallel/merge.py``, ``parallel/kavg.py``).
+
+  initialize(...)   join (or bootstrap) the group through the same
+                    ``KUBEML_*`` environment contract as the JAX package
+                    (``tools/launch_distributed.py`` sets it); explicit
+                    arguments win. With no arguments and no cluster
+                    environment it is a quiet single-process no-op; a
+                    failed join with arguments, or with a cluster
+                    environment present, raises (N independent copies
+                    of a model would be wrong results, not a degraded
+                    service).
+  lane_layout(D)    D lanes over the ranks, slice-major as the JAX
+                    package's ``make_multislice_mesh`` orders its data
+                    axis: lane d on rank d // (D / world).
+  rank_device(...)  a rank's device: ``cuda:(rank % device_count)``
+                    through ``_device.resolve_device`` (which raises
+                    without a card unless the caller asks for the CPU).
+
+The backend follows the device the caller resolved: NCCL for CUDA, gloo
+for the CPU. ``backend="gloo"`` on CUDA is allowed (two ranks on one
+card: NCCL refuses two ranks on one device). There is never a quiet
+switch from one backend to the other: a failed NCCL join raises.
+
+The collective helpers below (``all_reduce``, ``all_gather_cat``,
+``barrier``, ``exchange``) are what the engines and the job call. Each
+is the identity at world size 1 without a group, and each adds one to
+its ``calls`` count where it issues a collective. The gloo backend
+takes CUDA tensors for the all-reduce and the all-gather; for the
+point-to-point exchange of the ring (``parallel/collectives.py``)
+``exchange`` moves CUDA tensors through the host on gloo: the named
+path, never a silent one.
+"""
+
+from __future__ import annotations
+
+import atexit
+import datetime
+import logging
+import os
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+from kubeml_tpu_torch._device import DeviceLike, resolve_device
+
+logger = logging.getLogger("kubeml_tpu_torch.distributed")
+
+# Every environment family that can make a process believe it belongs to
+# a cluster (a copy of the JAX package's tuple): the launcher's own
+# variables plus every family the JAX package auto-detects. The PS strips
+# them from standalone job children (control/ps.py): a child inheriting
+# its parent's rank re-joins the parent's group and hangs it.
+CLUSTER_ENV_VARS = (
+    "KUBEML_COORDINATOR_ADDRESS", "KUBEML_NUM_PROCESSES",
+    "KUBEML_PROCESS_ID",
+    "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+    "MEGASCALE_COORDINATOR_ADDRESS", "MEGASCALE_NUM_SLICES",
+    "MEGASCALE_SLICE_ID",
+    "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID",
+    "SLURM_NTASKS", "SLURM_PROCID", "SLURM_JOB_ID",
+    "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
+)
+
+def _cluster_env_present() -> bool:
+    """True when the environment declares a MULTI-process cluster (a copy
+    of the JAX package's rule). A failed join must then raise. Single-host
+    values (TPU_WORKER_HOSTNAMES=localhost) do not count."""
+    if os.environ.get("JAX_COORDINATOR_ADDRESS") \
+            or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS") \
+            or os.environ.get("KUBEML_COORDINATOR_ADDRESS"):
+        return True
+    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
+    if len([h for h in hosts.split(",") if h.strip()]) > 1:
+        return True
+    for var in ("SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"):
+        try:
+            if int(os.environ.get(var, "1")) > 1:
+                return True
+        except ValueError:
+            pass
+    return False
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def is_coordinator() -> bool:
+    """True on the process that runs the control plane and writes what
+    one process must write (rank 0); every rank is one without a group."""
+    return rank() == 0
+
+
+def rank_device(device: DeviceLike = None,
+                rank_: Optional[int] = None) -> torch.device:
+    """This rank's device: ``cuda:(rank % device_count)`` for CUDA (the
+    default), the CPU when asked for; raises without a card unless the
+    CPU is asked for (``_device.resolve_device``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        resolve_device(dev)            # raises without a CUDA device
+        r = rank() if rank_ is None else rank_
+        dev = torch.device("cuda", r % torch.cuda.device_count())
+    return resolve_device(dev)
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               backend: Optional[str] = None, device: DeviceLike = None,
+               timeout: Optional[float] = None) -> None:
+    """Join the process group (idempotent).
+
+    The ``KUBEML_COORDINATOR_ADDRESS`` / ``KUBEML_NUM_PROCESSES`` /
+    ``KUBEML_PROCESS_ID`` variables fill the arguments not given; the
+    coordinator (``host:port``) is rank 0's TCP store
+    (``init_method="tcp://host:port"``). ``backend`` None follows
+    ``device`` (None = CUDA: NCCL, with this rank's card made current;
+    ``"cpu"``: gloo). ``timeout`` (seconds) bounds the join and every
+    collective (torch's default otherwise: 30 minutes for gloo).
+
+    With no arguments and no cluster environment this returns quietly:
+    a single-process run. A join that fails with arguments, or with a
+    cluster environment present, raises.
+    """
+    if is_initialized():
+        return
+    if coordinator_address is None:
+        coordinator_address = os.environ.get("KUBEML_COORDINATOR_ADDRESS")
+    if num_processes is None and os.environ.get("KUBEML_NUM_PROCESSES"):
+        num_processes = int(os.environ["KUBEML_NUM_PROCESSES"])
+    if process_id is None and os.environ.get("KUBEML_PROCESS_ID"):
+        process_id = int(os.environ["KUBEML_PROCESS_ID"])
+    given = (coordinator_address, num_processes, process_id)
+    if all(v is None for v in given):
+        if _cluster_env_present():
+            raise RuntimeError(
+                "the environment declares a multi-process cluster "
+                "(CLUSTER_ENV_VARS) but not the KUBEML_COORDINATOR_ADDRESS"
+                " / KUBEML_NUM_PROCESSES / KUBEML_PROCESS_ID this "
+                "runtime joins by; refusing to train alone")
+        logger.info("single-process run (no cluster arguments or "
+                    "environment)")
+        return
+    if any(v is None for v in given):
+        raise ValueError(
+            "joining a group needs a coordinator address, a process count "
+            f"and a process id (got {given})")
+    dev = rank_device(device, int(process_id))
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the NCCL backend needs a CUDA device")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kwargs = {}
+    if timeout is not None:
+        kwargs["timeout"] = datetime.timedelta(seconds=float(timeout))
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes),
+                            rank=int(process_id), **kwargs)
+    atexit.register(shutdown)
+    logger.info("joined group: rank %d/%d over %s on %s", rank(),
+                world_size(), backend, dev)
+
+
+def shutdown() -> None:
+    """Destroy the process group (at exit, or by the caller)."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ lane layout
+
+@dataclass(frozen=True)
+class LaneLayout:
+    """D data lanes over ``world`` ranks, slice-major: rank r holds lanes
+    [r * per_rank, (r + 1) * per_rank)."""
+    n_lanes: int
+    world: int
+    rank: int
+
+    @property
+    def per_rank(self) -> int:
+        return self.n_lanes // self.world
+
+    @property
+    def first_lane(self) -> int:
+        return self.rank * self.per_rank
+
+    @property
+    def local_lanes(self) -> range:
+        return range(self.first_lane, self.first_lane + self.per_rank)
+
+    def rank_of(self, lane: int) -> int:
+        return lane // self.per_rank
+
+
+def lane_layout(n_lanes: int, world: Optional[int] = None,
+                rank_: Optional[int] = None) -> LaneLayout:
+    """The layout of ``n_lanes`` over the group (the current one by
+    default); D must be a multiple of the world size."""
+    world = world_size() if world is None else int(world)
+    rank_ = rank() if rank_ is None else int(rank_)
+    if n_lanes < 1 or n_lanes % world:
+        raise ValueError(f"{n_lanes} lanes cannot be laid out over "
+                         f"{world} ranks (lanes % world must be 0)")
+    return LaneLayout(int(n_lanes), world, rank_)
+
+
+# ------------------------------------------------------------ collectives
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """The sum (or ``op="max"``) of ``t`` over the group's ranks, as a new
+    tensor; ``t`` itself at world size 1 without a group."""
+    if not is_initialized():
+        return t
+    out = t.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    all_reduce.calls += 1
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along dim 0 in rank order (equal
+    shapes on every rank); ``t`` itself without a group."""
+    if not is_initialized():
+        return t
+    parts: List[torch.Tensor] = [torch.empty_like(t) for _ in
+                                 range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    all_gather_cat.calls += 1
+    return torch.cat(parts)
+
+
+def barrier(group=None) -> None:
+    """Wait until every rank of the group reaches this point (nothing
+    without a group)."""
+    if is_initialized():
+        dist.barrier(group=group)
+        barrier.calls += 1
+
+
+def exchange(send: torch.Tensor, to: int, frm: int,
+             group=None) -> torch.Tensor:
+    """Send ``send`` to group rank ``to`` and receive a tensor of its
+    shape and dtype from group rank ``frm``, as one batched isend/irecv
+    pair (one ring hop). On gloo a CUDA tensor goes through the host:
+    gloo's all-reduce and all-gather take CUDA tensors, but its isend of
+    one fails in the transport (writev: Bad address; chip_smoke.py phase
+    23 tries each collective directly)."""
+    routed = send.is_cuda and dist.get_backend(group) == "gloo"
+    src = (send.cpu() if routed else send).contiguous()
+    recv = torch.empty_like(src)
+    peer = (lambda r: r) if group is None else \
+        (lambda r: dist.get_global_rank(group, r))
+    ops = [dist.P2POp(dist.isend, src, peer(to), group),
+           dist.P2POp(dist.irecv, recv, peer(frm), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    exchange.calls += 1
+    return recv.to(send.device)
+
+
+all_reduce.calls = 0
+all_gather_cat.calls = 0
+barrier.calls = 0
+exchange.calls = 0

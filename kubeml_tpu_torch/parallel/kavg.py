@@ -1,5 +1,6 @@
-"""K-step local SGD with weight averaging over data lanes on one device
-(twin of kubeml_tpu/parallel/kavg.py).
+"""K-step local SGD with weight averaging over data lanes (twin of
+kubeml_tpu/parallel/kavg.py), on one device or over the ranks of a
+process group.
 
 One sync round:
 
@@ -9,13 +10,23 @@ One sync round:
         add the resulting weights to its lane's f32 contribution sum,
     then merge (average) the lanes' sums over the workers that contributed.
 
-Lanes are the reference's ``data`` mesh axis laid out as a leading axis on
-one device: with ``n_lanes`` = D, lane d owns workers
-``[d * W / D, (d + 1) * W / D)`` and keeps its own contribution sum and
-contributor count. The merge strategy (``parallel/merge.py``: monolithic,
-bucketed with the fused merge-apply kernel, or error-feedback bf16/int8)
-reduces over the lanes; the EF strategies keep per-lane residuals as
-engine state from round to round.
+Lanes are the reference's ``data`` mesh axis: with ``n_lanes`` = D, lane
+d owns workers ``[d * W / D, (d + 1) * W / D)`` and keeps its own
+contribution sum and contributor count. Without a process group the lanes
+are a leading axis on one device. Under an initialized group
+(``parallel/distributed.py``) they are laid out over the ranks, slice-
+major (``lane_layout``: D % world == 0, lane d on rank d // (D / world)):
+every rank is handed the same round, copies to its device only the
+batch rows and sample masks of its own lanes' workers and runs only those
+workers, and the merge's lane sums, the contributor count and the spread
+moments are summed across ranks (all-reduces), so every rank holds the
+same merged weights. The per-worker [W] loss sums, drop flags and stat
+rows are gathered, so every rank returns the same ``RoundStats`` as the
+reference's replicated global arrays. The merge strategy
+(``parallel/merge.py``: monolithic, bucketed with the fused merge-apply
+kernel, or error-feedback bf16/int8) reduces over the lanes; the EF
+strategies keep the residuals of the rank's lanes as engine state from
+round to round.
 
 Semantics kept from the reference (``kavg.py:15-38``):
   - weights are averaged, dividing the f32 sum by the contributor count
@@ -78,8 +89,9 @@ import torch
 
 from kubeml_tpu_torch.metrics.ledger import CostLedger
 from kubeml_tpu_torch.models.base import module_state
+from kubeml_tpu_torch.parallel import distributed as dist_lib
 from kubeml_tpu_torch.parallel import merge as merge_lib
-from kubeml_tpu_torch.parallel.merge import _lane_sum
+from kubeml_tpu_torch.parallel.merge import _local_sum
 
 State = Dict[str, torch.Tensor]
 # loss_fn(module, batch, generator, sample_mask) -> per-example loss [B]
@@ -197,12 +209,16 @@ class KAvgEngine:
     and buffers (``module_state``), f32 like the module's own;
     ``train_round`` returns the merged ones.
 
-    n_lanes: data lanes D (the reference's ``data`` mesh axis); W must be
-    a multiple of it. merge_dtype (a floating torch dtype), merge_bucket_mb
-    and merge_compress ("none" | "bf16" | "int8") pick the merge strategy
-    as in the reference (``merge.make_strategy``). collect_stats adds the
-    per-worker health stats and the loss spread to ``RoundStats``; they
-    are extra outputs and change no weight.
+    n_lanes: data lanes D (the reference's ``data`` mesh axis), over the
+    ranks of the process group when one is initialized (D a multiple of
+    its world size); W must be a multiple of D. merge_dtype (a floating
+    torch dtype), merge_bucket_mb and merge_compress ("none" | "bf16" |
+    "int8") pick the merge strategy as in the reference
+    (``merge.make_strategy``; the reference's ring, ``use_ring``, is its
+    choice for meshes with inner axes, which come with ROADMAP A.6 and
+    A.12). collect_stats adds the per-worker health stats and the loss
+    spread to ``RoundStats``; they are extra outputs and change no
+    weight.
     """
 
     def __init__(self, module: torch.nn.Module, loss_fn: LossFn,
@@ -212,6 +228,8 @@ class KAvgEngine:
                  collect_stats: bool = False):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+        # this rank's lanes (every lane without a group)
+        self.layout = dist_lib.lane_layout(int(n_lanes))
         if merge_dtype is not None and not merge_dtype.is_floating_point:
             raise ValueError(f"merge_dtype must be a floating dtype, got "
                              f"{merge_dtype}")
@@ -230,8 +248,9 @@ class KAvgEngine:
             merge_dtype=merge_dtype, bucket_mb=self.merge_bucket_mb,
             compress=self.merge_compress)
         self._ef = self._merge.needs_residual
-        # per-lane EF residuals: flat [D * L] f32 tensors by bucket name,
-        # lane-major; None until the first compressed round
+        # the EF residuals of this rank's lanes: flat [D_local * L] f32
+        # tensors by bucket name, lane-major; None until the first
+        # compressed round
         self._ef_state: Optional[State] = None
         # the reference's program-cache keys: a dispatch whose key is new
         # is the one the reference compiles (and captures cost) at
@@ -298,12 +317,12 @@ class KAvgEngine:
         use and re-made when the bucket plan changes."""
         sizes = self._merge.residual_sizes(variables)
         state = self._ef_state
+        lanes = self.layout.per_rank
         if (state is not None and set(state) == set(sizes)
-                and all(state[k].numel() == self.n_lanes * n
+                and all(state[k].numel() == lanes * n
                         for k, n in sizes.items())):
             return state
-        self._ef_state = {k: torch.zeros(self.n_lanes * n,
-                                         device=self.device)
+        self._ef_state = {k: torch.zeros(lanes * n, device=self.device)
                           for k, n in sizes.items()}
         return self._ef_state
 
@@ -323,24 +342,32 @@ class KAvgEngine:
             raise ValueError(f"W={W} not a multiple of lanes={self.n_lanes}")
         return W // self.n_lanes
 
+    def _own(self, W: int) -> slice:
+        """This rank's workers of a round of W (every worker without a
+        group): the rows of the worker axis it copies to its device."""
+        per_lane = self._workers_per_lane(W)
+        w0 = self.layout.first_lane * per_lane
+        return slice(w0, w0 + self.layout.per_rank * per_lane)
+
     def _worker(self, variables: State, data: State, smasks: torch.Tensor,
-                step_mask: np.ndarray, rngs: np.ndarray, w: int, lr: float,
+                step_mask: np.ndarray, rngs: np.ndarray, lr: float,
                 epoch: int):
-        """K masked local steps of worker w from the round-start state:
-        (new state, loss sum, [3] stat sums or None)."""
+        """K masked local steps of one worker from the round-start state,
+        given its own [S, ...] rows of every array: (new state, loss sum,
+        [3] stat sums or None)."""
         dev = self.device
         self._load(variables)
         params = list(self._params.values())
         opt = self.tx_factory(lr, epoch)(params)
         loss_sum = torch.zeros((), device=dev)
         stat_sum = torch.zeros(3, device=dev) if self.collect_stats else None
-        for s in range(step_mask.shape[1]):
-            if step_mask[w, s] == 0:
+        for s in range(step_mask.shape[0]):
+            if step_mask[s] == 0:
                 continue                 # a padded step changes nothing
             loss = masked_scalar_loss(
                 self.loss_fn, self.module,
-                {k: v[w, s] for k, v in data.items()},
-                _generator(rngs[w, s], dev), smasks[w, s])
+                {k: v[s] for k, v in data.items()},
+                _generator(rngs[s], dev), smasks[s])
             opt.zero_grad(set_to_none=True)
             loss.backward()
             if self.collect_stats:
@@ -363,43 +390,56 @@ class KAvgEngine:
     def _round(self, variables: State, data: State, smasks: torch.Tensor,
                step_mask: np.ndarray, worker_mask: np.ndarray,
                rngs: np.ndarray, lr: float, epoch: int):
-        """One sync round on device-resident inputs: (merged weights,
-        loss sums [W], drops [W], stat rows [W, 3] or None, spread or
-        None)."""
+        """One sync round: (merged weights, loss sums [W], drops [W],
+        stat rows [W, 3] or None, spread or None). ``data`` and ``smasks``
+        are on the device and hold only this rank's workers (``_own``);
+        the host masks and rngs hold all W. Under a group this rank runs
+        the workers of its own lanes; the count, the moments and the lane
+        sums are summed across ranks, the per-worker rows gathered."""
         W = step_mask.shape[0]
         per_lane = self._workers_per_lane(W)
-        D, dev = self.n_lanes, self.device
+        D, dev = self.layout.per_rank, self.device
+        w0 = self.layout.first_lane * per_lane    # this rank's workers
         collect = self.collect_stats
         contrib = {n: torch.zeros((D, *v.shape), dtype=torch.float32,
                                   device=dev) for n, v in variables.items()}
         zero = torch.zeros((), device=dev)
-        loss_sums, dropped = [zero] * W, [zero] * W
-        stat_rows = [torch.zeros(3, device=dev)] * W
+        Wl = D * per_lane
+        loss_sums, dropped = [zero] * Wl, [zero] * Wl
+        stat_rows = [torch.zeros(3, device=dev)] * Wl
         eff = [zero] * D
         m1, m2 = [zero] * D, [zero] * D   # spread moments, per lane
-        for w in range(W):
+        for wl in range(Wl):
+            w = w0 + wl
             if worker_mask[w] == 0:
                 continue                 # masked out: contributes nothing
-            d = w // per_lane
+            d = wl // per_lane
             new, loss_sum, stat_sum = self._worker(
-                variables, data, smasks, step_mask, rngs, w, lr, epoch)
+                variables, {k: v[wl] for k, v in data.items()}, smasks[wl],
+                step_mask[w], rngs[w], lr, epoch)
             with torch.no_grad():
                 ok = tree_all_finite(new) & torch.isfinite(loss_sum)
                 for n, c in contrib.items():
                     c[d] += torch.where(ok, new[n], 0).float()
-                loss_sums[w] = torch.where(ok, loss_sum, zero)
-                dropped[w] = (~ok).float()
+                loss_sums[wl] = torch.where(ok, loss_sum, zero)
+                dropped[wl] = (~ok).float()
                 eff[d] = eff[d] + ok.float()
                 if collect:
                     # the same select-not-multiply guard as the loss: a
                     # dropped worker's NaN stats must not poison the sums
-                    stat_rows[w] = torch.where(ok, stat_sum, 0.0)
+                    stat_rows[wl] = torch.where(ok, stat_sum, 0.0)
                     mean_v = loss_sum / max(float(step_mask[w].sum()), 1.0)
                     safe = torch.where(ok, mean_v, 0.0)
                     m1[d] = m1[d] + safe
                     m2[d] = m2[d] + safe * safe
-        eff_count = torch.stack(eff)                 # [D] per-lane counts
-        raw_count = _lane_sum(eff_count)
+        eff_count = torch.stack(eff)           # [D_local] per-lane counts
+        # the count and the spread moments: the rank's lanes in lane
+        # order, then one sum across ranks
+        sums = dist_lib.all_reduce(torch.stack(
+            [_local_sum(eff_count)]
+            + ([_local_sum(torch.stack(m1)), _local_sum(torch.stack(m2))]
+               if collect else [])))
+        raw_count = sums[0]
         count = raw_count.clamp_min(1.0)   # guard the 0-contributor divide
         with torch.no_grad():
             avg, new_resid = self._merge.lane_merge(
@@ -411,11 +451,15 @@ class KAvgEngine:
         spread = None
         if collect:
             # population std of the merged workers' per-step mean losses
-            mean1 = _lane_sum(torch.stack(m1)) / count
-            mean2 = _lane_sum(torch.stack(m2)) / count
+            mean1 = sums[1] / count
+            mean2 = sums[2] / count
             spread = torch.sqrt((mean2 - mean1 * mean1).clamp_min(0.0))
-        return (avg, torch.stack(loss_sums), torch.stack(dropped),
-                torch.stack(stat_rows) if collect else None, spread)
+        # every worker's [loss, drop, 3 stats] row, in worker order
+        rows = dist_lib.all_gather_cat(torch.cat(
+            [torch.stack(loss_sums)[:, None], torch.stack(dropped)[:, None]]
+            + ([torch.stack(stat_rows)] if collect else []), dim=1))
+        return (avg, rows[:, 0], rows[:, 1],
+                rows[:, 2:] if collect else None, spread)
 
     @staticmethod
     def _masks(sample_mask, step_mask, worker_mask, rngs):
@@ -427,12 +471,14 @@ class KAvgEngine:
     def _single(self, variables: State, batch_fn: Callable[[], State],
                 sample_mask, step_mask, worker_mask, rngs, lr: float,
                 epoch: int, compiled: bool) -> Tuple[State, RoundStats]:
-        """One round over the device batch ``batch_fn()`` gives."""
+        """One round over the device batch ``batch_fn()`` gives (this
+        rank's workers)."""
         sample_mask, step_mask, worker_mask, rngs = self._masks(
             sample_mask, step_mask, worker_mask, rngs)
+        own = self._own(step_mask.shape[0])
         avg, loss_sums, dropped, stats, spread = self._round(
             variables, batch_fn(),
-            torch.as_tensor(sample_mask, device=self.device), step_mask,
+            torch.as_tensor(sample_mask[own], device=self.device), step_mask,
             worker_mask, rngs, lr, epoch)
         return avg, RoundStats(
             loss_sum_device=loss_sums,
@@ -445,10 +491,12 @@ class KAvgEngine:
     def _multi(self, variables: State, batch_fn: Callable[[int], State],
                sample_mask, step_mask, worker_mask, rngs, lr: float,
                epoch: int, compiled: bool) -> Tuple[State, RoundStats]:
-        """R rounds, round r over the device batch ``batch_fn(r)``."""
+        """R rounds, round r over the device batch ``batch_fn(r)`` (this
+        rank's workers)."""
         sample_mask, step_mask, worker_mask, rngs = self._masks(
             sample_mask, step_mask, worker_mask, rngs)
-        smasks = torch.as_tensor(sample_mask, device=self.device)
+        own = self._own(step_mask.shape[1])
+        smasks = torch.as_tensor(sample_mask[:, own], device=self.device)
         outs = []
         for r in range(step_mask.shape[0]):
             variables, *rest = self._round(
@@ -480,7 +528,10 @@ class KAvgEngine:
         key = (w_per_lane, tuple(np.shape(batch[tree[0]])[1:3]), tree,
                self.collect_stats)
         compiled = self._account("kavg.train", key, variables, sample_mask)
-        return self._single(variables, lambda: self._to_device(batch),
+        own = self._own(int(np.shape(step_mask)[0]))
+        return self._single(variables,
+                            lambda: self._to_device(
+                                {k: v[own] for k, v in batch.items()}),
                             sample_mask, step_mask, worker_mask, rngs, lr,
                             epoch, compiled)
 
@@ -503,26 +554,29 @@ class KAvgEngine:
                self.collect_stats)
         compiled = self._account("kavg.train_multi", key, variables,
                                  sample_mask)
-        data = self._to_device(batch)
+        own = self._own(int(W))
+        data = self._to_device({k: v[:, own] for k, v in batch.items()})
         return self._multi(variables,
                            lambda r: {k: v[r] for k, v in data.items()},
                            sample_mask, step_mask, worker_mask, rngs, lr,
                            epoch, compiled)
 
     def _gather(self, cache, idx) -> State:
-        """A round's batch from the device cache: the [W, S, B] gather
-        indices (lane-local into lane w // (W / D)'s slab for a sharded
-        cache, global for a replicated one) uploaded, the raw leaves
-        gathered on the device, then the dataset's device transform."""
+        """A round's batch from the device cache, this rank's workers: the
+        [W, S, B] gather indices (lane-local into lane w // (W / D)'s slab
+        for a sharded cache, global for a replicated one) of those workers
+        uploaded, the raw leaves gathered on the device, then the
+        dataset's device transform."""
+        W = int(np.shape(idx)[0])
+        own = self._own(W)
         lane = None
         if cache.layout == "sharded":
             if cache.n_lanes != self.n_lanes:
                 raise ValueError(f"a sharded cache of {cache.n_lanes} lanes "
                                  f"cannot feed {self.n_lanes} lanes")
-            W = int(np.shape(idx)[0])
-            lane = (torch.arange(W, device=self.device)
-                    // self._workers_per_lane(W)).view(W, 1, 1)
-        return gather_batch(cache, idx, self.device, lane)
+            lane = (torch.arange(own.start, own.stop, device=self.device)
+                    // self._workers_per_lane(W)).view(-1, 1, 1)
+        return gather_batch(cache, idx[own], self.device, lane)
 
     def train_round_indexed(self, variables: State, cache, idx: np.ndarray,
                             sample_mask: np.ndarray, step_mask: np.ndarray,

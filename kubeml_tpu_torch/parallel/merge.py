@@ -4,18 +4,26 @@ kubeml_tpu/parallel/merge.py).
 The K-avg round ends with a merge over data lanes: each lane holds the f32
 sum of its workers' weights, and the merge averages those sums over every
 live contributor. The reference runs it inside ``shard_map`` with ``psum``
-over the ``data`` mesh axis; here the lanes are a leading axis ``[D, ...]``
-of every contribution on one device, and:
+over the ``data`` mesh axis; here the lanes are laid out over the ranks of
+the process group (``parallel/distributed.py``; one rank, holding every
+lane, without a group), each rank's own lanes a leading axis
+``[D_local, ...]`` of every contribution on its device, and:
 
-  * ``psum`` over ``data`` is a sum over that axis in lane order (lane 0
-    first), which is what the reference's CPU mesh computes in f32;
-  * ``pmax`` is a max over that axis;
+  * ``psum`` over ``data`` is the sum over the rank's lanes in lane order
+    (lane 0 first), which is what the reference's CPU mesh computes in
+    f32, then the sum of those over the ranks (an all-reduce; with two
+    terms a sum in any order, so two ranks of one lane each equal one
+    process of two lanes bit for bit);
+  * ``pmax`` is a max over the rank's lanes, then a MAX all-reduce;
   * a lossy wire (bf16) casts each lane's payload, sums the casts in f32
     in lane order and rounds the sum once to the wire dtype — what the
     reference's bf16 ``psum`` gives on its CPU mesh (pinned at D = 4 in
-    tests/test_torch_merge.py);
-  * a strategy's EF residual of bucket ``b{i}`` is a flat ``[D * L]`` f32
-    tensor, lane-major, as the reference's engine keeps it.
+    tests/test_torch_merge.py); across ranks the rounded sums travel in
+    the wire dtype (``comm_proxy``'s bytes), and NCCL or gloo sums them
+    there;
+  * a strategy's EF residual of bucket ``b{i}`` is a flat
+    ``[D_local * L]`` f32 tensor, lane-major, the rank's slice of the
+    reference's ``[D * L]``.
 
 Two levers, as in the reference:
 
@@ -45,8 +53,9 @@ is), never around it.
 
 ``register_strategy_cost``/``register_merge_cost`` put a strategy's wire
 plan into the cost ledger (metrics/ledger.py) as the exact
-``merge.<strategy>`` record. Not ported: ``use_ring``/``ring_psum`` (one
-card has no ring; they come with lanes over NCCL).
+``merge.<strategy>`` record. Not ported: ``use_ring``. The reference
+takes its ring (``collectives.ring_psum``, ported) only where a mesh keeps
+inner axes; it comes with them (ROADMAP A.6/A.12).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ import torch
 
 from kubeml_tpu_torch.convert import flax_leaf_order
 from kubeml_tpu_torch.ops.fused_merge import fused_merge_apply
+from kubeml_tpu_torch.parallel import distributed as dist_lib
 
 State = Dict[str, torch.Tensor]
 
@@ -137,20 +147,27 @@ def plan_buckets(leaves, bucket_mb: float) -> BucketPlan:
     return BucketPlan(tuple(buckets), len(leaves))
 
 
-def _lane_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading lane axis in lane order (the reference's
-    ``psum`` over ``data``)."""
+def _local_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis of this rank's lanes, in lane order."""
     s = x[0]
     for d in range(1, x.shape[0]):
         s = s + x[d]
     return s
 
 
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over every lane (the reference's ``psum`` over ``data``): this
+    rank's lanes in lane order, then the sum across ranks."""
+    return dist_lib.all_reduce(_local_sum(x))
+
+
 def _wire_sum(x: torch.Tensor, wire_dtype: torch.dtype) -> torch.Tensor:
-    """The lane sum over a lossy wire: each lane's payload cast to the
-    wire dtype, the casts summed in f32 in lane order, the sum rounded
-    once to the wire dtype and read back as f32."""
-    return _lane_sum(x.to(wire_dtype).float()).to(wire_dtype).float()
+    """The lane sum over a lossy wire, read back as f32: each lane's
+    payload cast to the wire dtype, the casts summed in f32 in lane order
+    and rounded once to the wire dtype, then summed across ranks in the
+    wire dtype."""
+    local = _local_sum(x.to(wire_dtype).float()).to(wire_dtype)
+    return dist_lib.all_reduce(local).float()
 
 
 # --------------------------------------------------------------- registry
@@ -199,13 +216,16 @@ class MergeStrategy:
     """One sync round's merge over data lanes.
 
     lane_merge(contrib, ref, raw_count, count, lane_alive, residual):
-      contrib    f32 contribution sums by parameter name, [D, *shape]
+      contrib    f32 contribution sums by parameter name of this rank's
+                 lanes, [D_local, *shape]
       ref        round-start values (carry-forward + dtype source)
       raw_count  0-d live-contributor count over all lanes (0 => all
                  dropped)
       count      max(raw_count, 1), the safe divisor (0-d tensor)
-      lane_alive [D] bool: the lane shipped at least one live contribution
-      residual   EF residuals by bucket name, flat [D * L] (EF only)
+      lane_alive [D_local] bool: the lane shipped at least one live
+                 contribution
+      residual   EF residuals of this rank's lanes by bucket name, flat
+                 [D_local * L] (EF only)
     returns (merged values by name, new residuals or None). raw_count == 0
     must return ``ref`` unchanged."""
 
@@ -295,8 +315,8 @@ class _BucketedBase(MergeStrategy):
 
     def _reduce_bucket(self, flat_c: torch.Tensor, bucket: Bucket,
                        lane_alive, residual):
-        """(summed f32 [L], new residual [D * L] or None) for one bucket;
-        flat_c is [D, L]."""
+        """(summed f32 [L], new residual [D_local * L] or None) for one
+        bucket; flat_c is [D_local, L]."""
         raise NotImplementedError
 
     def lane_merge(self, contrib, ref, raw_count, count, lane_alive=None,
@@ -421,7 +441,8 @@ class EFInt8Merge(_BucketedBase):
         if not bucket.compressible:
             return _lane_sum(flat_c), None
         alive, p = _payload(flat_c, lane_alive, residual)
-        amax = p.abs().amax()                      # max, then pmax
+        # the lanes' max, then the MAX across ranks: every rank's scale
+        amax = dist_lib.all_reduce(p.abs().amax(), "max")
         scale = amax * _INV_127
         safe = torch.where(scale > 0, scale, 1.0)
         q = torch.where(scale > 0, torch.round(p / safe), 0.0)

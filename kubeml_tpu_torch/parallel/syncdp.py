@@ -47,9 +47,11 @@ scalar step counts always replicate), read from each parameter's shape
 in the JAX package's layout (``layout_shapes``,
 ``convert.flax_layout_shapes``). On one device nothing is laid out
 differently (the reference's one-chip mesh has a data axis of 1), so the
-engine computes the same numbers with ``zero1``/``fsdp`` on or off;
-physical shards across ranks come with lanes over NCCL (ROADMAP A.7, and
-C.12 for this difference).
+engine computes the same numbers with ``zero1``/``fsdp`` on or off. The
+engine runs in one process: under a process group of more than one rank
+(``parallel/distributed.py``) it raises NotPortedError; SyncDP over ranks,
+with physical ZeRO-1/FSDP shards, is ROADMAP A.20 (C.12 for this
+difference).
 
 The state ``init_state`` builds is ``{params, model_state, opt_state[,
 merge_resid]}``: the engine's own copies of the parameters and buffers by
@@ -80,8 +82,8 @@ every lane the same key); jax.random's bits cannot be reproduced.
 Not ported, of the reference's knobs: ``donate`` (the state is always
 updated in place, as a donated one), ``merge_fused`` (its Pallas apply
 and lax chain agree bit for bit; here the tensors' device picks the
-kernel or its plain version) and the ring reduction ``use_ring`` (one
-card has no ring; it comes with lanes over NCCL, ROADMAP A.7).
+kernel or its plain version) and the ring reduction ``use_ring`` (the
+ring runs over ranks, which come to this engine with ROADMAP A.20).
 """
 
 from __future__ import annotations
@@ -91,7 +93,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from kubeml_tpu_torch.api.errors import NotPortedError
 from kubeml_tpu_torch.metrics.ledger import CostLedger
+from kubeml_tpu_torch.parallel import distributed as dist_lib
 from kubeml_tpu_torch.parallel import merge as merge_lib
 from kubeml_tpu_torch.parallel.kavg import (LossFn, State, TxFactory,
                                             _generator, gather_batch,
@@ -122,6 +126,11 @@ class SyncDPEngine:
                  layout_shapes: Optional[Dict[str, tuple]] = None):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+        if dist_lib.world_size() > 1:
+            raise NotPortedError(
+                "the SyncDP engine over several ranks",
+                "SyncDP over ranks with physical ZeRO-1/FSDP shards, "
+                "ROADMAP A.20")
         if merge_strategy is not None and fsdp:
             raise ValueError("explicit merge strategies are incompatible "
                              "with fsdp (sharded params rely on GSPMD's "

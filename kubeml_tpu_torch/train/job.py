@@ -41,6 +41,23 @@ Kept from the JAX package's job:
   - the checkpoint's variable tree: ``{"params"}``, or ``{"params",
     "batch_stats"}`` for a model with running statistics.
 
+Kept too: the multi-process rules. Under a process group
+(``parallel/distributed.py``; the ``KUBEML_*`` contract of
+``tools/launch_distributed.py``) the ``n_lanes`` lanes are laid out over
+the ranks (``n_lanes % world`` is checked at construction) and every
+rank runs the same host loop in lockstep over the same data: the same
+plans, the same round hooks, its own lanes' workers, the merge's
+all-reduces, and the whole validation on every rank (so every rank's
+history is the same). The collectives are issued only from the thread
+that runs ``train()``, never from the prefetch thread (the JAX package
+records a Gloo deadlock there). ``device_cache='on'`` raises the JAX
+package's 400 and ``'auto'`` stages the rounds from the host;
+``rounds_per_dispatch`` is 1. Every rank writes its own history and
+checkpoint under its own ``KUBEML_TPU_HOME``, after a barrier: the
+validation runs no collective, so without it a rank whose peer died
+would checkpoint an epoch its peer never saved, and a restarted cluster
+would resume its ranks at different epochs.
+
 What differs:
   - ``device`` (None = CUDA) and ``n_lanes`` replace the mesh;
   - a job without ``resume_from`` starts from the model's
@@ -151,6 +168,7 @@ from kubeml_tpu_torch.metrics.prom import PHASE_HISTOGRAMS
 from kubeml_tpu_torch.metrics.runtime import HbmWatermark, JitCompileTracker
 from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
 from kubeml_tpu_torch.ops import _build
+from kubeml_tpu_torch.parallel import distributed as dist_lib
 from kubeml_tpu_torch.parallel.kavg import KAvgEngine
 from kubeml_tpu_torch.parallel.syncdp import SyncDPEngine
 from kubeml_tpu_torch.train.checkpoint import (AsyncCheckpointer,
@@ -411,8 +429,9 @@ class _NonFiniteGuard:
 
 
 class TrainJob:
-    """One training job on one device. ``train()`` runs it to the end and
-    returns the saved History."""
+    """One training job on one device, or one rank's part of it under a
+    process group. ``train()`` runs it to the end and returns the saved
+    History."""
 
     def __init__(self, task: TrainTask, model: KubeModel,
                  dataset: KubeDataset, device: DeviceLike = None,
@@ -432,6 +451,8 @@ class TrainJob:
         self.model = model
         self.dataset = dataset
         self.n_lanes = int(n_lanes)
+        # the lanes over the group's ranks (raises unless they divide)
+        self._world = dist_lib.lane_layout(self.n_lanes).world
         self.registry = registry or DatasetRegistry()
         self.history_store = history_store
         self.callbacks = callbacks or JobCallbacks()
@@ -579,6 +600,10 @@ class TrainJob:
                 else:
                     want_ckpt = False  # -1: final checkpoint only
                 if self.checkpoint and want_ckpt:
+                    # every rank saves the same epoch: a rank that died
+                    # since the last collective holds the others here,
+                    # before they checkpoint past its own last save
+                    dist_lib.barrier()
                     self._checkpointer.save(
                         job_id, self.state,
                         self._manifest(epoch=epoch + 1,
@@ -618,6 +643,7 @@ class TrainJob:
             # drain the periodic saves, then the final one (a periodic
             # failure gets the final save as its remedy)
             if self.checkpoint:
+                dist_lib.barrier()
                 ckpt_err = None
                 try:
                     self._checkpointer.wait()
@@ -987,7 +1013,7 @@ class TrainJob:
         identity = (type(self.dataset).transform_train
                     is KubeDataset.transform_train)
         dev_hook = getattr(self.dataset, "transform_train_device", None)
-        if not (identity or callable(dev_hook)):
+        if self._world > 1 or not (identity or callable(dev_hook)):
             if mode == "on":
                 raise KubeMLException(
                     "device_cache='on' requires a single-process job "
@@ -1082,10 +1108,11 @@ class TrainJob:
         """Rounds per engine call (options.rounds_per_dispatch), or 1
         where per-round host control is the point: a round hook, the
         guard's per-round flags and mask edits, the round cursor (of the
-        checkpoint cadence and of the continual publish cadence)."""
+        checkpoint cadence and of the continual publish cadence), and
+        several ranks."""
         opts = self.req.options
         R = max(1, int(opts.rounds_per_dispatch))
-        if R > 1 and (self.round_hook is not None
+        if R > 1 and (self.round_hook is not None or self._world > 1
                       or opts.quarantine_after > 0 or opts.abort_after > 0
                       or opts.checkpoint_every_rounds > 0
                       or opts.publish_every_rounds > 0):

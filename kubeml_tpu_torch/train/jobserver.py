@@ -29,7 +29,12 @@ the PS reschedules the job from its cursor.
 
     python -m kubeml_tpu_torch.train.jobserver --job-id abc123 \
         --ps-url http://host:port --scheduler-url http://host:port \
-        [--port 9090] [--port-file /path] [--device cpu]
+        [--port 9090] [--port-file /path] [--device cpu] [--mesh-data D]
+
+``--mesh-data D`` runs the job over D data lanes. Before it builds a job
+the process joins the process group its ``KUBEML_*`` environment declares
+(``parallel/distributed.initialize``; a quiet no-op without one), as the
+JAX package's job pods join their cluster.
 
 The job writes its log lines to ``$KUBEML_TPU_HOME/logs/<job>.log`` (what
 ``kubeml logs`` prints) and its spans to ``TraceSink(job, "job")`` under
@@ -65,12 +70,13 @@ class JobServer(JsonService):
 
     def __init__(self, job_id: str, ps_url: Optional[str] = None,
                  scheduler_url: Optional[str] = None, port: int = 0,
-                 device=None):
+                 device=None, n_lanes: int = 1):
         super().__init__(port=port)
         self.job_id = job_id
         self.ps_url = ps_url
         self.scheduler_url = scheduler_url
         self.device = device
+        self.n_lanes = int(n_lanes)
         self.finished = threading.Event()  # set after the job ends
         self.exit_error: Optional[str] = None
         self._job = None
@@ -134,6 +140,7 @@ class JobServer(JsonService):
                    else KubeDataset(task.parameters.dataset))
         self._job = TrainJob(
             task, model_cls(), dataset, device=self.device,
+            n_lanes=self.n_lanes,
             registry=DatasetRegistry(), history_store=HistoryStore(),
             callbacks=JobCallbacks(
                 request_parallelism=self._request_parallelism,
@@ -264,17 +271,24 @@ def main(argv=None):
                    help="write the bound port here (parent discovery)")
     p.add_argument("--device", default=None,
                    help="device of the job (default: CUDA)")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="data lanes of the job (default 1)")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     from kubeml_tpu_torch._device import resolve_device
+    from kubeml_tpu_torch.parallel.distributed import initialize
 
-    # raises here, before the port is bound, when CUDA is asked for (the
-    # default) and there is no card: the PS sees the child exit
+    # a job pod of a multi-process deployment joins its group first (the
+    # KUBEML_* environment; a no-op without one), which makes this rank's
+    # card current; then this raises, before the port is bound, when CUDA
+    # is asked for (the default) and there is no card: the PS sees the
+    # child exit
+    initialize(device=args.device)
     device = resolve_device(args.device)
     server = JobServer(args.job_id, ps_url=args.ps_url,
                        scheduler_url=args.scheduler_url, port=args.port,
-                       device=device)
+                       device=device, n_lanes=args.mesh_data or 1)
     port = server.start()
     # the platform's eviction notice: drain, checkpoint, /preempted (the
     # handler only sets events; the work happens on the job's thread)

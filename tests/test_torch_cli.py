@@ -391,8 +391,11 @@ def test_cli_validation_errors(stack, capsys):
 TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
 # item None: the degraded-mode and continual flags and ``dataset append``
 # (ROADMAP A.4.5, landed) and the SyncDP engine's (A.11, landed) reach the
-# job and the storage service; an item that names no ROADMAP entry is the
-# JAX package's own refusal of a flag combination
+# job and the storage service; item SERVED: serve's multi-process flags
+# (A.7, landed) reach ``initialize`` and the deployment; an item that
+# names no ROADMAP entry is the JAX package's own refusal of a flag
+# combination
+SERVED = "serve"
 REFUSED = [
     (TRAIN + ["--engine", "syncdp"], None),
     (TRAIN + ["--engine", "syncdp", "--fsdp"], None),
@@ -405,10 +408,10 @@ REFUSED = [
     (TRAIN + ["--checkpoint-every-rounds", "3"], None),
     (["dataset", "append", "-n", "blobs", "--traindata", "{xtr}",
       "--trainlabels", "{ytr}"], None),
-    (["serve", "--coordinator", "h:1"], "ROADMAP A.7"),
-    (["serve", "--num-processes", "2"], "ROADMAP A.7"),
-    (["serve", "--process-id", "0"], "ROADMAP A.7"),
-    (["serve", "--mesh-data", "2"], "ROADMAP A.7"),
+    (["serve", "--coordinator", "h:1"], SERVED),
+    (["serve", "--num-processes", "2"], SERVED),
+    (["serve", "--process-id", "0"], SERVED),
+    (["serve", "--mesh-data", "2"], SERVED),
     (TRAIN + ["--continual", "--window-generations", "2"], None),
     (TRAIN + ["--continual", "--publish-every-rounds", "3"], None),
     (TRAIN + ["--quarantine-after", "2", "--reassign-on-quarantine"],
@@ -421,12 +424,55 @@ REFUSED = [
 ]
 
 
+def _assert_serve_flags_reach_the_runtime(monkeypatch, argv):
+    """``serve`` with a multi-process flag: --coordinator, --num-processes
+    and --process-id reach ``initialize`` (with the serve's device)
+    before the deployment starts, and --mesh-data becomes its jobs'
+    lanes. The services are stubbed: nothing binds, and the serve loop
+    ends at its first sleep."""
+    from kubeml_tpu_torch.cli import main as cli
+    from kubeml_tpu_torch.control import deployment
+    from kubeml_tpu_torch.parallel import distributed
+
+    calls = []
+
+    class _Svc:
+        controller = scheduler = ps = storage = \
+            type("S", (), {"url": "http://stub"})()
+
+        def stop(self):
+            calls.append(("stop",))
+
+    def sleep(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(distributed, "initialize",
+                        lambda *a, **k: calls.append(("init", a, k)))
+    monkeypatch.setattr(deployment, "start_deployment",
+                        lambda **k: calls.append(("deploy", k)) or _Svc())
+    monkeypatch.setattr(cli.time, "sleep", sleep)
+    monkeypatch.setattr(cli.signal, "signal", lambda *a: None)
+    cli.main(list(argv) + ["--device", "cpu", "--free-ports"])
+    flag, value = argv[1], argv[2]
+    want = {"--coordinator": ("h:1", None, None),
+            "--num-processes": (None, 2, None),
+            "--process-id": (None, None, 0)}.get(flag, (None, None, None))
+    assert calls[0] == ("init", want, {"device": "cpu"})
+    assert calls[1][0] == "deploy" and calls[2] == ("stop",)
+    assert calls[1][1]["n_lanes"] == (int(value) if flag == "--mesh-data"
+                                      else 1)
+    assert calls[1][1]["device"] == "cpu"
+
+
 @pytest.mark.parametrize("argv,item", REFUSED,
                          ids=[" ".join(a[:1] + a[8:] if a[0] == "train"
                                        else a[:4]) for a, _ in REFUSED])
-def test_refused_verbs_and_flags_name_their_item(stack, capsys, argv,
-                                                 item):
+def test_refused_verbs_and_flags_name_their_item(stack, capsys, monkeypatch,
+                                                 argv, item):
     dep, paths, _ = stack
+    if item == SERVED:
+        _assert_serve_flags_reach_the_runtime(monkeypatch, argv)
+        return
     _create_blobs(dep, paths)
     capsys.readouterr()
     if item is None and argv[0] == "dataset":

@@ -289,7 +289,9 @@ def test_port_imports_no_jax():
     # and the text classifiers, vgg11 and the MoE routing
     assert {"bert.py", "lstm.py", "vgg.py"} <= {
         p.name for p in files if p.parent.name == "models"}
-    assert "ep.py" in {p.name for p in files if p.parent.name == "parallel"}
+    # and the process-group runtime and its ring
+    assert {"ep.py", "distributed.py", "collectives.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
