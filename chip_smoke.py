@@ -501,6 +501,42 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               set), ms per local step against the one-process job; which
               collectives gloo takes CUDA tensors for, tried directly; and
               the error NCCL gives two ranks on one card.
+ 24. sd-dist  the SyncDP engine over ranks with physical ZeRO-1/FSDP
+              shards, each rank a child as in phase 23 (this process joins
+              no group): phase 22's gpt-mini dispatches (bf16, dropout
+              0.1, 2 lanes, G = 2 x 8 sequences of T=512, 4 steps, AdamW
+              1e-3) twice on the implicit path (zero1, replicated, fsdp)
+              and under bucketed (4 MB), ef_bf16 and ef_int8: (a) one
+              NCCL rank holding both lanes: weights, Adam's moments and
+              EF residuals equal the engine without a group bit for bit;
+              (b) two gloo ranks on the one card, one lane each, against one
+              process of 2 lanes: the explicit paths bit for bit (weights,
+              the ranks' moment shards gathered, each rank's residual its
+              lane's slice), the implicit paths within AdamW's 2 x steps x
+              lr, the gathered first moments within 0.03 relative L2 and
+              every step's loss within 1e-3 relative (the shares within 1e-5
+              printed), the ranks equal each other bit for bit; (b32) the
+              implicit paths again in f32, where a rank's half batch and one
+              process's whole batch differ only in f32 rounding: the weights
+              99.5 % within 1e-5 and within 2 x steps x lr, every step's
+              loss within 1e-4 relative, the gathered first moments within
+              1e-3 relative L2; (c) each rank's moment (and fsdp parameter)
+              elements = the ZeRO plan, the bytes a rank holds between
+              dispatches and the peak device memory of a dispatch beside
+              what was allocated before it (this process's earlier phases
+              too), replicated / zero1 / fsdp; (d) the second dispatch's
+              collectives (reduce-scatter, all-reduce, all-gather-into) and
+              #2-#5 launches and segments = the plan on each rank; (e) ms
+              per global step on each rank, host clock, beside the
+              one-process run's and phase 22's; (f) whether gloo takes CUDA
+              tensors for reduce_scatter_tensor and all_gather_into_tensor,
+              each tried directly in processes of its own; (g) two-rank
+              syncdp TrainJobs (ef_bf16, then fsdp; N=2, 1 epoch over phase
+              23's 256 + 64 windows) against the one-process jobs: histories
+              and weights (ef_bf16 bit for bit; the fsdp job, in f32, held
+              as (b32): losses within 1e-4 relative, weights 99.5 % within
+              1e-5 and within AdamW's bound). The tight checks of (b), (b32)
+              and (g) report every miss together after (g).
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -543,7 +579,11 @@ kernels and the merge, which also carries "syncdp_segments" and
 "syncdp_shapes", phase 22 (a2)'s rows at the path's shapes); every entry
 carries "dist_launches", phase 23's (0 for the paged kernel; (a)'s and
 (b)'s counted round per strategy, per rank for (b), and (c)'s job per
-rank and in one process; the merge also "dist_segments"); the merge's
+rank and in one process; the merge also "dist_segments"); every entry
+carries "syncdp_dist_launches", phase 24's (0 for the paged kernel; the
+counted dispatch per path, on the NCCL rank and per gloo rank, and the
+two-rank jobs per rank; the merge also "syncdp_dist_segments"); the
+merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
 nvidia-smi line, and as the
@@ -615,6 +655,12 @@ numbers as one JSON line.
 
 builds the flash and merge kernels and runs phase 23 alone, printing its
 launches, ms a round and ms per local step as one JSON line.
+
+    python3 chip_smoke.py --syncdp-dist-only
+
+builds the flash and merge kernels and runs phase 24 alone, printing its
+launches, ms per global step, shard bytes and the gloo probes as one
+JSON line.
 """
 
 from __future__ import annotations
@@ -6936,11 +6982,12 @@ def sync_name(strategy) -> str:
     return strategy or "implicit"
 
 
-def sync_setup(torch, name, seed, dtype, device, strategy, model=None):
+def sync_setup(torch, name, seed, dtype, device, strategy, model=None,
+               **knobs):
     """A registered GPT with weights from the seed (through convert.py),
     a SyncDPEngine over it on SYNC_LANES lanes with ``strategy``'s
-    gradient merge (bucketed at SYNC_BUCKET_MB, EF at its default 4 MB),
-    and its initial state."""
+    gradient merge (bucketed at SYNC_BUCKET_MB, EF at its default 4 MB)
+    and the layout ``knobs`` (zero1, fsdp), and its initial state."""
     from kubeml_tpu_torch.convert import (flax_layout_shapes,
                                           params_from_flax,
                                           random_flax_params)
@@ -6957,7 +7004,7 @@ def sync_setup(torch, name, seed, dtype, device, strategy, model=None):
         module, model.loss, model.configure_optimizers, n_lanes=SYNC_LANES,
         merge_strategy=strategy,
         merge_bucket_mb=SYNC_BUCKET_MB if strategy == "bucketed" else 0.0,
-        layout_shapes=flax_layout_shapes(state, {"params": params}))
+        layout_shapes=flax_layout_shapes(state, {"params": params}), **knobs)
     return module, engine, engine.init_state(state)
 
 
@@ -7510,7 +7557,9 @@ def dist_collectives() -> dict:
     from kubeml_tpu_torch.parallel import distributed as dl
 
     return {"all_reduce": dl.all_reduce, "all_gather": dl.all_gather_cat,
-            "barrier": dl.barrier, "exchange": dl.exchange}
+            "barrier": dl.barrier, "exchange": dl.exchange,
+            "reduce_scatter": dl.reduce_scatter,
+            "all_gather_into": dl.all_gather_into}
 
 
 def dist_zero() -> None:
@@ -7531,7 +7580,7 @@ def dist_plan_collectives(name: str, buckets: int) -> dict:
     one all-gather of the per-worker rows."""
     per = 2 if name == "ef_int8" else 1
     return {"all_reduce": 1 + per * buckets, "all_gather": 1, "barrier": 0,
-            "exchange": 0}
+            "exchange": 0, "reduce_scatter": 0, "all_gather_into": 0}
 
 
 def dist_rounds(torch, seed, name, knobs) -> dict:
@@ -7576,18 +7625,21 @@ def dist_rounds(torch, seed, name, knobs) -> dict:
             "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
 
 
-def dist_job(torch, seed, outdir, rank) -> dict:
+def dist_job(torch, seed, outdir, rank, job_id="smoke-dist-job",
+             **opts) -> dict:
     """(c): TrainJob(gpt-mini, ef_bf16, N=2, K=4, B=8, DIST_LANES lanes)
     for one epoch over DIST_JOB_TRAIN + DIST_JOB_TEST windows, in this
     process's group (``rank``) or without one (None), from a home of its
-    own. Returns its history, its launches over the epoch (training and
-    validation) and its wall."""
+    own; ``opts`` (the engine, its merge or fsdp) replace ef_bf16, and
+    ``f32=True`` among them computes in f32. Returns its history, its
+    launches over the epoch (training and validation) and its wall."""
     import os
 
     from kubeml_tpu_torch.data.registry import DatasetRegistry
     from kubeml_tpu_torch.models import get_model
     from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
 
+    f32 = opts.pop("f32", False)
     before = os.environ.get("KUBEML_TPU_HOME")
     os.environ["KUBEML_TPU_HOME"] = os.path.join(
         outdir, "single" if rank is None else f"p{rank}")
@@ -7599,11 +7651,12 @@ def dist_job(torch, seed, outdir, rank) -> dict:
             token_windows(rng, DIST_JOB_TEST, TRAIN_T),
             np.zeros(DIST_JOB_TEST, np.int32))
         published = []
-        task = job_task("smoke-dist-job", 1, default_parallelism=2,
-                        static_parallelism=True, k=JOB_K,
-                        merge_compress="bf16", validate_every=1,
-                        train_stats=False)
-        job = TrainJob(task, get_model("gpt-mini")(), token_dataset(),
+        task = job_task(job_id, 1, default_parallelism=2,
+                        static_parallelism=True, k=JOB_K, validate_every=1,
+                        train_stats=False,
+                        **(opts or dict(merge_compress="bf16")))
+        job = TrainJob(task, get_model("gpt-mini")(
+            dtype=torch.float32 if f32 else torch.bfloat16), token_dataset(),
                        device="cuda", n_lanes=DIST_LANES,
                        callbacks=JobCallbacks(publish_metrics=lambda m:
                                               published.append(
@@ -7774,12 +7827,20 @@ def dist_child(mode, outdir, seed) -> int:
 
 
 def dist_launch(card, mode, world, outdir, seed, limit_s=DIST_CHILD_S,
-                probe=False) -> list:
-    """``world`` ranks of dist_child(mode) as children of this process,
-    with the KUBEML_* environment of tools/launch_distributed.py; each
-    must exit 0 within ``limit_s`` (else all are killed and the phase
-    fails; a ``probe`` records the silence as its answer). Returns each
-    rank's rows."""
+                probe=False, child=DIST_CHILD) -> list:
+    """``world`` ranks of dist_child(mode) (or the ``child`` code's) as
+    children of this process, with the KUBEML_* environment of
+    tools/launch_distributed.py; each must exit 0 within ``limit_s``
+    (else all are killed and the phase fails; a ``probe`` records the
+    silence as its answer). Returns each rank's rows."""
+    return dist_collect(card, dist_spawn(mode, world, outdir, seed, limit_s,
+                                         child), probe)
+
+
+def dist_spawn(mode, world, outdir, seed, limit_s=DIST_CHILD_S,
+               child=DIST_CHILD) -> tuple:
+    """Start dist_launch's ranks without waiting for them: (mode, world,
+    outdir, limit_s, deadline, [(process, log file)])."""
     import os
     import socket
 
@@ -7793,10 +7854,18 @@ def dist_launch(card, mode, world, outdir, seed, limit_s=DIST_CHILD_S,
                    KUBEML_NUM_PROCESSES=str(world), KUBEML_PROCESS_ID=str(r))
         logf = open(os.path.join(outdir, f"{mode}_p{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", DIST_CHILD, here, mode, outdir,
+            [sys.executable, "-c", child, here, mode, outdir,
              str(seed)], env=env, stdout=logf, stderr=subprocess.STDOUT),
             logf))
-    deadline = time.monotonic() + limit_s
+    return mode, world, outdir, limit_s, time.monotonic() + limit_s, procs
+
+
+def dist_collect(card, spawned, probe=False) -> list:
+    """Wait for dist_spawn's ranks (see dist_launch) and read their
+    rows."""
+    import os
+
+    mode, world, outdir, limit_s, deadline, procs = spawned
     try:
         for proc, _ in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -7829,7 +7898,7 @@ def dist_launch(card, mode, world, outdir, seed, limit_s=DIST_CHILD_S,
             with open(os.path.join(outdir, f"{mode}_p{r}.log")) as f:
                 log(card, f"dist {mode} rank {r} exit {codes[r]}; log tail:"
                     f"\n{f.read()[-4000:]}")
-        raise RuntimeError(f"phase 23 {mode}: ranks exited {codes}")
+        raise RuntimeError(f"{mode}: ranks exited {codes}")
     rows = []
     for r in range(world):
         with open(os.path.join(outdir, f"{mode}_p{r}.json")) as f:
@@ -8000,6 +8069,523 @@ def dist_launches(dist, kernel) -> dict:
                        for name, _ in DIST_STRATEGIES},
             "job_ranks": [c[kernel] for c in dist["job"]["gloo"]],
             "job_one_process": dist["job"]["one_process"][kernel]}
+
+
+SD_MODES = (("zero1", {}), ("replicated", dict(zero1=False)),
+            ("fsdp", dict(fsdp=True)), ("bucketed", dict(strategy="bucketed")),
+            ("ef_bf16", dict(strategy="ef_bf16")),
+            ("ef_int8", dict(strategy="ef_int8")))
+SD_IMPLICIT = ("zero1", "replicated", "fsdp")
+# (b32), (g): the implicit paths and the fsdp job in f32 (gpt-mini's
+# dropout 0.1, drawn alike by ranks and one process), where a rank's half
+# batch and one process's whole batch differ only in f32 rounding: the
+# weights' share within 1e-5, every step's loss (relative) and the first
+# moments' relative L2 error are held to these limits. A rank that
+# stepped on its own half-batch gradient misses all three by orders of
+# magnitude (PERF.md §6: a mutant run on the card).
+SD_F32_SHARE, SD_F32_LOSS, SD_F32_MU = 0.995, 1e-4, 1e-3
+# (b) in bf16: the first moments' relative L2 error and every step's loss
+# (relative), set at ten times what a right engine showed on the card and
+# a twentieth of what that mutant showed (PERF.md §6)
+SD_BF16_MU, SD_BF16_LOSS = 0.03, 1e-3
+SD_DISPATCHES = 2         # dispatch 1 warms up; 2 is counted and timed
+SD_JOBS = (("smoke-sd-ef", dict(engine="syncdp", merge_compress="bf16")),
+           ("smoke-sd-fsdp", dict(engine="syncdp", fsdp=True, f32=True)))
+SD_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke.sd_child(*sys.argv[2:]))")
+
+
+def sd_held_bytes(engine, state) -> int:
+    """The device bytes this process keeps for ``state`` between
+    dispatches: the state's tensors, the optimizer's and the module's
+    working parameters, each storage once."""
+    seen, total = set(), 0
+    for t in engine.held_tensors(state) + list(engine._params.values()):
+        st = t.untyped_storage()
+        if st.nbytes() and st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    return total
+
+
+def sd_plan_elements(seed, world, zero1) -> int:
+    """The optimizer-state elements of one moment a rank holds under the
+    ZeRO rule (dim 0 of the flax layout divisible by the 2 lanes: the
+    leaf's 1/world), from gpt-mini's flax shapes."""
+    from kubeml_tpu_torch.convert import random_flax_params
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    def leaves(node):
+        if isinstance(node, dict):
+            return [x for k in sorted(node) for x in leaves(node[k])]
+        return [node]
+
+    return sum(a.size // world if zero1 and a.shape[0] % SYNC_LANES == 0
+               else a.size
+               for a in leaves(random_flax_params(**GPT_CONFIGS["gpt-mini"],
+                                                  seed=seed)))
+
+
+def sd_plan_collectives(name, steps, world) -> dict:
+    """A dispatch's collectives over a group of ``world`` ranks: a step
+    of the implicit path one reduce-scatter of the sharded gradients, one
+    all-reduce (the replicated ones and the guard's scalars), one
+    all-gather-into of the new shards (one all-reduce alone when nothing
+    is sharded); of the explicit path one all-reduce of the lanes'
+    scalars, one a bucket (two under ef_int8) and the all-gather-into.
+    At world 1 the shards are the parameters: no all-gather-into."""
+    sharded = steps if name != "replicated" else 0
+    ag = sharded if world > 1 else 0
+    if name in SD_IMPLICIT:
+        rs, ar = sharded, steps
+    else:
+        rs = 0
+        ar = steps * (1 + (2 if name == "ef_int8" else 1) * JOB_BUCKETS)
+    return {"all_reduce": ar, "all_gather": 0, "barrier": 0, "exchange": 0,
+            "reduce_scatter": rs, "all_gather_into": ag}
+
+
+def sd_plan_launches(name, steps, layers, lanes) -> dict:
+    """A rank's #2-#5 launches over ``steps`` real global steps: the flash
+    kernels once a layer per backward pass (one a step on the implicit
+    path, one a local lane on the explicit one), the fused merge once a
+    step under the explicit merges."""
+    explicit = name not in SD_IMPLICIT
+    out = {k: layers * steps * (lanes if explicit else 1)
+           for k in SYNC_FLASH}
+    out.update(merge_counts(JOB_BUCKETS, steps) if explicit
+               else {"fused_merge": 0, "merge segments": 0})
+    return out
+
+
+def sd_run(torch, seed, name, knobs, dtype=None) -> dict:
+    """SD_DISPATCHES of phase 22's dispatches through a SyncDPEngine on
+    path ``name`` (bf16 compute, or ``dtype``), in this process's group
+    or without one. The counters are zeroed just before the last
+    dispatch and read just after it."""
+    knobs = dict(knobs)
+    strategy = knobs.pop("strategy", None)
+    module, engine, state = sync_setup(torch, "gpt-mini", seed,
+                                       dtype or torch.bfloat16, "cuda",
+                                       strategy, **knobs)
+    to_device, copied = engine._to_device, []
+
+    def counted(batch):
+        # the batch bytes this rank's dispatch copies to its card
+        copied.append(sum(np.asarray(v).nbytes for v in batch.values()))
+        return to_device(batch)
+
+    engine._to_device = counted
+    rng = np.random.default_rng(seed + 24)
+    losses = []
+    for _ in range(SD_DISPATCHES):
+        batch, mask, keys, steps = sync_dispatch(rng, SYNC_W, SYNC_K,
+                                                 SYNC_B, SYNC_T)
+        torch.cuda.synchronize()
+        copied.clear()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dist_zero()                          # the main path's run starts
+        t0 = time.perf_counter()
+        state, loss = engine.train_steps(state, batch, mask, keys,
+                                         SYNC_LR, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, calls = dist_counts()        # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        losses += loss.float().cpu().tolist()
+    assert not engine.last_skipped_device.any(), name
+    assert torch.isfinite(loss).all(), (name, loss)
+    held = sd_held_bytes(engine, state)
+    opt = state["opt_state"]
+    tensors = [t for g in opt.param_groups for t in g["params"]]
+    moments = {f"{k}/{n}": opt.state[t][k].reshape(-1).cpu()
+               for n, t in zip(engine._params, tensors)
+               for k in ("exp_avg", "exp_avg_sq")}
+    step = {int(opt.state[t]["step"]) for t in tensors}
+    return {"state": {k: v.detach().cpu()
+                      for k, v in engine.variables(state).items()},
+            "moments": moments,
+            "resid": {k: v.cpu() for k, v in
+                      (state.get("merge_resid") or {}).items()},
+            "counts": counts, "calls": calls, "ms": 1e3 * wall / steps,
+            "steps": steps, "opt_steps": sorted(step),
+            "h2d_bytes": sum(copied), "losses": losses,
+            "held_bytes": held, "peak_bytes": int(peak),
+            "base_bytes": int(base),
+            "moment_elems": sum(int(opt.state[t]["exp_avg"].numel())
+                                for t in tensors),
+            "param_elems": sum(int(t.numel())
+                               for t in state["params"].values()),
+            "shard_elems": sum(engine.shard_elements().values()),
+            "readbacks": engine.readbacks, "layers": module.layers,
+            "lanes": engine.layout.per_rank}
+
+
+def sd_probe(torch, mode) -> dict:
+    """(f): reduce_scatter_tensor ('sd-rs') or all_gather_into_tensor
+    ('sd-ag') of CUDA tensors over the two gloo ranks, tried directly
+    (not through the port's helpers), checked against its result."""
+    import torch.distributed as dist
+
+    r = dist.get_rank()
+    try:
+        if mode == "sd-rs":
+            t = torch.arange(8.0, device="cuda") + r
+            out = torch.empty(4, device="cuda")
+            dist.reduce_scatter_tensor(out, t)
+            want = (torch.arange(8.0) * 2 + 1)[4 * r:4 * r + 4]
+        else:
+            t = torch.full((4,), float(r + 1), device="cuda")
+            out = torch.empty(8, device="cuda")
+            dist.all_gather_into_tensor(out, t)
+            want = torch.tensor([1.0] * 4 + [2.0] * 4)
+        got = out.cpu()
+        return {"error": None if torch.equal(got, want)
+                else f"wrong: {got.tolist()}"}
+    except Exception as e:  # noqa: BLE001 — the refusal is the answer
+        return {"error": f"refused: {type(e).__name__}: "
+                f"{(str(e).splitlines() or [''])[0][:240]}"}
+
+
+def sd_child(mode, outdir, seed) -> int:
+    """A rank of phase 24, started by dist_spawn with the KUBEML_*
+    environment: 'sd-nccl' (a): every path over NCCL; 'sd-gloo' (b)-(e)
+    and (g): every path and the two jobs over gloo; 'sd-rs' / 'sd-ag'
+    (f): one collective of CUDA tensors over gloo. Writes its rows under
+    ``outdir``."""
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    dl.initialize(backend=None if mode == "sd-nccl" else "gloo",
+                  timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    rows = {"world": dl.world_size(), "backend": dist.get_backend()}
+    if mode in ("sd-rs", "sd-ag"):
+        rows.update(sd_probe(torch, mode))
+    else:
+        for name, knobs in SD_MODES:
+            out = sd_run(torch, seed, name, knobs)
+            torch.save({k: out.pop(k) for k in ("state", "moments", "resid")},
+                       os.path.join(outdir, f"{mode}_{name}_p{rank}.pt"))
+            rows[name] = out
+    if mode == "sd-gloo":
+        for name in SD_IMPLICIT:
+            out = sd_run(torch, seed, name, dict(SD_MODES)[name],
+                         torch.float32)
+            torch.save({k: out.pop(k) for k in ("state", "moments", "resid")},
+                       os.path.join(outdir, f"{mode}_{name}-f32_p{rank}.pt"))
+            rows[f"{name}-f32"] = out
+        for job_id, opts in SD_JOBS:
+            job = dist_job(torch, seed, os.path.join(outdir, job_id), rank,
+                           job_id=job_id, **opts)
+            torch.save(job.pop("state"),
+                       os.path.join(outdir, f"{job_id}_p{rank}.pt"))
+            rows[job_id] = job
+    with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dl.shutdown()
+    return 0
+
+
+def sd_gather(torch, ranks, whole) -> dict:
+    """The ranks' moment shards as one process's flat moments: a leaf
+    each rank holds part of, its parts in rank order; a whole one, rank
+    0's."""
+    out = {}
+    for k, v in whole.items():
+        parts = [rk["moments"][k] for rk in ranks]
+        out[k] = parts[0] if parts[0].numel() == v.numel() \
+            else torch.cat(parts)
+    return out
+
+
+def sd_within(torch, a, b) -> tuple:
+    """(max |a - b|, the share of elements within 1e-5) over two weight
+    dicts."""
+    diffs = torch.cat([(a[k].float() - b[k].float()).abs().ravel()
+                       for k in b])
+    return float(diffs.max()), float((diffs <= 1e-5).float().mean())
+
+
+def sd_rel_l2(torch, a, b, prefix="") -> float:
+    """||a - b|| / ||b|| over the entries of two dicts whose keys start
+    with ``prefix``."""
+    keys = [k for k in b if k.startswith(prefix)]
+    x = torch.cat([a[k].double().ravel() for k in keys])
+    y = torch.cat([b[k].double().ravel() for k in keys])
+    return float((x - y).norm() / y.norm())
+
+
+def sd_loss_rel(got, want) -> float:
+    """The largest relative difference of two lists of losses."""
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def phase_syncdp_dist(torch, card, seed, phase22=None) -> dict:
+    """Phase 24: the SyncDP engine over ranks (see the module docstring).
+    The ranks are children of this process; this process joins no group
+    and runs the one-process dispatches and jobs they are held to.
+    ``phase22`` holds phase 22's ms per global step by path when it ran.
+    Returns the launches and numbers for the kernels line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="kubeml_sd_") as tmp:
+        # (a) and (f) start first; the one-process jobs run meanwhile
+        nccl = dist_spawn("sd-nccl", 1, tmp, seed, child=SD_CHILD)
+        probes = [dist_spawn(m, 2, tmp, seed, DIST_DUP_S, child=SD_CHILD)
+                  for m in ("sd-rs", "sd-ag")]
+        single_jobs = {job_id: dist_job(torch, seed,
+                                        os.path.join(tmp, job_id), None,
+                                        job_id=job_id, **opts)
+                       for job_id, opts in SD_JOBS}
+        (a,) = dist_collect(card, nccl)
+        probe = {m: [d["error"] or "accepted"
+                     for d in dist_collect(card, p, probe=True)]
+                 for m, p in zip(("reduce_scatter_tensor",
+                                  "all_gather_into_tensor"), probes)}
+        log(card, f"syncdp-dist (f) gloo with CUDA tensors (tried directly, "
+            f"each in 2 processes of its own), ranks 0 / 1: {probe}")
+        assert all(v == ["accepted"] * 2 for v in probe.values()), probe
+        out["gloo_cuda"] = probe
+        # the one-process runs, alone on the card
+        ref = {name: sd_run(torch, seed, name, knobs)
+               for name, knobs in SD_MODES}
+        ref32 = {name: sd_run(torch, seed, name, dict(SD_MODES)[name],
+                              torch.float32) for name in SD_IMPLICIT}
+        for name, r in ref.items():
+            assert not any(r["calls"].values()), (name, r["calls"])
+        # (b)-(e), (g): two gloo ranks on the one card, alone
+        b = dist_launch(card, "sd-gloo", 2, tmp, seed, child=SD_CHILD)
+        assert (a["world"], a["backend"]) == (1, "nccl"), a
+        assert all((x["world"], x["backend"]) == (2, "gloo") for x in b)
+        layers = ref["zero1"]["layers"]
+        bound = 2 * SD_DISPATCHES * SYNC_K * SYNC_LR
+        mem = {}
+        # the tight checks' misses, raised together after (g)
+        missed = []
+        for name, _ in SD_MODES:
+            want = ref[name]
+            steps = want["steps"]
+            one = torch.load(os.path.join(tmp, f"sd-nccl_{name}_p0.pt"))
+            assert dist_equal(torch, one["state"], want["state"]), name
+            assert dist_equal(torch, one["moments"], want["moments"]), name
+            assert dist_equal(torch, one["resid"], want["resid"]), name
+            assert a[name]["counts"] == sd_plan_launches(
+                name, steps, layers, SYNC_LANES), (name, a[name]["counts"])
+            assert a[name]["calls"] == sd_plan_collectives(name, steps, 1), \
+                (name, a[name]["calls"])
+            assert a[name]["h2d_bytes"] == want["h2d_bytes"], name
+            log(card, f"syncdp-dist (a) gpt-mini {name}, 1 NCCL rank "
+                f"holding {SYNC_LANES} lanes: weights, Adam's moments and "
+                f"EF residuals after {SD_DISPATCHES} dispatches equal the "
+                f"engine without a group bit for bit "
+                f"({len(want['state'])} tensors, {len(want['resid'])} "
+                f"residuals); dispatch {SD_DISPATCHES}: launches "
+                f"{a[name]['counts']}, collectives {a[name]['calls']}; "
+                f"{a[name]['ms']:.3f} ms a global step against "
+                f"{want['ms']:.3f} without a group")
+            ranks = [torch.load(os.path.join(tmp, f"sd-gloo_{name}_p{r}.pt"))
+                     for r in range(2)]
+            assert dist_equal(torch, ranks[0]["state"], ranks[1]["state"])
+            gathered = sd_gather(torch, ranks, want["moments"])
+            if name in SD_IMPLICIT:
+                err, share = sd_within(torch, ranks[0]["state"],
+                                       want["state"])
+                assert err <= bound, (name, err, bound)
+                mom, mshare = sd_within(torch, gathered, want["moments"])
+                mu = sd_rel_l2(torch, gathered, want["moments"], "exp_avg/")
+                lrel = sd_loss_rel(b[0][name]["losses"], want["losses"])
+                for what, got, limit in (
+                        ("first moments, relative L2", mu, SD_BF16_MU),
+                        ("losses, relative", lrel, SD_BF16_LOSS)):
+                    if got > limit:
+                        missed.append((name, what, got, limit))
+                held = (f"within AdamW's {bound:g} (max|diff| {err:.3g}, "
+                        f"{100 * share:.3f} % within 1e-5; moments "
+                        f"max|diff| {mom:.3g}, {100 * mshare:.3f} % within "
+                        f"1e-5), the first moments within {mu:.3g} "
+                        f"relative L2 (limit {SD_BF16_MU:g}), the "
+                        f"{len(want['losses'])} steps' losses within "
+                        f"{lrel:.3g} relative (limit {SD_BF16_LOSS:g})")
+            else:
+                assert dist_equal(torch, ranks[0]["state"], want["state"])
+                assert dist_equal(torch, gathered, want["moments"]), name
+                for r, rk in enumerate(ranks):
+                    assert set(rk["resid"]) == set(want["resid"]), name
+                    for k, v in want["resid"].items():
+                        assert torch.equal(rk["resid"][k],
+                                           v.reshape(SYNC_LANES, -1)[r]), \
+                            (name, k, r)
+                err, share = 0.0, 1.0
+                held = ("bit for bit (weights, the gathered moments, each "
+                        "rank's residuals its lane's slice)")
+            plan = sd_plan_elements(seed, 2, name != "replicated")
+            for r in range(2):
+                got = b[r][name]
+                assert got["steps"] == steps, (name, r, got["steps"])
+                assert got["opt_steps"] == want["opt_steps"], (name, r)
+                assert got["moment_elems"] == got["shard_elems"] == plan, \
+                    (name, r, got["moment_elems"], plan)
+                assert got["param_elems"] == (
+                    plan if name == "fsdp" else want["param_elems"]), \
+                    (name, r)
+                assert got["counts"] == sd_plan_launches(
+                    name, steps, layers, 1), (name, r, got["counts"])
+                assert got["calls"] == sd_plan_collectives(name, steps, 2), \
+                    (name, r, got["calls"])
+                assert got["h2d_bytes"] * 2 == want["h2d_bytes"], (name, r)
+            mem[name] = {
+                "held": [b[r][name]["held_bytes"] for r in range(2)],
+                "peak": [b[r][name]["peak_bytes"] for r in range(2)],
+                "before": [b[r][name]["base_bytes"] for r in range(2)],
+                "one_process_held": want["held_bytes"],
+                "one_process_peak": want["peak_bytes"],
+                "one_process_before": want["base_bytes"]}
+            p22 = (phase22 or {}).get(
+                "implicit" if name in SD_IMPLICIT else name)
+            log(card, f"syncdp-dist (b) gpt-mini {name}, 2 gloo ranks on "
+                f"one card, 1 lane each, against one process of "
+                f"{SYNC_LANES} lanes after {SD_DISPATCHES} dispatches: "
+                f"the ranks equal each other bit for bit, one process "
+                f"{held}; (c) a rank's moment elements {plan} (= the plan; "
+                f"one process {want['moment_elems']}), parameter elements "
+                f"{b[0][name]['param_elems']}; bytes held between "
+                f"dispatches {mem[name]['held']} (one process "
+                f"{want['held_bytes']}), peak of a dispatch "
+                f"{mem[name]['peak']} with {mem[name]['before']} allocated "
+                f"before it (one process {want['peak_bytes']} with "
+                f"{want['base_bytes']}); "
+                f"(d) dispatch {SD_DISPATCHES}: launches rank 0 "
+                f"{b[0][name]['counts']}, rank 1 {b[1][name]['counts']}, "
+                f"collectives {b[0][name]['calls']} (= the plan), batch "
+                f"bytes copied a rank {b[0][name]['h2d_bytes']} of "
+                f"{want['h2d_bytes']}; (e) ms per global step, host clock, "
+                f"ranks 0 / 1 {b[0][name]['ms']:.3f} / "
+                f"{b[1][name]['ms']:.3f}, one process {want['ms']:.3f}"
+                + (f", phase 22's {p22:.3f}" if p22 else ""))
+            out[name] = {"nccl": a[name]["counts"],
+                         "gloo": [b[r][name]["counts"] for r in range(2)],
+                         "calls": b[0][name]["calls"],
+                         "nccl_ms": a[name]["ms"],
+                         "gloo_ms": [b[r][name]["ms"] for r in range(2)],
+                         "one_process_ms": want["ms"],
+                         "max_abs_err": err, "within_1e-5": share,
+                         "memory": mem[name]}
+        # (b32) the implicit paths in f32, held tightly
+        for name in SD_IMPLICIT:
+            want = ref32[name]
+            key = f"{name}-f32"
+            ranks = [torch.load(os.path.join(tmp, f"sd-gloo_{key}_p{r}.pt"))
+                     for r in range(2)]
+            assert dist_equal(torch, ranks[0]["state"], ranks[1]["state"])
+            assert b[0][key]["losses"] == b[1][key]["losses"], key
+            gathered = sd_gather(torch, ranks, want["moments"])
+            err, share = sd_within(torch, ranks[0]["state"], want["state"])
+            mu = sd_rel_l2(torch, gathered, want["moments"], "exp_avg/")
+            lrel = sd_loss_rel(b[0][key]["losses"], want["losses"])
+            for what, got, limit in (("weights within 1e-5", share,
+                                      SD_F32_SHARE),
+                                     ("losses, relative", lrel, SD_F32_LOSS),
+                                     ("first moments, relative L2", mu,
+                                      SD_F32_MU),
+                                     ("weights max|diff|", err, bound)):
+                if (got < limit if what == "weights within 1e-5"
+                        else got > limit):
+                    missed.append((key, what, got, limit))
+            log(card, f"syncdp-dist (b32) gpt-mini {name} in f32, 2 gloo "
+                f"ranks of 1 lane against one process of {SYNC_LANES} "
+                f"lanes after {SD_DISPATCHES} dispatches: the ranks equal "
+                f"each other bit for bit; one process: weights "
+                f"{100 * share:.4f} % within 1e-5 (limit "
+                f"{100 * SD_F32_SHARE:g} %), max|diff| {err:.3g} (limit "
+                f"{bound:g}); the {len(want['losses'])} steps' losses "
+                f"within {lrel:.3g} relative (limit {SD_F32_LOSS:g}); "
+                f"first moments' relative L2 error {mu:.3g} (limit "
+                f"{SD_F32_MU:g}); ms per global step, ranks 0 / 1 "
+                f"{b[0][key]['ms']:.3f} / {b[1][key]['ms']:.3f}, one "
+                f"process {want['ms']:.3f}")
+            out[key] = {"max_abs_err": err, "within_1e-5": share,
+                        "loss_rel": lrel, "mu_rel_l2": mu}
+        # (g) the two-rank jobs against the one-process jobs
+        for job_id, opts in SD_JOBS:
+            single = single_jobs[job_id]
+            jobs = [b[r][job_id] for r in range(2)]
+            states = [torch.load(os.path.join(tmp, f"{job_id}_p{r}.pt"))
+                      for r in range(2)]
+            assert jobs[0]["history"] == jobs[1]["history"], jobs
+            assert dist_equal(torch, states[0], states[1])
+            if opts.get("fsdp"):
+                # in f32: the ranks' half batches and one process's whole
+                # batch differ by f32 rounding, held as (b32) is
+                err, share = sd_within(torch, states[0], single["state"])
+                hist = jobs[0]["history"]
+                assert hist["parallelism"] == \
+                    single["history"]["parallelism"]
+                lrel = max(sd_loss_rel(hist[k], single["history"][k])
+                           for k in ("train_loss", "validation_loss"))
+                steps = DIST_JOB_TRAIN // (2 * JOB_B)   # global steps
+                for what, got, limit in (
+                        ("weights within 1e-5", share, SD_F32_SHARE),
+                        ("losses, relative", lrel, SD_F32_LOSS),
+                        ("weights max|diff|", err, 2 * steps * JOB_LR)):
+                    if (got < limit if what == "weights within 1e-5"
+                            else got > limit):
+                        missed.append((job_id, what, got, limit))
+                held = (f"histories within {lrel:.3g} relative (limit "
+                        f"{SD_F32_LOSS:g}; train {hist['train_loss']} / "
+                        f"{single['history']['train_loss']}, validation "
+                        f"{hist['validation_loss']} / "
+                        f"{single['history']['validation_loss']}), weights "
+                        f"max|diff| {err:.3g} (AdamW's bound "
+                        f"{2 * steps * JOB_LR:g}), {100 * share:.4f} % "
+                        f"within 1e-5 (limit {100 * SD_F32_SHARE:g} %)")
+            else:
+                assert jobs[0]["history"] == single["history"], \
+                    (jobs, single)
+                assert dist_equal(torch, states[0], single["state"])
+                held = (f"history ({jobs[0]['history']['train_loss']}) and "
+                        f"weights bit for bit")
+            ms = [1e3 * j["seconds"] for j in (*jobs, single)]
+            log(card, f"syncdp-dist (g) TrainJob gpt-mini {opts}, N=2, 1 "
+                f"epoch over {DIST_JOB_TRAIN} + {DIST_JOB_TEST} windows, 2 "
+                f"gloo ranks of 1 lane against one process: both ranks "
+                f"equal each other, one process {held}; launches rank 0 "
+                f"{jobs[0]['counts']}, rank 1 {jobs[1]['counts']}, one "
+                f"process {single['counts']}; collectives a rank "
+                f"{jobs[0]['calls']}; epoch ms ranks 0 / 1 {ms[0]:.1f} / "
+                f"{ms[1]:.1f}, one process {ms[2]:.1f}")
+            out[job_id] = {"gloo": [j["counts"] for j in jobs],
+                           "one_process": single["counts"],
+                           "epoch_ms": ms[:2], "one_process_epoch_ms": ms[2]}
+        assert not missed, f"phase 24's tight checks missed: {missed}"
+    log(card, f"syncdp-dist phase 24: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def sd_launches(sd, kernel) -> dict:
+    """A kernel's phase-24 launches for the kernels line: the counted
+    dispatch per path on the NCCL rank and per gloo rank, and the two-rank
+    jobs per rank."""
+    return {"dispatch": {name: {"nccl_one_rank": sd[name]["nccl"][kernel],
+                                "gloo_ranks": [c[kernel] for c in
+                                               sd[name]["gloo"]]}
+                         for name, _ in SD_MODES},
+            "jobs": {job_id: [c[kernel] for c in sd[job_id]["gloo"]]
+                     for job_id, _ in SD_JOBS}}
 
 
 def phase_merge_only(torch, card, seed) -> dict:
@@ -8178,9 +8764,12 @@ def run(torch, seed) -> list:
     mv = timed(21, phase_moe_vgg, torch, card, seed)
     sync = timed(22, phase_syncdp, torch, card, seed)
     dist = timed(23, phase_dist, torch, card, seed)
+    sd = timed(24, phase_syncdp_dist, torch, card, seed,
+               {name: row["ms_per_step"][-1]
+                for name, row in sync["paths"].items()})
     log(card, "wall by phase (s): " + ", ".join(
         f"{p}: {w:.3f}" for p, w in walls.items())
-        + f"; phases 1-23 {sum(walls.values()):.3f}")
+        + f"; phases 1-24 {sum(walls.values()):.3f}")
     drafts = ("self-draft", "other-draft")
 
     paged = [{
@@ -8213,6 +8802,7 @@ def run(torch, seed) -> list:
         "moe_vgg_launches": 0,       # phase 21 serves nothing
         "syncdp_launches": 0,        # phase 22 serves nothing
         "dist_launches": 0,          # phase 23 serves nothing
+        "syncdp_dist_launches": 0,   # phase 24 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -8256,6 +8846,9 @@ def run(torch, seed) -> list:
         # phase 23: the rounds over one NCCL rank and two gloo ranks, the
         # two-rank job per rank and in one process
         "dist_launches": dist_launches(dist, kernel),
+        # phase 24: the counted dispatch per path over one NCCL rank and
+        # two gloo ranks, the two-rank syncdp jobs per rank
+        "syncdp_dist_launches": sd_launches(sd, kernel),
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -8298,6 +8891,10 @@ def run(torch, seed) -> list:
                 # job (one launch a merge on every rank)
                 dist_launches=dist_launches(dist, "fused_merge"),
                 dist_segments=dist_launches(dist, "merge segments"),
+                # phase 24: launches and segments of the SyncDP ranks'
+                # explicit paths and jobs (one launch a step on each rank)
+                syncdp_dist_launches=sd_launches(sd, "fused_merge"),
+                syncdp_dist_segments=sd_launches(sd, "merge segments"),
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -8372,6 +8969,13 @@ def main(argv=None) -> int:
                          "23 alone (data lanes as ranks: one NCCL rank, two "
                          "gloo ranks on the card, a two-rank job), printing "
                          "its launches and times as one JSON line and no "
+                         "result line")
+    ap.add_argument("--syncdp-dist-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "24 alone (the SyncDP engine over ranks: one NCCL "
+                         "rank, two gloo ranks with ZeRO-1/FSDP shards, two "
+                         "two-rank jobs, the gloo probes), printing its "
+                         "launches and numbers as one JSON line and no "
                          "result line")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
@@ -8518,6 +9122,11 @@ def main(argv=None) -> int:
         if args.dist_only:
             card = start(torch, ["flash_attention", "fused_merge"])
             print(json.dumps({"card": card, "dist": phase_dist(
+                torch, card, args.seed)}))
+            return 0
+        if args.syncdp_dist_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            print(json.dumps({"card": card, "syncdp_dist": phase_syncdp_dist(
                 torch, card, args.seed)}))
             return 0
         if args.vision_job_only:

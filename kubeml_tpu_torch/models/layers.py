@@ -28,7 +28,8 @@ compute something else, these follow flax:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -155,14 +156,33 @@ def max_pool(x: torch.Tensor, k: int, stride: int,
     return F.max_pool2d(x, k, stride)
 
 
+@dataclass(frozen=True)
+class RowDraw:
+    """A dropout generator for ``rows`` of a batch of ``total`` rows: the
+    uniforms are drawn for the whole batch from ``generator`` and the
+    rows kept, so a process that holds a slice of the batch (a rank of
+    the SyncDP engine, ``parallel/syncdp.py``) drops what one process
+    holding the whole batch drops. Passed where a model takes its
+    dropout generator."""
+    generator: torch.Generator
+    rows: slice
+    total: int
+
+
 def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator) -> torch.Tensor:
     """flax nn.Dropout: keep each element with probability 1 - rate
-    (uniforms from ``generator``), scale kept ones by 1 / (1 - rate) in
-    x's dtype; rate 0 is the identity. (jax.random's bits cannot be
+    (uniforms from ``generator``, a ``torch.Generator`` or a
+    ``RowDraw`` over x's leading axis), scale kept ones by 1 / (1 - rate)
+    in x's dtype; rate 0 is the identity. (jax.random's bits cannot be
     reproduced, so the kept set differs from the JAX package's.)"""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    if isinstance(generator, RowDraw):
+        u = torch.rand((generator.total, *x.shape[1:]),
+                       generator=generator.generator,
+                       device=x.device)[generator.rows]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

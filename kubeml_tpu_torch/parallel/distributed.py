@@ -32,13 +32,15 @@ card: NCCL refuses two ranks on one device). There is never a quiet
 switch from one backend to the other: a failed NCCL join raises.
 
 The collective helpers below (``all_reduce``, ``all_gather_cat``,
-``barrier``, ``exchange``) are what the engines and the job call. Each
-is the identity at world size 1 without a group, and each adds one to
-its ``calls`` count where it issues a collective. The gloo backend
-takes CUDA tensors for the all-reduce and the all-gather; for the
-point-to-point exchange of the ring (``parallel/collectives.py``)
-``exchange`` moves CUDA tensors through the host on gloo: the named
-path, never a silent one.
+``reduce_scatter``, ``all_gather_into``, ``barrier``, ``exchange``) are
+what the engines and the job call. Each is the identity at world size 1
+without a group, and each adds one to its ``calls`` count where it
+issues a collective. The gloo backend takes CUDA tensors for the
+all-reduce, the all-gather, ``reduce_scatter_tensor`` and
+``all_gather_into_tensor`` (chip_smoke.py phases 23 and 24 try each
+directly); for the point-to-point exchange of the ring
+(``parallel/collectives.py``) ``exchange`` moves CUDA tensors through
+the host on gloo: the named path, never a silent one.
 """
 
 from __future__ import annotations
@@ -255,6 +257,37 @@ def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Rank r's segment of the sum over the group's ranks of the flat
+    tensor ``t``, cut into world equal contiguous segments (segment r of
+    every rank's ``t``, summed); ``t`` itself without a group. The SyncDP
+    engine's ZeRO-1 gradient reduce: ``t`` packed rank-major."""
+    if not is_initialized():
+        return t
+    world = dist.get_world_size(group)
+    if t.numel() % world:
+        raise ValueError(f"{t.numel()} elements do not split over {world} "
+                         "ranks")
+    out = torch.empty(t.numel() // world, dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, t.reshape(-1).contiguous(), group=group)
+    reduce_scatter.calls += 1
+    return out
+
+
+def all_gather_into(t: torch.Tensor, group=None) -> torch.Tensor:
+    """One flat tensor of every rank's equal flat segment ``t``, in rank
+    order (``all_gather_into_tensor``); ``t`` itself without a group. The
+    SyncDP engine writes its ZeRO-1/FSDP shards back through it."""
+    if not is_initialized():
+        return t
+    src = t.reshape(-1).contiguous()
+    out = torch.empty(dist.get_world_size(group) * src.numel(),
+                      dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    all_gather_into.calls += 1
+    return out
+
+
 def barrier(group=None) -> None:
     """Wait until every rank of the group reaches this point (nothing
     without a group)."""
@@ -286,5 +319,7 @@ def exchange(send: torch.Tensor, to: int, frm: int,
 
 all_reduce.calls = 0
 all_gather_cat.calls = 0
+reduce_scatter.calls = 0
+all_gather_into.calls = 0
 barrier.calls = 0
 exchange.calls = 0

@@ -56,7 +56,11 @@ package's 400 and ``'auto'`` stages the rounds from the host;
 checkpoint under its own ``KUBEML_TPU_HOME``, after a barrier: the
 validation runs no collective, so without it a rank whose peer died
 would checkpoint an epoch its peer never saved, and a restarted cluster
-would resume its ranks at different epochs.
+would resume its ranks at different epochs. A syncdp job does the same
+over the SyncDP engine: every rank is handed each reflowed global batch
+and its whole mask, and the engine copies its lanes' slice; the
+engine's variables view (its fsdp shards gathered, a collective every
+rank makes after every epoch) feeds validation and the checkpoints.
 
 What differs:
   - ``device`` (None = CUDA) and ``n_lanes`` replace the mesh;
@@ -770,11 +774,8 @@ class TrainJob:
         sync = getattr(self, "_sync_state", None)
         if sync is not None:
             seen = {id(t) for t in out}
-            out += [t for t in self._sync_engine.variables(sync).values()
+            out += [t for t in self._sync_engine.held_tensors(sync)
                     if id(t) not in seen]
-            out += [v for st in sync["opt_state"].state.values()
-                    for v in st.values() if torch.is_tensor(v)]
-            out += list(sync.get("merge_resid", {}).values())
         cache = getattr(self, "_device_cache", None)
         if cache is not None and cache.arrays:
             out += list(cache.arrays.values())

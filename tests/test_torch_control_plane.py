@@ -398,6 +398,15 @@ def test_scheduler_grants_equal_under_a_scripted_policy():
         def task_finished(self, job_id):
             pass
 
+    def wait_for(seen, count, what):
+        # each grant is sent from the scheduler's own thread: wait for it
+        # before the next request, so the grants cannot reorder or merge
+        deadline = time.time() + 60
+        while len(seen) < count:
+            assert time.time() < deadline, \
+                f"{what}: waited for {count} grants, the PS saw {seen}"
+            time.sleep(0.01)
+
     grants = {}
     for key, cls in (("ref", RefScheduler), ("port", Scheduler)):
         seen = []
@@ -415,14 +424,13 @@ def test_scheduler_grants_equal_under_a_scripted_policy():
             job_id = http_json("POST", f"{sched.url}/train",
                                req.to_dict())["id"]
             assert len(job_id) == 8
+            wait_for(seen, 1, f"{key} /start after /train")
             from kubeml_tpu_torch.api.types import TrainTask
-            for _ in script[1:]:
-                n = len(seen)
+            for k in range(1, len(script)):
                 http_json("POST", f"{sched.url}/job", TrainTask(
                     job_id=job_id, parameters=req).to_dict())
-                deadline = time.time() + 10
-                while len(seen) == n and time.time() < deadline:
-                    time.sleep(0.01)
+                wait_for(seen, k + 1, f"{key} /update after /job {k}")
+            wait_for(seen, len(script), f"{key} before /finish")
             http_json("DELETE", f"{sched.url}/finish/{job_id}")
         finally:
             sched.stop()

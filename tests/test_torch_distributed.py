@@ -242,16 +242,18 @@ def test_two_rank_round_matches_reference(round_run, name):
                                       np.asarray(st.dropped))
 
 
-def test_syncdp_and_uneven_lanes_refused_over_ranks(round_run):
-    """Over two ranks the SyncDP engine raises NotPortedError naming
-    ROADMAP A.20, and three lanes (not a multiple of the world size) are
-    refused at construction."""
+def test_syncdp_builds_and_uneven_lanes_refused_over_ranks(round_run):
+    """Over two ranks a SyncDP engine builds over the mlp, its implicit
+    path refuses a BatchNorm model with a 400 naming ROADMAP A.21, and
+    three lanes (not a multiple of the world size) are refused at
+    construction."""
     _, _, outdir, _ = round_run
     for r in range(2):
         with open(os.path.join(outdir, f"refusals_p{r}.json")) as f:
             got = json.load(f)
-        assert "ROADMAP A.20" in got["syncdp"], got
-        assert got["syncdp_status"] == 400
+        assert got["syncdp"] == "built", got
+        assert "ROADMAP A.21" in got["syncdp_bn"], got
+        assert got["syncdp_bn_status"] == 400
         assert "cannot be laid out over 2 ranks" in got["lanes3"], got
 
 
@@ -682,13 +684,18 @@ def _worker_round(outdir, single):
     tag = "single" if single else f"p{rank}"
     np.savez(os.path.join(outdir, f"round_{tag}.npz"), **out)
     if not single:
-        refusals = {}
+        from kubeml_tpu_torch.models.layers import BatchNorm, Dense
+
+        SyncDPEngine(engine.module, model.loss, model.configure_optimizers,
+                     n_lanes=2)
+        refusals = {"syncdp": "built"}
         try:
-            SyncDPEngine(engine.module, model.loss,
-                         model.configure_optimizers, n_lanes=2)
+            SyncDPEngine(torch.nn.Sequential(Dense(4, 4, device="cpu"),
+                                             BatchNorm(4, device="cpu")),
+                         model.loss, model.configure_optimizers, n_lanes=2)
         except KubeMLException as e:
-            refusals["syncdp"] = str(e)
-            refusals["syncdp_status"] = e.status_code
+            refusals["syncdp_bn"] = str(e)
+            refusals["syncdp_bn_status"] = e.status_code
         try:
             _mlp_engine(model, 3, {})
         except ValueError as e:
