@@ -494,8 +494,8 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               and the one-process 2-lane rounds bit for bit, each rank's
               residual its lane's slice, #5 once a merge on each rank, ms
               a round against the one-process round; (c) a two-rank
-              TrainJob (gpt-mini, ef_bf16, N=2, K=4, B=8, 1 epoch over 256
-              + 64 windows, host-staged): both ranks' histories and final
+              TrainJob (gpt-mini, ef_bf16, N=2, K=4, B=8, 1 epoch over 128
+              + 32 windows, host-staged): both ranks' histories and final
               weights equal each other and the one-process job's, launches
               per rank against the plan (every rank validates the whole
               set), ms per local step against the one-process job; which
@@ -532,11 +532,55 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               tensors for reduce_scatter_tensor and all_gather_into_tensor,
               each tried directly in processes of its own; (g) two-rank
               syncdp TrainJobs (ef_bf16, then fsdp; N=2, 1 epoch over phase
-              23's 256 + 64 windows) against the one-process jobs: histories
+              23's 128 + 32 windows) against the one-process jobs: histories
               and weights (ef_bf16 bit for bit; the fsdp job, in f32, held
               as (b32): losses within 1e-4 relative, weights 99.5 % within
               1e-5 and within AdamW's bound). The tight checks of (b), (b32)
               and (g) report every miss together after (g).
+  phase 25    sequence parallelism over ranks: (a) #2-#4 at the ring's
+              block shapes (gpt-mini, B=8, T=512 over two ranks: blocks
+              of 256, H=4, D=64, bf16; phase 7's keep-mask): the forward
+              on the causal diagonal block, a visiting block and an
+              all-zero keep-mask (a dropped block: m = NEG_INF, l = T_k,
+              a finite out), and the backward of each fed the GLOBAL m
+              and l merged from rank 1's two blocks (the dropped block's
+              gradients zero), each against its plain version within the
+              flash tolerance, warm times beside the plain version's,
+              SDPA's and the bound; then this process's dense rounds,
+              and two gloo seq ranks on the one card (one lane group,
+              n_seq=2) as its children: (b) two K-avg rounds of gpt-mini
+              (W=1 lane, K=2, B=8, T=512, SGD, dropout 0.1, the 4 MB
+              bucketed merge; the second counted and timed) under the
+              ring and under Ulysses, bf16 and f32, against the dense
+              one-process rounds on the card:
+              both ranks bit for bit, the weights within the reference's
+              SP-vs-dense bounds in bf16 (rtol 2e-2, atol 2e-3) and
+              (1e-4, 1e-5) in f32, the loss 5e-3 / 1e-5 relative; a
+              rank's launches = the plan (the ring: #2, #3 and #4 each
+              layers x n a local step, dropped blocks included; Ulysses
+              and the dense round: layers a step; #5 once a merge);
+              (c) forward_seq_parallel's logits against the dense
+              forward's (2e-2 / 1e-4 of their largest magnitude); (d) a
+              two-rank n_seq=2 TrainJob (ring, one lane, N=2, one epoch
+              over 128 + 32 windows): equal histories, #3/#4 = the plan;
+              (e) whether gloo's all_to_all_single takes CUDA tensors,
+              tried directly (the port's all-to-all relies on it).
+              Every miss of (b)-(d) is raised together after (d).
+
+Phases 1-9 run in this process. Phases 10-25 then run in three
+processes side by side: 15, 16, 14 and 23 here, and two lanes of this
+script (``--lane DIR``), one running 10, 17, 11, 12, 13, 18 and 25 and
+the other 22, 24, 19, 20 and 21; the lanes start after phase 1 (imports,
+CUDA, their gpt-mini, torch._dynamo, which torch.optim's first call
+imports) and wait for the end of phase 9. Each process holds
+its own launch counts, so every phase still zeroes and reads its own; a
+lane pickles its phases' results for this process, which prints the
+lanes' output after its own and assembles the kernels line. Those phases
+mostly start child processes and wait on them, so side by side they take
+about the longest process's share; their times are taken beside the
+other processes' work on the card, and phases 1-9's alone. A failed lane
+fails the run; a lane ends with everything it started when this process
+stops it or is gone.
 
 Prints every number beside the card's name and power limit (nvidia-smi),
 then a line {"kernels": [...]} with one entry per kernel instantiation on
@@ -582,7 +626,11 @@ carries "dist_launches", phase 23's (0 for the paged kernel; (a)'s and
 rank and in one process; the merge also "dist_segments"); every entry
 carries "syncdp_dist_launches", phase 24's (0 for the paged kernel; the
 counted dispatch per path, on the NCCL rank and per gloo rank, and the
-two-rank jobs per rank; the merge also "syncdp_dist_segments"); the
+two-rank jobs per rank; the merge also "syncdp_dist_segments"); every
+entry carries "seq_launches", phase 25's (0 for the paged kernel; each
+(b) round per rank and the dense round in one process, per dtype, and
+(d)'s job per rank), and the flash entries "seq_shapes", phase 25 (a)'s
+rows at the ring's block shapes; the
 merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
@@ -661,6 +709,11 @@ launches, ms a round and ms per local step as one JSON line.
 builds the flash and merge kernels and runs phase 24 alone, printing its
 launches, ms per global step, shard bytes and the gloo probes as one
 JSON line.
+
+    python3 chip_smoke.py --seq-only
+
+builds the flash and merge kernels and runs phase 25 alone, printing its
+(a) rows and launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -7535,7 +7588,7 @@ DIST_ROUNDS = 2           # round 1 warms up; round 2 is counted and timed
 DIST_TIMEOUT = 120.0      # seconds: every join and collective of a rank
 DIST_CHILD_S = 300.0      # seconds a launch of ranks may take
 DIST_DUP_S = 60.0         # seconds a probe's join and collective may take
-DIST_JOB_TRAIN, DIST_JOB_TEST = 256, 64    # (c): 4 rounds of 2 x 4 x 8
+DIST_JOB_TRAIN, DIST_JOB_TEST = 128, 32    # (c): 2 rounds of 2 x 4 x 8
 DIST_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
               "import chip_smoke; "
               "sys.exit(chip_smoke.dist_child(*sys.argv[2:]))")
@@ -7837,16 +7890,45 @@ def dist_launch(card, mode, world, outdir, seed, limit_s=DIST_CHILD_S,
                                          child), probe)
 
 
+def store_port() -> int:
+    """A free port for a launch's TCP store, below the kernel's ephemeral
+    range where it has room, and never handed out twice by this process.
+    A port the kernel picks for a bind to port 0 is an ephemeral one: by
+    the time rank 0 listens on it, another launch's gloo connections may
+    hold it (EADDRINUSE on the card)."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 0
+    top = low if low > 20000 else 65536
+    for _ in range(10000):
+        port = random.randrange(10000, top)
+        if port in store_port.given:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        store_port.given.add(port)
+        return port
+    raise RuntimeError("no free port for a TCP store")
+
+
+store_port.given = set()
+
+
 def dist_spawn(mode, world, outdir, seed, limit_s=DIST_CHILD_S,
                child=DIST_CHILD) -> tuple:
     """Start dist_launch's ranks without waiting for them: (mode, world,
     outdir, limit_s, deadline, [(process, log file)])."""
     import os
-    import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = store_port()
     here = os.path.dirname(os.path.abspath(__file__))
     procs = []
     for r in range(world):
@@ -8588,6 +8670,423 @@ def sd_launches(sd, kernel) -> dict:
                      for job_id, _ in SD_JOBS}}
 
 
+# ------------------------------------------------------------------ phase 25
+SEQ_N = 2                 # seq ranks: two gloo ranks on the one card
+SEQ_W, SEQ_K, SEQ_B, SEQ_T = 1, 2, 8, 512   # one lane; the ring's block
+                                            # is [8, 256]
+SEQ_LR = 1e-2             # SGD, as the reference's SP-vs-dense round
+SEQ_ROUNDS = 2            # round 1 warms up; round 2 is counted and timed
+SEQ_IMPLS = ("ring", "ulysses")
+SEQ_DTYPES = ("bf16", "f32")
+# (rtol, atol) of the merged weights against the dense round: the
+# reference's own SP-vs-dense bounds in bf16 (tests/test_parallel_tp_sp.py),
+# and tighter in f32; the round's loss sum within (relative) ...
+SEQ_W_TOL = {"bf16": (2e-2, 2e-3), "f32": (1e-4, 1e-5)}
+SEQ_LOSS_TOL = {"bf16": 5e-3, "f32": 1e-5}
+# ... and forward_seq_parallel's logits within this share of the dense
+# logits' largest magnitude
+SEQ_LOGIT_TOL = {"bf16": 2e-2, "f32": 1e-4}
+SEQ_JOB_TRAIN, SEQ_JOB_TEST = 128, 32      # (d): 2 workers x 8 steps
+SEQ_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "import chip_smoke; "
+             "sys.exit(chip_smoke.seq_child(*sys.argv[2:]))")
+
+
+def seq_collectives() -> dict:
+    """Phase 23's collective counters and the all-to-all's."""
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    return {**dist_collectives(), "all_to_all": dl.all_to_all}
+
+
+def seq_zero() -> None:
+    dist_zero()
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    dl.all_to_all.calls = 0
+
+
+def seq_counts() -> tuple:
+    return ({k: fn.launches for k, fn in dist_kernels().items()},
+            {k: fn.calls for k, fn in seq_collectives().items()})
+
+
+def seq_plan(impl, layers, steps, n, buckets) -> dict:
+    """A rank's launches over one round: the ring runs #2, #3 and #4 n
+    times a layer a step (every visiting block, dropped ones included),
+    Ulysses and the dense round once (impl None); #5 once a merge."""
+    per = n if impl == "ring" else 1
+    return {**{k: layers * steps * per for k in ("forward", "dK/dV", "dQ")},
+            **merge_counts(buckets, 1)}
+
+
+def seq_model(torch, seed, dtype, impl, device="cuda"):
+    """gpt-mini at its widths (dropout 0.1) with weights from the seed,
+    built sequence-parallel under ``impl`` (None: dense)."""
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    model = get_model("gpt-mini")(
+        dtype=torch.float32 if dtype == "f32" else torch.bfloat16)
+    if impl is not None:
+        model.enable_seq_parallel(impl)
+    module = model.build(device=device)
+    module.load_state_dict(params_from_flax(
+        random_flax_params(**GPT_CONFIGS["gpt-mini"], seed=seed)))
+    return model, module
+
+
+def seq_round(torch, seed, dtype, impl) -> dict:
+    """SEQ_ROUNDS K-avg rounds of gpt-mini (W=1 lane, K=2, B=8, T=512,
+    half the sequences ending in padding, SGD, dropout 0.1, the 4 MB
+    bucketed merge), sequence-parallel over this process's two ranks
+    under ``impl``, or dense without a group (None). The counters are
+    zeroed just before the last round and read just after it."""
+    import functools
+
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    model, module = seq_model(torch, seed, dtype, impl)
+    engine = KAvgEngine(
+        module, model.loss, model.metrics,
+        lambda lr, e: functools.partial(torch.optim.SGD, lr=lr),
+        n_lanes=SEQ_W, merge_bucket_mb=MERGE_CAP_MB,
+        n_seq=1 if impl is None else SEQ_N,
+        batch_seq_dims=None if impl is None else model.seq_batch_dims)
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    rng = np.random.default_rng(seed + 30)
+    for _ in range(SEQ_ROUNDS):
+        args = lm_round(rng, SEQ_W, SEQ_K, SEQ_B, SEQ_T)
+        torch.cuda.synchronize()
+        seq_zero()                            # the main path's run starts
+        t0 = time.perf_counter()
+        state, st = engine.train_round(state, *args, SEQ_LR, 0)
+        loss = st.loss_sum
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, calls = seq_counts()          # ... and ends here
+    return {"state": {k: v.detach().cpu() for k, v in state.items()},
+            "counts": counts, "calls": calls, "ms": 1e3 * wall,
+            "loss": [float(v) for v in loss], "layers": module.layers,
+            "steps": int(args[2].sum()),
+            "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
+
+
+def seq_forward(torch, seed) -> dict:
+    """(c): forward_seq_parallel's [B, T, vocab] logits against the dense
+    forward's on the card, per dtype and impl: the largest difference
+    over the dense logits' largest magnitude."""
+    x = lm_round(np.random.default_rng(seed + 31), 1, 1, SEQ_B,
+                 SEQ_T)[0]["x"][0, 0]
+    out = {}
+    for dtype in SEQ_DTYPES:
+        model, module = seq_model(torch, seed, dtype, None)
+        with torch.no_grad():
+            dense = module.logits(torch.from_numpy(x).cuda())
+        for impl in SEQ_IMPLS:
+            got = model.forward_seq_parallel(module, x, impl=impl)
+            assert got.shape == dense.shape, got.shape
+            assert bool(torch.isfinite(got).all()), (dtype, impl)
+            out[f"{dtype} {impl}"] = float(
+                (got - dense).abs().max() / dense.abs().max().clamp_min(1.0))
+    return out
+
+
+def seq_job(torch, seed, outdir, rank) -> dict:
+    """(d): TrainJob(gpt-mini bf16, n_seq=2 ring, one lane, N=2, K=4, B=8)
+    for one epoch over SEQ_JOB_TRAIN + SEQ_JOB_TEST windows, from a home
+    of this rank's own. Its history and its launches over the epoch."""
+    import os
+
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    os.environ["KUBEML_TPU_HOME"] = os.path.join(outdir, f"seq_p{rank}")
+    rng = np.random.default_rng(seed + 32)
+    DatasetRegistry().create(
+        "tokens", token_windows(rng, SEQ_JOB_TRAIN, SEQ_T),
+        np.zeros(SEQ_JOB_TRAIN, np.int32),
+        token_windows(rng, SEQ_JOB_TEST, SEQ_T),
+        np.zeros(SEQ_JOB_TEST, np.int32))
+    published = []
+    task = job_task("smoke-seq-job", 1, default_parallelism=2,
+                    static_parallelism=True, k=JOB_K, validate_every=1,
+                    train_stats=False, n_seq=SEQ_N, seq_impl="ring")
+    job = TrainJob(task, get_model("gpt-mini")(), token_dataset(),
+                   device="cuda", n_lanes=1, callbacks=JobCallbacks(
+                       publish_metrics=lambda m: published.append(
+                           seq_counts())))
+    torch.cuda.synchronize()
+    seq_zero()                                # the main path's run starts
+    hist = job.train().data
+    counts, calls = published[0]              # ... and ends at the publish
+    return {"history": {"train_loss": list(hist.train_loss),
+                        "validation_loss": list(hist.validation_loss),
+                        "accuracy": list(hist.accuracy),
+                        "parallelism": list(hist.parallelism)},
+            "counts": counts, "calls": calls,
+            "seconds": float(hist.epoch_duration[0]),
+            "layers": job._engine.module.layers}
+
+
+def seq_a2a_probe(torch) -> str:
+    """(e): gloo's all_to_all_single of CUDA tensors, tried directly:
+    'accepted' when every rank receives its chunks, else the error."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t = torch.arange(world * 2, dtype=torch.float32, device="cuda") \
+        + 100 * rank
+    got = torch.empty_like(t)
+    try:
+        dist.all_to_all_single(got, t)
+    except Exception as e:  # noqa: BLE001 — the refusal is the answer
+        return f"refused: {type(e).__name__}: {str(e)[:240]}"
+    want = [100.0 * s + 2 * rank + i for s in range(world) for i in range(2)]
+    return "accepted" if got.cpu().tolist() == want \
+        else f"wrong: {got.cpu().tolist()}"
+
+
+def seq_child(mode, outdir, seed) -> int:
+    """A seq rank of phase 25 (two gloo ranks on the one card, one lane
+    group), started by dist_spawn with the KUBEML_* environment: (e) the
+    all-to-all probe, (b) the rounds under each dtype and impl, (c) the
+    forward, (d) the job. Writes its rows under ``outdir``."""
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    dl.initialize(backend="gloo", timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    rows = {"world": dl.world_size(), "backend": dist.get_backend(),
+            "a2a_cuda": seq_a2a_probe(torch)}
+    for dtype in SEQ_DTYPES:
+        for impl in SEQ_IMPLS:
+            out = seq_round(torch, seed, dtype, impl)
+            torch.save(out.pop("state"), os.path.join(
+                outdir, f"{mode}_{dtype}_{impl}_p{rank}.pt"))
+            rows[f"{dtype} {impl}"] = out
+    rows["forward"] = seq_forward(torch, seed)
+    rows["job"] = seq_job(torch, seed, outdir, rank)
+    with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dl.shutdown()
+    return 0
+
+
+def seq_block_operands(torch, seed):
+    """(a)'s operands at the ring's block shapes (gpt-mini, B=8, T=512
+    over two ranks: blocks of 256, H=4, D=64, bf16), as rank 1 of two
+    meets them: its queries, its own K/V block and rank 0's, N(0, 1),
+    dO, and phase 7's keep-mask (half the sequences ending in padding)
+    cut into the two blocks."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 29)
+    x = lm_round(rng, 1, 1, SEQ_B, SEQ_T)[0]["x"][0, 0]
+    pad = torch.from_numpy((x != 0).astype(np.float32)).to(dev)
+    Tl = SEQ_T // SEQ_N
+    q, k0, v0, k1, v1, g = (torch.from_numpy(rng.standard_normal(
+        (SEQ_B, Tl, FA_H, FA_D)).astype(np.float32)).to(dev, torch.bfloat16)
+        for _ in range(6))
+    return q, (k0, v0, pad[:, :Tl].contiguous()), \
+        (k1, v1, pad[:, Tl:].contiguous()), g
+
+
+def seq_kernels(torch, card, seed) -> dict:
+    """(a): #2-#4 at the ring's block shapes, each against its plain
+    version within the flash tolerance, with warm times beside the plain
+    version's, SDPA's and the bound. The forward: the causal diagonal
+    block, a visiting block, and an all-zero keep-mask (a dropped block:
+    m = NEG_INF, l = T_k, finite out). The backward of each, fed the
+    GLOBAL m and l merged from rank 1's two blocks and delta from the
+    globally normalised out; the dropped block's gradients are zero.
+    Rows by (case, kernel)."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+    from kubeml_tpu_torch.parallel.ring_attention import (_block_attn_flash,
+                                                          _merge_partials)
+
+    q, (k0, v0, m0), (k1, v1, m1), g = seq_block_operands(torch, seed)
+    B, Tl = q.shape[:2]
+    dropped = torch.zeros_like(m1)
+    cases = (("diagonal", k1, v1, m1, True), ("visiting", k0, v0, m0, False),
+             ("all-masked", k1, v1, dropped, False))
+    # rank 1's merged global statistics and out (its diagonal, then
+    # rank 0's visiting block), as the forward ring makes them
+    acc, m, l = _block_attn_flash(q, k1, v1, m1, True)
+    acc, m, l = _merge_partials(acc, m, l,
+                                *_block_attn_flash(q, k0, v0, m0, False))
+    out = (acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+    m_rows = m.reshape(B * FA_H, 1, Tl).contiguous()
+    l_rows = l.reshape(B * FA_H, 1, Tl).contiguous()
+    delta = fa._delta(g, out)
+    tol = FLASH_TOL["bf16"]
+    rows = {}
+    for case, k, v, mask, causal in cases:
+        fwd = (q, k, v, mask, causal)
+        bwd = (q, k, v, mask, g, m_rows, l_rows, delta, causal)
+        got_f = fa.fa_fwd_kernel(*fwd)
+        got_kv = fa.fa_bwd_dkv_kernel(*bwd)
+        got_q = (fa.fa_bwd_dq_kernel(*bwd),)
+        torch.cuda.synchronize()
+        errs = {}
+        for kernel, got, ref in (
+                ("forward", got_f, fa._fa_forward_plain(*fwd)),
+                ("dK/dV", got_kv, fa._fa_bwd_dkv_plain(*bwd)),
+                ("dQ", got_q, (fa._fa_bwd_dq_plain(*bwd),))):
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+            errs[kernel] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got[:2 if kernel == "dK/dV"
+                                                   else 1], ref))
+        if case == "all-masked":
+            o, bm, bl = got_f
+            assert bool(torch.isfinite(o).all())
+            torch.testing.assert_close(bm, torch.full_like(bm, -1e9),
+                                       rtol=1e-6, atol=0)
+            assert bool((bl == Tl).all()), bl.unique()
+            assert all(int(torch.count_nonzero(t)) == 0
+                       for t in (*got_kv, *got_q)), "dropped block's grads"
+        lib_f, lib_b = library_flash_ms(torch, q, k, v, g, mask, causal)
+        for kernel, fn, plain in (
+                ("forward", lambda: fa.fa_fwd_kernel(*fwd),
+                 lambda: fa._fa_forward_plain(*fwd)),
+                ("dK/dV", lambda: fa.fa_bwd_dkv_kernel(*bwd),
+                 lambda: fa._fa_bwd_dkv_plain(*bwd)),
+                ("dQ", lambda: fa.fa_bwd_dq_kernel(*bwd),
+                 lambda: fa._fa_bwd_dq_plain(*bwd))):
+            b_ms, b_by = flash_bound(q, causal, kernel)
+            row = dict(shape=f"ring block, {case}{' (causal)' if causal else ''}"
+                       f"{'' if kernel == 'forward' else ', global m/l'}: "
+                       f"B={B} T={Tl} H={FA_H} D={FA_D} bf16",
+                       max_abs_err=errs[kernel], ms=time_ms(torch, fn),
+                       plain_ms=time_ms(torch, plain), bound_ms=b_ms,
+                       bound_by=b_by,
+                       library_ms=lib_f if kernel == "forward" else lib_b)
+            rows[(case, kernel)] = row
+            log(card, f"seq (a) flash {kernel}, {row['shape']}: kernel "
+                f"{row['ms']:.4f} ms (L2 warm), plain {row['plain_ms']:.4f} "
+                f"ms, library {row['library_ms']:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}), {row['ms'] / b_ms:.1f}x bound, "
+                f"max|err| {errs[kernel]:.3g} (tol {tol})")
+    return rows
+
+
+def seq_within(torch, got, want, dtype) -> tuple:
+    """(ok, max |diff|) of two state dicts at SEQ_W_TOL[dtype]."""
+    rtol, atol = SEQ_W_TOL[dtype]
+    ok = set(got) == set(want) and all(
+        torch.allclose(got[k].float(), want[k].float(), rtol=rtol, atol=atol)
+        for k in want)
+    return ok, max(float((got[k].float() - want[k].float()).abs().max())
+                   for k in want)
+
+
+def phase_seq(torch, card, seed) -> dict:
+    """Phase 25: sequence parallelism over ranks (see the module
+    docstring). (a), then the dense rounds the seq ranks are held to,
+    run alone on the card; then the two gloo seq ranks. Returns the rows
+    and launches for the kernels line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    shapes = seq_kernels(torch, card, seed)
+    dense = {dtype: seq_round(torch, seed, dtype, None)
+             for dtype in SEQ_DTYPES}
+    with tempfile.TemporaryDirectory(prefix="kubeml_seq_") as tmp:
+        ranks = dist_collect(card, dist_spawn("seq", SEQ_N, tmp, seed,
+                                              child=SEQ_CHILD))
+        assert all((r["world"], r["backend"]) == (SEQ_N, "gloo")
+                   for r in ranks), ranks
+        log(card, f"seq (e) gloo all_to_all_single of CUDA tensors: "
+            f"{[r['a2a_cuda'] for r in ranks]}")
+        assert all(r["a2a_cuda"] == "accepted" for r in ranks), ranks
+        out = {"shapes": shapes, "dense": {}, "rounds": {}}
+        misses = []
+        for dtype in SEQ_DTYPES:
+            want = dense[dtype]
+            layers, steps = want["layers"], want["steps"]
+            plan = seq_plan(None, layers, steps, 1, want["buckets"])
+            assert want["counts"] == plan, (dtype, want["counts"])
+            out["dense"][dtype] = want["counts"]
+            for impl in SEQ_IMPLS:
+                key = f"{dtype} {impl}"
+                got = [torch.load(os.path.join(tmp, f"seq_{dtype}_{impl}_p{r}"
+                                               ".pt")) for r in range(SEQ_N)]
+                assert dist_equal(torch, got[0], got[1]), key
+                ok, diff = seq_within(torch, got[0], want["state"], dtype)
+                loss = ranks[0][key]["loss"]
+                rel = abs(loss[0] - want["loss"][0]) / max(
+                    1.0, abs(want["loss"][0]))
+                plan = seq_plan(impl, layers, steps, SEQ_N, want["buckets"])
+                counts = [r[key]["counts"] for r in ranks]
+                log(card, f"seq (b) gpt-mini {key}, {SEQ_N} gloo seq ranks, "
+                    f"1 lane (W={SEQ_W} K={SEQ_K} B={SEQ_B} T={SEQ_T}, SGD, "
+                    f"{SEQ_ROUNDS} rounds): ranks equal bit for bit; "
+                    f"against the dense rounds "
+                    f"max|dw| {diff:.3g} (rtol, atol {SEQ_W_TOL[dtype]}), "
+                    f"loss {loss[0]:.6f} vs {want['loss'][0]:.6f} (rel "
+                    f"{rel:.3g}, tol {SEQ_LOSS_TOL[dtype]}); launches a rank "
+                    f"{counts[0]} (plan {plan}); collectives a rank "
+                    f"{ranks[0][key]['calls']}; round {SEQ_ROUNDS} "
+                    f"{ranks[0][key]['ms']:.1f} / {ranks[1][key]['ms']:.1f} "
+                    f"ms on ranks 0 / 1 against {want['ms']:.1f} ms dense")
+                if not ok or rel > SEQ_LOSS_TOL[dtype]:
+                    misses.append((key, diff, rel))
+                if any(c != plan for c in counts):
+                    misses.append((key, "launches", counts, plan))
+                out["rounds"][key] = counts
+        for key, rel in ranks[0]["forward"].items():
+            log(card, f"seq (c) forward_seq_parallel {key}: max|logits - "
+                f"dense| / max|dense| {rel:.3g} (tol "
+                f"{SEQ_LOGIT_TOL[key.split()[0]]})")
+            if not rel <= SEQ_LOGIT_TOL[key.split()[0]]:
+                misses.append(("forward", key, rel))
+        jobs = [r["job"] for r in ranks]
+        h = jobs[0]["history"]
+        steps = sum(dist_worker_steps(SEQ_JOB_TRAIN, 2))
+        for r, j in enumerate(jobs):
+            for k in ("dK/dV", "dQ"):
+                if j["counts"][k] != j["layers"] * steps * SEQ_N:
+                    misses.append(("job", r, k, j["counts"][k]))
+        log(card, f"seq (d) gpt-mini job, n_seq={SEQ_N} ring, 1 lane, N=2: "
+            f"histories equal {jobs[0]['history'] == jobs[1]['history']}, "
+            f"train loss {h['train_loss']}, validation {h['validation_loss']}"
+            f"; launches over the epoch a rank {[j['counts'] for j in jobs]} "
+            f"(#3/#4 plan {jobs[0]['layers'] * steps * SEQ_N}); "
+            f"{jobs[0]['seconds']:.2f} s")
+        if jobs[0]["history"] != jobs[1]["history"] or not all(
+                np.isfinite(h["train_loss"] + h["validation_loss"])):
+            misses.append(("job history", jobs[0]["history"],
+                           jobs[1]["history"]))
+        out["job"] = [j["counts"] for j in jobs]
+    log(card, f"seq phase 25: {time.perf_counter() - t0:.1f} s")
+    if misses:
+        raise AssertionError(f"phase 25 misses: {misses}")
+    return out
+
+
+def seq_launches(seq, kernel) -> dict:
+    """A kernel's phase-25 launches for the kernels line: each round per
+    rank (and the dense round in one process), the job per rank."""
+    return {"rounds": {k: [c[kernel] for c in v]
+                       for k, v in seq["rounds"].items()},
+            "dense_one_process": {k: v[kernel]
+                                  for k, v in seq["dense"].items()},
+            "job": [c[kernel] for c in seq["job"]]}
+
+
 def phase_merge_only(torch, card, seed) -> dict:
     """--merge-only: what two trees of the port are compared by, through
     calls every tree with the fused merge has: (a) the one-segment
@@ -8691,6 +9190,14 @@ def merge_entry(rows, launches):
     }
 
 
+def settings(torch) -> str:
+    """f32 products stay f32 (no TF32) in this process; returns the card
+    line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card_line()
+
+
 def start(torch, sources=None) -> str:
     """f32 products stay f32; then phase 1: every kernel source (or the
     named ones), one nvcc each, all started together, logging the build
@@ -8698,9 +9205,7 @@ def start(torch, sources=None) -> str:
     card line."""
     from kubeml_tpu_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    card = settings(torch)
     t0 = time.perf_counter()
     logs = _build.build(sources)
     log(card, f"build: {len(logs)} kernel source(s) in "
@@ -8712,8 +9217,223 @@ def start(torch, sources=None) -> str:
     return card
 
 
+# Phases 10-25 run in three processes of this script side by side: this
+# one and two lanes (``--lane DIR``) it starts after phase 1, which get
+# ready while phases 2-9 (the kernels' own rows and times) run here and
+# then wait for them. Most of the wall time of phases 10-25 goes to
+# starting child processes (job servers, serve children, ranks: seconds
+# of imports and first CUDA calls each) and to waiting on them, which
+# the host's cores do side by side.
+HERE_PHASES = (15, 16, 14, 23)
+LANES = ((10, 17, 11, 12, 13, 18, 25), (22, 24, 19, 20, 21))
+LANE_S = 1000.0           # seconds a lane may take from its spawn
+
+
+def _ph10(torch, card, seed, ctx):
+    ctx["job_launches"], ctx["job_ms"] = phase_job(torch, card, seed,
+                                                   ctx["engine_ms"])
+
+
+def _ph12(torch, card, seed, ctx):
+    ctx["cp_resnet"], ctx["cp_gpt"], ctx["cli_ref"] = phase_control(
+        torch, card, seed)
+
+
+def _ph13(torch, card, seed, ctx):
+    ctx["cli"] = phase_cli(torch, card, seed, ctx.pop("cli_ref"))
+
+
+def _ph24(torch, card, seed, ctx):
+    ctx["sd"] = phase_syncdp_dist(
+        torch, card, seed, {name: row["ms_per_step"][-1]
+                            for name, row in ctx["sync"]["paths"].items()})
+
+
+def _ph(key, fn, *names):
+    """A phase that stores fn(torch, card, seed, *ctx[names]) at key."""
+    def phase(torch, card, seed, ctx):
+        ctx[key] = fn(torch, card, seed, *(ctx[n] for n in names))
+    return phase
+
+
+# phase -> what it runs; each reads and writes the run's context: what
+# phases 1-9 left (module, direct, engine_ms) and the other phases' results
+PHASES = {
+    10: _ph10,
+    11: _ph("vision_launches", phase_vision),
+    12: _ph12,
+    13: _ph13,
+    14: _ph("ps_launches", phase_ps_serve, "module", "direct"),
+    15: _ph("cluster", phase_cluster, "module", "direct"),
+    16: _ph("degraded", phase_degraded),
+    17: _ph("cost", phase_cost, "module", "job_ms"),
+    18: _ph("continual", phase_continual),
+    19: _ph("spec", phase_spec, "module", "direct"),
+    20: _ph("text", phase_text),
+    21: _ph("mv", phase_moe_vgg),
+    22: _ph("sync", phase_syncdp),
+    23: _ph("dist", phase_dist),
+    24: _ph24,
+    25: _ph("seq", phase_seq),
+}
+LANE_GIVEN = ("direct", "engine_ms")     # what a lane reads of phases 1-9
+
+
+def run_phases(torch, card, seed, phases, ctx, walls, between=None):
+    """Run ``phases`` in order, each phase's wall time kept in walls."""
+    for phase in phases:
+        t0 = time.perf_counter()
+        PHASES[phase](torch, card, seed, ctx)
+        walls[phase] = time.perf_counter() - t0
+        if between is not None:
+            between()
+
+
+def lane_spawn(seed, phases) -> dict:
+    """Start a lane (``--lane DIR``) for ``phases``, in its own process
+    group. It starts up (imports, CUDA, its gpt-mini) and then waits for
+    lane_go's DIR/in.pkl."""
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="kubeml_lane_")
+    files = (open(os.path.join(tmp, "out.log"), "w"),
+             open(os.path.join(tmp, "err.log"), "w"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--lane", tmp], stdout=files[0], stderr=files[1], process_group=0)
+    return {"proc": proc, "dir": tmp, "files": files, "shown": False,
+            "phases": phases, "deadline": time.monotonic() + LANE_S}
+
+
+def lane_go(lane, given) -> None:
+    """Let the lane run its phases, with phases 1-9's results it needs
+    (written whole before the lane sees the file)."""
+    import os
+    import pickle
+
+    path = os.path.join(lane["dir"], "in.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump({"phases": lane["phases"], "given": given}, f)
+    os.replace(path + ".tmp", path)
+
+
+def lane_name(lane) -> str:
+    return "the lane of phases " + ", ".join(map(str, lane["phases"]))
+
+
+def lane_show(lane) -> None:
+    """Copy the lane's output and errors to this process's, once."""
+    import os
+
+    if lane["shown"]:
+        return
+    lane["shown"] = True
+    for name, stream in (("out.log", sys.stdout), ("err.log", sys.stderr)):
+        with open(os.path.join(lane["dir"], name)) as f:
+            stream.write(f.read())
+        stream.flush()
+
+
+def lane_check(lane) -> None:
+    """Fail now if the lane has failed."""
+    code = lane["proc"].poll()
+    if code not in (None, 0):
+        lane_show(lane)
+        raise RuntimeError(f"{lane_name(lane)} exited {code}")
+
+
+def lane_join(lane) -> dict:
+    """Wait for the lane, show its output, and return its phases'
+    results (and their walls under "walls")."""
+    import os
+    import pickle
+
+    try:
+        code = lane["proc"].wait(
+            timeout=max(1.0, lane["deadline"] - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        lane_stop(lane)
+        raise RuntimeError(f"{lane_name(lane)} did not end within "
+                           f"{LANE_S:g} s")
+    lane_show(lane)
+    if code != 0:
+        raise RuntimeError(f"{lane_name(lane)} exited {code}")
+    with open(os.path.join(lane["dir"], "result.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def lane_stop(lane) -> None:
+    """Stop the lane and everything it started (its process group), and
+    remove its directory."""
+    import os
+    import shutil
+    import signal
+
+    proc = lane["proc"]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    lane_show(lane)
+    for f in lane["files"]:
+        f.close()
+    shutil.rmtree(lane["dir"], ignore_errors=True)
+
+
+def plain_data(x):
+    """``x`` with every tensor moved to the host, for pickling."""
+    if isinstance(x, dict):
+        return {k: plain_data(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(plain_data(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(plain_data(v) for v in x)
+    if hasattr(x, "detach"):
+        return x.detach().cpu()
+    return x
+
+
+def lane_run(torch, seed, tmp) -> int:
+    """A lane's process: started while phases 2-9 run, it gets ready and
+    waits for DIR/in.pkl, then runs its phases on the card with the
+    kernels phase 1 built and pickles their results to DIR/result.pkl. It
+    ends its process group when the process that started it is gone."""
+    import os
+    import pickle
+    import signal
+    import threading
+
+    parent = os.getppid()
+
+    def orphaned():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    card = settings(torch)
+    module = build_gpt(torch, PS_MODEL, seed, torch.bfloat16, "cuda")
+    import torch._dynamo  # noqa: F401 — torch.optim's first call imports it
+    path = os.path.join(tmp, "in.pkl")
+    while not os.path.exists(path):     # phases 1-9 still running
+        time.sleep(0.1)
+    with open(path, "rb") as f:
+        spec = pickle.load(f)
+    ctx = dict(spec["given"], module=module)
+    walls = {}
+    run_phases(torch, card, seed, spec["phases"], ctx, walls)
+    out = {k: v for k, v in ctx.items() if k not in ("module", *spec["given"])}
+    with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+        pickle.dump({"walls": walls, **plain_data(out)}, f)
+    return 0
+
+
 def run(torch, seed) -> list:
-    clock = [time.perf_counter()]
+    t_run = time.perf_counter()
+    clock = [t_run]
     walls = {}
 
     def timed(phase, fn, *args):
@@ -8725,6 +9445,19 @@ def run(torch, seed) -> list:
         return out
 
     card = timed(1, start, torch)
+    # the lanes of phases 10-25 start up now and wait until phase 9 ends
+    lanes = []
+    try:
+        for phases in LANES:
+            lanes.append(lane_spawn(seed, phases))
+        return run_rest(torch, seed, card, lanes, t_run, timed, walls)
+    finally:
+        for lane in lanes:
+            lane_stop(lane)
+
+
+def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
+    """run() from phase 2 on, the lanes started."""
     rows = timed(2, phase_kernels, torch, card, seed)
 
     module = build_gpt(torch, "gpt-mini", seed, torch.bfloat16, "cuda")
@@ -8749,27 +9482,38 @@ def run(torch, seed) -> list:
     timed(9, phase_merge_check, torch, card, seed)
     timed(9, phase_merge_trace, torch, card, seed, engines)
     del engines
-    job_launches, job_ms = timed(10, phase_job, torch, card, seed, engine_ms)
-    vision_launches = timed(11, phase_vision, torch, card, seed)
-    cp_resnet, cp_gpt, cli_ref = timed(12, phase_control, torch, card, seed)
-    cli = timed(13, phase_cli, torch, card, seed, cli_ref)
-    del cli_ref
-    ps_launches = timed(14, phase_ps_serve, torch, card, seed, module, direct)
-    cluster = timed(15, phase_cluster, torch, card, seed, module, direct)
-    degraded = timed(16, phase_degraded, torch, card, seed)
-    cost = timed(17, phase_cost, torch, card, seed, module, job_ms)
-    continual = timed(18, phase_continual, torch, card, seed)
-    spec = timed(19, phase_spec, torch, card, seed, module, direct)
-    text = timed(20, phase_text, torch, card, seed)
-    mv = timed(21, phase_moe_vgg, torch, card, seed)
-    sync = timed(22, phase_syncdp, torch, card, seed)
-    dist = timed(23, phase_dist, torch, card, seed)
-    sd = timed(24, phase_syncdp_dist, torch, card, seed,
-               {name: row["ms_per_step"][-1]
-                for name, row in sync["paths"].items()})
-    log(card, "wall by phase (s): " + ", ".join(
-        f"{p}: {w:.3f}" for p, w in walls.items())
-        + f"; phases 1-24 {sum(walls.values()):.3f}")
+    # phases 10-25: these here, the rest in the two lanes beside them
+    ctx = {"module": module, "direct": direct, "engine_ms": engine_ms}
+    for lane in lanes:
+        lane_check(lane)
+        lane_go(lane, {k: ctx[k] for k in LANE_GIVEN})
+
+    def check():
+        for lane in lanes:
+            lane_check(lane)
+    here = {}
+    run_phases(torch, card, seed, HERE_PHASES, ctx, here, check)
+    t_here = time.perf_counter()
+    got = [lane_join(lane) for lane in lanes]
+    walls.update(here)
+    waited = time.perf_counter() - t_here
+    for g in got:
+        walls.update(g.pop("walls"))
+        ctx.update(g)
+    (job_launches, vision_launches, cp_resnet, cp_gpt, cli, ps_launches,
+     cluster, degraded, cost, continual, spec, text, mv, sync, dist, sd,
+     seq) = (ctx[k] for k in (
+         "job_launches", "vision_launches", "cp_resnet", "cp_gpt", "cli",
+         "ps_launches", "cluster", "degraded", "cost", "continual", "spec",
+         "text", "mv", "sync", "dist", "sd", "seq"))
+    log(card, "wall by phase (s), 10-25 in three processes side by side: "
+        + ", ".join(f"{p}: {walls[p]:.3f}" for p in sorted(walls))
+        + "; " + "; ".join(
+            f"phases {', '.join(map(str, ph))}: "
+            f"{sum(walls[p] for p in ph):.3f}"
+            for ph in (HERE_PHASES, *LANES))
+        + f"; this process waited {waited:.3f} for the lanes after its "
+        f"own; the run {time.perf_counter() - t_run:.3f}")
     drafts = ("self-draft", "other-draft")
 
     paged = [{
@@ -8803,6 +9547,7 @@ def run(torch, seed) -> list:
         "syncdp_launches": 0,        # phase 22 serves nothing
         "dist_launches": 0,          # phase 23 serves nothing
         "syncdp_dist_launches": 0,   # phase 24 serves nothing
+        "seq_launches": 0,           # phase 25 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -8849,6 +9594,12 @@ def run(torch, seed) -> list:
         # phase 24: the counted dispatch per path over one NCCL rank and
         # two gloo ranks, the two-rank syncdp jobs per rank
         "syncdp_dist_launches": sd_launches(sd, kernel),
+        # phase 25: the seq rounds per rank (ring, Ulysses; bf16, f32),
+        # the dense round in one process, the two-rank seq job per rank;
+        # and (a)'s rows at the ring's block shapes
+        "seq_launches": seq_launches(seq, kernel),
+        "seq_shapes": [r for (_, k), r in seq["shapes"].items()
+                       if k == kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -8895,6 +9646,10 @@ def run(torch, seed) -> list:
                 # explicit paths and jobs (one launch a step on each rank)
                 syncdp_dist_launches=sd_launches(sd, "fused_merge"),
                 syncdp_dist_segments=sd_launches(sd, "merge segments"),
+                # phase 25: the seq ranks' merges (one lane group a data
+                # rank: one launch a merge on each rank) and the job's
+                seq_launches=seq_launches(seq, "fused_merge"),
+                seq_segments=seq_launches(seq, "merge segments"),
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -8977,6 +9732,15 @@ def main(argv=None) -> int:
                          "two-rank jobs, the gloo probes), printing its "
                          "launches and numbers as one JSON line and no "
                          "result line")
+    ap.add_argument("--lane", metavar="DIR",
+                    help="run the phases DIR/in.pkl names, with the "
+                         "kernels already built, and pickle their results "
+                         "to DIR/result.pkl (the full run starts two such "
+                         "lanes itself after phase 1)")
+    ap.add_argument("--seq-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "25 (sequence parallelism over two gloo ranks) "
+                         "alone")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
                          "every tree of the port has, the one-segment "
@@ -9028,6 +9792,8 @@ def main(argv=None) -> int:
               f"this script ({e})", file=sys.stderr)
         return 1
     try:
+        if args.lane:
+            return lane_run(torch, args.seed, args.lane)
         if args.paged_only:
             card = start(torch, ["paged_attention"])
             rows = phase_kernels(torch, card, args.seed)
@@ -9128,6 +9894,16 @@ def main(argv=None) -> int:
             card = start(torch, ["flash_attention", "fused_merge"])
             print(json.dumps({"card": card, "syncdp_dist": phase_syncdp_dist(
                 torch, card, args.seed)}))
+            return 0
+        if args.seq_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            seq = phase_seq(torch, card, args.seed)
+            print(json.dumps({"card": card, "seq": {
+                "shapes": [dict(case=c, kernel=k, **r) for (c, k), r in
+                           seq["shapes"].items()],
+                "launches": {k: seq_launches(seq, k) for k in
+                             ("forward", "dK/dV", "dQ", "fused_merge",
+                              "merge segments")}}}))
             return 0
         if args.vision_job_only:
             card = start(torch, ["fused_merge"])

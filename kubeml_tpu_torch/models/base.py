@@ -96,6 +96,32 @@ class KubeModel(abc.ABC):
     #: params_to_flax/params_from_flax map the whole variable tree
     collections = ("params",)
 
+    #: sequence-parallel batch layout: {batch key: dim index within the
+    #: per-example shape carrying the sequence}, e.g. {"x": 0} for
+    #: [B, T] token ids. None = no sequence-parallel support.
+    seq_batch_dims = None
+
+    #: the grid axis and implementation the modules build with
+    #: (``enable_seq_parallel``); None = the dense execution
+    seq_axis: Optional[str] = None
+    seq_impl: str = "ring"
+
+    def enable_seq_parallel(self, impl: str = "ring") -> None:
+        """Build the model's modules for sequence-parallel execution over
+        the rank grid's ``seq`` axis (the job calls it for
+        ``--seq-parallel`` > 1). Models without ``seq_batch_dims`` refuse
+        with the reference's message."""
+        from kubeml_tpu_torch.parallel.distributed import SEQ_AXIS
+
+        if self.seq_batch_dims is None:
+            raise ValueError(
+                f"function {self.name or type(self).__name__!r} does not "
+                "support sequence parallelism")
+        if impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown seq-parallel impl {impl!r}; "
+                             "expected 'ring' or 'ulysses'")
+        self.seq_axis, self.seq_impl = SEQ_AXIS, impl
+
     @abc.abstractmethod
     def build(self, dtype: torch.dtype = torch.bfloat16,
               device=None) -> torch.nn.Module:

@@ -16,11 +16,15 @@ State names follow GPTModule's (``tok_embed``, ``pos_embed``,
 ``blocks.i.{ln0,q,k,v,out,ln1,fc0,fc1}``, ``ln_f``) plus ``classifier``;
 ``convert.bert_params_{to,from}_flax`` map them onto the flax tree.
 
-The reference's parallel paths are not ported and refuse, naming the
-ROADMAP item that brings them: sequence parallelism (``seq_axis``,
-``seq_impl``, ``enable_seq_parallel``, ``forward_seq_parallel``) with
-A.6, tensor and pipeline parallelism (``tp_axis``,
-``enable_tensor_parallel``, ``enable_pipeline_parallel``) with A.12.
+Sequence parallelism (``seq_axis``, ``seq_impl``, ``enable_seq_parallel``,
+``forward_seq_parallel``) runs over the rank grid's seq axis: each rank
+holds a [B, T/n] block, positions are offset by its seq index, attention
+is the non-causal flash ring or Ulysses, and the mean-pool sums its
+numerator and count over the seq group (``seq_psum``), after which the
+classifier's logits are equal on every seq rank. Tensor and pipeline
+parallelism (``tp_axis``, ``enable_tensor_parallel``,
+``enable_pipeline_parallel``) are not ported and refuse, naming ROADMAP
+A.12.
 """
 
 from __future__ import annotations
@@ -39,12 +43,13 @@ from kubeml_tpu_torch.models.base import (PAD_ID, ClassifierModel,
                                           InferenceInputError,
                                           register_model)
 from kubeml_tpu_torch.models.gpt import (LN_EPS, DecoderBlock, _block,
-                                         _layer_norm)
+                                         _forward_seq_parallel, _layer_norm,
+                                         seq_attention, seq_draw)
 from kubeml_tpu_torch.models.layers import Dense, _dropout
 from kubeml_tpu_torch.ops.attention import masked_attention
+from kubeml_tpu_torch.parallel import distributed as dist_lib
 
 # what brings each refused parallel path, by ROADMAP item
-SEQ_PARALLEL = "sequence parallelism over NCCL ranks, ROADMAP A.6"
 TENSOR_PARALLEL = "tensor and pipeline parallelism over NCCL ranks, " \
     "ROADMAP A.12"
 HEADS = 2   # BERT-tiny's attention heads (restores the flax q/k/v layout)
@@ -60,11 +65,12 @@ class EncoderBlock(DecoderBlock):
         self.heads, self.dropout, self.dtype = heads, float(dropout), dtype
 
     def forward(self, h: torch.Tensor, pad_mask: torch.Tensor,
-                train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                train: bool = False, generator=None,
+                attend=None) -> torch.Tensor:
         """[B, T, hidden] -> [B, T, hidden]; ``pad_mask`` [B, T] 1/0 keeps
         the real tokens as keys; with ``train`` dropout is drawn from
-        ``generator``."""
+        ``generator``. ``attend(q, k, v)`` replaces the dense attention
+        (the sequence-parallel one)."""
         dt = self.dtype
 
         def lin(m):
@@ -75,18 +81,20 @@ class EncoderBlock(DecoderBlock):
               "ln1": (self.ln1.weight, self.ln1.bias), "fc0": lin(self.fc0),
               "fc1": lin(self.fc1), "heads": self.heads}
         rate = self.dropout if train else 0.0
-        return _block(lp, h, lambda q, k, v: masked_attention(
-            q, k, v, pad_mask, causal=False),
-            lambda t: _dropout(t, rate, generator))
+        if attend is None:
+            attend = lambda q, k, v: masked_attention(  # noqa: E731
+                q, k, v, pad_mask, causal=False)
+        return _block(lp, h, attend, lambda t: _dropout(t, rate, generator))
 
 
 class BertModule(nn.Module):
     """BERT-tiny's parameters (f32) and its classifier forward.
 
     ``device=None`` means CUDA and raises where no CUDA device exists;
-    ``dtype`` is the compute dtype. ``seq_axis``, ``seq_impl`` other than
-    "ring" and ``tp_axis`` select the reference's parallel executions,
-    which are not ported: they raise NotPortedError."""
+    ``dtype`` is the compute dtype. ``seq_axis`` (the rank grid's
+    ``"seq"``) and ``seq_impl`` ("ring" or "ulysses") select the
+    sequence-parallel forward; ``tp_axis`` (tensor parallelism) is not
+    ported and raises NotPortedError."""
 
     def __init__(self, vocab_size: int = 30522, max_len: int = 128,
                  hidden: int = 128, layers: int = 2, heads: int = HEADS,
@@ -95,9 +103,9 @@ class BertModule(nn.Module):
                  device: DeviceLike = None, seq_axis: Optional[str] = None,
                  seq_impl: str = "ring", tp_axis: Optional[str] = None):
         super().__init__()
-        if seq_axis is not None or seq_impl != "ring":
-            raise NotPortedError(f"BERT's seq_axis/seq_impl={seq_impl!r}",
-                                 SEQ_PARALLEL)
+        if seq_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown seq_impl {seq_impl!r}; expected "
+                             "'ring' or 'ulysses'")
         if tp_axis is not None:
             raise NotPortedError("BERT's tp_axis", TENSOR_PARALLEL)
         if hidden % heads:
@@ -107,6 +115,7 @@ class BertModule(nn.Module):
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.ffn, self.num_classes = ffn, num_classes
         self.dtype, self.dropout = dtype, float(dropout)
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.head_dim = hidden // heads
         dev = resolve_device(device)
         self.tok_embed = nn.Embedding(vocab_size, hidden, device=dev)
@@ -128,26 +137,45 @@ class BertModule(nn.Module):
         """int token ids [B, T] (pad id 0, T <= max_len) -> [B, classes]
         f32 logits; differentiable; with ``train`` dropout follows the
         embeddings, each attention out-projection and each FFN, drawn
-        from ``generator``."""
+        from ``generator``. With ``seq_axis`` x is this rank's [B, T/n]
+        block of the sequence and the logits are the whole sequence's,
+        equal on every seq rank."""
         B, T = x.shape
-        if T > self.max_len:
+        axis = self.seq_axis
+        n = 1 if axis is None else dist_lib.axis_size(axis)
+        if T * n > self.max_len:
             # a ValueError the serving layer answers with a 4xx
             raise InferenceInputError(
-                f"sequence length {T} exceeds max_len {self.max_len}")
+                f"sequence length {T * n} exceeds max_len {self.max_len}")
         x = x.to(self.device)
         pad_mask = (x != PAD_ID).float()
         dt = self.dtype
         rate = self.dropout if train else 0.0
+        attend = None
+        if axis is None:
+            pos_embed = self.pos_embed.weight[:T]
+        else:
+            pos = dist_lib.axis_index(axis) * T \
+                + torch.arange(T, device=x.device)
+            pos_embed = self.pos_embed.weight[pos]
+            attend = seq_attention(axis, self.seq_impl, pos, pad_mask,
+                                   causal=False)
+            generator = seq_draw(generator, axis, T)
         # gather the f32 rows, then cast: the values of flax's Embed, which
         # casts the whole table to the compute dtype before the take
-        h = self.tok_embed.weight[x].to(dt) \
-            + self.pos_embed.weight[:T].to(dt)[None]
+        h = self.tok_embed.weight[x].to(dt) + pos_embed.to(dt)[None]
         h = _dropout(h, rate, generator)
         for blk in self.blocks:
-            h = blk(h, pad_mask, train, generator)
+            h = blk(h, pad_mask, train, generator, attend)
         h = _layer_norm(h, self.ln_f.weight, self.ln_f.bias)
         num = (h * pad_mask[..., None]).sum(1)
-        pooled = num / pad_mask.sum(1).clamp_min(1.0)[..., None]
+        den = pad_mask.sum(1)
+        if axis is not None:
+            # the pool's sums over the seq group: the logits after it are
+            # the same on every seq rank
+            num = dist_lib.seq_psum(num, axis)
+            den = dist_lib.seq_psum(den, axis)
+        pooled = num / den.clamp_min(1.0)[..., None]
         return self.classifier(pooled).float()
 
 
@@ -158,6 +186,11 @@ class BertTiny(ClassifierModel):
 
     name = "bert-tiny"
     num_classes = 2
+    # sequence parallelism over the token dim of 'x' (the base
+    # enable_seq_parallel makes build() give seq-parallel modules); the
+    # per-example loss is seq-invariant: the module sums its mean-pool
+    # over the seq group
+    seq_batch_dims = {"x": 0}
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16):
         self.dtype = dtype   # compute dtype of the modules it builds
@@ -165,7 +198,8 @@ class BertTiny(ClassifierModel):
     def build(self, dtype: Optional[torch.dtype] = None,
               device: DeviceLike = None) -> BertModule:
         return BertModule(num_classes=self.num_classes,
-                          dtype=dtype or self.dtype, device=device)
+                          dtype=dtype or self.dtype, device=device,
+                          seq_axis=self.seq_axis, seq_impl=self.seq_impl)
 
     def loss(self, module, batch, generator, sample_mask):
         logits = module(batch["x"], train=True, generator=generator)
@@ -186,15 +220,18 @@ class BertTiny(ClassifierModel):
     def params_from_flax(self, params: dict) -> Dict[str, torch.Tensor]:
         return bert_params_from_flax(params)
 
+    def forward_seq_parallel(self, module, x, grid=None,
+                             impl: str = "ring") -> torch.Tensor:
+        """The classifier's forward over the rank grid's seq axis: every
+        rank of a seq group passes the same [B, T] ids (T divisible by
+        n) and gets the [B, classes] f32 logits, equal to the dense
+        forward, from its [B, T/n] block and ``module``'s parameters.
+        ``grid``: a ``distributed.make_grid`` grid (None: the current
+        one; n = 1 without a group)."""
+        return _forward_seq_parallel(module, x, grid, impl,
+                                     lambda m, xb: m(xb), gather=False)
+
     # the reference's parallel paths (not ported)
-    def enable_seq_parallel(self, impl: str = "ring") -> None:
-        raise NotPortedError("bert-tiny's sequence parallelism",
-                             SEQ_PARALLEL)
-
-    def forward_seq_parallel(self, variables, x, mesh, impl: str = "ring"):
-        raise NotPortedError("bert-tiny's forward_seq_parallel",
-                             SEQ_PARALLEL)
-
     def enable_tensor_parallel(self) -> None:
         raise NotPortedError("bert-tiny's tensor parallelism",
                              TENSOR_PARALLEL)

@@ -50,12 +50,19 @@ from kubeml_tpu_torch.api.errors import NotPortedError
 from kubeml_tpu_torch.convert import params_from_flax, params_to_flax
 from kubeml_tpu_torch.models.base import (PAD_ID, InferenceInputError,
                                           KubeModel, register_model)
-from kubeml_tpu_torch.models.layers import _dropout
+from kubeml_tpu_torch.models.layers import RowDraw, _dropout
 from kubeml_tpu_torch.ops.attention import (NEG_INF, composed_bias,
                                             masked_attention,
-                                            multi_head_attention)
+                                            multi_head_attention,
+                                            ring_flash_eligible)
 from kubeml_tpu_torch.ops.paged_attention import paged_attention
+from kubeml_tpu_torch.parallel import distributed as dist_lib
+from kubeml_tpu_torch.parallel.distributed import SEQ_AXIS
 from kubeml_tpu_torch.parallel.ep import moe_apply
+from kubeml_tpu_torch.parallel.ring_attention import (_seq_block,
+                                                      gather_seq,
+                                                      ring_attention)
+from kubeml_tpu_torch.parallel.ulysses import ulysses_attention
 
 LN_EPS = 1e-6  # flax LayerNorm's default, not torch's 1e-5
 # an MoE block's routing: top-2 GShard choices, each expert taking
@@ -141,17 +148,31 @@ class GPTModule(nn.Module):
     ``dropout`` applies in the training forward only. ``n_experts`` > 0
     makes every block's FFN a mixture of experts (top-``MOE_K`` routing at
     ``CAPACITY_FACTOR``), which the serving programs refuse.
+
+    ``seq_axis`` (the rank grid's ``"seq"``) makes the training forward
+    (``logits``) sequence-parallel: x is this rank's [B, T/n] block,
+    positions are offset by the seq index, attention is the causal flash
+    ring (``seq_impl="ring"``) or Ulysses, and the logits are the block's.
+    The dense inference forward and the serving programs stay dense.
     """
 
     def __init__(self, vocab_size: int = 8192, max_len: int = 512,
                  hidden: int = 256, layers: int = 4, heads: int = 4,
                  ffn: int = 1024, dropout: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None, n_experts: int = 0):
+                 device: DeviceLike = None, n_experts: int = 0,
+                 seq_axis: Optional[str] = None, seq_impl: str = "ring"):
         super().__init__()
         if hidden % heads:
             raise ValueError(f"hidden {hidden} does not split over "
                              f"{heads} heads")
+        if seq_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown seq_impl {seq_impl!r}; expected "
+                             "'ring' or 'ulysses'")
+        if n_experts and seq_axis is not None:
+            raise NotPortedError("gpt-moe-mini's sequence parallelism",
+                                 EXPERT_PARALLEL)
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.vocab_size, self.max_len = vocab_size, max_len
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.ffn, self.dtype, self.dropout = ffn, dtype, float(dropout)
@@ -205,32 +226,73 @@ class GPTModule(nn.Module):
         losses, one a layer (empty for a dense module) — what the
         reference's blocks sow into 'intermediates'."""
         B, T = x.shape
-        if T > self.max_len:
+        n = 1 if self.seq_axis is None else dist_lib.axis_size(self.seq_axis)
+        if T * n > self.max_len:
             raise InferenceInputError(
-                f"sequence length {T} exceeds max_len {self.max_len}")
+                f"sequence length {T * n} exceeds max_len {self.max_len}")
         x = x.to(self.device)
         named = dict(self.named_parameters())
         p = _param_tree(self, lambda name, dtype: named[name].to(dtype))
         rate = self.dropout if train else 0.0
-        h, aux = _causal_trunk(p, x, lambda t: _dropout(t, rate, generator))
+        seq = None
+        if self.seq_axis is not None:
+            seq = (self.seq_axis, self.seq_impl)
+            generator = seq_draw(generator, self.seq_axis, T)
+        h, aux = _causal_trunk(p, x, lambda t: _dropout(t, rate, generator),
+                               seq)
         return _lm_head(p, h), aux
 
 
+def seq_draw(generator, axis_name: str, T: int):
+    """The dropout generator of a seq rank holding a [B, T] block: the
+    uniforms of the whole sequence drawn and this rank's block kept, so
+    sequence-parallel training drops what the dense forward drops."""
+    n = dist_lib.axis_size(axis_name)
+    if n == 1 or not isinstance(generator, torch.Generator):
+        return generator
+    i = dist_lib.axis_index(axis_name)
+    return RowDraw(generator, slice(i * T, (i + 1) * T), n * T, axis=1)
+
+
+def seq_attention(axis_name: str, impl: str, pos: torch.Tensor,
+                  pad_mask: torch.Tensor, causal: bool):
+    """The sequence-parallel attention of a block over [B, T/n, H, D]
+    projections: the flash ring (positions ``pos``) or Ulysses."""
+    if impl == "ulysses":
+        return lambda q, k, v: ulysses_attention(
+            q, k, v, pad_mask, causal=causal, axis_name=axis_name)
+    use_flash = ring_flash_eligible(pos.shape[0])
+    return lambda q, k, v: ring_attention(
+        q, k, v, q_pos=pos, kv_pos=pos, kv_mask=pad_mask, causal=causal,
+        axis_name=axis_name, use_flash=use_flash)
+
+
 def _causal_trunk(p: dict, x: torch.Tensor,
-                  drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t
-                  ) -> tuple:
+                  drop: Callable[[torch.Tensor], torch.Tensor] = lambda t: t,
+                  seq: Optional[tuple] = None) -> tuple:
     """The reference module's ``__call__`` up to the final LayerNorm:
     embeddings of [B, T] ids (pad id 0) and the blocks, attention through
     ``masked_attention(causal=True)`` (the flash kernels on the card) with
     the pads masked as keys -> ([B, T, hidden], the MoE blocks' aux
-    losses, one a layer). ``drop`` is the training forward's dropout."""
+    losses, one a layer). ``drop`` is the training forward's dropout.
+    With ``seq`` = (axis name, impl), x is this rank's block of the
+    sequence: positions start at seq index x T and attention is
+    ``seq_attention``'s."""
     pad_mask = (x != PAD_ID).float()
     T = x.shape[1]
-    h = drop(p["tok_embed"][x] + p["pos_embed"][:T][None])
+    if seq is None:
+        pos_embed = p["pos_embed"][:T]
+        attend = lambda q, k, v: masked_attention(  # noqa: E731
+            q, k, v, pad_mask, causal=True)
+    else:
+        pos = dist_lib.axis_index(seq[0]) * T \
+            + torch.arange(T, device=x.device)
+        pos_embed = p["pos_embed"][pos]
+        attend = seq_attention(*seq, pos, pad_mask, causal=True)
+    h = drop(p["tok_embed"][x] + pos_embed[None])
     aux: list = []
     for lp in p["layers"]:
-        h = _block(lp, h, lambda q, k, v: masked_attention(
-            q, k, v, pad_mask, causal=True), drop, pad_mask, aux)
+        h = _block(lp, h, attend, drop, pad_mask, aux)
     return h, aux
 
 
@@ -821,6 +883,63 @@ def _lm_per_example(logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (per_tok * tok_mask).sum(1) / tok_mask.sum(1).clamp_min(1.0)
 
 
+def _shift_targets_sp(x_local: torch.Tensor, axis_name: str):
+    """Sequence-parallel _shift_targets on a rank's [B, T/n] block: the
+    block's last position targets the NEXT rank's first token, fetched
+    with one ring hop; the global last position (the last rank's last
+    column) keeps the dense semantics and is masked out."""
+    n = dist_lib.axis_size(axis_name)
+    idx = dist_lib.axis_index(axis_name)
+    nxt_first = dist_lib.ring_shift(x_local[:, :1].contiguous(), axis_name,
+                                    offset=-1)
+    targets = torch.cat([x_local[:, 1:], nxt_first], 1)
+    mask = ((x_local != PAD_ID) & (targets != PAD_ID)).float()
+    if idx == n - 1:
+        mask[:, -1] = 0.0
+    return targets, mask
+
+
+def _lm_per_example_sp(logits: torch.Tensor, x_local: torch.Tensor,
+                       axis_name: str) -> torch.Tensor:
+    """Sequence-parallel _lm_per_example: the per-sequence mean reduces
+    over the whole sequence through sums over the seq group of the
+    block's token-loss sum and count, so every seq rank holds the dense
+    loss (``seq_psum``: its backward sums the cotangents)."""
+    targets, tok_mask = _shift_targets_sp(x_local, axis_name)
+    per_tok = _token_nll(logits, targets)
+    num = dist_lib.seq_psum((per_tok * tok_mask).sum(1), axis_name)
+    den = dist_lib.seq_psum(tok_mask.sum(1), axis_name)
+    return num / den.clamp_min(1.0)
+
+
+def _forward_seq_parallel(module, x, grid, impl: str, forward,
+                          gather: bool = True):
+    """The models' ``forward_seq_parallel``: ``forward(module, block)`` of
+    this rank's [B, T/n] block of the [B, T] ids in seq mode, no grad,
+    the blocks' outputs gathered along T (``gather``) or returned as
+    they are (an output already equal on every seq rank)."""
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seq-parallel impl {impl!r}; "
+                         "expected 'ring' or 'ulysses'")
+    grid = dist_lib.current_grid() if grid is None \
+        else dist_lib.make_grid(grid.n_seq)
+    n = grid.n_seq
+    x = torch.as_tensor(np.asarray(x), device=module.device)
+    if x.shape[1] % n:
+        raise ValueError(f"sequence length {x.shape[1]} not divisible by "
+                         f"the seq-axis size {n}")
+    # the reference's module.clone(seq_axis=..., seq_impl=...), on the
+    # same parameters
+    dense = (module.seq_axis, module.seq_impl)
+    module.seq_axis, module.seq_impl = SEQ_AXIS, impl
+    try:
+        with torch.no_grad():
+            out = forward(module, _seq_block(x, n, grid.seq_index))
+    finally:
+        module.seq_axis, module.seq_impl = dense
+    return gather_seq(out, grid) if gather else out
+
+
 @register_model("gpt-mini")
 class GPTMini(KubeModel):
     """~6M-param decoder-only LM (4 layers x 256 hidden x 4 heads),
@@ -833,11 +952,16 @@ class GPTMini(KubeModel):
     def __init__(self, dtype: torch.dtype = torch.bfloat16):
         self.dtype = dtype   # compute dtype of the modules it builds
 
+    # sequence parallelism: the seq-carrying batch key and its dim (the
+    # base enable_seq_parallel makes build() give seq-parallel modules)
+    seq_batch_dims = {"x": 0}
+
     def build(self, dtype: Optional[torch.dtype] = None,
               device: DeviceLike = None) -> GPTModule:
         return GPTModule(**GPT_CONFIGS[self.name],
                          dropout=GPT_DROPOUT[self.name],
-                         dtype=dtype or self.dtype, device=device)
+                         dtype=dtype or self.dtype, device=device,
+                         seq_axis=self.seq_axis, seq_impl=self.seq_impl)
 
     def params_to_flax(self, state):
         return params_to_flax(state, heads=GPT_CONFIGS[self.name]["heads"])
@@ -847,19 +971,40 @@ class GPTMini(KubeModel):
 
     def loss(self, module, batch, generator, sample_mask):
         x = batch["x"].to(module.device)
-        return _lm_per_example(module.logits(x, train=True,
-                                             generator=generator), x)
+        logits = module.logits(x, train=True, generator=generator)
+        if module.seq_axis is not None:
+            return _lm_per_example_sp(logits, x, module.seq_axis)
+        return _lm_per_example(logits, x)
 
     def metrics(self, module, batch):
         x = batch["x"].to(module.device)
+        axis = module.seq_axis
         with torch.no_grad():
             logits = module.logits(x)
-        targets, tok_mask = _shift_targets(x)
-        per_tok = _token_nll(logits, targets)
-        hit = (logits.argmax(-1) == targets).float()
-        denom = tok_mask.sum(1).clamp_min(1.0)
-        return {"loss": (per_tok * tok_mask).sum(1) / denom,
-                "accuracy": (hit * tok_mask).sum(1) / denom}
+            if axis is not None:
+                targets, tok_mask = _shift_targets_sp(x, axis)
+            else:
+                targets, tok_mask = _shift_targets(x)
+            per_tok = _token_nll(logits, targets)
+            hit = (logits.argmax(-1) == targets).float()
+            sums = torch.stack([(per_tok * tok_mask).sum(1),
+                                (hit * tok_mask).sum(1), tok_mask.sum(1)])
+            if axis is not None:
+                sums = dist_lib.seq_psum(sums, axis)
+        denom = sums[2].clamp_min(1.0)
+        return {"loss": sums[0] / denom, "accuracy": sums[1] / denom}
+
+    def forward_seq_parallel(self, module, x, grid=None,
+                             impl: str = "ring") -> torch.Tensor:
+        """The causal forward over the rank grid's seq axis (the
+        reference's over its mesh): every rank of a seq group passes the
+        same [B, T] ids (T divisible by n), runs its [B, T/n] block with
+        ``module``'s parameters (the dense module: the same parameters)
+        and gets the full [B, T, vocab] f32 logits, equal to the dense
+        forward. ``grid``: a ``distributed.make_grid`` grid (None: the
+        current one; n = 1 without a group)."""
+        return _forward_seq_parallel(module, x, grid, impl,
+                                     lambda m, xb: m.logits(xb))
 
     def configure_optimizers(self, lr, epoch):
         """The reference's ``optax.adamw(lr, weight_decay=0.01)`` as
@@ -926,7 +1071,8 @@ class GPTMoEMini(GPTMini):
         raise NotPortedError("gpt-moe-mini's sequence parallelism",
                              EXPERT_PARALLEL)
 
-    def forward_seq_parallel(self, variables, x, mesh, impl: str = "ring"):
+    def forward_seq_parallel(self, module, x, grid=None,
+                             impl: str = "ring"):
         raise NotPortedError("gpt-moe-mini's forward_seq_parallel",
                              EXPERT_PARALLEL)
 

@@ -158,30 +158,33 @@ def max_pool(x: torch.Tensor, k: int, stride: int,
 
 @dataclass(frozen=True)
 class RowDraw:
-    """A dropout generator for ``rows`` of a batch of ``total`` rows: the
-    uniforms are drawn for the whole batch from ``generator`` and the
-    rows kept, so a process that holds a slice of the batch (a rank of
-    the SyncDP engine, ``parallel/syncdp.py``) drops what one process
-    holding the whole batch drops. Passed where a model takes its
-    dropout generator."""
+    """A dropout generator for ``rows`` of ``total`` along ``axis``: the
+    uniforms are drawn for the whole extent from ``generator`` and the
+    rows kept, so a process that holds a slice (a rank of the SyncDP
+    engine holding a slice of the batch, ``parallel/syncdp.py``; a seq
+    rank holding a block of the sequence, axis 1) drops what one process
+    holding the whole drops. Passed where a model takes its dropout
+    generator."""
     generator: torch.Generator
     rows: slice
     total: int
+    axis: int = 0
 
 
 def _dropout(x: torch.Tensor, rate: float,
              generator) -> torch.Tensor:
     """flax nn.Dropout: keep each element with probability 1 - rate
     (uniforms from ``generator``, a ``torch.Generator`` or a
-    ``RowDraw`` over x's leading axis), scale kept ones by 1 / (1 - rate)
+    ``RowDraw`` over one of x's axes), scale kept ones by 1 / (1 - rate)
     in x's dtype; rate 0 is the identity. (jax.random's bits cannot be
     reproduced, so the kept set differs from the JAX package's.)"""
     if rate == 0.0:
         return x
     if isinstance(generator, RowDraw):
-        u = torch.rand((generator.total, *x.shape[1:]),
-                       generator=generator.generator,
-                       device=x.device)[generator.rows]
+        a = generator.axis
+        u = torch.rand((*x.shape[:a], generator.total, *x.shape[a + 1:]),
+                       generator=generator.generator, device=x.device)
+        u = u[(slice(None),) * a + (generator.rows,)]
     else:
         u = torch.rand(x.shape, generator=generator, device=x.device)
     keep = u < 1.0 - rate

@@ -62,6 +62,16 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(q.dtype), v)
 
 
+def ring_flash_eligible(T_local: int) -> bool:
+    """The reference's rule for the flash-backed ring
+    (``kubeml_tpu/ops/attention.py`` ``ring_flash_eligible``): whether the
+    ring's per-block attention runs the flash kernels. The reference asks
+    for a TPU and a local block that tiles its grid; the port's kernels
+    mask their own ragged edge, so the flash ring is always taken (the
+    kernels on CUDA tensors, their plain versions on CPU tensors)."""
+    return T_local >= 1
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pad_mask: torch.Tensor,
                      causal: bool = False) -> torch.Tensor:

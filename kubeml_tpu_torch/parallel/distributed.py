@@ -36,11 +36,26 @@ The collective helpers below (``all_reduce``, ``all_gather_cat``,
 what the engines and the job call. Each is the identity at world size 1
 without a group, and each adds one to its ``calls`` count where it
 issues a collective. The gloo backend takes CUDA tensors for the
-all-reduce, the all-gather, ``reduce_scatter_tensor`` and
-``all_gather_into_tensor`` (chip_smoke.py phases 23 and 24 try each
-directly); for the point-to-point exchange of the ring
-(``parallel/collectives.py``) ``exchange`` moves CUDA tensors through
+all-reduce, the all-gather, ``reduce_scatter_tensor``,
+``all_gather_into_tensor`` and ``all_to_all_single`` (chip_smoke.py
+phases 23, 24 and 25 try each directly); for the point-to-point
+exchange of the rings (``parallel/collectives.py``,
+``parallel/ring_attention.py``) ``exchange`` moves CUDA tensors through
 the host on gloo: the named path, never a silent one.
+
+The rank grid (``make_grid``) lays the ranks out as the JAX package's
+mesh lays out its devices (``kubeml_tpu/parallel/mesh.py``: ``data``
+outermost, the inner axes inside): global rank r is lane group
+r // n_seq and seq index r % n_seq. The seq group (the ranks of one lane
+group) carries sequence parallelism's ring hops, all-to-alls and sums;
+the data group (the ranks of one seq index) carries the lane merge.
+``axis_size``/``axis_index``/``axis_group`` answer for the seq axis of
+the installed grid as ``lax.axis_size``/``lax.axis_index`` answer inside
+a shard_map: without a grid (or a group) it has size 1, and the
+collectives over it are identities. ``all_to_all`` is counted;
+``seq_psum`` is the differentiable sum over the seq group (its backward
+is the same sum) and ``ring_shift`` the differentiable ring hop (its
+backward sends the gradient back the other way).
 """
 
 from __future__ import annotations
@@ -188,9 +203,13 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def shutdown() -> None:
-    """Destroy the process group (at exit, or by the caller)."""
+    """Destroy the process group (at exit, or by the caller), and with it
+    the rank grids made over it."""
+    global _grid
     if is_initialized():
         dist.destroy_process_group()
+    _GRIDS.clear()
+    _grid = None
 
 
 # ------------------------------------------------------------ lane layout
@@ -229,6 +248,102 @@ def lane_layout(n_lanes: int, world: Optional[int] = None,
         raise ValueError(f"{n_lanes} lanes cannot be laid out over "
                          f"{world} ranks (lanes % world must be 0)")
     return LaneLayout(int(n_lanes), world, rank_)
+
+
+# -------------------------------------------------------------- rank grid
+
+SEQ_AXIS = "seq"
+
+
+@dataclass(frozen=True)
+class RankGrid:
+    """The ranks as a (data x seq) grid, data outermost: rank r is lane
+    group ``r // n_seq`` (its ``data_index``) and seq index ``r % n_seq``.
+    ``seq_group`` holds the n_seq ranks of this rank's lane group,
+    ``data_group`` the n_data ranks of its seq index; either is None
+    where it is the whole group (or there is no group)."""
+    n_data: int
+    n_seq: int
+    data_index: int
+    seq_index: int
+    data_group: object = None
+    seq_group: object = None
+
+
+_GRIDS: dict = {}      # by (n_seq, world), until the group is destroyed
+_grid: Optional[RankGrid] = None
+
+
+def make_grid(n_seq: int = 1) -> RankGrid:
+    """The rank grid of ``n_seq`` seq ranks per lane group, made the
+    current one (what ``axis_size`` and the models' ``seq_axis`` read).
+    Making a grid is collective the first time for each ``n_seq`` in a
+    group: every rank must call it, in the same order. Raises ValueError
+    unless the world divides by ``n_seq``."""
+    global _grid
+    n_seq = int(n_seq)
+    world, r = world_size(), rank()
+    if n_seq < 1 or world % n_seq:
+        raise ValueError(f"{world} ranks do not split into seq groups of "
+                         f"{n_seq}")
+    if (n_seq, world) not in _GRIDS:
+        data_group = seq_group = None
+        if n_seq > 1:
+            n_data = world // n_seq
+            # every rank creates every group, in one order
+            seqs = [dist.new_group(list(range(g * n_seq, (g + 1) * n_seq)))
+                    for g in range(n_data)]
+            datas = [dist.new_group(list(range(s, world, n_seq)))
+                     for s in range(n_seq)]
+            seq_group, data_group = seqs[r // n_seq], datas[r % n_seq]
+        _GRIDS[n_seq, world] = RankGrid(world // n_seq, n_seq, r // n_seq,
+                                        r % n_seq, data_group, seq_group)
+    _grid = _GRIDS[n_seq, world]
+    return _grid
+
+
+def use_grid(grid: RankGrid) -> None:
+    """Make an already made grid the current one again (an engine does
+    at every dispatch, so its collectives run over its own grid)."""
+    global _grid
+    _grid = grid
+
+
+def data_group():
+    """The current grid's data group: the group the lane merge sums over
+    (None: every rank)."""
+    return current_grid().data_group
+
+
+def current_grid() -> RankGrid:
+    """The grid ``make_grid`` installed last; without one, every rank is
+    its own lane group (n_seq 1)."""
+    if _grid is not None:
+        return _grid
+    return RankGrid(world_size(), 1, rank(), 0)
+
+
+def _seq(name: str) -> RankGrid:
+    if name != SEQ_AXIS:
+        raise ValueError(f"unknown grid axis {name!r}; the models' axis is "
+                         f"{SEQ_AXIS!r}")
+    return current_grid()
+
+
+def axis_size(name: str) -> int:
+    """The size of the grid's seq axis (``lax.axis_size``): n_seq, 1
+    without a grid."""
+    return _seq(name).n_seq
+
+
+def axis_index(name: str) -> int:
+    """This rank's index along the seq axis (``lax.axis_index``)."""
+    return _seq(name).seq_index
+
+
+def axis_group(name: str):
+    """The process group of the seq axis (None without a split)."""
+    return _seq(name).seq_group
 
 
 # ------------------------------------------------------------ collectives
@@ -317,8 +432,78 @@ def exchange(send: torch.Tensor, to: int, frm: int,
     return recv.to(send.device)
 
 
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The all-to-all of a [n, ...] tensor over the group's n ranks:
+    chunk i goes to group rank i, and chunk i of the result came from
+    group rank i (``all_to_all_single``); ``t`` itself at world size 1.
+    gloo takes CUDA tensors here, as for the all-reduce (chip_smoke.py
+    phase 25 (e) tries it directly; gloo has no list ``all_to_all``)."""
+    if not is_initialized() or dist.get_world_size(group) == 1:
+        return t
+    src = t.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    all_to_all.calls += 1
+    return out
+
+
+class _SeqPsum(torch.autograd.Function):
+    """psum over a group whose VJP is the same psum (the transpose of a
+    sum of every rank's value, handed to every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), group=ctx.group), None
+
+
+def seq_psum(x: torch.Tensor, axis_name: str = SEQ_AXIS) -> torch.Tensor:
+    """The differentiable sum of ``x`` over a grid axis (``lax.psum``):
+    its backward sums the cotangents over the same ranks. Every rank
+    that computes from the sum holds the whole upstream gradient, so a
+    loss that every rank of the axis computes alike counts 1 / n on
+    each (the engine's seq round) for the sum to be counted once. The
+    identity at axis size 1."""
+    if axis_size(axis_name) == 1:
+        return x
+    return _SeqPsum.apply(x, axis_group(axis_name))
+
+
+class _RingShift(torch.autograd.Function):
+    """One ring hop: send to ``to``, receive from ``frm``; the VJP sends
+    the gradient back the other way."""
+
+    @staticmethod
+    def forward(ctx, x, to, frm, group):
+        ctx.to, ctx.frm, ctx.group = to, frm, group
+        return exchange(x, to, frm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g.contiguous(), ctx.frm, ctx.to, ctx.group), \
+            None, None, None
+
+
+def ring_shift(x: torch.Tensor, axis_name: str = SEQ_AXIS,
+               offset: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` of ``x`` by ``offset`` around a grid axis: seq
+    index i sends to i + offset and receives from i - offset;
+    differentiable. The identity at axis size 1."""
+    n = axis_size(axis_name)
+    if n == 1:
+        return x
+    i = axis_index(axis_name)
+    return _RingShift.apply(x, (i + offset) % n, (i - offset) % n,
+                            axis_group(axis_name))
+
+
 all_reduce.calls = 0
 all_gather_cat.calls = 0
+all_to_all.calls = 0
 reduce_scatter.calls = 0
 all_gather_into.calls = 0
 barrier.calls = 0

@@ -57,6 +57,24 @@ the finite guard, the contribution sums and the merge like any leaf
 (integer leaves are averaged in f32 and truncated, as in the reference).
 The optimizer steps the parameters only.
 
+Sequence parallelism (``n_seq`` > 1 with ``batch_seq_dims``, the
+reference's seq round): the ranks form the rank grid
+(``distributed.make_grid``: data outermost, rank r in lane group
+r // n_seq at seq index r % n_seq). The lanes are laid out over the data
+group, whose ranks merge; the n_seq ranks of a lane group run the same
+workers on their own [T / n_seq] slice of every seq-carrying key
+(``seq_batch_dims``: {key: per-example dim}), through the models' ring or
+Ulysses attention. The reference gets its seq-axis gradient sums from
+``check_vma``; here the model's per-example loss is seq-invariant (its
+sums over the seq group are ``seq_psum``, whose backward sums the
+cotangents), each rank backpropagates 1 / n_seq of it, and the
+parameters' gradients are summed over the seq group (one all-reduce a
+step), so every seq rank steps the same global gradient. The loss sums,
+the drop flags and every branch of the round are decided from values
+equal on every rank of the seq group (the summed loss, the equal
+weights); the merge's sums and the gathered rows run over the data
+group.
+
 Index-fed rounds (``train_round(s)_indexed``) take the samples from a
 device-resident dataset cache (``data/device_cache.py``): the dispatch
 carries [W, S, B] gather indices, the round gathers the samples on the
@@ -210,26 +228,34 @@ class KAvgEngine:
     ``train_round`` returns the merged ones.
 
     n_lanes: data lanes D (the reference's ``data`` mesh axis), over the
-    ranks of the process group when one is initialized (D a multiple of
-    its world size); W must be a multiple of D. merge_dtype (a floating
+    data group's ranks when a process group is initialized (D a multiple
+    of its size); W must be a multiple of D. merge_dtype (a floating
     torch dtype), merge_bucket_mb and merge_compress ("none" | "bf16" |
     "int8") pick the merge strategy as in the reference
     (``merge.make_strategy``; the reference's ring, ``use_ring``, is its
-    choice for meshes with inner axes, which come with ROADMAP A.6 and
-    A.12). collect_stats adds the per-worker health stats and the loss
-    spread to ``RoundStats``; they are extra outputs and change no
-    weight.
+    choice for meshes with AUTO inner axes, which come with ROADMAP A.6
+    and A.12). collect_stats adds the per-worker health stats and the
+    loss spread to ``RoundStats``; they are extra outputs and change no
+    weight. n_seq and batch_seq_dims: the sequence-parallel round (module
+    docstring); ``module`` must then be a seq-parallel module (built
+    after the model's ``enable_seq_parallel``), and the world must split
+    into seq groups of n_seq ranks.
     """
 
     def __init__(self, module: torch.nn.Module, loss_fn: LossFn,
                  metrics_fn: MetricsFn, tx_factory: TxFactory,
                  n_lanes: int = 1, merge_dtype: Optional[torch.dtype] = None,
                  merge_bucket_mb: float = 0.0, merge_compress: str = "none",
-                 collect_stats: bool = False):
+                 collect_stats: bool = False, n_seq: int = 1,
+                 batch_seq_dims: Optional[Dict[str, int]] = None):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
-        # this rank's lanes (every lane without a group)
-        self.layout = dist_lib.lane_layout(int(n_lanes))
+        self.grid = dist_lib.make_grid(int(n_seq))
+        # this rank's lanes over the data group (every lane without one)
+        self.layout = dist_lib.lane_layout(int(n_lanes), self.grid.n_data,
+                                           self.grid.data_index)
+        self.batch_seq_dims = dict(batch_seq_dims or {})
+        self._seq_train = self.grid.n_seq > 1 and bool(self.batch_seq_dims)
         if merge_dtype is not None and not merge_dtype.is_floating_point:
             raise ValueError(f"merge_dtype must be a floating dtype, got "
                              f"{merge_dtype}")
@@ -333,9 +359,37 @@ class KAvgEngine:
             for name, t in self._state.items():
                 t.copy_(variables[name])
 
-    def _to_device(self, batch: Dict) -> State:
+    def _to_device(self, batch: Dict, lead: int = 3) -> State:
+        """A host batch on the device; under the seq round, each
+        seq-carrying key's [T / n_seq] slice of this rank (``lead``: the
+        axes before the per-example ones, [W, S, B] or [R, W, S, B])."""
+        if self._seq_train:
+            n, i = self.grid.n_seq, self.grid.seq_index
+            batch = dict(batch)
+            for k, d in self.batch_seq_dims.items():
+                if k in batch:
+                    v = np.asarray(batch[k])
+                    T = v.shape[lead + d]
+                    idx = [slice(None)] * v.ndim
+                    idx[lead + d] = slice(i * (T // n), (i + 1) * (T // n))
+                    batch[k] = v[tuple(idx)]
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
+
+    def _seq_grads(self) -> None:
+        """The seq round's gradient: the parameters' gradients summed over
+        the seq group, in one all-reduce (each rank backpropagated 1 /
+        n_seq of the seq-invariant loss)."""
+        params = list(self._params.values())
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1).float()
+                          for p in params])
+        flat = dist_lib.all_reduce(flat, group=self.grid.seq_group)
+        off = 0
+        for p in params:
+            k = p.numel()
+            p.grad = flat[off:off + k].view_as(p).to(p.dtype)
+            off += k
 
     def _workers_per_lane(self, W: int) -> int:
         if W % self.n_lanes:
@@ -369,7 +423,11 @@ class KAvgEngine:
                 {k: v[s] for k, v in data.items()},
                 _generator(rngs[s], dev), smasks[s])
             opt.zero_grad(set_to_none=True)
-            loss.backward()
+            if self._seq_train:
+                (loss / self.grid.n_seq).backward()
+                self._seq_grads()
+            else:
+                loss.backward()
             if self.collect_stats:
                 with torch.no_grad():
                     before = {n: p.detach().clone()
@@ -396,6 +454,7 @@ class KAvgEngine:
         the host masks and rngs hold all W. Under a group this rank runs
         the workers of its own lanes; the count, the moments and the lane
         sums are summed across ranks, the per-worker rows gathered."""
+        dist_lib.use_grid(self.grid)   # the merge sums over its data group
         W = step_mask.shape[0]
         per_lane = self._workers_per_lane(W)
         D, dev = self.layout.per_rank, self.device
@@ -434,11 +493,12 @@ class KAvgEngine:
                     m2[d] = m2[d] + safe * safe
         eff_count = torch.stack(eff)           # [D_local] per-lane counts
         # the count and the spread moments: the rank's lanes in lane
-        # order, then one sum across ranks
+        # order, then one sum across the data group's ranks
+        data_group = self.grid.data_group
         sums = dist_lib.all_reduce(torch.stack(
             [_local_sum(eff_count)]
             + ([_local_sum(torch.stack(m1)), _local_sum(torch.stack(m2))]
-               if collect else [])))
+               if collect else [])), group=data_group)
         raw_count = sums[0]
         count = raw_count.clamp_min(1.0)   # guard the 0-contributor divide
         with torch.no_grad():
@@ -457,7 +517,8 @@ class KAvgEngine:
         # every worker's [loss, drop, 3 stats] row, in worker order
         rows = dist_lib.all_gather_cat(torch.cat(
             [torch.stack(loss_sums)[:, None], torch.stack(dropped)[:, None]]
-            + ([torch.stack(stat_rows)] if collect else []), dim=1))
+            + ([torch.stack(stat_rows)] if collect else []), dim=1),
+            group=data_group)
         return (avg, rows[:, 0], rows[:, 1],
                 rows[:, 2:] if collect else None, spread)
 
@@ -555,11 +616,17 @@ class KAvgEngine:
         compiled = self._account("kavg.train_multi", key, variables,
                                  sample_mask)
         own = self._own(int(W))
-        data = self._to_device({k: v[:, own] for k, v in batch.items()})
+        data = self._to_device({k: v[:, own] for k, v in batch.items()},
+                               lead=4)
         return self._multi(variables,
                            lambda r: {k: v[r] for k, v in data.items()},
                            sample_mask, step_mask, worker_mask, rngs, lr,
                            epoch, compiled)
+
+    def _refuse_seq_indexed(self) -> None:
+        if self._seq_train:
+            raise ValueError("index-fed rounds do not support "
+                             "sequence-parallel batch sharding")
 
     def _gather(self, cache, idx) -> State:
         """A round's batch from the device cache, this rank's workers: the
@@ -588,6 +655,7 @@ class KAvgEngine:
         ``idx`` [W, S, B] int32 gather indices (lane-local for a sharded
         cache, global for a replicated one) in place of the batch
         leaves."""
+        self._refuse_seq_indexed()
         w_per_lane = self._workers_per_lane(int(np.shape(step_mask)[0]))
         key = ("idx", w_per_lane, tuple(np.shape(idx)[1:3]),
                cache.signature, self.collect_stats)
@@ -605,6 +673,7 @@ class KAvgEngine:
         """R index-fed sync rounds: train_rounds with ``idx``
         [R, W, S, B] in place of the batch leaves; each round gathers its
         own samples."""
+        self._refuse_seq_indexed()
         R, W = np.shape(step_mask)[:2]
         w_per_lane = self._workers_per_lane(int(W))
         key = ("idx-multi", int(R), w_per_lane, tuple(np.shape(idx)[2:4]),
@@ -635,6 +704,7 @@ class KAvgEngine:
                 "kavg.eval", "train", None,
                 fallback=self._cost_fallback(variables, samples))
         self.ledger.note_dispatch("kavg.eval", samples=samples)
+        dist_lib.use_grid(self.grid)   # the model's seq collectives
         self._load(variables)
         data = self._to_device(batch)
         smasks = torch.as_tensor(sample_mask, device=self.device)

@@ -55,7 +55,9 @@ is), never around it.
 plan into the cost ledger (metrics/ledger.py) as the exact
 ``merge.<strategy>`` record. Not ported: ``use_ring``. The reference
 takes its ring (``collectives.ring_psum``, ported) only where a mesh keeps
-inner axes; it comes with them (ROADMAP A.6/A.12).
+inner axes AUTO (tensor, pipeline and expert parallelism, ROADMAP A.6 and
+A.12); its sequence-parallel rounds are fully manual and sum directly, as
+the port's over the data group do.
 """
 
 from __future__ import annotations
@@ -157,17 +159,18 @@ def _local_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _lane_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over every lane (the reference's ``psum`` over ``data``): this
-    rank's lanes in lane order, then the sum across ranks."""
-    return dist_lib.all_reduce(_local_sum(x))
+    rank's lanes in lane order, then the sum across the ranks of the
+    rank grid's data group (every rank without a seq split)."""
+    return dist_lib.all_reduce(_local_sum(x), group=dist_lib.data_group())
 
 
 def _wire_sum(x: torch.Tensor, wire_dtype: torch.dtype) -> torch.Tensor:
     """The lane sum over a lossy wire, read back as f32: each lane's
     payload cast to the wire dtype, the casts summed in f32 in lane order
-    and rounded once to the wire dtype, then summed across ranks in the
-    wire dtype."""
+    and rounded once to the wire dtype, then summed across the data
+    group's ranks in the wire dtype."""
     local = _local_sum(x.to(wire_dtype).float()).to(wire_dtype)
-    return dist_lib.all_reduce(local).float()
+    return dist_lib.all_reduce(local, group=dist_lib.data_group()).float()
 
 
 # --------------------------------------------------------------- registry
@@ -227,7 +230,8 @@ class MergeStrategy:
       residual   EF residuals of this rank's lanes by bucket name, flat
                  [D_local * L] (EF only)
     returns (merged values by name, new residuals or None). raw_count == 0
-    must return ``ref`` unchanged."""
+    must return ``ref`` unchanged. The sums across ranks run over the
+    current rank grid's data group (``distributed.data_group``)."""
 
     name = "?"
     needs_residual = False
@@ -442,7 +446,8 @@ class EFInt8Merge(_BucketedBase):
             return _lane_sum(flat_c), None
         alive, p = _payload(flat_c, lane_alive, residual)
         # the lanes' max, then the MAX across ranks: every rank's scale
-        amax = dist_lib.all_reduce(p.abs().amax(), "max")
+        amax = dist_lib.all_reduce(p.abs().amax(), "max",
+                                   dist_lib.data_group())
         scale = amax * _INV_127
         safe = torch.where(scale > 0, scale, 1.0)
         q = torch.where(scale > 0, torch.round(p / safe), 0.0)

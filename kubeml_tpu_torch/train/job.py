@@ -140,6 +140,15 @@ the round-cursor options, reassignment and quarantine events are the JAX
 package's 400s (they need kavg), as are fsdp with an explicit merge or
 without syncdp, and merge_dtype under syncdp.
 
+Sequence parallelism (``n_seq`` > 1 with ``seq_impl`` ring or ulysses)
+runs over ranks laid out as the rank grid (``distributed.make_grid``: data
+outermost, seq inside): the job checks it with the JAX package's 400s in
+its order (``_inner_axes``, ``_check_seq_lengths``), the model builds
+seq-parallel modules, the K-avg engine runs its seq round over the data
+group's lanes, and every round is host-staged (the device cache stays
+off, as in the JAX package). Without a group the world is one device, so
+``n_seq`` > 1 is the JAX package's 400; it never runs dense.
+
 Options whose module is not ported yet raise KubeMLException(400) naming
 the option and the ROADMAP item that brings it (``reject_unported``);
 none is quietly ignored.
@@ -214,14 +223,16 @@ class JobCallbacks:
 
 
 # what brings each refused option, by ROADMAP item
-MODEL_PARALLEL = "model parallelism over NCCL ranks, ROADMAP A.6 and A.12"
+MODEL_PARALLEL = "tensor, pipeline and expert parallelism over NCCL " \
+    "ranks, ROADMAP A.6 and A.12"
 
 
 def reject_unported(opts) -> None:
     """400 for every option whose module the port has not ported yet (the
     job runs it after check_continual_options; ``kubeml train`` runs it
-    before submitting)."""
-    for name in ("n_model", "n_seq", "n_stage", "n_expert"):
+    before submitting). Sequence parallelism (``n_seq``) is ported: the
+    job checks it with the JAX package's 400s (``TrainJob._inner_axes``)."""
+    for name in ("n_model", "n_stage", "n_expert"):
         if int(getattr(opts, name)) > 1:
             raise NotPortedError(f"{name} > 1", MODEL_PARALLEL)
 
@@ -455,8 +466,13 @@ class TrainJob:
         self.model = model
         self.dataset = dataset
         self.n_lanes = int(n_lanes)
-        # the lanes over the group's ranks (raises unless they divide)
-        self._world = dist_lib.lane_layout(self.n_lanes).world
+        self._world = dist_lib.world_size()
+        if int(self.req.options.n_seq) <= 1:
+            # the lanes over the group's ranks (raises unless they
+            # divide); under sequence parallelism over the data group's,
+            # checked after the inner axes' 400s (_inner_axes)
+            dist_lib.lane_layout(self.n_lanes)
+        self._n_seq = 1
         self.registry = registry or DatasetRegistry()
         self.history_store = history_store
         self.callbacks = callbacks or JobCallbacks()
@@ -873,6 +889,7 @@ class TrainJob:
                 # the plan first, so the user's hook sees the faulted round
                 user_hook = self.round_hook
                 self.round_hook = lambda rb: user_hook(plan(rb))
+        self._n_seq = n_seq = self._inner_axes(opts)
         merge_dtype, sync_strategy = check_merge_options(opts)
         self._init_device_cache(handle, opts)
 
@@ -930,6 +947,8 @@ class TrainJob:
         sample = self.dataset.transform_train(
             np.asarray(x[: self.req.batch_size]),
             np.asarray(y[: self.req.batch_size]))
+        if n_seq > 1:
+            self._check_seq_lengths(handle, sample, n_seq)
         module = self.model.init_module(
             sample, torch.Generator().manual_seed(self.seed),
             device=self.device)
@@ -946,7 +965,8 @@ class TrainJob:
             merge_dtype=torch.bfloat16 if merge_dtype == "bf16" else None,
             merge_bucket_mb=float(opts.merge_bucket_mb),
             merge_compress=opts.merge_compress or "none",
-            collect_stats=bool(opts.train_stats))
+            collect_stats=bool(opts.train_stats), n_seq=n_seq,
+            batch_seq_dims=self.model.seq_batch_dims if n_seq > 1 else None)
         self._sync_engine: Optional[SyncDPEngine] = None
         self._sync_state: Optional[dict] = None
         if opts.engine == "syncdp":
@@ -956,6 +976,57 @@ class TrainJob:
                 collect_stats=bool(opts.train_stats),
                 merge_strategy=sync_strategy,
                 merge_bucket_mb=float(opts.merge_bucket_mb))
+
+    def _inner_axes(self, opts) -> int:
+        """The JAX package's inner-axes checks for ``n_seq`` (the other
+        inner axes are refused by reject_unported), with its 400s in its
+        order: an engine other than kavg; a world that does not split
+        into seq groups (without a group the world is one device); the
+        model's own enable_seq_parallel refusal; no seq_batch_dims. Then
+        the data group's lane layout. Returns n_seq; the model builds
+        seq-parallel modules from here on."""
+        n_seq = max(1, int(opts.n_seq))
+        if n_seq == 1:
+            return 1
+        if opts.engine != "kavg":
+            raise KubeMLException(
+                "tensor/sequence/pipeline/expert parallelism "
+                "requires the kavg engine", 400)
+        world = dist_lib.world_size()
+        if world % n_seq:
+            raise KubeMLException(
+                f"{world} devices not divisible by the requested model x "
+                f"seq x stage x expert factor {n_seq}", 400)
+        try:
+            self.model.enable_seq_parallel(opts.seq_impl)
+        except ValueError as e:
+            raise KubeMLException(str(e), 400)
+        if self.model.seq_batch_dims is None:
+            raise KubeMLException(
+                f"function {self.req.model_type!r} enabled sequence "
+                "parallelism but declares no seq_batch_dims", 400)
+        dist_lib.lane_layout(self.n_lanes, world // n_seq, 0)
+        self._log("job %s grid: data=%d seq=%d impl=%s", self.task.job_id,
+                  world // n_seq, n_seq, opts.seq_impl)
+        return n_seq
+
+    def _check_seq_lengths(self, handle, sample, n_seq: int) -> None:
+        """Both splits' sequence lengths divide by n_seq (the JAX
+        package's pre-flight: a test split of another width would fail in
+        validation, after the training compute was spent)."""
+        probes = [("train", sample)]
+        if handle.test_samples > 0:
+            xt, yt = handle.doc_range("test", 0, 1)
+            probes.append(("test", self.dataset.transform_test(
+                np.asarray(xt[:1]), np.asarray(yt[:1]))))
+        for split, probe in probes:
+            for k, d in self.model.seq_batch_dims.items():
+                T = np.asarray(probe[k]).shape[1 + d]
+                if T % n_seq:
+                    raise KubeMLException(
+                        f"{split}-split sequence length {T} of batch key "
+                        f"{k!r} is not divisible by --seq-parallel "
+                        f"{n_seq}", 400)
 
     def _load_restored(self, restored: dict) -> None:
         """Warm start: the checkpoint's flax variables (params, and
@@ -1014,7 +1085,8 @@ class TrainJob:
         identity = (type(self.dataset).transform_train
                     is KubeDataset.transform_train)
         dev_hook = getattr(self.dataset, "transform_train_device", None)
-        if self._world > 1 or not (identity or callable(dev_hook)):
+        if self._world > 1 or self._n_seq > 1 \
+                or not (identity or callable(dev_hook)):
             if mode == "on":
                 raise KubeMLException(
                     "device_cache='on' requires a single-process job "

@@ -29,6 +29,9 @@ import torch
 pytestmark = pytest.mark.torch_port
 
 VOCAB, T = 200, 16
+# the job's answer to --seq-parallel 2 in one process (the reference's)
+SEQ_WORLD_400 = ("1 devices not divisible by the requested model x seq x "
+                 "stage x expert factor 2")
 W, S, B = 2, 2, 4
 LR = 1e-3
 TOL = {"f32": 1e-5, "bf16": 2e-2}
@@ -259,15 +262,42 @@ def test_max_len_guard():
     assert issubclass(InferenceInputError, ValueError)
 
 
+def _seq_logits(path):
+    """(the dense module's logits, the sequence-parallel path's) of one
+    batch in one process, where the seq axis has size 1: the path builds
+    and runs the same forward on the same parameters."""
+    from kubeml_tpu_torch.models.bert import BertModule, BertTiny
+
+    torch.manual_seed(0)
+    dense = BertModule(vocab_size=VOCAB, dropout=0.0, dtype=torch.float32,
+                       device="cpu")
+    x = torch.from_numpy(tokens(4))
+    kw = {"seq_axis": dict(seq_axis="seq"),
+          "seq_impl": dict(seq_axis="seq", seq_impl="ulysses")}.get(path)
+    if kw is not None:
+        sp = BertModule(vocab_size=VOCAB, dropout=0.0, dtype=torch.float32,
+                        device="cpu", **kw)
+        sp.load_state_dict(dense.state_dict())
+        return dense(x), sp(x)
+    model = BertTiny(torch.float32)
+    if path == "enable_seq_parallel":
+        model.enable_seq_parallel("ring")
+        built = model.build(device="cpu")
+        assert (built.seq_axis, built.seq_impl) == ("seq", "ring")
+        big = BertModule(dtype=torch.float32, device="cpu", dropout=0.1)
+        built.load_state_dict(big.state_dict())
+        return big(x), built(x)
+    return dense(x), model.forward_seq_parallel(dense, x.numpy())
+
+
+SEQ_PATHS = ("seq_axis", "seq_impl", "enable_seq_parallel",
+             "forward_seq_parallel")
 REFUSED = {   # path -> (call on (BertModule, BertTiny), ROADMAP item)
-    "seq_axis": (lambda mod, _: mod(seq_axis="seq", device="cpu"), "A.6"),
-    "seq_impl": (lambda mod, _: mod(seq_impl="ulysses", device="cpu"),
-                 "A.6"),
+    "seq_axis": (None, None),
+    "seq_impl": (None, None),
     "tp_axis": (lambda mod, _: mod(tp_axis="model", device="cpu"), "A.12"),
-    "enable_seq_parallel": (
-        lambda _, model: model().enable_seq_parallel("ring"), "A.6"),
-    "forward_seq_parallel": (lambda _, model: model().forward_seq_parallel(
-        {}, np.zeros((1, T), np.int32), None), "A.6"),
+    "enable_seq_parallel": (None, None),
+    "forward_seq_parallel": (None, None),
     "enable_tensor_parallel": (
         lambda _, model: model().enable_tensor_parallel(), "A.12"),
     "enable_pipeline_parallel": (
@@ -277,11 +307,19 @@ REFUSED = {   # path -> (call on (BertModule, BertTiny), ROADMAP item)
 
 @pytest.mark.parametrize("path", sorted(REFUSED))
 def test_parallel_paths_refuse_naming_their_item(path):
-    """The reference's sequence-, tensor- and pipeline-parallel paths
-    raise the port's 400 NotPortedError naming the ROADMAP item."""
+    """The reference's tensor- and pipeline-parallel paths raise the
+    port's 400 NotPortedError naming the ROADMAP item; its
+    sequence-parallel paths (ported) build and run, giving the dense
+    logits where the seq axis has size 1 (tests/test_torch_seq_parallel.py
+    runs them over ranks)."""
     from kubeml_tpu_torch.api.errors import NotPortedError
     from kubeml_tpu_torch.models.bert import BertModule, BertTiny
 
+    if path in SEQ_PATHS:
+        want, got = _seq_logits(path)
+        assert got.shape == want.shape == (4, 2)
+        torch.testing.assert_close(got, want.detach(), rtol=1e-6, atol=1e-6)
+        return
     call, item = REFUSED[path]
     with pytest.raises(NotPortedError) as e:
         call(BertModule, BertTiny)
@@ -497,9 +535,15 @@ def test_cli_trains_and_infers_a_text_model(model_type, tmp_path, tmp_home,
             "--trainlabels", paths["ytr"], "--testdata", paths["xte"],
             "--testlabels", paths["yte"])
         capsys.readouterr()
-        with pytest.raises(SystemExit):
-            cli(*argv, "--seq-parallel", "2")
-        assert "ROADMAP A.6" in capsys.readouterr().err
+        # one process, no group: the job answers the reference's 400
+        cli(*argv, "--seq-parallel", "2")
+        refused = capsys.readouterr().out.strip()
+        deadline = time.monotonic() + 120  # the PS starts it after the reply
+        while refused not in dep.ps.errors:
+            assert time.monotonic() < deadline, "the job did not fail"
+            time.sleep(0.2)
+        assert SEQ_WORLD_400 in dep.ps.errors[refused]
+        assert "ROADMAP" not in dep.ps.errors[refused]
         cli(*argv)
         job_id = capsys.readouterr().out.strip()
         deadline = time.monotonic() + 240
@@ -535,7 +579,7 @@ def test_cli_trains_and_infers_a_text_model(model_type, tmp_path, tmp_home,
                     job_id, np.ones((1, 200), np.int32).tolist())
             assert getattr(e.value, "status_code", None) == 400
             assert "max_len" in str(e.value)
-        assert dep.ps.errors == {}
+        assert set(dep.ps.errors) == {refused}   # the --seq-parallel job
     finally:
         dep.stop()
 

@@ -396,11 +396,15 @@ TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
 # names no ROADMAP entry is the JAX package's own refusal of a flag
 # combination
 SERVED = "serve"
+# --seq-parallel (ROADMAP A.6's sequence half, landed) reaches the job,
+# which answers the reference's 400 in one process without a group
+SEQ_400 = ("1 devices not divisible by the requested model x seq x stage "
+           "x expert factor 2")
 REFUSED = [
     (TRAIN + ["--engine", "syncdp"], None),
     (TRAIN + ["--engine", "syncdp", "--fsdp"], None),
     (TRAIN + ["--tensor-parallel", "2"], "ROADMAP A.6 and A.12"),
-    (TRAIN + ["--seq-parallel", "2"], "ROADMAP A.6 and A.12"),
+    (TRAIN + ["--seq-parallel", "2"], SEQ_400),
     (TRAIN + ["--expert-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.6 and A.12"),
     (TRAIN + ["--continual"], None),
@@ -484,6 +488,17 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, monkeypatch,
         assert capsys.readouterr().out.strip() == (
             f"appended to dataset blobs (generation=2, train={2 * n})")
         assert DatasetRegistry().get("blobs").generation == 2
+        return
+    if item == SEQ_400:
+        # submitted: the job fails with the reference's 400 in the PS
+        run_cli(dep, *argv)
+        job_id = capsys.readouterr().out.strip()
+        deadline = time.monotonic() + 60   # the PS starts it after the reply
+        while job_id not in dep.ps.errors:
+            assert time.monotonic() < deadline, "the job did not fail"
+            time.sleep(0.1)
+        assert SEQ_400 in dep.ps.errors[job_id]
+        assert "ROADMAP" not in dep.ps.errors[job_id]
         return
     if item is None:
         # submitted: the job runs with the options the flags set

@@ -382,6 +382,12 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     elif option == "reassign_on_quarantine":
         assert "requires the kavg engine with quarantine_after > 0" \
             in e.value.message
+    elif option == "n_seq":
+        # sequence parallelism is ported: one process without a group is
+        # one device, the reference's 400
+        assert e.value.message == (
+            "1 devices not divisible by the requested model x seq x stage "
+            "x expert factor 2")
     elif option in CONTINUAL_KNOBS:
         assert e.value.message.startswith(
             "window_generations / publish_every_rounds require "
