@@ -566,11 +566,37 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               (e) whether gloo's all_to_all_single takes CUDA tensors,
               tried directly (the port's all-to-all relies on it).
               Every miss of (b)-(d) is raised together after (d).
+  phase 26    expert parallelism over ranks (gpt-moe-mini at its
+              published widths, gloo ranks on the one card, started
+              together while this process runs the one-process layer and
+              rounds they are held to): (a) ``ep_partial_ffn`` over two
+              expert ranks (4 of the 8 experts each; the [4096, 8, 640]
+              dispatch of B=8, T=512, f32) against one process's
+              ``moe_apply``: the ranks bit for bit, rtol = atol = 1e-4;
+              (b) two K-avg rounds (one lane, K=2, B=8, T=512, SGD,
+              dropout 0.1, the 4 MB bucketed merge; the second counted
+              and timed) on two ranks (data 1 x expert 2), bf16 and f32,
+              against the one-process rounds: both ranks bit for bit,
+              the weights within (2e-2, 2e-3) in bf16 and (1e-4, 1e-5)
+              in f32, the loss 5e-3 / 1e-5 relative, #2-#4 layers x
+              steps and #5 one launch a merge on each rank, every
+              merge's grouped #5 output equal to its plain version bit
+              for bit; (c) the f32 round (two lanes) on four ranks (seq
+              2 x expert 2) against four ranks (data 2 x seq 2) with
+              replicated experts, within (1e-4, 1e-5), the ring's
+              launches (#2-#4 layers x 2 a local step); (d) one epoch of
+              `kubeml train -f gpt-moe-mini --expert-parallel 2
+              --merge-bucket-mb 4` (the CLI's TrainRequest) on two ranks
+              started through tools.launch_distributed: equal
+              histories, #3/#4 = layers x steps and #5 one launch a
+              merge; (e) ms a round a rank beside the one-process round
+              and phase 21's ms per local step (not a gate). Every miss
+              is raised together after (e).
 
-Phases 1-9 run in this process. Phases 10-25 then run in three
+Phases 1-9 run in this process. Phases 10-26 then run in three
 processes side by side: 15, 16, 14 and 23 here, and two lanes of this
 script (``--lane DIR``), one running 10, 17, 11, 12, 13, 18 and 25 and
-the other 22, 24, 19, 20 and 21; the lanes start after phase 1 (imports,
+the other 22, 24, 19, 20, 21 and 26; the lanes start after phase 1 (imports,
 CUDA, their gpt-mini, torch._dynamo, which torch.optim's first call
 imports) and wait for the end of phase 9. Each process holds
 its own launch counts, so every phase still zeroes and reads its own; a
@@ -630,7 +656,10 @@ two-rank jobs per rank; the merge also "syncdp_dist_segments"); every
 entry carries "seq_launches", phase 25's (0 for the paged kernel; each
 (b) round per rank and the dense round in one process, per dtype, and
 (d)'s job per rank), and the flash entries "seq_shapes", phase 25 (a)'s
-rows at the ring's block shapes; the
+rows at the ring's block shapes; every entry carries "ep_launches",
+phase 26's (0 for the paged kernel; each (b) and (c) round per rank, the
+one-process rounds per dtype, (d)'s job per rank; the merge also
+"ep_segments"); the
 merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
@@ -714,6 +743,11 @@ JSON line.
 
 builds the flash and merge kernels and runs phase 25 alone, printing its
 (a) rows and launches as one JSON line.
+
+    python3 chip_smoke.py --ep-only
+
+builds the flash and merge kernels and runs phase 26 alone, printing its
+launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -9087,6 +9121,422 @@ def seq_launches(seq, kernel) -> dict:
             "job": [c[kernel] for c in seq["job"]]}
 
 
+# ----------------------------------------------------------------- phase 26
+EP_N = 2                  # expert ranks: two gloo ranks on the one card
+EP_W, EP_K, EP_B, EP_T = 1, 2, 8, 512   # (b): one lane; every MoE block
+                                        # routes phase 21's [4096, 8, 640]
+EP_SP_LANES = 2           # (c): two lanes (one a data rank of the seq round)
+EP_LR = 1e-2              # SGD, as the reference's EP-vs-SP round
+EP_ROUNDS = 2             # round 1 warms up; round 2 is counted and timed
+EP_DTYPES = ("bf16", "f32")
+EP_FFN_TOL = 1e-4         # (a): f32, rtol and atol
+EP_JOB_TRAIN, EP_JOB_TEST = 128, 32     # (d): 2 workers x 8 steps
+EP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke.ep_child(*sys.argv[2:]))")
+# (d)'s job: what `kubeml train` submits for these flags, on each rank
+EP_JOB_ARGV = ("train", "-f", "gpt-moe-mini", "-d", "tokens", "-e", "1",
+               "-b", str(JOB_B), "-K", str(JOB_K), "-p", "2", "--static",
+               "--lr", str(JOB_LR), "--merge-bucket-mb", str(MERGE_CAP_MB),
+               "--expert-parallel", str(EP_N))
+
+
+def ep_operands(torch, seed):
+    """(a)'s operands at gpt-moe-mini's widths, f32 on the card: one MoE
+    block's weights (flax layouts, from the seed through convert.py), its
+    [B x T, 256] LayerNorm-scale input and the pad mask of phase 7's
+    windows (B=8, T=512: a [4096, 8, 640] dispatch)."""
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models.gpt import GPT_MOE_CONFIG
+
+    state = params_from_flax(random_flax_params(**GPT_MOE_CONFIG,
+                                                seed=seed))
+    moe = {n: state[f"blocks.0.moe.{n}"].cuda()
+           for n in ("router", "wi", "bi", "wo", "bo")}
+    rng = np.random.default_rng(seed + 34)
+    x = lm_round(rng, 1, 1, EP_B, EP_T)[0]["x"][0, 0]
+    h = torch.from_numpy(rng.standard_normal(
+        (EP_B * EP_T, GPT_MOE_CONFIG["hidden"])).astype(np.float32)).cuda()
+    mask = torch.from_numpy((x != 0).astype(np.float32).ravel()).cuda()
+    return moe, h, mask
+
+
+def ep_ffn(torch, seed, ranks: bool) -> dict:
+    """(a): the expert layer over ep_operands, split over this process's
+    expert ranks (``ep_partial_ffn`` after ``route_tokens``) or whole in
+    one process (``moe_apply``); its output and warm ms a call."""
+    from kubeml_tpu_torch.models.gpt import CAPACITY_FACTOR, MOE_K
+    from kubeml_tpu_torch.parallel.ep import moe_apply, route_tokens
+    from kubeml_tpu_torch.parallel.manual import ep_partial_ffn
+
+    moe, h, mask = ep_operands(torch, seed)
+
+    def call():
+        if not ranks:
+            return moe_apply(moe, h, k=MOE_K, capacity_factor=CAPACITY_FACTOR,
+                             token_mask=mask)[0]
+        dispatch, combine, _ = route_tokens(
+            moe["router"], h, k=MOE_K, capacity_factor=CAPACITY_FACTOR,
+            token_mask=mask)
+        assert tuple(dispatch.shape) == (EP_B * EP_T, 8, 640), dispatch.shape
+        return ep_partial_ffn(moe["wi"], moe["bi"], moe["wo"], moe["bo"],
+                              dispatch, combine, h, "expert",
+                              dtype=torch.float32)
+
+    with torch.no_grad():
+        y = call()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return {"y": y.cpu(), "ms": statistics.median(times)}
+
+
+def ep_round(torch, seed, dtype, n_seq, n_expert, lanes) -> dict:
+    """EP_ROUNDS K-avg rounds of gpt-moe-mini at its published widths
+    (``lanes`` lanes, K=2, B=8, T=512, half the sequences ending in
+    padding, SGD, dropout 0.1, the 4 MB bucketed merge), over this
+    process's (n_seq x n_expert) rank grid, or in one process without a
+    group (1 x 1). The counters are zeroed just before the last round and
+    read just after it; every merge's grouped #5 output is held against
+    its plain version bit for bit (``merge_plain``)."""
+    import functools
+
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.models.gpt import GPT_MOE_CONFIG
+    from kubeml_tpu_torch.ops import fused_merge as fm
+    from kubeml_tpu_torch.parallel import merge as merge_lib
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    model = get_model("gpt-moe-mini")(
+        dtype=torch.float32 if dtype == "f32" else torch.bfloat16)
+    if n_seq > 1:
+        model.enable_seq_parallel("ring")
+    if n_expert > 1:
+        model.enable_expert_parallel()
+    module = model.build(device="cuda")
+    module.load_state_dict(params_from_flax(
+        random_flax_params(**GPT_MOE_CONFIG, seed=seed)))
+    engine = KAvgEngine(
+        module, model.loss, model.metrics,
+        lambda lr, e: functools.partial(torch.optim.SGD, lr=lr),
+        n_lanes=lanes, merge_bucket_mb=MERGE_CAP_MB, n_seq=n_seq,
+        batch_seq_dims=model.seq_batch_dims if n_seq > 1 else None,
+        n_expert=n_expert)
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    rng = np.random.default_rng(seed + 35)
+    apply, plain = merge_lib.fused_merge_apply, []
+
+    def held(mode, pairs, count, raw_count, lr=0.0):
+        pairs = list(pairs)
+        outs = apply(mode, pairs, count, raw_count, lr)
+        plain.append(all(torch.equal(o, fm._apply_plain(
+            mode, s, r, count, raw_count, lr)) for o, (s, r) in
+            zip(outs, pairs)))
+        return outs
+
+    merge_lib.fused_merge_apply = held
+    try:
+        for _ in range(EP_ROUNDS):
+            args = lm_round(rng, lanes, EP_K, EP_B, EP_T)
+            torch.cuda.synchronize()
+            seq_zero()                        # the main path's run starts
+            t0 = time.perf_counter()
+            state, st = engine.train_round(state, *args, EP_LR, 0)
+            loss = st.loss_sum
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, calls = seq_counts()      # ... and ends here
+    finally:
+        merge_lib.fused_merge_apply = apply
+    grid = engine.grid
+    mine = range(engine.layout.first_lane,
+                 engine.layout.first_lane + engine.layout.per_rank)
+    return {"state": {k: v.detach().cpu() for k, v in state.items()},
+            "counts": counts, "calls": calls, "ms": 1e3 * wall,
+            "loss": [float(v) for v in loss], "layers": module.layers,
+            "steps": int(args[2][list(mine)].sum()),
+            "merge_plain": plain, "seq": grid.n_seq,
+            "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
+
+
+def ep_job_child(outdir, seed) -> int:
+    """(d): a rank of ``kubeml train -f gpt-moe-mini --expert-parallel 2``
+    started by tools.launch_distributed: the TrainRequest the CLI builds
+    from EP_JOB_ARGV (``cli.main.train_request``) run as this rank's
+    TrainJob (one lane over the two expert ranks, one epoch over
+    EP_JOB_TRAIN + EP_JOB_TEST windows, a home of its own). Writes its
+    history and its launches over the epoch."""
+    import faulthandler
+    import os
+
+    import torch
+
+    from kubeml_tpu_torch.api.types import TrainTask
+    from kubeml_tpu_torch.cli.main import build_parser, train_request
+    from kubeml_tpu_torch.data.registry import DatasetRegistry
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.parallel import distributed as dl
+    from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
+
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    dl.initialize(backend="gloo", timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    os.environ["KUBEML_TPU_HOME"] = os.path.join(outdir, f"ep_job_p{rank}")
+    rng = np.random.default_rng(seed + 36)
+    DatasetRegistry().create(
+        "tokens", token_windows(rng, EP_JOB_TRAIN, TRAIN_T),
+        np.zeros(EP_JOB_TRAIN, np.int32),
+        token_windows(rng, EP_JOB_TEST, TRAIN_T),
+        np.zeros(EP_JOB_TEST, np.int32))
+    req = train_request(build_parser().parse_args(list(EP_JOB_ARGV)))
+    task = TrainTask(job_id="smoke-ep-job", parameters=req,
+                     parallelism=req.options.default_parallelism)
+    published = []
+    job = TrainJob(task, get_model("gpt-moe-mini")(), token_dataset(),
+                   device="cuda", n_lanes=1, callbacks=JobCallbacks(
+                       publish_metrics=lambda m: published.append(
+                           seq_counts())))
+    torch.cuda.synchronize()
+    seq_zero()                                # the main path's run starts
+    hist = job.train().data
+    counts, calls = published[0]              # ... and ends at the publish
+    with open(os.path.join(outdir, f"job_p{rank}.json"), "w") as f:
+        json.dump({"history": {"train_loss": list(hist.train_loss),
+                               "validation_loss": list(hist.validation_loss),
+                               "accuracy": list(hist.accuracy),
+                               "parallelism": list(hist.parallelism)},
+                   "counts": counts, "calls": calls,
+                   "world": dl.world_size(),
+                   "grid": [job._engine.grid.n_data, job._engine.grid.n_seq,
+                            job._engine.grid.n_expert],
+                   "seconds": float(hist.epoch_duration[0]),
+                   "layers": job._engine.module.layers,
+                   "buckets": job._engine.merge_comm_proxy(job.state)[
+                       "buckets_per_round"]}, f)
+    dl.shutdown()
+    return 0
+
+
+def ep_child(mode, outdir, seed) -> int:
+    """A rank of phase 26 (gloo ranks on the one card), started by
+    dist_spawn with the KUBEML_* environment: 'ep' (two ranks, data 1 x
+    expert 2): (a) the expert layer, (b) the rounds per dtype; 'ep4'
+    (four ranks): (c) the round at (seq 2 x expert 2) and at (data 2 x seq
+    2); 'job': (d), started through tools.launch_distributed. Writes its
+    rows under ``outdir``."""
+    import faulthandler
+    import os
+
+    import torch
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    if mode == "job":
+        return ep_job_child(outdir, seed)
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    dl.initialize(backend="gloo", timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    rows = {"world": dl.world_size()}
+    if mode == "ep":
+        dl.make_grid(1, EP_N)
+        ffn = ep_ffn(torch, seed, True)
+        torch.save(ffn.pop("y"), os.path.join(outdir, f"ffn_p{rank}.pt"))
+        rows["ffn"] = ffn
+        runs = [(f"{dtype} ep", dtype, 1, EP_N, EP_W)
+                for dtype in EP_DTYPES]
+    else:
+        runs = [("f32 sp-ep", "f32", 2, EP_N, EP_SP_LANES),
+                ("f32 sp", "f32", 2, 1, EP_SP_LANES)]
+    for key, dtype, n_seq, n_expert, lanes in runs:
+        out = ep_round(torch, seed, dtype, n_seq, n_expert, lanes)
+        torch.save(out.pop("state"), os.path.join(
+            outdir, f"{key.replace(' ', '_')}_p{rank}.pt"))
+        rows[key] = out
+    with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dl.shutdown()
+    return 0
+
+
+def ep_launch_job(outdir, seed) -> tuple:
+    """(d)'s two ranks, each through ``python -m tools.launch_distributed
+    --processes 2 --process-id R --coordinator ...`` (the launcher's
+    multi-host mode: one rank an invocation), started without waiting;
+    dist_collect waits for them and reads their rows."""
+    import os
+
+    port = store_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(EP_N):
+        logf = open(os.path.join(outdir, f"job_p{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "tools.launch_distributed", "--processes",
+             str(EP_N), "--process-id", str(r), "--coordinator",
+             f"localhost:{port}", "--", sys.executable, "-c", EP_CHILD, here,
+             "job", outdir, str(seed)], cwd=here, stdout=logf,
+            stderr=subprocess.STDOUT), logf))
+    return ("job", EP_N, outdir, DIST_CHILD_S,
+            time.monotonic() + DIST_CHILD_S, procs)
+
+
+def phase_ep(torch, card, seed, mv=None) -> dict:
+    """Phase 26: expert parallelism over ranks (see the module
+    docstring). The ranks of (a)+(b), (c) and (d) start together; this
+    process meanwhile runs the one-process layer and rounds they are held
+    to. ``mv``: phase 21's result, whose one-process ms per local step
+    (e) logs beside the ranks'. Returns the launches for the kernels
+    line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kubeml_ep_") as tmp:
+        spawned = [dist_spawn("ep", EP_N, tmp, seed, child=EP_CHILD),
+                   dist_spawn("ep4", 2 * EP_N, tmp, seed, child=EP_CHILD),
+                   ep_launch_job(tmp, seed)]
+        ffn = ep_ffn(torch, seed, False)
+        one = {dtype: ep_round(torch, seed, dtype, 1, 1, EP_W)
+               for dtype in EP_DTYPES}
+        ranks = dist_collect(card, spawned[0])
+        quad = dist_collect(card, spawned[1])
+        jobs = dist_collect(card, spawned[2])
+        misses = []
+        # (a)
+        ys = [torch.load(os.path.join(tmp, f"ffn_p{r}.pt"))
+              for r in range(EP_N)]
+        err = float((ys[0] - ffn["y"]).abs().max())
+        ok = torch.equal(ys[0], ys[1]) and torch.allclose(
+            ys[0], ffn["y"], rtol=EP_FFN_TOL, atol=EP_FFN_TOL)
+        from kubeml_tpu_torch.models.gpt import GPT_MOE_CONFIG as cfg
+
+        log(card, f"ep (a) ep_partial_ffn at gpt-moe-mini's widths (f32, "
+            f"[4096, 8, 640] dispatch, D={cfg['hidden']}, F={cfg['ffn']}, "
+            f"{cfg['n_experts'] // EP_N} of {cfg['n_experts']} experts a "
+            f"rank) over {EP_N} gloo expert ranks vs one process's moe_apply: "
+            f"ranks equal bit for bit {torch.equal(ys[0], ys[1])}, max|diff| "
+            f"{err:.3g} (rtol, atol {EP_FFN_TOL}); "
+            f"{ranks[0]['ffn']['ms']:.3f} / {ranks[1]['ffn']['ms']:.3f} ms a "
+            f"call on ranks 0 / 1 (the all-reduce over gloo included) "
+            f"against {ffn['ms']:.3f} ms in one process")
+        if not ok:
+            misses.append(("ffn", err))
+        out = {"rounds": {}, "one_process": {}}
+        # (b) and (c)
+        for dtype in EP_DTYPES:
+            plan = seq_plan(None, one[dtype]["layers"], one[dtype]["steps"],
+                            1, one[dtype]["buckets"])
+            if one[dtype]["counts"] != plan:
+                misses.append(("one process", dtype, one[dtype]["counts"]))
+            out["one_process"][dtype] = one[dtype]["counts"]
+        checks = [(f"{d} ep", ranks, one[d]["state"], one[d]["loss"], d,
+                   f"the one-process round ({one[d]['ms']:.1f} ms)")
+                  for d in EP_DTYPES]
+        for key, rows, want, want_loss, dtype, against in checks + [
+                ("f32 sp-ep", quad, None, None, "f32", None)]:
+            tag = key.replace(" ", "_")
+            got = [torch.load(os.path.join(tmp, f"{tag}_p{r}.pt"))
+                   for r in range(len(rows))]
+            equal = all(dist_equal(torch, got[0], g) for g in got[1:])
+            if want is None:      # (c): against (data 2 x seq 2)
+                sp = [torch.load(os.path.join(tmp, f"f32_sp_p{r}.pt"))
+                      for r in range(len(rows))]
+                equal = equal and all(dist_equal(torch, sp[0], g)
+                                      for g in sp[1:])
+                want, want_loss = sp[0], rows[0]["f32 sp"]["loss"]
+                against = ("(data 2 x seq 2) with replicated experts "
+                           f"({rows[0]['f32 sp']['ms']:.1f} ms)")
+            ok, diff = seq_within(torch, got[0], want, dtype)
+            loss = rows[0][key]["loss"]
+            rel = max(abs(a - b) / max(1.0, abs(b))
+                      for a, b in zip(loss, want_loss))
+            counts = [r[key]["counts"] for r in rows]
+            plans = [seq_plan("ring" if r[key]["seq"] > 1 else None,
+                              r[key]["layers"], r[key]["steps"],
+                              r[key]["seq"], r[key]["buckets"])
+                     for r in rows]
+            plain = all(all(r[key]["merge_plain"]) for r in rows)
+            log(card, f"ep ({'c' if 'sp' in key else 'b'}) gpt-moe-mini "
+                f"{key}, {len(rows)} gloo ranks (lanes "
+                f"{EP_SP_LANES if 'sp' in key else EP_W}, K={EP_K} B={EP_B} "
+                f"T={EP_T}, SGD, dropout 0.1, {EP_ROUNDS} rounds): ranks "
+                f"equal bit for bit {equal}; against {against}: max|dw| "
+                f"{diff:.3g} (rtol, atol {SEQ_W_TOL[dtype]}), loss rel "
+                f"{rel:.3g} (tol {SEQ_LOSS_TOL[dtype]}); launches a rank "
+                f"{counts} (plan {plans}); #5 grouped == plain bit for bit "
+                f"{plain}; collectives a rank {rows[0][key]['calls']}; round "
+                f"{EP_ROUNDS} {[round(r[key]['ms'], 1) for r in rows]} ms on "
+                f"the ranks")
+            if not (equal and ok and plain) or rel > SEQ_LOSS_TOL[dtype]:
+                misses.append((key, equal, diff, rel, plain))
+            if counts != plans:
+                misses.append((key, "launches", counts, plans))
+            out["rounds"][key] = counts
+        out["rounds"]["f32 sp"] = [r["f32 sp"]["counts"] for r in quad]
+        # (d)
+        h = jobs[0]["history"]
+        steps = sum(dist_worker_steps(EP_JOB_TRAIN, 2))
+        from kubeml_tpu_torch.data.sharding import plan_epoch
+
+        merges = len(plan_epoch(EP_JOB_TRAIN, 2, JOB_K, JOB_B).rounds)
+        for r, j in enumerate(jobs):
+            want = {"dK/dV": j["layers"] * steps, "dQ": j["layers"] * steps,
+                    **merge_counts(j["buckets"], merges)}
+            if j["grid"] != [1, 1, EP_N] or j["world"] != EP_N or any(
+                    j["counts"][k] != v for k, v in want.items()):
+                misses.append(("job", r, j["grid"], j["counts"], want))
+        log(card, f"ep (d) `kubeml {' '.join(EP_JOB_ARGV)}` through "
+            f"tools.launch_distributed, {EP_N} gloo ranks (grid data x seq x "
+            f"expert {jobs[0]['grid']}): histories equal "
+            f"{jobs[0]['history'] == jobs[1]['history']}, train loss "
+            f"{h['train_loss']}, validation {h['validation_loss']}; launches "
+            f"over the epoch a rank {[j['counts'] for j in jobs]} (#3/#4 "
+            f"plan {jobs[0]['layers'] * steps}, #5 "
+            f"{merge_counts(jobs[0]['buckets'], merges)}); "
+            f"{jobs[0]['seconds']:.2f} s")
+        if jobs[0]["history"] != jobs[1]["history"] or not all(
+                np.isfinite(h["train_loss"] + h["validation_loss"])):
+            misses.append(("job history", jobs[0]["history"],
+                           jobs[1]["history"]))
+        out["job"] = [j["counts"] for j in jobs]
+        # (e)
+        per_step = None if mv is None else \
+            mv["gpt-moe-mini"]["ms_per_step"]
+        log(card, f"ep (e) gpt-moe-mini ms a round (K={EP_K} local steps, "
+            f"B={EP_B}, T={EP_T}, one lane): bf16 "
+            f"{[round(r['bf16 ep']['ms'], 1) for r in ranks]} on the "
+            f"{EP_N} expert ranks, {one['bf16']['ms']:.1f} in one process "
+            f"here; f32 {[round(r['f32 ep']['ms'], 1) for r in ranks]} vs "
+            f"{one['f32']['ms']:.1f}; phase 21's one-process job, ms per "
+            f"local step by epoch: {per_step} (the ranks share the card and "
+            f"its host with each other and the other lanes)")
+    log(card, f"ep phase 26: {time.perf_counter() - t0:.1f} s")
+    if misses:
+        raise AssertionError(f"phase 26 misses: {misses}")
+    return out
+
+
+def ep_launches(ep, kernel) -> dict:
+    """A kernel's phase-26 launches for the kernels line: each round per
+    rank, the one-process rounds, the job per rank."""
+    return {"rounds": {k: [c[kernel] for c in v]
+                       for k, v in ep["rounds"].items()},
+            "one_process": {k: v[kernel]
+                            for k, v in ep["one_process"].items()},
+            "job": [c[kernel] for c in ep["job"]]}
+
+
 def phase_merge_only(torch, card, seed) -> dict:
     """--merge-only: what two trees of the port are compared by, through
     calls every tree with the fused merge has: (a) the one-segment
@@ -9217,15 +9667,15 @@ def start(torch, sources=None) -> str:
     return card
 
 
-# Phases 10-25 run in three processes of this script side by side: this
+# Phases 10-26 run in three processes of this script side by side: this
 # one and two lanes (``--lane DIR``) it starts after phase 1, which get
 # ready while phases 2-9 (the kernels' own rows and times) run here and
-# then wait for them. Most of the wall time of phases 10-25 goes to
+# then wait for them. Most of the wall time of phases 10-26 goes to
 # starting child processes (job servers, serve children, ranks: seconds
 # of imports and first CUDA calls each) and to waiting on them, which
 # the host's cores do side by side.
 HERE_PHASES = (15, 16, 14, 23)
-LANES = ((10, 17, 11, 12, 13, 18, 25), (22, 24, 19, 20, 21))
+LANES = ((10, 17, 11, 12, 13, 18, 25), (22, 24, 19, 20, 21, 26))
 LANE_S = 1000.0           # seconds a lane may take from its spawn
 
 
@@ -9275,6 +9725,7 @@ PHASES = {
     23: _ph("dist", phase_dist),
     24: _ph24,
     25: _ph("seq", phase_seq),
+    26: _ph("ep", phase_ep, "mv"),      # after 21 in its lane
 }
 LANE_GIVEN = ("direct", "engine_ms")     # what a lane reads of phases 1-9
 
@@ -9445,7 +9896,7 @@ def run(torch, seed) -> list:
         return out
 
     card = timed(1, start, torch)
-    # the lanes of phases 10-25 start up now and wait until phase 9 ends
+    # the lanes of phases 10-26 start up now and wait until phase 9 ends
     lanes = []
     try:
         for phases in LANES:
@@ -9482,7 +9933,7 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
     timed(9, phase_merge_check, torch, card, seed)
     timed(9, phase_merge_trace, torch, card, seed, engines)
     del engines
-    # phases 10-25: these here, the rest in the two lanes beside them
+    # phases 10-26: these here, the rest in the two lanes beside them
     ctx = {"module": module, "direct": direct, "engine_ms": engine_ms}
     for lane in lanes:
         lane_check(lane)
@@ -9502,11 +9953,11 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         ctx.update(g)
     (job_launches, vision_launches, cp_resnet, cp_gpt, cli, ps_launches,
      cluster, degraded, cost, continual, spec, text, mv, sync, dist, sd,
-     seq) = (ctx[k] for k in (
+     seq, ep) = (ctx[k] for k in (
          "job_launches", "vision_launches", "cp_resnet", "cp_gpt", "cli",
          "ps_launches", "cluster", "degraded", "cost", "continual", "spec",
-         "text", "mv", "sync", "dist", "sd", "seq"))
-    log(card, "wall by phase (s), 10-25 in three processes side by side: "
+         "text", "mv", "sync", "dist", "sd", "seq", "ep"))
+    log(card, "wall by phase (s), 10-26 in three processes side by side: "
         + ", ".join(f"{p}: {walls[p]:.3f}" for p in sorted(walls))
         + "; " + "; ".join(
             f"phases {', '.join(map(str, ph))}: "
@@ -9548,6 +9999,7 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         "dist_launches": 0,          # phase 23 serves nothing
         "syncdp_dist_launches": 0,   # phase 24 serves nothing
         "seq_launches": 0,           # phase 25 serves nothing
+        "ep_launches": 0,            # phase 26 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -9600,6 +10052,10 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         "seq_launches": seq_launches(seq, kernel),
         "seq_shapes": [r for (_, k), r in seq["shapes"].items()
                        if k == kernel],
+        # phase 26: the expert ranks' rounds per rank (per dtype, and the
+        # seq x expert and seq rounds), the one-process rounds, the
+        # two-rank job per rank
+        "ep_launches": ep_launches(ep, kernel),
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -9650,6 +10106,10 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
                 # rank: one launch a merge on each rank) and the job's
                 seq_launches=seq_launches(seq, "fused_merge"),
                 seq_segments=seq_launches(seq, "merge segments"),
+                # phase 26: the expert ranks' merges (one launch a merge on
+                # each rank) and the job's
+                ep_launches=ep_launches(ep, "fused_merge"),
+                ep_segments=ep_launches(ep, "merge segments"),
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -9741,6 +10201,10 @@ def main(argv=None) -> int:
                     help="build the flash and merge kernels and run phase "
                          "25 (sequence parallelism over two gloo ranks) "
                          "alone")
+    ap.add_argument("--ep-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "26 (expert parallelism over two and four gloo "
+                         "ranks) alone")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
                          "every tree of the port has, the one-segment "
@@ -9902,6 +10366,14 @@ def main(argv=None) -> int:
                 "shapes": [dict(case=c, kernel=k, **r) for (c, k), r in
                            seq["shapes"].items()],
                 "launches": {k: seq_launches(seq, k) for k in
+                             ("forward", "dK/dV", "dQ", "fused_merge",
+                              "merge segments")}}}))
+            return 0
+        if args.ep_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            ep = phase_ep(torch, card, args.seed)
+            print(json.dumps({"card": card, "ep": {
+                "launches": {k: ep_launches(ep, k) for k in
                              ("forward", "dK/dV", "dQ", "fused_merge",
                               "merge segments")}}}))
             return 0

@@ -76,6 +76,26 @@ def _fail(msg: str, code: int = 1):
 # --------------------------------------------------------------------- train
 
 def cmd_train(args):
+    req = train_request(args)
+    client = _client(args)
+    # pre-validation (cmd/train.go:89-148): dataset + function must exist
+    try:
+        client.v1().datasets().get(args.dataset)
+    except KubeMLException as e:
+        _fail(f"dataset {args.dataset!r}: {e.message}")
+    try:
+        client.v1().functions().get(args.function)
+    except KubeMLException as e:
+        _fail(f"function {args.function!r}: {e.message}")
+    job_id = client.v1().networks().train(req)
+    print(job_id)
+
+
+def train_request(args) -> TrainRequest:
+    """The TrainRequest of parsed ``train`` arguments, after the CLI's
+    checks and the job's own refusal of unported options (exits 1 on
+    either): what ``kubeml train`` submits, and what a program that runs
+    a job on every rank of a group builds from the same flags."""
     if args.batch <= 0 or args.batch > MAX_BATCH_SIZE:
         _fail(f"batch size must be in (0, {MAX_BATCH_SIZE}]")
     if args.epochs <= 0 and not args.continual:
@@ -157,23 +177,11 @@ def cmd_train(args):
     # job would raise the same 400 in the PS after the submit)
     from kubeml_tpu_torch.train.job import reject_unported
     reject_unported(options)
-    client = _client(args)
-    # pre-validation (cmd/train.go:89-148): dataset + function must exist
-    try:
-        client.v1().datasets().get(args.dataset)
-    except KubeMLException as e:
-        _fail(f"dataset {args.dataset!r}: {e.message}")
-    try:
-        client.v1().functions().get(args.function)
-    except KubeMLException as e:
-        _fail(f"function {args.function!r}: {e.message}")
-    req = TrainRequest(
+    return TrainRequest(
         model_type=args.function, batch_size=args.batch, epochs=args.epochs,
         dataset=args.dataset, lr=args.lr, function_name=args.function,
         resume_from=args.resume_from,
         priority=args.priority, tenant=args.tenant, options=options)
-    job_id = client.v1().networks().train(req)
-    print(job_id)
 
 
 def cmd_infer(args):

@@ -122,6 +122,17 @@ class KubeModel(abc.ABC):
                              "expected 'ring' or 'ulysses'")
         self.seq_axis, self.seq_impl = SEQ_AXIS, impl
 
+    def enable_expert_parallel(self) -> None:
+        """Build the model's modules with their experts split over the
+        rank grid's ``expert`` axis (the job calls it for
+        ``--expert-parallel`` > 1). Only a mixture of experts has experts
+        to shard (``GPTMoEMini`` overrides this); every other model
+        refuses with the reference's message."""
+        raise ValueError(
+            f"function {self.name or type(self).__name__!r} has no "
+            "experts to shard (expert parallelism applies to MoE "
+            "families like gpt-moe-mini)")
+
     @abc.abstractmethod
     def build(self, dtype: torch.dtype = torch.bfloat16,
               device=None) -> torch.nn.Module:

@@ -20,7 +20,7 @@ Sequence parallelism (``seq_axis``, ``seq_impl``, ``enable_seq_parallel``,
 ``forward_seq_parallel``) runs over the rank grid's seq axis: each rank
 holds a [B, T/n] block, positions are offset by its seq index, attention
 is the non-causal flash ring or Ulysses, and the mean-pool sums its
-numerator and count over the seq group (``seq_psum``), after which the
+numerator and count over the seq group (``psum``), after which the
 classifier's logits are equal on every seq rank. Tensor and pipeline
 parallelism (``tp_axis``, ``enable_tensor_parallel``,
 ``enable_pipeline_parallel``) are not ported and refuse, naming ROADMAP
@@ -173,8 +173,8 @@ class BertModule(nn.Module):
         if axis is not None:
             # the pool's sums over the seq group: the logits after it are
             # the same on every seq rank
-            num = dist_lib.seq_psum(num, axis)
-            den = dist_lib.seq_psum(den, axis)
+            num = dist_lib.psum(num, axis)
+            den = dist_lib.psum(den, axis)
         pooled = num / den.clamp_min(1.0)[..., None]
         return self.classifier(pooled).float()
 

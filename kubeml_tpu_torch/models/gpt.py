@@ -31,8 +31,12 @@ contract (per-sequence LM loss, metrics, AdamW).
 ``GPTMoEMini`` (``gpt-moe-mini``) replaces every block's FFN by a mixture
 of experts (``MoEFFN``'s parameters, ``parallel/ep.moe_apply``'s math):
 the router and the experts run in f32 on the f32 LayerNorm output, as
-the reference's do, and each block's load-balance aux joins the loss. The
-serving programs refuse an MoE module, as the reference's do.
+the reference's do, and each block's load-balance aux joins the loss.
+With ``ep_axis`` (the rank grid's ``"expert"``) each rank of the expert
+group routes the same tokens and runs its share of the experts
+(``parallel/manual.ep_partial_ffn``); under a seq axis each rank routes
+its own block of the sequence (per-shard capacity). The serving programs
+refuse an MoE module, as the reference's do.
 """
 
 from __future__ import annotations
@@ -57,8 +61,9 @@ from kubeml_tpu_torch.ops.attention import (NEG_INF, composed_bias,
                                             ring_flash_eligible)
 from kubeml_tpu_torch.ops.paged_attention import paged_attention
 from kubeml_tpu_torch.parallel import distributed as dist_lib
-from kubeml_tpu_torch.parallel.distributed import SEQ_AXIS
-from kubeml_tpu_torch.parallel.ep import moe_apply
+from kubeml_tpu_torch.parallel.distributed import EXPERT_AXIS, SEQ_AXIS
+from kubeml_tpu_torch.parallel.ep import moe_apply, route_tokens
+from kubeml_tpu_torch.parallel.manual import ep_partial_ffn
 from kubeml_tpu_torch.parallel.ring_attention import (_seq_block,
                                                       gather_seq,
                                                       ring_attention)
@@ -152,8 +157,17 @@ class GPTModule(nn.Module):
     ``seq_axis`` (the rank grid's ``"seq"``) makes the training forward
     (``logits``) sequence-parallel: x is this rank's [B, T/n] block,
     positions are offset by the seq index, attention is the causal flash
-    ring (``seq_impl="ring"``) or Ulysses, and the logits are the block's.
-    The dense inference forward and the serving programs stay dense.
+    ring (``seq_impl="ring"``) or Ulysses, and the logits are the block's;
+    an MoE block routes the block's tokens. The dense inference forward
+    and the serving programs stay dense.
+
+    ``ep_axis`` (the rank grid's ``"expert"``) runs every MoE block's
+    experts split over the expert axis: ``ep_impl="replicated"`` routes
+    the same tokens on every rank of the axis and sums the ranks' partial
+    outputs (``ep_partial_ffn``); the reference's token-sharded
+    ``"alltoall"`` comes with ROADMAP A.12. The experts must divide over
+    the axis. An unknown ``ep_impl`` raises on every path of an MoE
+    module, as the reference's does.
     """
 
     def __init__(self, vocab_size: int = 8192, max_len: int = 512,
@@ -161,7 +175,9 @@ class GPTModule(nn.Module):
                  ffn: int = 1024, dropout: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None, n_experts: int = 0,
-                 seq_axis: Optional[str] = None, seq_impl: str = "ring"):
+                 seq_axis: Optional[str] = None, seq_impl: str = "ring",
+                 ep_axis: Optional[str] = None,
+                 ep_impl: str = "replicated"):
         super().__init__()
         if hidden % heads:
             raise ValueError(f"hidden {hidden} does not split over "
@@ -169,10 +185,8 @@ class GPTModule(nn.Module):
         if seq_impl not in ("ring", "ulysses"):
             raise ValueError(f"unknown seq_impl {seq_impl!r}; expected "
                              "'ring' or 'ulysses'")
-        if n_experts and seq_axis is not None:
-            raise NotPortedError("gpt-moe-mini's sequence parallelism",
-                                 EXPERT_PARALLEL)
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
+        self.ep_axis, self.ep_impl = ep_axis, ep_impl
         self.vocab_size, self.max_len = vocab_size, max_len
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.ffn, self.dtype, self.dropout = ffn, dtype, float(dropout)
@@ -314,8 +328,13 @@ def _param_tree(module: GPTModule,
     """The programs' parameter dict, each tensor ``get(name, dtype)``:
     embeddings and Dense weights in the compute dtype, LayerNorm
     parameters in f32. An MoE block's parameters stay f32: the reference
-    runs its router and experts on the f32 LayerNorm output."""
+    runs its router and experts on the f32 LayerNorm output; its expert
+    axis and strategy ride along (``ep``), ``ep_impl`` checked here, on
+    every path, as the reference's ``MoEFFN`` checks it at every call."""
     dt = module.dtype
+    if module.n_experts and module.ep_impl not in ("replicated", "alltoall"):
+        raise ValueError(f"unknown ep_impl {module.ep_impl!r}; "
+                         "expected 'replicated' or 'alltoall'")
 
     def t(name, dtype=dt):
         return get(name, dtype)
@@ -336,6 +355,7 @@ def _param_tree(module: GPTModule,
         if module.n_experts:
             lp["moe"] = {n: t(f"{b}.moe.{n}", torch.float32)
                          for n in ("router", "wi", "bi", "wo", "bo")}
+            lp["ep"] = (module.ep_axis, module.ep_impl)
         else:
             lp["fc0"], lp["fc1"] = lin(f"{b}.fc0"), lin(f"{b}.fc1")
         layers.append(lp)
@@ -377,9 +397,10 @@ def _block(lp: dict, h: torch.Tensor,
 
     An MoE block (``lp["moe"]``) routes the [B·T] tokens of the f32
     LayerNorm output, the pads of ``pad_mask`` [B, T] left out, runs its
-    experts in f32 and appends its load-balance aux to ``aux``; its f32
-    output makes the residual stream f32 from there on, as the
-    reference's type promotion does."""
+    experts in f32 (over the expert axis of ``lp["ep"]`` when it names
+    one: ``_moe_expert_parallel``) and appends its load-balance aux to
+    ``aux``; its f32 output makes the residual stream f32 from there on,
+    as the reference's type promotion does."""
     dt = lp["q"][0].dtype
     H = lp["heads"]
     x = _layer_norm(h, *lp["ln0"]).to(dt)
@@ -389,14 +410,41 @@ def _block(lp: dict, h: torch.Tensor,
     h = h + drop(_dense(attn.flatten(-2), *lp["out"]))
     if "moe" in lp:
         x = _layer_norm(h, *lp["ln1"])
-        y, a = moe_apply(lp["moe"], x.flatten(0, 1), k=MOE_K,
-                         capacity_factor=CAPACITY_FACTOR,
-                         token_mask=pad_mask.flatten())
+        axis, impl = lp["ep"]
+        if axis is None:
+            y, a = moe_apply(lp["moe"], x.flatten(0, 1), k=MOE_K,
+                             capacity_factor=CAPACITY_FACTOR,
+                             token_mask=pad_mask.flatten())
+        else:
+            y, a = _moe_expert_parallel(lp["moe"], x.flatten(0, 1),
+                                        pad_mask.flatten(), axis, impl)
         aux.append(a)
         return h + drop(y.view_as(x))
     x = _layer_norm(h, *lp["ln1"]).to(dt)
     x = F.gelu(_dense(x, *lp["fc0"]), approximate="tanh")
     return h + drop(_dense(x, *lp["fc1"]))
+
+
+def _moe_expert_parallel(moe: dict, x: torch.Tensor,
+                         token_mask: torch.Tensor, axis_name: str,
+                         impl: str) -> tuple:
+    """An MoE block's experts over the expert axis ``axis_name`` (the
+    reference's ``MoEFFN`` with ``ep_axis``): the shared routing preamble
+    on this rank's tokens, then ``ep_partial_ffn``. -> (y [T, D], aux)."""
+    e, n = moe["wi"].shape[0], dist_lib.axis_size(axis_name)
+    if e % n:
+        raise ValueError(f"{e} experts do not divide over a {n}-way "
+                         "expert axis")
+    if impl != "replicated":
+        raise NotPortedError(
+            f"ep_impl={impl!r} (the token-sharded expert FFN of the "
+            "pipelined and forward paths)", PIPELINE_PARALLEL)
+    dispatch, combine, aux = route_tokens(
+        moe["router"], x, k=MOE_K, capacity_factor=CAPACITY_FACTOR,
+        token_mask=token_mask)
+    y = ep_partial_ffn(moe["wi"], moe["bi"], moe["wo"], moe["bo"], dispatch,
+                       combine, x, axis_name, dtype=x.dtype)
+    return y, aux
 
 
 def _lm_head(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -904,11 +952,11 @@ def _lm_per_example_sp(logits: torch.Tensor, x_local: torch.Tensor,
     """Sequence-parallel _lm_per_example: the per-sequence mean reduces
     over the whole sequence through sums over the seq group of the
     block's token-loss sum and count, so every seq rank holds the dense
-    loss (``seq_psum``: its backward sums the cotangents)."""
+    loss (``psum``: its backward sums the cotangents)."""
     targets, tok_mask = _shift_targets_sp(x_local, axis_name)
     per_tok = _token_nll(logits, targets)
-    num = dist_lib.seq_psum((per_tok * tok_mask).sum(1), axis_name)
-    den = dist_lib.seq_psum(tok_mask.sum(1), axis_name)
+    num = dist_lib.psum((per_tok * tok_mask).sum(1), axis_name)
+    den = dist_lib.psum(tok_mask.sum(1), axis_name)
     return num / den.clamp_min(1.0)
 
 
@@ -922,7 +970,7 @@ def _forward_seq_parallel(module, x, grid, impl: str, forward,
         raise ValueError(f"unknown seq-parallel impl {impl!r}; "
                          "expected 'ring' or 'ulysses'")
     grid = dist_lib.current_grid() if grid is None \
-        else dist_lib.make_grid(grid.n_seq)
+        else dist_lib.make_grid(grid.n_seq, grid.n_expert)
     n = grid.n_seq
     x = torch.as_tensor(np.asarray(x), device=module.device)
     if x.shape[1] % n:
@@ -990,7 +1038,7 @@ class GPTMini(KubeModel):
             sums = torch.stack([(per_tok * tok_mask).sum(1),
                                 (hit * tok_mask).sum(1), tok_mask.sum(1)])
             if axis is not None:
-                sums = dist_lib.seq_psum(sums, axis)
+                sums = dist_lib.psum(sums, axis)
         denom = sums[2].clamp_min(1.0)
         return {"loss": sums[0] / denom, "accuracy": sums[1] / denom}
 
@@ -1026,9 +1074,7 @@ class GPTNano(GPTMini):
     name = "gpt-nano"
 
 
-# what brings each refused parallel path of gpt-moe-mini, by ROADMAP item
-EXPERT_PARALLEL = "expert and sequence parallelism over NCCL ranks, " \
-    "ROADMAP A.6"
+# what brings gpt-moe-mini's pipelined path, by ROADMAP item
 PIPELINE_PARALLEL = "pipeline parallelism over NCCL ranks, ROADMAP A.12"
 
 
@@ -1038,23 +1084,40 @@ class GPTMoEMini(GPTMini):
     a 512-wide FFN, top-2 GShard routing at capacity factor 1.25
     (``parallel/ep.py``), the same attention stack, dropout and AdamW.
     Every sequence's loss adds ``aux_coef`` times the mean over the
-    layers of the load-balance aux. The experts run on the one device;
-    the reference's ``ep_mesh`` and its sequence-parallel and pipelined
-    paths raise NotPortedError naming the ROADMAP item that brings
-    them."""
+    layers of the load-balance aux (under a seq axis the mean of the seq
+    ranks' per-shard aux, as the reference's).
+
+    Its parallel paths: ``enable_seq_parallel`` (the dense family's: each
+    seq rank routes its own block of the sequence, per-shard capacity),
+    ``enable_expert_parallel`` (the experts split over the rank grid's
+    expert axis, alone or with a seq axis), ``forward_seq_parallel`` (the
+    dense family's). The reference's ``ep_mesh`` takes a JAX
+    ``Mesh``, which has no counterpart here (ROADMAP C.13): its GSPMD
+    route and its manual one are both the port's expert axis. The
+    pipelined path raises NotPortedError naming ROADMAP A.12."""
 
     name = "gpt-moe-mini"
     aux_coef = 0.01
+    #: the expert axis and strategy the modules build with
+    #: (``enable_expert_parallel``); None = every expert on each rank
+    ep_axis: Optional[str] = None
+    ep_impl: str = "replicated"
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16, ep_mesh=None):
         if ep_mesh is not None:
-            raise NotPortedError("gpt-moe-mini's ep_mesh", EXPERT_PARALLEL)
+            raise ValueError(
+                "gpt-moe-mini's ep_mesh takes a JAX Mesh, which has no "
+                "counterpart in kubeml_tpu_torch (ROADMAP C.13): split "
+                "the experts over the rank grid's expert axis with "
+                "--expert-parallel E (model.enable_expert_parallel())")
         super().__init__(dtype)
 
     def build(self, dtype: Optional[torch.dtype] = None,
               device: DeviceLike = None) -> GPTModule:
         return GPTModule(**GPT_MOE_CONFIG, dropout=GPT_DROPOUT["gpt-mini"],
-                         dtype=dtype or self.dtype, device=device)
+                         dtype=dtype or self.dtype, device=device,
+                         seq_axis=self.seq_axis, seq_impl=self.seq_impl,
+                         ep_axis=self.ep_axis, ep_impl=self.ep_impl)
 
     def params_to_flax(self, state):
         return params_to_flax(state, heads=GPT_MOE_CONFIG["heads"])
@@ -1064,26 +1127,35 @@ class GPTMoEMini(GPTMini):
         logits, aux = module.logits_and_aux(x, train=True,
                                             generator=generator)
         mean_aux = sum(aux) / max(1, module.layers)
-        return _lm_per_example(logits, x) + self.aux_coef * mean_aux
+        axis = module.seq_axis
+        if axis is None:
+            return _lm_per_example(logits, x) + self.aux_coef * mean_aux
+        # the per-shard aux averaged over the seq group, so the loss is
+        # the same on every seq rank
+        mean_aux = dist_lib.psum(mean_aux, axis) / dist_lib.axis_size(axis)
+        return _lm_per_example_sp(logits, x, axis) + self.aux_coef * mean_aux
 
-    # the reference's parallel paths (not ported)
-    def enable_seq_parallel(self, impl: str = "ring") -> None:
-        raise NotPortedError("gpt-moe-mini's sequence parallelism",
-                             EXPERT_PARALLEL)
-
-    def forward_seq_parallel(self, module, x, grid=None,
-                             impl: str = "ring"):
-        raise NotPortedError("gpt-moe-mini's forward_seq_parallel",
-                             EXPERT_PARALLEL)
+    def enable_expert_parallel(self) -> None:
+        """Build the modules with the experts split over the rank grid's
+        expert axis (the job calls it for ``--expert-parallel`` > 1; it
+        composes with ``enable_seq_parallel``), with the reference's
+        refusals: a module without experts, an ``ep_impl`` other than
+        ``'replicated'`` (the training round's sum over the axis is what
+        keeps the loss the same on every expert rank)."""
+        if not self.build(device="meta").n_experts:
+            super().enable_expert_parallel()
+        if self.ep_impl != "replicated":
+            raise ValueError(
+                "the expert-parallel training round requires "
+                "ep_impl='replicated' (the expert psum keeps the loss "
+                "expert-axis-invariant); ep_impl='alltoall' serves the "
+                "pipelined and forward paths only")
+        self.ep_axis = EXPERT_AXIS
 
     def enable_pipeline_parallel(self, n_stage: int,
                                  microbatches: int = 0) -> None:
         raise NotPortedError("gpt-moe-mini's pipeline parallelism",
                              PIPELINE_PARALLEL)
-
-    def enable_expert_parallel(self) -> None:
-        raise NotPortedError("gpt-moe-mini's expert parallelism",
-                             EXPERT_PARALLEL)
 
     def enable_tensor_parallel(self) -> None:
         raise ValueError(

@@ -45,17 +45,21 @@ the host on gloo: the named path, never a silent one.
 
 The rank grid (``make_grid``) lays the ranks out as the JAX package's
 mesh lays out its devices (``kubeml_tpu/parallel/mesh.py``: ``data``
-outermost, the inner axes inside): global rank r is lane group
-r // n_seq and seq index r % n_seq. The seq group (the ranks of one lane
-group) carries sequence parallelism's ring hops, all-to-alls and sums;
-the data group (the ranks of one seq index) carries the lane merge.
-``axis_size``/``axis_index``/``axis_group`` answer for the seq axis of
-the installed grid as ``lax.axis_size``/``lax.axis_index`` answer inside
-a shard_map: without a grid (or a group) it has size 1, and the
-collectives over it are identities. ``all_to_all`` is counted;
-``seq_psum`` is the differentiable sum over the seq group (its backward
-is the same sum) and ``ring_shift`` the differentiable ring hop (its
-backward sends the gradient back the other way).
+outermost, ``expert`` innermost): global rank r has data index
+r // (n_seq * n_expert), seq index (r // n_expert) % n_seq and expert
+index r % n_expert. The n_seq * n_expert ranks of one data index are its
+inner group: they run the same lane's workers. The seq group (the ranks
+of one data and expert index) carries sequence parallelism's ring hops,
+all-to-alls and sums; the expert group (one data and seq index) the
+expert FFN's sum; the data group (one seq and expert index) the lane
+merge. ``axis_size``/``axis_index``/``axis_group`` answer for the seq
+and expert axes of the installed grid as ``lax.axis_size``/
+``lax.axis_index`` answer inside a shard_map: without a grid (or a
+group) an axis has size 1, and the collectives over it are identities.
+``all_to_all`` is counted; ``psum`` is the differentiable sum over an
+axis (its backward is the same sum) and ``ring_shift`` the
+differentiable ring hop (its backward sends the gradient back the other
+way).
 """
 
 from __future__ import annotations
@@ -253,52 +257,97 @@ def lane_layout(n_lanes: int, world: Optional[int] = None,
 # -------------------------------------------------------------- rank grid
 
 SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
 
 
 @dataclass(frozen=True)
 class RankGrid:
-    """The ranks as a (data x seq) grid, data outermost: rank r is lane
-    group ``r // n_seq`` (its ``data_index``) and seq index ``r % n_seq``.
-    ``seq_group`` holds the n_seq ranks of this rank's lane group,
-    ``data_group`` the n_data ranks of its seq index; either is None
-    where it is the whole group (or there is no group)."""
+    """The ranks as a (data x seq x expert) grid, data outermost and
+    expert innermost: rank r has ``data_index`` r // (n_seq * n_expert),
+    ``seq_index`` (r // n_expert) % n_seq and ``expert_index``
+    r % n_expert. ``seq_group`` holds the n_seq ranks of this rank's data
+    and expert index, ``expert_group`` the n_expert ranks of its data and
+    seq index, ``inner_group`` the n_seq * n_expert ranks of its data
+    index (the seq or expert group when the other axis has size 1), and
+    ``data_group`` the n_data ranks of its seq and expert index. A group
+    is None where its axis has size 1 (its collectives are never issued),
+    and the data group where it is the whole group (or there is no
+    group)."""
     n_data: int
     n_seq: int
     data_index: int
     seq_index: int
     data_group: object = None
     seq_group: object = None
+    n_expert: int = 1
+    expert_index: int = 0
+    expert_group: object = None
+    inner_group: object = None
+
+    @property
+    def n_inner(self) -> int:
+        return self.n_seq * self.n_expert
 
 
-_GRIDS: dict = {}      # by (n_seq, world), until the group is destroyed
+_GRIDS: dict = {}      # by (n_seq, n_expert, world), until the group ends
 _grid: Optional[RankGrid] = None
 
 
-def make_grid(n_seq: int = 1) -> RankGrid:
-    """The rank grid of ``n_seq`` seq ranks per lane group, made the
-    current one (what ``axis_size`` and the models' ``seq_axis`` read).
-    Making a grid is collective the first time for each ``n_seq`` in a
-    group: every rank must call it, in the same order. Raises ValueError
-    unless the world divides by ``n_seq``."""
+def make_grid(n_seq: int = 1, n_expert: int = 1) -> RankGrid:
+    """The rank grid of ``n_seq`` seq by ``n_expert`` expert ranks per
+    data index, made the current one (what ``axis_size`` and the models'
+    ``seq_axis``/``ep_axis`` read). Making a grid is collective the first
+    time for each shape in a group: every rank must call it, in the same
+    order. Raises ValueError unless the world divides by
+    n_seq * n_expert."""
     global _grid
-    n_seq = int(n_seq)
+    n_seq, n_expert = int(n_seq), int(n_expert)
+    inner = n_seq * n_expert
     world, r = world_size(), rank()
-    if n_seq < 1 or world % n_seq:
-        raise ValueError(f"{world} ranks do not split into seq groups of "
-                         f"{n_seq}")
-    if (n_seq, world) not in _GRIDS:
-        data_group = seq_group = None
-        if n_seq > 1:
-            n_data = world // n_seq
-            # every rank creates every group, in one order
-            seqs = [dist.new_group(list(range(g * n_seq, (g + 1) * n_seq)))
-                    for g in range(n_data)]
-            datas = [dist.new_group(list(range(s, world, n_seq)))
-                     for s in range(n_seq)]
-            seq_group, data_group = seqs[r // n_seq], datas[r % n_seq]
-        _GRIDS[n_seq, world] = RankGrid(world // n_seq, n_seq, r // n_seq,
-                                        r % n_seq, data_group, seq_group)
-    _grid = _GRIDS[n_seq, world]
+    if n_seq < 1 or n_expert < 1 or world % inner:
+        raise ValueError(
+            f"{world} ranks do not split into seq groups of {n_seq}"
+            if n_expert == 1 else
+            f"{world} ranks do not split into inner groups of {n_seq} seq "
+            f"x {n_expert} expert ranks")
+    if (n_seq, n_expert, world) not in _GRIDS:
+        n_data = world // inner
+        d, s, e = r // inner, (r // n_expert) % n_seq, r % n_expert
+        groups = {}
+        if inner > 1:
+            def made(members, mine):
+                # every rank creates every group, in one order, and
+                # keeps its own: members are (data, seq, expert) triples
+                return [dist.new_group([dd * inner + ss * n_expert + ee
+                                        for dd, ss, ee in m])
+                        for m in members][mine]
+            # the seq and data groups first, as a grid without an expert
+            # axis makes them
+            if n_seq > 1:
+                groups["seq"] = made(
+                    [[(dd, ss, ee) for ss in range(n_seq)]
+                     for dd in range(n_data) for ee in range(n_expert)],
+                    d * n_expert + e)
+            groups["data"] = made(
+                [[(dd, ss, ee) for dd in range(n_data)]
+                 for ss in range(n_seq) for ee in range(n_expert)],
+                s * n_expert + e)
+            if n_expert > 1:
+                groups["expert"] = made(
+                    [[(dd, ss, ee) for ee in range(n_expert)]
+                     for dd in range(n_data) for ss in range(n_seq)],
+                    d * n_seq + s)
+            if n_seq > 1 and n_expert > 1:
+                groups["inner"] = made(
+                    [[(dd, ss, ee) for ss in range(n_seq)
+                      for ee in range(n_expert)] for dd in range(n_data)],
+                    d)
+            else:
+                groups["inner"] = groups.get("seq", groups.get("expert"))
+        _GRIDS[n_seq, n_expert, world] = RankGrid(
+            n_data, n_seq, d, s, groups.get("data"), groups.get("seq"),
+            n_expert, e, groups.get("expert"), groups.get("inner"))
+    _grid = _GRIDS[n_seq, n_expert, world]
     return _grid
 
 
@@ -317,33 +366,36 @@ def data_group():
 
 def current_grid() -> RankGrid:
     """The grid ``make_grid`` installed last; without one, every rank is
-    its own lane group (n_seq 1)."""
+    its own data index (no inner axis)."""
     if _grid is not None:
         return _grid
     return RankGrid(world_size(), 1, rank(), 0)
 
 
-def _seq(name: str) -> RankGrid:
-    if name != SEQ_AXIS:
-        raise ValueError(f"unknown grid axis {name!r}; the models' axis is "
-                         f"{SEQ_AXIS!r}")
-    return current_grid()
+def _axis(name: str) -> tuple:
+    """(size, index, group) of a grid axis of the current grid."""
+    g = current_grid()
+    if name == SEQ_AXIS:
+        return g.n_seq, g.seq_index, g.seq_group
+    if name == EXPERT_AXIS:
+        return g.n_expert, g.expert_index, g.expert_group
+    raise ValueError(f"unknown grid axis {name!r}; the models' axes are "
+                     f"{SEQ_AXIS!r} and {EXPERT_AXIS!r}")
 
 
 def axis_size(name: str) -> int:
-    """The size of the grid's seq axis (``lax.axis_size``): n_seq, 1
-    without a grid."""
-    return _seq(name).n_seq
+    """The size of a grid axis (``lax.axis_size``): 1 without a grid."""
+    return _axis(name)[0]
 
 
 def axis_index(name: str) -> int:
-    """This rank's index along the seq axis (``lax.axis_index``)."""
-    return _seq(name).seq_index
+    """This rank's index along a grid axis (``lax.axis_index``)."""
+    return _axis(name)[1]
 
 
 def axis_group(name: str):
-    """The process group of the seq axis (None without a split)."""
-    return _seq(name).seq_group
+    """The process group of a grid axis (None without a split)."""
+    return _axis(name)[2]
 
 
 # ------------------------------------------------------------ collectives
@@ -447,7 +499,7 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-class _SeqPsum(torch.autograd.Function):
+class _Psum(torch.autograd.Function):
     """psum over a group whose VJP is the same psum (the transpose of a
     sum of every rank's value, handed to every rank)."""
 
@@ -461,16 +513,16 @@ class _SeqPsum(torch.autograd.Function):
         return all_reduce(g.contiguous(), group=ctx.group), None
 
 
-def seq_psum(x: torch.Tensor, axis_name: str = SEQ_AXIS) -> torch.Tensor:
+def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     """The differentiable sum of ``x`` over a grid axis (``lax.psum``):
     its backward sums the cotangents over the same ranks. Every rank
     that computes from the sum holds the whole upstream gradient, so a
     loss that every rank of the axis computes alike counts 1 / n on
-    each (the engine's seq round) for the sum to be counted once. The
+    each (the engine's inner round) for the sum to be counted once. The
     identity at axis size 1."""
     if axis_size(axis_name) == 1:
         return x
-    return _SeqPsum.apply(x, axis_group(axis_name))
+    return _Psum.apply(x, axis_group(axis_name))
 
 
 class _RingShift(torch.autograd.Function):

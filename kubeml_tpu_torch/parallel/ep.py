@@ -10,9 +10,13 @@ overflow token gets no slot and a zero combine weight. The load-balance
 loss is Shazeer et al.'s E * sum_e(fraction routed to e * mean prob of
 e), over the first choices of the real tokens.
 
-The reference's ``mesh`` argument (the GSPMD expert axis) and its
-placement rules ``EP_RULES`` come with expert parallelism over ranks
-(ROADMAP A.6): here every expert runs on the one device.
+``moe_apply`` runs every expert on one device. Over the rank grid's
+expert axis the same ``route_tokens`` preamble feeds
+``parallel/manual.ep_partial_ffn``, which runs a rank's share of the
+experts: the one manual path stands for both of the reference's routes
+(its GSPMD ``mesh`` argument with its placement rules ``EP_RULES``, and
+its manual ``ep_axis``). A JAX ``Mesh`` has no counterpart in the port
+(ROADMAP C.13).
 """
 
 from __future__ import annotations

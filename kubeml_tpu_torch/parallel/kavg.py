@@ -57,23 +57,29 @@ the finite guard, the contribution sums and the merge like any leaf
 (integer leaves are averaged in f32 and truncated, as in the reference).
 The optimizer steps the parameters only.
 
-Sequence parallelism (``n_seq`` > 1 with ``batch_seq_dims``, the
-reference's seq round): the ranks form the rank grid
-(``distributed.make_grid``: data outermost, rank r in lane group
-r // n_seq at seq index r % n_seq). The lanes are laid out over the data
-group, whose ranks merge; the n_seq ranks of a lane group run the same
-workers on their own [T / n_seq] slice of every seq-carrying key
-(``seq_batch_dims``: {key: per-example dim}), through the models' ring or
-Ulysses attention. The reference gets its seq-axis gradient sums from
-``check_vma``; here the model's per-example loss is seq-invariant (its
-sums over the seq group are ``seq_psum``, whose backward sums the
-cotangents), each rank backpropagates 1 / n_seq of it, and the
-parameters' gradients are summed over the seq group (one all-reduce a
-step), so every seq rank steps the same global gradient. The loss sums,
-the drop flags and every branch of the round are decided from values
-equal on every rank of the seq group (the summed loss, the equal
-weights); the merge's sums and the gathered rows run over the data
-group.
+Inner axes (the reference's seq round, ``n_seq`` > 1 with
+``batch_seq_dims``, and its expert axis, ``n_expert`` > 1): the ranks
+form the rank grid (``distributed.make_grid``: data outermost, expert
+innermost). The lanes are laid out over the data group, whose ranks
+merge; the n_seq x n_expert ranks of one data index (its inner group)
+run the same workers: a seq rank on its own [T / n_seq] slice of every
+seq-carrying key (``seq_batch_dims``: {key: per-example dim}), through
+the models' ring or Ulysses attention, an expert rank on the same tokens
+as its expert group, running its share of the experts
+(``parallel/manual.ep_partial_ffn``). The reference gets these axes'
+gradient sums from ``check_vma``; here the model's per-example loss is
+the same on every rank of the inner group (its sums over an axis are
+``distributed.psum``, whose backward sums the cotangents), each rank
+backpropagates 1 / (n_seq x n_expert) of it, and the parameters'
+gradients are summed over the inner group (one all-reduce a step), so
+every rank of it steps the same global gradient and holds the same
+weights bit for bit: every dropout mask is drawn from the step's key on
+each of them alike. The loss sums, the drop flags and every branch of
+the round are decided from values equal on every rank of the inner
+group (the summed loss, the equal weights); the merge's sums and the
+gathered rows run over the data group. An expert axis without a seq
+round is the reference's GSPMD route, whose merge takes the ring for a
+lossy wire (``use_ring``, ``parallel/merge.py``).
 
 Index-fed rounds (``train_round(s)_indexed``) take the samples from a
 device-resident dataset cache (``data/device_cache.py``): the dispatch
@@ -232,14 +238,14 @@ class KAvgEngine:
     of its size); W must be a multiple of D. merge_dtype (a floating
     torch dtype), merge_bucket_mb and merge_compress ("none" | "bf16" |
     "int8") pick the merge strategy as in the reference
-    (``merge.make_strategy``; the reference's ring, ``use_ring``, is its
-    choice for meshes with AUTO inner axes, which come with ROADMAP A.6
-    and A.12). collect_stats adds the per-worker health stats and the
-    loss spread to ``RoundStats``; they are extra outputs and change no
-    weight. n_seq and batch_seq_dims: the sequence-parallel round (module
-    docstring); ``module`` must then be a seq-parallel module (built
-    after the model's ``enable_seq_parallel``), and the world must split
-    into seq groups of n_seq ranks.
+    (``merge.make_strategy``, with the reference's ring, ``use_ring``,
+    where the reference takes it: an inner axis and no seq round).
+    collect_stats adds the per-worker health stats and the loss spread to
+    ``RoundStats``; they are extra outputs and change no weight. n_seq
+    and batch_seq_dims, n_expert: the inner round (module docstring);
+    ``module`` must then be built after the model's
+    ``enable_seq_parallel`` / ``enable_expert_parallel``, and the world
+    must split into inner groups of n_seq x n_expert ranks.
     """
 
     def __init__(self, module: torch.nn.Module, loss_fn: LossFn,
@@ -247,10 +253,11 @@ class KAvgEngine:
                  n_lanes: int = 1, merge_dtype: Optional[torch.dtype] = None,
                  merge_bucket_mb: float = 0.0, merge_compress: str = "none",
                  collect_stats: bool = False, n_seq: int = 1,
-                 batch_seq_dims: Optional[Dict[str, int]] = None):
+                 batch_seq_dims: Optional[Dict[str, int]] = None,
+                 n_expert: int = 1):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
-        self.grid = dist_lib.make_grid(int(n_seq))
+        self.grid = dist_lib.make_grid(int(n_seq), int(n_expert))
         # this rank's lanes over the data group (every lane without one)
         self.layout = dist_lib.lane_layout(int(n_lanes), self.grid.n_data,
                                            self.grid.data_index)
@@ -270,9 +277,12 @@ class KAvgEngine:
         self.device = next(module.parameters()).device
         self._params = dict(module.named_parameters())
         self._state = module_state(module)
+        # the reference's ring: a lossy wire on a mesh whose inner axes
+        # stay AUTO (an expert axis without the manual seq round)
         self._merge = merge_lib.make_strategy(
             merge_dtype=merge_dtype, bucket_mb=self.merge_bucket_mb,
-            compress=self.merge_compress)
+            compress=self.merge_compress,
+            use_ring=self.grid.n_inner > 1 and not self._seq_train)
         self._ef = self._merge.needs_residual
         # the EF residuals of this rank's lanes: flat [D_local * L] f32
         # tensors by bucket name, lane-major; None until the first
@@ -376,15 +386,16 @@ class KAvgEngine:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
-    def _seq_grads(self) -> None:
-        """The seq round's gradient: the parameters' gradients summed over
-        the seq group, in one all-reduce (each rank backpropagated 1 /
-        n_seq of the seq-invariant loss)."""
+    def _inner_grads(self) -> None:
+        """The inner round's gradient: the parameters' gradients summed
+        over the inner group, in one all-reduce (each rank backpropagated
+        1 / (n_seq x n_expert) of the loss every rank of it computes
+        alike)."""
         params = list(self._params.values())
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1).float()
                           for p in params])
-        flat = dist_lib.all_reduce(flat, group=self.grid.seq_group)
+        flat = dist_lib.all_reduce(flat, group=self.grid.inner_group)
         off = 0
         for p in params:
             k = p.numel()
@@ -423,9 +434,9 @@ class KAvgEngine:
                 {k: v[s] for k, v in data.items()},
                 _generator(rngs[s], dev), smasks[s])
             opt.zero_grad(set_to_none=True)
-            if self._seq_train:
-                (loss / self.grid.n_seq).backward()
-                self._seq_grads()
+            if self.grid.n_inner > 1:
+                (loss / self.grid.n_inner).backward()
+                self._inner_grads()
             else:
                 loss.backward()
             if self.collect_stats:
@@ -704,7 +715,7 @@ class KAvgEngine:
                 "kavg.eval", "train", None,
                 fallback=self._cost_fallback(variables, samples))
         self.ledger.note_dispatch("kavg.eval", samples=samples)
-        dist_lib.use_grid(self.grid)   # the model's seq collectives
+        dist_lib.use_grid(self.grid)   # the model's inner collectives
         self._load(variables)
         data = self._to_device(batch)
         smasks = torch.as_tensor(sample_mask, device=self.device)

@@ -53,11 +53,16 @@ is), never around it.
 
 ``register_strategy_cost``/``register_merge_cost`` put a strategy's wire
 plan into the cost ledger (metrics/ledger.py) as the exact
-``merge.<strategy>`` record. Not ported: ``use_ring``. The reference
-takes its ring (``collectives.ring_psum``, ported) only where a mesh keeps
-inner axes AUTO (tensor, pipeline and expert parallelism, ROADMAP A.6 and
-A.12); its sequence-parallel rounds are fully manual and sum directly, as
-the port's over the data group do.
+``merge.<strategy>`` record.
+
+``use_ring``: the reference's lossy wires (a ``wire_dtype`` of the
+monolithic or bucketed merge, and ``ef_bf16``) take its ring all-reduce
+where its mesh keeps an inner axis AUTO: a sub-f32 psum miscompiles
+there. The K-avg engine asks for it where the reference does, on a rank
+grid with an expert axis and no seq round (its GSPMD DP x EP route), and
+the lane sum is then the reference's ring over every lane in lane order
+(``collectives.lane_ring_psum``) across the data group's ranks. f32 and
+int8 wires sum directly either way, as the reference's do.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ import torch
 from kubeml_tpu_torch.convert import flax_leaf_order
 from kubeml_tpu_torch.ops.fused_merge import fused_merge_apply
 from kubeml_tpu_torch.parallel import distributed as dist_lib
+from kubeml_tpu_torch.parallel.collectives import lane_ring_psum
 
 State = Dict[str, torch.Tensor]
 
@@ -173,6 +179,13 @@ def _wire_sum(x: torch.Tensor, wire_dtype: torch.dtype) -> torch.Tensor:
     return dist_lib.all_reduce(local, group=dist_lib.data_group()).float()
 
 
+def _ring_sum(x: torch.Tensor, wire_dtype: torch.dtype) -> torch.Tensor:
+    """The lane sum over a lossy wire through the reference's ring
+    (``use_ring``): every lane in lane order, the data group's ranks
+    holding theirs, hops in ``wire_dtype`` and f32 accumulation; f32."""
+    return lane_ring_psum(x, dist_lib.data_group(), wire_dtype).float()
+
+
 # --------------------------------------------------------------- registry
 
 MERGE_STRATEGIES: Dict[str, Callable[..., "MergeStrategy"]] = {}
@@ -187,15 +200,16 @@ def _register(name: str):
 
 
 def make_strategy(merge_dtype: Optional[torch.dtype] = None,
-                  bucket_mb: float = 0.0,
-                  compress: str = "none") -> "MergeStrategy":
+                  bucket_mb: float = 0.0, compress: str = "none",
+                  use_ring: bool = False) -> "MergeStrategy":
     """Map the engine knobs to a registered strategy instance.
 
     merge_dtype: lossy wire cast (no EF) of float payloads. bucket_mb > 0
     selects the bucketed strategy; compress in {"bf16", "int8"} selects
     the EF strategies (bucketed, with a DEFAULT_EF_BUCKET_MB cap when
     bucket_mb is unset). merge_dtype and compress are mutually exclusive:
-    EF already owns the wire."""
+    EF already owns the wire. use_ring: lossy wires sum through the
+    reference's ring (module docstring)."""
     compress = str(compress or "none")
     if compress not in ("none", "bf16", "int8"):
         raise ValueError(f"merge_compress must be none|bf16|int8, "
@@ -208,11 +222,13 @@ def make_strategy(merge_dtype: Optional[torch.dtype] = None,
         mb = bucket_mb if bucket_mb > 0 else DEFAULT_EF_BUCKET_MB
         cls = MERGE_STRATEGIES["ef_bf16" if compress == "bf16"
                                else "ef_int8"]
-        return cls(bucket_mb=mb)
+        return cls(bucket_mb=mb, use_ring=use_ring)
     if bucket_mb > 0:
         return MERGE_STRATEGIES["bucketed"](wire_dtype=merge_dtype,
-                                            bucket_mb=bucket_mb)
-    return MERGE_STRATEGIES["monolithic"](wire_dtype=merge_dtype)
+                                            bucket_mb=bucket_mb,
+                                            use_ring=use_ring)
+    return MERGE_STRATEGIES["monolithic"](wire_dtype=merge_dtype,
+                                          use_ring=use_ring)
 
 
 class MergeStrategy:
@@ -263,18 +279,21 @@ class MonolithicMerge(MergeStrategy):
     """One reduction per parameter, with an optional lossy wire cast of
     float leaves: the baseline every bit-identity test anchors on."""
 
-    def __init__(self, wire_dtype: Optional[torch.dtype] = None, **_):
+    def __init__(self, wire_dtype: Optional[torch.dtype] = None,
+                 use_ring: bool = False, **_):
         self.wire_dtype = wire_dtype
+        self.use_ring = bool(use_ring) and wire_dtype is not None
 
     def lane_merge(self, contrib, ref, raw_count, count, lane_alive=None,
                    residual=None):
         out = {}
+        wire_sum = _ring_sum if self.use_ring else _wire_sum
         for n, c in contrib.items():
             r = ref[n]
             # integer leaves stay on the exact wire: a bf16 cast would
             # drift a counter above 256 even when every worker agrees
             if self.wire_dtype is not None and r.is_floating_point():
-                s = _wire_sum(c, self.wire_dtype)
+                s = wire_sum(c, self.wire_dtype)
             else:
                 s = _lane_sum(c)
             # a select, never a multiply: when every contributor dropped
@@ -300,8 +319,10 @@ class _BucketedBase(MergeStrategy):
     and split and cast back per leaf. Every step is elementwise, so the
     f32 variant equals the monolithic merge bit for bit."""
 
-    def __init__(self, bucket_mb: float, **_):
+    def __init__(self, bucket_mb: float, use_ring: bool = False, **_):
         self.bucket_mb = float(bucket_mb)
+        self.use_ring = bool(use_ring)
+        self._wire_sum = _ring_sum if self.use_ring else _wire_sum
 
     def _plan(self, variables: State) -> Tuple[List[str], BucketPlan]:
         names = flax_leaf_order(variables)
@@ -377,13 +398,13 @@ class BucketedMerge(_BucketedBase):
     float buckets as the monolithic path does per leaf."""
 
     def __init__(self, wire_dtype: Optional[torch.dtype] = None,
-                 bucket_mb: float = 0.0, **_):
-        super().__init__(bucket_mb)
+                 bucket_mb: float = 0.0, use_ring: bool = False, **_):
+        super().__init__(bucket_mb, use_ring)
         self.wire_dtype = wire_dtype
 
     def _reduce_bucket(self, flat_c, bucket, lane_alive, residual):
         if self.wire_dtype is not None and bucket.compressible:
-            return _wire_sum(flat_c, self.wire_dtype), None
+            return self._wire_sum(flat_c, self.wire_dtype), None
         return _lane_sum(flat_c), None
 
     def _bucket_wire_bytes(self, bucket):
@@ -415,7 +436,7 @@ class EFBf16Merge(_BucketedBase):
         alive, p = _payload(flat_c, lane_alive, residual)
         decoded = p.to(torch.bfloat16).float()
         new_r = torch.where(alive, p - decoded, 0.0)
-        return _wire_sum(decoded, torch.bfloat16), new_r.reshape(-1)
+        return self._wire_sum(decoded, torch.bfloat16), new_r.reshape(-1)
 
     def _bucket_wire_bytes(self, bucket):
         return bucket.length * (2 if bucket.compressible else 4)

@@ -128,8 +128,8 @@ Not ported, of the reference's knobs: ``donate`` (the state is always
 updated in place, as a donated one), ``merge_fused`` (its Pallas apply
 and lax chain agree bit for bit; here the tensors' device picks the
 kernel or its plain version) and the ring reduction ``use_ring`` (the
-reference takes it only on a mesh with inner axes, which come with
-ROADMAP A.6 and A.12).
+reference takes it only on a mesh with inner axes, which a SyncDP job
+refuses, as the reference's does: ROADMAP A.21).
 """
 
 from __future__ import annotations

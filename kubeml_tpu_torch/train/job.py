@@ -140,14 +140,15 @@ the round-cursor options, reassignment and quarantine events are the JAX
 package's 400s (they need kavg), as are fsdp with an explicit merge or
 without syncdp, and merge_dtype under syncdp.
 
-Sequence parallelism (``n_seq`` > 1 with ``seq_impl`` ring or ulysses)
-runs over ranks laid out as the rank grid (``distributed.make_grid``: data
-outermost, seq inside): the job checks it with the JAX package's 400s in
-its order (``_inner_axes``, ``_check_seq_lengths``), the model builds
-seq-parallel modules, the K-avg engine runs its seq round over the data
-group's lanes, and every round is host-staged (the device cache stays
-off, as in the JAX package). Without a group the world is one device, so
-``n_seq`` > 1 is the JAX package's 400; it never runs dense.
+Sequence and expert parallelism (``n_seq`` > 1 with ``seq_impl`` ring or
+ulysses; ``n_expert`` > 1, alone or with ``n_seq``) run over ranks laid
+out as the rank grid (``distributed.make_grid``: data outermost, expert
+innermost): the job checks them with the JAX package's 400s in its order
+(``_inner_axes``, ``_check_seq_lengths``), the model builds seq-parallel
+and expert-parallel modules, the K-avg engine runs its inner round over
+the data group's lanes, and every round is host-staged (the device cache
+stays off, as in the JAX package). Without a group the world is one
+device, so an inner axis is the JAX package's 400; it never runs dense.
 
 Options whose module is not ported yet raise KubeMLException(400) naming
 the option and the ROADMAP item that brings it (``reject_unported``);
@@ -223,16 +224,17 @@ class JobCallbacks:
 
 
 # what brings each refused option, by ROADMAP item
-MODEL_PARALLEL = "tensor, pipeline and expert parallelism over NCCL " \
-    "ranks, ROADMAP A.6 and A.12"
+MODEL_PARALLEL = "tensor and pipeline parallelism over NCCL ranks, " \
+    "ROADMAP A.12"
 
 
 def reject_unported(opts) -> None:
     """400 for every option whose module the port has not ported yet (the
     job runs it after check_continual_options; ``kubeml train`` runs it
-    before submitting). Sequence parallelism (``n_seq``) is ported: the
-    job checks it with the JAX package's 400s (``TrainJob._inner_axes``)."""
-    for name in ("n_model", "n_stage", "n_expert"):
+    before submitting). Sequence and expert parallelism (``n_seq``,
+    ``n_expert``) are ported: the job checks them with the JAX package's
+    400s (``TrainJob._inner_axes``)."""
+    for name in ("n_model", "n_stage"):
         if int(getattr(opts, name)) > 1:
             raise NotPortedError(f"{name} > 1", MODEL_PARALLEL)
 
@@ -467,9 +469,10 @@ class TrainJob:
         self.dataset = dataset
         self.n_lanes = int(n_lanes)
         self._world = dist_lib.world_size()
-        if int(self.req.options.n_seq) <= 1:
+        if int(self.req.options.n_seq) <= 1 \
+                and int(self.req.options.n_expert) <= 1:
             # the lanes over the group's ranks (raises unless they
-            # divide); under sequence parallelism over the data group's,
+            # divide); under an inner axis over the data group's,
             # checked after the inner axes' 400s (_inner_axes)
             dist_lib.lane_layout(self.n_lanes)
         self._n_seq = 1
@@ -889,7 +892,8 @@ class TrainJob:
                 # the plan first, so the user's hook sees the faulted round
                 user_hook = self.round_hook
                 self.round_hook = lambda rb: user_hook(plan(rb))
-        self._n_seq = n_seq = self._inner_axes(opts)
+        n_seq, n_expert = self._inner_axes(opts)
+        self._n_seq = n_seq
         merge_dtype, sync_strategy = check_merge_options(opts)
         self._init_device_cache(handle, opts)
 
@@ -966,7 +970,8 @@ class TrainJob:
             merge_bucket_mb=float(opts.merge_bucket_mb),
             merge_compress=opts.merge_compress or "none",
             collect_stats=bool(opts.train_stats), n_seq=n_seq,
-            batch_seq_dims=self.model.seq_batch_dims if n_seq > 1 else None)
+            batch_seq_dims=self.model.seq_batch_dims if n_seq > 1 else None,
+            n_expert=n_expert)
         self._sync_engine: Optional[SyncDPEngine] = None
         self._sync_state: Optional[dict] = None
         if opts.engine == "syncdp":
@@ -977,38 +982,54 @@ class TrainJob:
                 merge_strategy=sync_strategy,
                 merge_bucket_mb=float(opts.merge_bucket_mb))
 
-    def _inner_axes(self, opts) -> int:
-        """The JAX package's inner-axes checks for ``n_seq`` (the other
-        inner axes are refused by reject_unported), with its 400s in its
-        order: an engine other than kavg; a world that does not split
-        into seq groups (without a group the world is one device); the
-        model's own enable_seq_parallel refusal; no seq_batch_dims. Then
-        the data group's lane layout. Returns n_seq; the model builds
-        seq-parallel modules from here on."""
+    def _inner_axes(self, opts) -> tuple:
+        """The JAX package's inner-axes checks for ``n_seq`` and
+        ``n_expert`` (the other inner axes are refused by
+        reject_unported), with its 400s in its order: an engine other
+        than kavg; a world that does not split into inner groups (without
+        a group the world is one device); the model's own
+        enable_seq_parallel refusal; no seq_batch_dims; the model's own
+        enable_expert_parallel refusal (no experts to shard); experts
+        that do not divide over the expert axis. Then the data group's
+        lane layout. Returns (n_seq, n_expert); the model builds
+        seq-parallel and expert-parallel modules from here on."""
         n_seq = max(1, int(opts.n_seq))
-        if n_seq == 1:
-            return 1
+        n_expert = max(1, int(opts.n_expert))
+        if n_seq == n_expert == 1:
+            return 1, 1
         if opts.engine != "kavg":
             raise KubeMLException(
                 "tensor/sequence/pipeline/expert parallelism "
                 "requires the kavg engine", 400)
-        world = dist_lib.world_size()
-        if world % n_seq:
+        world, inner = dist_lib.world_size(), n_seq * n_expert
+        if world % inner:
             raise KubeMLException(
                 f"{world} devices not divisible by the requested model x "
-                f"seq x stage x expert factor {n_seq}", 400)
-        try:
-            self.model.enable_seq_parallel(opts.seq_impl)
-        except ValueError as e:
-            raise KubeMLException(str(e), 400)
-        if self.model.seq_batch_dims is None:
-            raise KubeMLException(
-                f"function {self.req.model_type!r} enabled sequence "
-                "parallelism but declares no seq_batch_dims", 400)
-        dist_lib.lane_layout(self.n_lanes, world // n_seq, 0)
-        self._log("job %s grid: data=%d seq=%d impl=%s", self.task.job_id,
-                  world // n_seq, n_seq, opts.seq_impl)
-        return n_seq
+                f"seq x stage x expert factor {inner}", 400)
+        if n_seq > 1:
+            try:
+                self.model.enable_seq_parallel(opts.seq_impl)
+            except ValueError as e:
+                raise KubeMLException(str(e), 400)
+            if self.model.seq_batch_dims is None:
+                raise KubeMLException(
+                    f"function {self.req.model_type!r} enabled sequence "
+                    "parallelism but declares no seq_batch_dims", 400)
+        if n_expert > 1:
+            try:
+                self.model.enable_expert_parallel()
+            except ValueError as e:
+                raise KubeMLException(str(e), 400)
+            n_experts = self.model.build(device="meta").n_experts
+            if n_experts % n_expert:
+                raise KubeMLException(
+                    f"{n_experts} experts do not divide over a "
+                    f"{n_expert}-way expert axis", 400)
+        dist_lib.lane_layout(self.n_lanes, world // inner, 0)
+        self._log("job %s grid: data=%d seq=%d expert=%d impl=%s",
+                  self.task.job_id, world // inner, n_seq, n_expert,
+                  opts.seq_impl if n_seq > 1 else "-")
+        return n_seq, n_expert
 
     def _check_seq_lengths(self, handle, sample, n_seq: int) -> None:
         """Both splits' sequence lengths divide by n_seq (the JAX

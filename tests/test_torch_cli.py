@@ -396,17 +396,17 @@ TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
 # names no ROADMAP entry is the JAX package's own refusal of a flag
 # combination
 SERVED = "serve"
-# --seq-parallel (ROADMAP A.6's sequence half, landed) reaches the job,
-# which answers the reference's 400 in one process without a group
+# --seq-parallel and --expert-parallel (ROADMAP A.6, landed) reach the
+# job, which answers the reference's 400 in one process without a group
 SEQ_400 = ("1 devices not divisible by the requested model x seq x stage "
            "x expert factor 2")
 REFUSED = [
     (TRAIN + ["--engine", "syncdp"], None),
     (TRAIN + ["--engine", "syncdp", "--fsdp"], None),
-    (TRAIN + ["--tensor-parallel", "2"], "ROADMAP A.6 and A.12"),
+    (TRAIN + ["--tensor-parallel", "2"], "ROADMAP A.12"),
     (TRAIN + ["--seq-parallel", "2"], SEQ_400),
-    (TRAIN + ["--expert-parallel", "2"], "ROADMAP A.6 and A.12"),
-    (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.6 and A.12"),
+    (TRAIN + ["--expert-parallel", "2"], SEQ_400),
+    (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.12"),
     (TRAIN + ["--continual"], None),
     (TRAIN + ["--quarantine-after", "2"], None),
     (TRAIN + ["--checkpoint-every-rounds", "3"], None),

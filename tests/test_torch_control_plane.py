@@ -9,12 +9,13 @@ checkpoint the JAX package wrote; the JAX deployment trains on a
 one-device mesh, the port's with device="cpu", so both see W = N.
 
 Tolerances: the history's parallelism (the scheduler's real throughput
-policy) is equal; train loss, validation loss and accuracy agree within
+policy, fed a scripted epoch time: ``ScriptedEpochTime``) is equal; train loss, validation loss and accuracy agree within
 1e-5 relative; /infer predictions are equal (argmax classes). Status
 codes of bad requests, wire dicts and the grants of a scripted policy are
 equal exactly.
 """
 
+import dataclasses
 import os
 import time
 import urllib.request
@@ -69,6 +70,27 @@ def _wait_history(client, job_id, ps, timeout=120):
     raise TimeoutError(f"no history for {job_id}")
 
 
+class ScriptedEpochTime:
+    """A scheduler's real ``ThroughputBasedPolicy``, handed a copy of each
+    task whose ``elapsed_time_s`` is the fixed ``EPOCH_S``. The policy
+    compares an epoch's wall time with the last one at 1.05x and 1.20x,
+    so on a loaded host a real epoch 5 % slower than its predecessor
+    stops the width from growing; with equal times every decision is
+    +1, in both packages alike."""
+
+    EPOCH_S = 1.0
+
+    def __init__(self, policy):
+        self.policy = policy
+
+    def calculate_parallelism(self, task):
+        return self.policy.calculate_parallelism(
+            dataclasses.replace(task, elapsed_time_s=self.EPOCH_S))
+
+    def task_finished(self, job_id):
+        self.policy.task_finished(job_id)
+
+
 def _seed_checkpoint():
     """A JAX-initialised mlp (the PS builds the default: hidden 32, 10
     classes) saved by the JAX package."""
@@ -102,6 +124,8 @@ def plane(tmp_path_factory):
         arrays = _blob_arrays()
         deps = {"ref": ref_start(mesh=make_mesh(n_data=1)),
                 "port": start_deployment(device="cpu")}
+        for dep in deps.values():
+            dep.scheduler.policy = ScriptedEpochTime(dep.scheduler.policy)
         clients = {"ref": RefClient(deps["ref"].controller_url).v1(),
                    "port": KubemlClient(deps["port"].controller_url).v1()}
         try:

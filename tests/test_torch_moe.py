@@ -657,7 +657,9 @@ def test_cli_trains_gpt_moe_mini_at_its_published_widths(
     """`kubeml train -f gpt-moe-mini` parses as the reference's parser
     does, is submitted through the port's CLI to a CPU deployment and
     trains its published widths (vocab 8192, 8 experts) over short
-    windows; `--expert-parallel 2` is refused naming ROADMAP A.6."""
+    windows; `--expert-parallel 2` reaches the job, which in a
+    deployment of one process answers the reference's 400 (the ranks
+    run it: tests/test_torch_expert_parallel.py)."""
     import time
 
     from kubeml_tpu.cli.main import build_parser as ref_parser
@@ -689,9 +691,14 @@ def test_cli_trains_gpt_moe_mini_at_its_published_widths(
             "--trainlabels", paths["ytr"], "--testdata", paths["xte"],
             "--testlabels", paths["yte"])
         capsys.readouterr()
-        with pytest.raises(SystemExit):
-            cli(*argv, "--expert-parallel", "2")
-        assert "ROADMAP A.6" in capsys.readouterr().err
+        cli(*argv, "--expert-parallel", "2")
+        refused = capsys.readouterr().out.strip()
+        deadline = time.monotonic() + 60
+        while refused not in dep.ps.errors:
+            assert time.monotonic() < deadline, "the job did not fail"
+            time.sleep(0.1)
+        assert ("1 devices not divisible by the requested model x seq x "
+                "stage x expert factor 2") in dep.ps.errors.pop(refused)
         cli(*argv)
         job_id = capsys.readouterr().out.strip()
         deadline = time.monotonic() + 240
@@ -747,23 +754,49 @@ def test_serving_refuses_moe_with_the_references_messages():
 
 
 def test_parallel_paths_refuse_naming_their_item():
-    """ep_mesh, sequence, pipeline and expert parallelism raise
-    NotPortedError naming ROADMAP A.6 / A.12; tensor parallelism raises
-    the reference's ValueError."""
+    """ep_mesh (a JAX Mesh: ROADMAP C.13) and the pipeline (A.12) are
+    refused; sequence and expert parallelism build their modules, with
+    the reference's refusals (no experts, ep_impl) in its words; the
+    one-process forward_seq_parallel is the dense forward; tensor
+    parallelism raises the reference's ValueError."""
+    from kubeml_tpu.models import get_builtin
     from kubeml_tpu.models.gpt import GPTMoEMini as JaxMoE
     from kubeml_tpu_torch.api.errors import NotPortedError
-    from kubeml_tpu_torch.models.gpt import GPTMoEMini
+    from kubeml_tpu_torch.models.gpt import GPTMini, GPTMoEMini
 
-    with pytest.raises(NotPortedError, match="ROADMAP A.6"):
+    with pytest.raises(ValueError, match="ROADMAP C.13") as e:
         GPTMoEMini(ep_mesh=object())
+    assert "--expert-parallel" in str(e.value)
     model = GPTMoEMini()
-    for call, item in ((lambda: model.enable_seq_parallel(), "A.6"),
-                       (lambda: model.forward_seq_parallel(None, None, None),
-                        "A.6"),
-                       (lambda: model.enable_expert_parallel(), "A.6"),
-                       (lambda: model.enable_pipeline_parallel(2), "A.12")):
-        with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-            call()
+    with pytest.raises(NotPortedError, match="ROADMAP A.12"):
+        model.enable_pipeline_parallel(2)
+    model.enable_seq_parallel()
+    model.enable_expert_parallel()
+    module = model.build(device="meta")
+    assert (module.seq_axis, module.ep_axis, module.n_experts) == (
+        "seq", "expert", 8)
+    messages = []
+    for port_model, ref_model in (
+            (GPTMini(), get_builtin("gpt-mini")()),
+            (GPTMoEMini(), JaxMoE())):
+        if isinstance(port_model, GPTMoEMini):
+            port_model.ep_impl = "alltoall"
+            ref_model._module = ref_model.module.clone(ep_impl="alltoall")
+        pair = []
+        for m in (port_model, ref_model):
+            with pytest.raises(ValueError) as e:
+                m.enable_expert_parallel()
+            pair.append(str(e.value))
+        assert pair[0] == pair[1]
+        messages.append(pair[0])
+    assert "no experts to shard" in messages[0]
+    assert "ep_impl='replicated'" in messages[1]
+    tiny = port_moe()
+    dense = tiny.build(device="cpu")
+    x = tokens(5, n=2)
+    torch.testing.assert_close(
+        tiny.forward_seq_parallel(dense, x),
+        dense.logits(torch.from_numpy(x)).detach(), rtol=0, atol=0)
     with pytest.raises(ValueError) as want:
         JaxMoE().enable_tensor_parallel()
     with pytest.raises(ValueError) as got:
