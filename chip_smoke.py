@@ -592,11 +592,43 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               merge; (e) ms a round a rank beside the one-process round
               and phase 21's ms per local step (not a gate). Every miss
               is raised together after (e).
+  phase 27    tensor parallelism over ranks (gloo ranks on the one card,
+              started together while this process runs what they are
+              held to): (a) #2-#4 at the local head counts M = 2 gives
+              (gpt-mini's [8, 512] causal with 2 of its 4 heads,
+              bert-tiny's [32, 64] not causal with 1 of its 2; bf16, a
+              padded tail and a fully padded sequence) each against its
+              plain version within the flash tolerance, a second launch
+              equal bit for bit, warm times beside the plain version's,
+              SDPA's and the bound; gpt-mini's first block at B=8,
+              T=512 over two model ranks (the Megatron layers of
+              ``parallel/manual.py``) against the dense block in one
+              process: the ranks bit for bit, f32 within 1e-5, bf16
+              within 2e-2; (b) two K-avg rounds (one lane, K=2, SGD
+              1e-2, dropout 0.1, the 4 MB bucketed merge; the second
+              counted and timed) of gpt-mini (B=8, T=512) and bert-tiny
+              (B=32, T=64) at (data 1 x model 2), bf16 and f32, against
+              the one-process rounds: both ranks bit for bit, the
+              weights within (2e-2, 2e-3) in bf16 and (1e-4, 1e-5) in
+              f32, the loss 2e-2 / 1e-5 relative to max(1, |loss|),
+              #2-#4 layers x steps and #5 one launch a merge on each
+              rank; (c) gpt-mini's f32 round on four ranks (model 2 x
+              seq 2: the flash ring on the local heads) against one
+              process, the ring's launches (layers x 2 a step); one NCCL
+              rank running the tensor-parallel module at M = 1 equal to
+              the same round without a group bit for bit; (d) one epoch
+              of `kubeml train -f gpt-mini --tensor-parallel 2
+              --merge-bucket-mb 4` (the GSPMD route's plan) on two ranks
+              started through tools.launch_distributed: equal
+              histories, #3/#4 = layers x steps and #5 one launch a
+              merge; (e) ms a round a model rank beside the one-process
+              round (not a gate). Every miss is raised together after
+              (e).
 
-Phases 1-9 run in this process. Phases 10-26 then run in three
+Phases 1-9 run in this process. Phases 10-27 then run in three
 processes side by side: 15, 16, 14 and 23 here, and two lanes of this
 script (``--lane DIR``), one running 10, 17, 11, 12, 13, 18 and 25 and
-the other 22, 24, 19, 20, 21 and 26; the lanes start after phase 1 (imports,
+the other 22, 24, 19, 20, 21, 26 and 27; the lanes start after phase 1 (imports,
 CUDA, their gpt-mini, torch._dynamo, which torch.optim's first call
 imports) and wait for the end of phase 9. Each process holds
 its own launch counts, so every phase still zeroes and reads its own; a
@@ -659,7 +691,11 @@ entry carries "seq_launches", phase 25's (0 for the paged kernel; each
 rows at the ring's block shapes; every entry carries "ep_launches",
 phase 26's (0 for the paged kernel; each (b) and (c) round per rank, the
 one-process rounds per dtype, (d)'s job per rank; the merge also
-"ep_segments"); the
+"ep_segments"); every entry carries "tp_launches", phase 27's (0 for the
+paged kernel; each (b) and (c) round per rank, the NCCL rank's round,
+the one-process rounds per model and dtype, (d)'s job per rank; the
+merge also "tp_segments"), and the flash entries "tp_shapes", phase 27
+(a)'s rows at the local head counts; the
 merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
@@ -748,6 +784,11 @@ builds the flash and merge kernels and runs phase 25 alone, printing its
 
 builds the flash and merge kernels and runs phase 26 alone, printing its
 launches as one JSON line.
+
+    python3 chip_smoke.py --tp-only
+
+builds the flash and merge kernels and runs phase 27 alone, printing its
+(a) rows and launches as one JSON line.
 """
 
 from __future__ import annotations
@@ -9130,7 +9171,8 @@ EP_LR = 1e-2              # SGD, as the reference's EP-vs-SP round
 EP_ROUNDS = 2             # round 1 warms up; round 2 is counted and timed
 EP_DTYPES = ("bf16", "f32")
 EP_FFN_TOL = 1e-4         # (a): f32, rtol and atol
-EP_JOB_TRAIN, EP_JOB_TEST = 128, 32     # (d): 2 workers x 8 steps
+# (d) of phases 26 and 27: one epoch of 2 workers x 8 steps
+RANK_JOB_TRAIN, RANK_JOB_TEST = 128, 32
 EP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke; "
             "sys.exit(chip_smoke.ep_child(*sys.argv[2:]))")
@@ -9264,13 +9306,14 @@ def ep_round(torch, seed, dtype, n_seq, n_expert, lanes) -> dict:
             "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
 
 
-def ep_job_child(outdir, seed) -> int:
-    """(d): a rank of ``kubeml train -f gpt-moe-mini --expert-parallel 2``
-    started by tools.launch_distributed: the TrainRequest the CLI builds
-    from EP_JOB_ARGV (``cli.main.train_request``) run as this rank's
-    TrainJob (one lane over the two expert ranks, one epoch over
-    EP_JOB_TRAIN + EP_JOB_TEST windows, a home of its own). Writes its
-    history and its launches over the epoch."""
+def rank_job_child(outdir, seed, argv, job_id, seed_offset) -> int:
+    """(d) of phases 26 and 27: a rank of the ``kubeml train`` command
+    ``argv`` started by tools.launch_distributed: the TrainRequest the CLI
+    builds from it (``cli.main.train_request``) run as this rank's
+    TrainJob of the named model (one lane over the ranks, one epoch over
+    RANK_JOB_TRAIN + RANK_JOB_TEST windows drawn from seed +
+    ``seed_offset``, a home of its own). Writes its history and its
+    launches over the epoch."""
     import faulthandler
     import os
 
@@ -9284,23 +9327,21 @@ def ep_job_child(outdir, seed) -> int:
     from kubeml_tpu_torch.train.job import JobCallbacks, TrainJob
 
     faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    seed = int(seed)
+    settings(torch)
     dl.initialize(backend="gloo", timeout=DIST_TIMEOUT)
     rank = dl.rank()
-    os.environ["KUBEML_TPU_HOME"] = os.path.join(outdir, f"ep_job_p{rank}")
-    rng = np.random.default_rng(seed + 36)
+    os.environ["KUBEML_TPU_HOME"] = os.path.join(outdir, f"job_home_p{rank}")
+    rng = np.random.default_rng(int(seed) + seed_offset)
     DatasetRegistry().create(
-        "tokens", token_windows(rng, EP_JOB_TRAIN, TRAIN_T),
-        np.zeros(EP_JOB_TRAIN, np.int32),
-        token_windows(rng, EP_JOB_TEST, TRAIN_T),
-        np.zeros(EP_JOB_TEST, np.int32))
-    req = train_request(build_parser().parse_args(list(EP_JOB_ARGV)))
-    task = TrainTask(job_id="smoke-ep-job", parameters=req,
+        "tokens", token_windows(rng, RANK_JOB_TRAIN, TRAIN_T),
+        np.zeros(RANK_JOB_TRAIN, np.int32),
+        token_windows(rng, RANK_JOB_TEST, TRAIN_T),
+        np.zeros(RANK_JOB_TEST, np.int32))
+    req = train_request(build_parser().parse_args(list(argv)))
+    task = TrainTask(job_id=job_id, parameters=req,
                      parallelism=req.options.default_parallelism)
     published = []
-    job = TrainJob(task, get_model("gpt-moe-mini")(), token_dataset(),
+    job = TrainJob(task, get_model(req.model_type)(), token_dataset(),
                    device="cuda", n_lanes=1, callbacks=JobCallbacks(
                        publish_metrics=lambda m: published.append(
                            seq_counts())))
@@ -9308,6 +9349,7 @@ def ep_job_child(outdir, seed) -> int:
     seq_zero()                                # the main path's run starts
     hist = job.train().data
     counts, calls = published[0]              # ... and ends at the publish
+    grid = job._engine.grid
     with open(os.path.join(outdir, f"job_p{rank}.json"), "w") as f:
         json.dump({"history": {"train_loss": list(hist.train_loss),
                                "validation_loss": list(hist.validation_loss),
@@ -9315,8 +9357,9 @@ def ep_job_child(outdir, seed) -> int:
                                "parallelism": list(hist.parallelism)},
                    "counts": counts, "calls": calls,
                    "world": dl.world_size(),
-                   "grid": [job._engine.grid.n_data, job._engine.grid.n_seq,
-                            job._engine.grid.n_expert],
+                   "grid": [grid.n_data, grid.n_model, grid.n_seq,
+                            grid.n_expert],
+                   "plan": job.model.tp_plan,
                    "seconds": float(hist.epoch_duration[0]),
                    "layers": job._engine.module.layers,
                    "buckets": job._engine.merge_comm_proxy(job.state)[
@@ -9340,7 +9383,7 @@ def ep_child(mode, outdir, seed) -> int:
     from kubeml_tpu_torch.parallel import distributed as dl
 
     if mode == "job":
-        return ep_job_child(outdir, seed)
+        return rank_job_child(outdir, seed, EP_JOB_ARGV, "smoke-ep-job", 36)
     faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -9369,25 +9412,27 @@ def ep_child(mode, outdir, seed) -> int:
     return 0
 
 
-def ep_launch_job(outdir, seed) -> tuple:
-    """(d)'s two ranks, each through ``python -m tools.launch_distributed
-    --processes 2 --process-id R --coordinator ...`` (the launcher's
-    multi-host mode: one rank an invocation), started without waiting;
-    dist_collect waits for them and reads their rows."""
+def job_launch(outdir, seed, child, n=2) -> tuple:
+    """(d)'s ``n`` ranks of phases 26 and 27 (``child``'s 'job' mode),
+    each through ``python -m tools.launch_distributed --processes n
+    --process-id R --coordinator ...`` (the launcher's multi-host mode:
+    one rank an invocation, which imports nothing of the JAX package),
+    started without waiting; dist_collect waits for them and reads their
+    rows."""
     import os
 
     port = store_port()
     here = os.path.dirname(os.path.abspath(__file__))
     procs = []
-    for r in range(EP_N):
+    for r in range(n):
         logf = open(os.path.join(outdir, f"job_p{r}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-m", "tools.launch_distributed", "--processes",
-             str(EP_N), "--process-id", str(r), "--coordinator",
-             f"localhost:{port}", "--", sys.executable, "-c", EP_CHILD, here,
+             str(n), "--process-id", str(r), "--coordinator",
+             f"localhost:{port}", "--", sys.executable, "-c", child, here,
              "job", outdir, str(seed)], cwd=here, stdout=logf,
             stderr=subprocess.STDOUT), logf))
-    return ("job", EP_N, outdir, DIST_CHILD_S,
+    return ("job", n, outdir, DIST_CHILD_S,
             time.monotonic() + DIST_CHILD_S, procs)
 
 
@@ -9405,7 +9450,7 @@ def phase_ep(torch, card, seed, mv=None) -> dict:
     with tempfile.TemporaryDirectory(prefix="kubeml_ep_") as tmp:
         spawned = [dist_spawn("ep", EP_N, tmp, seed, child=EP_CHILD),
                    dist_spawn("ep4", 2 * EP_N, tmp, seed, child=EP_CHILD),
-                   ep_launch_job(tmp, seed)]
+                   job_launch(tmp, seed, EP_CHILD, EP_N)]
         ffn = ep_ffn(torch, seed, False)
         one = {dtype: ep_round(torch, seed, dtype, 1, 1, EP_W)
                for dtype in EP_DTYPES}
@@ -9486,19 +9531,19 @@ def phase_ep(torch, card, seed, mv=None) -> dict:
         out["rounds"]["f32 sp"] = [r["f32 sp"]["counts"] for r in quad]
         # (d)
         h = jobs[0]["history"]
-        steps = sum(dist_worker_steps(EP_JOB_TRAIN, 2))
+        steps = sum(dist_worker_steps(RANK_JOB_TRAIN, 2))
         from kubeml_tpu_torch.data.sharding import plan_epoch
 
-        merges = len(plan_epoch(EP_JOB_TRAIN, 2, JOB_K, JOB_B).rounds)
+        merges = len(plan_epoch(RANK_JOB_TRAIN, 2, JOB_K, JOB_B).rounds)
         for r, j in enumerate(jobs):
             want = {"dK/dV": j["layers"] * steps, "dQ": j["layers"] * steps,
                     **merge_counts(j["buckets"], merges)}
-            if j["grid"] != [1, 1, EP_N] or j["world"] != EP_N or any(
+            if j["grid"] != [1, 1, 1, EP_N] or j["world"] != EP_N or any(
                     j["counts"][k] != v for k, v in want.items()):
                 misses.append(("job", r, j["grid"], j["counts"], want))
         log(card, f"ep (d) `kubeml {' '.join(EP_JOB_ARGV)}` through "
-            f"tools.launch_distributed, {EP_N} gloo ranks (grid data x seq x "
-            f"expert {jobs[0]['grid']}): histories equal "
+            f"tools.launch_distributed, {EP_N} gloo ranks (grid data x model x "
+            f"seq x expert {jobs[0]['grid']}): histories equal "
             f"{jobs[0]['history'] == jobs[1]['history']}, train loss "
             f"{h['train_loss']}, validation {h['validation_loss']}; launches "
             f"over the epoch a rank {[j['counts'] for j in jobs]} (#3/#4 "
@@ -9535,6 +9580,425 @@ def ep_launches(ep, kernel) -> dict:
             "one_process": {k: v[kernel]
                             for k, v in ep["one_process"].items()},
             "job": [c[kernel] for c in ep["job"]]}
+
+
+# ----------------------------------------------------------------- phase 27
+TP_N = 2                  # model ranks: two gloo ranks on the one card
+TP_W, TP_K, TP_LR = 1, 2, 1e-2          # (b): one lane, SGD as phase 26's
+TP_SHAPES = {"gpt-mini": (8, 512), "bert-tiny": (32, 64)}   # (B, T) a step
+TP_ROUNDS = 2             # round 1 warms up; round 2 is counted and timed
+TP_DTYPES = ("bf16", "f32")
+TP_BLOCK_TOL = {"f32": 1e-5, "bf16": 2e-2}   # (a): rtol and atol
+# (b)/(c): the merged weights against one process, (rtol, atol): the
+# reference's TP-against-dense bound in bf16 (tests/test_manual_tp.py),
+# f32's as phase 25's; the round's loss sum within (relative to max(1,
+# |loss|), the reference's form)
+TP_W_TOL = SEQ_W_TOL
+TP_LOSS_TOL = {"bf16": 2e-2, "f32": 1e-5}
+# (a)'s kernel shapes: the local heads of gpt-mini's 4 and bert-tiny's 2
+# heads over two model ranks: (case, B, T, H, causal)
+TP_KERNEL_CASES = (("gpt-mini local heads", 8, 512, 2, True),
+                   ("bert-tiny local head", 32, 64, 1, False))
+TP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke.tp_child(*sys.argv[2:]))")
+# (d)'s job: what `kubeml train` submits for these flags, on each rank
+TP_JOB_ARGV = ("train", "-f", "gpt-mini", "-d", "tokens", "-e", "1",
+               "-b", str(JOB_B), "-K", str(JOB_K), "-p", "2", "--static",
+               "--lr", str(JOB_LR), "--merge-bucket-mb", str(MERGE_CAP_MB),
+               "--tensor-parallel", str(TP_N))
+
+
+def tp_weights(torch, name, seed):
+    """A model's f32 state from the seed (numpy, through convert.py; the
+    biases nonzero, so the row layers' one bias add shows): gpt-mini's
+    random_flax_params, bert-tiny's with a classifier."""
+    from kubeml_tpu_torch.convert import (bert_params_from_flax,
+                                          params_from_flax,
+                                          random_flax_params)
+    from kubeml_tpu_torch.models.gpt import GPT_CONFIGS
+
+    if name == "gpt-mini":
+        return params_from_flax(random_flax_params(
+            **GPT_CONFIGS["gpt-mini"], seed=seed))
+    tree = random_flax_params(vocab_size=30522, max_len=128, hidden=128,
+                              layers=2, heads=2, ffn=512, seed=seed)
+    rng = np.random.default_rng(seed + 38)
+    tree["classifier"] = {
+        "kernel": (rng.standard_normal((128, 2)) / np.sqrt(128)).astype(
+            np.float32),
+        "bias": (0.1 * rng.standard_normal(2)).astype(np.float32)}
+    return bert_params_from_flax(tree)
+
+
+def tp_model(torch, seed, name, dtype, tp=False, n_seq=1):
+    """(model, module on the card with tp_weights) at the model's widths
+    (dropout 0.1), built tensor-parallel (the manual route: every pair
+    split over the current grid's model axis) with ``tp``, and with the
+    seq axis's ring for n_seq > 1."""
+    from kubeml_tpu_torch.models import get_model
+
+    model = get_model(name)(
+        dtype=torch.float32 if dtype == "f32" else torch.bfloat16)
+    if tp:
+        model.enable_tensor_parallel()
+    if n_seq > 1:
+        model.enable_seq_parallel("ring")
+    module = model.build(device="cuda")
+    module.load_state_dict(tp_weights(torch, name, seed))
+    return model, module
+
+
+def tp_round_inputs(rng, name):
+    """One round's inputs at the model's (B, T): phase 7's token runs for
+    gpt-mini, phase 20's band-structured sequences and labels for
+    bert-tiny; every example and step real."""
+    B, T = TP_SHAPES[name]
+    if name == "gpt-mini":
+        return lm_round(rng, TP_W, TP_K, B, T)
+    x, y = text_arrays(rng, TP_W * TP_K * B, T, 30522, 2, B)
+    return ({"x": x.reshape(TP_W, TP_K, B, T), "y": y.reshape(TP_W, TP_K, B)},
+            np.ones((TP_W, TP_K, B), np.float32),
+            np.ones((TP_W, TP_K), np.float32), np.ones(TP_W, np.float32),
+            rng.integers(0, 2 ** 32, (TP_W, TP_K, 2), dtype=np.uint32))
+
+
+def tp_round(torch, seed, name, dtype, n_model=1, n_seq=1,
+             tp_alone=False) -> dict:
+    """TP_ROUNDS K-avg rounds of the model (one lane, K=2, SGD 1e-2, the 4
+    MB bucketed merge) over this process's (model x seq) rank grid, or in
+    one process without a group (1 x 1; ``tp_alone``: the module built
+    tensor-parallel anyway, its model axis of size 1). The counters are
+    zeroed just before the last round and read just after it."""
+    import functools
+
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    model, module = tp_model(torch, seed, name, dtype,
+                             n_model > 1 or tp_alone, n_seq)
+    engine = KAvgEngine(
+        module, model.loss, model.metrics,
+        lambda lr, e: functools.partial(torch.optim.SGD, lr=lr),
+        n_lanes=TP_W, merge_bucket_mb=MERGE_CAP_MB, n_seq=n_seq,
+        batch_seq_dims=model.seq_batch_dims if n_seq > 1 else None,
+        n_model=n_model, manual_inner=n_model > 1 or tp_alone)
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    rng = np.random.default_rng(seed + 37)
+    for _ in range(TP_ROUNDS):
+        args = tp_round_inputs(rng, name)
+        torch.cuda.synchronize()
+        seq_zero()                            # the main path's run starts
+        t0 = time.perf_counter()
+        state, st = engine.train_round(state, *args, TP_LR, 0)
+        loss = st.loss_sum
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, calls = seq_counts()          # ... and ends here
+    return {"state": {k: v.detach().cpu() for k, v in state.items()},
+            "counts": counts, "calls": calls, "ms": 1e3 * wall,
+            "loss": [float(v) for v in loss], "layers": module.layers,
+            "steps": int(args[2].sum()), "seq": engine.grid.n_seq,
+            "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
+
+
+def tp_block(torch, seed, dtype, ranks: bool) -> dict:
+    """(a): gpt-mini's first block at B=8, T=512 (a [8, 512, 256] input
+    from the seed, phase 7's keep-mask), through ``models/gpt._block``:
+    over this process's model ranks (the Megatron layers, attention on 2
+    of the 4 heads) or dense in one process. Its output and warm ms a
+    call."""
+    from kubeml_tpu_torch.models.gpt import _block, _param_tree
+    from kubeml_tpu_torch.ops.attention import masked_attention
+
+    _, module = tp_model(torch, seed, "gpt-mini", dtype, ranks)
+    B, T = TP_SHAPES["gpt-mini"]
+    rng = np.random.default_rng(seed + 39)
+    x = lm_round(rng, 1, 1, B, T)[0]["x"][0, 0]
+    pad = torch.from_numpy((x != 0).astype(np.float32)).cuda()
+    h = torch.from_numpy(rng.standard_normal((B, T, module.hidden)).astype(
+        np.float32)).cuda().to(module.dtype)
+    named = dict(module.named_parameters())
+    with torch.no_grad():
+        lp = _param_tree(module, lambda n, dt: named[n].to(dt),
+                         tp=ranks)["layers"][0]
+
+        def call():
+            return _block(lp, h, lambda q, k, v: masked_attention(
+                q, k, v, pad, causal=True))
+
+        y = call()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return {"y": y.float().cpu(), "ms": statistics.median(times)}
+
+
+def tp_kernels(torch, card, seed) -> dict:
+    """(a): #2-#4 at the local head counts of TP_KERNEL_CASES (bf16, D=64,
+    a padded tail at spread lengths and a fully padded sequence), each
+    against its plain version within the flash tolerance, a second launch
+    equal to the first bit for bit; warm times beside the plain
+    version's, SDPA's and the bound. Rows by (case, kernel)."""
+    from kubeml_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 40)
+    tol = FLASH_TOL["bf16"]
+    rows = {}
+    for case, B, T, H, causal in TP_KERNEL_CASES:
+        q, k, v, g, pad = flash_operands(torch, rng, "bf16", T, dev, B=B,
+                                         H=H)
+        fwd = (q, k, v, pad, causal)
+        out, m, l = fa.fa_fwd_kernel(*fwd)
+        bwd = (q, k, v, pad, g, m, l, fa._delta(g, out), causal)
+        got = {"forward": (out, m, l), "dK/dV": fa.fa_bwd_dkv_kernel(*bwd),
+               "dQ": (fa.fa_bwd_dq_kernel(*bwd),)}
+        again = {"forward": fa.fa_fwd_kernel(*fwd),
+                 "dK/dV": fa.fa_bwd_dkv_kernel(*bwd),
+                 "dQ": (fa.fa_bwd_dq_kernel(*bwd),)}
+        torch.cuda.synchronize()
+        plain = {"forward": (lambda: fa._fa_forward_plain(*fwd)),
+                 "dK/dV": (lambda: fa._fa_bwd_dkv_plain(*bwd)),
+                 "dQ": (lambda: (fa._fa_bwd_dq_plain(*bwd),))}
+        kern = {"forward": lambda: fa.fa_fwd_kernel(*fwd),
+                "dK/dV": lambda: fa.fa_bwd_dkv_kernel(*bwd),
+                "dQ": lambda: fa.fa_bwd_dq_kernel(*bwd)}
+        lib_f, lib_b = library_flash_ms(torch, q, k, v, g, pad, causal)
+        for kernel in ("forward", "dK/dV", "dQ"):
+            assert all(torch.equal(a, b) for a, b in
+                       zip(got[kernel], again[kernel])), (case, kernel)
+            ref = plain[kernel]()
+            for a, b in zip(got[kernel], ref):
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+            n = 1 if kernel == "forward" else len(ref)  # m, l: checked
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got[kernel][:n], ref[:n]))
+            b_ms, b_by = flash_bound(q, causal, kernel)
+            row = dict(shape=f"{case}: B={B} T={T} H={H} D={FA_D} bf16"
+                       f"{' causal' if causal else ''}", max_abs_err=err,
+                       ms=time_ms(torch, kern[kernel]),
+                       plain_ms=time_ms(torch, plain[kernel]),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_f if kernel == "forward" else lib_b)
+            rows[(case, kernel)] = row
+            log(card, f"tp (a) flash {kernel}, {row['shape']}: kernel "
+                f"{row['ms']:.4f} ms (L2 warm), plain {row['plain_ms']:.4f} "
+                f"ms, library {row['library_ms']:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}), {row['ms'] / b_ms:.1f}x bound, "
+                f"max|err| {err:.3g} (tol {tol}); two launches equal bit "
+                f"for bit")
+    return rows
+
+
+def tp_child(mode, outdir, seed) -> int:
+    """A rank of phase 27, started by dist_spawn with the KUBEML_*
+    environment: 'tp' (two gloo ranks, data 1 x model 2): (a) the block
+    per dtype, (b) the rounds per model and dtype; 'tp4' (four gloo
+    ranks): (c) the f32 round at (model 2 x seq 2); 'nccl' (one NCCL
+    rank): the tensor-parallel module's round at M = 1; 'job': (d),
+    started through tools.launch_distributed. Writes its rows under
+    ``outdir``."""
+    import faulthandler
+    import os
+
+    import torch
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    if mode == "job":
+        return rank_job_child(outdir, seed, TP_JOB_ARGV, "smoke-tp-job", 41)
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    settings(torch)
+    seed = int(seed)
+    dl.initialize(backend=None if mode == "nccl" else "gloo",
+                  timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    rows = {"world": dl.world_size()}
+    if mode == "tp":
+        dl.make_grid(1, 1, TP_N)
+        for dtype in TP_DTYPES:
+            blk = tp_block(torch, seed, dtype, True)
+            torch.save(blk.pop("y"), os.path.join(
+                outdir, f"block_{dtype}_p{rank}.pt"))
+            rows[f"block {dtype}"] = blk
+        runs = [(f"{name} {dtype}", name, dtype, TP_N, 1)
+                for name in TP_SHAPES for dtype in TP_DTYPES]
+    elif mode == "tp4":
+        runs = [("gpt-mini f32 tp-sp", "gpt-mini", "f32", TP_N, 2)]
+    else:
+        runs = [("gpt-mini bf16 nccl", "gpt-mini", "bf16", 1, 1)]
+    for key, name, dtype, n_model, n_seq in runs:
+        out = tp_round(torch, seed, name, dtype, n_model, n_seq,
+                       tp_alone=mode == "nccl")
+        torch.save(out.pop("state"), os.path.join(
+            outdir, f"{key.replace(' ', '_')}_p{rank}.pt"))
+        rows[key] = out
+    with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dl.shutdown()
+    return 0
+
+
+def tp_relative(loss, want) -> float:
+    """The reference's loss measure: |a - b| / max(1, |b|), the largest
+    over the lanes."""
+    return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(loss, want))
+
+
+def phase_tp(torch, card, seed) -> dict:
+    """Phase 27: tensor parallelism over ranks (see the module docstring).
+    The ranks of (a)+(b), (c), the NCCL rank and (d) start together; this
+    process meanwhile runs (a)'s kernel rows and the dense block, and the
+    one-process rounds they are held to. Returns the rows and launches for
+    the kernels line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kubeml_tp_") as tmp:
+        spawned = [dist_spawn("tp", TP_N, tmp, seed, child=TP_CHILD),
+                   dist_spawn("tp4", 2 * TP_N, tmp, seed, child=TP_CHILD),
+                   dist_spawn("nccl", 1, tmp, seed, child=TP_CHILD),
+                   job_launch(tmp, seed, TP_CHILD, TP_N)]
+        shapes = tp_kernels(torch, card, seed)
+        dense = {dtype: tp_block(torch, seed, dtype, False)
+                 for dtype in TP_DTYPES}
+        one = {(name, dtype): tp_round(torch, seed, name, dtype)
+               for name in TP_SHAPES for dtype in TP_DTYPES}
+        alone = tp_round(torch, seed, "gpt-mini", "bf16", tp_alone=True)
+        ranks = dist_collect(card, spawned[0])
+        quad = dist_collect(card, spawned[1])
+        nccl = dist_collect(card, spawned[2])[0]
+        jobs = dist_collect(card, spawned[3])
+        misses = []
+        # (a)
+        for dtype in TP_DTYPES:
+            ys = [torch.load(os.path.join(tmp, f"block_{dtype}_p{r}.pt"))
+                  for r in range(TP_N)]
+            tol = TP_BLOCK_TOL[dtype]
+            err = float((ys[0] - dense[dtype]["y"]).abs().max())
+            equal = torch.equal(ys[0], ys[1])
+            ok = equal and torch.allclose(ys[0], dense[dtype]["y"],
+                                          rtol=tol, atol=tol)
+            log(card, f"tp (a) gpt-mini's first block (B=8, T=512, {dtype}; "
+                f"q/k/v on 2 of 4 heads a rank, attention through #2 on the "
+                f"local heads, the out-projection and the FFN's second Dense "
+                f"summed in f32 over {TP_N} gloo model ranks) vs the dense "
+                f"block in one process: ranks equal bit for bit {equal}, "
+                f"max|diff| {err:.3g} (rtol, atol {tol}); "
+                f"{ranks[0]['block ' + dtype]['ms']:.3f} / "
+                f"{ranks[1]['block ' + dtype]['ms']:.3f} ms a call on ranks "
+                f"0 / 1 (two 4 MB f32 all-reduces over gloo included) "
+                f"against {dense[dtype]['ms']:.3f} ms dense")
+            if not ok:
+                misses.append(("block", dtype, equal, err))
+        out = {"shapes": shapes, "rounds": {}, "one_process": {}}
+        # (b), (c) and the NCCL rank
+        checks = [(f"{name} {dtype}", ranks, one[name, dtype], dtype, "b")
+                  for name in TP_SHAPES for dtype in TP_DTYPES]
+        checks += [("gpt-mini f32 tp-sp", quad, one["gpt-mini", "f32"],
+                    "f32", "c")]
+        for key, rows, want, dtype, part in checks:
+            tag = key.replace(" ", "_")
+            got = [torch.load(os.path.join(tmp, f"{tag}_p{r}.pt"))
+                   for r in range(len(rows))]
+            equal = all(dist_equal(torch, got[0], g) for g in got[1:])
+            ok, diff = seq_within(torch, got[0], want["state"], dtype)
+            rel = tp_relative(rows[0][key]["loss"], want["loss"])
+            counts = [r[key]["counts"] for r in rows]
+            plans = [seq_plan("ring" if r[key]["seq"] > 1 else None,
+                              r[key]["layers"], r[key]["steps"],
+                              r[key]["seq"], r[key]["buckets"])
+                     for r in rows]
+            log(card, f"tp ({part}) {key}, {len(rows)} gloo ranks "
+                f"({'model 2 x seq 2' if part == 'c' else 'data 1 x model 2'}"
+                f", 1 lane, K={TP_K} (B, T)={TP_SHAPES[key.split()[0]]}, SGD, "
+                f"dropout 0.1, {TP_ROUNDS} rounds): ranks equal bit for bit "
+                f"{equal}; against one process ({want['ms']:.1f} ms a round):"
+                f" max|dw| {diff:.3g} (rtol, atol {TP_W_TOL[dtype]}), loss "
+                f"rel {rel:.3g} (tol {TP_LOSS_TOL[dtype]}); launches a rank "
+                f"{counts} (plan {plans}); collectives a rank "
+                f"{rows[0][key]['calls']}; round {TP_ROUNDS} "
+                f"{[round(r[key]['ms'], 1) for r in rows]} ms on the ranks")
+            if not (equal and ok) or rel > TP_LOSS_TOL[dtype]:
+                misses.append((key, equal, diff, rel))
+            if counts != plans:
+                misses.append((key, "launches", counts, plans))
+            out["rounds"][key] = counts
+        for (name, dtype), r in one.items():
+            plan = seq_plan(None, r["layers"], r["steps"], 1, r["buckets"])
+            if r["counts"] != plan:
+                misses.append(("one process", name, dtype, r["counts"]))
+            out["one_process"][f"{name} {dtype}"] = r["counts"]
+        got = torch.load(os.path.join(tmp, "gpt-mini_bf16_nccl_p0.pt"))
+        rank0 = nccl["gpt-mini bf16 nccl"]
+        equal = dist_equal(torch, got, alone["state"]) \
+            and rank0["loss"] == alone["loss"]
+        log(card, f"tp one NCCL rank, gpt-mini built tensor-parallel at M = 1"
+            f" (bf16, 1 lane, K={TP_K}): equal to the same round without a "
+            f"group bit for bit {equal}; launches {rank0['counts']} against "
+            f"{alone['counts']}; collectives {rank0['calls']}")
+        if not equal or rank0["counts"] != alone["counts"]:
+            misses.append(("nccl", equal))
+        out["rounds"]["gpt-mini bf16 nccl"] = [rank0["counts"]]
+        # (d)
+        h = jobs[0]["history"]
+        steps = sum(dist_worker_steps(RANK_JOB_TRAIN, 2))
+        from kubeml_tpu_torch.data.sharding import plan_epoch
+
+        merges = len(plan_epoch(RANK_JOB_TRAIN, 2, JOB_K, JOB_B).rounds)
+        for r, j in enumerate(jobs):
+            want = {"dK/dV": j["layers"] * steps, "dQ": j["layers"] * steps,
+                    **merge_counts(j["buckets"], merges)}
+            if j["grid"] != [1, TP_N, 1, 1] or j["world"] != TP_N or any(
+                    j["counts"][k] != v for k, v in want.items()):
+                misses.append(("job", r, j["grid"], j["counts"], want))
+        log(card, f"tp (d) `kubeml {' '.join(TP_JOB_ARGV)}` through "
+            f"tools.launch_distributed, {TP_N} gloo ranks (grid data x model "
+            f"x seq x expert {jobs[0]['grid']}, the GSPMD route's plan "
+            f"{jobs[0]['plan']}): histories equal "
+            f"{jobs[0]['history'] == jobs[1]['history']}, train loss "
+            f"{h['train_loss']}, validation {h['validation_loss']}; launches "
+            f"over the epoch a rank {[j['counts'] for j in jobs]} (#3/#4 "
+            f"plan {jobs[0]['layers'] * steps}, #5 "
+            f"{merge_counts(jobs[0]['buckets'], merges)}); "
+            f"{jobs[0]['seconds']:.2f} s")
+        if jobs[0]["history"] != jobs[1]["history"] or not all(
+                np.isfinite(h["train_loss"] + h["validation_loss"])):
+            misses.append(("job history", jobs[0]["history"],
+                           jobs[1]["history"]))
+        out["job"] = [j["counts"] for j in jobs]
+        # (e)
+        log(card, "tp (e) ms a round (one lane, K=2) a model rank against "
+            "one process: " + "; ".join(
+                f"{name} {dtype} "
+                f"{[round(r[f'{name} {dtype}']['ms'], 1) for r in ranks]} vs "
+                f"{one[name, dtype]['ms']:.1f}"
+                for name in TP_SHAPES for dtype in TP_DTYPES)
+            + f"; (model 2 x seq 2) f32 "
+            f"{[round(r['gpt-mini f32 tp-sp']['ms'], 1) for r in quad]} "
+            f"(the ranks share the card and its host with each other and "
+            f"the other lanes)")
+    log(card, f"tp phase 27: {time.perf_counter() - t0:.1f} s")
+    if misses:
+        raise AssertionError(f"phase 27 misses: {misses}")
+    return out
+
+
+def tp_launches(tp, kernel) -> dict:
+    """A kernel's phase-27 launches for the kernels line: each round per
+    rank (and the NCCL rank's), the one-process rounds, the job per
+    rank."""
+    return {"rounds": {k: [c[kernel] for c in v]
+                       for k, v in tp["rounds"].items()},
+            "one_process": {k: v[kernel]
+                            for k, v in tp["one_process"].items()},
+            "job": [c[kernel] for c in tp["job"]]}
 
 
 def phase_merge_only(torch, card, seed) -> dict:
@@ -9667,15 +10131,15 @@ def start(torch, sources=None) -> str:
     return card
 
 
-# Phases 10-26 run in three processes of this script side by side: this
+# Phases 10-27 run in three processes of this script side by side: this
 # one and two lanes (``--lane DIR``) it starts after phase 1, which get
 # ready while phases 2-9 (the kernels' own rows and times) run here and
-# then wait for them. Most of the wall time of phases 10-26 goes to
+# then wait for them. Most of the wall time of phases 10-27 goes to
 # starting child processes (job servers, serve children, ranks: seconds
 # of imports and first CUDA calls each) and to waiting on them, which
 # the host's cores do side by side.
 HERE_PHASES = (15, 16, 14, 23)
-LANES = ((10, 17, 11, 12, 13, 18, 25), (22, 24, 19, 20, 21, 26))
+LANES = ((10, 17, 11, 12, 13, 18, 25), (22, 24, 19, 20, 21, 26, 27))
 LANE_S = 1000.0           # seconds a lane may take from its spawn
 
 
@@ -9726,6 +10190,7 @@ PHASES = {
     24: _ph24,
     25: _ph("seq", phase_seq),
     26: _ph("ep", phase_ep, "mv"),      # after 21 in its lane
+    27: _ph("tp", phase_tp),
 }
 LANE_GIVEN = ("direct", "engine_ms")     # what a lane reads of phases 1-9
 
@@ -9896,7 +10361,7 @@ def run(torch, seed) -> list:
         return out
 
     card = timed(1, start, torch)
-    # the lanes of phases 10-26 start up now and wait until phase 9 ends
+    # the lanes of phases 10-27 start up now and wait until phase 9 ends
     lanes = []
     try:
         for phases in LANES:
@@ -9933,7 +10398,7 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
     timed(9, phase_merge_check, torch, card, seed)
     timed(9, phase_merge_trace, torch, card, seed, engines)
     del engines
-    # phases 10-26: these here, the rest in the two lanes beside them
+    # phases 10-27: these here, the rest in the two lanes beside them
     ctx = {"module": module, "direct": direct, "engine_ms": engine_ms}
     for lane in lanes:
         lane_check(lane)
@@ -9953,11 +10418,11 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         ctx.update(g)
     (job_launches, vision_launches, cp_resnet, cp_gpt, cli, ps_launches,
      cluster, degraded, cost, continual, spec, text, mv, sync, dist, sd,
-     seq, ep) = (ctx[k] for k in (
+     seq, ep, tp) = (ctx[k] for k in (
          "job_launches", "vision_launches", "cp_resnet", "cp_gpt", "cli",
          "ps_launches", "cluster", "degraded", "cost", "continual", "spec",
-         "text", "mv", "sync", "dist", "sd", "seq", "ep"))
-    log(card, "wall by phase (s), 10-26 in three processes side by side: "
+         "text", "mv", "sync", "dist", "sd", "seq", "ep", "tp"))
+    log(card, "wall by phase (s), 10-27 in three processes side by side: "
         + ", ".join(f"{p}: {walls[p]:.3f}" for p in sorted(walls))
         + "; " + "; ".join(
             f"phases {', '.join(map(str, ph))}: "
@@ -10000,6 +10465,7 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         "syncdp_dist_launches": 0,   # phase 24 serves nothing
         "seq_launches": 0,           # phase 25 serves nothing
         "ep_launches": 0,            # phase 26 serves nothing
+        "tp_launches": 0,            # phase 27 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -10056,6 +10522,13 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         # seq x expert and seq rounds), the one-process rounds, the
         # two-rank job per rank
         "ep_launches": ep_launches(ep, kernel),
+        # phase 27: the model ranks' rounds per rank (per model and dtype,
+        # the model x seq round, the NCCL rank's), the one-process
+        # rounds, the two-rank job per rank; and (a)'s rows at the local
+        # head counts
+        "tp_launches": tp_launches(tp, kernel),
+        "tp_shapes": [r for (_, k), r in tp["shapes"].items()
+                      if k == kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -10110,6 +10583,10 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
                 # each rank) and the job's
                 ep_launches=ep_launches(ep, "fused_merge"),
                 ep_segments=ep_launches(ep, "merge segments"),
+                # phase 27: the model ranks' merges (one launch a merge on
+                # each rank) and the job's
+                tp_launches=tp_launches(tp, "fused_merge"),
+                tp_segments=tp_launches(tp, "merge segments"),
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -10205,6 +10682,10 @@ def main(argv=None) -> int:
                     help="build the flash and merge kernels and run phase "
                          "26 (expert parallelism over two and four gloo "
                          "ranks) alone")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "27 (tensor parallelism over two and four gloo "
+                         "ranks and one NCCL rank) alone")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
                          "every tree of the port has, the one-segment "
@@ -10374,6 +10855,16 @@ def main(argv=None) -> int:
             ep = phase_ep(torch, card, args.seed)
             print(json.dumps({"card": card, "ep": {
                 "launches": {k: ep_launches(ep, k) for k in
+                             ("forward", "dK/dV", "dQ", "fused_merge",
+                              "merge segments")}}}))
+            return 0
+        if args.tp_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            tp = phase_tp(torch, card, args.seed)
+            print(json.dumps({"card": card, "tp": {
+                "shapes": [dict(case=c, kernel=k, **r) for (c, k), r in
+                           tp["shapes"].items()],
+                "launches": {k: tp_launches(tp, k) for k in
                              ("forward", "dK/dV", "dQ", "fused_merge",
                               "merge segments")}}}))
             return 0

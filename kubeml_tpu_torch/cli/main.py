@@ -32,9 +32,10 @@ runs the job's own check (``train.job.reject_unported``) before it
 submits. ``serve --coordinator HOST:PORT --num-processes N --process-id R``
 (or the ``KUBEML_*`` environment of ``tools/launch_distributed.py``) joins
 a process group first; ``--mesh-data D`` runs every job over D lanes.
-``train --seq-parallel N [--seq-impl ring|ulysses]`` reaches the job,
-which trains over seq groups of N ranks of that group (and answers the
-JAX package's 400 where the ranks do not split into them).
+``train --seq-parallel N [--seq-impl ring|ulysses]``, ``--expert-parallel
+E`` and ``--tensor-parallel M [--tp-impl gspmd|manual]`` reach the job,
+which trains over inner groups of M x N x E ranks of that group (and
+answers the JAX package's 400 where the ranks do not split into them).
 ``serve --serve-decode-steps K --serve-draft-model ID`` turns on the
 multi-step and speculative decode programs. ``dataset append`` commits a
 generation of a continual dataset, and ``train --continual`` (``-e 0``

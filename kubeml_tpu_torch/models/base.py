@@ -122,6 +122,35 @@ class KubeModel(abc.ABC):
                              "expected 'ring' or 'ulysses'")
         self.seq_axis, self.seq_impl = SEQ_AXIS, impl
 
+    #: the GSPMD route's Megatron rule table (``parallel/tp.py``) over
+    #: the flax paths of ``params_to_flax``; None = the model publishes
+    #: no tensor-parallel sharding rules, and its modules take no
+    #: ``tp_axis``
+    tp_rules = None
+
+    #: the grid axis and per-block plan the modules build with
+    #: (``enable_tensor_parallel``); None = the dense execution
+    tp_axis: Optional[str] = None
+    tp_plan: Optional[dict] = None
+
+    def enable_tensor_parallel(self, plan: Optional[dict] = None) -> None:
+        """Build the model's modules tensor-parallel over the rank grid's
+        ``model`` axis (the job calls it for ``--tensor-parallel`` > 1;
+        it composes with ``enable_seq_parallel``'s ring). ``plan``: the
+        GSPMD route's ``parallel/tp.shard_plan`` (a pair that does not
+        divide runs whole); None is the manual route (every pair
+        splits). A model without ``tp_rules`` (its modules take no
+        ``tp_axis``) refuses with the reference's message. The modules'
+        parameters stay whole (init, checkpoints and the merge see the
+        dense model)."""
+        from kubeml_tpu_torch.parallel.distributed import MODEL_AXIS
+
+        if self.tp_rules is None:
+            raise ValueError(
+                f"function {self.name or type(self).__name__!r} does not "
+                "support manual tensor parallelism")
+        self.tp_axis, self.tp_plan = MODEL_AXIS, plan
+
     def enable_expert_parallel(self) -> None:
         """Build the model's modules with their experts split over the
         rank grid's ``expert`` axis (the job calls it for

@@ -21,10 +21,15 @@ Sequence parallelism (``seq_axis``, ``seq_impl``, ``enable_seq_parallel``,
 holds a [B, T/n] block, positions are offset by its seq index, attention
 is the non-causal flash ring or Ulysses, and the mean-pool sums its
 numerator and count over the seq group (``psum``), after which the
-classifier's logits are equal on every seq rank. Tensor and pipeline
-parallelism (``tp_axis``, ``enable_tensor_parallel``,
-``enable_pipeline_parallel``) are not ported and refuse, naming ROADMAP
-A.12.
+classifier's logits are equal on every seq rank.
+
+Tensor parallelism (``tp_axis``, ``tp_plan``, ``enable_tensor_parallel``)
+runs every encoder block's Megatron pairs over the rank grid's model axis
+as the GPT block does (``models/gpt.py``: the heads split, non-causal
+attention on the local heads, the out-projection and the FFN's second
+Dense summed over the axis), alone or with the seq axis's ring; the
+parameters stay whole. Pipeline parallelism (``enable_pipeline_parallel``)
+is not ported and refuses, naming ROADMAP A.12's pipeline half.
 """
 
 from __future__ import annotations
@@ -42,16 +47,16 @@ from kubeml_tpu_torch.convert import (bert_params_from_flax,
 from kubeml_tpu_torch.models.base import (PAD_ID, ClassifierModel,
                                           InferenceInputError,
                                           register_model)
-from kubeml_tpu_torch.models.gpt import (LN_EPS, DecoderBlock, _block,
+from kubeml_tpu_torch.models.gpt import (LN_EPS, PIPELINE_PARALLEL,
+                                         DecoderBlock, _block,
                                          _forward_seq_parallel, _layer_norm,
-                                         seq_attention, seq_draw)
+                                         check_tp, seq_attention, seq_draw,
+                                         tp_layer)
 from kubeml_tpu_torch.models.layers import Dense, _dropout
 from kubeml_tpu_torch.ops.attention import masked_attention
 from kubeml_tpu_torch.parallel import distributed as dist_lib
+from kubeml_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
 
-# what brings each refused parallel path, by ROADMAP item
-TENSOR_PARALLEL = "tensor and pipeline parallelism over NCCL ranks, " \
-    "ROADMAP A.12"
 HEADS = 2   # BERT-tiny's attention heads (restores the flax q/k/v layout)
 
 
@@ -65,12 +70,13 @@ class EncoderBlock(DecoderBlock):
         self.heads, self.dropout, self.dtype = heads, float(dropout), dtype
 
     def forward(self, h: torch.Tensor, pad_mask: torch.Tensor,
-                train: bool = False, generator=None,
-                attend=None) -> torch.Tensor:
+                train: bool = False, generator=None, attend=None,
+                tp: Optional[dict] = None) -> torch.Tensor:
         """[B, T, hidden] -> [B, T, hidden]; ``pad_mask`` [B, T] 1/0 keeps
         the real tokens as keys; with ``train`` dropout is drawn from
         ``generator``. ``attend(q, k, v)`` replaces the dense attention
-        (the sequence-parallel one)."""
+        (the sequence-parallel one); ``tp`` is the block's
+        tensor-parallel entry (``models/gpt.tp_layer``)."""
         dt = self.dtype
 
         def lin(m):
@@ -80,6 +86,8 @@ class EncoderBlock(DecoderBlock):
               "k": lin(self.k), "v": lin(self.v), "out": lin(self.out),
               "ln1": (self.ln1.weight, self.ln1.bias), "fc0": lin(self.fc0),
               "fc1": lin(self.fc1), "heads": self.heads}
+        if tp is not None:
+            lp["tp"] = tp
         rate = self.dropout if train else 0.0
         if attend is None:
             attend = lambda q, k, v: masked_attention(  # noqa: E731
@@ -93,21 +101,21 @@ class BertModule(nn.Module):
     ``device=None`` means CUDA and raises where no CUDA device exists;
     ``dtype`` is the compute dtype. ``seq_axis`` (the rank grid's
     ``"seq"``) and ``seq_impl`` ("ring" or "ulysses") select the
-    sequence-parallel forward; ``tp_axis`` (tensor parallelism) is not
-    ported and raises NotPortedError."""
+    sequence-parallel forward; ``tp_axis`` (the rank grid's
+    ``"model"``) and ``tp_plan`` the tensor-parallel one (module
+    docstring)."""
 
     def __init__(self, vocab_size: int = 30522, max_len: int = 128,
                  hidden: int = 128, layers: int = 2, heads: int = HEADS,
                  ffn: int = 512, num_classes: int = 2, dropout: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None, seq_axis: Optional[str] = None,
-                 seq_impl: str = "ring", tp_axis: Optional[str] = None):
+                 seq_impl: str = "ring", tp_axis: Optional[str] = None,
+                 tp_plan: Optional[dict] = None):
         super().__init__()
         if seq_impl not in ("ring", "ulysses"):
             raise ValueError(f"unknown seq_impl {seq_impl!r}; expected "
                              "'ring' or 'ulysses'")
-        if tp_axis is not None:
-            raise NotPortedError("BERT's tp_axis", TENSOR_PARALLEL)
         if hidden % heads:
             raise ValueError(f"hidden {hidden} does not split over "
                              f"{heads} heads")
@@ -116,6 +124,7 @@ class BertModule(nn.Module):
         self.ffn, self.num_classes = ffn, num_classes
         self.dtype, self.dropout = dtype, float(dropout)
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
+        self.tp_axis, self.tp_plan = tp_axis, tp_plan
         self.head_dim = hidden // heads
         dev = resolve_device(device)
         self.tok_embed = nn.Embedding(vocab_size, hidden, device=dev)
@@ -139,7 +148,9 @@ class BertModule(nn.Module):
         embeddings, each attention out-projection and each FFN, drawn
         from ``generator``. With ``seq_axis`` x is this rank's [B, T/n]
         block of the sequence and the logits are the whole sequence's,
-        equal on every seq rank."""
+        equal on every seq rank. With ``tp_axis`` the blocks run over the
+        model axis; the logits are equal on every model rank."""
+        check_tp(self)
         B, T = x.shape
         axis = self.seq_axis
         n = 1 if axis is None else dist_lib.axis_size(axis)
@@ -165,8 +176,9 @@ class BertModule(nn.Module):
         # casts the whole table to the compute dtype before the take
         h = self.tok_embed.weight[x].to(dt) + pos_embed.to(dt)[None]
         h = _dropout(h, rate, generator)
-        for blk in self.blocks:
-            h = blk(h, pad_mask, train, generator, attend)
+        for i, blk in enumerate(self.blocks):
+            h = blk(h, pad_mask, train, generator, attend,
+                    tp_layer(self, i, blk.out.bias, blk.fc1.bias))
         h = _layer_norm(h, self.ln_f.weight, self.ln_f.bias)
         num = (h * pad_mask[..., None]).sum(1)
         den = pad_mask.sum(1)
@@ -191,6 +203,8 @@ class BertTiny(ClassifierModel):
     # per-example loss is seq-invariant: the module sums its mean-pool
     # over the seq group
     seq_batch_dims = {"x": 0}
+    # tensor parallelism: the Megatron table over the encoder blocks
+    tp_rules = TRANSFORMER_TP_RULES
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16):
         self.dtype = dtype   # compute dtype of the modules it builds
@@ -199,7 +213,8 @@ class BertTiny(ClassifierModel):
               device: DeviceLike = None) -> BertModule:
         return BertModule(num_classes=self.num_classes,
                           dtype=dtype or self.dtype, device=device,
-                          seq_axis=self.seq_axis, seq_impl=self.seq_impl)
+                          seq_axis=self.seq_axis, seq_impl=self.seq_impl,
+                          tp_axis=self.tp_axis, tp_plan=self.tp_plan)
 
     def loss(self, module, batch, generator, sample_mask):
         logits = module(batch["x"], train=True, generator=generator)
@@ -231,12 +246,7 @@ class BertTiny(ClassifierModel):
         return _forward_seq_parallel(module, x, grid, impl,
                                      lambda m, xb: m(xb), gather=False)
 
-    # the reference's parallel paths (not ported)
-    def enable_tensor_parallel(self) -> None:
-        raise NotPortedError("bert-tiny's tensor parallelism",
-                             TENSOR_PARALLEL)
-
     def enable_pipeline_parallel(self, n_stage: int,
                                  microbatches: int = 0) -> None:
         raise NotPortedError("bert-tiny's pipeline parallelism",
-                             TENSOR_PARALLEL)
+                             PIPELINE_PARALLEL)

@@ -37,6 +37,17 @@ group routes the same tokens and runs its share of the experts
 (``parallel/manual.ep_partial_ffn``); under a seq axis each rank routes
 its own block of the sequence (per-shard capacity). The serving programs
 refuse an MoE module, as the reference's do.
+
+``tp_axis`` (the rank grid's ``"model"``) runs every block's two Megatron
+pairs over the model axis (``parallel/manual.py``): q/k/v on this rank's
+heads / n heads, attention on those local heads (the flash kernels, or
+the flash ring under a seq axis), the out-projection's partial product
+summed over the axis; the FFN's first Dense on this rank's columns, its
+second on the matching rows, summed. ``tp_plan`` (the GSPMD route's
+``parallel/tp.shard_plan``) says per block which pair splits and which
+runs whole; without one every pair splits and heads or an FFN width that
+does not divide is refused (the manual route). The serving programs
+refuse a tensor-parallel module.
 """
 
 from __future__ import annotations
@@ -63,10 +74,14 @@ from kubeml_tpu_torch.ops.paged_attention import paged_attention
 from kubeml_tpu_torch.parallel import distributed as dist_lib
 from kubeml_tpu_torch.parallel.distributed import EXPERT_AXIS, SEQ_AXIS
 from kubeml_tpu_torch.parallel.ep import moe_apply, route_tokens
-from kubeml_tpu_torch.parallel.manual import ep_partial_ffn
+from kubeml_tpu_torch.parallel.manual import (ep_partial_ffn,
+                                              tp_column_dense, tp_heads_dense,
+                                              tp_out_dense, tp_row_dense,
+                                              validate_tp_geometry)
 from kubeml_tpu_torch.parallel.ring_attention import (_seq_block,
                                                       gather_seq,
                                                       ring_attention)
+from kubeml_tpu_torch.parallel.tp import TRANSFORMER_TP_RULES
 from kubeml_tpu_torch.parallel.ulysses import ulysses_attention
 
 LN_EPS = 1e-6  # flax LayerNorm's default, not torch's 1e-5
@@ -74,6 +89,9 @@ LN_EPS = 1e-6  # flax LayerNorm's default, not torch's 1e-5
 # ceil(tokens / experts x 1.25) (the reference's moe_k, capacity_factor)
 MOE_K = 2
 CAPACITY_FACTOR = 1.25
+# what brings the pipelined paths, by ROADMAP item
+PIPELINE_PARALLEL = "pipeline parallelism over NCCL ranks, ROADMAP A.12's " \
+    "pipeline half"
 
 # published widths of the built-in GPT family (kubeml_tpu/models/gpt.py
 # GPTModule defaults and GPTNano.build)
@@ -168,6 +186,12 @@ class GPTModule(nn.Module):
     ``"alltoall"`` comes with ROADMAP A.12. The experts must divide over
     the axis. An unknown ``ep_impl`` raises on every path of an MoE
     module, as the reference's does.
+
+    ``tp_axis`` (the rank grid's ``"model"``) makes the training forward
+    tensor-parallel over the model axis (module docstring), with the
+    GSPMD route's per-block ``tp_plan`` or, without one, every pair
+    split; the parameters stay whole on every rank, and the dense
+    inference forward and the serving programs stay dense.
     """
 
     def __init__(self, vocab_size: int = 8192, max_len: int = 512,
@@ -177,7 +201,8 @@ class GPTModule(nn.Module):
                  device: DeviceLike = None, n_experts: int = 0,
                  seq_axis: Optional[str] = None, seq_impl: str = "ring",
                  ep_axis: Optional[str] = None,
-                 ep_impl: str = "replicated"):
+                 ep_impl: str = "replicated", tp_axis: Optional[str] = None,
+                 tp_plan: Optional[dict] = None):
         super().__init__()
         if hidden % heads:
             raise ValueError(f"hidden {hidden} does not split over "
@@ -187,6 +212,7 @@ class GPTModule(nn.Module):
                              "'ring' or 'ulysses'")
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.ep_axis, self.ep_impl = ep_axis, ep_impl
+        self.tp_axis, self.tp_plan = tp_axis, tp_plan
         self.vocab_size, self.max_len = vocab_size, max_len
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.ffn, self.dtype, self.dropout = ffn, dtype, float(dropout)
@@ -244,9 +270,11 @@ class GPTModule(nn.Module):
         if T * n > self.max_len:
             raise InferenceInputError(
                 f"sequence length {T * n} exceeds max_len {self.max_len}")
+        check_tp(self)
         x = x.to(self.device)
         named = dict(self.named_parameters())
-        p = _param_tree(self, lambda name, dtype: named[name].to(dtype))
+        p = _param_tree(self, lambda name, dtype: named[name].to(dtype),
+                        tp=True)
         rate = self.dropout if train else 0.0
         seq = None
         if self.seq_axis is not None:
@@ -255,6 +283,42 @@ class GPTModule(nn.Module):
         h, aux = _causal_trunk(p, x, lambda t: _dropout(t, rate, generator),
                                seq)
         return _lm_head(p, h), aux
+
+
+def check_tp(module) -> None:
+    """The reference's refusals of a tensor-parallel module (a GPT or
+    BERT module with ``tp_axis``), in its order: heads or an FFN width
+    that does not divide over the model axis (the manual route: no
+    ``tp_plan``); Ulysses, which re-shards the head axis the split owns;
+    a mixture of experts."""
+    if module.tp_axis is None:
+        return
+    if module.tp_plan is None:
+        validate_tp_geometry(module.heads, module.ffn,
+                             dist_lib.axis_size(module.tp_axis))
+    if module.seq_axis is not None and module.seq_impl == "ulysses":
+        raise ValueError(
+            "tensor parallelism composes with seq_impl='ring' only "
+            "(ulysses re-shards the head axis the TP split owns)")
+    if getattr(module, "n_experts", 0):
+        raise ValueError("manual TP does not apply to MoE blocks "
+                         "(experts shard over the expert axis instead — "
+                         "ep_axis)")
+
+
+def tp_layer(module, i: int, out_bias: torch.Tensor,
+             fc1_bias: torch.Tensor) -> Optional[dict]:
+    """Block i's tensor-parallel entry of its parameter dict (None for a
+    module without ``tp_axis``): the model axis, which of its pairs split
+    ("heads", "ffn": the plan's, or both without one) and the row
+    layers' f32 biases, which the reference adds after the sum."""
+    if module.tp_axis is None:
+        return None
+    split = {"heads": True, "ffn": True} if module.tp_plan is None \
+        else module.tp_plan[f"layer_{i}"]
+    return {"axis": module.tp_axis, "heads": bool(split["heads"]),
+            "ffn": bool(split["ffn"]), "out_bias": out_bias,
+            "fc1_bias": fc1_bias}
 
 
 def seq_draw(generator, axis_name: str, T: int):
@@ -324,13 +388,16 @@ def compute_params(module: GPTModule,
 
 
 def _param_tree(module: GPTModule,
-                get: Callable[[str, torch.dtype], torch.Tensor]) -> dict:
+                get: Callable[[str, torch.dtype], torch.Tensor],
+                tp: bool = False) -> dict:
     """The programs' parameter dict, each tensor ``get(name, dtype)``:
     embeddings and Dense weights in the compute dtype, LayerNorm
     parameters in f32. An MoE block's parameters stay f32: the reference
     runs its router and experts on the f32 LayerNorm output; its expert
     axis and strategy ride along (``ep``), ``ep_impl`` checked here, on
-    every path, as the reference's ``MoEFFN`` checks it at every call."""
+    every path, as the reference's ``MoEFFN`` checks it at every call.
+    ``tp``: the training forward of a tensor-parallel module, whose
+    blocks carry their ``tp_layer`` entry."""
     dt = module.dtype
     if module.n_experts and module.ep_impl not in ("replicated", "alltoall"):
         raise ValueError(f"unknown ep_impl {module.ep_impl!r}; "
@@ -358,6 +425,9 @@ def _param_tree(module: GPTModule,
             lp["ep"] = (module.ep_axis, module.ep_impl)
         else:
             lp["fc0"], lp["fc1"] = lin(f"{b}.fc0"), lin(f"{b}.fc1")
+        if tp and module.tp_axis is not None:
+            lp["tp"] = tp_layer(module, i, t(f"{b}.out.bias", torch.float32),
+                                t(f"{b}.fc1.bias", torch.float32))
         layers.append(lp)
     return {"tok_embed": t("tok_embed.weight"),
             "pos_embed": t("pos_embed.weight"),
@@ -400,14 +470,25 @@ def _block(lp: dict, h: torch.Tensor,
     experts in f32 (over the expert axis of ``lp["ep"]`` when it names
     one: ``_moe_expert_parallel``) and appends its load-balance aux to
     ``aux``; its f32 output makes the residual stream f32 from there on,
-    as the reference's type promotion does."""
+    as the reference's type promotion does.
+
+    A tensor-parallel block (``lp["tp"]``, ``tp_layer``) runs each pair
+    the entry splits through ``parallel/manual.py``'s layers over its
+    model axis: ``attend`` then sees this rank's heads / n heads."""
     dt = lp["q"][0].dtype
     H = lp["heads"]
+    tp = lp.get("tp")
     x = _layer_norm(h, *lp["ln0"]).to(dt)
-    q, k, v = (_dense(x, *lp[n]).unflatten(-1, (H, -1))
-               for n in ("q", "k", "v"))
-    attn = attend(q, k, v)
-    h = h + drop(_dense(attn.flatten(-2), *lp["out"]))
+    if tp is not None and tp["heads"]:
+        q, k, v = (tp_heads_dense(x, *lp[n], H, tp["axis"])
+                   for n in ("q", "k", "v"))
+        out = tp_out_dense(attend(q, k, v), lp["out"][0], tp["out_bias"],
+                           tp["axis"])
+    else:
+        q, k, v = (_dense(x, *lp[n]).unflatten(-1, (H, -1))
+                   for n in ("q", "k", "v"))
+        out = _dense(attend(q, k, v).flatten(-2), *lp["out"])
+    h = h + drop(out)
     if "moe" in lp:
         x = _layer_norm(h, *lp["ln1"])
         axis, impl = lp["ep"]
@@ -421,6 +502,11 @@ def _block(lp: dict, h: torch.Tensor,
         aux.append(a)
         return h + drop(y.view_as(x))
     x = _layer_norm(h, *lp["ln1"]).to(dt)
+    if tp is not None and tp["ffn"]:
+        x = F.gelu(tp_column_dense(x, *lp["fc0"], tp["axis"]),
+                   approximate="tanh")
+        return h + drop(tp_row_dense(x, lp["fc1"][0], tp["fc1_bias"],
+                                     tp["axis"]))
     x = F.gelu(_dense(x, *lp["fc0"]), approximate="tanh")
     return h + drop(_dense(x, *lp["fc1"]))
 
@@ -579,7 +665,8 @@ def build_paged_decode_step(module: GPTModule, kv_dtype: str = "f32"):
     Slots are rows: no reduction crosses slots, which is what makes a
     request's tokens the same alone or in a batch.
     """
-    if module.n_experts:
+    if module.n_experts or module.seq_axis is not None \
+            or module.tp_axis is not None:
         raise ValueError(
             "paged decode serves dense GPT modules only (no MoE, "
             "sequence-parallel, or manual-TP variants)")
@@ -644,7 +731,8 @@ def build_paged_prefill_step(module: GPTModule, chunk: int,
     """
     if chunk < 1:
         raise ValueError(f"prefill chunk must be >= 1, got {chunk}")
-    if module.n_experts:
+    if module.n_experts or module.seq_axis is not None \
+            or module.tp_axis is not None:
         raise ValueError(
             "paged prefill serves dense GPT modules only (no MoE, "
             "sequence-parallel, or manual-TP variants)")
@@ -791,7 +879,9 @@ def build_paged_spec_verify_step(module: GPTModule, draft_module: GPTModule,
     if steps < 1:
         raise ValueError(f"speculative decode needs steps >= 1, "
                          f"got {steps}")
-    if not isinstance(draft_module, GPTModule) or draft_module.n_experts:
+    if not isinstance(draft_module, GPTModule) or draft_module.n_experts \
+            or draft_module.seq_axis is not None \
+            or draft_module.tp_axis is not None:
         raise ValueError(
             "speculative draft must be a dense GPT module (no MoE, "
             "sequence-parallel, or manual-TP variants)")
@@ -970,7 +1060,7 @@ def _forward_seq_parallel(module, x, grid, impl: str, forward,
         raise ValueError(f"unknown seq-parallel impl {impl!r}; "
                          "expected 'ring' or 'ulysses'")
     grid = dist_lib.current_grid() if grid is None \
-        else dist_lib.make_grid(grid.n_seq, grid.n_expert)
+        else dist_lib.make_grid(grid.n_seq, grid.n_expert, grid.n_model)
     n = grid.n_seq
     x = torch.as_tensor(np.asarray(x), device=module.device)
     if x.shape[1] % n:
@@ -1003,13 +1093,17 @@ class GPTMini(KubeModel):
     # sequence parallelism: the seq-carrying batch key and its dim (the
     # base enable_seq_parallel makes build() give seq-parallel modules)
     seq_batch_dims = {"x": 0}
+    # tensor parallelism: the Megatron table (the decoder blocks have the
+    # BERT blocks' layout)
+    tp_rules = TRANSFORMER_TP_RULES
 
     def build(self, dtype: Optional[torch.dtype] = None,
               device: DeviceLike = None) -> GPTModule:
         return GPTModule(**GPT_CONFIGS[self.name],
                          dropout=GPT_DROPOUT[self.name],
                          dtype=dtype or self.dtype, device=device,
-                         seq_axis=self.seq_axis, seq_impl=self.seq_impl)
+                         seq_axis=self.seq_axis, seq_impl=self.seq_impl,
+                         tp_axis=self.tp_axis, tp_plan=self.tp_plan)
 
     def params_to_flax(self, state):
         return params_to_flax(state, heads=GPT_CONFIGS[self.name]["heads"])
@@ -1074,10 +1168,6 @@ class GPTNano(GPTMini):
     name = "gpt-nano"
 
 
-# what brings gpt-moe-mini's pipelined path, by ROADMAP item
-PIPELINE_PARALLEL = "pipeline parallelism over NCCL ranks, ROADMAP A.12"
-
-
 @register_model("gpt-moe-mini")
 class GPTMoEMini(GPTMini):
     """gpt-mini with a mixture-of-experts FFN in every block: 8 experts of
@@ -1098,6 +1188,9 @@ class GPTMoEMini(GPTMini):
 
     name = "gpt-moe-mini"
     aux_coef = 0.01
+    # the Megatron table would split only the attention stack while the
+    # expert FFNs (the bulk of the parameters) stay replicated
+    tp_rules = None
     #: the expert axis and strategy the modules build with
     #: (``enable_expert_parallel``); None = every expert on each rank
     ep_axis: Optional[str] = None

@@ -45,14 +45,17 @@ the host on gloo: the named path, never a silent one.
 
 The rank grid (``make_grid``) lays the ranks out as the JAX package's
 mesh lays out its devices (``kubeml_tpu/parallel/mesh.py``: ``data``
-outermost, ``expert`` innermost): global rank r has data index
-r // (n_seq * n_expert), seq index (r // n_expert) % n_seq and expert
-index r % n_expert. The n_seq * n_expert ranks of one data index are its
-inner group: they run the same lane's workers. The seq group (the ranks
-of one data and expert index) carries sequence parallelism's ring hops,
-all-to-alls and sums; the expert group (one data and seq index) the
-expert FFN's sum; the data group (one seq and expert index) the lane
-merge. ``axis_size``/``axis_index``/``axis_group`` answer for the seq
+outermost, then ``model``, ``seq`` and ``expert``): global rank r has
+data index r // (n_model * n_seq * n_expert), model index
+(r // (n_seq * n_expert)) % n_model, seq index (r // n_expert) % n_seq
+and expert index r % n_expert. The n_model * n_seq * n_expert ranks of
+one data index are its inner group: they run the same lane's workers.
+The model group (the ranks of one data, seq and expert index) carries
+tensor parallelism's row-layer sums; the seq group (one data, model and
+expert index) sequence parallelism's ring hops, all-to-alls and sums;
+the expert group (one data, model and seq index) the expert FFN's sum;
+the data group (one model, seq and expert index) the lane merge.
+``axis_size``/``axis_index``/``axis_group`` answer for the model, seq
 and expert axes of the installed grid as ``lax.axis_size``/
 ``lax.axis_index`` answer inside a shard_map: without a grid (or a
 group) an axis has size 1, and the collectives over it are identities.
@@ -256,23 +259,26 @@ def lane_layout(n_lanes: int, world: Optional[int] = None,
 
 # -------------------------------------------------------------- rank grid
 
+MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
 
 
 @dataclass(frozen=True)
 class RankGrid:
-    """The ranks as a (data x seq x expert) grid, data outermost and
-    expert innermost: rank r has ``data_index`` r // (n_seq * n_expert),
-    ``seq_index`` (r // n_expert) % n_seq and ``expert_index``
-    r % n_expert. ``seq_group`` holds the n_seq ranks of this rank's data
-    and expert index, ``expert_group`` the n_expert ranks of its data and
-    seq index, ``inner_group`` the n_seq * n_expert ranks of its data
-    index (the seq or expert group when the other axis has size 1), and
-    ``data_group`` the n_data ranks of its seq and expert index. A group
-    is None where its axis has size 1 (its collectives are never issued),
-    and the data group where it is the whole group (or there is no
-    group)."""
+    """The ranks as a (data x model x seq x expert) grid, data outermost
+    and expert innermost: rank r has ``data_index`` r // n_inner,
+    ``model_index`` (r // (n_seq * n_expert)) % n_model, ``seq_index``
+    (r // n_expert) % n_seq and ``expert_index`` r % n_expert.
+    ``model_group`` holds the n_model ranks of this rank's data, seq and
+    expert index, ``seq_group`` the n_seq ranks of its data, model and
+    expert index, ``expert_group`` the n_expert ranks of its data, model
+    and seq index, ``inner_group`` the n_inner ranks of its data index
+    (the one inner axis's group when only one has size > 1), and
+    ``data_group`` the n_data ranks of its model, seq and expert index. A
+    group is None where its axis has size 1 (its collectives are never
+    issued), and the data group where it is the whole group (or there is
+    no group)."""
     n_data: int
     n_seq: int
     data_index: int
@@ -283,71 +289,97 @@ class RankGrid:
     expert_index: int = 0
     expert_group: object = None
     inner_group: object = None
+    n_model: int = 1
+    model_index: int = 0
+    model_group: object = None
 
     @property
     def n_inner(self) -> int:
-        return self.n_seq * self.n_expert
+        return self.n_model * self.n_seq * self.n_expert
 
 
-_GRIDS: dict = {}      # by (n_seq, n_expert, world), until the group ends
+_GRIDS: dict = {}   # by (n_seq, n_expert, n_model, world), until the
+                    # group ends
 _grid: Optional[RankGrid] = None
 
 
-def make_grid(n_seq: int = 1, n_expert: int = 1) -> RankGrid:
-    """The rank grid of ``n_seq`` seq by ``n_expert`` expert ranks per
-    data index, made the current one (what ``axis_size`` and the models'
-    ``seq_axis``/``ep_axis`` read). Making a grid is collective the first
-    time for each shape in a group: every rank must call it, in the same
-    order. Raises ValueError unless the world divides by
-    n_seq * n_expert."""
+def _split_error(world: int, n_seq: int, n_expert: int,
+                 n_model: int) -> str:
+    if n_model > 1:
+        return (f"{world} ranks do not split into inner groups of "
+                f"{n_model} model x {n_seq} seq x {n_expert} expert ranks")
+    if n_expert > 1:
+        return (f"{world} ranks do not split into inner groups of {n_seq} "
+                f"seq x {n_expert} expert ranks")
+    return f"{world} ranks do not split into seq groups of {n_seq}"
+
+
+def make_grid(n_seq: int = 1, n_expert: int = 1,
+              n_model: int = 1) -> RankGrid:
+    """The rank grid of ``n_model`` model by ``n_seq`` seq by
+    ``n_expert`` expert ranks per data index, made the current one (what
+    ``axis_size`` and the models' ``tp_axis``/``seq_axis``/``ep_axis``
+    read). Making a grid is collective the first time for each shape in
+    a group: every rank must call it, in the same order. Raises
+    ValueError unless the world divides by n_model * n_seq * n_expert."""
     global _grid
-    n_seq, n_expert = int(n_seq), int(n_expert)
-    inner = n_seq * n_expert
+    n_seq, n_expert, n_model = int(n_seq), int(n_expert), int(n_model)
+    inner = n_model * n_seq * n_expert
     world, r = world_size(), rank()
-    if n_seq < 1 or n_expert < 1 or world % inner:
-        raise ValueError(
-            f"{world} ranks do not split into seq groups of {n_seq}"
-            if n_expert == 1 else
-            f"{world} ranks do not split into inner groups of {n_seq} seq "
-            f"x {n_expert} expert ranks")
-    if (n_seq, n_expert, world) not in _GRIDS:
+    if min(n_seq, n_expert, n_model) < 1 or world % inner:
+        raise ValueError(_split_error(world, n_seq, n_expert, n_model))
+    key = (n_seq, n_expert, n_model, world)
+    if key not in _GRIDS:
         n_data = world // inner
-        d, s, e = r // inner, (r // n_expert) % n_seq, r % n_expert
+        d, m = r // inner, (r // (n_seq * n_expert)) % n_model
+        s, e = (r // n_expert) % n_seq, r % n_expert
         groups = {}
         if inner > 1:
             def made(members, mine):
                 # every rank creates every group, in one order, and
-                # keeps its own: members are (data, seq, expert) triples
-                return [dist.new_group([dd * inner + ss * n_expert + ee
-                                        for dd, ss, ee in m])
-                        for m in members][mine]
-            # the seq and data groups first, as a grid without an expert
-            # axis makes them
+                # keeps its own: members are (data, model, seq, expert)
+                return [dist.new_group([
+                    dd * inner + mm * n_seq * n_expert + ss * n_expert + ee
+                    for dd, mm, ss, ee in ms]) for ms in members][mine]
+            # the seq, data and expert groups first, as a grid without a
+            # model axis makes them
             if n_seq > 1:
                 groups["seq"] = made(
-                    [[(dd, ss, ee) for ss in range(n_seq)]
-                     for dd in range(n_data) for ee in range(n_expert)],
-                    d * n_expert + e)
+                    [[(dd, mm, ss, ee) for ss in range(n_seq)]
+                     for dd in range(n_data) for mm in range(n_model)
+                     for ee in range(n_expert)],
+                    (d * n_model + m) * n_expert + e)
             groups["data"] = made(
-                [[(dd, ss, ee) for dd in range(n_data)]
-                 for ss in range(n_seq) for ee in range(n_expert)],
-                s * n_expert + e)
+                [[(dd, mm, ss, ee) for dd in range(n_data)]
+                 for mm in range(n_model) for ss in range(n_seq)
+                 for ee in range(n_expert)],
+                (m * n_seq + s) * n_expert + e)
             if n_expert > 1:
                 groups["expert"] = made(
-                    [[(dd, ss, ee) for ee in range(n_expert)]
-                     for dd in range(n_data) for ss in range(n_seq)],
-                    d * n_seq + s)
-            if n_seq > 1 and n_expert > 1:
+                    [[(dd, mm, ss, ee) for ee in range(n_expert)]
+                     for dd in range(n_data) for mm in range(n_model)
+                     for ss in range(n_seq)],
+                    (d * n_model + m) * n_seq + s)
+            if n_model > 1:
+                groups["model"] = made(
+                    [[(dd, mm, ss, ee) for mm in range(n_model)]
+                     for dd in range(n_data) for ss in range(n_seq)
+                     for ee in range(n_expert)],
+                    (d * n_seq + s) * n_expert + e)
+            split = [a for a, n in (("seq", n_seq), ("expert", n_expert),
+                                    ("model", n_model)) if n > 1]
+            if len(split) > 1:
                 groups["inner"] = made(
-                    [[(dd, ss, ee) for ss in range(n_seq)
-                      for ee in range(n_expert)] for dd in range(n_data)],
-                    d)
+                    [[(dd, mm, ss, ee) for mm in range(n_model)
+                      for ss in range(n_seq) for ee in range(n_expert)]
+                     for dd in range(n_data)], d)
             else:
-                groups["inner"] = groups.get("seq", groups.get("expert"))
-        _GRIDS[n_seq, n_expert, world] = RankGrid(
+                groups["inner"] = groups[split[0]]
+        _GRIDS[key] = RankGrid(
             n_data, n_seq, d, s, groups.get("data"), groups.get("seq"),
-            n_expert, e, groups.get("expert"), groups.get("inner"))
-    _grid = _GRIDS[n_seq, n_expert, world]
+            n_expert, e, groups.get("expert"), groups.get("inner"),
+            n_model, m, groups.get("model"))
+    _grid = _GRIDS[key]
     return _grid
 
 
@@ -375,12 +407,14 @@ def current_grid() -> RankGrid:
 def _axis(name: str) -> tuple:
     """(size, index, group) of a grid axis of the current grid."""
     g = current_grid()
+    if name == MODEL_AXIS:
+        return g.n_model, g.model_index, g.model_group
     if name == SEQ_AXIS:
         return g.n_seq, g.seq_index, g.seq_group
     if name == EXPERT_AXIS:
         return g.n_expert, g.expert_index, g.expert_group
     raise ValueError(f"unknown grid axis {name!r}; the models' axes are "
-                     f"{SEQ_AXIS!r} and {EXPERT_AXIS!r}")
+                     f"{MODEL_AXIS!r}, {SEQ_AXIS!r} and {EXPERT_AXIS!r}")
 
 
 def axis_size(name: str) -> int:

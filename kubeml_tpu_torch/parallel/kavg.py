@@ -57,29 +57,34 @@ the finite guard, the contribution sums and the merge like any leaf
 (integer leaves are averaged in f32 and truncated, as in the reference).
 The optimizer steps the parameters only.
 
-Inner axes (the reference's seq round, ``n_seq`` > 1 with
-``batch_seq_dims``, and its expert axis, ``n_expert`` > 1): the ranks
-form the rank grid (``distributed.make_grid``: data outermost, expert
-innermost). The lanes are laid out over the data group, whose ranks
-merge; the n_seq x n_expert ranks of one data index (its inner group)
-run the same workers: a seq rank on its own [T / n_seq] slice of every
-seq-carrying key (``seq_batch_dims``: {key: per-example dim}), through
-the models' ring or Ulysses attention, an expert rank on the same tokens
-as its expert group, running its share of the experts
+Inner axes (the reference's model axis, ``n_model`` > 1; its seq round,
+``n_seq`` > 1 with ``batch_seq_dims``; its expert axis, ``n_expert`` >
+1): the ranks form the rank grid (``distributed.make_grid``: data
+outermost, then model and seq, expert innermost). The lanes are laid out
+over the data group, whose ranks merge; the n_model x n_seq x n_expert
+ranks of one data index (its inner group) run the same workers: a model
+rank on the same tokens as its model group, running its share of every
+block's heads and FFN columns (``parallel/manual.py``'s Megatron
+layers), a seq rank on its own [T / n_seq] slice of every seq-carrying
+key (``seq_batch_dims``: {key: per-example dim}), through the models'
+ring or Ulysses attention, an expert rank on the same tokens as its
+expert group, running its share of the experts
 (``parallel/manual.ep_partial_ffn``). The reference gets these axes'
 gradient sums from ``check_vma``; here the model's per-example loss is
 the same on every rank of the inner group (its sums over an axis are
 ``distributed.psum``, whose backward sums the cotangents), each rank
-backpropagates 1 / (n_seq x n_expert) of it, and the parameters'
-gradients are summed over the inner group (one all-reduce a step), so
+backpropagates 1 / n_inner of it, and the parameters' gradients are
+summed over the inner group (one all-reduce a step), so
 every rank of it steps the same global gradient and holds the same
 weights bit for bit: every dropout mask is drawn from the step's key on
 each of them alike. The loss sums, the drop flags and every branch of
 the round are decided from values equal on every rank of the inner
 group (the summed loss, the equal weights); the merge's sums and the
-gathered rows run over the data group. An expert axis without a seq
-round is the reference's GSPMD route, whose merge takes the ring for a
-lossy wire (``use_ring``, ``parallel/merge.py``).
+gathered rows run over the data group. The merge takes the reference's
+ring for a lossy wire (``use_ring``, ``parallel/merge.py``) where the
+reference's does (its ``_wire_ring``): an inner axis whose round is not
+fully manual, i.e. neither a seq round nor ``manual_inner`` (the job
+sets it for the manual tensor-parallel route).
 
 Index-fed rounds (``train_round(s)_indexed``) take the samples from a
 device-resident dataset cache (``data/device_cache.py``): the dispatch
@@ -239,13 +244,17 @@ class KAvgEngine:
     torch dtype), merge_bucket_mb and merge_compress ("none" | "bf16" |
     "int8") pick the merge strategy as in the reference
     (``merge.make_strategy``, with the reference's ring, ``use_ring``,
-    where the reference takes it: an inner axis and no seq round).
+    where the reference takes it: an inner axis, no seq round and not
+    ``manual_inner``).
     collect_stats adds the per-worker health stats and the loss spread to
     ``RoundStats``; they are extra outputs and change no weight. n_seq
-    and batch_seq_dims, n_expert: the inner round (module docstring);
-    ``module`` must then be built after the model's
-    ``enable_seq_parallel`` / ``enable_expert_parallel``, and the world
-    must split into inner groups of n_seq x n_expert ranks.
+    and batch_seq_dims, n_expert, n_model: the inner round (module
+    docstring); ``module`` must then be built after the model's
+    ``enable_seq_parallel`` / ``enable_expert_parallel`` /
+    ``enable_tensor_parallel``, and the world must split into inner
+    groups of n_model x n_seq x n_expert ranks. manual_inner: the round
+    is the reference's fully-manual one (its manual tensor-parallel or
+    pipeline route), whose merge takes no ring.
     """
 
     def __init__(self, module: torch.nn.Module, loss_fn: LossFn,
@@ -254,10 +263,12 @@ class KAvgEngine:
                  merge_bucket_mb: float = 0.0, merge_compress: str = "none",
                  collect_stats: bool = False, n_seq: int = 1,
                  batch_seq_dims: Optional[Dict[str, int]] = None,
-                 n_expert: int = 1):
+                 n_expert: int = 1, n_model: int = 1,
+                 manual_inner: bool = False):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
-        self.grid = dist_lib.make_grid(int(n_seq), int(n_expert))
+        self.grid = dist_lib.make_grid(int(n_seq), int(n_expert),
+                                       int(n_model))
         # this rank's lanes over the data group (every lane without one)
         self.layout = dist_lib.lane_layout(int(n_lanes), self.grid.n_data,
                                            self.grid.data_index)
@@ -278,11 +289,13 @@ class KAvgEngine:
         self._params = dict(module.named_parameters())
         self._state = module_state(module)
         # the reference's ring: a lossy wire on a mesh whose inner axes
-        # stay AUTO (an expert axis without the manual seq round)
+        # stay AUTO (its round is not fully manual: no seq round, not the
+        # manual tensor-parallel route)
+        self._wire_ring = self.grid.n_inner > 1 and not (
+            self._seq_train or bool(manual_inner))
         self._merge = merge_lib.make_strategy(
             merge_dtype=merge_dtype, bucket_mb=self.merge_bucket_mb,
-            compress=self.merge_compress,
-            use_ring=self.grid.n_inner > 1 and not self._seq_train)
+            compress=self.merge_compress, use_ring=self._wire_ring)
         self._ef = self._merge.needs_residual
         # the EF residuals of this rank's lanes: flat [D_local * L] f32
         # tensors by bucket name, lane-major; None until the first
@@ -389,8 +402,7 @@ class KAvgEngine:
     def _inner_grads(self) -> None:
         """The inner round's gradient: the parameters' gradients summed
         over the inner group, in one all-reduce (each rank backpropagated
-        1 / (n_seq x n_expert) of the loss every rank of it computes
-        alike)."""
+        1 / n_inner of the loss every rank of it computes alike)."""
         params = list(self._params.values())
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1).float()

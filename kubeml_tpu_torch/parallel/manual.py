@@ -1,14 +1,26 @@
-"""Manual expert parallelism over the rank grid's expert axis (twin of
-the expert half of kubeml_tpu/parallel/manual.py).
+"""Manual tensor and expert parallelism over the rank grid's model and
+expert axes (twin of kubeml_tpu/parallel/manual.py).
 
 The JAX package places these collectives by hand inside a fully-manual
-shard_map; here the ranks of the grid's expert group
-(``distributed.make_grid(..., n_expert)``) run them, each a process:
+shard_map; here the ranks of the grid's model group and expert group
+(``distributed.make_grid(n_seq, n_expert, n_model)``) run them, each a
+process:
 
   axis_slice(t, axis, dim)   this rank's contiguous 1/n of ``t`` along
                              ``dim`` (``lax.dynamic_slice_in_dim`` at
                              ``lax.axis_index``); a view, so gradients
                              reach only the rank's own slice;
+  tp_heads_dense(...)        the Megatron layers on the model axis, as
+  tp_out_dense(...)          functions on the torch layouts (a flax
+  tp_column_dense(...)       kernel is the torch weight transposed):
+  tp_row_dense(...)          the column layers (q/k/v by heads, the FFN's
+                             first Dense by columns) slice the weight's
+                             output rows, the row layers (the attention
+                             out-projection, the FFN's second Dense) its
+                             input columns and sum the partial products
+                             over the axis; the outputs are never sliced;
+  validate_tp_geometry(...)  the readable refusal of heads or an FFN
+                             width that does not divide over the axis;
   ep_partial_ffn(...)        the GShard expert FFN over replicated tokens:
                              every rank of the expert group routes the
                              same tokens, slices its E/n experts out of
@@ -19,19 +31,29 @@ shard_map; here the ranks of the grid's expert group
                              psum``, whose backward is the same sum)
                              assembles the output.
 
+Rounding, as the reference's layers round: a column layer computes as
+the dense ``_dense`` does (the product rounded to the compute dtype, then
+the bias); a row layer takes its product with f32 accumulation (the
+compute-dtype operands upcast, an f32 product), sums the partials in f32
+over the axis, adds the f32 bias once after the sum and rounds to the
+compute dtype once. So in bf16 a tensor-parallel block is not the dense
+block bit for bit, in the reference either. The f32 product needs f32
+matmuls (torch's default; TF32 would round the operands).
+
 The parameters stay whole and replicated in the flax layouts, so
 checkpoints, the K-avg merge and ``/infer`` are those of the dense
-module; expert parallelism shards the experts' FLOPs and activations,
-not their parameters. Each rank's gradient holds its own experts' part
-(and 1 / n of what every rank computes alike when each backpropagates
-1 / n of the loss); the engine's sum over the inner group assembles the
-whole gradient (``parallel/kavg.py``).
+module; tensor and expert parallelism shard the FLOPs and activations,
+not the parameters. Each rank's gradient holds its own slices' part (and
+1 / n of what every rank computes alike when each backpropagates 1 / n
+of the loss); the engine's sum over the inner group assembles the whole
+gradient (``parallel/kavg.py``): every sum's backward is a sum, so no
+other collective is needed, not even for the column layers' inputs.
 
-The reference's tensor-parallel layers (``TPHeadsDense`` and its kin) and
-its token-sharded ``ep_alltoall_ffn``, which serves the pipelined and
-forward paths only (its training round refuses ``ep_impl="alltoall"``),
-come with ROADMAP A.12. The expert products are ``torch.einsum``: the
-reference computes them outside any Pallas kernel.
+The reference's token-sharded ``ep_alltoall_ffn``, which serves the
+pipelined and forward paths only (its training round refuses
+``ep_impl="alltoall"``), comes with ROADMAP A.12's pipeline half. The
+products here are ``F.linear``/``torch.einsum``: the reference computes
+them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -48,6 +70,58 @@ def axis_slice(t: torch.Tensor, axis_name: str, dim: int) -> torch.Tensor:
     it with a readable error)."""
     size = t.shape[dim] // dist_lib.axis_size(axis_name)
     return t.narrow(dim, dist_lib.axis_index(axis_name) * size, size)
+
+
+def tp_column_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    axis_name: str) -> torch.Tensor:
+    """``TPColumnDense``: the output columns of a Dense split over the
+    model axis. x [..., in] and w [out, in], b [out] in the compute
+    dtype -> this rank's [..., out / n], the product rounded, then the
+    bias added (``models/gpt._dense``'s rounding)."""
+    return F.linear(x, axis_slice(w, axis_name, 0)) \
+        + axis_slice(b, axis_name, 0)
+
+
+def tp_heads_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   heads: int, axis_name: str) -> torch.Tensor:
+    """``TPHeadsDense``: a q/k/v projection on this rank's heads / n
+    heads. w [heads * Dh, hidden] (head-major rows) -> [..., heads / n,
+    Dh], contiguous."""
+    y = tp_column_dense(x, w, b, axis_name)
+    return y.unflatten(-1, (heads // dist_lib.axis_size(axis_name), -1))
+
+
+def tp_row_dense(x_local: torch.Tensor, w: torch.Tensor, b32: torch.Tensor,
+                 axis_name: str) -> torch.Tensor:
+    """``TPRowDense``: the input rows of a Dense split over the model
+    axis. x_local [..., in / n] (this rank's columns of the column layer
+    before it) and w [out, in] in the compute dtype, b32 [out] in f32 ->
+    [..., out] in the compute dtype, equal on every rank of the axis: the
+    f32 product of the upcast operands, summed in f32 over the axis, the
+    f32 bias added once, one rounding."""
+    part = F.linear(x_local.float(), axis_slice(w, axis_name, 1).float())
+    return (dist_lib.psum(part, axis_name) + b32).to(x_local.dtype)
+
+
+def tp_out_dense(attn_local: torch.Tensor, w: torch.Tensor,
+                 b32: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``TPOutDense``: the attention out-projection over this rank's
+    heads. attn_local [..., heads / n, Dh], w [hidden, heads * Dh] ->
+    [..., hidden] (``tp_row_dense``'s rounding)."""
+    return tp_row_dense(attn_local.flatten(-2), w, b32, axis_name)
+
+
+def validate_tp_geometry(heads: int, ffn: int, n_model: int) -> None:
+    """Readable rejection of tensor-parallel factors that do not divide
+    (the reference's messages)."""
+    if heads % n_model:
+        raise ValueError(
+            f"{heads} attention heads do not divide over a "
+            f"{n_model}-way model axis")
+    if ffn % n_model:
+        raise ValueError(
+            f"FFN width {ffn} does not divide over a "
+            f"{n_model}-way model axis")
 
 
 def ep_partial_ffn(wi: torch.Tensor, bi: torch.Tensor, wo: torch.Tensor,

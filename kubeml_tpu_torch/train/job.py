@@ -140,15 +140,22 @@ the round-cursor options, reassignment and quarantine events are the JAX
 package's 400s (they need kavg), as are fsdp with an explicit merge or
 without syncdp, and merge_dtype under syncdp.
 
-Sequence and expert parallelism (``n_seq`` > 1 with ``seq_impl`` ring or
-ulysses; ``n_expert`` > 1, alone or with ``n_seq``) run over ranks laid
-out as the rank grid (``distributed.make_grid``: data outermost, expert
-innermost): the job checks them with the JAX package's 400s in its order
-(``_inner_axes``, ``_check_seq_lengths``), the model builds seq-parallel
-and expert-parallel modules, the K-avg engine runs its inner round over
-the data group's lanes, and every round is host-staged (the device cache
+Tensor, sequence and expert parallelism (``n_model`` > 1 under
+``tp_impl`` gspmd or manual, alone or with a ring ``n_seq``; ``n_seq`` >
+1 with ``seq_impl`` ring or ulysses; ``n_expert`` > 1, alone or with
+``n_seq``) run over ranks laid out as the rank grid
+(``distributed.make_grid``: data outermost, expert innermost): the job
+checks them with the JAX package's 400s in its order (``_inner_axes``,
+``_check_seq_lengths``), the model builds tensor-, seq- and
+expert-parallel modules, the K-avg engine runs its inner round over the
+data group's lanes, and every round is host-staged (the device cache
 stays off, as in the JAX package). Without a group the world is one
 device, so an inner axis is the JAX package's 400; it never runs dense.
+The GSPMD tensor-parallel route runs the same Megatron layers as the
+manual one, with the JAX package's rule table read as a plan
+(``parallel/tp.shard_plan``: a pair that does not divide runs whole, as
+``shard_variables`` replicates it); the parameters stay whole on every
+rank (ROADMAP C.14).
 
 Options whose module is not ported yet raise KubeMLException(400) naming
 the option and the ROADMAP item that brings it (``reject_unported``);
@@ -181,9 +188,12 @@ from kubeml_tpu_torch.metrics.ledger import merge_cost_snapshots
 from kubeml_tpu_torch.metrics.prom import PHASE_HISTOGRAMS
 from kubeml_tpu_torch.metrics.runtime import HbmWatermark, JitCompileTracker
 from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
+from kubeml_tpu_torch.models.gpt import PIPELINE_PARALLEL
 from kubeml_tpu_torch.ops import _build
 from kubeml_tpu_torch.parallel import distributed as dist_lib
+from kubeml_tpu_torch.parallel import tp as tp_lib
 from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+from kubeml_tpu_torch.parallel.manual import validate_tp_geometry
 from kubeml_tpu_torch.parallel.syncdp import SyncDPEngine
 from kubeml_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                                load_checkpoint,
@@ -223,20 +233,15 @@ class JobCallbacks:
     on_finish: Callable[[str, Optional[str]], None] = lambda job_id, err: None
 
 
-# what brings each refused option, by ROADMAP item
-MODEL_PARALLEL = "tensor and pipeline parallelism over NCCL ranks, " \
-    "ROADMAP A.12"
-
-
 def reject_unported(opts) -> None:
     """400 for every option whose module the port has not ported yet (the
     job runs it after check_continual_options; ``kubeml train`` runs it
-    before submitting). Sequence and expert parallelism (``n_seq``,
+    before submitting): pipeline parallelism (``n_stage``). Tensor,
+    sequence and expert parallelism (``n_model``, ``n_seq``,
     ``n_expert``) are ported: the job checks them with the JAX package's
     400s (``TrainJob._inner_axes``)."""
-    for name in ("n_model", "n_stage"):
-        if int(getattr(opts, name)) > 1:
-            raise NotPortedError(f"{name} > 1", MODEL_PARALLEL)
+    if int(opts.n_stage) > 1:
+        raise NotPortedError("n_stage > 1", PIPELINE_PARALLEL)
 
 
 def check_continual_options(opts) -> None:
@@ -469,8 +474,8 @@ class TrainJob:
         self.dataset = dataset
         self.n_lanes = int(n_lanes)
         self._world = dist_lib.world_size()
-        if int(self.req.options.n_seq) <= 1 \
-                and int(self.req.options.n_expert) <= 1:
+        if max(int(self.req.options.n_seq), int(self.req.options.n_expert),
+               int(self.req.options.n_model)) <= 1:
             # the lanes over the group's ranks (raises unless they
             # divide); under an inner axis over the data group's,
             # checked after the inner axes' 400s (_inner_axes)
@@ -892,7 +897,7 @@ class TrainJob:
                 # the plan first, so the user's hook sees the faulted round
                 user_hook = self.round_hook
                 self.round_hook = lambda rb: user_hook(plan(rb))
-        n_seq, n_expert = self._inner_axes(opts)
+        n_model, n_seq, n_expert, manual_tp = self._inner_axes(opts)
         self._n_seq = n_seq
         merge_dtype, sync_strategy = check_merge_options(opts)
         self._init_device_cache(handle, opts)
@@ -971,7 +976,7 @@ class TrainJob:
             merge_compress=opts.merge_compress or "none",
             collect_stats=bool(opts.train_stats), n_seq=n_seq,
             batch_seq_dims=self.model.seq_batch_dims if n_seq > 1 else None,
-            n_expert=n_expert)
+            n_expert=n_expert, n_model=n_model, manual_inner=manual_tp)
         self._sync_engine: Optional[SyncDPEngine] = None
         self._sync_state: Optional[dict] = None
         if opts.engine == "syncdp":
@@ -983,29 +988,77 @@ class TrainJob:
                 merge_bucket_mb=float(opts.merge_bucket_mb))
 
     def _inner_axes(self, opts) -> tuple:
-        """The JAX package's inner-axes checks for ``n_seq`` and
-        ``n_expert`` (the other inner axes are refused by
-        reject_unported), with its 400s in its order: an engine other
-        than kavg; a world that does not split into inner groups (without
-        a group the world is one device); the model's own
-        enable_seq_parallel refusal; no seq_batch_dims; the model's own
-        enable_expert_parallel refusal (no experts to shard); experts
-        that do not divide over the expert axis. Then the data group's
-        lane layout. Returns (n_seq, n_expert); the model builds
-        seq-parallel and expert-parallel modules from here on."""
+        """The JAX package's inner-axes checks, with its 400s in its
+        order: pipeline parallelism with tensor or sequence parallelism
+        (``reject_unported`` answers ``n_stage`` first while the pipeline
+        is not ported); an engine other than kavg; an unknown tp_impl
+        (whenever an inner axis is > 1); tensor with sequence parallelism
+        forces the manual route, and refuses Ulysses; a world that does
+        not split into inner groups (without a group the world is one
+        device); on the manual route the model's own
+        enable_tensor_parallel refusal, then heads or an FFN width that
+        do not divide (``validate_tp_geometry``); on the GSPMD route a
+        model without tp_rules; then the seq checks (the model's own
+        enable_seq_parallel refusal; no seq_batch_dims) and the expert
+        checks (the model's own enable_expert_parallel refusal; experts
+        that do not divide). Then the data group's lane layout. Returns
+        (n_model, n_seq, n_expert, manual TP); the model builds tensor-,
+        seq- and expert-parallel modules from here on."""
+        n_model = max(1, int(opts.n_model))
         n_seq = max(1, int(opts.n_seq))
         n_expert = max(1, int(opts.n_expert))
-        if n_seq == n_expert == 1:
-            return 1, 1
+        n_stage = max(1, int(opts.n_stage))
+        if n_stage > 1 and (n_model > 1 or n_seq > 1):
+            raise KubeMLException(
+                "--pipeline-parallel composes with --expert-parallel "
+                "only (the pipelined trunk owns the layer split that "
+                "--tensor-parallel/--seq-parallel would reshard)", 400)
+        if n_model == n_seq == n_expert == n_stage == 1:
+            return 1, 1, 1, False
         if opts.engine != "kavg":
             raise KubeMLException(
                 "tensor/sequence/pipeline/expert parallelism "
                 "requires the kavg engine", 400)
-        world, inner = dist_lib.world_size(), n_seq * n_expert
+        tp_impl = opts.tp_impl or "gspmd"
+        if tp_impl not in ("gspmd", "manual"):
+            raise KubeMLException(
+                f"unknown tp_impl {tp_impl!r}; expected 'gspmd' or "
+                "'manual'", 400)
+        if n_model > 1 and n_seq > 1:
+            # the seq round is fully manual: tensor with sequence
+            # parallelism always takes the manual route
+            tp_impl = "manual"
+            if opts.seq_impl == "ulysses":
+                raise KubeMLException(
+                    "tensor parallelism composes with seq_impl='ring' "
+                    "only (ulysses re-shards the head axis the TP split "
+                    "owns)", 400)
+        world = dist_lib.world_size()
+        inner = n_model * n_seq * n_stage * n_expert
         if world % inner:
             raise KubeMLException(
                 f"{world} devices not divisible by the requested model x "
                 f"seq x stage x expert factor {inner}", 400)
+        manual_tp = n_model > 1 and tp_impl == "manual"
+        if manual_tp:
+            try:
+                self.model.enable_tensor_parallel()
+                meta = self.model.build(device="meta")
+                validate_tp_geometry(meta.heads, meta.ffn, n_model)
+            except ValueError as e:
+                raise KubeMLException(str(e), 400)
+        elif n_model > 1:
+            rules = self.model.tp_rules
+            if rules is None:
+                raise KubeMLException(
+                    f"function {self.req.model_type!r} does not publish "
+                    "tensor-parallel sharding rules", 400)
+            # shard_variables' fallback as a plan, over the flax layout
+            # of uninitialised parameters of the model's shapes
+            shapes = {k: torch.empty(v.shape) for k, v in
+                      self.model.build(device="meta").state_dict().items()}
+            self.model.enable_tensor_parallel(tp_lib.shard_plan(
+                self.model.params_to_flax(shapes), rules, n_model))
         if n_seq > 1:
             try:
                 self.model.enable_seq_parallel(opts.seq_impl)
@@ -1026,10 +1079,12 @@ class TrainJob:
                     f"{n_experts} experts do not divide over a "
                     f"{n_expert}-way expert axis", 400)
         dist_lib.lane_layout(self.n_lanes, world // inner, 0)
-        self._log("job %s grid: data=%d seq=%d expert=%d impl=%s",
-                  self.task.job_id, world // inner, n_seq, n_expert,
+        self._log("job %s grid: data=%d model=%d seq=%d expert=%d "
+                  "tp_impl=%s seq_impl=%s", self.task.job_id, world // inner,
+                  n_model, n_seq, n_expert,
+                  tp_impl if n_model > 1 else "-",
                   opts.seq_impl if n_seq > 1 else "-")
-        return n_seq, n_expert
+        return n_model, n_seq, n_expert, manual_tp
 
     def _check_seq_lengths(self, handle, sample, n_seq: int) -> None:
         """Both splits' sequence lengths divide by n_seq (the JAX

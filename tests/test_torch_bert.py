@@ -263,9 +263,10 @@ def test_max_len_guard():
 
 
 def _seq_logits(path):
-    """(the dense module's logits, the sequence-parallel path's) of one
-    batch in one process, where the seq axis has size 1: the path builds
-    and runs the same forward on the same parameters."""
+    """(the dense module's logits, the sequence- or tensor-parallel
+    path's) of one batch in one process, where the seq and model axes
+    have size 1: the path builds and runs the same forward on the same
+    parameters."""
     from kubeml_tpu_torch.models.bert import BertModule, BertTiny
 
     torch.manual_seed(0)
@@ -273,17 +274,23 @@ def _seq_logits(path):
                        device="cpu")
     x = torch.from_numpy(tokens(4))
     kw = {"seq_axis": dict(seq_axis="seq"),
-          "seq_impl": dict(seq_axis="seq", seq_impl="ulysses")}.get(path)
+          "seq_impl": dict(seq_axis="seq", seq_impl="ulysses"),
+          "tp_axis": dict(tp_axis="model")}.get(path)
     if kw is not None:
         sp = BertModule(vocab_size=VOCAB, dropout=0.0, dtype=torch.float32,
                         device="cpu", **kw)
         sp.load_state_dict(dense.state_dict())
         return dense(x), sp(x)
     model = BertTiny(torch.float32)
-    if path == "enable_seq_parallel":
-        model.enable_seq_parallel("ring")
+    if path in ("enable_seq_parallel", "enable_tensor_parallel"):
+        if path == "enable_seq_parallel":
+            model.enable_seq_parallel("ring")
+        else:
+            model.enable_tensor_parallel()
         built = model.build(device="cpu")
-        assert (built.seq_axis, built.seq_impl) == ("seq", "ring")
+        assert (built.seq_axis, built.seq_impl, built.tp_axis) == (
+            ("seq", "ring", None) if path == "enable_seq_parallel"
+            else (None, "ring", "model"))
         big = BertModule(dtype=torch.float32, device="cpu", dropout=0.1)
         built.load_state_dict(big.state_dict())
         return big(x), built(x)
@@ -291,27 +298,28 @@ def _seq_logits(path):
 
 
 SEQ_PATHS = ("seq_axis", "seq_impl", "enable_seq_parallel",
-             "forward_seq_parallel")
+             "forward_seq_parallel", "tp_axis", "enable_tensor_parallel")
 REFUSED = {   # path -> (call on (BertModule, BertTiny), ROADMAP item)
     "seq_axis": (None, None),
     "seq_impl": (None, None),
-    "tp_axis": (lambda mod, _: mod(tp_axis="model", device="cpu"), "A.12"),
+    "tp_axis": (None, None),
     "enable_seq_parallel": (None, None),
     "forward_seq_parallel": (None, None),
-    "enable_tensor_parallel": (
-        lambda _, model: model().enable_tensor_parallel(), "A.12"),
+    "enable_tensor_parallel": (None, None),
     "enable_pipeline_parallel": (
-        lambda _, model: model().enable_pipeline_parallel(2), "A.12"),
+        lambda _, model: model().enable_pipeline_parallel(2),
+        "A.12's pipeline half"),
 }
 
 
 @pytest.mark.parametrize("path", sorted(REFUSED))
 def test_parallel_paths_refuse_naming_their_item(path):
-    """The reference's tensor- and pipeline-parallel paths raise the
-    port's 400 NotPortedError naming the ROADMAP item; its
-    sequence-parallel paths (ported) build and run, giving the dense
-    logits where the seq axis has size 1 (tests/test_torch_seq_parallel.py
-    runs them over ranks)."""
+    """The reference's pipeline-parallel path raises the port's 400
+    NotPortedError naming the ROADMAP item; its sequence- and
+    tensor-parallel paths (ported) build and run, giving the dense
+    logits where the seq and model axes have size 1
+    (tests/test_torch_seq_parallel.py and
+    tests/test_torch_tensor_parallel.py run them over ranks)."""
     from kubeml_tpu_torch.api.errors import NotPortedError
     from kubeml_tpu_torch.models.bert import BertModule, BertTiny
 

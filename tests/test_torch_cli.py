@@ -396,14 +396,15 @@ TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
 # names no ROADMAP entry is the JAX package's own refusal of a flag
 # combination
 SERVED = "serve"
-# --seq-parallel and --expert-parallel (ROADMAP A.6, landed) reach the
-# job, which answers the reference's 400 in one process without a group
+# --seq-parallel and --expert-parallel (ROADMAP A.6, landed) and
+# --tensor-parallel (A.12's tensor half, landed) reach the job, which
+# answers the reference's 400 in one process without a group
 SEQ_400 = ("1 devices not divisible by the requested model x seq x stage "
            "x expert factor 2")
 REFUSED = [
     (TRAIN + ["--engine", "syncdp"], None),
     (TRAIN + ["--engine", "syncdp", "--fsdp"], None),
-    (TRAIN + ["--tensor-parallel", "2"], "ROADMAP A.12"),
+    (TRAIN + ["--tensor-parallel", "2"], SEQ_400),
     (TRAIN + ["--seq-parallel", "2"], SEQ_400),
     (TRAIN + ["--expert-parallel", "2"], SEQ_400),
     (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.12"),

@@ -189,14 +189,15 @@ def test_not_ported_wording_is_the_jobs():
     """Every refusal reads as the job's refusal of an unported option."""
     from kubeml_tpu_torch.api.errors import NotPortedError
     from kubeml_tpu_torch.api.types import TrainOptions
-    from kubeml_tpu_torch.train.job import MODEL_PARALLEL, reject_unported
+    from kubeml_tpu_torch.train.job import (PIPELINE_PARALLEL,
+                                            reject_unported)
 
     with pytest.raises(NotPortedError) as ei:
-        reject_unported(TrainOptions(n_model=2))
+        reject_unported(TrainOptions(n_stage=2))
     assert ei.value.status_code == 400
-    assert ei.value.message == NotPortedError("n_model > 1",
-                                              MODEL_PARALLEL).message
-    assert "ROADMAP A.12" in ei.value.message
+    assert ei.value.message == NotPortedError("n_stage > 1",
+                                              PIPELINE_PARALLEL).message
+    assert "ROADMAP A.12's pipeline half" in ei.value.message
     assert "A.6" not in ei.value.message
     assert NotPortedError("GET /x", "y", 501).status_code == 501
 
