@@ -624,11 +624,43 @@ ceil(buckets / 64), one grouped launch for up to 64 buckets of a merge
               merge; (e) ms a round a model rank beside the one-process
               round (not a gate). Every miss is raised together after
               (e).
+  phase 28    pipeline parallelism over ranks (gloo ranks on the one
+              card, started together while this process runs what they
+              are held to; M = 4 microbatches): (a) #2-#4 at the
+              microbatch shapes (gpt-mini's [2, 512, 4, 64] causal of
+              B=8, bert-tiny's [8, 64, 2, 64] not causal of B=32; bf16,
+              a padded tail and a fully padded sequence) each against
+              its plain version within the flash tolerance, a second
+              launch equal bit for bit, warm times beside the plain
+              version's, SDPA's and the bound; (b) two K-avg rounds (one
+              lane, K=2, SGD 1e-2, dropout 0.1, the 4 MB bucketed merge;
+              the second counted and timed) of gpt-mini (B=8, T=512) and
+              bert-tiny (B=32, T=64) at (data 1 x stage 2), bf16 and
+              f32, against one process's sequential schedule (the same
+              microbatches and draws): both ranks bit for bit, the
+              weights and the loss within 1e-6 in f32 and 2e-2 in bf16,
+              #2-#4 M x L / P a step and #5 one launch a merge on each
+              rank, 2 (M + P - 2) hops a step; at dropout 0 in f32
+              against the dense one-process round within 1e-5; (c)
+              gpt-mini's f32 round on four ranks (stage 4) against
+              stage 2 and gpt-moe-mini's on (stage 2 x expert 2) against
+              stage 2 with replicated experts, within 1e-6;
+              forward_pipelined of gpt-moe-mini under ep_impl='alltoall'
+              against 'replicated' over (stage 2 x expert 2) at capacity
+              factor 8 (no expert overflows), f32 logits within 1e-5;
+              one NCCL rank: gpt-mini's four blocks as one stage through
+              pipeline_lane against sequential_apply, the outputs bit for
+              bit; (d) one epoch of `kubeml train -f gpt-mini
+              --pipeline-parallel 2 --merge-bucket-mb 4` on two ranks
+              started through tools.launch_distributed: equal histories,
+              #3/#4 = M x L / P x steps and #5 one launch a merge; (e) ms
+              a round a stage rank beside the one-process round (not a
+              gate). Every miss is raised together after (e).
 
-Phases 1-9 run in this process. Phases 10-27 then run in three
+Phases 1-9 run in this process. Phases 10-28 then run in three
 processes side by side: 15, 16, 14 and 23 here, and two lanes of this
-script (``--lane DIR``), one running 10, 17, 11, 12, 13, 18 and 25 and
-the other 22, 24, 19, 20, 21, 26 and 27; the lanes start after phase 1 (imports,
+script (``--lane DIR``), one running 10, 17, 11, 12, 13, 18, 25 and 28
+and the other 22, 24, 19, 20, 21, 26 and 27; the lanes start after phase 1 (imports,
 CUDA, their gpt-mini, torch._dynamo, which torch.optim's first call
 imports) and wait for the end of phase 9. Each process holds
 its own launch counts, so every phase still zeroes and reads its own; a
@@ -695,7 +727,11 @@ one-process rounds per dtype, (d)'s job per rank; the merge also
 paged kernel; each (b) and (c) round per rank, the NCCL rank's round,
 the one-process rounds per model and dtype, (d)'s job per rank; the
 merge also "tp_segments"), and the flash entries "tp_shapes", phase 27
-(a)'s rows at the local head counts; the
+(a)'s rows at the local head counts; every entry carries "pp_launches",
+phase 28's (0 for the paged kernel; each (b) and (c) round per rank, the
+one-process rounds, (d)'s job per rank; the merge also "pp_segments"),
+and the flash entries "pp_shapes", phase 28 (a)'s rows at the microbatch
+shapes; the
 merge's
 "resnet18"
 entry carries phase 11's plan, times and launches per epoch), the
@@ -788,6 +824,11 @@ launches as one JSON line.
     python3 chip_smoke.py --tp-only
 
 builds the flash and merge kernels and runs phase 27 alone, printing its
+(a) rows and launches as one JSON line.
+
+    python3 chip_smoke.py --pp-only
+
+builds the flash and merge kernels and runs phase 28 alone, printing its
 (a) rows and launches as one JSON line.
 """
 
@@ -9359,6 +9400,8 @@ def rank_job_child(outdir, seed, argv, job_id, seed_offset) -> int:
                    "world": dl.world_size(),
                    "grid": [grid.n_data, grid.n_model, grid.n_seq,
                             grid.n_expert],
+                   "stage": grid.n_stage,
+                   "microbatches": job.model._pp_microbatches,
                    "plan": job.model.tp_plan,
                    "seconds": float(hist.epoch_duration[0]),
                    "layers": job._engine.module.layers,
@@ -9737,19 +9780,21 @@ def tp_block(torch, seed, dtype, ranks: bool) -> dict:
     return {"y": y.float().cpu(), "ms": statistics.median(times)}
 
 
-def tp_kernels(torch, card, seed) -> dict:
-    """(a): #2-#4 at the local head counts of TP_KERNEL_CASES (bf16, D=64,
-    a padded tail at spread lengths and a fully padded sequence), each
-    against its plain version within the flash tolerance, a second launch
-    equal to the first bit for bit; warm times beside the plain
-    version's, SDPA's and the bound. Rows by (case, kernel)."""
+def tp_kernels(torch, card, seed, cases=TP_KERNEL_CASES, tag="tp",
+               offset=40) -> dict:
+    """(a) of phases 27 and 28: #2-#4 at ``cases``' shapes (case, B, T, H,
+    causal; bf16, D=64, a padded tail at spread lengths and a fully
+    padded sequence), each against its plain version within the flash
+    tolerance, a second launch equal to the first bit for bit; warm times
+    beside the plain version's, SDPA's and the bound. Rows by (case,
+    kernel)."""
     from kubeml_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(seed + 40)
+    rng = np.random.default_rng(seed + offset)
     tol = FLASH_TOL["bf16"]
     rows = {}
-    for case, B, T, H, causal in TP_KERNEL_CASES:
+    for case, B, T, H, causal in cases:
         q, k, v, g, pad = flash_operands(torch, rng, "bf16", T, dev, B=B,
                                          H=H)
         fwd = (q, k, v, pad, causal)
@@ -9786,7 +9831,7 @@ def tp_kernels(torch, card, seed) -> dict:
                        bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_f if kernel == "forward" else lib_b)
             rows[(case, kernel)] = row
-            log(card, f"tp (a) flash {kernel}, {row['shape']}: kernel "
+            log(card, f"{tag} (a) flash {kernel}, {row['shape']}: kernel "
                 f"{row['ms']:.4f} ms (L2 warm), plain {row['plain_ms']:.4f} "
                 f"ms, library {row['library_ms']:.4f} ms, bound "
                 f"{b_ms:.5f} ms ({b_by}), {row['ms'] / b_ms:.1f}x bound, "
@@ -10001,6 +10046,424 @@ def tp_launches(tp, kernel) -> dict:
             "job": [c[kernel] for c in tp["job"]]}
 
 
+# ----------------------------------------------------------------- phase 28
+PP_P, PP_M = 2, 4         # stage ranks (two gloo ranks on the one card),
+                          # microbatches (the default 2 x stages)
+PP_DTYPES = ("bf16", "f32")
+# (b), (c): a stage rank's weights and loss against one process (rtol and
+# atol; the loss relative to max(1, |loss|)): f32 within 1e-6 (rounding
+# only: the same draws, the same microbatches), bf16 within 2e-2 (the
+# flash tolerance: the reduction orders of the explicit backward differ)
+PP_TOL = {"f32": 1e-6, "bf16": 2e-2}
+PP_DENSE_TOL = 1e-5       # (b) at dropout 0, f32, against the dense round
+PP_LOGIT_TOL = 1e-5       # (c) the two expert routes' f32 logits
+# (c)'s forward at capacity factor E = 8: no expert can overflow, so the
+# token-sharded route's per-shard routing equals the replicated one's
+PP_CAPACITY = 8.0
+# (a)'s kernel shapes: a microbatch of gpt-mini's B=8 and bert-tiny's B=32
+# at M=4: (case, B/M, T, H, causal)
+PP_KERNEL_CASES = (("gpt-mini microbatch", 2, 512, 4, True),
+                   ("bert-tiny microbatch", 8, 64, 2, False))
+PP_SHAPES = dict(TP_SHAPES, **{"gpt-moe-mini": (8, 512)})
+PP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke.pp_child(*sys.argv[2:]))")
+# (d)'s job: what `kubeml train` submits for these flags, on each rank
+PP_JOB_ARGV = ("train", "-f", "gpt-mini", "-d", "tokens", "-e", "1",
+               "-b", str(JOB_B), "-K", str(JOB_K), "-p", "2", "--static",
+               "--lr", str(JOB_LR), "--merge-bucket-mb", str(MERGE_CAP_MB),
+               "--pipeline-parallel", str(PP_P))
+
+
+def pp_weights(torch, name, seed):
+    """A model's f32 state from the seed (numpy, through convert.py):
+    phase 27's for gpt-mini and bert-tiny, random_flax_params for
+    gpt-moe-mini."""
+    from kubeml_tpu_torch.convert import params_from_flax, random_flax_params
+    from kubeml_tpu_torch.models.gpt import GPT_MOE_CONFIG
+
+    if name == "gpt-moe-mini":
+        return params_from_flax(random_flax_params(**GPT_MOE_CONFIG,
+                                                   seed=seed))
+    return tp_weights(torch, name, seed)
+
+
+def pp_model(torch, seed, name, dtype, pp=PP_P, n_expert=1, dropout=None):
+    """(model, module on the card with pp_weights) at the model's widths,
+    its loss pipelined over ``pp`` stages in PP_M microbatches (0: the
+    dense loss), its experts over the grid's expert axis for n_expert >
+    1; ``dropout`` in place of the published rate (0.1) where given."""
+    from kubeml_tpu_torch.models import get_model
+
+    model = get_model(name)(
+        dtype=torch.float32 if dtype == "f32" else torch.bfloat16)
+    if n_expert > 1:
+        model.enable_expert_parallel()
+    if pp:
+        model.enable_pipeline_parallel(pp, PP_M)
+    module = model.build(device="cuda")
+    module.load_state_dict(pp_weights(torch, name, seed))
+    if dropout is not None:
+        for m in module.modules():       # the module's and BERT's blocks'
+            if isinstance(getattr(m, "dropout", None), float):
+                m.dropout = dropout
+    return model, module
+
+
+def pp_round_inputs(rng, name):
+    """One round's inputs at the model's PP_SHAPES: phase 27's."""
+    if name == "bert-tiny":
+        return tp_round_inputs(rng, name)
+    B, T = PP_SHAPES[name]
+    return lm_round(rng, TP_W, TP_K, B, T)
+
+
+def pp_round(torch, seed, name, dtype, n_stage=1, n_expert=1, pp=PP_P,
+             dropout=None) -> dict:
+    """TP_ROUNDS K-avg rounds of the model (one lane, K=2, SGD 1e-2, the 4
+    MB bucketed merge) over a (stage x expert) rank grid of this
+    process's group, or in one process without a group (1 x 1: a
+    pipelined loss then runs the sequential schedule). ``pp``: the
+    stages the loss pipelines for (0: the dense loss). The counters are
+    zeroed just before the last round and read just after it."""
+    import functools
+
+    from kubeml_tpu_torch.parallel.kavg import KAvgEngine
+
+    model, module = pp_model(torch, seed, name, dtype, pp, n_expert, dropout)
+    engine = KAvgEngine(
+        module, model.loss, model.metrics,
+        lambda lr, e: functools.partial(torch.optim.SGD, lr=lr),
+        n_lanes=TP_W, merge_bucket_mb=MERGE_CAP_MB, n_stage=n_stage,
+        n_expert=n_expert, manual_inner=bool(pp))
+    state = {n: p.detach().clone() for n, p in module.named_parameters()}
+    rng = np.random.default_rng(seed + 43)
+    for _ in range(TP_ROUNDS):
+        args = pp_round_inputs(rng, name)
+        torch.cuda.synchronize()
+        seq_zero()                            # the main path's run starts
+        t0 = time.perf_counter()
+        state, st = engine.train_round(state, *args, TP_LR, 0)
+        loss = st.loss_sum
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, calls = seq_counts()          # ... and ends here
+    return {"state": {k: v.detach().cpu() for k, v in state.items()},
+            "counts": counts, "calls": calls, "ms": 1e3 * wall,
+            "loss": [float(v) for v in loss], "layers": module.layers,
+            "steps": int(args[2].sum()), "stages": n_stage, "pp": pp,
+            "buckets": engine.merge_comm_proxy(state)["buckets_per_round"]}
+
+
+def pp_plan(r) -> dict:
+    """A rank's launches over one pp_round: #2-#4 M x L / P a step on a
+    stage rank (M x L a step in one process's sequential schedule, L a
+    step in the dense round); #5 once a merge."""
+    per = r["layers"] * PP_M // r["stages"] if r["pp"] else r["layers"]
+    return {**{k: per * r["steps"] for k in ("forward", "dK/dV", "dQ")},
+            **merge_counts(r["buckets"], 1)}
+
+
+def pp_exchanges(r) -> int:
+    """A stage rank's hops over one pp_round: M + P - 2 each way a step."""
+    return 2 * (PP_M + r["stages"] - 2) * r["steps"] if r["stages"] > 1 \
+        else 0
+
+
+def pp_forward(torch, seed, impl) -> dict:
+    """(c): gpt-moe-mini's forward_pipelined (f32, B=8 pad-free token runs
+    of T=512, M=4) over (stage 2 x expert 2) under ``impl``, at
+    PP_CAPACITY: the logits and the aux."""
+    from kubeml_tpu_torch.models import gpt
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    model, module = pp_model(torch, seed, "gpt-moe-mini", "f32", pp=0)
+    module.ep_impl = impl
+    B, T = PP_SHAPES["gpt-moe-mini"]
+    x = np.maximum(lm_round(np.random.default_rng(seed + 44), 1, 1, B, T)[0][
+        "x"][0, 0], 1)
+    before, gpt.CAPACITY_FACTOR = gpt.CAPACITY_FACTOR, PP_CAPACITY
+    try:
+        logits, aux = model.forward_pipelined(
+            module, x, grid=dl.make_grid(1, 2, 1, PP_P), microbatches=PP_M)
+    finally:
+        gpt.CAPACITY_FACTOR = before
+    return {"logits": logits.cpu(), "aux": float(aux)}
+
+
+def pp_lane(torch, seed) -> dict:
+    """(c) on one NCCL rank (a stage axis of 1): gpt-mini's four blocks
+    (bf16, dropout 0.1 drawn per microbatch and block, the model's
+    pipelined stage function) as one stage over PP_M microbatches of a
+    [8, 512, 256] activation, through pipeline_lane (the explicit
+    schedule's forward and backward) and through sequential_apply
+    (autograd): whether the outputs and the blocks' gradients are equal
+    bit for bit, and their largest differences."""
+    from kubeml_tpu_torch.models.gpt import _param_tree, pp_keys, pp_stage
+    from kubeml_tpu_torch.parallel.pp import (pipeline_lane,
+                                              sequential_apply,
+                                              stack_stage_params)
+
+    _, module = pp_model(torch, seed, "gpt-mini", "bf16", pp=0)
+    B, T = PP_SHAPES["gpt-mini"]
+    rng = np.random.default_rng(seed + 45)
+    x = lm_round(rng, 1, 1, B, T)[0]["x"][0, 0]
+    pad = torch.from_numpy((x != 0).astype(np.float32)).cuda()
+    h = torch.from_numpy(rng.standard_normal((B, T, module.hidden)).astype(
+        np.float32)).cuda().to(module.dtype)
+    g = torch.from_numpy(rng.standard_normal((B, T, module.hidden)).astype(
+        np.float32)).cuda().to(module.dtype)
+    stage_fn = pp_stage(0.1, True, False)
+    consts = (pad.reshape(PP_M, B // PP_M, T), pp_keys(
+        torch.Generator(device="cuda").manual_seed(seed + 46), PP_M, 0.1))
+    hm = h.reshape(PP_M, B // PP_M, T, module.hidden)
+    outs = {}
+    for name, run in (("lane", lambda ls: pipeline_lane(
+            stage_fn, ls, hm, consts=consts)[0]),
+            ("sequential", lambda ls: sequential_apply(
+                stage_fn, stack_stage_params([ls]), hm, consts=consts))):
+        module.zero_grad(set_to_none=True)
+        named = dict(module.named_parameters())
+        layers = _param_tree(module, lambda n, dt: named[n].to(dt))["layers"]
+        ys = run(layers)
+        (ys.float() * g.reshape(hm.shape).float()).sum().backward()
+        torch.cuda.synchronize()
+        outs[name] = (ys.detach(), {n: p.grad.detach().clone() for n, p in
+                                    module.named_parameters()
+                                    if p.grad is not None})
+    (ya, ga), (yb, gb) = outs["lane"], outs["sequential"]
+    return {"ys_equal": bool(torch.equal(ya, yb)),
+            "ys_diff": float((ya.float() - yb.float()).abs().max()),
+            "grads_equal": set(ga) == set(gb) and all(
+                torch.equal(ga[k], gb[k]) for k in ga),
+            "grad_diff": max(float((ga[k] - gb[k]).abs().max()) for k in ga),
+            "grads": len(ga)}
+
+
+def pp_child(mode, outdir, seed) -> int:
+    """A rank of phase 28, started by dist_spawn with the KUBEML_*
+    environment: 'pp' (two gloo ranks, data 1 x stage 2): (b) the rounds
+    per model and dtype, at dropout 0 in f32, and gpt-moe-mini's f32
+    round; 'pp4' (four gloo ranks): (c) gpt-mini's f32 round at stage 4,
+    gpt-moe-mini's at stage 2 x expert 2 and its forward under both
+    expert routes; 'nccl' (one NCCL rank): pp_lane; 'job': (d), started
+    through tools.launch_distributed. Writes its rows under
+    ``outdir``."""
+    import faulthandler
+    import os
+
+    import torch
+
+    from kubeml_tpu_torch.parallel import distributed as dl
+
+    if mode == "job":
+        return rank_job_child(outdir, seed, PP_JOB_ARGV, "smoke-pp-job", 42)
+    faulthandler.dump_traceback_later(DIST_TIMEOUT, repeat=True)
+    settings(torch)
+    seed = int(seed)
+    dl.initialize(backend=None if mode == "nccl" else "gloo",
+                  timeout=DIST_TIMEOUT)
+    rank = dl.rank()
+    rows = {"world": dl.world_size()}
+    runs = []              # (key, model, dtype, stages, experts, dropout)
+    if mode == "pp":
+        runs = [(f"{name} {dtype}", name, dtype, PP_P, 1, None)
+                for name in TP_SHAPES for dtype in PP_DTYPES]
+        runs += [(f"{name} f32 dropout 0", name, "f32", PP_P, 1, 0.0)
+                 for name in TP_SHAPES]
+        runs += [("gpt-moe-mini f32", "gpt-moe-mini", "f32", PP_P, 1, None)]
+    elif mode == "pp4":
+        runs = [("gpt-mini f32 stage 4", "gpt-mini", "f32", 4, 1, None),
+                ("gpt-moe-mini f32 pp-ep", "gpt-moe-mini", "f32", PP_P, 2,
+                 None)]
+    else:
+        rows["lane"] = pp_lane(torch, seed)
+    for key, name, dtype, n_stage, n_expert, dropout in runs:
+        out = pp_round(torch, seed, name, dtype, n_stage, n_expert, n_stage,
+                       dropout)
+        torch.save(out.pop("state"), os.path.join(
+            outdir, f"{key.replace(' ', '_')}_p{rank}.pt"))
+        rows[key] = out
+    if mode == "pp4":
+        for impl in ("replicated", "alltoall"):
+            fwd = pp_forward(torch, seed, impl)
+            torch.save(fwd.pop("logits"), os.path.join(
+                outdir, f"fwd_{impl}_p{rank}.pt"))
+            rows[f"fwd {impl}"] = fwd
+    with open(os.path.join(outdir, f"{mode}_p{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    dl.shutdown()
+    return 0
+
+
+def phase_pp(torch, card, seed) -> dict:
+    """Phase 28: pipeline parallelism over ranks (see the module
+    docstring). The ranks of (b), (c), the NCCL rank and (d) start
+    together; this process meanwhile runs (a)'s kernel rows and the
+    one-process rounds they are held to. Returns the rows and launches
+    for the kernels line."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kubeml_pp_") as tmp:
+        spawned = [dist_spawn("pp", PP_P, tmp, seed, child=PP_CHILD),
+                   dist_spawn("pp4", 2 * PP_P, tmp, seed, child=PP_CHILD),
+                   dist_spawn("nccl", 1, tmp, seed, child=PP_CHILD),
+                   job_launch(tmp, seed, PP_CHILD, PP_P)]
+        shapes = tp_kernels(torch, card, seed, PP_KERNEL_CASES, "pp", 42)
+        # the sequential schedule (the pipelined loss without a stage
+        # axis: the same microbatches and draws) and the dense rounds
+        one = {(name, dtype): pp_round(torch, seed, name, dtype)
+               for name in TP_SHAPES for dtype in PP_DTYPES}
+        one["gpt-moe-mini", "f32"] = pp_round(torch, seed, "gpt-moe-mini",
+                                              "f32")
+        dense = {name: pp_round(torch, seed, name, "f32", pp=0, dropout=0.0)
+                 for name in TP_SHAPES}
+        ranks = dist_collect(card, spawned[0])
+        quad = dist_collect(card, spawned[1])
+        nccl = dist_collect(card, spawned[2])[0]
+        jobs = dist_collect(card, spawned[3])
+        misses = []
+        out = {"shapes": shapes, "rounds": {}, "one_process": {}}
+
+        def load(key, n):
+            tag = key.replace(" ", "_")
+            return [torch.load(os.path.join(tmp, f"{tag}_p{r}.pt"))
+                    for r in range(n)]
+
+        # (b) and (c): (key, rows, the run it is held to, tolerance, what)
+        checks = [(f"{name} {dtype}", ranks, one[name, dtype],
+                   PP_TOL[dtype], "b: against the sequential schedule")
+                  for name, dtype in one]
+        checks += [(f"{name} f32 dropout 0", ranks, dense[name],
+                    PP_DENSE_TOL, "b: at dropout 0 against the dense round")
+                   for name in TP_SHAPES]
+        held = {"gpt-mini f32": load("gpt-mini f32", 1)[0],
+                "gpt-moe-mini f32": load("gpt-moe-mini f32", 1)[0]}
+        checks += [("gpt-mini f32 stage 4", quad, {
+                        "state": held["gpt-mini f32"],
+                        "loss": ranks[0]["gpt-mini f32"]["loss"]},
+                    PP_TOL["f32"], "c: at stage 4 against stage 2"),
+                   ("gpt-moe-mini f32 pp-ep", quad, {
+                       "state": held["gpt-moe-mini f32"],
+                       "loss": ranks[0]["gpt-moe-mini f32"]["loss"]},
+                    PP_TOL["f32"], "c: at stage 2 x expert 2 against "
+                    "stage 2, replicated experts")]
+        for key, rows, want, tol, what in checks:
+            got = load(key, len(rows))
+            equal = all(dist_equal(torch, got[0], g) for g in got[1:])
+            diff = max(float((got[0][k].float() - want["state"][k].float())
+                             .abs().max()) for k in want["state"])
+            ok = all(torch.allclose(got[0][k].float(), want["state"][k]
+                                    .float(), rtol=tol, atol=tol)
+                     for k in want["state"])
+            rel = tp_relative(rows[0][key]["loss"], want["loss"])
+            counts = [r[key]["counts"] for r in rows]
+            plans = [pp_plan(r[key]) for r in rows]
+            hops = [r[key]["calls"]["exchange"] for r in rows]
+            hop_plan = [pp_exchanges(r[key]) for r in rows]
+            log(card, f"pp ({what}) {key}, {len(rows)} gloo ranks (1 lane, "
+                f"K={TP_K}, (B, T)={PP_SHAPES[key.split()[0]]}, M={PP_M}, "
+                f"SGD, {TP_ROUNDS} rounds): ranks equal bit for bit {equal};"
+                f" max|dw| {diff:.3g}, loss rel {rel:.3g} (tol {tol}); "
+                f"launches a rank {counts} (plan {plans}); exchanges a rank "
+                f"{hops} (plan {hop_plan}); collectives a rank "
+                f"{rows[0][key]['calls']}; round {TP_ROUNDS} "
+                f"{[round(r[key]['ms'], 1) for r in rows]} ms on the ranks")
+            if not (equal and ok) or rel > tol:
+                misses.append((key, equal, diff, rel))
+            if counts != plans or hops != hop_plan:
+                misses.append((key, "launches", counts, plans, hops))
+            out["rounds"][key] = counts
+        for key, r in [(f"{n} {d}", one[n, d]) for n, d in one] + [
+                (f"{n} f32 dense", r) for n, r in dense.items()]:
+            if r["counts"] != pp_plan(r):
+                misses.append(("one process", key, r["counts"]))
+            out["one_process"][key] = r["counts"]
+        # (c) the expert routes' forward and the NCCL rank
+        fwd = {impl: torch.load(os.path.join(tmp, f"fwd_{impl}_p0.pt"))
+               for impl in ("replicated", "alltoall")}
+        err = float((fwd["alltoall"] - fwd["replicated"]).abs().max())
+        finite = bool(torch.isfinite(fwd["alltoall"]).all())
+        log(card, f"pp (c) gpt-moe-mini forward_pipelined over stage 2 x "
+            f"expert 2 (f32, B=8, T=512, M={PP_M}, capacity factor "
+            f"{PP_CAPACITY:g}): ep_impl='alltoall' against 'replicated' "
+            f"max|dlogit| {err:.3g} (tol {PP_LOGIT_TOL}) of max|logit| "
+            f"{float(fwd['replicated'].abs().max()):.3g}; aux "
+            f"{quad[0]['fwd alltoall']['aux']:.6f} (the shards' statistics "
+            f"averaged) / {quad[0]['fwd replicated']['aux']:.6f}")
+        if err > PP_LOGIT_TOL or not finite:
+            misses.append(("forward routes", err, finite))
+        lane = nccl["lane"]
+        log(card, f"pp (c) one NCCL rank, gpt-mini's four blocks as one "
+            f"stage (bf16, dropout 0.1, M={PP_M}): pipeline_lane against "
+            f"sequential_apply, outputs equal bit for bit "
+            f"{lane['ys_equal']} (max|diff| {lane['ys_diff']:.3g}), "
+            f"{lane['grads']} gradients equal bit for bit "
+            f"{lane['grads_equal']} (max|diff| {lane['grad_diff']:.3g})")
+        if not lane["ys_equal"] or lane["grad_diff"] > FLASH_TOL["bf16"]:
+            misses.append(("nccl lane", lane))
+        # (d)
+        h = jobs[0]["history"]
+        steps = sum(dist_worker_steps(RANK_JOB_TRAIN, 2))
+        from kubeml_tpu_torch.data.sharding import plan_epoch
+
+        merges = len(plan_epoch(RANK_JOB_TRAIN, 2, JOB_K, JOB_B).rounds)
+        for r, j in enumerate(jobs):
+            per = j["layers"] * j["microbatches"] // j["stage"]
+            want = {"dK/dV": per * steps, "dQ": per * steps,
+                    **merge_counts(j["buckets"], merges)}
+            if j["grid"] != [1, 1, 1, 1] or j["stage"] != PP_P or \
+                    j["world"] != PP_P or any(j["counts"][k] != v
+                                              for k, v in want.items()):
+                misses.append(("job", r, j["grid"], j["counts"], want))
+        log(card, f"pp (d) `kubeml {' '.join(PP_JOB_ARGV)}` through "
+            f"tools.launch_distributed, {PP_P} gloo ranks (stage axis "
+            f"{jobs[0]['stage']}, {jobs[0]['microbatches']} microbatches): "
+            f"histories equal {jobs[0]['history'] == jobs[1]['history']}, "
+            f"train loss {h['train_loss']}, validation "
+            f"{h['validation_loss']}; launches over the epoch a rank "
+            f"{[j['counts'] for j in jobs]} (#3/#4 plan "
+            f"{jobs[0]['layers'] * PP_M // PP_P * steps}, #5 "
+            f"{merge_counts(jobs[0]['buckets'], merges)}); exchanges "
+            f"{[j['calls']['exchange'] for j in jobs]}; "
+            f"{jobs[0]['seconds']:.2f} s")
+        if jobs[0]["history"] != jobs[1]["history"] or not all(
+                np.isfinite(h["train_loss"] + h["validation_loss"])):
+            misses.append(("job history", jobs[0]["history"],
+                           jobs[1]["history"]))
+        out["job"] = [j["counts"] for j in jobs]
+        # (e)
+        log(card, "pp (e) ms a round (one lane, K=2) a stage rank against "
+            "one process's sequential schedule: " + "; ".join(
+                f"{name} {dtype} "
+                f"{[round(r[f'{name} {dtype}']['ms'], 1) for r in ranks]} vs "
+                f"{one[name, dtype]['ms']:.1f}" for name, dtype in one)
+            + "; the dense round at dropout 0 (f32): " + "; ".join(
+                f"{name} {dense[name]['ms']:.1f}" for name in TP_SHAPES)
+            + f"; stage 4 (f32) "
+            f"{[round(r['gpt-mini f32 stage 4']['ms'], 1) for r in quad]}; "
+            f"stage 2 x expert 2 (gpt-moe-mini f32) "
+            f"{[round(r['gpt-moe-mini f32 pp-ep']['ms'], 1) for r in quad]}"
+            f" (the ranks share the card and its host with each other and "
+            f"the other lanes)")
+    log(card, f"pp phase 28: {time.perf_counter() - t0:.1f} s")
+    if misses:
+        raise AssertionError(f"phase 28 misses: {misses}")
+    return out
+
+
+def pp_launches(pp, kernel) -> dict:
+    """A kernel's phase-28 launches for the kernels line: each round per
+    rank, the one-process rounds, the job per rank."""
+    return {"rounds": {k: [c[kernel] for c in v]
+                       for k, v in pp["rounds"].items()},
+            "one_process": {k: v[kernel]
+                            for k, v in pp["one_process"].items()},
+            "job": [c[kernel] for c in pp["job"]]}
+
+
 def phase_merge_only(torch, card, seed) -> dict:
     """--merge-only: what two trees of the port are compared by, through
     calls every tree with the fused merge has: (a) the one-segment
@@ -10131,15 +10594,15 @@ def start(torch, sources=None) -> str:
     return card
 
 
-# Phases 10-27 run in three processes of this script side by side: this
+# Phases 10-28 run in three processes of this script side by side: this
 # one and two lanes (``--lane DIR``) it starts after phase 1, which get
 # ready while phases 2-9 (the kernels' own rows and times) run here and
-# then wait for them. Most of the wall time of phases 10-27 goes to
+# then wait for them. Most of the wall time of phases 10-28 goes to
 # starting child processes (job servers, serve children, ranks: seconds
 # of imports and first CUDA calls each) and to waiting on them, which
 # the host's cores do side by side.
 HERE_PHASES = (15, 16, 14, 23)
-LANES = ((10, 17, 11, 12, 13, 18, 25), (22, 24, 19, 20, 21, 26, 27))
+LANES = ((10, 17, 11, 12, 13, 18, 25, 28), (22, 24, 19, 20, 21, 26, 27))
 LANE_S = 1000.0           # seconds a lane may take from its spawn
 
 
@@ -10191,6 +10654,7 @@ PHASES = {
     25: _ph("seq", phase_seq),
     26: _ph("ep", phase_ep, "mv"),      # after 21 in its lane
     27: _ph("tp", phase_tp),
+    28: _ph("pp", phase_pp),
 }
 LANE_GIVEN = ("direct", "engine_ms")     # what a lane reads of phases 1-9
 
@@ -10361,7 +10825,7 @@ def run(torch, seed) -> list:
         return out
 
     card = timed(1, start, torch)
-    # the lanes of phases 10-27 start up now and wait until phase 9 ends
+    # the lanes of phases 10-28 start up now and wait until phase 9 ends
     lanes = []
     try:
         for phases in LANES:
@@ -10398,7 +10862,7 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
     timed(9, phase_merge_check, torch, card, seed)
     timed(9, phase_merge_trace, torch, card, seed, engines)
     del engines
-    # phases 10-27: these here, the rest in the two lanes beside them
+    # phases 10-28: these here, the rest in the two lanes beside them
     ctx = {"module": module, "direct": direct, "engine_ms": engine_ms}
     for lane in lanes:
         lane_check(lane)
@@ -10418,11 +10882,11 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         ctx.update(g)
     (job_launches, vision_launches, cp_resnet, cp_gpt, cli, ps_launches,
      cluster, degraded, cost, continual, spec, text, mv, sync, dist, sd,
-     seq, ep, tp) = (ctx[k] for k in (
+     seq, ep, tp, pp) = (ctx[k] for k in (
          "job_launches", "vision_launches", "cp_resnet", "cp_gpt", "cli",
          "ps_launches", "cluster", "degraded", "cost", "continual", "spec",
-         "text", "mv", "sync", "dist", "sd", "seq", "ep", "tp"))
-    log(card, "wall by phase (s), 10-27 in three processes side by side: "
+         "text", "mv", "sync", "dist", "sd", "seq", "ep", "tp", "pp"))
+    log(card, "wall by phase (s), 10-28 in three processes side by side: "
         + ", ".join(f"{p}: {walls[p]:.3f}" for p in sorted(walls))
         + "; " + "; ".join(
             f"phases {', '.join(map(str, ph))}: "
@@ -10466,6 +10930,7 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         "seq_launches": 0,           # phase 25 serves nothing
         "ep_launches": 0,            # phase 26 serves nothing
         "tp_launches": 0,            # phase 27 serves nothing
+        "pp_launches": 0,            # phase 28 serves nothing
         "shape": f"decode S=8 T=1 H={H} D={D} G={G} Pmax={PMAX}",
         **rows[(pages, 8, 1)],
         "prefill": {"shape": f"S=1 T=16 context {PREFILL_CTX}",
@@ -10529,6 +10994,13 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
         "tp_launches": tp_launches(tp, kernel),
         "tp_shapes": [r for (_, k), r in tp["shapes"].items()
                       if k == kernel],
+        # phase 28: the stage ranks' rounds per rank (per model and dtype,
+        # at dropout 0, stage 4, stage x expert), the one-process rounds
+        # (the sequential schedule and the dense round), the two-rank job
+        # per rank; and (a)'s rows at the microbatch shapes
+        "pp_launches": pp_launches(pp, kernel),
+        "pp_shapes": [r for (_, k), r in pp["shapes"].items()
+                      if k == kernel],
         "shape": f"B={FA_B} T={main[2]} H={FA_H} D={FA_D} causal",
         **flash[(main[0], kernel)],
     } for kernel, line in (("forward", 80), ("dK/dV", 228), ("dQ", 281))] \
@@ -10587,6 +11059,10 @@ def run_rest(torch, seed, card, lanes, t_run, timed, walls) -> list:
                 # each rank) and the job's
                 tp_launches=tp_launches(tp, "fused_merge"),
                 tp_segments=tp_launches(tp, "merge segments"),
+                # phase 28: the stage ranks' merges (one launch a merge on
+                # each rank) and the job's
+                pp_launches=pp_launches(pp, "fused_merge"),
+                pp_segments=pp_launches(pp, "merge segments"),
                 resnet18=dict(merge_rows["plans"]["resnet18"],
                               launches_per_epoch=vision_launches))], card
 
@@ -10685,6 +11161,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="build the flash and merge kernels and run phase "
                          "27 (tensor parallelism over two and four gloo "
+                         "ranks and one NCCL rank) alone")
+    ap.add_argument("--pp-only", action="store_true",
+                    help="build the flash and merge kernels and run phase "
+                         "28 (pipeline parallelism over two and four gloo "
                          "ranks and one NCCL rank) alone")
     ap.add_argument("--merge-only", action="store_true",
                     help="build the fused merge and time, through calls "
@@ -10865,6 +11345,16 @@ def main(argv=None) -> int:
                 "shapes": [dict(case=c, kernel=k, **r) for (c, k), r in
                            tp["shapes"].items()],
                 "launches": {k: tp_launches(tp, k) for k in
+                             ("forward", "dK/dV", "dQ", "fused_merge",
+                              "merge segments")}}}))
+            return 0
+        if args.pp_only:
+            card = start(torch, ["flash_attention", "fused_merge"])
+            pp = phase_pp(torch, card, args.seed)
+            print(json.dumps({"card": card, "pp": {
+                "shapes": [dict(case=c, kernel=k, **r) for (c, k), r in
+                           pp["shapes"].items()],
+                "launches": {k: pp_launches(pp, k) for k in
                              ("forward", "dK/dV", "dQ", "fused_merge",
                               "merge segments")}}}))
             return 0

@@ -26,15 +26,13 @@ KUBEML_CONTROLLER_URL. ``serve`` starts the control plane on the card;
 its port-only ``--device`` defaults to CUDA and, as every entry point of
 the port, raises without a card unless it is given ``cpu``.
 
-Options whose module is not ported still parse, and are refused where the
-port refuses them, naming the ROADMAP item that brings them: ``train``
-runs the job's own check (``train.job.reject_unported``) before it
-submits. ``serve --coordinator HOST:PORT --num-processes N --process-id R``
+``serve --coordinator HOST:PORT --num-processes N --process-id R``
 (or the ``KUBEML_*`` environment of ``tools/launch_distributed.py``) joins
 a process group first; ``--mesh-data D`` runs every job over D lanes.
 ``train --seq-parallel N [--seq-impl ring|ulysses]``, ``--expert-parallel
-E`` and ``--tensor-parallel M [--tp-impl gspmd|manual]`` reach the job,
-which trains over inner groups of M x N x E ranks of that group (and
+E``, ``--tensor-parallel M [--tp-impl gspmd|manual]`` and
+``--pipeline-parallel P [--pp-microbatches M]`` reach the job, which
+trains over inner groups of M x N x P x E ranks of that group (and
 answers the JAX package's 400 where the ranks do not split into them).
 ``serve --serve-decode-steps K --serve-draft-model ID`` turns on the
 multi-step and speculative decode programs. ``dataset append`` commits a
@@ -174,10 +172,6 @@ def train_request(args) -> TrainRequest:
         continual=args.continual,
         window_generations=args.window_generations,
         publish_every_rounds=args.publish_every_rounds)
-    # the port's own refusal of options whose module is not ported (the
-    # job would raise the same 400 in the PS after the submit)
-    from kubeml_tpu_torch.train.job import reject_unported
-    reject_unported(options)
     return TrainRequest(
         model_type=args.function, batch_size=args.batch, epochs=args.epochs,
         dataset=args.dataset, lr=args.lr, function_name=args.function,

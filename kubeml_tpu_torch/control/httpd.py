@@ -7,8 +7,9 @@ One change from the JAX package's: a request's HTTP metrics are recorded
 before its response bytes go out (``_reply`` observes, then writes), so a
 scrape that follows a response always counts it. The JAX package counts
 in a ``finally`` after the write, where a scrape right after a response
-can miss it. A streamed response is still counted when its last chunk
-is written.
+can miss it. A streamed response is counted after its last chunk and
+before the chunk that ends it, so a client that has read the whole
+stream finds it counted too.
 """
 
 from __future__ import annotations
@@ -241,6 +242,7 @@ class JsonService:
                         self.wfile.write(b"%x\r\n" % len(chunk)
                                          + chunk + b"\r\n")
                         self.wfile.flush()
+                    self._observe()   # before the client reads the end
                     self.wfile.write(b"0\r\n\r\n")
                 except OSError:
                     # client went away mid-stream: the finally clause

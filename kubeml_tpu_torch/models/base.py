@@ -151,6 +151,41 @@ class KubeModel(abc.ABC):
                 "support manual tensor parallelism")
         self.tp_axis, self.tp_plan = MODEL_AXIS, plan
 
+    #: the model's trunk is a uniform stack of blocks that pipelines
+    #: over the rank grid's stage axis (the transformer families)
+    pipeline_trunk = False
+
+    #: microbatches a step of the pipelined loss (enable_pipeline_parallel);
+    #: 0 = the dense loss
+    _pp_microbatches = 0
+
+    def enable_pipeline_parallel(self, n_stage: int,
+                                 microbatches: int = 0) -> None:
+        """Train through a GPipe pipeline of the model's blocks over the
+        rank grid's ``stage`` axis (the job calls it for
+        ``--pipeline-parallel`` > 1; it composes with
+        ``enable_expert_parallel``): the loss runs ``microbatches``
+        microbatches (0: 2 x ``n_stage``) through stages of L / n_stage
+        consecutive blocks, the modules and their parameters unchanged.
+        The reference's refusals, in its order: a model without a
+        pipelineable trunk; a seq or model axis; layers that do not split
+        over the stages."""
+        if not self.pipeline_trunk:
+            raise ValueError(
+                f"function {self.name or type(self).__name__!r} does not "
+                "support pipeline parallelism (requires a uniform "
+                "pipelineable trunk — the transformer families: GPT, "
+                "BERT)")
+        if self.seq_axis is not None or self.tp_axis is not None:
+            raise ValueError(
+                "pipeline parallelism composes with expert parallelism "
+                "only (not --seq-parallel/--tensor-parallel)")
+        layers = self.build(device="meta").layers
+        if layers % n_stage:
+            raise ValueError(
+                f"{layers} layers do not split over a {n_stage}-stage axis")
+        self._pp_microbatches = int(microbatches) or 2 * int(n_stage)
+
     def enable_expert_parallel(self) -> None:
         """Build the model's modules with their experts split over the
         rank grid's ``expert`` axis (the job calls it for

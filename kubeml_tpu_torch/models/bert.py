@@ -29,7 +29,10 @@ as the GPT block does (``models/gpt.py``: the heads split, non-causal
 attention on the local heads, the out-projection and the FFN's second
 Dense summed over the axis), alone or with the seq axis's ring; the
 parameters stay whole. Pipeline parallelism (``enable_pipeline_parallel``)
-is not ported and refuses, naming ROADMAP A.12's pipeline half.
+runs the encoder blocks as the GPT family's pipelined trunk
+(``models/gpt.pp_trunk``, not causal) over the rank grid's stage axis;
+the embeddings, the final LayerNorm, the masked mean-pool and the
+classifier run on every stage.
 """
 
 from __future__ import annotations
@@ -41,17 +44,15 @@ import torch
 from torch import nn
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
-from kubeml_tpu_torch.api.errors import NotPortedError
 from kubeml_tpu_torch.convert import (bert_params_from_flax,
                                       bert_params_to_flax)
 from kubeml_tpu_torch.models.base import (PAD_ID, ClassifierModel,
                                           InferenceInputError,
                                           register_model)
-from kubeml_tpu_torch.models.gpt import (LN_EPS, PIPELINE_PARALLEL,
-                                         DecoderBlock, _block,
+from kubeml_tpu_torch.models.gpt import (LN_EPS, DecoderBlock, _block,
                                          _forward_seq_parallel, _layer_norm,
-                                         check_tp, seq_attention, seq_draw,
-                                         tp_layer)
+                                         check_tp, pp_trunk, seq_attention,
+                                         seq_draw, tp_layer)
 from kubeml_tpu_torch.models.layers import Dense, _dropout
 from kubeml_tpu_torch.ops.attention import masked_attention
 from kubeml_tpu_torch.parallel import distributed as dist_lib
@@ -77,15 +78,7 @@ class EncoderBlock(DecoderBlock):
         ``generator``. ``attend(q, k, v)`` replaces the dense attention
         (the sequence-parallel one); ``tp`` is the block's
         tensor-parallel entry (``models/gpt.tp_layer``)."""
-        dt = self.dtype
-
-        def lin(m):
-            return m.weight.to(dt), m.bias.to(dt)
-
-        lp = {"ln0": (self.ln0.weight, self.ln0.bias), "q": lin(self.q),
-              "k": lin(self.k), "v": lin(self.v), "out": lin(self.out),
-              "ln1": (self.ln1.weight, self.ln1.bias), "fc0": lin(self.fc0),
-              "fc1": lin(self.fc1), "heads": self.heads}
+        lp = self.layer_params()
         if tp is not None:
             lp["tp"] = tp
         rate = self.dropout if train else 0.0
@@ -93,6 +86,19 @@ class EncoderBlock(DecoderBlock):
             attend = lambda q, k, v: masked_attention(  # noqa: E731
                 q, k, v, pad_mask, causal=False)
         return _block(lp, h, attend, lambda t: _dropout(t, rate, generator))
+
+    def layer_params(self) -> dict:
+        """The block's parameter dict for ``models/gpt._block``: Dense
+        weights cast to the compute dtype, LayerNorm parameters f32."""
+        dt = self.dtype
+
+        def lin(m):
+            return m.weight.to(dt), m.bias.to(dt)
+
+        return {"ln0": (self.ln0.weight, self.ln0.bias), "q": lin(self.q),
+                "k": lin(self.k), "v": lin(self.v), "out": lin(self.out),
+                "ln1": (self.ln1.weight, self.ln1.bias), "fc0": lin(self.fc0),
+                "fc1": lin(self.fc1), "heads": self.heads}
 
 
 class BertModule(nn.Module):
@@ -179,16 +185,45 @@ class BertModule(nn.Module):
         for i, blk in enumerate(self.blocks):
             h = blk(h, pad_mask, train, generator, attend,
                     tp_layer(self, i, blk.out.bias, blk.fc1.bias))
+        return self._head(h, pad_mask)
+
+    def _head(self, h: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm, the keep-mask mean-pool (its sums over the
+        seq group under a seq axis: the logits after it are the same on
+        every seq rank) and the classifier -> [B, classes] f32."""
         h = _layer_norm(h, self.ln_f.weight, self.ln_f.bias)
         num = (h * pad_mask[..., None]).sum(1)
         den = pad_mask.sum(1)
-        if axis is not None:
-            # the pool's sums over the seq group: the logits after it are
-            # the same on every seq rank
-            num = dist_lib.psum(num, axis)
-            den = dist_lib.psum(den, axis)
+        if self.seq_axis is not None:
+            num = dist_lib.psum(num, self.seq_axis)
+            den = dist_lib.psum(den, self.seq_axis)
         pooled = num / den.clamp_min(1.0)[..., None]
         return self.classifier(pooled).float()
+
+    def pipelined_logits(self, x: torch.Tensor, generator,
+                         microbatches: int) -> torch.Tensor:
+        """The reference's pipelined classifier forward
+        (``BertTiny._pp_forward_loss`` up to the loss): the embeddings and
+        their dropout (from the step's ``generator``), the encoder blocks
+        through ``models/gpt.pp_trunk`` (not causal) in ``microbatches``
+        microbatches, then the head on every stage -> [B, classes] f32."""
+        B, T = x.shape
+        if T > self.max_len:
+            raise InferenceInputError(
+                f"sequence length {T} exceeds max_len {self.max_len}")
+        if B % microbatches:
+            raise ValueError(
+                f"batch {B} not divisible by {microbatches} microbatches")
+        x = x.to(self.device)
+        pad_mask = (x != PAD_ID).float()
+        dt = self.dtype
+        h = self.tok_embed.weight[x].to(dt) \
+            + self.pos_embed.weight[:T].to(dt)[None]
+        h = _dropout(h, self.dropout, generator)
+        h, _ = pp_trunk([blk.layer_params() for blk in self.blocks], h,
+                        pad_mask, generator, self.dropout, False,
+                        microbatches, False)
+        return self._head(h, pad_mask)
 
 
 @register_model("bert-tiny")
@@ -205,6 +240,8 @@ class BertTiny(ClassifierModel):
     seq_batch_dims = {"x": 0}
     # tensor parallelism: the Megatron table over the encoder blocks
     tp_rules = TRANSFORMER_TP_RULES
+    # pipeline parallelism: the encoder blocks are a uniform trunk
+    pipeline_trunk = True
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16):
         self.dtype = dtype   # compute dtype of the modules it builds
@@ -217,7 +254,11 @@ class BertTiny(ClassifierModel):
                           tp_axis=self.tp_axis, tp_plan=self.tp_plan)
 
     def loss(self, module, batch, generator, sample_mask):
-        logits = module(batch["x"], train=True, generator=generator)
+        if self._pp_microbatches:
+            logits = module.pipelined_logits(
+                batch["x"], generator, self._pp_microbatches)
+        else:
+            logits = module(batch["x"], train=True, generator=generator)
         return torch.nn.functional.cross_entropy(
             logits, batch["y"].to(logits.device).long(), reduction="none")
 
@@ -245,8 +286,3 @@ class BertTiny(ClassifierModel):
         one; n = 1 without a group)."""
         return _forward_seq_parallel(module, x, grid, impl,
                                      lambda m, xb: m(xb), gather=False)
-
-    def enable_pipeline_parallel(self, n_stage: int,
-                                 microbatches: int = 0) -> None:
-        raise NotPortedError("bert-tiny's pipeline parallelism",
-                             PIPELINE_PARALLEL)

@@ -34,9 +34,11 @@ the router and the experts run in f32 on the f32 LayerNorm output, as
 the reference's do, and each block's load-balance aux joins the loss.
 With ``ep_axis`` (the rank grid's ``"expert"``) each rank of the expert
 group routes the same tokens and runs its share of the experts
-(``parallel/manual.ep_partial_ffn``); under a seq axis each rank routes
-its own block of the sequence (per-shard capacity). The serving programs
-refuse an MoE module, as the reference's do.
+(``parallel/manual.ep_partial_ffn``), or, under ``ep_impl="alltoall"``,
+routes its own 1/n of the tokens and exchanges the slots with the
+experts' ranks (``parallel/manual.ep_alltoall_ffn``); under a seq axis
+each rank routes its own block of the sequence (per-shard capacity). The
+serving programs refuse an MoE module, as the reference's do.
 
 ``tp_axis`` (the rank grid's ``"model"``) runs every block's two Megatron
 pairs over the model axis (``parallel/manual.py``): q/k/v on this rank's
@@ -48,6 +50,12 @@ second on the matching rows, summed. ``tp_plan`` (the GSPMD route's
 runs whole; without one every pair splits and heads or an FFN width that
 does not divide is refused (the manual route). The serving programs
 refuse a tensor-parallel module.
+
+Pipeline parallelism (``GPTMini.enable_pipeline_parallel``, the
+reference's ``_pp_forward_loss``; ``forward_pipelined``) runs the blocks
+as ``pp_trunk``: M microbatches through stages of L/P consecutive blocks
+over the rank grid's stage axis (``parallel/pp.py``), the embedding, the
+final LayerNorm and the head on every stage, the parameters whole.
 """
 
 from __future__ import annotations
@@ -61,7 +69,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
-from kubeml_tpu_torch.api.errors import NotPortedError
 from kubeml_tpu_torch.convert import params_from_flax, params_to_flax
 from kubeml_tpu_torch.models.base import (PAD_ID, InferenceInputError,
                                           KubeModel, register_model)
@@ -72,12 +79,16 @@ from kubeml_tpu_torch.ops.attention import (NEG_INF, composed_bias,
                                             ring_flash_eligible)
 from kubeml_tpu_torch.ops.paged_attention import paged_attention
 from kubeml_tpu_torch.parallel import distributed as dist_lib
-from kubeml_tpu_torch.parallel.distributed import EXPERT_AXIS, SEQ_AXIS
+from kubeml_tpu_torch.parallel.distributed import (EXPERT_AXIS, SEQ_AXIS,
+                                                   STAGE_AXIS)
 from kubeml_tpu_torch.parallel.ep import moe_apply, route_tokens
-from kubeml_tpu_torch.parallel.manual import (ep_partial_ffn,
+from kubeml_tpu_torch.parallel.manual import (all_gather, ep_alltoall_ffn,
+                                              ep_partial_ffn,
                                               tp_column_dense, tp_heads_dense,
                                               tp_out_dense, tp_row_dense,
                                               validate_tp_geometry)
+from kubeml_tpu_torch.parallel.pp import (pipeline_lane, sequential_apply,
+                                          stack_stage_params)
 from kubeml_tpu_torch.parallel.ring_attention import (_seq_block,
                                                       gather_seq,
                                                       ring_attention)
@@ -89,9 +100,6 @@ LN_EPS = 1e-6  # flax LayerNorm's default, not torch's 1e-5
 # ceil(tokens / experts x 1.25) (the reference's moe_k, capacity_factor)
 MOE_K = 2
 CAPACITY_FACTOR = 1.25
-# what brings the pipelined paths, by ROADMAP item
-PIPELINE_PARALLEL = "pipeline parallelism over NCCL ranks, ROADMAP A.12's " \
-    "pipeline half"
 
 # published widths of the built-in GPT family (kubeml_tpu/models/gpt.py
 # GPTModule defaults and GPTNano.build)
@@ -182,10 +190,11 @@ class GPTModule(nn.Module):
     ``ep_axis`` (the rank grid's ``"expert"``) runs every MoE block's
     experts split over the expert axis: ``ep_impl="replicated"`` routes
     the same tokens on every rank of the axis and sums the ranks' partial
-    outputs (``ep_partial_ffn``); the reference's token-sharded
-    ``"alltoall"`` comes with ROADMAP A.12. The experts must divide over
-    the axis. An unknown ``ep_impl`` raises on every path of an MoE
-    module, as the reference's does.
+    outputs (``ep_partial_ffn``); ``"alltoall"`` routes each rank's 1/n
+    of the tokens and exchanges slot payloads with the experts' ranks
+    (``ep_alltoall_ffn``; the reference's forward paths' route). The
+    experts must divide over the axis. An unknown ``ep_impl`` raises on
+    every path of an MoE module, as the reference's does.
 
     ``tp_axis`` (the rank grid's ``"model"``) makes the training forward
     tensor-parallel over the model axis (module docstring), with the
@@ -515,22 +524,119 @@ def _moe_expert_parallel(moe: dict, x: torch.Tensor,
                          token_mask: torch.Tensor, axis_name: str,
                          impl: str) -> tuple:
     """An MoE block's experts over the expert axis ``axis_name`` (the
-    reference's ``MoEFFN`` with ``ep_axis``): the shared routing preamble
-    on this rank's tokens, then ``ep_partial_ffn``. -> (y [T, D], aux)."""
+    reference's ``MoEFFN`` with ``ep_axis``) -> (y [T, D], aux).
+    "replicated": the shared routing preamble on this rank's tokens, then
+    ``ep_partial_ffn``. "alltoall": this rank routes its contiguous 1/n
+    of the tokens (per-shard capacity, the aux averaged over the axis so
+    it stays the same on every rank), ``ep_alltoall_ffn`` runs the slots
+    through their experts' ranks, and the ranks' outputs are gathered
+    back into the whole token set."""
     e, n = moe["wi"].shape[0], dist_lib.axis_size(axis_name)
     if e % n:
         raise ValueError(f"{e} experts do not divide over a {n}-way "
                          "expert axis")
-    if impl != "replicated":
-        raise NotPortedError(
-            f"ep_impl={impl!r} (the token-sharded expert FFN of the "
-            "pipelined and forward paths)", PIPELINE_PARALLEL)
+    if impl == "alltoall":
+        t = x.shape[0]
+        if t % n:
+            raise ValueError(f"{t} tokens do not divide over a {n}-way "
+                             "expert axis (ep_impl='alltoall')")
+        rows = slice(dist_lib.axis_index(axis_name) * (t // n),
+                     (dist_lib.axis_index(axis_name) + 1) * (t // n))
+        x_local = x[rows]
+        dispatch, combine, aux = route_tokens(
+            moe["router"], x_local, k=MOE_K, capacity_factor=CAPACITY_FACTOR,
+            token_mask=token_mask[rows])
+        aux = dist_lib.psum(aux, axis_name) / n
+        y_local = ep_alltoall_ffn(moe["wi"], moe["bi"], moe["wo"], moe["bo"],
+                                  dispatch, combine, x_local, axis_name,
+                                  dtype=x.dtype)
+        return all_gather(y_local, axis_name), aux
     dispatch, combine, aux = route_tokens(
         moe["router"], x, k=MOE_K, capacity_factor=CAPACITY_FACTOR,
         token_mask=token_mask)
     y = ep_partial_ffn(moe["wi"], moe["bi"], moe["wo"], moe["bo"], dispatch,
                        combine, x, axis_name, dtype=x.dtype)
     return y, aux
+
+
+def _fold(key: int, data: int) -> int:
+    """A 64-bit seed from a 64-bit key and a count (jax.random's fold_in,
+    through numpy's SeedSequence)."""
+    return int(np.random.SeedSequence(
+        [key & 0xFFFFFFFF, key >> 32, int(data)]).generate_state(
+            1, np.uint64)[0])
+
+
+def pp_stage(rate: float, causal: bool, moe: bool) -> Callable:
+    """The pipelined trunk's stage function (``pp_trunk``):
+    stage_fn(stage_layers, act, (mask, key)) runs ``stage_layers``
+    (``_param_tree``'s per-block dicts: the stage's blocks [s·L/P,
+    (s+1)·L/P)) over one [B/M, T, D] microbatch ``act``, attention under
+    its pad ``mask`` (``causal`` or not), dropout at ``rate`` from a
+    generator per (microbatch ``key``, global block); a block's output
+    cast back to the activation's dtype (an MoE block's is f32), as the
+    reference's stage carries it. Returns the activation, and with
+    ``moe`` the blocks' aux summed."""
+    def stage_fn(stage_layers, act, const):
+        mask, key = const
+        first = dist_lib.axis_index(STAGE_AXIS) * len(stage_layers)
+        attend = lambda q, k, v: masked_attention(  # noqa: E731
+            q, k, v, mask, causal=causal)
+        aux: list = []
+        for i, lp in enumerate(stage_layers):
+            gen = None
+            if key is not None:
+                gen = torch.Generator(device=act.device).manual_seed(
+                    _fold(key, first + i))
+            act = _block(lp, act, attend,
+                         lambda t, g=gen: _dropout(t, rate, g), mask,
+                         aux).to(act.dtype)
+        return (act, sum(aux)) if moe else act
+    return stage_fn
+
+
+def pp_keys(generator, microbatches: int, rate: float) -> list:
+    """One dropout key a microbatch: the step generator's key
+    (``generator.initial_seed()``: the engine seeds it from the step's key
+    data) folded with the microbatch, as the reference splits one key a
+    microbatch; None each at rate 0."""
+    if rate == 0.0:
+        return [None] * microbatches
+    return [_fold(generator.initial_seed(), j) for j in range(microbatches)]
+
+
+def pp_trunk(layers: list, h: torch.Tensor, pad_mask: torch.Tensor,
+             generator, rate: float, causal: bool, microbatches: int,
+             moe: bool) -> tuple:
+    """The reference's pipelined trunk: the [B, T, D] activation cut into
+    ``microbatches`` contiguous [B/M, T, D] microbatches through the
+    blocks ``layers`` (``pp_stage``'s stage function; the microbatch's
+    pad mask and dropout key as its consts), over the current grid's
+    stage axis (``parallel/pp.pipeline_lane``: this stage runs blocks
+    [s·L/P, (s+1)·L/P)) or, without one, ``parallel/pp.sequential_apply``
+    of one stage of every block. The dropout draws depend on the
+    microbatch and the global block only: the same on every stage rank
+    and at every P. -> ([B, T, D], the MoE blocks' aux summed over every
+    block and microbatch; 0.0 for a dense trunk)."""
+    n = dist_lib.axis_size(STAGE_AXIS)
+    if len(layers) % n:
+        raise ValueError(f"{len(layers)} layers do not split over a "
+                         f"{n}-stage axis")
+    M = microbatches
+    B, T, D = h.shape
+    stage_fn = pp_stage(rate, causal, moe)
+    hm = h.reshape(M, B // M, T, D)
+    consts = (pad_mask.reshape(M, B // M, T), pp_keys(generator, M, rate))
+    if n == 1:
+        out = sequential_apply(stage_fn, stack_stage_params([layers]), hm,
+                               has_aux=moe, consts=consts)
+        ys, aux = out if moe else (out, 0.0)
+    else:
+        per = len(layers) // n
+        sid = dist_lib.axis_index(STAGE_AXIS)
+        ys, aux = pipeline_lane(stage_fn, layers[sid * per:(sid + 1) * per],
+                                hm, has_aux=moe, consts=consts)
+    return ys.reshape(B, T, D), aux if moe else 0.0
 
 
 def _lm_head(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -1111,12 +1217,47 @@ class GPTMini(KubeModel):
     def params_from_flax(self, params):
         return params_from_flax(params)
 
+    # pipeline parallelism: the decoder blocks are a uniform trunk
+    # (KubeModel.enable_pipeline_parallel)
+    pipeline_trunk = True
+
     def loss(self, module, batch, generator, sample_mask):
         x = batch["x"].to(module.device)
+        if self._pp_microbatches:
+            return self._pp_forward_loss(module, x, generator)
         logits = module.logits(x, train=True, generator=generator)
         if module.seq_axis is not None:
             return _lm_per_example_sp(logits, x, module.seq_axis)
         return _lm_per_example(logits, x)
+
+    def _pp_forward_loss(self, module, x, generator) -> torch.Tensor:
+        """The pipelined per-sequence loss (the reference's
+        ``_pp_forward_loss``): the embeddings and their dropout (drawn
+        from the step's ``generator``, as the dense path draws them), the
+        blocks through ``pp_trunk`` in ``_pp_microbatches`` microbatches,
+        the final LayerNorm, the head and the LM loss on every stage; an
+        MoE trunk adds ``aux_coef`` times its aux over layers x
+        microbatches, the pipelined analog of the dense loss's mean over
+        the layers."""
+        B, T = x.shape
+        if T > module.max_len:
+            raise InferenceInputError(
+                f"sequence length {T} exceeds max_len {module.max_len}")
+        M = self._pp_microbatches
+        if B % M:
+            raise ValueError(f"batch {B} not divisible by {M} microbatches")
+        named = dict(module.named_parameters())
+        p = _param_tree(module, lambda name, dtype: named[name].to(dtype))
+        pad_mask = (x != PAD_ID).float()
+        rate = module.dropout
+        h = _dropout(p["tok_embed"][x] + p["pos_embed"][:T][None], rate,
+                     generator)
+        h, aux = pp_trunk(p["layers"], h, pad_mask, generator, rate, True,
+                          M, bool(module.n_experts))
+        per_ex = _lm_per_example(_lm_head(p, h), x)
+        if module.n_experts:
+            per_ex = per_ex + self.aux_coef * aux / (module.layers * M)
+        return per_ex
 
     def metrics(self, module, batch):
         x = batch["x"].to(module.device)
@@ -1147,6 +1288,67 @@ class GPTMini(KubeModel):
         current one; n = 1 without a group)."""
         return _forward_seq_parallel(module, x, grid, impl,
                                      lambda m, xb: m.logits(xb))
+
+    def forward_pipelined(self, module, x, grid=None, microbatches: int = 4):
+        """The causal forward with the blocks pipelined over the rank
+        grid's stage axis (the reference's over its mesh): every rank of a
+        stage group passes the same pad-free [B, T] ids (B divisible by
+        ``microbatches``) and gets the [B, T, vocab] f32 logits, no grad,
+        with ``module``'s parameters. An MoE trunk routes each
+        microbatch on its own (per-microbatch capacity, the reference's
+        pipelined semantics) and returns (logits, aux), the aux over
+        layers x microbatches; over a grid's expert axis its experts
+        split under the module's ``ep_impl`` ("replicated" or
+        "alltoall"). ``grid``: a ``distributed.make_grid`` grid (None: the
+        current one; one stage without a group). The reference's guards,
+        in its order: an expert axis without experts, layers that do not
+        split over the stages, a batch that does not split into the
+        microbatches, T > max_len, padded rows."""
+        grid = dist_lib.current_grid() if grid is None \
+            else dist_lib.make_grid(grid.n_seq, grid.n_expert, grid.n_model,
+                                    grid.n_stage)
+        if grid.n_expert > 1 and not module.n_experts:
+            raise ValueError("the mesh has an expert axis but the model "
+                             "has no experts")
+        if grid.n_expert > 1 and module.n_experts % grid.n_expert:
+            # the blocks' own refusal, raised here on every rank alike: a
+            # stage that raised inside the trunk would leave the others
+            # waiting at its hops
+            raise ValueError(f"{module.n_experts} experts do not divide "
+                             f"over a {grid.n_expert}-way expert axis")
+        L = module.layers
+        if L % grid.n_stage:
+            raise ValueError(f"{L} layers do not split over a "
+                             f"{grid.n_stage}-stage axis")
+        x = torch.as_tensor(np.asarray(x), device=module.device)
+        B, T = x.shape
+        M = microbatches
+        if B % M:
+            raise ValueError(f"batch {B} not divisible by {M} microbatches")
+        if T > module.max_len:
+            raise ValueError(f"sequence length {T} exceeds max_len "
+                             f"{module.max_len}")
+        if bool((x == PAD_ID).any()):
+            raise ValueError("forward_pipelined requires pad-free rows "
+                             "(the pipelined trunk runs without a pad "
+                             "mask); use the dense forward for padded "
+                             "batches")
+        moe = bool(module.n_experts)
+        # the reference's block built with the grid's expert axis, on the
+        # same parameters
+        dense = module.ep_axis
+        module.ep_axis = EXPERT_AXIS if grid.n_expert > 1 else None
+        try:
+            with torch.no_grad():
+                p = compute_params(module)
+                h = p["tok_embed"][x] + p["pos_embed"][:T][None]
+                h, aux = pp_trunk(p["layers"], h,
+                                  torch.ones(B, T, device=x.device), None,
+                                  0.0, True, M, moe)
+                logits = _lm_head(p, h)
+        finally:
+            module.ep_axis = dense
+        return (logits, aux / (L * M)) if moe else logits
 
     def configure_optimizers(self, lr, epoch):
         """The reference's ``optax.adamw(lr, weight_decay=0.01)`` as
@@ -1180,11 +1382,13 @@ class GPTMoEMini(GPTMini):
     Its parallel paths: ``enable_seq_parallel`` (the dense family's: each
     seq rank routes its own block of the sequence, per-shard capacity),
     ``enable_expert_parallel`` (the experts split over the rank grid's
-    expert axis, alone or with a seq axis), ``forward_seq_parallel`` (the
-    dense family's). The reference's ``ep_mesh`` takes a JAX
-    ``Mesh``, which has no counterpart here (ROADMAP C.13): its GSPMD
-    route and its manual one are both the port's expert axis. The
-    pipelined path raises NotPortedError naming ROADMAP A.12."""
+    expert axis, alone or with a seq or a stage axis),
+    ``enable_pipeline_parallel`` (the dense family's: routing capacity
+    per microbatch, the aux over layers x microbatches),
+    ``forward_seq_parallel`` and ``forward_pipelined`` (the dense
+    family's). The reference's ``ep_mesh`` takes a JAX ``Mesh``, which
+    has no counterpart here (ROADMAP C.13): its GSPMD route and its
+    manual one are both the port's expert axis."""
 
     name = "gpt-moe-mini"
     aux_coef = 0.01
@@ -1217,6 +1421,9 @@ class GPTMoEMini(GPTMini):
 
     def loss(self, module, batch, generator, sample_mask):
         x = batch["x"].to(module.device)
+        if self._pp_microbatches:
+            # the pipelined trunk folds the aux into its loss
+            return self._pp_forward_loss(module, x, generator)
         logits, aux = module.logits_and_aux(x, train=True,
                                             generator=generator)
         mean_aux = sum(aux) / max(1, module.layers)
@@ -1244,11 +1451,6 @@ class GPTMoEMini(GPTMini):
                 "expert-axis-invariant); ep_impl='alltoall' serves the "
                 "pipelined and forward paths only")
         self.ep_axis = EXPERT_AXIS
-
-    def enable_pipeline_parallel(self, n_stage: int,
-                                 microbatches: int = 0) -> None:
-        raise NotPortedError("gpt-moe-mini's pipeline parallelism",
-                             PIPELINE_PARALLEL)
 
     def enable_tensor_parallel(self) -> None:
         raise ValueError(

@@ -45,20 +45,24 @@ the host on gloo: the named path, never a silent one.
 
 The rank grid (``make_grid``) lays the ranks out as the JAX package's
 mesh lays out its devices (``kubeml_tpu/parallel/mesh.py``: ``data``
-outermost, then ``model``, ``seq`` and ``expert``): global rank r has
-data index r // (n_model * n_seq * n_expert), model index
-(r // (n_seq * n_expert)) % n_model, seq index (r // n_expert) % n_seq
-and expert index r % n_expert. The n_model * n_seq * n_expert ranks of
-one data index are its inner group: they run the same lane's workers.
-The model group (the ranks of one data, seq and expert index) carries
-tensor parallelism's row-layer sums; the seq group (one data, model and
-expert index) sequence parallelism's ring hops, all-to-alls and sums;
-the expert group (one data, model and seq index) the expert FFN's sum;
-the data group (one model, seq and expert index) the lane merge.
-``axis_size``/``axis_index``/``axis_group`` answer for the model, seq
-and expert axes of the installed grid as ``lax.axis_size``/
-``lax.axis_index`` answer inside a shard_map: without a grid (or a
-group) an axis has size 1, and the collectives over it are identities.
+outermost, then ``model``, ``seq``, ``stage`` and ``expert``): with
+n_inner = n_model * n_seq * n_stage * n_expert, global rank r has data
+index r // n_inner, model index (r // (n_seq * n_stage * n_expert)) %
+n_model, seq index (r // (n_stage * n_expert)) % n_seq, stage index
+(r // n_expert) % n_stage and expert index r % n_expert (at n_stage = 1,
+the ranks and groups of a (data x model x seq x expert) grid, made in
+the same order). The n_inner ranks of one data index are its inner group: they run
+the same lane's workers. Each axis's group holds the ranks that differ
+along that axis alone: the model group carries tensor parallelism's
+row-layer sums, the seq group sequence parallelism's ring hops,
+all-to-alls and sums, the stage group the pipeline's activation hops and
+its closing sum (``parallel/pp.py``), the expert group the expert FFN's
+sum or all-to-alls, and the data group (one index on every inner axis)
+the lane merge. ``axis_size``/``axis_index``/``axis_group`` answer for
+the model, seq, stage and expert axes of the installed grid as
+``lax.axis_size``/``lax.axis_index`` answer inside a shard_map: without
+a grid (or a group) an axis has size 1, and the collectives over it are
+identities.
 ``all_to_all`` is counted; ``psum`` is the differentiable sum over an
 axis (its backward is the same sum) and ``ring_shift`` the
 differentiable ring hop (its backward sends the gradient back the other
@@ -69,7 +73,9 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import itertools
 import logging
+import math
 import os
 from dataclasses import dataclass
 from typing import List, Optional
@@ -261,24 +267,23 @@ def lane_layout(n_lanes: int, world: Optional[int] = None,
 
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+STAGE_AXIS = "stage"
 EXPERT_AXIS = "expert"
+# the mesh's axis order, data outermost (kubeml_tpu/parallel/mesh.py)
+GRID_AXES = ("data", MODEL_AXIS, SEQ_AXIS, STAGE_AXIS, EXPERT_AXIS)
 
 
 @dataclass(frozen=True)
 class RankGrid:
-    """The ranks as a (data x model x seq x expert) grid, data outermost
-    and expert innermost: rank r has ``data_index`` r // n_inner,
-    ``model_index`` (r // (n_seq * n_expert)) % n_model, ``seq_index``
-    (r // n_expert) % n_seq and ``expert_index`` r % n_expert.
-    ``model_group`` holds the n_model ranks of this rank's data, seq and
-    expert index, ``seq_group`` the n_seq ranks of its data, model and
-    expert index, ``expert_group`` the n_expert ranks of its data, model
-    and seq index, ``inner_group`` the n_inner ranks of its data index
-    (the one inner axis's group when only one has size > 1), and
-    ``data_group`` the n_data ranks of its model, seq and expert index. A
-    group is None where its axis has size 1 (its collectives are never
-    issued), and the data group where it is the whole group (or there is
-    no group)."""
+    """The ranks as a (data x model x seq x stage x expert) grid, data
+    outermost and expert innermost (module docstring). ``model_group``,
+    ``seq_group``, ``stage_group`` and ``expert_group`` hold the ranks
+    that differ from this one along that axis alone, ``inner_group`` the
+    n_inner ranks of its data index (the one inner axis's group when only
+    one has size > 1), and ``data_group`` the n_data ranks of its model,
+    seq, stage and expert index. A group is None where its axis has size
+    1 (its collectives are never issued), and the data group where it is
+    the whole group (or there is no group)."""
     n_data: int
     n_seq: int
     data_index: int
@@ -292,19 +297,26 @@ class RankGrid:
     n_model: int = 1
     model_index: int = 0
     model_group: object = None
+    n_stage: int = 1
+    stage_index: int = 0
+    stage_group: object = None
 
     @property
     def n_inner(self) -> int:
-        return self.n_model * self.n_seq * self.n_expert
+        return self.n_model * self.n_seq * self.n_stage * self.n_expert
 
 
-_GRIDS: dict = {}   # by (n_seq, n_expert, n_model, world), until the
-                    # group ends
+_GRIDS: dict = {}   # by (n_seq, n_expert, n_model, n_stage, world), until
+                    # the group ends
 _grid: Optional[RankGrid] = None
 
 
 def _split_error(world: int, n_seq: int, n_expert: int,
-                 n_model: int) -> str:
+                 n_model: int, n_stage: int) -> str:
+    if n_stage > 1:
+        return (f"{world} ranks do not split into inner groups of "
+                f"{n_model} model x {n_seq} seq x {n_stage} stage x "
+                f"{n_expert} expert ranks")
     if n_model > 1:
         return (f"{world} ranks do not split into inner groups of "
                 f"{n_model} model x {n_seq} seq x {n_expert} expert ranks")
@@ -314,71 +326,74 @@ def _split_error(world: int, n_seq: int, n_expert: int,
     return f"{world} ranks do not split into seq groups of {n_seq}"
 
 
-def make_grid(n_seq: int = 1, n_expert: int = 1,
-              n_model: int = 1) -> RankGrid:
-    """The rank grid of ``n_model`` model by ``n_seq`` seq by
-    ``n_expert`` expert ranks per data index, made the current one (what
-    ``axis_size`` and the models' ``tp_axis``/``seq_axis``/``ep_axis``
-    read). Making a grid is collective the first time for each shape in
-    a group: every rank must call it, in the same order. Raises
-    ValueError unless the world divides by n_model * n_seq * n_expert."""
+def make_grid(n_seq: int = 1, n_expert: int = 1, n_model: int = 1,
+              n_stage: int = 1) -> RankGrid:
+    """The rank grid of ``n_model`` model by ``n_seq`` seq by ``n_stage``
+    stage by ``n_expert`` expert ranks per data index, made the current
+    one (what ``axis_size`` and the models' ``tp_axis``/``seq_axis``/
+    ``ep_axis`` and pipelined paths read). Making a grid is collective
+    the first time for each shape in a group: every rank must call it,
+    in the same order. Raises ValueError unless the world divides by
+    n_model * n_seq * n_stage * n_expert."""
     global _grid
-    n_seq, n_expert, n_model = int(n_seq), int(n_expert), int(n_model)
-    inner = n_model * n_seq * n_expert
+    sizes = dict(zip(GRID_AXES[1:], (int(n_model), int(n_seq),
+                                     int(n_stage), int(n_expert))))
+    inner = math.prod(sizes.values())
     world, r = world_size(), rank()
-    if min(n_seq, n_expert, n_model) < 1 or world % inner:
-        raise ValueError(_split_error(world, n_seq, n_expert, n_model))
-    key = (n_seq, n_expert, n_model, world)
+    if min(sizes.values()) < 1 or world % inner:
+        raise ValueError(_split_error(world, sizes[SEQ_AXIS],
+                                      sizes[EXPERT_AXIS], sizes[MODEL_AXIS],
+                                      sizes[STAGE_AXIS]))
+    key = (sizes[SEQ_AXIS], sizes[EXPERT_AXIS], sizes[MODEL_AXIS],
+           sizes[STAGE_AXIS], world)
     if key not in _GRIDS:
-        n_data = world // inner
-        d, m = r // inner, (r // (n_seq * n_expert)) % n_model
-        s, e = (r // n_expert) % n_seq, r % n_expert
+        sizes = {"data": world // inner, **sizes}
+        # this rank's index on every axis: mixed-radix digits of r
+        index, rest = {}, r
+        for axis in reversed(GRID_AXES):
+            index[axis], rest = rest % sizes[axis], rest // sizes[axis]
+
+        def rank_of(idx: dict) -> int:
+            out = 0
+            for axis in GRID_AXES:
+                out = out * sizes[axis] + idx[axis]
+            return out
+
+        def made(axes):
+            """The group of the ranks that differ from this one along
+            ``axes`` alone. Every rank creates every such group, in one
+            order (the other axes' indices in grid order), and keeps its
+            own."""
+            others = [a for a in GRID_AXES if a not in axes]
+            mine = None
+            for fixed in itertools.product(
+                    *(range(sizes[a]) for a in others)):
+                group = dist.new_group([
+                    rank_of({**dict(zip(others, fixed)),
+                             **dict(zip(axes, free))})
+                    for free in itertools.product(
+                        *(range(sizes[a]) for a in axes))])
+                if all(index[a] == f for a, f in zip(others, fixed)):
+                    mine = group
+            return mine
+
         groups = {}
         if inner > 1:
-            def made(members, mine):
-                # every rank creates every group, in one order, and
-                # keeps its own: members are (data, model, seq, expert)
-                return [dist.new_group([
-                    dd * inner + mm * n_seq * n_expert + ss * n_expert + ee
-                    for dd, mm, ss, ee in ms]) for ms in members][mine]
-            # the seq, data and expert groups first, as a grid without a
-            # model axis makes them
-            if n_seq > 1:
-                groups["seq"] = made(
-                    [[(dd, mm, ss, ee) for ss in range(n_seq)]
-                     for dd in range(n_data) for mm in range(n_model)
-                     for ee in range(n_expert)],
-                    (d * n_model + m) * n_expert + e)
-            groups["data"] = made(
-                [[(dd, mm, ss, ee) for dd in range(n_data)]
-                 for mm in range(n_model) for ss in range(n_seq)
-                 for ee in range(n_expert)],
-                (m * n_seq + s) * n_expert + e)
-            if n_expert > 1:
-                groups["expert"] = made(
-                    [[(dd, mm, ss, ee) for ee in range(n_expert)]
-                     for dd in range(n_data) for mm in range(n_model)
-                     for ss in range(n_seq)],
-                    (d * n_model + m) * n_seq + s)
-            if n_model > 1:
-                groups["model"] = made(
-                    [[(dd, mm, ss, ee) for mm in range(n_model)]
-                     for dd in range(n_data) for ss in range(n_seq)
-                     for ee in range(n_expert)],
-                    (d * n_seq + s) * n_expert + e)
-            split = [a for a, n in (("seq", n_seq), ("expert", n_expert),
-                                    ("model", n_model)) if n > 1]
-            if len(split) > 1:
-                groups["inner"] = made(
-                    [[(dd, mm, ss, ee) for mm in range(n_model)
-                      for ss in range(n_seq) for ee in range(n_expert)]
-                     for dd in range(n_data)], d)
-            else:
-                groups["inner"] = groups[split[0]]
+            # the stage group after the others, so that a grid without a
+            # stage axis makes its groups in the order it always has
+            for axis in (SEQ_AXIS, "data", EXPERT_AXIS, MODEL_AXIS,
+                         STAGE_AXIS):
+                if axis == "data" or sizes[axis] > 1:
+                    groups[axis] = made((axis,))
+            split = [a for a in GRID_AXES[1:] if sizes[a] > 1]
+            groups["inner"] = made(tuple(GRID_AXES[1:])) \
+                if len(split) > 1 else groups[split[0]]
         _GRIDS[key] = RankGrid(
-            n_data, n_seq, d, s, groups.get("data"), groups.get("seq"),
-            n_expert, e, groups.get("expert"), groups.get("inner"),
-            n_model, m, groups.get("model"))
+            sizes["data"], sizes[SEQ_AXIS], index["data"], index[SEQ_AXIS],
+            groups.get("data"), groups.get(SEQ_AXIS), sizes[EXPERT_AXIS],
+            index[EXPERT_AXIS], groups.get(EXPERT_AXIS), groups.get("inner"),
+            sizes[MODEL_AXIS], index[MODEL_AXIS], groups.get(MODEL_AXIS),
+            sizes[STAGE_AXIS], index[STAGE_AXIS], groups.get(STAGE_AXIS))
     _grid = _GRIDS[key]
     return _grid
 
@@ -411,10 +426,13 @@ def _axis(name: str) -> tuple:
         return g.n_model, g.model_index, g.model_group
     if name == SEQ_AXIS:
         return g.n_seq, g.seq_index, g.seq_group
+    if name == STAGE_AXIS:
+        return g.n_stage, g.stage_index, g.stage_group
     if name == EXPERT_AXIS:
         return g.n_expert, g.expert_index, g.expert_group
     raise ValueError(f"unknown grid axis {name!r}; the models' axes are "
-                     f"{MODEL_AXIS!r}, {SEQ_AXIS!r} and {EXPERT_AXIS!r}")
+                     f"{MODEL_AXIS!r}, {SEQ_AXIS!r}, {STAGE_AXIS!r} and "
+                     f"{EXPERT_AXIS!r}")
 
 
 def axis_size(name: str) -> int:

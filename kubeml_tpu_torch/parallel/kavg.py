@@ -58,16 +58,19 @@ the finite guard, the contribution sums and the merge like any leaf
 The optimizer steps the parameters only.
 
 Inner axes (the reference's model axis, ``n_model`` > 1; its seq round,
-``n_seq`` > 1 with ``batch_seq_dims``; its expert axis, ``n_expert`` >
-1): the ranks form the rank grid (``distributed.make_grid``: data
-outermost, then model and seq, expert innermost). The lanes are laid out
-over the data group, whose ranks merge; the n_model x n_seq x n_expert
-ranks of one data index (its inner group) run the same workers: a model
-rank on the same tokens as its model group, running its share of every
-block's heads and FFN columns (``parallel/manual.py``'s Megatron
-layers), a seq rank on its own [T / n_seq] slice of every seq-carrying
-key (``seq_batch_dims``: {key: per-example dim}), through the models'
-ring or Ulysses attention, an expert rank on the same tokens as its
+``n_seq`` > 1 with ``batch_seq_dims``; its stage axis, ``n_stage`` > 1;
+its expert axis, ``n_expert`` > 1): the ranks form the rank grid
+(``distributed.make_grid``: data outermost, then model, seq and stage,
+expert innermost). The lanes are laid out over the data group, whose
+ranks merge; the n_model x n_seq x n_stage x n_expert ranks of one data
+index (its inner group) run the same workers: a model rank on the same
+tokens as its model group, running its share of every block's heads and
+FFN columns (``parallel/manual.py``'s Megatron layers), a seq rank on its
+own [T / n_seq] slice of every seq-carrying key (``seq_batch_dims``:
+{key: per-example dim}), through the models' ring or Ulysses attention,
+a stage rank on the same batch as its stage group, running its stage of
+the model's pipelined trunk (``parallel/pp.py``; the model's
+``enable_pipeline_parallel``), an expert rank on the same tokens as its
 expert group, running its share of the experts
 (``parallel/manual.ep_partial_ffn``). The reference gets these axes'
 gradient sums from ``check_vma``; here the model's per-example loss is
@@ -84,7 +87,8 @@ gathered rows run over the data group. The merge takes the reference's
 ring for a lossy wire (``use_ring``, ``parallel/merge.py``) where the
 reference's does (its ``_wire_ring``): an inner axis whose round is not
 fully manual, i.e. neither a seq round nor ``manual_inner`` (the job
-sets it for the manual tensor-parallel route).
+sets it for the manual tensor-parallel route and for a pipelined
+job).
 
 Index-fed rounds (``train_round(s)_indexed``) take the samples from a
 device-resident dataset cache (``data/device_cache.py``): the dispatch
@@ -248,13 +252,14 @@ class KAvgEngine:
     ``manual_inner``).
     collect_stats adds the per-worker health stats and the loss spread to
     ``RoundStats``; they are extra outputs and change no weight. n_seq
-    and batch_seq_dims, n_expert, n_model: the inner round (module
-    docstring); ``module`` must then be built after the model's
+    and batch_seq_dims, n_expert, n_model, n_stage: the inner round
+    (module docstring); ``module`` must then be built after the model's
     ``enable_seq_parallel`` / ``enable_expert_parallel`` /
-    ``enable_tensor_parallel``, and the world must split into inner
-    groups of n_model x n_seq x n_expert ranks. manual_inner: the round
-    is the reference's fully-manual one (its manual tensor-parallel or
-    pipeline route), whose merge takes no ring.
+    ``enable_tensor_parallel`` (its loss taken after its
+    ``enable_pipeline_parallel``), and the world must split into inner
+    groups of n_model x n_seq x n_stage x n_expert ranks. manual_inner:
+    the round is the reference's fully-manual one (its manual
+    tensor-parallel or pipeline route), whose merge takes no ring.
     """
 
     def __init__(self, module: torch.nn.Module, loss_fn: LossFn,
@@ -264,11 +269,11 @@ class KAvgEngine:
                  collect_stats: bool = False, n_seq: int = 1,
                  batch_seq_dims: Optional[Dict[str, int]] = None,
                  n_expert: int = 1, n_model: int = 1,
-                 manual_inner: bool = False):
+                 manual_inner: bool = False, n_stage: int = 1):
         if int(n_lanes) < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
         self.grid = dist_lib.make_grid(int(n_seq), int(n_expert),
-                                       int(n_model))
+                                       int(n_model), int(n_stage))
         # this rank's lanes over the data group (every lane without one)
         self.layout = dist_lib.lane_layout(int(n_lanes), self.grid.n_data,
                                            self.grid.data_index)

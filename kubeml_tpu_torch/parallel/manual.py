@@ -29,7 +29,16 @@ process:
                              experts, combines only their slots, and the
                              sum over the expert axis (``distributed.
                              psum``, whose backward is the same sum)
-                             assembles the output.
+                             assembles the output;
+  ep_alltoall_ffn(...)       the token-sharded GShard FFN: each rank
+                             routes its own 1/n of the tokens over every
+                             expert (per-shard capacity) and two
+                             all-to-alls over the expert group move the
+                             slot payloads to their experts' ranks and
+                             back (``all_to_all``, differentiable: the
+                             transpose of an all-to-all is the same
+                             all-to-all); ``all_gather`` then hands every
+                             rank the whole token set again.
 
 Rounding, as the reference's layers round: a column layer computes as
 the dense ``_dense`` does (the product rounded to the compute dtype, then
@@ -49,11 +58,11 @@ of the loss); the engine's sum over the inner group assembles the whole
 gradient (``parallel/kavg.py``): every sum's backward is a sum, so no
 other collective is needed, not even for the column layers' inputs.
 
-The reference's token-sharded ``ep_alltoall_ffn``, which serves the
-pipelined and forward paths only (its training round refuses
-``ep_impl="alltoall"``), comes with ROADMAP A.12's pipeline half. The
-products here are ``F.linear``/``torch.einsum``: the reference computes
-them outside any Pallas kernel.
+``ep_alltoall_ffn`` serves the pipelined and forward paths only, as the
+reference's: its training round refuses ``ep_impl="alltoall"`` (the
+models' ``enable_expert_parallel``). The products here are
+``F.linear``/``torch.einsum``: the reference computes them outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -147,3 +156,88 @@ def ep_partial_ffn(wi: torch.Tensor, bi: torch.Tensor, wo: torch.Tensor,
     out = torch.einsum("ecf,efd->ecd", h, wo) + bo[:, None, :]
     y_part = torch.einsum("tec,ecd->td", comb, out)
     return dist_lib.psum(y_part, axis_name)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``distributed.all_to_all`` over a group, differentiable: chunk i of
+    the gradient goes back to rank i, which is the same all-to-all."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return dist_lib.all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dist_lib.all_to_all(g.contiguous(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's [T_local, ...] concatenated in rank order (the tiled
+    ``lax.all_gather``); its VJP is the reduce-scatter: this rank's rows
+    of the gradient summed over the group (every sum's VJP a sum, as
+    ``distributed.psum``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, index):
+        ctx.group, ctx.index, ctx.rows = group, index, t.shape[0]
+        return dist_lib.all_gather_cat(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = dist_lib.all_reduce(g.contiguous(), group=ctx.group)
+        return g[ctx.index * ctx.rows:(ctx.index + 1) * ctx.rows], \
+            None, None
+
+
+def all_to_all(t: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """The differentiable all-to-all of a [n, ...] tensor over the grid
+    axis ``axis_name``: chunk i goes to rank i of the axis, and chunk i
+    of the result came from it. The identity at axis size 1."""
+    if dist_lib.axis_size(axis_name) == 1:
+        return t
+    return _AllToAll.apply(t.contiguous(), dist_lib.axis_group(axis_name))
+
+
+def all_gather(t: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along dim 0 in the axis's rank
+    order, differentiable. The identity at axis size 1."""
+    if dist_lib.axis_size(axis_name) == 1:
+        return t
+    return _AllGather.apply(t.contiguous(), dist_lib.axis_group(axis_name),
+                            dist_lib.axis_index(axis_name))
+
+
+def ep_alltoall_ffn(wi: torch.Tensor, bi: torch.Tensor, wo: torch.Tensor,
+                    bo: torch.Tensor, dispatch: torch.Tensor,
+                    combine: torch.Tensor, x: torch.Tensor, axis_name: str,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The token-sharded GShard FFN over the expert axis ``axis_name``
+    (the reference's ``ep_alltoall_ffn``). x [T_local, D] is this rank's
+    token shard, routed locally over every expert (dispatch/combine
+    [T_local, E, C_local], per-shard capacity); the weights are whole and
+    this rank runs its E/n experts. Exchange 1 sends expert block j of
+    the slot payloads [E, C_local, D] to rank j and stacks what every
+    rank sent along the capacity axis, [E/n, n·C_local, D] with rank j's
+    slots at block j (the reference's tiled ``lax.all_to_all``, split
+    axis 0, concat axis 1); exchange 2 is its inverse. Returns y_local
+    [T_local, D]: the rank's own tokens, every slot back home."""
+    n = dist_lib.axis_size(axis_name)
+    wi = axis_slice(wi, axis_name, 0).to(dtype)              # [E/n, D, F]
+    bi = axis_slice(bi, axis_name, 0).to(dtype)
+    wo = axis_slice(wo, axis_name, 0).to(dtype)
+    bo = axis_slice(bo, axis_name, 0).to(dtype)
+    e, c, d = dispatch.shape[1], dispatch.shape[2], x.shape[1]
+    # this rank's slot payloads for every expert, expert-major
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(dtype),
+                             x.to(dtype))                    # [E, Cl, D]
+    got = all_to_all(expert_in.reshape(n, e // n, c, d), axis_name)
+    recv = got.transpose(0, 1).reshape(e // n, n * c, d)    # block j: rank j
+    h = F.gelu(torch.einsum("ecd,edf->ecf", recv, wi) + bi[:, None, :],
+               approximate="tanh")
+    out = torch.einsum("ecf,efd->ecd", h, wo) + bo[:, None, :]
+    # capacity block j back to rank j; the expert blocks come back
+    # rank-major, which is global expert order
+    back = all_to_all(out.reshape(e // n, n, c, d).transpose(0, 1),
+                      axis_name).reshape(e, c, d)
+    return torch.einsum("tec,ecd->td", combine.to(dtype), back)

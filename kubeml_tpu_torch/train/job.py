@@ -140,26 +140,25 @@ the round-cursor options, reassignment and quarantine events are the JAX
 package's 400s (they need kavg), as are fsdp with an explicit merge or
 without syncdp, and merge_dtype under syncdp.
 
-Tensor, sequence and expert parallelism (``n_model`` > 1 under
-``tp_impl`` gspmd or manual, alone or with a ring ``n_seq``; ``n_seq`` >
-1 with ``seq_impl`` ring or ulysses; ``n_expert`` > 1, alone or with
-``n_seq``) run over ranks laid out as the rank grid
+Tensor, sequence, pipeline and expert parallelism (``n_model`` > 1
+under ``tp_impl`` gspmd or manual, alone or with a ring ``n_seq``;
+``n_seq`` > 1 with ``seq_impl`` ring or ulysses; ``n_stage`` > 1 with
+``pp_microbatches`` M, alone or with ``n_expert``; ``n_expert`` > 1,
+alone or with ``n_seq``) run over ranks laid out as the rank grid
 (``distributed.make_grid``: data outermost, expert innermost): the job
 checks them with the JAX package's 400s in its order (``_inner_axes``,
 ``_check_seq_lengths``), the model builds tensor-, seq- and
-expert-parallel modules, the K-avg engine runs its inner round over the
-data group's lanes, and every round is host-staged (the device cache
-stays off, as in the JAX package). Without a group the world is one
-device, so an inner axis is the JAX package's 400; it never runs dense.
-The GSPMD tensor-parallel route runs the same Megatron layers as the
-manual one, with the JAX package's rule table read as a plan
+expert-parallel modules and takes its pipelined loss
+(``enable_pipeline_parallel``), the K-avg engine runs its inner round
+over the data group's lanes, and every round is host-staged (the device
+cache stays off, as in the JAX package). Without a group the world is
+one device, so an inner axis is the JAX package's 400; it never runs
+dense. The GSPMD tensor-parallel route runs the same Megatron layers as
+the manual one, with the JAX package's rule table read as a plan
 (``parallel/tp.shard_plan``: a pair that does not divide runs whole, as
 ``shard_variables`` replicates it); the parameters stay whole on every
-rank (ROADMAP C.14).
-
-Options whose module is not ported yet raise KubeMLException(400) naming
-the option and the ROADMAP item that brings it (``reject_unported``);
-none is quietly ignored.
+rank (ROADMAP C.14), under pipeline parallelism too (the reference's own
+layout there).
 """
 
 from __future__ import annotations
@@ -177,7 +176,7 @@ import torch
 
 from kubeml_tpu_torch._device import DeviceLike, resolve_device
 from kubeml_tpu_torch.api.errors import (JobPreemptedError, KubeMLException,
-                                         MergeError, NotPortedError)
+                                         MergeError)
 from kubeml_tpu_torch.api.types import (History, JobHistory, MetricUpdate,
                                         TrainTask)
 from kubeml_tpu_torch.data.device_cache import DeviceDatasetCache
@@ -188,7 +187,6 @@ from kubeml_tpu_torch.metrics.ledger import merge_cost_snapshots
 from kubeml_tpu_torch.metrics.prom import PHASE_HISTOGRAMS
 from kubeml_tpu_torch.metrics.runtime import HbmWatermark, JitCompileTracker
 from kubeml_tpu_torch.models.base import KubeDataset, KubeModel, module_state
-from kubeml_tpu_torch.models.gpt import PIPELINE_PARALLEL
 from kubeml_tpu_torch.ops import _build
 from kubeml_tpu_torch.parallel import distributed as dist_lib
 from kubeml_tpu_torch.parallel import tp as tp_lib
@@ -231,17 +229,6 @@ class JobCallbacks:
         lambda task: None
     publish_metrics: Callable[[MetricUpdate], None] = lambda m: None
     on_finish: Callable[[str, Optional[str]], None] = lambda job_id, err: None
-
-
-def reject_unported(opts) -> None:
-    """400 for every option whose module the port has not ported yet (the
-    job runs it after check_continual_options; ``kubeml train`` runs it
-    before submitting): pipeline parallelism (``n_stage``). Tensor,
-    sequence and expert parallelism (``n_model``, ``n_seq``,
-    ``n_expert``) are ported: the job checks them with the JAX package's
-    400s (``TrainJob._inner_axes``)."""
-    if int(opts.n_stage) > 1:
-        raise NotPortedError("n_stage > 1", PIPELINE_PARALLEL)
 
 
 def check_continual_options(opts) -> None:
@@ -475,7 +462,8 @@ class TrainJob:
         self.n_lanes = int(n_lanes)
         self._world = dist_lib.world_size()
         if max(int(self.req.options.n_seq), int(self.req.options.n_expert),
-               int(self.req.options.n_model)) <= 1:
+               int(self.req.options.n_model),
+               int(self.req.options.n_stage)) <= 1:
             # the lanes over the group's ranks (raises unless they
             # divide); under an inner axis over the data group's,
             # checked after the inner axes' 400s (_inner_axes)
@@ -867,7 +855,6 @@ class TrainJob:
     def _init_model(self) -> None:
         opts = self.req.options
         check_continual_options(opts)
-        reject_unported(opts)
         self._continual = bool(opts.continual)
         self._window_generations = int(opts.window_generations)
         handle = self._open_handle()
@@ -897,7 +884,7 @@ class TrainJob:
                 # the plan first, so the user's hook sees the faulted round
                 user_hook = self.round_hook
                 self.round_hook = lambda rb: user_hook(plan(rb))
-        n_model, n_seq, n_expert, manual_tp = self._inner_axes(opts)
+        n_model, n_seq, n_stage, n_expert, manual = self._inner_axes(opts)
         self._n_seq = n_seq
         merge_dtype, sync_strategy = check_merge_options(opts)
         self._init_device_cache(handle, opts)
@@ -976,7 +963,8 @@ class TrainJob:
             merge_compress=opts.merge_compress or "none",
             collect_stats=bool(opts.train_stats), n_seq=n_seq,
             batch_seq_dims=self.model.seq_batch_dims if n_seq > 1 else None,
-            n_expert=n_expert, n_model=n_model, manual_inner=manual_tp)
+            n_expert=n_expert, n_model=n_model, n_stage=n_stage,
+            manual_inner=manual)
         self._sync_engine: Optional[SyncDPEngine] = None
         self._sync_state: Optional[dict] = None
         if opts.engine == "syncdp":
@@ -989,21 +977,25 @@ class TrainJob:
 
     def _inner_axes(self, opts) -> tuple:
         """The JAX package's inner-axes checks, with its 400s in its
-        order: pipeline parallelism with tensor or sequence parallelism
-        (``reject_unported`` answers ``n_stage`` first while the pipeline
-        is not ported); an engine other than kavg; an unknown tp_impl
-        (whenever an inner axis is > 1); tensor with sequence parallelism
-        forces the manual route, and refuses Ulysses; a world that does
-        not split into inner groups (without a group the world is one
-        device); on the manual route the model's own
-        enable_tensor_parallel refusal, then heads or an FFN width that
-        do not divide (``validate_tp_geometry``); on the GSPMD route a
-        model without tp_rules; then the seq checks (the model's own
-        enable_seq_parallel refusal; no seq_batch_dims) and the expert
-        checks (the model's own enable_expert_parallel refusal; experts
-        that do not divide). Then the data group's lane layout. Returns
-        (n_model, n_seq, n_expert, manual TP); the model builds tensor-,
-        seq- and expert-parallel modules from here on."""
+        order: pipeline parallelism with tensor or sequence parallelism;
+        an engine other than kavg; an unknown tp_impl (whenever an inner
+        axis is > 1); tensor with sequence parallelism forces the manual
+        route, and refuses Ulysses; a world that does not split into
+        inner groups (without a group the world is one device); on the
+        manual route the model's own enable_tensor_parallel refusal, then
+        heads or an FFN width that do not divide
+        (``validate_tp_geometry``); on the GSPMD route a model without
+        tp_rules; then the seq checks (the model's own
+        enable_seq_parallel refusal; no seq_batch_dims), the pipeline
+        checks (a negative pp_microbatches; the model's own
+        enable_pipeline_parallel refusal; a batch size that does not
+        split into the microbatches) and the expert checks (the model's
+        own enable_expert_parallel refusal; experts that do not divide).
+        Then the data group's lane layout. Returns (n_model, n_seq,
+        n_stage, n_expert, whether the round is fully manual: the manual
+        TP route or a pipeline); the model builds tensor-, seq- and
+        expert-parallel modules and takes its pipelined loss from here
+        on."""
         n_model = max(1, int(opts.n_model))
         n_seq = max(1, int(opts.n_seq))
         n_expert = max(1, int(opts.n_expert))
@@ -1014,7 +1006,7 @@ class TrainJob:
                 "only (the pipelined trunk owns the layer split that "
                 "--tensor-parallel/--seq-parallel would reshard)", 400)
         if n_model == n_seq == n_expert == n_stage == 1:
-            return 1, 1, 1, False
+            return 1, 1, 1, 1, False
         if opts.engine != "kavg":
             raise KubeMLException(
                 "tensor/sequence/pipeline/expert parallelism "
@@ -1068,6 +1060,19 @@ class TrainJob:
                 raise KubeMLException(
                     f"function {self.req.model_type!r} enabled sequence "
                     "parallelism but declares no seq_batch_dims", 400)
+        if n_stage > 1:
+            mb = int(opts.pp_microbatches)
+            if mb < 0:
+                raise KubeMLException("pp_microbatches must be >= 0", 400)
+            try:
+                self.model.enable_pipeline_parallel(n_stage, mb)
+            except ValueError as e:
+                raise KubeMLException(str(e), 400)
+            mb = self.model._pp_microbatches
+            if self.req.batch_size % mb:
+                raise KubeMLException(
+                    f"batch size {self.req.batch_size} not divisible by "
+                    f"{mb} pipeline microbatches", 400)
         if n_expert > 1:
             try:
                 self.model.enable_expert_parallel()
@@ -1079,12 +1084,13 @@ class TrainJob:
                     f"{n_experts} experts do not divide over a "
                     f"{n_expert}-way expert axis", 400)
         dist_lib.lane_layout(self.n_lanes, world // inner, 0)
-        self._log("job %s grid: data=%d model=%d seq=%d expert=%d "
-                  "tp_impl=%s seq_impl=%s", self.task.job_id, world // inner,
-                  n_model, n_seq, n_expert,
+        self._log("job %s grid: data=%d model=%d seq=%d stage=%d expert=%d "
+                  "tp_impl=%s seq_impl=%s microbatches=%s", self.task.job_id,
+                  world // inner, n_model, n_seq, n_stage, n_expert,
                   tp_impl if n_model > 1 else "-",
-                  opts.seq_impl if n_seq > 1 else "-")
-        return n_model, n_seq, n_expert, manual_tp
+                  opts.seq_impl if n_seq > 1 else "-",
+                  self.model._pp_microbatches if n_stage > 1 else "-")
+        return n_model, n_seq, n_stage, n_expert, manual_tp or n_stage > 1
 
     def _check_seq_lengths(self, handle, sample, n_seq: int) -> None:
         """Both splits' sequence lengths divide by n_seq (the JAX

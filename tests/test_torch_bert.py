@@ -299,41 +299,52 @@ def _seq_logits(path):
 
 SEQ_PATHS = ("seq_axis", "seq_impl", "enable_seq_parallel",
              "forward_seq_parallel", "tp_axis", "enable_tensor_parallel")
-REFUSED = {   # path -> (call on (BertModule, BertTiny), ROADMAP item)
-    "seq_axis": (None, None),
-    "seq_impl": (None, None),
-    "tp_axis": (None, None),
-    "enable_seq_parallel": (None, None),
-    "forward_seq_parallel": (None, None),
-    "enable_tensor_parallel": (None, None),
-    "enable_pipeline_parallel": (
-        lambda _, model: model().enable_pipeline_parallel(2),
-        "A.12's pipeline half"),
+# every parallel path of the reference's BertTiny, each ported: path ->
+# the ROADMAP item that brought it
+REFUSED = {
+    "seq_axis": "A.6", "seq_impl": "A.6", "tp_axis": "A.12",
+    "enable_seq_parallel": "A.6", "forward_seq_parallel": "A.6",
+    "enable_tensor_parallel": "A.12", "enable_pipeline_parallel": "A.12",
 }
+
+
+def _pipelined_loss():
+    """(the dense loss, the pipelined one) of one batch in one process at
+    dropout 0, where the stage axis has size 1: the pipelined loss runs
+    its microbatches through every block in turn (sequential_apply)."""
+    from kubeml_tpu_torch.models.bert import BertModule, BertTiny
+
+    torch.manual_seed(0)
+    dense = BertModule(vocab_size=VOCAB, dropout=0.0, dtype=torch.float32,
+                       device="cpu")
+    batch = {"x": torch.from_numpy(tokens(4)),
+             "y": torch.tensor([0, 1, 1, 0])}
+    model = BertTiny(torch.float32)
+    gen, mask = torch.Generator().manual_seed(0), torch.ones(4)
+    want = model.loss(dense, batch, gen, mask)
+    model.enable_pipeline_parallel(2)
+    assert model._pp_microbatches == 4
+    return want, model.loss(dense, batch, gen, mask)
 
 
 @pytest.mark.parametrize("path", sorted(REFUSED))
 def test_parallel_paths_refuse_naming_their_item(path):
-    """The reference's pipeline-parallel path raises the port's 400
-    NotPortedError naming the ROADMAP item; its sequence- and
-    tensor-parallel paths (ported) build and run, giving the dense
-    logits where the seq and model axes have size 1
-    (tests/test_torch_seq_parallel.py and
-    tests/test_torch_tensor_parallel.py run them over ranks)."""
-    from kubeml_tpu_torch.api.errors import NotPortedError
-    from kubeml_tpu_torch.models.bert import BertModule, BertTiny
-
+    """Every parallel path of the reference's BertTiny is ported and no
+    longer refuses: the sequence- and tensor-parallel paths build and run,
+    giving the dense logits where the seq and model axes have size 1, and
+    the pipeline-parallel path's loss equals the dense loss where the
+    stage axis has size 1 (tests/test_torch_seq_parallel.py,
+    tests/test_torch_tensor_parallel.py and
+    tests/test_torch_pipeline_parallel.py run them over ranks)."""
+    assert REFUSED[path] in ("A.6", "A.12")
     if path in SEQ_PATHS:
         want, got = _seq_logits(path)
         assert got.shape == want.shape == (4, 2)
         torch.testing.assert_close(got, want.detach(), rtol=1e-6, atol=1e-6)
         return
-    call, item = REFUSED[path]
-    with pytest.raises(NotPortedError) as e:
-        call(BertModule, BertTiny)
-    assert e.value.status_code == 400
-    assert f"ROADMAP {item}" in str(e.value)
-    assert "not ported yet" in str(e.value)
+    want, got = _pipelined_loss()
+    assert got.shape == want.shape == (4,)
+    torch.testing.assert_close(got, want.detach(), rtol=1e-6, atol=1e-6)
 
 
 def test_convert_round_trip_and_leaf_order():

@@ -11,8 +11,9 @@ the JAX package's (kubeml_tpu/cli/main.py).
   validation errors; ``trace --out`` with client, scheduler, PS and job
   spans under one trace id; ``health`` and ``top --iterations 1`` on a
   running job;
-- every refused verb or flag exits non-zero and names its ROADMAP item;
-  ``serve`` without ``--device`` needs a card;
+- every flag of a landed ROADMAP item reaches the job or the runtime,
+  and a refused flag combination exits non-zero with the reference's
+  words; ``serve`` without ``--device`` needs a card;
 - the four roles as separate ``serve --role`` processes train a job;
 - a ``gpu`` twin: ``serve --role all`` on the card, driven by CLI
   processes.
@@ -396,9 +397,9 @@ TRAIN = ["train", "-f", "mlp", "-d", "blobs", "-e", "1", "--lr", "0.1"]
 # names no ROADMAP entry is the JAX package's own refusal of a flag
 # combination
 SERVED = "serve"
-# --seq-parallel and --expert-parallel (ROADMAP A.6, landed) and
-# --tensor-parallel (A.12's tensor half, landed) reach the job, which
-# answers the reference's 400 in one process without a group
+# --seq-parallel and --expert-parallel (ROADMAP A.6, landed),
+# --tensor-parallel and --pipeline-parallel (A.12, landed) reach the job,
+# which answers the reference's 400 in one process without a group
 SEQ_400 = ("1 devices not divisible by the requested model x seq x stage "
            "x expert factor 2")
 REFUSED = [
@@ -407,7 +408,7 @@ REFUSED = [
     (TRAIN + ["--tensor-parallel", "2"], SEQ_400),
     (TRAIN + ["--seq-parallel", "2"], SEQ_400),
     (TRAIN + ["--expert-parallel", "2"], SEQ_400),
-    (TRAIN + ["--pipeline-parallel", "2"], "ROADMAP A.12"),
+    (TRAIN + ["--pipeline-parallel", "2"], SEQ_400),
     (TRAIN + ["--continual"], None),
     (TRAIN + ["--quarantine-after", "2"], None),
     (TRAIN + ["--checkpoint-every-rounds", "3"], None),
@@ -533,8 +534,6 @@ def test_refused_verbs_and_flags_name_their_item(stack, capsys, monkeypatch,
     assert ei.value.code not in (0, None)
     err = capsys.readouterr().err
     assert err.startswith("error: ") and item in err, err
-    if item.startswith("ROADMAP"):
-        assert "not ported yet to kubeml_tpu_torch" in err
     assert dep.ps.jobs == {}  # nothing was submitted
 
 

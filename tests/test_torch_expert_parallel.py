@@ -848,8 +848,10 @@ def test_grid_layout_and_groups_in_one_process():
     assert (grid.n_data, grid.n_seq, grid.n_expert, grid.n_inner) == (
         1, 1, 1, 1)
     assert (dl.axis_size("seq"), dl.axis_size("expert")) == (1, 1)
-    with pytest.raises(ValueError, match="'model', 'seq' and 'expert'"):
-        dl.axis_size("stage")
+    assert (dl.axis_size("stage"), dl.axis_index("stage")) == (1, 0)
+    with pytest.raises(ValueError,
+                       match="'model', 'seq', 'stage' and 'expert'"):
+        dl.axis_size("pipe")
     with pytest.raises(ValueError, match="inner groups of 2 seq x 2"):
         dl.make_grid(2, 2)
 

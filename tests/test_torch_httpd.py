@@ -185,20 +185,29 @@ def test_error_types_match(name):
         assert (a.status_code, a.to_json()) == (b.status_code, b.to_json())
 
 
-def test_not_ported_wording_is_the_jobs():
-    """Every refusal reads as the job's refusal of an unported option."""
+def test_not_ported_wording_is_the_jobs(monkeypatch):
+    """Every refusal reads as the job's refusal of an unported option: the
+    one left, the implicit SyncDP path over several ranks for a model
+    whose layers couple the batch's rows (ROADMAP A.21), is a 400 naming
+    its item; a route's refusal is a 501."""
     from kubeml_tpu_torch.api.errors import NotPortedError
-    from kubeml_tpu_torch.api.types import TrainOptions
-    from kubeml_tpu_torch.train.job import (PIPELINE_PARALLEL,
-                                            reject_unported)
+    from kubeml_tpu_torch.models import get_model
+    from kubeml_tpu_torch.parallel import distributed
+    from kubeml_tpu_torch.parallel.syncdp import SyncDPEngine
 
+    model = get_model("resnet18")()
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
     with pytest.raises(NotPortedError) as ei:
-        reject_unported(TrainOptions(n_stage=2))
+        SyncDPEngine(model.build(device="meta"), model.loss,
+                     model.configure_optimizers, n_lanes=2)
     assert ei.value.status_code == 400
-    assert ei.value.message == NotPortedError("n_stage > 1",
-                                              PIPELINE_PARALLEL).message
-    assert "ROADMAP A.12's pipeline half" in ei.value.message
-    assert "A.6" not in ei.value.message
+    assert ei.value.message.startswith(
+        "the implicit SyncDP path over several ranks for a model whose "
+        "layers couple the batch's rows")
+    assert ei.value.message.endswith(
+        "is not ported yet to kubeml_tpu_torch (comes with global-batch "
+        "statistics across ranks, ROADMAP A.21)")
+    assert "A.12" not in ei.value.message
     assert NotPortedError("GET /x", "y", 501).status_code == 501
 
 

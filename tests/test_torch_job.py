@@ -382,9 +382,9 @@ def test_unported_options_are_rejected_with_400(blobs, option):
     elif option == "reassign_on_quarantine":
         assert "requires the kavg engine with quarantine_after > 0" \
             in e.value.message
-    elif option in ("n_model", "n_seq", "n_expert"):
-        # tensor, sequence and expert parallelism are ported: one process
-        # without a group is one device, the reference's 400
+    elif option in ("n_model", "n_seq", "n_stage", "n_expert"):
+        # tensor, sequence, pipeline and expert parallelism are ported:
+        # one process without a group is one device, the reference's 400
         assert e.value.message == (
             "1 devices not divisible by the requested model x seq x stage "
             "x expert factor 2")

@@ -754,23 +754,32 @@ def test_serving_refuses_moe_with_the_references_messages():
 
 
 def test_parallel_paths_refuse_naming_their_item():
-    """ep_mesh (a JAX Mesh: ROADMAP C.13) and the pipeline (A.12) are
-    refused; sequence and expert parallelism build their modules, with
-    the reference's refusals (no experts, ep_impl) in its words; the
-    one-process forward_seq_parallel is the dense forward; tensor
-    parallelism raises the reference's ValueError."""
+    """ep_mesh (a JAX Mesh: ROADMAP C.13) is refused; the pipeline (A.12,
+    landed) sets its microbatches and refuses a seq axis with the
+    reference's words; sequence and expert parallelism build their
+    modules, with the reference's refusals (no experts, ep_impl) in its
+    words; the one-process forward_seq_parallel and forward_pipelined
+    are the dense forward; tensor parallelism raises the reference's
+    ValueError."""
     from kubeml_tpu.models import get_builtin
     from kubeml_tpu.models.gpt import GPTMoEMini as JaxMoE
-    from kubeml_tpu_torch.api.errors import NotPortedError
     from kubeml_tpu_torch.models.gpt import GPTMini, GPTMoEMini
 
     with pytest.raises(ValueError, match="ROADMAP C.13") as e:
         GPTMoEMini(ep_mesh=object())
     assert "--expert-parallel" in str(e.value)
     model = GPTMoEMini()
-    with pytest.raises(NotPortedError, match="ROADMAP A.12"):
-        model.enable_pipeline_parallel(2)
+    model.enable_pipeline_parallel(2)
+    assert model._pp_microbatches == 4
     model.enable_seq_parallel()
+    ref = JaxMoE()
+    ref.enable_seq_parallel("ring")
+    pair = []
+    for m in (model, ref):
+        with pytest.raises(ValueError) as e:
+            m.enable_pipeline_parallel(2)
+        pair.append(str(e.value))
+    assert pair[0] == pair[1] and "composes with expert" in pair[0]
     model.enable_expert_parallel()
     module = model.build(device="meta")
     assert (module.seq_axis, module.ep_axis, module.n_experts) == (
@@ -797,6 +806,12 @@ def test_parallel_paths_refuse_naming_their_item():
     torch.testing.assert_close(
         tiny.forward_seq_parallel(dense, x),
         dense.logits(torch.from_numpy(x)).detach(), rtol=0, atol=0)
+    full = np.maximum(x, 1)      # the pipelined forward takes no pads
+    logits, aux = tiny.forward_pipelined(dense, full, microbatches=2)
+    torch.testing.assert_close(
+        logits, dense.logits(torch.from_numpy(full)).detach(), rtol=1e-6,
+        atol=1e-6)
+    assert float(aux) > 0.0
     with pytest.raises(ValueError) as want:
         JaxMoE().enable_tensor_parallel()
     with pytest.raises(ValueError) as got:

@@ -289,10 +289,10 @@ def test_port_imports_no_jax():
     # and the text classifiers, vgg11 and the MoE routing
     assert {"bert.py", "lstm.py", "vgg.py"} <= {
         p.name for p in files if p.parent.name == "models"}
-    # and the process-group runtime, its ring, sequence parallelism and
-    # the tensor-parallel rule table and layers
+    # and the process-group runtime, its ring, sequence parallelism, the
+    # tensor-parallel rule table and layers, and the pipeline
     assert {"ep.py", "distributed.py", "collectives.py", "ring_attention.py",
-            "ulysses.py", "tp.py", "manual.py"} <= {
+            "ulysses.py", "tp.py", "manual.py", "pp.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -1172,9 +1172,9 @@ def test_paged_builders_refuse_a_tp_module(builder):
 # the job's 400s, in the reference's order (kubeml_tpu/train/job.py)
 REFUSALS = {
     "pipeline-first": (dict(n_model=2, n_stage=2), 4, "gpt",
-                       "n_stage > 1 is not ported yet to kubeml_tpu_torch "
-                       "(comes with pipeline parallelism over NCCL ranks, "
-                       "ROADMAP A.12's pipeline half)"),
+                       "--pipeline-parallel composes with --expert-parallel "
+                       "only (the pipelined trunk owns the layer split that "
+                       "--tensor-parallel/--seq-parallel would reshard)"),
     "syncdp": (dict(engine="syncdp", n_model=2), 2, "gpt",
                "tensor/sequence/pipeline/expert parallelism requires the "
                "kavg engine"),
@@ -1220,8 +1220,8 @@ def test_tp_job_refusals_in_reference_order(tmp_path, monkeypatch, case):
     """Each misconfiguration fails the job with the reference's 400 and
     wording, before any data is trained; the world is one device
     without a group, and a stated size where a case needs the later
-    checks. Pipeline parallelism is refused first by reject_unported
-    (not ported) and, past it, by the reference's own pipeline 400."""
+    checks. Pipeline parallelism with tensor (or sequence) parallelism is
+    the reference's first 400."""
     from kubeml_tpu_torch.api.errors import KubeMLException
     from kubeml_tpu_torch.api.types import TrainOptions
     from kubeml_tpu_torch.models import get_model
@@ -1246,11 +1246,8 @@ def test_tp_job_refusals_in_reference_order(tmp_path, monkeypatch, case):
     assert e.value.message == message
     if case == "pipeline-first":
         with pytest.raises(KubeMLException) as e:
-            job._inner_axes(TrainOptions(n_model=2, n_stage=2))
-        assert e.value.message == (
-            "--pipeline-parallel composes with --expert-parallel only (the "
-            "pipelined trunk owns the layer split that "
-            "--tensor-parallel/--seq-parallel would reshard)")
+            job._inner_axes(TrainOptions(n_seq=2, n_stage=2))
+        assert e.value.message == message
 
 
 @pytest.fixture
